@@ -22,3 +22,8 @@ jax.config.update("jax_compilation_cache_dir", "/tmp/hsolve_test_jit_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (torch.cuda); skipped without one")
