@@ -228,7 +228,6 @@ def main_path(problems: Problems, n: int, dev) -> dict:
 
     import hsolve_torch as ht
     from hsolve_torch.factor import solve_with_data
-    from hsolve_torch.ops.sparse import dia_residual
 
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(swlevel=0)
@@ -252,7 +251,7 @@ def main_path(problems: Problems, n: int, dev) -> dict:
     def solve():
         out["x"], out["info"] = ht.gmres_compiled(
             mv, solve_with_data, bt, reltol=RELRES, restart=30, maxiter=60,
-            mv_data=op, M_data=F.solve_data, residual=dia_residual)
+            mv_data=op, M_data=F.solve_data)
 
     solve()                                                    # cold
     torch.cuda.synchronize()

@@ -118,8 +118,6 @@ class Factorization:
         factornode.jl:62-74); ``b`` is [N] or [N, k]."""
         return solve_with_data(self.solve_data, self._on_device(b))
 
-    ldiv = solve
-
     @property
     def solve_data(self):
         """Everything ``solve`` needs, for :func:`solve_with_data` (the

@@ -21,6 +21,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from hsolve_torch.ops.sparse import DiaMatrix, dia_residual
+
 
 def _givens(a, b):
     """Complex-safe Givens pair (cs, sn) zeroing b: apply as
@@ -135,8 +137,7 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
 def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
                    reltol: float = 1e-9, restart: int = 30,
                    maxiter: Optional[int] = None, M_data=None, mv_data=None,
-                   m_eps: float = 0.0, fetch_info: bool = True,
-                   residual: Optional[Callable] = None):
+                   m_eps: float = 0.0):
     """Restarted GMRES with CGS2 Arnoldi and true-residual restarts; the
     semantics and iteration count of the JAX package's ``gmres_compiled`` at
     ``inner_dtype=None``.  Returns ``(x, info)`` with ``info['iters']``,
@@ -144,13 +145,12 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     ``info['converged']``.
 
     ``matvec``/``M`` take ``(data, v)`` when ``mv_data``/``M_data`` is given,
-    else ``v``.  ``residual``, when given, computes ``b - A x`` in one call with
-    the same data convention (``residual(mv_data, x, b)``, e.g.
-    :func:`~hsolve_torch.ops.sparse.dia_residual`); the default is
-    ``b - matvec(x)``.  ``m_eps`` floors a cycle's Givens estimate relative to
-    its starting residual, so a cycle restarts once the estimate falls below
-    what the basis can deliver.  With ``fetch_info=False`` the diagnostics are
-    returned raw under ``info['_device']`` (see :func:`fetch_gmres_info`)."""
+    else ``v``.  When ``mv_data`` is a :class:`~hsolve_torch.ops.sparse.DiaMatrix`
+    the restarts' true residual ``b - A x`` is one fused pass of kernel D
+    (:func:`~hsolve_torch.ops.sparse.dia_residual`), else ``b - matvec(x)``.
+    ``m_eps`` floors a cycle's Givens estimate relative to its starting
+    residual, so a cycle restarts once the estimate falls below what the basis
+    can deliver."""
     if maxiter is None:
         maxiter = restart
     mv = (lambda v: matvec(mv_data, v)) if mv_data is not None else matvec
@@ -160,12 +160,10 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
         prec = lambda v: M(M_data, v)
     else:
         prec = M
-    if residual is None:
-        resid = lambda x: b - mv(x)
-    elif mv_data is not None:
-        resid = lambda x: residual(mv_data, x, b)
+    if isinstance(mv_data, DiaMatrix):
+        resid = lambda x: dia_residual(mv_data, x, b)
     else:
-        resid = lambda x: residual(x, b)
+        resid = lambda x: b - mv(x)
 
     n = b.shape[0]
     m = restart
@@ -236,17 +234,5 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
         hist[it] = beta
         done = beta <= tol or it >= maxiter or j == 0
         cyc += 1
-    raw = (it, hist, beta, bnorm)
-    if not fetch_info:
-        return x, {"_device": raw, "reltol": reltol}
-    return x, fetch_gmres_info({"_device": raw, "reltol": reltol})
-
-
-def fetch_gmres_info(info: dict) -> dict:
-    """Resolve a ``fetch_info=False`` result of :func:`gmres_compiled` into the
-    standard info dict."""
-    if "_device" not in info:
-        return info
-    iters, hist, res, bnorm = info["_device"]
-    return {"resnorm": np.asarray(hist)[: iters + 1], "iters": int(iters),
-            "converged": bool(res <= max(info["reltol"] * float(bnorm), 0.0))}
+    return x, {"resnorm": hist[: it + 1], "iters": it,
+               "converged": bool(beta <= tol)}

@@ -9,8 +9,6 @@ problem family natively:
   triangulation of the unit square with mesh size h = 1/n, homogeneous Dirichlet BC
   (interior DOFs only).  ``helmholtz2d`` assembles ``K - k^2 M`` (real, indefinite) or
   the complex impedance variant ``K - k^2 M - i*k*damping*M``.
-- :func:`poisson3d` / :func:`helmholtz3d`: 7-point finite differences on the unit cube
-  (used for the multi-host scaling configs in BASELINE.json).
 
 All return scipy CSR matrices with a row-major grid numbering of interior points, which
 is what :func:`hsolve_torch.models.dissect.nested_dissection` expects.
@@ -104,42 +102,3 @@ def helmholtz2d(n: int, k: float = 40.0, damping: float = 0.0):
     b = np.asarray(M.sum(axis=1)).ravel().astype(A.dtype)
     m = n - 1
     return A.tocsr(), b, (m, m)
-
-
-def _fd_nd(shape, stencil_val, center_val):
-    """Assemble an n-D finite-difference operator with the given off-diagonal value per
-    axis neighbor and center value, Dirichlet BC."""
-    N = int(np.prod(shape))
-    ids = np.arange(N).reshape(shape)
-    rows, cols, vals = [ids.ravel()], [ids.ravel()], [np.full(N, center_val)]
-    for ax in range(len(shape)):
-        sl_lo = [slice(None)] * len(shape)
-        sl_hi = [slice(None)] * len(shape)
-        sl_lo[ax] = slice(0, -1)
-        sl_hi[ax] = slice(1, None)
-        a = ids[tuple(sl_lo)].ravel()
-        b = ids[tuple(sl_hi)].ravel()
-        rows += [a, b]
-        cols += [b, a]
-        vals += [np.full(len(a), stencil_val)] * 2
-    A = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-                      shape=(N, N))
-    return A
-
-
-def poisson3d(n: int):
-    """7-point FD Poisson on the unit cube, h = 1/n; returns (A, b, grid_shape)."""
-    m = n - 1
-    h2 = (1.0 / n) ** 2
-    A = _fd_nd((m, m, m), -1.0 / h2, 6.0 / h2)
-    b = np.ones(m ** 3)
-    return A, b, (m, m, m)
-
-
-def helmholtz3d(n: int, k: float = 20.0):
-    """7-point FD Helmholtz (-lap - k^2) on the unit cube; returns (A, b, grid_shape)."""
-    m = n - 1
-    h2 = (1.0 / n) ** 2
-    A = _fd_nd((m, m, m), -1.0 / h2, 6.0 / h2 - k * k)
-    b = np.ones(m ** 3)
-    return A, b, (m, m, m)

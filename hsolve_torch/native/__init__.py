@@ -124,22 +124,11 @@ def _load():
         fn.argtypes = [i64p, i64p, f64p, i64p, i64p, i64p, i64p, i64p, i64p,
                        i64p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p,
                        ctypes.c_int64, ctypes.c_int64, i64p, f64o]
-    for nm in ("plan_batch_f64", "plan_batch_c128"):
-        fn = getattr(lib, nm)
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [i64p] * 15 + [ctypes.c_int64] * 5 + [i64p] * 9
     for nm in ("plan_batches_all_f64", "plan_batches_all_c128"):
         fn = getattr(lib, nm)
         fn.restype = None
         fn.argtypes = ([i64p] * 5 + [ctypes.c_int64] + [i64p] * 11 +
                        [ctypes.c_int64] + [i64p] * 8)
-    lib.strip_nrows.restype = ctypes.c_int64
-    lib.strip_nrows.argtypes = [i64p] + [ctypes.c_int64] * 3
-    lib.strip_fill.restype = None
-    lib.strip_fill.argtypes = [i64p] + [ctypes.c_int64] * 5 + [i64p, i64p]
-    lib.fill_structured_maps.restype = None
-    lib.fill_structured_maps.argtypes = ([i64p] * 10 + [ctypes.c_int64] * 8
-                                         + [i64p] * 3)
     _lib = lib
     return _lib
 
@@ -399,7 +388,7 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
                            seg_ptr: np.ndarray, seg_off: np.ndarray,
                            seg_len: np.ndarray, seg_tag: np.ndarray,
                            seg_fo: np.ndarray, node_base: np.ndarray,
-                           m_pad: int, ni: np.ndarray, B: int, ni_pad: int,
+                           m_pad: int, ni: np.ndarray, ni_pad: int,
                            bound: "int | None" = None):
     """Fused front COO gather + identity-padding fill, positions written int32
     (requires B * m_pad^2 < 2^31; the planner falls back to
@@ -409,14 +398,14 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
     over these multi-100k-entry buffers."""
     g = gather
     dt = np.complex128 if g.iscomplex else np.float64
-    B0 = len(node_base)
+    B = len(node_base)
     args = [np.ascontiguousarray(a, dtype=np.int64)
             for a in (pool, seg_ptr, seg_off, seg_len, seg_tag, seg_fo,
                       node_base, ni)]
     if bound is None:
         counts = g.indptr[1:] - g.indptr[:-1]
         bound = int(np.sum(counts[args[0]])) if len(args[0]) else 0
-    cap = bound + int(np.sum(ni_pad - args[7][:B0])) + (B - B0) * ni_pad
+    cap = bound + int(np.sum(ni_pad - args[7]))
     ws = getattr(g, "_fi_ws", None)
     if ws is None or len(ws[0]) < cap or ws[1].dtype != dt:
         cap_n = max(int(cap * 1.25), 1)
@@ -427,61 +416,17 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
         g._coltag = np.zeros(g.ncols, dtype=np.int64)
     fn = _lib.csr_gather_front_ident_c128 if g.iscomplex else \
         _lib.csr_gather_front_ident_f64
-    n = fn(*g.csr_ptrs, *(_pt(a) for a in args[:7]), B0, m_pad, g.colmap_ptr,
+    # gather.cpp's (B0, B) pair allows dummy fronts past B0; the port has none
+    n = fn(*g.csr_ptrs, *(_pt(a) for a in args[:7]), B, m_pad, g.colmap_ptr,
            _pt(g._coltag), _pt(args[7]), B, ni_pad, _pt(pos), _pt(val))
     return pos[:n].copy(), val[:n].copy()
 
 
-def plan_batch_native(gather: "CsrGather", pool: np.ndarray, o_int, o_bnd,
-                      ni, nb, branch, locpool, lo, lsum, B0: int, B: int,
-                      ni_pad: int, nb_pad: int, N: int, bound: int):
-    """Consolidated regular-batch planning (gather.cpp plan_batch): one native
-    call emits the front COO (int32 positions, identity padding included) AND
-    fills rows [0, B0) of every int32 device map.  Returns
-    (pos, vals, int_ids, bnd_ids, sperm, map_l, map_r); the sharding-padding
-    dummy rows [B0, B) of the maps are left for the (rare) caller to prefill.
-    ``branch``: (ni1, ni2, nb1, nb2) or None for leaf batches."""
-    g = gather
-    dt = np.complex128 if g.iscomplex else np.float64
-    m_pad = ni_pad + nb_pad
-    a = [np.ascontiguousarray(x, dtype=np.int64)
-         for x in (pool, o_int, o_bnd, ni, nb, lo, lsum)]
-    locpool = np.ascontiguousarray(locpool, dtype=np.int64)
-    cap = bound + int(np.sum(ni_pad - a[3][:B0])) + (B - B0) * ni_pad
-    ws = getattr(g, "_fi_ws", None)
-    if ws is None or len(ws[0]) < cap or ws[1].dtype != dt:
-        cap_n = max(int(cap * 1.25), 1)
-        ws = (np.empty(cap_n, dtype=np.int32), np.empty(cap_n, dtype=dt))
-        g._fi_ws = ws
-    pos, val = ws
-    if not hasattr(g, "_coltag"):
-        g._coltag = np.zeros(g.ncols, dtype=np.int64)
-    int_ids = np.empty((B, ni_pad), dtype=np.int32)
-    bnd_ids = np.empty((B, nb_pad), dtype=np.int32)
-    sperm = np.empty((B, nb_pad), dtype=np.int32)
-    if branch is not None:
-        br = [np.ascontiguousarray(x, dtype=np.int64) for x in branch]
-        bps = [_pt(x) for x in br]
-        map_l = np.empty((B, m_pad), dtype=np.int32)
-        map_r = np.empty((B, m_pad), dtype=np.int32)
-        mlp, mrp = _pt(map_l), _pt(map_r)
-    else:
-        bps = [0, 0, 0, 0]
-        map_l = map_r = None
-        mlp = mrp = 0
-    fn = _lib.plan_batch_c128 if g.iscomplex else _lib.plan_batch_f64
-    n = fn(*g.csr_ptrs, _pt(a[0]), _pt(a[1]), _pt(a[2]), _pt(a[3]), _pt(a[4]),
-           *bps, _pt(locpool), _pt(a[5]), _pt(a[6]), B0, B, ni_pad, nb_pad, N,
-           g.colmap_ptr, _pt(g._coltag), _pt(pos), _pt(val), _pt(int_ids),
-           _pt(bnd_ids), _pt(sperm), mlp, mrp)
-    return (pos[:n].copy(), val[:n].copy(), int_ids, bnd_ids, sperm,
-            map_l, map_r)
-
-
 def plan_batches_all_native(gather: "CsrGather", reqs):
-    """Whole-plan consolidation of :func:`plan_batch_native`: ONE ctypes crossing
-    plans every regular batch (gather.cpp plan_batches_all).  Each request dict
-    carries the per-batch arguments (``o_int/o_bnd/ni/nb/branch/lo/lsum/B0/B/
+    """Regular-batch planning for a whole plan: ONE ctypes crossing emits every
+    batch's front COO (int32 positions, identity padding included) and fills
+    its int32 device maps (gather.cpp plan_batches_all).  Each request dict
+    carries the per-batch arguments (``o_int/o_bnd/ni/nb/branch/lo/lsum/B/
     ni_pad/nb_pad/bound``) plus the caller-allocated int32 map outputs
     (``int_ids/bnd_ids/sperm/map_l/map_r``), which are filled in place.
     Returns a list of (front_pos, front_vals, front_src) views into shared COO
@@ -499,13 +444,13 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
                            "nb1", "nb2", "lo", "lsum")}
     no = 0
     for i, r in enumerate(reqs):
-        B0, B = r["B0"], r["B"]
-        meta[i] = (no, B0, B, r["ni_pad"], r["nb_pad"],
+        B = r["B"]
+        meta[i] = (no, B, B, r["ni_pad"], r["nb_pad"],
                    0 if r["branch"] is None else 1)
         for k in ("o_int", "o_bnd", "ni", "nb", "lo", "lsum"):
             cat[k].append(np.ascontiguousarray(r[k], dtype=np.int64))
         if r["branch"] is None:
-            z = np.zeros(B0, dtype=np.int64)
+            z = np.zeros(B, dtype=np.int64)
             for k in ("ni1", "ni2", "nb1", "nb2"):
                 cat[k].append(z)
         else:
@@ -516,10 +461,9 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
             a = r.get(k)
             if a is not None:
                 outp[i, j] = a.ctypes.data
-        cap = (r["bound"] + int(np.sum(r["ni_pad"] - cat["ni"][-1][:B0]))
-               + (B - B0) * r["ni_pad"])
+        cap = r["bound"] + int(np.sum(r["ni_pad"] - cat["ni"][-1]))
         pos_off[i + 1] = pos_off[i] + cap
-        no += B0
+        no += B
     flat = {k: (np.concatenate(v) if v else np.zeros(1, dtype=np.int64))
             for k, v in cat.items()}
     total = int(pos_off[-1])
@@ -593,10 +537,10 @@ def symfact_pooled_native(left: np.ndarray, right: np.ndarray, root: int,
 def fill_batch_maps_native(pool, o_int, o_bnd, ni, nb, locpool, lo, lsum,
                            branch, ni_pad, nb_pad, N, int_ids, bnd_ids, sperm,
                            map_l, map_r) -> None:
-    """One C++ sweep filling rows [0, B0) of a batch's int32 device maps (see
+    """One C++ sweep filling every row of a batch's int32 device maps (see
     gather.cpp fill_batch_maps).  ``branch``: (ni1, ni2, nb1, nb2) or None for
     leaf batches (map_l/map_r are then ignored)."""
-    B0 = len(o_int)
+    B = len(o_int)
     a = [np.ascontiguousarray(x, dtype=np.int64)
          for x in (o_int, o_bnd, ni, nb, lo, lsum)]
     if branch is not None:
@@ -607,18 +551,19 @@ def fill_batch_maps_native(pool, o_int, o_bnd, ni, nb, locpool, lo, lsum,
         bp = [0, 0, 0, 0]
         mlp = mrp = 0
     _lib.fill_batch_maps(_pt(pool), _pt(a[0]), _pt(a[1]), _pt(a[2]), _pt(a[3]),
-                         _pt(locpool), _pt(a[4]), _pt(a[5]), *bp, B0, ni_pad,
+                         _pt(locpool), _pt(a[4]), _pt(a[5]), *bp, B, ni_pad,
                          nb_pad, N, _pt(int_ids), _pt(bnd_ids), _pt(sperm),
                          mlp, mrp)
 
 
-def fill_ident_pos_native(ni: np.ndarray, B0: int, B: int, ni_pad: int,
+def fill_ident_pos_native(ni: np.ndarray, ni_pad: int,
                           m_pad: int) -> np.ndarray:
     """Identity-diagonal COO positions for padded pivot rows (int64)."""
     ni = np.ascontiguousarray(ni, dtype=np.int64)
-    cap = int(np.sum(ni_pad - ni[:B0])) + (B - B0) * ni_pad
+    B = len(ni)
+    cap = int(np.sum(ni_pad - ni))
     out = np.empty(max(cap, 1), dtype=np.int64)
-    c = _lib.fill_ident_pos(_pt(ni), B0, B, ni_pad, m_pad, _pt(out))
+    c = _lib.fill_ident_pos(_pt(ni), B, B, ni_pad, m_pad, _pt(out))
     return out[:c]
 
 

@@ -32,7 +32,10 @@ def lu_factor(D: torch.Tensor):
         return D.clone(), torch.zeros(D.shape[:-1], dtype=torch.int64,
                                       device=D.device)
     lu, piv, _ = torch.linalg.lu_factor_ex(D)
-    # D = P L U, so (L U)[i] = (P^T D)[i] = D[perm[i]] with P[perm[i], i] = 1
+    # D = P L U, so (L U)[i] = (P^T D)[i] = D[perm[i]] with P[perm[i], i] = 1.
+    # The dense [B, n, n] P costs O(n^2) per front where the swaps need O(n);
+    # applying them in order is a sequential loop that no torch op vectorizes,
+    # so the fused LU kernel (ROADMAP K2) is to emit perm itself.
     P, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
     return lu, P.argmax(dim=-2)
 

@@ -61,7 +61,7 @@ class BatchPlan:
     nb_pad: int
     ni: np.ndarray             # [B] actual interior sizes
     nb: np.ndarray             # [B] actual boundary sizes
-    batch_size: int            # B (includes sharding-padding dummy rows)
+    batch_size: int            # B, the number of fronts
     front_pos: np.ndarray      # [nnz] flat positions into the [B, m_pad, m_pad] fronts
     front_vals: np.ndarray     # [nnz] matching values (sparse part + identity padding)
     sperm: np.ndarray          # [B, nb_pad] output permutation to [int_loc; bnd_loc]
@@ -145,24 +145,22 @@ class Plan:
         return int(len(self.A_raw[2]))
 
 
-def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
+def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
                         m_pad, is_leaf_batch, levels,
                         s_batch, s_row, batches, opts, N, bidx,
                         pools=None, deferred=None) -> None:
     """Plan one regular (dense) batch: front COO
     gathers, extend-add maps, id/perm fills.  Appends the BatchPlan to ``batches``
     and records the nodes' Schur locations in ``s_batch``/``s_row``."""
-    if pools is not None and gather.ok and B * m_pad * m_pad < 2 ** 31:
-        # consolidated native path: ONE C++ call per batch builds the segment
-        # table, gathers the front COO (int32 positions, identity padding
-        # fused) and fills every int32 device map
-        from hsolve_torch.native import plan_batch_native
-
-        B0n = len(nodes)
+    B = len(nodes)
+    if deferred is not None and B * m_pad * m_pad < 2 ** 31:
+        # consolidated native path: allocate the int32 map outputs here,
+        # record the request, and let plan_factorization issue ONE native
+        # call for every regular batch after the schedule loop (the COO
+        # views are patched into the BatchPlans then)
         pool, vals_off, locpool, loc_off, node_nnz = pools
-        niB = ni[:B0n]
         o_int = vals_off[nodes]
-        o_bnd = o_int + niB
+        o_bnd = o_int + ni
         bound = int(node_nnz[nodes].sum())
         if not is_leaf_batch:
             ni1 = loc.n_int[tree.left[nodes]]
@@ -176,39 +174,22 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             branch = None
             sl_pad = sr_pad = 0
         lsum = loc.n_int[nodes] + loc.n_bnd[nodes]
-        if deferred is not None:
-            # whole-plan consolidation: allocate the int32 map outputs here,
-            # record the request, and let plan_factorization issue ONE native
-            # call for every regular batch after the schedule loop (the COO
-            # views are patched into the BatchPlans then)
-            int_ids = np.empty((B, ni_pad), dtype=np.int32)
-            bnd_ids = np.empty((B, nb_pad), dtype=np.int32)
-            sperm = np.empty((B, nb_pad), dtype=np.int32)
-            if branch is not None:
-                map_l = np.empty((B, m_pad), dtype=np.int32)
-                map_r = np.empty((B, m_pad), dtype=np.int32)
-            else:
-                map_l = map_r = None
-            front_pos = front_vals = None
-            deferred.append({
-                "bidx": bidx, "pool": pool, "locpool": locpool,
-                "o_int": o_int, "o_bnd": o_bnd, "ni": niB, "nb": nb[:B0n],
-                "branch": branch, "lo": loc_off[nodes], "lsum": lsum,
-                "B0": B0n, "B": B, "ni_pad": ni_pad, "nb_pad": nb_pad,
-                "bound": bound, "int_ids": int_ids, "bnd_ids": bnd_ids,
-                "sperm": sperm, "map_l": map_l, "map_r": map_r})
+        int_ids = np.empty((B, ni_pad), dtype=np.int32)
+        bnd_ids = np.empty((B, nb_pad), dtype=np.int32)
+        sperm = np.empty((B, nb_pad), dtype=np.int32)
+        if branch is not None:
+            map_l = np.empty((B, m_pad), dtype=np.int32)
+            map_r = np.empty((B, m_pad), dtype=np.int32)
         else:
-            front_pos, front_vals, int_ids, bnd_ids, sperm, map_l, map_r = \
-                plan_batch_native(gather, pool, o_int, o_bnd, niB, nb[:B0n],
-                                  branch, locpool, loc_off[nodes], lsum, B0n,
-                                  B, ni_pad, nb_pad, N, bound)
-        if B > B0:
-            int_ids[B0:] = N
-            bnd_ids[B0:] = N
-            sperm[B0:] = np.arange(nb_pad, dtype=np.int32)
-            if map_l is not None:
-                map_l[B0:] = -1
-                map_r[B0:] = -1
+            map_l = map_r = None
+        front_pos = front_vals = None
+        deferred.append({
+            "bidx": bidx, "pool": pool, "locpool": locpool,
+            "o_int": o_int, "o_bnd": o_bnd, "ni": ni, "nb": nb,
+            "branch": branch, "lo": loc_off[nodes], "lsum": lsum,
+            "B": B, "ni_pad": ni_pad, "nb_pad": nb_pad,
+            "bound": bound, "int_ids": int_ids, "bnd_ids": bnd_ids,
+            "sperm": sperm, "map_l": map_l, "map_r": map_r})
         groups_l = {}
         groups_r = {}
         if not is_leaf_batch:
@@ -223,15 +204,13 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
                         m = np.flatnonzero(sb_kids == sb)
                         gd[int(sb)] = (s_row[kids[m]], m.astype(np.int64))
         s_batch[nodes] = bidx
-        s_row[nodes] = np.arange(B0n, dtype=np.int64)
-        lev_arr = np.zeros(B, dtype=np.int64)
-        lev_arr[:B0] = levels[nodes]
+        s_row[nodes] = np.arange(B, dtype=np.int64)
         batches.append(BatchPlan(
             node_ids=nodes, is_leaf=is_leaf_batch, ni_pad=ni_pad,
             nb_pad=nb_pad, ni=ni, nb=nb, batch_size=B, front_pos=front_pos,
             front_vals=front_vals, sperm=sperm, int_ids=int_ids,
-            bnd_ids=bnd_ids, levels=lev_arr, sl_pad=sl_pad, sr_pad=sr_pad,
-            map_l=map_l, map_r=map_r,
+            bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
+            sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
             groups_l=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
                            in sorted(groups_l.items())),
             groups_r=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
@@ -240,20 +219,17 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
 
     # device index arrays are built int32 from the start (halves the fill
     # traffic of these [B, m_pad]-class buffers); in pooled mode the C++ fill
-    # below writes rows [0, B0) so only dummy rows need prefilling
+    # below writes every row
     alloc = np.empty if pools is not None else \
         (lambda shape, dtype: np.full(shape, N, dtype=dtype))
     int_ids = alloc((B, ni_pad), dtype=np.int32)
     bnd_ids = alloc((B, nb_pad), dtype=np.int32)
     if nb_pad:
         sperm = np.empty((B, nb_pad), dtype=np.int32)
-        # identity default (pooled mode: only the dummy rows need it)
-        sperm[B0 if pools is not None else 0:] = np.arange(nb_pad, dtype=np.int32)
+        if pools is None:        # identity default (the C++ fill writes every row)
+            sperm[:] = np.arange(nb_pad, dtype=np.int32)
     else:
         sperm = np.zeros((B, 0), dtype=np.int32)
-    if pools is not None and B > B0:
-        int_ids[B0:] = N
-        bnd_ids[B0:] = N
 
     if not is_leaf_batch:
         ni1 = loc.n_int[tree.left[nodes]]
@@ -270,9 +246,6 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             (lambda shape, dtype: np.full(shape, -1, dtype=dtype))
         map_l = map_alloc((B, m_pad), dtype=np.int32)
         map_r = map_alloc((B, m_pad), dtype=np.int32)
-        if pools is not None and B > B0:
-            map_l[B0:] = -1
-            map_r[B0:] = -1
     else:
         sl_pad = sr_pad = 0
         map_l = map_r = None
@@ -281,16 +254,13 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
     groups_r: Dict[int, List[Tuple[int, int]]] = {}
     from hsolve_torch.native import run_coo_pooled
 
-    B0n = len(nodes)
-    niB = ni[:B0n]
-    nbB = nb[:B0n]
     if pools is not None:
         # pooled symfact layout: every node's [int; bnd] is contiguous in the
         # shared pool, so block specs are (offset, length) pairs - no per-batch
         # index concatenation at all
         pool, vals_off, locpool, loc_off, node_nnz = pools
         o_int = vals_off[nodes]
-        o_bnd = o_int + niB
+        o_bnd = o_int + ni
         bound = int(node_nnz[nodes].sum())
     else:
         # fallback: one shared index pool per batch
@@ -298,17 +268,17 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
         pool = np.concatenate(
             [x for n in nodes for x in (tree.int_idx[n], tree.bnd_idx[n])]
             or [np.zeros(0, dtype=np.int64)])
-        seg_lens = np.empty(2 * B0n, dtype=np.int64)
-        seg_lens[0::2] = niB
-        seg_lens[1::2] = nbB
+        seg_lens = np.empty(2 * B, dtype=np.int64)
+        seg_lens[0::2] = ni
+        seg_lens[1::2] = nb
         seg_off = np.concatenate([[0], np.cumsum(seg_lens)])[:-1]
-        o_int = seg_off[0::2]                   # [B0] pool offset of ints
-        o_bnd = seg_off[1::2]                   # [B0] pool offset of bnds
+        o_int = seg_off[0::2]                   # [B] pool offset of ints
+        o_bnd = seg_off[1::2]                   # [B] pool offset of bnds
         bound = None
-    base = np.arange(B0n, dtype=np.int64) * (m_pad * m_pad)
+    base = np.arange(B, dtype=np.int64) * (m_pad * m_pad)
 
     def _specs_from(parts):
-        # parts: list of (rs, rl, cs, cl, r0, c0) per block type, each [B0]
+        # parts: list of (rs, rl, cs, cl, r0, c0) per block type, each [B]
         rs = np.concatenate([p[0] for p in parts])
         rl = np.concatenate([p[1] for p in parts])
         cs = np.concatenate([p[2] for p in parts])
@@ -323,28 +293,28 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
         # child-tagged column map (branches keep only cross-child entries)
         from hsolve_torch.native import run_front_gather, run_front_gather_ident
 
-        z = np.zeros(B0n, dtype=np.int64)
+        z = np.zeros(B, dtype=np.int64)
         if is_leaf_batch:
             nseg = 2
-            segs = ((o_int, niB, z, z), (o_bnd, nbB, z, z + ni_pad))
+            segs = ((o_int, ni, z, z), (o_bnd, nb, z, z + ni_pad))
         else:
             nseg = 4
-            one = np.ones(B0n, dtype=np.int64)
+            one = np.ones(B, dtype=np.int64)
             segs = ((o_int, ni1, one, z), (o_int + ni1, ni2, 2 * one, ni1),
                     (o_bnd, nb1, one, z + ni_pad),
                     (o_bnd + nb1, nb2, 2 * one, ni_pad + nb1))
-        so = np.empty(nseg * B0n, dtype=np.int64)
+        so = np.empty(nseg * B, dtype=np.int64)
         sl = np.empty_like(so)
         st_ = np.empty_like(so)
         sf = np.empty_like(so)
         for k, (a, b_, c_, d_) in enumerate(segs):
             so[k::nseg], sl[k::nseg], st_[k::nseg], sf[k::nseg] = a, b_, c_, d_
-        seg_ptr = np.arange(B0n + 1, dtype=np.int64) * nseg
+        seg_ptr = np.arange(B + 1, dtype=np.int64) * nseg
         if B * m_pad * m_pad < 2 ** 31:
             # identity padding + int32 positions fused into the same C++ sweep
             front_pos, front_vals = run_front_gather_ident(
                 gather, pool, seg_ptr, so, sl, st_, sf, base, m_pad,
-                ni, B, ni_pad, bound=bound)
+                ni, ni_pad, bound=bound)
             ident_done = True
         else:
             front_pos, front_vals = run_front_gather(
@@ -352,12 +322,12 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
                 copy=False, bound=bound)
     else:
         if is_leaf_batch:
-            z = np.zeros(B0n, dtype=np.int64)
+            z = np.zeros(B, dtype=np.int64)
             parts = [
-                (o_int, niB, o_int, niB, z, z),                       # ii
-                (o_int, niB, o_bnd, nbB, z, z + ni_pad),              # ib
-                (o_bnd, nbB, o_int, niB, z + ni_pad, z),              # bi
-                (o_bnd, nbB, o_bnd, nbB, z + ni_pad, z + ni_pad),     # bb
+                (o_int, ni, o_int, ni, z, z),                       # ii
+                (o_int, ni, o_bnd, nb, z, z + ni_pad),              # ib
+                (o_bnd, nb, o_int, ni, z + ni_pad, z),              # bi
+                (o_bnd, nb, o_bnd, nb, z + ni_pad, z + ni_pad),     # bb
             ]
         else:
             # same-child entries come from the child Schur complements; only the
@@ -366,7 +336,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             s_i2, l_i2 = o_int + ni1, ni2
             s_b1, l_b1 = o_bnd, nb1
             s_b2, l_b2 = o_bnd + nb1, nb2
-            z = np.zeros(B0n, dtype=np.int64)
+            z = np.zeros(B, dtype=np.int64)
             off = {"i1": z, "i2": ni1, "b1": z + ni_pad, "b2": ni_pad + nb1}
             seg = {"i1": (s_i1, l_i1), "i2": (s_i2, l_i2),
                    "b1": (s_b1, l_b1), "b2": (s_b2, l_b2)}
@@ -386,7 +356,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
 
         lsum = loc.n_int[nodes] + loc.n_bnd[nodes]
         fill_batch_maps_native(
-            pool, o_int, o_bnd, niB, nbB, locpool, loc_off[nodes], lsum,
+            pool, o_int, o_bnd, ni, nb, locpool, loc_off[nodes], lsum,
             None if is_leaf_batch else (ni1, ni2, nb1, nb2),
             ni_pad, nb_pad, N, int_ids, bnd_ids, sperm, map_l, map_r)
     else:
@@ -396,11 +366,11 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
         poolx[-1] = N
         plim = len(pool)
         gi = np.minimum(o_int[:, None] + cols_i[None, :], plim)
-        int_ids[:B0n] = np.where(cols_i[None, :] < niB[:, None], poolx[gi], N)
+        int_ids[:] = np.where(cols_i[None, :] < ni[:, None], poolx[gi], N)
         if nb_pad:
             cols_b = np.arange(nb_pad, dtype=np.int64)
             gb = np.minimum(o_bnd[:, None] + cols_b[None, :], plim)
-            bnd_ids[:B0n] = np.where(cols_b[None, :] < nbB[:, None], poolx[gb], N)
+            bnd_ids[:] = np.where(cols_b[None, :] < nb[:, None], poolx[gb], N)
             # sperm rows are [int_loc; bnd_loc] per node
             l1 = loc.n_int[nodes]
             l2 = loc.n_bnd[nodes]
@@ -412,8 +382,8 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             lpx[:-1] = lpool
             lpx[-1] = 0
             gs = np.minimum(lo[:, None] + cols_b[None, :], len(lpool))
-            sperm[:B0n] = np.where(cols_b[None, :] < (l1 + l2)[:, None], lpx[gs],
-                                   sperm[:B0n])
+            sperm[:] = np.where(cols_b[None, :] < (l1 + l2)[:, None], lpx[gs],
+                                sperm)
         if not is_leaf_batch:
             # inverse extend-add maps (child S is [int_loc; bnd_loc]-permuted, so
             # placements are two contiguous runs per child)
@@ -426,11 +396,11 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             in_i2 = (cols_m >= ni1c) & (cols_m < ni1c + ni2c)
             in_b1 = (cols_m >= ni_pad) & (cols_m < ni_pad + nb1c)
             in_b2 = (cols_m >= ni_pad + nb1c) & (cols_m < ni_pad + nb1c + nb2c)
-            map_l[:B0n] = np.where(in_i1, cols_m,
-                                   np.where(in_b1, ni1c + cols_m - ni_pad, -1))
-            map_r[:B0n] = np.where(in_i2, cols_m - ni1c,
-                                   np.where(in_b2, ni2c + cols_m - ni_pad - nb1c,
-                                            -1))
+            map_l[:] = np.where(in_i1, cols_m,
+                                np.where(in_b1, ni1c + cols_m - ni_pad, -1))
+            map_r[:] = np.where(in_i2, cols_m - ni1c,
+                                np.where(in_b2, ni2c + cols_m - ni_pad - nb1c,
+                                         -1))
 
     if not is_leaf_batch:
         for kids, gd in ((tree.left[nodes], groups_l),
@@ -446,28 +416,20 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
                     gd[int(sb)] = (s_row[kids[m]], m.astype(np.int64))
 
     # identity on the padded part of the pivot block keeps the batched LU
-    # well-defined (the padded rows/cols stay decoupled); dummy (sharding-padding)
-    # fronts get a full identity pivot
+    # well-defined (the padded rows/cols stay decoupled)
     s_batch[nodes] = bidx
-    s_row[nodes] = np.arange(B0n, dtype=np.int64)
+    s_row[nodes] = np.arange(B, dtype=np.int64)
     if ident_done:
         ip = None
     elif pools is not None:
         from hsolve_torch.native import fill_ident_pos_native
 
-        ip = fill_ident_pos_native(ni, B0n, B, ni_pad, m_pad)
+        ip = fill_ident_pos_native(ni, ni_pad, m_pad)
     else:
-        ident_pos = []
-        if B > B0:
-            d = np.arange(ni_pad)
-            for bb in range(B0, B):
-                ident_pos.append(bb * m_pad * m_pad + d * (m_pad + 1))
         cols_i = np.arange(ni_pad, dtype=np.int64)
-        pr = np.arange(B0n, dtype=np.int64)[:, None] * (m_pad * m_pad) \
+        pr = np.arange(B, dtype=np.int64)[:, None] * (m_pad * m_pad) \
             + cols_i[None, :] * (m_pad + 1)
-        ident_pos.append(pr[cols_i[None, :] >= niB[:, None]])
-        ip = np.concatenate([a.ravel() for a in ident_pos]) if ident_pos else \
-            np.zeros(0, dtype=np.int64)
+        ip = pr[cols_i[None, :] >= ni[:, None]]
     if not ident_done:
         # fused pass: gathered COO (a workspace view) + identity padding, written
         # straight into the final (int32 where possible) buffers - the previous
@@ -487,25 +449,18 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
         return tuple(ChildGroup(sb, src, dst)
                      for sb, (src, dst) in sorted(gd.items()))
 
-    lev_arr = np.zeros(B, dtype=np.int64)
-    lev_arr[:B0] = levels[nodes]
     batches.append(BatchPlan(
         node_ids=nodes, is_leaf=is_leaf_batch, ni_pad=ni_pad, nb_pad=nb_pad,
         ni=ni, nb=nb, batch_size=B, front_pos=front_pos, front_vals=front_vals,
         sperm=sperm, int_ids=int_ids,
-        bnd_ids=bnd_ids, levels=lev_arr, sl_pad=sl_pad, sr_pad=sr_pad,
-        map_l=map_l, map_r=map_r,
+        bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
+        sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
         groups_l=_mk_groups(groups_l), groups_r=_mk_groups(groups_r)))
 
 
 
-def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
-                       batch_multiple: int = 1) -> Plan:
-    """Run the symbolic phase and build the batched numeric schedule.
-
-    batch_multiple: round every level's batch size up to a multiple of this (with
-    decoupled identity dummy fronts), so the node axis divides a device-mesh axis.
-    """
+def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Plan:
+    """Run the symbolic phase and build the batched numeric schedule."""
     opts.validate()
     import time as _time
 
@@ -602,17 +557,13 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
         if not len(nodes):
             continue
         bidx = len(batches)
-        B0 = len(nodes)
-        B = _round_up(B0, batch_multiple)  # dummy rows (sharding padding)
-        ni = np.zeros(B, dtype=np.int64)
-        nb = np.zeros(B, dtype=np.int64)
-        ni[:B0] = ni_all[nodes]
-        nb[:B0] = nb_all[nodes]
+        ni = ni_all[nodes].astype(np.int64)
+        nb = nb_all[nodes].astype(np.int64)
         ni_pad = _round_up(int(ni.max()), opts.pad)
         nb_pad = _round_up(int(nb.max()), opts.pad) if nb.max() > 0 else 0
         m_pad = ni_pad + nb_pad
         _plan_regular_batch(
-            gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad, m_pad,
+            gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad, m_pad,
             h == 0, levels, s_batch, s_row, batches, opts, N, bidx, pools,
             deferred)
 

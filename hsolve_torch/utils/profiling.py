@@ -78,7 +78,6 @@ def main() -> int:
     import hsolve_torch as ht
     from hsolve_torch import kernels
     from hsolve_torch.factor import solve_with_data
-    from hsolve_torch.ops.sparse import dia_residual
 
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -103,7 +102,7 @@ def main() -> int:
         def solve():
             holder["x"], holder["info"] = ht.gmres_compiled(
                 mv, solve_with_data, bt, reltol=1e-9, restart=30, maxiter=60,
-                mv_data=op, M_data=holder["F"].solve_data, residual=dia_residual)
+                mv_data=op, M_data=holder["F"].solve_data)
 
         entry = {"n": n, "N": int(A.shape[0]), "phases": {}}
         for name, fn in (("factor", factor), ("solve", solve)):

@@ -8,8 +8,6 @@ Capability parity with the reference tree layer (``reference: src/nesteddissecti
 - :func:`symfact`           <-> ``symfact!`` (nesteddissection.jl:29-69)
 - :func:`postorder`         <-> ``postorder`` (nesteddissection.jl:73-79)
 - :func:`permuted`          <-> ``permuted!`` (nesteddissection.jl:82-88)
-- :func:`contiguous`        <-> ``contigious`` [sic] (nesteddissection.jl:91)
-- :func:`parse_elimtree`    <-> ``parse_elimtree`` (nesteddissection.jl:105-148)
 
 All index sets are 0-based numpy int arrays.  Key structural invariants (required by the
 numeric factorization, see factor.py):
@@ -103,9 +101,6 @@ class NDTree:
             if cached is not None:  # topology is shared and immutable
                 object.__setattr__(out, name, cached)
         return out
-
-    def is_leaf(self, i: int) -> bool:
-        return self.left[i] == NONE and self.right[i] == NONE
 
     def layers(self) -> List[np.ndarray]:
         """Nodes grouped by level (root first), computed by vectorized BFS."""
@@ -237,9 +232,9 @@ def _symfact_native(tree: NDTree, order: np.ndarray):
         return None
     n = tree.nnodes
     if len(order) != n:
-        # disconnected/malformed tree (parse_elimtree can produce one from external
-        # data): the C loop indexes order[0:n], so a short topo order would read past
-        # the array; fall back to the numpy symfact whose validate() diagnostics fire
+        # disconnected/malformed tree: the C loop indexes order[0:n], so a short
+        # topo order would read past the array; fall back to the numpy symfact
+        # whose validate() diagnostics fire
         return None
     ilens = np.fromiter((len(tree.int_idx[i]) for i in range(n)), np.int64, n)
     blens = np.fromiter((len(tree.bnd_idx[i]) for i in range(n)), np.int64, n)
@@ -402,75 +397,3 @@ def permuted(tree: NDTree, relabel: np.ndarray) -> NDTree:
         tree.int_idx[i] = relabel[tree.int_idx[i]]
         tree.bnd_idx[i] = relabel[tree.bnd_idx[i]]
     return tree
-
-
-def contiguous(idx: np.ndarray):
-    """Collapse a sorted-dense index vector into a range when possible (capability of
-    ``contigious``, nesteddissection.jl:91, with the typo fixed)."""
-    if len(idx) and np.array_equal(idx, np.arange(idx[0], idx[-1] + 1)):
-        return range(int(idx[0]), int(idx[-1]) + 1)
-    return idx
-
-
-def parse_elimtree(fathers: np.ndarray, lsons: np.ndarray, rsons: np.ndarray,
-                   ninter: np.ndarray, inter: np.ndarray,
-                   nbound: np.ndarray, bound: np.ndarray,
-                   one_based: bool = True) -> NDTree:
-    """Deserialize the reference author's MATLAB elimination-tree format (parity with
-    ``parse_elimtree``, nesteddissection.jl:105-148).
-
-    ``inter[:, i]`` / ``bound[:, i]`` hold node i's index sets (first ``ninter[i]`` /
-    ``nbound[i]`` entries); ``fathers/lsons/rsons`` use -1 for "missing".  With
-    ``one_based=True`` (MATLAB data) node links and DOF indices are converted to 0-based.
-    """
-    fathers = np.asarray(fathers, dtype=np.int64).ravel()
-    lsons = np.asarray(lsons, dtype=np.int64).ravel()
-    rsons = np.asarray(rsons, dtype=np.int64).ravel()
-    ninter = np.asarray(ninter, dtype=np.int64).ravel()
-    nbound = np.asarray(nbound, dtype=np.int64).ravel()
-    inter = np.asarray(inter, dtype=np.int64)
-    bound = np.asarray(bound, dtype=np.int64)
-    nnodes = len(fathers)
-    if not (len(lsons) == len(rsons) == len(ninter) == len(nbound)
-            == inter.shape[1] == bound.shape[1] == nnodes):
-        raise ValueError("dimensions inconsistent among inputs")
-    off = 1 if one_based else 0
-    roots = np.flatnonzero(fathers == -1)
-    if len(roots) != 1:
-        raise ValueError("found either less than or more than one root")
-
-    left = np.full(nnodes, NONE, dtype=np.int64)
-    right = np.full(nnodes, NONE, dtype=np.int64)
-    int_idx, bnd_idx = [], []
-    for i in range(nnodes):
-        if lsons[i] != -1:
-            left[i] = lsons[i] - off
-        if rsons[i] != -1:
-            right[i] = rsons[i] - off
-        int_idx.append(inter[: ninter[i], i].astype(np.int64) - off)
-        bnd_idx.append(bound[: nbound[i], i].astype(np.int64) - off)
-    return NDTree(left=left, right=right, int_idx=int_idx, bnd_idx=bnd_idx,
-                  root=int(roots[0]))
-
-
-def serialize_elimtree(tree: NDTree, one_based: bool = True):
-    """Inverse of :func:`parse_elimtree` (round-trip helper for tests and .mat export)."""
-    n = tree.nnodes
-    off = 1 if one_based else 0
-    fathers = np.full(n, -1, dtype=np.int64)
-    lsons = np.full(n, -1, dtype=np.int64)
-    rsons = np.full(n, -1, dtype=np.int64)
-    for i in range(n):
-        for c, arr in ((tree.left[i], lsons), (tree.right[i], rsons)):
-            if c != NONE:
-                arr[i] = c + off
-                fathers[c] = i + off
-    ninter = np.array([len(s) for s in tree.int_idx], dtype=np.int64)
-    nbound = np.array([len(s) for s in tree.bnd_idx], dtype=np.int64)
-    mi, mb = max(int(ninter.max()), 1), max(int(nbound.max()), 1)
-    inter = np.zeros((mi, n), dtype=np.int64)
-    bound = np.zeros((mb, n), dtype=np.int64)
-    for i in range(n):
-        inter[: ninter[i], i] = tree.int_idx[i] + off
-        bound[: nbound[i], i] = tree.bnd_idx[i] + off
-    return fathers, lsons, rsons, ninter, inter, nbound, bound

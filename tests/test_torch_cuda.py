@@ -122,13 +122,12 @@ def test_slice_on_cuda(dev, explicit):
     X = F.solve(np.column_stack([b, 2 * b])).cpu().numpy()
     assert np.abs(X[:, 1] - 2 * X[:, 0]).max() < 1e-10 * np.abs(X).max()
     from hsolve_torch.factor import solve_with_data
-    from hsolve_torch.ops.sparse import dia_residual
 
     op, mv = ht.spmv_format(A, device=dev)
     xg, info = ht.gmres_compiled(mv, solve_with_data,
                                  torch.as_tensor(b, device=dev), reltol=1e-9,
                                  restart=30, maxiter=60, mv_data=op,
-                                 M_data=F.solve_data, residual=dia_residual)
+                                 M_data=F.solve_data)
     assert info["converged"] and info["iters"] == 1
     xg = xg.cpu().numpy()
     assert np.linalg.norm(A @ xg - b) / np.linalg.norm(b) < 1e-9

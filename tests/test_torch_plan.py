@@ -77,16 +77,6 @@ def test_plan_matches_jax_planner(problem, n, leafmax):
     assert all(bp.front_src is not None for bp in P_t.batches)
 
 
-def test_plan_batch_multiple_pads_like_jax():
-    A, _, shape = ht.poisson2d(17)
-    P_t = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=20),
-                                ht.SolverOptions(swlevel=0), batch_multiple=4)
-    P_j = hsolve.plan_factorization(A, hsolve.nested_dissection(shape, leafmax=20),
-                                    hsolve.SolverOptions(swlevel=0),
-                                    batch_multiple=4)
-    _assert_plans_equal(P_t, P_j)
-
-
 def test_compressed_planning_is_a_later_slice():
     A, _, shape = ht.poisson2d(17)
     tree = ht.nested_dissection(shape, leafmax=20)

@@ -13,7 +13,6 @@ import hsolve
 import hsolve_torch as ht
 from hsolve_torch.factor import _factor_levels, solve_with_data
 from hsolve_torch.interop import plan_to_torch
-from hsolve_torch.ops.sparse import dia_residual
 
 torch.set_num_threads(1)
 jfactor = importlib.import_module("hsolve.factor")   # the name hsolve.factor is the function
@@ -103,32 +102,33 @@ def test_gmres_iterations_match_jax(name, n, leafmax, kw):
                                   jsolve_with_data, jnp.asarray(b), reltol=1e-9,
                                   restart=30, maxiter=60, mv_data=jop,
                                   M_data=Fj.solve_data)
-    op, mv = ht.spmv_format(A, device="cpu")
-    for residual in (None, dia_residual):
+    # DIA takes the fused residual of kernel D at restarts, ELL b - A x
+    for op, mv in (ht.spmv_format(A, device="cpu"), (tell, ht.ell_matvec)):
         xc, ct = ht.gmres_compiled(mv, solve_with_data, bt, reltol=1e-9,
                                    restart=30, maxiter=60, mv_data=op,
-                                   M_data=Ft.solve_data, residual=residual)
+                                   M_data=Ft.solve_data)
         assert ct["iters"] == cj["iters"] and ct["converged"] and cj["converged"]
         assert np.linalg.norm(A @ xc.numpy() - b) / np.linalg.norm(b) <= 1e-9
 
 
-@pytest.mark.parametrize("restart,maxiter,reltol", [(20, 200, 1e-8),
-                                                    (10, 60, 1e-6)])
-def test_unpreconditioned_gmres_follows_jax(restart, maxiter, reltol):
+@pytest.mark.parametrize("n,restart,maxiter,reltol,m_eps",
+                         [(16, 20, 200, 1e-8, 0.0), (24, 10, 60, 1e-6, 0.0),
+                          (16, 20, 200, 1e-8, 1e-3)])
+def test_unpreconditioned_gmres_follows_jax(n, restart, maxiter, reltol, m_eps):
     """Without a preconditioner GMRES needs many restarted cycles: the CGS2
     Arnoldi, Givens bookkeeping and true-residual restarts must give the JAX
     package's iteration count and residual history (the second case runs out
-    of iterations unconverged, in both)."""
-    A, b, _ = hsolve.poisson2d(16 if restart == 20 else 24)
+    of iterations unconverged, in both; the third ends each cycle at the
+    ``m_eps`` floor of its Givens estimate)."""
+    A, b, _ = hsolve.poisson2d(n)
     jop = hsolve.to_dia(A)
     xj, ij = hsolve.gmres_compiled(lambda d, v: hsolve.dia_matvec(d, v), None,
                                    jnp.asarray(b), reltol=reltol, restart=restart,
-                                   maxiter=maxiter, mv_data=jop)
+                                   maxiter=maxiter, mv_data=jop, m_eps=m_eps)
     op = ht.to_dia(A, device="cpu")
     xt, it = ht.gmres_compiled(ht.dia_matvec, None, torch.as_tensor(b),
                                reltol=reltol, restart=restart, maxiter=maxiter,
-                               mv_data=op, fetch_info=False)
-    it = ht.krylov.fetch_gmres_info(it)
+                               mv_data=op, m_eps=m_eps)
     assert it["iters"] == ij["iters"] and it["converged"] == ij["converged"]
     assert _rel(it["resnorm"], ij["resnorm"]) < 1e-10
     assert _rel(xt.numpy(), xj) < 1e-10
