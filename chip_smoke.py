@@ -9,19 +9,26 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the four CUDA kernels are compiled from ``hsolve_torch/csrc/`` for
-   ``sm_90a``;
-3. kernels: each kernel's wrapper runs on the card at the n=512 plan's real
+2. build: the seven CUDA kernels are compiled from ``hsolve_torch/csrc/`` for
+   ``sm_90a``, one nvcc process per source, all started together;
+3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
-   (A and B bitwise, C and D to a relative error of 1e-13, since only the
-   summation order differs); each is timed with CUDA events beside its plain
-   version (median of 10 runs after warm-up);
-4. main path at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
-   (leafmax=100) -> plan_factorization (swlevel=0) -> factor_with_plan (float64,
-   cuda) -> gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as
-   right preconditioner, the DIA matvec).  It must converge, pass an independent
-   scipy check ||b - A x|| / ||b|| <= 1e-9 on the host, and launch every kernel
-   (the launch counters are reset just before the run and read just after);
+   (A, B and G bitwise, C, D, E and F to a relative error of 1e-13, since only
+   the summation order differs); each is timed with CUDA events beside its
+   plain version (median of 10 runs after warm-up).  A-D run on the exact
+   plan; E (forward and backward) and F on the first and the top compressed
+   batch of the compressed plan, G on both sides of the first;
+4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
+   (leafmax=100) -> plan_factorization -> factor_with_plan (float64, cuda) ->
+   gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
+   preconditioner, the DIA matvec), first exact (swlevel=0), then low-rank
+   compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False).
+   Each run must converge, pass an independent scipy check ||b - A x|| / ||b||
+   <= 1e-9 on the host, and launch every kernel of its path (the launch
+   counters are reset just before the run and read just after: A-D on the
+   exact path, A-G on the compressed one).  A compressed run must also stay
+   within twice the JAX package's CPU iteration counts (6 at n=128, 7 at
+   n=512) and saturate no rank cap;
 5. output: a JSON line with one entry per kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -40,13 +47,33 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-RTOL_SUM = 1e-13      # C and D: the kernel and plain sums differ only in order
+RTOL_SUM = 1e-13      # C-F: the kernel and plain sums differ only in order
 RELRES = 1e-9         # GMRES target and the independent residual check
-FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128
+FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
+# the slice's compressed configuration (README's switching level, the
+# tolerance policy of CROSSOVER.md for compressed runs)
+COMPRESSED = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32,
+                  hss=False)
+# twice the JAX package's GMRES iterations on the CPU for the same runs
+MAX_ITERS = {128: 12, 512: 14}
+SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
+           "extend_add": ("extend_add.cu", "hsolve/factor.py:390"),
+           "sweep_update": ("sweep_update.cu", "hsolve/factor.py:509"),
+           "dia_spmv": ("dia_spmv.cu", "hsolve/ops/sparse.py:98"),
+           "lowrank_sweep_update": ("lowrank_sweep_update.cu",
+                                    "hsolve/factor.py:528"),
+           "lowrank_schur_update": ("lowrank_schur_update.cu",
+                                    "hsolve/factor.py:378"),
+           "lowrank_truncate": ("lowrank_truncate.cu",
+                                "hsolve/ops/lowrank.py:157")}
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` behind the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -106,8 +133,26 @@ class Problems:
         return self._cache[n]
 
 
-def check_kernels(problems: Problems, n: int, dev) -> list:
-    """Phase 3: every kernel against its plain version at the n-plan's shapes."""
+class Results(dict):
+    """Per kernel: the largest error against its plain version over the
+    checked shapes, and the times at the first shape checked."""
+
+    def record(self, name, shape_desc, errs, limit, ms, plain_ms):
+        err, rel = errs
+        ok = rel <= limit
+        log(f"  {name:20s} {shape_desc:48s} max_abs_err={err:.3e} "
+            f"rel={rel:.3e} (limit {limit:g})  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms{'' if ok else '  MISMATCH'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version at {shape_desc}")
+        r = self.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
+                                   "plain_ms": plain_ms})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
+    """Phase 3, kernels A-D against their plain versions at the exact
+    n-plan's shapes."""
     import numpy as np
     import torch
 
@@ -128,19 +173,7 @@ def check_kernels(problems: Problems, n: int, dev) -> list:
     torch.cuda.synchronize()
     nb = len(plan.batches)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
-
-    def record(name, shape_desc, errs, limit, ms, plain_ms):
-        err, rel = errs
-        ok = rel <= limit
-        log(f"  {name:15s} {shape_desc:44s} max_abs_err={err:.3e} rel={rel:.3e}"
-            f" (limit {limit:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            f"{'' if ok else '  MISMATCH'}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version at {shape_desc}")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+    record = results.record
 
     # A: front assembly, leaf batch and root batch (real values)
     for bidx in (0, nb - 1):
@@ -217,10 +250,108 @@ def check_kernels(problems: Problems, n: int, dev) -> list:
                time_ms(lambda: dia_spmv(op, xv, *extra)),
                time_ms(lambda: dia_spmv_plain(op, xv, *extra)))
     torch.cuda.synchronize()
-    return results
 
 
-def main_path(problems: Problems, n: int, dev) -> dict:
+def check_compressed_kernels(problems: Problems, n: int, dev,
+                             results: Results) -> None:
+    """Phase 3, kernels E-G against their plain versions at the compressed
+    n-plan's shapes: the fronts, sketches and factors of a real compressed
+    factorization."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import _factor_levels, torch_sketch
+    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.ops.assembly import extend_add_plain, front_assemble_plain
+    from hsolve_torch.ops.lowrank import (lowrank_truncate,
+                                          lowrank_truncate_plain, sketch_width)
+    from hsolve_torch.ops.schur import (lowrank_schur_update,
+                                        lowrank_schur_update_plain)
+    from hsolve_torch.ops.sweep import (lowrank_sweep_update,
+                                        lowrank_sweep_update_plain)
+
+    A, _, shape = problems.get(n)
+    opts = ht.SolverOptions(**COMPRESSED)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 opts)
+    tp = plan_to_torch(plan, dev)
+    f64 = torch.float64
+    levels, _, stacks = _factor_levels(plan, tp, opts, f64)
+    torch.cuda.synchronize()
+    comp = [i for i, bp in enumerate(plan.batches) if bp.compress]
+    first, top = comp[0], comp[-1]
+    record = results.record
+
+    # E: both forms on the first and the top compressed level
+    N = plan.N
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    C0 = torch.randn(N + 1, 1, dtype=f64, device=dev, generator=gen)
+    C0[N] = 0.0
+    for bidx in (first, top):
+        lev = levels[bidx]
+        x = C0[lev.int_ids]
+        for form, U, V, ids_out, kw in (
+                ("fwd", lev.LU_, lev.LV_, lev.bnd_ids, {"X": x}),
+                ("bwd", lev.RU_, lev.RV_, lev.int_ids, {"ids_in": lev.bnd_ids})):
+            ker = lowrank_sweep_update(C0.clone(), ids_out, U, V, N, **kw)
+            ref = lowrank_sweep_update_plain(C0.clone(), ids_out, U, V, N, **kw)
+            scratch = C0.clone()
+            record("lowrank_sweep_update",
+                   f"batch {bidx} {form} U={list(U.shape)} V={list(V.shape)[1:]}",
+                   errors(ker, ref), RTOL_SUM,
+                   time_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V,
+                                                        N, **kw)),
+                   time_ms(lambda: lowrank_sweep_update_plain(
+                       scratch, ids_out, U, V, N, **kw)))
+
+    def front_of(bidx):
+        bp, tb = plan.batches[bidx], tp.batches[bidx]
+        front = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src,
+                                     tp.adata.to(f64))
+        for groups, imap in ((tb.groups_l, tb.map_l), (tb.groups_r, tb.map_r)):
+            for src, sr, dr in groups:
+                extend_add_plain(front, stacks[src], sr, dr, imap)
+        return bp, tb, front
+
+    # F: the Schur update on the first and the top compressed level
+    for bidx in (first, top):
+        bp, tb, front = front_of(bidx)
+        lev = levels[bidx]
+        W = (front[:, bp.ni_pad:, :bp.ni_pad] @ lev.RU_).contiguous()
+        args = (front, bp.ni_pad, W, lev.RV_, tb.sperm)
+        ker = lowrank_schur_update(*args)
+        ref = lowrank_schur_update_plain(*args)
+        record("lowrank_schur_update",
+               f"batch {bidx} [{bp.B},{bp.nb_pad},{bp.nb_pad}] k={bp.rank_cap}",
+               errors(ker, ref), RTOL_SUM,
+               time_ms(lambda: lowrank_schur_update(*args)),
+               time_ms(lambda: lowrank_schur_update_plain(*args)))
+
+    # G: the truncation of both sides of the first compressed level, with the
+    # factorization's own sketches
+    bp, tb, front = front_of(first)
+    shapes = [(m, sketch_width(bp.rank_cap, m)) for m in (bp.ni_pad, bp.nb_pad)]
+    om_bi, om_ib = torch_sketch(opts.seed, dev, f64)(first, *shapes)
+    for side, blk, om in (("Abi", front[:, bp.ni_pad:, :bp.ni_pad], om_bi),
+                          ("Aib", front[:, :bp.ni_pad, bp.ni_pad:], om_ib)):
+        Q, _ = torch.linalg.qr(blk @ om)
+        Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ blk,
+                                      full_matrices=False)
+        args = ((Q @ Uw).contiguous(), sv.contiguous(), Vh.contiguous(),
+                opts.c_tol * opts.atol, opts.c_tol * opts.rtol, bp.rank_cap)
+        ker = lowrank_truncate(*args)
+        ref = lowrank_truncate_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(ker, ref)):
+            fail(f"lowrank_truncate is not bitwise equal at batch {first} {side}")
+        record("lowrank_truncate",
+               f"batch {first} {side} QU={list(args[0].shape)} cap={bp.rank_cap}",
+               errors(ker[0], ref[0]), 0.0,
+               time_ms(lambda: lowrank_truncate(*args)),
+               time_ms(lambda: lowrank_truncate_plain(*args)))
+    torch.cuda.synchronize()
+
+
+def main_path(problems: Problems, n: int, dev, compressed: bool) -> dict:
     """Phase 4: the user's workflow at size n; returns its timings and checks."""
     import numpy as np
     import scipy.sparse.linalg as spla
@@ -230,15 +361,19 @@ def main_path(problems: Problems, n: int, dev) -> dict:
     from hsolve_torch.factor import solve_with_data
 
     A, b, shape = problems.get(n)
-    opts = ht.SolverOptions(swlevel=0)
+    opts = ht.SolverOptions(**COMPRESSED) if compressed else \
+        ht.SolverOptions(swlevel=0)
+    path = "compressed" if compressed else "exact"
     tree = ht.nested_dissection(shape, leafmax=100)
     plan_s = []
     for _ in range(2):                       # the second call is warm
         t0 = time.perf_counter()
         plan = ht.plan_factorization(A, tree, opts)
         plan_s.append(time.perf_counter() - t0)
-    shapes = [(bp.B, bp.ni_pad, bp.nb_pad) for bp in plan.batches]
-    log(f"  n={n}: {len(plan.batches)} batches (B, ni_pad, nb_pad): {shapes}")
+    shapes = [(bp.B, bp.ni_pad, bp.nb_pad) + ((bp.rank_cap,) if bp.compress
+                                               else ()) for bp in plan.batches]
+    log(f"  n={n} {path}: {len(plan.batches)} batches (B, ni_pad, nb_pad"
+        f"{', rank cap' if compressed else ''}): {shapes}")
 
     F = ht.factor_with_plan(plan, opts, device=dev)            # cold
     torch.cuda.synchronize()
@@ -261,28 +396,39 @@ def main_path(problems: Problems, n: int, dev) -> dict:
     if xh.shape != (A.shape[0],) or not np.all(np.isfinite(xh)):
         fail(f"n={n}: solution has shape {xh.shape} or non-finite values")
     relres = float(np.linalg.norm(b - A @ xh) / np.linalg.norm(b))
-    res = {"n": n, "N": int(A.shape[0]), "plan_s": plan_s[1],
+    res = {"path": path, "n": n, "N": int(A.shape[0]), "plan_s": plan_s[1],
            "plan_cold_s": plan_s[0], "factor_s": factor_ms / 1e3,
            "solve_s": solve_ms / 1e3, "iters": info["iters"],
            "converged": info["converged"], "relres_scipy": relres,
            "gmres_resnorm_last": float(info["resnorm"][-1]) / float(
                np.linalg.norm(b))}
-    if n <= 128:
+    if n <= 128 and not compressed:
         x_ref = spla.spsolve(A.tocsc(), b)
         res["fwd_err_vs_spsolve"] = float(np.linalg.norm(xh - x_ref)
                                           / np.linalg.norm(x_ref))
-    log(f"  n={n}: plan {res['plan_s']:.4f} s (warm; cold "
+    if compressed:
+        report = F.rank_report()
+        res["max_rank"] = max(lv["max_rank"] for lv in report["levels"])
+        res["saturated"] = report["saturated"]
+    log(f"  n={n} {path}: plan {res['plan_s']:.4f} s (warm; cold "
         f"{res['plan_cold_s']:.4f} s, host)  factor {res['factor_s']:.4f} s  "
         f"solve {res['solve_s']:.4f} s (warm, CUDA events)  iters "
         f"{res['iters']}  converged {res['converged']}  relres(scipy) "
         f"{relres:.3e}" + (f"  fwd err vs spsolve {res['fwd_err_vs_spsolve']:.3e}"
-                           if "fwd_err_vs_spsolve" in res else ""))
+                           if "fwd_err_vs_spsolve" in res else "")
+        + (f"  max rank {res['max_rank']}  saturated {res['saturated']}"
+           if compressed else ""))
     if not info["converged"]:
-        fail(f"n={n}: GMRES did not converge ({info})")
+        fail(f"n={n} {path}: GMRES did not converge ({info})")
     if not relres <= RELRES:
-        fail(f"n={n}: independent residual {relres:.3e} > {RELRES}")
+        fail(f"n={n} {path}: independent residual {relres:.3e} > {RELRES}")
     if res.get("fwd_err_vs_spsolve", 0.0) > FWD_N128:
         fail(f"n={n}: forward error {res['fwd_err_vs_spsolve']:.3e} > {FWD_N128}")
+    if compressed and info["iters"] > MAX_ITERS.get(n, 60):
+        fail(f"n={n} compressed: {info['iters']} GMRES iterations > "
+             f"{MAX_ITERS.get(n, 60)}")
+    if compressed and res["saturated"]:
+        fail(f"n={n} compressed: a rank saturated its cap ({report})")
     return res
 
 
@@ -320,34 +466,34 @@ def main() -> int:
 
     problems = Problems()
     log(f"[3] kernels against their plain versions at the n={args.kernel_n} "
-        "plan's shapes")
-    kres = check_kernels(problems, args.kernel_n, dev)
+        "plans' shapes")
+    kres = Results()
+    check_kernels(problems, args.kernel_n, dev, kres)
+    check_compressed_kernels(problems, args.kernel_n, dev, kres)
 
     runs = []
-    for n in args.sizes:
-        log(f"[4] main path n={n}")
-        kernels.reset_launch_counts()
-        runs.append(main_path(problems, n, dev))
-        counts = kernels.launch_counts()
-        log(f"  n={n}: kernel launches {counts}")
-        missing = [k for k, v in counts.items() if v <= 0]
-        if missing:
-            fail(f"n={n}: the main path never launched {missing}")
-        runs[-1]["launches"] = counts
+    for compressed, path_kernels in ((False, kernels.EXACT_PATH),
+                                     (True, kernels.COMPRESSED_PATH)):
+        for n in args.sizes:
+            log(f"[4] main path n={n} "
+                f"{'compressed' if compressed else 'exact'}")
+            kernels.reset_launch_counts()
+            runs.append(main_path(problems, n, dev, compressed))
+            counts = kernels.launch_counts()
+            log(f"  n={n}: kernel launches {counts}")
+            missing = [k for k in path_kernels if counts[k] <= 0]
+            if missing:
+                fail(f"n={n}: the main path never launched {missing}")
+            runs[-1]["launches"] = counts
 
-    sources = {"front_assemble": "front_assemble.cu",
-               "extend_add": "extend_add.cu",
-               "sweep_update": "sweep_update.cu", "dia_spmv": "dia_spmv.cu"}
-    replaces = {"front_assemble": "hsolve/factor.py:409",
-                "extend_add": "hsolve/factor.py:390",
-                "sweep_update": "hsolve/factor.py:509",
-                "dia_spmv": "hsolve/ops/sparse.py:98"}
+    # the launch counts of the last run, the compressed path at the largest n,
+    # which runs all seven kernels
     last = runs[-1]["launches"]
-    table = [{"name": k, "route": "cuda",
-              "source": f"hsolve_torch/csrc/{sources[k]}",
-              "replaces": replaces[k], "launches": last[k],
+    table = [{"name": k, "route": "cuda", "source": f"hsolve_torch/csrc/{src}",
+              "replaces": rep, "launches": last[k],
               "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
-              "plain_ms": kres[k]["plain_ms"]} for k in sources]
+              "plain_ms": kres[k]["plain_ms"]}
+             for k, (src, rep) in SOURCES.items()]
     log("[5] main path runs: " + json.dumps(
         [{k: v for k, v in r.items() if k != "launches"} for r in runs]))
     print(json.dumps({"kernels": table}), flush=True)

@@ -1,5 +1,5 @@
 """Numeric factorization: level-synchronous batched multifrontal elimination
-(port of the exact path of ``hsolve/factor.py``).
+(port of the exact and low-rank compressed paths of ``hsolve/factor.py``).
 
 The planner's schedule runs bottom-up, one batched step per height level, as a
 plain Python loop over eagerly executed torch calls.  Each level:
@@ -17,6 +17,18 @@ Steps 2-4 are library calls (:mod:`hsolve_torch.ops.dense`).  The solve
 (:func:`solve_with_data`) sweeps the levels with kernel C
 (:func:`~hsolve_torch.ops.sweep.sweep_update`) around the pivot solves.
 
+A compressed level (``swlevel < 0`` with ``hss=False``) stores its Gauss
+transforms as tolerance-truncated low-rank pairs ``L ~= LU_ LV_^T`` and
+``R ~= RU_ RV_^T`` from a randomized factorization of ``Abi`` and ``Aib``
+(:func:`~hsolve_torch.ops.lowrank.rand_lowrank`, whose truncation is kernel
+G); ``D`` touches only the ``k`` sketch columns, and ``S = Abb - (Abi RU_)
+RV_^T`` is kernel F (:func:`~hsolve_torch.ops.schur.lowrank_schur_update`).
+Its solve updates are kernel E
+(:func:`~hsolve_torch.ops.sweep.lowrank_sweep_update`).  The sketches come
+from a ``torch.Generator`` on the factorization's device, seeded from
+``(opts.seed, batch index)``; ``sketch=`` hands in others (the tests pass the
+JAX package's).
+
 Float32 products never use TF32 here: ``factor_with_plan`` sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` explicitly (float64, the
 slice's type, is unaffected either way).
@@ -25,7 +37,7 @@ slice's type, is unaffected either way).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
@@ -34,7 +46,9 @@ import torch
 from hsolve_torch.interop import TorchPlan, plan_to_torch
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.assembly import extend_add, front_assemble
-from hsolve_torch.ops.sweep import sweep_update
+from hsolve_torch.ops.lowrank import rand_lowrank, sketch_width
+from hsolve_torch.ops.schur import lowrank_schur_update
+from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
 from hsolve_torch.options import SolverOptions
 from hsolve_torch.planner import Plan, plan_factorization
 from hsolve_torch.utils.trees import NDTree
@@ -52,6 +66,33 @@ class DenseLevel:
     bnd_ids: torch.Tensor         # [B, nb_pad] int32 gather/scatter map, sentinel N
     dinv: Optional[torch.Tensor] = None        # [B, ni_pad, ni_pad] explicit D^{-1}
     diag_ratio: Optional[torch.Tensor] = None  # [B] pivot-growth proxy (with dinv)
+
+
+@dataclasses.dataclass
+class CompressedLevel:
+    """Factor data for a compressed height level: the Gauss transforms in
+    tolerance-truncated low-rank form (parity with ``_lgauss_transform`` /
+    ``_rgauss_transform``, factorization.jl:171-209)."""
+
+    lu: Optional[torch.Tensor]    # [B, ni_pad, ni_pad] (None with dinv)
+    perm: Optional[torch.Tensor]  # [B, ni_pad] int64
+    LU_: torch.Tensor             # L ~= LU_ @ LV_^T : [B, nb_pad, k]
+    LV_: torch.Tensor             # [B, ni_pad, k]
+    RU_: torch.Tensor             # R ~= RU_ @ RV_^T : [B, ni_pad, k]
+    RV_: torch.Tensor             # [B, nb_pad, k]
+    lrank: torch.Tensor           # [B] int32
+    rrank: torch.Tensor           # [B] int32
+    int_ids: torch.Tensor         # [B, ni_pad] int32, sentinel N
+    bnd_ids: torch.Tensor         # [B, nb_pad] int32, sentinel N
+    dinv: Optional[torch.Tensor] = None
+    diag_ratio: Optional[torch.Tensor] = None
+
+
+Level = Union[DenseLevel, CompressedLevel]
+# sketch(batch index, (n_bi, s_bi), (n_ib, s_ib)) -> (omega_bi, omega_ib): the
+# [n, s] Gaussian sketches of Abi and Aib for one compressed batch
+Sketch = Callable[[int, Tuple[int, int], Tuple[int, int]],
+                  Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -89,7 +130,7 @@ class Factorization:
 
     N: int
     perm: np.ndarray
-    levels: List[DenseLevel]
+    levels: List[Level]
     root: Optional[RootSolve]
     opts: SolverOptions
     plan: Optional[Plan]
@@ -123,6 +164,33 @@ class Factorization:
         """Everything ``solve`` needs, for :func:`solve_with_data` (the
         preconditioner data of :func:`~hsolve_torch.krylov.gmres_compiled`)."""
         return (self.levels, self.root, self._dperm, self._diperm)
+
+    def maxrank(self) -> int:
+        """Max compression rank across the factorization (parity with
+        ``maxrank``, factornode.jl:49-57); 0 on the dense path.  One small
+        device->host fetch."""
+        return max([lv["max_rank"] for lv in self.rank_report()["levels"]],
+                   default=0)
+
+    def rank_report(self) -> dict:
+        """Per compressed level: planned cap, computed max rank, and whether
+        any node *saturated* its cap (the randomized compression may then have
+        truncated - the condition ``randcompress_adaptive`` grows its sample
+        budget on, factorization.jl:110).  One small device->host fetch."""
+        comp = [(i, lev) for i, lev in enumerate(self.levels)
+                if isinstance(lev, CompressedLevel)]
+        out = {"levels": [], "saturated": False}
+        if not comp:
+            return out
+        ranks = torch.stack([torch.maximum(lev.lrank.max(), lev.rrank.max())
+                             for _, lev in comp]).cpu().tolist()
+        for (i, lev), mr in zip(comp, ranks):
+            cap = lev.LU_.shape[-1]
+            sat = mr >= cap
+            out["levels"].append({"level": i, "max_rank": int(mr), "cap": cap,
+                                  "saturated": sat})
+            out["saturated"] = out["saturated"] or sat
+        return out
 
     def _cond_device(self):
         """Per-level pivot diag ratios as device scalars + (tag, eps) labels."""
@@ -203,28 +271,98 @@ def _factor_front(front: torch.Tensor, sperm: torch.Tensor, ni_pad: int,
     return lu, perm, L, R, S, None, None
 
 
+def _factor_front_compressed(front: torch.Tensor, sperm: torch.Tensor,
+                             ni_pad: int, cap: int, atol: float, rtol: float,
+                             omega_bi: torch.Tensor, omega_ib: torch.Tensor,
+                             explicit_inv: bool = False,
+                             fast_inverse: bool = False):
+    """Compressed front step (parity with ``_factor_branch`` Val{true},
+    factorization.jl:78-112, and ``hsolve/factor.py:331-381``):
+
+    - Gauss transforms from the randomized tolerance-truncated factorization
+      of the off-diagonal blocks (tolerances already scaled by ``c_tol``),
+    - ``L = LU_ (D^-T LV)^T`` and ``R = (D^-1 RU) RV^T``: the D-solve touches
+      only the k sketch columns,
+    - ``S = Abb - (Abi RU_) RV_^T`` (exact Abi, compressed R), permuted
+      (kernel F)."""
+    D = front[:, :ni_pad, :ni_pad]
+    Aib = front[:, :ni_pad, ni_pad:]
+    Abi = front[:, ni_pad:, :ni_pad]
+    lr_bi = rand_lowrank(Abi, omega_bi, atol, rtol, cap)
+    lr_ib = rand_lowrank(Aib, omega_ib, atol, rtol, cap)
+    lu = perm = dinv = ratio = None
+    if fast_inverse and explicit_inv:
+        dinv, ratio = dk.block_inverse(D)
+        LV = dinv.transpose(-1, -2) @ lr_bi.V     # D^-T V: [B, ni_pad, k]
+        RU = dinv @ lr_ib.U
+    else:
+        lu, perm = dk.lu_factor(D)
+        LV = dk.lu_solve_right(lu, perm, lr_bi.V.transpose(-1, -2)
+                               ).transpose(-1, -2)
+        RU = dk.lu_solve(lu, perm, lr_ib.U)       # [B, ni_pad, k]
+        if explicit_inv:
+            dinv, ratio = dk.lu_inverse(lu, perm), dk._diag_ratio(lu)
+            lu = perm = None
+    # row-major factors for kernels E and F (the triangular solves may return
+    # column-major ones)
+    LV, RU = LV.contiguous(), RU.contiguous()
+    S = lowrank_schur_update(front, ni_pad, (Abi @ RU).contiguous(), lr_ib.V,
+                             sperm)
+    return (lu, perm, lr_bi.U, LV, RU, lr_ib.V, lr_bi.rank, lr_ib.rank, S,
+            dinv, ratio)
+
+
+def torch_sketch(seed: int, device: torch.device, dtype: torch.dtype) -> Sketch:
+    """The factorization's default sketches: per compressed batch a
+    ``torch.Generator`` on ``device`` seeded from ``(seed, batch index)`` draws
+    the Abi sketch, then the Aib one (the JAX package's ``split`` order)."""
+    def draw(bidx, bi, ib):
+        gen = torch.Generator(device=device)
+        gen.manual_seed((int(seed) << 24) + int(bidx))
+        return tuple(torch.randn(shape, generator=gen, device=device,
+                                 dtype=dtype) for shape in (bi, ib))
+    return draw
+
+
 def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
-                   dtype: torch.dtype):
+                   dtype: torch.dtype, sketch: Optional[Sketch] = None):
     """Run the schedule; returns (levels, root, Schur stacks by batch)."""
     adata = tp.adata.to(dtype)
     fastinv = opts.resolve_fast_inverse()
-    levels: List[DenseLevel] = []
+    if sketch is None:
+        sketch = torch_sketch(opts.seed, tp.device, dtype)
+    levels: List[Level] = []
     s_stacks: Dict[int, torch.Tensor] = {}
     for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
-        if bp.compress or bp.structured:
+        if bp.structured or (bp.compress and bp.cplan is not None):
             raise NotImplementedError(
-                f"batch {bidx} is compressed; compressed batches belong to the "
-                "port's low-rank slice")
+                f"batch {bidx} emits an HSS Schur complement; structured "
+                "(HSS) batches belong to the port's structured slice")
         front = front_assemble(bp.B, bp.m_pad, tb.pos, tb.src, adata)
         # left groups before right ones, the JAX package's order
         for groups, imap in ((tb.groups_l, tb.map_l), (tb.groups_r, tb.map_r)):
             for src_batch, src_rows, dst_rows in groups:
                 extend_add(front, s_stacks[src_batch], src_rows, dst_rows, imap)
-        lu, perm, L, R, S, dinv, ratio = _factor_front(
-            front, tb.sperm, bp.ni_pad, opts.explicit_inverse, fastinv)
-        levels.append(DenseLevel(lu=lu, perm=perm, L=L, R=R, int_ids=tb.int_ids,
-                                 bnd_ids=tb.bnd_ids, dinv=dinv,
-                                 diag_ratio=ratio))
+        if bp.compress:
+            shapes = [(n, sketch_width(bp.rank_cap, n))
+                      for n in (bp.ni_pad, bp.nb_pad)]
+            om_bi, om_ib = (o.to(device=tp.device, dtype=dtype)
+                            for o in sketch(bidx, *shapes))
+            (lu, perm, LU_, LV_, RU_, RV_, lrank, rrank, S, dinv,
+             ratio) = _factor_front_compressed(
+                front, tb.sperm, bp.ni_pad, bp.rank_cap, opts.c_tol * opts.atol,
+                opts.c_tol * opts.rtol, om_bi, om_ib, opts.explicit_inverse,
+                fastinv)
+            levels.append(CompressedLevel(
+                lu=lu, perm=perm, LU_=LU_, LV_=LV_, RU_=RU_, RV_=RV_,
+                lrank=lrank, rrank=rrank, int_ids=tb.int_ids,
+                bnd_ids=tb.bnd_ids, dinv=dinv, diag_ratio=ratio))
+        else:
+            lu, perm, L, R, S, dinv, ratio = _factor_front(
+                front, tb.sperm, bp.ni_pad, opts.explicit_inverse, fastinv)
+            levels.append(DenseLevel(lu=lu, perm=perm, L=L, R=R,
+                                     int_ids=tb.int_ids, bnd_ids=tb.bnd_ids,
+                                     dinv=dinv, diag_ratio=ratio))
         s_stacks[bidx] = S
     root = _root_from_stacks(plan, tp, s_stacks, dtype, opts)
     return levels, root, s_stacks
@@ -261,14 +399,15 @@ def _pivot_solve(lev, x: torch.Tensor) -> torch.Tensor:
     return dk.lu_solve(lev.lu, lev.perm, x)
 
 
-def _apply(levels: List[DenseLevel], root: Optional[RootSolve],
+def _apply(levels: List[Level], root: Optional[RootSolve],
            b: torch.Tensor) -> torch.Tensor:
     """Hierarchical solve (parity with ``ldiv!`` + ``_lsolve!/_dsolve!/_rsolve!``,
     factornode.jl:62-99) in the post-order permutation.
 
-    Bottom-up: ``C[bnd] -= L C[int]`` (kernel C) then ``C[int] = D^{-1} C[int]``;
-    root boundary solve; top-down: ``C[int] -= R C[bnd]`` (kernel C).  ``C``
-    carries a zero sentinel row N that padded ids point at."""
+    Bottom-up: ``C[bnd] -= L C[int]`` (kernel C; kernel E on a compressed
+    level) then ``C[int] = D^{-1} C[int]``; root boundary solve; top-down:
+    ``C[int] -= R C[bnd]`` (kernel C or E).  ``C`` carries a zero sentinel row N
+    that padded ids point at."""
     N = b.shape[0]
     vec = b.ndim == 1
     C = b[:, None] if vec else b
@@ -276,7 +415,10 @@ def _apply(levels: List[DenseLevel], root: Optional[RootSolve],
 
     for lev in levels:
         x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
-        sweep_update(C, lev.bnd_ids, lev.L, N, X=x)
+        if isinstance(lev, CompressedLevel):
+            lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
+        else:
+            sweep_update(C, lev.bnd_ids, lev.L, N, X=x)
         C[lev.int_ids] = _pivot_solve(lev, x)
 
     if root is not None:
@@ -285,7 +427,11 @@ def _apply(levels: List[DenseLevel], root: Optional[RootSolve],
             dk.lu_solve(root.lu, root.perm, xr)
 
     for lev in reversed(levels):
-        sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+        if isinstance(lev, CompressedLevel):
+            lowrank_sweep_update(C, lev.int_ids, lev.RU_, lev.RV_, N,
+                                 ids_in=lev.bnd_ids)
+        else:
+            sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
 
     C = C[:N]
     return C[:, 0] if vec else C
@@ -310,12 +456,13 @@ def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
 
 
 def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
-                     device) -> Factorization:
+                     device, sketch: Optional[Sketch] = None) -> Factorization:
     """Execute the planner's schedule on ``device`` ("cpu" or "cuda[:i]").
 
-    ``plan`` may come from either planner.  On a CUDA device the four kernels
-    run and the dtype must be float64; on the CPU every kernel runs as its plain
-    torch version."""
+    ``plan`` may come from either planner.  On a CUDA device the kernels run
+    and the dtype must be float64; on the CPU every kernel runs as its plain
+    torch version.  ``sketch`` replaces the default sketches of the compressed
+    batches (see :data:`Sketch` and :func:`torch_sketch`)."""
     dev = resolve_device(device)
     tdt = _torch_dtype(dtype, plan)
     if dev.type == "cuda" and tdt != torch.float64:
@@ -327,21 +474,46 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
 
         with verbose_level(True):
             for i, bp in enumerate(plan.batches):
-                logger.info("batch %d: B=%d ni_pad=%d nb_pad=%d %snnz=%d", i,
+                logger.info("batch %d: B=%d ni_pad=%d nb_pad=%d %s%snnz=%d", i,
                             bp.B, bp.ni_pad, bp.nb_pad,
-                            "leaf " if bp.is_leaf else "", len(bp.front_pos))
+                            "leaf " if bp.is_leaf else "",
+                            f"compressed cap={bp.rank_cap} " if bp.compress
+                            else "", len(bp.front_pos))
     tp = plan_to_torch(plan, dev)
-    levels, root, _ = _factor_levels(plan, tp, opts, tdt)
+    levels, root, _ = _factor_levels(plan, tp, opts, tdt, sketch)
     return Factorization(N=plan.N, perm=plan.perm, levels=levels, root=root,
                          opts=opts, plan=plan, device=dev)
 
 
 def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
-           dtype=None, *, device, **overrides) -> Factorization:
+           dtype=None, *, device, sketch: Optional[Sketch] = None,
+           **overrides) -> Factorization:
     """Top-level entry (parity with ``factor(A, nd, nd_loc, opts; args...)``,
-    factorization.jl:5-11): plan, then factor on ``device``."""
+    factorization.jl:5-11): plan, then factor on ``device``.
+
+    With ``opts.adaptive`` the computed compression ranks are checked against
+    the planned caps; on saturation the problem is re-planned with the largest
+    saturated cap doubled as ``rank_cap`` and re-factored, at most three
+    attempts in all (host-loop parity with ``randcompress_adaptive``'s sample
+    budget growth, factorization.jl:110)."""
     opts = (opts or SolverOptions()).replace(**overrides)
     opts.validate()
     dev = resolve_device(device)
-    plan = plan_factorization(A, tree, opts)
-    return factor_with_plan(plan, opts, dtype=dtype, device=dev)
+    for attempt in range(3):
+        plan = plan_factorization(A, tree, opts)
+        F = factor_with_plan(plan, opts, dtype=dtype, device=dev, sketch=sketch)
+        if not opts.adaptive:
+            return F
+        report = F.rank_report()
+        if not report["saturated"]:
+            return F
+        from hsolve_torch.utils.logging import logger
+
+        new_cap = 2 * max(lv["cap"] for lv in report["levels"] if lv["saturated"])
+        logger.warning(
+            "compression rank saturated the planned cap on %d level(s) "
+            "(report: %s); re-planning with rank_cap=%d (attempt %d)",
+            sum(lv["saturated"] for lv in report["levels"]), report["levels"],
+            new_cap, attempt + 1)
+        opts = opts.replace(rank_cap=new_cap)
+    return F

@@ -3,9 +3,9 @@
 - :func:`plan_to_torch` uploads a :class:`Plan`'s index arrays to a device once
   (cached on the plan).  It accepts a plan from either planner: the JAX
   package's and the port's ``Plan`` have identical fields.
-- :func:`factorization_from_numpy` turns a JAX ``Factorization``'s level records,
-  fetched to numpy, into the port's, so the port's solve sweep can run on the
-  JAX factors alone.
+- :func:`factorization_from_numpy` turns a JAX ``Factorization``'s level records
+  (dense and low-rank compressed), fetched to numpy, into the port's, so the
+  port's solve sweep can run on the JAX factors alone.
 """
 
 from __future__ import annotations
@@ -97,10 +97,12 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
     records fetched to numpy.
 
     ``levels_np``: one record per level, a mapping or an object with the fields
-    ``lu, perm, L, R, dinv, int_ids, bnd_ids`` (None where absent);
-    ``root_np``: None or a record with ``lu, perm, bnd_ids, inv``; ``perm``: the
-    plan's post-order permutation."""
-    from hsolve_torch.factor import DenseLevel, Factorization, RootSolve
+    ``lu, perm, L, R, dinv, int_ids, bnd_ids`` (None where absent), or, for a
+    compressed level, ``LU_, LV_, RU_, RV_, lrank, rrank`` in place of
+    ``L, R``; ``root_np``: None or a record with ``lu, perm, bnd_ids, inv``;
+    ``perm``: the plan's post-order permutation."""
+    from hsolve_torch.factor import (CompressedLevel, DenseLevel, Factorization,
+                                     RootSolve)
     from hsolve_torch.options import SolverOptions
 
     device = torch.device(device)
@@ -111,12 +113,20 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
 
     levels = []
     for rec in levels_np:
-        levels.append(DenseLevel(
+        common = dict(
             lu=t(_field(rec, "lu")), perm=t(_field(rec, "perm"), torch.int64),
-            L=t(_field(rec, "L")), R=t(_field(rec, "R")),
             int_ids=t(_field(rec, "int_ids"), torch.int32),
             bnd_ids=t(_field(rec, "bnd_ids"), torch.int32),
-            dinv=t(_field(rec, "dinv"))))
+            dinv=t(_field(rec, "dinv")))
+        if _field(rec, "LU_") is not None:
+            levels.append(CompressedLevel(
+                **common, **{f: t(_field(rec, f)) for f in
+                             ("LU_", "LV_", "RU_", "RV_")},
+                lrank=t(_field(rec, "lrank"), torch.int32),
+                rrank=t(_field(rec, "rrank"), torch.int32)))
+        else:
+            levels.append(DenseLevel(**common, L=t(_field(rec, "L")),
+                                     R=t(_field(rec, "R"))))
     root = None
     if root_np is not None:
         root = RootSolve(lu=t(_field(root_np, "lu")),

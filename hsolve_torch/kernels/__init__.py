@@ -1,7 +1,8 @@
 """Build and binding of the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``hsolve_torch/csrc/*.cu`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, ``build/hsolve_torch/
+``nvcc`` compiles every ``hsolve_torch/csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, ``build/hsolve_torch/
 libhsolve_kernels.so``, at first use; it rebuilds when a source is newer than
 the library.  ``ctypes`` loads it: every pointer and the stream pass as
 ``c_void_p``, and each entry point returns ``cudaGetLastError()``, which
@@ -12,8 +13,13 @@ they serve:
 
 - ``front_assemble`` (kernel A) and ``extend_add`` (kernel B) in
   :mod:`hsolve_torch.ops.assembly`,
-- ``sweep_update`` (kernel C) in :mod:`hsolve_torch.ops.sweep`,
-- ``dia_spmv`` (kernel D) in :mod:`hsolve_torch.ops.sparse`.
+- ``sweep_update`` (kernel C) and ``lowrank_sweep_update`` (kernel E) in
+  :mod:`hsolve_torch.ops.sweep`,
+- ``dia_spmv`` (kernel D) in :mod:`hsolve_torch.ops.sparse`,
+- ``lowrank_schur_update`` (kernel F) in :mod:`hsolve_torch.ops.schur`,
+- ``lowrank_truncate`` (kernel G) in :mod:`hsolve_torch.ops.lowrank`.
+
+Kernels A-D run on every path; E, F and G on the compressed levels only.
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
@@ -36,14 +42,20 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "hsolve_torch")
 LIB = os.path.join(BUILD, "libhsolve_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "hs_front_assemble": [_V, _V, _V, _V, _LL, _V],
     "hs_extend_add": [_V, _V, _V, _V, _V, _I, _I, _I, _V],
     "hs_sweep_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _I, _V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
+    "hs_lowrank_sweep_update": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I,
+                                _I, _V],
+    "hs_lowrank_schur_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _V],
+    "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
+                            _I, _V],
 }
 
 _lib = None
@@ -76,16 +88,41 @@ def build(force: bool = False) -> Dict[str, object]:
     if not force and not _stale():
         return {"built": False, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc, tag = _nvcc(), os.getpid()
+    tmp = f"{LIB}.{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    jobs, objs = [], []
+    for src in sources():
+        obj = os.path.join(BUILD, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        objs.append(obj)
+    log = []
+    try:
+        for cmd, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB)
-    return {"built": True, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    return {"built": True, "seconds": time.perf_counter() - t0,
+            "log": "".join(log)}
 
 
 def lib() -> ctypes.CDLL:
@@ -141,14 +178,24 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
                          f"{tuple(t.shape)}")
 
 
+EXACT_PATH = ("front_assemble", "extend_add", "sweep_update", "dia_spmv")
+COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
+                                "lowrank_truncate")
+
+
 def wrappers():
-    """The four kernel wrappers, by name."""
+    """The seven kernel wrappers, by name (A-G)."""
     from hsolve_torch.ops.assembly import extend_add, front_assemble
+    from hsolve_torch.ops.lowrank import lowrank_truncate
+    from hsolve_torch.ops.schur import lowrank_schur_update
     from hsolve_torch.ops.sparse import dia_spmv
-    from hsolve_torch.ops.sweep import sweep_update
+    from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
 
     return {"front_assemble": front_assemble, "extend_add": extend_add,
-            "sweep_update": sweep_update, "dia_spmv": dia_spmv}
+            "sweep_update": sweep_update, "dia_spmv": dia_spmv,
+            "lowrank_sweep_update": lowrank_sweep_update,
+            "lowrank_schur_update": lowrank_schur_update,
+            "lowrank_truncate": lowrank_truncate}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,11 +1,18 @@
-"""Per-level update of the hierarchical solve: kernel C with its plain version.
+"""Per-level updates of the hierarchical solve: kernels C and E with their plain
+versions.
 
-:func:`sweep_update` (``csrc/sweep_update.cu``) is the fused gather -> batched
-GEMV -> scatter-add that ``hsolve/factor.py:_apply_impl`` runs twice per level:
+:func:`sweep_update` (kernel C, ``csrc/sweep_update.cu``) is the fused gather ->
+batched GEMV -> scatter-add that ``hsolve/factor.py:_apply_impl`` runs twice per
+dense level:
 
 - forward: ``C[bnd_ids] -= L @ X`` with ``X = C[int_ids]`` gathered by the caller
   before the pivot solve overwrites ``C[int]``,
 - backward: ``C[int_ids] -= R @ C[bnd_ids]``, gathered inside.
+
+:func:`lowrank_sweep_update` (kernel E, ``csrc/lowrank_sweep_update.cu``) is the
+same update on a compressed level, where the Gauss transform is a low-rank pair
+``M ~= U V^T``: ``C[ids_out] -= U @ (V^T @ Y)`` (``hsolve/factor.py:528-529``,
+``:555-556``).
 
 ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
 such ids are skipped and input rows with them read as zero.
@@ -35,15 +42,19 @@ def _inputs(C: torch.Tensor, N: int, X: Optional[torch.Tensor],
     return torch.where(valid[..., None], Y, 0.0)
 
 
+def _scatter_sub(C: torch.Tensor, ids_out: torch.Tensor, upd: torch.Tensor,
+                 N: int) -> torch.Tensor:
+    keep = ids_out < N
+    C.index_put_((ids_out[keep].long(),), -upd[keep], accumulate=True)
+    return C
+
+
 def sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor,
                        N: int, X: Optional[torch.Tensor] = None,
                        ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """In place: ``C[ids_out[b, r]] -= sum_c M[b, r, c] * Y[b, c]`` with
     ``Y = X`` or ``Y = C[ids_in]``; returns ``C``."""
-    upd = M @ _inputs(C, N, X, ids_in)                       # [B, R, k]
-    keep = ids_out < N
-    C.index_put_((ids_out[keep].long(),), -upd[keep], accumulate=True)
-    return C
+    return _scatter_sub(C, ids_out, M @ _inputs(C, N, X, ids_in), N)
 
 
 def sweep_update(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor, N: int,
@@ -76,3 +87,58 @@ def sweep_update(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor, N: int
 
 
 sweep_update.launches = 0
+
+
+# the [k_cap, k] sketch-product tile that kernel E stages in shared memory
+LOWRANK_SMEM_DOUBLES = 4096
+
+
+def lowrank_sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor,
+                               U: torch.Tensor, V: torch.Tensor, N: int,
+                               X: Optional[torch.Tensor] = None,
+                               ids_in: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """In place: ``C[ids_out[b, r]] -= (U[b] @ (V[b]^T @ Y[b]))[r]`` with
+    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``."""
+    Y = _inputs(C, N, X, ids_in)
+    return _scatter_sub(C, ids_out, U @ (V.transpose(-1, -2) @ Y), N)
+
+
+def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor,
+                         V: torch.Tensor, N: int,
+                         X: Optional[torch.Tensor] = None,
+                         ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel E wrapper (in place on ``C``; see the plain version).  ``U`` is
+    [B, R, k_cap] (rows follow ``ids_out``), ``V`` [B, Cc, k_cap] (rows follow
+    ``X`` or ``ids_in``)."""
+    operands = [C, ids_out, U, V] + [t for t in (X, ids_in) if t is not None]
+    if kernels.on_cpu(*operands):
+        return lowrank_sweep_update_plain(C, ids_out, U, V, N, X, ids_in)
+    _check_inputs(X, ids_in)
+    B, R, kc = U.shape
+    Cc = V.shape[1]
+    k = C.shape[1]
+    if not 0 <= N <= C.shape[0]:
+        raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
+    if kc > LOWRANK_SMEM_DOUBLES:
+        raise ValueError(f"rank cap {kc} > {LOWRANK_SMEM_DOUBLES}, the kernel's "
+                         "shared-memory tile")
+    kernels.require(C, "C", torch.float64, (C.shape[0], k))
+    kernels.require(U, "U", torch.float64)
+    kernels.require(V, "V", torch.float64, (B, Cc, kc))
+    kernels.require(ids_out, "ids_out", torch.int32, (B, R))
+    if X is not None:
+        kernels.require(X, "X", torch.float64, (B, Cc, k))
+    else:
+        kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
+    if B * R and Cc and kc and k:
+        kernels.launch("hs_lowrank_sweep_update", C.device, C.data_ptr(),
+                       ids_out.data_ptr(), U.data_ptr(), V.data_ptr(),
+                       None if X is None else X.data_ptr(),
+                       None if ids_in is None else ids_in.data_ptr(),
+                       B, R, Cc, kc, k, N)
+        lowrank_sweep_update.launches += 1
+    return C
+
+
+lowrank_sweep_update.launches = 0

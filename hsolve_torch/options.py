@@ -1,16 +1,18 @@
 """Solver options (jax-free copy of ``hsolve/options.py``).
 
 The nine reference fields (``swlevel, swsize, atol, rtol, c_tol, leafsize, kest,
-stepsize, verbose``) keep their names, defaults and validation semantics, and
-``pad`` is the planner's padding granularity, so a port plan equals the JAX
-planner's plan for the same options.
+stepsize, verbose``) keep their names, defaults and validation semantics;
+``pad``, ``rank_cap``, ``rank_pad`` and ``level_caps`` are the planner's static
+shapes, so a port plan equals the JAX planner's plan for the same options.
+``seed``, ``hss`` and ``adaptive`` keep the JAX meanings.  ``hss=True`` (the
+default, as in JAX) plans the structured (HSS) Schur complements, which the
+port does not have yet: compressing with it raises, and ``hss=False`` runs the
+low-rank compressed path with dense Schur complements.
 
-Not carried over: the compressed path's fields (``rank_cap``, ``rank_pad``,
-``level_caps``, ``seed``, ``hss``, ``adaptive``) come with the low-rank slice;
-``dtype`` is the ``dtype=`` argument of ``factor``; ``matmul_precision`` and
-``structured_precision`` picked the TPU's bf16 matmul passes, while the port
-runs every float64 product at full precision and keeps TF32 off (see
-:mod:`hsolve_torch.factor`).
+Not carried over: ``dtype`` is the ``dtype=`` argument of ``factor``;
+``matmul_precision`` and ``structured_precision`` picked the TPU's bf16 matmul
+passes, while the port runs every float64 product at full precision and keeps
+TF32 off (see :mod:`hsolve_torch.factor`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,18 @@ class SolverOptions:
 
     # --- static-shape planning ---
     pad: int = 8              # pad front dims (ni, nb) up to multiples of this
+    rank_cap: int = 0         # static max rank for low-rank blocks (0 = planner
+                              # decides: from kest when kest > 0 - the reference's
+                              # user-provided rank estimate (factorization.jl:102-104)
+                              # - else boundary/4)
+    rank_pad: int = 8         # pad ranks up to multiples of this
+    # Per-tree-level rank caps, indexed by reference recursion level (root = 1,
+    # level_caps[0] caps the root level; the LAST entry extends to all deeper
+    # levels).  Overrides rank_cap/kest where set.
+    level_caps: Optional[tuple] = None
+    seed: int = 123           # seed of the randomized compression's sketches
+    hss: bool = True          # emit HSS Schur complements on compressed levels
+                              # (False = low-rank Gauss transforms only, dense S)
     explicit_inverse: Optional[bool] = None  # additionally store D^{-1} (and the root
                               # inverse) so every solve sweep is a GEMM instead of a
                               # pair of triangular solves; trades 2x pivot-block
@@ -45,6 +59,11 @@ class SolverOptions:
                               # inversion (pivoting confined to base diagonal
                               # blocks) instead of pivoted LU + triangular solves.
                               # Only takes effect with explicit_inverse; opt-in.
+    adaptive: bool = False    # after a compressed factorization, check the computed
+                              # ranks against the planned caps and re-factor with
+                              # doubled caps on saturation (host-loop parity with
+                              # randcompress_adaptive, factorization.jl:110).  Costs
+                              # one small device->host fetch per factorization.
 
     def replace(self, **kwargs) -> "SolverOptions":
         """Kwarg-override copy (parity with ``copy(opts; args...)``,

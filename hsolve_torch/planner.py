@@ -1,9 +1,11 @@
 """Host-side symbolic planner (jax-free copy of ``hsolve/planner.py``).
 
-The copy keeps what exact (``swlevel=0``) planning runs, numpy code unchanged, so
-its :class:`Plan` equals the JAX planner's array for array.  Options that would
-compress a batch raise ``NotImplementedError``: the low-rank and structured (HSS)
-batches belong to later slices of the port.
+The copy keeps what exact (``swlevel=0``) and low-rank compressed (``hss=False``)
+planning run, numpy code unchanged, so its :class:`Plan` equals the JAX
+planner's array for array.  ``hss=True`` with any compressed node raises
+``NotImplementedError``: the structured (HSS) batches, their cluster plans
+(``cplan``, ``n1``, ``n2``) and the cross blocks belong to the port's structured
+(HSS) slice.
 
 Instead of the reference's runtime tree recursion (``factorization.jl:14-27``),
 the planner turns the elimination tree into a *static, level-synchronous schedule*
@@ -41,6 +43,35 @@ from hsolve_torch.utils.trees import LocTree, NDTree, permuted, postorder, symfa
 
 def _round_up(x: int, m: int) -> int:
     return int(-(-x // m) * m) if x > 0 else 0
+
+
+def _cap_rule(opts: SolverOptions, dim: int, lev: Optional[int] = None) -> int:
+    """Static rank cap for a compressed batch whose relevant dimension is ``dim``
+    at reference recursion level ``lev`` (root = 1).
+
+    ``level_caps`` wins when set; then ``rank_cap``; then ``kest > 0`` - the
+    reference's user-provided rank estimate for the randomized compression
+    (factorization.jl:102-104) - with one ``stepsize`` of headroom (the
+    reference grows its sample budget in ``stepsize`` steps).  The ``dim // 4``
+    fallback is a generous over-provision for unknown problems: pair it with
+    ``opts.adaptive`` or calibrate."""
+    if opts.level_caps and lev is not None and lev >= 1:
+        return int(opts.level_caps[min(lev - 1, len(opts.level_caps) - 1)])
+    if opts.rank_cap > 0:
+        return opts.rank_cap
+    if opts.kest > 0:
+        return opts.kest + max(opts.stepsize, 0)
+    return max(dim // 4, 32)
+
+
+def _rank_cap(opts: SolverOptions, compress: bool, nodes, levels, ni_pad: int,
+              nb_pad: int) -> int:
+    """The batch's rank cap: ``min(ni_pad, nb_pad, round_up(cap, rank_pad))``
+    on a compressed batch with a boundary, else 0 (the batch stays dense)."""
+    if not (compress and nb_pad > 0):
+        return 0
+    cap = _cap_rule(opts, nb_pad, int(levels[nodes].min()))
+    return min(ni_pad, nb_pad, _round_up(cap, opts.rank_pad))
 
 
 @dataclasses.dataclass
@@ -146,13 +177,14 @@ class Plan:
 
 
 def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
-                        m_pad, is_leaf_batch, levels,
+                        m_pad, is_leaf_batch, compress, levels,
                         s_batch, s_row, batches, opts, N, bidx,
                         pools=None, deferred=None) -> None:
-    """Plan one regular (dense) batch: front COO
+    """Plan one regular (dense or compressed-with-dense-children) batch: front COO
     gathers, extend-add maps, id/perm fills.  Appends the BatchPlan to ``batches``
     and records the nodes' Schur locations in ``s_batch``/``s_row``."""
     B = len(nodes)
+    rank_cap = _rank_cap(opts, compress, nodes, levels, ni_pad, nb_pad)
     if deferred is not None and B * m_pad * m_pad < 2 ** 31:
         # consolidated native path: allocate the int32 map outputs here,
         # record the request, and let plan_factorization issue ONE native
@@ -211,6 +243,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             front_vals=front_vals, sperm=sperm, int_ids=int_ids,
             bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
             sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
+            compress=rank_cap > 0, rank_cap=rank_cap,
             groups_l=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
                            in sorted(groups_l.items())),
             groups_r=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
@@ -455,6 +488,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         sperm=sperm, int_ids=int_ids,
         bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
         sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
+        compress=rank_cap > 0, rank_cap=rank_cap,
         groups_l=_mk_groups(groups_l), groups_r=_mk_groups(groups_r)))
 
 
@@ -530,17 +564,27 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
     max_h = int(height[tree.root])
 
     # per-node compression flag (parity with factorization.jl:15:
-    # level <= swlevel and |bnd| >= swsize); compressed batches are a later slice
+    # level <= swlevel and |bnd| >= swsize)
     swlevel = opts.resolve_swlevel(depth)
     cflag = (levels <= swlevel) & (nb_all >= opts.swsize)
-    if cflag.any():
+    if opts.hss and cflag.any():
         raise NotImplementedError(
-            f"swlevel={opts.swlevel} compresses {int(cflag.sum())} node(s); "
-            "compressed (low-rank and HSS) batches belong to the port's "
-            "low-rank slice - use swlevel=0")
+            f"swlevel={opts.swlevel} with hss=True compresses "
+            f"{int(cflag.sum())} node(s) into HSS Schur complements, which "
+            "belong to the port's structured (HSS) slice; pass hss=False for "
+            "the low-rank compressed path, or swlevel=0")
 
+    # each height group splits by the compression flag, dense nodes first
     hsorted = order[np.argsort(height[order], kind="stable")]
     hs = height[hsorted]
+    groups: List[Tuple[np.ndarray, bool, bool]] = []  # (nodes, is_leaf, compress)
+    for h in range(max_h + 1):
+        lo, hi = np.searchsorted(hs, [h, h + 1])
+        at_h = hsorted[lo:hi]
+        for want in (False, True):
+            sel = at_h[cflag[at_h] == want]
+            if len(sel):
+                groups.append((sel, h == 0, want))
 
     # node -> (batch, row) location of its Schur complement (flat arrays)
     s_batch = np.full(nn, -1, dtype=np.int64)
@@ -551,11 +595,7 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
     # ~40% of schedule time at h=128)
     deferred: Optional[list] = [] if (pools is not None and gather.ok) else None
 
-    for h in range(max_h + 1):
-        lo, hi = np.searchsorted(hs, [h, h + 1])
-        nodes = hsorted[lo:hi]
-        if not len(nodes):
-            continue
+    for nodes, is_leaf_batch, compress in groups:
         bidx = len(batches)
         ni = ni_all[nodes].astype(np.int64)
         nb = nb_all[nodes].astype(np.int64)
@@ -564,8 +604,8 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
         m_pad = ni_pad + nb_pad
         _plan_regular_batch(
             gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad, m_pad,
-            h == 0, levels, s_batch, s_row, batches, opts, N, bidx, pools,
-            deferred)
+            is_leaf_batch, compress, levels, s_batch, s_row, batches, opts, N,
+            bidx, pools, deferred)
 
     if deferred:
         from hsolve_torch.native import plan_batches_all_native

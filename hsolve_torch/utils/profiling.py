@@ -3,11 +3,13 @@
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
-                                            [--out build/profile]
+                                            [--compressed] [--out build/profile]
 
-For each size n it plans helmholtz2d(n, k=40) with leafmax=100 and swlevel=0,
-then times two warm phases, the numeric factorization and the GMRES solve
-(reltol 1e-9, the factor as right preconditioner, the DIA matvec):
+For each size n it plans helmholtz2d(n, k=40) with leafmax=100 and swlevel=0
+(with ``--compressed``: the low-rank compressed configuration swlevel=-2,
+swsize=16, atol=rtol=1e-3, kest=32, hss=False), then times two warm phases,
+the numeric factorization and the GMRES solve (reltol 1e-9, the factor as
+right preconditioner, the DIA matvec):
 
 - wall time per phase without the profiler (CUDA events around ``reps`` runs),
 - device busy time per phase under ``torch.profiler`` (sum of kernel self
@@ -66,6 +68,8 @@ def main() -> int:
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--compressed", action="store_true",
+                    help="profile the low-rank compressed configuration")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -86,10 +90,13 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     kernels.build()
-    report = {"card": card, "sizes": []}
+    path = "compressed" if args.compressed else "exact"
+    report = {"card": card, "path": path, "sizes": []}
     for n in args.sizes:
         A, b, shape = ht.helmholtz2d(n, k=40.0)
-        opts = ht.SolverOptions(swlevel=0)
+        opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                                kest=32, hss=False) if args.compressed else \
+            ht.SolverOptions(swlevel=0)
         plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                      opts)
         holder = {"F": ht.factor_with_plan(plan, opts, device=dev)}
@@ -108,13 +115,14 @@ def main() -> int:
         for name, fn in (("factor", factor), ("solve", solve)):
             wall = _events_ms(fn, args.reps)
             rows = _profile(fn, args.reps,
-                            os.path.join(args.out, f"n{n}_{name}.json"))
+                            os.path.join(args.out, f"{path}_n{n}_{name}.json"))
             busy = sum(r["ms"] for r in rows)
             entry["phases"][name] = {
                 "wall_ms": wall, "device_busy_ms": busy,
                 "idle_share": 1.0 - busy / wall if wall > 0 else None,
                 "top": rows[:args.top]}
-            print(f"n={n} {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+            print(f"{path} n={n} {name}: wall {wall:.3f} ms, device busy "
+                  f"{busy:.3f} ms, "
                   f"idle share {1.0 - busy / wall:.3f}", flush=True)
             for r in rows[:args.top]:
                 print(f"    {r['ms']:9.4f} ms  {r['calls']:7.1f} calls  "

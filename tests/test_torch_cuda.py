@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, at edge cases the main path does not
-reach (several right-hand sides, sentinel ids, narrow child stacks), and the
-slice end to end on ``cuda``.
+reach (several right-hand sides, sentinel ids, narrow child stacks, ragged
+tiles, cap padding), and the exact and compressed slices end to end on
+``cuda``.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run these there with
@@ -18,8 +19,13 @@ import hsolve_torch as ht
 from hsolve_torch import kernels
 from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
                                        front_assemble, front_assemble_plain)
+from hsolve_torch.ops.lowrank import lowrank_truncate, lowrank_truncate_plain
+from hsolve_torch.ops.schur import (lowrank_schur_update,
+                                    lowrank_schur_update_plain)
 from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
-from hsolve_torch.ops.sweep import sweep_update, sweep_update_plain
+from hsolve_torch.ops.sweep import (lowrank_sweep_update,
+                                    lowrank_sweep_update_plain, sweep_update,
+                                    sweep_update_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,4 +138,89 @@ def test_slice_on_cuda(dev, explicit):
     xg = xg.cpu().numpy()
     assert np.linalg.norm(A @ xg - b) / np.linalg.norm(b) < 1e-9
     counts = kernels.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in kernels.EXACT_PATH), counts
+
+
+@pytest.mark.parametrize("k,kc", [(1, 24), (3, 48), (2, 300)])
+def test_lowrank_sweep_update_kernel_with_sentinels(dev, k, kc):
+    """Kernel E at ranks below and above the block width, several
+    right-hand sides, sentinel output and input ids."""
+    rng = np.random.default_rng(30 + k)
+    N, B, R, Cc = 2000, 5, 40, 56
+    C = torch.as_tensor(rng.standard_normal((N + 1, k)), device=dev)
+    C[N] = 0.0
+    perm = rng.permutation(N)
+    ids_out = perm[: B * R].reshape(B, R).astype(np.int32)
+    ids_in = perm[B * R: B * R + B * Cc].reshape(B, Cc).astype(np.int32)
+    ids_out[:, -3:] = N
+    ids_in[:, -5:] = N
+    ids_out = torch.as_tensor(ids_out, device=dev)
+    ids_in = torch.as_tensor(ids_in, device=dev)
+    U = torch.as_tensor(rng.standard_normal((B, R, kc)), device=dev)
+    V = torch.as_tensor(rng.standard_normal((B, Cc, kc)), device=dev)
+    X = torch.as_tensor(rng.standard_normal((B, Cc, k)), device=dev)
+    for kw in ({"X": X}, {"ids_in": ids_in}):
+        before = lowrank_sweep_update.launches
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert lowrank_sweep_update.launches == before + 1
+        assert _rel(got, want) < 1e-13
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(7, 16, 40, 24), (1, 64, 96, 70)])
+def test_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
+    """Kernel F on ragged tiles (nb not a multiple of 32) and a rank above
+    one 32-wide chunk."""
+    rng = np.random.default_rng(nb)
+    m = ni_pad + nb
+    front = torch.as_tensor(rng.standard_normal((B, m, m)), device=dev)
+    W = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
+    V = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
+    sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
+                            device=dev)
+    got = lowrank_schur_update(front, ni_pad, W, V, sperm)
+    want = lowrank_schur_update_plain(front, ni_pad, W, V, sperm)
+    assert _rel(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("m,n,r,cap", [(40, 64, 40, 32), (24, 20, 12, 16)])
+def test_lowrank_truncate_kernel(dev, m, n, r, cap):
+    """Kernel G is bitwise equal to its plain version, with and without cap
+    padding (cap > r), with atol or rtol deciding the rank."""
+    rng = np.random.default_rng(m + n)
+    B = 9
+    QU = torch.as_tensor(rng.standard_normal((B, m, r)), device=dev)
+    Vh = torch.as_tensor(rng.standard_normal((B, r, n)), device=dev)
+    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** np.arange(r),
+                 axis=-1)[:, ::-1].copy()
+    sv = torch.as_tensor(sv, device=dev)
+    for atol, rtol in ((1e-3, 1e-2), (1e-1, 0.0), (0.0, 1e-9)):
+        got = lowrank_truncate(QU, sv, Vh, atol, rtol, cap)
+        want = lowrank_truncate_plain(QU, sv, Vh, atol, rtol, cap)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
+
+
+def test_compressed_slice_on_cuda(dev):
+    """The low-rank compressed path on the card: it converges in a few GMRES
+    iterations without saturating a cap, through all seven kernels."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(64, k=20.0)
+    tree = ht.nested_dissection(shape, leafmax=40)
+    kernels.reset_launch_counts()
+    F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                  kest=32, hss=False, device=dev)
+    op, mv = ht.spmv_format(A, device=dev)
+    xg, info = ht.gmres_compiled(mv, solve_with_data,
+                                 torch.as_tensor(b, device=dev), reltol=1e-9,
+                                 restart=30, maxiter=60, mv_data=op,
+                                 M_data=F.solve_data)
+    assert info["converged"] and info["iters"] <= 12
+    xg = xg.cpu().numpy()
+    assert np.linalg.norm(A @ xg - b) / np.linalg.norm(b) < 1e-9
+    assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in kernels.COMPRESSED_PATH), counts

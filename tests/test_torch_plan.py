@@ -78,10 +78,16 @@ def test_plan_matches_jax_planner(problem, n, leafmax):
 
 
 def test_compressed_planning_is_a_later_slice():
+    """Compression with the default hss=True plans HSS Schur complements,
+    which belong to the structured slice; hss=False plans the low-rank path."""
     A, _, shape = ht.poisson2d(17)
     tree = ht.nested_dissection(shape, leafmax=20)
-    with pytest.raises(NotImplementedError, match="low-rank slice"):
+    with pytest.raises(NotImplementedError, match=r"structured \(HSS\) slice"):
         ht.plan_factorization(A, tree, ht.SolverOptions(swlevel=-2))
+    with pytest.raises(NotImplementedError, match=r"structured \(HSS\) slice"):
+        ht.factor(A, tree, swlevel=-2, device="cpu")
+    plan = ht.plan_factorization(A, tree, ht.SolverOptions(swlevel=-2, hss=False))
+    assert any(bp.compress for bp in plan.batches)
 
 
 def test_native_planner_builds_outside_the_jax_package():
