@@ -9,26 +9,35 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the seven CUDA kernels are compiled from ``hsolve_torch/csrc/`` for
+2. build: the eleven CUDA kernels are compiled from ``hsolve_torch/csrc/`` for
    ``sm_90a``, one nvcc process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
-   (A, B and G bitwise, C, D, E and F to a relative error of 1e-13, since only
-   the summation order differs); each is timed with CUDA events beside its
-   plain version (median of 10 runs after warm-up).  A-D run on the exact
-   plan; E (forward and backward) and F on the first and the top compressed
-   batch of the compressed plan, G on both sides of the first;
+   (A, B and G bitwise, H with equal pivots and ranks, C, D, E, F, I, J and K
+   to a relative error of 1e-13, since only the summation order differs);
+   each is timed with CUDA events beside its plain version (median of 10 runs
+   after warm-up).  A-D run on the exact plan; E (forward and backward) and F
+   on the first and the top compressed batch of the compressed plan, G on
+   both sides of the first; H-K on the structured (HSS) plan: H on the inputs
+   of the leaf and of an upper level of the first and the top structured
+   batch and of the first transition batch, captured while that plan is
+   factored, I-K on the HSS operands of those two batches (I on a leaf and a
+   B12 extraction, J forward and adjoint at the sketch width and at k=1, K
+   forward and adjoint as hss_factor runs it, k=r, and as hss_solve does,
+   k=1);
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
    (leafmax=100) -> plan_factorization -> factor_with_plan (float64, cuda) ->
    gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
    preconditioner, the DIA matvec), first exact (swlevel=0), then low-rank
-   compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False).
-   Each run must converge, pass an independent scipy check ||b - A x|| / ||b||
-   <= 1e-9 on the host, and launch every kernel of its path (the launch
-   counters are reset just before the run and read just after: A-D on the
-   exact path, A-G on the compressed one).  A compressed run must also stay
-   within twice the JAX package's CPU iteration counts (6 at n=128, 7 at
-   n=512) and saturate no rank cap;
+   compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False),
+   then structured (the same options with hss=True, the default).  Each run
+   must converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9
+   on the host, and launch every kernel of its path (the launch counters are
+   reset just before the run and read just after: A-D on the exact path, A-G
+   on the compressed one, A-K on the structured one).  A compressed or
+   structured run must also stay within twice the JAX package's CPU iteration
+   counts (compressed 6 at n=128 and 7 at n=512, structured 5 and 18) and
+   saturate no rank cap;
 5. output: a JSON line with one entry per kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -54,8 +63,10 @@ FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 # tolerance policy of CROSSOVER.md for compressed runs)
 COMPRESSED = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32,
                   hss=False)
+HSS = {**COMPRESSED, "hss": True}
+OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS}
 # twice the JAX package's GMRES iterations on the CPU for the same runs
-MAX_ITERS = {128: 12, 512: 14}
+MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36}}
 SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "extend_add": ("extend_add.cu", "hsolve/factor.py:390"),
            "sweep_update": ("sweep_update.cu", "hsolve/factor.py:509"),
@@ -65,7 +76,12 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "lowrank_schur_update": ("lowrank_schur_update.cu",
                                     "hsolve/factor.py:378"),
            "lowrank_truncate": ("lowrank_truncate.cu",
-                                "hsolve/ops/lowrank.py:157")}
+                                "hsolve/ops/lowrank.py:157"),
+           "cpqr_pivots": ("hss_cpqr.cu", "hsolve/ops/lowrank.py:195"),
+           "hss_entries_prepared": ("hss_entries.cu", "hsolve/ops/hss.py:293"),
+           "hss_matvec": ("hss_matvec.cu", "hsolve/ops/hss.py:207"),
+           "hss_level_correct": ("hss_level_correct.cu",
+                                 "hsolve/ops/hss.py:641")}
 
 
 T0 = time.perf_counter()
@@ -351,7 +367,165 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
     torch.cuda.synchronize()
 
 
-def main_path(problems: Problems, n: int, dev, compressed: bool) -> dict:
+def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None:
+    """Phase 3, kernels H-K against their plain versions at the structured
+    n-plan's shapes: H on inputs captured while that plan is factored, I-K on
+    the HSS operands of the factorization."""
+    import importlib
+
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import _factor_levels, torch_sketch
+    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.ops import hss as H
+    from hsolve_torch.ops import lowrank as L
+
+    fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
+    A, _, shape = problems.get(n)
+    opts = ht.SolverOptions(**HSS)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 opts)
+    tp = plan_to_torch(plan, dev)
+    f64 = torch.float64
+    struct = [i for i, bp in enumerate(plan.batches) if bp.structured]
+    trans = [i for i, bp in enumerate(plan.batches)
+             if bp.compress and not bp.structured and bp.cplan is not None]
+    if not struct or not trans:
+        fail(f"n={n}: the HSS plan has no structured or no transition batch")
+    first, top = struct[0], struct[-1]
+
+    # H's inputs: per compression of interest, its first call (the leaf level)
+    # and its first call on a [s, 2r] panel (an upper level)
+    where = {"tag": None, "calls": 0, "cap": 0}
+    captured = []
+    orig = (L.cpqr_pivots, fm._run_structured, fm.transition_compress)
+
+    def cpqr_rec(Am, atol, rtol, k):
+        tag = where["tag"]
+        kind = "leaf" if where["calls"] == 0 else \
+            "upper" if Am.shape[-1] == 2 * where["cap"] else None
+        if tag is not None and kind is not None and \
+                (tag, kind) not in {c[:2] for c in captured}:
+            captured.append((tag, kind, Am.clone(), atol, rtol, k))
+        where["calls"] += 1
+        return orig[0](Am, atol, rtol, k)
+
+    # the wrapper counts its launches on whatever its module name holds
+    cpqr_rec.launches = 0
+
+    def run_rec(bp, tb, s_stacks, opts_, dtype, bidx, sketch):
+        where.update(tag=f"batch {bidx} (structured)" if bidx in (first, top)
+                     else None, calls=0, cap=bp.rank_cap)
+        try:
+            return orig[1](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
+        finally:
+            where["tag"] = None
+
+    def trans_rec(S, n1, n2, cplan, atol, rtol, cap):
+        where.update(tag="transition" if not any(
+            c[0] == "transition" for c in captured) else None, calls=0, cap=cap)
+        try:
+            return orig[2](S, n1, n2, cplan, atol, rtol, cap)
+        finally:
+            where["tag"] = None
+
+    L.cpqr_pivots, fm._run_structured, fm.transition_compress = \
+        cpqr_rec, run_rec, trans_rec
+    try:
+        levels, _, _ = _factor_levels(plan, tp, opts, f64)
+    finally:
+        L.cpqr_pivots, fm._run_structured, fm.transition_compress = orig
+    torch.cuda.synchronize()
+    record = results.record
+
+    # H: equal pivots and ranks
+    tags = {f"batch {b} (structured)" for b in (first, top)} | {"transition"}
+    if {c[:2] for c in captured} != {(t, k) for t in tags
+                                     for k in ("leaf", "upper")}:
+        fail(f"captured cpqr inputs {sorted(c[:2] for c in captured)}")
+    for tag, kind, Am, atol, rtol, k in captured:
+        ker = L.cpqr_pivots(Am, atol, rtol, k)
+        ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
+        if not all(torch.equal(a, b) for a, b in zip(ker, ref)):
+            fail(f"cpqr_pivots selects other pivots or ranks than its plain "
+                 f"version at {tag} {kind} {list(Am.shape)}")
+        record("cpqr_pivots", f"{tag} {kind} A={list(Am.shape)} k={k}",
+               (0.0, 0.0), 0.0, time_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k)),
+               time_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for bidx in (first, top):
+        bp, lev = plan.batches[bidx], levels[bidx]
+        h2 = lev.H2
+        p2 = h2.plan
+        # I: the leaf D blocks and a level-1 B12 block of S22''s operand
+        ef = H.hss_entry_factors(h2)
+        leaf = torch.arange(p2.n_pad, device=dev).reshape(1, p2.nleaves,
+                                                         p2.ls).expand(h2.B, -1, -1)
+        m1 = p2.nleaves // 2
+        off = torch.arange(m1, device=dev)[None, :, None] * (2 * p2.ls)
+        rows = off + torch.randint(0, p2.ls, (h2.B, m1, h2.r), device=dev,
+                                   generator=gen)
+        cols = off + p2.ls + torch.randint(0, p2.ls, (h2.B, m1, h2.r),
+                                           device=dev, generator=gen)
+        for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
+            ker = H.hss_entries_prepared(ef, rr, cc)
+            ref = H.hss_entries_prepared_plain(ef, rr, cc)
+            record("hss_entries_prepared",
+                   f"batch {bidx} {what} out={list(ker.shape)}",
+                   errors(ker, ref), RTOL_SUM,
+                   time_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
+                   time_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)))
+        # J: S22''s operand at the sketch width (the factor's own sketch) and
+        # at k=1
+        s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
+                               max(opts.stepsize, 8)), p2.n_pad)
+        Om, _ = torch_sketch(opts.seed, dev, f64)((7000 + bidx, 203),
+                                                  (h2.B, p2.n_pad, s),
+                                                  (h2.B, p2.n_pad, s))
+        for X in (Om, Om[..., :1].contiguous()):
+            for adj in (False, True):
+                ker = H.hss_matvec(h2, X, adj)
+                ref = H.hss_matvec_plain(h2, X, adj)
+                record("hss_matvec",
+                       f"batch {bidx} {'adj' if adj else 'fwd'} "
+                       f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
+                       f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
+                       time_ms(lambda: H.hss_matvec(h2, X, adj)),
+                       time_ms(lambda: H.hss_matvec_plain(h2, X, adj)))
+        # K: the interior solver, level 1 as hss_factor runs it (k = r, the
+        # next level's bases) and the root level as hss_solve runs it (k = 1)
+        sol = lev.solver1
+        h1 = sol.h
+        depth = h1.plan.depth
+        Ubig, Vbig = H.materialize_bases(h1)
+        for adj in (False, True):
+            one = torch.randn(h1.B, h1.plan.n_pad, 1, dtype=f64, device=dev,
+                              generator=gen)
+            bases = Vbig if adj else Ubig
+            for lvl, X in ((1, bases[min(1, depth - 1)]), (depth, one)):
+                Y0 = H._leaf_solve(sol, X.contiguous(), adj)
+                xi = H._upsweep(h1, Y0, lvl - 1, adj).contiguous()
+                Bl, Br = h1.B12s[lvl - 1], h1.B21s[lvl - 1]
+                lu, piv, Phi = (sol.coresT_lu, sol.coresT_piv, sol.PhisT) \
+                    if adj else (sol.cores_lu, sol.cores_piv, sol.Phis)
+                args = (xi, *((Br, Bl) if adj else (Bl, Br)), lu[lvl - 1],
+                        piv[lvl - 1], Phi[lvl - 1], adj)
+                ker = H.hss_level_correct(Y0.clone(), *args)
+                ref = H.hss_level_correct_plain(Y0.clone(), *args)
+                scratch = Y0.clone()
+                record("hss_level_correct",
+                       f"batch {bidx} {'adj' if adj else 'fwd'} level {lvl}/"
+                       f"{h1.plan.depth} B={h1.B} 2r={2 * h1.r} "
+                       f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
+                       time_ms(lambda: H.hss_level_correct(scratch, *args)),
+                       time_ms(lambda: H.hss_level_correct_plain(scratch,
+                                                                 *args)))
+    torch.cuda.synchronize()
+
+
+def main_path(problems: Problems, n: int, dev, path: str) -> dict:
     """Phase 4: the user's workflow at size n; returns its timings and checks."""
     import numpy as np
     import scipy.sparse.linalg as spla
@@ -361,19 +535,22 @@ def main_path(problems: Problems, n: int, dev, compressed: bool) -> dict:
     from hsolve_torch.factor import solve_with_data
 
     A, b, shape = problems.get(n)
-    opts = ht.SolverOptions(**COMPRESSED) if compressed else \
-        ht.SolverOptions(swlevel=0)
-    path = "compressed" if compressed else "exact"
+    opts = ht.SolverOptions(**OPTIONS[path])
+    compressed = path != "exact"
     tree = ht.nested_dissection(shape, leafmax=100)
     plan_s = []
     for _ in range(2):                       # the second call is warm
         t0 = time.perf_counter()
         plan = ht.plan_factorization(A, tree, opts)
         plan_s.append(time.perf_counter() - t0)
-    shapes = [(bp.B, bp.ni_pad, bp.nb_pad) + ((bp.rank_cap,) if bp.compress
-                                               else ()) for bp in plan.batches]
+    shapes = [(bp.B, bp.ni_pad, bp.nb_pad)
+              + ((bp.rank_cap,) if bp.compress else ())
+              + (("structured" if bp.structured else "to HSS", bp.cplan.ls,
+                  bp.cplan.depth, bp.cplan.n_pad) if bp.cplan is not None
+                 else ()) for bp in plan.batches]
     log(f"  n={n} {path}: {len(plan.batches)} batches (B, ni_pad, nb_pad"
-        f"{', rank cap' if compressed else ''}): {shapes}")
+        f"{', rank cap' if compressed else ''}"
+        f"{', HSS kind, ls, depth, n_pad' if path == 'hss' else ''}): {shapes}")
 
     F = ht.factor_with_plan(plan, opts, device=dev)            # cold
     torch.cuda.synchronize()
@@ -424,11 +601,11 @@ def main_path(problems: Problems, n: int, dev, compressed: bool) -> dict:
         fail(f"n={n} {path}: independent residual {relres:.3e} > {RELRES}")
     if res.get("fwd_err_vs_spsolve", 0.0) > FWD_N128:
         fail(f"n={n}: forward error {res['fwd_err_vs_spsolve']:.3e} > {FWD_N128}")
-    if compressed and info["iters"] > MAX_ITERS.get(n, 60):
-        fail(f"n={n} compressed: {info['iters']} GMRES iterations > "
-             f"{MAX_ITERS.get(n, 60)}")
+    if compressed and info["iters"] > MAX_ITERS[path].get(n, 60):
+        fail(f"n={n} {path}: {info['iters']} GMRES iterations > "
+             f"{MAX_ITERS[path].get(n, 60)}")
     if compressed and res["saturated"]:
-        fail(f"n={n} compressed: a rank saturated its cap ({report})")
+        fail(f"n={n} {path}: a rank saturated its cap ({report})")
     return res
 
 
@@ -470,15 +647,16 @@ def main() -> int:
     kres = Results()
     check_kernels(problems, args.kernel_n, dev, kres)
     check_compressed_kernels(problems, args.kernel_n, dev, kres)
+    check_hss_kernels(problems, args.kernel_n, dev, kres)
 
     runs = []
-    for compressed, path_kernels in ((False, kernels.EXACT_PATH),
-                                     (True, kernels.COMPRESSED_PATH)):
+    for path, path_kernels in (("exact", kernels.EXACT_PATH),
+                               ("compressed", kernels.COMPRESSED_PATH),
+                               ("hss", kernels.HSS_PATH)):
         for n in args.sizes:
-            log(f"[4] main path n={n} "
-                f"{'compressed' if compressed else 'exact'}")
+            log(f"[4] main path n={n} {path}")
             kernels.reset_launch_counts()
-            runs.append(main_path(problems, n, dev, compressed))
+            runs.append(main_path(problems, n, dev, path))
             counts = kernels.launch_counts()
             log(f"  n={n}: kernel launches {counts}")
             missing = [k for k in path_kernels if counts[k] <= 0]
@@ -486,8 +664,8 @@ def main() -> int:
                 fail(f"n={n}: the main path never launched {missing}")
             runs[-1]["launches"] = counts
 
-    # the launch counts of the last run, the compressed path at the largest n,
-    # which runs all seven kernels
+    # the launch counts of the last run, the structured path at the largest n,
+    # which runs all eleven kernels
     last = runs[-1]["launches"]
     table = [{"name": k, "route": "cuda", "source": f"hsolve_torch/csrc/{src}",
               "replaces": rep, "launches": last[k],

@@ -1,5 +1,6 @@
 """Numeric factorization: level-synchronous batched multifrontal elimination
-(port of the exact and low-rank compressed paths of ``hsolve/factor.py``).
+(port of the exact, low-rank compressed and structured HSS paths of
+``hsolve/factor.py``).
 
 The planner's schedule runs bottom-up, one batched step per height level, as a
 plain Python loop over eagerly executed torch calls.  Each level:
@@ -25,9 +26,21 @@ G); ``D`` touches only the ``k`` sketch columns, and ``S = Abb - (Abi RU_)
 RV_^T`` is kernel F (:func:`~hsolve_torch.ops.schur.lowrank_schur_update`).
 Its solve updates are kernel E
 (:func:`~hsolve_torch.ops.sweep.lowrank_sweep_update`).  The sketches come
-from a ``torch.Generator`` on the factorization's device, seeded from
-``(opts.seed, batch index)``; ``sketch=`` hands in others (the tests pass the
-JAX package's).
+from a host ``torch.Generator`` seeded from ``(opts.seed, batch index)`` and
+are copied to the factorization's device, so every device factors with the
+same sketches (:func:`torch_sketch`); ``sketch=`` hands in others (the tests
+pass the JAX package's).
+
+With ``hss=True`` (the default) a compressed batch whose parent assembles
+structurally emits its Schur complements as HSS
+(:func:`~hsolve_torch.structured.transition_compress`), and a batch whose
+children are both HSS is *structured*
+(:func:`~hsolve_torch.structured.structured_factor_batch`): its pivot block is
+solved by two HSS solvers and its Schur complement is compressed from a
+sampling operator, never formed.  Its records are
+:class:`~hsolve_torch.structured.StructuredLevel`; the solve runs kernel E on
+its low-rank Gauss transforms around :func:`~hsolve_torch.structured.d_apply`.
+A dense parent of HSS children densifies them and adds them with kernel B.
 
 Float32 products never use TF32 here: ``factor_with_plan`` sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` explicitly (float64, the
@@ -50,7 +63,11 @@ from hsolve_torch.ops.lowrank import rand_lowrank, sketch_width
 from hsolve_torch.ops.schur import lowrank_schur_update
 from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
 from hsolve_torch.options import SolverOptions
-from hsolve_torch.planner import Plan, plan_factorization
+from hsolve_torch.planner import Plan, cross_block_shapes, plan_factorization
+from hsolve_torch.structured import (SchurHss, StructuredLevel, d_apply,
+                                     densify_schur, structured_factor_batch,
+                                     transition_compress)
+from hsolve_torch.ops.hss import sample_width
 from hsolve_torch.utils.trees import NDTree
 
 
@@ -88,10 +105,14 @@ class CompressedLevel:
     diag_ratio: Optional[torch.Tensor] = None
 
 
-Level = Union[DenseLevel, CompressedLevel]
-# sketch(batch index, (n_bi, s_bi), (n_ib, s_ib)) -> (omega_bi, omega_ib): the
-# [n, s] Gaussian sketches of Abi and Aib for one compressed batch
-Sketch = Callable[[int, Tuple[int, int], Tuple[int, int]],
+Level = Union[DenseLevel, CompressedLevel, StructuredLevel]
+# sketch(key, shape_a, shape_b) -> (a, b), two Gaussian sketches:
+# - key = batch index, shapes (n_bi, s_bi), (n_ib, s_ib): the [n, s] sketches
+#   of Abi and Aib of one compressed batch;
+# - key = (7000 + batch index, tag), shapes (B, n_pad, s) twice: the per-front
+#   sketches (Om, Ps) of a structured batch's randomized HSS compression, tag
+#   203 for the inner Schur complement S22', 202 for the parent S
+Sketch = Callable[[Union[int, Tuple[int, int]], Tuple[int, ...], Tuple[int, ...]],
                   Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -167,25 +188,32 @@ class Factorization:
 
     def maxrank(self) -> int:
         """Max compression rank across the factorization (parity with
-        ``maxrank``, factornode.jl:49-57); 0 on the dense path.  One small
-        device->host fetch."""
-        return max([lv["max_rank"] for lv in self.rank_report()["levels"]],
-                   default=0)
+        ``maxrank``, factornode.jl:49-57); 0 on the dense path.  Structured
+        levels report the computed interpolation rank capped at the planned
+        cap.  One small device->host fetch."""
+        return max([min(lv["max_rank"], lv["cap"])
+                    for lv in self.rank_report()["levels"]], default=0)
 
     def rank_report(self) -> dict:
-        """Per compressed level: planned cap, computed max rank, and whether
-        any node *saturated* its cap (the randomized compression may then have
-        truncated - the condition ``randcompress_adaptive`` grows its sample
-        budget on, factorization.jl:110).  One small device->host fetch."""
+        """Per compressed or structured level: planned cap, computed max rank,
+        and whether any node *saturated* its cap (the randomized compression
+        may then have truncated - the condition ``randcompress_adaptive``
+        grows its sample budget on, factorization.jl:110).  One small
+        device->host fetch."""
         comp = [(i, lev) for i, lev in enumerate(self.levels)
-                if isinstance(lev, CompressedLevel)]
+                if isinstance(lev, CompressedLevel) or (
+                    isinstance(lev, StructuredLevel)
+                    and lev.rank_maxed is not None)]
         out = {"levels": [], "saturated": False}
         if not comp:
             return out
-        ranks = torch.stack([torch.maximum(lev.lrank.max(), lev.rrank.max())
-                             for _, lev in comp]).cpu().tolist()
+        ranks = torch.stack([
+            lev.rank_maxed.max() if isinstance(lev, StructuredLevel)
+            else torch.maximum(lev.lrank.max(), lev.rrank.max())
+            for _, lev in comp]).cpu().tolist()
         for (i, lev), mr in zip(comp, ranks):
-            cap = lev.LU_.shape[-1]
+            cap = lev.rank_cap if isinstance(lev, StructuredLevel) \
+                else lev.LU_.shape[-1]
             sat = mr >= cap
             out["levels"].append({"level": i, "max_rank": int(mr), "cap": cap,
                                   "saturated": sat})
@@ -196,6 +224,8 @@ class Factorization:
         """Per-level pivot diag ratios as device scalars + (tag, eps) labels."""
         ratios, tags = [], []
         for i, lev in enumerate(self.levels):
+            if isinstance(lev, StructuredLevel):
+                continue                    # HSS pivot solvers: no dense LU
             if lev.lu is not None and lev.lu.shape[-1] > 0:
                 ratios.append(dk._diag_ratio(lev.lu).max())
                 tags.append((i, torch.finfo(lev.lu.dtype).eps))
@@ -313,15 +343,81 @@ def _factor_front_compressed(front: torch.Tensor, sperm: torch.Tensor,
 
 
 def torch_sketch(seed: int, device: torch.device, dtype: torch.dtype) -> Sketch:
-    """The factorization's default sketches: per compressed batch a
-    ``torch.Generator`` on ``device`` seeded from ``(seed, batch index)`` draws
-    the Abi sketch, then the Aib one (the JAX package's ``split`` order)."""
-    def draw(bidx, bi, ib):
-        gen = torch.Generator(device=device)
-        gen.manual_seed((int(seed) << 24) + int(bidx))
-        return tuple(torch.randn(shape, generator=gen, device=device,
-                                 dtype=dtype) for shape in (bi, ib))
+    """The factorization's default sketches (see :data:`Sketch`): per key a
+    host ``torch.Generator`` seeded from ``(seed, key)`` draws the first
+    sketch, then the second (the JAX package's ``split`` order), and both are
+    copied to ``device``.
+
+    Drawing on the host makes the factorization the same on every device: a
+    card run reproduces the CPU run of the same seed.  That matters because
+    the structured preconditioner's GMRES count depends on the draw at
+    realistic sizes (helmholtz2d n=512, k=40, atol=rtol=1e-3: 12 to 60
+    iterations over seeds, the JAX package's own draws included), so a
+    device-side generator would make the card and the CPU disagree.  The
+    cost is the host draw and one copy per key."""
+    def draw(key, shape_a, shape_b):
+        k0, tag = (key, 0) if isinstance(key, int) else key
+        gen = torch.Generator()
+        gen.manual_seed((int(seed) << 24) + (int(tag) << 14) + int(k0))
+        return tuple(torch.randn(shape, generator=gen, dtype=dtype).to(device)
+                     for shape in (shape_a, shape_b))
     return draw
+
+
+def _gather_schur(groups, s_stacks, B: int) -> SchurHss:
+    """The child SchurHss rows of a structured batch: children may live in
+    several source batches, all on one cluster plan (a planner invariant);
+    every row of the batch is covered by exactly one group."""
+    assert groups, "structured batch requires child sources"
+    out = None
+    for src_batch, src_rows, dst_rows in groups:
+        src = s_stacks[src_batch]
+        assert isinstance(src, SchurHss), \
+            "structured batch fed by a non-HSS source (planner invariant)"
+        sel = src.select(src_rows)
+        if out is None and len(groups) == 1:
+            return sel
+        if out is None:
+            out = SchurHss(h=sel.h.map(lambda a: a.new_zeros((B,) + a.shape[1:])),
+                           n1=sel.n1.new_zeros(B), n2=sel.n2.new_zeros(B))
+        dst = dst_rows.long()
+        for a, v in zip(out.h.arrays() + [out.n1, out.n2],
+                        sel.h.arrays() + [sel.n1, sel.n2]):
+            a[dst] = v
+    return out
+
+
+def _run_structured(bp, tb, s_stacks, opts: SolverOptions, dtype, bidx: int,
+                    sketch: Sketch):
+    """One structured batch (``hsolve/factor.py:876-903``): the 8 cross
+    couplings as EXACT skinny pairs ``A_blk = U V^T`` (``U`` the one-hot
+    selector of the nonzero rows, ``V^T`` the value strip scattered from the
+    planner's COO), the sketches, then :func:`structured_factor_batch`."""
+    sh1 = _gather_schur(tb.groups_l, s_stacks, bp.B)
+    sh2 = _gather_schur(tb.groups_r, s_stacks, bp.B)
+    dev = tb.int_ids.device
+    cross = {}
+    for name in cross_block_shapes(bp.child_cplans):
+        spec = bp.cross[name]
+        r_, c_, rcap = spec["r"], spec["c"], spec["rcap"]
+        rows, pos, vals = tb.cross[name]
+        flat = torch.zeros(bp.B * rcap * c_, dtype=dtype, device=dev)
+        flat[pos] = vals.to(dtype)
+        strip = flat.reshape(bp.B, rcap, c_)
+        U = (rows[:, None, :] == torch.arange(r_, device=dev)[None, :, None]
+             ).to(dtype)                                       # [B, r, rcap]
+        cross[name] = (U, strip.transpose(-1, -2).contiguous())  # V [B, c, rcap]
+    sketches = []
+    for tag, plan_ in ((203, bp.child_cplans[1]), (202, bp.cplan)):
+        # S22' lives on child 2's interior half: its plan is one level shallower
+        n = plan_.half if tag == 203 else plan_.n_pad
+        s = min(sample_width(plan_, bp.rank_cap, opts.kest,
+                             max(opts.stepsize, 8)), n)
+        sketches.append(tuple(o.to(device=dev, dtype=dtype) for o in sketch(
+            (7000 + bidx, tag), (bp.B, n, s), (bp.B, n, s))))
+    return structured_factor_batch(
+        sh1, sh2, cross, tb.smap, bp.cplan, tb.n1, tb.n2, tb.int_ids,
+        tb.bnd_ids, opts.atol, opts.rtol, bp.rank_cap, *sketches)
 
 
 def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
@@ -334,15 +430,25 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
     levels: List[Level] = []
     s_stacks: Dict[int, torch.Tensor] = {}
     for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
-        if bp.structured or (bp.compress and bp.cplan is not None):
-            raise NotImplementedError(
-                f"batch {bidx} emits an HSS Schur complement; structured "
-                "(HSS) batches belong to the port's structured slice")
+        if bp.structured:
+            lev, S = _run_structured(bp, tb, s_stacks, opts, dtype, bidx, sketch)
+            levels.append(lev)
+            s_stacks[bidx] = S
+            continue
         front = front_assemble(bp.B, bp.m_pad, tb.pos, tb.src, adata)
         # left groups before right ones, the JAX package's order
-        for groups, imap in ((tb.groups_l, tb.map_l), (tb.groups_r, tb.map_r)):
+        for groups, imap, s_pad in ((tb.groups_l, tb.map_l, bp.sl_pad),
+                                    (tb.groups_r, tb.map_r, bp.sr_pad)):
             for src_batch, src_rows, dst_rows in groups:
-                extend_add(front, s_stacks[src_batch], src_rows, dst_rows, imap)
+                src = s_stacks[src_batch]
+                if isinstance(src, SchurHss):
+                    # a dense parent of HSS children densifies them (the
+                    # planner emits HSS only where something structured reads
+                    # it; odd siblings and the root batch land here)
+                    src = densify_schur(src.select(src_rows), s_pad)
+                    src_rows = torch.arange(src.shape[0], dtype=torch.int32,
+                                            device=src.device)
+                extend_add(front, src, src_rows, dst_rows, imap)
         if bp.compress:
             shapes = [(n, sketch_width(bp.rank_cap, n))
                       for n in (bp.ni_pad, bp.nb_pad)]
@@ -357,6 +463,9 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
                 lu=lu, perm=perm, LU_=LU_, LV_=LV_, RU_=RU_, RV_=RV_,
                 lrank=lrank, rrank=rrank, int_ids=tb.int_ids,
                 bnd_ids=tb.bnd_ids, dinv=dinv, diag_ratio=ratio))
+            if bp.cplan is not None and opts.hss:
+                S = transition_compress(S, tb.n1, tb.n2, bp.cplan, opts.atol,
+                                        opts.rtol, bp.rank_cap)
         else:
             lu, perm, L, R, S, dinv, ratio = _factor_front(
                 front, tb.sperm, bp.ni_pad, opts.explicit_inverse, fastinv)
@@ -372,6 +481,11 @@ def _root_from_stacks(plan: Plan, tp: TorchPlan, s_stacks, dtype,
                       opts: SolverOptions) -> Optional[RootSolve]:
     if plan.nb_root == 0:
         return None
+    if isinstance(s_stacks[len(plan.batches) - 1], SchurHss):
+        raise NotImplementedError(
+            "the root's boundary Schur complement is HSS (plan.nb_root > 0 "
+            "under a compressed top batch): RootHss, its HSS root solve, is "
+            "not ported; nested_dissection trees never give this")
     bnd_ids = tp.batches[-1].bnd_ids[0]
     S_root = s_stacks[len(plan.batches) - 1][0]
     # padded diagonal -> identity so the root LU stays well-defined
@@ -404,9 +518,10 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
     """Hierarchical solve (parity with ``ldiv!`` + ``_lsolve!/_dsolve!/_rsolve!``,
     factornode.jl:62-99) in the post-order permutation.
 
-    Bottom-up: ``C[bnd] -= L C[int]`` (kernel C; kernel E on a compressed
-    level) then ``C[int] = D^{-1} C[int]``; root boundary solve; top-down:
-    ``C[int] -= R C[bnd]`` (kernel C or E).  ``C`` carries a zero sentinel row N
+    Bottom-up: ``C[bnd] -= L C[int]`` (kernel C; kernel E on a compressed or
+    structured level) then ``C[int] = D^{-1} C[int]`` (:func:`d_apply` on a
+    structured level); root boundary solve; top-down: ``C[int] -= R C[bnd]``
+    (kernel C or E).  ``C`` carries a zero sentinel row N
     that padded ids point at."""
     N = b.shape[0]
     vec = b.ndim == 1
@@ -415,11 +530,16 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
 
     for lev in levels:
         x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
-        if isinstance(lev, CompressedLevel):
-            lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
-        else:
+        if isinstance(lev, DenseLevel):
             sweep_update(C, lev.bnd_ids, lev.L, N, X=x)
-        C[lev.int_ids] = _pivot_solve(lev, x)
+        else:
+            lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
+        if isinstance(lev, StructuredLevel):
+            C[lev.int_ids] = d_apply(lev, x)
+            # padded ids all write the sentinel row; keep it zero
+            C[N] = 0.0
+        else:
+            C[lev.int_ids] = _pivot_solve(lev, x)
 
     if root is not None:
         xr = C[root.bnd_ids]                    # [nbr, k]
@@ -427,11 +547,11 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
             dk.lu_solve(root.lu, root.perm, xr)
 
     for lev in reversed(levels):
-        if isinstance(lev, CompressedLevel):
+        if isinstance(lev, DenseLevel):
+            sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+        else:
             lowrank_sweep_update(C, lev.int_ids, lev.RU_, lev.RV_, N,
                                  ids_in=lev.bnd_ids)
-        else:
-            sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
 
     C = C[:N]
     return C[:, 0] if vec else C
@@ -477,8 +597,9 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
                 logger.info("batch %d: B=%d ni_pad=%d nb_pad=%d %s%snnz=%d", i,
                             bp.B, bp.ni_pad, bp.nb_pad,
                             "leaf " if bp.is_leaf else "",
-                            f"compressed cap={bp.rank_cap} " if bp.compress
-                            else "", len(bp.front_pos))
+                            (f"{'structured' if bp.structured else 'compressed'}"
+                             f" cap={bp.rank_cap} ") if bp.compress else "",
+                            len(bp.front_pos))
     tp = plan_to_torch(plan, dev)
     levels, root, _ = _factor_levels(plan, tp, opts, tdt, sketch)
     return Factorization(N=plan.N, perm=plan.perm, levels=levels, root=root,

@@ -4,14 +4,14 @@
   (cached on the plan).  It accepts a plan from either planner: the JAX
   package's and the port's ``Plan`` have identical fields.
 - :func:`factorization_from_numpy` turns a JAX ``Factorization``'s level records
-  (dense and low-rank compressed), fetched to numpy, into the port's, so the
-  port's solve sweep can run on the JAX factors alone.
+  (dense, low-rank compressed and structured HSS), fetched to numpy, into the
+  port's, so the port's solve sweep can run on the JAX factors alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,14 @@ class TorchBatch:
     # per child group: (source batch, src_rows int32, dst_rows int32)
     groups_l: Tuple[Tuple[int, torch.Tensor, torch.Tensor], ...]
     groups_r: Tuple[Tuple[int, torch.Tensor, torch.Tensor], ...]
+    # HSS output (a compressed batch with a cluster plan): content sizes [B]
+    n1: Optional[torch.Tensor] = None     # int64
+    n2: Optional[torch.Tensor] = None     # int64
+    # structured batches: parent-S pad -> child-aligned boundary map and the
+    # 8 cross strips, name -> (rows [B, rcap] int64, pos int64, vals float64)
+    smap: Optional[torch.Tensor] = None   # [B, cplan.n_pad] int64
+    cross: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]] = None
 
 
 @dataclasses.dataclass
@@ -72,13 +80,27 @@ def plan_to_torch(plan, device) -> TorchPlan:
             return tuple((int(g.src_batch), _i32(g.src_rows, device),
                           _i32(g.dst_rows, device)) for g in gs)
 
+        def i64(a):
+            return None if a is None else torch.as_tensor(
+                np.asarray(a, dtype=np.int64), device=device)
+
+        cross = None
+        if bp.structured:
+            cross = {name: (i64(spec["rows"]), i64(spec["pos"]),
+                            torch.as_tensor(np.asarray(spec["vals"]),
+                                            device=device))
+                     for name, spec in bp.cross.items()
+                     if isinstance(spec, dict)}
         batches.append(TorchBatch(
             pos=_i32(bp.front_pos, device), src=_i32(src, device),
             sperm=torch.as_tensor(bp.sperm, dtype=torch.int64, device=device),
             int_ids=_i32(bp.int_ids, device), bnd_ids=_i32(bp.bnd_ids, device),
             map_l=None if bp.map_l is None else _i32(bp.map_l, device),
             map_r=None if bp.map_r is None else _i32(bp.map_r, device),
-            groups_l=groups(bp.groups_l), groups_r=groups(bp.groups_r)))
+            groups_l=groups(bp.groups_l), groups_r=groups(bp.groups_r),
+            n1=i64(bp.n1) if bp.cplan is not None else None,
+            n2=i64(bp.n2) if bp.cplan is not None else None,
+            smap=i64(bp.smap) if bp.structured else None, cross=cross))
     tp = TorchPlan(device=device,
                    adata=torch.as_tensor(np.concatenate(adata), device=device),
                    batches=batches)
@@ -91,6 +113,42 @@ def _field(rec: Any, name: str) -> Optional[np.ndarray]:
     return None if v is None else np.array(v)     # a writable host copy
 
 
+def _get(rec: Any, name: str) -> Any:
+    return rec.get(name) if isinstance(rec, Mapping) else getattr(rec, name)
+
+
+def _hss_from_numpy(rec: Any, t):
+    """A batched HSS record (fields ``D, U, V, Rs, Ws, B12s, B21s, plan``)."""
+    from hsolve_torch.ops.hss import ClusterPlan, Hss
+
+    p = _get(rec, "plan")
+    plan = ClusterPlan(ls=int(p.ls), depth=int(p.depth), n1=int(p.n1),
+                       n2=int(p.n2))
+    lists = {f: [t(np.array(a)) for a in _get(rec, f)]
+             for f in ("Rs", "Ws", "B12s", "B21s")}
+    return Hss(D=t(np.array(_get(rec, "D"))), U=t(np.array(_get(rec, "U"))),
+               V=t(np.array(_get(rec, "V"))), plan=plan, **lists)
+
+
+def _solver_from_numpy(rec: Any, t):
+    """A batched HSS solver record (``h, D_lu, D_piv, Phis, cores_lu, ...``);
+    pivots become int64, the port's LU permutation type."""
+    from hsolve_torch.ops.hss import HssSolver
+
+    def arr(name, dtype=None):
+        return t(np.array(_get(rec, name)), dtype)
+
+    def lst(name, dtype=None):
+        return [t(np.array(a), dtype) for a in _get(rec, name)]
+
+    return HssSolver(h=_hss_from_numpy(_get(rec, "h"), t), D_lu=arr("D_lu"),
+                     D_piv=arr("D_piv", torch.int64), Phis=lst("Phis"),
+                     cores_lu=lst("cores_lu"),
+                     cores_piv=lst("cores_piv", torch.int64),
+                     PhisT=lst("PhisT"), coresT_lu=lst("coresT_lu"),
+                     coresT_piv=lst("coresT_piv", torch.int64))
+
+
 def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
                              perm: np.ndarray, device, opts=None):
     """Build a port :class:`~hsolve_torch.factor.Factorization` from level
@@ -99,11 +157,14 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
     ``levels_np``: one record per level, a mapping or an object with the fields
     ``lu, perm, L, R, dinv, int_ids, bnd_ids`` (None where absent), or, for a
     compressed level, ``LU_, LV_, RU_, RV_, lrank, rrank`` in place of
-    ``L, R``; ``root_np``: None or a record with ``lu, perm, bnd_ids, inv``;
+    ``L, R``, or, for a structured level, the fields of
+    :class:`~hsolve_torch.structured.StructuredLevel` (HSS records nested as
+    the JAX package nests them); ``root_np``: None or a record with ``lu, perm, bnd_ids, inv``;
     ``perm``: the plan's post-order permutation."""
     from hsolve_torch.factor import (CompressedLevel, DenseLevel, Factorization,
                                      RootSolve)
     from hsolve_torch.options import SolverOptions
+    from hsolve_torch.structured import StructuredLevel
 
     device = torch.device(device)
 
@@ -113,6 +174,20 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
 
     levels = []
     for rec in levels_np:
+        if _field(rec, "WU") is not None:
+            mx = _field(rec, "rank_maxed")
+            levels.append(StructuredLevel(
+                solver1=_solver_from_numpy(_get(rec, "solver1"), t),
+                solver22=_solver_from_numpy(_get(rec, "solver22"), t),
+                H2=_hss_from_numpy(_get(rec, "H2"), t),
+                **{f: t(_field(rec, f)) for f in
+                   ("WU", "V12", "U21", "V21", "LU_", "LV_", "RU_", "RV_")},
+                int_ids=t(_field(rec, "int_ids"), torch.int32),
+                bnd_ids=t(_field(rec, "bnd_ids"), torch.int32),
+                h1=int(_get(rec, "h1")), h2=int(_get(rec, "h2")),
+                rank_maxed=t(mx, torch.int32),
+                rank_cap=int(_get(rec, "rank_cap"))))
+            continue
         common = dict(
             lu=t(_field(rec, "lu")), perm=t(_field(rec, "perm"), torch.int64),
             int_ids=t(_field(rec, "int_ids"), torch.int32),

@@ -17,9 +17,13 @@ they serve:
   :mod:`hsolve_torch.ops.sweep`,
 - ``dia_spmv`` (kernel D) in :mod:`hsolve_torch.ops.sparse`,
 - ``lowrank_schur_update`` (kernel F) in :mod:`hsolve_torch.ops.schur`,
-- ``lowrank_truncate`` (kernel G) in :mod:`hsolve_torch.ops.lowrank`.
+- ``lowrank_truncate`` (kernel G) and ``cpqr_pivots`` (kernel H) in
+  :mod:`hsolve_torch.ops.lowrank`,
+- ``hss_entries_prepared`` (kernel I), ``hss_matvec`` (kernel J) and
+  ``hss_level_correct`` (kernel K) in :mod:`hsolve_torch.ops.hss`.
 
-Kernels A-D run on every path; E, F and G on the compressed levels only.
+Kernels A-D run on every path; E, F and G on the compressed levels; H-K on
+the structured (HSS) levels, which also run E on their low-rank transforms.
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
@@ -56,6 +60,11 @@ _SIGNATURES = {
     "hs_lowrank_schur_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _V],
     "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
                             _I, _V],
+    "hs_cpqr": [_V, _V, _V, _D, _D, _LL, _I, _I, _I, _V],
+    "hs_hss_entries": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I, _I, _I, _I,
+                       _V],
+    "hs_hss_matvec": [_V] * 11 + [_LL] + [_I] * 7 + [_V],
+    "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 6 + [_V],
 }
 
 _lib = None
@@ -181,12 +190,16 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
 EXACT_PATH = ("front_assemble", "extend_add", "sweep_update", "dia_spmv")
 COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
                                 "lowrank_truncate")
+HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
+                              "hss_matvec", "hss_level_correct")
 
 
 def wrappers():
-    """The seven kernel wrappers, by name (A-G)."""
+    """The eleven kernel wrappers, by name (A-K)."""
     from hsolve_torch.ops.assembly import extend_add, front_assemble
-    from hsolve_torch.ops.lowrank import lowrank_truncate
+    from hsolve_torch.ops.hss import (hss_entries_prepared, hss_level_correct,
+                                      hss_matvec)
+    from hsolve_torch.ops.lowrank import cpqr_pivots, lowrank_truncate
     from hsolve_torch.ops.schur import lowrank_schur_update
     from hsolve_torch.ops.sparse import dia_spmv
     from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
@@ -195,7 +208,9 @@ def wrappers():
             "sweep_update": sweep_update, "dia_spmv": dia_spmv,
             "lowrank_sweep_update": lowrank_sweep_update,
             "lowrank_schur_update": lowrank_schur_update,
-            "lowrank_truncate": lowrank_truncate}
+            "lowrank_truncate": lowrank_truncate, "cpqr_pivots": cpqr_pivots,
+            "hss_entries_prepared": hss_entries_prepared,
+            "hss_matvec": hss_matvec, "hss_level_correct": hss_level_correct}
 
 
 def launch_counts() -> Dict[str, int]:

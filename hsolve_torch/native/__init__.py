@@ -129,6 +129,13 @@ def _load():
         fn.restype = None
         fn.argtypes = ([i64p] * 5 + [ctypes.c_int64] + [i64p] * 11 +
                        [ctypes.c_int64] + [i64p] * 8)
+    lib.strip_nrows.restype = ctypes.c_int64
+    lib.strip_nrows.argtypes = [i64p] + [ctypes.c_int64] * 3
+    lib.strip_fill.restype = None
+    lib.strip_fill.argtypes = [i64p] + [ctypes.c_int64] * 5 + [i64p, i64p]
+    lib.fill_structured_maps.restype = None
+    lib.fill_structured_maps.argtypes = ([i64p] * 10 + [ctypes.c_int64] * 8
+                                         + [i64p] * 3)
     _lib = lib
     return _lib
 
@@ -219,6 +226,61 @@ class CsrGather:
             self.fn(*self.csr_ptrs, _pt(rows), nr, _pt(cols), nc,
                     self.colmap_ptr, _pt(buf), stride)
         return out
+
+
+class BlockGatherBuilder:
+    """Accumulate (rows, cols, out-offset) block specs and execute them in one
+    native call (per-call ctypes overhead dominates small blocks)."""
+
+    def __init__(self, gather: "CsrGather"):
+        self.g = gather
+        self.rows = []
+        self.cols = []
+        self.offs = []
+        self.strides = []
+
+    def add(self, rows: np.ndarray, cols: np.ndarray, elem_off: int,
+            stride: int = 0) -> None:
+        if len(rows) and len(cols):
+            self.rows.append(np.ascontiguousarray(rows, dtype=np.int64))
+            self.cols.append(np.ascontiguousarray(cols, dtype=np.int64))
+            self.offs.append(elem_off)
+            self.strides.append(stride)
+
+    def run_coo(self, default_stride: int):
+        """Emit (flat positions, values) for all accumulated blocks in one native
+        call; returns (pos [nnz] int64, vals [nnz]).  Per-block stride defaults
+        to ``default_stride`` (blocks that set their own stride keep it)."""
+        g = self.g
+        dt = np.complex128 if g.iscomplex else np.float64
+        if not self.rows:
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=dt)
+        strides = np.asarray([s if s else default_stride for s in self.strides],
+                             dtype=np.int64)
+        offs = np.asarray(self.offs, dtype=np.int64)
+        if not g.ok:
+            poss, vals = [], []
+            for rs, cs, off, st in zip(self.rows, self.cols, offs, strides):
+                blk = g.A[rs][:, cs].tocoo()
+                poss.append(off + blk.row.astype(np.int64) * st + blk.col)
+                vals.append(blk.data.astype(dt))
+            return np.concatenate(poss), np.concatenate(vals)
+        row_ptr = np.zeros(len(self.rows) + 1, dtype=np.int64)
+        np.cumsum([len(r) for r in self.rows], out=row_ptr[1:])
+        col_ptr = np.zeros(len(self.cols) + 1, dtype=np.int64)
+        np.cumsum([len(c) for c in self.cols], out=col_ptr[1:])
+        rows_cat = np.concatenate(self.rows)
+        cols_cat = np.concatenate(self.cols)
+        # upper bound on emitted pairs: total nnz of the gathered rows
+        bound = int(np.sum(g.indptr[rows_cat + 1] - g.indptr[rows_cat]))
+        pos = np.empty(max(bound, 1), dtype=np.int64)
+        val = np.empty(max(bound, 1), dtype=dt)
+        fn = _lib.csr_gather_coo_many_c128 if g.iscomplex else \
+            _lib.csr_gather_coo_many_f64
+        n = fn(*g.csr_ptrs, _pt(rows_cat), _pt(row_ptr), _pt(cols_cat),
+               _pt(col_ptr), len(offs), g.colmap_ptr, _pt(offs), _pt(strides),
+               _pt(pos), _pt(val))
+        return pos[:n].copy(), val[:n].copy()
 
 
 def run_coo_pooled(gather: "CsrGather", pool: np.ndarray, rs: np.ndarray,
@@ -565,6 +627,40 @@ def fill_ident_pos_native(ni: np.ndarray, ni_pad: int,
     out = np.empty(max(cap, 1), dtype=np.int64)
     c = _lib.fill_ident_pos(_pt(ni), B, B, ni_pad, m_pad, _pt(out))
     return out[:c]
+
+
+def fill_structured_maps_native(pool, locpool, off_n, ki1, ki2, kb1, kb2,
+                                o_l, k1, k2, B, h1, h2, q1, q2, np_pad,
+                                half, N, int_ids, bnd_ids, smap) -> bool:
+    """One C++ sweep filling a structured batch's int/bnd id maps and its
+    parent-S smap (gather.cpp fill_structured_maps); False if unavailable."""
+    if not _load():
+        return False
+    a = [np.ascontiguousarray(x, dtype=np.int64)
+         for x in (off_n, ki1, ki2, kb1, kb2, o_l, k1, k2)]
+    _lib.fill_structured_maps(
+        _pt(pool), _pt(locpool), *(_pt(x) for x in a), B, h1, h2, q1, q2,
+        np_pad, half, N, _pt(int_ids), _pt(bnd_ids), _pt(smap))
+    return True
+
+
+def coo_to_strip_native(pos: np.ndarray, B: int, r: int, c: int,
+                        pad: int = 8):
+    """Cross-coupling strip layout from one sorted batched COO stream (see
+    gather.cpp strip_nrows/strip_fill): returns (rows_idx [B, rcap] int32,
+    strip_pos [n] int64, rcap), or None if the native library is missing.
+    ``pos`` must be sorted by (b, row, col) - the pooled gather's order."""
+    if not _load():
+        return None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    n = len(pos)
+    nrows = int(_lib.strip_nrows(_pt(pos), n, r, c)) if n else 0
+    rcap = -(-max(nrows, 1) // pad) * pad
+    rcap = min(rcap, max(r, 1))
+    rows_idx = np.empty((B, rcap), dtype=np.int32)
+    strip_pos = np.empty(n, dtype=np.int64)
+    _lib.strip_fill(_pt(pos), n, B, r, c, rcap, _pt(rows_idx), _pt(strip_pos))
+    return rows_idx, strip_pos, rcap
 
 
 def available() -> bool:

@@ -11,10 +11,14 @@
   truncation epilogue of :func:`rand_lowrank`, with its plain version
   :func:`lowrank_truncate_plain`.
 
-The sketch GEMM, ``torch.linalg.qr`` and ``torch.linalg.svd`` are library
-calls, as the JAX package leaves them to ``lax.linalg``.  ``cpqr``,
-``interp_decomp`` and ``lowrank_recompress`` serve only the structured (HSS)
-path and come with it.
+- :func:`cpqr` and :func:`interp_decomp`: column-pivoted QR without Q
+  accumulation and the row interpolative decomposition built on it, for the
+  structured (HSS) path.  The pivot loop is kernel H (``csrc/hss_cpqr.cu``,
+  :func:`cpqr_pivots`, plain version :func:`cpqr_pivots_plain`).
+
+The sketch GEMM, ``torch.linalg.qr``, ``torch.linalg.svd`` and the triangular
+solve of :func:`interp_decomp` are library calls, as the JAX package leaves them
+to ``lax.linalg``.  ``lowrank_recompress`` runs on no path and is not ported.
 """
 
 from __future__ import annotations
@@ -110,3 +114,112 @@ def rand_lowrank(A: torch.Tensor, omega: torch.Tensor, atol: float, rtol: float,
     U, V, rank = lowrank_truncate((Q @ Uw).contiguous(), sv.contiguous(),
                                   Vh.contiguous(), atol, rtol, cap)
     return LowRank(U=U, V=V, rank=rank)
+
+
+# ---------------------------------------------------------------------------
+# column-pivoted QR and interpolative decomposition (the HSS path)
+# ---------------------------------------------------------------------------
+
+class CPQR(NamedTuple):
+    R: torch.Tensor     # [..., cap, n] upper-trapezoidal factor (pivoted order)
+    piv: torch.Tensor   # [..., cap] int64 selected column indices, -1 past rank
+    rank: torch.Tensor  # [...] int32 numerical rank against the tolerance
+
+
+def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
+    """The pivot loop of ``hsolve/ops/lowrank.py:cpqr`` (:189-219): ``k`` steps
+    of Businger-Golub column pivoting with norm downdating on ``A`` [B, m, n];
+    returns ``(piv [B, k] int32, -1 past the rank; rank [B] int32)``.  Ties go
+    to the first maximal norm, as ``jnp.argmax`` does."""
+    Bn, m, n = A.shape
+    A = A.clone()
+    norms2 = (A * A).sum(-2)
+    norms0 = norms2.max(-1).values.sqrt() if n else A.new_zeros(Bn)
+    thr = torch.clamp(rtol * norms0, min=atol)
+    piv = torch.full((Bn, k), -1, dtype=torch.int32, device=A.device)
+    rank = torch.zeros(Bn, dtype=torch.int32, device=A.device)
+    active = torch.ones(Bn, dtype=torch.bool, device=A.device)
+    rows = torch.arange(Bn, device=A.device)
+    for j in range(k):
+        p = norms2.argmax(-1)
+        a = A[rows, :, p]                                       # [B, m]
+        nrm = torch.clamp((a * a).sum(-1), min=1e-300).sqrt()
+        ok = active & (nrm > thr)
+        piv[:, j] = torch.where(ok, p, -1).to(torch.int32)
+        rank += ok.to(torch.int32)
+        q = torch.where(ok[:, None], a / nrm[:, None], 0.0)
+        coef = (q[:, :, None] * A).sum(-2)                      # [B, n]
+        A -= q[:, :, None] * coef[:, None, :]
+        norms2 = torch.clamp(norms2 - coef * coef, min=0.0)
+        norms2[rows, p] = -float("inf")
+        active = ok
+    return piv, rank
+
+
+# shared memory a block of kernel H may take (the matrix lives there whole)
+CPQR_MAX_SMEM = 200 * 1024
+
+
+def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
+    """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64,
+    one matrix per block, held whole in shared memory."""
+    if kernels.on_cpu(A):
+        return cpqr_pivots_plain(A, atol, rtol, k)
+    Bn, m, n = A.shape
+    kernels.require(A, "A", torch.float64)
+    smem = 8 * (m * n + 2 * n + m) + 64
+    if smem > CPQR_MAX_SMEM:
+        raise ValueError(f"cpqr: a [{m}, {n}] matrix needs {smem} bytes of shared "
+                         f"memory, above the kernel's {CPQR_MAX_SMEM}")
+    piv = torch.empty((Bn, k), dtype=torch.int32, device=A.device)
+    rank = torch.empty((Bn,), dtype=torch.int32, device=A.device)
+    if Bn and k:
+        kernels.launch("hs_cpqr", A.device, A.data_ptr(), piv.data_ptr(),
+                       rank.data_ptr(), float(atol), float(rtol), Bn, m, n, k)
+        cpqr_pivots.launches += 1
+    elif Bn:
+        rank.zero_()
+    return piv, rank
+
+
+cpqr_pivots.launches = 0
+
+
+def cpqr(A: torch.Tensor, atol: float, rtol: float, cap: int) -> CPQR:
+    """Batched column-pivoted QR, R and pivots only (parity with
+    ``hsolve/ops/lowrank.py:cpqr``): the pivot loop (kernel H), then a plain QR
+    of the selected columns and ``R = Q^T A``, masked past the rank and padded
+    to ``cap`` rows."""
+    *batch, m, n = A.shape
+    k = min(cap, m, n)
+    A3 = A.reshape(-1, m, n).contiguous()
+    piv, rank = cpqr_pivots(A3, atol, rtol, k)
+    piv = piv.long()
+    pos = piv.clamp(min=0)
+    Asel = torch.gather(A3, -1, pos[:, None, :].expand(-1, m, k))
+    mask = (torch.arange(k, device=A.device) < rank[:, None]).to(A.dtype)
+    Q, _ = torch.linalg.qr(Asel * mask[:, None, :])
+    R = (Q.transpose(-1, -2) @ A3) * mask[:, :, None]
+    if k < cap:
+        R = torch.nn.functional.pad(R, (0, 0, 0, cap - k))
+        piv = torch.nn.functional.pad(piv, (0, cap - k), value=-1)
+    return CPQR(R=R.reshape(*batch, cap, n), piv=piv.reshape(*batch, cap),
+                rank=rank.reshape(batch))
+
+
+def interp_decomp(A: torch.Tensor, atol: float, rtol: float, cap: int):
+    """Row interpolative decomposition ``A ~= T @ A[J, :]`` (parity with
+    ``hsolve/ops/lowrank.py:interp_decomp``) from :func:`cpqr` of ``A^T``.
+    Returns ``(J [..., cap] int64 row ids, -1 past the rank; T [..., m, cap],
+    zero past the rank; rank [...] int32)``."""
+    f = cpqr(A.transpose(-1, -2), atol, rtol, cap)
+    k = f.R.shape[-2]
+    pos = f.piv.clamp(min=0)
+    R11 = torch.gather(f.R, -1, pos[..., None, :].expand(*f.R.shape[:-1], k))
+    mask = (torch.arange(k, device=A.device) < f.rank[..., None]).to(A.dtype)
+    eye = torch.eye(k, dtype=A.dtype, device=A.device)
+    # identity on the masked-out part keeps the triangular solve well-posed
+    R11g = R11 * mask[..., None, :] + eye * (1.0 - mask[..., None, :])
+    Tt = torch.linalg.solve_triangular(R11g, f.R, upper=True)
+    T = Tt.transpose(-1, -2) * mask[..., None, :]
+    return torch.where(f.piv >= 0, pos, -1), T, f.rank

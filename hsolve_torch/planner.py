@@ -1,11 +1,12 @@
 """Host-side symbolic planner (jax-free copy of ``hsolve/planner.py``).
 
-The copy keeps what exact (``swlevel=0``) and low-rank compressed (``hss=False``)
-planning run, numpy code unchanged, so its :class:`Plan` equals the JAX
-planner's array for array.  ``hss=True`` with any compressed node raises
-``NotImplementedError``: the structured (HSS) batches, their cluster plans
-(``cplan``, ``n1``, ``n2``) and the cross blocks belong to the port's structured
-(HSS) slice.
+The copy keeps what exact (``swlevel=0``), low-rank compressed (``hss=False``)
+and structured (``hss=True``) planning run, numpy code unchanged, so its
+:class:`Plan` equals the JAX planner's array for array: the structured (HSS)
+batches with their cluster plans (``cplan``, ``n1``, ``n2``), the parent-S map
+``smap`` and the eight cross-coupling strips included.  The JAX planner's
+``batch_multiple`` (dummy fronts for a device mesh) is left out: one GPU needs
+no such padding.
 
 Instead of the reference's runtime tree recursion (``factorization.jl:14-27``),
 the planner turns the elimination tree into a *static, level-synchronous schedule*
@@ -72,6 +73,273 @@ def _rank_cap(opts: SolverOptions, compress: bool, nodes, levels, ni_pad: int,
         return 0
     cap = _cap_rule(opts, nb_pad, int(levels[nodes].min()))
     return min(ni_pad, nb_pad, _round_up(cap, opts.rank_pad))
+
+
+def _coo_to_strip(pos: np.ndarray, vals: np.ndarray, B: int, r: int, c: int,
+                  pad: int = 8) -> dict:
+    """Turn one cross block's batched COO (flat positions into [B, r, c]) into an
+    EXACT skinny factorization ``A_blk = E @ S``: ``rows [B, rcap]`` gives each
+    nonzero row's id (sentinel ``r`` on padding -> zero one-hot column) and
+    ``pos/vals`` scatter the value strip ``S [B, rcap, c]``.  Junction couplings
+    touch only a contact-sized set of rows, so ``rcap`` is small and the
+    factorization is exact (the analog of the reference keeping these couplings
+    structured: ``hss(A[int1,int2])``, factorization.jl:128)."""
+    rc_ = r * c
+    n_ = len(pos)
+    # the pooled gather emits entries block-major, row-major (sorted by
+    # (b, row, col)): one native pass builds the whole strip layout
+    if n_ and bool(np.all(pos[1:] > pos[:-1])):
+        from hsolve_torch.native import coo_to_strip_native
+
+        nat = coo_to_strip_native(pos, B, r, c, pad)
+        if nat is not None:
+            rows_idx, strip_pos, rcap = nat
+            return {"rows": rows_idx, "pos": strip_pos, "vals": vals,
+                    "rcap": rcap, "r": r, "c": c}
+    b = pos // rc_
+    rem = pos - b * rc_
+    row = rem // c
+    col = rem - row * c
+    key = b * np.int64(r) + row
+    # dedup with O(n) change flags instead of np.unique's sort
+    if n_ and bool(np.all(key[1:] >= key[:-1])):
+        change = np.empty(n_, dtype=bool)
+        change[0] = True
+        np.not_equal(key[1:], key[:-1], out=change[1:])
+        inv = np.cumsum(change) - 1
+        uniq = key[change]
+    else:
+        uniq, inv = np.unique(key, return_inverse=True)
+    if len(uniq):
+        ub = uniq // r
+        urow = uniq - ub * r
+        nu = len(uniq)
+        bchange = np.empty(nu, dtype=bool)
+        bchange[0] = True
+        np.not_equal(ub[1:], ub[:-1], out=bchange[1:])
+        idx = np.arange(nu, dtype=np.int64)
+        first = np.maximum.accumulate(np.where(bchange, idx, 0))
+        slot = idx - first                          # position within its b group
+        nrows = int(slot.max()) + 1
+    else:
+        ub = urow = slot = np.zeros(0, dtype=np.int64)
+        nrows = 0
+    rcap = _round_up(max(nrows, 1), pad)
+    rcap = min(rcap, max(r, 1))
+    rows_idx = np.full((B, rcap), r, dtype=np.int32)
+    if len(uniq):
+        rows_idx[ub, slot] = urow
+        strip_pos = (b * rcap + slot[inv]) * c + col
+    else:
+        strip_pos = np.zeros(0, dtype=np.int64)
+    return {"rows": rows_idx, "pos": strip_pos.astype(np.int64), "vals": vals,
+            "rcap": rcap, "r": r, "c": c}
+
+
+def cross_block_shapes(child_cplans) -> Dict[str, Tuple[int, int]]:
+    """Per-node (rows, cols) of the 8 cross-coupling blocks of a structured batch,
+    in child-aligned coordinates."""
+    cpl, cpr = child_cplans
+    h1, h2 = cpl.half, cpr.half
+    q1, q2 = cpl.n_pad - cpl.half, cpr.n_pad - cpr.half
+    return {"ci12": (h1, h2), "ci21": (h2, h1), "cib12": (h1, q2),
+            "cib21": (h2, q1), "cbi12": (q1, h2), "cbi21": (q2, h1),
+            "cbb12": (q1, q2), "cbb21": (q2, q1)}
+
+
+# the 8 cross couplings of a structured batch: (name, row segment, col segment)
+_CROSS = (("ci12", "i1", "i2"), ("ci21", "i2", "i1"),
+          ("cib12", "i1", "b2"), ("cib21", "i2", "b1"),
+          ("cbi12", "b1", "i2"), ("cbi21", "b2", "i1"),
+          ("cbb12", "b1", "b2"), ("cbb21", "b2", "b1"))
+
+
+def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
+                           child_cplans, levels, s_loc, opts, N,
+                           cnnz=None) -> "BatchPlan":
+    """Plan a fully-structured compressed batch in *child-aligned* coordinates.
+
+    Thanks to the ``[int_loc; bnd_loc]`` storage discipline every child-to-parent
+    index map is an offset identity, so the only per-node data are the split
+    sizes and one composed gather map from the parent-S HSS coordinates to the
+    child-aligned boundary layout.  Only the cross-child couplings are extracted
+    from A (the structured counterpart of ``_assemble_blocks`` for HSS children,
+    factorization.jl:126-140)."""
+    cpl, cpr = child_cplans
+    B = len(nodes)
+    A_dtype = np.complex128 if gather.iscomplex else np.float64
+    h1, h2 = cpl.half, cpr.half
+    q1, q2 = cpl.n_pad - cpl.half, cpr.n_pad - cpr.half
+    np_pad = cplan.n_pad
+    shapes = cross_block_shapes(child_cplans)
+    nodes_arr = np.asarray(nodes, dtype=np.int64)
+
+    pool_t = getattr(tree, "_pool", None)
+    if pool_t is not None and loc.pool is not None and B:
+        # vectorized pooled path: whole-batch numpy on the shared symfact
+        # pools, the cross couplings as ONE pooled native COO gather
+        lefts = tree.left[nodes_arr].astype(np.int64)
+        rights = tree.right[nodes_arr].astype(np.int64)
+        off_n = tree._pool_off[nodes_arr].astype(np.int64)
+        ni1 = loc.n_int[lefts].astype(np.int64)
+        nb1 = loc.n_bnd[lefts].astype(np.int64)
+        ni2 = loc.n_int[rights].astype(np.int64)
+        nb2 = loc.n_bnd[rights].astype(np.int64)
+        ni_n = tree._pool_ni[nodes_arr].astype(np.int64)   # = ni1 + ni2
+        k1 = n1.astype(np.int64)
+        k2 = n2.astype(np.int64)
+        o_l = loc.off[nodes_arr].astype(np.int64)
+        from hsolve_torch.native import fill_structured_maps_native
+
+        int_ids = np.empty((B, h1 + h2), dtype=np.int32)
+        bnd_ids = np.empty((B, q1 + q2), dtype=np.int32)
+        smap = np.empty((B, np_pad), dtype=np.int32)
+        if not fill_structured_maps_native(
+                pool_t, loc.pool, off_n, ni1, ni2, nb1, nb2, o_l, k1, k2,
+                B, h1, h2, q1, q2, np_pad, cplan.half, N,
+                int_ids, bnd_ids, smap):
+            pmax = max(len(pool_t) - 1, 0)
+
+            def _ids(width, start, count):
+                j = np.arange(width, dtype=np.int64)[None, :]
+                src = np.minimum(start[:, None] + j, pmax)
+                return np.where(j < count[:, None], pool_t[src],
+                                N).astype(np.int32)
+
+            int_ids[:, :h1] = _ids(h1, off_n, ni1)
+            int_ids[:, h1:] = _ids(h2, off_n + ni1, ni2)
+            bnd_ids[:, :q1] = _ids(q1, off_n + ni_n, nb1)
+            bnd_ids[:, q1:] = _ids(q2, off_n + ni_n + nb1, nb2)
+            # parent-S HSS pad coord -> child-aligned boundary position
+            lmax = max(len(loc.pool) - 1, 0)
+            j = np.arange(np_pad, dtype=np.int64)[None, :]
+            srcj = np.where(j < k1[:, None], j, np.maximum(
+                k1[:, None] + j - cplan.half, 0))
+            valid = (j < k1[:, None]) | ((j >= cplan.half)
+                                         & (j < cplan.half + k2[:, None]))
+            perm_sj = loc.pool[np.minimum(o_l[:, None] + srcj, lmax)]
+            posj = np.where(perm_sj < nb1[:, None], perm_sj,
+                            q1 + perm_sj - nb1[:, None])
+            smap[:] = np.where(valid, posj, q1 + q2)
+
+        from hsolve_torch.native import run_coo_pooled
+
+        segs = {"i1": (off_n, ni1), "i2": (off_n + ni1, ni2),
+                "b1": (off_n + ni_n, nb1), "b2": (off_n + ni_n + nb1, nb2)}
+        if cnnz is None:
+            counts = (gather.indptr[1:] - gather.indptr[:-1]) if gather.ok \
+                else np.diff(gather.A.indptr).astype(np.int64)
+            cnnz = np.zeros(len(pool_t) + 1, dtype=np.int64)
+            np.cumsum(counts[pool_t], out=cnnz[1:])
+        out_off0 = np.arange(B, dtype=np.int64)
+        # ONE pooled COO gather for all 8 couplings: each name gets a disjoint
+        # flat-position space and the emitted stream is name-major, so the
+        # per-name segments come back with one searchsorted pass
+        seg_rs, seg_rl, seg_cs, seg_cl, seg_off, seg_st = \
+            [], [], [], [], [], []
+        name_base = []
+        base = 0
+        bound = 0
+        for name, rseg, cseg in _CROSS:
+            r_, c_ = shapes[name]
+            rs, rl = segs[rseg]
+            cs2, cl2 = segs[cseg]
+            bound += int(np.sum(cnnz[rs + rl] - cnnz[rs]))
+            seg_rs.append(rs)
+            seg_rl.append(rl)
+            seg_cs.append(cs2)
+            seg_cl.append(cl2)
+            seg_off.append(base + out_off0 * (r_ * c_))
+            seg_st.append(np.full(B, c_, dtype=np.int64))
+            name_base.append(base)
+            base += B * r_ * c_
+        pos_all, vals_all = run_coo_pooled(
+            gather, pool_t, np.concatenate(seg_rs), np.concatenate(seg_rl),
+            np.concatenate(seg_cs), np.concatenate(seg_cl),
+            np.concatenate(seg_off), np.concatenate(seg_st), bound=bound)
+        bases = np.asarray(name_base + [base], dtype=np.int64)
+        name_idx = np.searchsorted(bases, pos_all, side="right") - 1
+        cuts = np.searchsorted(name_idx, np.arange(len(_CROSS) + 1))
+        cross = {}
+        for ni_, (name, _, _) in enumerate(_CROSS):
+            r_, c_ = shapes[name]
+            sl = slice(int(cuts[ni_]), int(cuts[ni_ + 1]))
+            cross[name] = _coo_to_strip(pos_all[sl] - name_base[ni_],
+                                        vals_all[sl], B, r_, c_)
+    else:
+        # per-node fallback (no pooled symfact layout)
+        ni1 = np.zeros(B, dtype=np.int64)
+        ni2 = np.zeros(B, dtype=np.int64)
+        nb1 = np.zeros(B, dtype=np.int64)
+        nb2 = np.zeros(B, dtype=np.int64)
+        int_ids = np.full((B, h1 + h2), N, dtype=np.int32)
+        bnd_ids = np.full((B, q1 + q2), N, dtype=np.int32)
+        smap = np.full((B, np_pad), q1 + q2, dtype=np.int32)
+        from hsolve_torch.native import BlockGatherBuilder
+
+        builders = {name: BlockGatherBuilder(gather) for name in shapes}
+        for b, node in enumerate(nodes):
+            node = int(node)
+            l, r = int(tree.left[node]), int(tree.right[node])
+            ki1, kb1 = len(loc.int_loc[l]), len(loc.bnd_loc[l])
+            ki2, kb2 = len(loc.int_loc[r]), len(loc.bnd_loc[r])
+            ni1[b], ni2[b], nb1[b], nb2[b] = ki1, ki2, kb1, kb2
+            ints = tree.int_idx[node]
+            bnds = tree.bnd_idx[node]
+            i1, i2 = ints[:ki1], ints[ki1:]
+            b1, b2 = bnds[:kb1], bnds[kb1:]
+            int_ids[b, :ki1] = i1
+            int_ids[b, h1: h1 + ki2] = i2
+            bnd_ids[b, :kb1] = b1
+            bnd_ids[b, q1: q1 + kb2] = b2
+            seg = {"i1": i1, "i2": i2, "b1": b1, "b2": b2}
+            for name, rseg, cseg in _CROSS:
+                rows, cols = seg[rseg], seg[cseg]
+                if len(rows) and len(cols):
+                    r_, c_ = shapes[name]
+                    builders[name].add(rows, cols, b * r_ * c_, stride=c_)
+            if loc.pool is not None:
+                o = loc.off[node]
+                perm_s = loc.pool[o: o + int(loc.n_int[node] + loc.n_bnd[node])]
+            else:
+                perm_s = np.concatenate([loc.int_loc[node], loc.bnd_loc[node]])
+            pos = np.where(perm_s < kb1, perm_s, q1 + perm_s - kb1)
+            k1, k2 = int(n1[b]), int(n2[b])
+            smap[b, :k1] = pos[:k1]
+            smap[b, cplan.half: cplan.half + k2] = pos[k1:]
+        cross = {name: _coo_to_strip(*bld.run_coo(shapes[name][1]), B,
+                                     *shapes[name])
+                 for name, bld in builders.items()}
+
+    s_batch, s_row = s_loc
+
+    def _mk(kids):
+        out = []
+        for sb in np.unique(s_batch[kids]):
+            m = np.flatnonzero(s_batch[kids] == sb)
+            out.append(ChildGroup(int(sb), s_row[kids[m]], m.astype(np.int64)))
+        return tuple(out)
+
+    groups_l = _mk(tree.left[nodes_arr])
+    groups_r = _mk(tree.right[nodes_arr])
+
+    cross["ni1"] = ni1
+    cross["ni2"] = ni2
+    cross["nb1"] = nb1
+    cross["nb2"] = nb2
+    cap = _cap_rule(opts, q1 + q2, int(levels[nodes].min()))
+    rank_cap = min(h1 + h2, q1 + q2, _round_up(cap, opts.rank_pad))
+    return BatchPlan(
+        node_ids=nodes, is_leaf=False, ni_pad=h1 + h2, nb_pad=q1 + q2, ni=ni, nb=nb,
+        batch_size=B, front_pos=np.zeros(0, dtype=np.int64),
+        front_vals=np.zeros(0, dtype=A_dtype),
+        # structured batches draw their A-entries from the cross strips, not
+        # from front_vals
+        front_src=np.zeros(0, dtype=np.int32),
+        sperm=np.zeros((B, 0), dtype=np.int64), int_ids=int_ids, bnd_ids=bnd_ids,
+        levels=levels[nodes].astype(np.int64), compress=True, rank_cap=rank_cap,
+        cplan=cplan, n1=n1, n2=n2, structured=True, cross=cross, smap=smap,
+        child_cplans=child_cplans, groups_l=groups_l, groups_r=groups_r)
 
 
 @dataclasses.dataclass
@@ -177,7 +445,7 @@ class Plan:
 
 
 def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
-                        m_pad, is_leaf_batch, compress, levels,
+                        m_pad, is_leaf_batch, compress, cplan, n1, n2, levels,
                         s_batch, s_row, batches, opts, N, bidx,
                         pools=None, deferred=None) -> None:
     """Plan one regular (dense or compressed-with-dense-children) batch: front COO
@@ -244,6 +512,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
             sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
             compress=rank_cap > 0, rank_cap=rank_cap,
+            cplan=cplan if rank_cap > 0 else None, n1=n1, n2=n2,
             groups_l=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
                            in sorted(groups_l.items())),
             groups_r=tuple(ChildGroup(sb, src, dst) for sb, (src, dst)
@@ -489,6 +758,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
         sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
         compress=rank_cap > 0, rank_cap=rank_cap,
+        cplan=cplan if rank_cap > 0 else None, n1=n1, n2=n2,
         groups_l=_mk_groups(groups_l), groups_r=_mk_groups(groups_r)))
 
 
@@ -567,12 +837,6 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
     # level <= swlevel and |bnd| >= swsize)
     swlevel = opts.resolve_swlevel(depth)
     cflag = (levels <= swlevel) & (nb_all >= opts.swsize)
-    if opts.hss and cflag.any():
-        raise NotImplementedError(
-            f"swlevel={opts.swlevel} with hss=True compresses "
-            f"{int(cflag.sum())} node(s) into HSS Schur complements, which "
-            "belong to the port's structured (HSS) slice; pass hss=False for "
-            "the low-rank compressed path, or swlevel=0")
 
     # each height group splits by the compression flag, dense nodes first
     hsorted = order[np.argsort(height[order], kind="stable")]
@@ -595,17 +859,72 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
     # ~40% of schedule time at h=128)
     deferred: Optional[list] = [] if (pools is not None and gather.ok) else None
 
-    for nodes, is_leaf_batch, compress in groups:
-        bidx = len(batches)
-        ni = ni_all[nodes].astype(np.int64)
-        nb = nb_all[nodes].astype(np.int64)
-        ni_pad = _round_up(int(ni.max()), opts.pad)
-        nb_pad = _round_up(int(nb.max()), opts.pad) if nb.max() > 0 else 0
-        m_pad = ni_pad + nb_pad
-        _plan_regular_batch(
-            gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad, m_pad,
-            is_leaf_batch, compress, levels, s_batch, s_row, batches, opts, N,
-            bidx, pools, deferred)
+    def _child_sig(kid: int):
+        """HSS layout signature of a child's emitted Schur complement, or None
+        if the child's batch does not emit (structured-consumable) HSS."""
+        bp = batches[int(s_batch[kid])]
+        if bp.compress and bp.cplan is not None and bp.cplan.depth >= 2:
+            return (bp.cplan, bp.rank_cap)
+        return None
+
+    for nodes_all, is_leaf_batch, compress in groups:
+        # per-node structured eligibility: a node assembles structurally when
+        # both children emit HSS Schur complements; nodes are partitioned by
+        # their (left, right) layout signature - one structured sub-batch per
+        # distinct pair, one regular sub-batch for the rest
+        subsets: List[Tuple[np.ndarray, Optional[tuple]]] = []
+        if compress and opts.hss and not is_leaf_batch:
+            sig_groups: Dict[tuple, List[int]] = {}
+            regular: List[int] = []
+            for nd in nodes_all:
+                sl_ = _child_sig(int(tree.left[nd]))
+                sr_ = _child_sig(int(tree.right[nd]))
+                if sl_ is None or sr_ is None:
+                    regular.append(int(nd))
+                else:
+                    sig_groups.setdefault((sl_, sr_), []).append(int(nd))
+            if regular:
+                subsets.append((np.asarray(regular, dtype=nodes_all.dtype), None))
+            for (sl_, sr_), nds in sig_groups.items():
+                subsets.append((np.asarray(nds, dtype=nodes_all.dtype),
+                                (sl_[0], sr_[0])))
+        else:
+            subsets.append((nodes_all, None))
+
+        for nodes, child_cplans in subsets:
+            bidx = len(batches)
+            ni = ni_all[nodes].astype(np.int64)
+            nb = nb_all[nodes].astype(np.int64)
+            ni_pad = _round_up(int(ni.max()), opts.pad)
+            nb_pad = _round_up(int(nb.max()), opts.pad) if nb.max() > 0 else 0
+            m_pad = ni_pad + nb_pad
+
+            # HSS output plan of a compressed batch: the emitted S lives on a
+            # perfect cluster tree split at [int_loc | bnd_loc]
+            # (factorization.jl:109); tentative for regular batches, dropped by
+            # the consumption post-pass below when nothing structured reads it
+            n1 = n2 = cplan = None
+            if compress and opts.hss and int(nb.max()) > 0:
+                from hsolve_torch.ops.hss import plan_cluster
+
+                n1 = loc.n_int[nodes].astype(np.int64)
+                n2 = loc.n_bnd[nodes].astype(np.int64)
+                cplan = plan_cluster(int(n1.max()), int(n2.max()), opts.leafsize,
+                                     min_depth=2)
+
+            if child_cplans is not None and cplan is not None:
+                batches.append(_plan_structured_batch(
+                    gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
+                    child_cplans, levels, (s_batch, s_row), opts, N,
+                    cnnz=cs if pools is not None else None))
+                s_batch[nodes] = bidx
+                s_row[nodes] = np.arange(len(nodes), dtype=np.int64)
+                continue
+
+            _plan_regular_batch(
+                gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad, m_pad,
+                is_leaf_batch, compress, cplan, n1, n2, levels, s_batch, s_row,
+                batches, opts, N, bidx, pools, deferred)
 
     if deferred:
         from hsolve_torch.native import plan_batches_all_native
@@ -616,6 +935,19 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
             bp.front_pos = fpos
             bp.front_vals = fval
             bp.front_src = fsrc
+
+    # consumption post-pass: keep HSS emission only where a structured batch
+    # (or an HSS root solve) actually consumes it
+    consumed = set()
+    for bp in batches:
+        if bp.structured:
+            for g in bp.groups_l + bp.groups_r:
+                consumed.add(g.src_batch)
+    if len(tree.bnd_idx[tree.root]) > 0:
+        consumed.add(len(batches) - 1)   # an HSS root consumes the top stack
+    for i, bp in enumerate(batches):
+        if bp.cplan is not None and not bp.structured and i not in consumed:
+            bp.cplan = None
 
     nb_root = len(tree.bnd_idx[tree.root])
     # device index arrays go out as int32 (the kernels' index width)

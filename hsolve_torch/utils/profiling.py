@@ -3,11 +3,13 @@
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
-                                            [--compressed] [--out build/profile]
+                                            [--compressed | --hss]
+                                            [--out build/profile]
 
 For each size n it plans helmholtz2d(n, k=40) with leafmax=100 and swlevel=0
 (with ``--compressed``: the low-rank compressed configuration swlevel=-2,
-swsize=16, atol=rtol=1e-3, kest=32, hss=False), then times two warm phases,
+swsize=16, atol=rtol=1e-3, kest=32, hss=False; with ``--hss``: the same with
+hss=True, the structured HSS path), then times two warm phases,
 the numeric factorization and the GMRES solve (reltol 1e-9, the factor as
 right preconditioner, the DIA matvec):
 
@@ -68,8 +70,12 @@ def main() -> int:
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--compressed", action="store_true",
-                    help="profile the low-rank compressed configuration")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--compressed", action="store_true",
+                      help="profile the low-rank compressed configuration")
+    mode.add_argument("--hss", action="store_true",
+                      help="profile the structured (HSS) compressed "
+                           "configuration")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -90,12 +96,12 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     kernels.build()
-    path = "compressed" if args.compressed else "exact"
+    path = "hss" if args.hss else "compressed" if args.compressed else "exact"
     report = {"card": card, "path": path, "sizes": []}
     for n in args.sizes:
         A, b, shape = ht.helmholtz2d(n, k=40.0)
         opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
-                                kest=32, hss=False) if args.compressed else \
+                                kest=32, hss=args.hss) if path != "exact" else \
             ht.SolverOptions(swlevel=0)
         plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                      opts)

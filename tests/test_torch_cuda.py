@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, at edge cases the main path does not
 reach (several right-hand sides, sentinel ids, narrow child stacks, ragged
-tiles, cap padding), and the exact and compressed slices end to end on
-``cuda``.
+tiles, cap padding, argmax ties, shared memory above 48 KB), and the exact,
+compressed and structured (HSS) slices end to end on ``cuda``.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run these there with
@@ -19,7 +19,9 @@ import hsolve_torch as ht
 from hsolve_torch import kernels
 from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
                                        front_assemble, front_assemble_plain)
-from hsolve_torch.ops.lowrank import lowrank_truncate, lowrank_truncate_plain
+from hsolve_torch.ops import hss as H
+from hsolve_torch.ops.lowrank import (cpqr_pivots, cpqr_pivots_plain,
+                                      lowrank_truncate, lowrank_truncate_plain)
 from hsolve_torch.ops.schur import (lowrank_schur_update,
                                     lowrank_schur_update_plain)
 from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
@@ -224,3 +226,147 @@ def test_compressed_slice_on_cuda(dev):
     assert F.maxrank() > 0 and not F.rank_report()["saturated"]
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in kernels.COMPRESSED_PATH), counts
+
+
+@pytest.mark.parametrize("m,n,k", [(58, 32, 32), (58, 96, 48), (92, 64, 48),
+                                   (160, 96, 48), (7, 20, 7)])
+def test_cpqr_kernel_selects_the_plain_pivots(dev, m, n, k):
+    """Kernel H gives the plain pivots and ranks on decaying spectra, with an
+    exact tie (a repeated column: the first one wins) and an all-zero matrix;
+    (160, 96) needs more than 48 KB of shared memory."""
+    rng = np.random.default_rng(m * n)
+    B = 6
+    A = rng.standard_normal((B, m, n)) * 0.7 ** np.arange(n)
+    A[1, :, 5] = A[1, :, 2]
+    A[2] = 0.0
+    A = torch.as_tensor(A, device=dev)
+    for atol, rtol in ((1e-6, 1e-6), (0.0, 1e-12), (1e-2, 0.0)):
+        before = cpqr_pivots.launches
+        piv, rank = cpqr_pivots(A, atol, rtol, k)
+        assert cpqr_pivots.launches == before + 1
+        ppiv, prank = cpqr_pivots_plain(A, atol, rtol, k)
+        assert torch.equal(rank, prank) and torch.equal(piv, ppiv)
+        if atol > 0:             # with atol = 0 the 1e-300 floor passes
+            assert int(rank[2]) == 0
+
+
+def _hss_on(dev, depth=3, ls=16, cap=12, B=2, seed=0):
+    """A batch of HSS matrices compressed from smooth dense ones on ``dev``."""
+    rng = np.random.default_rng(seed)
+    plan = H.ClusterPlan(ls=ls, depth=depth, n1=ls << (depth - 1),
+                         n2=ls << (depth - 1))
+    n = plan.n_pad
+    pts = np.sort(rng.random((B, n)), axis=-1)
+    A = 1.0 / (1.0 + 30.0 * np.abs(pts[:, :, None] - pts[:, None, :])) \
+        + 4.0 * np.eye(n) + 1e-3 * rng.standard_normal((B, n, n))
+    return H.hss_compress_dense(torch.as_tensor(A, device=dev), plan, 1e-6,
+                                1e-6, cap)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_hss_entries_kernel(dev, depth):
+    h = _hss_on(dev, depth=depth)
+    ef = H.hss_entry_factors(h)
+    rng = np.random.default_rng(depth)
+    n = h.plan.n_pad
+    rows = torch.as_tensor(rng.integers(0, n, (h.B, 5, 7)), device=dev)
+    cols = torch.as_tensor(rng.integers(0, n, (h.B, 5, 9)), device=dev)
+    before = H.hss_entries_prepared.launches
+    got = H.hss_entries_prepared(ef, rows, cols)
+    assert H.hss_entries_prepared.launches == before + 1
+    assert _rel(got, H.hss_entries_prepared_plain(ef, rows, cols)) < 1e-13
+    dense = H.hss_todense(h)
+    b = torch.arange(h.B, device=dev)[:, None, None, None]
+    ref = dense[b, rows[..., :, None], cols[..., None, :]]
+    assert _rel(got, ref) < 1e-12
+
+
+@pytest.mark.parametrize("depth,k", [(1, 1), (3, 1), (3, 13), (2, 58)])
+def test_hss_matvec_kernel_both_directions(dev, depth, k):
+    """Kernel J against its plain version, k = 1 and ragged column tiles."""
+    h = _hss_on(dev, depth=depth)
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)), device=dev)
+    dense = H.hss_todense(h)
+    for adj in (False, True):
+        before = H.hss_matvec.launches
+        got = H.hss_matvec(h, x, adj)
+        assert H.hss_matvec.launches == before + 1
+        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-13
+        op = dense.transpose(-1, -2) if adj else dense
+        assert _rel(got, op @ x) < 1e-12
+
+
+@pytest.mark.parametrize("k", [1, 12])
+def test_hss_level_correct_kernel_and_solve(dev, k):
+    """Kernel K against its plain version at every level of both solves, and
+    the solves against a dense solve."""
+    h = _hss_on(dev, depth=3)
+    sol = H.hss_factor(h)
+    rng = np.random.default_rng(40 + k)
+    x = torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)), device=dev)
+    for adj in (False, True):
+        Y = H._leaf_solve(sol, x, adj)
+        for lev in range(1, h.plan.depth + 1):
+            xi = H._upsweep(h, Y, lev - 1, adj).contiguous()
+            Bl, Br = h.B12s[lev - 1], h.B21s[lev - 1]
+            lu, piv, Phi = sol.cores_lu[lev - 1], sol.cores_piv[lev - 1], \
+                sol.Phis[lev - 1]
+            if adj:
+                Bl, Br = Br, Bl
+                lu, piv, Phi = sol.coresT_lu[lev - 1], sol.coresT_piv[lev - 1], \
+                    sol.PhisT[lev - 1]
+            want = H.hss_level_correct_plain(Y.clone(), xi, Bl, Br, lu, piv,
+                                             Phi, adj)
+            before = H.hss_level_correct.launches
+            Y = H.hss_level_correct(Y, xi, Bl, Br, lu, piv, Phi, adj)
+            assert H.hss_level_correct.launches == before + 1
+            assert _rel(Y, want) < 1e-13
+        dense = H.hss_todense(h)
+        op = dense.transpose(-1, -2) if adj else dense
+        assert _rel(op @ Y, x) < 1e-10
+        assert _rel(H.hss_solve(sol, x, adj), Y) < 1e-13
+
+
+def test_structured_slice_on_cuda(dev):
+    """The structured (HSS) path on the card: it converges in a few GMRES
+    iterations without saturating a cap, through all eleven kernels."""
+    from hsolve_torch.factor import StructuredLevel, solve_with_data
+
+    A, b, shape = ht.helmholtz2d(64, k=20.0)
+    tree = ht.nested_dissection(shape, leafmax=40)
+    kernels.reset_launch_counts()
+    F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                  kest=32, device=dev)
+    assert any(isinstance(lv, StructuredLevel) for lv in F.levels)
+    op, mv = ht.spmv_format(A, device=dev)
+    xg, info = ht.gmres_compiled(mv, solve_with_data,
+                                 torch.as_tensor(b, device=dev), reltol=1e-9,
+                                 restart=30, maxiter=60, mv_data=op,
+                                 M_data=F.solve_data)
+    assert info["converged"] and info["iters"] <= 12
+    xg = xg.cpu().numpy()
+    assert np.linalg.norm(A @ xg - b) / np.linalg.norm(b) < 1e-9
+    assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in kernels.HSS_PATH), counts
+
+
+def test_sketches_are_the_same_on_every_device(dev):
+    """The default sketches are drawn on the host and copied, so the card
+    factors with the CPU's sketches: the same ranks and GMRES iterations on
+    both devices for one seed."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(64, k=20.0)
+    opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=40), opts)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        F = ht.factor_with_plan(plan, opts, device=d)
+        op, mv = ht.spmv_format(A, device=d)
+        _, info = ht.gmres_compiled(mv, solve_with_data, torch.as_tensor(b, device=d),
+                                    reltol=1e-9, restart=30, maxiter=60,
+                                    mv_data=op, M_data=F.solve_data)
+        out.append((F.rank_report(), info["iters"]))
+    assert out[0] == out[1]

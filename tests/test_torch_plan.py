@@ -38,6 +38,30 @@ def test_port_imports_neither_jax_nor_hsolve():
     assert out.stdout.strip().endswith("[]")
 
 
+def _cplan(c):
+    """A ClusterPlan of either package as comparable fields (None passes)."""
+    return None if c is None else (c.ls, c.depth, c.n1, c.n2)
+
+
+def _assert_cross_equal(c1, c2):
+    """The structured batches' cross strips: ``ni1..nb2`` arrays and eight
+    ``{rows, pos, vals, rcap, r, c}`` couplings."""
+    assert set(c1) == set(c2)
+    for name, v1 in c1.items():
+        v2 = c2[name]
+        if isinstance(v1, dict):
+            assert set(v1) == set(v2), name
+            for f, a in v1.items():
+                b = v2[f]
+                if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+                    a, b = np.asarray(a), np.asarray(b)
+                    assert a.dtype == b.dtype and np.array_equal(a, b), (name, f)
+                else:
+                    assert a == b, (name, f, a, b)
+        else:
+            assert v1.dtype == v2.dtype and np.array_equal(v1, v2), name
+
+
 def _assert_plans_equal(P1, P2):
     for f in ("N", "tree_depth", "nb_root"):
         assert getattr(P1, f) == getattr(P2, f), f
@@ -57,6 +81,15 @@ def _assert_plans_equal(P1, P2):
                     assert g1.src_batch == g2.src_batch
                     assert np.array_equal(g1.src_rows, g2.src_rows)
                     assert np.array_equal(g1.dst_rows, g2.dst_rows)
+            elif f == "cplan":
+                assert _cplan(v1) == _cplan(v2), (f, v1, v2)
+            elif f == "child_cplans":
+                assert (v1 is None) == (v2 is None), f
+                assert v1 is None or list(map(_cplan, v1)) == list(map(_cplan, v2))
+            elif f == "cross":
+                assert (v1 is None) == (v2 is None), f
+                if v1 is not None:
+                    _assert_cross_equal(v1, v2)
             else:
                 assert v1 == v2, (f, v1, v2)
 
@@ -78,16 +111,28 @@ def test_plan_matches_jax_planner(problem, n, leafmax):
 
 
 def test_compressed_planning_is_a_later_slice():
-    """Compression with the default hss=True plans HSS Schur complements,
-    which belong to the structured slice; hss=False plans the low-rank path."""
-    A, _, shape = ht.poisson2d(17)
+    """Compression with the default hss=True plans HSS Schur complements (the
+    structured slice, now ported: the port plans and factors them as the JAX
+    package does); hss=False plans the low-rank path with no cluster plans."""
+    import scipy.sparse.linalg as spla
+
+    A, b, shape = ht.poisson2d(33)
     tree = ht.nested_dissection(shape, leafmax=20)
-    with pytest.raises(NotImplementedError, match=r"structured \(HSS\) slice"):
-        ht.plan_factorization(A, tree, ht.SolverOptions(swlevel=-2))
-    with pytest.raises(NotImplementedError, match=r"structured \(HSS\) slice"):
-        ht.factor(A, tree, swlevel=-2, device="cpu")
+    opts = ht.SolverOptions(swlevel=-3, swsize=8, atol=1e-8, rtol=1e-8,
+                            leafsize=16)
+    plan = ht.plan_factorization(A, tree, opts)
+    _assert_plans_equal(plan, hsolve.plan_factorization(
+        A, hsolve.nested_dissection(shape, leafmax=20),
+        hsolve.SolverOptions(swlevel=-3, swsize=8, atol=1e-8, rtol=1e-8,
+                             leafsize=16)))
+    assert any(bp.compress and bp.cplan is not None for bp in plan.batches)
+    F = ht.factor_with_plan(plan, opts, device="cpu")
+    x_ref = spla.spsolve(A.tocsc(), b)
+    x = F.solve(b).numpy()
+    assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 1e-5
     plan = ht.plan_factorization(A, tree, ht.SolverOptions(swlevel=-2, hss=False))
     assert any(bp.compress for bp in plan.batches)
+    assert not any(bp.structured or bp.cplan is not None for bp in plan.batches)
 
 
 def test_native_planner_builds_outside_the_jax_package():
