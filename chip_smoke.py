@@ -9,35 +9,45 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the eleven CUDA kernels are compiled from ``hsolve_torch/csrc/`` for
-   ``sm_90a``, one nvcc process per source, all started together;
+2. build: the thirteen CUDA kernels are compiled from ``hsolve_torch/csrc/``
+   for ``sm_90a``, one nvcc process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
    (A, B and G bitwise, H with equal pivots and ranks, C, D, E, F, I, J and K
    to a relative error of 1e-13, since only the summation order differs);
    each is timed with CUDA events beside its plain version (median of 10 runs
-   after warm-up).  A-D run on the exact plan; E (forward and backward) and F
-   on the first and the top compressed batch of the compressed plan, G on
-   both sides of the first; H-K on the structured (HSS) plan: H on the inputs
-   of the leaf and of an upper level of the first and the top structured
-   batch and of the first transition batch, captured while that plan is
-   factored, I-K on the HSS operands of those two batches (I on a leaf and a
-   B12 extraction, J forward and adjoint at the sketch width and at k=1, K
-   forward and adjoint as hss_factor runs it, k=r, and as hss_solve does,
-   k=1);
+   after warm-up), beside its bound (the larger of its bytes over 3.35 TB/s
+   and its operations over the data sheet's peak, from this run's shapes)
+   and, for D and L, beside the library calls that compute the same function
+   (cuSPARSE CSR ``torch.mv``; ``torch.mv``/``addmv``).  A-D run on the exact
+   plan, in float64 and in float32 (A, B bitwise, C, D to 1e-5); E (forward
+   and backward) and F on the first and the top compressed batch of the
+   compressed plan, G on both sides of the first; H-K on the structured (HSS)
+   plan: H on the inputs of the leaf and of an upper level of the first and
+   the top structured batch and of the first transition batch, captured while
+   that plan is factored, I-K on the HSS operands of those two batches (I on a
+   leaf and a B12 extraction, J forward and adjoint at the sketch width and at
+   k=1, K forward and adjoint as hss_factor runs it, k=r, and as hss_solve
+   does, k=1); L and M on Arnoldi steps j = 0 and j = 29 captured from a
+   30-step cycle on the n=512 operator, in float64 and float32 (1e-13 and
+   1e-5; M's rotations, done flag, divisor and coefficients bit for bit);
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
-   (leafmax=100) -> plan_factorization -> factor_with_plan (float64, cuda) ->
+   (leafmax=100) -> plan_factorization -> factor_with_plan (cuda) ->
    gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
-   preconditioner, the DIA matvec), first exact (swlevel=0), then low-rank
-   compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False),
-   then structured (the same options with hss=True, the default).  Each run
-   must converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9
-   on the host, and launch every kernel of its path (the launch counters are
-   reset just before the run and read just after: A-D on the exact path, A-G
-   on the compressed one, A-K on the structured one).  A compressed or
-   structured run must also stay within twice the JAX package's CPU iteration
-   counts (compressed 6 at n=128 and 7 at n=512, structured 5 and 18) and
-   saturate no rank cap;
+   preconditioner, the DIA matvec), first exact (swlevel=0, float64), then
+   low-rank compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32,
+   hss=False), then structured (the same options with hss=True, the default),
+   then exact-f32-mixed (the JAX bench's device configuration: a float32
+   exact factor, float32 Arnoldi cycles over a float32 DIA operator with
+   m_eps=1e-6 inside a float64 solve, escalation on).  Each run must
+   converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9 on
+   the host, and launch every kernel of its path (the launch counters are
+   reset just before the run and read just after: A-D, L and M on the exact
+   path, A-G, L, M on the compressed one, A-M on the structured one, A-D in
+   float32, D in float64 and L, M in float32 on the mixed one).  A compressed,
+   structured or mixed run must also stay within twice the JAX package's CPU
+   iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
+   cap;
 5. output: a JSON line with one entry per kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -57,6 +67,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 RTOL_SUM = 1e-13      # C-F: the kernel and plain sums differ only in order
+RTOL_SUM32 = 1e-5     # the same in float32
 RELRES = 1e-9         # GMRES target and the independent residual check
 FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 # the slice's compressed configuration (README's switching level, the
@@ -64,9 +75,16 @@ FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 COMPRESSED = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32,
                   hss=False)
 HSS = {**COMPRESSED, "hss": True}
-OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS}
-# twice the JAX package's GMRES iterations on the CPU for the same runs
-MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36}}
+OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
+           "exact-f32-mixed": dict(swlevel=0)}
+# twice the JAX package's GMRES iterations on the CPU for the same runs; the
+# mixed ones from tools/jax_reference_iters.py (5 at n=128, 80 at n=512)
+MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
+             "exact-f32-mixed": {128: 10, 512: 160}}
+HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
+# the data sheet's peaks, FLOP/s: (without, with) the tensor cores; float32
+# without TF32, which the port keeps off
+PEAK = {"float64": (34e12, 67e12), "float32": (67e12, 67e12)}
 SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "extend_add": ("extend_add.cu", "hsolve/factor.py:390"),
            "sweep_update": ("sweep_update.cu", "hsolve/factor.py:509"),
@@ -81,7 +99,11 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "hss_entries_prepared": ("hss_entries.cu", "hsolve/ops/hss.py:293"),
            "hss_matvec": ("hss_matvec.cu", "hsolve/ops/hss.py:207"),
            "hss_level_correct": ("hss_level_correct.cu",
-                                 "hsolve/ops/hss.py:641")}
+                                 "hsolve/ops/hss.py:641"),
+           "arnoldi_cgs2": ("arnoldi_cgs2.cu", "hsolve/krylov.py:231"),
+           "arnoldi_givens": ("arnoldi_givens.cu", "hsolve/krylov.py:241")}
+TYPED = ("front_assemble", "extend_add", "sweep_update", "dia_spmv",
+         "arnoldi_cgs2", "arnoldi_givens")
 
 
 T0 = time.perf_counter()
@@ -113,6 +135,22 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_: float, flops: float, dtype: str = "float64",
+          products: bool = False) -> dict:
+    """The least time the card could take for work that moves ``nbytes_``
+    (each input read once, each output written once) and does ``flops`` in
+    ``dtype`` (on the tensor cores where ``products``): the larger of the two
+    times, and which of them it is."""
+    tb = nbytes_ / HBM_BPS
+    tf = flops / PEAK[dtype][int(products)]
+    return {"bound_ms": max(tb, tf) * 1e3,
+            "bound_by": "bytes" if tb >= tf else "operations"}
 
 
 def errors(a, b):
@@ -150,25 +188,46 @@ class Problems:
 
 
 class Results(dict):
-    """Per kernel: the largest error against its plain version over the
-    checked shapes, and the times at the first shape checked."""
+    """Per kernel (``name``, or ``name:float32`` for a typed kernel's float32
+    instance): the largest error against its plain version over the checked
+    shapes, and the times, the bound and the library call's time at the
+    first shape checked."""
 
-    def record(self, name, shape_desc, errs, limit, ms, plain_ms):
+    def record(self, name, shape_desc, errs, limit, ms, plain_ms, work,
+               library_ms=None):
         err, rel = errs
         ok = rel <= limit
-        log(f"  {name:20s} {shape_desc:48s} max_abs_err={err:.3e} "
+        log(f"  {name:22s} {shape_desc:48s} max_abs_err={err:.3e} "
             f"rel={rel:.3e} (limit {limit:g})  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms{'' if ok else '  MISMATCH'}")
+            f"{plain_ms:.4f} ms  bound {work['bound_ms']:.5f} ms "
+            f"({work['bound_by']})"
+            + ("" if library_ms is None else f"  library {library_ms:.4f} ms")
+            + ("" if ok else "  MISMATCH"))
         if not ok:
             fail(f"{name} disagrees with its plain version at {shape_desc}")
         r = self.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
-                                   "plain_ms": plain_ms})
+                                   "plain_ms": plain_ms, **work,
+                                   "library_ms": library_ms})
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
-def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
+def csr_of(A, dtype, dev):
+    """A's CSR copy on the card in ``dtype``: the library yardstick of D."""
+    import numpy as np
+    import torch
+
+    A = A.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr.astype(np.int64)),
+        torch.as_tensor(A.indices.astype(np.int64)),
+        torch.as_tensor(A.data), size=A.shape).to(device=dev, dtype=dtype)
+
+
+def check_kernels(problems: Problems, n: int, dev, results: Results,
+                  dtype_name: str = "float64") -> None:
     """Phase 3, kernels A-D against their plain versions at the exact
-    n-plan's shapes."""
+    n-plan's shapes, in ``dtype_name``: a float64 run and a float32 run, the
+    latter recorded as ``<name>:float32``."""
     import numpy as np
     import torch
 
@@ -180,12 +239,17 @@ def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
     from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
     from hsolve_torch.ops.sweep import sweep_update, sweep_update_plain
 
+    dt = getattr(torch, dtype_name)
+    e = torch.empty(0, dtype=dt).element_size()
+    tag = "" if dtype_name == "float64" else f":{dtype_name}"
+    rtol = RTOL_SUM if dtype_name == "float64" else RTOL_SUM32
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(swlevel=0)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts)
     tp = plan_to_torch(plan, dev)
-    levels, _, stacks = _factor_levels(plan, tp, opts, torch.float64)
+    adata = tp.adata.to(dt)
+    levels, _, stacks = _factor_levels(plan, tp, opts, dt)
     torch.cuda.synchronize()
     nb = len(plan.batches)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -194,20 +258,21 @@ def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
     # A: front assembly, leaf batch and root batch (real values)
     for bidx in (0, nb - 1):
         bp, tb = plan.batches[bidx], tp.batches[bidx]
-        args = (bp.B, bp.m_pad, tb.pos, tb.src, tp.adata)
+        args = (bp.B, bp.m_pad, tb.pos, tb.src, adata)
         ker = front_assemble(*args)
         ref = front_assemble_plain(*args)
-        if not torch.equal(ker, ref):
-            fail(f"front_assemble is not bitwise equal at batch {bidx}")
-        record("front_assemble", f"batch {bidx} [{bp.B},{bp.m_pad},{bp.m_pad}] "
-               f"nnz={len(bp.front_pos)}", errors(ker, ref), 0.0,
+        if ker.dtype != dt or not torch.equal(ker, ref):
+            fail(f"front_assemble{tag} is not bitwise equal at batch {bidx}")
+        record(f"front_assemble{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
+               f"{bp.m_pad}] nnz={len(bp.front_pos)}", errors(ker, ref), 0.0,
                time_ms(lambda: front_assemble(*args)),
-               time_ms(lambda: front_assemble_plain(*args)))
+               time_ms(lambda: front_assemble_plain(*args)),
+               bound(nbytes(tb.pos, tb.src, adata, ker), 0, dtype_name))
 
     # B: extend-add, first branch batch and root batch (real Schur stacks)
     for bidx in (1, nb - 1):
         bp, tb = plan.batches[bidx], tp.batches[bidx]
-        base = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src, tp.adata)
+        base = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src, adata)
         calls = [(stacks[s], sr, dr, imap)
                  for groups, imap in ((tb.groups_l, tb.map_l),
                                       (tb.groups_r, tb.map_r))
@@ -217,7 +282,15 @@ def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
             extend_add(ker, *c)
             extend_add_plain(ref, *c)
         if not torch.equal(ker, ref):
-            fail(f"extend_add is not bitwise equal at batch {bidx}")
+            fail(f"extend_add{tag} is not bitwise equal at batch {bidx}")
+        # the entries a group covers: S read once, the front read and written
+        cover = flops = 0.0
+        for S, sr, dr, imap in calls:
+            rows = imap[dr.long()]
+            cnt = ((rows >= 0) & (rows < S.shape[-1])).sum(1).double()
+            c2 = float((cnt * cnt).sum())
+            flops += c2
+            cover += 3 * c2 * e + nbytes(rows, sr, dr)
         scratch = base.clone()
 
         def run_k():
@@ -228,15 +301,15 @@ def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
             for c in calls:
                 extend_add_plain(scratch, *c)
 
-        record("extend_add", f"batch {bidx} [{bp.B},{bp.m_pad},{bp.m_pad}] "
-               f"{len(calls)} groups", errors(ker, ref), 0.0, time_ms(run_k),
-               time_ms(run_p))
+        record(f"extend_add{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
+               f"{bp.m_pad}] {len(calls)} groups", errors(ker, ref), 0.0,
+               time_ms(run_k), time_ms(run_p), bound(cover, flops, dtype_name))
 
     # C: sweep update, leaf level and the top level with a boundary (the root
     # front has nb_pad = 0); forward (X given) and backward (ids_in) forms
     N = plan.N
     top = max(i for i, bp in enumerate(plan.batches) if bp.nb_pad > 0)
-    C0 = torch.randn(N + 1, 1, dtype=torch.float64, device=dev, generator=gen)
+    C0 = torch.randn(N + 1, 1, dtype=dt, device=dev, generator=gen)
     C0[N] = 0.0
     for bidx in (0, top):
         lev = levels[bidx]
@@ -247,24 +320,35 @@ def check_kernels(problems: Problems, n: int, dev, results: Results) -> None:
             ker = sweep_update(C0.clone(), ids_out, M, N, **kw)
             ref = sweep_update_plain(C0.clone(), ids_out, M, N, **kw)
             scratch = C0.clone()
-            record("sweep_update", f"level {bidx} {form} M={list(M.shape)} k=1",
-                   errors(ker, ref), RTOL_SUM,
+            Bm, R, Cc = M.shape
+            work = nbytes(M, ids_out, *kw.values()) + 2 * Bm * R * e \
+                + (Bm * Cc * e if "ids_in" in kw else 0)
+            record(f"sweep_update{tag}", f"level {bidx} {form} "
+                   f"M={list(M.shape)} k=1", errors(ker, ref), rtol,
                    time_ms(lambda: sweep_update(scratch, ids_out, M, N, **kw)),
                    time_ms(lambda: sweep_update_plain(scratch, ids_out, M, N,
-                                                      **kw)))
+                                                      **kw)),
+                   bound(work, 2 * M.numel(), dtype_name, products=True))
 
-    # D: DIA matvec and fused residual on the original matrix
-    op, _ = ht.spmv_format(A, device=dev)
-    xv = torch.randn(A.shape[0], 1, dtype=torch.float64, device=dev,
-                     generator=gen)
-    bv = torch.as_tensor(np.asarray(b)[:, None], device=dev)
-    for form, extra in (("A x", ()), ("b - A x", (bv,))):
+    # D: DIA matvec and fused residual on the original matrix; the library
+    # yardstick is cuSPARSE's CSR matvec (and b - A x through addmv)
+    op, _ = ht.spmv_format(A, dtype=np.dtype(dtype_name), device=dev)
+    csr = csr_of(A, dt, dev)
+    xv = torch.randn(A.shape[0], 1, dtype=dt, device=dev, generator=gen)
+    bv = torch.as_tensor(np.asarray(b)[:, None], dtype=dt, device=dev)
+    for form, extra, lib in (
+            ("A x", (), lambda: torch.mv(csr, xv[:, 0])),
+            ("b - A x", (bv,), lambda: torch.addmv(bv[:, 0], csr, xv[:, 0],
+                                                   alpha=-1.0))):
         ker = dia_spmv(op, xv, *extra)
         ref = dia_spmv_plain(op, xv, *extra)
-        record("dia_spmv", f"{form} N={A.shape[0]} ndiag={len(op.offsets)} k=1",
-               errors(ker, ref), RTOL_SUM,
+        record(f"dia_spmv{tag}", f"{form} N={A.shape[0]} "
+               f"ndiag={len(op.offsets)} k=1", errors(ker, ref), rtol,
                time_ms(lambda: dia_spmv(op, xv, *extra)),
-               time_ms(lambda: dia_spmv_plain(op, xv, *extra)))
+               time_ms(lambda: dia_spmv_plain(op, xv, *extra)),
+               bound(nbytes(op.values, op.offs, xv, ker, *extra),
+                     2 * op.values.numel(), dtype_name),
+               library_ms=time_ms(lib))
     torch.cuda.synchronize()
 
 
@@ -312,13 +396,18 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
             ker = lowrank_sweep_update(C0.clone(), ids_out, U, V, N, **kw)
             ref = lowrank_sweep_update_plain(C0.clone(), ids_out, U, V, N, **kw)
             scratch = C0.clone()
+            Bu, R, kc = U.shape
+            Cc = V.shape[1]
+            work = nbytes(U, V, ids_out, *kw.values()) + 2 * Bu * R * 8 \
+                + (Bu * Cc * 8 if "ids_in" in kw else 0)
             record("lowrank_sweep_update",
                    f"batch {bidx} {form} U={list(U.shape)} V={list(V.shape)[1:]}",
                    errors(ker, ref), RTOL_SUM,
                    time_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V,
                                                         N, **kw)),
                    time_ms(lambda: lowrank_sweep_update_plain(
-                       scratch, ids_out, U, V, N, **kw)))
+                       scratch, ids_out, U, V, N, **kw)),
+                   bound(work, 2 * Bu * kc * (R + Cc), products=True))
 
     def front_of(bidx):
         bp, tb = plan.batches[bidx], tp.batches[bidx]
@@ -337,11 +426,14 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
         args = (front, bp.ni_pad, W, lev.RV_, tb.sperm)
         ker = lowrank_schur_update(*args)
         ref = lowrank_schur_update_plain(*args)
+        nbb = bp.B * bp.nb_pad * bp.nb_pad
         record("lowrank_schur_update",
                f"batch {bidx} [{bp.B},{bp.nb_pad},{bp.nb_pad}] k={bp.rank_cap}",
                errors(ker, ref), RTOL_SUM,
                time_ms(lambda: lowrank_schur_update(*args)),
-               time_ms(lambda: lowrank_schur_update_plain(*args)))
+               time_ms(lambda: lowrank_schur_update_plain(*args)),
+               bound(2 * nbb * 8 + nbytes(W, lev.RV_, tb.sperm),
+                     2 * nbb * W.shape[-1], products=True))
 
     # G: the truncation of both sides of the first compressed level, with the
     # factorization's own sketches
@@ -363,7 +455,8 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
                f"batch {first} {side} QU={list(args[0].shape)} cap={bp.rank_cap}",
                errors(ker[0], ref[0]), 0.0,
                time_ms(lambda: lowrank_truncate(*args)),
-               time_ms(lambda: lowrank_truncate_plain(*args)))
+               time_ms(lambda: lowrank_truncate_plain(*args)),
+               bound(nbytes(*args[:3], *ker), args[0].numel() + args[2].numel()))
     torch.cuda.synchronize()
 
 
@@ -450,9 +543,13 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
         if not all(torch.equal(a, b) for a, b in zip(ker, ref)):
             fail(f"cpqr_pivots selects other pivots or ranks than its plain "
                  f"version at {tag} {kind} {list(Am.shape)}")
+        # the steps this data needs: a pivot per rank, and the step that
+        # finds the rank, per matrix; each projects and downdates every column
+        steps = float((ker[1].double() + 1).clamp(max=k).sum())
         record("cpqr_pivots", f"{tag} {kind} A={list(Am.shape)} k={k}",
                (0.0, 0.0), 0.0, time_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k)),
-               time_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)))
+               time_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)),
+               bound(nbytes(Am, *ker), 4 * Am.shape[1] * Am.shape[2] * steps))
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     for bidx in (first, top):
@@ -472,11 +569,14 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
         for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
             ker = H.hss_entries_prepared(ef, rr, cc)
             ref = H.hss_entries_prepared_plain(ef, rr, cc)
+            # an entry reads its two r-long factor rows (or one D entry)
+            reads = min(2 * h2.r * ker.numel() * 8, nbytes(*ef))
             record("hss_entries_prepared",
                    f"batch {bidx} {what} out={list(ker.shape)}",
                    errors(ker, ref), RTOL_SUM,
                    time_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
-                   time_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)))
+                   time_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
+                   bound(reads + nbytes(rr, cc, ker), 2 * h2.r * ker.numel()))
         # J: S22''s operand at the sketch width (the factor's own sketch) and
         # at k=1
         s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
@@ -493,7 +593,11 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                        f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
                        f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
                        time_ms(lambda: H.hss_matvec(h2, X, adj)),
-                       time_ms(lambda: H.hss_matvec_plain(h2, X, adj)))
+                       time_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
+                       bound(nbytes(*h2.arrays(), X, ker),
+                             2 * X.shape[-1] * sum(a.numel()
+                                                   for a in h2.arrays()),
+                             products=True))
         # K: the interior solver, level 1 as hss_factor runs it (k = r, the
         # next level's bases) and the root level as hss_solve runs it (k = 1)
         sol = lev.solver1
@@ -521,8 +625,132 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                        f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
                        time_ms(lambda: H.hss_level_correct(scratch, *args)),
                        time_ms(lambda: H.hss_level_correct_plain(scratch,
-                                                                 *args)))
+                                                                 *args)),
+                       bound(nbytes(Y0, Y0, *args[:6]),
+                             2 * X.shape[-1] * sum(a.numel() for a in (
+                                 args[1], args[2], args[3], args[5])),
+                             products=True))
     torch.cuda.synchronize()
+
+
+def check_arnoldi_kernels(problems: Problems, n: int, dev,
+                          results: Results) -> None:
+    """Phase 3, kernels L and M against their plain versions on Arnoldi steps
+    j = 0 and j = 29 captured from one 30-step GMRES cycle on the n-operator
+    (unpreconditioned, so the cycle runs all its steps), in float64 and, as
+    the inner cycle of the mixed solve, in float32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import hsolve_torch as ht
+    import hsolve_torch.krylov as K
+    from hsolve_torch.ops import arnoldi as AR
+
+    A, b, _ = problems.get(n)
+    bt = torch.as_tensor(np.asarray(b), device=dev)
+    op64, mv = ht.spmv_format(A, device=dev)
+    op32, _ = ht.spmv_format(A, dtype=np.float32, device=dev)
+    steps = (0, 29)
+    clone = lambda s: dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+    captured = {}
+    orig = (K.arnoldi_cgs2, K.arnoldi_givens)
+
+    def rec_l(s, w, j):
+        key = (str(s.V.dtype).replace("torch.", ""), j)
+        if j in steps and key not in captured:
+            captured[key] = {"s": clone(s), "w": w.clone()}
+        return orig[0](s, w, j)
+
+    def rec_m(s, j, floor, cont):
+        c = captured.get((str(s.V.dtype).replace("torch.", ""), j))
+        if c is not None and "sm" not in c:
+            c.update(sm=clone(s), floor=floor, cont=cont)
+        return orig[1](s, j, floor, cont)
+
+    K.arnoldi_cgs2, K.arnoldi_givens = rec_l, rec_m
+    try:
+        for inner in (None, "float32"):
+            ht.gmres_compiled(mv, None, bt, reltol=1e-14, restart=30,
+                              maxiter=30, mv_data=op64, inner_dtype=inner,
+                              mv_data_inner=op32 if inner else None,
+                              escalate=False)
+    finally:
+        K.arnoldi_cgs2, K.arnoldi_givens = orig
+    torch.cuda.synchronize()
+    if sorted(captured) != sorted((d, j) for d in ("float32", "float64")
+                                  for j in steps):
+        fail(f"captured Arnoldi steps {sorted(captured)}")
+    record = results.record
+    for (dname, j), c in sorted(captured.items(), key=lambda kv: kv[0][0],
+                                reverse=True):
+        tag = "" if dname == "float64" else f":{dname}"
+        rtol = RTOL_SUM if dname == "float64" else RTOL_SUM32
+        s0, w0 = c["s"], c["w"]
+        m1, N = s0.V.shape
+        e = s0.V.element_size()
+        sk, sp_ = clone(s0), clone(s0)
+        wk, wp = w0.clone(), w0.clone()
+        AR.arnoldi_cgs2(sk, wk, j)
+        AR.arnoldi_cgs2_plain(sp_, wp, j)
+        torch.cuda.synchronize()
+        if int(sk.ticket[0]) != 0:
+            fail(f"arnoldi_cgs2{tag} left its ticket armed at j={j}")
+        herr = errors(sk.hc[: j + 2], sp_.hc[: j + 2])
+        werr = errors(wk, wp)
+        err = max(herr, werr, key=lambda t: t[1])
+        scratch_s, scratch_w = clone(s0), w0.clone()
+        Vj = s0.V[: j + 1]
+
+        def library():
+            h1 = torch.mv(Vj, scratch_w)
+            w1 = torch.addmv(scratch_w, Vj.T, h1, alpha=-1.0)
+            h2 = torch.mv(Vj, w1)
+            w2 = torch.addmv(w1, Vj.T, h2, alpha=-1.0)
+            return torch.linalg.vector_norm(w2)
+
+        record(f"arnoldi_cgs2{tag}", f"j={j} V=[{m1},{N}]", err, rtol,
+               time_ms(lambda: AR.arnoldi_cgs2(scratch_s, scratch_w, j)),
+               time_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
+               bound((j + 1) * N * e + 2 * N * e + (j + 2) * e,
+                     8 * (j + 1) * N + 2 * N, dname),
+               library_ms=time_ms(library))
+        # M on the captured step (its own floor and loop test), and as the
+        # last step of a cycle (done: the triangular solve)
+        m = s0.H.shape[1]
+        for cont in (c["cont"], False):
+            mk, mp = clone(c["sm"]), clone(c["sm"])
+            AR.arnoldi_givens(mk, j, c["floor"], cont)
+            AR.arnoldi_givens_plain(mp, j, c["floor"], cont)
+            torch.cuda.synchronize()
+            for what in ("H", "cs", "sn", "g", "st", "done", "y"):
+                if not torch.equal(getattr(mk, what), getattr(mp, what)):
+                    fail(f"arnoldi_givens{tag} differs from its plain version "
+                         f"in {what} at j={j} (cont={cont})")
+            done = bool(mp.done[0])
+            scratch_m = clone(c["sm"])
+            work = e * ((j + 2) + 2 * j + 2 + (m + 1) + 2) + 4 \
+                + (e * (m + (j + 1) * (j + 2) // 2) if done else 0)
+            record(f"arnoldi_givens{tag}", f"j={j} m={m} done={int(done)}",
+                   errors(mk.y, mp.y) if done else (0.0, 0.0), rtol,
+                   time_ms(lambda: AR.arnoldi_givens(scratch_m, j, c["floor"],
+                                                     cont)),
+                   time_ms(lambda: AR.arnoldi_givens_plain(
+                       scratch_m, j, c["floor"], cont)),
+                   bound(work, 6 * j + 12 + ((j + 1) ** 2 if done else 0),
+                         dname))
+    torch.cuda.synchronize()
+
+
+def factor_bytes(F) -> int:
+    """Bytes of the tensors the factorization's dense levels and root keep."""
+    import torch
+
+    keep = list(F.levels) + ([F.root] if F.root is not None else [])
+    return sum(t.numel() * t.element_size() for lev in keep
+               for t in vars(lev).values() if isinstance(t, torch.Tensor))
 
 
 def main_path(problems: Problems, n: int, dev, path: str) -> dict:
@@ -536,7 +764,8 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
 
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(**OPTIONS[path])
-    compressed = path != "exact"
+    compressed = path in ("compressed", "hss")
+    mixed = path == "exact-f32-mixed"
     tree = ht.nested_dissection(shape, leafmax=100)
     plan_s = []
     for _ in range(2):                       # the second call is warm
@@ -552,18 +781,33 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
         f"{', rank cap' if compressed else ''}"
         f"{', HSS kind, ls, depth, n_pad' if path == 'hss' else ''}): {shapes}")
 
-    F = ht.factor_with_plan(plan, opts, device=dev)            # cold
+    fdt = torch.float32 if mixed else torch.float64
     torch.cuda.synchronize()
-    factor_ms = time_ms(lambda: ht.factor_with_plan(plan, opts, device=dev),
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    F = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)  # cold
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+    factor_ms = time_ms(lambda: ht.factor_with_plan(plan, opts, dtype=fdt,
+                                                    device=dev),
                         reps=3, warmup=1)
     op, mv = ht.spmv_format(A, device=dev)
     bt = torch.as_tensor(np.asarray(b), device=dev)
     out = {}
+    if mixed:
+        # the JAX bench's device configuration (bench.py:263-276): float32
+        # cycles over the float32 operator, the float32 factor behind casts
+        op32, _ = ht.spmv_format(A, dtype=np.float32, device=dev)
+        prec = lambda data, v: solve_with_data(
+            data, v.to(torch.float32)).to(v.dtype)
+        inner = dict(inner_dtype="float32", mv_data_inner=op32, m_eps=1e-6)
+    else:
+        prec, inner = solve_with_data, {}
 
     def solve():
         out["x"], out["info"] = ht.gmres_compiled(
-            mv, solve_with_data, bt, reltol=RELRES, restart=30, maxiter=60,
-            mv_data=op, M_data=F.solve_data)
+            mv, prec, bt, reltol=RELRES, restart=30, maxiter=60,
+            mv_data=op, M_data=F.solve_data, **inner)
 
     solve()                                                    # cold
     torch.cuda.synchronize()
@@ -578,8 +822,11 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
            "solve_s": solve_ms / 1e3, "iters": info["iters"],
            "converged": info["converged"], "relres_scipy": relres,
            "gmres_resnorm_last": float(info["resnorm"][-1]) / float(
-               np.linalg.norm(b))}
-    if n <= 128 and not compressed:
+               np.linalg.norm(b)),
+           "factor_peak_mb": peak_mb}
+    if not compressed:
+        res["factor_kept_mb"] = factor_bytes(F) / 2 ** 20
+    if n <= 128 and path == "exact":
         x_ref = spla.spsolve(A.tocsc(), b)
         res["fwd_err_vs_spsolve"] = float(np.linalg.norm(xh - x_ref)
                                           / np.linalg.norm(x_ref))
@@ -594,19 +841,44 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
         f"{relres:.3e}" + (f"  fwd err vs spsolve {res['fwd_err_vs_spsolve']:.3e}"
                            if "fwd_err_vs_spsolve" in res else "")
         + (f"  max rank {res['max_rank']}  saturated {res['saturated']}"
-           if compressed else ""))
+           if compressed else "")
+        + f"  factor peak {peak_mb:.1f} MiB"
+        + (f", kept {res['factor_kept_mb']:.1f} MiB" if not compressed else ""))
     if not info["converged"]:
         fail(f"n={n} {path}: GMRES did not converge ({info})")
     if not relres <= RELRES:
         fail(f"n={n} {path}: independent residual {relres:.3e} > {RELRES}")
     if res.get("fwd_err_vs_spsolve", 0.0) > FWD_N128:
         fail(f"n={n}: forward error {res['fwd_err_vs_spsolve']:.3e} > {FWD_N128}")
-    if compressed and info["iters"] > MAX_ITERS[path].get(n, 60):
+    if path in MAX_ITERS and info["iters"] > MAX_ITERS[path].get(n, 60):
         fail(f"n={n} {path}: {info['iters']} GMRES iterations > "
              f"{MAX_ITERS[path].get(n, 60)}")
     if compressed and res["saturated"]:
         fail(f"n={n} {path}: a rank saturated its cap ({report})")
     return res
+
+
+def kernel_table(runs, kres: Results) -> list:
+    """One row per kernel: its launches summed over the main-path runs (each
+    counted from zero), and phase 3's numbers; a typed kernel's float32
+    numbers ride along in its row."""
+    total = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    table = []
+    for k, (src, rep) in SOURCES.items():
+        row = {"name": k, "route": "cuda", "source": f"hsolve_torch/csrc/{src}",
+               "replaces": rep, "launches": total.get(k, 0),
+               **{key: kres[k][key] for key in keys}}
+        if k in TYPED:
+            row["float32"] = {"launches": total.get(f"{k}:float32", 0),
+                              **{key: kres[f"{k}:float32"][key]
+                                 for key in keys}}
+        table.append(row)
+    return table
 
 
 def main() -> int:
@@ -646,32 +918,28 @@ def main() -> int:
         "plans' shapes")
     kres = Results()
     check_kernels(problems, args.kernel_n, dev, kres)
+    check_kernels(problems, args.kernel_n, dev, kres, "float32")
     check_compressed_kernels(problems, args.kernel_n, dev, kres)
     check_hss_kernels(problems, args.kernel_n, dev, kres)
+    check_arnoldi_kernels(problems, args.kernel_n, dev, kres)
 
     runs = []
     for path, path_kernels in (("exact", kernels.EXACT_PATH),
                                ("compressed", kernels.COMPRESSED_PATH),
-                               ("hss", kernels.HSS_PATH)):
+                               ("hss", kernels.HSS_PATH),
+                               ("exact-f32-mixed", kernels.MIXED_PATH)):
         for n in args.sizes:
             log(f"[4] main path n={n} {path}")
             kernels.reset_launch_counts()
             runs.append(main_path(problems, n, dev, path))
             counts = kernels.launch_counts()
             log(f"  n={n}: kernel launches {counts}")
-            missing = [k for k in path_kernels if counts[k] <= 0]
+            missing = [k for k in path_kernels if counts.get(k, 0) <= 0]
             if missing:
                 fail(f"n={n}: the main path never launched {missing}")
             runs[-1]["launches"] = counts
 
-    # the launch counts of the last run, the structured path at the largest n,
-    # which runs all eleven kernels
-    last = runs[-1]["launches"]
-    table = [{"name": k, "route": "cuda", "source": f"hsolve_torch/csrc/{src}",
-              "replaces": rep, "launches": last[k],
-              "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
-              "plain_ms": kres[k]["plain_ms"]}
-             for k, (src, rep) in SOURCES.items()]
+    table = kernel_table(runs, kres)
     log("[5] main path runs: " + json.dumps(
         [{k: v for k, v in r.items() if k != "launches"} for r in runs]))
     print(json.dumps({"kernels": table}), flush=True)

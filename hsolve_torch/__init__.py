@@ -1,12 +1,16 @@
 """hsolve_torch: the PyTorch/CUDA port of hsolve, a hierarchical sparse direct
 solver and GMRES preconditioner (nested-dissection multifrontal factorization).
 
-This slice is the exact (``swlevel=0``) real path, end to end on one device:
-plan -> numeric factor -> hierarchical solve -> restarted GMRES.  The package
-imports torch, numpy and scipy only; it never imports jax or ``hsolve`` (the JAX
-package, kept as the reference), so it runs where JAX is absent.  Module names
-mirror ``hsolve/``.  Its four hand-written CUDA kernels live in ``csrc/`` and
-are built and bound by :mod:`hsolve_torch.kernels`.
+The exact (``swlevel=0``), low-rank compressed and structured (HSS) real paths
+run end to end on one device: plan -> numeric factor -> hierarchical solve ->
+restarted GMRES, in float64, and the exact path also as the JAX bench's device
+configuration (a float32 factor inside mixed-precision GMRES with escalation).
+The entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU.  The package imports torch, numpy and scipy only; it never
+imports jax or ``hsolve`` (the JAX package, kept as the reference), so it runs
+where JAX is absent.  Module names mirror ``hsolve/``.  Its thirteen
+hand-written CUDA kernels live in ``csrc/`` and are built and bound by
+:mod:`hsolve_torch.kernels`.
 """
 
 from hsolve_torch.options import SolverOptions

@@ -8,7 +8,9 @@
 //
 // The residual form serves GMRES's true-residual check (hsolve/krylov.py:302)
 // without a second pass over N.  At most 64 diagonals; their offsets are read
-// from a small device array into shared memory once per block.
+// from a small device array into shared memory once per block.  Instantiated
+// for double (`hs_dia_spmv`) and float (`hs_dia_spmv_f32`, the float32
+// operator of mixed-precision GMRES's inner cycles).
 //
 // Bound: memory streaming.  Per row and right-hand side it reads nd values of
 // `vals` and nd neighbours of x (the latter mostly from L1/L2: stencil
@@ -18,11 +20,11 @@
 
 #define HS_MAX_DIAGS 64
 
-__global__ void dia_spmv_kernel(double* __restrict__ y,
-                                const double* __restrict__ vals,
+template <typename T>
+__global__ void dia_spmv_kernel(T* __restrict__ y, const T* __restrict__ vals,
                                 const int* __restrict__ offs,
-                                const double* __restrict__ x,
-                                const double* __restrict__ b, int nd,
+                                const T* __restrict__ x,
+                                const T* __restrict__ b, int nd,
                                 int64_t N, int k) {
   __shared__ int soff[HS_MAX_DIAGS];
   for (int d = threadIdx.x; d < nd; d += blockDim.x) soff[d] = offs[d];
@@ -33,7 +35,7 @@ __global__ void dia_spmv_kernel(double* __restrict__ y,
        e += stride) {
     const int64_t i = e / k;
     const int64_t kk = e - i * k;
-    double acc = 0.0;
+    T acc = T(0);
     for (int d = 0; d < nd; ++d) {
       const int64_t j = i + soff[d];
       if (j >= 0 && j < N) acc += vals[d * N + i] * x[j * k + kk];
@@ -42,16 +44,29 @@ __global__ void dia_spmv_kernel(double* __restrict__ y,
   }
 }
 
-HS_EXPORT int hs_dia_spmv(void* y, const void* vals, const void* offs,
-                          const void* x, const void* b, int nd, long long N,
-                          int k, void* stream) {
+template <typename T>
+static int dia_spmv(void* y, const void* vals, const void* offs,
+                    const void* x, const void* b, int nd, long long N, int k,
+                    void* stream) {
   if (nd > HS_MAX_DIAGS) return (int)cudaErrorInvalidValue;
   if (N > 0 && k > 0) {
     const int threads = 256;
-    dia_spmv_kernel<<<hs_blocks((int64_t)N * k, threads), threads, 0,
-                      (cudaStream_t)stream>>>(
-        (double*)y, (const double*)vals, (const int*)offs, (const double*)x,
-        (const double*)b, nd, (int64_t)N, k);
+    dia_spmv_kernel<T><<<hs_blocks((int64_t)N * k, threads), threads, 0,
+                         (cudaStream_t)stream>>>(
+        (T*)y, (const T*)vals, (const int*)offs, (const T*)x, (const T*)b,
+        nd, (int64_t)N, k);
   }
   return (int)cudaGetLastError();
+}
+
+HS_EXPORT int hs_dia_spmv(void* y, const void* vals, const void* offs,
+                          const void* x, const void* b, int nd, long long N,
+                          int k, void* stream) {
+  return dia_spmv<double>(y, vals, offs, x, b, nd, N, k, stream);
+}
+
+HS_EXPORT int hs_dia_spmv_f32(void* y, const void* vals, const void* offs,
+                              const void* x, const void* b, int nd,
+                              long long N, int k, void* stream) {
+  return dia_spmv<float>(y, vals, offs, x, b, nd, N, k, stream);
 }

@@ -13,7 +13,10 @@
 // sentinel: such output rows are skipped (C's sentinel row N stays untouched,
 // JAX's mode="drop") and such input rows read as 0.
 //
-// The update is an atomicAdd on double.  On the generated trees bnd_ids are
+// Instantiated for double (`hs_sweep_update`) and float
+// (`hs_sweep_update_f32`, the float32 factor's solve).
+//
+// The update is an atomicAdd on the value type.  On the generated trees bnd_ids are
 // unique within a level, so no two warps hit one address and the result is
 // deterministic.  Trees from parse_elimtree carry no such guarantee: there the
 // result is still correct, but its summation order is not fixed.  In the
@@ -27,9 +30,10 @@
 // output rows exit before reading their M row.
 #include "hs_common.cuh"
 
-__global__ void sweep_update_kernel(double* C, const int* __restrict__ ids_out,
-                                    const double* __restrict__ M,
-                                    const double* __restrict__ X,
+template <typename T>
+__global__ void sweep_update_kernel(T* C, const int* __restrict__ ids_out,
+                                    const T* __restrict__ M,
+                                    const T* __restrict__ X,
                                     const int* __restrict__ ids_in,
                                     int64_t rows, int R, int Cc, int k,
                                     int N) {
@@ -40,16 +44,16 @@ __global__ void sweep_update_kernel(double* C, const int* __restrict__ ids_out,
     const int out = ids_out[row];
     if (out >= N) continue;  // uniform across the warp
     const int64_t b = row / R;
-    const double* mrow = M + row * Cc;
+    const T* mrow = M + row * Cc;
     for (int kk = 0; kk < k; ++kk) {
-      double acc = 0.0;
+      T acc = T(0);
       for (int c = lane; c < Cc; c += 32) {
-        double y;
+        T y;
         if (X != nullptr) {
           y = X[(b * Cc + c) * k + kk];
         } else {
           const int id = ids_in[b * Cc + c];
-          y = id < N ? C[(int64_t)id * k + kk] : 0.0;
+          y = id < N ? C[(int64_t)id * k + kk] : T(0);
         }
         acc += mrow[c] * y;
       }
@@ -60,16 +64,32 @@ __global__ void sweep_update_kernel(double* C, const int* __restrict__ ids_out,
   }
 }
 
-HS_EXPORT int hs_sweep_update(void* C, const void* ids_out, const void* M,
-                              const void* X, const void* ids_in, long long B,
-                              int R, int Cc, int k, int N, void* stream) {
+template <typename T>
+static int sweep_update(void* C, const void* ids_out, const void* M,
+                        const void* X, const void* ids_in, long long B, int R,
+                        int Cc, int k, int N, void* stream) {
   const int64_t rows = (int64_t)B * R;
   if (rows > 0 && Cc > 0 && k > 0) {
     const int threads = 256;  // 8 warps, one output row each
-    sweep_update_kernel<<<hs_blocks(rows * 32, threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-        (double*)C, (const int*)ids_out, (const double*)M, (const double*)X,
+    sweep_update_kernel<T><<<hs_blocks(rows * 32, threads), threads, 0,
+                             (cudaStream_t)stream>>>(
+        (T*)C, (const int*)ids_out, (const T*)M, (const T*)X,
         (const int*)ids_in, rows, R, Cc, k, N);
   }
   return (int)cudaGetLastError();
+}
+
+HS_EXPORT int hs_sweep_update(void* C, const void* ids_out, const void* M,
+                              const void* X, const void* ids_in, long long B,
+                              int R, int Cc, int k, int N, void* stream) {
+  return sweep_update<double>(C, ids_out, M, X, ids_in, B, R, Cc, k, N,
+                              stream);
+}
+
+HS_EXPORT int hs_sweep_update_f32(void* C, const void* ids_out, const void* M,
+                                  const void* X, const void* ids_in,
+                                  long long B, int R, int Cc, int k, int N,
+                                  void* stream) {
+  return sweep_update<float>(C, ids_out, M, X, ids_in, B, R, Cc, k, N,
+                             stream);
 }

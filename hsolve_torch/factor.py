@@ -42,9 +42,11 @@ sampling operator, never formed.  Its records are
 its low-rank Gauss transforms around :func:`~hsolve_torch.structured.d_apply`.
 A dense parent of HSS children densifies them and adds them with kernel B.
 
-Float32 products never use TF32 here: ``factor_with_plan`` sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` explicitly (float64, the
-slice's type, is unaffected either way).
+The factor runs in float64 or, on exact (dense) levels, float32: the JAX
+bench's device configuration, a float32 factor as the preconditioner of
+mixed-precision GMRES (kernels A-C then run in float32).  Float32 products
+never use TF32 here: ``factor_with_plan`` sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` explicitly.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ import scipy.sparse as sp
 import torch
 
 from hsolve_torch.interop import TorchPlan, plan_to_torch
+from hsolve_torch.kernels import resolve_device
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.assembly import extend_add, front_assemble
 from hsolve_torch.ops.lowrank import rand_lowrank, sketch_width
 from hsolve_torch.ops.schur import lowrank_schur_update
+from hsolve_torch.ops.sparse import torch_dtype
 from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
 from hsolve_torch.options import SolverOptions
 from hsolve_torch.planner import Plan, cross_block_shapes, plan_factorization
@@ -125,21 +129,6 @@ class RootSolve:
     diag_ratio: Optional[torch.Tensor] = None
 
 
-def resolve_device(device) -> torch.device:
-    """The explicit device of a factorization; asking for a CUDA device that
-    is not there raises (nothing falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device={str(device)!r} requested but "
-                               "torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 @dataclasses.dataclass
 class Factorization:
     """The assembled preconditioner / direct solver (reference ``FactorNode``).
@@ -175,10 +164,19 @@ class Factorization:
     def apply_permuted(self, b) -> torch.Tensor:
         return _apply(self.levels, self.root, self._on_device(b))
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The factors' value type."""
+        for lev in self.levels:
+            return (lev.L if isinstance(lev, DenseLevel) else lev.LU_).dtype
+        return (self.root.lu if self.root.lu is not None else self.root.inv).dtype
+
     def solve(self, b) -> torch.Tensor:
         """x = F^{-1} b in the original ordering (parity with ``ldiv!``,
-        factornode.jl:62-74); ``b`` is [N] or [N, k]."""
-        return solve_with_data(self.solve_data, self._on_device(b))
+        factornode.jl:62-74); ``b`` is [N] or [N, k].  The sweeps run in the
+        factor's type; x comes back in ``b``'s."""
+        b = self._on_device(b)
+        return solve_with_data(self.solve_data, b.to(self.dtype)).to(b.dtype)
 
     @property
     def solve_data(self):
@@ -562,12 +560,7 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
 # ---------------------------------------------------------------------------
 
 def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
-    if dtype is None:
-        dtype = plan.A_dtype
-    if isinstance(dtype, torch.dtype):
-        tdt = dtype
-    else:
-        tdt = torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+    tdt = torch_dtype(plan.A_dtype if dtype is None else dtype)
     if tdt.is_complex:
         raise NotImplementedError("complex dtypes are a later slice of the port")
     if not tdt.is_floating_point:
@@ -576,17 +569,26 @@ def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
 
 
 def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
-                     device, sketch: Optional[Sketch] = None) -> Factorization:
-    """Execute the planner's schedule on ``device`` ("cpu" or "cuda[:i]").
+                     device="cuda", sketch: Optional[Sketch] = None
+                     ) -> Factorization:
+    """Execute the planner's schedule on ``device`` ("cuda[:i]", the
+    default, or "cpu"); a missing card raises.
 
-    ``plan`` may come from either planner.  On a CUDA device the kernels run
-    and the dtype must be float64; on the CPU every kernel runs as its plain
-    torch version.  ``sketch`` replaces the default sketches of the compressed
-    batches (see :data:`Sketch` and :func:`torch_sketch`)."""
+    ``plan`` may come from either planner.  On a CUDA device the kernels run,
+    in float64, or in float32 on a plan without compressed batches; on the
+    CPU every kernel runs as its plain torch version.  ``sketch`` replaces
+    the default sketches of the compressed batches (see :data:`Sketch` and
+    :func:`torch_sketch`)."""
     dev = resolve_device(device)
     tdt = _torch_dtype(dtype, plan)
-    if dev.type == "cuda" and tdt != torch.float64:
-        raise NotImplementedError("the CUDA kernels take float64 only")
+    if dev.type == "cuda" and tdt not in (torch.float32, torch.float64):
+        raise NotImplementedError("the CUDA kernels take float32 or float64")
+    if dev.type == "cuda" and tdt == torch.float32 and any(
+            bp.compress for bp in plan.batches):
+        raise NotImplementedError(
+            "float32 on compressed and structured levels on the card "
+            "(kernels E-K in float32) is a later slice of the port; "
+            "factor this plan in float64 there")
     torch.backends.cuda.matmul.allow_tf32 = False
     opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
     if opts.verbose:
@@ -607,10 +609,11 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
 
 
 def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
-           dtype=None, *, device, sketch: Optional[Sketch] = None,
+           dtype=None, *, device="cuda", sketch: Optional[Sketch] = None,
            **overrides) -> Factorization:
     """Top-level entry (parity with ``factor(A, nd, nd_loc, opts; args...)``,
-    factorization.jl:5-11): plan, then factor on ``device``.
+    factorization.jl:5-11): plan, then factor on ``device`` (the card unless
+    the caller asks for the CPU; see :func:`factor_with_plan`).
 
     With ``opts.adaptive`` the computed compression ranks are checked against
     the planned caps; on saturation the problem is re-planned with the largest

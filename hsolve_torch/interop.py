@@ -16,6 +16,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hsolve_torch.kernels import resolve_device
+
 
 @dataclasses.dataclass
 class TorchBatch:
@@ -53,13 +55,13 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
 
-def plan_to_torch(plan, device) -> TorchPlan:
+def plan_to_torch(plan, device="cuda") -> TorchPlan:
     """Upload ``plan``'s index arrays to ``device`` once; later calls return the
     cached copy.  The matrix values come along as one device array
     (``A_perm.data``) that the fronts gather from through ``front_src``; a batch
     planned without ``front_src`` (no native planner) gathers from its own
     ``front_vals`` appended to that array instead."""
-    device = torch.device(device)
+    device = resolve_device(device)
     cache = plan.__dict__.setdefault("_torch_cache", {})
     if str(device) in cache:
         return cache[str(device)]

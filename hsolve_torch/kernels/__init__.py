@@ -20,14 +20,20 @@ they serve:
 - ``lowrank_truncate`` (kernel G) and ``cpqr_pivots`` (kernel H) in
   :mod:`hsolve_torch.ops.lowrank`,
 - ``hss_entries_prepared`` (kernel I), ``hss_matvec`` (kernel J) and
-  ``hss_level_correct`` (kernel K) in :mod:`hsolve_torch.ops.hss`.
+  ``hss_level_correct`` (kernel K) in :mod:`hsolve_torch.ops.hss`,
+- ``arnoldi_cgs2`` (kernel L) and ``arnoldi_givens`` (kernel M) in
+  :mod:`hsolve_torch.ops.arnoldi`.
 
-Kernels A-D run on every path; E, F and G on the compressed levels; H-K on
-the structured (HSS) levels, which also run E on their low-rank transforms.
+Kernels A-D, L and M run on every path; E, F and G on the compressed levels;
+H-K on the structured (HSS) levels, which also run E on their low-rank
+transforms.  A-D, L and M take float32 or float64 values (one C entry point
+per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
-a plain integer attribute, ``wrapper.launches``.
+a plain integer attribute, ``wrapper.launches``; the wrappers of A-D, L and M
+also count them per value type in ``wrapper.launches_by_type``
+(:func:`count_launch`).
 """
 
 from __future__ import annotations
@@ -65,7 +71,14 @@ _SIGNATURES = {
                        _V],
     "hs_hss_matvec": [_V] * 11 + [_LL] + [_I] * 7 + [_V],
     "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 6 + [_V],
+    "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
+    "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
 }
+# A-D, L and M also take float32: the same signature under ``<name>_f32``
+TYPED = ("hs_front_assemble", "hs_extend_add", "hs_sweep_update",
+         "hs_dia_spmv", "hs_arnoldi_cgs2", "hs_arnoldi_givens")
+_SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
+VALUE_TYPES = (torch.float32, torch.float64)
 
 _lib = None
 
@@ -161,6 +174,21 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+def resolve_device(device) -> torch.device:
+    """The explicit device of an entry point; asking for a CUDA device that
+    is not there raises (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={str(device)!r} requested but "
+                               "torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrappers then run their plain
     versions); False when all lie on one CUDA device; raises otherwise."""
@@ -179,7 +207,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     """Check a kernel operand: dtype, contiguity and (where given) shape."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
-                        "kernels take float64 values and int32 indices)")
+                        "kernels take int32 indices, and one value type per "
+                        "call: float32 or float64 for A-D, L and M, float64 "
+                        "for the others)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -187,15 +217,46 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
                          f"{tuple(t.shape)}")
 
 
-EXACT_PATH = ("front_assemble", "extend_add", "sweep_update", "dia_spmv")
+def value_type(*tensors: torch.Tensor) -> torch.dtype:
+    """The one value type of a typed kernel's (A-D, L, M) value operands:
+    float32 or float64, shared by all of them; raises ``TypeError``
+    otherwise."""
+    types = {t.dtype for t in tensors}
+    if len(types) != 1 or not types <= set(VALUE_TYPES):
+        raise TypeError(f"value operands of types {sorted(map(str, types))}: "
+                        "the kernel takes one type per call, float32 or "
+                        "float64")
+    return types.pop()
+
+
+def symbol(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of typed kernel ``name`` for ``dtype``."""
+    return name if dtype == torch.float64 else f"{name}_f32"
+
+
+def count_launch(fn, dtype: torch.dtype) -> None:
+    """Count one launch of wrapper ``fn`` in value type ``dtype``."""
+    fn.launches += 1
+    key = str(dtype).replace("torch.", "")
+    fn.launches_by_type[key] = fn.launches_by_type.get(key, 0) + 1
+
+
+EXACT_PATH = ("front_assemble", "extend_add", "sweep_update", "dia_spmv",
+              "arnoldi_cgs2", "arnoldi_givens")
 COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
                                 "lowrank_truncate")
 HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
                               "hss_matvec", "hss_level_correct")
+# the float32 factor with mixed-precision GMRES: A-C and the inner matvec in
+# float32, the outer residual in float64, the inner cycles' L and M in float32
+MIXED_PATH = ("front_assemble:float32", "extend_add:float32",
+              "sweep_update:float32", "dia_spmv:float32", "dia_spmv:float64",
+              "arnoldi_cgs2:float32", "arnoldi_givens:float32")
 
 
 def wrappers():
-    """The eleven kernel wrappers, by name (A-K)."""
+    """The thirteen kernel wrappers, by name (A-M)."""
+    from hsolve_torch.ops.arnoldi import arnoldi_cgs2, arnoldi_givens
     from hsolve_torch.ops.assembly import extend_add, front_assemble
     from hsolve_torch.ops.hss import (hss_entries_prepared, hss_level_correct,
                                       hss_matvec)
@@ -210,13 +271,23 @@ def wrappers():
             "lowrank_schur_update": lowrank_schur_update,
             "lowrank_truncate": lowrank_truncate, "cpqr_pivots": cpqr_pivots,
             "hss_entries_prepared": hss_entries_prepared,
-            "hss_matvec": hss_matvec, "hss_level_correct": hss_level_correct}
+            "hss_matvec": hss_matvec, "hss_level_correct": hss_level_correct,
+            "arnoldi_cgs2": arnoldi_cgs2, "arnoldi_givens": arnoldi_givens}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Launches per wrapper, and per ``"<name>:<value type>"`` for the typed
+    ones."""
+    out = {}
+    for name, fn in wrappers().items():
+        out[name] = fn.launches
+        for key, n in getattr(fn, "launches_by_type", {}).items():
+            out[f"{name}:{key}"] = n
+    return out
 
 
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_type"):
+            fn.launches_by_type = {}

@@ -6,11 +6,13 @@ Capability parity with the reference's Krylov integration
 is a callable (the port's :class:`~hsolve_torch.factor.Factorization`), with a
 residual-norm history.
 
-The O(n) work (matvec, preconditioner, orthogonalization) runs on the tensors'
-device.  Torch has no device-side while loop, so the O(restart^2) Hessenberg and
-Givens bookkeeping runs on the host in float64, fed by one device->host fetch of
-the new Hessenberg column per Arnoldi step; that fetch is also the step's
-convergence test.
+:func:`gmres_compiled` runs on the tensors' device: the matvec, the
+preconditioner and each Arnoldi step (kernel L, CGS2; kernel M, the Givens
+bookkeeping, in the cycles' value type) stay there, and the host reads one
+4-byte done flag per step and one residual norm per cycle (torch has no
+device-side while loop).  It also runs the JAX package's mixed-precision
+configuration: float32 cycles inside a float64 solve, with escalation to a
+float64 phase.  :func:`gmres` is the host-loop variant (MGS, host Givens).
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from __future__ import annotations
 from typing import Callable, List, Optional
 
 import numpy as np
-import scipy.linalg
 import torch
 
-from hsolve_torch.ops.sparse import DiaMatrix, dia_residual
+from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_givens,
+                                      arnoldi_state)
+from hsolve_torch.ops.sparse import DiaMatrix, dia_residual, torch_dtype
 
 
 def _givens(a, b):
@@ -137,12 +140,12 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
 def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
                    reltol: float = 1e-9, restart: int = 30,
                    maxiter: Optional[int] = None, M_data=None, mv_data=None,
-                   m_eps: float = 0.0):
-    """Restarted GMRES with CGS2 Arnoldi and true-residual restarts; the
-    semantics and iteration count of the JAX package's ``gmres_compiled`` at
-    ``inner_dtype=None``.  Returns ``(x, info)`` with ``info['iters']``,
-    ``info['resnorm']`` (initial and per-cycle true residual norms) and
-    ``info['converged']``.
+                   m_eps: float = 0.0, inner_dtype=None, mv_data_inner=None,
+                   escalate: bool = True):
+    """Restarted GMRES with CGS2 Arnoldi and true-residual restarts: the
+    semantics and iteration counts of the JAX package's ``gmres_compiled``.
+    Returns ``(x, info)`` with ``info['iters']``, ``info['resnorm']`` (initial
+    and per-cycle true residual norms) and ``info['converged']``.
 
     ``matvec``/``M`` take ``(data, v)`` when ``mv_data``/``M_data`` is given,
     else ``v``.  When ``mv_data`` is a :class:`~hsolve_torch.ops.sparse.DiaMatrix`
@@ -150,24 +153,68 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     (:func:`~hsolve_torch.ops.sparse.dia_residual`), else ``b - matvec(x)``.
     ``m_eps`` floors a cycle's Givens estimate relative to its starting
     residual, so a cycle restarts once the estimate falls below what the basis
-    can deliver."""
+    can deliver.
+
+    Mixed precision: ``inner_dtype="float32"`` (with a float32
+    ``mv_data_inner``) runs the Arnoldi cycles (basis, orthogonalization,
+    Givens bookkeeping, inner matvecs) in float32 while the solution, the
+    residual and the convergence test stay in ``b``'s type; ``M`` then sees
+    inner-type vectors inside a cycle and outer-type ones at its end.  With
+    ``escalate`` (the default) a second phase in the outer type solves the
+    remaining residual system (:func:`_gmres_escalated`).  Each phase has its
+    own ``maxiter`` budget, so ``iters`` may exceed ``maxiter``.
+
+    Every Arnoldi step is kernels L (:func:`~hsolve_torch.ops.arnoldi.
+    arnoldi_cgs2`) and M (:func:`~hsolve_torch.ops.arnoldi.arnoldi_givens`)
+    on the device; the host reads the step's 4-byte done flag and, per cycle,
+    the true residual norm."""
     if maxiter is None:
         maxiter = restart
     mv = (lambda v: matvec(mv_data, v)) if mv_data is not None else matvec
+    mv_i = (lambda v: matvec(mv_data_inner, v)) \
+        if mv_data_inner is not None else mv
     if M is None:
         prec = lambda v: v
     elif M_data is not None:
         prec = lambda v: M(M_data, v)
     else:
         prec = M
-    if isinstance(mv_data, DiaMatrix):
-        resid = lambda x: dia_residual(mv_data, x, b)
+    idt = None if inner_dtype is None else torch_dtype(inner_dtype)
+    if idt is not None and escalate:
+        x, it, hist, res, bnorm = _gmres_escalated(
+            mv, mv_i, prec, mv_data, b, float(reltol), restart, int(maxiter),
+            float(m_eps), idt)
     else:
-        resid = lambda x: b - mv(x)
+        x, it, hist, res, bnorm = _gmres_cycles(
+            mv, mv_i, prec, mv_data, b, float(reltol), restart, int(maxiter),
+            float(m_eps), idt)
+    return x, {"resnorm": hist[: it + 1], "iters": it,
+               "converged": bool(res <= max(reltol * bnorm, 0.0))}
 
-    n = b.shape[0]
-    m = restart
-    scalar = _scalar_type(b)
+
+def _residual(mv: Callable, mv_data, b: torch.Tensor) -> Callable:
+    if isinstance(mv_data, DiaMatrix):
+        return lambda x: dia_residual(mv_data, x, b)
+    return lambda x: b - mv(x)
+
+
+def _gmres_cycles(mv, mv_i, prec, mv_data, b, reltol, restart, maxiter, m_eps,
+                  inner_dtype):
+    """The restart cycles (``hsolve/krylov.py:_gmres_cycles``): returns
+    ``(x, iters, history [maxiter + 1], final residual norm, ||b||)``.
+
+    The cycles' basis, Hessenberg matrix, rotations and ``g`` live in
+    ``inner_dtype`` (``b``'s type when None); a cycle starts from the true
+    residual ``r`` cast to it and adds ``M(y V)`` cast back to ``b``'s type.
+    Its floor is ``max(tol, m_eps beta)`` in the inner real type, and a step
+    runs only while JAX's ``inner_cond`` holds: ``j < m``, the estimate above
+    the floor, ``it + j < maxiter``."""
+    odt = b.dtype
+    dt = odt if inner_dtype is None else inner_dtype
+    rdt = torch.empty(0, dtype=dt).real.dtype
+    rnp = torch.empty(0, dtype=rdt).numpy().dtype.type   # np.float32 / float64
+    resid = _residual(mv, mv_data, b)
+    N, m = b.shape[0], restart
     bnorm = float(torch.linalg.vector_norm(b))
     tol = reltol * bnorm
     hist = np.zeros(maxiter + 1, dtype=np.float64)
@@ -175,64 +222,51 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     x = torch.zeros_like(b)
     r, beta, it, cyc = b, bnorm, 0, 0
     done = bnorm <= tol
+    s = arnoldi_state(m, N, dt, b.device) if not done else None
     while not done and cyc < maxiter:
-        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
-        V[0] = r / (beta if beta > 0 else 1.0)
-        H = np.zeros((m + 1, m), dtype=scalar)
-        cs = np.ones(m, dtype=np.float64)
-        sn = np.zeros(m, dtype=scalar)
-        g = np.zeros(m + 1, dtype=scalar)
-        g[0] = beta
-        j, res = 0, beta
-        floor = max(tol, m_eps * beta)
-        while j < m and res > floor and it + j < maxiter:
-            w = mv(prec(V[j]))
-            Vj = V[: j + 1]
-            # CGS2 (classical Gram-Schmidt, twice): two GEMV pairs instead of a
-            # sequential MGS loop, with MGS-grade orthogonality
-            h1 = Vj.conj() @ w
-            w = w - Vj.T @ h1
-            h2 = Vj.conj() @ w
-            w = w - Vj.T @ h2
-            hnorm_t = torch.linalg.vector_norm(w)
-            V[j + 1] = w / torch.where(hnorm_t > 0, hnorm_t, 1.0).to(w.dtype)
-            # the step's one host fetch: the new Hessenberg column
-            hc = torch.cat([h1 + h2, hnorm_t.to(w.dtype)[None]]).cpu().numpy()
-            hcol = np.zeros(m + 1, dtype=scalar)
-            hcol[: j + 2] = hc
-            for i in range(j):   # apply accumulated rotations
-                t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                hcol[i + 1] = -np.conj(sn[i]) * hcol[i] + cs[i] * hcol[i + 1]
-                hcol[i] = t
-            a_, b_ = hcol[j], hcol[j + 1]
-            denom = np.sqrt(abs(a_) ** 2 + abs(b_) ** 2)
-            absa = abs(a_)
-            if denom > 0 and absa > 0:
-                cs_j = absa / denom
-                sn_j = (a_ * np.conj(b_)) / max(absa * denom,
-                                                np.finfo(np.float64).tiny)
-            elif denom > 0:
-                cs_j, sn_j = 0.0, 1.0
-            else:
-                cs_j, sn_j = 1.0, 0.0
-            hcol[j] = cs_j * a_ + sn_j * b_
-            hcol[j + 1] = 0.0
-            H[:, j] = hcol
-            cs[j], sn[j] = cs_j, sn_j
-            gj1 = -np.conj(sn_j) * g[j]
-            g[j] = cs_j * g[j]
-            g[j + 1] = gj1
-            res = abs(gj1)
-            j += 1
+        beta_i = rnp(beta)
+        floor = max(rnp(tol), rnp(m_eps) * beta_i)
+        s.V[0] = (r / (beta if beta > 0 else 1.0)).to(dt)
+        s.g[0] = float(beta_i)
+        j = 0
+        if beta_i > floor:                 # inner_cond before the first step
+            while True:
+                w = mv_i(prec(s.V[j])).to(dt).contiguous()
+                arnoldi_cgs2(s, w, j)
+                cont = j + 1 < m and it + j + 1 < maxiter
+                arnoldi_givens(s, j, floor, cont)
+                torch.div(w, s.st[1], out=s.V[j + 1])
+                j += 1
+                # the step's one device->host read: the done flag
+                if not cont or bool(s.done.item()):
+                    break
         if j:
-            y = scipy.linalg.solve_triangular(H[:j, :j], g[:j], lower=False)
-            upd = torch.as_tensor(y, dtype=b.dtype, device=b.device) @ V[:j]
-            x = x + prec(upd)
+            upd = s.y[:j] @ s.V[:j]
+            x = x + prec(upd).to(odt)
         it += j
         r = resid(x)
         beta = float(torch.linalg.vector_norm(r))
         hist[it] = beta
         done = beta <= tol or it >= maxiter or j == 0
         cyc += 1
-    return x, {"resnorm": hist[: it + 1], "iters": it,
-               "converged": bool(beta <= tol)}
+    return x, it, hist, beta, bnorm
+
+
+def _gmres_escalated(mv, mv_i, prec, mv_data, b, reltol, restart, maxiter,
+                     m_eps, inner_dtype):
+    """Reduced-precision cycles, then an outer-precision phase on the
+    remaining residual (``hsolve/krylov.py:_gmres_escalated``): phase 2 solves
+    ``A x2 = b - A x`` at ``reltol * ||b|| / ||b - A x||`` with ``m_eps = 0``
+    and no inner type; ``x += x2``.  The iterations add up, the history is
+    phase 1's ``[maxiter + 1]`` block followed by phase 2's entries after its
+    first, and the residual is phase 2's.  When phase 1 converged, phase 2
+    costs one residual."""
+    x, it, hist, _, bnorm = _gmres_cycles(mv, mv_i, prec, mv_data, b, reltol,
+                                          restart, maxiter, m_eps, inner_dtype)
+    r1 = _residual(mv, mv_data, b)(x)
+    beta1 = float(torch.linalg.vector_norm(r1))
+    reltol2 = reltol * bnorm / (beta1 if beta1 > 0 else 1.0)
+    x2, it2, hist2, res2, _ = _gmres_cycles(mv, mv, prec, mv_data, r1, reltol2,
+                                            restart, maxiter, 0.0, None)
+    return (x + x2.to(x.dtype), it + it2, np.concatenate([hist, hist2[1:]]),
+            res2, bnorm)

@@ -1,0 +1,193 @@
+"""The Arnoldi step of restarted GMRES on the device: kernels L and M with their
+plain versions (port of ``hsolve/krylov.py`` ``_gmres_cycles``: the step
+``inner_body``, :223-267, its test ``inner_cond``, :269-273, and the cycle
+end's masked triangular solve, :293-298).
+
+- :func:`arnoldi_cgs2` (kernel L, ``csrc/arnoldi_cgs2.cu``) orthogonalizes
+  the step's new vector ``w`` against ``V[:j+1]`` by classical Gram-Schmidt
+  applied twice and writes the new Hessenberg column ``h1 + h2`` and ``||w||``
+  to a small device buffer.
+- :func:`arnoldi_givens` (kernel M, ``csrc/arnoldi_givens.cu``) applies the
+  earlier Givens rotations to that column, forms the new one, updates the
+  rotated right-hand side ``g`` and the residual estimate, sets the step's
+  done flag against the cycle's floor and, when the step ends the cycle,
+  solves for the cycle's coefficients ``y``.
+
+Everything stays on the device in the cycles' (inner) value type, float32 or
+float64: a step's one device->host read is the 4-byte done flag.  The plain
+versions are torch ops in that type, so on the CPU they round as the JAX
+package's bookkeeping in that type does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hsolve_torch import kernels
+
+THREADS = 512          # kernel L's block
+MAX_CHUNK = 4096       # kernel L's chunk of N per block (shared memory)
+MAX_RESTART = 256      # kernel M's column buffer (shared memory)
+
+
+@dataclasses.dataclass
+class Arnoldi:
+    """The Arnoldi state of one GMRES run (restart ``m``, size ``N``) in the
+    cycles' value type; a new cycle overwrites what it reads."""
+
+    V: torch.Tensor        # [m+1, N] the basis
+    H: torch.Tensor        # [m+1, m] the rotated Hessenberg matrix
+    cs: torch.Tensor       # [m] rotation cosines (real type)
+    sn: torch.Tensor       # [m] rotation sines
+    g: torch.Tensor        # [m+1] the rotated right-hand side
+    hc: torch.Tensor       # [m+1] the step's new column (L's output)
+    st: torch.Tensor       # [2] the residual estimate, V[j+1]'s divisor
+    done: torch.Tensor     # [1] int32, the step's done flag
+    y: torch.Tensor        # [m] the cycle's coefficients
+    part: torch.Tensor     # kernel L's per-block partial sums
+    ticket: torch.Tensor   # [1] int32, kernel L's last-block ticket (0 at rest)
+
+
+def cgs2_blocks(N: int) -> int:
+    """Kernel L's number of blocks (chunks of N): about one per SM of an
+    H100, more where a chunk would pass ``MAX_CHUNK``."""
+    return max(min(132, -(-N // THREADS)), -(-N // MAX_CHUNK), 1)
+
+
+def arnoldi_state(m: int, N: int, dtype: torch.dtype, device) -> Arnoldi:
+    """A zeroed state for restart ``m`` on vectors of size ``N``."""
+    rdt = torch.empty(0, dtype=dtype).real.dtype
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    return Arnoldi(V=z(m + 1, N), H=z(m + 1, m),
+                   cs=torch.ones(m, dtype=rdt, device=device), sn=z(m),
+                   g=z(m + 1), hc=z(m + 1), st=z(2),
+                   done=z(1, dt=torch.int32), y=z(m),
+                   part=z((2 * m + 1) * cgs2_blocks(N)),
+                   ticket=z(1, dt=torch.int32))
+
+
+def arnoldi_cgs2_plain(s: Arnoldi, w: torch.Tensor, j: int) -> torch.Tensor:
+    """In place on ``w`` and ``s.hc``: ``h1 = conj(V[:j+1]) w``, ``w -=
+    V[:j+1]^T h1``, the same again for ``h2``; ``hc[:j+1] = h1 + h2``,
+    ``hc[j+1] = ||w||``.  Returns ``w``."""
+    Vj = s.V[: j + 1]
+    h1 = Vj.conj() @ w
+    w.sub_(Vj.T @ h1)
+    h2 = Vj.conj() @ w
+    w.sub_(Vj.T @ h2)
+    s.hc[: j + 1] = h1 + h2
+    s.hc[j + 1] = torch.linalg.vector_norm(w).to(w.dtype)
+    return w
+
+
+def arnoldi_cgs2(s: Arnoldi, w: torch.Tensor, j: int) -> torch.Tensor:
+    """Kernel L wrapper (in place on ``w`` and ``s.hc``; see the plain
+    version)."""
+    if kernels.on_cpu(s.V, w, s.hc):
+        return arnoldi_cgs2_plain(s, w, j)
+    dt = kernels.value_type(s.V, w, s.hc, s.part)
+    m1, N = s.V.shape
+    nb = cgs2_blocks(N)
+    if not 0 <= j < m1 - 1:
+        raise ValueError(f"step j={j} outside a basis of {m1} rows")
+    kernels.require(s.V, "V", dt, (m1, N))
+    kernels.require(w, "w", dt, (N,))
+    kernels.require(s.hc, "hc", dt, (m1,))
+    kernels.require(s.part, "part", dt)
+    kernels.require(s.ticket, "ticket", torch.int32, (1,))
+    if s.part.numel() < (2 * (j + 1) + 1) * nb:
+        raise ValueError(f"part holds {s.part.numel()} values; step j={j} "
+                         f"needs {(2 * (j + 1) + 1) * nb}")
+    kernels.launch(kernels.symbol("hs_arnoldi_cgs2", dt), w.device,
+                   s.V.data_ptr(), w.data_ptr(), s.hc.data_ptr(),
+                   s.part.data_ptr(), s.ticket.data_ptr(), j + 1, N, nb)
+    kernels.count_launch(arnoldi_cgs2, dt)
+    return w
+
+
+arnoldi_cgs2.launches = 0
+arnoldi_cgs2.launches_by_type = {}
+
+
+def arnoldi_givens_plain(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
+    """In place on ``s``: step ``j``'s rotations, ``H[:, j]``, ``cs[j]``,
+    ``sn[j]``, ``g[j:j+2]``, ``st = (|g[j+1]|, ||w|| or 1)``, ``done = not
+    (cont and st[0] > floor)``, and, when done, ``y[:j+1] = H[:j+1, :j+1]^-1
+    g[:j+1]``, ``y[j+1:] = 0`` (JAX's identity-masked triangular solve).
+    Each product, sum, quotient and root is one torch op, in kernel M's order,
+    so the two agree bit for bit."""
+    col = torch.zeros_like(s.g)
+    col[: j + 2] = s.hc[: j + 2]
+    cs, sn = s.cs, s.sn
+    for i in range(j):
+        a, b = col[i].clone(), col[i + 1].clone()
+        col[i] = cs[i] * a + sn[i] * b
+        col[i + 1] = -sn[i].conj() * a + cs[i] * b
+    a, b = col[j].clone(), col[j + 1].clone()
+    absa, absb = a.abs(), b.abs()
+    denom = torch.sqrt(absa * absa + absb * absb)
+    if bool(denom > 0) and bool(absa > 0):
+        cs_j = absa / denom
+        tiny = torch.finfo(absa.dtype).tiny
+        sn_j = (a * b.conj()) / torch.maximum(absa * denom,
+                                               torch.full_like(absa, tiny))
+    else:
+        safe = bool(denom > 0)
+        cs_j = torch.full_like(absa, 0.0 if safe else 1.0)
+        sn_j = torch.full_like(a, 1.0 if safe else 0.0)
+    col[j] = cs_j * a + sn_j * b
+    col[j + 1] = 0.0
+    s.H[:, j] = col
+    cs[j], sn[j] = cs_j, sn_j
+    gj = s.g[j].clone()
+    gj1 = -sn_j.conj() * gj
+    s.g[j + 1] = gj1
+    s.g[j] = cs_j * gj
+    res = gj1.abs()
+    hn = s.hc[j + 1]
+    s.st[0] = res
+    s.st[1] = hn if bool(hn > 0) else 1.0
+    done = not (cont and bool(res > floor))
+    s.done[0] = int(done)
+    if done:
+        # back substitution on the upper triangular H[:j+1, :j+1], one op
+        # at a time in kernel M's order
+        s.y.zero_()
+        for i in range(j, -1, -1):
+            acc = s.g[i].clone()
+            for k in range(i + 1, j + 1):
+                acc = acc - s.H[i, k] * s.y[k]
+            s.y[i] = acc / s.H[i, i]
+
+
+def arnoldi_givens(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
+    """Kernel M wrapper (in place on ``s``; see the plain version).
+    ``floor`` is a value of the state's real type; ``cont`` says whether the
+    loop conditions the caller knows (``j + 1 < m`` and the iteration budget)
+    let the cycle go on."""
+    if kernels.on_cpu(s.H, s.cs, s.sn, s.g, s.hc, s.st, s.done, s.y):
+        return arnoldi_givens_plain(s, j, floor, cont)
+    dt = kernels.value_type(s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y)
+    m = s.H.shape[1]
+    if not 1 <= m <= MAX_RESTART:
+        raise ValueError(f"kernel M takes a restart of 1..{MAX_RESTART}, "
+                         f"got {m}")
+    if not 0 <= j < m:
+        raise ValueError(f"step j={j} outside restart {m}")
+    kernels.require(s.H, "H", dt, (m + 1, m))
+    for name, t, n in (("cs", s.cs, m), ("sn", s.sn, m), ("g", s.g, m + 1),
+                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m)):
+        kernels.require(t, name, dt, (n,))
+    kernels.require(s.done, "done", torch.int32, (1,))
+    kernels.launch(kernels.symbol("hs_arnoldi_givens", dt), s.H.device,
+                   s.H.data_ptr(), s.cs.data_ptr(), s.sn.data_ptr(),
+                   s.g.data_ptr(), s.hc.data_ptr(), s.st.data_ptr(),
+                   s.done.data_ptr(), s.y.data_ptr(), j, m, float(floor),
+                   int(bool(cont)))
+    kernels.count_launch(arnoldi_givens, dt)
+
+
+arnoldi_givens.launches = 0
+arnoldi_givens.launches_by_type = {}

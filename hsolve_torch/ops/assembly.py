@@ -8,6 +8,8 @@
   Schur complements into the fronts through the inverse map ``map_l``/``map_r``,
   reading straight from the child batch's Schur stack (JAX: ``_stage_children``
   + ``_extend_add_impl``).
+
+Both take float32 or float64 values (one type per call).
 """
 
 from __future__ import annotations
@@ -37,18 +39,21 @@ def front_assemble(B: int, m: int, pos: torch.Tensor, src: torch.Tensor,
     if B * m * m >= 2 ** 31:
         raise ValueError("kernel A addresses fronts with int32 positions; "
                          f"B * m_pad^2 = {B * m * m} is too large")
+    dt = kernels.value_type(adata)
     kernels.require(pos, "pos", torch.int32, (nnz,))
     kernels.require(src, "src", torch.int32, (nnz,))
-    kernels.require(adata, "adata", torch.float64)
-    front = torch.zeros(B, m, m, dtype=torch.float64, device=adata.device)
+    kernels.require(adata, "adata", dt)
+    front = torch.zeros(B, m, m, dtype=dt, device=adata.device)
     if nnz:
-        kernels.launch("hs_front_assemble", adata.device, front.data_ptr(),
-                       pos.data_ptr(), src.data_ptr(), adata.data_ptr(), nnz)
-        front_assemble.launches += 1
+        kernels.launch(kernels.symbol("hs_front_assemble", dt), adata.device,
+                       front.data_ptr(), pos.data_ptr(), src.data_ptr(),
+                       adata.data_ptr(), nnz)
+        kernels.count_launch(front_assemble, dt)
     return front
 
 
 front_assemble.launches = 0
+front_assemble.launches_by_type = {}
 
 
 def extend_add_plain(front: torch.Tensor, S: torch.Tensor, src_rows: torch.Tensor,
@@ -81,17 +86,19 @@ def extend_add(front: torch.Tensor, S: torch.Tensor, src_rows: torch.Tensor,
     B, m, _ = front.shape
     G = dst_rows.numel()
     w = S.shape[-1]
-    kernels.require(front, "front", torch.float64, (B, m, m))
-    kernels.require(S, "S", torch.float64, (S.shape[0], w, w))
+    dt = kernels.value_type(front, S)
+    kernels.require(front, "front", dt, (B, m, m))
+    kernels.require(S, "S", dt, (S.shape[0], w, w))
     kernels.require(src_rows, "src_rows", torch.int32, (G,))
     kernels.require(dst_rows, "dst_rows", torch.int32, (G,))
     kernels.require(imap, "imap", torch.int32, (B, m))
     if G and w:
-        kernels.launch("hs_extend_add", front.device, front.data_ptr(),
-                       S.data_ptr(), src_rows.data_ptr(), dst_rows.data_ptr(),
-                       imap.data_ptr(), G, m, w)
-        extend_add.launches += 1
+        kernels.launch(kernels.symbol("hs_extend_add", dt), front.device,
+                       front.data_ptr(), S.data_ptr(), src_rows.data_ptr(),
+                       dst_rows.data_ptr(), imap.data_ptr(), G, m, w)
+        kernels.count_launch(extend_add, dt)
     return front
 
 
 extend_add.launches = 0
+extend_add.launches_by_type = {}

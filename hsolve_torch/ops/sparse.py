@@ -6,8 +6,10 @@
 - DIA: for stencil/FEM matrices with few populated diagonals (every generated
   Poisson/Helmholtz problem), SpMV is a handful of shifted multiply-adds with no
   index gathers.  :func:`dia_spmv` is kernel D (``csrc/dia_spmv.cu``), which also
-  fuses the residual ``b - A x`` that GMRES's restarts need.
-:func:`spmv_format` picks the format.
+  fuses the residual ``b - A x`` that GMRES's restarts need; it takes float32
+  (the inner operator of mixed-precision GMRES) or float64 values.
+:func:`spmv_format` picks the format.  The entry points build on the card
+(``device="cuda"``) unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -30,11 +32,15 @@ class EllMatrix(NamedTuple):
     shape: tuple
 
 
-def _torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch, numpy or string dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
 
 
-def to_ell(A: sp.spmatrix, dtype=None, *, device) -> EllMatrix:
+def to_ell(A: sp.spmatrix, dtype=None, *, device="cuda") -> EllMatrix:
+    device = kernels.resolve_device(device)
     A = sp.csr_matrix(A)
     N = A.shape[0]
     counts = np.diff(A.indptr)
@@ -71,9 +77,11 @@ class DiaMatrix:
     shape: Tuple[int, int]
 
 
-def to_dia(A: sp.spmatrix, dtype=None, max_diags: int = MAX_DIAGS, *, device):
+def to_dia(A: sp.spmatrix, dtype=None, max_diags: int = MAX_DIAGS, *,
+           device="cuda"):
     """Convert to DIA storage; returns None if A populates more than
     ``max_diags`` diagonals (use :func:`to_ell` then)."""
+    device = kernels.resolve_device(device)
     A = sp.csr_matrix(A)
     N = A.shape[0]
     if A.shape[0] != A.shape[1]:
@@ -119,22 +127,24 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor,
     nd = len(A.offsets)
     if nd > MAX_DIAGS:
         raise ValueError(f"kernel D takes at most {MAX_DIAGS} diagonals")
-    kernels.require(A.values, "values", torch.float64, (nd, N))
+    dt = kernels.value_type(A.values, x, *([] if b is None else [b]))
+    kernels.require(A.values, "values", dt, (nd, N))
     kernels.require(A.offs, "offs", torch.int32, (nd,))
-    kernels.require(x, "x", torch.float64)
+    kernels.require(x, "x", dt)
     if x.ndim != 2 or x.shape[0] != N:
         raise ValueError(f"x: expected [{N}, k], got {tuple(x.shape)}")
     if b is not None:
-        kernels.require(b, "b", torch.float64, x.shape)
+        kernels.require(b, "b", dt, x.shape)
     y = torch.empty_like(x)
-    kernels.launch("hs_dia_spmv", x.device, y.data_ptr(), A.values.data_ptr(),
-                   A.offs.data_ptr(), x.data_ptr(),
+    kernels.launch(kernels.symbol("hs_dia_spmv", dt), x.device, y.data_ptr(),
+                   A.values.data_ptr(), A.offs.data_ptr(), x.data_ptr(),
                    None if b is None else b.data_ptr(), nd, N, x.shape[1])
-    dia_spmv.launches += 1
+    kernels.count_launch(dia_spmv, dt)
     return y
 
 
 dia_spmv.launches = 0
+dia_spmv.launches_by_type = {}
 
 
 def dia_matvec(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -152,10 +162,12 @@ def dia_residual(A: DiaMatrix, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def spmv_format(A: sp.spmatrix, dtype=None, max_diags: int = MAX_DIAGS, *,
-                device):
+                device="cuda"):
     """Pick the device SpMV format for A: ``(operator_data, matvec_fn)``.
 
-    DIA when A is few-diagonal (all generated stencil problems), else ELL."""
+    DIA when A is few-diagonal (all generated stencil problems), else ELL.
+    ``dtype`` sets the values' type (A's by default): ``np.float32`` gives the
+    inner operator of mixed-precision GMRES."""
     dia = to_dia(A, dtype=dtype, max_diags=max_diags, device=device)
     if dia is not None:
         return dia, dia_matvec

@@ -14,7 +14,8 @@ same update on a compressed level, where the Gauss transform is a low-rank pair
 ``M ~= U V^T``: ``C[ids_out] -= U @ (V^T @ Y)`` (``hsolve/factor.py:528-529``,
 ``:555-556``).
 
-``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
+Kernel C takes float32 or float64 values (one type per call), kernel E
+float64.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
 such ids are skipped and input rows with them read as zero.
 """
 
@@ -69,24 +70,26 @@ def sweep_update(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor, N: int
     k = C.shape[1]
     if not 0 <= N <= C.shape[0]:
         raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
-    kernels.require(C, "C", torch.float64, (C.shape[0], k))
-    kernels.require(M, "M", torch.float64)
+    dt = kernels.value_type(C, M, *([] if X is None else [X]))
+    kernels.require(C, "C", dt, (C.shape[0], k))
+    kernels.require(M, "M", dt)
     kernels.require(ids_out, "ids_out", torch.int32, (B, R))
     if X is not None:
-        kernels.require(X, "X", torch.float64, (B, Cc, k))
+        kernels.require(X, "X", dt, (B, Cc, k))
     else:
         kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
     if B * R and Cc:
-        kernels.launch("hs_sweep_update", C.device, C.data_ptr(),
-                       ids_out.data_ptr(), M.data_ptr(),
+        kernels.launch(kernels.symbol("hs_sweep_update", dt), C.device,
+                       C.data_ptr(), ids_out.data_ptr(), M.data_ptr(),
                        None if X is None else X.data_ptr(),
                        None if ids_in is None else ids_in.data_ptr(),
                        B, R, Cc, k, N)
-        sweep_update.launches += 1
+        kernels.count_launch(sweep_update, dt)
     return C
 
 
 sweep_update.launches = 0
+sweep_update.launches_by_type = {}
 
 
 # the [k_cap, k] sketch-product tile that kernel E stages in shared memory

@@ -3,13 +3,15 @@
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
-                                            [--compressed | --hss]
+                                            [--compressed | --hss | --mixed]
                                             [--out build/profile]
 
 For each size n it plans helmholtz2d(n, k=40) with leafmax=100 and swlevel=0
 (with ``--compressed``: the low-rank compressed configuration swlevel=-2,
 swsize=16, atol=rtol=1e-3, kest=32, hss=False; with ``--hss``: the same with
-hss=True, the structured HSS path), then times two warm phases,
+hss=True, the structured HSS path; with ``--mixed``: swlevel=0 with a
+float32 factor inside mixed-precision GMRES, float32 Arnoldi cycles over a
+float32 DIA operator with m_eps=1e-6), then times two warm phases,
 the numeric factorization and the GMRES solve (reltol 1e-9, the factor as
 right preconditioner, the DIA matvec):
 
@@ -76,6 +78,9 @@ def main() -> int:
     mode.add_argument("--hss", action="store_true",
                       help="profile the structured (HSS) compressed "
                            "configuration")
+    mode.add_argument("--mixed", action="store_true",
+                      help="profile the float32 exact factor with "
+                           "mixed-precision GMRES")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -96,26 +101,34 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     kernels.build()
-    path = "hss" if args.hss else "compressed" if args.compressed else "exact"
+    path = "hss" if args.hss else "compressed" if args.compressed else \
+        "exact-f32-mixed" if args.mixed else "exact"
     report = {"card": card, "path": path, "sizes": []}
     for n in args.sizes:
         A, b, shape = ht.helmholtz2d(n, k=40.0)
         opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
-                                kest=32, hss=args.hss) if path != "exact" else \
-            ht.SolverOptions(swlevel=0)
+                                kest=32, hss=args.hss) \
+            if path in ("compressed", "hss") else ht.SolverOptions(swlevel=0)
         plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                      opts)
-        holder = {"F": ht.factor_with_plan(plan, opts, device=dev)}
+        fdt = torch.float32 if args.mixed else torch.float64
+        holder = {"F": ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)}
         op, mv = ht.spmv_format(A, device=dev)
         bt = torch.as_tensor(np.asarray(b), device=dev)
+        prec, inner = solve_with_data, {}
+        if args.mixed:
+            prec = lambda data, v: solve_with_data(
+                data, v.to(torch.float32)).to(v.dtype)
+            inner = dict(inner_dtype="float32", m_eps=1e-6, mv_data_inner=(
+                ht.spmv_format(A, dtype=np.float32, device=dev)[0]))
 
         def factor():
-            holder["F"] = ht.factor_with_plan(plan, opts, device=dev)
+            holder["F"] = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)
 
         def solve():
             holder["x"], holder["info"] = ht.gmres_compiled(
-                mv, solve_with_data, bt, reltol=1e-9, restart=30, maxiter=60,
-                mv_data=op, M_data=holder["F"].solve_data)
+                mv, prec, bt, reltol=1e-9, restart=30, maxiter=60,
+                mv_data=op, M_data=holder["F"].solve_data, **inner)
 
         entry = {"n": n, "N": int(A.shape[0]), "phases": {}}
         for name, fn in (("factor", factor), ("solve", solve)):

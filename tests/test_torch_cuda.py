@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, at edge cases the main path does not
 reach (several right-hand sides, sentinel ids, narrow child stacks, ragged
-tiles, cap padding, argmax ties, shared memory above 48 KB), and the exact,
-compressed and structured (HSS) slices end to end on ``cuda``.
+tiles, cap padding, argmax ties, shared memory above 48 KB), kernels A-D in
+float32, the Arnoldi kernels L and M in both types, and the exact,
+compressed, structured (HSS) and mixed-precision slices end to end on
+``cuda``.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run these there with
@@ -17,6 +19,7 @@ import torch
 
 import hsolve_torch as ht
 from hsolve_torch import kernels
+from hsolve_torch.ops import arnoldi as AR
 from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
                                        front_assemble, front_assemble_plain)
 from hsolve_torch.ops import hss as H
@@ -109,8 +112,10 @@ def test_dia_spmv_kernel(dev, k):
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     A, _, _ = ht.helmholtz2d(17, k=8.0)
     op = ht.to_dia(A, device=dev)
-    with pytest.raises(TypeError, match="float64"):
-        dia_spmv(op, torch.zeros(A.shape[0], 1, dtype=torch.float32, device=dev))
+    op32 = ht.to_dia(A, dtype=np.float32, device=dev)
+    with pytest.raises(TypeError, match="one type per call"):
+        dia_spmv(op32, torch.zeros(A.shape[0], 1, dtype=torch.float64,
+                                   device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         dia_spmv(op, torch.zeros(2, A.shape[0], dtype=torch.float64,
                                  device=dev).T[:, :1].expand(-1, 2))
@@ -370,3 +375,142 @@ def test_sketches_are_the_same_on_every_device(dev):
                                     mv_data=op, M_data=F.solve_data)
         out.append((F.rank_report(), info["iters"]))
     assert out[0] == out[1]
+
+
+def test_typed_kernels_in_float32(dev):
+    """A-D in float32 against their float32 plain versions: A and B bitwise,
+    C and D to 1e-5 relative (only the summation order differs)."""
+    rng = np.random.default_rng(50)
+    f32 = torch.float32
+    B, m = 3, 20
+    pos = torch.as_tensor(rng.permutation(B * m * m)[:500].astype(np.int32),
+                          device=dev)
+    src = torch.as_tensor(rng.integers(-1, 300, 500).astype(np.int32), device=dev)
+    adata = torch.as_tensor(rng.standard_normal(300), dtype=f32, device=dev)
+    before = front_assemble.launches_by_type.get("float32", 0)
+    got = front_assemble(B, m, pos, src, adata)
+    assert got.dtype == f32 and front_assemble.launches_by_type["float32"] == before + 1
+    assert torch.equal(got, front_assemble_plain(B, m, pos, src, adata))
+    imap = torch.as_tensor(rng.integers(-1, 16, size=(B, m)).astype(np.int32),
+                           device=dev)
+    S = torch.as_tensor(rng.standard_normal((2, 10, 10)), dtype=f32, device=dev)
+    sr = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    dr = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    assert torch.equal(extend_add(got.clone(), S, sr, dr, imap),
+                       extend_add_plain(got.clone(), S, sr, dr, imap))
+    N, Bs, R, Cc = 500, 7, 9, 13
+    C = torch.as_tensor(rng.standard_normal((N + 1, 2)), dtype=f32, device=dev)
+    C[N] = 0.0
+    perm = rng.permutation(N)
+    ids_out = torch.as_tensor(perm[: Bs * R].reshape(Bs, R).astype(np.int32),
+                              device=dev)
+    ids_in = torch.as_tensor(
+        perm[Bs * R: Bs * R + Bs * Cc].reshape(Bs, Cc).astype(np.int32), device=dev)
+    M = torch.as_tensor(rng.standard_normal((Bs, R, Cc)), dtype=f32, device=dev)
+    got = sweep_update(C.clone(), ids_out, M, N, ids_in=ids_in)
+    assert _rel(got, sweep_update_plain(C.clone(), ids_out, M, N,
+                                        ids_in=ids_in)) < 1e-5
+    with pytest.raises(TypeError, match="one type per call"):
+        sweep_update(C.clone(), ids_out, M.double(), N, ids_in=ids_in)
+    A, b, _ = ht.helmholtz2d(33, k=10.0)
+    op = ht.to_dia(A, dtype=np.float32, device=dev)
+    x = torch.as_tensor(rng.standard_normal((A.shape[0], 1)), dtype=f32, device=dev)
+    bt = torch.as_tensor(np.asarray(b)[:, None], dtype=f32, device=dev)
+    for extra in ((), (bt,)):
+        assert _rel(dia_spmv(op, x, *extra), dia_spmv_plain(op, x, *extra)) < 1e-5
+
+
+def _arnoldi_inputs(dev, dtype, m, N, steps, seed):
+    """A state after ``steps`` Arnoldi steps of the plain versions on
+    I + noise, and the next step's vector."""
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(np.eye(N) + rng.standard_normal((N, N)) / (2 * N ** 0.5),
+                        dtype=dtype, device=dev)
+    s = AR.arnoldi_state(m, N, dtype, dev)
+    r = torch.as_tensor(rng.standard_normal(N), device=dev)
+    beta = float(torch.linalg.vector_norm(r))
+    s.V[0] = (r / beta).to(dtype)
+    s.g[0] = beta
+    for j in range(steps):
+        w = A @ s.V[j]
+        AR.arnoldi_cgs2_plain(s, w, j)
+        AR.arnoldi_givens_plain(s, j, 0.0, True)
+        s.V[j + 1] = w / s.st[1]
+    return s, A @ s.V[steps]
+
+
+def _clone_state(s):
+    import dataclasses
+
+    return dataclasses.replace(s, **{f.name: getattr(s, f.name).clone()
+                                     for f in dataclasses.fields(s)})
+
+
+@pytest.mark.parametrize("j", [0, 29])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_arnoldi_kernels_against_plain(dev, dtype, j):
+    """L and M at j = 0 and j = m - 1 (m = 30), N ragged against the chunks:
+    the column and w within 1e-5 (float32) / 1e-13 (float64); M's rotations,
+    done flag, divisor and coefficients equal bit for bit on equal columns."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    s, w = _arnoldi_inputs(dev, dtype, 30, 5003, j, seed=60 + j)
+    sk, sp_ = _clone_state(s), _clone_state(s)
+    wk, wp = w.clone(), w.clone()
+    before = AR.arnoldi_cgs2.launches
+    AR.arnoldi_cgs2(sk, wk, j)
+    assert AR.arnoldi_cgs2.launches == before + 1
+    AR.arnoldi_cgs2_plain(sp_, wp, j)
+    assert _rel(sk.hc[: j + 2], sp_.hc[: j + 2]) < tol
+    assert _rel(wk, wp) < tol
+    assert int(sk.ticket[0]) == 0               # re-armed for the next step
+    for cont, floor in ((True, 0.0), (True, 1e30), (False, 0.0)):
+        mk, mp = _clone_state(sp_), _clone_state(sp_)
+        AR.arnoldi_givens(mk, j, floor, cont)
+        AR.arnoldi_givens_plain(mp, j, floor, cont)
+        for a, b in ((mk.H, mp.H), (mk.cs, mp.cs), (mk.sn, mp.sn),
+                     (mk.g, mp.g), (mk.st, mp.st), (mk.done, mp.done),
+                     (mk.y, mp.y)):
+            assert torch.equal(a, b)
+        assert int(mk.done[0]) == int(not (cont and floor == 0.0))
+
+
+def test_mixed_slice_on_cuda(dev):
+    """The float32 factor with mixed-precision GMRES on the card: it
+    converges to relres 1e-9 through A-D in float32, D in float64 and L, M
+    in float32, and agrees with the same run on the CPU in its count to 1."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(48, k=20.0)
+    tree = ht.nested_dissection(shape, leafmax=40)
+    opts = ht.SolverOptions(swlevel=0)
+    plan = ht.plan_factorization(A, tree, opts)
+
+    def prec(data, v):
+        return solve_with_data(data, v.to(torch.float32)).to(v.dtype)
+
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor_with_plan(plan, opts, dtype=torch.float32, device=d)
+        op64, mv = ht.spmv_format(A, device=d)
+        op32, _ = ht.spmv_format(A, dtype=np.float32, device=d)
+        x, info = ht.gmres_compiled(
+            mv, prec, torch.as_tensor(b, device=d), reltol=1e-9, restart=30,
+            maxiter=60, mv_data=op64, M_data=F.solve_data,
+            inner_dtype="float32", mv_data_inner=op32, m_eps=1e-6)
+        assert info["converged"]
+        x = x.cpu().numpy()
+        assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) < 1e-9
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            assert all(counts.get(k, 0) > 0 for k in kernels.MIXED_PATH), counts
+    assert abs(iters[0] - iters[1]) <= 1
+
+
+def test_float32_refused_on_compressed_levels_on_cuda(dev):
+    A, _, shape = ht.helmholtz2d(64, k=20.0)
+    opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=40), opts)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ht.factor_with_plan(plan, opts, dtype=torch.float32, device=dev)

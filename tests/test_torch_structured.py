@@ -206,6 +206,18 @@ def test_structured_gmres_iterations_match_jax(case):
     assert not F_own.rank_report()["saturated"]
 
 
+def test_structured_gmres_history_matches_jax(case):
+    """The float64 GMRES (kernels L and M's plain versions) keeps JAX's
+    residual history on the structured levels: with the JAX sketches, equal
+    counts and histories within 1e-8 relative (the Gauss transforms agree to
+    1e-9, and the residuals fall to 1e-9 of ||b||)."""
+    F_same = ht.factor_with_plan(case.plan, ht.SolverOptions(**case.kw),
+                                 device="cpu", sketch=case.sketch)
+    info, _ = _port_gmres(case.A, case.b, F_same)
+    assert info["iters"] == case.jinfo["iters"]
+    assert _rel(info["resnorm"], case.jinfo["resnorm"]) < 1e-8
+
+
 def test_port_solve_on_jax_structured_factors(case):
     """factorization_from_numpy carries JAX's structured records over; the
     port's solve sweep (kernels C and E around d_apply) then gives JAX's
