@@ -13,14 +13,22 @@ Phases (any failure exits non-zero before the result line is printed):
    for ``sm_90a``, one nvcc process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
-   (A, B and G bitwise, H with equal pivots and ranks, C, D, E, F, I, J and K
-   to a relative error of 1e-13, since only the summation order differs);
-   each is timed with CUDA events beside its plain version (median of 10 runs
-   after warm-up), beside its bound (the larger of its bytes over 3.35 TB/s
-   and its operations over the data sheet's peak, from this run's shapes)
-   and, for D and L, beside the library calls that compute the same function
-   (cuSPARSE CSR ``torch.mv``; ``torch.mv``/``addmv``).  A-D run on the exact
-   plan, in float64 and in float32 (A, B bitwise, C, D to 1e-5); E (forward
+   (A, B and G bitwise, H with equal pivots and ranks, C's backward step, D,
+   E, F, I, J and K to a relative error of 1e-13, since only the summation
+   order differs; C's forward step, whose substitution rounds in another
+   order than cuBLAS's, to 1e-12 of max |x'| times the level's pivot-growth
+   proxy, printed beside it); each is timed on the device (back-to-back calls
+   between one pair of CUDA events, divided by the count, after warm-up)
+   beside its plain version, beside its bound (the larger of its bytes over
+   3.35 TB/s and its operations over the data sheet's peak, from this run's
+   shapes) and, for C, D and L, beside the library calls that compute the
+   same function (C: the gather, ``bmm``, ``index_put_`` and triangular
+   solves the solve ran before the fused step; D: cuSPARSE CSR ``torch.mv``;
+   L: ``torch.mv``/``addmv``).  A-D run on the exact plan, in float64 and in
+   float32 (A, B bitwise, C, D to 1e-5; C's forward step at the leaf level,
+   a level of ni_pad 256 and the top level, with lu records and, at the leaf
+   and the top, as dinv records; its backward step at the leaf, the ni_pad
+   256 level and the top level with a boundary); E (forward
    and backward) and F on the first and the top compressed batch of the
    compressed plan, G on both sides of the first; H-K on the structured (HSS)
    plan: H on the inputs of the leaf and of an upper level of the first and
@@ -68,6 +76,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 RTOL_SUM = 1e-13      # C-F: the kernel and plain sums differ only in order
 RTOL_SUM32 = 1e-5     # the same in float32
+# C's forward step: its substitution rounds in another order than cuBLAS's
+# triangular solves; relative to max |x'|, times the level's pivot growth
+RTOL_SOLVE = {"float64": 1e-12, "float32": 1e-5}
 RELRES = 1e-9         # GMRES target and the independent residual check
 FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 # the slice's compressed configuration (README's switching level, the
@@ -87,7 +98,8 @@ HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
 PEAK = {"float64": (34e12, 67e12), "float32": (67e12, 67e12)}
 SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "extend_add": ("extend_add.cu", "hsolve/factor.py:390"),
-           "sweep_update": ("sweep_update.cu", "hsolve/factor.py:509"),
+           "level_forward": ("sweep_update.cu", "hsolve/factor.py:527"),
+           "sweep_update": ("sweep_update.cu", "hsolve/factor.py:553"),
            "dia_spmv": ("dia_spmv.cu", "hsolve/ops/sparse.py:98"),
            "lowrank_sweep_update": ("lowrank_sweep_update.cu",
                                     "hsolve/factor.py:528"),
@@ -102,8 +114,8 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
                                  "hsolve/ops/hss.py:641"),
            "arnoldi_cgs2": ("arnoldi_cgs2.cu", "hsolve/krylov.py:231"),
            "arnoldi_givens": ("arnoldi_givens.cu", "hsolve/krylov.py:241")}
-TYPED = ("front_assemble", "extend_add", "sweep_update", "dia_spmv",
-         "arnoldi_cgs2", "arnoldi_givens")
+TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
+         "dia_spmv", "arnoldi_cgs2", "arnoldi_givens")
 
 
 T0 = time.perf_counter()
@@ -117,6 +129,32 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def device_ms(fn, budget_ms: float = 20.0, max_reps: int = 200) -> float:
+    """Time of one call of ``fn`` on the device (ms): after warm-up,
+    back-to-back calls between one pair of CUDA events, divided by their
+    count (enough calls to fill about ``budget_ms``, at least 5), so no
+    call's launch latency or event overhead is counted.  Where ``fn``'s host
+    work takes longer than its kernels, this still reads the host's rate."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once = start.elapsed_time(end)
+    reps = int(min(max_reps, max(5, budget_ms / max(once, 1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -228,6 +266,8 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     """Phase 3, kernels A-D against their plain versions at the exact
     n-plan's shapes, in ``dtype_name``: a float64 run and a float32 run, the
     latter recorded as ``<name>:float32``."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -237,7 +277,9 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
                                            front_assemble, front_assemble_plain)
     from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
-    from hsolve_torch.ops.sweep import sweep_update, sweep_update_plain
+    from hsolve_torch.ops import dense as dk
+    from hsolve_torch.ops.sweep import (level_forward, level_forward_plain,
+                                        sweep_update, sweep_update_plain)
 
     dt = getattr(torch, dtype_name)
     e = torch.empty(0, dtype=dt).element_size()
@@ -265,8 +307,8 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
             fail(f"front_assemble{tag} is not bitwise equal at batch {bidx}")
         record(f"front_assemble{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
                f"{bp.m_pad}] nnz={len(bp.front_pos)}", errors(ker, ref), 0.0,
-               time_ms(lambda: front_assemble(*args)),
-               time_ms(lambda: front_assemble_plain(*args)),
+               device_ms(lambda: front_assemble(*args)),
+               device_ms(lambda: front_assemble_plain(*args)),
                bound(nbytes(tb.pos, tb.src, adata, ker), 0, dtype_name))
 
     # B: extend-add, first branch batch and root batch (real Schur stacks)
@@ -303,32 +345,89 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
 
         record(f"extend_add{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
                f"{bp.m_pad}] {len(calls)} groups", errors(ker, ref), 0.0,
-               time_ms(run_k), time_ms(run_p), bound(cover, flops, dtype_name))
+               device_ms(run_k), device_ms(run_p), bound(cover, flops, dtype_name))
 
-    # C: sweep update, leaf level and the top level with a boundary (the root
-    # front has nb_pad = 0); forward (X given) and backward (ids_in) forms
+    # C: the fused forward step (pivot solve included) at the leaf level, a
+    # level of ni_pad 256 and the top level, with lu records and, at the leaf
+    # and the top, as dinv records; the backward step at the leaf, the ni_pad
+    # 256 level and the top level with a boundary (the root front has
+    # nb_pad = 0).  The library yardstick is the sequence the solve ran before
+    # the fused step: gather, bmm, index_put_ (accumulate), lu_solve (a row
+    # gather and two batched triangular solves) or the dinv GEMM, index_put_
     N = plan.N
+    wide = [i for i, bp in enumerate(plan.batches) if bp.ni_pad == 256]
+    mid = wide[0] if wide else nb // 2
     top = max(i for i, bp in enumerate(plan.batches) if bp.nb_pad > 0)
     C0 = torch.randn(N + 1, 1, dtype=dt, device=dev, generator=gen)
     C0[N] = 0.0
-    for bidx in (0, top):
+    for bidx in (0, mid, nb - 1):
         lev = levels[bidx]
-        x = C0[lev.int_ids]
-        for form, M, ids_out, kw in (
-                ("fwd", lev.L, lev.bnd_ids, {"X": x}),
-                ("bwd", lev.R, lev.int_ids, {"ids_in": lev.bnd_ids})):
-            ker = sweep_update(C0.clone(), ids_out, M, N, **kw)
-            ref = sweep_update_plain(C0.clone(), ids_out, M, N, **kw)
+        recs = [("lu", lev)]
+        if bidx in (0, nb - 1):
+            recs.append(("dinv", dataclasses.replace(
+                lev, lu=None, perm=None,
+                dinv=dk.lu_inverse(lev.lu, lev.perm).contiguous())))
+        growth = float(dk._diag_ratio(lev.lu).max())
+        keep = lev.int_ids < N
+        int_l = lev.int_ids.long().reshape(-1)
+        bnd_l = lev.bnd_ids.long().reshape(-1)
+        Bm, nbp, ni = lev.L.shape
+        for rec, lv in recs:
+            ker = level_forward(C0.clone(), lv, N)
+            ref = level_forward_plain(C0.clone(), lv, N)
+            if float(ker[N].abs().max()) != 0.0:
+                fail(f"level_forward{tag} wrote the sentinel row at level "
+                     f"{bidx} ({rec})")
+            err = float((ker - ref).abs().max())
+            scale = float(ref[lev.int_ids[keep].long()].abs().max())
+            limit = RTOL_SOLVE[dtype_name] * max(1.0, growth)
             scratch = C0.clone()
-            Bm, R, Cc = M.shape
-            work = nbytes(M, ids_out, *kw.values()) + 2 * Bm * R * e \
-                + (Bm * Cc * e if "ids_in" in kw else 0)
-            record(f"sweep_update{tag}", f"level {bidx} {form} "
-                   f"M={list(M.shape)} k=1", errors(ker, ref), rtol,
-                   time_ms(lambda: sweep_update(scratch, ids_out, M, N, **kw)),
-                   time_ms(lambda: sweep_update_plain(scratch, ids_out, M, N,
-                                                      **kw)),
-                   bound(work, 2 * M.numel(), dtype_name, products=True))
+
+            def library():
+                x = scratch[lv.int_ids]
+                scratch.index_put_((bnd_l,), -(lv.L @ x).reshape(-1, 1),
+                                   accumulate=True)
+                xs = lv.dinv @ x if lv.dinv is not None else \
+                    dk.lu_solve(lv.lu, lv.perm, x)
+                scratch.index_put_((int_l,), xs.reshape(-1, 1))
+
+            A_ = lv.dinv if lv.dinv is not None else lv.lu
+            work = nbytes(A_, lv.L, lv.int_ids, lv.bnd_ids) \
+                + (nbytes(lv.perm) if lv.dinv is None else 0) \
+                + 2 * Bm * ni * e + 2 * Bm * nbp * e
+            record(f"level_forward{tag}", f"level {bidx} {rec} "
+                   f"B={Bm} ni={ni} nb={nbp} k=1 growth={growth:.3g}",
+                   (err, err / (scale if scale > 0 else 1.0)), limit,
+                   device_ms(lambda: level_forward(scratch, lv, N)),
+                   device_ms(lambda: level_forward_plain(scratch, lv, N)),
+                   bound(work, 2 * (A_.numel() + lv.L.numel()), dtype_name),
+                   library_ms=device_ms(library))
+    for bidx in (0, mid, top):
+        lev = levels[bidx]
+        ker = sweep_update(C0.clone(), lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+        ref = sweep_update_plain(C0.clone(), lev.int_ids, lev.R, N,
+                                 ids_in=lev.bnd_ids)
+        if float(ker[N].abs().max()) != 0.0:
+            fail(f"sweep_update{tag} wrote the sentinel row at level {bidx}")
+        scratch = C0.clone()
+        Bm, ni, nbp = lev.R.shape
+        int_l = lev.int_ids.long().reshape(-1)
+
+        def library():
+            upd = lev.R @ scratch[lev.bnd_ids]
+            scratch.index_put_((int_l,), -upd.reshape(-1, 1), accumulate=True)
+
+        record(f"sweep_update{tag}", f"level {bidx} bwd R={list(lev.R.shape)} k=1",
+               errors(ker, ref), rtol,
+               device_ms(lambda: sweep_update(scratch, lev.int_ids, lev.R, N,
+                                              ids_in=lev.bnd_ids)),
+               device_ms(lambda: sweep_update_plain(scratch, lev.int_ids,
+                                                    lev.R, N,
+                                                    ids_in=lev.bnd_ids)),
+               bound(nbytes(lev.R, lev.int_ids, lev.bnd_ids)
+                     + Bm * nbp * e + 2 * Bm * ni * e, 2 * lev.R.numel(),
+                     dtype_name),
+               library_ms=device_ms(library))
 
     # D: DIA matvec and fused residual on the original matrix; the library
     # yardstick is cuSPARSE's CSR matvec (and b - A x through addmv)
@@ -344,11 +443,11 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
         ref = dia_spmv_plain(op, xv, *extra)
         record(f"dia_spmv{tag}", f"{form} N={A.shape[0]} "
                f"ndiag={len(op.offsets)} k=1", errors(ker, ref), rtol,
-               time_ms(lambda: dia_spmv(op, xv, *extra)),
-               time_ms(lambda: dia_spmv_plain(op, xv, *extra)),
+               device_ms(lambda: dia_spmv(op, xv, *extra)),
+               device_ms(lambda: dia_spmv_plain(op, xv, *extra)),
                bound(nbytes(op.values, op.offs, xv, ker, *extra),
                      2 * op.values.numel(), dtype_name),
-               library_ms=time_ms(lib))
+               library_ms=device_ms(lib))
     torch.cuda.synchronize()
 
 
@@ -403,9 +502,9 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
             record("lowrank_sweep_update",
                    f"batch {bidx} {form} U={list(U.shape)} V={list(V.shape)[1:]}",
                    errors(ker, ref), RTOL_SUM,
-                   time_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V,
+                   device_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V,
                                                         N, **kw)),
-                   time_ms(lambda: lowrank_sweep_update_plain(
+                   device_ms(lambda: lowrank_sweep_update_plain(
                        scratch, ids_out, U, V, N, **kw)),
                    bound(work, 2 * Bu * kc * (R + Cc), products=True))
 
@@ -430,8 +529,8 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
         record("lowrank_schur_update",
                f"batch {bidx} [{bp.B},{bp.nb_pad},{bp.nb_pad}] k={bp.rank_cap}",
                errors(ker, ref), RTOL_SUM,
-               time_ms(lambda: lowrank_schur_update(*args)),
-               time_ms(lambda: lowrank_schur_update_plain(*args)),
+               device_ms(lambda: lowrank_schur_update(*args)),
+               device_ms(lambda: lowrank_schur_update_plain(*args)),
                bound(2 * nbb * 8 + nbytes(W, lev.RV_, tb.sperm),
                      2 * nbb * W.shape[-1], products=True))
 
@@ -454,8 +553,8 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
         record("lowrank_truncate",
                f"batch {first} {side} QU={list(args[0].shape)} cap={bp.rank_cap}",
                errors(ker[0], ref[0]), 0.0,
-               time_ms(lambda: lowrank_truncate(*args)),
-               time_ms(lambda: lowrank_truncate_plain(*args)),
+               device_ms(lambda: lowrank_truncate(*args)),
+               device_ms(lambda: lowrank_truncate_plain(*args)),
                bound(nbytes(*args[:3], *ker), args[0].numel() + args[2].numel()))
     torch.cuda.synchronize()
 
@@ -547,8 +646,8 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
         # finds the rank, per matrix; each projects and downdates every column
         steps = float((ker[1].double() + 1).clamp(max=k).sum())
         record("cpqr_pivots", f"{tag} {kind} A={list(Am.shape)} k={k}",
-               (0.0, 0.0), 0.0, time_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k)),
-               time_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)),
+               (0.0, 0.0), 0.0, device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k)),
+               device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)),
                bound(nbytes(Am, *ker), 4 * Am.shape[1] * Am.shape[2] * steps))
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -574,8 +673,8 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
             record("hss_entries_prepared",
                    f"batch {bidx} {what} out={list(ker.shape)}",
                    errors(ker, ref), RTOL_SUM,
-                   time_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
-                   time_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
+                   device_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
+                   device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
                    bound(reads + nbytes(rr, cc, ker), 2 * h2.r * ker.numel()))
         # J: S22''s operand at the sketch width (the factor's own sketch) and
         # at k=1
@@ -592,8 +691,8 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                        f"batch {bidx} {'adj' if adj else 'fwd'} "
                        f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
                        f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
-                       time_ms(lambda: H.hss_matvec(h2, X, adj)),
-                       time_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
+                       device_ms(lambda: H.hss_matvec(h2, X, adj)),
+                       device_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
                        bound(nbytes(*h2.arrays(), X, ker),
                              2 * X.shape[-1] * sum(a.numel()
                                                    for a in h2.arrays()),
@@ -623,8 +722,8 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                        f"batch {bidx} {'adj' if adj else 'fwd'} level {lvl}/"
                        f"{h1.plan.depth} B={h1.B} 2r={2 * h1.r} "
                        f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
-                       time_ms(lambda: H.hss_level_correct(scratch, *args)),
-                       time_ms(lambda: H.hss_level_correct_plain(scratch,
+                       device_ms(lambda: H.hss_level_correct(scratch, *args)),
+                       device_ms(lambda: H.hss_level_correct_plain(scratch,
                                                                  *args)),
                        bound(nbytes(Y0, Y0, *args[:6]),
                              2 * X.shape[-1] * sum(a.numel() for a in (
@@ -712,11 +811,11 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
             return torch.linalg.vector_norm(w2)
 
         record(f"arnoldi_cgs2{tag}", f"j={j} V=[{m1},{N}]", err, rtol,
-               time_ms(lambda: AR.arnoldi_cgs2(scratch_s, scratch_w, j)),
-               time_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
+               device_ms(lambda: AR.arnoldi_cgs2(scratch_s, scratch_w, j)),
+               device_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
                bound((j + 1) * N * e + 2 * N * e + (j + 2) * e,
                      8 * (j + 1) * N + 2 * N, dname),
-               library_ms=time_ms(library))
+               library_ms=device_ms(library))
         # M on the captured step (its own floor and loop test), and as the
         # last step of a cycle (done: the triangular solve)
         m = s0.H.shape[1]
@@ -735,9 +834,9 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                 + (e * (m + (j + 1) * (j + 2) // 2) if done else 0)
             record(f"arnoldi_givens{tag}", f"j={j} m={m} done={int(done)}",
                    errors(mk.y, mp.y) if done else (0.0, 0.0), rtol,
-                   time_ms(lambda: AR.arnoldi_givens(scratch_m, j, c["floor"],
+                   device_ms(lambda: AR.arnoldi_givens(scratch_m, j, c["floor"],
                                                      cont)),
-                   time_ms(lambda: AR.arnoldi_givens_plain(
+                   device_ms(lambda: AR.arnoldi_givens_plain(
                        scratch_m, j, c["floor"], cont)),
                    bound(work, 6 * j + 12 + ((j + 1) ** 2 if done else 0),
                          dname))

@@ -1,4 +1,4 @@
-// Kernel L: the CGS2 orthogonalization of one Arnoldi step.
+// Kernel L: the CGS2 orthogonalization of one Arnoldi step, one launch.
 //
 // Replaces the classical Gram-Schmidt, applied twice, of hsolve/krylov.py
 // `_gmres_cycles.inner_body` (:231-237), which XLA lowered as two GEMV pairs
@@ -10,30 +10,69 @@
 // w is updated in place.  Instantiated for double (`hs_arnoldi_cgs2`) and
 // float (`hs_arnoldi_cgs2_f32`, the inner cycles of mixed-precision GMRES).
 //
-// A pass cannot update w before its dot products are summed across blocks,
-// so the step is three launches over the same partition of N into `nb`
-// chunks, one block each:
-//   0. partial dots of V[:R] with w -> P1 [R, nb];
-//   1. every block sums P1 in one fixed order (so all hold the same h1),
-//      updates its chunk of w and takes the partial dots of the result
-//      -> P2; block 0 stores h1 in hc;
-//   2. the same with P2 (h2), then the partial sums of ||w||^2 -> P3 [nb];
-//      the last block to finish (an atomic ticket) sums P3 in a fixed order,
-//      writes hc[R] = ||w||, hc[:R] += h2 and re-arms the ticket.
-// Each update is fused with the next sweep's sums, so a step reads V three
-// times instead of the four of two separate GEMV pairs; the second look at a
-// chunk of V inside a launch comes from L2.  Nothing goes to the host.
+// Bound: bytes.  A step must read the R rows of V and w and write w; the
+// work is four multiply-adds per value of V.
 //
-// Bound: bytes.  A step must read the R rows of V and w and write w (the
-// partial sums are R * nb values); the work is four multiply-adds per value
-// of V.  One block per chunk stages its chunk of w in shared memory; the dots
-// run one warp per row of V with shuffle reductions, the updates one thread
-// per entry of w, both coalesced along N.
+// Design: one persistent cooperative launch (cudaLaunchCooperativeKernel;
+// the grid, one CTA per SM, is co-resident or the launch is refused) with
+// two grid barriers.  CTA b owns the contiguous slice [b S, (b+1) S) of N
+// (S a multiple of 4, so a slice starts on a 16-byte boundary wherever its
+// row does) and keeps that slice of w in shared memory for the whole step:
+// w is read once and written once.
+//   1. partial dots of V[:R] with w -> P1 [R, G]; the first Rs rows of the
+//      slice are staged in shared memory on the way (Rs: as many as fit);
+//   barrier; every CTA sums P1 in one fixed order, so all hold the same h1
+//   bit for bit;
+//   2. w -= V^T h1 on the slice, then the partial dots of the new w -> P2;
+//   barrier; h2 the same way;
+//   3. w -= V^T h2, the slice written back, ||w||^2 partials -> P3 [G]; the
+//      last CTA to finish (the ticket) sums P3 in a fixed order, writes
+//      hc[R] = ||w|| and re-arms the ticket; CTA 0 writes hc[:R] = h1 + h2.
+// The staged rows come from shared memory after pass 1; the others are swept
+// in alternating directions so that the rows read last are still in L2.  V
+// is read with 16-byte loads along N: a row whose start is not 16-byte
+// aligned (N odd) takes two aligned loads per chunk and a shift.  Each thread
+// keeps several rows of V in flight (independent accumulators).  The ticket
+// is also the grid barrier's counter: 0 at rest, G after barrier 1, 2G after
+// barrier 2, 3G when the last CTA resets it.  Nothing goes to the host.
 #include "hs_common.cuh"
 
 #define HS_CGS2_THREADS 512
-#define HS_CGS2_MAX_CHUNK 4096
+#define HS_CGS2_WARPS (HS_CGS2_THREADS / 32)
 #define HS_CGS2_MAX_ROWS 512
+#define HS_CGS2_ROW_BATCH 64     // rows per block reduction of the dots
+#define HS_CGS2_SMEM 230400      // dynamic shared memory per CTA, bytes
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<double> {
+  static constexpr int n = 2;
+};
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+};
+
+// W-wide shared-memory chunk <-> registers (one 16-byte access)
+__device__ __forceinline__ void sload(const double* p, double (&o)[2]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  o[0] = a.x;
+  o[1] = a.y;
+}
+
+__device__ __forceinline__ void sload(const float* p, float (&o)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+
+__device__ __forceinline__ void sstore(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+__device__ __forceinline__ void sstore(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -41,117 +80,268 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// h[i] = sum_b P[i * nb + b], one warp per row, the same order in every block
+// V[i, e0:e0+W] (e0 a multiple of W; entries past N read as 0).  The shift
+// s = (i N) mod W is the same for every thread of a row; rows i < R <= m
+// have a next row, so the second aligned load stays inside V.
+__device__ __forceinline__ void load_chunk(const double* __restrict__ V,
+                                           int64_t N, int i, int64_t e0,
+                                           double (&o)[2]) {
+  const int64_t f = (int64_t)i * N + e0;
+  if (e0 + 2 <= N) {
+    if ((f & 1) == 0) {
+      const double2 a = __ldg(reinterpret_cast<const double2*>(V + f));
+      o[0] = a.x;
+      o[1] = a.y;
+    } else {
+      const double2 a = __ldg(reinterpret_cast<const double2*>(V + f - 1));
+      const double2 c = __ldg(reinterpret_cast<const double2*>(V + f + 1));
+      o[0] = a.y;
+      o[1] = c.x;
+    }
+  } else {
+    o[0] = e0 < N ? V[f] : 0.0;
+    o[1] = 0.0;
+  }
+}
+
+__device__ __forceinline__ void load_chunk(const float* __restrict__ V,
+                                           int64_t N, int i, int64_t e0,
+                                           float (&o)[4]) {
+  const int64_t f = (int64_t)i * N + e0;
+  if (e0 + 4 <= N) {
+    const int s = (int)(f & 3);
+    const float4 a = __ldg(reinterpret_cast<const float4*>(V + f - s));
+    if (s == 0) {
+      o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+      return;
+    }
+    const float4 c = __ldg(reinterpret_cast<const float4*>(V + f - s + 4));
+    if (s == 1) {
+      o[0] = a.y; o[1] = a.z; o[2] = a.w; o[3] = c.x;
+    } else if (s == 2) {
+      o[0] = a.z; o[1] = a.w; o[2] = c.x; o[3] = c.y;
+    } else {
+      o[0] = a.w; o[1] = c.x; o[2] = c.y; o[3] = c.z;
+    }
+  } else {
+    for (int e = 0; e < 4; ++e) o[e] = e0 + e < N ? V[f + e] : 0.0f;
+  }
+}
+
+// wait until `target` CTAs have arrived on the counter (co-residency is
+// guaranteed by the cooperative launch)
+__device__ __forceinline__ void grid_sync(unsigned* ticket, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ticket, 1u);
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen) : "l"(ticket) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// h[i] = sum_b P[i * G + b], one warp per row, the same order in every CTA
 template <typename T>
-__device__ void sum_partials(const T* P, int nb, int R, T* h) {
+__device__ void sum_partials(const T* P, int G, int R, T* h) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < R; i += blockDim.x >> 5) {
+  for (int i = warp; i < R; i += HS_CGS2_WARPS) {
     T acc = T(0);
-    for (int b = lane; b < nb; b += 32) acc += P[(int64_t)i * nb + b];
+    for (int b = lane; b < G; b += 32) acc += __ldcg(P + (int64_t)i * G + b);
     acc = warp_sum(acc);
     if (lane == 0) h[i] = acc;
   }
   __syncthreads();
 }
 
-// P[i * nb + blockIdx.x] = V[i, lo:lo+len] . ws, one warp per row
 template <typename T>
-__device__ void chunk_dots(const T* V, int64_t N, int R, const T* ws,
-                           int64_t lo, int len, T* P, int nb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < R; i += blockDim.x >> 5) {
-    const T* vrow = V + (int64_t)i * N + lo;
-    T acc = T(0);
-    for (int t = lane; t < len; t += 32) acc += vrow[t] * ws[t];
-    acc = warp_sum(acc);
-    if (lane == 0) P[(int64_t)i * nb + blockIdx.x] = acc;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(HS_CGS2_THREADS)
+__global__ void __launch_bounds__(HS_CGS2_THREADS, 1)
 arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
                     T* __restrict__ hc, T* __restrict__ part,
-                    unsigned* __restrict__ ticket, int R, int64_t N, int nb,
-                    int chunk, int pass) {
-  __shared__ T ws[HS_CGS2_MAX_CHUNK];
-  __shared__ T h[HS_CGS2_MAX_ROWS];
-  __shared__ T red[HS_CGS2_THREADS / 32];
+                    unsigned* __restrict__ ticket, int R, int64_t N, int S,
+                    int Rs) {
+  constexpr int W = Vec16<T>::n;
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  T* ws = reinterpret_cast<T*>(hs_smem);            // [S] the slice of w
+  T* h1 = ws + S;                                   // [MAX_ROWS]
+  T* h2 = h1 + HS_CGS2_MAX_ROWS;                    // [MAX_ROWS]
+  T* red = h2 + HS_CGS2_MAX_ROWS;                   // [ROW_BATCH][WARPS]
+  T* stage = red + HS_CGS2_ROW_BATCH * HS_CGS2_WARPS;  // [Rs][S] rows of V
   __shared__ bool last;
-  T* P1 = part;
-  T* P2 = part + (int64_t)R * nb;
-  T* P3 = part + 2 * (int64_t)R * nb;
-  const int64_t lo = (int64_t)blockIdx.x * chunk;
-  const int len = (int)(N - lo < chunk ? N - lo : chunk);
-
-  if (pass == 0) {
-    for (int t = threadIdx.x; t < len; t += blockDim.x) ws[t] = w[lo + t];
-    __syncthreads();
-    chunk_dots(V, N, R, ws, lo, len, P1, nb);
-    return;
-  }
-  sum_partials(pass == 1 ? P1 : P2, nb, R, h);
-  if (pass == 1 && blockIdx.x == 0)
-    for (int i = threadIdx.x; i < R; i += blockDim.x) hc[i] = h[i];
-  // w -= V[:R]^T h on this chunk (the GEMV, then one subtraction, as XLA's
-  // w - V.T @ h)
-  T sq = T(0);
-  for (int t = threadIdx.x; t < len; t += blockDim.x) {
-    T acc = T(0);
-    for (int i = 0; i < R; ++i) acc += V[(int64_t)i * N + lo + t] * h[i];
-    const T wn = w[lo + t] - acc;
-    w[lo + t] = wn;
-    ws[t] = wn;
-    sq += wn * wn;
-  }
-  __syncthreads();
-  if (pass == 1) {
-    chunk_dots(V, N, R, ws, lo, len, P2, nb);
-    return;
-  }
-  // pass 2: ||w||^2 partials, then the last block finishes the step
+  const int G = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t lo = (int64_t)blockIdx.x * S;
+  const int len = N - lo < S ? (N - lo > 0 ? (int)(N - lo) : 0) : S;
+  const int nch = (len + W - 1) / W;               // W-wide chunks of the slice
+  T* P1 = part;
+  T* P2 = part + (int64_t)R * G;
+  T* P3 = part + 2 * (int64_t)R * G;
+
+  for (int t = threadIdx.x; t < nch * W; t += HS_CGS2_THREADS)
+    ws[t] = t < len ? w[lo + t] : T(0);
+  __syncthreads();
+
+  // chunk c of row i: staged rows from shared memory after pass 1
+  auto get = [&](int i, int c, bool first, T (&v)[W]) {
+    T* st = stage + (int64_t)i * S + c * W;
+    if (i < Rs && !first) {
+      sload(st, v);
+    } else {
+      load_chunk(V, N, i, lo + (int64_t)c * W, v);
+      if (i < Rs) sstore(st, v);
+    }
+  };
+
+  // P[i, blockIdx] = V[i, slice] . ws for every row (ascending)
+  auto dots = [&](T* P, bool first) {
+    for (int i0 = 0; i0 < R; i0 += HS_CGS2_ROW_BATCH) {
+      const int nr = R - i0 < HS_CGS2_ROW_BATCH ? R - i0 : HS_CGS2_ROW_BATCH;
+      for (int ii = 0; ii < nr; ii += 4) {
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+        for (int c = threadIdx.x; c < nch; c += HS_CGS2_THREADS) {
+          T x[W];
+          sload(ws + c * W, x);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (ii + u < nr) {
+              T v[W];
+              get(i0 + ii + u, c, first, v);
+#pragma unroll
+              for (int e = 0; e < W; ++e) acc[u] += v[e] * x[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const T s = warp_sum(acc[u]);
+          if (lane == 0 && ii + u < nr) red[(ii + u) * HS_CGS2_WARPS + warp] = s;
+        }
+      }
+      __syncthreads();
+      for (int ii = threadIdx.x; ii < nr; ii += HS_CGS2_THREADS) {
+        T s = T(0);
+        for (int k = 0; k < HS_CGS2_WARPS; ++k) s += red[ii * HS_CGS2_WARPS + k];
+        P[(int64_t)(i0 + ii) * G + blockIdx.x] = s;
+      }
+      __syncthreads();
+    }
+  };
+
+  // ws -= V[:R, slice]^T h (rows descending), returns this thread's ||ws||^2
+  auto update = [&](const T* h) {
+    T sq = T(0);
+    for (int c = threadIdx.x; c < nch; c += HS_CGS2_THREADS) {
+      T acc[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[e] = T(0);
+      for (int t = 0; t < R; t += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (t + u < R) {
+            const int i = R - 1 - (t + u);
+            T v[W];
+            get(i, c, false, v);
+            const T hi = h[i];
+#pragma unroll
+            for (int e = 0; e < W; ++e) acc[e] += v[e] * hi;
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const T wn = ws[c * W + e] - acc[e];
+        ws[c * W + e] = wn;
+        sq += wn * wn;
+      }
+    }
+    return sq;
+  };
+
+  dots(P1, true);
+  grid_sync(ticket, (unsigned)G);
+  sum_partials(P1, G, R, h1);
+  update(h1);
+  dots(P2, false);
+  grid_sync(ticket, 2u * (unsigned)G);
+  sum_partials(P2, G, R, h2);
+  T sq = update(h2);
+  __syncthreads();
+  for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) w[lo + t] = ws[t];
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < R; i += HS_CGS2_THREADS) hc[i] = h1[i] + h2[i];
+
   sq = warp_sum(sq);
   if (lane == 0) red[warp] = sq;
   __syncthreads();
   if (threadIdx.x == 0) {
     T s = T(0);
-    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) s += red[k];
+    for (int k = 0; k < HS_CGS2_WARPS; ++k) s += red[k];
     P3[blockIdx.x] = s;
     __threadfence();
-    last = atomicAdd(ticket, 1u) == (unsigned)gridDim.x - 1u;
+    last = atomicAdd(ticket, 1u) == 3u * (unsigned)G - 1u;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
   if (warp == 0) {
     T s = T(0);
-    for (int b = lane; b < nb; b += 32) s += __ldcg(P3 + b);
+    for (int b = lane; b < G; b += 32) s += __ldcg(P3 + b);
     s = warp_sum(s);
     if (lane == 0) {
       hc[R] = sqrt(s);
       *ticket = 0u;
     }
   }
-  for (int i = threadIdx.x; i < R; i += blockDim.x) hc[i] = hc[i] + h[i];
+}
+
+// the slice of N per CTA: ceil(N / G) rounded up to a multiple of 4
+static inline long long cgs2_slice(long long N, int G) {
+  const long long s = (N + G - 1) / G;
+  return (s + 3) / 4 * 4;
 }
 
 template <typename T>
 static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
-                        void* ticket, int R, long long N, int nb,
+                        void* ticket, int R, long long N, int G,
                         void* stream) {
-  if (R < 1 || R > HS_CGS2_MAX_ROWS || nb < 1 || N < 1)
+  if (R < 1 || R > HS_CGS2_MAX_ROWS || G < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  const long long chunk = (N + nb - 1) / nb;
-  if (chunk > HS_CGS2_MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  for (int pass = 0; pass < 3; ++pass) {
-    arnoldi_cgs2_kernel<T><<<nb, HS_CGS2_THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)V, (T*)w, (T*)hc, (T*)part, (unsigned*)ticket, R,
-        (int64_t)N, nb, (int)chunk, pass);
-    const cudaError_t err = cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(V) & 15u)
+    return (int)cudaErrorMisalignedAddress;
+  const long long S = cgs2_slice(N, G);
+  const long long fixed = (S + 2 * HS_CGS2_MAX_ROWS +
+                           HS_CGS2_ROW_BATCH * HS_CGS2_WARPS) * (long long)sizeof(T);
+  if (fixed > HS_CGS2_SMEM) return (int)cudaErrorInvalidValue;
+  long long rs = (HS_CGS2_SMEM - fixed) / (S * (long long)sizeof(T));
+  if (rs > R) rs = R;
+  const size_t smem = (size_t)(fixed + rs * S * (long long)sizeof(T));
+  auto kern = arnoldi_cgs2_kernel<T>;
+  static bool granted = false;
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, HS_CGS2_SMEM);
     if (err != cudaSuccess) return (int)err;
+    granted = true;
   }
-  return (int)cudaSuccess;
+  const T* Vp = (const T*)V;
+  T* wp = (T*)w;
+  T* hcp = (T*)hc;
+  T* pp = (T*)part;
+  unsigned* tp = (unsigned*)ticket;
+  int64_t N64 = N;
+  int Si = (int)S, Rsi = (int)rs;
+  void* args[] = {&Vp, &wp, &hcp, &pp, &tp, &R, &N64, &Si, &Rsi};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)kern, dim3(G), dim3(HS_CGS2_THREADS), args, smem,
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is not sticky: clear it
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 HS_EXPORT int hs_arnoldi_cgs2(const void* V, void* w, void* hc, void* part,

@@ -1,95 +1,613 @@
-// Kernel C: fused gather -> batched GEMV -> scatter-add of the solve sweeps.
+// Kernel C: a dense level's two solve steps, one launch each.
 //
-// Replaces the per-level updates of hsolve/factor.py `_apply_impl` (:526-559),
-// which XLA lowered as a gather, a batched GEMM and a scatter-add:
+// Replaces the per-level steps of hsolve/factor.py `_apply_impl`, which XLA
+// lowered as a gather, a batched GEMM, a scatter-add, two batched triangular
+// solves (hsolve/ops/dense.py:34-39, `lu_solve`) and a scatter per level:
 //
-//   forward  (M = L, out = bnd_ids, Y = X = C[int_ids] gathered before the
-//             pivot solve overwrites C[int]):
-//       C[bnd_ids[b, r], :] -= sum_c L[b, r, c] * X[b, c, :]
-//   backward (M = R, out = int_ids, Y gathered here from in = bnd_ids):
-//       C[int_ids[b, r], :] -= sum_c R[b, r, c] * C[bnd_ids[b, c], :]
+//   forward (`hs_level_forward`, factor.py:527-539), per front b:
+//       x = C[int_ids[b]]                      (ids >= N read as 0)
+//       C[bnd_ids[b]] -= L[b] @ x              (ids >= N skipped)
+//       x' = D[b]^-1 x: with (lu, perm) z = x[perm], z = Lunit^-1 z,
+//            x' = U^-1 z; with dinv x' = dinv[b] @ x
+//       C[int_ids[b]] = x'                     (ids >= N skipped: C's
+//                                               sentinel row N stays 0)
+//   backward (`hs_sweep_update`, factor.py:553-559):
+//       C[int_ids[b]] -= R[b] @ C[bnd_ids[b]]
 //
-// C is [rows, k] with k >= 1 right-hand sides.  Ids >= N are the planner's
-// sentinel: such output rows are skipped (C's sentinel row N stays untouched,
-// JAX's mode="drop") and such input rows read as 0.
+// C is [rows, k].  The forward step takes one right-hand side per pass (k = 1
+// on the solve's path); the backward step takes them in chunks of HS_C_KMAX.
+// Instantiated for double and float (`_f32`, the float32 factor's solve).
 //
-// Instantiated for double (`hs_sweep_update`) and float
-// (`hs_sweep_update_f32`, the float32 factor's solve).
+// Bound: bytes.  A forward step must read lu[b] (or dinv[b]), L[b], the ids
+// and x once and write x' and the boundary updates once; the backward step
+// reads R[b] once; both do about 2 flops per matrix entry.  The rows of L[b],
+// dinv[b] and R[b] are read by groups of 8 lanes with 16-byte loads (scalar
+// loads where a row is not 16-byte aligned) and reduced with 3 shuffles; the
+// gathered vectors live in shared memory, gathered once per front.
 //
-// The update is an atomicAdd on the value type.  On the generated trees bnd_ids are
-// unique within a level, so no two warps hit one address and the result is
-// deterministic.  Trees from parse_elimtree carry no such guarantee: there the
-// result is still correct, but its summation order is not fixed.  In the
-// backward sweep the rows read (bnd) and written (int) of one level are
-// disjoint, so reads never race with writes.
+// The substitution is sequential in its 32-row panels, so at the top levels
+// (1-16 fronts of 256-1024 rows) latency, not bytes, sets its time.  Warp w
+// of a front's CTA owns one panel P, one lane per row, and keeps the row's
+// running value in a register.  Per panel step p (forward, then backward):
+//   - the owner warp of panel p solves its 32 x 32 diagonal block (staged in
+//     shared memory once per launch, identity-padded so the unrolled solve
+//     has no bounds) with one shuffle and one multiply-add per row, and
+//     publishes the solved values in ys;
+//   - one barrier;
+//   - every warp whose rows take panel p's update multiplies its 32 x 32
+//     block lu[rows, p cols] by y_p.  The block was loaded one step ahead,
+//     coalesced: lu is column-major (as the LU returns it, so the factor
+//     makes no copy), a 16-byte load covers W = 4 (float) or 2 (double) rows
+//     of a column, and a warp issues 8 or 16 loads for the block.  A fold
+//     over the W lanes that share rows (log2 W shuffles) and one permuting
+//     shuffle leave each row's sum in its lane.
+// lu[b] is read once.  A front of up to 8 panels (ni_pad <= 256) runs on one
+// CTA of up to 8 warps with CTA barriers; a wider one on a thread block
+// cluster of ceil(panels / 8) CTAs (the wrapper picks it per level, at most
+// 8): CTA c owns the panels p with p % cs == c, stores y_p into every CTA's
+// ys through distributed shared memory, and the step's barrier is the
+// cluster's.  The rows of L[b] and dinv[b] are split the same way.
 //
-// Bound: memory.  M (L or R, [B, R, Cc]) dominates the bytes and is read once
-// per right-hand side; the work per byte is one multiply-add.  One warp per
-// output row reads M's row with consecutive lanes on consecutive addresses,
-// reduces with shuffles and issues one atomic per right-hand side; padded
-// output rows exit before reading their M row.
+// Races: within a level the int ids of the fronts are disjoint, no front's
+// bnd ids are another front's int ids, and every CTA of a front reads x before
+// any of them writes x' (a barrier lies between).  The forward update of
+// C[bnd] is an atomicAdd: bnd ids are unique within a level on generated
+// trees (deterministic result), but trees from parse_elimtree carry no such
+// guarantee (correct, summation order not fixed).  The backward step writes
+// C[int] with plain stores: each int id has one writer, and the rows read
+// (bnd) and written (int) of one level are disjoint.
 #include "hs_common.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+#define HS_C_THREADS 128  // the backward step's CTA
+#define HS_C_KMAX 4      // right-hand sides per pass of the backward step
+#define HS_C_LPR 8       // lanes per matrix row
+#define HS_C_RPW (32 / HS_C_LPR)
+#define HS_C_PANEL 32    // rows per substitution panel
+#define HS_C_DG_LD 33    // padded leading dimension of a staged diagonal block
+#define HS_C_DG (HS_C_PANEL * HS_C_DG_LD)
+#define HS_C_MAX_PW 8    // panels (warps) per CTA of the forward step
+#define HS_C_FWD_MAX (32 * HS_C_MAX_PW)  // its CTA (registers: up to 255)
+
 template <typename T>
-__global__ void sweep_update_kernel(T* C, const int* __restrict__ ids_out,
-                                    const T* __restrict__ M,
-                                    const T* __restrict__ X,
-                                    const int* __restrict__ ids_in,
-                                    int64_t rows, int R, int Cc, int k,
-                                    int N) {
-  const int lane = threadIdx.x & 31;
-  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       row < rows; row += nwarps) {
-    const int out = ids_out[row];
-    if (out >= N) continue;  // uniform across the warp
-    const int64_t b = row / R;
-    const T* mrow = M + row * Cc;
-    for (int kk = 0; kk < k; ++kk) {
-      T acc = T(0);
-      for (int c = lane; c < Cc; c += 32) {
-        T y;
-        if (X != nullptr) {
-          y = X[(b * Cc + c) * k + kk];
-        } else {
-          const int id = ids_in[b * Cc + c];
-          y = id < N ? C[(int64_t)id * k + kk] : T(0);
+struct Vec16;
+template <>
+struct Vec16<double> {
+  static constexpr int n = 2;
+};
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+};
+
+__device__ __forceinline__ void load16(const double* p, double* o) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+}
+
+__device__ __forceinline__ void load16(const float* p, float* o) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+// acc[q] += row[0:len] . v[q * vstride + 0:len] over lane `gl`'s share of
+// the row (a group of HS_C_LPR lanes covers it).  VEC: 16-byte loads (the
+// row 16-byte aligned, len a multiple of the vector width).
+template <typename T, bool VEC>
+__device__ __forceinline__ void group_dot(const T* __restrict__ row,
+                                          const T* v, int vstride, int len,
+                                          int kc, int gl,
+                                          T (&acc)[HS_C_KMAX]) {
+  if (VEC) {
+    constexpr int W = Vec16<T>::n;
+    for (int c = gl * W; c < len; c += HS_C_LPR * W) {
+      T a[W];
+      load16(row + c, a);
+#pragma unroll
+      for (int q = 0; q < HS_C_KMAX; ++q) {
+        if (q < kc) {
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[q] += a[e] * v[q * vstride + c + e];
         }
-        acc += mrow[c] * y;
       }
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if (lane == 0) atomicAdd(C + (int64_t)out * k + kk, -acc);
+    }
+  } else {
+    for (int c = gl; c < len; c += HS_C_LPR) {
+      const T a = __ldg(row + c);
+#pragma unroll
+      for (int q = 0; q < HS_C_KMAX; ++q)
+        if (q < kc) acc[q] += a * v[q * vstride + c];
     }
   }
 }
 
+// sum over the lanes of a group (xor partners stay inside aligned groups);
+// kc is uniform across the warp, so every lane shuffles
+template <typename T>
+__device__ __forceinline__ void group_sum(T (&acc)[HS_C_KMAX], int kc) {
+#pragma unroll
+  for (int q = 0; q < HS_C_KMAX; ++q)
+    if (q < kc)
+      for (int off = HS_C_LPR / 2; off > 0; off >>= 1)
+        acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+}
+
+// The panels p in [p_lo, p_hi) with p % cs == rank, as rows: own_count is a
+// multiple of HS_C_PANEL and own_row(t) the t-th row (it may pass the
+// matrix's last row inside the last panel; callers skip those).
+__device__ __forceinline__ int first_own(int p_lo, int rank, int cs) {
+  return p_lo + ((rank - p_lo % cs) % cs + cs) % cs;
+}
+
+__device__ __forceinline__ int own_count(int p_lo, int p_hi, int rank, int cs) {
+  const int f = first_own(p_lo, rank, cs);
+  return f < p_hi ? ((p_hi - 1 - f) / cs + 1) * HS_C_PANEL : 0;
+}
+
+__device__ __forceinline__ int own_row(int t, int p_lo, int rank, int cs) {
+  return (first_own(p_lo, rank, cs) + (t / HS_C_PANEL) * cs) * HS_C_PANEL +
+         t % HS_C_PANEL;
+}
+
+// a barrier over the CTAs of one front
+__device__ __forceinline__ void front_sync(int cs) {
+  if (cs > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// cp.async of one element into shared memory (no register round trip), and
+// its commit / wait
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Copy the pw x pw diagonal block of panel p of the front's lu (stored
+// column-major, as the LU returns it) into dst row-major (leading dimension
+// HS_C_DG_LD), asynchronously, by one warp; a partial block is padded to
+// 32 x 32 with the identity, so the solve needs no bounds.
+template <typename T>
+__device__ __forceinline__ void stage_block(const T* __restrict__ A, int ni,
+                                            int p, T* dst, int lane) {
+  const int p0 = p * HS_C_PANEL;
+  const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
+  for (int j = 0; j < HS_C_PANEL; ++j) {
+    if (j < pw && lane < pw)
+      cp_async_elem(dst + lane * HS_C_DG_LD + j,
+                    A + (int64_t)(p0 + j) * ni + p0 + lane);
+    else
+      dst[lane * HS_C_DG_LD + j] = lane == j ? T(1) : T(0);
+  }
+}
+
+// The 32 x 32 block lu[32 P : 32 P + 32, 32 p : 32 p + 32] of a warp's rows
+// and panel p's columns (lu column-major: a column's 32 rows are contiguous),
+// read coalesced; rows and columns past ni read as 0.  VEC (16-byte loads of
+// W rows each, LR = 32 / W): lane g LR + c holds in seg[i W + e] row c W + e
+// of column i W + g, so one load instruction covers W columns; else lane r
+// holds row r, seg[j] its column j.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_seg(const T* __restrict__ A, int ni, int P,
+                                         int p, int lane,
+                                         T (&seg)[HS_C_PANEL]) {
+  const int p0 = p * HS_C_PANEL;
+  if constexpr (VEC) {
+    constexpr int W = Vec16<T>::n, LR = HS_C_PANEL / W;
+    const int g = lane / LR, c = lane % LR;
+    const int row = P * HS_C_PANEL + c * W;
+    const T* src = A + (int64_t)(p0 + g) * ni + row;
+#pragma unroll
+    for (int i = 0; i < LR; ++i) {
+      if (row < ni && p0 + i * W + g < ni) {
+        load16(src + (int64_t)i * W * ni, seg + i * W);
+      } else {
+#pragma unroll
+        for (int e = 0; e < W; ++e) seg[i * W + e] = T(0);
+      }
+    }
+  } else {
+    const int row = P * HS_C_PANEL + lane;
+    const T* src = A + (int64_t)p0 * ni + row;
+#pragma unroll
+    for (int j = 0; j < HS_C_PANEL; ++j)
+      seg[j] = row < ni && p0 + j < ni ? __ldg(src + (int64_t)j * ni) : T(0);
+  }
+}
+
+// one step of the fold of panel_update: keep half of the values, send the
+// other half to lane ^ LANE_OFF, add what it sends back
+template <int LANE_OFF, int HALF, int NV, typename T>
+__device__ __forceinline__ void fold_stage(T (&v)[NV], int lane) {
+  const bool upper = lane & LANE_OFF;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const T send = upper ? v[i] : v[i + HALF];
+    const T keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, LANE_OFF);
+  }
+}
+
+// The update of one warp's 32 rows by panel p: returns, in lane r, the dot of
+// row 32 P + r's segment lu[32 P + r, p0:p0+32] with ys[p0:p0+32], seg as
+// load_seg lays it out.  VEC: each lane sums its W rows over its columns,
+// the W lanes that share rows fold them (log2 W shuffles; lane g LR + c ends
+// with row c W + g), and one shuffle brings row r to lane r.
+template <typename T, bool VEC>
+__device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
+                                          const T* ys, int ni, int p0,
+                                          int lane) {
+  if constexpr (VEC) {
+    constexpr int W = Vec16<T>::n, LR = HS_C_PANEL / W;
+    const int g = lane / LR;
+    T t[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) t[e] = T(0);
+#pragma unroll
+    for (int i = 0; i < LR; ++i) {
+      const int col = p0 + i * W + g;
+      const T y = col < ni ? ys[col] : T(0);
+#pragma unroll
+      for (int e = 0; e < W; ++e) t[e] += seg[i * W + e] * y;
+    }
+    if constexpr (W == 4) {
+      fold_stage<16, 2>(t, lane);
+      fold_stage<8, 1>(t, lane);
+    } else {
+      fold_stage<16, 1>(t, lane);
+    }
+    return __shfl_sync(0xffffffffu, t[0], (lane % W) * LR + lane / W);
+  } else {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < HS_C_PANEL; ++j)
+      acc += seg[j] * (p0 + j < ni ? ys[p0 + j] : T(0));
+    return acc;
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(HS_C_FWD_MAX)
+level_forward_kernel(T* C, const int* __restrict__ int_ids,
+                     const int* __restrict__ bnd_ids, const T* __restrict__ L,
+                     const T* __restrict__ lu,
+                     const long long* __restrict__ perm,
+                     const T* __restrict__ dinv, int ni, int nb, int k, int N,
+                     int cs) {
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  T* xs = reinterpret_cast<T*>(hs_smem);  // [ni] x
+  T* ys = xs + ni;                        // [ni] solved values
+  T* dg = ys + ni;                        // [warps][PANEL][DG_LD] diag blocks
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int64_t b = blockIdx.x / cs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gl = lane % HS_C_LPR, gi = lane / HS_C_LPR;
+  const int nwarps = blockDim.x >> 5;
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  const int* iid = int_ids + b * ni;
+  const int* bid = bnd_ids + b * nb;
+  const T* A = dinv != nullptr ? dinv + b * ni * ni : lu + b * ni * ni;
+
+  for (int q0 = 0; q0 < k; ++q0) {  // one right-hand side per pass
+    for (int i = threadIdx.x; i < ni; i += blockDim.x) {
+      const int id = iid[i];
+      xs[i] = id < N ? C[(int64_t)id * k + q0] : T(0);
+    }
+    __syncthreads();
+
+    // C[bnd] -= L x on this CTA's rows of L[b]
+    {
+      const int cnt = own_count(0, (nb + HS_C_PANEL - 1) / HS_C_PANEL, rank, cs);
+      for (int t0 = warp * HS_C_RPW; t0 < cnt; t0 += nwarps * HS_C_RPW) {
+        const int r = own_row(t0 + gi, 0, rank, cs);
+        T acc[HS_C_KMAX] = {};
+        if (r < nb)
+          group_dot<T, VEC>(L + (b * nb + r) * ni, xs, ni, ni, 1, gl, acc);
+        group_sum(acc, 1);
+        if (r < nb && gl == 0) {
+          const int id = bid[r];
+          if (id < N) atomicAdd(C + (int64_t)id * k + q0, -acc[0]);
+        }
+      }
+    }
+
+    const int cnt_all = own_count(0, npan, rank, cs);
+    if (dinv != nullptr) {
+      front_sync(cs);  // the whole front has read x before x' is written
+      for (int t0 = warp * HS_C_RPW; t0 < cnt_all; t0 += nwarps * HS_C_RPW) {
+        const int r = own_row(t0 + gi, 0, rank, cs);
+        T acc[HS_C_KMAX] = {};
+        if (r < ni)
+          group_dot<T, VEC>(A + (int64_t)r * ni, xs, ni, ni, 1, gl, acc);
+        group_sum(acc, 1);
+        if (r < ni && gl == 0) {
+          const int id = iid[r];
+          if (id < N) C[(int64_t)id * k + q0] = acc[0];
+        }
+      }
+    } else {
+      // Warp w owns panel P = rank + w cs (CTA rank's w-th panel), one lane
+      // per row r = 32 P + lane, whose running value zr stays in a register
+      // (see the note at the top for the steps).
+      const int npw = own_count(0, npan, rank, cs) / HS_C_PANEL;
+      const bool owner = warp < npw;                  // warp-uniform
+      const int P = rank + warp * cs;
+      const int r = P * HS_C_PANEL + lane;
+      const bool row_ok = owner && r < ni;
+      T* dgw = dg + warp * HS_C_DG;
+      if (owner) {
+        stage_block(A, ni, P, dgw, lane);
+        cp_async_commit();
+      }
+      T zr = row_ok ? xs[(int)perm[b * ni + r]] : T(0);
+      front_sync(cs);  // also: every CTA of the cluster has started
+      T seg[HS_C_PANEL];
+      for (int dir = 0; dir < 2; ++dir) {
+        const bool fwd = dir == 0;
+        // do panel P's rows take panel p's update in this direction?
+        auto takes = [&](int p) { return owner && (fwd ? P > p : P < p); };
+        int p = fwd ? 0 : npan - 1;
+        if (takes(p)) load_seg<T, VEC>(A, ni, P, p, lane, seg);
+        if (owner && dir == 0) {
+          cp_async_wait_all();
+          __syncwarp();
+        }
+        for (int st = 0; st < npan; ++st, p += fwd ? 1 : -1) {
+          const int p0 = p * HS_C_PANEL;
+          const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
+          if (owner && P == p) {
+            // the staged block is 32 x 32 (identity-padded): no bounds, so
+            // its shared-memory reads leave the shuffle chain
+            T v = zr;
+            if (fwd) {
+#pragma unroll
+              for (int i = 0; i < HS_C_PANEL; ++i) {
+                const T yi = __shfl_sync(0xffffffffu, v, i);
+                if (lane > i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+              }
+            } else {
+              const T rd = T(1) / dgw[lane * HS_C_DG_LD + lane];
+#pragma unroll
+              for (int i = HS_C_PANEL - 1; i >= 0; --i) {
+                if (lane == i) v *= rd;
+                const T yi = __shfl_sync(0xffffffffu, v, i);
+                if (lane < i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+              }
+            }
+            zr = v;
+            if (lane < pw) {
+              ys[r] = v;
+              if (cs > 1) {
+                cg::cluster_group cl = cg::this_cluster();
+                for (int c = 0; c < cs; ++c)
+                  if (c != rank) cl.map_shared_rank(ys, c)[r] = v;
+              }
+            }
+          }
+          front_sync(cs);
+          if (takes(p)) zr -= panel_update<T, VEC>(seg, ys, ni, p0, lane);
+          const int pn = p + (fwd ? 1 : -1);
+          if (st + 1 < npan && takes(pn)) load_seg<T, VEC>(A, ni, P, pn, lane, seg);
+        }
+      }
+      if (row_ok) {
+        const int id = iid[r];
+        if (id < N) C[(int64_t)id * k + q0] = zr;
+      }
+    }
+    // the next right-hand side reuses xs and ys; no CTA leaves while others
+    // may still store into its shared memory
+    front_sync(cs);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(HS_C_THREADS)
+sweep_update_kernel(T* C, const int* __restrict__ ids_out,
+                    const T* __restrict__ M, const int* __restrict__ ids_in,
+                    int R, int Cc, int k, int N, int split) {
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  T* ys = reinterpret_cast<T*>(hs_smem);  // [kmax][Cc] C[ids_in[b]]
+  const int64_t b = blockIdx.x / split;
+  const int per = (R + split - 1) / split;
+  const int r_lo = (int)(blockIdx.x % split) * per;
+  const int r_hi = r_lo + per < R ? r_lo + per : R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gl = lane % HS_C_LPR, gi = lane / HS_C_LPR;
+  const int nwarps = blockDim.x >> 5;
+  const int* iin = ids_in + b * Cc;
+  const int* iout = ids_out + b * R;
+  for (int k0 = 0; k0 < k; k0 += HS_C_KMAX) {
+    const int kc = k - k0 < HS_C_KMAX ? k - k0 : HS_C_KMAX;
+    for (int t = threadIdx.x; t < kc * Cc; t += blockDim.x) {
+      const int q = t / Cc, c = t - q * Cc;
+      const int id = iin[c];
+      ys[q * Cc + c] = id < N ? C[(int64_t)id * k + k0 + q] : T(0);
+    }
+    __syncthreads();
+    for (int t0 = r_lo + warp * HS_C_RPW; t0 < r_hi;
+         t0 += nwarps * HS_C_RPW) {
+      const int r = t0 + gi;
+      const int id = r < r_hi ? iout[r] : N;
+      T acc[HS_C_KMAX] = {};
+      if (id < N)  // padded output rows skip their row of M
+        group_dot<T, VEC>(M + (b * R + r) * Cc, ys, Cc, Cc, kc, gl, acc);
+      group_sum(acc, kc);
+      if (id < N && gl == 0) {
+#pragma unroll
+        for (int q = 0; q < HS_C_KMAX; ++q)
+          if (q < kc) {
+            T* out = C + (int64_t)id * k + k0 + q;
+            *out = *out - acc[q];
+          }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+static inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// raise the kernel's dynamic shared memory limit once, to what it asks for
+template <typename K>
+static cudaError_t allow_smem(K kern, size_t bytes, size_t* granted) {
+  if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *granted = bytes;
+  return err;
+}
+
+template <typename T, bool VEC>
+static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
+                                  const T* L, const T* lu,
+                                  const long long* perm, const T* dinv,
+                                  long long B, int ni, int nb, int k, int N,
+                                  int cs, cudaStream_t stream) {
+  static size_t granted = 0;
+  // one warp per panel of the CTA (at most HS_C_MAX_PW), at least 2: a
+  // front of few panels takes a small CTA, so several share an SM
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  const int pw_cta = (npan + cs - 1) / cs;
+  if (pw_cta > HS_C_MAX_PW) return cudaErrorInvalidValue;
+  const int warps = pw_cta > 2 ? pw_cta : 2;
+  const int threads = 32 * warps;
+  const size_t smem = (size_t)(2 * ni + warps * HS_C_DG) * sizeof(T);
+  auto kern = level_forward_kernel<T, VEC>;
+  cudaError_t err = allow_smem(kern, smem, &granted);
+  if (err != cudaSuccess) return err;
+  if (cs == 1) {
+    kern<<<(unsigned)B, threads, smem, stream>>>(
+        C, int_ids, bnd_ids, L, lu, perm, dinv, ni, nb, k, N, cs);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cs));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, C, int_ids, bnd_ids, L, lu, perm, dinv,
+                           ni, nb, k, N, cs);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+static int level_forward(void* C, const void* int_ids, const void* bnd_ids,
+                         const void* L, const void* lu, const void* perm,
+                         const void* dinv, long long B, int ni, int nb, int k,
+                         int N, int cs, void* stream) {
+  if (B < 0 || ni < 0 || nb < 0 || k < 1 || cs < 1 || cs > 8 ||
+      (dinv == nullptr && (lu == nullptr || perm == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || ni == 0) return (int)cudaSuccess;
+  const T* A = dinv != nullptr ? (const T*)dinv : (const T*)lu;
+  if (ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A))
+    return (int)launch_forward<T, true>(
+        (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
+        (const T*)lu, (const long long*)perm, (const T*)dinv, B, ni, nb, k, N,
+        cs, (cudaStream_t)stream);
+  return (int)launch_forward<T, false>(
+      (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
+      (const T*)lu, (const long long*)perm, (const T*)dinv, B, ni, nb, k, N,
+      cs, (cudaStream_t)stream);
+}
+
+template <typename T, bool VEC>
+static cudaError_t launch_backward(T* C, const int* ids_out, const T* M,
+                                   const int* ids_in, long long B, int R,
+                                   int Cc, int k, int N, int split,
+                                   cudaStream_t stream) {
+  static size_t granted = 0;
+  const int kmax = k < HS_C_KMAX ? k : HS_C_KMAX;
+  const size_t smem = (size_t)kmax * Cc * sizeof(T);
+  auto kern = sweep_update_kernel<T, VEC>;
+  const cudaError_t err = allow_smem(kern, smem, &granted);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)(B * split), HS_C_THREADS, smem, stream>>>(
+      C, ids_out, M, ids_in, R, Cc, k, N, split);
+  return cudaGetLastError();
+}
+
 template <typename T>
 static int sweep_update(void* C, const void* ids_out, const void* M,
-                        const void* X, const void* ids_in, long long B, int R,
-                        int Cc, int k, int N, void* stream) {
-  const int64_t rows = (int64_t)B * R;
-  if (rows > 0 && Cc > 0 && k > 0) {
-    const int threads = 256;  // 8 warps, one output row each
-    sweep_update_kernel<T><<<hs_blocks(rows * 32, threads), threads, 0,
-                             (cudaStream_t)stream>>>(
-        (T*)C, (const int*)ids_out, (const T*)M, (const T*)X,
-        (const int*)ids_in, rows, R, Cc, k, N);
-  }
-  return (int)cudaGetLastError();
+                        const void* ids_in, long long B, int R, int Cc, int k,
+                        int N, int split, void* stream) {
+  if (B < 0 || R < 0 || Cc < 0 || k < 1 || split < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || R == 0 || Cc == 0) return (int)cudaSuccess;
+  if (Cc % Vec16<T>::n == 0 && aligned16(M))
+    return (int)launch_backward<T, true>(
+        (T*)C, (const int*)ids_out, (const T*)M, (const int*)ids_in, B, R, Cc,
+        k, N, split, (cudaStream_t)stream);
+  return (int)launch_backward<T, false>(
+      (T*)C, (const int*)ids_out, (const T*)M, (const int*)ids_in, B, R, Cc, k,
+      N, split, (cudaStream_t)stream);
+}
+
+HS_EXPORT int hs_level_forward(void* C, const void* int_ids,
+                               const void* bnd_ids, const void* L,
+                               const void* lu, const void* perm,
+                               const void* dinv, long long B, int ni, int nb,
+                               int k, int N, int cs, void* stream) {
+  return level_forward<double>(C, int_ids, bnd_ids, L, lu, perm, dinv, B, ni,
+                               nb, k, N, cs, stream);
+}
+
+HS_EXPORT int hs_level_forward_f32(void* C, const void* int_ids,
+                                   const void* bnd_ids, const void* L,
+                                   const void* lu, const void* perm,
+                                   const void* dinv, long long B, int ni,
+                                   int nb, int k, int N, int cs, void* stream) {
+  return level_forward<float>(C, int_ids, bnd_ids, L, lu, perm, dinv, B, ni,
+                              nb, k, N, cs, stream);
 }
 
 HS_EXPORT int hs_sweep_update(void* C, const void* ids_out, const void* M,
-                              const void* X, const void* ids_in, long long B,
-                              int R, int Cc, int k, int N, void* stream) {
-  return sweep_update<double>(C, ids_out, M, X, ids_in, B, R, Cc, k, N,
+                              const void* ids_in, long long B, int R, int Cc,
+                              int k, int N, int split, void* stream) {
+  return sweep_update<double>(C, ids_out, M, ids_in, B, R, Cc, k, N, split,
                               stream);
 }
 
 HS_EXPORT int hs_sweep_update_f32(void* C, const void* ids_out, const void* M,
-                                  const void* X, const void* ids_in,
-                                  long long B, int R, int Cc, int k, int N,
+                                  const void* ids_in, long long B, int R,
+                                  int Cc, int k, int N, int split,
                                   void* stream) {
-  return sweep_update<float>(C, ids_out, M, X, ids_in, B, R, Cc, k, N,
+  return sweep_update<float>(C, ids_out, M, ids_in, B, R, Cc, k, N, split,
                              stream);
 }

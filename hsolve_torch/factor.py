@@ -15,8 +15,10 @@ plain Python loop over eagerly executed torch calls.  Each level:
    parent (factorization.jl:40).
 
 Steps 2-4 are library calls (:mod:`hsolve_torch.ops.dense`).  The solve
-(:func:`solve_with_data`) sweeps the levels with kernel C
-(:func:`~hsolve_torch.ops.sweep.sweep_update`) around the pivot solves.
+(:func:`solve_with_data`) runs each dense level's forward step, pivot solve
+included, as one launch of kernel C
+(:func:`~hsolve_torch.ops.sweep.level_forward`) and its backward step as
+another (:func:`~hsolve_torch.ops.sweep.sweep_update`).
 
 A compressed level (``swlevel < 0`` with ``hss=False``) stores its Gauss
 transforms as tolerance-truncated low-rank pairs ``L ~= LU_ LV_^T`` and
@@ -65,7 +67,8 @@ from hsolve_torch.ops.assembly import extend_add, front_assemble
 from hsolve_torch.ops.lowrank import rand_lowrank, sketch_width
 from hsolve_torch.ops.schur import lowrank_schur_update
 from hsolve_torch.ops.sparse import torch_dtype
-from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
+from hsolve_torch.ops.sweep import (level_forward, lowrank_sweep_update,
+                                    pivot_solve, sweep_update)
 from hsolve_torch.options import SolverOptions
 from hsolve_torch.planner import Plan, cross_block_shapes, plan_factorization
 from hsolve_torch.structured import (SchurHss, StructuredLevel, d_apply,
@@ -288,14 +291,16 @@ def _factor_front(front: torch.Tensor, sperm: torch.Tensor, ni_pad: int,
         S = dk.permute_sym(dk.schur_complement(Abb, Abi, R), sperm)
         return None, None, L, R, S, dinv, ratio
     lu, perm = dk.lu_factor(D)
-    # row-major copies: the solve sweeps (kernel C) stream L and R by rows,
-    # and the triangular solves may return them column-major
+    # row-major copies: the solve sweeps (kernel C) stream L, R and dinv by
+    # rows, and the triangular solves may return them column-major; kernel C
+    # reads lu column-major, as the LU returns it
     R = dk.lu_solve(lu, perm, Aib).contiguous()
     L = dk.lu_solve_right(lu, perm, Abi).contiguous()
     S = dk.permute_sym(dk.schur_complement(Abb, Abi, R), sperm)
     if explicit_inv:
         # the solve sweeps use only dinv: the level keeps no lu/perm
-        return None, None, L, R, S, dk.lu_inverse(lu, perm), dk._diag_ratio(lu)
+        return (None, None, L, R, S, dk.lu_inverse(lu, perm).contiguous(),
+                dk._diag_ratio(lu))
     return lu, perm, L, R, S, None, None
 
 
@@ -505,39 +510,33 @@ def _root_from_stacks(plan: Plan, tp: TorchPlan, s_stacks, dtype,
 # solve sweeps
 # ---------------------------------------------------------------------------
 
-def _pivot_solve(lev, x: torch.Tensor) -> torch.Tensor:
-    if lev.dinv is not None:
-        return lev.dinv @ x
-    return dk.lu_solve(lev.lu, lev.perm, x)
-
-
 def _apply(levels: List[Level], root: Optional[RootSolve],
            b: torch.Tensor) -> torch.Tensor:
     """Hierarchical solve (parity with ``ldiv!`` + ``_lsolve!/_dsolve!/_rsolve!``,
     factornode.jl:62-99) in the post-order permutation.
 
-    Bottom-up: ``C[bnd] -= L C[int]`` (kernel C; kernel E on a compressed or
-    structured level) then ``C[int] = D^{-1} C[int]`` (:func:`d_apply` on a
-    structured level); root boundary solve; top-down: ``C[int] -= R C[bnd]``
-    (kernel C or E).  ``C`` carries a zero sentinel row N
-    that padded ids point at."""
+    Bottom-up: ``C[bnd] -= L C[int]`` then ``C[int] = D^{-1} C[int]``: one
+    launch of kernel C on a dense level; kernel E around the pivot solve
+    (:func:`d_apply` on a structured level) on a compressed or structured
+    one; root boundary solve; top-down: ``C[int] -= R C[bnd]`` (kernel C or
+    E).  ``C`` carries a zero sentinel row N that padded ids point at."""
     N = b.shape[0]
     vec = b.ndim == 1
     C = b[:, None] if vec else b
     C = torch.cat([C, C.new_zeros((1, C.shape[1]))], dim=0)
 
     for lev in levels:
-        x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
         if isinstance(lev, DenseLevel):
-            sweep_update(C, lev.bnd_ids, lev.L, N, X=x)
-        else:
-            lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
+            level_forward(C, lev, N)
+            continue
+        x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
+        lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
         if isinstance(lev, StructuredLevel):
             C[lev.int_ids] = d_apply(lev, x)
             # padded ids all write the sentinel row; keep it zero
             C[N] = 0.0
         else:
-            C[lev.int_ids] = _pivot_solve(lev, x)
+            C[lev.int_ids] = pivot_solve(lev, x)
 
     if root is not None:
         xr = C[root.bnd_ids]                    # [nbr, k]

@@ -202,8 +202,11 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
                 lrank=t(_field(rec, "lrank"), torch.int32),
                 rrank=t(_field(rec, "rrank"), torch.int32)))
         else:
-            levels.append(DenseLevel(**common, L=t(_field(rec, "L")),
-                                     R=t(_field(rec, "R"))))
+            lu = common.pop("lu")
+            # kernel C reads lu column-major, as the port's LU stores it
+            levels.append(DenseLevel(
+                **common, lu=None if lu is None else lu.mT.contiguous().mT,
+                L=t(_field(rec, "L")), R=t(_field(rec, "R"))))
     root = None
     if root_np is not None:
         root = RootSolve(lu=t(_field(root_np, "lu")),

@@ -13,8 +13,9 @@ they serve:
 
 - ``front_assemble`` (kernel A) and ``extend_add`` (kernel B) in
   :mod:`hsolve_torch.ops.assembly`,
-- ``sweep_update`` (kernel C) and ``lowrank_sweep_update`` (kernel E) in
-  :mod:`hsolve_torch.ops.sweep`,
+- ``level_forward`` and ``sweep_update`` (kernel C: a dense level's forward
+  step with its pivot solve, and its backward step) and
+  ``lowrank_sweep_update`` (kernel E) in :mod:`hsolve_torch.ops.sweep`,
 - ``dia_spmv`` (kernel D) in :mod:`hsolve_torch.ops.sparse`,
 - ``lowrank_schur_update`` (kernel F) in :mod:`hsolve_torch.ops.schur`,
 - ``lowrank_truncate`` (kernel G) and ``cpqr_pivots`` (kernel H) in
@@ -27,7 +28,11 @@ they serve:
 Kernels A-D, L and M run on every path; E, F and G on the compressed levels;
 H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32 or float64 values (one C entry point
-per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.
+per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.  Kernel C's
+forward step of a wide front runs on a thread block cluster
+(``cudaLaunchKernelEx``); kernel L is one cooperative launch
+(``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
+card cannot hold its grid at once.
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
@@ -59,7 +64,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "hs_front_assemble": [_V, _V, _V, _V, _LL, _V],
     "hs_extend_add": [_V, _V, _V, _V, _V, _I, _I, _I, _V],
-    "hs_sweep_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _I, _V],
+    "hs_level_forward": [_V] * 7 + [_LL] + [_I] * 5 + [_V],
+    "hs_sweep_update": [_V] * 4 + [_LL] + [_I] * 5 + [_V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_lowrank_sweep_update": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I,
                                 _I, _V],
@@ -75,8 +81,9 @@ _SIGNATURES = {
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
 }
 # A-D, L and M also take float32: the same signature under ``<name>_f32``
-TYPED = ("hs_front_assemble", "hs_extend_add", "hs_sweep_update",
-         "hs_dia_spmv", "hs_arnoldi_cgs2", "hs_arnoldi_givens")
+TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
+         "hs_sweep_update", "hs_dia_spmv", "hs_arnoldi_cgs2",
+         "hs_arnoldi_givens")
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
 VALUE_TYPES = (torch.float32, torch.float64)
 
@@ -241,8 +248,8 @@ def count_launch(fn, dtype: torch.dtype) -> None:
     fn.launches_by_type[key] = fn.launches_by_type.get(key, 0) + 1
 
 
-EXACT_PATH = ("front_assemble", "extend_add", "sweep_update", "dia_spmv",
-              "arnoldi_cgs2", "arnoldi_givens")
+EXACT_PATH = ("front_assemble", "extend_add", "level_forward", "sweep_update",
+              "dia_spmv", "arnoldi_cgs2", "arnoldi_givens")
 COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
                                 "lowrank_truncate")
 HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
@@ -250,12 +257,14 @@ HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
 # the float32 factor with mixed-precision GMRES: A-C and the inner matvec in
 # float32, the outer residual in float64, the inner cycles' L and M in float32
 MIXED_PATH = ("front_assemble:float32", "extend_add:float32",
-              "sweep_update:float32", "dia_spmv:float32", "dia_spmv:float64",
-              "arnoldi_cgs2:float32", "arnoldi_givens:float32")
+              "level_forward:float32", "sweep_update:float32",
+              "dia_spmv:float32", "dia_spmv:float64", "arnoldi_cgs2:float32",
+              "arnoldi_givens:float32")
 
 
 def wrappers():
-    """The thirteen kernel wrappers, by name (A-M)."""
+    """The kernel wrappers, by name (A-M; C has two, ``level_forward`` and
+    ``sweep_update``)."""
     from hsolve_torch.ops.arnoldi import arnoldi_cgs2, arnoldi_givens
     from hsolve_torch.ops.assembly import extend_add, front_assemble
     from hsolve_torch.ops.hss import (hss_entries_prepared, hss_level_correct,
@@ -263,10 +272,12 @@ def wrappers():
     from hsolve_torch.ops.lowrank import cpqr_pivots, lowrank_truncate
     from hsolve_torch.ops.schur import lowrank_schur_update
     from hsolve_torch.ops.sparse import dia_spmv
-    from hsolve_torch.ops.sweep import lowrank_sweep_update, sweep_update
+    from hsolve_torch.ops.sweep import (level_forward, lowrank_sweep_update,
+                                        sweep_update)
 
     return {"front_assemble": front_assemble, "extend_add": extend_add,
-            "sweep_update": sweep_update, "dia_spmv": dia_spmv,
+            "level_forward": level_forward, "sweep_update": sweep_update,
+            "dia_spmv": dia_spmv,
             "lowrank_sweep_update": lowrank_sweep_update,
             "lowrank_schur_update": lowrank_schur_update,
             "lowrank_truncate": lowrank_truncate, "cpqr_pivots": cpqr_pivots,

@@ -22,14 +22,19 @@ package's bookkeeping in that type does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from hsolve_torch import kernels
 
-THREADS = 512          # kernel L's block
-MAX_CHUNK = 4096       # kernel L's chunk of N per block (shared memory)
+THREADS = 512          # kernel L's CTA
+MIN_SLICE = 1024       # kernel L: no CTA takes a slice of N below this
+SMEM = 230400          # kernel L's shared memory per CTA, bytes
+MAX_ROWS = 512         # kernel L's h1/h2 buffers (rows of V)
+ROW_BATCH = 64         # kernel L's block reduction of the dots (rows)
 MAX_RESTART = 256      # kernel M's column buffer (shared memory)
+H100_SMS = 132
 
 
 @dataclasses.dataclass
@@ -46,14 +51,43 @@ class Arnoldi:
     st: torch.Tensor       # [2] the residual estimate, V[j+1]'s divisor
     done: torch.Tensor     # [1] int32, the step's done flag
     y: torch.Tensor        # [m] the cycle's coefficients
-    part: torch.Tensor     # kernel L's per-block partial sums
-    ticket: torch.Tensor   # [1] int32, kernel L's last-block ticket (0 at rest)
+    part: torch.Tensor     # kernel L's per-CTA partial sums
+    ticket: torch.Tensor   # [1] int32, kernel L's grid-barrier counter and
+                           # last-CTA ticket (0 at rest)
 
 
-def cgs2_blocks(N: int) -> int:
-    """Kernel L's number of blocks (chunks of N): about one per SM of an
-    H100, more where a chunk would pass ``MAX_CHUNK``."""
-    return max(min(132, -(-N // THREADS)), -(-N // MAX_CHUNK), 1)
+def cgs2_blocks(N: int, sms: int = H100_SMS) -> int:
+    """Kernel L's grid: one CTA per SM (co-resident, as its cooperative
+    launch needs), fewer where a slice of N would fall below
+    ``MIN_SLICE``."""
+    return max(1, min(sms, -(-N // MIN_SLICE)))
+
+
+def cgs2_slice(N: int, nb: int) -> int:
+    """The slice of N each of kernel L's ``nb`` CTAs owns: ``ceil(N / nb)``
+    rounded up to a multiple of 4 (a 16-byte boundary in either type)."""
+    return -(-(-(-N // nb)) // 4) * 4
+
+
+def cgs2_max_slice(dtype: torch.dtype) -> int:
+    """The largest slice kernel L keeps in shared memory, beside its h1, h2
+    and reduction buffers."""
+    e = torch.empty(0, dtype=dtype).element_size()
+    return SMEM // e - 2 * MAX_ROWS - ROW_BATCH * (THREADS // 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device) -> int:
+    """The SM count of a CUDA device (``H100_SMS`` for the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMS
+    return _sms(torch.cuda.current_device() if device.index is None
+                else device.index)
 
 
 def arnoldi_state(m: int, N: int, dtype: torch.dtype, device) -> Arnoldi:
@@ -64,7 +98,7 @@ def arnoldi_state(m: int, N: int, dtype: torch.dtype, device) -> Arnoldi:
                    cs=torch.ones(m, dtype=rdt, device=device), sn=z(m),
                    g=z(m + 1), hc=z(m + 1), st=z(2),
                    done=z(1, dt=torch.int32), y=z(m),
-                   part=z((2 * m + 1) * cgs2_blocks(N)),
+                   part=z((2 * m + 1) * cgs2_blocks(N, device_sms(device))),
                    ticket=z(1, dt=torch.int32))
 
 
@@ -89,14 +123,22 @@ def arnoldi_cgs2(s: Arnoldi, w: torch.Tensor, j: int) -> torch.Tensor:
         return arnoldi_cgs2_plain(s, w, j)
     dt = kernels.value_type(s.V, w, s.hc, s.part)
     m1, N = s.V.shape
-    nb = cgs2_blocks(N)
-    if not 0 <= j < m1 - 1:
-        raise ValueError(f"step j={j} outside a basis of {m1} rows")
+    nb = cgs2_blocks(N, device_sms(w.device))
+    if not 0 <= j < m1 - 1 or j + 1 > MAX_ROWS:
+        raise ValueError(f"step j={j} outside a basis of {m1} rows (kernel "
+                         f"L takes at most {MAX_ROWS})")
+    if cgs2_slice(N, nb) > cgs2_max_slice(dt):
+        raise ValueError(f"N={N}: kernel L's slice {cgs2_slice(N, nb)} of "
+                         f"{nb} CTAs passes its shared memory "
+                         f"({cgs2_max_slice(dt)} values)")
     kernels.require(s.V, "V", dt, (m1, N))
     kernels.require(w, "w", dt, (N,))
     kernels.require(s.hc, "hc", dt, (m1,))
     kernels.require(s.part, "part", dt)
     kernels.require(s.ticket, "ticket", torch.int32, (1,))
+    if s.V.data_ptr() % 16:
+        raise ValueError("V: kernel L reads it with 16-byte loads; its "
+                         "storage must start on a 16-byte boundary")
     if s.part.numel() < (2 * (j + 1) + 1) * nb:
         raise ValueError(f"part holds {s.part.numel()} values; step j={j} "
                          f"needs {(2 * (j + 1) + 1) * nb}")

@@ -1,22 +1,24 @@
-"""Per-level updates of the hierarchical solve: kernels C and E with their plain
+"""Per-level steps of the hierarchical solve: kernels C and E with their plain
 versions.
 
-:func:`sweep_update` (kernel C, ``csrc/sweep_update.cu``) is the fused gather ->
-batched GEMV -> scatter-add that ``hsolve/factor.py:_apply_impl`` runs twice per
-dense level:
+Kernel C (``csrc/sweep_update.cu``) runs a dense level's two steps of
+``hsolve/factor.py:_apply_impl``, one launch each:
 
-- forward: ``C[bnd_ids] -= L @ X`` with ``X = C[int_ids]`` gathered by the caller
-  before the pivot solve overwrites ``C[int]``,
-- backward: ``C[int_ids] -= R @ C[bnd_ids]``, gathered inside.
+- :func:`level_forward`: the forward step (``:527-539``) with its pivot
+  solve, ``x = C[int_ids]``, ``C[bnd_ids] -= L x``, ``C[int_ids] = D^-1 x``
+  by the level's ``(lu, perm)`` or its explicit ``dinv``;
+- :func:`sweep_update`: the backward step (``:553-559``),
+  ``C[int_ids] -= R C[bnd_ids]``.
 
 :func:`lowrank_sweep_update` (kernel E, ``csrc/lowrank_sweep_update.cu``) is the
-same update on a compressed level, where the Gauss transform is a low-rank pair
+update of a compressed level, where the Gauss transform is a low-rank pair
 ``M ~= U V^T``: ``C[ids_out] -= U @ (V^T @ Y)`` (``hsolve/factor.py:528-529``,
-``:555-556``).
+``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
 Kernel C takes float32 or float64 values (one type per call), kernel E
 float64.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
-such ids are skipped and input rows with them read as zero.
+such ids are skipped and input rows with them read as zero, so ``C``'s
+sentinel row ``N`` stays zero.
 """
 
 from __future__ import annotations
@@ -26,6 +28,30 @@ from typing import Optional
 import torch
 
 from hsolve_torch import kernels
+from hsolve_torch.ops import dense as dk
+
+PANEL = 32          # kernel C's substitution panel: rows per warp
+PANEL_WARPS = 8     # panels (warps) per CTA of the forward step
+MAX_CLUSTER = 8     # the portable thread block cluster size
+SPLIT_ROWS = 32     # a backward front gets one CTA per this many rows
+
+
+def forward_cluster(ni_pad: int) -> int:
+    """CTAs (a thread block cluster) that kernel C's forward step spreads one
+    front of ``ni_pad`` interior rows over: one warp per 32-row panel, at
+    most 8 panels per CTA, so one CTA up to 256 rows, 2 for 512, 4 for 1024.
+    Raises past 8 CTAs (2048 rows)."""
+    cs = max(1, -(-(-(-ni_pad // PANEL)) // PANEL_WARPS))
+    if cs > MAX_CLUSTER:
+        raise ValueError(f"ni_pad={ni_pad}: kernel C's forward step takes at "
+                         f"most {MAX_CLUSTER * PANEL_WARPS * PANEL} interior "
+                         "rows per front")
+    return cs
+
+
+def backward_split(ni_pad: int) -> int:
+    """CTAs per front of kernel C's backward step: one per 32 output rows."""
+    return max(1, -(-ni_pad // SPLIT_ROWS))
 
 
 def _check_inputs(X: Optional[torch.Tensor], ids_in: Optional[torch.Tensor]):
@@ -50,40 +76,95 @@ def _scatter_sub(C: torch.Tensor, ids_out: torch.Tensor, upd: torch.Tensor,
     return C
 
 
+def pivot_solve(lev, x: torch.Tensor) -> torch.Tensor:
+    """``D^-1 x`` per front from a level's explicit ``dinv`` or its
+    ``(lu, perm)`` (two batched triangular solves)."""
+    if lev.dinv is not None:
+        return lev.dinv @ x
+    return dk.lu_solve(lev.lu, lev.perm, x)
+
+
+def level_forward_plain(C: torch.Tensor, lev, N: int) -> torch.Tensor:
+    """In place: the forward step of a dense level record ``lev`` (fields
+    ``L, int_ids, bnd_ids`` and ``dinv`` or ``lu, perm``): ``x = C[int_ids]``,
+    ``C[bnd_ids] -= L x``, ``C[int_ids] = D^-1 x`` (ids ``>= N`` skipped);
+    returns ``C``."""
+    x = _inputs(C, N, None, lev.int_ids)                     # [B, ni, k]
+    _scatter_sub(C, lev.bnd_ids, lev.L @ x, N)
+    keep = lev.int_ids < N
+    C[lev.int_ids[keep].long()] = pivot_solve(lev, x)[keep]
+    return C
+
+
+def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
+    """Kernel C's forward step (in place on ``C``; see the plain version):
+    one launch per level, the pivot solve included.  The kernel takes ``lu``
+    column-major (as the LU returns it) and ``L``, ``dinv`` row-major."""
+    A = lev.dinv if lev.dinv is not None else lev.lu
+    operands = [C, lev.L, lev.int_ids, lev.bnd_ids, A] + (
+        [] if lev.dinv is not None else [lev.perm])
+    if kernels.on_cpu(*operands):
+        return level_forward_plain(C, lev, N)
+    B, nb, ni = lev.L.shape
+    k = C.shape[1]
+    if not 0 <= N <= C.shape[0]:
+        raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
+    dt = kernels.value_type(C, lev.L, A)
+    kernels.require(C, "C", dt, (C.shape[0], k))
+    kernels.require(lev.L, "L", dt)
+    if lev.dinv is not None:
+        kernels.require(A, "dinv", dt, (B, ni, ni))
+    else:
+        # column-major, as torch.linalg.lu_factor returns it
+        kernels.require(A.mT, "lu^T (lu column-major)", dt, (B, ni, ni))
+    kernels.require(lev.int_ids, "int_ids", torch.int32, (B, ni))
+    kernels.require(lev.bnd_ids, "bnd_ids", torch.int32, (B, nb))
+    perm = None
+    if lev.dinv is None:
+        kernels.require(lev.perm, "perm", torch.int64, (B, ni))
+        perm = lev.perm.data_ptr()
+    if B * ni and k:
+        kernels.launch(kernels.symbol("hs_level_forward", dt), C.device,
+                       C.data_ptr(), lev.int_ids.data_ptr(),
+                       lev.bnd_ids.data_ptr(), lev.L.data_ptr(),
+                       None if lev.dinv is not None else lev.lu.data_ptr(),
+                       perm,
+                       None if lev.dinv is None else lev.dinv.data_ptr(),
+                       B, ni, nb, k, N, forward_cluster(ni))
+        kernels.count_launch(level_forward, dt)
+    return C
+
+
+level_forward.launches = 0
+level_forward.launches_by_type = {}
+
+
 def sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor,
-                       N: int, X: Optional[torch.Tensor] = None,
-                       ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """In place: ``C[ids_out[b, r]] -= sum_c M[b, r, c] * Y[b, c]`` with
-    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``."""
-    return _scatter_sub(C, ids_out, M @ _inputs(C, N, X, ids_in), N)
+                       N: int, ids_in: torch.Tensor) -> torch.Tensor:
+    """In place: ``C[ids_out[b, r]] -= sum_c M[b, r, c] * C[ids_in[b, c]]``
+    (the backward step with ``M = R``, ``ids_out = int_ids``, ``ids_in =
+    bnd_ids``); returns ``C``."""
+    return _scatter_sub(C, ids_out, M @ _inputs(C, N, None, ids_in), N)
 
 
 def sweep_update(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor, N: int,
-                 X: Optional[torch.Tensor] = None,
-                 ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel C wrapper (in place on ``C``; see the plain version)."""
-    operands = [C, ids_out, M] + [t for t in (X, ids_in) if t is not None]
-    if kernels.on_cpu(*operands):
-        return sweep_update_plain(C, ids_out, M, N, X, ids_in)
-    _check_inputs(X, ids_in)
+                 ids_in: torch.Tensor) -> torch.Tensor:
+    """Kernel C's backward step (in place on ``C``; see the plain version)."""
+    if kernels.on_cpu(C, ids_out, M, ids_in):
+        return sweep_update_plain(C, ids_out, M, N, ids_in)
     B, R, Cc = M.shape
     k = C.shape[1]
     if not 0 <= N <= C.shape[0]:
         raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
-    dt = kernels.value_type(C, M, *([] if X is None else [X]))
+    dt = kernels.value_type(C, M)
     kernels.require(C, "C", dt, (C.shape[0], k))
     kernels.require(M, "M", dt)
     kernels.require(ids_out, "ids_out", torch.int32, (B, R))
-    if X is not None:
-        kernels.require(X, "X", dt, (B, Cc, k))
-    else:
-        kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
-    if B * R and Cc:
+    kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
+    if B * R and Cc and k:
         kernels.launch(kernels.symbol("hs_sweep_update", dt), C.device,
                        C.data_ptr(), ids_out.data_ptr(), M.data_ptr(),
-                       None if X is None else X.data_ptr(),
-                       None if ids_in is None else ids_in.data_ptr(),
-                       B, R, Cc, k, N)
+                       ids_in.data_ptr(), B, R, Cc, k, N, backward_split(R))
         kernels.count_launch(sweep_update, dt)
     return C
 

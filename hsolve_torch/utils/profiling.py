@@ -4,6 +4,7 @@ Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
                                             [--compressed | --hss | --mixed]
+                                            [--plain-forward]
                                             [--out build/profile]
 
 For each size n it plans helmholtz2d(n, k=40) with leafmax=100 and swlevel=0
@@ -19,6 +20,10 @@ right preconditioner, the DIA matvec):
 - device busy time per phase under ``torch.profiler`` (sum of kernel self
   time), and the device idle share 1 - busy / wall,
 - the kernels that take the most device time, by name.
+
+``--plain-forward`` runs each dense level's forward step as its plain torch
+version (the gather, GEMM, index_put and triangular solves that kernel C's
+``level_forward`` replaces), to compare the two on the same factor.
 
 Chrome traces go to ``--out``; the last line of output is one JSON object with
 every number printed above.
@@ -81,6 +86,8 @@ def main() -> int:
     mode.add_argument("--mixed", action="store_true",
                       help="profile the float32 exact factor with "
                            "mixed-precision GMRES")
+    ap.add_argument("--plain-forward", action="store_true",
+                    help="dense levels' forward step as its plain version")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -90,9 +97,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
         return 2
+    import importlib
+
     import hsolve_torch as ht
     from hsolve_torch import kernels
     from hsolve_torch.factor import solve_with_data
+    from hsolve_torch.ops.sweep import level_forward_plain
+
+    if args.plain_forward:      # hsolve_torch.factor is the function's name
+        importlib.import_module("hsolve_torch.factor").level_forward = \
+            level_forward_plain
 
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -103,7 +117,9 @@ def main() -> int:
     kernels.build()
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
-    report = {"card": card, "path": path, "sizes": []}
+    report = {"card": card, "path": path,
+              "forward": "plain" if args.plain_forward else "kernel",
+              "sizes": []}
     for n in args.sizes:
         A, b, shape = ht.helmholtz2d(n, k=40.0)
         opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
@@ -147,6 +163,8 @@ def main() -> int:
                 print(f"    {r['ms']:9.4f} ms  {r['calls']:7.1f} calls  "
                       f"{r['name'][:110]}", flush=True)
         entry["iters"] = holder["info"]["iters"]
+        print(f"{path} n={n}: {entry['iters']} GMRES iterations "
+              f"({report['forward']} forward step)", flush=True)
         report["sizes"].append(entry)
     print(json.dumps(report), flush=True)
     return 0

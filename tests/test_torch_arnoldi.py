@@ -24,7 +24,8 @@ from hsolve_torch import kernels
 from hsolve_torch.krylov import _gmres_cycles
 from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_cgs2_plain,
                                       arnoldi_givens, arnoldi_givens_plain,
-                                      arnoldi_state, cgs2_blocks)
+                                      arnoldi_state, cgs2_blocks,
+                                      cgs2_max_slice, cgs2_slice)
 
 jkrylov = importlib.import_module("hsolve.krylov")
 TOL = {np.float32: 1e-6, np.float64: 1e-13}
@@ -239,8 +240,9 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
     assert kernels.launch_counts() == before
     # kernel L's partial sums fit the state's scratch at every step
     assert s1.part.numel() >= (2 * M_RESTART + 1) * cgs2_blocks(128)
-    assert cgs2_blocks(261121) == 132 and cgs2_blocks(16129) == 32
-    assert -(-10 ** 6 // cgs2_blocks(10 ** 6)) <= 4096
+    assert cgs2_blocks(261121) == 132 and cgs2_blocks(16129) == 16
+    assert cgs2_slice(10 ** 6, cgs2_blocks(10 ** 6)) <= cgs2_max_slice(
+        torch.float64)
 
 
 def test_value_type_takes_one_type_per_call():

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, at edge cases the main path does not
 reach (several right-hand sides, sentinel ids, narrow child stacks, ragged
-tiles, cap padding, argmax ties, shared memory above 48 KB), kernels A-D in
+tiles, cap padding, argmax ties, shared memory above 48 KB, boundary ids
+repeated across fronts, a front spread over a thread block cluster, rows not
+16-byte aligned, a cooperative grid the card cannot hold), kernels A-D in
 float32, the Arnoldi kernels L and M in both types, and the exact,
 compressed, structured (HSS) and mixed-precision slices end to end on
 ``cuda``.
@@ -11,6 +13,8 @@ card has no JAX, which ``tests/conftest.py`` imports, so run these there with
     python -m pytest --noconftest -p no:cacheprovider \
         -W ignore::pytest.PytestUnknownMarkWarning tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,7 +32,10 @@ from hsolve_torch.ops.lowrank import (cpqr_pivots, cpqr_pivots_plain,
 from hsolve_torch.ops.schur import (lowrank_schur_update,
                                     lowrank_schur_update_plain)
 from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
-from hsolve_torch.ops.sweep import (lowrank_sweep_update,
+from hsolve_torch.factor import DenseLevel
+from hsolve_torch.ops import dense as dk
+from hsolve_torch.ops.sweep import (level_forward, level_forward_plain,
+                                    lowrank_sweep_update,
                                     lowrank_sweep_update_plain, sweep_update,
                                     sweep_update_plain)
 
@@ -74,26 +81,107 @@ def test_extend_add_kernel_narrow_and_wide_sources(dev):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k", [1, 3])
-def test_sweep_update_kernel_with_sentinels(dev, k):
-    rng = np.random.default_rng(2 + k)
-    N, B, R, Cc = 500, 7, 9, 13
-    C = torch.as_tensor(rng.standard_normal((N + 1, k)), device=dev)
-    C[N] = 0.0
+def _hand_level(dev, dtype, B, ni, nb, N, seed, shared_bnd=False):
+    """A dense level record made by hand: well-conditioned pivot blocks (LU
+    with pivoting), random Gauss transforms, disjoint int ids, the last two
+    int and three bnd ids of every front the sentinel N; ``shared_bnd``: every
+    front has the same bnd ids (the forward step's atomics then collide)."""
+    rng = np.random.default_rng(seed)
     perm = rng.permutation(N)
-    ids_out = perm[: B * R].reshape(B, R).astype(np.int32)
-    ids_in = perm[B * R: B * R + B * Cc].reshape(B, Cc).astype(np.int32)
-    ids_out[:, -2:] = N                  # padded rows: skipped
-    ids_in[:, -3:] = N                   # padded columns: read as zero
-    ids_out = torch.as_tensor(ids_out, device=dev)
-    ids_in = torch.as_tensor(ids_in, device=dev)
-    M = torch.as_tensor(rng.standard_normal((B, R, Cc)), device=dev)
-    X = torch.as_tensor(rng.standard_normal((B, Cc, k)), device=dev)
-    for kw in ({"X": X}, {"ids_in": ids_in}):
-        got = sweep_update(C.clone(), ids_out, M, N, **kw)
-        want = sweep_update_plain(C.clone(), ids_out, M, N, **kw)
-        assert _rel(got, want) < 1e-13
+    int_ids = perm[: B * ni].reshape(B, ni).astype(np.int32)
+    rest = perm[B * ni:]
+    bnd = np.tile(rest[:nb], (B, 1)) if shared_bnd else \
+        rest[: B * nb].reshape(B, nb)
+    bnd = bnd.astype(np.int32)
+    int_ids[:, -2:] = N
+    bnd[:, -3:] = N
+    D = torch.as_tensor(rng.standard_normal((B, ni, ni)) / np.sqrt(ni)
+                        + 2.0 * np.eye(ni), dtype=dtype, device=dev)
+    lu, piv = dk.lu_factor(D)
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=dev)
+    return DenseLevel(lu=lu, perm=piv, L=t(rng.standard_normal((B, nb, ni))),
+                      R=t(rng.standard_normal((B, ni, nb))),
+                      int_ids=t(int_ids, torch.int32),
+                      bnd_ids=t(bnd, torch.int32))
+
+
+def _level_steps_agree(dev, lev, N, k, tol, seed=0):
+    """Kernel C's forward step (lu and dinv records) and backward step
+    against their plain versions on one level, one launch each."""
+    rng = np.random.default_rng(seed)
+    C = torch.as_tensor(rng.standard_normal((N + 1, k)), dtype=lev.L.dtype,
+                        device=dev)
+    C[N] = 0.0
+    inv = dataclasses.replace(lev, lu=None, perm=None, dinv=dk.lu_inverse(
+        lev.lu, lev.perm).contiguous())
+    for rec in (lev, inv):
+        before = level_forward.launches
+        got = level_forward(C.clone(), rec, N)
+        assert level_forward.launches == before + 1
+        want = level_forward_plain(C.clone(), rec, N)
+        assert _rel(got, want) < tol
         assert float(got[N].abs().max()) == 0.0
+    before = sweep_update.launches
+    got = sweep_update(C.clone(), lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+    assert sweep_update.launches == before + 1
+    want = sweep_update_plain(C.clone(), lev.int_ids, lev.R, N,
+                              ids_in=lev.bnd_ids)
+    assert _rel(got, want) < tol
+    assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k", [1, 3, 6])
+def test_sweep_update_kernel_with_sentinels(dev, k):
+    """Both steps of kernel C on a hand-made level with sentinel ids, rows
+    that are not 16-byte aligned (ni = 9, nb = 13: scalar loads), several
+    right-hand sides (k = 6: two chunks of four)."""
+    lev = _hand_level(dev, torch.float64, B=7, ni=9, nb=13, N=500, seed=2 + k)
+    _level_steps_agree(dev, lev, 500, k, 1e-12, seed=k)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("ni,nb", [(1024, 64), (1000, 40), (1800, 24),
+                                   (256, 96)])
+def test_level_steps_on_a_wide_front(dev, dtype, tol, ni, nb):
+    """One front of ni_pad 1024 (a cluster of 4 CTAs), 1000 (4 CTAs, a
+    partial last panel), 1800 (a cluster of 8, 57 panels) and 256 (one CTA
+    of 8 panel warps) against the plain versions."""
+    lev = _hand_level(dev, dtype, B=1, ni=ni, nb=nb, N=3000, seed=ni)
+    _level_steps_agree(dev, lev, 3000, 1, tol)
+    _level_steps_agree(dev, lev, 3000, 3, tol, seed=1)
+
+
+def test_level_forward_with_boundary_ids_shared_by_fronts(dev):
+    """The atomics' case: every front adds into the same boundary rows."""
+    lev = _hand_level(dev, torch.float64, B=40, ni=24, nb=16, N=2000, seed=9,
+                      shared_bnd=True)
+    _level_steps_agree(dev, lev, 2000, 2, 1e-12)
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_level_steps_on_a_small_plan(dev, dtype, tol, explicit):
+    """Every level of a real factorization on the card: the forward step
+    with its lu or dinv record and the backward step, one launch each."""
+    A, b, shape = ht.helmholtz2d(48, k=20.0)
+    tree = ht.nested_dissection(shape, leafmax=40)
+    F = ht.factor(A, tree, swlevel=0, dtype=dtype, device=dev,
+                  explicit_inverse=explicit)
+    N = F.N
+    rng = np.random.default_rng(5)
+    for lev in F.levels:
+        assert (lev.dinv is not None) == explicit
+        C = torch.as_tensor(rng.standard_normal((N + 1, 2)), dtype=dtype,
+                            device=dev)
+        C[N] = 0.0
+        assert _rel(level_forward(C.clone(), lev, N),
+                    level_forward_plain(C.clone(), lev, N)) < tol
+        assert _rel(sweep_update(C.clone(), lev.int_ids, lev.R, N,
+                                 ids_in=lev.bnd_ids),
+                    sweep_update_plain(C.clone(), lev.int_ids, lev.R, N,
+                                       ids_in=lev.bnd_ids)) < tol
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -472,6 +560,51 @@ def test_arnoldi_kernels_against_plain(dev, dtype, j):
                      (mk.y, mp.y)):
             assert torch.equal(a, b)
         assert int(mk.done[0]) == int(not (cont and floor == 0.0))
+
+
+@pytest.mark.parametrize("j", [0, 1, 29])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+def test_arnoldi_cgs2_on_ragged_slices(dev, dtype, tol, j):
+    """Kernel L at N = 200,003: 132 CTAs, a last slice shorter than the
+    others, rows of V that start off a 16-byte boundary (N odd), staged and
+    unstaged rows at j = 29; one launch, h and w as the plain version, its
+    barrier counter and ticket back at rest."""
+    N, m = 200003, 30
+    rng = np.random.default_rng(70 + j)
+    s = AR.arnoldi_state(m, N, dtype, dev)
+    V = rng.standard_normal((j + 1, N))
+    s.V[: j + 1] = torch.as_tensor(V / np.linalg.norm(V, axis=1)[:, None],
+                                   dtype=dtype, device=dev)
+    w = torch.as_tensor(rng.standard_normal(N), dtype=dtype, device=dev)
+    sk, sp_ = _clone_state(s), _clone_state(s)
+    wk, wp = w.clone(), w.clone()
+    before = AR.arnoldi_cgs2.launches
+    AR.arnoldi_cgs2(sk, wk, j)
+    assert AR.arnoldi_cgs2.launches == before + 1
+    AR.arnoldi_cgs2_plain(sp_, wp, j)
+    assert _rel(sk.hc[: j + 2], sp_.hc[: j + 2]) < tol
+    assert _rel(wk, wp) < tol
+    assert int(sk.ticket[0]) == 0
+    AR.arnoldi_cgs2(sk, wk.clone(), j)          # the next step starts at rest
+    assert int(sk.ticket[0]) == 0
+
+
+def test_arnoldi_cgs2_refuses_a_grid_the_card_cannot_hold(dev, monkeypatch):
+    """Kernel L's cooperative launch with more CTAs than can be resident at
+    once is refused: the wrapper raises, nothing runs, nothing falls back."""
+    monkeypatch.setattr(AR, "device_sms", lambda device: 10 ** 6)
+    N = 10 ** 6
+    s = AR.arnoldi_state(1, N, torch.float32, dev)
+    assert AR.cgs2_blocks(N, AR.device_sms(dev)) == 977
+    s.V[0] = 1.0 / N ** 0.5
+    w = torch.ones(N, device=dev)
+    before = AR.arnoldi_cgs2.launches
+    with pytest.raises(RuntimeError, match="arnoldi_cgs2"):
+        AR.arnoldi_cgs2(s, w, 0)
+    torch.cuda.synchronize()
+    assert AR.arnoldi_cgs2.launches == before
+    assert bool((w == 1.0).all()) and int(s.ticket[0]) == 0
 
 
 def test_mixed_slice_on_cuda(dev):
