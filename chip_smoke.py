@@ -26,17 +26,18 @@ Phases (any failure exits non-zero before the result line is printed):
    solves the solve ran before the fused step; D: cuSPARSE CSR ``torch.mv``;
    L: ``torch.mv``/``addmv``).  A-D run on the exact plan, in float64 and in
    float32 (A, B bitwise, C, D to 1e-5; C's forward step at the leaf level,
-   a level of ni_pad 256 and the top level, with lu records and, at the leaf
-   and the top, as dinv records; its backward step at the leaf, the ni_pad
-   256 level and the top level with a boundary); E (forward
+   a level of ni_pad 256, the top level and a hand-made 4424-row front (in
+   windows of 2048 rows), with lu records and, at the leaf and the top, as
+   dinv records; its backward step at the leaf, the ni_pad 256 level and the
+   top level with a boundary); E (forward
    and backward) and F on the first and the top compressed batch of the
-   compressed plan, G on both sides of the first; H-K on the structured (HSS)
-   plan: H on the inputs of the leaf and of an upper level of the first and
-   the top structured batch and of the first transition batch, captured while
-   that plan is factored, I-K on the HSS operands of those two batches (I on a
-   leaf and a B12 extraction, J forward and adjoint at the sketch width and at
-   k=1, K forward and adjoint as hss_factor runs it, k=r, and as hss_solve
-   does, k=1); L and M on Arnoldi steps j = 0 and j = 29 captured from a
+   compressed plan, G on both sides of the first; H and K at every distinct
+   launch shape of the structured (HSS) plans' factor and of one
+   preconditioner application, kest=32 and the default rank caps, on inputs
+   captured there (one log line per shape); I and J on
+   the HSS operands of the first and the top structured batch of the kest=32
+   plan (I on a leaf and a B12 extraction, J forward and adjoint at the
+   sketch width and at k=1); L and M on Arnoldi steps j = 0 and j = 29 captured from a
    30-step cycle on the n=512 operator, in float64 and float32 (1e-13 and
    1e-5; M's rotations, done flag, divisor and coefficients bit for bit);
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
@@ -45,9 +46,12 @@ Phases (any failure exits non-zero before the result line is printed):
    preconditioner, the DIA matvec), first exact (swlevel=0, float64), then
    low-rank compressed (swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32,
    hss=False), then structured (the same options with hss=True, the default),
-   then exact-f32-mixed (the JAX bench's device configuration: a float32
+   then structured at the default rank caps (the same without kest), then
+   exact-f32-mixed (the JAX bench's device configuration: a float32
    exact factor, float32 Arnoldi cycles over a float32 DIA operator with
-   m_eps=1e-6 inside a float64 solve, escalation on).  Each run must
+   m_eps=1e-6 inside a float64 solve, escalation on), then one exact run at
+   n=1026, whose 2056-row top front takes kernel C's forward step in
+   windows, in one iteration.  Each run must
    converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9 on
    the host, and launch every kernel of its path (the launch counters are
    reset just before the run and read just after: A-D, L and M on the exact
@@ -86,12 +90,22 @@ FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 COMPRESSED = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32,
                   hss=False)
 HSS = {**COMPRESSED, "hss": True}
+# the structured path with every option at its default but the switching
+# level and the tolerances: no kest, so the planner's default rank caps
+# (boundary / 4, up to 192 at n=512)
+HSS_DEFAULT = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
+# the smallest helmholtz2d size above 1024 whose exact top front passes
+# 2048 interior rows (2056: kernel C's forward step in windows)
+WIDE_N = 1026
 OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
-           "exact-f32-mixed": dict(swlevel=0)}
+           "hss-default": HSS_DEFAULT, "exact-f32-mixed": dict(swlevel=0),
+           "exact-wide": dict(swlevel=0)}
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
-# mixed ones from tools/jax_reference_iters.py (5 at n=128, 80 at n=512)
+# mixed and hss-default ones from tools/jax_reference_iters.py (mixed: 5 at
+# n=128, 80 at n=512; hss-default: 5 at n=128, 40 at n=512)
 MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
-             "exact-f32-mixed": {128: 10, 512: 160}}
+             "hss-default": {128: 10, 512: 80},
+             "exact-f32-mixed": {128: 10, 512: 160}, "exact-wide": {WIDE_N: 1}}
 HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
 # the data sheet's peaks, FLOP/s: (without, with) the tensor cores; float32
 # without TF32, which the port keeps off
@@ -259,6 +273,27 @@ def csr_of(A, dtype, dev):
         torch.as_tensor(A.indptr.astype(np.int64)),
         torch.as_tensor(A.indices.astype(np.int64)),
         torch.as_tensor(A.data), size=A.shape).to(device=dev, dtype=dtype)
+
+
+def _wide_level(dev, dt, ni: int, nb: int, N: int, seed: int):
+    """One dense front of ``ni`` interior rows made by hand: a
+    well-conditioned pivot block (LU with pivoting), a random Gauss
+    transform, distinct ids below N."""
+    import torch
+
+    from hsolve_torch.factor import DenseLevel
+    from hsolve_torch.ops import dense as dk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = torch.randn(1, ni, ni, dtype=dt, device=dev, generator=g) / ni ** 0.5 \
+        + 2.0 * torch.eye(ni, dtype=dt, device=dev)
+    lu, perm = dk.lu_factor(D)
+    ids = torch.randperm(N, device=dev, generator=g)[:ni + nb].to(torch.int32)
+    return DenseLevel(lu=lu, perm=perm,
+                      L=torch.randn(1, nb, ni, dtype=dt, device=dev, generator=g),
+                      R=torch.randn(1, ni, nb, dtype=dt, device=dev, generator=g),
+                      int_ids=ids[None, :ni].contiguous(),
+                      bnd_ids=ids[None, ni:].contiguous())
 
 
 def check_kernels(problems: Problems, n: int, dev, results: Results,
@@ -429,6 +464,45 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                      dtype_name),
                library_ms=device_ms(library))
 
+    # C's forward step on a front wider than one cluster (4424 rows, the
+    # helmholtz3d(48) exact top front: three windows), made by hand, against
+    # its plain version, and both against a float64 solve of the same
+    # (rounded) front: in float32 the kernel may be no further from that
+    # solve than the plain version, beyond 1e-7 of max |x'|
+    wide = _wide_level(dev, dt, ni=4424, nb=24, N=N, seed=SEED)
+    growth = float(dk._diag_ratio(wide.lu).max())
+    ker = level_forward(C0.clone(), wide, N)
+    ref = level_forward_plain(C0.clone(), wide, N)
+    rows = wide.int_ids[wide.int_ids < N].long()
+    note = ""
+    if dtype_name != "float64":
+        f64 = torch.float64
+        x64 = level_forward_plain(C0.to(f64), dataclasses.replace(
+            wide, lu=wide.lu.to(f64), L=wide.L.to(f64)), N)[rows]
+        s64 = float(x64.abs().max())
+        d_ker = float((ker[rows].to(f64) - x64).abs().max()) / s64
+        d_ref = float((ref[rows].to(f64) - x64).abs().max()) / s64
+        note = (f" from float64: kernel {d_ker:.3e}, plain {d_ref:.3e}")
+        if d_ker > d_ref + 1e-7:
+            fail(f"level_forward{tag} on the 4424-row front is further from "
+                 f"the float64 solve than its plain version:{note}")
+    # the interior rows (the solve) against max |x'|, the boundary rows
+    # (C[bnd] -= L x, sums of 4424 products) against their own largest value
+    bnd = wide.bnd_ids[wide.bnd_ids < N].long()
+    scratch = C0.clone()
+    ms = device_ms(lambda: level_forward(scratch, wide, N))
+    plain_ms = device_ms(lambda: level_forward_plain(scratch, wide, N))
+    for part, idx, limit in (
+            ("interior", rows, RTOL_SOLVE[dtype_name] * max(1.0, growth)),
+            ("boundary", bnd, rtol)):
+        record(f"level_forward{tag}", f"hand front lu B=1 ni=4424 nb=24 k=1 "
+               f"(windows) {part} rows growth={growth:.3g}"
+               + (note if part == "interior" else ""),
+               errors(ker[idx], ref[idx]), limit, ms, plain_ms,
+               bound(nbytes(wide.lu, wide.L, wide.int_ids, wide.bnd_ids,
+                            wide.perm) + 2 * 4424 * e + 2 * 24 * e,
+                     2 * (wide.lu.numel() + wide.L.numel()), dtype_name))
+
     # D: DIA matvec and fused residual on the original matrix; the library
     # yardstick is cuSPARSE's CSR matvec (and b - A x through addmv)
     op, _ = ht.spmv_format(A, dtype=np.dtype(dtype_name), device=dev)
@@ -559,176 +633,191 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
     torch.cuda.synchronize()
 
 
-def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None:
-    """Phase 3, kernels H-K against their plain versions at the structured
-    n-plan's shapes: H on inputs captured while that plan is factored, I-K on
-    the HSS operands of the factorization."""
+def _hss_captures(plan, tp, opts, dev, b):
+    """Factor ``plan`` (structured) and apply the factor once to ``b``,
+    recording the first inputs of every distinct launch shape of kernels H
+    and K (H: ``(B, m, n, k)``; K: ``(nodes, r, blk, k, transpose)``), each
+    tagged with the batch that first gave it; returns ``(levels, cpqr calls,
+    level-correction calls)``."""
     import importlib
 
     import torch
 
-    import hsolve_torch as ht
-    from hsolve_torch.factor import _factor_levels, torch_sketch
-    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.factor import Factorization, _factor_levels
     from hsolve_torch.ops import hss as H
     from hsolve_torch.ops import lowrank as L
 
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
-    A, _, shape = problems.get(n)
-    opts = ht.SolverOptions(**HSS)
-    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
-                                 opts)
-    tp = plan_to_torch(plan, dev)
-    f64 = torch.float64
-    struct = [i for i, bp in enumerate(plan.batches) if bp.structured]
-    trans = [i for i, bp in enumerate(plan.batches)
-             if bp.compress and not bp.structured and bp.cplan is not None]
-    if not struct or not trans:
-        fail(f"n={n}: the HSS plan has no structured or no transition batch")
-    first, top = struct[0], struct[-1]
-
-    # H's inputs: per compression of interest, its first call (the leaf level)
-    # and its first call on a [s, 2r] panel (an upper level)
-    where = {"tag": None, "calls": 0, "cap": 0}
-    captured = []
-    orig = (L.cpqr_pivots, fm._run_structured, fm.transition_compress)
+    where = {"tag": "solve"}
+    hcalls, kcalls = {}, {}
+    orig = (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
+            fm.transition_compress)
 
     def cpqr_rec(Am, atol, rtol, k):
-        tag = where["tag"]
-        kind = "leaf" if where["calls"] == 0 else \
-            "upper" if Am.shape[-1] == 2 * where["cap"] else None
-        if tag is not None and kind is not None and \
-                (tag, kind) not in {c[:2] for c in captured}:
-            captured.append((tag, kind, Am.clone(), atol, rtol, k))
-        where["calls"] += 1
+        key = (*Am.shape, k)
+        if key not in hcalls:
+            hcalls[key] = (where["tag"], Am.clone(), atol, rtol, k)
         return orig[0](Am, atol, rtol, k)
 
-    # the wrapper counts its launches on whatever its module name holds
-    cpqr_rec.launches = 0
+    def correct_rec(Y, xi, Bl, Br, lu, piv, Phi, transpose):
+        key = (Bl.shape[0] * Bl.shape[1], Bl.shape[-1],
+               Y.shape[1] // (2 * Bl.shape[1]), Y.shape[-1], bool(transpose))
+        if key not in kcalls:
+            kcalls[key] = (where["tag"], Y.clone(),
+                           (xi, Bl, Br, lu, piv, Phi, transpose))
+        return orig[1](Y, xi, Bl, Br, lu, piv, Phi, transpose)
 
     def run_rec(bp, tb, s_stacks, opts_, dtype, bidx, sketch):
-        where.update(tag=f"batch {bidx} (structured)" if bidx in (first, top)
-                     else None, calls=0, cap=bp.rank_cap)
-        try:
-            return orig[1](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
-        finally:
-            where["tag"] = None
+        where["tag"] = f"batch {bidx}"
+        return orig[2](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
 
     def trans_rec(S, n1, n2, cplan, atol, rtol, cap):
-        where.update(tag="transition" if not any(
-            c[0] == "transition" for c in captured) else None, calls=0, cap=cap)
-        try:
-            return orig[2](S, n1, n2, cplan, atol, rtol, cap)
-        finally:
-            where["tag"] = None
+        where["tag"] = "transition"
+        return orig[3](S, n1, n2, cplan, atol, rtol, cap)
 
-    L.cpqr_pivots, fm._run_structured, fm.transition_compress = \
-        cpqr_rec, run_rec, trans_rec
+    # the wrappers count their launches on whatever their module names hold
+    cpqr_rec.launches = correct_rec.launches = 0
+    L.cpqr_pivots, H.hss_level_correct = cpqr_rec, correct_rec
+    fm._run_structured, fm.transition_compress = run_rec, trans_rec
     try:
-        levels, _, _ = _factor_levels(plan, tp, opts, f64)
+        levels, root, _ = _factor_levels(plan, tp, opts, torch.float64)
+        where["tag"] = "solve"
+        F = Factorization(N=plan.N, perm=plan.perm, levels=levels, root=root,
+                          opts=opts, plan=plan, device=dev)
+        F.solve(b)
     finally:
-        L.cpqr_pivots, fm._run_structured, fm.transition_compress = orig
+        (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
+         fm.transition_compress) = orig
     torch.cuda.synchronize()
+    return levels, hcalls, kcalls
+
+
+def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None:
+    """Phase 3, kernels H-K against their plain versions at the structured
+    n-plans' shapes: H and K at every distinct launch shape of the factor
+    and of one preconditioner application, on inputs captured there, for the
+    kest=32 plan and the default-caps plan (one log line each);
+    I and J on the HSS operands of the kest=32 factorization."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import torch_sketch
+    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.ops import hss as H
+    from hsolve_torch.ops import lowrank as L
+
+    A, b, shape = problems.get(n)
+    f64 = torch.float64
     record = results.record
-
-    # H: equal pivots and ranks
-    tags = {f"batch {b} (structured)" for b in (first, top)} | {"transition"}
-    if {c[:2] for c in captured} != {(t, k) for t in tags
-                                     for k in ("leaf", "upper")}:
-        fail(f"captured cpqr inputs {sorted(c[:2] for c in captured)}")
-    for tag, kind, Am, atol, rtol, k in captured:
-        ker = L.cpqr_pivots(Am, atol, rtol, k)
-        ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
-        if not all(torch.equal(a, b) for a, b in zip(ker, ref)):
-            fail(f"cpqr_pivots selects other pivots or ranks than its plain "
-                 f"version at {tag} {kind} {list(Am.shape)}")
-        # the steps this data needs: a pivot per rank, and the step that
-        # finds the rank, per matrix; each projects and downdates every column
-        steps = float((ker[1].double() + 1).clamp(max=k).sum())
-        record("cpqr_pivots", f"{tag} {kind} A={list(Am.shape)} k={k}",
-               (0.0, 0.0), 0.0, device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k)),
-               device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k)),
-               bound(nbytes(Am, *ker), 4 * Am.shape[1] * Am.shape[2] * steps))
-
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for bidx in (first, top):
-        bp, lev = plan.batches[bidx], levels[bidx]
-        h2 = lev.H2
-        p2 = h2.plan
-        # I: the leaf D blocks and a level-1 B12 block of S22''s operand
-        ef = H.hss_entry_factors(h2)
-        leaf = torch.arange(p2.n_pad, device=dev).reshape(1, p2.nleaves,
-                                                         p2.ls).expand(h2.B, -1, -1)
-        m1 = p2.nleaves // 2
-        off = torch.arange(m1, device=dev)[None, :, None] * (2 * p2.ls)
-        rows = off + torch.randint(0, p2.ls, (h2.B, m1, h2.r), device=dev,
-                                   generator=gen)
-        cols = off + p2.ls + torch.randint(0, p2.ls, (h2.B, m1, h2.r),
-                                           device=dev, generator=gen)
-        for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
-            ker = H.hss_entries_prepared(ef, rr, cc)
-            ref = H.hss_entries_prepared_plain(ef, rr, cc)
-            # an entry reads its two r-long factor rows (or one D entry)
-            reads = min(2 * h2.r * ker.numel() * 8, nbytes(*ef))
-            record("hss_entries_prepared",
-                   f"batch {bidx} {what} out={list(ker.shape)}",
-                   errors(ker, ref), RTOL_SUM,
-                   device_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
-                   device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
-                   bound(reads + nbytes(rr, cc, ker), 2 * h2.r * ker.numel()))
-        # J: S22''s operand at the sketch width (the factor's own sketch) and
-        # at k=1
-        s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
-                               max(opts.stepsize, 8)), p2.n_pad)
-        Om, _ = torch_sketch(opts.seed, dev, f64)((7000 + bidx, 203),
-                                                  (h2.B, p2.n_pad, s),
-                                                  (h2.B, p2.n_pad, s))
-        for X in (Om, Om[..., :1].contiguous()):
-            for adj in (False, True):
-                ker = H.hss_matvec(h2, X, adj)
-                ref = H.hss_matvec_plain(h2, X, adj)
-                record("hss_matvec",
-                       f"batch {bidx} {'adj' if adj else 'fwd'} "
-                       f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
-                       f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
-                       device_ms(lambda: H.hss_matvec(h2, X, adj)),
-                       device_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
-                       bound(nbytes(*h2.arrays(), X, ker),
-                             2 * X.shape[-1] * sum(a.numel()
-                                                   for a in h2.arrays()),
-                             products=True))
-        # K: the interior solver, level 1 as hss_factor runs it (k = r, the
-        # next level's bases) and the root level as hss_solve runs it (k = 1)
-        sol = lev.solver1
-        h1 = sol.h
-        depth = h1.plan.depth
-        Ubig, Vbig = H.materialize_bases(h1)
-        for adj in (False, True):
-            one = torch.randn(h1.B, h1.plan.n_pad, 1, dtype=f64, device=dev,
-                              generator=gen)
-            bases = Vbig if adj else Ubig
-            for lvl, X in ((1, bases[min(1, depth - 1)]), (depth, one)):
-                Y0 = H._leaf_solve(sol, X.contiguous(), adj)
-                xi = H._upsweep(h1, Y0, lvl - 1, adj).contiguous()
-                Bl, Br = h1.B12s[lvl - 1], h1.B21s[lvl - 1]
-                lu, piv, Phi = (sol.coresT_lu, sol.coresT_piv, sol.PhisT) \
-                    if adj else (sol.cores_lu, sol.cores_piv, sol.Phis)
-                args = (xi, *((Br, Bl) if adj else (Bl, Br)), lu[lvl - 1],
-                        piv[lvl - 1], Phi[lvl - 1], adj)
-                ker = H.hss_level_correct(Y0.clone(), *args)
-                ref = H.hss_level_correct_plain(Y0.clone(), *args)
-                scratch = Y0.clone()
-                record("hss_level_correct",
-                       f"batch {bidx} {'adj' if adj else 'fwd'} level {lvl}/"
-                       f"{h1.plan.depth} B={h1.B} 2r={2 * h1.r} "
-                       f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
-                       device_ms(lambda: H.hss_level_correct(scratch, *args)),
-                       device_ms(lambda: H.hss_level_correct_plain(scratch,
-                                                                 *args)),
-                       bound(nbytes(Y0, Y0, *args[:6]),
-                             2 * X.shape[-1] * sum(a.numel() for a in (
-                                 args[1], args[2], args[3], args[5])),
-                             products=True))
+    bt = torch.as_tensor(b, dtype=f64, device=dev)
+    for label, kw in (("kest=32", HSS), ("default caps", HSS_DEFAULT)):
+        opts = ht.SolverOptions(**kw)
+        opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
+        plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                     opts)
+        tp = plan_to_torch(plan, dev)
+        t0 = time.perf_counter()
+        levels, hcalls, kcalls = _hss_captures(plan, tp, opts, dev, bt)
+        log(f"  {label}: {len(hcalls)} H shapes, {len(kcalls)} K shapes "
+            f"captured in {time.perf_counter() - t0:.1f} s")
+        # H: equal pivots and ranks at every shape
+        for (Bm, m, nn, k), (tag, Am, atol, rtol, _) in sorted(hcalls.items()):
+            ker = L.cpqr_pivots(Am, atol, rtol, k)
+            ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
+            if not all(torch.equal(a, b_) for a, b_ in zip(ker, ref)):
+                fail(f"cpqr_pivots selects other pivots or ranks than its "
+                     f"plain version at {label} {tag} {list(Am.shape)}")
+            # the steps this data needs: a pivot per rank, and the step that
+            # finds the rank, per matrix; each projects and downdates every
+            # column
+            steps = float((ker[1].double() + 1).clamp(max=k).sum())
+            ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k))
+            plain_ms = device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k),
+                                 max_reps=20)
+            work = bound(nbytes(Am, *ker), 4 * m * nn * steps)
+            cs, resident = L.cpqr_cluster(m, nn)
+            desc = (f"{label} {tag} A=[{Bm},{m},{nn}] k={k} cluster {cs}"
+                    + ("" if resident else " (columns in global memory)"))
+            record("cpqr_pivots", desc, (0.0, 0.0), 0.0, ms, plain_ms, work)
+        # K: every level shape, forward and adjoint, at the factor's k and
+        # the solve's k = 1; the shapes where it is slower than its plain
+        # version, per k = 1 and k > 1
+        slower = {"k = 1": [], "k > 1": []}
+        for key, (tag, Y0, args) in sorted(kcalls.items()):
+            nodes, r, blk, k, adj = key
+            ker = H.hss_level_correct(Y0.clone(), *args)
+            ref = H.hss_level_correct_plain(Y0.clone(), *args)
+            scratch = Y0.clone()
+            ms = device_ms(lambda: H.hss_level_correct(scratch, *args))
+            plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch,
+                                                                   *args))
+            xi, Bl, Br, lu, piv, Phi, _ = args
+            work = bound(nbytes(Y0, Y0, xi, Bl, Br, lu, piv, Phi),
+                         2 * k * (Bl.numel() + Br.numel() + lu.numel()
+                                  + Phi.numel()), products=True)
+            geo = ("one CTA per node" if k == 1 else
+                   "nc={} cs={} groups={} stages={}".format(
+                       *H.level_correct_launch(r, k, nodes, dev)))
+            desc = (f"{label} {tag} {'adj' if adj else 'fwd'} nodes={nodes} "
+                    f"2r={2 * r} blk={blk} k={k} {geo}")
+            record("hss_level_correct", desc, errors(ker, ref), RTOL_SUM, ms,
+                   plain_ms, work)
+            if ms > plain_ms:
+                slower["k = 1" if k == 1 else "k > 1"].append(ms / plain_ms)
+        log(f"  {label}: K at {len(kcalls)} shapes, slower than its plain "
+            "version at " + ", ".join(
+                f"{len(v)} with {kk}" + (f" (worst {max(v):.2f}x)" if v else "")
+                for kk, v in slower.items()))
+        if label != "kest=32":
+            continue
+        struct = [i for i, bp in enumerate(plan.batches) if bp.structured]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        for bidx in (struct[0], struct[-1]):
+            bp, lev = plan.batches[bidx], levels[bidx]
+            h2 = lev.H2
+            p2 = h2.plan
+            # I: the leaf D blocks and a level-1 B12 block of S22''s operand
+            ef = H.hss_entry_factors(h2)
+            leaf = torch.arange(p2.n_pad, device=dev).reshape(
+                1, p2.nleaves, p2.ls).expand(h2.B, -1, -1)
+            m1 = p2.nleaves // 2
+            off = torch.arange(m1, device=dev)[None, :, None] * (2 * p2.ls)
+            rows = off + torch.randint(0, p2.ls, (h2.B, m1, h2.r), device=dev,
+                                       generator=gen)
+            cols = off + p2.ls + torch.randint(0, p2.ls, (h2.B, m1, h2.r),
+                                               device=dev, generator=gen)
+            for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
+                ker = H.hss_entries_prepared(ef, rr, cc)
+                ref = H.hss_entries_prepared_plain(ef, rr, cc)
+                # an entry reads its two r-long factor rows (or one D entry)
+                reads = min(2 * h2.r * ker.numel() * 8, nbytes(*ef))
+                record("hss_entries_prepared",
+                       f"batch {bidx} {what} out={list(ker.shape)}",
+                       errors(ker, ref), RTOL_SUM,
+                       device_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
+                       device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
+                       bound(reads + nbytes(rr, cc, ker), 2 * h2.r * ker.numel()))
+            # J: S22''s operand at the sketch width (the factor's own sketch)
+            # and at k=1
+            s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
+                                   max(opts.stepsize, 8)), p2.n_pad)
+            Om, _ = torch_sketch(opts.seed, dev, f64)((7000 + bidx, 203),
+                                                      (h2.B, p2.n_pad, s),
+                                                      (h2.B, p2.n_pad, s))
+            for X in (Om, Om[..., :1].contiguous()):
+                for adj in (False, True):
+                    ker = H.hss_matvec(h2, X, adj)
+                    ref = H.hss_matvec_plain(h2, X, adj)
+                    record("hss_matvec",
+                           f"batch {bidx} {'adj' if adj else 'fwd'} "
+                           f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
+                           f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
+                           device_ms(lambda: H.hss_matvec(h2, X, adj)),
+                           device_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
+                           bound(nbytes(*h2.arrays(), X, ker),
+                                 2 * X.shape[-1] * sum(a.numel()
+                                                       for a in h2.arrays()),
+                                 products=True))
     torch.cuda.synchronize()
 
 
@@ -863,7 +952,7 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
 
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(**OPTIONS[path])
-    compressed = path in ("compressed", "hss")
+    compressed = path in ("compressed", "hss", "hss-default")
     mixed = path == "exact-f32-mixed"
     tree = ht.nested_dissection(shape, leafmax=100)
     plan_s = []
@@ -878,7 +967,8 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
                  else ()) for bp in plan.batches]
     log(f"  n={n} {path}: {len(plan.batches)} batches (B, ni_pad, nb_pad"
         f"{', rank cap' if compressed else ''}"
-        f"{', HSS kind, ls, depth, n_pad' if path == 'hss' else ''}): {shapes}")
+        f"{', HSS kind, ls, depth, n_pad' if path.startswith('hss') else ''}):"
+        f" {shapes}")
 
     fdt = torch.float32 if mixed else torch.float64
     torch.cuda.synchronize()
@@ -887,9 +977,11 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
     F = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)  # cold
     torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+    # the default-caps structured factor takes seconds: one warm run
+    reps = 1 if path == "hss-default" else 3
     factor_ms = time_ms(lambda: ht.factor_with_plan(plan, opts, dtype=fdt,
                                                     device=dev),
-                        reps=3, warmup=1)
+                        reps=reps, warmup=reps // 3)
     op, mv = ht.spmv_format(A, device=dev)
     bt = torch.as_tensor(np.asarray(b), device=dev)
     out = {}
@@ -910,7 +1002,7 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
 
     solve()                                                    # cold
     torch.cuda.synchronize()
-    solve_ms = time_ms(solve, reps=3, warmup=1)
+    solve_ms = time_ms(solve, reps=reps, warmup=reps // 3)
     x, info = out["x"], out["info"]
     xh = x.cpu().numpy()
     if xh.shape != (A.shape[0],) or not np.all(np.isfinite(xh)):
@@ -1026,8 +1118,10 @@ def main() -> int:
     for path, path_kernels in (("exact", kernels.EXACT_PATH),
                                ("compressed", kernels.COMPRESSED_PATH),
                                ("hss", kernels.HSS_PATH),
-                               ("exact-f32-mixed", kernels.MIXED_PATH)):
-        for n in args.sizes:
+                               ("hss-default", kernels.HSS_PATH),
+                               ("exact-f32-mixed", kernels.MIXED_PATH),
+                               ("exact-wide", kernels.EXACT_PATH)):
+        for n in (args.sizes if path != "exact-wide" else [WIDE_N]):
             log(f"[4] main path n={n} {path}")
             kernels.reset_launch_counts()
             runs.append(main_path(problems, n, dev, path))

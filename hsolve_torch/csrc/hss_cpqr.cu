@@ -17,19 +17,33 @@
 // Ties go to the first maximal index, as `jnp.argmax` and `torch.argmax` do.
 // The elementwise steps round as the plain version's separate torch ops do
 // (no fused multiply-add: __dmul_rn / __dsub_rn / __ddiv_rn), so the two
-// differ only in the summation order of the three reductions.
+// differ only in the summation order of the three reductions; each column's
+// arithmetic is the same whatever the cluster size.
 //
-// Bound: latency.  The matrices are small ([58, 32] at the leaves, [58, 96]
-// at the upper levels, [92, 64] in the transition at the n=512 plan: at most
-// 47 KB) and the k steps are sequential.  One block per matrix holds it whole
-// in shared memory, so the k steps touch device memory only for the first
-// load and the k pivot writes; a step is four barriers: argmax, pivot norm,
-// projection coefficients, rank-1 downdate.
+// Bound: latency.  The k steps are sequential, and at the default rank caps
+// a panel is up to [202, 384] (620 KB), more than one SM's shared memory.
+// So one matrix's columns are spread over a thread block cluster of cs CTAs
+// (1, 2, 4 or 8, the fewest whose shared memory holds them; the wrapper
+// picks cs by bytes): CTA c keeps columns [c w, c w + w) resident, w =
+// ceil(n / cs), and a step is
+//   - each CTA's argmax over its columns, stored into every CTA's slot c
+//     through distributed shared memory (st.shared::cluster), one cluster
+//     barrier, and the same reduction over the cs slots in every CTA;
+//   - the owner CTA of column p forms the pivot norm and q and stores q
+//     and ok into every CTA, one cluster barrier;
+//   - each CTA projects and downdates its own columns.
+// A matrix beyond 8 CTAs' shared memory keeps its columns in a global
+// scratch copy instead (resident in L2), with the same steps.
 #include <math.h>
+
+#include <cooperative_groups.h>
 
 #include "hs_common.cuh"
 
+namespace cg = cooperative_groups;
+
 #define H_THREADS 256
+#define H_MAX_CLUSTER 8
 
 // (value, index) pair reduction favouring the larger value, then the smaller
 // index: the first maximum.
@@ -41,33 +55,59 @@ __device__ __forceinline__ void argmax_merge(double& v, int& i, double ov,
   }
 }
 
+// a barrier over the CTAs of one matrix
+__device__ __forceinline__ void matrix_sync(int cs) {
+  if (cs > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// the address of `p` (in this CTA's shared memory) in CTA `c` of the cluster
+template <typename T>
+__device__ __forceinline__ T* in_cta(T* p, int c, int rank) {
+  return c == rank ? p : cg::this_cluster().map_shared_rank(p, c);
+}
+
 __global__ void __launch_bounds__(H_THREADS)
     hss_cpqr_kernel(const double* __restrict__ A, int* __restrict__ piv,
-                    int* __restrict__ rank, double atol, double rtol, int m,
-                    int n, int k) {
+                    int* __restrict__ rank_out, double* __restrict__ gwork,
+                    double atol, double rtol, int m, int n, int k, int cs) {
   extern __shared__ double smem[];
-  double* a = smem;           // [m][n] working copy
-  double* nrm2 = a + m * n;   // [n] downdated squared column norms
-  double* q = nrm2 + n;       // [m] pivot direction
-  double* coef = q + m;       // [n] projection coefficients
+  __shared__ double slot_v[H_MAX_CLUSTER], slot_max[H_MAX_CLUSTER];
+  __shared__ int slot_i[H_MAX_CLUSTER];
   __shared__ double red_v[H_THREADS / 32];
   __shared__ int red_i[H_THREADS / 32];
-  __shared__ int s_p, s_ok, s_rank;
+  __shared__ int s_ok, s_rank, s_p;
   __shared__ double s_thr, s_nrm;
 
-  const int64_t b = blockIdx.x;
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int64_t b = blockIdx.x / cs;
+  const int w = (n + cs - 1) / cs;               // columns per CTA
+  const int c0 = rank * w;
+  const int nc = max(0, min(w, n - c0));         // this CTA's columns
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = H_THREADS / 32;
+  // this CTA's columns, [m][w] row-major: in shared memory, or in the
+  // global scratch for matrices beyond the cluster's shared memory
+  double* a = gwork != nullptr ? gwork + blockIdx.x * (int64_t)m * w : smem;
+  double* rest = gwork != nullptr ? smem : smem + (int64_t)m * w;
+  double* nrm2 = rest;        // [w] downdated squared column norms
+  double* coef = nrm2 + w;    // [w] projection coefficients
+  double* q = coef + w;       // [m] pivot direction (stored by the owner)
   const double* Ab = A + b * (int64_t)m * n;
-  for (int e = tid; e < m * n; e += H_THREADS) a[e] = Ab[e];
+  for (int e = tid; e < m * nc; e += H_THREADS) {
+    const int r = e / nc, c = e - r * nc;
+    a[r * w + c] = Ab[(int64_t)r * n + c0 + c];
+  }
   __syncthreads();
 
   // initial norms and the rtol reference norm0 = sqrt(max norms^2)
   double mx = -INFINITY;
-  for (int c = tid; c < n; c += H_THREADS) {
+  for (int c = tid; c < nc; c += H_THREADS) {
     double s = 0.0;
     for (int i = 0; i < m; ++i) {
-      const double v = a[i * n + c];
+      const double v = a[i * w + c];
       s += v * v;
     }
     nrm2[c] = s;
@@ -79,19 +119,26 @@ __global__ void __launch_bounds__(H_THREADS)
   __syncthreads();
   if (tid == 0) {
     double v = red_v[0];
-    for (int w = 1; w < nwarps; ++w) v = fmax(v, red_v[w]);
-    s_thr = fmax(rtol * __dsqrt_rn(v), atol);
+    for (int i = 1; i < nwarps; ++i) v = fmax(v, red_v[i]);
+    for (int c = 0; c < cs; ++c) in_cta(slot_max, c, rank)[rank] = v;
     s_ok = 1;
     s_rank = 0;
+  }
+  matrix_sync(cs);
+  if (tid == 0) {
+    double v = slot_max[0];
+    for (int c = 1; c < cs; ++c) v = fmax(v, slot_max[c]);
+    s_thr = fmax(rtol * __dsqrt_rn(v), atol);
   }
   __syncthreads();
   const double thr = s_thr;
 
   for (int j = 0; j < k; ++j) {
-    // 1. p = first argmax of nrm2
+    // 1. this CTA's first argmax of nrm2, into every CTA's slot `rank`
     double bv = -INFINITY;
     int bi = n;
-    for (int c = tid; c < n; c += H_THREADS) argmax_merge(bv, bi, nrm2[c], c);
+    for (int c = tid; c < nc; c += H_THREADS)
+      argmax_merge(bv, bi, nrm2[c], c0 + c);
     for (int off = 16; off > 0; off >>= 1) {
       const double ov = __shfl_down_sync(0xffffffffu, bv, off);
       const int oi = __shfl_down_sync(0xffffffffu, bi, off);
@@ -103,7 +150,6 @@ __global__ void __launch_bounds__(H_THREADS)
     }
     __syncthreads();
     if (warp == 0) {
-      // 2. the exact norm of the pivot column (warp 0 alone)
       double v = -INFINITY;
       int i = n;
       if (lane < nwarps) {
@@ -115,64 +161,107 @@ __global__ void __launch_bounds__(H_THREADS)
         const int oi = __shfl_down_sync(0xffffffffu, i, off);
         argmax_merge(v, i, ov, oi);
       }
-      const int p = __shfl_sync(0xffffffffu, i, 0);
-      double s = 0.0;
-      for (int r = lane; r < m; r += 32) {
-        const double x = a[r * n + p];
-        s += x * x;
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        const double nrm = __dsqrt_rn(fmax(s, 1e-300));
-        const int ok = s_ok && nrm > thr;
-        piv[b * k + j] = ok ? p : -1;
-        s_rank += ok;
-        s_ok = ok;
-        s_p = p;
-        s_nrm = nrm;
+      const double v0 = __shfl_sync(0xffffffffu, v, 0);
+      const int i0 = __shfl_sync(0xffffffffu, i, 0);
+      if (lane < cs) {    // lane c stores into CTA c
+        in_cta(slot_v, lane, rank)[rank] = v0;
+        in_cta(slot_i, lane, rank)[rank] = i0;
       }
     }
-    __syncthreads();
-    const int p = s_p, ok = s_ok;
-    const double nrm = s_nrm;
-    for (int r = tid; r < m; r += H_THREADS)
-      q[r] = ok ? __ddiv_rn(a[r * n + p], nrm) : 0.0;
-    __syncthreads();
-    // 3. coef = q^T A
-    for (int c = tid; c < n; c += H_THREADS) {
+    matrix_sync(cs);
+    // 2. the cluster's pivot, the same in every CTA
+    double pv = slot_v[0];
+    int p = slot_i[0];
+    for (int c = 1; c < cs; ++c) argmax_merge(pv, p, slot_v[c], slot_i[c]);
+    const int owner = p / w;
+    if (owner == rank) {
+      // the exact norm of the pivot column (warp 0 alone), then q and ok
+      // into every CTA
+      const int pl = p - c0;
+      if (warp == 0) {
+        double s = 0.0;
+        for (int r = lane; r < m; r += 32) {
+          const double x = a[r * w + pl];
+          s += x * x;
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_down_sync(0xffffffffu, s, off);
+        if (lane == 0) {
+          const double nrm = __dsqrt_rn(fmax(s, 1e-300));
+          const int ok = s_ok && nrm > thr;
+          piv[b * k + j] = ok ? p : -1;
+          s_nrm = nrm;
+          for (int c = 0; c < cs; ++c) in_cta(&s_ok, c, rank)[0] = ok;
+        }
+      }
+      __syncthreads();
+      const int ok = s_ok;
+      const double nrm = s_nrm;
+      for (int e = tid; e < m * cs; e += H_THREADS) {
+        const int r = e % m, c = e / m;
+        in_cta(q, c, rank)[r] = ok ? __ddiv_rn(a[r * w + pl], nrm) : 0.0;
+      }
+    }
+    matrix_sync(cs);
+    const int ok = s_ok;
+    if (tid == 0) s_rank += ok;
+    // 3. coef = q^T A on this CTA's columns
+    for (int c = tid; c < nc; c += H_THREADS) {
       double s = 0.0;
-      for (int r = 0; r < m; ++r) s += q[r] * a[r * n + c];
+      for (int r = 0; r < m; ++r) s += q[r] * a[r * w + c];
       coef[c] = s;
     }
     __syncthreads();
     // 4. A -= q coef; downdate the norms; exclude the pivot
-    for (int e = tid; e < m * n; e += H_THREADS) {
-      const int r = e / n, c = e - r * n;
-      a[e] = __dsub_rn(a[e], __dmul_rn(q[r], coef[c]));
+    for (int e = tid; e < m * nc; e += H_THREADS) {
+      const int r = e / nc, c = e - r * nc;
+      a[r * w + c] = __dsub_rn(a[r * w + c], __dmul_rn(q[r], coef[c]));
     }
-    for (int c = tid; c < n; c += H_THREADS) {
+    for (int c = tid; c < nc; c += H_THREADS) {
       const double d = fmax(__dsub_rn(nrm2[c], __dmul_rn(coef[c], coef[c])), 0.0);
-      nrm2[c] = c == p ? -INFINITY : d;
+      nrm2[c] = c0 + c == p ? -INFINITY : d;
     }
     __syncthreads();
   }
-  if (tid == 0) rank[b] = s_rank;
+  if (tid == 0 && rank == 0) rank_out[b] = s_rank;
+  // no CTA leaves while others may still store into its shared memory
+  matrix_sync(cs);
 }
 
-HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, double atol,
-                      double rtol, long long B, int m, int n, int k,
-                      void* stream) {
+HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,
+                      double atol, double rtol, long long B, int m, int n,
+                      int k, int cs, void* stream) {
   if (B > 0 && k > 0) {
-    const size_t smem = ((size_t)m * n + 2 * (size_t)n + m) * sizeof(double);
+    if (cs < 1 || cs > H_MAX_CLUSTER || n < 1 || m < 1)
+      return (int)cudaErrorInvalidValue;
+    const size_t w = (size_t)(n + cs - 1) / cs;
+    const size_t smem = ((gwork != nullptr ? 0 : (size_t)m * w) + 2 * w +
+                         (size_t)m) * sizeof(double);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           hss_cpqr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    hss_cpqr_kernel<<<(unsigned)B, H_THREADS, smem, (cudaStream_t)stream>>>(
-        (const double*)A, (int*)piv, (int*)rank, atol, rtol, m, n, k);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(B * cs));
+    cfg.blockDim = dim3(H_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, hss_cpqr_kernel, (const double*)A, (int*)piv, (int*)rank,
+        (double*)gwork, atol, rtol, m, n, k, cs);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
   }
   return (int)cudaGetLastError();
 }

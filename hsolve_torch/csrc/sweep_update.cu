@@ -46,7 +46,8 @@
 // cluster of ceil(panels / 8) CTAs (the wrapper picks it per level, at most
 // 8): CTA c owns the panels p with p % cs == c, stores y_p into every CTA's
 // ys through distributed shared memory, and the step's barrier is the
-// cluster's.  The rows of L[b] and dinv[b] are split the same way.
+// cluster's.  The rows of L[b] and dinv[b] are split the same way.  A front
+// wider than 8 CTAs' 2048 rows runs in windows (launch_windowed, below).
 //
 // Races: within a level the int ids of the fronts are disjoint, no front's
 // bnd ids are another front's int ids, and every CTA of a front reads x before
@@ -251,13 +252,14 @@ __device__ __forceinline__ void fold_stage(T (&v)[NV], int lane) {
 }
 
 // The update of one warp's 32 rows by panel p: returns, in lane r, the dot of
-// row 32 P + r's segment lu[32 P + r, p0:p0+32] with ys[p0:p0+32], seg as
+// row 32 P + r's segment lu[32 P + r, p0:p0+32] with y[p0:p0+32] (yp[j] =
+// y[p0 + j]), seg as
 // load_seg lays it out.  VEC: each lane sums its W rows over its columns,
 // the W lanes that share rows fold them (log2 W shuffles; lane g LR + c ends
 // with row c W + g), and one shuffle brings row r to lane r.
 template <typename T, bool VEC>
 __device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
-                                          const T* ys, int ni, int p0,
+                                          const T* yp, int ni, int p0,
                                           int lane) {
   if constexpr (VEC) {
     constexpr int W = Vec16<T>::n, LR = HS_C_PANEL / W;
@@ -268,7 +270,7 @@ __device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
 #pragma unroll
     for (int i = 0; i < LR; ++i) {
       const int col = p0 + i * W + g;
-      const T y = col < ni ? ys[col] : T(0);
+      const T y = col < ni ? yp[i * W + g] : T(0);
 #pragma unroll
       for (int e = 0; e < W; ++e) t[e] += seg[i * W + e] * y;
     }
@@ -283,8 +285,70 @@ __device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
     T acc = T(0);
 #pragma unroll
     for (int j = 0; j < HS_C_PANEL; ++j)
-      acc += seg[j] * (p0 + j < ni ? ys[p0 + j] : T(0));
+      acc += seg[j] * (p0 + j < ni ? yp[j] : T(0));
     return acc;
+  }
+}
+
+// One direction of the substitution over the panels [p_lo, p_hi) of a front
+// (fwd: unit lower, panels in increasing order; else upper, decreasing): warp
+// `warp` of CTA `rank` owns panel P (`owner`), lane = row r = 32 P + lane,
+// whose running value zr stays in a register; dgw holds P's staged diagonal
+// block (its cp.async group is waited for on the first call, `wait_stage`);
+// ys receives the solved values, in every CTA of the cluster: row i at
+// ys[i - y0] (a window's first row y0; the whole front: 0).
+template <typename T, bool VEC>
+__device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
+                                           int p_lo, int p_hi, bool fwd,
+                                           bool owner, int P, int r, int lane,
+                                           T& zr, T* ys, int y0, const T* dgw,
+                                           int cs, int rank, bool wait_stage) {
+  T seg[HS_C_PANEL];
+  const int npan = p_hi - p_lo;
+  // do panel P's rows take panel p's update in this direction?
+  auto takes = [&](int p) { return owner && (fwd ? P > p : P < p); };
+  int p = fwd ? p_lo : p_hi - 1;
+  if (takes(p)) load_seg<T, VEC>(A, ni, P, p, lane, seg);
+  if (owner && wait_stage) {
+    cp_async_wait_all();
+    __syncwarp();
+  }
+  for (int st = 0; st < npan; ++st, p += fwd ? 1 : -1) {
+    const int p0 = p * HS_C_PANEL;
+    const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
+    if (owner && P == p) {
+      // the staged block is 32 x 32 (identity-padded): no bounds, so its
+      // shared-memory reads leave the shuffle chain
+      T v = zr;
+      if (fwd) {
+#pragma unroll
+        for (int i = 0; i < HS_C_PANEL; ++i) {
+          const T yi = __shfl_sync(0xffffffffu, v, i);
+          if (lane > i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+        }
+      } else {
+        const T rd = T(1) / dgw[lane * HS_C_DG_LD + lane];
+#pragma unroll
+        for (int i = HS_C_PANEL - 1; i >= 0; --i) {
+          if (lane == i) v *= rd;
+          const T yi = __shfl_sync(0xffffffffu, v, i);
+          if (lane < i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+        }
+      }
+      zr = v;
+      if (lane < pw) {
+        ys[r - y0] = v;
+        if (cs > 1) {
+          cg::cluster_group cl = cg::this_cluster();
+          for (int c = 0; c < cs; ++c)
+            if (c != rank) cl.map_shared_rank(ys, c)[r - y0] = v;
+        }
+      }
+    }
+    front_sync(cs);
+    if (takes(p)) zr -= panel_update<T, VEC>(seg, ys + (p0 - y0), ni, p0, lane);
+    const int pn = p + (fwd ? 1 : -1);
+    if (st + 1 < npan && takes(pn)) load_seg<T, VEC>(A, ni, P, pn, lane, seg);
   }
 }
 
@@ -363,55 +427,9 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       }
       T zr = row_ok ? xs[(int)perm[b * ni + r]] : T(0);
       front_sync(cs);  // also: every CTA of the cluster has started
-      T seg[HS_C_PANEL];
-      for (int dir = 0; dir < 2; ++dir) {
-        const bool fwd = dir == 0;
-        // do panel P's rows take panel p's update in this direction?
-        auto takes = [&](int p) { return owner && (fwd ? P > p : P < p); };
-        int p = fwd ? 0 : npan - 1;
-        if (takes(p)) load_seg<T, VEC>(A, ni, P, p, lane, seg);
-        if (owner && dir == 0) {
-          cp_async_wait_all();
-          __syncwarp();
-        }
-        for (int st = 0; st < npan; ++st, p += fwd ? 1 : -1) {
-          const int p0 = p * HS_C_PANEL;
-          const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
-          if (owner && P == p) {
-            // the staged block is 32 x 32 (identity-padded): no bounds, so
-            // its shared-memory reads leave the shuffle chain
-            T v = zr;
-            if (fwd) {
-#pragma unroll
-              for (int i = 0; i < HS_C_PANEL; ++i) {
-                const T yi = __shfl_sync(0xffffffffu, v, i);
-                if (lane > i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
-              }
-            } else {
-              const T rd = T(1) / dgw[lane * HS_C_DG_LD + lane];
-#pragma unroll
-              for (int i = HS_C_PANEL - 1; i >= 0; --i) {
-                if (lane == i) v *= rd;
-                const T yi = __shfl_sync(0xffffffffu, v, i);
-                if (lane < i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
-              }
-            }
-            zr = v;
-            if (lane < pw) {
-              ys[r] = v;
-              if (cs > 1) {
-                cg::cluster_group cl = cg::this_cluster();
-                for (int c = 0; c < cs; ++c)
-                  if (c != rank) cl.map_shared_rank(ys, c)[r] = v;
-              }
-            }
-          }
-          front_sync(cs);
-          if (takes(p)) zr -= panel_update<T, VEC>(seg, ys, ni, p0, lane);
-          const int pn = p + (fwd ? 1 : -1);
-          if (st + 1 < npan && takes(pn)) load_seg<T, VEC>(A, ni, P, pn, lane, seg);
-        }
-      }
+      for (int dir = 0; dir < 2; ++dir)
+        substitute<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r, lane, zr, ys, 0,
+                           dgw, cs, rank, dir == 0);
       if (row_ok) {
         const int id = iid[r];
         if (id < N) C[(int64_t)id * k + q0] = zr;
@@ -420,6 +438,153 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
     // the next right-hand side reuses xs and ys; no CTA leaves while others
     // may still store into its shared memory
     front_sync(cs);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward step of a front wider than HS_C_WIN rows, in windows.
+//
+// A cluster holds at most 8 CTAs of 8 panel warps: 2048 rows.  A wider front
+// is cut into windows of at most HS_C_WIN rows, and the step runs as a
+// sequence of launches on the stream: gather (x and z = x[perm] into the
+// scratch X, Z [B][k][ni]), the update C[bnd] -= L x (row_dot_kernel), then
+// per window in order the window's substitution on its cluster
+// (window_solve_kernel: the panels of the window only, z in and out of Z)
+// and the update of the rows after it (unit lower, forward) or before it
+// (upper, backward) by the window's solved values (window_update_kernel:
+// z[rows] -= lu[rows, window] z[window], parallel over 32-row tiles and bound
+// by the bytes of lu).  The backward window writes its final rows to C[int].
+// With dinv the substitution is one row_dot_kernel, C[int] = dinv z.
+// ---------------------------------------------------------------------------
+#define HS_C_WIN (HS_C_PANEL * HS_C_MAX_PW * 8)  // rows per window: 2048
+
+template <typename T>
+__global__ void fwd_gather_kernel(const T* __restrict__ C,
+                                  const int* __restrict__ int_ids,
+                                  const long long* __restrict__ perm, T* X,
+                                  T* Z, long long B, int ni, int k, int N) {
+  const int64_t total = B * (int64_t)k * ni;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int i = (int)(e % ni);
+    const int64_t bq = e / ni;
+    const int q = (int)(bq % k);
+    const int64_t b = bq / k;
+    const int id = int_ids[b * ni + i];
+    X[e] = id < N ? C[(int64_t)id * k + q] : T(0);
+    const int j = perm != nullptr ? (int)perm[b * ni + i] : i;
+    const int idp = int_ids[b * ni + j];
+    Z[e] = idp < N ? C[(int64_t)idp * k + q] : T(0);
+  }
+}
+
+// C[ids[b][r]][q] -= M[b][r] . v[b][q] (store: =), M [B][R][ni] row-major,
+// v [B][k][ni]; ids >= N skipped; one CTA per (front, chunk of rows)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(HS_C_THREADS)
+row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
+               const T* v, int R, int ni, int k, int N, int split, int store) {
+  const int64_t b = blockIdx.x / split;
+  const int per = (R + split - 1) / split;
+  const int r_lo = (int)(blockIdx.x % split) * per;
+  const int r_hi = r_lo + per < R ? r_lo + per : R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gl = lane % HS_C_LPR, gi = lane / HS_C_LPR;
+  const int nwarps = blockDim.x >> 5;
+  for (int q = 0; q < k; ++q) {
+    for (int t0 = r_lo + warp * HS_C_RPW; t0 < r_hi; t0 += nwarps * HS_C_RPW) {
+      const int r = t0 + gi;
+      const int id = r < r_hi ? ids[b * R + r] : N;
+      T acc[HS_C_KMAX] = {};
+      if (id < N)
+        group_dot<T, VEC>(M + (b * R + r) * ni, v + (b * k + q) * ni, 0, ni,
+                          1, gl, acc);
+      group_sum(acc, 1);
+      if (id < N && gl == 0) {
+        if (store)
+          C[(int64_t)id * k + q] = acc[0];
+        else
+          atomicAdd(C + (int64_t)id * k + q, -acc[0]);
+      }
+    }
+  }
+}
+
+// One window's substitution: panels [p_lo, p_hi) of front b, right-hand side
+// blockIdx.y, on a cluster of cs CTAs (the panel ownership of
+// level_forward_kernel); z comes from and goes back to Z, and the backward
+// pass also stores its final rows in C[int].
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(HS_C_FWD_MAX)
+window_solve_kernel(T* Z, const T* __restrict__ lu, T* C,
+                    const int* __restrict__ int_ids, int ni, int k, int N,
+                    int p_lo, int p_hi, int fwd, int cs) {
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  T* ys = reinterpret_cast<T*>(hs_smem);  // [HS_C_WIN] the window's values
+  T* dg = ys + HS_C_WIN;                  // [warps][PANEL][DG_LD] diag blocks
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int64_t b = blockIdx.x / cs;
+  const int q = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* A = lu + b * ni * ni;
+  const int npw = own_count(p_lo, p_hi, rank, cs) / HS_C_PANEL;
+  const bool owner = warp < npw;                  // warp-uniform
+  const int P = first_own(p_lo, rank, cs) + warp * cs;
+  const int r = P * HS_C_PANEL + lane;
+  const bool row_ok = owner && r < ni;
+  T* dgw = dg + warp * HS_C_DG;
+  if (owner) {
+    stage_block(A, ni, P, dgw, lane);
+    cp_async_commit();
+  }
+  T* zb = Z + (b * k + q) * ni;
+  T zr = row_ok ? zb[r] : T(0);
+  front_sync(cs);  // also: every CTA of the cluster has started
+  substitute<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane, zr, ys,
+                     p_lo * HS_C_PANEL,
+                     dgw, cs, rank, true);
+  if (row_ok) {
+    zb[r] = zr;
+    const int id = int_ids[b * ni + r];
+    if (!fwd && id < N) C[(int64_t)id * k + q] = zr;
+  }
+  front_sync(cs);  // no CTA leaves while others may still store into its ys
+}
+
+// Z[b][q][r_lo:r_hi] -= lu[r_lo:r_hi, c_lo:c_hi] Z[b][q][c_lo:c_hi] (lu
+// column-major): one CTA per (front, 32 rows), lane = row, warp w sums its
+// eighth of the columns in order; the eight partial sums are added in warp
+// order, so the result does not depend on scheduling.
+template <typename T>
+__global__ void __launch_bounds__(256)
+window_update_kernel(T* Z, const T* __restrict__ lu, int ni, int k, int r_lo,
+                     int r_hi, int c_lo, int c_hi, int tiles) {
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  T* zs = reinterpret_cast<T*>(hs_smem);  // [c_hi - c_lo]
+  __shared__ T part[8][32];
+  const int64_t b = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x % tiles);
+  const int q = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nc = c_hi - c_lo;
+  T* zb = Z + (b * k + q) * ni;
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) zs[c] = zb[c_lo + c];
+  __syncthreads();
+  const int row = r_lo + tile * 32 + lane;
+  const int per = (nc + 7) / 8;
+  const int c0 = warp * per, c1 = c0 + per < nc ? c0 + per : nc;
+  T acc = T(0);
+  if (row < r_hi) {
+    const T* col = lu + b * ni * ni + (int64_t)(c_lo + c0) * ni + row;
+    for (int c = c0; c < c1; ++c, col += ni) acc += __ldg(col) * zs[c];
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && row < r_hi) {
+    T s = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) s += part[w][lane];
+    zb[row] -= s;
   }
 }
 
@@ -526,6 +691,110 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
   return cudaGetLastError();
 }
 
+template <typename T, bool VEC>
+static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
+                                   const T* L, const T* lu,
+                                   const long long* perm, const T* dinv, T* X,
+                                   T* Z, long long B, int ni, int nb, int k,
+                                   int N, cudaStream_t stream) {
+  static size_t granted_solve = 0, granted_update = 0;
+  const int64_t total = B * (int64_t)k * ni;
+  const unsigned gblocks = (unsigned)(total / 256 + 1 < 8192 ? total / 256 + 1
+                                                              : 8192);
+  fwd_gather_kernel<T><<<gblocks, 256, 0, stream>>>(
+      C, int_ids, dinv != nullptr ? nullptr : perm, X, Z, B, ni, k, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (nb > 0) {
+    const int split = (nb + HS_C_PANEL - 1) / HS_C_PANEL;
+    row_dot_kernel<T, VEC><<<(unsigned)(B * split), HS_C_THREADS, 0, stream>>>(
+        C, bnd_ids, L, X, nb, ni, k, N, split, 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (dinv != nullptr) {
+    const int split = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+    row_dot_kernel<T, VEC><<<(unsigned)(B * split), HS_C_THREADS, 0, stream>>>(
+        C, int_ids, dinv, Z, ni, ni, k, N, split, 1);
+    return cudaGetLastError();
+  }
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  const int wpan = HS_C_WIN / HS_C_PANEL;
+  const int nwin = (npan + wpan - 1) / wpan;
+  // the window's solved values only: the same whatever ni
+  const size_t smem_solve =
+      (size_t)(HS_C_WIN + HS_C_MAX_PW * HS_C_DG) * sizeof(T);
+  auto solve = window_solve_kernel<T, VEC>;
+  if ((err = allow_smem(solve, smem_solve, &granted_solve)) != cudaSuccess)
+    return err;
+  const size_t smem_update = (size_t)HS_C_WIN * sizeof(T);
+  auto update = window_update_kernel<T>;
+  if ((err = allow_smem(update, smem_update, &granted_update)) != cudaSuccess)
+    return err;
+  for (int dir = 0; dir < 2; ++dir) {
+    for (int s = 0; s < nwin; ++s) {
+      const int w = dir == 0 ? s : nwin - 1 - s;
+      const int p_lo = w * wpan, p_hi = p_lo + wpan < npan ? p_lo + wpan : npan;
+      const int cs = (p_hi - p_lo + HS_C_MAX_PW - 1) / HS_C_MAX_PW;
+      const int pw_cta = (p_hi - p_lo + cs - 1) / cs;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)(B * cs), (unsigned)k);
+      cfg.blockDim = dim3(32 * (pw_cta > 2 ? pw_cta : 2));
+      cfg.dynamicSmemBytes = smem_solve;
+      cfg.stream = stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)cs;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, solve, Z, lu, C, int_ids, ni, k, N, p_lo,
+                               p_hi, dir == 0, cs);
+      if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+      }
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      // the rows the window's values update: after it (forward), before it
+      // (backward)
+      const int c_lo = p_lo * HS_C_PANEL;
+      const int c_hi = p_hi * HS_C_PANEL < ni ? p_hi * HS_C_PANEL : ni;
+      const int r_lo = dir == 0 ? c_hi : 0, r_hi = dir == 0 ? ni : c_lo;
+      if (r_hi > r_lo) {
+        const int tiles = (r_hi - r_lo + 31) / 32;
+        update<<<dim3((unsigned)(B * tiles), (unsigned)k), 256,
+                 (size_t)(c_hi - c_lo) * sizeof(T), stream>>>(
+            Z, lu, ni, k, r_lo, r_hi, c_lo, c_hi, tiles);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+    }
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+static int level_forward_windowed(void* C, const void* int_ids,
+                                  const void* bnd_ids, const void* L,
+                                  const void* lu, const void* perm,
+                                  const void* dinv, void* X, void* Z,
+                                  long long B, int ni, int nb, int k, int N,
+                                  void* stream) {
+  if (B < 0 || ni < 0 || nb < 0 || k < 1 || X == nullptr || Z == nullptr ||
+      (dinv == nullptr && (lu == nullptr || perm == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || ni == 0) return (int)cudaSuccess;
+  const T* A = dinv != nullptr ? (const T*)dinv : (const T*)lu;
+  if (ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A))
+    return (int)launch_windowed<T, true>(
+        (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
+        (const T*)lu, (const long long*)perm, (const T*)dinv, (T*)X, (T*)Z, B,
+        ni, nb, k, N, (cudaStream_t)stream);
+  return (int)launch_windowed<T, false>(
+      (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
+      (const T*)lu, (const long long*)perm, (const T*)dinv, (T*)X, (T*)Z, B,
+      ni, nb, k, N, (cudaStream_t)stream);
+}
+
 template <typename T>
 static int level_forward(void* C, const void* int_ids, const void* bnd_ids,
                          const void* L, const void* lu, const void* perm,
@@ -595,6 +864,26 @@ HS_EXPORT int hs_level_forward_f32(void* C, const void* int_ids,
                                    int nb, int k, int N, int cs, void* stream) {
   return level_forward<float>(C, int_ids, bnd_ids, L, lu, perm, dinv, B, ni,
                               nb, k, N, cs, stream);
+}
+
+HS_EXPORT int hs_level_forward_windowed(void* C, const void* int_ids,
+                                        const void* bnd_ids, const void* L,
+                                        const void* lu, const void* perm,
+                                        const void* dinv, void* X, void* Z,
+                                        long long B, int ni, int nb, int k,
+                                        int N, void* stream) {
+  return level_forward_windowed<double>(C, int_ids, bnd_ids, L, lu, perm, dinv,
+                                        X, Z, B, ni, nb, k, N, stream);
+}
+
+HS_EXPORT int hs_level_forward_windowed_f32(void* C, const void* int_ids,
+                                            const void* bnd_ids, const void* L,
+                                            const void* lu, const void* perm,
+                                            const void* dinv, void* X, void* Z,
+                                            long long B, int ni, int nb, int k,
+                                            int N, void* stream) {
+  return level_forward_windowed<float>(C, int_ids, bnd_ids, L, lu, perm, dinv,
+                                       X, Z, B, ni, nb, k, N, stream);
 }
 
 HS_EXPORT int hs_sweep_update(void* C, const void* ids_out, const void* M,

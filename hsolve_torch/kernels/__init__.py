@@ -30,7 +30,10 @@ H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32 or float64 values (one C entry point
 per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.  Kernel C's
 forward step of a wide front runs on a thread block cluster
-(``cudaLaunchKernelEx``); kernel L is one cooperative launch
+(``cudaLaunchKernelEx``), and so does kernel K with several right-hand
+sides, whose operand tiles are TMA boxes of tensor maps (encoded through the
+driver entry point the runtime hands out: no link to libcuda); kernel L is
+one cooperative launch
 (``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
 card cannot hold its grid at once.
 
@@ -65,6 +68,7 @@ _SIGNATURES = {
     "hs_front_assemble": [_V, _V, _V, _V, _LL, _V],
     "hs_extend_add": [_V, _V, _V, _V, _V, _I, _I, _I, _V],
     "hs_level_forward": [_V] * 7 + [_LL] + [_I] * 5 + [_V],
+    "hs_level_forward_windowed": [_V] * 9 + [_LL] + [_I] * 4 + [_V],
     "hs_sweep_update": [_V] * 4 + [_LL] + [_I] * 5 + [_V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_lowrank_sweep_update": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I,
@@ -72,18 +76,19 @@ _SIGNATURES = {
     "hs_lowrank_schur_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _V],
     "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
                             _I, _V],
-    "hs_cpqr": [_V, _V, _V, _D, _D, _LL, _I, _I, _I, _V],
+    "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
     "hs_hss_entries": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I, _I, _I, _I,
                        _V],
     "hs_hss_matvec": [_V] * 11 + [_LL] + [_I] * 7 + [_V],
-    "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 6 + [_V],
+    "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 8 + [_V],
+    "hs_hss_level_correct_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
 }
 # A-D, L and M also take float32: the same signature under ``<name>_f32``
 TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
-         "hs_sweep_update", "hs_dia_spmv", "hs_arnoldi_cgs2",
-         "hs_arnoldi_givens")
+         "hs_level_forward_windowed", "hs_sweep_update", "hs_dia_spmv",
+         "hs_arnoldi_cgs2", "hs_arnoldi_givens")
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
 VALUE_TYPES = (torch.float32, torch.float64)
 

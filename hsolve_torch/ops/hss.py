@@ -660,24 +660,122 @@ def hss_level_correct_plain(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     return Y
 
 
-HSS_CORRECT_COLS = 8     # right-hand-side columns per block of kernel K
-HSS_CORRECT_MAX_SMEM = 227 * 1024   # a Hopper block's shared memory
+# kernel K's geometry (csrc/hss_level_correct.cu).  k = 1: one CTA per node,
+# the LU through a ring of 3 tiles of 32 rows by up to 64 columns.  k > 1: a
+# thread block cluster of cs CTAs per node, nc right-hand sides each, every
+# operand tile (up to 64 rows by 32 columns) multicast into a ring of
+# `stages` stages of 64 x 32 doubles (one TMA box); w [3r, nc + 4] stays
+# resident.
+HSS_CORRECT_PANEL, HSS_CORRECT_TILE_COLS = 32, 64
+HSS_CORRECT_STAGE = 64 * 32         # doubles per stage of the k > 1 ring
+HSS_CORRECT_MAX_COLS = 32           # right-hand sides per CTA, at most
+HSS_CORRECT_MAX_CLUSTER = 16        # CTAs per cluster (non-portable above 8)
+HSS_CORRECT_MAX_SMEM = 227 * 1024   # a Hopper CTA's shared memory
+
+
+def level_correct_tiles(r2: int) -> int:
+    """Tiles of a ``r2 x r2`` core's LU that kernel K streams: per 32-row
+    panel its off-diagonal tiles (up to 64 columns each) and its diagonal
+    block, for the lower triangle and again for the upper one."""
+    P, W = HSS_CORRECT_PANEL, HSS_CORRECT_TILE_COLS
+    n = 0
+    for p0 in range(0, r2, P):
+        n += -(-p0 // W) + 1 + -(-max(r2 - p0 - P, 0) // W) + 1
+    return n
+
+
+def level_correct_block_tiles(r: int, blk: int) -> int:
+    """Tiles of one node that the k > 1 kernel streams, each up to 64 rows
+    by a chunk of 32 columns: eta's rows of op(Bl) and op(Br), the LU's
+    (right-looking: per 32-row panel its diagonal block and the tiles of its
+    columns below, then above, the diagonal), and Phi's rows of both
+    children."""
+    R, P = 64, HSS_CORRECT_PANEL
+    n = 2 * -(-r // P) * (-(-r // R) + -(-blk // R))
+    for p0 in range(0, 2 * r, P):
+        n += 2 + -(-max(2 * r - p0 - P, 0) // R) + -(-p0 // R)
+    return n
+
+
+def level_correct_smem(r: int, nc: int, stages: int) -> int:
+    """Dynamic shared memory of a CTA of the k > 1 kernel: the ring, w
+    [3r, nc + 4], a diagonal block's 32 x 33 copy, the stages' two barriers
+    and the core's permutation."""
+    return (8 * (stages * HSS_CORRECT_STAGE + 3 * r * (nc + 4) + 32 * 33)
+            + 16 * stages + 8 * r)
+
+
+def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
+                           active: Optional[Callable[[int, int, int], int]] = None):
+    """``(nc, cs, groups, stages)`` of kernel K's launch for ``k > 1`` over
+    ``nodes`` nodes on a card of ``sms`` SMs: nc right-hand sides per CTA,
+    cs CTAs per thread block cluster, ``groups`` clusters per node and the
+    ring's stages (4, or 3, or 2 where only that fits).
+
+    Where every CTA fits on the card at once (``nodes ceil(k / 16) <= sms``)
+    the launch is latency-bound: 16 columns a CTA, and one cluster per node
+    (up to 16 CTAs) that reads the node's operands once, if the card holds
+    all of the clusters at once (``active(nc, cs, stages)``: how many it
+    holds; None: assume all), else clusters of 8, else none.  Otherwise it is
+    bound by the SMs' throughput: 32 columns a CTA and no cluster (``cs``
+    1), since a cluster of 9-16 CTAs of ~220 KB each leaves a GPC's other
+    SMs idle (measured on the H100: 1.4-1.7x slower than one CTA per 32
+    columns).  Fewer columns where shared memory is short.  Raises where no
+    geometry fits (r above 977)."""
+    M = HSS_CORRECT_MAX_SMEM
+    single = nodes * -(-k // 16) <= sms
+    want = 8 if k <= 8 else (16 if single else HSS_CORRECT_MAX_COLS)
+    nc = next((c for c in (32, 24, 16, 8, 4)
+               if c <= want and level_correct_smem(r, c, 3) <= M), 4)
+    stages = max((s for s in range(2, 5) if level_correct_smem(r, nc, s) <= M),
+                 default=0)
+    if not stages:
+        raise ValueError(f"hss_level_correct: rank {r} needs "
+                         f"{level_correct_smem(r, 4, 2)} bytes of shared "
+                         "memory for four right-hand sides")
+    ctas = -(-k // nc)
+    if single:
+        for cap in (HSS_CORRECT_MAX_CLUSTER, 8):
+            cs = min(cap, ctas)
+            groups = -(-k // (cs * nc))
+            if active is None or active(nc, cs, stages) >= nodes * groups:
+                return nc, cs, groups, stages
+    return nc, 1, ctas, stages
+
+
+_ACTIVE = {}
+
+
+def _active_clusters(nc: int, cs: int, stages: int, r: int) -> int:
+    """How many clusters of kernel K's geometry the card holds at once
+    (asked once per geometry)."""
+    key = (r, nc, cs, stages)
+    if key not in _ACTIVE:
+        _ACTIVE[key] = kernels.lib().hs_hss_level_correct_clusters(
+            r, nc, cs, stages)
+    return _ACTIVE[key]
+
+
+def level_correct_launch(r: int, k: int, nodes: int, device: torch.device):
+    """:func:`level_correct_geometry` on ``device``: its SM count and the
+    clusters it holds at once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return level_correct_geometry(
+        r, k, nodes, sms, lambda nc, cs, st: _active_clusters(nc, cs, st, r))
 
 
 def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
                       Br: torch.Tensor, lu: torch.Tensor, piv: torch.Tensor,
                       Phi: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """Kernel K wrapper (see the plain version): one block per (node, tile of
-    ``HSS_CORRECT_COLS`` columns) stages the core LU in shared memory, forms
-    eta, solves and corrects both children's rows of ``Y`` in place."""
+    """Kernel K wrapper (see the plain version): k = 1, one CTA per node;
+    k > 1, CTAs of up to 32 columns, a node's on one thread block cluster
+    where the launch fits the card at once (:func:`level_correct_geometry`).
+    Either forms eta, streams the core LU through shared memory for the
+    pivoted solve and corrects both children's rows of ``Y`` in place."""
     if kernels.on_cpu(Y, xi, Bl, lu):
         return hss_level_correct_plain(Y, xi, Bl, Br, lu, piv, Phi, transpose)
     Bn, n_pad, k = Y.shape
     m, r = Bl.shape[1], Bl.shape[-1]
-    smem = 8 * (4 * r * HSS_CORRECT_COLS + 2 * r * (2 * r + 1)) + 4 * 2 * r
-    if smem > HSS_CORRECT_MAX_SMEM:
-        raise ValueError(f"hss_level_correct: rank {r} needs {smem} bytes of "
-                         f"shared memory, above {HSS_CORRECT_MAX_SMEM}")
     kernels.require(Y, "Y", torch.float64)
     kernels.require(xi, "xi", torch.float64, (Bn, 2 * m, r, k))
     kernels.require(Bl, "Bl", torch.float64, (Bn, m, r, r))
@@ -685,11 +783,18 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     kernels.require(lu, "lu", torch.float64, (Bn, m, 2 * r, 2 * r))
     kernels.require(piv, "piv", torch.int64, (Bn, m, 2 * r))
     kernels.require(Phi, "Phi", torch.float64, (Bn, n_pad, r))
+    nc = cs = stages = 0
+    if k > 1:
+        # the tensor maps take 16-byte aligned bases and row strides
+        if r % 2 or any(t.data_ptr() % 16 for t in (Bl, Br, lu, Phi)):
+            raise ValueError(f"hss_level_correct: k = {k} > 1 needs an even "
+                             f"rank (got {r}) and 16-byte aligned operands")
+        nc, cs, _, stages = level_correct_launch(r, k, Bn * m, Y.device)
     if Bn * m and k:
         kernels.launch("hs_hss_level_correct", Y.device, Y.data_ptr(),
                        xi.data_ptr(), Bl.data_ptr(), Br.data_ptr(),
                        lu.data_ptr(), piv.data_ptr(), Phi.data_ptr(), Bn, m, r,
-                       n_pad // (2 * m), k, HSS_CORRECT_COLS, int(transpose))
+                       n_pad // (2 * m), k, nc, cs, stages, int(transpose))
         hss_level_correct.launches += 1
     return Y
 

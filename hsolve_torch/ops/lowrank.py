@@ -156,26 +156,51 @@ def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
     return piv, rank
 
 
-# shared memory a block of kernel H may take (the matrix lives there whole)
-CPQR_MAX_SMEM = 200 * 1024
+# dynamic shared memory a CTA of kernel H may take: a Hopper CTA's 227 KB
+# less a margin for the kernel's static arrays
+CPQR_MAX_SMEM = 227 * 1024 - 1024
+CPQR_CLUSTERS = (1, 2, 4, 8)     # portable thread block cluster sizes
+
+
+def cpqr_smem(m: int, n: int, cs: int, resident: bool = True) -> int:
+    """Dynamic shared memory of one CTA of kernel H when a cluster of ``cs``
+    CTAs shares an ``[m, n]`` matrix: its ``ceil(n / cs)`` columns (where
+    ``resident``), their norms and coefficients, and the pivot direction."""
+    w = -(-n // cs)
+    return 8 * ((m * w if resident else 0) + 2 * w + m)
+
+
+def cpqr_cluster(m: int, n: int):
+    """``(cs, resident)``: kernel H spreads one ``[m, n]`` matrix's columns
+    over the fewest CTAs of a cluster whose shared memory holds them; a
+    matrix that 8 CTAs cannot hold keeps them in a global scratch copy
+    (``resident`` False) on a cluster of 8."""
+    for cs in CPQR_CLUSTERS:
+        if cpqr_smem(m, n, cs) <= CPQR_MAX_SMEM:
+            return cs, True
+    return CPQR_CLUSTERS[-1], False
 
 
 def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
     """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64,
-    one matrix per block, held whole in shared memory."""
+    each matrix's columns spread over a thread block cluster
+    (:func:`cpqr_cluster`)."""
     if kernels.on_cpu(A):
         return cpqr_pivots_plain(A, atol, rtol, k)
     Bn, m, n = A.shape
     kernels.require(A, "A", torch.float64)
-    smem = 8 * (m * n + 2 * n + m) + 64
-    if smem > CPQR_MAX_SMEM:
-        raise ValueError(f"cpqr: a [{m}, {n}] matrix needs {smem} bytes of shared "
-                         f"memory, above the kernel's {CPQR_MAX_SMEM}")
     piv = torch.empty((Bn, k), dtype=torch.int32, device=A.device)
     rank = torch.empty((Bn,), dtype=torch.int32, device=A.device)
     if Bn and k:
+        cs, resident = cpqr_cluster(m, n)
+        if cpqr_smem(m, n, cs, resident) > CPQR_MAX_SMEM:
+            raise ValueError(f"cpqr: a [{m}, {n}] matrix's norms and pivot "
+                             "direction alone exceed a CTA's shared memory")
+        work = None if resident else torch.empty(
+            (Bn * cs, m, -(-n // cs)), dtype=A.dtype, device=A.device)
         kernels.launch("hs_cpqr", A.device, A.data_ptr(), piv.data_ptr(),
-                       rank.data_ptr(), float(atol), float(rtol), Bn, m, n, k)
+                       rank.data_ptr(), None if work is None else work.data_ptr(),
+                       float(atol), float(rtol), Bn, m, n, k, cs)
         cpqr_pivots.launches += 1
     elif Bn:
         rank.zero_()

@@ -36,17 +36,36 @@ MAX_CLUSTER = 8     # the portable thread block cluster size
 SPLIT_ROWS = 32     # a backward front gets one CTA per this many rows
 
 
+WINDOW_ROWS = MAX_CLUSTER * PANEL_WARPS * PANEL   # 2048: one cluster's rows
+
+
 def forward_cluster(ni_pad: int) -> int:
     """CTAs (a thread block cluster) that kernel C's forward step spreads one
-    front of ``ni_pad`` interior rows over: one warp per 32-row panel, at
-    most 8 panels per CTA, so one CTA up to 256 rows, 2 for 512, 4 for 1024.
-    Raises past 8 CTAs (2048 rows)."""
-    cs = max(1, -(-(-(-ni_pad // PANEL)) // PANEL_WARPS))
-    if cs > MAX_CLUSTER:
-        raise ValueError(f"ni_pad={ni_pad}: kernel C's forward step takes at "
-                         f"most {MAX_CLUSTER * PANEL_WARPS * PANEL} interior "
-                         "rows per front")
-    return cs
+    front of ``ni_pad <= WINDOW_ROWS`` interior rows over: one warp per
+    32-row panel, at most 8 panels per CTA, so one CTA up to 256 rows, 2 for
+    512, 4 for 1024, 8 for 2048."""
+    return max(1, -(-(-(-ni_pad // PANEL)) // PANEL_WARPS))
+
+
+def forward_windows(ni_pad: int):
+    """The windows of kernel C's forward step: ``[(row0, row1, cluster)]``.
+    A front of up to ``WINDOW_ROWS`` rows is one window, solved by one launch
+    on a cluster of :func:`forward_cluster` CTAs.  A wider one runs as a
+    sequence of launches (``hs_level_forward_windowed``): per window of at
+    most ``WINDOW_ROWS`` rows, in order, the window's substitution on its
+    own cluster, then the update of the rows after it by its solved values
+    (and back again for the upper triangle)."""
+    step = WINDOW_ROWS
+    return [(r0, min(r0 + step, ni_pad), forward_cluster(min(r0 + step, ni_pad)
+                                                          - r0))
+            for r0 in range(0, max(ni_pad, 1), step)]
+
+
+def forward_window_smem(itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of a window's substitution: the
+    window's solved values and the 8 panel warps' staged 32 x 33 diagonal
+    blocks.  The same whatever the front's width."""
+    return (WINDOW_ROWS + PANEL_WARPS * PANEL * 33) * itemsize
 
 
 def backward_split(ni_pad: int) -> int:
@@ -98,8 +117,10 @@ def level_forward_plain(C: torch.Tensor, lev, N: int) -> torch.Tensor:
 
 def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
     """Kernel C's forward step (in place on ``C``; see the plain version):
-    one launch per level, the pivot solve included.  The kernel takes ``lu``
-    column-major (as the LU returns it) and ``L``, ``dinv`` row-major."""
+    one launch per level, the pivot solve included, or for fronts wider than
+    ``WINDOW_ROWS`` one launch sequence by windows (:func:`forward_windows`).
+    The kernel takes ``lu`` column-major (as the LU returns it) and ``L``,
+    ``dinv`` row-major."""
     A = lev.dinv if lev.dinv is not None else lev.lu
     operands = [C, lev.L, lev.int_ids, lev.bnd_ids, A] + (
         [] if lev.dinv is not None else [lev.perm])
@@ -123,15 +144,23 @@ def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
     if lev.dinv is None:
         kernels.require(lev.perm, "perm", torch.int64, (B, ni))
         perm = lev.perm.data_ptr()
-    if B * ni and k:
-        kernels.launch(kernels.symbol("hs_level_forward", dt), C.device,
-                       C.data_ptr(), lev.int_ids.data_ptr(),
-                       lev.bnd_ids.data_ptr(), lev.L.data_ptr(),
-                       None if lev.dinv is not None else lev.lu.data_ptr(),
-                       perm,
-                       None if lev.dinv is None else lev.dinv.data_ptr(),
-                       B, ni, nb, k, N, forward_cluster(ni))
-        kernels.count_launch(level_forward, dt)
+    if not B * ni or not k:
+        return C
+    lu = None if lev.dinv is not None else lev.lu.data_ptr()
+    dinv = None if lev.dinv is None else lev.dinv.data_ptr()
+    ptrs = (C.data_ptr(), lev.int_ids.data_ptr(), lev.bnd_ids.data_ptr(),
+            lev.L.data_ptr(), lu, perm, dinv)
+    windows = forward_windows(ni)
+    if len(windows) == 1:
+        kernels.launch(kernels.symbol("hs_level_forward", dt), C.device, *ptrs,
+                       B, ni, nb, k, N, windows[0][2])
+    else:
+        # x and z = x[perm] per window pass go through this scratch
+        XZ = torch.empty((2, B, k, ni), dtype=dt, device=C.device)
+        kernels.launch(kernels.symbol("hs_level_forward_windowed", dt),
+                       C.device, *ptrs, XZ[0].data_ptr(), XZ[1].data_ptr(), B,
+                       ni, nb, k, N)
+    kernels.count_launch(level_forward, dt)
     return C
 
 

@@ -253,10 +253,12 @@ def structured_factor_batch(sh1: SchurHss, sh2: SchurHss,
         int_ids=int_ids, bnd_ids=bnd_ids, h1=h1, h2=h2)
 
     # --- exact skinny Gauss transforms ---
-    r = sh1.h.r
+    # The children's ranks r1 = sh1.h.r and r2 = sh2.h.r may differ (they come
+    # from batches with other caps), so the column groups sit side by side,
+    # r1 + r2 + rib12 + rib21 wide.  The JAX package places child 2's group
+    # at column r1 in a width of 2 r1 + ...: the same product where r2 <= r1,
+    # but where r2 > r1 its group overlaps the cross groups' columns.
     Bn = n1.shape[0]
-    rib12, rib21 = Uib12.shape[-1], Uib21.shape[-1]
-    rbi12, rbi21 = Ubi12.shape[-1], Ubi21.shape[-1]
 
     def blocks_of(rows_total, parts):
         """Column groups ``(A, row offset)`` side by side, zero elsewhere."""
@@ -273,8 +275,6 @@ def structured_factor_batch(sh1: SchurHss, sh2: SchurHss,
     # Abi = AbiU AbiV^T
     AbiU = blocks_of(q1 + q2, [(Ub1, 0), (Ub2, q1), (Ubi12, 0), (Ubi21, q1)])
     AbiV = blocks_of(h1 + h2, [(V1a, 0), (V2a, h1), (Vbi12, h1), (Vbi21, 0)])
-    assert AibU.shape[-1] == 2 * r + rib12 + rib21
-    assert AbiU.shape[-1] == 2 * r + rbi12 + rbi21
 
     RU = d_apply(lev, AibU).contiguous()                 # R = (D^-1 AibU) AibV^T
     LV = d_apply(lev, AbiV, adjoint=True).contiguous()   # L = AbiU (D^-T AbiV)^T

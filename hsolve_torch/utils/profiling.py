@@ -3,7 +3,8 @@
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
-                                            [--compressed | --hss | --mixed]
+                                            [--compressed | --hss | --mixed
+                                             | --spmv]
                                             [--plain-forward]
                                             [--out build/profile]
 
@@ -20,6 +21,12 @@ right preconditioner, the DIA matvec):
 - device busy time per phase under ``torch.profiler`` (sum of kernel self
   time), and the device idle share 1 - busy / wall,
 - the kernels that take the most device time, by name.
+
+``--spmv`` instead times the matvec alone on the device: kernel D
+(``dia_spmv``) and cuSPARSE's CSR ``torch.mv`` on the same x, in float32 and
+float64, as the sum of their kernels' device time under the profiler over
+``--reps`` back-to-back calls (at least 100), so no host time is in the
+reading.
 
 ``--plain-forward`` runs each dense level's forward step as its plain torch
 version (the gather, GEMM, index_put and triangular solves that kernel C's
@@ -72,6 +79,42 @@ def _profile(fn, reps, trace):
     return rows
 
 
+def _spmv(args, card, dev) -> int:
+    """``--spmv``: device ms per call of kernel D and of the CSR ``mv``."""
+    import numpy as np
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.ops.sparse import dia_spmv
+
+    reps = max(args.reps, 100)
+    report = {"card": card, "path": "spmv", "reps": reps, "sizes": []}
+    for n in args.sizes:
+        A, _, _ = ht.helmholtz2d(n, k=40.0)
+        Ac = A.tocsr()
+        entry = {"n": n, "N": int(A.shape[0]), "nnz": int(Ac.nnz)}
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            op, _ = ht.spmv_format(A, dtype=np.dtype(dname), device=dev)
+            csr = torch.sparse_csr_tensor(
+                torch.as_tensor(Ac.indptr.astype(np.int64)),
+                torch.as_tensor(Ac.indices.astype(np.int64)),
+                torch.as_tensor(Ac.data), size=Ac.shape).to(device=dev, dtype=dt)
+            x = torch.randn(A.shape[0], 1, dtype=dt, device=dev)
+            for name, fn in (("dia_spmv", lambda: dia_spmv(op, x)),
+                             ("csr_mv", lambda: torch.mv(csr, x[:, 0]))):
+                fn()
+                rows = _profile(fn, reps, os.path.join(
+                    args.out, f"spmv_n{n}_{name}_{dname}.json"))
+                ms = sum(r["ms"] for r in rows)
+                entry[f"{name}:{dname}"] = {"device_ms": ms, "kernels": rows}
+                print(f"spmv n={n} {name} {dname}: {ms:.5f} ms device per call "
+                      f"({', '.join(r['name'][:40] for r in rows)})", flush=True)
+        report["sizes"].append(entry)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
@@ -86,6 +129,8 @@ def main() -> int:
     mode.add_argument("--mixed", action="store_true",
                       help="profile the float32 exact factor with "
                            "mixed-precision GMRES")
+    mode.add_argument("--spmv", action="store_true",
+                      help="device time of kernel D and of the CSR matvec")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
@@ -115,6 +160,8 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     kernels.build()
+    if args.spmv:
+        return _spmv(args, card, dev)
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
     report = {"card": card, "path": path,

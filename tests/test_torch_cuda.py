@@ -107,18 +107,24 @@ def _hand_level(dev, dtype, B, ni, nb, N, seed, shared_bnd=False):
 
 def _level_steps_agree(dev, lev, N, k, tol, seed=0):
     """Kernel C's forward step (lu and dinv records) and backward step
-    against their plain versions on one level, one launch each."""
+    against their plain versions on one level, one launch each; the forward
+    step's interior rows (the solve) relative to max |x'| over them, its
+    boundary rows (C[bnd] -= L x) relative to their own largest value."""
     rng = np.random.default_rng(seed)
     C = torch.as_tensor(rng.standard_normal((N + 1, k)), dtype=lev.L.dtype,
                         device=dev)
     C[N] = 0.0
     inv = dataclasses.replace(lev, lu=None, perm=None, dinv=dk.lu_inverse(
         lev.lu, lev.perm).contiguous())
+    rows = lev.int_ids[lev.int_ids < N].long()
+    bnd = lev.bnd_ids[lev.bnd_ids < N].long()
     for rec in (lev, inv):
         before = level_forward.launches
         got = level_forward(C.clone(), rec, N)
         assert level_forward.launches == before + 1
         want = level_forward_plain(C.clone(), rec, N)
+        assert _rel(got[rows], want[rows]) < tol
+        assert _rel(got[bnd], want[bnd]) < tol
         assert _rel(got, want) < tol
         assert float(got[N].abs().max()) == 0.0
     before = sweep_update.launches
@@ -150,6 +156,28 @@ def test_level_steps_on_a_wide_front(dev, dtype, tol, ni, nb):
     lev = _hand_level(dev, dtype, B=1, ni=ni, nb=nb, N=3000, seed=ni)
     _level_steps_agree(dev, lev, 3000, 1, tol)
     _level_steps_agree(dev, lev, 3000, 3, tol, seed=1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,ni,nb", [(2, 2080, 40), (1, 4424, 24)])
+def test_level_forward_in_windows_above_2048_rows(dev, dtype, tol, B, ni, nb):
+    """Fronts wider than one cluster's 2048 rows: two fronts of 2080 (two
+    windows) and the 4424-row top front of helmholtz3d(48) exact (three
+    windows, the last of 328 rows) against the plain versions, one wrapper
+    call each."""
+    N = B * (ni + nb) + 50
+    lev = _hand_level(dev, dtype, B=B, ni=ni, nb=nb, N=N, seed=ni)
+    _level_steps_agree(dev, lev, N, 1, tol)
+    _level_steps_agree(dev, lev, N, 2, tol, seed=1)
+
+
+def test_level_forward_in_windows_above_20600_rows(dev):
+    """A float64 front of 20,608 rows (11 windows), whose solved values no
+    longer fit one CTA's shared memory: each window keeps only its own."""
+    N = 20608 + 24 + 50
+    lev = _hand_level(dev, torch.float64, B=1, ni=20608, nb=24, N=N, seed=5)
+    _level_steps_agree(dev, lev, N, 1, 1e-12)
 
 
 def test_level_forward_with_boundary_ids_shared_by_fronts(dev):
@@ -343,6 +371,25 @@ def test_cpqr_kernel_selects_the_plain_pivots(dev, m, n, k):
             assert int(rank[2]) == 0
 
 
+@pytest.mark.parametrize("m,n,k", [(202, 384, 192), (394, 768, 384)])
+def test_cpqr_kernel_on_the_default_caps_panels(dev, m, n, k):
+    """Kernel H on the largest panel of the default n=512 plan ([202, 384]:
+    a cluster of 4 CTAs) and of its first adaptive replan ([394, 768]: a
+    cluster of 8 with the columns in global memory): the plain pivots and
+    ranks."""
+    from hsolve_torch.ops.lowrank import cpqr_cluster
+
+    assert cpqr_cluster(m, n)[0] > 1
+    rng = np.random.default_rng(m)
+    A = rng.standard_normal((5, m, n)) * 0.97 ** np.arange(n)
+    A[1, :, 7] = A[1, :, 3]
+    A = torch.as_tensor(A, device=dev)
+    for tol in (1e-3, 1e-9):
+        piv, rank = cpqr_pivots(A, tol, tol, k)
+        ppiv, prank = cpqr_pivots_plain(A, tol, tol, k)
+        assert torch.equal(rank, prank) and torch.equal(piv, ppiv)
+
+
 def _hss_on(dev, depth=3, ls=16, cap=12, B=2, seed=0):
     """A batch of HSS matrices compressed from smooth dense ones on ``dev``."""
     rng = np.random.default_rng(seed)
@@ -419,6 +466,57 @@ def test_hss_level_correct_kernel_and_solve(dev, k):
         op = dense.transpose(-1, -2) if adj else dense
         assert _rel(op @ Y, x) < 1e-10
         assert _rel(H.hss_solve(sol, x, adj), Y) < 1e-13
+
+
+@pytest.mark.parametrize("r", [48, 96, 192])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_hss_level_correct_kernel_at_default_ranks(dev, r, adjoint):
+    """Kernel K on random operands of rank r (cores 96, 192 and 384 wide),
+    three nodes, k = 1 (the solve), k = 3 (one partial 8-column block on the
+    tensor cores) and k = r (hss_factor: several column tiles where r > 32),
+    against its plain version."""
+    rng = np.random.default_rng(r + adjoint)
+    B, m, blk = 3, 1, r + 5
+    t = lambda a: torch.as_tensor(a, device=dev)
+    M = np.eye(2 * r) + rng.standard_normal((B, m, 2 * r, 2 * r)) / (
+        4 * np.sqrt(2 * r))
+    lu, piv = dk.lu_factor(t(M))
+    Bl, Br = (t(rng.standard_normal((B, m, r, r))) for _ in range(2))
+    Phi = t(rng.standard_normal((B, 2 * m * blk, r)))
+    for k in (1, 3, r):
+        Y = t(rng.standard_normal((B, 2 * m * blk, k)))
+        xi = t(rng.standard_normal((B, 2 * m, r, k)))
+        args = (xi, Bl, Br, lu.contiguous(), piv.contiguous(), Phi, adjoint)
+        want = H.hss_level_correct_plain(Y.clone(), *args)
+        before = H.hss_level_correct.launches
+        got = H.hss_level_correct(Y.clone(), *args)
+        assert H.hss_level_correct.launches == before + 1
+        assert _rel(got, want) < 1e-13
+
+
+def test_structured_slice_at_the_default_caps_on_cuda(dev):
+    """The structured path with every option at its default but the
+    switching level and tolerances (no kest): helmholtz2d(128), where
+    children of ranks 48 and 32 meet, converges through all eleven
+    kernels."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(128, k=40.0)
+    tree = ht.nested_dissection(shape, leafmax=100)
+    kernels.reset_launch_counts()
+    F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                  device=dev)
+    op, mv = ht.spmv_format(A, device=dev)
+    xg, info = ht.gmres_compiled(mv, solve_with_data,
+                                 torch.as_tensor(b, device=dev), reltol=1e-9,
+                                 restart=30, maxiter=60, mv_data=op,
+                                 M_data=F.solve_data)
+    assert info["converged"] and info["iters"] <= 10
+    xg = xg.cpu().numpy()
+    assert np.linalg.norm(A @ xg - b) / np.linalg.norm(b) < 1e-9
+    assert not F.rank_report()["saturated"]
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in kernels.HSS_PATH), counts
 
 
 def test_structured_slice_on_cuda(dev):

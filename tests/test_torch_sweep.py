@@ -27,7 +27,10 @@ import torch
 import hsolve
 from hsolve_torch.interop import factorization_from_numpy
 from hsolve_torch.ops import arnoldi as AR
-from hsolve_torch.ops.sweep import (backward_split, forward_cluster,
+from hsolve_torch.ops import dense as dk
+from hsolve_torch.ops.sweep import (WINDOW_ROWS, backward_split,
+                                    forward_cluster, forward_window_smem,
+                                    forward_windows,
                                     level_forward, sweep_update)
 
 torch.set_num_threads(1)
@@ -103,13 +106,69 @@ def test_backward_step_matches_jax_per_level(k, dtype):
 def test_kernel_c_cluster_and_split_per_level(ni_pad, cs, split):
     """The forward step gives each 32-row panel a warp, 8 per CTA: one CTA
     per front up to 256 rows, a cluster of 2 at 512 and 4 at 1024, at most 8
-    (the portable size); the backward step takes one CTA per 32 output
-    rows."""
+    (the portable size), one window; the backward step takes one CTA per 32
+    output rows."""
     assert forward_cluster(ni_pad) == cs
     assert backward_split(ni_pad) == split
-    if cs == 8:
-        with pytest.raises(ValueError, match="at most 2048"):
-            forward_cluster(ni_pad + 1)
+    assert forward_windows(ni_pad) == [(0, ni_pad, cs)]
+    if cs == 8:      # one row more takes a second window
+        assert forward_windows(ni_pad + 1) == [(0, 2048, 8), (2048, 2049, 1)]
+
+
+@pytest.mark.parametrize("ni_pad,windows", [
+    (2049, [(0, 2048, 8), (2048, 2049, 1)]),
+    (4096, [(0, 2048, 8), (2048, 4096, 8)]),
+    (4424, [(0, 2048, 8), (2048, 4096, 8), (4096, 4424, 2)])])
+def test_kernel_c_forward_windows_above_2048_rows(ni_pad, windows):
+    """A front wider than one cluster's 2048 rows (helmholtz3d(48) exact has
+    a 4424-row top front) runs in windows of at most 2048 rows, each on its
+    own cluster, that cover the front in order."""
+    assert forward_windows(ni_pad) == windows
+    assert all(r1 - r0 <= WINDOW_ROWS for r0, r1, _ in windows)
+
+
+@pytest.mark.parametrize("ni_pad", [2049, 4424, 20608, 49664, 100000])
+def test_kernel_c_window_shared_memory_does_not_grow(ni_pad):
+    """A window's substitution keeps only its own rows' solved values in
+    shared memory, so fronts far wider than 20,600 rows (float64) or 49,600
+    (float32), whose LU still fits on the card, take the same shared memory
+    as a front of 2049 rows, within a CTA's 227 KB."""
+    wins = forward_windows(ni_pad)
+    assert len(wins) == -(-ni_pad // WINDOW_ROWS)
+    assert wins[-1][1] == ni_pad
+    for itemsize in (4, 8):
+        assert forward_window_smem(itemsize) <= 227 * 1024
+        assert forward_window_smem(itemsize) == \
+            (min(ni_pad, WINDOW_ROWS) + 8 * 32 * 33) * itemsize
+
+
+@pytest.mark.parametrize("ni", [2049, 4424])
+def test_windowed_substitution_is_the_lu_solve(ni):
+    """The windowed order of kernel C's forward step, written out in torch on
+    the CPU (per window: its substitution, then the update of the rows
+    after it by its solved values; then back again for the upper
+    triangle), gives ``lu_solve`` to 1e-12 relative on a diagonally
+    dominant front."""
+    g = torch.Generator().manual_seed(ni)
+    D = torch.randn(ni, ni, generator=g, dtype=torch.float64) / ni ** 0.5 \
+        + 4.0 * torch.eye(ni, dtype=torch.float64)
+    lu, perm = dk.lu_factor(D[None])
+    lu, perm = lu[0], perm[0]
+    x = torch.randn(ni, generator=g, dtype=torch.float64)
+    z = x[perm].clone()
+    Lo = torch.tril(lu, -1) + torch.eye(ni, dtype=torch.float64)
+    Up = torch.triu(lu)
+    wins = forward_windows(ni)
+    for r0, r1, _ in wins:
+        z[r0:r1] = torch.linalg.solve_triangular(Lo[r0:r1, r0:r1], z[r0:r1, None],
+                                                 upper=False)[:, 0]
+        z[r1:] -= Lo[r1:, r0:r1] @ z[r0:r1]
+    for r0, r1, _ in reversed(wins):
+        z[r0:r1] = torch.linalg.solve_triangular(Up[r0:r1, r0:r1], z[r0:r1, None],
+                                                 upper=True)[:, 0]
+        z[:r0] -= Up[:r0, r0:r1] @ z[r0:r1]
+    ref = dk.lu_solve(lu[None], perm[None], x[None, :, None])[0, :, 0]
+    assert _rel(z.numpy(), ref.numpy()) < 1e-12
 
 
 @pytest.mark.parametrize("N,nb", [(5003, 5), (16129, 16), (261121, 132),
