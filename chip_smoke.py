@@ -15,7 +15,7 @@ Phases (any failure exits non-zero before the result line is printed):
    shapes and is held against its plain torch version on the same inputs
    (A, B and G bitwise, H with equal pivots and ranks, C's backward step, D,
    E, F, I, J and K to a relative error of 1e-13, since only the summation
-   order differs; C's forward step, whose substitution rounds in another
+   order differs (float32: 1e-5; C accumulates in float64 in both types); C's forward step, whose substitution rounds in another
    order than cuBLAS's, to 1e-12 of max |x'| times the level's pivot-growth
    proxy, printed beside it); each is timed on the device (back-to-back calls
    between one pair of CUDA events, divided by the count, after warm-up)
@@ -34,10 +34,14 @@ Phases (any failure exits non-zero before the result line is printed):
    compressed plan, G on both sides of the first; H and K at every distinct
    launch shape of the structured (HSS) plans' factor and of one
    preconditioner application, kest=32 and the default rank caps, on inputs
-   captured there (one log line per shape); I and J on
-   the HSS operands of the first and the top structured batch of the kest=32
-   plan (I on a leaf and a B12 extraction, J forward and adjoint at the
-   sketch width and at k=1); L and M on Arnoldi steps j = 0 and j = 29 captured from a
+   captured there (one log line per shape, then the count of shapes where
+   the kernel is slower than its plain version and the times summed over the
+   shapes), I and J likewise (J's capture patches
+   ``hsolve_torch.structured.hss_matvec``, which the structured code calls;
+   I's NaN for out-of-range indices where its plain version has them), after
+   I and J on the HSS operands of the first and the top structured batch of
+   the kest=32 plan (I on a leaf and a B12 extraction, J forward and adjoint
+   at the sketch width and at k=1: the kernel table's shapes); L and M on Arnoldi steps j = 0 and j = 29 captured from a
    30-step cycle on the n=512 operator, in float64 and float32 (1e-13 and
    1e-5; M's rotations, done flag, divisor and coefficients bit for bit);
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
@@ -635,23 +639,26 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
 
 def _hss_captures(plan, tp, opts, dev, b):
     """Factor ``plan`` (structured) and apply the factor once to ``b``,
-    recording the first inputs of every distinct launch shape of kernels H
-    and K (H: ``(B, m, n, k)``; K: ``(nodes, r, blk, k, transpose)``), each
-    tagged with the batch that first gave it; returns ``(levels, cpqr calls,
-    level-correction calls)``."""
+    recording the first inputs of every distinct launch shape of kernels H,
+    K, J and I (H: ``(B, m, n, k)``; K: ``(nodes, r, blk, k, transpose)``;
+    J: ``(B, nleaves, ls, r, depth, k, adjoint)``; I: ``(B, M, p, q, n_pad,
+    ls, r, depth)``), each tagged with the batch that first gave it; returns
+    ``(levels, cpqr calls, level-correction calls, matvec calls, entries
+    calls)``."""
     import importlib
 
     import torch
 
+    import hsolve_torch.structured as S
     from hsolve_torch.factor import Factorization, _factor_levels
     from hsolve_torch.ops import hss as H
     from hsolve_torch.ops import lowrank as L
 
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
     where = {"tag": "solve"}
-    hcalls, kcalls = {}, {}
+    hcalls, kcalls, jcalls, icalls = {}, {}, {}, {}
     orig = (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
-            fm.transition_compress)
+            fm.transition_compress, S.hss_matvec, S.hss_entries_prepared)
 
     def cpqr_rec(Am, atol, rtol, k):
         key = (*Am.shape, k)
@@ -667,6 +674,21 @@ def _hss_captures(plan, tp, opts, dev, b):
                            (xi, Bl, Br, lu, piv, Phi, transpose))
         return orig[1](Y, xi, Bl, Br, lu, piv, Phi, transpose)
 
+    def matvec_rec(h, x, adjoint=False):
+        p_ = h.plan
+        key = (h.B, p_.nleaves, p_.ls, h.r, p_.depth, x.shape[-1],
+               bool(adjoint))
+        if key not in jcalls:
+            jcalls[key] = (where["tag"], h, x.clone(), bool(adjoint))
+        return orig[4](h, x, adjoint)
+
+    def entries_rec(ef, rows, cols):
+        key = (*rows.shape, cols.shape[-1], *ef.T.shape[2:], ef.D.shape[-1],
+               ef.T.shape[1])
+        if key not in icalls:
+            icalls[key] = (where["tag"], ef, rows.clone(), cols.clone())
+        return orig[5](ef, rows, cols)
+
     def run_rec(bp, tb, s_stacks, opts_, dtype, bidx, sketch):
         where["tag"] = f"batch {bidx}"
         return orig[2](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
@@ -679,6 +701,8 @@ def _hss_captures(plan, tp, opts, dev, b):
     cpqr_rec.launches = correct_rec.launches = 0
     L.cpqr_pivots, H.hss_level_correct = cpqr_rec, correct_rec
     fm._run_structured, fm.transition_compress = run_rec, trans_rec
+    # structured.py imports J's and I's wrappers by name
+    S.hss_matvec, S.hss_entries_prepared = matvec_rec, entries_rec
     try:
         levels, root, _ = _factor_levels(plan, tp, opts, torch.float64)
         where["tag"] = "solve"
@@ -687,21 +711,52 @@ def _hss_captures(plan, tp, opts, dev, b):
         F.solve(b)
     finally:
         (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
-         fm.transition_compress) = orig
+         fm.transition_compress, S.hss_matvec, S.hss_entries_prepared) = orig
     torch.cuda.synchronize()
-    return levels, hcalls, kcalls
+    return levels, hcalls, kcalls, jcalls, icalls
+
+
+def entries_bound(ef, rows, cols, out) -> dict:
+    """Kernel I's bound: the least bytes of ``out = entries(ef, rows,
+    cols)``: per index block and LCA level present, its distinct T rows and
+    V rows (r doubles each), one D entry per same-leaf entry, the indices and
+    the output; 2 r flops per entry off the leaves."""
+    D, T, V = ef
+    _, depth, n_pad, r = T.shape
+    ls = D.shape[-1]
+    rows, cols = rows.long(), cols.long()
+    valid = ((rows >= 0) & (rows < n_pad))[..., :, None] \
+        & ((cols >= 0) & (cols < n_pad))[..., None, :]
+    x = (rows.clamp(0, n_pad - 1) // ls)[..., :, None] \
+        ^ (cols.clamp(0, n_pad - 1) // ls)[..., None, :]
+    lev = sum(((x >> l) > 0).long() for l in range(depth))
+    lev = lev.masked_fill(~valid, -1)
+
+    def distinct(idx, mask):
+        s_ = idx.masked_fill(~mask, -1).sort(-1).values
+        return int(((s_[..., 1:] != s_[..., :-1]) & (s_[..., 1:] >= 0)).sum()
+                   + (s_[..., 0] >= 0).sum())
+
+    rows_read = 0
+    for L in range(1, depth + 1):
+        at = lev == L
+        rows_read += distinct(rows, at.any(-1)) + distinct(cols, at.any(-2))
+    work = nbytes(rows, cols, out) + 8 * int((lev == 0).sum()) \
+        + 8 * r * rows_read
+    return bound(work, 2 * r * int((lev > 0).sum()))
 
 
 def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None:
     """Phase 3, kernels H-K against their plain versions at the structured
     n-plans' shapes: H and K at every distinct launch shape of the factor
     and of one preconditioner application, on inputs captured there, for the
-    kest=32 plan and the default-caps plan (one log line each);
-    I and J on the HSS operands of the kest=32 factorization."""
+    kest=32 plan and the default-caps plan (one log line each), and so are
+    J and I (their first rows: the HSS operands of the kest=32
+    factorization's first and top structured batch, the kernel table's
+    shapes)."""
     import torch
 
     import hsolve_torch as ht
-    from hsolve_torch.factor import torch_sketch
     from hsolve_torch.interop import plan_to_torch
     from hsolve_torch.ops import hss as H
     from hsolve_torch.ops import lowrank as L
@@ -717,9 +772,11 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                                      opts)
         tp = plan_to_torch(plan, dev)
         t0 = time.perf_counter()
-        levels, hcalls, kcalls = _hss_captures(plan, tp, opts, dev, bt)
-        log(f"  {label}: {len(hcalls)} H shapes, {len(kcalls)} K shapes "
-            f"captured in {time.perf_counter() - t0:.1f} s")
+        levels, hcalls, kcalls, jcalls, icalls = _hss_captures(
+            plan, tp, opts, dev, bt)
+        log(f"  {label}: {len(hcalls)} H shapes, {len(kcalls)} K shapes, "
+            f"{len(jcalls)} J shapes, {len(icalls)} I shapes captured in "
+            f"{time.perf_counter() - t0:.1f} s")
         # H: equal pivots and ranks at every shape
         for (Bm, m, nn, k), (tag, Am, atol, rtol, _) in sorted(hcalls.items()):
             ker = L.cpqr_pivots(Am, atol, rtol, k)
@@ -768,56 +825,133 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
             "version at " + ", ".join(
                 f"{len(v)} with {kk}" + (f" (worst {max(v):.2f}x)" if v else "")
                 for kk, v in slower.items()))
-        if label != "kest=32":
-            continue
-        struct = [i for i, bp in enumerate(plan.batches) if bp.structured]
-        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-        for bidx in (struct[0], struct[-1]):
-            bp, lev = plan.batches[bidx], levels[bidx]
-            h2 = lev.H2
-            p2 = h2.plan
-            # I: the leaf D blocks and a level-1 B12 block of S22''s operand
-            ef = H.hss_entry_factors(h2)
-            leaf = torch.arange(p2.n_pad, device=dev).reshape(
-                1, p2.nleaves, p2.ls).expand(h2.B, -1, -1)
-            m1 = p2.nleaves // 2
-            off = torch.arange(m1, device=dev)[None, :, None] * (2 * p2.ls)
-            rows = off + torch.randint(0, p2.ls, (h2.B, m1, h2.r), device=dev,
-                                       generator=gen)
-            cols = off + p2.ls + torch.randint(0, p2.ls, (h2.B, m1, h2.r),
-                                               device=dev, generator=gen)
-            for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
-                ker = H.hss_entries_prepared(ef, rr, cc)
-                ref = H.hss_entries_prepared_plain(ef, rr, cc)
-                # an entry reads its two r-long factor rows (or one D entry)
-                reads = min(2 * h2.r * ker.numel() * 8, nbytes(*ef))
-                record("hss_entries_prepared",
-                       f"batch {bidx} {what} out={list(ker.shape)}",
-                       errors(ker, ref), RTOL_SUM,
-                       device_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
-                       device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
-                       bound(reads + nbytes(rr, cc, ker), 2 * h2.r * ker.numel()))
-            # J: S22''s operand at the sketch width (the factor's own sketch)
-            # and at k=1
-            s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
-                                   max(opts.stepsize, 8)), p2.n_pad)
-            Om, _ = torch_sketch(opts.seed, dev, f64)((7000 + bidx, 203),
-                                                      (h2.B, p2.n_pad, s),
-                                                      (h2.B, p2.n_pad, s))
-            for X in (Om, Om[..., :1].contiguous()):
-                for adj in (False, True):
-                    ker = H.hss_matvec(h2, X, adj)
-                    ref = H.hss_matvec_plain(h2, X, adj)
-                    record("hss_matvec",
-                           f"batch {bidx} {'adj' if adj else 'fwd'} "
-                           f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
-                           f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
-                           device_ms(lambda: H.hss_matvec(h2, X, adj)),
-                           device_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
-                           bound(nbytes(*h2.arrays(), X, ker),
-                                 2 * X.shape[-1] * sum(a.numel()
-                                                       for a in h2.arrays()),
-                                 products=True))
+        if label == "kest=32":
+            check_hss_table_shapes(plan, levels, opts, dev, results)
+        check_hss_captured(label, jcalls, icalls, results)
+    torch.cuda.synchronize()
+
+
+def check_hss_captured(label, jcalls, icalls, results: Results) -> None:
+    """J and I at every captured launch shape of one structured plan: one log
+    line per shape, then the shapes where each is slower than its plain
+    version, per k = 1 and k > 1 for J, and the time summed over the
+    shapes."""
+    import torch
+
+    from hsolve_torch.ops import hss as H
+
+    record = results.record
+    slower = {"k = 1": [], "k > 1": []}
+    sums = {"k = 1": [0.0, 0.0], "k > 1": [0.0, 0.0]}
+    for key, (tag, h, X, adj) in sorted(jcalls.items(),
+                                        key=lambda kv: kv[0]):
+        Bm, nl, ls, r, depth, k, _ = key
+        ker = H.hss_matvec(h, X, adj)
+        ref = H.hss_matvec_plain(h, X, adj)
+        ms = device_ms(lambda: H.hss_matvec(h, X, adj))
+        plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj))
+        cs, kc, groups, smem, th, rb = H.hss_matvec_geometry(Bm, nl, ls, r,
+                                                             depth, k)
+        work = bound(nbytes(*h.arrays(), X, ker),
+                     2 * k * sum(a.numel() for a in h.arrays()), products=True)
+        record("hss_matvec", f"{label} {tag} {'adj' if adj else 'fwd'} B={Bm} "
+               f"nleaves={nl} ls={ls} r={r} k={k} cs={cs} kc={kc} "
+               f"groups={groups} threads={th} rb={rb}"
+               + ("" if smem else " (state in L2)"), errors(ker, ref),
+               RTOL_SUM, ms, plain_ms,
+               work)
+        kk = "k = 1" if k == 1 else "k > 1"
+        sums[kk][0] += ms
+        sums[kk][1] += plain_ms
+        if ms > plain_ms:
+            slower[kk].append(ms / plain_ms)
+    log(f"  {label}: J at {len(jcalls)} shapes, slower than its plain "
+        "version at " + ", ".join(
+            f"{len(v)} with {kk}" + (f" (worst {max(v):.2f}x)" if v else "")
+            + f"; sum {sums[kk][0]:.4f} ms against {sums[kk][1]:.4f}"
+            for kk, v in slower.items()))
+    slow_i, sum_i = [], [0.0, 0.0]
+    for key, (tag, ef, rr, cc) in sorted(icalls.items(), key=lambda kv: kv[0]):
+        ker = H.hss_entries_prepared(ef, rr, cc)
+        ref = H.hss_entries_prepared_plain(ef, rr, cc)
+        nan = ref.isnan()
+        if not torch.equal(ker.isnan(), nan):
+            fail(f"hss_entries_prepared puts NaN elsewhere than its plain "
+                 f"version at {label} {tag} {key}")
+        ms = device_ms(lambda: H.hss_entries_prepared(ef, rr, cc))
+        plain_ms = device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc))
+        record("hss_entries_prepared",
+               f"{label} {tag} out={list(ker.shape)} r={ef.T.shape[-1]} "
+               f"depth={ef.T.shape[1]} nan={int(nan.sum())}",
+               errors(ker[~nan], ref[~nan]) if (~nan).any() else (0.0, 0.0),
+               RTOL_SUM, ms, plain_ms, entries_bound(ef, rr, cc, ker))
+        sum_i[0] += ms
+        sum_i[1] += plain_ms
+        if ms > plain_ms:
+            slow_i.append(ms / plain_ms)
+    log(f"  {label}: I at {len(icalls)} shapes, slower than its plain "
+        f"version at {len(slow_i)}"
+        + (f" (worst {max(slow_i):.2f}x)" if slow_i else "")
+        + f"; sum {sum_i[0]:.4f} ms against {sum_i[1]:.4f}")
+
+
+def check_hss_table_shapes(plan, levels, opts, dev, results: Results) -> None:
+    """I and J on the HSS operands of the first and the top structured batch
+    of the kest=32 plan (the kernel table's shapes: I on a leaf and a B12
+    extraction, J forward and adjoint at the sketch width and at k=1)."""
+    import torch
+
+    from hsolve_torch.factor import torch_sketch
+    from hsolve_torch.ops import hss as H
+
+    f64 = torch.float64
+    record = results.record
+    struct = [i for i, bp in enumerate(plan.batches) if bp.structured]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for bidx in (struct[0], struct[-1]):
+        bp, lev = plan.batches[bidx], levels[bidx]
+        h2 = lev.H2
+        p2 = h2.plan
+        # I: the leaf D blocks and a level-1 B12 block of S22''s operand
+        ef = H.hss_entry_factors(h2)
+        leaf = torch.arange(p2.n_pad, device=dev).reshape(
+            1, p2.nleaves, p2.ls).expand(h2.B, -1, -1)
+        m1 = p2.nleaves // 2
+        off = torch.arange(m1, device=dev)[None, :, None] * (2 * p2.ls)
+        rows = off + torch.randint(0, p2.ls, (h2.B, m1, h2.r), device=dev,
+                                   generator=gen)
+        cols = off + p2.ls + torch.randint(0, p2.ls, (h2.B, m1, h2.r),
+                                           device=dev, generator=gen)
+        for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
+            ker = H.hss_entries_prepared(ef, rr, cc)
+            ref = H.hss_entries_prepared_plain(ef, rr, cc)
+            record("hss_entries_prepared",
+                   f"batch {bidx} {what} out={list(ker.shape)}",
+                   errors(ker, ref), RTOL_SUM,
+                   device_ms(lambda: H.hss_entries_prepared(ef, rr, cc)),
+                   device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc)),
+                   entries_bound(ef, rr, cc, ker))
+        # J: S22''s operand at the sketch width (the factor's own sketch)
+        # and at k=1
+        s = min(H.sample_width(bp.child_cplans[1], bp.rank_cap, opts.kest,
+                               max(opts.stepsize, 8)), p2.n_pad)
+        Om, _ = torch_sketch(opts.seed, dev, f64)((7000 + bidx, 203),
+                                                  (h2.B, p2.n_pad, s),
+                                                  (h2.B, p2.n_pad, s))
+        for X in (Om, Om[..., :1].contiguous()):
+            for adj in (False, True):
+                ker = H.hss_matvec(h2, X, adj)
+                ref = H.hss_matvec_plain(h2, X, adj)
+                record("hss_matvec",
+                       f"batch {bidx} {'adj' if adj else 'fwd'} "
+                       f"n_pad={p2.n_pad} depth={p2.depth} B={h2.B} "
+                       f"k={X.shape[-1]}", errors(ker, ref), RTOL_SUM,
+                       device_ms(lambda: H.hss_matvec(h2, X, adj)),
+                       device_ms(lambda: H.hss_matvec_plain(h2, X, adj)),
+                       bound(nbytes(*h2.arrays(), X, ker),
+                             2 * X.shape[-1] * sum(a.numel()
+                                                   for a in h2.arrays()),
+                             products=True))
     torch.cuda.synchronize()
 
 

@@ -2,8 +2,7 @@
 //
 // Replaces hsolve/ops/hss.py `hss_entries_prepared` (:293-312), which XLA
 // lowered as a D gather plus, for EVERY internal level, two row gathers and a
-// batched product, then a select by the leaf pair's LCA level.  Here each
-// entry costs one load or one r-long dot, at its LCA level only:
+// batched product, then a select by the leaf pair's LCA level:
 //
 //   out[b, j, a, c] = D[b, row / ls][row % ls][col % ls]     same leaf
 //                   = T[b, lev-1, row, :] . V[b, lev-1, col, :]  otherwise
@@ -15,66 +14,163 @@
 // holds the materialized column bases (hss_entry_factors, once per matrix).
 // An index outside [0, n_pad) yields NaN rather than a stray read.
 //
-// Bound: memory latency.  The randomized compressors extract the leaf D
-// blocks ([B, nl, ls, ls]) and one [r, r] coupling block per node and level;
-// every entry reads two r-long rows (r = 48 at the n=512 plan), which the
-// entries of one block share through L1/L2.  One thread per entry, threads
-// along the block's columns, so a warp reads one T row (a broadcast) and
-// neighbouring V rows.
+// Bound: bytes.  An index block of p rows and q columns needs, per LCA level
+// present in it, its p T rows and q V rows (r doubles each), one D entry per
+// same-leaf entry, the indices and the p q outputs.
+//
+// The indices are read through their strides (rows[b, j, a] at rows + b srb
+// + j srm + a srp), so an expanded index block needs no copy.
+//
+// Design: one CTA of 256 threads per (index block, 64 x 64 tile of it).  It
+// stages the tile's indices, finds the levels its entries meet, and per
+// level streams the tile's T and V rows through shared memory in 32-column
+// slices (coalesced: 16 lanes along a row), so each row is read once per
+// block and level, not once per entry.  Each thread keeps a 4 x 4 register
+// tile of the 64 x 64 product (rows ty + 16 i, columns tx + 16 j) and keeps
+// the entries whose level is the one being summed.  Same-leaf entries load
+// their D entry directly (lanes along a D row).  A block whose entries all
+// meet one level (the compressors' B12/B21 and leaf blocks) takes one pass.
 #include <math.h>
 
 #include "hs_common.cuh"
 
-__global__ void hss_entries_kernel(const double* __restrict__ D,
-                                   const double* __restrict__ T,
-                                   const double* __restrict__ V,
-                                   const int* __restrict__ rows,
-                                   const int* __restrict__ cols,
-                                   double* __restrict__ out, int64_t total,
-                                   int M, int p, int q, int n_pad, int ls,
-                                   int r, int depth) {
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(e % q);
-    const int64_t t = e / q;
-    const int a = (int)(t % p);
-    const int64_t bj = t / p;  // b * M + j
-    const int64_t b = bj / M;
-    const int row = rows[bj * p + a];
-    const int col = cols[bj * q + c];
-    double v;
-    if (row < 0 || row >= n_pad || col < 0 || col >= n_pad) {
-      v = NAN;
-    } else {
-      const int x = (row / ls) ^ (col / ls);
-      if (x == 0) {
-        v = D[(b * n_pad + row) * ls + col % ls];
-      } else {
-        const int lev = 32 - __clz(x);  // 1..depth
-        const int64_t base = (b * depth + lev - 1) * (int64_t)n_pad;
-        const double* tr = T + (base + row) * r;
-        const double* vr = V + (base + col) * r;
-        double s = 0.0;
-        for (int i = 0; i < r; ++i) s += tr[i] * vr[i];
-        v = s;
+#define I_TILE 64
+#define I_RC 32        // T / V columns a slice
+#define I_LD (I_RC + 1)
+
+__global__ void __launch_bounds__(256) hss_entries_kernel(
+    const double* __restrict__ D, const double* __restrict__ T,
+    const double* __restrict__ V, const long long* __restrict__ rows,
+    const long long* __restrict__ cols, double* __restrict__ out,
+    long long srb, long long srm, long long srp, long long scb, long long scm,
+    long long scq, int M, int p, int q, int n_pad, int ls, int r, int depth,
+    int tiles_q) {
+  __shared__ double Ts[I_TILE][I_LD];
+  __shared__ double Vs[I_TILE][I_LD];
+  __shared__ int ri[I_TILE], ci[I_TILE];
+  __shared__ unsigned levels;
+  const int64_t bj = blockIdx.x;  // b * M + j
+  const int64_t b = bj / M, j = bj - b * M;
+  const long long* rw = rows + b * srb + j * srm;  // rows[b, j, :]
+  const long long* cw = cols + b * scb + j * scm;
+  const int a0 = (blockIdx.y / tiles_q) * I_TILE;
+  const int c0 = (blockIdx.y % tiles_q) * I_TILE;
+  const int tp = min(I_TILE, p - a0), tq = min(I_TILE, q - c0);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // an index outside [0, n_pad) becomes -1 (NaN), whatever its width
+  if (tid < I_TILE) {
+    const long long v = tid < tp ? rw[(a0 + tid) * srp] : -1;
+    ri[tid] = v >= 0 && v < n_pad ? (int)v : -1;
+  } else if (tid < 2 * I_TILE) {
+    const int t = tid - I_TILE;
+    const long long v = t < tq ? cw[(c0 + t) * scq] : -1;
+    ci[t] = v >= 0 && v < n_pad ? (int)v : -1;
+  }
+  if (tid == 0) levels = 0;
+  __syncthreads();
+
+  // the entries' levels: -1 out of range (or outside the tile), 0 same leaf
+  int lev[4][4];
+  double o[4][4];
+  unsigned mine = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ri[ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = ci[tx + 16 * j];
+      int lv = -1;
+      if (ty + 16 * i < tp && tx + 16 * j < tq) {
+        if (row >= 0 && col >= 0) {
+          const int x = (row / ls) ^ (col / ls);
+          lv = x == 0 ? 0 : 32 - __clz(x);
+        } else {
+          lv = -2;  // in the tile, out of range: NaN
+        }
       }
+      lev[i][j] = lv;
+      o[i][j] = lv == -2 ? NAN : 0.0;
+      if (lv == 0) o[i][j] = __ldg(D + (b * n_pad + row) * ls + col % ls);
+      if (lv > 0) mine |= 1u << lv;
     }
-    out[e] = v;
+  }
+  mine = __reduce_or_sync(0xffffffffu, mine);
+  if ((tid & 31) == 0 && mine) atomicOr(&levels, mine);
+  __syncthreads();
+  const unsigned lv_mask = levels;
+
+  for (int L = 1; L <= depth; ++L) {
+    if (!(lv_mask & (1u << L))) continue;  // uniform across the CTA
+    const int64_t base = (b * depth + L - 1) * (int64_t)n_pad;
+    double s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0;
+    for (int k0 = 0; k0 < r; k0 += I_RC) {
+      // stage the slice: 16 lanes along a row, two doubles a lane
+      for (int e = tid; e < I_TILE * 16; e += 256) {
+        const int a = e >> 4, kk = 2 * (e & 15);
+        const int rt = ri[a], cv = ci[a];
+        const bool rok = a < tp && rt >= 0;
+        const bool cok = a < tq && cv >= 0;
+        const double* tr = T + (base + (rok ? rt : 0)) * r + k0;
+        const double* vr = V + (base + (cok ? cv : 0)) * r + k0;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool kin = k0 + kk + u < r;
+          Ts[a][kk + u] = rok && kin ? __ldg(tr + kk + u) : 0.0;
+          Vs[a][kk + u] = cok && kin ? __ldg(vr + kk + u) : 0.0;
+        }
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < I_RC; ++kk) {
+        double tv[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tv[i] = Ts[ty + 16 * i][kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vv[j] = Vs[tx + 16 * j][kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] += tv[i] * vv[j];
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (lev[i][j] == L) o[i][j] = s[i][j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int a = ty + 16 * i;
+    if (a >= tp) continue;
+    double* orow = out + (bj * p + a0 + a) * q + c0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (tx + 16 * j < tq) orow[tx + 16 * j] = o[i][j];
   }
 }
 
 HS_EXPORT int hs_hss_entries(const void* D, const void* T, const void* V,
                              const void* rows, const void* cols, void* out,
+                             long long srb, long long srm, long long srp,
+                             long long scb, long long scm, long long scq,
                              long long B, int M, int p, int q, int n_pad,
                              int ls, int r, int depth, void* stream) {
-  const int64_t total = (int64_t)B * M * p * q;
-  if (total > 0) {
-    const int threads = 256;
-    hss_entries_kernel<<<hs_blocks(total, threads), threads, 0,
-                         (cudaStream_t)stream>>>(
-        (const double*)D, (const double*)T, (const double*)V,
-        (const int*)rows, (const int*)cols, (double*)out, total, M, p, q,
-        n_pad, ls, r, depth);
-  }
+  if (B < 0 || M < 0 || p < 0 || q < 0 || depth < 1 || depth > 30 || ls < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || p == 0 || q == 0) return (int)cudaSuccess;
+  const int tiles_q = (q + I_TILE - 1) / I_TILE;
+  const int tiles = ((p + I_TILE - 1) / I_TILE) * tiles_q;
+  hss_entries_kernel<<<dim3((unsigned)(B * M), (unsigned)tiles), 256, 0,
+                       (cudaStream_t)stream>>>(
+      (const double*)D, (const double*)T, (const double*)V,
+      (const long long*)rows, (const long long*)cols, (double*)out, srb, srm,
+      srp, scb, scm, scq, M, p, q, n_pad, ls, r, depth, tiles_q);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,13 @@
 // C is [rows, k].  The forward step takes one right-hand side per pass (k = 1
 // on the solve's path); the backward step takes them in chunks of HS_C_KMAX.
 // Instantiated for double and float (`_f32`, the float32 factor's solve).
+// Both accumulate in double: every dot, the substitution's running values
+// and the solved values it shares (ys, and the windows' scratch X, Z) are
+// double, and a float32 result is rounded once, where it is stored.  Loads
+// and stores keep the value type and stay 16 bytes wide, so the float32
+// form moves the same bytes; the top levels of a float32 factor are nearly
+// singular, and a float summation there cost the mixed-precision solve half
+// again as many GMRES iterations as the reference's (fault F4).
 //
 // Bound: bytes.  A forward step must read lu[b] (or dinv[b]), L[b], the ids
 // and x once and write x' and the boundary updates once; the backward step
@@ -101,11 +108,11 @@ __device__ __forceinline__ void load16(const float* p, float* o) {
 // acc[q] += row[0:len] . v[q * vstride + 0:len] over lane `gl`'s share of
 // the row (a group of HS_C_LPR lanes covers it).  VEC: 16-byte loads (the
 // row 16-byte aligned, len a multiple of the vector width).
-template <typename T, bool VEC>
+template <typename T, bool VEC, typename VT>
 __device__ __forceinline__ void group_dot(const T* __restrict__ row,
-                                          const T* v, int vstride, int len,
+                                          const VT* v, int vstride, int len,
                                           int kc, int gl,
-                                          T (&acc)[HS_C_KMAX]) {
+                                          double (&acc)[HS_C_KMAX]) {
   if (VEC) {
     constexpr int W = Vec16<T>::n;
     for (int c = gl * W; c < len; c += HS_C_LPR * W) {
@@ -115,7 +122,8 @@ __device__ __forceinline__ void group_dot(const T* __restrict__ row,
       for (int q = 0; q < HS_C_KMAX; ++q) {
         if (q < kc) {
 #pragma unroll
-          for (int e = 0; e < W; ++e) acc[q] += a[e] * v[q * vstride + c + e];
+          for (int e = 0; e < W; ++e)
+            acc[q] += (double)a[e] * (double)v[q * vstride + c + e];
         }
       }
     }
@@ -124,15 +132,14 @@ __device__ __forceinline__ void group_dot(const T* __restrict__ row,
       const T a = __ldg(row + c);
 #pragma unroll
       for (int q = 0; q < HS_C_KMAX; ++q)
-        if (q < kc) acc[q] += a * v[q * vstride + c];
+        if (q < kc) acc[q] += (double)a * (double)v[q * vstride + c];
     }
   }
 }
 
 // sum over the lanes of a group (xor partners stay inside aligned groups);
 // kc is uniform across the warp, so every lane shuffles
-template <typename T>
-__device__ __forceinline__ void group_sum(T (&acc)[HS_C_KMAX], int kc) {
+__device__ __forceinline__ void group_sum(double (&acc)[HS_C_KMAX], int kc) {
 #pragma unroll
   for (int q = 0; q < HS_C_KMAX; ++q)
     if (q < kc)
@@ -258,21 +265,21 @@ __device__ __forceinline__ void fold_stage(T (&v)[NV], int lane) {
 // the W lanes that share rows fold them (log2 W shuffles; lane g LR + c ends
 // with row c W + g), and one shuffle brings row r to lane r.
 template <typename T, bool VEC>
-__device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
-                                          const T* yp, int ni, int p0,
-                                          int lane) {
+__device__ __forceinline__ double panel_update(const T (&seg)[HS_C_PANEL],
+                                               const double* yp, int ni,
+                                               int p0, int lane) {
   if constexpr (VEC) {
     constexpr int W = Vec16<T>::n, LR = HS_C_PANEL / W;
     const int g = lane / LR;
-    T t[W];
+    double t[W];
 #pragma unroll
-    for (int e = 0; e < W; ++e) t[e] = T(0);
+    for (int e = 0; e < W; ++e) t[e] = 0.0;
 #pragma unroll
     for (int i = 0; i < LR; ++i) {
       const int col = p0 + i * W + g;
-      const T y = col < ni ? yp[i * W + g] : T(0);
+      const double y = col < ni ? yp[i * W + g] : 0.0;
 #pragma unroll
-      for (int e = 0; e < W; ++e) t[e] += seg[i * W + e] * y;
+      for (int e = 0; e < W; ++e) t[e] += (double)seg[i * W + e] * y;
     }
     if constexpr (W == 4) {
       fold_stage<16, 2>(t, lane);
@@ -282,10 +289,10 @@ __device__ __forceinline__ T panel_update(const T (&seg)[HS_C_PANEL],
     }
     return __shfl_sync(0xffffffffu, t[0], (lane % W) * LR + lane / W);
   } else {
-    T acc = T(0);
+    double acc = 0.0;
 #pragma unroll
     for (int j = 0; j < HS_C_PANEL; ++j)
-      acc += seg[j] * (p0 + j < ni ? yp[j] : T(0));
+      acc += (double)seg[j] * (p0 + j < ni ? yp[j] : 0.0);
     return acc;
   }
 }
@@ -301,7 +308,8 @@ template <typename T, bool VEC>
 __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
                                            int p_lo, int p_hi, bool fwd,
                                            bool owner, int P, int r, int lane,
-                                           T& zr, T* ys, int y0, const T* dgw,
+                                           double& zr, double* ys, int y0,
+                                           const T* dgw,
                                            int cs, int rank, bool wait_stage) {
   T seg[HS_C_PANEL];
   const int npan = p_hi - p_lo;
@@ -319,20 +327,20 @@ __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
     if (owner && P == p) {
       // the staged block is 32 x 32 (identity-padded): no bounds, so its
       // shared-memory reads leave the shuffle chain
-      T v = zr;
+      double v = zr;
       if (fwd) {
 #pragma unroll
         for (int i = 0; i < HS_C_PANEL; ++i) {
-          const T yi = __shfl_sync(0xffffffffu, v, i);
-          if (lane > i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+          const double yi = __shfl_sync(0xffffffffu, v, i);
+          if (lane > i) v -= (double)dgw[lane * HS_C_DG_LD + i] * yi;
         }
       } else {
-        const T rd = T(1) / dgw[lane * HS_C_DG_LD + lane];
+        const double rd = 1.0 / (double)dgw[lane * HS_C_DG_LD + lane];
 #pragma unroll
         for (int i = HS_C_PANEL - 1; i >= 0; --i) {
           if (lane == i) v *= rd;
-          const T yi = __shfl_sync(0xffffffffu, v, i);
-          if (lane < i) v -= dgw[lane * HS_C_DG_LD + i] * yi;
+          const double yi = __shfl_sync(0xffffffffu, v, i);
+          if (lane < i) v -= (double)dgw[lane * HS_C_DG_LD + i] * yi;
         }
       }
       zr = v;
@@ -361,9 +369,9 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
                      const T* __restrict__ dinv, int ni, int nb, int k, int N,
                      int cs) {
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  T* xs = reinterpret_cast<T*>(hs_smem);  // [ni] x
-  T* ys = xs + ni;                        // [ni] solved values
-  T* dg = ys + ni;                        // [warps][PANEL][DG_LD] diag blocks
+  double* ys = reinterpret_cast<double*>(hs_smem);  // [ni] solved values
+  T* xs = reinterpret_cast<T*>(ys + ni);            // [ni] x
+  T* dg = xs + ni;  // [warps][PANEL][DG_LD] diag blocks
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -386,13 +394,13 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       const int cnt = own_count(0, (nb + HS_C_PANEL - 1) / HS_C_PANEL, rank, cs);
       for (int t0 = warp * HS_C_RPW; t0 < cnt; t0 += nwarps * HS_C_RPW) {
         const int r = own_row(t0 + gi, 0, rank, cs);
-        T acc[HS_C_KMAX] = {};
+        double acc[HS_C_KMAX] = {};
         if (r < nb)
           group_dot<T, VEC>(L + (b * nb + r) * ni, xs, ni, ni, 1, gl, acc);
         group_sum(acc, 1);
         if (r < nb && gl == 0) {
           const int id = bid[r];
-          if (id < N) atomicAdd(C + (int64_t)id * k + q0, -acc[0]);
+          if (id < N) atomicAdd(C + (int64_t)id * k + q0, -(T)acc[0]);
         }
       }
     }
@@ -402,13 +410,13 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       front_sync(cs);  // the whole front has read x before x' is written
       for (int t0 = warp * HS_C_RPW; t0 < cnt_all; t0 += nwarps * HS_C_RPW) {
         const int r = own_row(t0 + gi, 0, rank, cs);
-        T acc[HS_C_KMAX] = {};
+        double acc[HS_C_KMAX] = {};
         if (r < ni)
           group_dot<T, VEC>(A + (int64_t)r * ni, xs, ni, ni, 1, gl, acc);
         group_sum(acc, 1);
         if (r < ni && gl == 0) {
           const int id = iid[r];
-          if (id < N) C[(int64_t)id * k + q0] = acc[0];
+          if (id < N) C[(int64_t)id * k + q0] = (T)acc[0];
         }
       }
     } else {
@@ -425,14 +433,14 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
         stage_block(A, ni, P, dgw, lane);
         cp_async_commit();
       }
-      T zr = row_ok ? xs[(int)perm[b * ni + r]] : T(0);
+      double zr = row_ok ? (double)xs[(int)perm[b * ni + r]] : 0.0;
       front_sync(cs);  // also: every CTA of the cluster has started
       for (int dir = 0; dir < 2; ++dir)
         substitute<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r, lane, zr, ys, 0,
                            dgw, cs, rank, dir == 0);
       if (row_ok) {
         const int id = iid[r];
-        if (id < N) C[(int64_t)id * k + q0] = zr;
+        if (id < N) C[(int64_t)id * k + q0] = (T)zr;
       }
     }
     // the next right-hand side reuses xs and ys; no CTA leaves while others
@@ -461,8 +469,9 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
 template <typename T>
 __global__ void fwd_gather_kernel(const T* __restrict__ C,
                                   const int* __restrict__ int_ids,
-                                  const long long* __restrict__ perm, T* X,
-                                  T* Z, long long B, int ni, int k, int N) {
+                                  const long long* __restrict__ perm,
+                                  double* X, double* Z, long long B, int ni,
+                                  int k, int N) {
   const int64_t total = B * (int64_t)k * ni;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
@@ -471,19 +480,20 @@ __global__ void fwd_gather_kernel(const T* __restrict__ C,
     const int q = (int)(bq % k);
     const int64_t b = bq / k;
     const int id = int_ids[b * ni + i];
-    X[e] = id < N ? C[(int64_t)id * k + q] : T(0);
+    X[e] = id < N ? (double)C[(int64_t)id * k + q] : 0.0;
     const int j = perm != nullptr ? (int)perm[b * ni + i] : i;
     const int idp = int_ids[b * ni + j];
-    Z[e] = idp < N ? C[(int64_t)idp * k + q] : T(0);
+    Z[e] = idp < N ? (double)C[(int64_t)idp * k + q] : 0.0;
   }
 }
 
 // C[ids[b][r]][q] -= M[b][r] . v[b][q] (store: =), M [B][R][ni] row-major,
-// v [B][k][ni]; ids >= N skipped; one CTA per (front, chunk of rows)
+// v [B][k][ni] (double); ids >= N skipped; one CTA per (front, chunk of rows)
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(HS_C_THREADS)
 row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
-               const T* v, int R, int ni, int k, int N, int split, int store) {
+               const double* v, int R, int ni, int k, int N, int split,
+               int store) {
   const int64_t b = blockIdx.x / split;
   const int per = (R + split - 1) / split;
   const int r_lo = (int)(blockIdx.x % split) * per;
@@ -495,16 +505,16 @@ row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
     for (int t0 = r_lo + warp * HS_C_RPW; t0 < r_hi; t0 += nwarps * HS_C_RPW) {
       const int r = t0 + gi;
       const int id = r < r_hi ? ids[b * R + r] : N;
-      T acc[HS_C_KMAX] = {};
+      double acc[HS_C_KMAX] = {};
       if (id < N)
         group_dot<T, VEC>(M + (b * R + r) * ni, v + (b * k + q) * ni, 0, ni,
                           1, gl, acc);
       group_sum(acc, 1);
       if (id < N && gl == 0) {
         if (store)
-          C[(int64_t)id * k + q] = acc[0];
+          C[(int64_t)id * k + q] = (T)acc[0];
         else
-          atomicAdd(C + (int64_t)id * k + q, -acc[0]);
+          atomicAdd(C + (int64_t)id * k + q, -(T)acc[0]);
       }
     }
   }
@@ -516,12 +526,12 @@ row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
 // pass also stores its final rows in C[int].
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(HS_C_FWD_MAX)
-window_solve_kernel(T* Z, const T* __restrict__ lu, T* C,
+window_solve_kernel(double* Z, const T* __restrict__ lu, T* C,
                     const int* __restrict__ int_ids, int ni, int k, int N,
                     int p_lo, int p_hi, int fwd, int cs) {
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  T* ys = reinterpret_cast<T*>(hs_smem);  // [HS_C_WIN] the window's values
-  T* dg = ys + HS_C_WIN;                  // [warps][PANEL][DG_LD] diag blocks
+  double* ys = reinterpret_cast<double*>(hs_smem);  // [HS_C_WIN] its values
+  T* dg = reinterpret_cast<T*>(ys + HS_C_WIN);  // [warps][PANEL][DG_LD]
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
   const int q = blockIdx.y;
@@ -537,8 +547,8 @@ window_solve_kernel(T* Z, const T* __restrict__ lu, T* C,
     stage_block(A, ni, P, dgw, lane);
     cp_async_commit();
   }
-  T* zb = Z + (b * k + q) * ni;
-  T zr = row_ok ? zb[r] : T(0);
+  double* zb = Z + (b * k + q) * ni;
+  double zr = row_ok ? zb[r] : 0.0;
   front_sync(cs);  // also: every CTA of the cluster has started
   substitute<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane, zr, ys,
                      p_lo * HS_C_PANEL,
@@ -546,7 +556,7 @@ window_solve_kernel(T* Z, const T* __restrict__ lu, T* C,
   if (row_ok) {
     zb[r] = zr;
     const int id = int_ids[b * ni + r];
-    if (!fwd && id < N) C[(int64_t)id * k + q] = zr;
+    if (!fwd && id < N) C[(int64_t)id * k + q] = (T)zr;
   }
   front_sync(cs);  // no CTA leaves while others may still store into its ys
 }
@@ -557,31 +567,31 @@ window_solve_kernel(T* Z, const T* __restrict__ lu, T* C,
 // order, so the result does not depend on scheduling.
 template <typename T>
 __global__ void __launch_bounds__(256)
-window_update_kernel(T* Z, const T* __restrict__ lu, int ni, int k, int r_lo,
-                     int r_hi, int c_lo, int c_hi, int tiles) {
+window_update_kernel(double* Z, const T* __restrict__ lu, int ni, int k,
+                     int r_lo, int r_hi, int c_lo, int c_hi, int tiles) {
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  T* zs = reinterpret_cast<T*>(hs_smem);  // [c_hi - c_lo]
-  __shared__ T part[8][32];
+  double* zs = reinterpret_cast<double*>(hs_smem);  // [c_hi - c_lo]
+  __shared__ double part[8][32];
   const int64_t b = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x % tiles);
   const int q = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nc = c_hi - c_lo;
-  T* zb = Z + (b * k + q) * ni;
+  double* zb = Z + (b * k + q) * ni;
   for (int c = threadIdx.x; c < nc; c += blockDim.x) zs[c] = zb[c_lo + c];
   __syncthreads();
   const int row = r_lo + tile * 32 + lane;
   const int per = (nc + 7) / 8;
   const int c0 = warp * per, c1 = c0 + per < nc ? c0 + per : nc;
-  T acc = T(0);
+  double acc = 0.0;
   if (row < r_hi) {
     const T* col = lu + b * ni * ni + (int64_t)(c_lo + c0) * ni + row;
-    for (int c = c0; c < c1; ++c, col += ni) acc += __ldg(col) * zs[c];
+    for (int c = c0; c < c1; ++c, col += ni) acc += (double)__ldg(col) * zs[c];
   }
   part[warp][lane] = acc;
   __syncthreads();
   if (warp == 0 && row < r_hi) {
-    T s = part[0][lane];
+    double s = part[0][lane];
 #pragma unroll
     for (int w = 1; w < 8; ++w) s += part[w][lane];
     zb[row] -= s;
@@ -616,7 +626,7 @@ sweep_update_kernel(T* C, const int* __restrict__ ids_out,
          t0 += nwarps * HS_C_RPW) {
       const int r = t0 + gi;
       const int id = r < r_hi ? iout[r] : N;
-      T acc[HS_C_KMAX] = {};
+      double acc[HS_C_KMAX] = {};
       if (id < N)  // padded output rows skip their row of M
         group_dot<T, VEC>(M + (b * R + r) * Cc, ys, Cc, Cc, kc, gl, acc);
       group_sum(acc, kc);
@@ -625,7 +635,7 @@ sweep_update_kernel(T* C, const int* __restrict__ ids_out,
         for (int q = 0; q < HS_C_KMAX; ++q)
           if (q < kc) {
             T* out = C + (int64_t)id * k + k0 + q;
-            *out = *out - acc[q];
+            *out = *out - (T)acc[q];
           }
       }
     }
@@ -661,7 +671,8 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
   if (pw_cta > HS_C_MAX_PW) return cudaErrorInvalidValue;
   const int warps = pw_cta > 2 ? pw_cta : 2;
   const int threads = 32 * warps;
-  const size_t smem = (size_t)(2 * ni + warps * HS_C_DG) * sizeof(T);
+  const size_t smem =
+      (size_t)ni * sizeof(double) + (size_t)(ni + warps * HS_C_DG) * sizeof(T);
   auto kern = level_forward_kernel<T, VEC>;
   cudaError_t err = allow_smem(kern, smem, &granted);
   if (err != cudaSuccess) return err;
@@ -694,9 +705,9 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
 template <typename T, bool VEC>
 static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
                                    const T* L, const T* lu,
-                                   const long long* perm, const T* dinv, T* X,
-                                   T* Z, long long B, int ni, int nb, int k,
-                                   int N, cudaStream_t stream) {
+                                   const long long* perm, const T* dinv,
+                                   double* X, double* Z, long long B, int ni,
+                                   int nb, int k, int N, cudaStream_t stream) {
   static size_t granted_solve = 0, granted_update = 0;
   const int64_t total = B * (int64_t)k * ni;
   const unsigned gblocks = (unsigned)(total / 256 + 1 < 8192 ? total / 256 + 1
@@ -721,12 +732,12 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
   const int wpan = HS_C_WIN / HS_C_PANEL;
   const int nwin = (npan + wpan - 1) / wpan;
   // the window's solved values only: the same whatever ni
-  const size_t smem_solve =
-      (size_t)(HS_C_WIN + HS_C_MAX_PW * HS_C_DG) * sizeof(T);
+  const size_t smem_solve = (size_t)HS_C_WIN * sizeof(double) +
+                            (size_t)HS_C_MAX_PW * HS_C_DG * sizeof(T);
   auto solve = window_solve_kernel<T, VEC>;
   if ((err = allow_smem(solve, smem_solve, &granted_solve)) != cudaSuccess)
     return err;
-  const size_t smem_update = (size_t)HS_C_WIN * sizeof(T);
+  const size_t smem_update = (size_t)HS_C_WIN * sizeof(double);
   auto update = window_update_kernel<T>;
   if ((err = allow_smem(update, smem_update, &granted_update)) != cudaSuccess)
     return err;
@@ -763,7 +774,7 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
       if (r_hi > r_lo) {
         const int tiles = (r_hi - r_lo + 31) / 32;
         update<<<dim3((unsigned)(B * tiles), (unsigned)k), 256,
-                 (size_t)(c_hi - c_lo) * sizeof(T), stream>>>(
+                 (size_t)(c_hi - c_lo) * sizeof(double), stream>>>(
             Z, lu, ni, k, r_lo, r_hi, c_lo, c_hi, tiles);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
       }
@@ -787,12 +798,12 @@ static int level_forward_windowed(void* C, const void* int_ids,
   if (ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A))
     return (int)launch_windowed<T, true>(
         (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-        (const T*)lu, (const long long*)perm, (const T*)dinv, (T*)X, (T*)Z, B,
-        ni, nb, k, N, (cudaStream_t)stream);
+        (const T*)lu, (const long long*)perm, (const T*)dinv, (double*)X,
+        (double*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
   return (int)launch_windowed<T, false>(
       (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-      (const T*)lu, (const long long*)perm, (const T*)dinv, (T*)X, (T*)Z, B,
-      ni, nb, k, N, (cudaStream_t)stream);
+      (const T*)lu, (const long long*)perm, (const T*)dinv, (double*)X,
+      (double*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
 }
 
 template <typename T>

@@ -30,8 +30,8 @@ H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32 or float64 values (one C entry point
 per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.  Kernel C's
 forward step of a wide front runs on a thread block cluster
-(``cudaLaunchKernelEx``), and so does kernel K with several right-hand
-sides, whose operand tiles are TMA boxes of tensor maps (encoded through the
+(``cudaLaunchKernelEx``), and so do kernel J where a level's few matrices
+leave SMs idle and kernel K with several right-hand sides, whose operand tiles are TMA boxes of tensor maps (encoded through the
 driver entry point the runtime hands out: no link to libcuda); kernel L is
 one cooperative launch
 (``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
@@ -47,6 +47,7 @@ also count them per value type in ``wrapper.launches_by_type``
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import subprocess
@@ -77,9 +78,8 @@ _SIGNATURES = {
     "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
                             _I, _V],
     "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
-    "hs_hss_entries": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I, _I, _I, _I,
-                       _V],
-    "hs_hss_matvec": [_V] * 11 + [_LL] + [_I] * 7 + [_V],
+    "hs_hss_entries": [_V] * 6 + [_LL] * 7 + [_I] * 7 + [_V],
+    "hs_hss_matvec": [_V] * 10 + [_LL] + [_I] * 12 + [_LL, _I, _V],
     "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 8 + [_V],
     "hs_hss_level_correct_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
@@ -184,6 +184,13 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = handle.hs_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (cached: a wrapper asks at every
+    launch)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_device(device) -> torch.device:

@@ -16,7 +16,8 @@ Three hand kernels serve it, each beside its plain torch version:
 - :func:`hss_matvec` (kernel J, ``csrc/hss_matvec.cu``): the telescoped
   ``y = A x`` / ``A^T x``, all levels in one launch,
 - :func:`hss_entries_prepared` (kernel I, ``csrc/hss_entries.cu``): entry
-  extraction, one r-long dot at the leaf pair's LCA level only,
+  extraction at the leaf pair's LCA level only, an index block's T and V
+  rows read once per level,
 - :func:`hss_level_correct` (kernel K, ``csrc/hss_level_correct.cu``): the
   per-level Woodbury correction of :func:`hss_solve`.
 
@@ -244,13 +245,89 @@ def hss_matvec_plain(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Te
     return y.reshape(Bn, p.n_pad, k)
 
 
-HSS_MATVEC_COLS = 8      # right-hand-side columns per block of kernel J
+SMEM_LIMIT = 232448     # dynamic shared memory a CTA may have (H100)
+J_CHUNKS = (8, 16, 32)   # kernel J's columns a chunk
+
+
+def hss_matvec_slots(nleaves: int, depth: int, cs: int) -> int:
+    """Node slots (``[r, kc]`` each, for xi and for eta/acc) that one CTA of
+    kernel J holds when ``cs`` CTAs share a matrix: its subtree of
+    ``nleaves / cs`` leaves up to its root (at most the root's children), and
+    one node a level above it."""
+    c = cs.bit_length() - 1
+    nlc, Ls = nleaves >> c, depth - c
+    sub = sum(nlc >> L for L in range(min(Ls, depth - 1) + 1))
+    return sub + (depth - 1 - Ls if cs > 1 else 0)
+
+
+def hss_matvec_ld(kc: int) -> int:
+    """Leading dimension (doubles) of a node slot of ``kc`` columns: 8 mod 16,
+    so that an mma fragment's 32 loads touch every bank twice."""
+    return kc if kc % 16 == 8 else kc + 8
+
+
+def hss_matvec_smem(nleaves: int, depth: int, r: int, cs: int, kc: int) -> int:
+    return 2 * hss_matvec_slots(nleaves, depth, cs) * r * hss_matvec_ld(kc) * 8
+
+
+def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
+                        k: int, sms: int = 132):
+    """Kernel J's launch: ``(cs, kc, groups, smem, threads, rb)``.  ``kc`` columns a
+    chunk: the first of 8, 16, 32 that holds ``k``, else 32.  A matrix
+    gets up to ``ceil(sms / B)`` CTAs: first column groups (``groups``, each
+    takes every groups-th chunk and re-reads the generators, from L2), up to
+    one a chunk, then a thread block cluster of ``cs`` CTAs (at most 8 and
+    ``nleaves``, never past the count) that split its tree (every cluster
+    barrier sits on the path of every chunk).  ``smem``: a CTA's dynamic shared memory for its
+    nodes' state, or 0 where that would pass ``SMEM_LIMIT``: the state then
+    lives in a scratch region a CTA (L2).  ``threads`` a CTA and ``rb``
+    8-row blocks a warp's item (each B fragment feeds ``rb / 2`` products):
+    256 and 2 at rank 32 (4 row blocks a node), else 512 and 2 at one chunk
+    of 8 columns (the solve's k = 1: more warps on the few matrices of a
+    level) and 256 and 4 above, the fastest of the forms
+    ``tools/j_breakdown.py`` times."""
+    del ls  # the leaves' rows stream from global memory
+    kc = next((c for c in J_CHUNKS if c >= k), J_CHUNKS[-1])
+    chunks = -(-k // kc)
+    need = -(-sms // max(B, 1))
+    groups = min(chunks, need)
+    cs = 1
+    while 2 * cs <= min(8, nleaves) and 2 * cs * groups <= need:
+        cs *= 2
+    groups = max(1, min(chunks, -(-sms // max(B * cs, 1))))
+    smem = hss_matvec_smem(nleaves, depth, r, cs, kc)
+    return (cs, kc, groups, smem if smem <= SMEM_LIMIT else 0,
+            *((256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)))
+
+
+def hss_matvec_launch(h: Hss, x: torch.Tensor, adjoint: bool, cs: int, kc: int,
+                      groups: int, smem: int, threads: int,
+                      rb: int) -> torch.Tensor:
+    """Kernel J at a given geometry (:func:`hss_matvec_geometry`'s, or
+    another for ``tools/j_breakdown.py``); ``smem == 0`` puts the state in
+    a scratch region a CTA."""
+    p, Bn, r = h.plan, h.B, h.r
+    Rc, Wc, B12c, B21c = h.packed()
+    y = torch.empty_like(x)
+    nown = hss_matvec_slots(p.nleaves, p.depth, cs)
+    ld = hss_matvec_ld(kc)
+    state = None if smem else torch.empty(
+        Bn * cs * groups * 2 * nown * r * ld, dtype=x.dtype, device=x.device)
+    kernels.launch("hs_hss_matvec", x.device, h.D.data_ptr(), h.U.data_ptr(),
+                   h.V.data_ptr(), Rc.data_ptr(), Wc.data_ptr(),
+                   B12c.data_ptr(), B21c.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   None if state is None else state.data_ptr(), Bn, p.nleaves,
+                   p.ls, r, p.depth, x.shape[-1], kc, threads, rb, cs, groups,
+                   ld, nown,
+                   smem, int(adjoint))
+    return y
 
 
 def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
-    """Kernel J wrapper (see the plain version): one block per (matrix, tile of
-    ``HSS_MATVEC_COLS`` columns) runs every level; the per-node upsweep and
-    downsweep states go through a scratch buffer the wrapper allocates."""
+    """Kernel J wrapper (see the plain version): one launch; one CTA or one
+    thread block cluster per matrix walks every level over chunks of the
+    columns, its nodes' state in shared memory or, where that does not fit,
+    in a scratch region a CTA (:func:`hss_matvec_geometry`)."""
     if kernels.on_cpu(x, h.D):
         return hss_matvec_plain(h, x, adjoint)
     p, Bn, r = h.plan, h.B, h.r
@@ -259,17 +336,10 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
     kernels.require(x, "x", torch.float64, (Bn, p.n_pad, k))
     for a in h.arrays():
         kernels.require(a, "hss array", torch.float64)
-    Rc, Wc, B12c, B21c = h.packed()
-    y = torch.empty_like(x)
     if Bn == 0 or k == 0:
-        return y
-    scratch = torch.empty((2, Bn, 2 * p.nleaves, r, k), dtype=x.dtype,
-                          device=x.device)
-    kernels.launch("hs_hss_matvec", x.device, h.D.data_ptr(), h.U.data_ptr(),
-                   h.V.data_ptr(), Rc.data_ptr(), Wc.data_ptr(),
-                   B12c.data_ptr(), B21c.data_ptr(), x.data_ptr(), y.data_ptr(),
-                   scratch[0].data_ptr(), scratch[1].data_ptr(), Bn, p.nleaves,
-                   p.ls, r, p.depth, k, HSS_MATVEC_COLS, int(adjoint))
+        return torch.empty_like(x)
+    y = hss_matvec_launch(h, x, adjoint, *hss_matvec_geometry(
+        Bn, p.nleaves, p.ls, r, p.depth, k, kernels.sm_count(x.device)))
     hss_matvec.launches += 1
     return y
 
@@ -343,11 +413,15 @@ def hss_entries_prepared_plain(ef: EntryFactors, rows: torch.Tensor,
     blocks ``rows [B, M, p]``, ``cols [B, M, q]``: the leaf-D gather where both
     lie in one leaf, else every level's product, selected at the LCA level
     (``hsolve/ops/hss.py:293-312``).  The LCA level is the bit length of
-    ``li ^ lj``."""
+    ``li ^ lj``.  An entry whose row or column lies outside ``[0, n_pad)`` is
+    NaN (the JAX function clamps such indices)."""
     D, T, V = ef
     Bn, depth, n_pad, _ = T.shape
     ls = D.shape[-1]
     rows, cols = rows.long(), cols.long()
+    bad = ((rows < 0) | (rows >= n_pad))[..., :, None] | \
+        ((cols < 0) | (cols >= n_pad))[..., None, :]
+    rows, cols = rows.clamp(0, n_pad - 1), cols.clamp(0, n_pad - 1)
     li, lj = rows // ls, cols // ls
     b3 = _batch_index(rows)
     Dflat = D.reshape(Bn, n_pad, ls)
@@ -360,13 +434,15 @@ def hss_entries_prepared_plain(ef: EntryFactors, rows: torch.Tensor,
     for lev in range(1, depth + 1):
         val = T[:, lev - 1][b3, rows] @ V[:, lev - 1][b3, cols].transpose(-1, -2)
         out = torch.where(lca == lev, val, out)
-    return out
+    return out.masked_fill(bad, float("nan"))
 
 
 def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
                          cols: torch.Tensor) -> torch.Tensor:
-    """Kernel I wrapper (see the plain version): one thread per entry, one
-    r-long dot at the LCA level (or one D load)."""
+    """Kernel I wrapper (see the plain version): one CTA per 64 x 64 tile of
+    an index block; per LCA level present, the tile's T and V rows staged
+    once in shared memory and multiplied as a small product (or one D load
+    per same-leaf entry)."""
     if kernels.on_cpu(rows, cols, ef.D):
         return hss_entries_prepared_plain(ef, rows, cols)
     D, T, V = ef
@@ -374,18 +450,21 @@ def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
     ls = D.shape[-1]
     M, p = rows.shape[1], rows.shape[2]
     q = cols.shape[2]
-    rows = rows.to(torch.int32).contiguous()
-    cols = cols.to(torch.int32).contiguous()
+    # the indices are read through their strides (an expanded index block
+    # costs no copy)
+    rows, cols = rows.to(torch.int64), cols.to(torch.int64)
     kernels.require(D, "D", torch.float64, (Bn, n_pad // ls, ls, ls))
     kernels.require(T, "T", torch.float64, (Bn, depth, n_pad, r))
     kernels.require(V, "V", torch.float64, (Bn, depth, n_pad, r))
-    kernels.require(rows, "rows", torch.int32, (Bn, M, p))
-    kernels.require(cols, "cols", torch.int32, (Bn, M, q))
+    if tuple(rows.shape) != (Bn, M, p) or tuple(cols.shape) != (Bn, M, q):
+        raise ValueError(f"rows {tuple(rows.shape)} / cols {tuple(cols.shape)}: "
+                         f"expected [{Bn}, M, p] / [{Bn}, M, q]")
     out = torch.empty((Bn, M, p, q), dtype=D.dtype, device=D.device)
     if out.numel():
         kernels.launch("hs_hss_entries", D.device, D.data_ptr(), T.data_ptr(),
                        V.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                       out.data_ptr(), Bn, M, p, q, n_pad, ls, r, depth)
+                       out.data_ptr(), *rows.stride(), *cols.stride(), Bn, M,
+                       p, q, n_pad, ls, r, depth)
         hss_entries_prepared.launches += 1
     return out
 

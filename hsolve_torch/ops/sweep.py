@@ -16,7 +16,11 @@ update of a compressed level, where the Gauss transform is a low-rank pair
 ``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
 Kernel C takes float32 or float64 values (one type per call), kernel E
-float64.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
+float64.  In float32 every product of a level step (``L x``, the pivot
+solve, ``R C[bnd]``) accumulates in float64 and rounds to float32 once, in
+the kernel and in the plain versions alike: the top levels of a float32
+exact factor are nearly singular, and a float32 summation there cost the
+mixed-precision solve half again as many iterations as the reference's.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
 such ids are skipped and input rows with them read as zero, so ``C``'s
 sentinel row ``N`` stays zero.
 """
@@ -63,9 +67,10 @@ def forward_windows(ni_pad: int):
 
 def forward_window_smem(itemsize: int) -> int:
     """Dynamic shared memory of one CTA of a window's substitution: the
-    window's solved values and the 8 panel warps' staged 32 x 33 diagonal
-    blocks.  The same whatever the front's width."""
-    return (WINDOW_ROWS + PANEL_WARPS * PANEL * 33) * itemsize
+    window's solved values (float64 in both types: the sweep accumulates in
+    float64) and the 8 panel warps' staged 32 x 33 diagonal blocks of
+    ``itemsize`` bytes.  The same whatever the front's width."""
+    return WINDOW_ROWS * 8 + PANEL_WARPS * PANEL * 33 * itemsize
 
 
 def backward_split(ni_pad: int) -> int:
@@ -95,12 +100,24 @@ def _scatter_sub(C: torch.Tensor, ids_out: torch.Tensor, upd: torch.Tensor,
     return C
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """Float32 operands of a product go to float64 (F4: the float32 sweep
+    accumulates in float64 and rounds once); float64 ones stay as they are."""
+    return t.double() if t.dtype == torch.float32 else t
+
+
+def _product(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``M @ X``, accumulated in float64 and rounded once to ``X``'s type."""
+    return (_wide(M) @ _wide(X)).to(X.dtype)
+
+
 def pivot_solve(lev, x: torch.Tensor) -> torch.Tensor:
     """``D^-1 x`` per front from a level's explicit ``dinv`` or its
-    ``(lu, perm)`` (two batched triangular solves)."""
+    ``(lu, perm)`` (two batched triangular solves); float32 operands are
+    solved in float64 and the result rounded once."""
     if lev.dinv is not None:
-        return lev.dinv @ x
-    return dk.lu_solve(lev.lu, lev.perm, x)
+        return _product(lev.dinv, x)
+    return dk.lu_solve(_wide(lev.lu), lev.perm, _wide(x)).to(x.dtype)
 
 
 def level_forward_plain(C: torch.Tensor, lev, N: int) -> torch.Tensor:
@@ -109,7 +126,7 @@ def level_forward_plain(C: torch.Tensor, lev, N: int) -> torch.Tensor:
     ``C[bnd_ids] -= L x``, ``C[int_ids] = D^-1 x`` (ids ``>= N`` skipped);
     returns ``C``."""
     x = _inputs(C, N, None, lev.int_ids)                     # [B, ni, k]
-    _scatter_sub(C, lev.bnd_ids, lev.L @ x, N)
+    _scatter_sub(C, lev.bnd_ids, _product(lev.L, x), N)
     keep = lev.int_ids < N
     C[lev.int_ids[keep].long()] = pivot_solve(lev, x)[keep]
     return C
@@ -155,8 +172,9 @@ def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
         kernels.launch(kernels.symbol("hs_level_forward", dt), C.device, *ptrs,
                        B, ni, nb, k, N, windows[0][2])
     else:
-        # x and z = x[perm] per window pass go through this scratch
-        XZ = torch.empty((2, B, k, ni), dtype=dt, device=C.device)
+        # x and z = x[perm] per window pass go through this scratch, in
+        # float64 whatever the value type (the running values of the sweep)
+        XZ = torch.empty((2, B, k, ni), dtype=torch.float64, device=C.device)
         kernels.launch(kernels.symbol("hs_level_forward_windowed", dt),
                        C.device, *ptrs, XZ[0].data_ptr(), XZ[1].data_ptr(), B,
                        ni, nb, k, N)
@@ -173,7 +191,8 @@ def sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor,
     """In place: ``C[ids_out[b, r]] -= sum_c M[b, r, c] * C[ids_in[b, c]]``
     (the backward step with ``M = R``, ``ids_out = int_ids``, ``ids_in =
     bnd_ids``); returns ``C``."""
-    return _scatter_sub(C, ids_out, M @ _inputs(C, N, None, ids_in), N)
+    return _scatter_sub(C, ids_out, _product(M, _inputs(C, N, None, ids_in)),
+                        N)
 
 
 def sweep_update(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor, N: int,

@@ -4,7 +4,7 @@ Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
                                             [--compressed | --hss | --mixed
-                                             | --spmv]
+                                             | --spmv | --hss-kernels]
                                             [--plain-forward]
                                             [--out build/profile]
 
@@ -27,6 +27,13 @@ right preconditioner, the DIA matvec):
 float64, as the sum of their kernels' device time under the profiler over
 ``--reps`` back-to-back calls (at least 100), so no host time is in the
 reading.
+
+``--hss-kernels`` times kernels J (``hss_matvec``) and I
+(``hss_entries_prepared``) and their plain versions alone, device time only,
+at the first shapes ``chip_smoke.py`` checks them at (the kest=32 n=512
+plan's first structured batch: 511 matrices of 2 leaves of 23 rows, rank 32;
+J at k = 46, the sketch width, and k = 1; I on the leaf blocks and on one
+level-1 coupling block a matrix), on random generators of those shapes.
 
 ``--plain-forward`` runs each dense level's forward step as its plain torch
 version (the gather, GEMM, index_put and triangular solves that kernel C's
@@ -115,6 +122,56 @@ def _spmv(args, card, dev) -> int:
     return 0
 
 
+def _hss_kernels(args, card, dev) -> int:
+    """``--hss-kernels``: device ms per call of J and I and of their plain
+    versions at chip_smoke's first shapes."""
+    import torch
+
+    from hsolve_torch.ops import hss as H
+
+    reps = max(args.reps, 100)
+    B, depth, ls, r = 511, 1, 23, 32
+    nl = 1 << depth
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn((B,) + s, dtype=torch.float64, device=dev,
+                                 generator=g)
+    h = H.Hss(D=rnd(nl, ls, ls), U=rnd(nl, ls, r), V=rnd(nl, ls, r),
+              Rs=[rnd(2, r, r)], Ws=[rnd(2, r, r)], B12s=[rnd(1, r, r)],
+              B21s=[rnd(1, r, r)],
+              plan=H.ClusterPlan(ls=ls, depth=depth, n1=ls, n2=ls))
+    ef = H.hss_entry_factors(h)
+    n = nl * ls
+    leaf = torch.arange(n, device=dev).reshape(1, nl, ls).expand(B, -1, -1) \
+        .contiguous()
+    rows = torch.randint(0, ls, (B, 1, r), device=dev, generator=g)
+    cols = ls + torch.randint(0, ls, (B, 1, r), device=dev, generator=g)
+    cases = []
+    for k in (46, 1):
+        x = torch.randn(B, n, k, dtype=torch.float64, device=dev, generator=g)
+        cases += [(f"hss_matvec k={k}", lambda x=x: H.hss_matvec(h, x)),
+                  (f"hss_matvec_plain k={k}",
+                   lambda x=x: H.hss_matvec_plain(h, x))]
+    for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
+        cases += [(f"hss_entries_prepared {what}",
+                   lambda rr=rr, cc=cc: H.hss_entries_prepared(ef, rr, cc)),
+                  (f"hss_entries_prepared_plain {what}",
+                   lambda rr=rr, cc=cc: H.hss_entries_prepared_plain(ef, rr, cc))]
+    report = {"card": card, "path": "hss-kernels", "reps": reps,
+              "shape": {"B": B, "nleaves": nl, "ls": ls, "r": r}, "calls": {}}
+    for name, fn in cases:
+        fn()
+        rows_ = _profile(fn, reps, os.path.join(
+            args.out, f"hss_kernels_{name.replace(' ', '_')}.json"))
+        ms = sum(r_["ms"] for r_ in rows_)
+        report["calls"][name] = {"device_ms": ms, "wall_ms": _events_ms(fn, reps),
+                                 "kernels": rows_}
+        print(f"{name}: {ms:.5f} ms device per call, "
+              f"{report['calls'][name]['wall_ms']:.5f} ms back to back "
+              f"({len(rows_)} kernels)", flush=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
@@ -131,6 +188,9 @@ def main() -> int:
                            "mixed-precision GMRES")
     mode.add_argument("--spmv", action="store_true",
                       help="device time of kernel D and of the CSR matvec")
+    mode.add_argument("--hss-kernels", action="store_true",
+                      help="device time of kernels J and I and their plain "
+                           "versions")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
@@ -162,6 +222,8 @@ def main() -> int:
     kernels.build()
     if args.spmv:
         return _spmv(args, card, dev)
+    if args.hss_kernels:
+        return _hss_kernels(args, card, dev)
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
     report = {"card": card, "path": path,

@@ -437,6 +437,61 @@ def test_hss_matvec_kernel_both_directions(dev, depth, k):
         assert _rel(got, op @ x) < 1e-12
 
 
+def _random_hss(dev, B, depth, ls, r, seed):
+    """Random generators of a batch of HSS matrices on the card."""
+    rng = np.random.default_rng(seed)
+    nl = 1 << depth
+    g = lambda *s: torch.as_tensor(rng.standard_normal((B,) + s) / np.sqrt(s[-1]),
+                                   device=dev)
+    half = (nl // 2) * ls
+    return H.Hss(D=g(nl, ls, ls), U=g(nl, ls, r), V=g(nl, ls, r),
+                 Rs=[g(nl >> i, r, r) for i in range(depth)],
+                 Ws=[g(nl >> i, r, r) for i in range(depth)],
+                 B12s=[g(nl >> (i + 1), r, r) for i in range(depth)],
+                 B21s=[g(nl >> (i + 1), r, r) for i in range(depth)],
+                 plan=H.ClusterPlan(ls=ls, depth=depth, n1=half, n2=half))
+
+
+# (B, depth, ls, r) of n=512 structured matrices: one CTA per matrix, and
+# clusters of 2-8 CTAs at the default caps' ranks
+J_SHAPES = [(511, 1, 23, 32), (127, 2, 24, 48), (15, 3, 32, 96),
+            (3, 4, 24, 192), (1, 3, 32, 192)]
+
+
+@pytest.mark.parametrize("B,depth,ls,r", J_SHAPES)
+@pytest.mark.parametrize("k", [1, 58, 112])
+def test_hss_matvec_kernel_at_n512_shapes(dev, B, depth, ls, r, k):
+    """Kernel J against its plain version at the n=512 plans' shapes, both
+    directions, on the geometry hss_matvec_geometry picks."""
+    h = _random_hss(dev, B, depth, ls, r, seed=r + k)
+    x = torch.as_tensor(np.random.default_rng(k).standard_normal(
+        (B, h.plan.n_pad, k)), device=dev)
+    for adj in (False, True):
+        got = H.hss_matvec(h, x, adj)
+        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-13
+
+
+@pytest.mark.parametrize("p,q", [(70, 45), (24, 24), (130, 192)])
+def test_hss_entries_kernel_mixed_levels_and_nan(dev, p, q):
+    """Kernel I on index blocks of several 64 x 64 tiles whose entries meet
+    every LCA level, with out-of-range indices: its plain version's values,
+    NaN in the same places."""
+    h = _random_hss(dev, 2, 3, 24, 192, seed=p)
+    ef = H.hss_entry_factors(h)
+    n = h.plan.n_pad
+    rng = np.random.default_rng(q)
+    rows = rng.integers(0, n, (2, 3, p))
+    cols = rng.integers(0, n, (2, 3, q))
+    rows[0, 1, 3], rows[1, 2, -1], cols[0, 0, 0], cols[1, 1, -1] = -1, n, n + 7, -3
+    rows, cols = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    got = H.hss_entries_prepared(ef, rows, cols)
+    ref = H.hss_entries_prepared_plain(ef, rows, cols)
+    assert torch.equal(got.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    assert int(fin.sum()) > 0
+    assert _rel(got[fin], ref[fin]) < 1e-13
+
+
 @pytest.mark.parametrize("k", [1, 12])
 def test_hss_level_correct_kernel_and_solve(dev, k):
     """Kernel K against its plain version at every level of both solves, and

@@ -139,7 +139,7 @@ def test_kernel_c_window_shared_memory_does_not_grow(ni_pad):
     for itemsize in (4, 8):
         assert forward_window_smem(itemsize) <= 227 * 1024
         assert forward_window_smem(itemsize) == \
-            (min(ni_pad, WINDOW_ROWS) + 8 * 32 * 33) * itemsize
+            min(ni_pad, WINDOW_ROWS) * 8 + 8 * 32 * 33 * itemsize
 
 
 @pytest.mark.parametrize("ni", [2049, 4424])
