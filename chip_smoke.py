@@ -14,10 +14,14 @@ Phases (any failure exits non-zero before the result line is printed):
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
    (A, B and G bitwise, H with equal pivots and ranks, C's backward step, D,
-   E, F, I, J and K to a relative error of 1e-13, since only the summation
-   order differs (float32: 1e-5; C accumulates in float64 in both types); C's forward step, whose substitution rounds in another
-   order than cuBLAS's, to 1e-12 of max |x'| times the level's pivot-growth
-   proxy, printed beside it); each is timed on the device (back-to-back calls
+   F, I, J and K to a relative error of 1e-13, since only the summation
+   order differs (float32: 1e-5; C accumulates in float64 in both types);
+   C's forward step, whose substitution rounds in another order than
+   cuBLAS's, to 1e-12 of max |x'| times the level's pivot-growth proxy,
+   printed beside it; E (which sums in double-double at the top levels) to
+   1e-13 of the update computed in long double on the host, and to its plain version
+   within 1e-13 plus the plain version's own distance from that update,
+   printed beside it with the update's cancellation); each is timed on the device (back-to-back calls
    between one pair of CUDA events, divided by the count, after warm-up)
    beside its plain version, beside its bound (the larger of its bytes over
    3.35 TB/s and its operations over the data sheet's peak, from this run's
@@ -29,8 +33,14 @@ Phases (any failure exits non-zero before the result line is printed):
    a level of ni_pad 256, the top level and a hand-made 4424-row front (in
    windows of 2048 rows), with lu records and, at the leaf and the top, as
    dinv records; its backward step at the leaf, the ni_pad 256 level and the
-   top level with a boundary); E (forward
-   and backward) and F on the first and the top compressed batch of the
+   top level with a boundary); B also at every launch of the exact
+   factor (both types) and of the compressed one, bitwise, with a summary
+   line each (launches, ms range, sums of kernel, plain and bound); E
+   (forward and backward) at every distinct launch shape of the compressed
+   plan's factor and of both structured plans' (kest=32, default caps), a
+   log line per shape and a summary line per plan (shapes, ranges of
+   kernel, plain and bound ms, the shapes slower than plain, sums); F on
+   the first and the top compressed batch of the
    compressed plan, G on both sides of the first; H and K at every distinct
    launch shape of the structured (HSS) plans' factor and of one
    preconditioner application, kest=32 and the default rank caps, on inputs
@@ -354,19 +364,20 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     for bidx in (1, nb - 1):
         bp, tb = plan.batches[bidx], tp.batches[bidx]
         base = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src, adata)
-        calls = [(stacks[s], sr, dr, imap)
-                 for groups, imap in ((tb.groups_l, tb.map_l),
-                                      (tb.groups_r, tb.map_r))
-                 for s, sr, dr in groups]
+        calls = [(stacks[s], sr, dr, imap, rows)
+                 for groups, counts, imap in (
+                     (tb.groups_l, tb.rows_l, tb.map_l),
+                     (tb.groups_r, tb.rows_r, tb.map_r))
+                 for (s, sr, dr), rows in zip(groups, counts)]
         ker, ref = base.clone(), base.clone()
         for c in calls:
             extend_add(ker, *c)
-            extend_add_plain(ref, *c)
+            extend_add_plain(ref, *c[:4])
         if not torch.equal(ker, ref):
             fail(f"extend_add{tag} is not bitwise equal at batch {bidx}")
         # the entries a group covers: S read once, the front read and written
         cover = flops = 0.0
-        for S, sr, dr, imap in calls:
+        for S, sr, dr, imap, _ in calls:
             rows = imap[dr.long()]
             cnt = ((rows >= 0) & (rows < S.shape[-1])).sum(1).double()
             c2 = float((cnt * cnt).sum())
@@ -380,11 +391,12 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
 
         def run_p():
             for c in calls:
-                extend_add_plain(scratch, *c)
+                extend_add_plain(scratch, *c[:4])
 
         record(f"extend_add{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
                f"{bp.m_pad}] {len(calls)} groups", errors(ker, ref), 0.0,
                device_ms(run_k), device_ms(run_p), bound(cover, flops, dtype_name))
+    check_extend_add_launches("exact", plan, tp, stacks, adata, results)
 
     # C: the fused forward step (pivot solve included) at the leaf level, a
     # level of ni_pad 256 and the top level, with lu records and, at the leaf
@@ -529,6 +541,176 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     torch.cuda.synchronize()
 
 
+def check_extend_add_launches(label, plan, tp, stacks, adata,
+                              results: Results) -> None:
+    """Kernel B at every launch of a factor (each group of each batch, left
+    before right, on the factor's own Schur stacks and the plan's valid-row
+    counts): bitwise its plain version, timed beside it; one summary line
+    (launches, ms range, the sums of kernel, plain and bound)."""
+    import torch
+
+    from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
+                                           front_assemble_plain)
+
+    dt = adata.dtype
+    e = adata.element_size()
+    tag = "" if dt == torch.float64 else ":float32"
+    rows_ = []
+    for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
+        if bp.structured:
+            continue
+        base = None
+        for side, groups, counts, imap in (
+                ("l", tb.groups_l, tb.rows_l, tb.map_l),
+                ("r", tb.groups_r, tb.rows_r, tb.map_r)):
+            for (src, sr, dr), cnt in zip(groups, counts, strict=True):
+                S = stacks[src]
+                if not isinstance(S, torch.Tensor):
+                    continue              # an HSS child: densified first
+                if base is None:
+                    base = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src,
+                                                adata)
+                ker = extend_add(base.clone(), S, sr, dr, imap, cnt)
+                ref = extend_add_plain(base.clone(), S, sr, dr, imap)
+                if not torch.equal(ker, ref):
+                    fail(f"extend_add{tag} is not bitwise equal at {label} "
+                         f"batch {bidx} {side} (source batch {src})")
+                m_ = imap[dr.long()]
+                c = ((m_ >= 0) & (m_ < S.shape[-1])).sum(1).double()
+                c2 = float((c * c).sum())
+                scratch = base.clone()
+                ms = device_ms(lambda: extend_add(scratch, S, sr, dr, imap, cnt))
+                plain_ms = device_ms(lambda: extend_add_plain(scratch, S, sr, dr,
+                                                              imap))
+                work = bound(3 * c2 * e + nbytes(m_, sr, dr), c2,
+                             str(dt).replace("torch.", ""))
+                log(f"  extend_add{tag} {label} batch {bidx} {side} G={sr.numel()}"
+                    f" m={bp.m_pad} w={S.shape[-1]} valid rows <= {cnt}: "
+                    f"bitwise; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"bound {work['bound_ms']:.5f} ms")
+                rows_.append((ms, plain_ms, work["bound_ms"]))
+    if not rows_:
+        fail(f"extend_add{tag}: no launch at {label}")
+    ms_, plain_, bound_ = zip(*rows_)
+    log(f"  {label}: B{tag} at {len(rows_)} launches, bitwise; kernel "
+        f"{min(ms_):.4f}-{max(ms_):.4f} ms, slower than its plain version at "
+        f"{sum(a > b for a, b in zip(ms_, plain_))}; sum {sum(ms_):.4f} ms "
+        f"against plain {sum(plain_):.4f} and bound {sum(bound_):.4f}")
+
+
+def sweep_forms(lev, x):
+    """Kernel E's two launches on a compressed or structured level: the
+    forward update (``X`` the gathered interior values) and the backward
+    one (``ids_in`` the boundary ids)."""
+    return (("fwd", lev.LU_, lev.LV_, lev.bnd_ids, {"X": x}),
+            ("bwd", lev.RU_, lev.RV_, lev.int_ids, {"ids_in": lev.bnd_ids}))
+
+
+def sweep_exact(C0, ids_out, U, V, N, kw):
+    """Kernel E's update in long double on the host: ``(C after it,
+    cancellation)``, the cancellation being the largest sum over a row of
+    the magnitudes of its terms ``|U_ri t_i|`` over the largest entry of
+    the result."""
+    import numpy as np
+    import torch
+
+    if "X" in kw:
+        Y = kw["X"]
+    else:
+        ids = kw["ids_in"]
+        Y = torch.where((ids < N)[..., None], C0[ids.clamp(max=N).long()], 0.0)
+    ld = lambda t: t.cpu().numpy().astype(np.longdouble)
+    Ul = ld(U)
+    t = np.einsum("bck,bcr->bkr", ld(V), ld(Y))
+    C = ld(C0)
+    out = ids_out.cpu().numpy()
+    keep = out < N
+    upd = np.einsum("brk,bkq->brq", Ul, t)
+    np.subtract.at(C, out[keep], upd[keep])
+    mag = np.einsum("brk,bkq->brq", np.abs(Ul), np.abs(t))
+    scale = float(np.abs(C).max())
+    return C, float(mag.max()) / (scale if scale > 0 else 1.0)
+
+
+def check_sweep_shape(desc, C0, ids_out, U, V, N, kw, results: Results):
+    """Kernel E at one launch against the update computed in long double
+    (``RTOL_SUM`` of the largest entry) and against its plain version
+    (``RTOL_SUM`` plus the plain version's own distance from the long-double
+    update: it rounds t = V^T Y to doubles, and where a row's terms of U t
+    sum to hundreds of times its result that alone moves it by about
+    1e-13), timed beside it; returns ``(ms, plain ms, bound ms)``."""
+    import numpy as np
+
+    from hsolve_torch.ops.sweep import (lowrank_sweep_geometry,
+                                        lowrank_sweep_update,
+                                        lowrank_sweep_update_plain)
+
+    ker = lowrank_sweep_update(C0.clone(), ids_out, U, V, N, **kw)
+    ref = lowrank_sweep_update_plain(C0.clone(), ids_out, U, V, N, **kw)
+    if float(ker[N].abs().max()) != 0.0:
+        fail(f"lowrank_sweep_update wrote the sentinel row at {desc}")
+    exact, canc = sweep_exact(C0, ids_out, U, V, N, kw)
+    scale = float(np.abs(exact).max())
+    e_ker = float(np.abs(ker.cpu().numpy() - exact).max()) / scale
+    e_ref = float(np.abs(ref.cpu().numpy() - exact).max()) / scale
+    if not e_ker <= RTOL_SUM:
+        fail(f"lowrank_sweep_update is {e_ker:.3e} of the largest entry off "
+             f"the long-double update at {desc} (limit {RTOL_SUM:g})")
+    scratch = C0.clone()
+    Bu, R, kc = U.shape
+    Cc = V.shape[1]
+    k = C0.shape[1]
+    work = bound(nbytes(U, V, ids_out, *kw.values()) + 2 * Bu * R * 8 * k
+                 + (Bu * Cc * 8 * k if "ids_in" in kw else 0),
+                 2 * Bu * kc * (R + Cc) * k, products=True)
+    cs, threads, _, _, vec, _, dd, _ = lowrank_sweep_geometry(Bu, R, Cc, kc,
+                                                              k)
+    ms = device_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V, N, **kw))
+    plain_ms = device_ms(lambda: lowrank_sweep_update_plain(scratch, ids_out, U,
+                                                            V, N, **kw))
+    results.record("lowrank_sweep_update",
+                   f"{desc} U={list(U.shape)} V={list(V.shape)[1:]} cs={cs} "
+                   f"threads={threads} vec={vec} dd={dd}; off the long-double "
+                   f"update: "
+                   f"kernel {e_ker:.1e}, plain {e_ref:.1e}, cancellation "
+                   f"{canc:.3g}", errors(ker, ref), RTOL_SUM + e_ref, ms,
+                   plain_ms, work)
+    return ms, plain_ms, work["bound_ms"]
+
+
+def check_sweep_levels(label, levels, N, results: Results) -> None:
+    """Kernel E at every distinct launch shape of a factor's compressed and
+    structured levels (both forms, k = 1), then one summary line: the
+    shapes, the range of kernel, plain and bound ms, the shapes slower than
+    the plain version and the sums."""
+    import torch
+
+    lev0 = next(lv for lv in levels if getattr(lv, "LU_", None) is not None)
+    dev = lev0.LU_.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    C0 = torch.randn(N + 1, 1, dtype=torch.float64, device=dev, generator=gen)
+    C0[N] = 0.0
+    seen, rows_ = set(), []
+    for bidx, lev in enumerate(levels):
+        if getattr(lev, "LU_", None) is None:
+            continue
+        for form, U, V, ids_out, kw in sweep_forms(lev, C0[lev.int_ids]):
+            key = (form, *U.shape, V.shape[1])
+            if key in seen:
+                continue
+            seen.add(key)
+            rows_.append(check_sweep_shape(f"{label} batch {bidx} {form}", C0,
+                                           ids_out, U, V, N, kw, results))
+    ms_, plain_, bound_ = zip(*rows_)
+    slow = [a / b for a, b in zip(ms_, plain_) if a > b]
+    log(f"  {label}: E at {len(rows_)} shapes, kernel {min(ms_):.4f}-"
+        f"{max(ms_):.4f} ms, plain {min(plain_):.4f}-{max(plain_):.4f}, bound "
+        f"{min(bound_):.5f}-{max(bound_):.5f}; slower than its plain version "
+        f"at {len(slow)}" + (f" (worst {max(slow):.2f}x)" if slow else "")
+        + f"; sum {sum(ms_):.4f} ms against plain {sum(plain_):.4f} and bound "
+        f"{sum(bound_):.4f}")
+
+
 def check_compressed_kernels(problems: Problems, n: int, dev,
                              results: Results) -> None:
     """Phase 3, kernels E-G against their plain versions at the compressed
@@ -544,8 +726,6 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
                                           lowrank_truncate_plain, sketch_width)
     from hsolve_torch.ops.schur import (lowrank_schur_update,
                                         lowrank_schur_update_plain)
-    from hsolve_torch.ops.sweep import (lowrank_sweep_update,
-                                        lowrank_sweep_update_plain)
 
     A, _, shape = problems.get(n)
     opts = ht.SolverOptions(**COMPRESSED)
@@ -559,32 +739,12 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
     first, top = comp[0], comp[-1]
     record = results.record
 
-    # E: both forms on the first and the top compressed level
-    N = plan.N
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    C0 = torch.randn(N + 1, 1, dtype=f64, device=dev, generator=gen)
-    C0[N] = 0.0
-    for bidx in (first, top):
-        lev = levels[bidx]
-        x = C0[lev.int_ids]
-        for form, U, V, ids_out, kw in (
-                ("fwd", lev.LU_, lev.LV_, lev.bnd_ids, {"X": x}),
-                ("bwd", lev.RU_, lev.RV_, lev.int_ids, {"ids_in": lev.bnd_ids})):
-            ker = lowrank_sweep_update(C0.clone(), ids_out, U, V, N, **kw)
-            ref = lowrank_sweep_update_plain(C0.clone(), ids_out, U, V, N, **kw)
-            scratch = C0.clone()
-            Bu, R, kc = U.shape
-            Cc = V.shape[1]
-            work = nbytes(U, V, ids_out, *kw.values()) + 2 * Bu * R * 8 \
-                + (Bu * Cc * 8 if "ids_in" in kw else 0)
-            record("lowrank_sweep_update",
-                   f"batch {bidx} {form} U={list(U.shape)} V={list(V.shape)[1:]}",
-                   errors(ker, ref), RTOL_SUM,
-                   device_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V,
-                                                        N, **kw)),
-                   device_ms(lambda: lowrank_sweep_update_plain(
-                       scratch, ids_out, U, V, N, **kw)),
-                   bound(work, 2 * Bu * kc * (R + Cc), products=True))
+    # E: both forms at every launch shape, the first compressed level first
+    check_sweep_levels("low-rank", levels, plan.N, results)
+
+    # B at every launch of the compressed factor
+    check_extend_add_launches("low-rank", plan, tp, stacks, tp.adata.to(f64),
+                              results)
 
     def front_of(bidx):
         bp, tb = plan.batches[bidx], tp.batches[bidx]
@@ -828,6 +988,7 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
         if label == "kest=32":
             check_hss_table_shapes(plan, levels, opts, dev, results)
         check_hss_captured(label, jcalls, icalls, results)
+        check_sweep_levels(f"structured {label}", levels, plan.N, results)
     torch.cuda.synchronize()
 
 

@@ -18,99 +18,409 @@
 //
 // Bound: memory.  U [B, R, kc] and V [B, Cc, kc] are read once per chunk of
 // right-hand sides (once in GMRES, k = 1), with two multiply-adds per element
-// of them.  It runs twice per compressed level per preconditioner
-// application, so on every GMRES iteration.  One block per front: phase 1
-// stages t = V^T Y ([kc, rc], rc right-hand sides) in shared memory, threads
-// along kc reading V's rows coalesced and groups of threads splitting the Cc
-// sum, reduced in shared memory; phase 2 applies U t with one warp per output
-// row, lanes along kc (U's row is contiguous), a shuffle reduction and one
-// atomic per right-hand side.  Nothing of t goes through device memory.  The
-// top levels hold few fronts (B = 1 at the root's children), so a launch with
-// fewer fronts than SMs takes 1024 threads a block instead of 256, for four
-// times the loads in flight per front.
+// of them: at the n=512 plans' top levels (one front, R = Cc = 512, kc = 48)
+// 393 KB, 0.12 us at 3.35 TB/s.  What held the first design back was not
+// bytes: one CTA per front left the top levels (1-16 fronts) on 1-16 of the
+// 132 SMs, each walking ~25 dependent load steps, and its reduction took two
+// barriers per chunk of kc.  This design:
+//
+// - few fronts: one front spreads over a thread block cluster of cs CTAs of
+//   256 threads (up to 16, non-portable above 8) until the launch has about
+//   four CTAs per SM (`lowrank_sweep_geometry` in ops/sweep.py picks the
+//   geometry).  CTA j reduces its slice of the Cc rows into a partial
+//   t_j = V[c-slice]^T Y[c-slice] ([kc, kb]) in its shared memory; after a
+//   cluster barrier each CTA sums the cs partials through distributed
+//   shared memory (in rank order, so every CTA holds the same t) and
+//   applies U to its own slice of the R rows.  No t goes through device
+//   memory;
+// - fronts filling between a half and one wave of SMs (k = 1): one CTA of
+//   1024 threads a front (it beat clusters of 256-thread CTAs there,
+//   tools/eb_breakdown.py);
+// - many fronts: one front a CTA of 256 threads, no cluster;
+// - phase 1 (t): the slice's Y rows are staged in shared memory, one row a
+//   thread (in the backward form the gather C[ids_in] runs once per row,
+//   all of them in flight together, not once per column group); thread
+//   (g, p) owns the column pair p (16-byte loads of V's rows where kc is
+//   even and V is 16-byte aligned) and walks every G-th row of the slice,
+//   loading 4 rows before it multiplies them; one shared-memory reduction
+//   over the G row groups per launch and chunk of right-hand sides, not per
+//   chunk of kc;
+// - phase 2 (U t): L lanes per row (L the power of two >= kc / 2, at most
+//   32), 32 / L rows per warp and 4 rows per lane group loaded before they
+//   multiply, a shuffle reduction over the L lanes and one atomic per row
+//   and right-hand side (streaming U's rows as one block with a segmented
+//   warp sum, which keeps every lane busy whatever kc, lost at all but one
+//   shape);
+// - launches of at most 16 fronts (the top levels) sum in double-double and
+//   keep t as a pair (see acc_add below): there a row's terms of U t sum to
+//   up to 650 times the update, and plain sums (the first design's, the
+//   plain version's) land ~1e-13 of C off the exact update; from 31 fronts
+//   on the terms sum to at most 0.8 times it, and double-double sums would
+//   cost 1.2-2.2x the time there (1.2-1.4x at the top levels;
+//   tools/eb_breakdown.py, with --accuracy for the errors);
+// - k > 1 goes in chunks of 4 right-hand sides (kb = 4), k = 1 in one
+//   (kb = 1).
+#include <cooperative_groups.h>
+
 #include "hs_common.cuh"
 
-#define E_SMEM_DOUBLES 4096  // t tile; LOWRANK_SMEM_DOUBLES in ops/sweep.py
+namespace cg = cooperative_groups;
 
-__global__ void lowrank_sweep_update_kernel(
-    double* C, const int* __restrict__ ids_out, const double* __restrict__ U,
-    const double* __restrict__ V, const double* __restrict__ X,
-    const int* __restrict__ ids_in, int R, int Cc, int kc, int k, int rc,
-    int N) {
-  extern __shared__ double smem[];
-  double* t = smem;              // [kc][rc]
-  double* red = smem + kc * rc;  // [blockDim.x] partial sums
-  const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  const double* Vb = V + b * Cc * kc;
-  const double* Ub = U + b * R * kc;
+#define E_UNROLL 4  // rows in flight per thread (phase 1) and lane group (2)
 
-  for (int r0 = blockIdx.y * rc; r0 < k; r0 += gridDim.y * rc) {
-    const int nr = min(rc, k - r0);
-    // phase 1: t[kk][r] = sum_c V[b, c, kk] * Y[b, c, r0 + r]
-    for (int r = 0; r < nr; ++r) {
-      for (int k0 = 0; k0 < kc; k0 += nt) {
-        const int kw = min(nt, kc - k0);
-        const int groups = nt / kw;
-        const int kk = k0 + tid % kw, g = tid / kw;
-        double acc = 0.0;
-        if (g < groups) {
-          for (int c = g; c < Cc; c += groups) {
-            double y;
-            if (X != nullptr) {
-              y = X[(b * Cc + c) * k + r0 + r];
-            } else {
-              const int id = ids_in[b * Cc + c];
-              y = id < N ? C[(int64_t)id * k + r0 + r] : 0.0;
-            }
-            acc += Vb[(int64_t)c * kc + kk] * y;
-          }
-        }
-        red[tid] = acc;
-        __syncthreads();
-        if (tid < kw) {
-          double s = 0.0;
-          for (int gg = 0; gg < groups; ++gg) s += red[gg * kw + tid];
-          t[(k0 + tid) * rc + r] = s;
-        }
-        __syncthreads();
-      }
-    }
-    // phase 2: C[ids_out[b, row], r0 + r] -= U[b, row, :] . t[:, r]
-    for (int row = warp; row < R; row += nwarps) {
-      const int out = ids_out[b * R + row];
-      if (out >= N) continue;  // uniform across the warp
-      const double* urow = Ub + (int64_t)row * kc;
-      for (int r = 0; r < nr; ++r) {
-        double acc = 0.0;
-        for (int kk = lane; kk < kc; kk += 32) acc += urow[kk] * t[kk * rc + r];
-        for (int off = 16; off > 0; off >>= 1)
-          acc += __shfl_down_sync(0xffffffffu, acc, off);
-        if (lane == 0) atomicAdd(C + (int64_t)out * k + r0 + r, -acc);
-      }
-    }
-    __syncthreads();  // t is rewritten by the next chunk
+template <int VEC>
+struct EVec;
+template <>
+struct EVec<1> {
+  static __device__ __forceinline__ void load(const double* p, double* v) {
+    v[0] = __ldg(p);
+  }
+};
+template <>
+struct EVec<2> {
+  static __device__ __forceinline__ void load(const double* p, double* v) {
+    const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+};
+
+// Sums in double-double (DD): a running (hi, lo) pair gains an exact product
+// a*b as (p, fma(a, b, -p)) and a pair as (hi, lo); hi + lo is rounded once
+// at the end, and t is kept as a pair that U multiplies half by half.  At
+// the top levels the terms of a row of U t sum to far more than the update
+// (n=512, default caps, batch 15: 650 times the largest entry of C), and
+// rounding t to doubles alone then moves the result by ~1e-13 of C.
+// Without DD the pairs' lo halves stay 0 and the sums are plain FMAs.
+template <bool DD>
+__device__ __forceinline__ void acc_add(double& hi, double& lo, double a,
+                                        double a_lo) {
+  if (DD) {
+    const double s = hi + a;
+    const double bb = s - hi;
+    lo += ((hi - (s - bb)) + (a - bb)) + a_lo;
+    hi = s;
+  } else {
+    hi += a;
   }
 }
 
+template <bool DD>
+__device__ __forceinline__ void acc_fma(double& hi, double& lo, double a,
+                                        double b) {
+  if (DD) {
+    const double p = a * b;
+    acc_add<true>(hi, lo, p, fma(a, b, -p));
+  } else {
+    hi = fma(a, b, hi);
+  }
+}
+
+template <int NT, int VEC, int KB, bool DD>
+__global__ void __launch_bounds__(NT)
+    lowrank_sweep_update_kernel(double* C, const int* __restrict__ ids_out,
+                                const double* __restrict__ U,
+                                const double* __restrict__ V,
+                                const double* __restrict__ X,
+                                const int* __restrict__ ids_in, int R, int Cc,
+                                int kc, int k, int N, int cs, int rstep,
+                                int cstep) {
+  extern __shared__ double smem[];
+  double* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
+  double* ys = red + 2 * NT * VEC * KB;  // [NT][KB] staged Y rows
+  double* tpart = ys + NT * KB;         // [2][kc][KB] this CTA's partial t
+  double* tfull = tpart + 2 * kc * KB;  // [2][kc][KB] the cluster's sum
+  const int red_lo = NT * VEC * KB, t_lo = kc * KB;  // offsets of the lo halves
+  const int64_t b = blockIdx.x / cs;
+  const int rank = blockIdx.x % cs;  // the CTA's rank in its cluster
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = (kc + VEC - 1) / VEC;  // column groups of VEC
+  const double* Vb = V + b * Cc * kc;
+  const double* Ub = U + b * R * kc;
+  const int c0 = min(rank * cstep, Cc), c1 = min(c0 + cstep, Cc);
+  const int q0 = min(rank * rstep, R), q1 = min(q0 + rstep, R);
+  // phase 2's lanes per row: a power of two covering P, at most a warp
+  int L = 1;
+  while (L < P && L < 32) L <<= 1;
+  const int rpw = 32 / L, sub = lane % L, slot = lane / L;
+  const int span = (NT / 32) * rpw;  // rows per pass of the CTA
+
+  for (int r0 = 0; r0 < k; r0 += KB) {
+    // phase 1: tpart[kk][r] = sum_{c in slice} V[b, c, kk] * Y[b, c, r0 + r]
+    for (int p0 = 0; p0 < P; p0 += NT) {
+      const int pw = min(P - p0, NT);
+      const int G = NT / pw;
+      const int g = tid / pw, pl = tid % pw;
+      const int col = (p0 + pl) * VEC;
+      double acc[VEC][KB], acl[VEC][KB];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+#pragma unroll
+        for (int r = 0; r < KB; ++r) acc[v][r] = acl[v][r] = 0.0;
+      // the slice's rows in chunks of NT: each thread stages one Y row (the
+      // gather of the backward form happens once per row, all of a chunk's
+      // in flight together), then the column groups walk the chunk, loading
+      // E_UNROLL rows of V before they multiply
+      for (int cb = c0; cb < c1; cb += NT) {
+        const int nc = min(NT, c1 - cb);
+        if (tid < nc) {
+          const int c = cb + tid;
+          if (X != nullptr) {
+            const double* xr = X + (b * Cc + c) * (int64_t)k + r0;
+#pragma unroll
+            for (int r = 0; r < KB; ++r)
+              ys[tid * KB + r] = r0 + r < k ? __ldg(xr + r) : 0.0;
+          } else {
+            const int id = __ldg(ids_in + b * Cc + c);
+#pragma unroll
+            for (int r = 0; r < KB; ++r)
+              ys[tid * KB + r] =
+                  id < N && r0 + r < k ? C[(int64_t)id * k + r0 + r] : 0.0;
+          }
+        }
+        __syncthreads();
+        if (g < G) {
+          for (int c = g; c < nc; c += E_UNROLL * G) {
+            double vv[E_UNROLL][VEC];
+#pragma unroll
+            for (int u = 0; u < E_UNROLL; ++u) {
+              if (c + u * G < nc) {
+                EVec<VEC>::load(Vb + (int64_t)(cb + c + u * G) * kc + col,
+                                vv[u]);
+              } else {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) vv[u][v] = 0.0;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < E_UNROLL; ++u) {
+              if (c + u * G < nc) {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v)
+#pragma unroll
+                  for (int r = 0; r < KB; ++r)
+                    acc_fma<DD>(acc[v][r], acl[v][r], vv[u][v],
+                           ys[(c + u * G) * KB + r]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // ys is restaged for the next chunk
+      }
+      if (g < G) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+#pragma unroll
+          for (int r = 0; r < KB; ++r) {
+            const int at = ((g * pw + pl) * VEC + v) * KB + r;
+            red[at] = acc[v][r];
+            red[red_lo + at] = acl[v][r];
+          }
+      }
+      __syncthreads();
+      for (int e = tid; e < pw * VEC * KB; e += NT) {
+        const int kk = p0 * VEC + e / KB;
+        double hi = 0.0, lo = 0.0;
+        for (int gg = 0; gg < G; ++gg) {
+          const int at = gg * pw * VEC * KB + e;
+          acc_add<DD>(hi, lo, red[at], red[red_lo + at]);
+        }
+        if (kk < kc) {
+          tpart[kk * KB + e % KB] = hi;
+          tpart[t_lo + kk * KB + e % KB] = lo;
+        }
+      }
+      __syncthreads();
+    }
+    // the cluster's sum, the same on every CTA (ranks in order)
+    const double* t = tpart;
+    if (cs > 1) {
+      cg::cluster_group cl = cg::this_cluster();
+      cl.sync();
+      for (int e = tid; e < kc * KB; e += NT) {
+        double hi = 0.0, lo = 0.0;
+        for (int j = 0; j < cs; ++j) {
+          const double* peer = cl.map_shared_rank(tpart, j);
+          acc_add<DD>(hi, lo, peer[e], peer[t_lo + e]);
+        }
+        tfull[e] = hi;
+        tfull[t_lo + e] = lo;
+      }
+      __syncthreads();
+      t = tfull;
+    }
+    // phase 2: C[ids_out[b, row], r0 + r] -= U[b, row, :] . t[:, r] over the
+    // CTA's rows, E_UNROLL rows of U loaded before they multiply
+    for (int base = q0; base < q1; base += span * E_UNROLL) {
+      int row[E_UNROLL];
+      double acc[E_UNROLL][KB], acl[E_UNROLL][KB];
+#pragma unroll
+      for (int u = 0; u < E_UNROLL; ++u) {
+        row[u] = base + u * span + warp * rpw + slot;
+#pragma unroll
+        for (int r = 0; r < KB; ++r) acc[u][r] = acl[u][r] = 0.0;
+      }
+      for (int p = sub; p < P; p += L) {
+        double uu[E_UNROLL][VEC];
+#pragma unroll
+        for (int u = 0; u < E_UNROLL; ++u) {
+          if (row[u] < q1) {
+            EVec<VEC>::load(Ub + (int64_t)row[u] * kc + p * VEC, uu[u]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) uu[u][v] = 0.0;
+          }
+        }
+        double tv[VEC][KB], tl[VEC][KB];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+#pragma unroll
+          for (int r = 0; r < KB; ++r) {
+            const bool in = p * VEC + v < kc;
+            tv[v][r] = in ? t[(p * VEC + v) * KB + r] : 0.0;
+            tl[v][r] = in ? t[t_lo + (p * VEC + v) * KB + r] : 0.0;
+          }
+#pragma unroll
+        for (int u = 0; u < E_UNROLL; ++u)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+#pragma unroll
+            for (int r = 0; r < KB; ++r) {
+              if (DD) {
+                const double a = uu[u][v] * tv[v][r];
+                acc_add<true>(acc[u][r], acl[u][r], a,
+                              fma(uu[u][v], tv[v][r], -a) +
+                                  uu[u][v] * tl[v][r]);
+              } else {
+                acc[u][r] = fma(uu[u][v], tv[v][r], acc[u][r]);
+              }
+            }
+      }
+#pragma unroll
+      for (int u = 0; u < E_UNROLL; ++u) {
+#pragma unroll
+        for (int r = 0; r < KB; ++r)
+          for (int off = L >> 1; off > 0; off >>= 1) {
+            const double h = __shfl_xor_sync(0xffffffffu, acc[u][r], off);
+            const double l =
+                DD ? __shfl_xor_sync(0xffffffffu, acl[u][r], off) : 0.0;
+            acc_add<DD>(acc[u][r], acl[u][r], h, l);
+          }
+        if (sub == 0 && row[u] < q1) {
+          const int out = __ldg(ids_out + b * R + row[u]);
+          if (out < N) {
+#pragma unroll
+            for (int r = 0; r < KB; ++r)
+              if (r0 + r < k)
+                atomicAdd(C + (int64_t)out * k + r0 + r,
+                          -(acc[u][r] + acl[u][r]));
+          }
+        }
+      }
+    }
+    // the next chunk rewrites red, ys, tpart and tfull, and a peer may still
+    // be reading this CTA's tpart
+    if (cs > 1)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  }
+}
+
+template <int NT, int VEC, int KB, bool DD>
+static int lowrank_sweep_launch(double* C, const int* ids_out, const double* U,
+                                const double* V, const double* X,
+                                const int* ids_in, long long B, int R, int Cc,
+                                int kc, int k, int N, int cs, int rstep,
+                                int cstep, size_t smem, cudaStream_t stream) {
+  auto kern = lowrank_sweep_update_kernel<NT, VEC, KB, DD>;
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kern,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  if (cs > 8 &&
+      (err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cs));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, C, ids_out, U, V, X, ids_in, R, Cc, kc,
+                           k, N, cs, rstep, cstep);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int NT, bool DD>
+static int lowrank_sweep_dispatch(double* c, const int* o, const double* u,
+                                  const double* v, const double* x,
+                                  const int* in, long long B, int R, int Cc,
+                                  int kc, int k, int N, int cs, int rstep,
+                                  int cstep, int vec, int kb, size_t smem,
+                                  cudaStream_t s) {
+  if (vec == 2 && kb == 1)
+    return lowrank_sweep_launch<NT, 2, 1, DD>(c, o, u, v, x, in, B, R, Cc, kc,
+                                              k, N, cs, rstep, cstep, smem, s);
+  if (vec == 2)
+    return lowrank_sweep_launch<NT, 2, 4, DD>(c, o, u, v, x, in, B, R, Cc, kc,
+                                              k, N, cs, rstep, cstep, smem, s);
+  if (kb == 1)
+    return lowrank_sweep_launch<NT, 1, 1, DD>(c, o, u, v, x, in, B, R, Cc, kc,
+                                              k, N, cs, rstep, cstep, smem, s);
+  return lowrank_sweep_launch<NT, 1, 4, DD>(c, o, u, v, x, in, B, R, Cc, kc, k,
+                                            N, cs, rstep, cstep, smem, s);
+}
+
+// The geometry (cs, threads, rstep, cstep, vec, kb, dd, smem) is
+// lowrank_sweep_geometry's in ops/sweep.py; this entry point only checks that
+// it covers the front and that its shared memory holds the kernel's tiles.
 HS_EXPORT int hs_lowrank_sweep_update(void* C, const void* ids_out,
                                       const void* U, const void* V,
                                       const void* X, const void* ids_in,
                                       long long B, int R, int Cc, int kc,
-                                      int k, int N, void* stream) {
-  if (B > 0 && R > 0 && Cc > 0 && kc > 0 && k > 0 && kc <= E_SMEM_DOUBLES) {
-    int rc = E_SMEM_DOUBLES / kc;
-    if (rc > k) rc = k;
-    int chunks = (k + rc - 1) / rc;
-    if (chunks > 65535) chunks = 65535;
-    const int threads = B < 132 ? 1024 : 256;
-    const size_t smem = ((size_t)kc * rc + threads) * sizeof(double);
-    dim3 grid((unsigned)B, (unsigned)chunks);
-    lowrank_sweep_update_kernel<<<grid, threads, smem,
-                                  (cudaStream_t)stream>>>(
-        (double*)C, (const int*)ids_out, (const double*)U, (const double*)V,
-        (const double*)X, (const int*)ids_in, R, Cc, kc, k, rc, N);
-  }
-  return (int)cudaGetLastError();
+                                      int k, int N, int cs, int threads,
+                                      int rstep, int cstep, int vec, int kb,
+                                      int dd, long long smem, void* stream) {
+  if (B <= 0 || R <= 0 || Cc <= 0 || kc <= 0 || k <= 0) return 0;
+  if (cs < 1 || cs > 16 || (threads != 256 && threads != 1024) ||
+      (long long)rstep * cs < R || (long long)cstep * cs < Cc ||
+      (vec != 1 && vec != 2) || (vec == 2 && kc % 2) || (kb != 1 && kb != 4) ||
+      smem < (long long)(threads * (2 * vec + 1) * kb + 4 * kc * kb) * 8 ||
+      B * cs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  double* c = (double*)C;
+  const int* o = (const int*)ids_out;
+  const double *u = (const double*)U, *v = (const double*)V,
+               *x = (const double*)X;
+  const int* in = (const int*)ids_in;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t sm = (size_t)smem;
+  if (threads == 1024)
+    return dd ? lowrank_sweep_dispatch<1024, true>(c, o, u, v, x, in, B, R, Cc,
+                                                   kc, k, N, cs, rstep, cstep,
+                                                   vec, kb, sm, s)
+              : lowrank_sweep_dispatch<1024, false>(c, o, u, v, x, in, B, R,
+                                                    Cc, kc, k, N, cs, rstep,
+                                                    cstep, vec, kb, sm, s);
+  return dd ? lowrank_sweep_dispatch<256, true>(c, o, u, v, x, in, B, R, Cc, kc,
+                                                k, N, cs, rstep, cstep, vec, kb,
+                                                sm, s)
+            : lowrank_sweep_dispatch<256, false>(c, o, u, v, x, in, B, R, Cc,
+                                                 kc, k, N, cs, rstep, cstep, vec,
+                                                 kb, sm, s);
 }

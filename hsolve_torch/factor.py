@@ -440,9 +440,11 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
             continue
         front = front_assemble(bp.B, bp.m_pad, tb.pos, tb.src, adata)
         # left groups before right ones, the JAX package's order
-        for groups, imap, s_pad in ((tb.groups_l, tb.map_l, bp.sl_pad),
-                                    (tb.groups_r, tb.map_r, bp.sr_pad)):
-            for src_batch, src_rows, dst_rows in groups:
+        for groups, counts, imap, s_pad in (
+                (tb.groups_l, tb.rows_l, tb.map_l, bp.sl_pad),
+                (tb.groups_r, tb.rows_r, tb.map_r, bp.sr_pad)):
+            for (src_batch, src_rows, dst_rows), rows in zip(groups, counts,
+                                                             strict=True):
                 src = s_stacks[src_batch]
                 if isinstance(src, SchurHss):
                     # a dense parent of HSS children densifies them (the
@@ -451,7 +453,7 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
                     src = densify_schur(src.select(src_rows), s_pad)
                     src_rows = torch.arange(src.shape[0], dtype=torch.int32,
                                             device=src.device)
-                extend_add(front, src, src_rows, dst_rows, imap)
+                extend_add(front, src, src_rows, dst_rows, imap, rows)
         if bp.compress:
             shapes = [(n, sketch_width(bp.rank_cap, n))
                       for n in (bp.ni_pad, bp.nb_pad)]

@@ -42,6 +42,10 @@ class TorchBatch:
     smap: Optional[torch.Tensor] = None   # [B, cplan.n_pad] int64
     cross: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]]] = None
+    # per child group: the most valid map entries (in [0, s_pad)) of one of
+    # its fronts, which sizes kernel B's grid (ops/assembly.py valid_rows)
+    rows_l: Tuple[int, ...] = ()
+    rows_r: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -82,6 +86,16 @@ def plan_to_torch(plan, device="cuda") -> TorchPlan:
             return tuple((int(g.src_batch), _i32(g.src_rows, device),
                           _i32(g.dst_rows, device)) for g in gs)
 
+        def rows(gs, imap, s_pad):
+            if imap is None:            # a structured batch: no extend-add
+                return (0,) * len(gs)
+            out = []
+            for g in gs:
+                m_ = np.asarray(imap)[np.asarray(g.dst_rows)]
+                out.append(int(((m_ >= 0) & (m_ < s_pad)).sum(1).max())
+                           if len(m_) else 0)
+            return tuple(out)
+
         def i64(a):
             return None if a is None else torch.as_tensor(
                 np.asarray(a, dtype=np.int64), device=device)
@@ -100,6 +114,8 @@ def plan_to_torch(plan, device="cuda") -> TorchPlan:
             map_l=None if bp.map_l is None else _i32(bp.map_l, device),
             map_r=None if bp.map_r is None else _i32(bp.map_r, device),
             groups_l=groups(bp.groups_l), groups_r=groups(bp.groups_r),
+            rows_l=rows(bp.groups_l, bp.map_l, bp.sl_pad),
+            rows_r=rows(bp.groups_r, bp.map_r, bp.sr_pad),
             n1=i64(bp.n1) if bp.cplan is not None else None,
             n2=i64(bp.n2) if bp.cplan is not None else None,
             smap=i64(bp.smap) if bp.structured else None, cross=cross))

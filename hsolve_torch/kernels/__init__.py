@@ -30,10 +30,11 @@ H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32 or float64 values (one C entry point
 per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.  Kernel C's
 forward step of a wide front runs on a thread block cluster
-(``cudaLaunchKernelEx``), and so do kernel J where a level's few matrices
-leave SMs idle and kernel K with several right-hand sides, whose operand tiles are TMA boxes of tensor maps (encoded through the
-driver entry point the runtime hands out: no link to libcuda); kernel L is
-one cooperative launch
+(``cudaLaunchKernelEx``), and so do kernel E where a launch's few fronts
+leave SMs idle, kernel J where a level's few matrices do, and kernel K with
+several right-hand sides, whose operand tiles are TMA boxes of tensor maps
+(encoded through the driver entry point the runtime hands out: no link to
+libcuda); kernel L is one cooperative launch
 (``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
 card cannot hold its grid at once.
 
@@ -67,13 +68,12 @@ _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
     "hs_front_assemble": [_V, _V, _V, _V, _LL, _V],
-    "hs_extend_add": [_V, _V, _V, _V, _V, _I, _I, _I, _V],
+    "hs_extend_add": [_V] * 5 + [_I] * 5 + [_V],
     "hs_level_forward": [_V] * 7 + [_LL] + [_I] * 5 + [_V],
     "hs_level_forward_windowed": [_V] * 9 + [_LL] + [_I] * 4 + [_V],
     "hs_sweep_update": [_V] * 4 + [_LL] + [_I] * 5 + [_V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
-    "hs_lowrank_sweep_update": [_V, _V, _V, _V, _V, _V, _LL, _I, _I, _I, _I,
-                                _I, _V],
+    "hs_lowrank_sweep_update": [_V] * 6 + [_LL] + [_I] * 12 + [_LL, _V],
     "hs_lowrank_schur_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _V],
     "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
                             _I, _V],

@@ -1,11 +1,12 @@
 """Native (C++) planner kernels with transparent build + ctypes bindings.
 
-Jax-free copy of ``hsolve/native/__init__.py``.  It compiles the SAME source,
-``hsolve/native/gather.cpp``, read by path (reading a file imports nothing), into
-``build/hsolve_torch/`` at first use, so the port never loads or overwrites the
-JAX package's own shared object.  Falls back to scipy fancy indexing if no
-compiler is available (these are host-side planner accelerators; the device
-work is in :mod:`hsolve_torch.ops` and :mod:`hsolve_torch.kernels`).
+Jax-free copy of ``hsolve/native/__init__.py``.  It compiles its own copy of
+the planner source, ``hsolve_torch/native/gather.cpp`` (the JAX package's
+``hsolve/native/gather.cpp``, verbatim), into ``build/hsolve_torch/`` at first
+use, so the port neither reads the JAX package's tree nor loads or overwrites
+its shared object.  Falls back to scipy fancy indexing if no compiler is
+available (these are host-side planner accelerators; the device work is in
+:mod:`hsolve_torch.ops` and :mod:`hsolve_torch.kernels`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import sys
 import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_ROOT, "hsolve", "native", "gather.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gather.cpp")
 _BUILD = os.path.join(_ROOT, "build", "hsolve_torch")
 _LIB = os.path.join(_BUILD, f"_gather_{sys.implementation.cache_tag}.so")
 

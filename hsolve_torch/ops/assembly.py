@@ -14,6 +14,8 @@ Both take float32 or float64 values (one type per call).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from hsolve_torch import kernels
@@ -78,9 +80,39 @@ def extend_add_plain(front: torch.Tensor, S: torch.Tensor, src_rows: torch.Tenso
     return front
 
 
+B_THREADS = 256     # kernel B's CTA
+B_CTAS = 4          # CTAs per SM a launch aims at
+
+
+def valid_rows(imap: torch.Tensor, dst_rows: torch.Tensor, w: int) -> int:
+    """The most map entries in ``[0, w)`` of one front row of the group: the
+    valid rows (and columns) of its largest child placement."""
+    if dst_rows.numel() == 0:
+        return 0
+    rows = imap[dst_rows.long()]
+    return int(((rows >= 0) & (rows < w)).sum(1).max())
+
+
+def extend_add_geometry(G: int, rows: int, sms: int = 132):
+    """Kernel B's grid for ``G`` groups whose fronts take at most ``rows``
+    valid rows each: ``(tiles, trows)``, ``tiles`` CTAs per group, each
+    taking ``trows`` of its compacted valid rows at a time (CTA ``t`` the
+    rows ``[t trows, (t + 1) trows)``, then ``tiles * trows`` further on):
+    enough CTAs to give every SM ``B_CTAS``, the rows spread evenly over
+    them, no tile without a row."""
+    rows = max(int(rows), 1)
+    tiles = -(-rows // min(max(1, rows * max(G, 1) // (B_CTAS * sms)), rows))
+    return tiles, -(-rows // tiles)
+
+
 def extend_add(front: torch.Tensor, S: torch.Tensor, src_rows: torch.Tensor,
-               dst_rows: torch.Tensor, imap: torch.Tensor) -> torch.Tensor:
-    """Kernel B wrapper (in place on ``front``; see the plain version)."""
+               dst_rows: torch.Tensor, imap: torch.Tensor,
+               rows: Optional[int] = None) -> torch.Tensor:
+    """Kernel B wrapper (in place on ``front``; see the plain version).
+    ``rows`` is :func:`valid_rows` of the group, which sizes the grid
+    (:func:`extend_add_geometry`); the factor passes the plan's count
+    (``interop.plan_to_torch``), and without it the wrapper counts on the
+    device and reads the count back."""
     if kernels.on_cpu(front, S, src_rows, dst_rows, imap):
         return extend_add_plain(front, S, src_rows, dst_rows, imap)
     B, m, _ = front.shape
@@ -92,12 +124,27 @@ def extend_add(front: torch.Tensor, S: torch.Tensor, src_rows: torch.Tensor,
     kernels.require(src_rows, "src_rows", torch.int32, (G,))
     kernels.require(dst_rows, "dst_rows", torch.int32, (G,))
     kernels.require(imap, "imap", torch.int32, (B, m))
+    if 8 * m > 232448:
+        raise ValueError(f"front width {m}: kernel B's compacted map does not "
+                         "fit one CTA's shared memory")
     if G and w:
-        kernels.launch(kernels.symbol("hs_extend_add", dt), front.device,
-                       front.data_ptr(), S.data_ptr(), src_rows.data_ptr(),
-                       dst_rows.data_ptr(), imap.data_ptr(), G, m, w)
+        if rows is None:
+            rows = valid_rows(imap, dst_rows, w)
+        extend_add_launch(front, S, src_rows, dst_rows, imap,
+                          *extend_add_geometry(G, rows,
+                                               kernels.sm_count(front.device)))
         kernels.count_launch(extend_add, dt)
     return front
+
+
+def extend_add_launch(front, S, src_rows, dst_rows, imap, tiles: int,
+                      trows: int) -> None:
+    """One launch of kernel B on ``tiles`` CTAs a group of ``trows`` rows
+    each, on operands the wrapper checked."""
+    kernels.launch(kernels.symbol("hs_extend_add", front.dtype), front.device,
+                   front.data_ptr(), S.data_ptr(), src_rows.data_ptr(),
+                   dst_rows.data_ptr(), imap.data_ptr(), dst_rows.numel(),
+                   front.shape[-1], S.shape[-1], tiles, trows)
 
 
 extend_add.launches = 0

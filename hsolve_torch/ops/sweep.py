@@ -27,6 +27,7 @@ sentinel row ``N`` stays zero.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -221,8 +222,62 @@ sweep_update.launches = 0
 sweep_update.launches_by_type = {}
 
 
-# the [k_cap, k] sketch-product tile that kernel E stages in shared memory
-LOWRANK_SMEM_DOUBLES = 4096
+E_THREADS = (256, 1024)   # kernel E's CTA sizes
+E_CTAS = 4             # CTAs per SM a launch aims at
+E_MAX_CLUSTER = 16     # CTAs a front spreads over at most (non-portable > 8)
+E_MIN_WORK = 1024      # entries of U's or V's slice per CTA at the least
+E_KB = 4               # right-hand sides per chunk where k > 1
+E_DD_FRONTS = 16       # launches of at most this many fronts sum in double-double
+SMEM_MAX = 232448      # shared memory one CTA can use (227 KB)
+
+
+def lowrank_sweep_smem(threads: int, vec: int, kb: int, kc: int) -> int:
+    """Kernel E's dynamic shared memory: the phase-1 partials
+    ([threads, vec, kb] double-double pairs), the staged Y rows ([threads,
+    kb]) and two [kc, kb] tiles of pairs (the CTA's partial t and the
+    cluster's sum), in doubles."""
+    return 8 * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+
+
+@functools.lru_cache(maxsize=None)     # the wrapper asks at every launch
+def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
+                           sms: int = 132, aligned: bool = True):
+    """Kernel E's launch for ``B`` fronts with U [B, R, kc], V [B, Cc, kc]
+    and ``k`` right-hand sides: ``(cs, threads, rstep, cstep, vec, kb, dd,
+    smem)``.
+
+    A launch whose fronts fill between a half and one wave of the SMs takes
+    one CTA of 1024 threads a front (k = 1).  Otherwise a CTA has 256
+    threads, and where the launch has fewer fronts than ``E_CTAS`` per SM a
+    front spreads over a thread block cluster of ``cs`` CTAs (a power of
+    two, at most ``E_MAX_CLUSTER``): as many as bring the launch to that,
+    but no CTA with fewer than ``E_MIN_WORK`` entries of the longer of U
+    and V.  CTA ``j`` of a cluster reduces V's rows ``[j cstep, (j + 1)
+    cstep)`` and applies U's rows ``[j rstep, (j + 1) rstep)``.  ``vec`` = 2
+    where V's and U's rows can be read 16 bytes at a time (kc even, 16-byte
+    aligned), else 1; ``kb`` the right-hand sides per chunk (1 for k = 1,
+    else ``E_KB`` where it fits); ``dd`` = 1 where the launch has at most
+    ``E_DD_FRONTS`` fronts: the top levels, where a row's terms of U t sum
+    to up to 650 times the update at n=512 (at most 0.8 from 31 fronts on,
+    where double-double would cost most), sum in double-double, t kept as
+    a pair; ``smem`` :func:`lowrank_sweep_smem`."""
+    vec = 2 if aligned and kc % 2 == 0 else 1
+    cs, threads = 1, E_THREADS[0]
+    if k == 1 and sms // 2 <= B < sms:
+        threads = E_THREADS[1]
+    else:
+        want = min(E_CTAS * sms // max(B, 1), E_MAX_CLUSTER,
+                   max(R, Cc) * kc // E_MIN_WORK)
+        while cs * 2 <= want:
+            cs *= 2
+    kb = E_KB if k > 1 and \
+        lowrank_sweep_smem(threads, vec, E_KB, kc) <= SMEM_MAX else 1
+    smem = lowrank_sweep_smem(threads, vec, kb, kc)
+    if smem > SMEM_MAX:
+        raise ValueError(f"rank cap {kc} too large for kernel E's shared "
+                         f"memory ({smem} > {SMEM_MAX} bytes)")
+    dd = int(B <= E_DD_FRONTS)
+    return cs, threads, -(-R // cs), -(-Cc // cs), vec, kb, dd, smem
 
 
 def lowrank_sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor,
@@ -242,7 +297,7 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
                          ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel E wrapper (in place on ``C``; see the plain version).  ``U`` is
     [B, R, k_cap] (rows follow ``ids_out``), ``V`` [B, Cc, k_cap] (rows follow
-    ``X`` or ``ids_in``)."""
+    ``X`` or ``ids_in``); the launch is :func:`lowrank_sweep_geometry`'s."""
     operands = [C, ids_out, U, V] + [t for t in (X, ids_in) if t is not None]
     if kernels.on_cpu(*operands):
         return lowrank_sweep_update_plain(C, ids_out, U, V, N, X, ids_in)
@@ -252,9 +307,6 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
     k = C.shape[1]
     if not 0 <= N <= C.shape[0]:
         raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
-    if kc > LOWRANK_SMEM_DOUBLES:
-        raise ValueError(f"rank cap {kc} > {LOWRANK_SMEM_DOUBLES}, the kernel's "
-                         "shared-memory tile")
     kernels.require(C, "C", torch.float64, (C.shape[0], k))
     kernels.require(U, "U", torch.float64)
     kernels.require(V, "V", torch.float64, (B, Cc, kc))
@@ -264,13 +316,24 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
     else:
         kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
     if B * R and Cc and kc and k:
-        kernels.launch("hs_lowrank_sweep_update", C.device, C.data_ptr(),
-                       ids_out.data_ptr(), U.data_ptr(), V.data_ptr(),
-                       None if X is None else X.data_ptr(),
-                       None if ids_in is None else ids_in.data_ptr(),
-                       B, R, Cc, kc, k, N)
+        aligned = U.data_ptr() % 16 == 0 and V.data_ptr() % 16 == 0
+        lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in,
+                             lowrank_sweep_geometry(B, R, Cc, kc, k,
+                                                    kernels.sm_count(C.device),
+                                                    aligned))
         lowrank_sweep_update.launches += 1
     return C
+
+
+def lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in, geo) -> None:
+    """One launch of kernel E in the geometry ``geo`` (the tuple of
+    :func:`lowrank_sweep_geometry`) on operands the wrapper checked."""
+    B, R, kc = U.shape
+    kernels.launch("hs_lowrank_sweep_update", C.device, C.data_ptr(),
+                   ids_out.data_ptr(), U.data_ptr(), V.data_ptr(),
+                   None if X is None else X.data_ptr(),
+                   None if ids_in is None else ids_in.data_ptr(),
+                   B, R, V.shape[1], kc, C.shape[1], N, *geo)
 
 
 lowrank_sweep_update.launches = 0

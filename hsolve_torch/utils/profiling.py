@@ -4,7 +4,8 @@ Usage, from the repository root on a machine with one CUDA card:
 
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
                                             [--compressed | --hss | --mixed
-                                             | --spmv | --hss-kernels]
+                                             | --spmv | --hss-kernels
+                                             | --sweep-kernels]
                                             [--plain-forward]
                                             [--out build/profile]
 
@@ -34,6 +35,22 @@ at the first shapes ``chip_smoke.py`` checks them at (the kest=32 n=512
 plan's first structured batch: 511 matrices of 2 leaves of 23 rows, rank 32;
 J at k = 46, the sketch width, and k = 1; I on the leaf blocks and on one
 level-1 coupling block a matrix), on random generators of those shapes.
+
+``--sweep-kernels`` times kernels E (``lowrank_sweep_update``) and B
+(``extend_add``) and their plain versions alone, device time only, at every
+launch shape the n-plans give them: E in both forms (forward, ``X`` given;
+backward, ``ids_in``) at k = 1 on the levels of a low-rank factor and of the
+two structured factors (kest=32 and the default rank caps), B at every
+launch of the exact factor in float64 and float32, on the factors' own
+operands.  A kernel is read with its launches queued behind a sleep kernel
+between two CUDA events (the device runs them back to back; the reading
+holds the launches' gaps on the device, printed first as the time of a
+queued one-element launch, and no host time); a plain version (which waits
+for the device inside) as its kernels' time under the profiler, one
+session per plan and type.  Each shape's numbers, with its bound (bytes
+over 3.35 TB/s against operations over the data sheet's peak), go to
+``<out>/sweep_kernels.json``, and a summary per plan and kernel is
+printed.
 
 ``--plain-forward`` runs each dense level's forward step as its plain torch
 version (the gather, GEMM, index_put and triangular solves that kernel C's
@@ -172,6 +189,243 @@ def _hss_kernels(args, card, dev) -> int:
     return 0
 
 
+HBM_BPS = 3.35e12          # H100 SXM device memory (the data sheet)
+PEAK_F64_TC = 67e12        # float64 on the tensor cores (the data sheet)
+
+
+def _bound_ms(nbytes, flops, peak=PEAK_F64_TC):
+    """The larger of bytes over the memory rate and operations over the
+    peak, in ms, and which of the two it is."""
+    tb, tf = nbytes / HBM_BPS, flops / peak
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def _labelled_ms(cases, reps):
+    """Device ms per call of each plain version in ``cases`` (``[(label,
+    fn)]``): one profiler session over all of them, each case's ``reps``
+    calls inside a ``record_function`` range of its label, the kernels
+    launched under the range summed (None where none was recorded).  One
+    session, not one per case: on the H100 the profiler recorded no kernel
+    after a few dozen sessions in one process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _, fn in cases:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in cases:
+            with record_function(label):
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+    total = {}
+    for e in prof.events():
+        if e.device_type.name == "CPU":
+            total[e.name] = total.get(e.name, 0.0) + e.device_time_total
+    return {label: total[label] / 1e3 / reps if total.get(label) else None
+            for label, _ in cases}
+
+
+def _queued_ms(fn, reps):
+    """Device ms per call of ``fn`` (a kernel wrapper that never waits for
+    the device): ``reps`` calls between two CUDA events, queued behind a
+    sleep kernel that outlasts the host's launches, so the device runs them
+    back to back and no host time is in the reading (the launches' own gaps
+    on the device are; :func:`_queue_floor` reads them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()     # the device was still asleep: no gaps
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host's launches did not get ahead of the device")
+
+
+def _plain_into(rows, plains, reps):
+    """Each row's ``plain_ms``: its plain version's device time, all of
+    them read in one profiler session (:func:`_labelled_ms`)."""
+    got = _labelled_ms(plains, reps)
+    for r, (label, _) in zip(rows, plains, strict=True):
+        r["plain_ms"] = got[label]
+
+
+def _ms(x):
+    return "not read" if x is None else f"{x:.5f}"
+
+
+def _queue_floor(dev, reps):
+    """ms per launch of a one-element kernel queued as :func:`_queued_ms`
+    queues: the least a queued launch takes on the device."""
+    import torch
+
+    x = torch.zeros(1, device=dev)
+    return _queued_ms(x.zero_, reps)
+
+
+def _sweep_kernels(args, card, dev) -> int:
+    """``--sweep-kernels``: device ms of kernels E and B and of their plain
+    versions at every launch shape of the n-plans."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import _factor_levels
+    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.ops.assembly import (extend_add, extend_add_plain,
+                                           front_assemble_plain)
+    from hsolve_torch.ops.sweep import (lowrank_sweep_update,
+                                        lowrank_sweep_update_plain)
+
+    reps = max(args.reps, 20)
+    floor = _queue_floor(dev, reps)
+    print(f"a queued one-element launch: {floor:.5f} ms on the device",
+          flush=True)
+    comp = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
+    configs = (("low-rank", dict(comp, kest=32, hss=False)),
+               ("structured kest=32", dict(comp, kest=32)),
+               ("structured default caps", comp))
+    report = {"card": card, "path": "sweep-kernels", "reps": reps,
+              "queue_floor_ms": floor, "sizes": []}
+    summary = []
+    for n in args.sizes:
+        A, _, shape = ht.helmholtz2d(n, k=40.0)
+        tree = ht.nested_dissection(shape, leafmax=100)
+        entry = {"n": n, "E": [], "B": []}
+        g = torch.Generator(device=dev).manual_seed(0)
+        for label, kw in configs:
+            opts = ht.SolverOptions(**kw)
+            plan = ht.plan_factorization(A, tree, opts)
+            F = ht.factor_with_plan(plan, opts, device=dev)
+            N = plan.N
+            C0 = torch.randn(N + 1, 1, dtype=torch.float64, device=dev,
+                             generator=g)
+            C0[N] = 0.0
+            seen, plains = set(), []
+            for bidx, lev in enumerate(F.levels):
+                if getattr(lev, "LU_", None) is None:
+                    continue
+                x = C0[lev.int_ids]
+                for form, U, V, ids_out, kwe in (
+                        ("fwd", lev.LU_, lev.LV_, lev.bnd_ids, {"X": x}),
+                        ("bwd", lev.RU_, lev.RV_, lev.int_ids,
+                         {"ids_in": lev.bnd_ids})):
+                    B, R, kc = U.shape
+                    Cc = V.shape[1]
+                    key = (form, B, R, Cc, kc)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    C = C0.clone()
+                    ms = _queued_ms(lambda: lowrank_sweep_update(
+                        C, ids_out, U, V, N, **kwe), reps)
+                    plains.append((f"E plain {len(plains)}",
+                                   lambda C=C, o=ids_out, U=U, V=V, kwe=kwe:
+                                   lowrank_sweep_update_plain(C, o, U, V, N,
+                                                              **kwe)))
+                    nbytes = sum(t.numel() * t.element_size() for t in
+                                 (U, V, ids_out, *kwe.values())) \
+                        + 2 * B * R * 8 + (B * Cc * 8 if "ids_in" in kwe else 0)
+                    bms, by = _bound_ms(nbytes, 2 * B * kc * (R + Cc))
+                    entry["E"].append({"plan": label, "batch": bidx,
+                                       "form": form, "B": B, "R": R, "Cc": Cc,
+                                       "kc": kc, "ms": ms, "bound_ms": bms,
+                                       "bound_by": by})
+            _plain_into(entry["E"][-len(plains):], plains, reps)
+            for r in entry["E"][-len(plains):]:
+                print(f"E {label} batch {r['batch']} {r['form']} B={r['B']} "
+                      f"R={r['R']} Cc={r['Cc']} kc={r['kc']}: {r['ms']:.5f} ms "
+                      f"device (plain {_ms(r['plain_ms'])}, bound "
+                      f"{r['bound_ms']:.5f} {r['bound_by']})", flush=True)
+            del F
+        opts = ht.SolverOptions(swlevel=0)
+        plan = ht.plan_factorization(A, tree, opts)
+        tp = plan_to_torch(plan, dev)
+        for dname in ("float64", "float32"):
+            dt = getattr(torch, dname)
+            e = torch.empty(0, dtype=dt).element_size()
+            _, _, stacks = _factor_levels(plan, tp, opts, dt)
+            adata = tp.adata.to(dt)
+            plains = []
+            for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
+                front = None
+                for side, groups, counts, imap in (
+                        ("l", tb.groups_l, tb.rows_l, tb.map_l),
+                        ("r", tb.groups_r, tb.rows_r, tb.map_r)):
+                    for (src, sr, dr), cnt_plan in zip(groups, counts):
+                        if front is None:
+                            front = front_assemble_plain(bp.B, bp.m_pad, tb.pos,
+                                                         tb.src, adata)
+                        S = stacks[src]
+                        rows = imap[dr.long()]
+                        cnt = ((rows >= 0) & (rows < S.shape[-1])).sum(1)
+                        c2 = float((cnt.double() ** 2).sum())
+                        ms = _queued_ms(lambda: extend_add(
+                            front, S, sr, dr, imap, cnt_plan), reps)
+                        plains.append((f"B plain {len(plains)}",
+                                       lambda f=front, S=S, sr=sr, dr=dr,
+                                       mp=imap: extend_add_plain(f, S, sr, dr,
+                                                                 mp)))
+                        bms, by = _bound_ms(
+                            3 * c2 * e + 4 * (rows.numel() + 2 * sr.numel()),
+                            c2, 67e12 if dname == "float32" else 34e12)
+                        entry["B"].append({
+                            "dtype": dname, "batch": bidx, "side": side,
+                            "groups": int(sr.numel()), "m": bp.m_pad,
+                            "w": int(S.shape[-1]),
+                            "valid_rows": [int(cnt.min()), int(cnt.max())],
+                            "ms": ms, "bound_ms": bms, "bound_by": by})
+            _plain_into(entry["B"][-len(plains):], plains, reps)
+            for r in entry["B"][-len(plains):]:
+                print(f"B {dname} batch {r['batch']} {r['side']} "
+                      f"G={r['groups']} m={r['m']} w={r['w']} valid rows "
+                      f"{r['valid_rows'][0]}-{r['valid_rows'][1]}: "
+                      f"{r['ms']:.5f} ms device (plain {_ms(r['plain_ms'])}, "
+                      f"bound {r['bound_ms']:.5f} {r['bound_by']})",
+                      flush=True)
+            del stacks
+        for kname, key, groups in (
+                ("E", "plan", [c[0] for c in configs]),
+                ("B", "dtype", ["float64", "float32"])):
+            for grp in groups:
+                rows_ = [r for r in entry[kname] if r[key] == grp]
+                if not rows_:
+                    continue
+                tot = {f: sum(r[f] for r in rows_ if r[f] is not None)
+                       for f in ("ms", "plain_ms", "bound_ms")}
+                lost = sum(r["plain_ms"] is None for r in rows_)
+                half = sum(r["ms"] <= 2 * r["bound_ms"] for r in rows_)
+                line = (f"{kname} n={n} {grp}: {len(rows_)} shapes, ms "
+                        f"{min(r['ms'] for r in rows_):.5f}-"
+                        f"{max(r['ms'] for r in rows_):.5f}, sum "
+                        f"{tot['ms']:.5f} against plain {tot['plain_ms']:.5f} "
+                        f"and bound {tot['bound_ms']:.5f}; within 2x of the "
+                        f"bound at {half}; slower than plain at "
+                        f"{sum(r['ms'] > (r['plain_ms'] or 1e9) for r in rows_)}"
+                        + (f"; plain not read at {lost}" if lost else ""))
+                summary.append(line)
+                print(line, flush=True)
+        report["sizes"].append(entry)
+    path = os.path.join(args.out, "sweep_kernels.json")
+    with open(path, "w") as f:
+        json.dump(report, f)
+    print(json.dumps({"card": card, "path": "sweep-kernels", "report": path,
+                      "summary": summary}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
@@ -191,6 +445,9 @@ def main() -> int:
     mode.add_argument("--hss-kernels", action="store_true",
                       help="device time of kernels J and I and their plain "
                            "versions")
+    mode.add_argument("--sweep-kernels", action="store_true",
+                      help="device time of kernels E and B and their plain "
+                           "versions at every launch shape")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
@@ -224,6 +481,8 @@ def main() -> int:
         return _spmv(args, card, dev)
     if args.hss_kernels:
         return _hss_kernels(args, card, dev)
+    if args.sweep_kernels:
+        return _sweep_kernels(args, card, dev)
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
     report = {"card": card, "path": path,

@@ -291,6 +291,115 @@ def test_lowrank_sweep_update_kernel_with_sentinels(dev, k, kc):
         assert float(got[N].abs().max()) == 0.0
 
 
+def _sweep_operands(dev, rng, B, R, Cc, kc, k, N, U_offset=0):
+    """Kernel E's operands with sentinel output and input ids; ``U_offset``
+    shifts U by that many doubles inside its buffer (not 16-byte aligned)."""
+    C = torch.as_tensor(rng.standard_normal((N + 1, k)), device=dev)
+    C[N] = 0.0
+    perm = rng.permutation(N)
+    ids_out = perm[: B * R].reshape(B, R).astype(np.int32)
+    ids_in = perm[B * R: B * R + B * Cc].reshape(B, Cc).astype(np.int32)
+    ids_out[:, -3:] = N
+    ids_in[:, -5:] = N
+    buf = torch.as_tensor(rng.standard_normal(B * R * kc + U_offset),
+                          device=dev)
+    U = buf[U_offset:].view(B, R, kc)
+    V = torch.as_tensor(rng.standard_normal((B, Cc, kc)), device=dev)
+    X = torch.as_tensor(rng.standard_normal((B, Cc, k)), device=dev)
+    return (C, torch.as_tensor(ids_out, device=dev), U, V,
+            {"X": X}, {"ids_in": torch.as_tensor(ids_in, device=dev)})
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("kc", [48, 192, 47])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_lowrank_sweep_update_kernel_at_the_top_shapes(dev, B, kc, k):
+    """Kernel E at the top compressed levels' shapes (R = Cc = 512: a front
+    spread over a thread block cluster, its partial products summed through
+    distributed shared memory), both forms, with sentinels; an odd rank
+    reads V and U 8 bytes at a time."""
+    rng = np.random.default_rng(100 + B + kc + k)
+    N = B * 1024 + 50
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, 512, 512, kc, k,
+                                                 N)
+    for kw in (fwd, bwd):
+        before = lowrank_sweep_update.launches
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert lowrank_sweep_update.launches == before + 1
+        assert _rel(got, want) < 1e-13
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(3, 100, 70, 48, 1),
+                                         (200, 40, 30, 32, 5),
+                                         (1, 512, 512, 400, 1)])
+def test_lowrank_sweep_update_kernel_unaligned_rows(dev, B, R, Cc, kc, k):
+    """U not 16-byte aligned in its buffer: the kernel reads 8 bytes at a
+    time (``lowrank_sweep_geometry``'s ``vec``)."""
+    rng = np.random.default_rng(B + R)
+    N = B * (R + Cc) + 10
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, R, Cc, kc, k, N,
+                                                 U_offset=1)
+    assert U.data_ptr() % 16 == 8
+    for kw in (fwd, bwd):
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert _rel(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extend_add_kernel_bitwise_on_the_n128_plan(dev, dtype):
+    """Kernel B at every launch of the n=128 exact factor, with the plan's
+    valid-row counts and with the wrapper's own: bitwise its plain
+    version."""
+    from hsolve_torch.factor import _factor_levels
+    from hsolve_torch.interop import plan_to_torch
+
+    A, _, shape = ht.helmholtz2d(128, k=40.0)
+    opts = ht.SolverOptions(swlevel=0)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 opts)
+    tp = plan_to_torch(plan, dev)
+    _, _, stacks = _factor_levels(plan, tp, opts, dtype)
+    adata = tp.adata.to(dtype)
+    launches = 0
+    for bp, tb in zip(plan.batches, tp.batches):
+        for groups, counts, imap in ((tb.groups_l, tb.rows_l, tb.map_l),
+                                     (tb.groups_r, tb.rows_r, tb.map_r)):
+            for (src, sr, dr), rows in zip(groups, counts):
+                base = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src,
+                                            adata)
+                want = extend_add_plain(base.clone(), stacks[src], sr, dr, imap)
+                for r in (rows, None):
+                    got = extend_add(base.clone(), stacks[src], sr, dr, imap, r)
+                    assert torch.equal(got, want)
+                launches += 1
+    assert launches == 21
+
+
+@pytest.mark.parametrize("rows", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extend_add_kernel_on_a_general_map(dev, dtype, rows):
+    """A map with negative entries, entries >= w, repeats and no runs, an odd
+    front width (rows not 16-byte aligned), and valid-row counts below the
+    true one (the CTAs stride over the tiles): bitwise the plain version."""
+    rng = np.random.default_rng(11)
+    B, m, w, G = 9, 301, 120, 5
+    t = lambda a: torch.as_tensor(a, device=dev)
+    front = t(rng.standard_normal((B, m, m))).to(dtype)
+    S = t(rng.standard_normal((4, w, w))).to(dtype)
+    imap = rng.integers(-3, w + 4, size=(B, m)).astype(np.int32)
+    imap[2, :40] = 5
+    imap[4, 100:220] = np.arange(120)            # one run, then the rest
+    src_rows = t(rng.integers(0, 4, size=G).astype(np.int32))
+    dst_rows = t(np.array([4, 2, 7, 0, 5], dtype=np.int32))
+    imap = t(imap)
+    got = extend_add(front.clone(), S, src_rows, dst_rows, imap, rows)
+    want = extend_add_plain(front.clone(), S, src_rows, dst_rows, imap)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("B,ni_pad,nb,kc", [(7, 16, 40, 24), (1, 64, 96, 70)])
 def test_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
     """Kernel F on ragged tiles (nb not a multiple of 32) and a rank above

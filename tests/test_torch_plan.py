@@ -141,7 +141,9 @@ def test_native_planner_builds_outside_the_jax_package():
     assert native.available()
     assert os.path.dirname(native._LIB) == os.path.join(ROOT, "build",
                                                         "hsolve_torch")
-    assert native._SRC == os.path.join(ROOT, "hsolve", "native", "gather.cpp")
+    # the port's own copy of the planner source (F5: not the JAX package's)
+    assert native._SRC == os.path.join(ROOT, "hsolve_torch", "native",
+                                       "gather.cpp")
 
 
 def test_options_auto_explicit_inverse_is_off():
