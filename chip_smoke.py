@@ -9,7 +9,7 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the thirteen CUDA kernels are compiled from ``hsolve_torch/csrc/``
+2. build: the thirteen CUDA kernels (A-M) are compiled from ``hsolve_torch/csrc/``
    for ``sm_90a``, one nvcc process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes and is held against its plain torch version on the same inputs
@@ -39,9 +39,11 @@ Phases (any failure exits non-zero before the result line is printed):
    (forward and backward) at every distinct launch shape of the compressed
    plan's factor and of both structured plans' (kest=32, default caps), a
    log line per shape and a summary line per plan (shapes, ranges of
-   kernel, plain and bound ms, the shapes slower than plain, sums); F on
-   the first and the top compressed batch of the
-   compressed plan, G on both sides of the first; H and K at every distinct
+   kernel, plain and bound ms, the shapes slower than plain, sums); F at
+   every launch shape of the three compressed factors (low-rank, both
+   structured), on inputs captured there, a log line per shape and a
+   summary line per plan; G on both sides of the first compressed batch of
+   the low-rank plan; H and K at every distinct
    launch shape of the structured (HSS) plans' factor and of one
    preconditioner application, kest=32 and the default rank caps, on inputs
    captured there (one log line per shape, then the count of shapes where
@@ -51,9 +53,20 @@ Phases (any failure exits non-zero before the result line is printed):
    I's NaN for out-of-range indices where its plain version has them), after
    I and J on the HSS operands of the first and the top structured batch of
    the kest=32 plan (I on a leaf and a B12 extraction, J forward and adjoint
-   at the sketch width and at k=1: the kernel table's shapes); L and M on Arnoldi steps j = 0 and j = 29 captured from a
-   30-step cycle on the n=512 operator, in float64 and float32 (1e-13 and
-   1e-5; M's rotations, done flag, divisor and coefficients bit for bit);
+   at the sketch width and at k=1: the kernel table's shapes); the Arnoldi
+   step at j = 0, 14 and 29 captured from a 30-step cycle on the n=512
+   operator, in float64 and float32: L alone (1e-13 and 1e-5), the step as
+   GMRES runs it (its own row, ``arnoldi_step``), one launch of L with M's
+   step and V[j+1] as its tail, with the loop going on and ending (hc bit
+   for bit L's alone, the same code; H, cs, sn, g, st, done, y and V[j+1]
+   bit for bit M's plain version and the division on L's hc and w; hc and
+   V[j+1] to 1e-13 and 1e-5 of the step's plain version), timed beside its
+   plain version and the three launches it replaces, and M alone (bit for
+   bit); the rows of L and M read them alone (``"timed": "alone"``: on the
+   main path they run inside the step's launch, whose launches they count);
+   the bounds of the latency-bound kernels (M, K, H, the step) add their
+   chain of dependent operations (``DEP_CYCLES`` at ``CLOCK_HZ``) to a
+   queued one-element launch read in this run;
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
    (leafmax=100) -> plan_factorization -> factor_with_plan (cuda) ->
    gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
@@ -70,7 +83,8 @@ Phases (any failure exits non-zero before the result line is printed):
    the host, and launch every kernel of its path (the launch counters are
    reset just before the run and read just after: A-D, L and M on the exact
    path, A-G, L, M on the compressed one, A-M on the structured one, A-D in
-   float32, D in float64 and L, M in float32 on the mixed one).  A compressed,
+   float32, D in float64 and L, M and the step in float32 on the mixed one;
+   every launch of L and M one Arnoldi step's single launch).  A compressed,
    structured or mixed run must also stay within twice the JAX package's CPU
    iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
    cap;
@@ -124,6 +138,13 @@ HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
 # the data sheet's peaks, FLOP/s: (without, with) the tensor cores; float32
 # without TF32, which the port keeps off
 PEAK = {"float64": (34e12, 67e12), "float32": (67e12, 67e12)}
+# latency floors of a chain of dependent operations: the H100 SXM's highest
+# SM clock (the data sheet's boost) and an assumed least latency of one
+# dependent floating-point operation, in cycles
+CLOCK_HZ = 1.98e9
+DEP_CYCLES = {"float64": 8, "float32": 4}
+# a queued one-element launch on the device, ms: read in phase 3 of this run
+QUEUED = {"ms": None}
 SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "extend_add": ("extend_add.cu", "hsolve/factor.py:390"),
            "level_forward": ("sweep_update.cu", "hsolve/factor.py:527"),
@@ -141,9 +162,13 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
            "hss_level_correct": ("hss_level_correct.cu",
                                  "hsolve/ops/hss.py:641"),
            "arnoldi_cgs2": ("arnoldi_cgs2.cu", "hsolve/krylov.py:231"),
-           "arnoldi_givens": ("arnoldi_givens.cu", "hsolve/krylov.py:241")}
+           "arnoldi_givens": ("arnoldi_givens.cuh", "hsolve/krylov.py:241"),
+           "arnoldi_step": ("arnoldi_cgs2.cu", "hsolve/krylov.py:223")}
 TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
-         "dia_spmv", "arnoldi_cgs2", "arnoldi_givens")
+         "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step")
+# kernels whose rows read them alone: on the main path they run inside the
+# fused Arnoldi step's launch, whose launches their counts are
+RUN_IN_STEP = ("arnoldi_cgs2", "arnoldi_givens")
 
 
 T0 = time.perf_counter()
@@ -208,15 +233,53 @@ def nbytes(*tensors) -> int:
 
 
 def bound(nbytes_: float, flops: float, dtype: str = "float64",
-          products: bool = False) -> dict:
+          products: bool = False, chain: float = 0.0) -> dict:
     """The least time the card could take for work that moves ``nbytes_``
     (each input read once, each output written once) and does ``flops`` in
     ``dtype`` (on the tensor cores where ``products``): the larger of the two
-    times, and which of them it is."""
+    times, and which of them it is.  Work whose result waits on a chain of
+    ``chain`` dependent operations (a latency-bound kernel: M, K, H, the
+    Arnoldi step's tail) takes at least a queued launch and then the chain
+    (``DEP_CYCLES`` each at ``CLOCK_HZ``): the larger of the bytes' and the
+    operations' times and the queued launch, plus the chain; ``bound_by``
+    is then "latency" unless the bytes or the operations outweigh both the
+    queued launch and the chain."""
     tb = nbytes_ / HBM_BPS
     tf = flops / PEAK[dtype][int(products)]
-    return {"bound_ms": max(tb, tf) * 1e3,
-            "bound_by": "bytes" if tb >= tf else "operations"}
+    if chain <= 0:
+        return {"bound_ms": max(tb, tf) * 1e3,
+                "bound_by": "bytes" if tb >= tf else "operations"}
+    tl = chain * DEP_CYCLES[dtype] / CLOCK_HZ
+    floor = QUEUED["ms"] / 1e3
+    top = max(tb, tf, floor)
+    by = "latency" if floor == top or tl > top else \
+        ("bytes" if tb >= tf else "operations")
+    return {"bound_ms": (top + tl) * 1e3, "bound_by": by}
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of ``fn`` (launches only, no wait on the device):
+    ``reps`` calls between two CUDA events, queued behind a sleep kernel
+    that outlasts the host's launches, so no host time is in the reading."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail("the host's launches did not get ahead of the device")
 
 
 def errors(a, b):
@@ -711,11 +774,72 @@ def check_sweep_levels(label, levels, N, results: Results) -> None:
         f"{sum(bound_):.4f}")
 
 
+def schur_recorder(fm, fcalls: dict, where: dict):
+    """A stand-in for ``factor.py``'s kernel F wrapper that records the
+    first inputs of every distinct launch shape ``(B, m_pad, ni_pad, kc)``
+    into ``fcalls``, tagged ``where["tag"]``, and calls the wrapper."""
+    orig = fm.lowrank_schur_update
+
+    def rec(front, ni_pad, RU, RV, sperm):
+        key = (front.shape[0], front.shape[1], ni_pad, RU.shape[-1])
+        if key not in fcalls:
+            fcalls[key] = (where["tag"], front.clone(), ni_pad, RU.clone(),
+                           RV.clone(), sperm)
+        return orig(front, ni_pad, RU, RV, sperm)
+
+    rec.launches = 0
+    return orig, rec
+
+
+def schur_bound(B, m_pad, ni_pad, kc) -> dict:
+    """Kernel F's bound: Abb and Abi read, RU, RV and sperm read, S
+    written, each once; both products' operations on the tensor cores."""
+    nb = m_pad - ni_pad
+    work = 8 * B * (2 * nb * nb + nb * ni_pad + ni_pad * kc + nb * kc + nb)
+    return bound(work, 2 * B * kc * nb * (ni_pad + nb), products=True)
+
+
+def check_schur_captured(label, fcalls, results: Results) -> None:
+    """F at every captured launch shape of one plan, against its plain
+    version (1e-13 of the largest entry), a log line per shape and a
+    summary line: the shapes, the shapes slower than the plain version and
+    within 2x of the bound, the times summed."""
+    from hsolve_torch.ops.schur import (lowrank_schur_update,
+                                        lowrank_schur_update_plain,
+                                        schur_geometry)
+
+    rows_ = []
+    for (B, m_pad, ni_pad, kc), (tag, front, _, RU, RV, sperm) in sorted(
+            fcalls.items(), key=lambda kv: -kv[0][0]):
+        args = (front, ni_pad, RU, RV, sperm)
+        ker = lowrank_schur_update(*args)
+        ref = lowrank_schur_update_plain(*args)
+        nb = m_pad - ni_pad
+        g = schur_geometry(B, ni_pad, nb, kc)
+        work = schur_bound(B, m_pad, ni_pad, kc)
+        ms = device_ms(lambda: lowrank_schur_update(*args))
+        plain_ms = device_ms(lambda: lowrank_schur_update_plain(*args))
+        results.record(
+            "lowrank_schur_update",
+            f"{label} {tag} [{B},{nb},{nb}] ni={ni_pad} k={kc} "
+            + (f"bands of {g['bm']}, whole rows" if g["whole"] else
+               f"{g['bm']}x{g['bn']} tiles, cluster {g['cs']}"),
+            errors(ker, ref), RTOL_SUM, ms, plain_ms, work)
+        rows_.append((ms, plain_ms, work["bound_ms"]))
+    ms_, plain_, bound_ = zip(*rows_)
+    log(f"  {label}: F at {len(rows_)} shapes, kernel {min(ms_):.4f}-"
+        f"{max(ms_):.4f} ms; slower than its plain version at "
+        f"{sum(a > b for a, b in zip(ms_, plain_))}; within 2x of its bound "
+        f"at {sum(a <= 2 * c for a, c in zip(ms_, bound_))}; sum "
+        f"{sum(ms_):.4f} ms against plain {sum(plain_):.4f} and bound "
+        f"{sum(bound_):.4f}")
+
+
 def check_compressed_kernels(problems: Problems, n: int, dev,
                              results: Results) -> None:
     """Phase 3, kernels E-G against their plain versions at the compressed
     n-plan's shapes: the fronts, sketches and factors of a real compressed
-    factorization."""
+    factorization (F at every launch shape, on its captured inputs)."""
     import torch
 
     import hsolve_torch as ht
@@ -727,17 +851,25 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
     from hsolve_torch.ops.schur import (lowrank_schur_update,
                                         lowrank_schur_update_plain)
 
+    import importlib
+
     A, _, shape = problems.get(n)
     opts = ht.SolverOptions(**COMPRESSED)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts)
     tp = plan_to_torch(plan, dev)
     f64 = torch.float64
-    levels, _, stacks = _factor_levels(plan, tp, opts, f64)
+    fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
+    fcalls = {}
+    orig, rec = schur_recorder(fm, fcalls, {"tag": "factor"})
+    fm.lowrank_schur_update = rec
+    try:
+        levels, _, stacks = _factor_levels(plan, tp, opts, f64)
+    finally:
+        fm.lowrank_schur_update = orig
     torch.cuda.synchronize()
     comp = [i for i, bp in enumerate(plan.batches) if bp.compress]
-    first, top = comp[0], comp[-1]
-    record = results.record
+    first = comp[0]
 
     # E: both forms at every launch shape, the first compressed level first
     check_sweep_levels("low-rank", levels, plan.N, results)
@@ -755,22 +887,9 @@ def check_compressed_kernels(problems: Problems, n: int, dev,
                 extend_add_plain(front, stacks[src], sr, dr, imap)
         return bp, tb, front
 
-    # F: the Schur update on the first and the top compressed level
-    for bidx in (first, top):
-        bp, tb, front = front_of(bidx)
-        lev = levels[bidx]
-        W = (front[:, bp.ni_pad:, :bp.ni_pad] @ lev.RU_).contiguous()
-        args = (front, bp.ni_pad, W, lev.RV_, tb.sperm)
-        ker = lowrank_schur_update(*args)
-        ref = lowrank_schur_update_plain(*args)
-        nbb = bp.B * bp.nb_pad * bp.nb_pad
-        record("lowrank_schur_update",
-               f"batch {bidx} [{bp.B},{bp.nb_pad},{bp.nb_pad}] k={bp.rank_cap}",
-               errors(ker, ref), RTOL_SUM,
-               device_ms(lambda: lowrank_schur_update(*args)),
-               device_ms(lambda: lowrank_schur_update_plain(*args)),
-               bound(2 * nbb * 8 + nbytes(W, lev.RV_, tb.sperm),
-                     2 * nbb * W.shape[-1], products=True))
+    # F: the Schur update at every launch shape of the factor
+    check_schur_captured("low-rank", fcalls, results)
+    record = results.record
 
     # G: the truncation of both sides of the first compressed level, with the
     # factorization's own sketches
@@ -804,7 +923,9 @@ def _hss_captures(plan, tp, opts, dev, b):
     J: ``(B, nleaves, ls, r, depth, k, adjoint)``; I: ``(B, M, p, q, n_pad,
     ls, r, depth)``), each tagged with the batch that first gave it; returns
     ``(levels, cpqr calls, level-correction calls, matvec calls, entries
-    calls)``."""
+    calls, Schur-update calls)``; the last keyed ``(B, m_pad, ni_pad,
+    kc)`` for kernel F on the plan's compressed batches that are not
+    structured."""
     import importlib
 
     import torch
@@ -816,7 +937,8 @@ def _hss_captures(plan, tp, opts, dev, b):
 
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
     where = {"tag": "solve"}
-    hcalls, kcalls, jcalls, icalls = {}, {}, {}, {}
+    hcalls, kcalls, jcalls, icalls, fcalls = {}, {}, {}, {}, {}
+    orig_f, schur_rec = schur_recorder(fm, fcalls, {"tag": "factor"})
     orig = (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
             fm.transition_compress, S.hss_matvec, S.hss_entries_prepared)
 
@@ -861,6 +983,7 @@ def _hss_captures(plan, tp, opts, dev, b):
     cpqr_rec.launches = correct_rec.launches = 0
     L.cpqr_pivots, H.hss_level_correct = cpqr_rec, correct_rec
     fm._run_structured, fm.transition_compress = run_rec, trans_rec
+    fm.lowrank_schur_update = schur_rec
     # structured.py imports J's and I's wrappers by name
     S.hss_matvec, S.hss_entries_prepared = matvec_rec, entries_rec
     try:
@@ -872,8 +995,9 @@ def _hss_captures(plan, tp, opts, dev, b):
     finally:
         (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
          fm.transition_compress, S.hss_matvec, S.hss_entries_prepared) = orig
+        fm.lowrank_schur_update = orig_f
     torch.cuda.synchronize()
-    return levels, hcalls, kcalls, jcalls, icalls
+    return levels, hcalls, kcalls, jcalls, icalls, fcalls
 
 
 def entries_bound(ef, rows, cols, out) -> dict:
@@ -932,7 +1056,7 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
                                      opts)
         tp = plan_to_torch(plan, dev)
         t0 = time.perf_counter()
-        levels, hcalls, kcalls, jcalls, icalls = _hss_captures(
+        levels, hcalls, kcalls, jcalls, icalls, fcalls = _hss_captures(
             plan, tp, opts, dev, bt)
         log(f"  {label}: {len(hcalls)} H shapes, {len(kcalls)} K shapes, "
             f"{len(jcalls)} J shapes, {len(icalls)} I shapes captured in "
@@ -947,11 +1071,15 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
             # the steps this data needs: a pivot per rank, and the step that
             # finds the rank, per matrix; each projects and downdates every
             # column
-            steps = float((ker[1].double() + 1).clamp(max=k).sum())
+            need = (ker[1].double() + 1).clamp(max=k)
+            steps = float(need.sum())
             ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k))
             plain_ms = device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k),
                                  max_reps=20)
-            work = bound(nbytes(Am, *ker), 4 * m * nn * steps)
+            # latency: each step's coefficients are dots of m terms in order
+            # (kept for the plain version's pivots), one step after another
+            work = bound(nbytes(Am, *ker), 4 * m * nn * steps,
+                         chain=float(need.max()) * m)
             cs, resident = L.cpqr_cluster(m, nn)
             desc = (f"{label} {tag} A=[{Bm},{m},{nn}] k={k} cluster {cs}"
                     + ("" if resident else " (columns in global memory)"))
@@ -969,9 +1097,12 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
             plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch,
                                                                    *args))
             xi, Bl, Br, lu, piv, Phi, _ = args
+            # latency: the LU's two substitutions, 2 ceil(2r / 32) diagonal
+            # blocks of 32 rows, each row a product and a sum on the last
             work = bound(nbytes(Y0, Y0, xi, Bl, Br, lu, piv, Phi),
                          2 * k * (Bl.numel() + Br.numel() + lu.numel()
-                                  + Phi.numel()), products=True)
+                                  + Phi.numel()), products=True,
+                         chain=2 * -(-2 * r // 32) * 32 * 2)
             geo = ("one CTA per node" if k == 1 else
                    "nc={} cs={} groups={} stages={}".format(
                        *H.level_correct_launch(r, k, nodes, dev)))
@@ -989,6 +1120,7 @@ def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None
             check_hss_table_shapes(plan, levels, opts, dev, results)
         check_hss_captured(label, jcalls, icalls, results)
         check_sweep_levels(f"structured {label}", levels, plan.N, results)
+        check_schur_captured(f"structured {label}", fcalls, results)
     torch.cuda.synchronize()
 
 
@@ -1116,12 +1248,33 @@ def check_hss_table_shapes(plan, levels, opts, dev, results: Results) -> None:
     torch.cuda.synchronize()
 
 
+def givens_chain(j: int, done: bool) -> int:
+    """Kernel M's dependent operations at step j: the j earlier rotations
+    (a product and a sum each on the running entry), rotation j (|a|, a
+    square, a sum, the root, a quotient, the rotated entry's product and
+    sum, g's product: 9), and at the cycle end the back substitution on J =
+    j + 1 rows: for row i a product with y[i+1], J - 1 - i subtractions in
+    order and a quotient."""
+    J = j + 1
+    return 2 * j + 9 + ((J * (J - 1)) // 2 + 2 * J if done else 0)
+
+
 def check_arnoldi_kernels(problems: Problems, n: int, dev,
                           results: Results) -> None:
-    """Phase 3, kernels L and M against their plain versions on Arnoldi steps
-    j = 0 and j = 29 captured from one 30-step GMRES cycle on the n-operator
-    (unpreconditioned, so the cycle runs all its steps), in float64 and, as
-    the inner cycle of the mixed solve, in float32."""
+    """Phase 3, the Arnoldi step on steps j = 0, 14 and 29 captured from one
+    30-step GMRES cycle on the n-operator (unpreconditioned, so the cycle
+    runs all its steps), in float64 and, as the inner cycle of the mixed
+    solve, in float32: kernel L alone (its tail off) against its plain
+    version (1e-13 and 1e-5); the step as GMRES runs it, one launch of L
+    with M's step and V[j+1] as its tail, with the captured loop test and
+    as the cycle's end (done): hc bit for bit kernel L's alone (the same
+    passes), H, cs, sn, g, st, done, y and V[j+1] bit for bit M's plain
+    version and the division on L's hc and w, w untouched, the ticket back
+    at rest, hc and V[j+1] within 1e-13 / 1e-5 of the step's plain version;
+    timed beside that and the three launches it replaces (L, M and the
+    division), bound by L's bytes (V[:j+1] and w read, V[j+1] written) or
+    the queued launch, plus M's chain; kernel M alone against its plain
+    version, bit for bit."""
     import dataclasses
 
     import numpy as np
@@ -1135,25 +1288,20 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     bt = torch.as_tensor(np.asarray(b), device=dev)
     op64, mv = ht.spmv_format(A, device=dev)
     op32, _ = ht.spmv_format(A, dtype=np.float32, device=dev)
-    steps = (0, 29)
+    steps = (0, 14, 29)
     clone = lambda s: dataclasses.replace(s, **{
         f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
     captured = {}
-    orig = (K.arnoldi_cgs2, K.arnoldi_givens)
+    orig = K.arnoldi_step
 
-    def rec_l(s, w, j):
+    def rec(s, w, j, floor, cont):
         key = (str(s.V.dtype).replace("torch.", ""), j)
         if j in steps and key not in captured:
-            captured[key] = {"s": clone(s), "w": w.clone()}
-        return orig[0](s, w, j)
+            captured[key] = {"s": clone(s), "w": w.clone(), "floor": floor,
+                             "cont": cont}
+        return orig(s, w, j, floor, cont)
 
-    def rec_m(s, j, floor, cont):
-        c = captured.get((str(s.V.dtype).replace("torch.", ""), j))
-        if c is not None and "sm" not in c:
-            c.update(sm=clone(s), floor=floor, cont=cont)
-        return orig[1](s, j, floor, cont)
-
-    K.arnoldi_cgs2, K.arnoldi_givens = rec_l, rec_m
+    K.arnoldi_step = rec
     try:
         for inner in (None, "float32"):
             ht.gmres_compiled(mv, None, bt, reltol=1e-14, restart=30,
@@ -1161,7 +1309,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                               mv_data_inner=op32 if inner else None,
                               escalate=False)
     finally:
-        K.arnoldi_cgs2, K.arnoldi_givens = orig
+        K.arnoldi_step = orig
     torch.cuda.synchronize()
     if sorted(captured) != sorted((d, j) for d in ("float32", "float64")
                                   for j in steps):
@@ -1171,8 +1319,9 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                                 reverse=True):
         tag = "" if dname == "float64" else f":{dname}"
         rtol = RTOL_SUM if dname == "float64" else RTOL_SUM32
-        s0, w0 = c["s"], c["w"]
+        s0, w0, floor = c["s"], c["w"], c["floor"]
         m1, N = s0.V.shape
+        m = m1 - 1
         e = s0.V.element_size()
         sk, sp_ = clone(s0), clone(s0)
         wk, wp = w0.clone(), w0.clone()
@@ -1194,36 +1343,91 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
             w2 = torch.addmv(w1, Vj.T, h2, alpha=-1.0)
             return torch.linalg.vector_norm(w2)
 
+        l_bytes = (j + 1) * N * e + 2 * N * e + (j + 2) * e
         record(f"arnoldi_cgs2{tag}", f"j={j} V=[{m1},{N}]", err, rtol,
                device_ms(lambda: AR.arnoldi_cgs2(scratch_s, scratch_w, j)),
                device_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
-               bound((j + 1) * N * e + 2 * N * e + (j + 2) * e,
-                     8 * (j + 1) * N + 2 * N, dname),
+               bound(l_bytes, 8 * (j + 1) * N + 2 * N, dname),
                library_ms=device_ms(library))
-        # M on the captured step (its own floor and loop test), and as the
-        # last step of a cycle (done: the triangular solve)
-        m = s0.H.shape[1]
-        for cont in (c["cont"], False):
-            mk, mp = clone(c["sm"]), clone(c["sm"])
-            AR.arnoldi_givens(mk, j, c["floor"], cont)
-            AR.arnoldi_givens_plain(mp, j, c["floor"], cont)
+        for cont in dict.fromkeys((c["cont"], False)):
+            # the step as GMRES runs it, one launch: its passes are L's (the
+            # same code with the tail off), so hc is L's bit for bit, and
+            # M's tail and V[j+1] are M's plain version and the division on
+            # L's hc and w, bit for bit; w is left as the matvec gave it
+            fk, wf = clone(s0), w0.clone()
+            AR.arnoldi_step(fk, wf, j, floor, cont)
+            torch.cuda.synchronize()
+            if int(fk.ticket[0]) != 0:
+                fail(f"arnoldi_step{tag} left its ticket armed at j={j}")
+            if not torch.equal(fk.hc, sk.hc):
+                fail(f"arnoldi_step{tag}: hc differs from kernel L's at j={j}")
+            if not torch.equal(wf, w0):
+                fail(f"arnoldi_step{tag}: w written at j={j}")
+            mp = clone(s0)
+            mp.hc.copy_(sk.hc)
+            AR.arnoldi_givens_plain(mp, j, floor, cont)
+            torch.div(wk, mp.st[1], out=mp.V[j + 1])
+            for what in ("H", "cs", "sn", "g", "st", "done", "y"):
+                if not torch.equal(getattr(fk, what), getattr(mp, what)):
+                    fail(f"arnoldi_step{tag}: M's tail differs from its plain "
+                         f"version in {what} at j={j} (cont={cont})")
+            if not torch.equal(fk.V[j + 1], mp.V[j + 1]):
+                fail(f"arnoldi_step{tag}: V[j+1] differs from w / st[1] at "
+                     f"j={j} (cont={cont})")
+            # and against the step's plain version on the same inputs
+            pp, wpp = clone(s0), w0.clone()
+            AR.arnoldi_step_plain(pp, wpp, j, floor, cont)
+            step_err = max(errors(fk.V[j + 1], pp.V[j + 1]),
+                           errors(fk.hc[: j + 2], pp.hc[: j + 2]),
+                           key=lambda t: t[1])
+            done = bool(mp.done[0])
+            ss, sw = clone(s0), w0.clone()
+            # repeated steps rotate g[j] further each time: a floor of -1
+            # keeps a step that went on going on
+            tfloor = floor if done else -1.0
+
+            def three():
+                AR.arnoldi_cgs2(ss, sw, j)
+                AR.arnoldi_givens(ss, j, tfloor, cont)
+                torch.div(sw, ss.st[1], out=ss.V[j + 1])
+
+            step_ms = device_ms(lambda: AR.arnoldi_step(ss, sw, j, tfloor,
+                                                        cont))
+            three_ms = device_ms(three)
+            ps, pw = clone(s0), w0.clone()
+            record(f"arnoldi_step{tag}", f"j={j} m={m} done={int(done)} "
+                   f"V=[{m1},{N}]", step_err, rtol, step_ms,
+                   device_ms(lambda: AR.arnoldi_step_plain(ps, pw, j, tfloor,
+                                                           cont)),
+                   bound(l_bytes, 8 * (j + 1) * N + 3 * N, dname,
+                         chain=givens_chain(j, done)))
+            log(f"  arnoldi_step{tag:14s} j={j} done={int(done)}: bitwise "
+                f"(hc, H, cs, sn, g, st, done, y, V[j+1]); one launch "
+                f"{step_ms:.4f} ms, L + M + division {three_ms:.4f} ms")
+            # M alone, on L's column (bit for bit)
+            mk, mp2 = clone(sp_), clone(sp_)
+            mk.hc.copy_(sk.hc)
+            mp2.hc.copy_(sk.hc)
+            AR.arnoldi_givens(mk, j, floor, cont)
+            AR.arnoldi_givens_plain(mp2, j, floor, cont)
             torch.cuda.synchronize()
             for what in ("H", "cs", "sn", "g", "st", "done", "y"):
-                if not torch.equal(getattr(mk, what), getattr(mp, what)):
+                if not torch.equal(getattr(mk, what), getattr(mp2, what)):
                     fail(f"arnoldi_givens{tag} differs from its plain version "
                          f"in {what} at j={j} (cont={cont})")
-            done = bool(mp.done[0])
-            scratch_m = clone(c["sm"])
+            done = bool(mp2.done[0])
+            scratch_m = clone(mk)
+            tfloor = floor if done else -1.0
             work = e * ((j + 2) + 2 * j + 2 + (m + 1) + 2) + 4 \
                 + (e * (m + (j + 1) * (j + 2) // 2) if done else 0)
             record(f"arnoldi_givens{tag}", f"j={j} m={m} done={int(done)}",
-                   errors(mk.y, mp.y) if done else (0.0, 0.0), rtol,
-                   device_ms(lambda: AR.arnoldi_givens(scratch_m, j, c["floor"],
+                   errors(mk.y, mp2.y) if done else (0.0, 0.0), rtol,
+                   device_ms(lambda: AR.arnoldi_givens(scratch_m, j, tfloor,
                                                      cont)),
                    device_ms(lambda: AR.arnoldi_givens_plain(
-                       scratch_m, j, c["floor"], cont)),
+                       scratch_m, j, tfloor, cont)),
                    bound(work, 6 * j + 12 + ((j + 1) ** 2 if done else 0),
-                         dname))
+                         dname, chain=givens_chain(j, done)))
     torch.cuda.synchronize()
 
 
@@ -1359,6 +1563,8 @@ def kernel_table(runs, kres: Results) -> list:
         row = {"name": k, "route": "cuda", "source": f"hsolve_torch/csrc/{src}",
                "replaces": rep, "launches": total.get(k, 0),
                **{key: kres[k][key] for key in keys}}
+        if k in RUN_IN_STEP:
+            row.update(timed="alone", runs_in="arnoldi_step")
         if k in TYPED:
             row["float32"] = {"launches": total.get(f"{k}:float32", 0),
                               **{key: kres[f"{k}:float32"][key]
@@ -1400,8 +1606,11 @@ def main() -> int:
             log(f"    ptxas: {line.strip()}")
 
     problems = Problems()
+    one = torch.zeros(1, device=dev)
+    QUEUED["ms"] = queued_ms(one.zero_)
     log(f"[3] kernels against their plain versions at the n={args.kernel_n} "
-        "plans' shapes")
+        f"plans' shapes; a queued one-element launch takes {QUEUED['ms']:.5f} "
+        "ms on the device (the floor of the latency bounds)")
     kres = Results()
     check_kernels(problems, args.kernel_n, dev, kres)
     check_kernels(problems, args.kernel_n, dev, kres, "float32")
@@ -1425,6 +1634,13 @@ def main() -> int:
             missing = [k for k in path_kernels if counts.get(k, 0) <= 0]
             if missing:
                 fail(f"n={n}: the main path never launched {missing}")
+            # every Arnoldi step one launch: L and M only as the step's
+            step = counts.get("arnoldi_step", 0)
+            if not step == counts["arnoldi_cgs2"] == counts["arnoldi_givens"]:
+                fail(f"n={n} {path}: {step} Arnoldi step launches for "
+                     f"{counts['arnoldi_cgs2']} of L and "
+                     f"{counts['arnoldi_givens']} of M")
+            log(f"  n={n} {path}: {step} Arnoldi steps, one launch each")
             runs[-1]["launches"] = counts
 
     table = kernel_table(runs, kres)

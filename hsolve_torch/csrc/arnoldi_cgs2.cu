@@ -1,4 +1,6 @@
-// Kernel L: the CGS2 orthogonalization of one Arnoldi step, one launch.
+// Kernel L: the CGS2 orthogonalization of one Arnoldi step, one launch, and
+// with it (`hs_arnoldi_step`) the rest of the step: kernel M's Givens
+// bookkeeping and the scaling of w into V[j+1].
 //
 // Replaces the classical Gram-Schmidt, applied twice, of hsolve/krylov.py
 // `_gmres_cycles.inner_body` (:231-237), which XLA lowered as two GEMV pairs
@@ -7,35 +9,48 @@
 //     h1 = V[:R] w,  w -= V[:R]^T h1,  h2 = V[:R] w,  w -= V[:R]^T h2
 //     hc[:R] = h1 + h2,  hc[R] = ||w||                    (R = j + 1)
 //
-// w is updated in place.  Instantiated for double (`hs_arnoldi_cgs2`) and
-// float (`hs_arnoldi_cgs2_f32`, the inner cycles of mixed-precision GMRES).
+// and, in `hs_arnoldi_step`, `V[j+1] = w / hnorm` (:238) with the Givens
+// step, `inner_cond` and the cycle end (arnoldi_givens.cuh).  Instantiated
+// for double and float (`_f32`: the inner cycles of mixed-precision GMRES).
 //
-// Bound: bytes.  A step must read the R rows of V and w and write w; the
-// work is four multiply-adds per value of V.
+// Bound: bytes for the passes (a step must read the R rows of V and w and
+// write V[j+1]; four multiply-adds per value of V), latency for the tail
+// (M's dependent chains, arnoldi_givens.cuh).
 //
 // Design: one persistent cooperative launch (cudaLaunchCooperativeKernel;
 // the grid, one CTA per SM, is co-resident or the launch is refused) with
-// two grid barriers.  CTA b owns the contiguous slice [b S, (b+1) S) of N
-// (S a multiple of 4, so a slice starts on a 16-byte boundary wherever its
-// row does) and keeps that slice of w in shared memory for the whole step:
-// w is read once and written once.
+// grid barriers on one counter, the ticket.  CTA b owns the contiguous
+// slice [b S, (b+1) S) of N (S a multiple of 4, so a slice starts on a
+// 16-byte boundary wherever its row does) and keeps that slice of w in
+// shared memory for the whole step: w is read once.
 //   1. partial dots of V[:R] with w -> P1 [R, G]; the first Rs rows of the
 //      slice are staged in shared memory on the way (Rs: as many as fit);
 //   barrier; every CTA sums P1 in one fixed order, so all hold the same h1
 //   bit for bit;
 //   2. w -= V^T h1 on the slice, then the partial dots of the new w -> P2;
 //   barrier; h2 the same way;
-//   3. w -= V^T h2, the slice written back, ||w||^2 partials -> P3 [G]; the
-//      last CTA to finish (the ticket) sums P3 in a fixed order, writes
-//      hc[R] = ||w|| and re-arms the ticket; CTA 0 writes hc[:R] = h1 + h2.
+//   3. w -= V^T h2, ||w||^2 partials -> P3 [G].
+// Kernel L alone (`hs_arnoldi_cgs2`): the slice of w is written back; the
+// last CTA to finish (the ticket) sums P3 in a fixed order, writes hc[R] =
+// ||w|| and re-arms the ticket; CTA 0 writes hc[:R] = h1 + h2.
+// The step (`hs_arnoldi_step`): a third barrier; every CTA sums P3 in the
+// same fixed order, so all hold ||w|| bit for bit, and writes its slice of
+// V[j+1] = w / ||w|| (1 where ||w|| is 0) from shared memory (w itself is
+// not written back: the GMRES loop reads only V[j+1]).  The CTA that arrived last at the third barrier writes hc and
+// runs kernel M's step in its warp 0 on the column, h1 + h2 and ||w||,
+// already in its shared memory, with its slice of w's buffer as M's
+// scratch (H[:J, :J] staged there where it fits: always at the restarts
+// GMRES uses, J <= 30).  Each CTA then counts its exit on the ticket; the
+// last one out re-arms it.
 // The staged rows come from shared memory after pass 1; the others are swept
 // in alternating directions so that the rows read last are still in L2.  V
 // is read with 16-byte loads along N: a row whose start is not 16-byte
 // aligned (N odd) takes two aligned loads per chunk and a shift.  Each thread
 // keeps several rows of V in flight (independent accumulators).  The ticket
-// is also the grid barrier's counter: 0 at rest, G after barrier 1, 2G after
-// barrier 2, 3G when the last CTA resets it.  Nothing goes to the host.
-#include "hs_common.cuh"
+// is 0 at rest, G after barrier 1, 2G after barrier 2, 3G after barrier 3
+// (or when L alone's last CTA resets it), 4G when the step's last CTA out
+// resets it.  Nothing goes to the host.
+#include "arnoldi_givens.cuh"
 
 #define HS_CGS2_THREADS 512
 #define HS_CGS2_WARPS (HS_CGS2_THREADS / 32)
@@ -129,12 +144,13 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ V,
 }
 
 // wait until `target` CTAs have arrived on the counter (co-residency is
-// guaranteed by the cooperative launch)
-__device__ __forceinline__ void grid_sync(unsigned* ticket, unsigned target) {
+// guaranteed by the cooperative launch); true in the CTA that arrived last
+__device__ __forceinline__ bool grid_sync(unsigned* ticket, unsigned target) {
+  __shared__ bool arrived_last;
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    atomicAdd(ticket, 1u);
+    arrived_last = atomicAdd(ticket, 1u) == target - 1u;
     unsigned seen;
     do {
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
@@ -142,6 +158,7 @@ __device__ __forceinline__ void grid_sync(unsigned* ticket, unsigned target) {
     } while (seen < target);
   }
   __syncthreads();
+  return arrived_last;
 }
 
 // h[i] = sum_b P[i * G + b], one warp per row, the same order in every CTA
@@ -162,15 +179,17 @@ __global__ void __launch_bounds__(HS_CGS2_THREADS, 1)
 arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
                     T* __restrict__ hc, T* __restrict__ part,
                     unsigned* __restrict__ ticket, int R, int64_t N, int S,
-                    int Rs) {
+                    int Rs, T* __restrict__ Vn, GivensArgs<T> p) {
   constexpr int W = Vec16<T>::n;
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  T* ws = reinterpret_cast<T*>(hs_smem);            // [S] the slice of w
-  T* h1 = ws + S;                                   // [MAX_ROWS]
+  T* h1 = reinterpret_cast<T*>(hs_smem);            // [MAX_ROWS]
   T* h2 = h1 + HS_CGS2_MAX_ROWS;                    // [MAX_ROWS]
   T* red = h2 + HS_CGS2_MAX_ROWS;                   // [ROW_BATCH][WARPS]
-  T* stage = red + HS_CGS2_ROW_BATCH * HS_CGS2_WARPS;  // [Rs][S] rows of V
+  T* ws = red + HS_CGS2_ROW_BATCH * HS_CGS2_WARPS;  // [S] the slice of w
+  T* stage = ws + S;                                // [Rs][S] rows of V
   __shared__ bool last;
+  __shared__ T hnorm;
+  const bool step = Vn != nullptr;                  // M's tail and V[j+1]
   const int G = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t lo = (int64_t)blockIdx.x * S;
@@ -269,10 +288,8 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   sum_partials(P2, G, R, h2);
   T sq = update(h2);
   __syncthreads();
-  for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) w[lo + t] = ws[t];
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < R; i += HS_CGS2_THREADS) hc[i] = h1[i] + h2[i];
-
+  if (!step)
+    for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) w[lo + t] = ws[t];
   sq = warp_sum(sq);
   if (lane == 0) red[warp] = sq;
   __syncthreads();
@@ -280,21 +297,61 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
     T s = T(0);
     for (int k = 0; k < HS_CGS2_WARPS; ++k) s += red[k];
     P3[blockIdx.x] = s;
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == 3u * (unsigned)G - 1u;
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+
+  if (!step) {
+    // kernel L alone: the last CTA writes ||w|| and re-arms the ticket
+    if (blockIdx.x == 0)
+      for (int i = threadIdx.x; i < R; i += HS_CGS2_THREADS)
+        hc[i] = h1[i] + h2[i];
+    if (threadIdx.x == 0) {
+      __threadfence();
+      last = atomicAdd(ticket, 1u) == 3u * (unsigned)G - 1u;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (warp == 0) {
+      T s = T(0);
+      for (int b = lane; b < G; b += 32) s += __ldcg(P3 + b);
+      s = warp_sum(s);
+      if (lane == 0) {
+        hc[R] = sqrt(s);
+        *ticket = 0u;
+      }
+    }
+    return;
+  }
+
+  // the step: every CTA sums P3 alike, so all hold ||w|| bit for bit
+  const bool tail = grid_sync(ticket, 3u * (unsigned)G);
   if (warp == 0) {
     T s = T(0);
     for (int b = lane; b < G; b += 32) s += __ldcg(P3 + b);
     s = warp_sum(s);
-    if (lane == 0) {
-      hc[R] = sqrt(s);
-      *ticket = 0u;
-    }
+    if (lane == 0) hnorm = sqrt(s);
   }
+  __syncthreads();
+  const T hn = hnorm;
+  const T dv = hn > T(0) ? hn : T(1);
+  for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS)
+    Vn[lo + t] = div_rn(ws[t], dv);
+  if (tail) {
+    // the column h1 + h2, ||w|| in place of h1 (zero up to m), written to
+    // hc; then M's step in warp 0, w's buffer its scratch
+    T* col = h1;
+    for (int i = threadIdx.x; i <= p.m; i += HS_CGS2_THREADS) {
+      const T v = i < R ? h1[i] + h2[i] : (i == R ? hn : T(0));
+      col[i] = v;
+      if (i <= R) hc[i] = v;
+    }
+    __syncthreads();
+    if (warp == 0) givens_step(col, ws, p, R - 1);
+  }
+  // the last CTA out re-arms the ticket
+  if (threadIdx.x == 0 &&
+      atomicAdd(ticket, 1u) == 4u * (unsigned)G - 1u)
+    *ticket = 0u;
 }
 
 // the slice of N per CTA: ceil(N / G) rounded up to a multiple of 4
@@ -303,21 +360,37 @@ static inline long long cgs2_slice(long long N, int G) {
   return (s + 3) / 4 * 4;
 }
 
+// Kernel L's launch; with `tail` (the step) also M's step and V[j+1] = w /
+// ||w|| into `Vn` (w not written back)
 template <typename T>
 static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
                         void* ticket, int R, long long N, int G,
-                        void* stream) {
+                        const GivensArgs<T>* tail, void* stream) {
   if (R < 1 || R > HS_CGS2_MAX_ROWS || G < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  if (tail && (tail->m < 1 || tail->m > HS_GIVENS_MAX_M || R > tail->m))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(V) & 15u)
     return (int)cudaErrorMisalignedAddress;
+  const long long e = (long long)sizeof(T);
   const long long S = cgs2_slice(N, G);
-  const long long fixed = (S + 2 * HS_CGS2_MAX_ROWS +
-                           HS_CGS2_ROW_BATCH * HS_CGS2_WARPS) * (long long)sizeof(T);
+  const long long small = 2 * HS_CGS2_MAX_ROWS + HS_CGS2_ROW_BATCH * HS_CGS2_WARPS;
+  const long long fixed = (small + S) * e;
   if (fixed > HS_CGS2_SMEM) return (int)cudaErrorInvalidValue;
-  long long rs = (HS_CGS2_SMEM - fixed) / (S * (long long)sizeof(T));
+  long long rs = (HS_CGS2_SMEM - fixed) / (S * e);
   if (rs > R) rs = R;
-  const size_t smem = (size_t)(fixed + rs * S * (long long)sizeof(T));
+  long long smem = fixed + rs * S * e;
+  GivensArgs<T> p = {};
+  T* Vn = nullptr;
+  if (tail) {
+    // M's scratch lives in w's buffer and past it: stage H[:J, :J] where
+    // the CTA's shared memory holds it
+    p = *tail;
+    p.h_smem = (small + givens_smem_values(p.m, R, true)) * e <= HS_CGS2_SMEM;
+    const long long need = (small + givens_smem_values(p.m, R, p.h_smem)) * e;
+    if (need > smem) smem = need;
+    Vn = (T*)V + (long long)R * N;
+  }
   auto kern = arnoldi_cgs2_kernel<T>;
   static bool granted = false;
   if (!granted) {
@@ -333,9 +406,9 @@ static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
   unsigned* tp = (unsigned*)ticket;
   int64_t N64 = N;
   int Si = (int)S, Rsi = (int)rs;
-  void* args[] = {&Vp, &wp, &hcp, &pp, &tp, &R, &N64, &Si, &Rsi};
+  void* args[] = {&Vp, &wp, &hcp, &pp, &tp, &R, &N64, &Si, &Rsi, &Vn, &p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kern, dim3(G), dim3(HS_CGS2_THREADS), args, smem,
+      (const void*)kern, dim3(G), dim3(HS_CGS2_THREADS), args, (size_t)smem,
       (cudaStream_t)stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch is not sticky: clear it
@@ -347,11 +420,43 @@ static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
 HS_EXPORT int hs_arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
                               void* ticket, int R, long long N, int nb,
                               void* stream) {
-  return arnoldi_cgs2<double>(V, w, hc, part, ticket, R, N, nb, stream);
+  return arnoldi_cgs2<double>(V, w, hc, part, ticket, R, N, nb, nullptr,
+                              stream);
 }
 
 HS_EXPORT int hs_arnoldi_cgs2_f32(const void* V, void* w, void* hc,
                                   void* part, void* ticket, int R,
                                   long long N, int nb, void* stream) {
-  return arnoldi_cgs2<float>(V, w, hc, part, ticket, R, N, nb, stream);
+  return arnoldi_cgs2<float>(V, w, hc, part, ticket, R, N, nb, nullptr,
+                             stream);
+}
+
+// One Arnoldi step j (R = j + 1 rows of V): L's passes, V[j+1], M's step
+template <typename T>
+static int arnoldi_step(const void* V, void* w, void* hc, void* part,
+                        void* ticket, void* H, void* cs, void* sn, void* g,
+                        void* st, void* done, void* y, int j, long long N,
+                        int nb, int m, double res_floor, int cont,
+                        void* stream) {
+  const GivensArgs<T> p = {(T*)H, (T*)cs, (T*)sn, (T*)g, (T*)st, (int*)done,
+                           (T*)y, m, (T)res_floor, cont, 0};
+  return arnoldi_cgs2<T>(V, w, hc, part, ticket, j + 1, N, nb, &p, stream);
+}
+
+HS_EXPORT int hs_arnoldi_step(const void* V, void* w, void* hc, void* part,
+                              void* ticket, void* H, void* cs, void* sn,
+                              void* g, void* st, void* done, void* y, int j,
+                              long long N, int nb, int m, double res_floor,
+                              int cont, void* stream) {
+  return arnoldi_step<double>(V, w, hc, part, ticket, H, cs, sn, g, st, done,
+                              y, j, N, nb, m, res_floor, cont, stream);
+}
+
+HS_EXPORT int hs_arnoldi_step_f32(const void* V, void* w, void* hc, void* part,
+                                  void* ticket, void* H, void* cs, void* sn,
+                                  void* g, void* st, void* done, void* y,
+                                  int j, long long N, int nb, int m,
+                                  double res_floor, int cont, void* stream) {
+  return arnoldi_step<float>(V, w, hc, part, ticket, H, cs, sn, g, st, done,
+                             y, j, N, nb, m, res_floor, cont, stream);
 }

@@ -316,8 +316,8 @@ def _factor_front_compressed(front: torch.Tensor, sperm: torch.Tensor,
       of the off-diagonal blocks (tolerances already scaled by ``c_tol``),
     - ``L = LU_ (D^-T LV)^T`` and ``R = (D^-1 RU) RV^T``: the D-solve touches
       only the k sketch columns,
-    - ``S = Abb - (Abi RU_) RV_^T`` (exact Abi, compressed R), permuted
-      (kernel F)."""
+    - ``S = Abb - (Abi RU_) RV_^T`` (exact Abi, compressed R), permuted:
+      both products in kernel F."""
     D = front[:, :ni_pad, :ni_pad]
     Aib = front[:, :ni_pad, ni_pad:]
     Abi = front[:, ni_pad:, :ni_pad]
@@ -339,8 +339,7 @@ def _factor_front_compressed(front: torch.Tensor, sperm: torch.Tensor,
     # row-major factors for kernels E and F (the triangular solves may return
     # column-major ones)
     LV, RU = LV.contiguous(), RU.contiguous()
-    S = lowrank_schur_update(front, ni_pad, (Abi @ RU).contiguous(), lr_ib.V,
-                             sperm)
+    S = lowrank_schur_update(front, ni_pad, RU, lr_ib.V, sperm)
     return (lu, perm, lr_bi.U, LV, RU, lr_ib.V, lr_bi.rank, lr_ib.rank, S,
             dinv, ratio)
 

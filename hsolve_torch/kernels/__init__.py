@@ -22,8 +22,9 @@ they serve:
   :mod:`hsolve_torch.ops.lowrank`,
 - ``hss_entries_prepared`` (kernel I), ``hss_matvec`` (kernel J) and
   ``hss_level_correct`` (kernel K) in :mod:`hsolve_torch.ops.hss`,
-- ``arnoldi_cgs2`` (kernel L) and ``arnoldi_givens`` (kernel M) in
-  :mod:`hsolve_torch.ops.arnoldi`.
+- ``arnoldi_cgs2`` (kernel L), ``arnoldi_givens`` (kernel M) and
+  ``arnoldi_step`` (L's launch with M's step as its tail, the GMRES loop's
+  step) in :mod:`hsolve_torch.ops.arnoldi`.
 
 Kernels A-D, L and M run on every path; E, F and G on the compressed levels;
 H-K on the structured (HSS) levels, which also run E on their low-rank
@@ -36,7 +37,8 @@ several right-hand sides, whose operand tiles are TMA boxes of tensor maps
 (encoded through the driver entry point the runtime hands out: no link to
 libcuda); kernel L is one cooperative launch
 (``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
-card cannot hold its grid at once.
+card cannot hold its grid at once; kernel F's top levels share a row band's
+``Abi RU`` across a thread block cluster.
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
@@ -74,7 +76,7 @@ _SIGNATURES = {
     "hs_sweep_update": [_V] * 4 + [_LL] + [_I] * 5 + [_V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_lowrank_sweep_update": [_V] * 6 + [_LL] + [_I] * 12 + [_LL, _V],
-    "hs_lowrank_schur_update": [_V, _V, _V, _V, _V, _LL, _I, _I, _I, _V],
+    "hs_lowrank_schur_update": [_V] * 5 + [_LL] + [_I] * 9 + [_V],
     "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
                             _I, _V],
     "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
@@ -84,11 +86,12 @@ _SIGNATURES = {
     "hs_hss_level_correct_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
+    "hs_arnoldi_step": [_V] * 12 + [_I, _LL, _I, _I, _D, _I, _V],
 }
 # A-D, L and M also take float32: the same signature under ``<name>_f32``
 TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
          "hs_level_forward_windowed", "hs_sweep_update", "hs_dia_spmv",
-         "hs_arnoldi_cgs2", "hs_arnoldi_givens")
+         "hs_arnoldi_cgs2", "hs_arnoldi_givens", "hs_arnoldi_step")
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
 VALUE_TYPES = (torch.float32, torch.float64)
 
@@ -182,8 +185,13 @@ def launch(name: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(handle, name)(*args, stream)
     if rc != 0:
-        msg = handle.hs_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+        raise_launch_error(name, rc)
+
+
+def raise_launch_error(name: str, rc: int) -> None:
+    """Raise for entry point ``name``'s return code ``rc`` (not 0)."""
+    msg = lib().hs_error_string(rc).decode()
+    raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,23 +269,26 @@ def count_launch(fn, dtype: torch.dtype) -> None:
 
 
 EXACT_PATH = ("front_assemble", "extend_add", "level_forward", "sweep_update",
-              "dia_spmv", "arnoldi_cgs2", "arnoldi_givens")
+              "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step")
 COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
                                 "lowrank_truncate")
 HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
                               "hss_matvec", "hss_level_correct")
 # the float32 factor with mixed-precision GMRES: A-C and the inner matvec in
-# float32, the outer residual in float64, the inner cycles' L and M in float32
+# float32, the outer residual in float64, the inner cycles' steps (L with M
+# as its tail) in float32
 MIXED_PATH = ("front_assemble:float32", "extend_add:float32",
               "level_forward:float32", "sweep_update:float32",
               "dia_spmv:float32", "dia_spmv:float64", "arnoldi_cgs2:float32",
-              "arnoldi_givens:float32")
+              "arnoldi_givens:float32", "arnoldi_step:float32")
 
 
 def wrappers():
     """The kernel wrappers, by name (A-M; C has two, ``level_forward`` and
-    ``sweep_update``)."""
-    from hsolve_torch.ops.arnoldi import arnoldi_cgs2, arnoldi_givens
+    ``sweep_update``), and ``arnoldi_step``, the launch of L with M's step as
+    its tail (it also counts one launch of L and one of M)."""
+    from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_givens,
+                                          arnoldi_step)
     from hsolve_torch.ops.assembly import extend_add, front_assemble
     from hsolve_torch.ops.hss import (hss_entries_prepared, hss_level_correct,
                                       hss_matvec)
@@ -295,7 +306,8 @@ def wrappers():
             "lowrank_truncate": lowrank_truncate, "cpqr_pivots": cpqr_pivots,
             "hss_entries_prepared": hss_entries_prepared,
             "hss_matvec": hss_matvec, "hss_level_correct": hss_level_correct,
-            "arnoldi_cgs2": arnoldi_cgs2, "arnoldi_givens": arnoldi_givens}
+            "arnoldi_cgs2": arnoldi_cgs2, "arnoldi_givens": arnoldi_givens,
+            "arnoldi_step": arnoldi_step}
 
 
 def launch_counts() -> Dict[str, int]:

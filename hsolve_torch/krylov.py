@@ -7,8 +7,9 @@ is a callable (the port's :class:`~hsolve_torch.factor.Factorization`), with a
 residual-norm history.
 
 :func:`gmres_compiled` runs on the tensors' device: the matvec, the
-preconditioner and each Arnoldi step (kernel L, CGS2; kernel M, the Givens
-bookkeeping, in the cycles' value type) stay there, and the host reads one
+preconditioner and each Arnoldi step (one launch: kernel L, CGS2, with
+kernel M's Givens bookkeeping and the scaling into the next basis vector as
+its tail, in the cycles' value type) stay there, and the host reads one
 4-byte done flag per step and one residual norm per cycle (torch has no
 device-side while loop).  It also runs the JAX package's mixed-precision
 configuration: float32 cycles inside a float64 solve, with escalation to a
@@ -22,8 +23,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_givens,
-                                      arnoldi_state)
+from hsolve_torch.ops.arnoldi import arnoldi_state, arnoldi_step
 from hsolve_torch.ops.sparse import DiaMatrix, dia_residual, torch_dtype
 
 
@@ -164,10 +164,10 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     remaining residual system (:func:`_gmres_escalated`).  Each phase has its
     own ``maxiter`` budget, so ``iters`` may exceed ``maxiter``.
 
-    Every Arnoldi step is kernels L (:func:`~hsolve_torch.ops.arnoldi.
-    arnoldi_cgs2`) and M (:func:`~hsolve_torch.ops.arnoldi.arnoldi_givens`)
-    on the device; the host reads the step's 4-byte done flag and, per cycle,
-    the true residual norm."""
+    Every Arnoldi step is one launch on the device
+    (:func:`~hsolve_torch.ops.arnoldi.arnoldi_step`: kernel L with kernel
+    M's step and ``V[j+1]`` as its tail); the host reads the step's 4-byte
+    done flag and, per cycle, the true residual norm."""
     if maxiter is None:
         maxiter = restart
     mv = (lambda v: matvec(mv_data, v)) if mv_data is not None else matvec
@@ -232,10 +232,8 @@ def _gmres_cycles(mv, mv_i, prec, mv_data, b, reltol, restart, maxiter, m_eps,
         if beta_i > floor:                 # inner_cond before the first step
             while True:
                 w = mv_i(prec(s.V[j])).to(dt).contiguous()
-                arnoldi_cgs2(s, w, j)
                 cont = j + 1 < m and it + j + 1 < maxiter
-                arnoldi_givens(s, j, floor, cont)
-                torch.div(w, s.st[1], out=s.V[j + 1])
+                arnoldi_step(s, w, j, floor, cont)
                 j += 1
                 # the step's one device->host read: the done flag
                 if not cont or bool(s.done.item()):

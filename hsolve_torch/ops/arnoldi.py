@@ -3,20 +3,26 @@ plain versions (port of ``hsolve/krylov.py`` ``_gmres_cycles``: the step
 ``inner_body``, :223-267, its test ``inner_cond``, :269-273, and the cycle
 end's masked triangular solve, :293-298).
 
-- :func:`arnoldi_cgs2` (kernel L, ``csrc/arnoldi_cgs2.cu``) orthogonalizes
-  the step's new vector ``w`` against ``V[:j+1]`` by classical Gram-Schmidt
-  applied twice and writes the new Hessenberg column ``h1 + h2`` and ``||w||``
-  to a small device buffer.
-- :func:`arnoldi_givens` (kernel M, ``csrc/arnoldi_givens.cu``) applies the
-  earlier Givens rotations to that column, forms the new one, updates the
-  rotated right-hand side ``g`` and the residual estimate, sets the step's
-  done flag against the cycle's floor and, when the step ends the cycle,
-  solves for the cycle's coefficients ``y``.
+- :func:`arnoldi_step` is the step the GMRES loop runs: one launch of kernel
+  L (``csrc/arnoldi_cgs2.cu``) whose tail is kernel M's Givens step and the
+  scaling of ``w`` into ``V[j+1]``.
+- :func:`arnoldi_cgs2` (kernel L alone) orthogonalizes the step's new vector
+  ``w`` against ``V[:j+1]`` by classical Gram-Schmidt applied twice and
+  writes the new Hessenberg column ``h1 + h2`` and ``||w||`` to a small
+  device buffer.
+- :func:`arnoldi_givens` (kernel M alone, ``csrc/arnoldi_givens.cu``)
+  applies the earlier Givens rotations to that column, forms the new one,
+  updates the rotated right-hand side ``g`` and the residual estimate, sets
+  the step's done flag against the cycle's floor and, when the step ends
+  the cycle, solves for the cycle's coefficients ``y``.
 
-Everything stays on the device in the cycles' (inner) value type, float32 or
-float64: a step's one device->host read is the 4-byte done flag.  The plain
-versions are torch ops in that type, so on the CPU they round as the JAX
-package's bookkeeping in that type does.
+The last two stay entry points so that each kernel can be read alone; the
+step counts one launch of each (``kernels.launch_counts()``) and one of its
+own (``arnoldi_step.launches``).  Everything stays on the device in the
+cycles' (inner) value type, float32 or float64: a step's one device->host
+read is the 4-byte done flag.  The plain versions are torch ops in that
+type, so on the CPU they round as the JAX package's bookkeeping in that
+type does.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ MIN_SLICE = 1024       # kernel L: no CTA takes a slice of N below this
 SMEM = 230400          # kernel L's shared memory per CTA, bytes
 MAX_ROWS = 512         # kernel L's h1/h2 buffers (rows of V)
 ROW_BATCH = 64         # kernel L's block reduction of the dots (rows)
-MAX_RESTART = 256      # kernel M's column buffer (shared memory)
+MAX_RESTART = 256      # kernel M's restart (its column and scratch)
 H100_SMS = 132
 
 
@@ -233,3 +239,87 @@ def arnoldi_givens(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
 
 arnoldi_givens.launches = 0
 arnoldi_givens.launches_by_type = {}
+
+
+def arnoldi_step_plain(s: Arnoldi, w: torch.Tensor, j: int, floor: float,
+                       cont: bool) -> None:
+    """One Arnoldi step on ``s`` after its matvec ``w``: kernel L's plain
+    version, kernel M's, then ``V[j+1] = w / st[1]``.  ``w`` is left as L
+    leaves it."""
+    arnoldi_cgs2_plain(s, w, j)
+    arnoldi_givens_plain(s, j, floor, cont)
+    torch.div(w, s.st[1], out=s.V[j + 1])
+
+
+def _step_launch(s: Arnoldi, device):
+    """The fused launch's fixed arguments for state ``s``, checked once: the
+    state of one GMRES run keeps its shapes, types and storage."""
+    dt = kernels.value_type(s.V, s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y, s.part)
+    m1, N = s.V.shape
+    m = m1 - 1
+    nb = cgs2_blocks(N, device_sms(device))
+    if not 1 <= m <= min(MAX_RESTART, MAX_ROWS):
+        raise ValueError(f"the step takes a restart of 1..{MAX_RESTART}, "
+                         f"got {m}")
+    if cgs2_slice(N, nb) > cgs2_max_slice(dt):
+        raise ValueError(f"N={N}: kernel L's slice {cgs2_slice(N, nb)} of "
+                         f"{nb} CTAs passes its shared memory "
+                         f"({cgs2_max_slice(dt)} values)")
+    kernels.require(s.V, "V", dt, (m1, N))
+    kernels.require(s.H, "H", dt, (m + 1, m))
+    for name, t, n in (("cs", s.cs, m), ("sn", s.sn, m), ("g", s.g, m + 1),
+                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m)):
+        kernels.require(t, name, dt, (n,))
+    kernels.require(s.part, "part", dt)
+    kernels.require(s.done, "done", torch.int32, (1,))
+    kernels.require(s.ticket, "ticket", torch.int32, (1,))
+    if s.V.data_ptr() % 16:
+        raise ValueError("V: kernel L reads it with 16-byte loads; its "
+                         "storage must start on a 16-byte boundary")
+    if s.part.numel() < (2 * m + 1) * nb:
+        raise ValueError(f"part holds {s.part.numel()} values; restart {m} "
+                         f"needs {(2 * m + 1) * nb}")
+    fn = getattr(kernels.lib(), kernels.symbol("hs_arnoldi_step", dt))
+    ptrs = (s.V.data_ptr(), s.hc.data_ptr(), s.part.data_ptr(),
+            s.ticket.data_ptr(), s.H.data_ptr(), s.cs.data_ptr(),
+            s.sn.data_ptr(), s.g.data_ptr(), s.st.data_ptr(),
+            s.done.data_ptr(), s.y.data_ptr())
+    return dt, N, m, nb, fn, ptrs
+
+
+def arnoldi_step(s: Arnoldi, w: torch.Tensor, j: int, floor: float,
+                 cont: bool) -> None:
+    """One Arnoldi step of a GMRES cycle after its matvec ``w`` (see the
+    plain version): on CUDA tensors one cooperative launch of kernel L whose
+    tail runs kernel M's step and writes ``V[j+1] = w / st[1]``.  ``floor``
+    and ``cont`` as :func:`arnoldi_givens` takes them.  The kernel leaves
+    ``w`` as the matvec gave it (the GMRES loop reads only ``V[j+1]``; the
+    plain version leaves it orthogonalized).  The state's operands are
+    checked at its first step; each step checks ``w`` and ``j``."""
+    if kernels.on_cpu(s.V, w):
+        return arnoldi_step_plain(s, w, j, floor, cont)
+    launch = s.__dict__.get("_step")
+    if launch is None or launch[0] != s.V.data_ptr():
+        launch = (s.V.data_ptr(), _step_launch(s, w.device))
+        s.__dict__["_step"] = launch
+    dt, N, m, nb, fn, ptrs = launch[1]
+    if w.dtype != dt or w.device != s.V.device or w.shape != (N,) \
+            or not w.is_contiguous():
+        raise ValueError(f"w: expected a contiguous [{N}] {dt} vector on "
+                         f"{s.V.device}, got {tuple(w.shape)} {w.dtype} on "
+                         f"{w.device}")
+    if not 0 <= j < m:
+        raise ValueError(f"step j={j} outside restart {m}")
+    V, hc, part, ticket, H, cs, sn, g, st, done, y = ptrs
+    rc = fn(V, w.data_ptr(), hc, part, ticket, H, cs, sn, g, st, done, y, j,
+            N, nb, m, float(floor), int(bool(cont)),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        kernels.raise_launch_error("hs_arnoldi_step", rc)
+    kernels.count_launch(arnoldi_step, dt)
+    kernels.count_launch(arnoldi_cgs2, dt)
+    kernels.count_launch(arnoldi_givens, dt)
+
+
+arnoldi_step.launches = 0
+arnoldi_step.launches_by_type = {}

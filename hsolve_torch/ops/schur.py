@@ -2,14 +2,15 @@
 
 On a compressed level the right Gauss transform is the low-rank pair
 ``R ~= RU RV^T``, and ``hsolve/factor.py:378-379`` forms the permuted Schur
-complement as ``permute_sym(Abb - (Abi @ RU) @ RV^T, sperm)``.  With
-``W = Abi @ RU`` left to ``torch.matmul`` (a plain product that JAX leaves to
-XLA), :func:`lowrank_schur_update` (``csrc/lowrank_schur_update.cu``) computes
+complement as ``permute_sym(Abb - (Abi @ RU) @ RV^T, sperm)``.
+:func:`lowrank_schur_update` (``csrc/lowrank_schur_update.cu``) computes all
+of it in one kernel,
 
-    S[b, i, j] = Abb[b, sperm_i, sperm_j] - sum_k W[b, sperm_i, k] RV[b, sperm_j, k]
+    W = Abi RU,   S[b, i, j] = Abb[b, sperm_i, sperm_j] - sum_k W[b, sperm_i, k] RV[b, sperm_j, k],
 
-reading ``Abb`` in place from the front buffer and storing ``S`` already
-permuted.
+reading ``Abi`` and ``Abb`` in place from the front buffer, keeping ``W`` in
+shared memory and storing ``S`` already permuted.  :func:`schur_geometry`
+picks its launch from the plan's shapes.
 """
 
 from __future__ import annotations
@@ -19,35 +20,127 @@ import torch
 from hsolve_torch import kernels
 from hsolve_torch.ops.dense import permute_sym
 
+F_MAX_KD = 64          # the deepest staged chunk of Abi and RU
+F_MAX_CLUSTER = 8      # CTAs of a row band's cluster (the portable limit)
+F_WHOLE_MAX = 128      # fronts up to this many boundary rows: whole rows
+F_CTAS_PER_SM = 2      # the kernel's launch bounds
+SMEM_MAX = 232448      # shared memory a CTA can take on Hopper, bytes
+H100_SMS = 132
 
-def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int, W: torch.Tensor,
-                               V: torch.Tensor, sperm: torch.Tensor
-                               ) -> torch.Tensor:
-    """``permute_sym(Abb - W @ V^T, sperm)`` with ``Abb = front[:, ni_pad:,
-    ni_pad:]``; returns a new [B, nb_pad, nb_pad] tensor."""
+
+def _up(n: int, m: int = 8) -> int:
+    return -(-n // m) * m
+
+
+def schur_smem(bm: int, bn: int, cs: int, kd: int, kc: int, whole: bool,
+               nb: int) -> int:
+    """Bytes of shared memory one of kernel F's CTAs takes: W (twice in a
+    cluster: its partial and the band's sum), RV's rows, Abb's tile, a
+    depth chunk of kd of Abi and RU, the permutation's rows and columns."""
+    ldw = _up(kc, 16) + 4
+    aw = _up(nb) if whole else bn
+    lds = aw + (8 if aw % 16 == 0 else 0)
+    values = (bm * ldw * (2 if cs > 1 else 1) + bn * ldw + bm * lds
+              + bm * (kd + 4) + kd * ldw)
+    return 8 * values + 4 * (bm + bn)
+
+
+def _fits(bm: int, bn: int) -> bool:
+    """A CTA's eight warps tile bm rows and bn columns: bm/16 row blocks of
+    16 (the products' m16n8k16 shape), the warps of a row block at most 4
+    column blocks of 8 each."""
+    return 16 <= bm <= 64 and bm % 16 == 0 and bn % 8 == 0 and \
+        bn <= 32 * (8 // (bm // 16))
+
+
+def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
+                   sms: int = H100_SMS) -> dict:
+    """Kernel F's launch for ``B`` fronts with ``nb`` boundary rows, depth
+    ``ni_pad`` and rank cap ``kc`` on a card of ``sms`` SMs: ``{"bm", "bn",
+    "cs", "nct", "kd", "whole", "smem"}``.
+
+    Fronts of at most ``F_WHOLE_MAX`` boundary rows (the many-front levels)
+    take whole rows: a CTA covers a band of ``bm`` rows and every column
+    (``bn`` = nb rounded up to 8), one CTA a front where nb <= 64, bands of
+    32 rows above.  Wider fronts take tiles of 32 rows and ``bn`` columns
+    over ``nct`` column tiles.  Where the launch's row bands do not fill the
+    card's SMs twice over (the top levels' few fronts), a band's column
+    tiles form one thread block cluster of ``cs`` CTAs (at most
+    ``F_MAX_CLUSTER``; ``nct`` a multiple of it) that split the depth of
+    ``Abi RU`` between them (bands of 16 rows where bands of 32 would take
+    at most two waves of the card's CTA slots); else each CTA computes its
+    band's ``W`` itself over 64-column tiles.  ``kd``: the depth of a staged
+    chunk, a multiple of 16 up to ``F_MAX_KD``.  Where a rank cap makes the
+    CTA's shared memory too large, the chunk and then the tiles shrink."""
+    nbp = _up(nb)
+    cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
+    cands = []
+    if nbp <= F_WHOLE_MAX:
+        bm = _up(nbp, 16) if nbp <= 64 else 32
+        for b_ in (bm, 32, 16):
+            if b_ <= bm:
+                cands.append((b_, nbp, 1, 1, True))
+    # a cluster launch within two waves of the card's CTA slots at bands of
+    # 32 rows (the top levels' 1-4 fronts): bands of 16, which read faster
+    # there (tools/f_breakdown.py)
+    first = 16 if cluster and B * -(-nbp // 32) * min(
+        F_MAX_CLUSTER, -(-nbp // 32)) <= 2 * F_CTAS_PER_SM * sms else 32
+    for bm in (first, 32, 16):
+        for bn_max in (128, 64, 32, 16, 8):
+            if cluster:
+                nct = max(min(F_MAX_CLUSTER, -(-nbp // 32)),
+                          -(-nbp // bn_max))
+            else:
+                nct = -(-nbp // min(bn_max, 64))
+            bn = _up(-(-nbp // nct))
+            nct = -(-nbp // bn)
+            cs = min(nct, F_MAX_CLUSTER) if cluster else 1
+            cands.append((bm, bn, cs, -(-nct // cs) * cs, False))
+    for bm, bn, cs, nct, whole in cands:
+        top = min(F_MAX_KD, _up(max(1, -(-ni_pad // cs)), 16))
+        for kd in sorted({top, min(top, 32), 16}, reverse=True):
+            smem = schur_smem(bm, bn, cs, kd, kc, whole, nb)
+            if _fits(bm, bn) and smem <= SMEM_MAX:
+                return {"bm": bm, "bn": bn, "cs": cs, "nct": nct, "kd": kd,
+                        "whole": whole, "smem": smem}
+    raise ValueError(f"kernel F: no launch fits nb={nb}, kc={kc}")
+
+
+def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int,
+                               RU: torch.Tensor, RV: torch.Tensor,
+                               sperm: torch.Tensor) -> torch.Tensor:
+    """``permute_sym(Abb - (Abi @ RU) @ RV^T, sperm)`` with ``Abi =
+    front[:, ni_pad:, :ni_pad]`` and ``Abb = front[:, ni_pad:, ni_pad:]``;
+    returns a new [B, nb_pad, nb_pad] tensor."""
+    Abi = front[:, ni_pad:, :ni_pad]
     Abb = front[:, ni_pad:, ni_pad:]
-    return permute_sym(Abb - W @ V.transpose(-1, -2), sperm)
+    return permute_sym(Abb - (Abi @ RU) @ RV.transpose(-1, -2), sperm)
 
 
-def lowrank_schur_update(front: torch.Tensor, ni_pad: int, W: torch.Tensor,
-                         V: torch.Tensor, sperm: torch.Tensor) -> torch.Tensor:
+def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
+                         RV: torch.Tensor, sperm: torch.Tensor) -> torch.Tensor:
     """Kernel F wrapper (see the plain version).  ``front`` is [B, m_pad,
-    m_pad], ``W`` and ``V`` are [B, nb_pad, k_cap], ``sperm`` [B, nb_pad]
-    int64."""
-    if kernels.on_cpu(front, W, V, sperm):
-        return lowrank_schur_update_plain(front, ni_pad, W, V, sperm)
+    m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap], ``sperm``
+    [B, nb_pad] int64; the launch is :func:`schur_geometry`'s for these
+    shapes."""
+    if kernels.on_cpu(front, RU, RV, sperm):
+        return lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
     B, m_pad, _ = front.shape
     nb = m_pad - ni_pad
-    kc = W.shape[-1]
+    kc = RU.shape[-1]
     kernels.require(front, "front", torch.float64, (B, m_pad, m_pad))
-    kernels.require(W, "W", torch.float64, (B, nb, kc))
-    kernels.require(V, "V", torch.float64, (B, nb, kc))
+    kernels.require(RU, "RU", torch.float64, (B, ni_pad, kc))
+    kernels.require(RV, "RV", torch.float64, (B, nb, kc))
     kernels.require(sperm, "sperm", torch.int64, (B, nb))
     S = torch.empty((B, nb, nb), dtype=front.dtype, device=front.device)
     if B and nb:
-        kernels.launch("hs_lowrank_schur_update", front.device, front.data_ptr(),
-                       W.data_ptr(), V.data_ptr(), sperm.data_ptr(),
-                       S.data_ptr(), B, m_pad, ni_pad, kc)
+        g = schur_geometry(B, ni_pad, nb, kc,
+                           sms=kernels.sm_count(front.device))
+        kernels.launch("hs_lowrank_schur_update", front.device,
+                       front.data_ptr(), RU.data_ptr(), RV.data_ptr(),
+                       sperm.data_ptr(), S.data_ptr(), B, m_pad, ni_pad, kc,
+                       g["bm"], g["bn"], g["cs"], g["nct"], g["kd"],
+                       int(g["whole"]))
         lowrank_schur_update.launches += 1
     return S
 

@@ -5,7 +5,9 @@ Usage, from the repository root on a machine with one CUDA card:
     python3 -m hsolve_torch.utils.profiling [--sizes 128 512] [--reps 5]
                                             [--compressed | --hss | --mixed
                                              | --spmv | --hss-kernels
-                                             | --sweep-kernels]
+                                             | --sweep-kernels
+                                             | --arnoldi-kernels
+                                             | --schur-kernels]
                                             [--plain-forward]
                                             [--out build/profile]
 
@@ -51,6 +53,22 @@ session per plan and type.  Each shape's numbers, with its bound (bytes
 over 3.35 TB/s against operations over the data sheet's peak), go to
 ``<out>/sweep_kernels.json``, and a summary per plan and kernel is
 printed.
+
+``--arnoldi-kernels`` reads one Arnoldi step on the device at j = 0, 14
+and 29, with the loop going on (cont) and ending (done), in float64 and
+float32, on the states of a 30-step cycle on the n-operator: as three
+launches (kernel L alone, kernel M alone, the division into ``V[j+1]``) and,
+where the tree has ``arnoldi_step``, as its one launch; each queued as
+``--sweep-kernels`` queues, and the host ms per step of the wrappers over
+200 calls (a host clock).  Under the profiler it counts the kernels one
+step launches in each form.  ``--schur-kernels`` reads kernel F at every
+launch shape of the n-plans' compressed factors (low-rank, structured
+kest=32, structured default caps), on the factor's own inputs: where the
+tree's F takes ``W`` (the earlier design), the bmm that forms it and F;
+else F alone (``tools/f_breakdown.py`` reads the launches its geometry
+passes over).  Both run unchanged in a checkout of an earlier tree (copy
+this file in), so the two designs can be read in one call: a JSON report
+each, ``<out>/arnoldi_kernels.json`` and ``<out>/schur_kernels.json``.
 
 ``--plain-forward`` runs each dense level's forward step as its plain torch
 version (the gather, GEMM, index_put and triangular solves that kernel C's
@@ -426,6 +444,218 @@ def _sweep_kernels(args, card, dev) -> int:
     return 0
 
 
+def _host_ms(fn, calls=200):
+    """Host ms per call of ``fn`` (a wrapper that never waits for the
+    device): a host clock over ``calls`` calls, the device drained before
+    and after."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def _arnoldi_kernels(args, card, dev) -> int:
+    """``--arnoldi-kernels``: device ms of one Arnoldi step at j = 0, 14 and
+    29, cont and done, float64 and float32, on states of a 30-step cycle on
+    the n-operator: as three launches (kernel L, kernel M, the division) and,
+    where the tree has it, as one (``arnoldi_step``); the kernels a step
+    launches, counted under the profiler; the host ms per step of the
+    wrappers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hsolve_torch as ht
+    from hsolve_torch.ops import arnoldi as AR
+
+    reps = max(args.reps, 20)
+    floor = _queue_floor(dev, reps)
+    print(f"a queued one-element launch: {floor:.5f} ms on the device",
+          flush=True)
+    fused = hasattr(AR, "arnoldi_step")
+    clone = lambda s: dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+    report = {"card": card, "path": "arnoldi-kernels", "reps": reps,
+              "queue_floor_ms": floor, "fused": fused, "rows": []}
+    steps, m = (0, 14, 29), 30
+    for n in args.sizes:
+        A, b, _ = ht.helmholtz2d(n, k=40.0)
+        for dname in ("float64", "float32"):
+            dt = getattr(torch, dname)
+            op, mv_fn = ht.spmv_format(A, dtype=np.dtype(dname), device=dev)
+            mv = lambda v: mv_fn(op, v)
+            bt = torch.as_tensor(np.asarray(b), device=dev).to(dt)
+            N = bt.shape[0]
+            s = AR.arnoldi_state(m, N, dt, dev)
+            beta = float(torch.linalg.vector_norm(bt))
+            s.V[0] = bt / beta
+            s.g[0] = beta
+            states = {}
+            for j in range(max(steps) + 1):
+                w = mv(s.V[j]).contiguous()
+                if j in steps:
+                    states[j] = (clone(s), w.clone())
+                AR.arnoldi_cgs2_plain(s, w, j)
+                AR.arnoldi_givens_plain(s, j, 0.0, True)
+                torch.div(w, s.st[1], out=s.V[j + 1])
+            if n == args.sizes[0] and dname == "float64":
+                # the kernels one step launches, under the profiler
+                s0, w0 = states[0]
+                ss, sw = clone(s0), w0.clone()
+                forms = [("three", lambda: (
+                    AR.arnoldi_cgs2(ss, sw, 0), AR.arnoldi_givens(ss, 0, 0.0,
+                                                                  True),
+                    torch.div(sw, ss.st[1], out=ss.V[1])))]
+                if fused:
+                    forms.append(("one", lambda: AR.arnoldi_step(
+                        ss, sw, 0, 0.0, True)))
+                for label, fn in forms:
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fn()
+                        torch.cuda.synchronize()
+                    names = {}
+                    for e in prof.events():
+                        if e.device_type.name == "CUDA" and \
+                                e.device_time_total > 0:
+                            names[e.name] = names.get(e.name, 0) + 1
+                    per = sum(names.values()) / 10
+                    report[f"kernels_per_step_{label}"] = per
+                    print(f"step as {label}: {per:g} kernels a step "
+                          f"({sorted(names)})", flush=True)
+            for j in steps:
+                s0, w0 = states[j]
+                for cont in (True, False):
+                    # a floor of -1 keeps a repeated step going (cont),
+                    # however far its residual estimate falls
+                    row = {"n": n, "dtype": dname, "j": j, "cont": cont,
+                           "done": int(not cont)}
+                    ss, sw = clone(s0), w0.clone()
+
+                    def three():
+                        AR.arnoldi_cgs2(ss, sw, j)
+                        AR.arnoldi_givens(ss, j, -1.0, cont)
+                        torch.div(sw, ss.st[1], out=ss.V[j + 1])
+
+                    row["three_ms"] = _queued_ms(three, reps)
+                    row["three_host_ms"] = _host_ms(three)
+                    if fused:
+                        step = lambda: AR.arnoldi_step(ss, sw, j, -1.0, cont)
+                        row["one_ms"] = _queued_ms(step, reps)
+                        row["one_host_ms"] = _host_ms(step)
+                    if int(ss.done[0]) != row["done"]:
+                        raise RuntimeError(f"step j={j} cont={cont}: done flag "
+                                           f"{int(ss.done[0])}")
+                    report["rows"].append(row)
+                    print(f"n={n} {dname} j={j} cont={int(cont)} done="
+                          f"{row['done']}: L + M + division "
+                          f"{row['three_ms']:.5f} ms device, "
+                          f"{row['three_host_ms']:.5f} ms host"
+                          + (f"; one launch {row['one_ms']:.5f} ms device, "
+                             f"{row['one_host_ms']:.5f} ms host"
+                             if fused else ""), flush=True)
+            del s, states
+    path = os.path.join(args.out, "arnoldi_kernels.json")
+    with open(path, "w") as f:
+        json.dump(report, f)
+    print(json.dumps({"card": card, "path": "arnoldi-kernels",
+                      "report": path}), flush=True)
+    return 0
+
+
+def _schur_kernels(args, card, dev) -> int:
+    """``--schur-kernels``: device ms of kernel F at every launch shape of
+    the n-plans' compressed factors (low-rank, structured kest=32,
+    structured default caps), on the inputs the factor gives it: where the
+    tree's F takes ``W`` (the earlier design), the bmm ``W = Abi RU`` and F;
+    where it takes ``RU``, F alone in the launch its wrapper picks."""
+    import importlib
+    import inspect
+
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.ops import schur
+
+    reps = max(args.reps, 20)
+    floor = _queue_floor(dev, reps)
+    print(f"a queued one-element launch: {floor:.5f} ms on the device",
+          flush=True)
+    takes_w = "W" in inspect.signature(schur.lowrank_schur_update).parameters
+    fm = importlib.import_module("hsolve_torch.factor")
+    comp = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
+    configs = (("low-rank", dict(comp, kest=32, hss=False)),
+               ("structured kest=32", dict(comp, kest=32)),
+               ("structured default caps", comp))
+    report = {"card": card, "path": "schur-kernels", "reps": reps,
+              "queue_floor_ms": floor,
+              "design": "bmm + F" if takes_w else "F", "rows": []}
+    for n in args.sizes:
+        A, _, shape = ht.helmholtz2d(n, k=40.0)
+        tree = ht.nested_dissection(shape, leafmax=100)
+        for label, kw in configs:
+            opts = ht.SolverOptions(**kw)
+            plan = ht.plan_factorization(A, tree, opts)
+            calls = {}
+            orig = fm._factor_front_compressed
+
+            def rec(front, sperm, ni_pad, *rest):
+                out = orig(front, sperm, ni_pad, *rest)
+                key = (front.shape[0], front.shape[1], ni_pad,
+                       out[4].shape[-1])
+                if key not in calls:
+                    calls[key] = (front.clone(), ni_pad, out[4], out[5], sperm)
+                return out
+
+            fm._factor_front_compressed = rec
+            try:
+                ht.factor_with_plan(plan, opts, device=dev)
+            finally:
+                fm._factor_front_compressed = orig
+            torch.cuda.synchronize()
+            for (B, m_pad, ni_pad, kc), (front, _, RU, RV, sperm) in sorted(
+                    calls.items(), key=lambda kv: -kv[0][0]):
+                nb = m_pad - ni_pad
+                Abi = front[:, ni_pad:, :ni_pad]
+                if takes_w:
+                    fn = lambda: schur.lowrank_schur_update(
+                        front, ni_pad, (Abi @ RU).contiguous(), RV, sperm)
+                else:
+                    fn = lambda: schur.lowrank_schur_update(front, ni_pad, RU,
+                                                            RV, sperm)
+                nbytes = 8 * B * (2 * nb * nb + nb * ni_pad + ni_pad * kc
+                                  + nb * kc + nb)
+                bms, by = _bound_ms(nbytes, 2 * B * kc * nb * (ni_pad + nb))
+                row = {"plan": label, "n": n, "B": B, "nb": nb,
+                       "ni_pad": ni_pad, "kc": kc, "ms": _queued_ms(fn, reps),
+                       "bound_ms": bms, "bound_by": by}
+                if not takes_w:
+                    row["geometry"] = schur.schur_geometry(B, ni_pad, nb, kc)
+                report["rows"].append(row)
+                print(f"F {label} [{B},{nb},{nb}] ni={ni_pad} k={kc}: "
+                      f"{report['design']} {row['ms']:.5f} ms device, "
+                      f"bound {bms:.5f} {by}", flush=True)
+            del calls
+    path = os.path.join(args.out, "schur_kernels.json")
+    with open(path, "w") as f:
+        json.dump(report, f)
+    print(json.dumps({"card": card, "path": "schur-kernels", "report": path}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
@@ -448,6 +678,11 @@ def main() -> int:
     mode.add_argument("--sweep-kernels", action="store_true",
                       help="device time of kernels E and B and their plain "
                            "versions at every launch shape")
+    mode.add_argument("--arnoldi-kernels", action="store_true",
+                      help="device time of the Arnoldi step: L + M + the "
+                           "division, and the one launch")
+    mode.add_argument("--schur-kernels", action="store_true",
+                      help="device time of kernel F at every launch shape")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
@@ -483,6 +718,10 @@ def main() -> int:
         return _hss_kernels(args, card, dev)
     if args.sweep_kernels:
         return _sweep_kernels(args, card, dev)
+    if args.arnoldi_kernels:
+        return _arnoldi_kernels(args, card, dev)
+    if args.schur_kernels:
+        return _schur_kernels(args, card, dev)
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
     report = {"card": card, "path": path,

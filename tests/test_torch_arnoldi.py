@@ -1,6 +1,7 @@
-"""Kernels L (CGS2) and M (Givens bookkeeping) of the port's Arnoldi step: their
-plain versions against the JAX package's ``_gmres_cycles`` on the CPU, in
-float32 and float64.
+"""Kernels L (CGS2) and M (Givens bookkeeping) of the port's Arnoldi step, and
+the step as the GMRES loop runs it (``arnoldi_step``: L's launch with M's
+step and ``V[j+1]`` as its tail on the card): their plain versions against
+the JAX package's ``_gmres_cycles`` on the CPU, in float32 and float64.
 
 One step is checked against the ops of JAX's ``inner_body``
 (hsolve/krylov.py:226-266) and the cycle end's masked triangular solve
@@ -24,7 +25,8 @@ from hsolve_torch import kernels
 from hsolve_torch.krylov import _gmres_cycles
 from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_cgs2_plain,
                                       arnoldi_givens, arnoldi_givens_plain,
-                                      arnoldi_state, cgs2_blocks,
+                                      arnoldi_state, arnoldi_step,
+                                      arnoldi_step_plain, cgs2_blocks,
                                       cgs2_max_slice, cgs2_slice)
 
 jkrylov = importlib.import_module("hsolve.krylov")
@@ -158,6 +160,56 @@ def test_step_matches_jax_inner_body(dtype, j):
     y = np.asarray(_jax_cycle_end(jH, jg, j + 1))
     assert _rel(s2.y.numpy(), y) < 10 * tol
     assert not s2.y[j + 1:].any()
+
+
+@pytest.mark.parametrize("j", [0, 14, M_RESTART - 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_arnoldi_step_matches_jax_inner_body(dtype, j):
+    """The step as GMRES runs it, at j = 0, 14 and m - 1: V[j+1] (its
+    scaling of w now inside the step), H[:, j], the rotation, g and the
+    residual estimate against JAX's ``inner_body``, within the one-step
+    tolerance (only the dot products' summation order differs)."""
+    A = _operator(400, 9)
+    V, H, cs, sn, g, w = _jax_state(A, dtype, j, seed=10)
+    jV, jH, jcs, jsn, jg, jres = (np.asarray(a) for a in _jax_step(
+        V, H, cs, sn, g, j, w))
+    s = _port_state(V, H, cs, sn, g)
+    arnoldi_step(s, torch.from_numpy(w.copy()), j, 0.0, j + 1 < M_RESTART)
+    tol = TOL[dtype]
+    assert _rel(s.V[j + 1].numpy(), jV[j + 1]) < tol
+    assert _rel(s.V[: j + 1].numpy(), jV[: j + 1]) == 0.0
+    assert _rel(s.H[:, j].numpy(), jH[:, j]) < tol
+    assert abs(float(s.cs[j]) - float(jcs[j])) < tol
+    assert abs(float(s.sn[j]) - float(jsn[j])) < tol
+    assert _rel(s.g[: j + 2].numpy(), jg[: j + 2]) < tol
+    assert abs(float(s.st[0]) - float(jres)) <= tol * float(jg[0])
+    assert int(s.done[0]) == int(j + 1 == M_RESTART)
+
+
+@pytest.mark.parametrize("j", [0, 14, M_RESTART - 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("cont", [True, False])
+def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
+    """On the CPU the step is kernel L's plain version, kernel M's, then
+    ``V[j+1] = w / st[1]``, bit for bit (the card holds its one launch to
+    the same, ``tests/test_torch_cuda.py``); no launch is counted."""
+    A = _operator(200, 12)
+    V, H, cs, sn, g, w = _jax_state(A, dtype, j, seed=13)
+    s1, s2 = _port_state(V, H, cs, sn, g), _port_state(V, H, cs, sn, g)
+    w1, w2 = torch.from_numpy(w.copy()), torch.from_numpy(w.copy())
+    before = kernels.launch_counts()
+    arnoldi_step(s1, w1, j, 1e-3, cont)
+    assert kernels.launch_counts() == before
+    arnoldi_cgs2_plain(s2, w2, j)
+    arnoldi_givens_plain(s2, j, 1e-3, cont)
+    s2.V[j + 1] = w2 / s2.st[1]
+    assert torch.equal(w1, w2)
+    for name in ("V", "H", "cs", "sn", "g", "hc", "st", "done", "y"):
+        assert torch.equal(getattr(s1, name), getattr(s2, name)), name
+    assert int(s1.done[0]) == int(not (cont and float(s1.st[0]) > 1e-3))
+    s3 = _port_state(V, H, cs, sn, g)
+    arnoldi_step_plain(s3, torch.from_numpy(w.copy()), j, 1e-3, cont)
+    assert torch.equal(s3.V, s1.V) and torch.equal(s3.y, s1.y)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -3,7 +3,8 @@ reach (several right-hand sides, sentinel ids, narrow child stacks, ragged
 tiles, cap padding, argmax ties, shared memory above 48 KB, boundary ids
 repeated across fronts, a front spread over a thread block cluster, rows not
 16-byte aligned, a cooperative grid the card cannot hold), kernels A-D in
-float32, the Arnoldi kernels L and M in both types, and the exact,
+float32, the Arnoldi kernels L and M in both types and the Arnoldi step as
+one launch of both, kernel F's geometries, and the exact,
 compressed, structured (HSS) and mixed-precision slices end to end on
 ``cuda``.
 
@@ -30,7 +31,8 @@ from hsolve_torch.ops import hss as H
 from hsolve_torch.ops.lowrank import (cpqr_pivots, cpqr_pivots_plain,
                                       lowrank_truncate, lowrank_truncate_plain)
 from hsolve_torch.ops.schur import (lowrank_schur_update,
-                                    lowrank_schur_update_plain)
+                                    lowrank_schur_update_plain,
+                                    schur_geometry)
 from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
 from hsolve_torch.factor import DenseLevel
 from hsolve_torch.ops import dense as dk
@@ -400,20 +402,36 @@ def test_extend_add_kernel_on_a_general_map(dev, dtype, rows):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("B,ni_pad,nb,kc", [(7, 16, 40, 24), (1, 64, 96, 70)])
-def test_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
-    """Kernel F on ragged tiles (nb not a multiple of 32) and a rank above
-    one 32-wide chunk."""
-    rng = np.random.default_rng(nb)
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [
+    (7, 16, 40, 24), (1, 64, 96, 70), (3, 24, 52, 33), (2, 32, 64, 1),
+    (1, 512, 512, 48), (2, 256, 640, 48), (3, 64, 192, 8), (1, 100, 1500, 48),
+    (2, 40, 130, 200)])
+def test_lowrank_schur_update_kernel(dev, monkeypatch, B, ni_pad, nb, kc):
+    """Kernel F, both products in one launch: whole rows (nb up to 128) and
+    a row band's cluster with the depth split over its ranks (the top
+    levels' 512 and 640, a front wider than 1024 rows), ragged tiles, odd
+    widths (8-byte copies), a rank cap of 1, above one 64-column group of W
+    (200) and above 32; then as on a card of 4 SMs, where the wide shapes
+    take tiles without a cluster."""
+    rng = np.random.default_rng(nb + kc)
     m = ni_pad + nb
     front = torch.as_tensor(rng.standard_normal((B, m, m)), device=dev)
-    W = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
-    V = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
+    RU = torch.as_tensor(rng.standard_normal((B, ni_pad, kc)), device=dev)
+    RV = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
     sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
                             device=dev)
-    got = lowrank_schur_update(front, ni_pad, W, V, sperm)
-    want = lowrank_schur_update_plain(front, ni_pad, W, V, sperm)
+    before = lowrank_schur_update.launches
+    got = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert lowrank_schur_update.launches == before + 1
+    want = lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
     assert _rel(got, want) < 1e-13
+    g = schur_geometry(B, ni_pad, nb, kc, sms=4)
+    assert g["cs"] == 1 or g["whole"]
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 4)
+    got2 = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert _rel(got2, want) < 1e-13
 
 
 @pytest.mark.parametrize("m,n,r,cap", [(40, 64, 40, 32), (24, 20, 12, 16)])
@@ -850,6 +868,80 @@ def test_arnoldi_cgs2_on_ragged_slices(dev, dtype, tol, j):
     assert int(sk.ticket[0]) == 0
     AR.arnoldi_cgs2(sk, wk.clone(), j)          # the next step starts at rest
     assert int(sk.ticket[0]) == 0
+
+
+def _step_outputs(s):
+    return {k: getattr(s, k) for k in ("H", "cs", "sn", "g", "st", "done",
+                                       "y")}
+
+
+@pytest.mark.parametrize("N", [5003, 200003, 1050625])
+@pytest.mark.parametrize("j", [0, 29])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_arnoldi_step_fused_against_plain(dev, dtype, j, N):
+    """The step as one launch (L with M's step and V[j+1] as its tail), at
+    j = 0 and j = m - 1, cont and done, on one CTA's worth of N, on 132 CTAs
+    with a ragged last slice and at the n=1026 size (N = 1,050,625): hc bit
+    for bit kernel L's alone (the same passes), within 1e-5 / 1e-13 of L's
+    plain version; H, cs, sn, g, st, done, y and V[j+1] bitwise the plain M
+    and division on L's hc and w; w left as given; one launch counted for
+    the step and one each for L and M; the ticket back at rest after every
+    launch."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    m = 30
+    rng = np.random.default_rng(80 + j)
+    s = AR.arnoldi_state(m, N, dtype, dev)
+    V = rng.standard_normal((j + 1, N))
+    s.V[: j + 1] = torch.as_tensor(V / np.linalg.norm(V, axis=1)[:, None],
+                                   dtype=dtype, device=dev)
+    s.g[0] = 3.0
+    s.cs[:j] = torch.as_tensor(rng.uniform(0.2, 1.0, j), dtype=dtype)
+    s.sn[:j] = torch.as_tensor(rng.uniform(-1.0, 1.0, j), dtype=dtype)
+    s.g[: j + 1] = torch.as_tensor(rng.standard_normal(j + 1), dtype=dtype)
+    s.H[:j, :j] = torch.triu(torch.as_tensor(
+        rng.standard_normal((j, j)) + 4 * np.eye(j), dtype=dtype))
+    w = torch.as_tensor(rng.standard_normal(N), dtype=dtype, device=dev)
+    sl, wl = _clone_state(s), w.clone()    # kernel L alone
+    AR.arnoldi_cgs2(sl, wl, j)
+    sp_, wp = _clone_state(s), w.clone()
+    AR.arnoldi_cgs2_plain(sp_, wp, j)
+    torch.cuda.synchronize()
+    assert _rel(sl.hc[: j + 2], sp_.hc[: j + 2]) < tol
+    assert _rel(wl, wp) < tol
+    for cont, floor in ((True, 0.0), (True, 1e30), (False, 0.0)):
+        sk, wk = _clone_state(s), w.clone()
+        before = (AR.arnoldi_step.launches, AR.arnoldi_cgs2.launches,
+                  AR.arnoldi_givens.launches)
+        AR.arnoldi_step(sk, wk, j, floor, cont)
+        torch.cuda.synchronize()
+        assert (AR.arnoldi_step.launches, AR.arnoldi_cgs2.launches,
+                AR.arnoldi_givens.launches) == tuple(b + 1 for b in before)
+        assert int(sk.ticket[0]) == 0
+        assert torch.equal(sk.hc, sl.hc)
+        assert torch.equal(wk, w)
+        mp = _clone_state(s)               # L's hc and w
+        mp.hc.copy_(sl.hc)
+        AR.arnoldi_givens_plain(mp, j, floor, cont)
+        torch.div(wl, mp.st[1], out=mp.V[j + 1])
+        for name, a in _step_outputs(sk).items():
+            assert torch.equal(a, getattr(mp, name)), name
+        assert torch.equal(sk.V[j + 1], mp.V[j + 1])
+        assert int(sk.done[0]) == int(not (cont and floor == 0.0))
+
+
+def test_gmres_step_is_one_launch(dev):
+    """A GMRES run on the card: one fused launch per Arnoldi step, which
+    counts one launch of L and one of M."""
+    A, b, shape = ht.helmholtz2d(64, k=10.0)
+    op, mv = ht.spmv_format(A, device=dev)
+    kernels.reset_launch_counts()
+    x, info = ht.gmres_compiled(mv, None, torch.as_tensor(b, device=dev),
+                                reltol=1e-6, restart=20, maxiter=40,
+                                mv_data=op)
+    counts = kernels.launch_counts()
+    assert info["iters"] > 0
+    assert counts["arnoldi_step"] == counts["arnoldi_cgs2"] == \
+        counts["arnoldi_givens"] == info["iters"]
 
 
 def test_arnoldi_cgs2_refuses_a_grid_the_card_cannot_hold(dev, monkeypatch):

@@ -1,6 +1,8 @@
 """The port's low-rank modules against the JAX package: the randomized
 factorization (with the JAX sketch handed in) and the plain versions of
-kernels E, F and G against the JAX expressions they replace.
+kernels E, F and G against the JAX expressions they replace (F's on small
+fronts of several shapes; its geometry at the n=512 plans' shapes is in
+``tests/test_torch_schur_geometry.py``).
 
 Inputs are made with numpy from a seed and handed to both packages; low-rank
 factors are compared as products (SVD signs make the factors themselves
@@ -15,7 +17,8 @@ import torch
 from hsolve.ops import dense as jdense
 from hsolve.ops import lowrank as jlowrank
 from hsolve_torch.ops import lowrank as tlowrank
-from hsolve_torch.ops.schur import lowrank_schur_update
+from hsolve_torch.ops.schur import (lowrank_schur_update,
+                                    lowrank_schur_update_plain)
 from hsolve_torch.ops.sweep import lowrank_sweep_update
 
 torch.set_num_threads(1)
@@ -90,21 +93,58 @@ def test_lowrank_truncate_plain_matches_the_jax_epilogue():
     assert tlowrank.lowrank_truncate.launches == 0     # CPU: the plain version
 
 
-def test_lowrank_schur_update_plain_matches_jax():
-    """Kernel F's plain version against ``permute_sym(Abb - W @ RV^T, sperm)``
-    with ``Abb`` taken from a front buffer."""
-    rng = np.random.default_rng(11)
-    B, ni_pad, nb, k = 3, 16, 24, 8
+def _jax_compressed_schur(front, ni_pad, RU, RV, sperm):
+    """``S`` of ``hsolve/factor.py:_factor_front_compressed_impl`` (:378-379)
+    on the given front and factors: ``permute_sym(Abb - (Abi @ RU) @ RV^T,
+    sperm)``."""
+    f = jnp.asarray(front)
+    Abi, Abb = f[:, ni_pad:, :ni_pad], f[:, ni_pad:, ni_pad:]
+    S = Abb - (Abi @ jnp.asarray(RU)) @ jnp.swapaxes(jnp.asarray(RV), -1, -2)
+    return np.asarray(jdense.permute_sym(S, jnp.asarray(sperm)))
+
+
+def _schur_inputs(B, ni_pad, nb, kc, seed, identity=False):
+    rng = np.random.default_rng(seed)
     front = rng.standard_normal((B, ni_pad + nb, ni_pad + nb))
-    W = rng.standard_normal((B, nb, k))
-    V = rng.standard_normal((B, nb, k))
-    sperm = np.stack([rng.permutation(nb) for _ in range(B)])
-    Abb = jnp.asarray(front)[:, ni_pad:, ni_pad:]
-    ref = jdense.permute_sym(Abb - jnp.asarray(W) @ jnp.swapaxes(
-        jnp.asarray(V), -1, -2), jnp.asarray(sperm))
-    got = lowrank_schur_update(_t(front), ni_pad, _t(W), _t(V), _t(sperm))
+    RU = rng.standard_normal((B, ni_pad, kc))
+    RV = rng.standard_normal((B, nb, kc))
+    sperm = np.stack([np.arange(nb) if identity else rng.permutation(nb)
+                      for _ in range(B)])
+    return front, RU, RV, sperm
+
+
+def test_lowrank_schur_update_plain_matches_jax():
+    """Kernel F's plain version against ``permute_sym(Abb - (Abi @ RU) @
+    RV^T, sperm)`` with ``Abi`` and ``Abb`` taken from a front buffer."""
+    B, ni_pad, nb, k = 3, 16, 24, 8
+    front, RU, RV, sperm = _schur_inputs(B, ni_pad, nb, k, 11)
+    ref = _jax_compressed_schur(front, ni_pad, RU, RV, sperm)
+    got = lowrank_schur_update(_t(front), ni_pad, _t(RU), _t(RV), _t(sperm))
     assert _rel(got.numpy(), ref) < 1e-13
     assert lowrank_schur_update.launches == 0
+
+
+@pytest.mark.parametrize("kc", [1, 8, 33])
+@pytest.mark.parametrize("B,ni_pad,nb", [(1, 24, 40), (5, 16, 52),
+                                         (2, 40, 77)])
+def test_lowrank_schur_update_plain_on_small_fronts(B, ni_pad, nb, kc):
+    """The plain version of kernel F against JAX's compressed Schur
+    complement: one front and several, nb not a multiple of 8 (the kernel's
+    tile) or of 32, rank caps of 1, 8 and 33, non-identity sperm; relative
+    1e-13 (both sum each product in their own order)."""
+    front, RU, RV, sperm = _schur_inputs(B, ni_pad, nb, kc, 100 + nb + kc)
+    ref = _jax_compressed_schur(front, ni_pad, RU, RV, sperm)
+    got = lowrank_schur_update_plain(_t(front), ni_pad, _t(RU), _t(RV),
+                                     _t(sperm))
+    assert got.shape == (B, nb, nb)
+    assert _rel(got.numpy(), ref) < 1e-13
+    # the identity permutation leaves S in the front's order
+    front, RU, RV, ident = _schur_inputs(B, ni_pad, nb, kc, 7, identity=True)
+    got = lowrank_schur_update_plain(_t(front), ni_pad, _t(RU), _t(RV),
+                                     _t(ident))
+    want = front[:, ni_pad:, ni_pad:] - (front[:, ni_pad:, :ni_pad] @ RU) \
+        @ np.swapaxes(RV, -1, -2)
+    assert _rel(got.numpy(), want) < 1e-13
 
 
 @pytest.mark.parametrize("k", [1, 3])
