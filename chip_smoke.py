@@ -12,9 +12,10 @@ Phases (any failure exits non-zero before the result line is printed):
 2. build: the thirteen CUDA kernels (A-M) are compiled from ``hsolve_torch/csrc/``
    for ``sm_90a``, one nvcc process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
-   shapes and is held against its plain torch version on the same inputs
-   (A, B and G bitwise, H with equal pivots and ranks, C's backward step, D,
-   F, I, J and K to a relative error of 1e-13, since only the summation
+   shapes, then at the 3D plans' (below), and is held against its plain
+   torch version on the same inputs (A, B bitwise, G's rank and V bitwise,
+   H with equal pivots and ranks, C's backward step, D, F, G's U, I, J and
+   K to a relative error of 1e-13, since only the summation
    order differs (float32: 1e-5; C accumulates in float64 in both types);
    C's forward step, whose substitution rounds in another order than
    cuBLAS's, to 1e-12 of max |x'| times the level's pivot-growth proxy,
@@ -42,8 +43,9 @@ Phases (any failure exits non-zero before the result line is printed):
    kernel, plain and bound ms, the shapes slower than plain, sums); F at
    every launch shape of the three compressed factors (low-rank, both
    structured), on inputs captured there, a log line per shape and a
-   summary line per plan; G on both sides of the first compressed batch of
-   the low-rank plan; H and K at every distinct
+   summary line per plan; G at every launch of the low-rank factor, read on
+   the device alone (queued behind a sleep kernel), a summary line per plan
+   with the sums against the bound; H and K at every distinct
    launch shape of the structured (HSS) plans' factor and of one
    preconditioner application, kest=32 and the default rank caps, on inputs
    captured there (one log line per shape, then the count of shapes where
@@ -66,7 +68,13 @@ Phases (any failure exits non-zero before the result line is printed):
    main path they run inside the step's launch, whose launches they count);
    the bounds of the latency-bound kernels (M, K, H, the step) add their
    chain of dependent operations (``DEP_CYCLES`` at ``CLOCK_HZ``) to a
-   queued one-element launch read in this run;
+   queued one-element launch read in this run.  Then the same checks at
+   the 3D plans' shapes (helmholtz3d, k=10, leafmax 100): A-D on the exact
+   64^3 plan in both types (fronts 7944 wide, C's forward step at the top
+   in four windows, its backward step at [2, 3912, 3976], D at N =
+   250,047), B and E-G on the 48^3 low-rank plan at the default caps
+   (nb_pad up to 2216, caps up to 560), H-K, I and J on the 40^3
+   structured plan at the default caps, the Arnoldi step at N = 250,047;
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
    (leafmax=100) -> plan_factorization -> factor_with_plan (cuda) ->
    gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
@@ -78,7 +86,18 @@ Phases (any failure exits non-zero before the result line is printed):
    exact factor, float32 Arnoldi cycles over a float32 DIA operator with
    m_eps=1e-6 inside a float64 solve, escalation on), then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
-   windows, in one iteration.  Each run must
+   windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
+   k=10), float64, one iteration), exact-3d-f32-mixed (the same system in
+   the bench's device configuration), lowrank-3d (helmholtz3d(48, k=10),
+   swlevel=-2, swsize=16, atol=rtol=1e-3, hss=False, the default caps) and
+   hss-3d (helmholtz3d(40, k=10), the same with hss=True: at 48^3 the
+   structured factor, every HSS record kept at its level's cap, outgrows
+   the card's 80 GB), each line with the card's name and power limit;
+   then two runs of the port's bench in a subprocess (``python -m
+   hsolve_torch.bench --n 128 --reps 5`` and ``--problem helmholtz3d --n 32
+   --k 10 --inner f64 --reps 3``), each line held to relres <= 1e-9, no
+   speed-of-light violation, the card's line present and, in 2D, the
+   mixed count within ``MAX_ITERS``.  Each run must
    converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9 on
    the host, and launch every kernel of its path (the launch counters are
    reset just before the run and read just after: A-D, L and M on the exact
@@ -87,7 +106,8 @@ Phases (any failure exits non-zero before the result line is printed):
    every launch of L and M one Arnoldi step's single launch).  A compressed,
    structured or mixed run must also stay within twice the JAX package's CPU
    iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
-   cap;
+   cap (a 3D one no cap below its block's full rank, min(ni_pad, nb_pad):
+   a rank at a full-rank cap truncates nothing and is logged as such);
 5. output: a JSON line with one entry per kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -125,15 +145,42 @@ HSS_DEFAULT = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
 # the smallest helmholtz2d size above 1024 whose exact top front passes
 # 2048 interior rows (2056: kernel C's forward step in windows)
 WIDE_N = 1026
+# the 3D problems (helmholtz3d, k=10, leafmax 100): exact at 64^3, where
+# the FLOP model puts exact and compressed level (CROSSOVER.md:56-66), and
+# low-rank compressed at 48^3 at the default caps (56-560)
+K3D = 10.0
+EXACT3D = "64^3"
+LOWRANK3D = "48^3"
+# the structured factor at the default caps keeps every HSS generator,
+# translation and Woodbury core at its level's cap (up to 576 at 48^3)
+# whatever its node's size: at 48^3 the card's 80 GB run out at the 31
+# fronts of batch 7 (44^3: at batch 5); 40^3 keeps 31 GiB at a 49 GiB peak
+HSS3D = "40^3"
+LOWRANK_DEFAULT = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, hss=False)
 OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
            "hss-default": HSS_DEFAULT, "exact-f32-mixed": dict(swlevel=0),
-           "exact-wide": dict(swlevel=0)}
+           "exact-wide": dict(swlevel=0), "exact-3d": dict(swlevel=0),
+           "exact-3d-f32-mixed": dict(swlevel=0),
+           "lowrank-3d": LOWRANK_DEFAULT, "hss-3d": HSS_DEFAULT}
+MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed")
+COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d")
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
-# mixed and hss-default ones from tools/jax_reference_iters.py (mixed: 5 at
-# n=128, 80 at n=512; hss-default: 5 at n=128, 40 at n=512)
+# mixed, hss-default and 3D ones from tools/jax_reference_iters.py (mixed: 5
+# at n=128, 80 at n=512, 5 at 64^3; hss-default: 5 at n=128, 40 at n=512;
+# low-rank at the default caps: 4 at 48^3); hss-3d within maxiter (the JAX
+# package's 40^3 structured run was not measured)
 MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
              "hss-default": {128: 10, 512: 80},
-             "exact-f32-mixed": {128: 10, 512: 160}, "exact-wide": {WIDE_N: 1}}
+             "exact-f32-mixed": {128: 10, 512: 160}, "exact-wide": {WIDE_N: 1},
+             "exact-3d": {EXACT3D: 1},
+             "exact-3d-f32-mixed": {EXACT3D: 10},
+             "lowrank-3d": {LOWRANK3D: 8}, "hss-3d": {HSS3D: 60}}
+# the port's bench on the card: the JAX bench's default (helmholtz2d h=128,
+# the mixed device configuration) and a small 3D exact run in float64
+# cycles (at 64^3 scipy's SuperLU baseline alone takes minutes of host time)
+BENCH_RUNS = (("--n", "128", "--reps", "5"),
+              ("--problem", "helmholtz3d", "--n", "32", "--k", "10",
+               "--inner", "f64", "--reps", "3"))
 HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
 # the data sheet's peaks, FLOP/s: (without, with) the tensor cores; float32
 # without TF32, which the port keeps off
@@ -299,21 +346,33 @@ def card_line() -> str:
 
 
 class Problems:
-    """helmholtz2d(n, k=40) per n, generated once per run."""
+    """The problems per size key, generated once per run: an int n is
+    helmholtz2d(n, k=40) on an n x n mesh, ``"<n>^3"`` helmholtz3d(n, k=10)
+    (7-point, the unit cube)."""
 
     def __init__(self):
         self._cache = {}
 
-    def get(self, n: int):
+    def get(self, n):
         import hsolve_torch as ht
 
         if n not in self._cache:
             t0 = time.perf_counter()
-            self._cache[n] = ht.helmholtz2d(n, k=40.0)
-            log(f"  helmholtz2d({n}): N={self._cache[n][0].shape[0]} "
+            self._cache[n] = ht.helmholtz3d(int(n[:-2]), k=K3D) \
+                if is_3d(n) else ht.helmholtz2d(n, k=40.0)
+            log(f"  {problem_name(n)}: N={self._cache[n][0].shape[0]} "
                 f"nnz={self._cache[n][0].nnz} generated in "
                 f"{time.perf_counter() - t0:.2f} s (host)")
         return self._cache[n]
+
+
+def is_3d(n) -> bool:
+    return isinstance(n, str) and n.endswith("^3")
+
+
+def problem_name(n) -> str:
+    return f"helmholtz3d({n[:-2]}, k={K3D:g})" if is_3d(n) else \
+        f"helmholtz2d({n})"
 
 
 class Results(dict):
@@ -835,97 +894,267 @@ def check_schur_captured(label, fcalls, results: Results) -> None:
         f"{sum(bound_):.4f}")
 
 
-def check_compressed_kernels(problems: Problems, n: int, dev,
-                             results: Results) -> None:
-    """Phase 3, kernels E-G against their plain versions at the compressed
-    n-plan's shapes: the fronts, sketches and factors of a real compressed
-    factorization (F at every launch shape, on its captured inputs)."""
+def truncate_recorder(fm, gcalls: list):
+    """A stand-in for ``factor.py``'s ``rand_lowrank`` that records the inputs
+    of kernel G at every launch (``Q``, ``Uw``, ``sv``, ``Vh`` and the
+    truncation) into ``gcalls`` and calls it."""
+    import torch
+
+    orig = fm.rand_lowrank
+
+    def rec(A, omega, atol, rtol, cap):
+        Q, _ = torch.linalg.qr(A @ omega)
+        Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ A,
+                                      full_matrices=False)
+        gcalls.append(tuple(t.contiguous() for t in (Q, Uw, sv, Vh))
+                      + (atol, rtol, cap))
+        return orig(A, omega, atol, rtol, cap)
+
+    return orig, rec
+
+
+def check_truncate_captured(label, gcalls, results: Results) -> None:
+    """G at every captured launch of one plan against its plain version
+    (the rank and V bit for bit, U within 1e-13 of its largest entry: the
+    product ``Q @ Uw`` sums in another order), read on the device alone
+    (queued behind a sleep kernel), a log line per launch and a summary
+    line: the launches, the time summed against the plain version's and the
+    bound (Q, Uw, sv and Vh read, U and V written, once; the product's
+    2 m s rank operations a front on the tensor cores)."""
+    import torch
+
+    from hsolve_torch.ops.lowrank import (lowrank_truncate,
+                                          lowrank_truncate_plain)
+
+    rows_ = []
+    for i, args in enumerate(gcalls):
+        Q, Uw, sv, Vh, atol, rtol, cap = args
+        ker = lowrank_truncate(*args)
+        ref = lowrank_truncate_plain(*args)
+        if not (torch.equal(ker[2], ref[2]) and torch.equal(ker[1], ref[1])):
+            fail(f"lowrank_truncate: rank or V differ from its plain version "
+                 f"at {label} launch {i}")
+        B, m, s_ = Q.shape
+        work = bound(nbytes(Q, Uw, sv, Vh, ker[0], ker[1]),
+                     2.0 * m * s_ * float(ker[2].double().sum()),
+                     products=True)
+        ms = queued_ms(lambda: lowrank_truncate(*args))
+        plain_ms = device_ms(lambda: lowrank_truncate_plain(*args))
+        results.record("lowrank_truncate",
+                       f"{label} launch {i} Q=[{B},{m},{s_}] n={Vh.shape[-1]} "
+                       f"cap={cap} rank<={int(ker[2].max())} (device only)",
+                       errors(ker[0], ref[0]), RTOL_SUM, ms, plain_ms, work)
+        rows_.append((ms, plain_ms, work["bound_ms"]))
+    ms_, plain_, bound_ = zip(*rows_)
+    log(f"  {label}: G at {len(rows_)} launches, kernel {min(ms_):.4f}-"
+        f"{max(ms_):.4f} ms (device only); slower than its plain version at "
+        f"{sum(a > b for a, b in zip(ms_, plain_))}; sum {sum(ms_):.4f} ms "
+        f"against plain {sum(plain_):.4f} and bound {sum(bound_):.4f} "
+        f"({sum(bound_) / sum(ms_):.2f} of it)")
+
+
+def check_compressed_kernels(problems: Problems, n, dev, results: Results,
+                             kw=COMPRESSED, label="low-rank") -> None:
+    """Phase 3, kernels B and E-G against their plain versions at the shapes
+    of the low-rank factor of the n-problem with options ``kw``: the
+    fronts, sketches and factors of a real compressed factorization (B at
+    every launch, E at every launch shape, F at every launch shape and G at
+    every launch, on their captured inputs)."""
+    import importlib
+
     import torch
 
     import hsolve_torch as ht
-    from hsolve_torch.factor import _factor_levels, torch_sketch
+    from hsolve_torch.factor import _factor_levels
     from hsolve_torch.interop import plan_to_torch
-    from hsolve_torch.ops.assembly import extend_add_plain, front_assemble_plain
-    from hsolve_torch.ops.lowrank import (lowrank_truncate,
-                                          lowrank_truncate_plain, sketch_width)
-    from hsolve_torch.ops.schur import (lowrank_schur_update,
-                                        lowrank_schur_update_plain)
-
-    import importlib
 
     A, _, shape = problems.get(n)
-    opts = ht.SolverOptions(**COMPRESSED)
+    opts = ht.SolverOptions(**kw)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts)
     tp = plan_to_torch(plan, dev)
     f64 = torch.float64
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
-    fcalls = {}
+    fcalls, gcalls = {}, []
     orig, rec = schur_recorder(fm, fcalls, {"tag": "factor"})
-    fm.lowrank_schur_update = rec
+    orig_g, rec_g = truncate_recorder(fm, gcalls)
+    fm.lowrank_schur_update, fm.rand_lowrank = rec, rec_g
     try:
         levels, _, stacks = _factor_levels(plan, tp, opts, f64)
     finally:
-        fm.lowrank_schur_update = orig
+        fm.lowrank_schur_update, fm.rand_lowrank = orig, orig_g
     torch.cuda.synchronize()
-    comp = [i for i, bp in enumerate(plan.batches) if bp.compress]
-    first = comp[0]
 
     # E: both forms at every launch shape, the first compressed level first
-    check_sweep_levels("low-rank", levels, plan.N, results)
-
+    check_sweep_levels(label, levels, plan.N, results)
     # B at every launch of the compressed factor
-    check_extend_add_launches("low-rank", plan, tp, stacks, tp.adata.to(f64),
+    check_extend_add_launches(label, plan, tp, stacks, tp.adata.to(f64),
                               results)
-
-    def front_of(bidx):
-        bp, tb = plan.batches[bidx], tp.batches[bidx]
-        front = front_assemble_plain(bp.B, bp.m_pad, tb.pos, tb.src,
-                                     tp.adata.to(f64))
-        for groups, imap in ((tb.groups_l, tb.map_l), (tb.groups_r, tb.map_r)):
-            for src, sr, dr in groups:
-                extend_add_plain(front, stacks[src], sr, dr, imap)
-        return bp, tb, front
-
     # F: the Schur update at every launch shape of the factor
-    check_schur_captured("low-rank", fcalls, results)
-    record = results.record
-
-    # G: the truncation of both sides of the first compressed level, with the
-    # factorization's own sketches
-    bp, tb, front = front_of(first)
-    shapes = [(m, sketch_width(bp.rank_cap, m)) for m in (bp.ni_pad, bp.nb_pad)]
-    om_bi, om_ib = torch_sketch(opts.seed, dev, f64)(first, *shapes)
-    for side, blk, om in (("Abi", front[:, bp.ni_pad:, :bp.ni_pad], om_bi),
-                          ("Aib", front[:, :bp.ni_pad, bp.ni_pad:], om_ib)):
-        Q, _ = torch.linalg.qr(blk @ om)
-        Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ blk,
-                                      full_matrices=False)
-        args = ((Q @ Uw).contiguous(), sv.contiguous(), Vh.contiguous(),
-                opts.c_tol * opts.atol, opts.c_tol * opts.rtol, bp.rank_cap)
-        ker = lowrank_truncate(*args)
-        ref = lowrank_truncate_plain(*args)
-        if not all(torch.equal(a, b) for a, b in zip(ker, ref)):
-            fail(f"lowrank_truncate is not bitwise equal at batch {first} {side}")
-        record("lowrank_truncate",
-               f"batch {first} {side} QU={list(args[0].shape)} cap={bp.rank_cap}",
-               errors(ker[0], ref[0]), 0.0,
-               device_ms(lambda: lowrank_truncate(*args)),
-               device_ms(lambda: lowrank_truncate_plain(*args)),
-               bound(nbytes(*args[:3], *ker), args[0].numel() + args[2].numel()))
+    check_schur_captured(label, fcalls, results)
+    del levels, stacks, fcalls
+    # G: the product and truncation at every launch, on the factor's own
+    # blocks and sketches
+    check_truncate_captured(label, gcalls, results)
     torch.cuda.synchronize()
 
 
-def _hss_captures(plan, tp, opts, dev, b):
+def check_cpqr_shape(desc, Am, atol, rtol, k, results: Results):
+    """H at one launch shape: equal pivots and ranks; returns (ms, plain)."""
+    from hsolve_torch.ops import lowrank as L
+
+    m, nn = Am.shape[-2:]
+    ker = L.cpqr_pivots(Am, atol, rtol, k)
+    ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
+    ties = cpqr_ties(Am, ker, ref, f"{desc} {list(Am.shape)}")
+    # the steps this data needs: a pivot per rank, and the step that finds
+    # the rank, per matrix; each projects and downdates every column
+    need = (ker[1].double() + 1).clamp(max=k)
+    steps = float(need.sum())
+    ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k))
+    plain_ms = device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k),
+                         max_reps=20)
+    # latency: each step's coefficients are dots of m terms in order (kept
+    # for the plain version's pivots), one step after another
+    work = bound(nbytes(Am, *ker), 4 * m * nn * steps,
+                 chain=float(need.max()) * m)
+    cs, resident = L.cpqr_cluster(m, nn)
+    results.record("cpqr_pivots", f"{desc} A={list(Am.shape)} k={k} cluster "
+                   f"{cs}" + ("" if resident else " (columns in global memory)")
+                   + (f" ({ties} matrices part at a rounding tie)" if ties
+                      else ""), (0.0, 0.0), 0.0, ms, plain_ms, work)
+    return ms, plain_ms
+
+
+def cpqr_ties(Am, ker, ref, desc) -> int:
+    """H's pivots against its plain version's: equal, or parting at a
+    rounding tie.  The two sum the column norms and coefficients in other
+    orders (and the plain version's own order depends on the batch's
+    shape), so columns whose norms are equal in exact arithmetic (the 3D
+    stencil's symmetries) may go either way, and the two runs go on from
+    there.  Where a matrix's pivots differ, the ranks must be equal, and
+    replaying the kernel's pivots in float64 (forced pivots, the plain
+    version's steps), each must be a largest downdated norm^2 of its step
+    within the downdating's rounding (2 m (j + 1) eps times the column's
+    norm^2 before step 0: each step subtracts a coefficient summed over m
+    products), the plain version's first differing pivot too; returns the
+    number of such matrices."""
+    import torch
+
+    piv_k, rank_k = ker
+    piv_p, rank_p = ref
+    if not rank_k.equal(rank_p):
+        fail(f"cpqr_pivots finds other ranks than its plain version at {desc}")
+    bad = (piv_k != piv_p).any(-1)
+    if not bad.any():
+        return 0
+    idx = bad.nonzero().flatten()
+    X = Am[idx].double()
+    pk, pp = piv_k[idx].long(), piv_p[idx].long()
+    first = (pk != pp).int().argmax(-1)
+    rows = torch.arange(len(idx), device=X.device)
+    m = X.shape[-2]
+    eps = torch.finfo(torch.float64).eps
+    n2 = (X * X).sum(-2)
+    n20 = n2.clone()
+    for j in range(pk.shape[-1]):
+        p = pk[:, j]
+        live = p >= 0
+        top = n2.max(-1).values
+        for pj, on in ((p, live), (pp[:, j], (first == j) & live)):
+            c = pj.clamp(min=0)
+            off = top - n2[rows, c] > 2 * m * (j + 1) * eps * n20[rows, c]
+            if bool((off & on).any()):
+                fail(f"cpqr_pivots parts from its plain version's pivots "
+                     f"other than at a rounding tie at {desc} (step {j})")
+        a = X[rows, :, p.clamp(min=0)]
+        nrm = (a * a).sum(-1).clamp(min=1e-300).sqrt()
+        q = torch.where(live[:, None], a / nrm[:, None], 0.0)
+        coef = (q[:, :, None] * X).sum(-2)
+        X -= q[:, :, None] * coef[:, None, :]
+        n2 = torch.clamp(n2 - coef * coef, min=0.0)
+        n2[rows[live], p[live]] = -float("inf")
+    return len(idx)
+
+
+def check_correct_shape(desc, key, Y0, args, results: Results):
+    """K at one launch shape (``Y0`` its input, which it overwrites);
+    returns (ms, plain)."""
+    from hsolve_torch.ops import hss as H
+
+    nodes, r, blk, k, adj = key
+    ker = H.hss_level_correct(Y0.clone(), *args)
+    ref = H.hss_level_correct_plain(Y0.clone(), *args)
+    scratch = Y0.clone()
+    ms = device_ms(lambda: H.hss_level_correct(scratch, *args))
+    plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch, *args))
+    xi, Bl, Br, lu, piv, Phi, _ = args
+    # latency: the LU's two substitutions, 2 ceil(2r / 32) diagonal blocks of
+    # 32 rows, each row a product and a sum on the last
+    work = bound(nbytes(Y0, Y0, xi, Bl, Br, lu, piv, Phi),
+                 2 * k * (Bl.numel() + Br.numel() + lu.numel() + Phi.numel()),
+                 products=True, chain=2 * -(-2 * r // 32) * 32 * 2)
+    geo = ("one CTA per node" if k == 1 else
+           "nc={} cs={} groups={} stages={}".format(
+               *H.level_correct_launch(r, k, nodes, Y0.device)))
+    results.record("hss_level_correct", f"{desc} {'adj' if adj else 'fwd'} "
+                   f"nodes={nodes} 2r={2 * r} blk={blk} k={k} {geo}",
+                   errors(ker, ref), RTOL_SUM, ms, plain_ms, work)
+    return ms, plain_ms
+
+
+def check_matvec_shape(desc, key, h, X, adj, results: Results):
+    """J at one launch shape; returns (ms, plain)."""
+    from hsolve_torch.ops import hss as H
+
+    Bm, nl, ls, r, depth, k, _ = key
+    ker = H.hss_matvec(h, X, adj)
+    ref = H.hss_matvec_plain(h, X, adj)
+    ms = device_ms(lambda: H.hss_matvec(h, X, adj))
+    plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj))
+    cs, kc, groups, smem, th, rb = H.hss_matvec_geometry(Bm, nl, ls, r, depth,
+                                                         k)
+    work = bound(nbytes(*h.arrays(), X, ker),
+                 2 * k * sum(a.numel() for a in h.arrays()), products=True)
+    results.record("hss_matvec", f"{desc} {'adj' if adj else 'fwd'} B={Bm} "
+                   f"nleaves={nl} ls={ls} r={r} k={k} cs={cs} kc={kc} "
+                   f"groups={groups} threads={th} rb={rb}"
+                   + ("" if smem else " (state in L2)"), errors(ker, ref),
+                   RTOL_SUM, ms, plain_ms, work)
+    return ms, plain_ms
+
+
+def check_entries_shape(desc, key, ef, rr, cc, results: Results):
+    """I at one launch shape (NaN where its plain version has NaN: indices
+    out of range); returns (ms, plain)."""
+    from hsolve_torch.ops import hss as H
+
+    ker = H.hss_entries_prepared(ef, rr, cc)
+    ref = H.hss_entries_prepared_plain(ef, rr, cc)
+    nan = ref.isnan()
+    if not ker.isnan().equal(nan):
+        fail(f"hss_entries_prepared puts NaN elsewhere than its plain version "
+             f"at {desc} {key}")
+    ms = device_ms(lambda: H.hss_entries_prepared(ef, rr, cc))
+    plain_ms = device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc))
+    results.record("hss_entries_prepared",
+                   f"{desc} out={list(ker.shape)} r={ef.T.shape[-1]} "
+                   f"depth={ef.T.shape[1]} nan={int(nan.sum())}",
+                   errors(ker[~nan], ref[~nan]) if (~nan).any() else (0.0, 0.0),
+                   RTOL_SUM, ms, plain_ms, entries_bound(ef, rr, cc, ker))
+    return ms, plain_ms
+
+
+def _hss_checked(plan, tp, opts, dev, b, label, results: Results):
     """Factor ``plan`` (structured) and apply the factor once to ``b``,
-    recording the first inputs of every distinct launch shape of kernels H,
-    K, J and I (H: ``(B, m, n, k)``; K: ``(nodes, r, blk, k, transpose)``;
-    J: ``(B, nleaves, ls, r, depth, k, adjoint)``; I: ``(B, M, p, q, n_pad,
-    ls, r, depth)``), each tagged with the batch that first gave it; returns
-    ``(levels, cpqr calls, level-correction calls, matvec calls, entries
-    calls, Schur-update calls)``; the last keyed ``(B, m_pad, ni_pad,
-    kc)`` for kernel F on the plan's compressed batches that are not
-    structured."""
+    holding kernels H, K, J and I to their plain versions at the first
+    launch of every distinct shape, right there (H: ``(B, m, n, k)``; K:
+    ``(nodes, r, blk, k, transpose)``; J: ``(B, nleaves, ls, r, depth, k,
+    adjoint)``; I: ``(B, M, p, q, n_pad, ls, r, depth)``; each tagged with
+    the batch that first gave it), so that no input outlives its launch;
+    returns ``(levels, {kernel: [(key, ms, plain_ms)]}, Schur-update
+    calls)``, the last keyed ``(B, m_pad, ni_pad, kc)`` for kernel F on the
+    plan's compressed batches that are not structured."""
     import importlib
 
     import torch
@@ -937,47 +1166,59 @@ def _hss_captures(plan, tp, opts, dev, b):
 
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
     where = {"tag": "solve"}
-    hcalls, kcalls, jcalls, icalls, fcalls = {}, {}, {}, {}, {}
+    rows = {"H": [], "K": [], "J": [], "I": []}
+    seen, fcalls = set(), {}
     orig_f, schur_rec = schur_recorder(fm, fcalls, {"tag": "factor"})
     orig = (L.cpqr_pivots, H.hss_level_correct, fm._run_structured,
             fm.transition_compress, S.hss_matvec, S.hss_entries_prepared)
 
+    def first(kind, key):
+        if (kind, key) in seen:
+            return False
+        seen.add((kind, key))
+        return True
+
     def cpqr_rec(Am, atol, rtol, k):
         key = (*Am.shape, k)
-        if key not in hcalls:
-            hcalls[key] = (where["tag"], Am.clone(), atol, rtol, k)
+        if first("H", key):
+            rows["H"].append((key, *check_cpqr_shape(
+                f"{label} {where['tag']}", Am, atol, rtol, k, results)))
         return orig[0](Am, atol, rtol, k)
 
     def correct_rec(Y, xi, Bl, Br, lu, piv, Phi, transpose):
         key = (Bl.shape[0] * Bl.shape[1], Bl.shape[-1],
                Y.shape[1] // (2 * Bl.shape[1]), Y.shape[-1], bool(transpose))
-        if key not in kcalls:
-            kcalls[key] = (where["tag"], Y.clone(),
-                           (xi, Bl, Br, lu, piv, Phi, transpose))
+        if first("K", key):
+            rows["K"].append((key, *check_correct_shape(
+                f"{label} {where['tag']}", key, Y,
+                (xi, Bl, Br, lu, piv, Phi, transpose), results)))
         return orig[1](Y, xi, Bl, Br, lu, piv, Phi, transpose)
 
     def matvec_rec(h, x, adjoint=False):
         p_ = h.plan
         key = (h.B, p_.nleaves, p_.ls, h.r, p_.depth, x.shape[-1],
                bool(adjoint))
-        if key not in jcalls:
-            jcalls[key] = (where["tag"], h, x.clone(), bool(adjoint))
+        if first("J", key):
+            rows["J"].append((key, *check_matvec_shape(
+                f"{label} {where['tag']}", key, h, x, bool(adjoint),
+                results)))
         return orig[4](h, x, adjoint)
 
-    def entries_rec(ef, rows, cols):
-        key = (*rows.shape, cols.shape[-1], *ef.T.shape[2:], ef.D.shape[-1],
+    def entries_rec(ef, rows_, cols):
+        key = (*rows_.shape, cols.shape[-1], *ef.T.shape[2:], ef.D.shape[-1],
                ef.T.shape[1])
-        if key not in icalls:
-            icalls[key] = (where["tag"], ef, rows.clone(), cols.clone())
-        return orig[5](ef, rows, cols)
+        if first("I", key):
+            rows["I"].append((key, *check_entries_shape(
+                f"{label} {where['tag']}", key, ef, rows_, cols, results)))
+        return orig[5](ef, rows_, cols)
 
     def run_rec(bp, tb, s_stacks, opts_, dtype, bidx, sketch):
         where["tag"] = f"batch {bidx}"
         return orig[2](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
 
-    def trans_rec(S, n1, n2, cplan, atol, rtol, cap):
+    def trans_rec(S_, n1, n2, cplan, atol, rtol, cap):
         where["tag"] = "transition"
-        return orig[3](S, n1, n2, cplan, atol, rtol, cap)
+        return orig[3](S_, n1, n2, cplan, atol, rtol, cap)
 
     # the wrappers count their launches on whatever their module names hold
     cpqr_rec.launches = correct_rec.launches = 0
@@ -997,7 +1238,7 @@ def _hss_captures(plan, tp, opts, dev, b):
          fm.transition_compress, S.hss_matvec, S.hss_entries_prepared) = orig
         fm.lowrank_schur_update = orig_f
     torch.cuda.synchronize()
-    return levels, hcalls, kcalls, jcalls, icalls, fcalls
+    return levels, rows, fcalls
 
 
 def entries_bound(ef, rows, cols, out) -> dict:
@@ -1030,162 +1271,63 @@ def entries_bound(ef, rows, cols, out) -> dict:
     return bound(work, 2 * r * int((lev > 0).sum()))
 
 
-def check_hss_kernels(problems: Problems, n: int, dev, results: Results) -> None:
+def check_hss_kernels(problems: Problems, n, dev, results: Results,
+                      configs=(("kest=32", HSS, True),
+                               ("default caps", HSS_DEFAULT, False))) -> None:
     """Phase 3, kernels H-K against their plain versions at the structured
-    n-plans' shapes: H and K at every distinct launch shape of the factor
-    and of one preconditioner application, on inputs captured there, for the
-    kest=32 plan and the default-caps plan (one log line each), and so are
-    J and I (their first rows: the HSS operands of the kest=32
-    factorization's first and top structured batch, the kernel table's
-    shapes)."""
+    n-plans' shapes: H, K, J and I at the first launch of every distinct
+    shape of the factor and of one preconditioner application, checked
+    there, for each of ``configs`` (``(label, options, table)``; 2D: the
+    kest=32 plan and the default-caps plan), a summary line per kernel; J
+    and I also (where ``table``) on the HSS operands of the factorization's
+    first and top structured batch: the kernel table's shapes for kest=32;
+    E and F at the structured factor's shapes."""
     import torch
 
     import hsolve_torch as ht
     from hsolve_torch.interop import plan_to_torch
-    from hsolve_torch.ops import hss as H
-    from hsolve_torch.ops import lowrank as L
 
     A, b, shape = problems.get(n)
-    f64 = torch.float64
-    record = results.record
-    bt = torch.as_tensor(b, dtype=f64, device=dev)
-    for label, kw in (("kest=32", HSS), ("default caps", HSS_DEFAULT)):
+    bt = torch.as_tensor(b, dtype=torch.float64, device=dev)
+    for label, kw, table in configs:
         opts = ht.SolverOptions(**kw)
         opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
         plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                      opts)
         tp = plan_to_torch(plan, dev)
         t0 = time.perf_counter()
-        levels, hcalls, kcalls, jcalls, icalls, fcalls = _hss_captures(
-            plan, tp, opts, dev, bt)
-        log(f"  {label}: {len(hcalls)} H shapes, {len(kcalls)} K shapes, "
-            f"{len(jcalls)} J shapes, {len(icalls)} I shapes captured in "
-            f"{time.perf_counter() - t0:.1f} s")
-        # H: equal pivots and ranks at every shape
-        for (Bm, m, nn, k), (tag, Am, atol, rtol, _) in sorted(hcalls.items()):
-            ker = L.cpqr_pivots(Am, atol, rtol, k)
-            ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
-            if not all(torch.equal(a, b_) for a, b_ in zip(ker, ref)):
-                fail(f"cpqr_pivots selects other pivots or ranks than its "
-                     f"plain version at {label} {tag} {list(Am.shape)}")
-            # the steps this data needs: a pivot per rank, and the step that
-            # finds the rank, per matrix; each projects and downdates every
-            # column
-            need = (ker[1].double() + 1).clamp(max=k)
-            steps = float(need.sum())
-            ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k))
-            plain_ms = device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k),
-                                 max_reps=20)
-            # latency: each step's coefficients are dots of m terms in order
-            # (kept for the plain version's pivots), one step after another
-            work = bound(nbytes(Am, *ker), 4 * m * nn * steps,
-                         chain=float(need.max()) * m)
-            cs, resident = L.cpqr_cluster(m, nn)
-            desc = (f"{label} {tag} A=[{Bm},{m},{nn}] k={k} cluster {cs}"
-                    + ("" if resident else " (columns in global memory)"))
-            record("cpqr_pivots", desc, (0.0, 0.0), 0.0, ms, plain_ms, work)
-        # K: every level shape, forward and adjoint, at the factor's k and
-        # the solve's k = 1; the shapes where it is slower than its plain
-        # version, per k = 1 and k > 1
-        slower = {"k = 1": [], "k > 1": []}
-        for key, (tag, Y0, args) in sorted(kcalls.items()):
-            nodes, r, blk, k, adj = key
-            ker = H.hss_level_correct(Y0.clone(), *args)
-            ref = H.hss_level_correct_plain(Y0.clone(), *args)
-            scratch = Y0.clone()
-            ms = device_ms(lambda: H.hss_level_correct(scratch, *args))
-            plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch,
-                                                                   *args))
-            xi, Bl, Br, lu, piv, Phi, _ = args
-            # latency: the LU's two substitutions, 2 ceil(2r / 32) diagonal
-            # blocks of 32 rows, each row a product and a sum on the last
-            work = bound(nbytes(Y0, Y0, xi, Bl, Br, lu, piv, Phi),
-                         2 * k * (Bl.numel() + Br.numel() + lu.numel()
-                                  + Phi.numel()), products=True,
-                         chain=2 * -(-2 * r // 32) * 32 * 2)
-            geo = ("one CTA per node" if k == 1 else
-                   "nc={} cs={} groups={} stages={}".format(
-                       *H.level_correct_launch(r, k, nodes, dev)))
-            desc = (f"{label} {tag} {'adj' if adj else 'fwd'} nodes={nodes} "
-                    f"2r={2 * r} blk={blk} k={k} {geo}")
-            record("hss_level_correct", desc, errors(ker, ref), RTOL_SUM, ms,
-                   plain_ms, work)
-            if ms > plain_ms:
-                slower["k = 1" if k == 1 else "k > 1"].append(ms / plain_ms)
-        log(f"  {label}: K at {len(kcalls)} shapes, slower than its plain "
-            "version at " + ", ".join(
-                f"{len(v)} with {kk}" + (f" (worst {max(v):.2f}x)" if v else "")
-                for kk, v in slower.items()))
-        if label == "kest=32":
+        levels, rows, fcalls = _hss_checked(plan, tp, opts, dev, bt, label,
+                                            results)
+        log(f"  {label}: " + ", ".join(f"{len(v)} {k} shapes"
+                                       for k, v in rows.items())
+            + f" checked in {time.perf_counter() - t0:.1f} s")
+        for kernel in ("K", "J", "I"):
+            log(f"  {label}: {kernel} at {len(rows[kernel])} shapes, "
+                + hss_summary(kernel, rows[kernel]))
+        if table:
             check_hss_table_shapes(plan, levels, opts, dev, results)
-        check_hss_captured(label, jcalls, icalls, results)
         check_sweep_levels(f"structured {label}", levels, plan.N, results)
         check_schur_captured(f"structured {label}", fcalls, results)
+        del levels, fcalls
     torch.cuda.synchronize()
 
 
-def check_hss_captured(label, jcalls, icalls, results: Results) -> None:
-    """J and I at every captured launch shape of one structured plan: one log
-    line per shape, then the shapes where each is slower than its plain
-    version, per k = 1 and k > 1 for J, and the time summed over the
-    shapes."""
-    import torch
-
-    from hsolve_torch.ops import hss as H
-
-    record = results.record
-    slower = {"k = 1": [], "k > 1": []}
-    sums = {"k = 1": [0.0, 0.0], "k > 1": [0.0, 0.0]}
-    for key, (tag, h, X, adj) in sorted(jcalls.items(),
-                                        key=lambda kv: kv[0]):
-        Bm, nl, ls, r, depth, k, _ = key
-        ker = H.hss_matvec(h, X, adj)
-        ref = H.hss_matvec_plain(h, X, adj)
-        ms = device_ms(lambda: H.hss_matvec(h, X, adj))
-        plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj))
-        cs, kc, groups, smem, th, rb = H.hss_matvec_geometry(Bm, nl, ls, r,
-                                                             depth, k)
-        work = bound(nbytes(*h.arrays(), X, ker),
-                     2 * k * sum(a.numel() for a in h.arrays()), products=True)
-        record("hss_matvec", f"{label} {tag} {'adj' if adj else 'fwd'} B={Bm} "
-               f"nleaves={nl} ls={ls} r={r} k={k} cs={cs} kc={kc} "
-               f"groups={groups} threads={th} rb={rb}"
-               + ("" if smem else " (state in L2)"), errors(ker, ref),
-               RTOL_SUM, ms, plain_ms,
-               work)
-        kk = "k = 1" if k == 1 else "k > 1"
-        sums[kk][0] += ms
-        sums[kk][1] += plain_ms
-        if ms > plain_ms:
-            slower[kk].append(ms / plain_ms)
-    log(f"  {label}: J at {len(jcalls)} shapes, slower than its plain "
-        "version at " + ", ".join(
-            f"{len(v)} with {kk}" + (f" (worst {max(v):.2f}x)" if v else "")
-            + f"; sum {sums[kk][0]:.4f} ms against {sums[kk][1]:.4f}"
-            for kk, v in slower.items()))
-    slow_i, sum_i = [], [0.0, 0.0]
-    for key, (tag, ef, rr, cc) in sorted(icalls.items(), key=lambda kv: kv[0]):
-        ker = H.hss_entries_prepared(ef, rr, cc)
-        ref = H.hss_entries_prepared_plain(ef, rr, cc)
-        nan = ref.isnan()
-        if not torch.equal(ker.isnan(), nan):
-            fail(f"hss_entries_prepared puts NaN elsewhere than its plain "
-                 f"version at {label} {tag} {key}")
-        ms = device_ms(lambda: H.hss_entries_prepared(ef, rr, cc))
-        plain_ms = device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc))
-        record("hss_entries_prepared",
-               f"{label} {tag} out={list(ker.shape)} r={ef.T.shape[-1]} "
-               f"depth={ef.T.shape[1]} nan={int(nan.sum())}",
-               errors(ker[~nan], ref[~nan]) if (~nan).any() else (0.0, 0.0),
-               RTOL_SUM, ms, plain_ms, entries_bound(ef, rr, cc, ker))
-        sum_i[0] += ms
-        sum_i[1] += plain_ms
-        if ms > plain_ms:
-            slow_i.append(ms / plain_ms)
-    log(f"  {label}: I at {len(icalls)} shapes, slower than its plain "
-        f"version at {len(slow_i)}"
-        + (f" (worst {max(slow_i):.2f}x)" if slow_i else "")
-        + f"; sum {sum_i[0]:.4f} ms against {sum_i[1]:.4f}")
+def hss_summary(kernel, rows_) -> str:
+    """The shapes where ``kernel`` is slower than its plain version (K and
+    J: per k = 1 and k > 1) and, for J and I, the times summed."""
+    k_of = {"K": lambda key: key[3], "J": lambda key: key[5]}.get(kernel)
+    parts = []
+    for kk, sel in ((("k = 1", lambda k: k == 1), ("k > 1", lambda k: k > 1))
+                    if k_of else (("", lambda k: True),)):
+        got = [(ms, pl) for key, ms, pl in rows_
+               if sel(k_of(key) if k_of else 1)]
+        slow = [ms / pl for ms, pl in got if ms > pl]
+        parts.append(f"{len(slow)}" + (f" with {kk}" if kk else "")
+                     + (f" (worst {max(slow):.2f}x)" if slow else "")
+                     + ("" if kernel == "K" else
+                        f"; sum {sum(m for m, _ in got):.4f} ms against "
+                        f"{sum(p for _, p in got):.4f}"))
+    return "slower than its plain version at " + ", ".join(parts)
 
 
 def check_hss_table_shapes(plan, levels, opts, dev, results: Results) -> None:
@@ -1440,7 +1582,7 @@ def factor_bytes(F) -> int:
                for t in vars(lev).values() if isinstance(t, torch.Tensor))
 
 
-def main_path(problems: Problems, n: int, dev, path: str) -> dict:
+def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     """Phase 4: the user's workflow at size n; returns its timings and checks."""
     import numpy as np
     import scipy.sparse.linalg as spla
@@ -1451,8 +1593,8 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
 
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(**OPTIONS[path])
-    compressed = path in ("compressed", "hss", "hss-default")
-    mixed = path == "exact-f32-mixed"
+    compressed = path in COMPRESSED_PATHS
+    mixed = path in MIXED
     tree = ht.nested_dissection(shape, leafmax=100)
     plan_s = []
     for _ in range(2):                       # the second call is warm
@@ -1466,21 +1608,26 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
                  else ()) for bp in plan.batches]
     log(f"  n={n} {path}: {len(plan.batches)} batches (B, ni_pad, nb_pad"
         f"{', rank cap' if compressed else ''}"
-        f"{', HSS kind, ls, depth, n_pad' if path.startswith('hss') else ''}):"
+        f"{', HSS kind, ls, depth, n_pad' if 'hss' in path else ''}):"
         f" {shapes}")
 
     fdt = torch.float32 if mixed else torch.float64
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    F = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)  # cold
-    torch.cuda.synchronize()
+    held = {"F": ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)}
+    torch.cuda.synchronize()                                   # cold
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
-    # the default-caps structured factor takes seconds: one warm run
-    reps = 1 if path == "hss-default" else 3
-    factor_ms = time_ms(lambda: ht.factor_with_plan(plan, opts, dtype=fdt,
-                                                    device=dev),
-                        reps=reps, warmup=reps // 3)
+    # the default-caps structured and the 3D compressed factors take
+    # seconds: one warm run
+    reps = 1 if path in ("hss-default", "lowrank-3d", "hss-3d") else 3
+
+    def refactor():
+        held["F"] = None        # the last factor goes before the next comes
+        held["F"] = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)
+
+    factor_ms = time_ms(refactor, reps=reps, warmup=reps // 3)
+    F = held.pop("F")
     op, mv = ht.spmv_format(A, device=dev)
     bt = torch.as_tensor(np.asarray(b), device=dev)
     out = {}
@@ -1516,7 +1663,7 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
            "factor_peak_mb": peak_mb}
     if not compressed:
         res["factor_kept_mb"] = factor_bytes(F) / 2 ** 20
-    if n <= 128 and path == "exact":
+    if not is_3d(n) and n <= 128 and path == "exact":
         x_ref = spla.spsolve(A.tocsc(), b)
         res["fwd_err_vs_spsolve"] = float(np.linalg.norm(xh - x_ref)
                                           / np.linalg.norm(x_ref))
@@ -1524,7 +1671,22 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
         report = F.rank_report()
         res["max_rank"] = max(lv["max_rank"] for lv in report["levels"])
         res["saturated"] = report["saturated"]
-    log(f"  n={n} {path}: plan {res['plan_s']:.4f} s (warm; cold "
+        if is_3d(n):
+            # a cap of a block's full rank, min(ni_pad, nb_pad), truncates
+            # nothing: a rank that reaches it is full, not saturated
+            full = [min(plan.batches[lv["level"]].ni_pad,
+                        plan.batches[lv["level"]].nb_pad)
+                    for lv in report["levels"]]
+            res["full_rank_levels"] = [
+                lv["level"] for lv, f in zip(report["levels"], full)
+                if lv["max_rank"] >= lv["cap"] >= f]
+            res["saturated"] = any(
+                lv["max_rank"] >= lv["cap"] and lv["cap"] < f
+                for lv, f in zip(report["levels"], full))
+            if res["full_rank_levels"]:
+                log(f"  n={n} {path}: levels {res['full_rank_levels']} reach "
+                    "a cap of their blocks' full rank (not saturated)")
+    log(f"  n={n} {path} on {card}: plan {res['plan_s']:.4f} s (warm; cold "
         f"{res['plan_cold_s']:.4f} s, host)  factor {res['factor_s']:.4f} s  "
         f"solve {res['solve_s']:.4f} s (warm, CUDA events)  iters "
         f"{res['iters']}  converged {res['converged']}  relres(scipy) "
@@ -1546,6 +1708,39 @@ def main_path(problems: Problems, n: int, dev, path: str) -> dict:
     if compressed and res["saturated"]:
         fail(f"n={n} {path}: a rank saturated its cap ({report})")
     return res
+
+
+def check_bench(argv) -> dict:
+    """One run of ``python -m hsolve_torch.bench`` in a subprocess: its last
+    line must be ``bench.py``'s JSON line from the card, relres <= 1e-9, no
+    speed-of-light violation, the card's line present and, on the 2D default
+    run, the mixed count within ``MAX_ITERS``."""
+    out = subprocess.run([sys.executable, "-m", "hsolve_torch.bench", *argv],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    for line in out.stderr.splitlines()[-12:]:
+        log(f"    bench: {line}")
+    if out.returncode != 0:
+        fail(f"the bench {argv} exited with {out.returncode}")
+    try:
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"the bench {argv} printed no JSON line: {out.stdout[-500:]!r}")
+    d = res["detail"]
+    if d["device"] != "cuda" or not d.get("card"):
+        fail(f"the bench {argv} ran on {d['device']} (card {d.get('card')})")
+    if not d["relres"] <= RELRES:
+        fail(f"the bench {argv}: relres {d['relres']:.3e} > {RELRES}")
+    if d["sol_violation"]:
+        fail(f"the bench {argv}: speed-of-light violation ({d})")
+    if "--problem" not in argv:
+        n = int(argv[argv.index("--n") + 1])
+        limit = MAX_ITERS["exact-f32-mixed"][n]
+        if d["gmres_iters"] > limit:
+            fail(f"the bench {argv}: {d['gmres_iters']} iterations > {limit}")
+    return {"metric": res["metric"], "value": res["value"],
+            **{k: d[k] for k in ("factor_s", "solve_s", "gmres_iters",
+                                 "relres", "factor_dtype", "factor_peak_mb",
+                                 "sol_fraction", "card")}}
 
 
 def kernel_table(runs, kres: Results) -> list:
@@ -1617,18 +1812,32 @@ def main() -> int:
     check_compressed_kernels(problems, args.kernel_n, dev, kres)
     check_hss_kernels(problems, args.kernel_n, dev, kres)
     check_arnoldi_kernels(problems, args.kernel_n, dev, kres)
+    log(f"[3] the same kernels at the 3D plans' shapes: exact {EXACT3D}, "
+        f"low-rank {LOWRANK3D}, structured {HSS3D}")
+    check_kernels(problems, EXACT3D, dev, kres)
+    check_kernels(problems, EXACT3D, dev, kres, "float32")
+    check_compressed_kernels(problems, LOWRANK3D, dev, kres, LOWRANK_DEFAULT,
+                             "3d low-rank")
+    check_hss_kernels(problems, HSS3D, dev, kres,
+                      (("3d default caps", HSS_DEFAULT, True),))
+    check_arnoldi_kernels(problems, EXACT3D, dev, kres)
 
     runs = []
-    for path, path_kernels in (("exact", kernels.EXACT_PATH),
-                               ("compressed", kernels.COMPRESSED_PATH),
-                               ("hss", kernels.HSS_PATH),
-                               ("hss-default", kernels.HSS_PATH),
-                               ("exact-f32-mixed", kernels.MIXED_PATH),
-                               ("exact-wide", kernels.EXACT_PATH)):
-        for n in (args.sizes if path != "exact-wide" else [WIDE_N]):
+    for path, path_kernels, sizes in (
+            ("exact", kernels.EXACT_PATH, args.sizes),
+            ("compressed", kernels.COMPRESSED_PATH, args.sizes),
+            ("hss", kernels.HSS_PATH, args.sizes),
+            ("hss-default", kernels.HSS_PATH, args.sizes),
+            ("exact-f32-mixed", kernels.MIXED_PATH, args.sizes),
+            ("exact-wide", kernels.EXACT_PATH, [WIDE_N]),
+            ("exact-3d", kernels.EXACT_PATH, [EXACT3D]),
+            ("exact-3d-f32-mixed", kernels.MIXED_PATH, [EXACT3D]),
+            ("lowrank-3d", kernels.COMPRESSED_PATH, [LOWRANK3D]),
+            ("hss-3d", kernels.HSS_PATH, [HSS3D])):
+        for n in sizes:
             log(f"[4] main path n={n} {path}")
             kernels.reset_launch_counts()
-            runs.append(main_path(problems, n, dev, path))
+            runs.append(main_path(problems, n, dev, path, smi))
             counts = kernels.launch_counts()
             log(f"  n={n}: kernel launches {counts}")
             missing = [k for k in path_kernels if counts.get(k, 0) <= 0]
@@ -1642,6 +1851,10 @@ def main() -> int:
                      f"{counts['arnoldi_givens']} of M")
             log(f"  n={n} {path}: {step} Arnoldi steps, one launch each")
             runs[-1]["launches"] = counts
+    for argv in BENCH_RUNS:
+        log(f"[4] bench: python -m hsolve_torch.bench {' '.join(argv)}")
+        runs_bench = check_bench(argv)
+        log(f"  bench: {json.dumps(runs_bench)}")
 
     table = kernel_table(runs, kres)
     log("[5] main path runs: " + json.dumps(

@@ -77,8 +77,7 @@ _SIGNATURES = {
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_lowrank_sweep_update": [_V] * 6 + [_LL] + [_I] * 12 + [_LL, _V],
     "hs_lowrank_schur_update": [_V] * 5 + [_LL] + [_I] * 9 + [_V],
-    "hs_lowrank_truncate": [_V, _V, _V, _V, _V, _V, _D, _D, _LL, _I, _I, _I,
-                            _I, _V],
+    "hs_lowrank_truncate": [_V] * 7 + [_D, _D, _LL] + [_I] * 5 + [_V],
     "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
     "hs_hss_entries": [_V] * 6 + [_LL] * 7 + [_I] * 7 + [_V],
     "hs_hss_matvec": [_V] * 10 + [_LL] + [_I] * 12 + [_LL, _I, _V],

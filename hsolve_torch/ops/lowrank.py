@@ -8,8 +8,8 @@
   ``max(atol, rtol * sigma_0)`` and capped.  The sketch ``omega`` is an
   argument, so a caller (or a test) decides where its random numbers come from,
 - :func:`lowrank_truncate` (kernel G, ``csrc/lowrank_truncate.cu``): the
-  truncation epilogue of :func:`rand_lowrank`, with its plain version
-  :func:`lowrank_truncate_plain`.
+  product ``Q @ Uw`` and the truncation epilogue of :func:`rand_lowrank`,
+  with its plain version :func:`lowrank_truncate_plain`.
 
 - :func:`cpqr` and :func:`interp_decomp`: column-pivoted QR without Q
   accumulation and the row interpolative decomposition built on it, for the
@@ -50,11 +50,14 @@ def _rank_mask(s: torch.Tensor, atol: float, rtol: float, cap: int):
     return rank, (cols < rank[..., None]).to(s.dtype)
 
 
-def lowrank_truncate_plain(QU: torch.Tensor, sv: torch.Tensor, Vh: torch.Tensor,
-                           atol: float, rtol: float, cap: int):
-    """``U = QU[:, :, :k] * (sv * mask)``, ``V = Vh^T[:, :, :k] * mask`` with
-    ``k = min(cap, r)``, both zero-padded to ``cap`` columns; returns
-    ``(U [B, m, cap], V [B, n, cap], rank [B] int32)``."""
+def lowrank_truncate_plain(Q: torch.Tensor, Uw: torch.Tensor,
+                           sv: torch.Tensor, Vh: torch.Tensor, atol: float,
+                           rtol: float, cap: int):
+    """``QU = Q @ Uw``, then ``U = QU[:, :, :k] * (sv * mask)``, ``V =
+    Vh^T[:, :, :k] * mask`` with ``k = min(cap, r)``, both zero-padded to
+    ``cap`` columns; returns ``(U [B, m, cap], V [B, n, cap], rank [B]
+    int32)``."""
+    QU = Q @ Uw
     rank, mask = _rank_mask(sv, atol, rtol, cap)
     k = min(cap, sv.shape[-1])
     U = QU[..., :, :k] * (sv[..., None, :k] * mask[..., None, :k])
@@ -65,27 +68,30 @@ def lowrank_truncate_plain(QU: torch.Tensor, sv: torch.Tensor, Vh: torch.Tensor,
     return U, V, rank
 
 
-def lowrank_truncate(QU: torch.Tensor, sv: torch.Tensor, Vh: torch.Tensor,
-                     atol: float, rtol: float, cap: int):
-    """Kernel G wrapper (see the plain version); ``QU`` is [B, m, r], ``sv``
-    [B, r] (descending), ``Vh`` [B, r, n]."""
-    if kernels.on_cpu(QU, sv, Vh):
-        return lowrank_truncate_plain(QU, sv, Vh, atol, rtol, cap)
-    B, m, r = QU.shape
+def lowrank_truncate(Q: torch.Tensor, Uw: torch.Tensor, sv: torch.Tensor,
+                     Vh: torch.Tensor, atol: float, rtol: float, cap: int):
+    """Kernel G wrapper (see the plain version); ``Q`` is [B, m, s], ``Uw``
+    [B, s, r], ``sv`` [B, r] (descending), ``Vh`` [B, r, n].  The kernel
+    computes only the rank's columns of ``Q @ Uw``."""
+    if kernels.on_cpu(Q, Uw, sv, Vh):
+        return lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
+    B, m, s = Q.shape
+    r = Uw.shape[-1]
     n = Vh.shape[-1]
-    kernels.require(QU, "QU", torch.float64, (B, m, r))
+    kernels.require(Q, "Q", torch.float64, (B, m, s))
+    kernels.require(Uw, "Uw", torch.float64, (B, s, r))
     kernels.require(sv, "sv", torch.float64, (B, r))
     kernels.require(Vh, "Vh", torch.float64, (B, r, n))
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
-    U = torch.empty((B, m, cap), dtype=QU.dtype, device=QU.device)
-    V = torch.empty((B, n, cap), dtype=QU.dtype, device=QU.device)
-    rank = torch.empty((B,), dtype=torch.int32, device=QU.device)
+    U = torch.empty((B, m, cap), dtype=Q.dtype, device=Q.device)
+    V = torch.empty((B, n, cap), dtype=Q.dtype, device=Q.device)
+    rank = torch.empty((B,), dtype=torch.int32, device=Q.device)
     if B:
-        kernels.launch("hs_lowrank_truncate", QU.device, QU.data_ptr(),
-                       sv.data_ptr(), Vh.data_ptr(), U.data_ptr(), V.data_ptr(),
-                       rank.data_ptr(), float(atol), float(rtol), B, m, n, r,
-                       cap)
+        kernels.launch("hs_lowrank_truncate", Q.device, Q.data_ptr(),
+                       Uw.data_ptr(), sv.data_ptr(), Vh.data_ptr(),
+                       U.data_ptr(), V.data_ptr(), rank.data_ptr(),
+                       float(atol), float(rtol), B, m, n, s, r, cap)
         lowrank_truncate.launches += 1
     return U, V, rank
 
@@ -111,8 +117,9 @@ def rand_lowrank(A: torch.Tensor, omega: torch.Tensor, atol: float, rtol: float,
     factorization.jl:189,202)."""
     Q, _ = torch.linalg.qr(A @ omega)                     # reduced: [B, m, s]
     Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ A, full_matrices=False)
-    U, V, rank = lowrank_truncate((Q @ Uw).contiguous(), sv.contiguous(),
-                                  Vh.contiguous(), atol, rtol, cap)
+    U, V, rank = lowrank_truncate(Q.contiguous(), Uw.contiguous(),
+                                  sv.contiguous(), Vh.contiguous(), atol, rtol,
+                                  cap)
     return LowRank(U=U, V=V, rank=rank)
 
 

@@ -71,7 +71,9 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     at most two waves of the card's CTA slots); else each CTA computes its
     band's ``W`` itself over 64-column tiles.  ``kd``: the depth of a staged
     chunk, a multiple of 16 up to ``F_MAX_KD``.  Where a rank cap makes the
-    CTA's shared memory too large, the chunk and then the tiles shrink."""
+    CTA's shared memory too large, the chunk and then the tiles shrink, and
+    where no cluster form fits, the band's CTAs each compute W themselves.
+    Raises only where no form fits."""
     nbp = _up(nb)
     cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
     cands = []
@@ -85,17 +87,20 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     # there (tools/f_breakdown.py)
     first = 16 if cluster and B * -(-nbp // 32) * min(
         F_MAX_CLUSTER, -(-nbp // 32)) <= 2 * F_CTAS_PER_SM * sms else 32
-    for bm in (first, 32, 16):
-        for bn_max in (128, 64, 32, 16, 8):
-            if cluster:
-                nct = max(min(F_MAX_CLUSTER, -(-nbp // 32)),
-                          -(-nbp // bn_max))
-            else:
-                nct = -(-nbp // min(bn_max, 64))
-            bn = _up(-(-nbp // nct))
-            nct = -(-nbp // bn)
-            cs = min(nct, F_MAX_CLUSTER) if cluster else 1
-            cands.append((bm, bn, cs, -(-nct // cs) * cs, False))
+    # where no cluster form fits (a cluster keeps W twice: rank caps of
+    # several hundred), the one-CTA-a-band forms follow
+    for clus in ((True, False) if cluster else (False,)):
+        for bm in ((first, 32, 16) if clus else (32, 16)):
+            for bn_max in (128, 64, 32, 16, 8):
+                if clus:
+                    nct = max(min(F_MAX_CLUSTER, -(-nbp // 32)),
+                              -(-nbp // bn_max))
+                else:
+                    nct = -(-nbp // min(bn_max, 64))
+                bn = _up(-(-nbp // nct))
+                nct = -(-nbp // bn)
+                cs = min(nct, F_MAX_CLUSTER) if clus else 1
+                cands.append((bm, bn, cs, -(-nct // cs) * cs, False))
     for bm, bn, cs, nct, whole in cands:
         top = min(F_MAX_KD, _up(max(1, -(-ni_pad // cs)), 16))
         for kd in sorted({top, min(top, 32), 16}, reverse=True):

@@ -4,7 +4,8 @@ tiles, cap padding, argmax ties, shared memory above 48 KB, boundary ids
 repeated across fronts, a front spread over a thread block cluster, rows not
 16-byte aligned, a cooperative grid the card cannot hold), kernels A-D in
 float32, the Arnoldi kernels L and M in both types and the Arnoldi step as
-one launch of both, kernel F's geometries, and the exact,
+one launch of both, kernel F's geometries, kernels C, E, F and G at the 3D
+plans' shapes, and the exact,
 compressed, structured (HSS) and mixed-precision slices end to end on
 ``cuda``.
 
@@ -434,23 +435,96 @@ def test_lowrank_schur_update_kernel(dev, monkeypatch, B, ni_pad, nb, kc):
     assert _rel(got2, want) < 1e-13
 
 
-@pytest.mark.parametrize("m,n,r,cap", [(40, 64, 40, 32), (24, 20, 12, 16)])
-def test_lowrank_truncate_kernel(dev, m, n, r, cap):
-    """Kernel G is bitwise equal to its plain version, with and without cap
-    padding (cap > r), with atol or rtol deciding the rank."""
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(2, 2072, 2216, 560),
+                                            (1, 2168, 2216, 560),
+                                            (4, 1064, 2168, 544)])
+def test_lowrank_schur_update_kernel_at_the_3d_top_shapes(dev, B, ni_pad, nb,
+                                                           kc):
+    """F6: kernel F at helmholtz3d(48, k=10)'s top compressed batches at the
+    default caps, where no cluster form fits a CTA and the chooser takes one
+    CTA a row band; within 1e-13 of its plain version."""
+    rng = np.random.default_rng(nb + kc + B)
+    m = ni_pad + nb
+    front = torch.as_tensor(rng.standard_normal((B, m, m)), device=dev)
+    RU = torch.as_tensor(rng.standard_normal((B, ni_pad, kc)), device=dev)
+    RV = torch.as_tensor(rng.standard_normal((B, nb, kc)), device=dev)
+    sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
+                            device=dev)
+    assert schur_geometry(B, ni_pad, nb, kc)["cs"] == 1
+    before = lowrank_schur_update.launches
+    got = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert lowrank_schur_update.launches == before + 1
+    want = lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
+    assert _rel(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("B,R,Cc,kc", [(1, 2216, 2168, 560), (2, 2072, 2216, 560),
+                                       (255, 56, 272, 56)])
+@pytest.mark.parametrize("k", [1, 3])
+def test_lowrank_sweep_update_kernel_at_the_3d_shapes(dev, B, R, Cc, kc, k):
+    """Kernel E at helmholtz3d(48, k=10)'s low-rank shapes (the top fronts at
+    cap 560, the 255 fronts at cap 56), both forms, with sentinels."""
+    rng = np.random.default_rng(B + R + kc + k)
+    N = B * (R + Cc) + 50
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, R, Cc, kc, k, N)
+    for kw in (fwd, bwd):
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert _rel(got, want) < 1e-13
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,ni,nb", [(2, 3912, 3976), (12, 1800, 2936)])
+def test_sweep_update_kernel_at_the_3d_shapes(dev, dtype, tol, B, ni, nb):
+    """Kernel C's backward step at helmholtz3d(64, k=10)'s exact shapes
+    (nb_pad in the thousands with ni_pad in the thousands)."""
+    rng = np.random.default_rng(ni + nb)
+    N = B * (ni + nb) + 10
+    perm = rng.permutation(N)
+    int_ids = torch.as_tensor(perm[:B * ni].reshape(B, ni).astype(np.int32),
+                              device=dev)
+    bnd = torch.as_tensor(perm[B * ni:B * (ni + nb)].reshape(B, nb).astype(
+        np.int32), device=dev)
+    R = torch.as_tensor(rng.standard_normal((B, ni, nb)), dtype=dtype,
+                        device=dev)
+    C = torch.as_tensor(rng.standard_normal((N + 1, 1)), dtype=dtype,
+                        device=dev)
+    C[N] = 0.0
+    got = sweep_update(C.clone(), int_ids, R, N, ids_in=bnd)
+    want = sweep_update_plain(C.clone(), int_ids, R, N, ids_in=bnd)
+    assert _rel(got, want) < tol
+    assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("m,n,s,r,cap", [(40, 64, 40, 40, 32),
+                                         (24, 20, 14, 12, 16),
+                                         (130, 70, 72, 72, 64),
+                                         (2216, 2072, 568, 568, 560)])
+def test_lowrank_truncate_kernel(dev, m, n, s, r, cap):
+    """Kernel G against its plain version, with and without cap padding
+    (cap > r), with atol or rtol deciding the rank, up to the 48^3 plan's
+    top shape: the rank and V bit for bit, U (the product Q @ Uw summed in
+    another order) to 1e-13 of its largest entry."""
     rng = np.random.default_rng(m + n)
-    B = 9
-    QU = torch.as_tensor(rng.standard_normal((B, m, r)), device=dev)
+    B = 9 if m < 1000 else 2
+    Q = torch.as_tensor(rng.standard_normal((B, m, s)), device=dev)
+    Uw = torch.as_tensor(rng.standard_normal((B, s, r)), device=dev)
     Vh = torch.as_tensor(rng.standard_normal((B, r, n)), device=dev)
-    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** np.arange(r),
-                 axis=-1)[:, ::-1].copy()
+    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** (
+        np.arange(r) * 8.0 / r), axis=-1)[:, ::-1].copy()
     sv = torch.as_tensor(sv, device=dev)
     for atol, rtol in ((1e-3, 1e-2), (1e-1, 0.0), (0.0, 1e-9)):
-        got = lowrank_truncate(QU, sv, Vh, atol, rtol, cap)
-        want = lowrank_truncate_plain(QU, sv, Vh, atol, rtol, cap)
+        got = lowrank_truncate(Q, Uw, sv, Vh, atol, rtol, cap)
+        want = lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
         for g, w in zip(got, want):
             assert g.shape == w.shape and g.dtype == w.dtype
-            assert torch.equal(g, w)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        assert _rel(got[0], want[0]) <= 1e-13
+        k = int(got[2].max())
+        assert float(got[0][..., k:].abs().sum()) == 0.0
 
 
 def test_compressed_slice_on_cuda(dev):

@@ -68,8 +68,9 @@ def test_rand_lowrank_matches_jax_with_the_jax_sketch(B, m, n, cap, tol):
 
 
 def test_lowrank_truncate_plain_matches_the_jax_epilogue():
-    """Kernel G's plain version against ``_rank_mask`` and the scaling,
-    transposition and cap padding of ``rand_lowrank``, including a cap wider
+    """Kernel G's plain version against the product ``Q @ Uw``, ``_rank_mask``
+    and the scaling, transposition and cap padding of ``rand_lowrank``
+    (U to 1e-13 of its largest entry, rank and V exactly), including a cap wider
     than the sketch (padding) and an ``atol`` that decides the rank."""
     rng = np.random.default_rng(5)
     B, m, n, r = 5, 12, 9, 7
@@ -86,10 +87,23 @@ def test_lowrank_truncate_plain_matches_the_jax_epilogue():
                          mask_j[..., None, :k])
         U_j = np.pad(U_j, [(0, 0), (0, 0), (0, cap - k)])
         V_j = np.pad(V_j, [(0, 0), (0, 0), (0, cap - k)])
-        U, V, rank = tlowrank.lowrank_truncate(_t(QU), _t(sv), _t(Vh), atol,
-                                               rtol, cap)
+        # Q = QU and Uw = I: the product is QU, bit for bit
+        U, V, rank = tlowrank.lowrank_truncate(
+            _t(QU), _t(np.broadcast_to(np.eye(r), (B, r, r)).copy()), _t(sv),
+            _t(Vh), atol, rtol, cap)
         assert np.array_equal(rank.numpy(), np.asarray(rank_j))
         assert np.array_equal(U.numpy(), U_j) and np.array_equal(V.numpy(), V_j)
+        # and a product of its own: JAX's (Q @ Uw) to rounding
+        Q, Uw = rng.standard_normal((B, m, r + 2)), rng.standard_normal(
+            (B, r + 2, r))
+        U, V, rank = tlowrank.lowrank_truncate(_t(Q), _t(Uw), _t(sv), _t(Vh),
+                                               atol, rtol, cap)
+        Uq = np.asarray(jnp.asarray(Q) @ jnp.asarray(Uw))[..., :k] * (
+            sv[..., None, :k] * np.asarray(mask_j)[..., None, :k])
+        Uq = np.pad(Uq, [(0, 0), (0, 0), (0, cap - k)])
+        assert np.array_equal(rank.numpy(), np.asarray(rank_j))
+        assert np.abs(U.numpy() - Uq).max() <= 1e-13 * np.abs(Uq).max()
+        assert np.array_equal(V.numpy(), V_j)
     assert tlowrank.lowrank_truncate.launches == 0     # CPU: the plain version
 
 

@@ -43,6 +43,14 @@ def test_native_library_builds_from_the_copy():
         os.path.realpath(os.path.join(ROOT, "build", "hsolve_torch")))
 
 
+def test_scan_covers_the_bench_and_the_problem_io():
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for f in ("hsolve_torch/bench.py", "hsolve_torch/models/matio.py",
+              "hsolve_torch/models/problems.py", "hsolve_torch/utils/trees.py",
+              "hsolve_torch/utils/profiling.py", "chip_smoke.py"):
+        assert f in rel, f
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_neither_imports_nor_reads_the_jax_package(path):

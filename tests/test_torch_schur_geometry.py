@@ -120,6 +120,31 @@ def test_kernel_f_geometry_at_wide_ranks_and_fronts(B, ni_pad, nb, kc):
     _check_geometry(B, ni_pad, nb, kc)
 
 
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(2, 2072, 2216, 560),
+                                            (1, 2168, 2216, 560)])
+def test_kernel_f_geometry_at_the_3d_top_shapes(B, ni_pad, nb, kc):
+    """F6: the top two compressed batches of helmholtz3d(48, k=10) at the
+    default caps are few fronts (a cluster per row band is preferred) at a
+    rank cap whose W a cluster cannot keep twice; the chooser goes on to
+    the one-CTA-a-band forms instead of raising."""
+    g = _check_geometry(B, ni_pad, nb, kc)
+    assert g["cs"] == 1 and g["smem"] <= SMEM_MAX
+
+
+@pytest.mark.parametrize("hss", [False, True])
+def test_kernel_f_geometry_at_every_3d_launch_shape(hss):
+    """Every compressed batch of helmholtz3d(48, k=10), leafmax 100, at the
+    default caps (56-576) that kernel F takes gets a launch."""
+    A, _, shape = ht.helmholtz3d(48, k=10.0)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 ht.SolverOptions(**COMP, hss=hss))
+    shapes = [(bp.B, bp.ni_pad, bp.nb_pad, bp.rank_cap) for bp in plan.batches
+              if bp.compress and not bp.structured]
+    assert len(shapes) == (2 if hss else 9)
+    for B, ni_pad, nb, kc in shapes:
+        _check_geometry(B, ni_pad, nb, kc)
+
+
 def _f_walk(front, ni_pad, RU, RV, sperm, g):
     """The kernel's partition in numpy: per CTA tile, W's band from the
     depth split over the cluster's ranks (each rank's depth in chunks of kd;

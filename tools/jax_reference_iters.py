@@ -18,7 +18,16 @@ about 0.5 GB of float32 fronts.
 ``--config hss-default``: the structured (HSS) preconditioner with every
 option at its default but ``swlevel=-2, swsize=16, atol=rtol=1e-3`` (no
 kest: the default rank caps), factored in float64 with the JAX package's own
-sketches, then float64 GMRES (reltol 1e-9, restart 30, maxiter 60).
+sketches, then float64 GMRES (reltol 1e-9, restart 30, maxiter 60);
+``--config lowrank-default`` the same with ``hss=False``.
+
+``--problem helmholtz3d --k 10`` runs the 3D problems instead (7-point
+helmholtz3d(n, k) on an n^3 mesh, the same leafmax):
+
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --problem helmholtz3d \
+        --k 10 --sizes 64
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --problem helmholtz3d \
+        --k 10 --sizes 48 --config lowrank-default
 
 Prints one JSON line per size.
 """
@@ -52,8 +61,12 @@ def _precond(data, v):
     return solve_with_data(data, v.astype(jnp.float32)).astype(v.dtype)
 
 
-def run(n: int) -> dict:
-    A, b, shape = hsolve.helmholtz2d(n, k=40.0)
+def problem(args, n: int):
+    return getattr(hsolve, args.problem)(n, k=args.k)
+
+
+def run(args, n: int) -> dict:
+    A, b, shape = problem(args, n)
     b = np.asarray(b)
     opts = hsolve.SolverOptions(swlevel=0)
     plan = hsolve.plan_factorization(A, hsolve.nested_dissection(shape, leafmax=100),
@@ -72,7 +85,8 @@ def run(n: int) -> dict:
     solve_s = time.perf_counter() - t0
     x = np.asarray(x)
     iters = int(info["iters"])
-    return {"n": n, "N": int(A.shape[0]), "config": "exact-f32-mixed",
+    return {"n": n, "N": int(A.shape[0]), "problem": args.problem,
+            "config": "exact-f32-mixed",
             "iters": iters, "float32_iters": min(iters, 60),
             "float64_iters": max(iters - 60, 0),
             "converged": bool(info["converged"]),
@@ -80,12 +94,13 @@ def run(n: int) -> dict:
             "cpu_factor_s": factor_s, "cpu_solve_s": solve_s}
 
 
-def run_hss_default(n: int) -> dict:
-    A, b, shape = hsolve.helmholtz2d(n, k=40.0)
+def run_compressed_default(args, n: int) -> dict:
+    A, b, shape = problem(args, n)
     b = np.asarray(b)
     tree = hsolve.nested_dissection(shape, leafmax=100)
     t0 = time.perf_counter()
-    F = hsolve.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
+    F = hsolve.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                      hss=args.config == "hss-default")
     jax.block_until_ready(F.solve_data)
     factor_s = time.perf_counter() - t0
     op, _ = hsolve.spmv_format(A, dtype=np.float64)
@@ -96,7 +111,8 @@ def run_hss_default(n: int) -> dict:
     solve_s = time.perf_counter() - t0
     x = np.asarray(x)
     report = F.rank_report()
-    return {"n": n, "N": int(A.shape[0]), "config": "hss-default",
+    return {"n": n, "N": int(A.shape[0]), "problem": args.problem,
+            "config": args.config,
             "iters": int(info["iters"]), "converged": bool(info["converged"]),
             "relres": float(np.linalg.norm(b - A @ x) / np.linalg.norm(b)),
             "max_rank": F.maxrank(), "saturated": report["saturated"],
@@ -106,12 +122,16 @@ def run_hss_default(n: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
-    ap.add_argument("--config", choices=("exact-f32-mixed", "hss-default"),
+    ap.add_argument("--config", choices=("exact-f32-mixed", "hss-default",
+                                         "lowrank-default"),
                     default="exact-f32-mixed")
+    ap.add_argument("--problem", choices=("helmholtz2d", "helmholtz3d"),
+                    default="helmholtz2d")
+    ap.add_argument("--k", type=float, default=40.0)
     args = ap.parse_args()
-    fn = run if args.config == "exact-f32-mixed" else run_hss_default
+    fn = run if args.config == "exact-f32-mixed" else run_compressed_default
     for n in args.sizes:
-        print(json.dumps(fn(n)), flush=True)
+        print(json.dumps(fn(args, n)), flush=True)
 
 
 if __name__ == "__main__":
