@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the thirteen CUDA kernels (A-M) are compiled from ``hsolve_torch/csrc/``
-   for ``sm_90a``, one nvcc process per source, all started together;
+2. build: the thirteen CUDA kernels (A-M) and the GMRES loop's control
+   kernels are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
+   process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes, then at the 3D plans' (below), and is held against its plain
    torch version on the same inputs (A, B bitwise, G's rank and V bitwise,
@@ -75,6 +76,11 @@ Phases (any failure exits non-zero before the result line is printed):
    250,047), B and E-G on the 48^3 low-rank plan at the default caps
    (nb_pad up to 2216, caps up to 560), H-K, I and J on the 40^3
    structured plan at the default caps, the Arnoldi step at N = 250,047;
+   and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
+   n=512 N, bit for bit their plain versions, from states that go on and
+   that stop: the run's start, the cycle start in its three type pairs, the
+   cycle end, the escalation; ``gmres_set_cond`` in a composed graph of
+   nested WHILE nodes against the host loop reading the same flags;
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
    (leafmax=100) -> plan_factorization -> factor_with_plan (cuda) ->
    gmres_compiled (reltol 1e-9, restart 30, maxiter 60, the factor as right
@@ -97,13 +103,24 @@ Phases (any failure exits non-zero before the result line is printed):
    hsolve_torch.bench --n 128 --reps 5`` and ``--problem helmholtz3d --n 32
    --k 10 --inner f64 --reps 3``), each line held to relres <= 1e-9, no
    speed-of-light violation, the card's line present and, in 2D, the
-   mixed count within ``MAX_ITERS``.  Each run must
+   mixed count within ``MAX_ITERS``.  Every solve is ``gmres_compiled(...,
+   fetch_info=False)``, the JAX bench's call: one CUDA graph, captured at the
+   cold call (its private pool's size is logged), then replayed; a warm one
+   runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host read),
+   the host operations it issues are counted (the same on every path,
+   whatever the iteration count), and the same solve through the
+   host-driven loop (``gmres_host_driven``, untimed, its launches not
+   counted) must take the same iterations and give x within ``XDIFF``
+   relative.  Each run must
    converge, pass an independent scipy check ||b - A x|| / ||b|| <= 1e-9 on
    the host, and launch every kernel of its path (the launch counters are
    reset just before the run and read just after: A-D, L and M on the exact
    path, A-G, L, M on the compressed one, A-M on the structured one, A-D in
    float32, D in float64 and L, M and the step in float32 on the mixed one;
-   every launch of L and M one Arnoldi step's single launch).  A compressed,
+   every launch of L and M one Arnoldi step's single launch; the control
+   kernels on every path and the escalation on the mixed one; a graph's
+   launches counted at its capture and multiplied by the replays, cycles
+   and steps the device summed).  A compressed,
    structured or mixed run must also stay within twice the JAX package's CPU
    iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
    cap (a 3D one no cap below its block's full rank, min(ni_pad, nb_pad):
@@ -132,6 +149,9 @@ RTOL_SUM32 = 1e-5     # the same in float32
 # triangular solves; relative to max |x'|, times the level's pivot growth
 RTOL_SOLVE = {"float64": 1e-12, "float32": 1e-5}
 RELRES = 1e-9         # GMRES target and the independent residual check
+# the graph's x against the host-driven loop's: the same kernels on the same
+# inputs, so only launches that sum in a run-dependent order (atomics) part
+XDIFF = 1e-10
 FWD_N128 = 1e-6       # forward error against scipy's spsolve at n=128 (exact)
 # the slice's compressed configuration (README's switching level, the
 # tolerance policy of CROSSOVER.md for compressed runs)
@@ -210,9 +230,16 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
                                  "hsolve/ops/hss.py:641"),
            "arnoldi_cgs2": ("arnoldi_cgs2.cu", "hsolve/krylov.py:231"),
            "arnoldi_givens": ("arnoldi_givens.cuh", "hsolve/krylov.py:241"),
-           "arnoldi_step": ("arnoldi_cgs2.cu", "hsolve/krylov.py:223")}
+           "arnoldi_step": ("arnoldi_cgs2.cu", "hsolve/krylov.py:223"),
+           "gmres_init": ("gmres_control.cu", "hsolve/krylov.py:310"),
+           "gmres_cycle_start": ("gmres_control.cu", "hsolve/krylov.py:282"),
+           "gmres_cycle_end": ("gmres_control.cu", "hsolve/krylov.py:301"),
+           "gmres_escalate": ("gmres_control.cu", "hsolve/krylov.py:340"),
+           "gmres_set_cond": ("gmres_control.cu", "hsolve/krylov.py:314")}
 TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
-         "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step")
+         "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step",
+         "gmres_init", "gmres_cycle_start", "gmres_cycle_end",
+         "gmres_escalate")
 # kernels whose rows read them alone: on the main path they run inside the
 # fused Arnoldi step's launch, whose launches their counts are
 RUN_IN_STEP = ("arnoldi_cgs2", "arnoldi_givens")
@@ -1436,20 +1463,23 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     captured = {}
     orig = K.arnoldi_step
 
-    def rec(s, w, j, floor, cont):
+    def rec(s, w):
+        j = int(s.loop[AR.J])
         key = (str(s.V.dtype).replace("torch.", ""), j)
         if j in steps and key not in captured:
-            captured[key] = {"s": clone(s), "w": w.clone(), "floor": floor,
-                             "cont": cont}
-        return orig(s, w, j, floor, cont)
+            captured[key] = {"s": clone(s), "w": w.clone(),
+                             "floor": float(s.floor[0]),
+                             "cont": AR.step_cont(s, j)}
+        return orig(s, w)
 
+    # the host-driven loop: the steps are launched from Python, one by one
     K.arnoldi_step = rec
     try:
         for inner in (None, "float32"):
-            ht.gmres_compiled(mv, None, bt, reltol=1e-14, restart=30,
-                              maxiter=30, mv_data=op64, inner_dtype=inner,
-                              mv_data_inner=op32 if inner else None,
-                              escalate=False)
+            K.gmres_host_driven(mv, None, bt, reltol=1e-14, restart=30,
+                                maxiter=30, mv_data=op64, inner_dtype=inner,
+                                mv_data_inner=op32 if inner else None,
+                                escalate=False)
     finally:
         K.arnoldi_step = orig
     torch.cuda.synchronize()
@@ -1491,14 +1521,26 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                device_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
                bound(l_bytes, 8 * (j + 1) * N + 2 * N, dname),
                library_ms=device_ms(library))
+        it0 = int(s0.loop[AR.IT])
+
+        def at(st, cont, fl):
+            # the loop at step j; a budget that ends the cycle after it
+            # where not cont
+            AR.set_loop(st, j, it0, None if cont else it0 + j + 1, fl)
+            return st
+
         for cont in dict.fromkeys((c["cont"], False)):
             # the step as GMRES runs it, one launch: its passes are L's (the
             # same code with the tail off), so hc is L's bit for bit, and
             # M's tail and V[j+1] are M's plain version and the division on
-            # L's hc and w, bit for bit; w is left as the matvec gave it
-            fk, wf = clone(s0), w0.clone()
-            AR.arnoldi_step(fk, wf, j, floor, cont)
+            # L's hc and w, bit for bit; w is left as the matvec gave it;
+            # the loop advances to j + 1 with vj = V[j+1]
+            fk, wf = at(clone(s0), cont, floor), w0.clone()
+            AR.arnoldi_step(fk, wf)
             torch.cuda.synchronize()
+            if int(fk.loop[AR.J]) != j + 1 or not torch.equal(fk.vj,
+                                                              fk.V[j + 1]):
+                fail(f"arnoldi_step{tag}: the loop did not advance at j={j}")
             if int(fk.ticket[0]) != 0:
                 fail(f"arnoldi_step{tag} left its ticket armed at j={j}")
             if not torch.equal(fk.hc, sk.hc):
@@ -1517,30 +1559,41 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                 fail(f"arnoldi_step{tag}: V[j+1] differs from w / st[1] at "
                      f"j={j} (cont={cont})")
             # and against the step's plain version on the same inputs
-            pp, wpp = clone(s0), w0.clone()
-            AR.arnoldi_step_plain(pp, wpp, j, floor, cont)
+            pp, wpp = at(clone(s0), cont, floor), w0.clone()
+            AR.arnoldi_step_plain(pp, wpp)
             step_err = max(errors(fk.V[j + 1], pp.V[j + 1]),
                            errors(fk.hc[: j + 2], pp.hc[: j + 2]),
                            key=lambda t: t[1])
             done = bool(mp.done[0])
-            ss, sw = clone(s0), w0.clone()
             # repeated steps rotate g[j] further each time: a floor of -1
-            # keeps a step that went on going on
+            # keeps a step that went on going on; each repeat puts the loop
+            # back at j with a one-element fill, whose queued time is taken
+            # off the step's
             tfloor = floor if done else -1.0
+            ss, sw = at(clone(s0), cont, tfloor), w0.clone()
+            jr = ss.loop[AR.J:AR.J + 1]
 
             def three():
                 AR.arnoldi_cgs2(ss, sw, j)
                 AR.arnoldi_givens(ss, j, tfloor, cont)
                 torch.div(sw, ss.st[1], out=ss.V[j + 1])
 
-            step_ms = device_ms(lambda: AR.arnoldi_step(ss, sw, j, tfloor,
-                                                        cont))
+            def one():
+                jr.fill_(j)
+                AR.arnoldi_step(ss, sw)
+
+            step_ms = device_ms(one) - queued_ms(lambda: jr.fill_(j))
             three_ms = device_ms(three)
-            ps, pw = clone(s0), w0.clone()
+            ps, pw = at(clone(s0), cont, tfloor), w0.clone()
+            pj = ps.loop[AR.J:AR.J + 1]
+
+            def plain():
+                pj.fill_(j)
+                AR.arnoldi_step_plain(ps, pw)
+
             record(f"arnoldi_step{tag}", f"j={j} m={m} done={int(done)} "
                    f"V=[{m1},{N}]", step_err, rtol, step_ms,
-                   device_ms(lambda: AR.arnoldi_step_plain(ps, pw, j, tfloor,
-                                                           cont)),
+                   device_ms(plain),
                    bound(l_bytes, 8 * (j + 1) * N + 3 * N, dname,
                          chain=givens_chain(j, done)))
             log(f"  arnoldi_step{tag:14s} j={j} done={int(done)}: bitwise "
@@ -1573,6 +1626,243 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     torch.cuda.synchronize()
 
 
+def check_control_kernels(problems: Problems, n, dev, results: Results) -> None:
+    """Phase 3, the GMRES loop's control kernels (``csrc/gmres_control.cu``)
+    on the n-problem's N, each against its plain version on the same inputs,
+    bit for bit (``max_abs_err`` 0): the run's start (``gmres_init``), the
+    cycle start over N in each of its three type pairs (float64 cycles,
+    float32 cycles in a float32 and in a float64 solve), the cycle end and
+    the escalation's reltol2, each from a state that goes on and one that
+    stops; timed beside their plain versions, bound by a queued launch
+    (and, for the cycle start, its bytes).  Then ``gmres_set_cond`` in a
+    composed graph of nested WHILE nodes whose parts count cycles and steps
+    on the device, against the host loop reading the same flags (its plain
+    version): the same counts, and the time per condition set."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hsolve_torch.ops import arnoldi as AR
+    from hsolve_torch.ops import gmres_control as GC
+
+    A, _, _ = problems.get(n)
+    N, m, maxiter = A.shape[0], 30, 60
+    rng = np.random.default_rng(SEED + 7)
+    clone = lambda s: dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+    fields = ("V", "vj", "H", "cs", "sn", "g", "y", "floor", "loop")
+    record = results.record
+    for to, ti in ((torch.float64, torch.float64),
+                   (torch.float32, torch.float32),
+                   (torch.float64, torch.float32)):
+        oname, iname = (str(t).replace("torch.", "") for t in (to, ti))
+        okey = "" if to == torch.float64 else ":float32"
+        ikey = "" if ti == torch.float64 else ":float32"
+        r = torch.as_tensor(rng.standard_normal(N), dtype=to, device=dev)
+        for go, (beta, it) in (("goes on", (3.0, 10)), ("stops", (1e-12, 10)),
+                               ("budget spent", (3.0, maxiter))):
+            s0 = AR.arnoldi_state(m, N, ti, dev)
+            for t in (s0.V, s0.H, s0.sn, s0.g, s0.y):
+                t.copy_(torch.as_tensor(rng.standard_normal(t.shape),
+                                        dtype=ti, device=dev))
+            s0.loop[AR.IT], s0.loop[AR.MAXITER] = it, maxiter
+            sc = torch.tensor([2.0, 1e-9, beta, 1e-9], dtype=to, device=dev)
+            sk, sp = clone(s0), clone(s0)
+            GC.gmres_cycle_start(r, sc, sk, 1e-6)
+            GC.gmres_cycle_start_plain(r, sc, sp, 1e-6)
+            torch.cuda.synchronize()
+            if not all(torch.equal(getattr(sk, k), getattr(sp, k))
+                       for k in fields):
+                fail(f"gmres_cycle_start ({oname} solve, {iname} cycles, "
+                     f"{go}) differs from its plain version")
+            if go != "goes on" and int(sk.loop[AR.DONE]) != 1:
+                fail(f"gmres_cycle_start let a cycle step with {go}")
+        if (to, ti) == (torch.float32, torch.float32):
+            continue            # checked; the mixed pair is float32's row
+        e = ti.itemsize
+        work = bound(N * to.itemsize + 2 * N * e + ((m + 1) * m + 4 * m) * e,
+                     N, iname, chain=4)
+        ss = clone(s0)
+        record(f"gmres_cycle_start{ikey}", f"N={N} m={m} {oname} solve",
+               (0.0, 0.0), 0.0,
+               device_ms(lambda: GC.gmres_cycle_start(r, sc, ss, 1e-6)),
+               device_ms(lambda: GC.gmres_cycle_start_plain(r, sc, ss, 1e-6)),
+               work)
+    for to in (torch.float64, torch.float32):
+        tname = str(to).replace("torch.", "")
+        key = "" if to == torch.float64 else ":float32"
+        for case, (j, it, beta) in (("goes on", (30, 10, 1e-3)),
+                                    ("converged", (12, 10, 1e-12)),
+                                    ("budget spent", (30, 30, 1e-3)),
+                                    ("no step", (0, 10, 1e-3))):
+            loop = torch.tensor([j, it, maxiter, 1, 2, maxiter, 0, 0],
+                                dtype=torch.int32, device=dev)
+            sc = torch.tensor([2.0, 2e-9, beta, 1e-9], dtype=to, device=dev)
+            hist = torch.as_tensor(rng.standard_normal(maxiter + 1), dtype=to,
+                                   device=dev)
+            outs = []
+            for fn in (GC.gmres_cycle_end, GC.gmres_cycle_end_plain):
+                lk, sk, hk = loop.clone(), sc.clone(), hist.clone()
+                fn(sk, hk, lk)
+                outs.append((lk, sk, hk))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                fail(f"gmres_cycle_end ({tname}, {case}) differs from its "
+                     "plain version")
+            want = int(case == "goes on")
+            if int(outs[0][0][AR.GO]) != want:
+                fail(f"gmres_cycle_end ({tname}, {case}): go flag "
+                     f"{int(outs[0][0][AR.GO])}, want {want}")
+        for case, bn in (("||b|| > 0", 2.0), ("||b|| = 0", 0.0)):
+            sc = torch.tensor([bn, 0.0, 0.0, 1e-9], dtype=to, device=dev)
+            loop = torch.tensor([5, 5, maxiter, 0, 3, maxiter, 1, 0],
+                                dtype=torch.int32, device=dev)
+            hist = torch.as_tensor(rng.standard_normal(maxiter + 1), dtype=to,
+                                   device=dev)
+            pairs = []
+            for fn in (GC.gmres_init, GC.gmres_init_plain):
+                lk, sk, hk = loop.clone(), sc.clone(), hist.clone()
+                fn(sk, hk, lk)
+                pairs.append((lk, sk, hk))
+            for b1 in (0.25, 0.0):
+                sc1 = torch.tensor([bn, 2e-9, 0.0, 1e-9], dtype=to, device=dev)
+                outs = []
+                for fn in (GC.gmres_escalate, GC.gmres_escalate_plain):
+                    sc2 = torch.tensor([b1, 0.0, 0.0, 0.0], dtype=to,
+                                       device=dev)
+                    fn(sc1, sc2)
+                    outs.append((sc2,))
+                pairs.extend(outs)
+            torch.cuda.synchronize()
+            for a, b in zip(pairs[::2], pairs[1::2]):
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    fail(f"gmres_init / gmres_escalate ({tname}, {case}) "
+                         "differ from their plain versions")
+        # timed from a cycle that took no step: repeats leave it in place
+        hist = torch.zeros(maxiter + 1, dtype=to, device=dev)
+        loop = torch.tensor([0, 10, maxiter, 1, 2, maxiter, 0, 0],
+                            dtype=torch.int32, device=dev)
+        sc = torch.tensor([2.0, 2e-9, 1e-3, 1e-9], dtype=to, device=dev)
+        sc2 = torch.tensor([0.25, 0.0, 0.0, 0.0], dtype=to, device=dev)
+        scb = 4 * to.itemsize
+        lat = lambda chain, nb: bound(nb, chain, tname, chain=chain)
+        record(f"gmres_cycle_end{key}", f"{tname}", (0.0, 0.0), 0.0,
+               device_ms(lambda: GC.gmres_cycle_end(sc, hist, loop)),
+               device_ms(lambda: GC.gmres_cycle_end_plain(sc, hist, loop)),
+               lat(3, scb + 32 + to.itemsize))
+        record(f"gmres_init{key}", f"{tname} hist [{maxiter + 1}]",
+               (0.0, 0.0), 0.0,
+               device_ms(lambda: GC.gmres_init(sc, hist, loop)),
+               device_ms(lambda: GC.gmres_init_plain(sc, hist, loop)),
+               lat(2, scb + 32 + (maxiter + 1) * to.itemsize))
+        record(f"gmres_escalate{key}", f"{tname}", (0.0, 0.0), 0.0,
+               device_ms(lambda: GC.gmres_escalate(sc, sc2)),
+               device_ms(lambda: GC.gmres_escalate_plain(sc, sc2)),
+               lat(2, 2 * scb))
+    check_set_cond(dev, results)
+
+
+def check_set_cond(dev, results: Results, kout: int = 6, kin: int = 9) -> None:
+    """``gmres_set_cond`` in a composed graph (``SolveGraph``: nested WHILE
+    nodes, the parts captured by torch): ``kout`` cycles of ``kin`` steps
+    counted on the device, against the host loop that reads the same flags
+    (``go_on``, its plain version)."""
+    import torch
+
+    from hsolve_torch.ops import arnoldi as AR
+    from hsolve_torch.ops import gmres_control as GC
+
+    loop = torch.zeros(AR.LOOP_LEN, dtype=torch.int32, device=dev)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def pre():
+        loop.zero_()
+        steps.zero_()
+        loop[AR.GO:AR.GO + 1].copy_(one)
+
+    def start():
+        loop[AR.J:AR.J + 1].zero_()
+        loop[AR.DONE:AR.DONE + 1].zero_()
+
+    def step():
+        loop[AR.J:AR.J + 1].add_(1)
+        steps.add_(1)
+        loop[AR.DONE:AR.DONE + 1].copy_((loop[AR.J:AR.J + 1] >= kin).int())
+
+    def end():
+        loop[AR.CYC:AR.CYC + 1].add_(1)
+        loop[AR.GO:AR.GO + 1].copy_((loop[AR.CYC:AR.CYC + 1] < kout).int())
+
+    def host():
+        pre()
+        while GC.go_on(loop, AR.GO):
+            start()
+            while GC.go_on(loop, AR.DONE, negate=True):
+                step()
+            end()
+
+    host()
+    want = (loop.clone(), steps.clone())
+    g = GC.SolveGraph([(loop, pre, start, step, end)], lambda: None,
+                      [loop, steps, one], dev)
+    loop.fill_(-1)
+    g.launch()
+    torch.cuda.synchronize()
+    if not (torch.equal(loop, want[0]) and torch.equal(steps, want[1])
+            and int(steps[0]) == kout * kin):
+        fail(f"gmres_set_cond: the graph counted {loop.tolist()} / "
+             f"{steps.tolist()}, the host loop {want[0].tolist()} / "
+             f"{want[1].tolist()}")
+    conds = 1 + kout * (kin + 2)
+    results.record("gmres_set_cond", f"{kout} cycles of {kin} steps",
+                   (0.0, 0.0), 0.0, device_ms(g.launch) / conds,
+                   device_ms(host) / conds, bound(4, 0, chain=1))
+    del g
+
+
+class HostOps:
+    """Counts what the host issues inside a ``with`` block: torch operations
+    (a dispatch mode sees each), the port's kernel launches from Python and
+    its graph launches (the wrappers' counts, before any graph's replays are
+    folded in)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from hsolve_torch import kernels
+
+        class Count(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Count.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self._kernels = kernels
+        self._before = kernels.snapshot_counts()
+        self._mode = Count()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        after = self._kernels.snapshot_counts()
+        names = self._kernels.wrappers()
+        self.launches = sum(v - self._before.get(k, 0)
+                            for k, v in after.items()
+                            if k in names and k not in ("arnoldi_cgs2",
+                                                        "arnoldi_givens"))
+        self.torch_ops = type(self._mode).n
+        self.total = self.torch_ops + self.launches
+        return False
+
+    def __str__(self):
+        return (f"{self.total} ({self.torch_ops} torch operations, "
+                f"{self.launches} kernel and graph launches)")
+
+
 def factor_bytes(F) -> int:
     """Bytes of the tensors the factorization's dense levels and root keep."""
     import torch
@@ -1589,6 +1879,8 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     import torch
 
     import hsolve_torch as ht
+    import hsolve_torch.krylov as K
+    from hsolve_torch import kernels
     from hsolve_torch.factor import solve_with_data
 
     A, b, shape = problems.get(n)
@@ -1641,15 +1933,44 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     else:
         prec, inner = solve_with_data, {}
 
-    def solve():
-        out["x"], out["info"] = ht.gmres_compiled(
-            mv, prec, bt, reltol=RELRES, restart=30, maxiter=60,
-            mv_data=op, M_data=F.solve_data, **inner)
+    kw = dict(reltol=RELRES, restart=30, maxiter=60, mv_data=op,
+              M_data=F.solve_data, **inner)
 
-    solve()                                                    # cold
+    def solve():
+        # the JAX bench's call: one CUDA graph a solve, nothing read back
+        out["x"], out["info"] = ht.gmres_compiled(mv, prec, bt,
+                                                  fetch_info=False, **kw)
+
+    t0 = time.perf_counter()
+    solve()                                          # cold: the capture
     torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    graphs = K.graph_stats(F.solve_data)
+    if len(graphs) != 1:
+        fail(f"n={n} {path}: {len(graphs)} solve graphs on the factor")
     solve_ms = time_ms(solve, reps=reps, warmup=reps // 3)
-    x, info = out["x"], out["info"]
+    # a warm solve that may not read the device: torch raises on a sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with HostOps() as graph_ops:
+            solve()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    x, info = out["x"], ht.fetch_gmres_info(out["info"])
+    # the yardstick: the same functions launched eagerly, the host reading
+    # the loop's flags; untimed, and its launches are not the main path's
+    snap = kernels.launch_counts()
+    with HostOps() as host_ops:
+        xd, idrv = K.gmres_host_driven(mv, prec, bt, **kw)
+    kernels.restore_counts(snap)
+    if idrv["iters"] != info["iters"]:
+        fail(f"n={n} {path}: the graph took {info['iters']} iterations, the "
+             f"host-driven loop {idrv['iters']}")
+    xdiff = float(torch.linalg.vector_norm(x - xd)
+                  / torch.linalg.vector_norm(xd))
+    if not xdiff <= XDIFF:
+        fail(f"n={n} {path}: x of the graph and of the host-driven loop "
+             f"differ by {xdiff:.3e} > {XDIFF:g}")
     xh = x.cpu().numpy()
     if xh.shape != (A.shape[0],) or not np.all(np.isfinite(xh)):
         fail(f"n={n}: solution has shape {xh.shape} or non-finite values")
@@ -1658,6 +1979,11 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
            "plan_cold_s": plan_s[0], "factor_s": factor_ms / 1e3,
            "solve_s": solve_ms / 1e3, "iters": info["iters"],
            "converged": info["converged"], "relres_scipy": relres,
+           "solve_cold_s": cold_s, "x_vs_host_driven": xdiff,
+           "host_ops_graph": graph_ops.total,
+           "host_ops_host_driven": host_ops.total,
+           "graph_pool_mb": graphs[0]["pool_bytes"] / 2 ** 20,
+           "graph_state_mb": graphs[0]["state_bytes"] / 2 ** 20,
            "gmres_resnorm_last": float(info["resnorm"][-1]) / float(
                np.linalg.norm(b)),
            "factor_peak_mb": peak_mb}
@@ -1696,6 +2022,12 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
            if compressed else "")
         + f"  factor peak {peak_mb:.1f} MiB"
         + (f", kept {res['factor_kept_mb']:.1f} MiB" if not compressed else ""))
+    log(f"  n={n} {path}: solve graph captured in {cold_s:.3f} s (cold call); "
+        f"private pool {res['graph_pool_mb']:.1f} MiB reserved "
+        f"({graphs[0]['pool_live_bytes'] / 2 ** 20:.1f} MiB live), static "
+        f"state {res['graph_state_mb']:.1f} MiB; host operations per warm "
+        f"solve: graph {graph_ops} (no sync), host-driven loop {host_ops}; "
+        f"x against the host-driven loop {xdiff:.2e}, equal iterations")
     if not info["converged"]:
         fail(f"n={n} {path}: GMRES did not converge ({info})")
     if not relres <= RELRES:
@@ -1812,6 +2144,7 @@ def main() -> int:
     check_compressed_kernels(problems, args.kernel_n, dev, kres)
     check_hss_kernels(problems, args.kernel_n, dev, kres)
     check_arnoldi_kernels(problems, args.kernel_n, dev, kres)
+    check_control_kernels(problems, args.kernel_n, dev, kres)
     log(f"[3] the same kernels at the 3D plans' shapes: exact {EXACT3D}, "
         f"low-rank {LOWRANK3D}, structured {HSS3D}")
     check_kernels(problems, EXACT3D, dev, kres)
@@ -1850,7 +2183,21 @@ def main() -> int:
                      f"{counts['arnoldi_cgs2']} of L and "
                      f"{counts['arnoldi_givens']} of M")
             log(f"  n={n} {path}: {step} Arnoldi steps, one launch each")
+            # every solve one graph launch: the cold one, the timed ones,
+            # the one under the sync check
+            solves = counts.get("gmres_graph", 0)
+            if solves < 3 or counts.get("gmres_set_cond", 0) < solves:
+                fail(f"n={n} {path}: {solves} graph launches, "
+                     f"{counts.get('gmres_set_cond', 0)} conditions set")
             runs[-1]["launches"] = counts
+    ops = sorted({r["host_ops_graph"] for r in runs})
+    its = sorted(r["iters"] for r in runs)
+    log(f"[4] host operations per warm solve through the graph: {ops} over "
+        f"{len(runs)} runs of {its[0]} to {its[-1]} iterations; the "
+        f"host-driven loop: "
+        f"{sorted(r['host_ops_host_driven'] for r in runs)}")
+    if len(ops) != 1:
+        fail(f"host operations per warm solve depend on the run: {ops}")
     for argv in BENCH_RUNS:
         log(f"[4] bench: python -m hsolve_torch.bench {' '.join(argv)}")
         runs_bench = check_bench(argv)

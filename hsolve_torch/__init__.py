@@ -11,8 +11,9 @@ The entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  The package imports torch, numpy and scipy only; it never
 imports jax or ``hsolve`` (the JAX package, kept as the reference), so it runs
 where JAX is absent.  Module names mirror ``hsolve/``.  Its thirteen
-hand-written CUDA kernels live in ``csrc/`` and are built and bound by
-:mod:`hsolve_torch.kernels`.
+hand-written CUDA kernels and the GMRES loop's control kernels live in
+``csrc/`` and are built and bound by :mod:`hsolve_torch.kernels`; on the
+card ``gmres_compiled`` runs the whole solve as one CUDA graph.
 """
 
 from hsolve_torch.options import SolverOptions
@@ -24,7 +25,7 @@ from hsolve_torch.models.dissect import nested_dissection
 from hsolve_torch.models.matio import read_problem, write_problem
 from hsolve_torch.planner import Plan, plan_factorization
 from hsolve_torch.factor import Factorization, factor, factor_with_plan
-from hsolve_torch.krylov import gmres, gmres_compiled
+from hsolve_torch.krylov import fetch_gmres_info, gmres, gmres_compiled
 from hsolve_torch.ops.sparse import (dia_matvec, ell_matvec, spmv_format, to_dia,
                                      to_ell)
 
@@ -33,6 +34,6 @@ __all__ = [
     "postorder", "permuted", "contiguous", "poisson2d", "helmholtz2d", "poisson3d",
     "helmholtz3d", "p1_fem_2d", "nested_dissection", "read_problem", "write_problem",
     "plan_factorization", "Plan", "factor", "factor_with_plan", "Factorization",
-    "gmres", "gmres_compiled", "to_dia", "dia_matvec", "to_ell", "ell_matvec",
-    "spmv_format",
+    "gmres", "gmres_compiled", "fetch_gmres_info", "to_dia", "dia_matvec",
+    "to_ell", "ell_matvec", "spmv_format",
 ]

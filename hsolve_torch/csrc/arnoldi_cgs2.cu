@@ -10,8 +10,14 @@
 //     hc[:R] = h1 + h2,  hc[R] = ||w||                    (R = j + 1)
 //
 // and, in `hs_arnoldi_step`, `V[j+1] = w / hnorm` (:238) with the Givens
-// step, `inner_cond` and the cycle end (arnoldi_givens.cuh).  Instantiated
-// for double and float (`_f32`: the inner cycles of mixed-precision GMRES).
+// step, `inner_cond` (:269-273) and the cycle end (arnoldi_givens.cuh).
+// The step reads its loop state from device memory (gmres_loop.cuh: j, it,
+// maxiter and the cycle's floor), so that a CUDA graph can replay it under a
+// WHILE node: R = j + 1 is read at the kernel's start, the tail evaluates
+// `inner_cond` for the next step (j + 1 < m, the estimate above the floor,
+// it + j + 1 < maxiter) into the loop's done flag and advances j.
+// Instantiated for double and float (`_f32`: the inner cycles of
+// mixed-precision GMRES).
 //
 // Bound: bytes for the passes (a step must read the R rows of V and w and
 // write V[j+1]; four multiply-adds per value of V), latency for the tail
@@ -35,13 +41,16 @@
 // ||w|| and re-arms the ticket; CTA 0 writes hc[:R] = h1 + h2.
 // The step (`hs_arnoldi_step`): a third barrier; every CTA sums P3 in the
 // same fixed order, so all hold ||w|| bit for bit, and writes its slice of
-// V[j+1] = w / ||w|| (1 where ||w|| is 0) from shared memory (w itself is
-// not written back: the GMRES loop reads only V[j+1]).  The CTA that arrived last at the third barrier writes hc and
-// runs kernel M's step in its warp 0 on the column, h1 + h2 and ||w||,
-// already in its shared memory, with its slice of w's buffer as M's
-// scratch (H[:J, :J] staged there where it fits: always at the restarts
-// GMRES uses, J <= 30).  Each CTA then counts its exit on the ticket; the
-// last one out re-arms it.
+// V[j+1] = w / ||w|| (1 where ||w|| is 0) from shared memory, and the same
+// slice to `vj`, the fixed buffer the next step's preconditioner reads (w
+// itself is not written back: the GMRES loop reads only V[j+1]).  Its
+// shared memory is sized for R = m, the most rows a step can have.  The
+// CTA that arrived last at the third barrier writes hc and runs kernel M's
+// step in its warp 0 on the column, h1 + h2 and ||w||, already in its
+// shared memory, with its slice of w's buffer as M's scratch (H[:J, :J]
+// staged there where it fits: always at the restarts GMRES uses, J <= 30),
+// then advances j.  Each CTA then counts its exit on the ticket; the last
+// one out re-arms it.
 // The staged rows come from shared memory after pass 1; the others are swept
 // in alternating directions so that the rows read last are still in L2.  V
 // is read with 16-byte loads along N: a row whose start is not 16-byte
@@ -51,6 +60,7 @@
 // (or when L alone's last CTA resets it), 4G when the step's last CTA out
 // resets it.  Nothing goes to the host.
 #include "arnoldi_givens.cuh"
+#include "gmres_loop.cuh"
 
 #define HS_CGS2_THREADS 512
 #define HS_CGS2_WARPS (HS_CGS2_THREADS / 32)
@@ -178,8 +188,9 @@ template <typename T>
 __global__ void __launch_bounds__(HS_CGS2_THREADS, 1)
 arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
                     T* __restrict__ hc, T* __restrict__ part,
-                    unsigned* __restrict__ ticket, int R, int64_t N, int S,
-                    int Rs, T* __restrict__ Vn, GivensArgs<T> p) {
+                    unsigned* __restrict__ ticket, int R_arg, int64_t N,
+                    int S, int Rs_max, GivensArgs<T> p, int* loop,
+                    const T* __restrict__ floor, T* __restrict__ vj) {
   constexpr int W = Vec16<T>::n;
   extern __shared__ __align__(16) unsigned char hs_smem[];
   T* h1 = reinterpret_cast<T*>(hs_smem);            // [MAX_ROWS]
@@ -189,7 +200,12 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   T* stage = ws + S;                                // [Rs][S] rows of V
   __shared__ bool last;
   __shared__ T hnorm;
-  const bool step = Vn != nullptr;                  // M's tail and V[j+1]
+  const bool step = loop != nullptr;                // M's tail and V[j+1]
+  // the step's rows: j + 1, read once (the tail advances j after every CTA
+  // has passed the third barrier)
+  const int R = step ? __ldcg(loop + HS_LOOP_J) + 1 : R_arg;
+  const int Rs = R < Rs_max ? R : Rs_max;
+  T* Vn = step ? const_cast<T*>(V) + (int64_t)R * N : nullptr;
   const int G = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t lo = (int64_t)blockIdx.x * S;
@@ -334,8 +350,11 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   __syncthreads();
   const T hn = hnorm;
   const T dv = hn > T(0) ? hn : T(1);
-  for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS)
-    Vn[lo + t] = div_rn(ws[t], dv);
+  for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) {
+    const T v = div_rn(ws[t], dv);
+    Vn[lo + t] = v;
+    vj[lo + t] = v;
+  }
   if (tail) {
     // the column h1 + h2, ||w|| in place of h1 (zero up to m), written to
     // hc; then M's step in warp 0, w's buffer its scratch
@@ -346,7 +365,15 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
       if (i <= R) hc[i] = v;
     }
     __syncthreads();
-    if (warp == 0) givens_step(col, ws, p, R - 1);
+    if (warp == 0) {
+      // inner_cond for the next step, from the loop state
+      const int j = R - 1;
+      GivensArgs<T> q = p;
+      q.floor = *floor;
+      q.cont = j + 1 < p.m && loop[HS_LOOP_IT] + j + 1 < loop[HS_LOOP_MAXITER];
+      givens_step(col, ws, q, j);
+      if (lane == 0) loop[HS_LOOP_J] = R;
+    }
   }
   // the last CTA out re-arms the ticket
   if (threadIdx.x == 0 &&
@@ -360,15 +387,19 @@ static inline long long cgs2_slice(long long N, int G) {
   return (s + 3) / 4 * 4;
 }
 
-// Kernel L's launch; with `tail` (the step) also M's step and V[j+1] = w /
-// ||w|| into `Vn` (w not written back)
+// Kernel L's launch.  Alone: R rows, w written back.  With `tail` (the
+// step): R is the most rows a step of the loop state `loop` can have (m),
+// the kernel reads its own from `loop`, runs M's step and writes V[j+1] =
+// w / ||w|| to V and `vj` (w not written back)
 template <typename T>
 static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
                         void* ticket, int R, long long N, int G,
-                        const GivensArgs<T>* tail, void* stream) {
+                        const GivensArgs<T>* tail, int* loop,
+                        const void* floor, void* vj, void* stream) {
   if (R < 1 || R > HS_CGS2_MAX_ROWS || G < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  if (tail && (tail->m < 1 || tail->m > HS_GIVENS_MAX_M || R > tail->m))
+  if (tail && (tail->m < 1 || tail->m > HS_GIVENS_MAX_M || R > tail->m ||
+               !loop || !floor || !vj))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(V) & 15u)
     return (int)cudaErrorMisalignedAddress;
@@ -381,15 +412,13 @@ static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
   if (rs > R) rs = R;
   long long smem = fixed + rs * S * e;
   GivensArgs<T> p = {};
-  T* Vn = nullptr;
   if (tail) {
     // M's scratch lives in w's buffer and past it: stage H[:J, :J] where
-    // the CTA's shared memory holds it
+    // the CTA's shared memory holds it at the largest J
     p = *tail;
     p.h_smem = (small + givens_smem_values(p.m, R, true)) * e <= HS_CGS2_SMEM;
     const long long need = (small + givens_smem_values(p.m, R, p.h_smem)) * e;
     if (need > smem) smem = need;
-    Vn = (T*)V + (long long)R * N;
   }
   auto kern = arnoldi_cgs2_kernel<T>;
   static bool granted = false;
@@ -404,9 +433,12 @@ static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
   T* hcp = (T*)hc;
   T* pp = (T*)part;
   unsigned* tp = (unsigned*)ticket;
+  const T* fp = (const T*)floor;
+  T* vjp = (T*)vj;
   int64_t N64 = N;
   int Si = (int)S, Rsi = (int)rs;
-  void* args[] = {&Vp, &wp, &hcp, &pp, &tp, &R, &N64, &Si, &Rsi, &Vn, &p};
+  void* args[] = {&Vp, &wp, &hcp, &pp, &tp, &R, &N64, &Si, &Rsi, &p, &loop,
+                  &fp, &vjp};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)kern, dim3(G), dim3(HS_CGS2_THREADS), args, (size_t)smem,
       (cudaStream_t)stream);
@@ -421,42 +453,47 @@ HS_EXPORT int hs_arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
                               void* ticket, int R, long long N, int nb,
                               void* stream) {
   return arnoldi_cgs2<double>(V, w, hc, part, ticket, R, N, nb, nullptr,
-                              stream);
+                              nullptr, nullptr, nullptr, stream);
 }
 
 HS_EXPORT int hs_arnoldi_cgs2_f32(const void* V, void* w, void* hc,
                                   void* part, void* ticket, int R,
                                   long long N, int nb, void* stream) {
   return arnoldi_cgs2<float>(V, w, hc, part, ticket, R, N, nb, nullptr,
-                             stream);
+                             nullptr, nullptr, nullptr, stream);
 }
 
-// One Arnoldi step j (R = j + 1 rows of V): L's passes, V[j+1], M's step
+// One Arnoldi step of the loop state `loop` (gmres_loop.cuh; j = loop[J]):
+// L's passes, V[j+1] (and `vj`), M's step against `*floor`, loop[DONE] and
+// j + 1
 template <typename T>
 static int arnoldi_step(const void* V, void* w, void* hc, void* part,
                         void* ticket, void* H, void* cs, void* sn, void* g,
-                        void* st, void* done, void* y, int j, long long N,
-                        int nb, int m, double res_floor, int cont,
+                        void* st, void* y, void* vj, void* loop,
+                        const void* floor, long long N, int nb, int m,
                         void* stream) {
-  const GivensArgs<T> p = {(T*)H, (T*)cs, (T*)sn, (T*)g, (T*)st, (int*)done,
-                           (T*)y, m, (T)res_floor, cont, 0};
-  return arnoldi_cgs2<T>(V, w, hc, part, ticket, j + 1, N, nb, &p, stream);
+  int* lp = (int*)loop;
+  const GivensArgs<T> p = {(T*)H, (T*)cs, (T*)sn, (T*)g, (T*)st,
+                           lp ? lp + HS_LOOP_DONE : nullptr, (T*)y, m, T(0),
+                           0, 0};
+  return arnoldi_cgs2<T>(V, w, hc, part, ticket, m, N, nb, &p, lp, floor, vj,
+                         stream);
 }
 
 HS_EXPORT int hs_arnoldi_step(const void* V, void* w, void* hc, void* part,
                               void* ticket, void* H, void* cs, void* sn,
-                              void* g, void* st, void* done, void* y, int j,
-                              long long N, int nb, int m, double res_floor,
-                              int cont, void* stream) {
-  return arnoldi_step<double>(V, w, hc, part, ticket, H, cs, sn, g, st, done,
-                              y, j, N, nb, m, res_floor, cont, stream);
+                              void* g, void* st, void* y, void* vj,
+                              void* loop, const void* floor, long long N,
+                              int nb, int m, void* stream) {
+  return arnoldi_step<double>(V, w, hc, part, ticket, H, cs, sn, g, st, y, vj,
+                              loop, floor, N, nb, m, stream);
 }
 
-HS_EXPORT int hs_arnoldi_step_f32(const void* V, void* w, void* hc, void* part,
-                                  void* ticket, void* H, void* cs, void* sn,
-                                  void* g, void* st, void* done, void* y,
-                                  int j, long long N, int nb, int m,
-                                  double res_floor, int cont, void* stream) {
-  return arnoldi_step<float>(V, w, hc, part, ticket, H, cs, sn, g, st, done,
-                             y, j, N, nb, m, res_floor, cont, stream);
+HS_EXPORT int hs_arnoldi_step_f32(const void* V, void* w, void* hc,
+                                  void* part, void* ticket, void* H, void* cs,
+                                  void* sn, void* g, void* st, void* y,
+                                  void* vj, void* loop, const void* floor,
+                                  long long N, int nb, int m, void* stream) {
+  return arnoldi_step<float>(V, w, hc, part, ticket, H, cs, sn, g, st, y, vj,
+                             loop, floor, N, nb, m, stream);
 }

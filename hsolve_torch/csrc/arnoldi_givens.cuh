@@ -14,9 +14,10 @@
 //   - H[:, j] = the rotated column, cs[j], sn[j], g[j], g[j+1] = -sn_j g[j],
 //   - st[0] = |g[j+1]| (the residual estimate), st[1] = ||w|| or 1 where it
 //     is 0 (the divisor that scales w into V[J]),
-//   - done = !(cont && st[0] > floor): `cont` carries the loop conditions the
-//     host already knows (J < m and it + J < maxiter), the floor is
-//     max(tol, m_eps beta) in the value type;
+//   - done = !(cont && st[0] > floor): `cont` carries the rest of the
+//     loop's test (J < m and it + J < maxiter; the step's tail reads it and
+//     the floor, max(tol, m_eps beta) in the value type, from the loop
+//     state in device memory, M alone takes both from its caller);
 //   - when done, y[:J] solves the upper triangular H[:J, :J] y = g[:J] and
 //     y[J:m] = 0 (JAX's identity-masked solve).
 //

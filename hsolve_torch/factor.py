@@ -132,6 +132,12 @@ class RootSolve:
     diag_ratio: Optional[torch.Tensor] = None
 
 
+class SolveData(tuple):
+    """``(levels, root, dperm, diperm)``: a factorization's solve data, a
+    tuple that also takes attributes (``gmres_compiled`` caches the CUDA
+    graphs that read it there, so they live no longer than it)."""
+
+
 @dataclasses.dataclass
 class Factorization:
     """The assembled preconditioner / direct solver (reference ``FactorNode``).
@@ -155,6 +161,8 @@ class Factorization:
         inv = np.empty(len(self.perm), dtype=np.int64)
         inv[self.perm] = np.arange(len(self.perm), dtype=np.int64)
         self._diperm = torch.as_tensor(inv, device=self.device)  # gather, not scatter
+        self._solve_data = SolveData((self.levels, self.root, self._dperm,
+                                      self._diperm))
 
     def _on_device(self, b) -> torch.Tensor:
         if isinstance(b, torch.Tensor):
@@ -182,10 +190,12 @@ class Factorization:
         return solve_with_data(self.solve_data, b.to(self.dtype)).to(b.dtype)
 
     @property
-    def solve_data(self):
+    def solve_data(self) -> "SolveData":
         """Everything ``solve`` needs, for :func:`solve_with_data` (the
-        preconditioner data of :func:`~hsolve_torch.krylov.gmres_compiled`)."""
-        return (self.levels, self.root, self._dperm, self._diperm)
+        preconditioner data of :func:`~hsolve_torch.krylov.gmres_compiled`,
+        which keeps its CUDA graphs on it): one object for the
+        factorization's lifetime."""
+        return self._solve_data
 
     def maxrank(self) -> int:
         """Max compression rank across the factorization (parity with

@@ -24,12 +24,18 @@ they serve:
   ``hss_level_correct`` (kernel K) in :mod:`hsolve_torch.ops.hss`,
 - ``arnoldi_cgs2`` (kernel L), ``arnoldi_givens`` (kernel M) and
   ``arnoldi_step`` (L's launch with M's step as its tail, the GMRES loop's
-  step) in :mod:`hsolve_torch.ops.arnoldi`.
+  step) in :mod:`hsolve_torch.ops.arnoldi`,
+- the GMRES loop's control kernels ``gmres_init``, ``gmres_cycle_start``,
+  ``gmres_cycle_end``, ``gmres_escalate`` and ``gmres_set_cond`` (the
+  condition of a WHILE node), with the composition of a solve as one CUDA
+  graph (``hs_gmres_graph``), in :mod:`hsolve_torch.ops.gmres_control`.
 
 Kernels A-D, L and M run on every path; E, F and G on the compressed levels;
 H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32 or float64 values (one C entry point
-per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64.  Kernel C's
+per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64; the
+control kernels the solution's type (the cycle start also float32 cycles in
+a float64 solve, ``hs_gmres_cycle_start_mixed``).  Kernel C's
 forward step of a wide front runs on a thread block cluster
 (``cudaLaunchKernelEx``), and so do kernel E where a launch's few fronts
 leave SMs idle, kernel J where a level's few matrices do, and kernel K with
@@ -42,9 +48,14 @@ card cannot hold its grid at once; kernel F's top levels share a row band's
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
-a plain integer attribute, ``wrapper.launches``; the wrappers of A-D, L and M
-also count them per value type in ``wrapper.launches_by_type``
-(:func:`count_launch`).
+a plain integer attribute, ``wrapper.launches``; the wrappers of A-D, L, M
+and the control kernels also count them per value type in
+``wrapper.launches_by_type`` (:func:`count_launch`).  A wrapper called while
+a solve's parts are captured into a CUDA graph counts at capture; the graph
+keeps those counts per part and :func:`launch_counts` multiplies them by
+the replays, cycles and steps the device summed
+(``ops.gmres_control.SolveGraph.fold_counts``), so the counts stay launches
+that ran.
 """
 
 from __future__ import annotations
@@ -85,13 +96,24 @@ _SIGNATURES = {
     "hs_hss_level_correct_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
-    "hs_arnoldi_step": [_V] * 12 + [_I, _LL, _I, _I, _D, _I, _V],
+    "hs_arnoldi_step": [_V] * 14 + [_LL, _I, _I, _V],
+    "hs_gmres_init": [_V, _V, _V, _I, _V],
+    "hs_gmres_cycle_start": [_V] * 11 + [_LL, _I, _D, _V],
+    "hs_gmres_cycle_end": [_V, _V, _V, _I, _V],
+    "hs_gmres_escalate": [_V, _V, _V],
+    "hs_gmres_graph": [_I, _V, _V, _V, _V],
+    "hs_gmres_graph_launch": [_V, _V],
+    "hs_gmres_graph_destroy": [_V, _V],
 }
-# A-D, L and M also take float32: the same signature under ``<name>_f32``
+# A-D, L, M and the control kernels also take float32: the same signature
+# under ``<name>_f32``
 TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
          "hs_level_forward_windowed", "hs_sweep_update", "hs_dia_spmv",
-         "hs_arnoldi_cgs2", "hs_arnoldi_givens", "hs_arnoldi_step")
+         "hs_arnoldi_cgs2", "hs_arnoldi_givens", "hs_arnoldi_step",
+         "hs_gmres_init", "hs_gmres_cycle_start", "hs_gmres_cycle_end",
+         "hs_gmres_escalate")
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
+_SIGNATURES["hs_gmres_cycle_start_mixed"] = _SIGNATURES["hs_gmres_cycle_start"]
 VALUE_TYPES = (torch.float32, torch.float64)
 
 _lib = None
@@ -267,28 +289,42 @@ def count_launch(fn, dtype: torch.dtype) -> None:
     fn.launches_by_type[key] = fn.launches_by_type.get(key, 0) + 1
 
 
+# the GMRES loop's control kernels on every path (the escalation's on the
+# mixed one); gmres_set_cond runs only inside a solve's graph
+CONTROL = ("gmres_init", "gmres_cycle_start", "gmres_cycle_end",
+           "gmres_set_cond")
 EXACT_PATH = ("front_assemble", "extend_add", "level_forward", "sweep_update",
-              "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step")
+              "dia_spmv", "arnoldi_cgs2", "arnoldi_givens",
+              "arnoldi_step") + CONTROL
 COMPRESSED_PATH = EXACT_PATH + ("lowrank_sweep_update", "lowrank_schur_update",
                                 "lowrank_truncate")
 HSS_PATH = COMPRESSED_PATH + ("cpqr_pivots", "hss_entries_prepared",
                               "hss_matvec", "hss_level_correct")
 # the float32 factor with mixed-precision GMRES: A-C and the inner matvec in
 # float32, the outer residual in float64, the inner cycles' steps (L with M
-# as its tail) in float32
+# as its tail) and their cycle starts in float32, the loop in float64, and
+# the escalation
 MIXED_PATH = ("front_assemble:float32", "extend_add:float32",
               "level_forward:float32", "sweep_update:float32",
               "dia_spmv:float32", "dia_spmv:float64", "arnoldi_cgs2:float32",
-              "arnoldi_givens:float32", "arnoldi_step:float32")
+              "arnoldi_givens:float32", "arnoldi_step:float32",
+              "gmres_init:float64", "gmres_cycle_start:float32",
+              "gmres_cycle_end:float64", "gmres_escalate:float64",
+              "gmres_set_cond")
 
 
 def wrappers():
     """The kernel wrappers, by name (A-M; C has two, ``level_forward`` and
-    ``sweep_update``), and ``arnoldi_step``, the launch of L with M's step as
-    its tail (it also counts one launch of L and one of M)."""
+    ``sweep_update``), ``arnoldi_step``, the launch of L with M's step as
+    its tail (it also counts one launch of L and one of M), the control
+    kernels and ``gmres_graph`` (the host's launches of solve graphs)."""
     from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_givens,
                                           arnoldi_step)
     from hsolve_torch.ops.assembly import extend_add, front_assemble
+    from hsolve_torch.ops.gmres_control import (gmres_cycle_end,
+                                                gmres_cycle_start,
+                                                gmres_escalate, gmres_graph,
+                                                gmres_init, gmres_set_cond)
     from hsolve_torch.ops.hss import (hss_entries_prepared, hss_level_correct,
                                       hss_matvec)
     from hsolve_torch.ops.lowrank import cpqr_pivots, lowrank_truncate
@@ -306,12 +342,15 @@ def wrappers():
             "hss_entries_prepared": hss_entries_prepared,
             "hss_matvec": hss_matvec, "hss_level_correct": hss_level_correct,
             "arnoldi_cgs2": arnoldi_cgs2, "arnoldi_givens": arnoldi_givens,
-            "arnoldi_step": arnoldi_step}
+            "arnoldi_step": arnoldi_step, "gmres_init": gmres_init,
+            "gmres_cycle_start": gmres_cycle_start,
+            "gmres_cycle_end": gmres_cycle_end,
+            "gmres_escalate": gmres_escalate,
+            "gmres_set_cond": gmres_set_cond, "gmres_graph": gmres_graph}
 
 
-def launch_counts() -> Dict[str, int]:
-    """Launches per wrapper, and per ``"<name>:<value type>"`` for the typed
-    ones."""
+def snapshot_counts() -> Dict[str, int]:
+    """The wrappers' counts as they stand (no solve graph folded)."""
     out = {}
     for name, fn in wrappers().items():
         out[name] = fn.launches
@@ -320,7 +359,48 @@ def launch_counts() -> Dict[str, int]:
     return out
 
 
+def restore_counts(snap: Dict[str, int]) -> None:
+    """Set the wrappers' counts back to a :func:`snapshot_counts`."""
+    for name, fn in wrappers().items():
+        fn.launches = snap.get(name, 0)
+        if hasattr(fn, "launches_by_type"):
+            fn.launches_by_type = {k.split(":", 1)[1]: v
+                                   for k, v in snap.items()
+                                   if k.startswith(f"{name}:")}
+
+
+def counts_delta(before: Dict[str, int], after: Dict[str, int]
+                 ) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (names and ``name:type`` keys) to the wrappers'."""
+    fns = wrappers()
+    for key, n in counts.items():
+        name, _, typ = key.partition(":")
+        if typ:
+            d = fns[name].launches_by_type
+            d[typ] = d.get(typ, 0) + n
+        else:
+            fns[name].launches += n
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per wrapper, and per ``"<name>:<value type>"`` for the typed
+    ones, the replays of live solve graphs folded in first (a host read of
+    each graph's device-side sums)."""
+    from hsolve_torch.ops.gmres_control import fold_all_counts
+
+    fold_all_counts()
+    return snapshot_counts()
+
+
 def reset_launch_counts() -> None:
+    from hsolve_torch.ops.gmres_control import zero_all_counts
+
+    zero_all_counts()
     for fn in wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_by_type"):

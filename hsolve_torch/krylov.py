@@ -6,12 +6,16 @@ Capability parity with the reference's Krylov integration
 is a callable (the port's :class:`~hsolve_torch.factor.Factorization`), with a
 residual-norm history.
 
-:func:`gmres_compiled` runs on the tensors' device: the matvec, the
-preconditioner and each Arnoldi step (one launch: kernel L, CGS2, with
-kernel M's Givens bookkeeping and the scaling into the next basis vector as
-its tail, in the cycles' value type) stay there, and the host reads one
-4-byte done flag per step and one residual norm per cycle (torch has no
-device-side while loop).  It also runs the JAX package's mixed-precision
+:func:`gmres_compiled` is the whole solve as one device program, as the
+JAX package's is: on the card its restart cycles and Arnoldi steps run as
+one CUDA graph whose loops are conditional WHILE nodes driven by flags in
+device memory (:class:`~hsolve_torch.ops.gmres_control.SolveGraph`; each
+step one launch of kernel L with kernel M's Givens bookkeeping and the
+scaling into the next basis vector as its tail, the loop control in the
+kernels of ``csrc/gmres_control.cu``), and the host reads nothing until
+the caller fetches the diagnostics (``fetch_info=False``, then
+:func:`fetch_gmres_info`).  On the CPU a host loop runs the same functions'
+plain versions.  It also runs the JAX package's mixed-precision
 configuration: float32 cycles inside a float64 solve, with escalation to a
 float64 phase.  :func:`gmres` is the host-loop variant (MGS, host Givens).
 """
@@ -23,7 +27,9 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from hsolve_torch.ops.arnoldi import arnoldi_state, arnoldi_step
+from hsolve_torch.ops import gmres_control as gc
+from hsolve_torch.ops.arnoldi import (DONE, GO, IT, MAXITER, NCYC,
+                                      arnoldi_state, arnoldi_step)
 from hsolve_torch.ops.sparse import DiaMatrix, dia_residual, torch_dtype
 
 
@@ -141,11 +147,14 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
                    reltol: float = 1e-9, restart: int = 30,
                    maxiter: Optional[int] = None, M_data=None, mv_data=None,
                    m_eps: float = 0.0, inner_dtype=None, mv_data_inner=None,
-                   escalate: bool = True):
+                   fetch_info: bool = True, escalate: bool = True):
     """Restarted GMRES with CGS2 Arnoldi and true-residual restarts: the
     semantics and iteration counts of the JAX package's ``gmres_compiled``.
     Returns ``(x, info)`` with ``info['iters']``, ``info['resnorm']`` (initial
-    and per-cycle true residual norms) and ``info['converged']``.
+    and per-cycle true residual norms) and ``info['converged']``; with
+    ``fetch_info=False`` ``info`` is ``{"_device": (iters, hist, res, bnorm),
+    "reltol": reltol}``, device tensors read by :func:`fetch_gmres_info`
+    (nothing is read on the host before).
 
     ``matvec``/``M`` take ``(data, v)`` when ``mv_data``/``M_data`` is given,
     else ``v``.  When ``mv_data`` is a :class:`~hsolve_torch.ops.sparse.DiaMatrix`
@@ -161,35 +170,73 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     residual and the convergence test stay in ``b``'s type; ``M`` then sees
     inner-type vectors inside a cycle and outer-type ones at its end.  With
     ``escalate`` (the default) a second phase in the outer type solves the
-    remaining residual system (:func:`_gmres_escalated`).  Each phase has its
-    own ``maxiter`` budget, so ``iters`` may exceed ``maxiter``.
+    remaining residual system.  Each phase has its own ``maxiter`` budget,
+    so ``iters`` may exceed ``maxiter``.
 
-    Every Arnoldi step is one launch on the device
-    (:func:`~hsolve_torch.ops.arnoldi.arnoldi_step`: kernel L with kernel
-    M's step and ``V[j+1]`` as its tail); the host reads the step's 4-byte
-    done flag and, per cycle, the true residual norm."""
+    On a CUDA ``b`` the solve is one CUDA graph, captured at the first call
+    (the JAX package's compile) and replayed after: one graph launch, an
+    enqueued copy of ``b`` into its input and clones of its outputs, however
+    many iterations it takes.  The graph is cached like a jit on the static
+    arguments (``matvec``, ``M``, ``restart``, ``maxiter``, ``inner_dtype``,
+    ``escalate``, ``m_eps``, ``reltol``, ``b``'s shape, type and device) and
+    kept on the operator data it reads: on ``M_data`` (else ``mv_data``,
+    else ``matvec``), holding ``mv_data`` and ``mv_data_inner``, so a new
+    factorization captures anew and a freed one frees its graph.  A matvec or
+    preconditioner that cannot be captured (a host read, a host-to-device
+    copy) raises; nothing falls back to a host loop."""
     if maxiter is None:
         maxiter = restart
-    mv = (lambda v: matvec(mv_data, v)) if mv_data is not None else matvec
-    mv_i = (lambda v: matvec(mv_data_inner, v)) \
-        if mv_data_inner is not None else mv
-    if M is None:
-        prec = lambda v: v
-    elif M_data is not None:
-        prec = lambda v: M(M_data, v)
+    b = torch.as_tensor(b)
+    args = (matvec, M, float(reltol), int(restart), int(maxiter), M_data,
+            mv_data, float(m_eps), inner_dtype, mv_data_inner, bool(escalate))
+    if b.device.type == "cuda":
+        x, packed = _graph_for(b, *args).solve(b)
     else:
-        prec = M
-    idt = None if inner_dtype is None else torch_dtype(inner_dtype)
-    if idt is not None and escalate:
-        x, it, hist, res, bnorm = _gmres_escalated(
-            mv, mv_i, prec, mv_data, b, float(reltol), restart, int(maxiter),
-            float(m_eps), idt)
-    else:
-        x, it, hist, res, bnorm = _gmres_cycles(
-            mv, mv_i, prec, mv_data, b, float(reltol), restart, int(maxiter),
-            float(m_eps), idt)
-    return x, {"resnorm": hist[: it + 1], "iters": it,
-               "converged": bool(res <= max(reltol * bnorm, 0.0))}
+        prog = _Program(b, *args)
+        prog.run_host()
+        x, packed = prog.x_out, prog.packed
+    info = {"_device": _device_info(packed), "reltol": reltol}
+    return x, (fetch_gmres_info(info) if fetch_info else info)
+
+
+def fetch_gmres_info(info: dict) -> dict:
+    """Resolve a ``fetch_info=False`` result of :func:`gmres_compiled` into
+    the standard info dict: one device->host copy."""
+    if "_device" not in info:
+        return info
+    iters, hist, res, bnorm = info["_device"]
+    vals = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in (iters, res, bnorm, hist)]).cpu().numpy()
+    it = int(vals[0])
+    return {"resnorm": vals[3:][: it + 1], "iters": it,
+            "converged": bool(vals[1] <= max(info["reltol"] * float(vals[2]),
+                                             0.0))}
+
+
+def gmres_host_driven(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
+                      reltol: float = 1e-9, restart: int = 30,
+                      maxiter: Optional[int] = None, M_data=None,
+                      mv_data=None, m_eps: float = 0.0, inner_dtype=None,
+                      mv_data_inner=None, escalate: bool = True):
+    """:func:`gmres_compiled`'s functions launched eagerly, the host reading
+    the loop's flags after every step and cycle (:func:`_Program.run_host`):
+    on the CPU the same run as ``gmres_compiled``, on the card the yardstick
+    its graph is held to (nothing on the main path calls it).  Returns
+    ``(x, info)`` as ``gmres_compiled`` with ``fetch_info=True``."""
+    if maxiter is None:
+        maxiter = restart
+    prog = _Program(torch.as_tensor(b), matvec, M, float(reltol), int(restart),
+                    int(maxiter), M_data, mv_data, float(m_eps), inner_dtype,
+                    mv_data_inner, bool(escalate))
+    prog.run_host()
+    return prog.x_out, fetch_gmres_info(
+        {"_device": _device_info(prog.packed), "reltol": reltol})
+
+
+def _device_info(packed: torch.Tensor):
+    """``(iters, hist, res, bnorm)`` as views of the packed output ``[iters,
+    res, bnorm, hist...]``."""
+    return packed[0], packed[3:], packed[1], packed[2]
 
 
 def _residual(mv: Callable, mv_data, b: torch.Tensor) -> Callable:
@@ -198,73 +245,199 @@ def _residual(mv: Callable, mv_data, b: torch.Tensor) -> Callable:
     return lambda x: b - mv(x)
 
 
-def _gmres_cycles(mv, mv_i, prec, mv_data, b, reltol, restart, maxiter, m_eps,
-                  inner_dtype):
-    """The restart cycles (``hsolve/krylov.py:_gmres_cycles``): returns
-    ``(x, iters, history [maxiter + 1], final residual norm, ||b||)``.
+class _Phase:
+    """One run of the restart cycles (``hsolve/krylov.py:_gmres_cycles``) on
+    static buffers: its right-hand side ``b``, ``x``, the residual ``r``, the
+    scalars ``sc``, the history ``hist [maxiter + 1]`` and the Arnoldi state
+    ``s`` (basis, Givens state and the int32 loop state) in the cycles' type.
+    Its four parts are the bodies of JAX's loops: :meth:`pre` (the carry's
+    start), :meth:`start` and :meth:`end` (a cycle's head and tail around its
+    steps) and :meth:`step` (``inner_body``).  A cycle starts from the true
+    residual ``r`` cast to the cycles' type and adds ``M(y V)`` cast back to
+    ``b``'s type; its floor is ``max(tol, m_eps beta)`` in the inner real
+    type, and a step runs while JAX's ``inner_cond`` holds: ``j < m``, the
+    estimate above the floor, ``it + j < maxiter``."""
 
-    The cycles' basis, Hessenberg matrix, rotations and ``g`` live in
-    ``inner_dtype`` (``b``'s type when None); a cycle starts from the true
-    residual ``r`` cast to it and adds ``M(y V)`` cast back to ``b``'s type.
-    Its floor is ``max(tol, m_eps beta)`` in the inner real type, and a step
-    runs only while JAX's ``inner_cond`` holds: ``j < m``, the estimate above
-    the floor, ``it + j < maxiter``."""
-    odt = b.dtype
-    dt = odt if inner_dtype is None else inner_dtype
-    rdt = torch.empty(0, dtype=dt).real.dtype
-    rnp = torch.empty(0, dtype=rdt).numpy().dtype.type   # np.float32 / float64
-    resid = _residual(mv, mv_data, b)
-    N, m = b.shape[0], restart
-    bnorm = float(torch.linalg.vector_norm(b))
-    tol = reltol * bnorm
-    hist = np.zeros(maxiter + 1, dtype=np.float64)
-    hist[0] = bnorm
-    x = torch.zeros_like(b)
-    r, beta, it, cyc = b, bnorm, 0, 0
-    done = bnorm <= tol
-    s = arnoldi_state(m, N, dt, b.device) if not done else None
-    while not done and cyc < maxiter:
-        beta_i = rnp(beta)
-        floor = max(rnp(tol), rnp(m_eps) * beta_i)
-        s.V[0] = (r / (beta if beta > 0 else 1.0)).to(dt)
-        s.g[0] = float(beta_i)
-        j = 0
-        if beta_i > floor:                 # inner_cond before the first step
-            while True:
-                w = mv_i(prec(s.V[j])).to(dt).contiguous()
-                cont = j + 1 < m and it + j + 1 < maxiter
-                arnoldi_step(s, w, j, floor, cont)
-                j += 1
-                # the step's one device->host read: the done flag
-                if not cont or bool(s.done.item()):
-                    break
-        if j:
-            upd = s.y[:j] @ s.V[:j]
-            x = x + prec(upd).to(odt)
-        it += j
-        r = resid(x)
-        beta = float(torch.linalg.vector_norm(r))
-        hist[it] = beta
-        done = beta <= tol or it >= maxiter or j == 0
-        cyc += 1
-    return x, it, hist, beta, bnorm
+    def __init__(self, mv_i, prec, resid, b, reltol, restart, maxiter, m_eps,
+                 inner_dtype, rhs=None, escalate_from=None):
+        odt = b.dtype
+        self.dt = odt if inner_dtype is None else inner_dtype
+        ordt = torch.empty(0, dtype=odt).real.dtype
+        dev = b.device
+        self.mv_i, self.prec, self.resid = mv_i, prec, resid
+        self.b, self.rhs, self.escalate_from = b, rhs, escalate_from
+        self.m_eps, self.m = m_eps, restart
+        self.x = torch.zeros_like(b)
+        self.r = torch.zeros_like(b)
+        self.sc = torch.zeros(gc.SC_LEN, dtype=ordt, device=dev)
+        if reltol is not None:
+            self.sc[gc.RELTOL] = reltol
+        self.hist = torch.zeros(maxiter + 1, dtype=ordt, device=dev)
+        self.s = arnoldi_state(restart, b.shape[0], self.dt, dev)
+        self.s.loop[MAXITER] = maxiter
+        # JAX budgets up to maxiter cycles (a done flag ends the loop)
+        self.s.loop[NCYC] = maxiter
+
+    def tensors(self):
+        s = self.s
+        return [self.b, self.x, self.r, self.sc, self.hist, s.V, s.H, s.cs,
+                s.sn, s.g, s.hc, s.st, s.y, s.part, s.ticket, s.vj, s.floor,
+                s.loop]
+
+    def pre(self):
+        if self.rhs is not None:
+            self.b.copy_(self.rhs())
+        torch.linalg.vector_norm(self.b, out=self.sc[gc.BNORM])
+        if self.escalate_from is not None:
+            gc.gmres_escalate(self.escalate_from.sc, self.sc)
+        self.x.zero_()
+        self.r.copy_(self.b)
+        gc.gmres_init(self.sc, self.hist, self.s.loop)
+
+    def start(self):
+        gc.gmres_cycle_start(self.r, self.sc, self.s, self.m_eps)
+
+    def step(self):
+        w = self.mv_i(self.prec(self.s.vj)).to(self.dt).contiguous()
+        arnoldi_step(self.s, w)
+
+    def end(self):
+        upd = self.s.y @ self.s.V[: self.m]
+        self.x.add_(self.prec(upd).to(self.x.dtype))
+        self.r.copy_(self.resid(self.x))
+        torch.linalg.vector_norm(self.r, out=self.sc[gc.BETA])
+        gc.gmres_cycle_end(self.sc, self.hist, self.s.loop)
 
 
-def _gmres_escalated(mv, mv_i, prec, mv_data, b, reltol, restart, maxiter,
-                     m_eps, inner_dtype):
-    """Reduced-precision cycles, then an outer-precision phase on the
-    remaining residual (``hsolve/krylov.py:_gmres_escalated``): phase 2 solves
-    ``A x2 = b - A x`` at ``reltol * ||b|| / ||b - A x||`` with ``m_eps = 0``
-    and no inner type; ``x += x2``.  The iterations add up, the history is
-    phase 1's ``[maxiter + 1]`` block followed by phase 2's entries after its
-    first, and the residual is phase 2's.  When phase 1 converged, phase 2
-    costs one residual."""
-    x, it, hist, _, bnorm = _gmres_cycles(mv, mv_i, prec, mv_data, b, reltol,
-                                          restart, maxiter, m_eps, inner_dtype)
-    r1 = _residual(mv, mv_data, b)(x)
-    beta1 = float(torch.linalg.vector_norm(r1))
-    reltol2 = reltol * bnorm / (beta1 if beta1 > 0 else 1.0)
-    x2, it2, hist2, res2, _ = _gmres_cycles(mv, mv, prec, mv_data, r1, reltol2,
-                                            restart, maxiter, 0.0, None)
-    return (x + x2.to(x.dtype), it + it2, np.concatenate([hist, hist2[1:]]),
-            res2, bnorm)
+class _Program:
+    """``gmres_compiled`` on static buffers: one :class:`_Phase`, or two
+    when the solve escalates (``hsolve/krylov.py:_gmres_escalated``: float32
+    cycles, then a phase in ``b``'s type on ``b - A x`` at ``reltol2 =
+    reltol ||b|| / ||b - A x||`` with ``m_eps = 0``; ``x += x2``, the
+    iterations add up, the history is phase 1's ``[maxiter + 1]`` block
+    followed by phase 2's entries after its first, the residual is phase
+    2's), and :meth:`post`, which writes ``x_out`` and the packed output
+    ``[iters, res, bnorm, hist...]``."""
+
+    def __init__(self, b, matvec, M, reltol, restart, maxiter, M_data,
+                 mv_data, m_eps, inner_dtype, mv_data_inner, escalate,
+                 static_b=False):
+        mv = (lambda v: matvec(mv_data, v)) if mv_data is not None else matvec
+        mv_i = (lambda v: matvec(mv_data_inner, v)) \
+            if mv_data_inner is not None else mv
+        if M is None:
+            prec = lambda v: v
+        elif M_data is not None:
+            prec = lambda v: M(M_data, v)
+        else:
+            prec = M
+        idt = None if inner_dtype is None else torch_dtype(inner_dtype)
+        self.b = torch.empty_like(b) if static_b else b
+        p1 = _Phase(mv_i, prec, _residual(mv, mv_data, self.b), self.b,
+                    reltol, restart, maxiter, m_eps, idt)
+        self.phases = [p1]
+        ordt = p1.sc.dtype
+        if idt is not None and escalate:
+            b2 = torch.zeros_like(b)
+            r1 = _residual(mv, mv_data, self.b)
+            self.phases.append(_Phase(
+                mv, prec, _residual(mv, mv_data, b2), b2, None, restart,
+                maxiter, 0.0, None, rhs=lambda: r1(p1.x), escalate_from=p1))
+            self.x_out = torch.zeros_like(b)
+            nh = 2 * maxiter + 1
+        else:
+            self.x_out = p1.x
+            nh = maxiter + 1
+        self.packed = torch.zeros(3 + nh, dtype=ordt, device=b.device)
+
+    def post(self):
+        p1, pn = self.phases[0], self.phases[-1]
+        it = p1.s.loop[IT:IT + 1]
+        hist = [p1.hist]
+        if len(self.phases) == 2:
+            torch.add(p1.x, pn.x, out=self.x_out)
+            it = it + pn.s.loop[IT:IT + 1]
+            hist.append(pn.hist[1:])
+        torch.cat([it.to(self.packed.dtype), pn.sc[gc.BETA:gc.BETA + 1],
+                   p1.sc[gc.BNORM:gc.BNORM + 1], *hist], out=self.packed)
+
+    def tensors(self):
+        return [t for p in self.phases for t in p.tensors()] + [
+            self.b, self.x_out, self.packed]
+
+    def run_host(self):
+        """The host-driven loop: each part launched eagerly, the host
+        reading the cycle loop's go flag and the step loop's done flag
+        (``gmres_set_cond``'s plain version)."""
+        for ph in self.phases:
+            ph.pre()
+            while gc.go_on(ph.s.loop, GO):
+                ph.start()
+                while gc.go_on(ph.s.loop, DONE, negate=True):
+                    ph.step()
+                ph.end()
+        self.post()
+
+
+class _GraphSolve:
+    """A :class:`_Program` captured as one :class:`SolveGraph`, with the
+    static input ``b`` and outputs ``x_out`` and ``packed``; it keeps the
+    program's buffers and the operator data it reads, not the program's
+    closures (so that the holder's lifetime ends the graph's)."""
+
+    def __init__(self, prog: _Program, keep):
+        self.b, self.x_out, self.packed = prog.b, prog.x_out, prog.packed
+        self.keep = keep
+        self.graph = gc.SolveGraph(
+            [(ph.s.loop, ph.pre, ph.start, ph.step, ph.end)
+             for ph in prog.phases], prog.post, prog.tensors(), prog.b.device)
+
+    def solve(self, b: torch.Tensor):
+        self.b.copy_(b)
+        self.graph.launch()
+        return self.x_out.clone(), self.packed.clone()
+
+
+_CACHE = "_hs_gmres_graphs"
+
+
+def _graph_for(b, matvec, M, reltol, restart, maxiter, M_data, mv_data, m_eps,
+               inner_dtype, mv_data_inner, escalate) -> _GraphSolve:
+    """The cached graph of this solve's static arguments (captured on a
+    miss, see :func:`gmres_compiled`)."""
+    # inner_dtype as given (converting it would issue a torch operation)
+    key = (matvec, M, restart, maxiter, str(inner_dtype), escalate, m_eps,
+           reltol, tuple(b.shape), b.dtype, b.device)
+    data = (M_data, mv_data, mv_data_inner)
+    holder = next(o for o in (M_data, mv_data, matvec) if o is not None)
+    try:
+        cache = vars(holder).setdefault(_CACHE, {})
+    except TypeError:
+        raise TypeError(
+            f"gmres_compiled keeps its CUDA graph on M_data (else mv_data, "
+            f"else matvec) so that it lives no longer than the data it "
+            f"reads; a {type(holder).__name__} takes no attributes (pass "
+            f"Factorization.solve_data)") from None
+    ids = tuple(id(o) for o in data)
+    entry = cache.get(key)
+    if entry is None or entry.ids != ids:
+        cache.pop(key, None)            # the old graph goes first
+        prog = _Program(b, matvec, M, reltol, restart, maxiter, M_data,
+                        mv_data, m_eps, inner_dtype, mv_data_inner, escalate,
+                        static_b=True)
+        entry = _GraphSolve(prog, [o for o in data
+                                   if o is not None and o is not holder])
+        entry.ids = ids
+        cache[key] = entry
+    return entry
+
+
+def graph_stats(holder) -> list:
+    """The solve graphs kept on ``holder`` (``M_data``, else ``mv_data``,
+    else ``matvec``): their private pool's reserved and live bytes, the
+    static state's bytes and the parts' launches counted at capture."""
+    return [{"pool_bytes": e.graph.pool_bytes,
+             "pool_live_bytes": e.graph.pool_live_bytes,
+             "state_bytes": e.graph.state_bytes,
+             "part_counts": e.graph.part_counts}
+            for e in vars(holder).get(_CACHE, {}).values()]

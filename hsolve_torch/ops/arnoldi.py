@@ -4,8 +4,12 @@ plain versions (port of ``hsolve/krylov.py`` ``_gmres_cycles``: the step
 end's masked triangular solve, :293-298).
 
 - :func:`arnoldi_step` is the step the GMRES loop runs: one launch of kernel
-  L (``csrc/arnoldi_cgs2.cu``) whose tail is kernel M's Givens step and the
-  scaling of ``w`` into ``V[j+1]``.
+  L (``csrc/arnoldi_cgs2.cu``) whose tail is kernel M's Givens step, the
+  scaling of ``w`` into ``V[j+1]`` (and into ``vj``, the fixed buffer the
+  next step's preconditioner reads) and the loop's advance.  It reads its
+  loop state from device memory (``loop``: j, it, maxiter; ``floor``), so a
+  CUDA graph replays it: the tail evaluates ``inner_cond`` for the next step
+  into ``loop[DONE]`` and sets ``j += 1``.
 - :func:`arnoldi_cgs2` (kernel L alone) orthogonalizes the step's new vector
   ``w`` against ``V[:j+1]`` by classical Gram-Schmidt applied twice and
   writes the new Hessenberg column ``h1 + h2`` and ``||w||`` to a small
@@ -13,16 +17,16 @@ end's masked triangular solve, :293-298).
 - :func:`arnoldi_givens` (kernel M alone, ``csrc/arnoldi_givens.cu``)
   applies the earlier Givens rotations to that column, forms the new one,
   updates the rotated right-hand side ``g`` and the residual estimate, sets
-  the step's done flag against the cycle's floor and, when the step ends
-  the cycle, solves for the cycle's coefficients ``y``.
+  the step's done flag against a floor and a loop test the caller passes,
+  and, when the step ends the cycle, solves for the cycle's coefficients
+  ``y``.
 
 The last two stay entry points so that each kernel can be read alone; the
 step counts one launch of each (``kernels.launch_counts()``) and one of its
 own (``arnoldi_step.launches``).  Everything stays on the device in the
-cycles' (inner) value type, float32 or float64: a step's one device->host
-read is the 4-byte done flag.  The plain versions are torch ops in that
-type, so on the CPU they round as the JAX package's bookkeeping in that
-type does.
+cycles' (inner) value type, float32 or float64.  The plain versions are
+torch ops in that type, so on the CPU they round as the JAX package's
+bookkeeping in that type does.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ MAX_ROWS = 512         # kernel L's h1/h2 buffers (rows of V)
 ROW_BATCH = 64         # kernel L's block reduction of the dots (rows)
 MAX_RESTART = 256      # kernel M's restart (its column and scratch)
 H100_SMS = 132
+# the int32 slots of ``Arnoldi.loop`` (csrc/gmres_loop.cuh)
+J, IT, MAXITER, DONE, CYC, NCYC, GO = range(7)
+LOOP_LEN = 8
 
 
 @dataclasses.dataclass
@@ -55,11 +62,19 @@ class Arnoldi:
     g: torch.Tensor        # [m+1] the rotated right-hand side
     hc: torch.Tensor       # [m+1] the step's new column (L's output)
     st: torch.Tensor       # [2] the residual estimate, V[j+1]'s divisor
-    done: torch.Tensor     # [1] int32, the step's done flag
     y: torch.Tensor        # [m] the cycle's coefficients
     part: torch.Tensor     # kernel L's per-CTA partial sums
     ticket: torch.Tensor   # [1] int32, kernel L's grid-barrier counter and
                            # last-CTA ticket (0 at rest)
+    vj: torch.Tensor       # [N] V[j], the next step's input
+    floor: torch.Tensor    # [1] the cycle's floor (real type)
+    loop: torch.Tensor     # [LOOP_LEN] int32, the loop state (J, IT, ...)
+
+    @property
+    def done(self) -> torch.Tensor:
+        """[1] int32 view of ``loop[DONE]``: 1 once the cycle takes no
+        further step."""
+        return self.loop[DONE:DONE + 1]
 
 
 def cgs2_blocks(N: int, sms: int = H100_SMS) -> int:
@@ -97,15 +112,39 @@ def device_sms(device) -> int:
 
 
 def arnoldi_state(m: int, N: int, dtype: torch.dtype, device) -> Arnoldi:
-    """A zeroed state for restart ``m`` on vectors of size ``N``."""
+    """A zeroed state for restart ``m`` on vectors of size ``N``; its loop
+    stands at j = it = 0 with ``maxiter = m`` and a floor of 0 (one cycle;
+    :func:`set_loop` places it elsewhere)."""
     rdt = torch.empty(0, dtype=dtype).real.dtype
     z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    return Arnoldi(V=z(m + 1, N), H=z(m + 1, m),
-                   cs=torch.ones(m, dtype=rdt, device=device), sn=z(m),
-                   g=z(m + 1), hc=z(m + 1), st=z(2),
-                   done=z(1, dt=torch.int32), y=z(m),
-                   part=z((2 * m + 1) * cgs2_blocks(N, device_sms(device))),
-                   ticket=z(1, dt=torch.int32))
+    s = Arnoldi(V=z(m + 1, N), H=z(m + 1, m),
+                cs=torch.ones(m, dtype=rdt, device=device), sn=z(m),
+                g=z(m + 1), hc=z(m + 1), st=z(2), y=z(m),
+                part=z((2 * m + 1) * cgs2_blocks(N, device_sms(device))),
+                ticket=z(1, dt=torch.int32), vj=z(N), floor=z(1, dt=rdt),
+                loop=z(LOOP_LEN, dt=torch.int32))
+    s.loop[MAXITER] = m
+    return s
+
+
+def set_loop(s: Arnoldi, j: int, it: int = 0, maxiter=None,
+             floor: float = 0.0) -> None:
+    """Place the state's loop at step ``j`` of a cycle after ``it``
+    iterations, with budget ``maxiter`` (``it + m`` when None) and the
+    cycle's ``floor``; ``vj`` becomes ``V[j]``.  A host write, for checks
+    of single steps."""
+    m = s.H.shape[1]
+    s.loop[J], s.loop[IT] = j, it
+    s.loop[MAXITER] = it + m if maxiter is None else maxiter
+    s.floor.fill_(floor)
+    s.vj.copy_(s.V[j])
+
+
+def step_cont(s: Arnoldi, j: int) -> bool:
+    """The part of ``inner_cond`` after step ``j`` that the loop state
+    decides alone: ``j + 1 < m`` and ``it + j + 1 < maxiter`` (host read)."""
+    it, maxiter = (int(v) for v in s.loop[IT:MAXITER + 1].tolist())
+    return j + 1 < s.H.shape[1] and it + j + 1 < maxiter
 
 
 def arnoldi_cgs2_plain(s: Arnoldi, w: torch.Tensor, j: int) -> torch.Tensor:
@@ -241,20 +280,25 @@ arnoldi_givens.launches = 0
 arnoldi_givens.launches_by_type = {}
 
 
-def arnoldi_step_plain(s: Arnoldi, w: torch.Tensor, j: int, floor: float,
-                       cont: bool) -> None:
-    """One Arnoldi step on ``s`` after its matvec ``w``: kernel L's plain
-    version, kernel M's, then ``V[j+1] = w / st[1]``.  ``w`` is left as L
-    leaves it."""
+def arnoldi_step_plain(s: Arnoldi, w: torch.Tensor) -> None:
+    """One Arnoldi step on ``s`` after its matvec ``w``, at the loop's step
+    j: kernel L's plain version, kernel M's against the floor with ``cont``
+    from the loop (:func:`step_cont`), ``V[j+1] = w / st[1]``, ``vj =
+    V[j+1]``, ``j += 1``.  ``w`` is left as L leaves it."""
+    j = int(s.loop[J])
+    cont = step_cont(s, j)
     arnoldi_cgs2_plain(s, w, j)
-    arnoldi_givens_plain(s, j, floor, cont)
+    arnoldi_givens_plain(s, j, s.floor[0], cont)
     torch.div(w, s.st[1], out=s.V[j + 1])
+    s.vj.copy_(s.V[j + 1])
+    s.loop[J] = j + 1
 
 
 def _step_launch(s: Arnoldi, device):
-    """The fused launch's fixed arguments for state ``s``, checked once: the
-    state of one GMRES run keeps its shapes, types and storage."""
-    dt = kernels.value_type(s.V, s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y, s.part)
+    """The fused launch's arguments for state ``s``, checked once: the state
+    of one GMRES run keeps its shapes, types and storage."""
+    dt = kernels.value_type(s.V, s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y, s.part,
+                            s.vj, s.floor)
     m1, N = s.V.shape
     m = m1 - 1
     nb = cgs2_blocks(N, device_sms(device))
@@ -268,10 +312,11 @@ def _step_launch(s: Arnoldi, device):
     kernels.require(s.V, "V", dt, (m1, N))
     kernels.require(s.H, "H", dt, (m + 1, m))
     for name, t, n in (("cs", s.cs, m), ("sn", s.sn, m), ("g", s.g, m + 1),
-                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m)):
+                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m),
+                       ("vj", s.vj, N), ("floor", s.floor, 1)):
         kernels.require(t, name, dt, (n,))
     kernels.require(s.part, "part", dt)
-    kernels.require(s.done, "done", torch.int32, (1,))
+    kernels.require(s.loop, "loop", torch.int32, (LOOP_LEN,))
     kernels.require(s.ticket, "ticket", torch.int32, (1,))
     if s.V.data_ptr() % 16:
         raise ValueError("V: kernel L reads it with 16-byte loads; its "
@@ -282,22 +327,22 @@ def _step_launch(s: Arnoldi, device):
     fn = getattr(kernels.lib(), kernels.symbol("hs_arnoldi_step", dt))
     ptrs = (s.V.data_ptr(), s.hc.data_ptr(), s.part.data_ptr(),
             s.ticket.data_ptr(), s.H.data_ptr(), s.cs.data_ptr(),
-            s.sn.data_ptr(), s.g.data_ptr(), s.st.data_ptr(),
-            s.done.data_ptr(), s.y.data_ptr())
+            s.sn.data_ptr(), s.g.data_ptr(), s.st.data_ptr(), s.y.data_ptr(),
+            s.vj.data_ptr(), s.loop.data_ptr(), s.floor.data_ptr())
     return dt, N, m, nb, fn, ptrs
 
 
-def arnoldi_step(s: Arnoldi, w: torch.Tensor, j: int, floor: float,
-                 cont: bool) -> None:
-    """One Arnoldi step of a GMRES cycle after its matvec ``w`` (see the
-    plain version): on CUDA tensors one cooperative launch of kernel L whose
-    tail runs kernel M's step and writes ``V[j+1] = w / st[1]``.  ``floor``
-    and ``cont`` as :func:`arnoldi_givens` takes them.  The kernel leaves
+def arnoldi_step(s: Arnoldi, w: torch.Tensor) -> None:
+    """One Arnoldi step of a GMRES cycle after its matvec ``w``, at the step
+    ``j`` the state's loop holds (see the plain version): on CUDA tensors one
+    cooperative launch of kernel L whose tail runs kernel M's step, writes
+    ``V[j+1] = w / st[1]`` and ``vj``, and advances the loop; nothing is
+    read on the host, so a CUDA graph can replay it.  The kernel leaves
     ``w`` as the matvec gave it (the GMRES loop reads only ``V[j+1]``; the
     plain version leaves it orthogonalized).  The state's operands are
-    checked at its first step; each step checks ``w`` and ``j``."""
+    checked at its first step; each step checks ``w``."""
     if kernels.on_cpu(s.V, w):
-        return arnoldi_step_plain(s, w, j, floor, cont)
+        return arnoldi_step_plain(s, w)
     launch = s.__dict__.get("_step")
     if launch is None or launch[0] != s.V.data_ptr():
         launch = (s.V.data_ptr(), _step_launch(s, w.device))
@@ -308,12 +353,9 @@ def arnoldi_step(s: Arnoldi, w: torch.Tensor, j: int, floor: float,
         raise ValueError(f"w: expected a contiguous [{N}] {dt} vector on "
                          f"{s.V.device}, got {tuple(w.shape)} {w.dtype} on "
                          f"{w.device}")
-    if not 0 <= j < m:
-        raise ValueError(f"step j={j} outside restart {m}")
-    V, hc, part, ticket, H, cs, sn, g, st, done, y = ptrs
-    rc = fn(V, w.data_ptr(), hc, part, ticket, H, cs, sn, g, st, done, y, j,
-            N, nb, m, float(floor), int(bool(cont)),
-            torch.cuda.current_stream(w.device).cuda_stream)
+    V, hc, part, ticket, H, cs, sn, g, st, y, vj, loop, floor = ptrs
+    rc = fn(V, w.data_ptr(), hc, part, ticket, H, cs, sn, g, st, y, vj, loop,
+            floor, N, nb, m, torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         kernels.raise_launch_error("hs_arnoldi_step", rc)
     kernels.count_launch(arnoldi_step, dt)

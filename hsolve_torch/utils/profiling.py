@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -824,6 +825,7 @@ def _arnoldi_kernels(args, card, dev) -> int:
     launches, counted under the profiler; the host ms per step of the
     wrappers."""
     import dataclasses
+    import inspect
 
     import numpy as np
     import torch
@@ -837,8 +839,24 @@ def _arnoldi_kernels(args, card, dev) -> int:
     print(f"a queued one-element launch: {floor:.5f} ms on the device",
           flush=True)
     fused = hasattr(AR, "arnoldi_step")
+    # a step that takes no j reads j, the budget and the floor from the
+    # state's device loop and advances j: each repeat puts j back with a
+    # one-element fill, whose own time is read and taken off
+    loop_state = fused and "j" not in inspect.signature(
+        AR.arnoldi_step).parameters
     clone = lambda s: dataclasses.replace(s, **{
         f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+
+    def one_step(ss, sw, j, floor, cont):
+        """The fused step at j as a callable, and its repeat's reset (or
+        None)."""
+        if not loop_state:
+            return (lambda: AR.arnoldi_step(ss, sw, j, floor, cont)), None
+        it0 = int(ss.loop[AR.IT])
+        AR.set_loop(ss, j, it0, None if cont else it0 + j + 1, floor)
+        jr = ss.loop[AR.J:AR.J + 1]
+        reset = lambda: jr.fill_(j)
+        return (lambda: (reset(), AR.arnoldi_step(ss, sw))), reset
     report = {"card": card, "path": "arnoldi-kernels", "reps": reps,
               "queue_floor_ms": floor, "fused": fused, "rows": []}
     steps, m = (0, 14, 29), 30
@@ -871,8 +889,7 @@ def _arnoldi_kernels(args, card, dev) -> int:
                                                                   True),
                     torch.div(sw, ss.st[1], out=ss.V[1])))]
                 if fused:
-                    forms.append(("one", lambda: AR.arnoldi_step(
-                        ss, sw, 0, 0.0, True)))
+                    forms.append(("one", one_step(ss, sw, 0, 0.0, True)[0]))
                 for label, fn in forms:
                     fn()
                     torch.cuda.synchronize()
@@ -883,7 +900,8 @@ def _arnoldi_kernels(args, card, dev) -> int:
                     names = {}
                     for e in prof.events():
                         if e.device_type.name == "CUDA" and \
-                                e.device_time_total > 0:
+                                e.device_time_total > 0 and \
+                                "Fill" not in e.name:   # a repeat's reset
                             names[e.name] = names.get(e.name, 0) + 1
                     per = sum(names.values()) / 10
                     report[f"kernels_per_step_{label}"] = per
@@ -894,8 +912,10 @@ def _arnoldi_kernels(args, card, dev) -> int:
                 for cont in (True, False):
                     # a floor of -1 keeps a repeated step going (cont),
                     # however far its residual estimate falls
+                    # a loop-state step at j = m - 1 ends its cycle
                     row = {"n": n, "dtype": dname, "j": j, "cont": cont,
-                           "done": int(not cont)}
+                           "done": int(not (cont and (
+                               j + 1 < m or not loop_state)))}
                     ss, sw = clone(s0), w0.clone()
 
                     def three():
@@ -906,9 +926,14 @@ def _arnoldi_kernels(args, card, dev) -> int:
                     row["three_ms"] = _queued_ms(three, reps)
                     row["three_host_ms"] = _host_ms(three)
                     if fused:
-                        step = lambda: AR.arnoldi_step(ss, sw, j, -1.0, cont)
+                        step, reset = one_step(ss, sw, j, -1.0, cont)
                         row["one_ms"] = _queued_ms(step, reps)
                         row["one_host_ms"] = _host_ms(step)
+                        if reset is not None:
+                            row["reset_ms"] = _queued_ms(reset, reps)
+                            row["reset_host_ms"] = _host_ms(reset)
+                            row["one_ms"] -= row["reset_ms"]
+                            row["one_host_ms"] -= row["reset_host_ms"]
                     if int(ss.done[0]) != row["done"]:
                         raise RuntimeError(f"step j={j} cont={cont}: done flag "
                                            f"{int(ss.done[0])}")
@@ -1213,6 +1238,15 @@ def main() -> int:
             holder["F"] = None      # the last factor goes before the next
             holder["F"] = ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)
 
+        # where gmres_compiled takes fetch_info, the solve is one CUDA
+        # graph on the card, captured at its first call on a factor (the
+        # factor's reps make new ones) and read with fetch_info=False, as
+        # the bench calls it
+        deferred = "fetch_info" in inspect.signature(
+            ht.gmres_compiled).parameters
+        if deferred:
+            inner["fetch_info"] = False
+
         def solve():
             holder["x"], holder["info"] = ht.gmres_compiled(
                 mv, prec, bt, reltol=1e-9, restart=30, maxiter=60,
@@ -1221,6 +1255,10 @@ def main() -> int:
         entry = {"n": n, "problem": args.problem, "N": int(A.shape[0]),
                  "phases": {}}
         for name, fn in (("factor", factor), ("solve", solve)):
+            if name == "solve":
+                solve()                # the capture, outside the readings
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
             wall = _events_ms(fn, args.reps)
             rows = _profile(fn, args.reps,
                             os.path.join(args.out, f"{path}_n{n}_{name}.json"))
@@ -1235,9 +1273,18 @@ def main() -> int:
             for r in rows[:args.top]:
                 print(f"    {r['ms']:9.4f} ms  {r['calls']:7.1f} calls  "
                       f"{r['name'][:110]}", flush=True)
-        entry["iters"] = holder["info"]["iters"]
+        info = ht.fetch_gmres_info(holder["info"]) if deferred \
+            else holder["info"]
+        entry["iters"] = info["iters"]
+        # launches per solve: the graph's replays folded in (the readings
+        # above ran 2 reps + 1 solves)
+        counts = kernels.launch_counts()
+        solves = 2 * args.reps + 1
+        entry["launches_per_solve"] = {
+            k: v / solves for k, v in counts.items() if v and ":" not in k}
         print(f"{path} n={n}: {entry['iters']} GMRES iterations "
-              f"({report['forward']} forward step)", flush=True)
+              f"({report['forward']} forward step); launches per solve "
+              f"{entry['launches_per_solve']}", flush=True)
         report["sizes"].append(entry)
     print(json.dumps(report), flush=True)
     return 0

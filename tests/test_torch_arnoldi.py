@@ -22,12 +22,12 @@ from jax import lax
 
 import hsolve
 from hsolve_torch import kernels
-from hsolve_torch.krylov import _gmres_cycles
-from hsolve_torch.ops.arnoldi import (arnoldi_cgs2, arnoldi_cgs2_plain,
+from hsolve_torch.krylov import gmres_compiled
+from hsolve_torch.ops.arnoldi import (J, arnoldi_cgs2, arnoldi_cgs2_plain,
                                       arnoldi_givens, arnoldi_givens_plain,
                                       arnoldi_state, arnoldi_step,
                                       arnoldi_step_plain, cgs2_blocks,
-                                      cgs2_max_slice, cgs2_slice)
+                                      cgs2_max_slice, cgs2_slice, set_loop)
 
 jkrylov = importlib.import_module("hsolve.krylov")
 TOL = {np.float32: 1e-6, np.float64: 1e-13}
@@ -128,6 +128,12 @@ def _port_state(V, H, cs, sn, g):
     return s
 
 
+def _at_step(s, j, floor, cont):
+    """Place the loop at step ``j`` with ``floor``; the budget lets the
+    cycle go on after the step where ``cont`` and ``j + 1 < m`` allow."""
+    set_loop(s, j, maxiter=None if cont else j + 1, floor=floor)
+
+
 @pytest.mark.parametrize("j", [0, M_RESTART - 1])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_step_matches_jax_inner_body(dtype, j):
@@ -174,7 +180,8 @@ def test_arnoldi_step_matches_jax_inner_body(dtype, j):
     jV, jH, jcs, jsn, jg, jres = (np.asarray(a) for a in _jax_step(
         V, H, cs, sn, g, j, w))
     s = _port_state(V, H, cs, sn, g)
-    arnoldi_step(s, torch.from_numpy(w.copy()), j, 0.0, j + 1 < M_RESTART)
+    _at_step(s, j, 0.0, True)
+    arnoldi_step(s, torch.from_numpy(w.copy()))
     tol = TOL[dtype]
     assert _rel(s.V[j + 1].numpy(), jV[j + 1]) < tol
     assert _rel(s.V[: j + 1].numpy(), jV[: j + 1]) == 0.0
@@ -184,13 +191,16 @@ def test_arnoldi_step_matches_jax_inner_body(dtype, j):
     assert _rel(s.g[: j + 2].numpy(), jg[: j + 2]) < tol
     assert abs(float(s.st[0]) - float(jres)) <= tol * float(jg[0])
     assert int(s.done[0]) == int(j + 1 == M_RESTART)
+    # the loop advanced, and the next step's input is V[j+1]
+    assert int(s.loop[J]) == j + 1 and torch.equal(s.vj, s.V[j + 1])
 
 
 @pytest.mark.parametrize("j", [0, 14, M_RESTART - 1])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("cont", [True, False])
 def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
-    """On the CPU the step is kernel L's plain version, kernel M's, then
+    """On the CPU the step is kernel L's plain version, kernel M's (with the
+    loop test the loop state gives: ``cont`` where ``j + 1 < m``), then
     ``V[j+1] = w / st[1]``, bit for bit (the card holds its one launch to
     the same, ``tests/test_torch_cuda.py``); no launch is counted."""
     A = _operator(200, 12)
@@ -198,8 +208,10 @@ def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
     s1, s2 = _port_state(V, H, cs, sn, g), _port_state(V, H, cs, sn, g)
     w1, w2 = torch.from_numpy(w.copy()), torch.from_numpy(w.copy())
     before = kernels.launch_counts()
-    arnoldi_step(s1, w1, j, 1e-3, cont)
+    _at_step(s1, j, 1e-3, cont)
+    arnoldi_step(s1, w1)
     assert kernels.launch_counts() == before
+    cont = cont and j + 1 < M_RESTART
     arnoldi_cgs2_plain(s2, w2, j)
     arnoldi_givens_plain(s2, j, 1e-3, cont)
     s2.V[j + 1] = w2 / s2.st[1]
@@ -208,7 +220,8 @@ def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
         assert torch.equal(getattr(s1, name), getattr(s2, name)), name
     assert int(s1.done[0]) == int(not (cont and float(s1.st[0]) > 1e-3))
     s3 = _port_state(V, H, cs, sn, g)
-    arnoldi_step_plain(s3, torch.from_numpy(w.copy()), j, 1e-3, cont)
+    _at_step(s3, j, 1e-3, cont)
+    arnoldi_step_plain(s3, torch.from_numpy(w.copy()))
     assert torch.equal(s3.V, s1.V) and torch.equal(s3.y, s1.y)
 
 
@@ -264,10 +277,11 @@ def test_one_cycle_matches_jax_gmres_cycles(dtype, j):
         mv, jkrylov._IDENTITY_M, jnp.asarray(A), None, jnp.asarray(b), 1e-14,
         j + 1, j + 1, j + 1, 0.0, None if idt is None else jnp.asarray(A32), idt)
     At, A32t = torch.from_numpy(A), torch.from_numpy(A32)
-    xt, itt, ht_, rest, _ = _gmres_cycles(
-        lambda v: At @ v, lambda v: (At if idt is None else A32t) @ v,
-        lambda v: v, None, torch.from_numpy(b), 1e-14, j + 1, j + 1, 0.0,
-        None if idt is None else torch.float32)
+    xt, info = gmres_compiled(
+        mv, None, torch.from_numpy(b), reltol=1e-14, restart=j + 1,
+        maxiter=j + 1, mv_data=At, inner_dtype=idt,
+        mv_data_inner=None if idt is None else A32t, escalate=False)
+    itt, ht_ = info["iters"], info["resnorm"]
     assert itt == int(itj) == j + 1
     tol = 1e-11 if idt is None else 1e-5
     assert _rel(xt.numpy(), xj) < tol

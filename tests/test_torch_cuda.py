@@ -984,9 +984,11 @@ def test_arnoldi_step_fused_against_plain(dev, dtype, j, N):
     assert _rel(wl, wp) < tol
     for cont, floor in ((True, 0.0), (True, 1e30), (False, 0.0)):
         sk, wk = _clone_state(s), w.clone()
+        AR.set_loop(sk, j, maxiter=None if cont else j + 1, floor=floor)
+        cont = cont and j + 1 < m          # the loop state's test
         before = (AR.arnoldi_step.launches, AR.arnoldi_cgs2.launches,
                   AR.arnoldi_givens.launches)
-        AR.arnoldi_step(sk, wk, j, floor, cont)
+        AR.arnoldi_step(sk, wk)
         torch.cuda.synchronize()
         assert (AR.arnoldi_step.launches, AR.arnoldi_cgs2.launches,
                 AR.arnoldi_givens.launches) == tuple(b + 1 for b in before)
@@ -1001,21 +1003,32 @@ def test_arnoldi_step_fused_against_plain(dev, dtype, j, N):
             assert torch.equal(a, getattr(mp, name)), name
         assert torch.equal(sk.V[j + 1], mp.V[j + 1])
         assert int(sk.done[0]) == int(not (cont and floor == 0.0))
+        # the loop advanced; the next step reads V[j+1] from vj
+        assert int(sk.loop[AR.J]) == j + 1
+        assert torch.equal(sk.vj, sk.V[j + 1])
 
 
 def test_gmres_step_is_one_launch(dev):
-    """A GMRES run on the card: one fused launch per Arnoldi step, which
-    counts one launch of L and one of M."""
+    """A warm GMRES run on the card (its graph captured by a first call):
+    one fused launch per Arnoldi step, which counts one launch of L and one
+    of M, one graph launch, and per phase one init, a cycle start and end a
+    cycle and a condition per step, cycle and phase."""
     A, b, shape = ht.helmholtz2d(64, k=10.0)
     op, mv = ht.spmv_format(A, device=dev)
+    bt = torch.as_tensor(b, device=dev)
+    run = lambda: ht.gmres_compiled(mv, None, bt, reltol=1e-6, restart=20,
+                                    maxiter=40, mv_data=op)
+    run()
     kernels.reset_launch_counts()
-    x, info = ht.gmres_compiled(mv, None, torch.as_tensor(b, device=dev),
-                                reltol=1e-6, restart=20, maxiter=40,
-                                mv_data=op)
+    x, info = run()
     counts = kernels.launch_counts()
     assert info["iters"] > 0
     assert counts["arnoldi_step"] == counts["arnoldi_cgs2"] == \
         counts["arnoldi_givens"] == info["iters"]
+    cycles = counts["gmres_cycle_start"]
+    assert counts["gmres_graph"] == counts["gmres_init"] == 1
+    assert counts["gmres_cycle_end"] == cycles >= 1
+    assert counts["gmres_set_cond"] == 1 + 2 * cycles + info["iters"]
 
 
 def test_arnoldi_cgs2_refuses_a_grid_the_card_cannot_hold(dev, monkeypatch):
@@ -1075,3 +1088,99 @@ def test_float32_refused_on_compressed_levels_on_cuda(dev):
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=40), opts)
     with pytest.raises(NotImplementedError, match="later slice"):
         ht.factor_with_plan(plan, opts, dtype=torch.float32, device=dev)
+
+
+def _gmres_setup(dev, path, n=128, k=40.0):
+    """helmholtz2d(n, k) factored for ``path`` ("exact", "mixed": the float32
+    factor inside mixed-precision GMRES, "structured": kest=32 HSS) with
+    the solve's arguments."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(n, k=k)
+    tree = ht.nested_dissection(shape, leafmax=100)
+    opts = dict(swlevel=0) if path != "structured" else dict(
+        swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32)
+    F = ht.factor(A, tree, dtype=torch.float32 if path == "mixed" else None,
+                  device=dev, **opts)
+    op, mv = ht.spmv_format(A, device=dev)
+    kw = dict(reltol=1e-9, restart=30, maxiter=60, mv_data=op,
+              M_data=F.solve_data)
+    prec = solve_with_data
+    if path == "mixed":
+        prec = lambda d, v: solve_with_data(d, v.to(torch.float32)).to(v.dtype)
+        kw.update(inner_dtype="float32", m_eps=1e-6,
+                  mv_data_inner=ht.spmv_format(A, dtype=np.float32,
+                                               device=dev)[0])
+    return A, b, F, mv, prec, kw
+
+
+@pytest.mark.parametrize("path", ["exact", "mixed", "structured"])
+def test_graph_solve_against_the_host_driven_loop(dev, path):
+    """``gmres_compiled`` on the card is one CUDA graph: a warm solve with
+    ``fetch_info=False`` under ``torch.cuda.set_sync_debug_mode("error")``
+    reads nothing on the host, and gives the iterations of the same
+    functions launched eagerly with the host reading the loop's flags, and x
+    to 1e-10 relative (the same kernels on the same inputs)."""
+    from hsolve_torch.krylov import gmres_host_driven
+
+    A, b, F, mv, prec, kw = _gmres_setup(dev, path)
+    bt = torch.as_tensor(b, device=dev)
+    xh, ih = gmres_host_driven(mv, prec, bt, **kw)
+    ht.gmres_compiled(mv, prec, bt, fetch_info=False, **kw)   # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        xg, dinfo = ht.gmres_compiled(mv, prec, bt, fetch_info=False, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ig = ht.fetch_gmres_info(dinfo)
+    assert ih["converged"] and ig["converged"]
+    assert ig["iters"] == ih["iters"]
+    assert np.array_equal(ig["resnorm"], ih["resnorm"]) or \
+        np.abs(ig["resnorm"] - ih["resnorm"]).max() <= 1e-10 * ih["resnorm"][0]
+    assert _rel(xg, xh) < 1e-10
+    xn = xg.cpu().numpy()
+    assert np.linalg.norm(b - A @ xn) / np.linalg.norm(b) < 1e-9
+
+
+def test_a_remade_factor_does_not_replay_the_old_graph(dev):
+    """The graph lives on the factor's solve data: a factor of another
+    system, made after the first was solved, captures its own graph (the
+    old one is never replayed: x solves the new system), and the old graph
+    is freed with its factor."""
+    import gc as pygc
+
+    import hsolve_torch.krylov as K
+    from hsolve_torch.krylov import graph_stats
+    from hsolve_torch.ops import gmres_control as GC
+
+    A1, b1, F1, mv, prec, kw1 = _gmres_setup(dev, "exact", n=64, k=20.0)
+    x1, _ = ht.gmres_compiled(mv, prec, torch.as_tensor(b1, device=dev), **kw1)
+    assert len(graph_stats(F1.solve_data)) == 1
+    old = [e.graph for e in vars(F1.solve_data)[K._CACHE].values()]
+    assert all(g in GC._LIVE for g in old)
+    A2, b2, F2, mv, prec, kw2 = _gmres_setup(dev, "exact", n=64, k=25.0)
+    bt2 = torch.as_tensor(b2, device=dev)
+    for _ in range(2):
+        x2, info = ht.gmres_compiled(mv, prec, bt2, **kw2)
+        xn = x2.cpu().numpy()
+        assert info["converged"]
+        assert np.linalg.norm(b2 - A2 @ xn) / np.linalg.norm(b2) < 1e-9
+    assert len(graph_stats(F2.solve_data)) == 1
+    refs = [__import__("weakref").ref(g) for g in old]
+    del F1, kw1, old
+    pygc.collect()
+    assert all(r() is None for r in refs)
+
+
+def test_a_preconditioner_that_reads_the_host_cannot_be_captured(dev):
+    """A preconditioner with a host read cannot be part of the solve's
+    graph: the capture raises, and nothing falls back to a host loop (as a
+    JAX trace of a host read fails).  Kept last: a failed capture is the
+    one error this file provokes on purpose."""
+    A, b, shape = ht.helmholtz2d(32, k=10.0)
+    op, mv = ht.spmv_format(A, device=dev)
+    M = lambda v: v * float(torch.linalg.vector_norm(v))
+    with pytest.raises(RuntimeError):
+        ht.gmres_compiled(mv, M, torch.as_tensor(b, device=dev), reltol=1e-9,
+                          restart=10, maxiter=10, mv_data=op)
