@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the thirteen CUDA kernels (A-M) and the GMRES loop's control
-   kernels are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
+2. build: the thirteen CUDA kernels (A-M, A-D, L and M also for complex
+   values) and the GMRES loop's control kernels are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
    process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes, then at the 3D plans' (below), and is held against its plain
@@ -58,7 +58,7 @@ Phases (any failure exits non-zero before the result line is printed):
    the kest=32 plan (I on a leaf and a B12 extraction, J forward and adjoint
    at the sketch width and at k=1: the kernel table's shapes); the Arnoldi
    step at j = 0, 14 and 29 captured from a 30-step cycle on the n=512
-   operator, in float64 and float32: L alone (1e-13 and 1e-5), the step as
+   operator, in float64 and float32 (and, below, complex): L alone (1e-13 and 1e-5), the step as
    GMRES runs it (its own row, ``arnoldi_step``), one launch of L with M's
    step and V[j+1] as its tail, with the loop going on and ending (hc bit
    for bit L's alone, the same code; H, cs, sn, g, st, done, y and V[j+1]
@@ -76,10 +76,19 @@ Phases (any failure exits non-zero before the result line is printed):
    250,047), B and E-G on the 48^3 low-rank plan at the default caps
    (nb_pad up to 2216, caps up to 560), H-K, I and J on the 40^3
    structured plan at the default caps, the Arnoldi step at N = 250,047;
-   and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
+   before those, A-D and the Arnoldi step on the damped, complex system
+   helmholtz2d(512, k=40, damping=0.1) (``DAMPING``) in complex128 and
+   complex64, the same checks as in float64 and float32 (A and B bitwise at
+   both checked batches and at every launch of its exact factor; C, D and
+   L to 1e-13 / 1e-5, C's forward step to 1e-12 / 1e-5 of max |x'| times
+   the pivot growth, the 4424-row hand front in windows too, complex64
+   against a complex128 solve; M, the step's tail and V[j+1] bit for bit
+   their plain versions; a complex multiply-add counts as four real ones,
+   a value as 16 or 8 bytes); and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
    n=512 N, bit for bit their plain versions, from states that go on and
-   that stop: the run's start, the cycle start in its three type pairs, the
-   cycle end, the escalation; ``gmres_set_cond`` in a composed graph of
+   that stop: the run's start, the cycle start in its six type pairs (the
+   real three and complex128 cycles, complex64 cycles in a complex64 and
+   in a complex128 solve), the cycle end, the escalation; ``gmres_set_cond`` in a composed graph of
    nested WHILE nodes against the host loop reading the same flags;
 4. main paths at n=128 and n=512: helmholtz2d (k=40) -> nested_dissection
    (leafmax=100) -> plan_factorization -> factor_with_plan (cuda) ->
@@ -90,7 +99,14 @@ Phases (any failure exits non-zero before the result line is printed):
    then structured at the default rank caps (the same without kest), then
    exact-f32-mixed (the JAX bench's device configuration: a float32
    exact factor, float32 Arnoldi cycles over a float32 DIA operator with
-   m_eps=1e-6 inside a float64 solve, escalation on), then one exact run at
+   m_eps=1e-6 inside a float64 solve, escalation on), then the damped,
+   complex system helmholtz2d(n, k=40, damping=0.1) at n=128 and n=512:
+   exact-complex (a complex128 factor and solve, one iteration) and
+   exact-complex-mixed (the bench's complex configuration: a complex64
+   factor, complex64 cycles over a complex64 operator inside a complex128
+   solve, m_eps=1e-6, escalation on), each launching every kernel of
+   ``kernels.COMPLEX_PATH`` / ``COMPLEX_MIXED_PATH`` in its complex type,
+   then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
    windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
    k=10), float64, one iteration), exact-3d-f32-mixed (the same system in
@@ -99,11 +115,11 @@ Phases (any failure exits non-zero before the result line is printed):
    hss-3d (helmholtz3d(40, k=10), the same with hss=True: at 48^3 the
    structured factor, every HSS record kept at its level's cap, outgrows
    the card's 80 GB), each line with the card's name and power limit;
-   then two runs of the port's bench in a subprocess (``python -m
-   hsolve_torch.bench --n 128 --reps 5`` and ``--problem helmholtz3d --n 32
-   --k 10 --inner f64 --reps 3``), each line held to relres <= 1e-9, no
-   speed-of-light violation, the card's line present and, in 2D, the
-   mixed count within ``MAX_ITERS``.  Every solve is ``gmres_compiled(...,
+   then three runs of the port's bench in a subprocess (``python -m
+   hsolve_torch.bench --n 128 --reps 5``, ``--problem helmholtz3d --n 32
+   --k 10 --inner f64 --reps 3`` and ``--n 128 --reps 5 --damping 0.1``),
+   each line held to relres <= 1e-9, no speed-of-light violation, the
+   card's line present and, in 2D, the mixed count within ``MAX_ITERS``.  Every solve is ``gmres_compiled(...,
    fetch_info=False)``, the JAX bench's call: one CUDA graph, captured at the
    cold call (its private pool's size is logged), then replayed; a warm one
    runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host read),
@@ -125,7 +141,9 @@ Phases (any failure exits non-zero before the result line is printed):
    iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
    cap (a 3D one no cap below its block's full rank, min(ni_pad, nb_pad):
    a rank at a full-rank cap truncates nothing and is logged as such);
-5. output: a JSON line with one entry per kernel, then the card line, then
+5. output: a JSON line with one entry per kernel (a typed kernel's float32
+   numbers in its row, its complex128 and complex64 instances in rows of
+   their own, ``<name>:complex128``), then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script imports nothing of JAX.
@@ -147,7 +165,12 @@ RTOL_SUM = 1e-13      # C-F: the kernel and plain sums differ only in order
 RTOL_SUM32 = 1e-5     # the same in float32
 # C's forward step: its substitution rounds in another order than cuBLAS's
 # triangular solves; relative to max |x'|, times the level's pivot growth
-RTOL_SOLVE = {"float64": 1e-12, "float32": 1e-5}
+RTOL_SOLVE = {"float64": 1e-12, "float32": 1e-5, "complex128": 1e-12,
+              "complex64": 1e-5}
+# the complex (damped Helmholtz) system: helmholtz2d(n, k=40, damping=0.1),
+# tests/test_complex.py's damping at the bench's k
+DAMPING = 0.1
+COMPLEX = ("complex128", "complex64")
 RELRES = 1e-9         # GMRES target and the independent residual check
 # the graph's x against the host-driven loop's: the same kernels on the same
 # inputs, so only launches that sum in a run-dependent order (atomics) part
@@ -181,35 +204,46 @@ OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
            "hss-default": HSS_DEFAULT, "exact-f32-mixed": dict(swlevel=0),
            "exact-wide": dict(swlevel=0), "exact-3d": dict(swlevel=0),
            "exact-3d-f32-mixed": dict(swlevel=0),
-           "lowrank-3d": LOWRANK_DEFAULT, "hss-3d": HSS_DEFAULT}
-MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed")
+           "lowrank-3d": LOWRANK_DEFAULT, "hss-3d": HSS_DEFAULT,
+           "exact-complex": dict(swlevel=0),
+           "exact-complex-mixed": dict(swlevel=0)}
+MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed", "exact-complex-mixed")
+COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed")
 COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d")
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
 # mixed, hss-default and 3D ones from tools/jax_reference_iters.py (mixed: 5
 # at n=128, 80 at n=512, 5 at 64^3; hss-default: 5 at n=128, 40 at n=512;
-# low-rank at the default caps: 4 at 48^3); hss-3d within maxiter (the JAX
-# package's 40^3 structured run was not measured)
+# low-rank at the default caps: 4 at 48^3; the damped system's mixed
+# complex64 configuration: 5 at n=128, 10 at n=512, and 1 in complex128);
+# hss-3d within maxiter (the JAX package's 40^3 structured run was not
+# measured)
 MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
              "hss-default": {128: 10, 512: 80},
              "exact-f32-mixed": {128: 10, 512: 160}, "exact-wide": {WIDE_N: 1},
              "exact-3d": {EXACT3D: 1},
              "exact-3d-f32-mixed": {EXACT3D: 10},
-             "lowrank-3d": {LOWRANK3D: 8}, "hss-3d": {HSS3D: 60}}
+             "lowrank-3d": {LOWRANK3D: 8}, "hss-3d": {HSS3D: 60},
+             "exact-complex": {128: 1, 512: 1},
+             "exact-complex-mixed": {128: 10, 512: 20}}
 # the port's bench on the card: the JAX bench's default (helmholtz2d h=128,
 # the mixed device configuration) and a small 3D exact run in float64
 # cycles (at 64^3 scipy's SuperLU baseline alone takes minutes of host time)
 BENCH_RUNS = (("--n", "128", "--reps", "5"),
               ("--problem", "helmholtz3d", "--n", "32", "--k", "10",
-               "--inner", "f64", "--reps", "3"))
+               "--inner", "f64", "--reps", "3"),
+              ("--n", "128", "--reps", "5", "--damping", "0.1"))
 HBM_BPS = 3.35e12     # H100 SXM device memory (the data sheet)
 # the data sheet's peaks, FLOP/s: (without, with) the tensor cores; float32
 # without TF32, which the port keeps off
 PEAK = {"float64": (34e12, 67e12), "float32": (67e12, 67e12)}
+PEAK.update(complex128=PEAK["float64"], complex64=PEAK["float32"])
 # latency floors of a chain of dependent operations: the H100 SXM's highest
 # SM clock (the data sheet's boost) and an assumed least latency of one
 # dependent floating-point operation, in cycles
 CLOCK_HZ = 1.98e9
 DEP_CYCLES = {"float64": 8, "float32": 4}
+DEP_CYCLES.update(complex128=DEP_CYCLES["float64"],
+                  complex64=DEP_CYCLES["float32"])
 # a queued one-element launch on the device, ms: read in phase 3 of this run
 QUEUED = {"ms": None}
 SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
@@ -240,9 +274,35 @@ TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
          "dia_spmv", "arnoldi_cgs2", "arnoldi_givens", "arnoldi_step",
          "gmres_init", "gmres_cycle_start", "gmres_cycle_end",
          "gmres_escalate")
+# ... of which these have complex instances (the others read and write only
+# the solve's real scalars)
+TYPED_COMPLEX = ("front_assemble", "extend_add", "level_forward",
+                 "sweep_update", "dia_spmv", "arnoldi_cgs2", "arnoldi_givens",
+                 "arnoldi_step", "gmres_cycle_start")
 # kernels whose rows read them alone: on the main path they run inside the
 # fused Arnoldi step's launch, whose launches their counts are
 RUN_IN_STEP = ("arnoldi_cgs2", "arnoldi_givens")
+
+
+def type_tag(dtype_name: str) -> str:
+    """A typed kernel's record suffix: none for float64, else ``:<type>``."""
+    return "" if dtype_name == "float64" else f":{dtype_name}"
+
+
+def sum_rtol(dtype_name: str) -> float:
+    """RTOL_SUM in the double types, RTOL_SUM32 in the single ones."""
+    return RTOL_SUM if dtype_name in ("float64", "complex128") else RTOL_SUM32
+
+
+def flop_factor(dtype_name: str) -> int:
+    """Real operations per multiply-add of the type: a complex one is four
+    real multiply-adds."""
+    return 4 if dtype_name in COMPLEX else 1
+
+
+def damped(n: int) -> tuple:
+    """The Problems key of the damped, complex helmholtz2d(n)."""
+    return ("damped", n)
 
 
 T0 = time.perf_counter()
@@ -385,8 +445,11 @@ class Problems:
 
         if n not in self._cache:
             t0 = time.perf_counter()
-            self._cache[n] = ht.helmholtz3d(int(n[:-2]), k=K3D) \
-                if is_3d(n) else ht.helmholtz2d(n, k=40.0)
+            if isinstance(n, tuple):
+                self._cache[n] = ht.helmholtz2d(n[1], k=40.0, damping=DAMPING)
+            else:
+                self._cache[n] = ht.helmholtz3d(int(n[:-2]), k=K3D) \
+                    if is_3d(n) else ht.helmholtz2d(n, k=40.0)
             log(f"  {problem_name(n)}: N={self._cache[n][0].shape[0]} "
                 f"nnz={self._cache[n][0].nnz} generated in "
                 f"{time.perf_counter() - t0:.2f} s (host)")
@@ -398,6 +461,8 @@ def is_3d(n) -> bool:
 
 
 def problem_name(n) -> str:
+    if isinstance(n, tuple):
+        return f"helmholtz2d({n[1]}, damping={DAMPING:g})"
     return f"helmholtz3d({n[:-2]}, k={K3D:g})" if is_3d(n) else \
         f"helmholtz2d({n})"
 
@@ -463,7 +528,10 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                   dtype_name: str = "float64") -> None:
     """Phase 3, kernels A-D against their plain versions at the exact
     n-plan's shapes, in ``dtype_name``: a float64 run and a float32 run, the
-    latter recorded as ``<name>:float32``."""
+    latter recorded as ``<name>:float32``; on the damped system
+    (``damped(n)``) a complex128 and a complex64 run (``<name>:complex128``,
+    ``<name>:complex64``; a complex multiply-add counts as four real
+    ones)."""
     import dataclasses
 
     import numpy as np
@@ -481,8 +549,10 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
 
     dt = getattr(torch, dtype_name)
     e = torch.empty(0, dtype=dt).element_size()
-    tag = "" if dtype_name == "float64" else f":{dtype_name}"
-    rtol = RTOL_SUM if dtype_name == "float64" else RTOL_SUM32
+    tag = type_tag(dtype_name)
+    rtol = sum_rtol(dtype_name)
+    fm = flop_factor(dtype_name)
+    fadd = 2 if dt.is_complex else 1          # real adds per value add
     A, b, shape = problems.get(n)
     opts = ht.SolverOptions(swlevel=0)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
@@ -530,7 +600,7 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
             rows = imap[dr.long()]
             cnt = ((rows >= 0) & (rows < S.shape[-1])).sum(1).double()
             c2 = float((cnt * cnt).sum())
-            flops += c2
+            flops += fadd * c2
             cover += 3 * c2 * e + nbytes(rows, sr, dr)
         scratch = base.clone()
 
@@ -545,7 +615,8 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
         record(f"extend_add{tag}", f"batch {bidx} [{bp.B},{bp.m_pad},"
                f"{bp.m_pad}] {len(calls)} groups", errors(ker, ref), 0.0,
                device_ms(run_k), device_ms(run_p), bound(cover, flops, dtype_name))
-    check_extend_add_launches("exact", plan, tp, stacks, adata, results)
+    check_extend_add_launches("exact damped" if isinstance(n, tuple) else
+                              "exact", plan, tp, stacks, adata, results)
 
     # C: the fused forward step (pivot solve included) at the leaf level, a
     # level of ni_pad 256 and the top level, with lu records and, at the leaf
@@ -600,7 +671,8 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                    (err, err / (scale if scale > 0 else 1.0)), limit,
                    device_ms(lambda: level_forward(scratch, lv, N)),
                    device_ms(lambda: level_forward_plain(scratch, lv, N)),
-                   bound(work, 2 * (A_.numel() + lv.L.numel()), dtype_name),
+                   bound(work, 2 * fm * (A_.numel() + lv.L.numel()),
+                         dtype_name),
                    library_ms=device_ms(library))
     for bidx in (0, mid, top):
         lev = levels[bidx]
@@ -625,29 +697,31 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                                                     lev.R, N,
                                                     ids_in=lev.bnd_ids)),
                bound(nbytes(lev.R, lev.int_ids, lev.bnd_ids)
-                     + Bm * nbp * e + 2 * Bm * ni * e, 2 * lev.R.numel(),
-                     dtype_name),
+                     + Bm * nbp * e + 2 * Bm * ni * e,
+                     2 * fm * lev.R.numel(), dtype_name),
                library_ms=device_ms(library))
 
     # C's forward step on a front wider than one cluster (4424 rows, the
     # helmholtz3d(48) exact top front: three windows), made by hand, against
-    # its plain version, and both against a float64 solve of the same
-    # (rounded) front: in float32 the kernel may be no further from that
-    # solve than the plain version, beyond 1e-7 of max |x'|
+    # its plain version, and both against a float64 (complex128) solve of
+    # the same (rounded) front: in float32 (complex64) the kernel may be no
+    # further from that solve than the plain version, beyond 1e-7 of
+    # max |x'|
     wide = _wide_level(dev, dt, ni=4424, nb=24, N=N, seed=SEED)
     growth = float(dk._diag_ratio(wide.lu).max())
     ker = level_forward(C0.clone(), wide, N)
     ref = level_forward_plain(C0.clone(), wide, N)
     rows = wide.int_ids[wide.int_ids < N].long()
     note = ""
-    if dtype_name != "float64":
-        f64 = torch.float64
+    if dtype_name in ("float32", "complex64"):
+        f64 = torch.complex128 if dt.is_complex else torch.float64
         x64 = level_forward_plain(C0.to(f64), dataclasses.replace(
             wide, lu=wide.lu.to(f64), L=wide.L.to(f64)), N)[rows]
         s64 = float(x64.abs().max())
         d_ker = float((ker[rows].to(f64) - x64).abs().max()) / s64
         d_ref = float((ref[rows].to(f64) - x64).abs().max()) / s64
-        note = (f" from float64: kernel {d_ker:.3e}, plain {d_ref:.3e}")
+        note = (f" from {str(f64)[6:]}: kernel {d_ker:.3e}, plain "
+                f"{d_ref:.3e}")
         if d_ker > d_ref + 1e-7:
             fail(f"level_forward{tag} on the 4424-row front is further from "
                  f"the float64 solve than its plain version:{note}")
@@ -666,7 +740,7 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                errors(ker[idx], ref[idx]), limit, ms, plain_ms,
                bound(nbytes(wide.lu, wide.L, wide.int_ids, wide.bnd_ids,
                             wide.perm) + 2 * 4424 * e + 2 * 24 * e,
-                     2 * (wide.lu.numel() + wide.L.numel()), dtype_name))
+                     2 * fm * (wide.lu.numel() + wide.L.numel()), dtype_name))
 
     # D: DIA matvec and fused residual on the original matrix; the library
     # yardstick is cuSPARSE's CSR matvec (and b - A x through addmv)
@@ -685,7 +759,7 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                device_ms(lambda: dia_spmv(op, xv, *extra)),
                device_ms(lambda: dia_spmv_plain(op, xv, *extra)),
                bound(nbytes(op.values, op.offs, xv, ker, *extra),
-                     2 * op.values.numel(), dtype_name),
+                     2 * fm * op.values.numel(), dtype_name),
                library_ms=device_ms(lib))
     torch.cuda.synchronize()
 
@@ -703,7 +777,8 @@ def check_extend_add_launches(label, plan, tp, stacks, adata,
 
     dt = adata.dtype
     e = adata.element_size()
-    tag = "" if dt == torch.float64 else ":float32"
+    tag = type_tag(str(dt).replace("torch.", ""))
+    fadd = 2 if dt.is_complex else 1
     rows_ = []
     for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
         if bp.structured:
@@ -731,7 +806,7 @@ def check_extend_add_launches(label, plan, tp, stacks, adata,
                 ms = device_ms(lambda: extend_add(scratch, S, sr, dr, imap, cnt))
                 plain_ms = device_ms(lambda: extend_add_plain(scratch, S, sr, dr,
                                                               imap))
-                work = bound(3 * c2 * e + nbytes(m_, sr, dr), c2,
+                work = bound(3 * c2 * e + nbytes(m_, sr, dr), fadd * c2,
                              str(dt).replace("torch.", ""))
                 log(f"  extend_add{tag} {label} batch {bidx} {side} G={sr.numel()}"
                     f" m={bp.m_pad} w={S.shape[-1]} valid rows <= {cnt}: "
@@ -1433,7 +1508,8 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     """Phase 3, the Arnoldi step on steps j = 0, 14 and 29 captured from one
     30-step GMRES cycle on the n-operator (unpreconditioned, so the cycle
     runs all its steps), in float64 and, as the inner cycle of the mixed
-    solve, in float32: kernel L alone (its tail off) against its plain
+    solve, in float32 (on the damped system, ``damped(n)``: complex128 and
+    complex64, recorded as ``<name>:complex128`` and ``:complex64``): kernel L alone (its tail off) against its plain
     version (1e-13 and 1e-5); the step as GMRES runs it, one launch of L
     with M's step and V[j+1] as its tail, with the captured loop test and
     as the cycle's end (done): hc bit for bit kernel L's alone (the same
@@ -1454,9 +1530,10 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     from hsolve_torch.ops import arnoldi as AR
 
     A, b, _ = problems.get(n)
+    wide, narrow = COMPLEX if isinstance(n, tuple) else ("float64", "float32")
     bt = torch.as_tensor(np.asarray(b), device=dev)
     op64, mv = ht.spmv_format(A, device=dev)
-    op32, _ = ht.spmv_format(A, dtype=np.float32, device=dev)
+    op32, _ = ht.spmv_format(A, dtype=np.dtype(narrow), device=dev)
     steps = (0, 14, 29)
     clone = lambda s: dataclasses.replace(s, **{
         f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
@@ -1475,7 +1552,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     # the host-driven loop: the steps are launched from Python, one by one
     K.arnoldi_step = rec
     try:
-        for inner in (None, "float32"):
+        for inner in (None, narrow):
             K.gmres_host_driven(mv, None, bt, reltol=1e-14, restart=30,
                                 maxiter=30, mv_data=op64, inner_dtype=inner,
                                 mv_data_inner=op32 if inner else None,
@@ -1483,14 +1560,15 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
     finally:
         K.arnoldi_step = orig
     torch.cuda.synchronize()
-    if sorted(captured) != sorted((d, j) for d in ("float32", "float64")
+    if sorted(captured) != sorted((d, j) for d in (narrow, wide)
                                   for j in steps):
         fail(f"captured Arnoldi steps {sorted(captured)}")
     record = results.record
     for (dname, j), c in sorted(captured.items(), key=lambda kv: kv[0][0],
                                 reverse=True):
-        tag = "" if dname == "float64" else f":{dname}"
-        rtol = RTOL_SUM if dname == "float64" else RTOL_SUM32
+        tag = type_tag(dname)
+        rtol = sum_rtol(dname)
+        fm = flop_factor(dname)
         s0, w0, floor = c["s"], c["w"], c["floor"]
         m1, N = s0.V.shape
         m = m1 - 1
@@ -1508,10 +1586,12 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
         scratch_s, scratch_w = clone(s0), w0.clone()
         Vj = s0.V[: j + 1]
 
+        Vc = Vj.conj()
+
         def library():
-            h1 = torch.mv(Vj, scratch_w)
+            h1 = torch.mv(Vc, scratch_w)
             w1 = torch.addmv(scratch_w, Vj.T, h1, alpha=-1.0)
-            h2 = torch.mv(Vj, w1)
+            h2 = torch.mv(Vc, w1)
             w2 = torch.addmv(w1, Vj.T, h2, alpha=-1.0)
             return torch.linalg.vector_norm(w2)
 
@@ -1519,7 +1599,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
         record(f"arnoldi_cgs2{tag}", f"j={j} V=[{m1},{N}]", err, rtol,
                device_ms(lambda: AR.arnoldi_cgs2(scratch_s, scratch_w, j)),
                device_ms(lambda: AR.arnoldi_cgs2_plain(scratch_s, scratch_w, j)),
-               bound(l_bytes, 8 * (j + 1) * N + 2 * N, dname),
+               bound(l_bytes, fm * (8 * (j + 1) * N + 2 * N), dname),
                library_ms=device_ms(library))
         it0 = int(s0.loop[AR.IT])
 
@@ -1550,7 +1630,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
             mp = clone(s0)
             mp.hc.copy_(sk.hc)
             AR.arnoldi_givens_plain(mp, j, floor, cont)
-            torch.div(wk, mp.st[1], out=mp.V[j + 1])
+            AR.div_real(wk, mp.st[1], out=mp.V[j + 1])
             for what in ("H", "cs", "sn", "g", "st", "done", "y"):
                 if not torch.equal(getattr(fk, what), getattr(mp, what)):
                     fail(f"arnoldi_step{tag}: M's tail differs from its plain "
@@ -1576,7 +1656,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
             def three():
                 AR.arnoldi_cgs2(ss, sw, j)
                 AR.arnoldi_givens(ss, j, tfloor, cont)
-                torch.div(sw, ss.st[1], out=ss.V[j + 1])
+                AR.div_real(sw, ss.st[1], out=ss.V[j + 1])
 
             def one():
                 jr.fill_(j)
@@ -1594,7 +1674,7 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
             record(f"arnoldi_step{tag}", f"j={j} m={m} done={int(done)} "
                    f"V=[{m1},{N}]", step_err, rtol, step_ms,
                    device_ms(plain),
-                   bound(l_bytes, 8 * (j + 1) * N + 3 * N, dname,
+                   bound(l_bytes, fm * (8 * (j + 1) * N + 3 * N), dname,
                          chain=givens_chain(j, done)))
             log(f"  arnoldi_step{tag:14s} j={j} done={int(done)}: bitwise "
                 f"(hc, H, cs, sn, g, st, done, y, V[j+1]); one launch "
@@ -1621,7 +1701,8 @@ def check_arnoldi_kernels(problems: Problems, n: int, dev,
                                                      cont)),
                    device_ms(lambda: AR.arnoldi_givens_plain(
                        scratch_m, j, tfloor, cont)),
-                   bound(work, 6 * j + 12 + ((j + 1) ** 2 if done else 0),
+                   bound(work, fm * (6 * j + 12 + ((j + 1) ** 2 if done
+                                                    else 0)),
                          dname, chain=givens_chain(j, done)))
     torch.cuda.synchronize()
 
@@ -1630,8 +1711,9 @@ def check_control_kernels(problems: Problems, n, dev, results: Results) -> None:
     """Phase 3, the GMRES loop's control kernels (``csrc/gmres_control.cu``)
     on the n-problem's N, each against its plain version on the same inputs,
     bit for bit (``max_abs_err`` 0): the run's start (``gmres_init``), the
-    cycle start over N in each of its three type pairs (float64 cycles,
-    float32 cycles in a float32 and in a float64 solve), the cycle end and
+    cycle start over N in each of its six type pairs (float64 cycles,
+    float32 cycles in a float32 and in a float64 solve, and the same in
+    complex128 and complex64), the cycle end and
     the escalation's reltol2, each from a state that goes on and one that
     stops; timed beside their plain versions, bound by a queued launch
     (and, for the cycle start, its bytes).  Then ``gmres_set_cond`` in a
@@ -1653,21 +1735,29 @@ def check_control_kernels(problems: Problems, n, dev, results: Results) -> None:
         f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
     fields = ("V", "vj", "H", "cs", "sn", "g", "y", "floor", "loop")
     record = results.record
+
+    def rnd(shape, dt):
+        v = rng.standard_normal(shape)
+        if dt.is_complex:
+            v = v + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    c128, c64 = torch.complex128, torch.complex64
     for to, ti in ((torch.float64, torch.float64),
                    (torch.float32, torch.float32),
-                   (torch.float64, torch.float32)):
+                   (torch.float64, torch.float32),
+                   (c128, c128), (c64, c64), (c128, c64)):
         oname, iname = (str(t).replace("torch.", "") for t in (to, ti))
-        okey = "" if to == torch.float64 else ":float32"
-        ikey = "" if ti == torch.float64 else ":float32"
-        r = torch.as_tensor(rng.standard_normal(N), dtype=to, device=dev)
+        ikey = type_tag(iname)
+        r = rnd(N, to)
         for go, (beta, it) in (("goes on", (3.0, 10)), ("stops", (1e-12, 10)),
                                ("budget spent", (3.0, maxiter))):
             s0 = AR.arnoldi_state(m, N, ti, dev)
             for t in (s0.V, s0.H, s0.sn, s0.g, s0.y):
-                t.copy_(torch.as_tensor(rng.standard_normal(t.shape),
-                                        dtype=ti, device=dev))
+                t.copy_(rnd(t.shape, ti))
             s0.loop[AR.IT], s0.loop[AR.MAXITER] = it, maxiter
-            sc = torch.tensor([2.0, 1e-9, beta, 1e-9], dtype=to, device=dev)
+            sc = torch.tensor([2.0, 1e-9, beta, 1e-9], dtype=to.to_real(),
+                              device=dev)
             sk, sp = clone(s0), clone(s0)
             GC.gmres_cycle_start(r, sc, sk, 1e-6)
             GC.gmres_cycle_start_plain(r, sc, sp, 1e-6)
@@ -1678,11 +1768,11 @@ def check_control_kernels(problems: Problems, n, dev, results: Results) -> None:
                      f"{go}) differs from its plain version")
             if go != "goes on" and int(sk.loop[AR.DONE]) != 1:
                 fail(f"gmres_cycle_start let a cycle step with {go}")
-        if (to, ti) == (torch.float32, torch.float32):
-            continue            # checked; the mixed pair is float32's row
+        if (to, ti) in ((torch.float32, torch.float32), (c64, c64)):
+            continue            # checked; the mixed pair is the narrow row
         e = ti.itemsize
         work = bound(N * to.itemsize + 2 * N * e + ((m + 1) * m + 4 * m) * e,
-                     N, iname, chain=4)
+                     N * (2 if ti.is_complex else 1), iname, chain=4)
         ss = clone(s0)
         record(f"gmres_cycle_start{ikey}", f"N={N} m={m} {oname} solve",
                (0.0, 0.0), 0.0,
@@ -1883,7 +1973,8 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     from hsolve_torch import kernels
     from hsolve_torch.factor import solve_with_data
 
-    A, b, shape = problems.get(n)
+    cplx = path in COMPLEX_PATHS
+    A, b, shape = problems.get(damped(n) if cplx else n)
     opts = ht.SolverOptions(**OPTIONS[path])
     compressed = path in COMPRESSED_PATHS
     mixed = path in MIXED
@@ -1903,7 +1994,9 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
         f"{', HSS kind, ls, depth, n_pad' if 'hss' in path else ''}):"
         f" {shapes}")
 
-    fdt = torch.float32 if mixed else torch.float64
+    narrow, wide = (torch.complex64, torch.complex128) if cplx else \
+        (torch.float32, torch.float64)
+    fdt = narrow if mixed else wide
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
@@ -1925,11 +2018,12 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     out = {}
     if mixed:
         # the JAX bench's device configuration (bench.py:263-276): float32
-        # cycles over the float32 operator, the float32 factor behind casts
-        op32, _ = ht.spmv_format(A, dtype=np.float32, device=dev)
-        prec = lambda data, v: solve_with_data(
-            data, v.to(torch.float32)).to(v.dtype)
-        inner = dict(inner_dtype="float32", mv_data_inner=op32, m_eps=1e-6)
+        # (complex64) cycles over the narrow operator, the narrow factor
+        # behind casts
+        nname = str(narrow).replace("torch.", "")
+        op32, _ = ht.spmv_format(A, dtype=np.dtype(nname), device=dev)
+        prec = lambda data, v: solve_with_data(data, v.to(narrow)).to(v.dtype)
+        inner = dict(inner_dtype=nname, mv_data_inner=op32, m_eps=1e-6)
     else:
         prec, inner = solve_with_data, {}
 
@@ -2066,7 +2160,8 @@ def check_bench(argv) -> dict:
         fail(f"the bench {argv}: speed-of-light violation ({d})")
     if "--problem" not in argv:
         n = int(argv[argv.index("--n") + 1])
-        limit = MAX_ITERS["exact-f32-mixed"][n]
+        limit = MAX_ITERS["exact-complex-mixed" if "--damping" in argv
+                          else "exact-f32-mixed"][n]
         if d["gmres_iters"] > limit:
             fail(f"the bench {argv}: {d['gmres_iters']} iterations > {limit}")
     return {"metric": res["metric"], "value": res["value"],
@@ -2078,7 +2173,9 @@ def check_bench(argv) -> dict:
 def kernel_table(runs, kres: Results) -> list:
     """One row per kernel: its launches summed over the main-path runs (each
     counted from zero), and phase 3's numbers; a typed kernel's float32
-    numbers ride along in its row."""
+    numbers ride along in its row, and its complex instances have rows of
+    their own (``<name>:complex128``, ``<name>:complex64``: their launches
+    on the complex paths)."""
     total = {}
     for r in runs:
         for k, v in r["launches"].items():
@@ -2097,6 +2194,12 @@ def kernel_table(runs, kres: Results) -> list:
                               **{key: kres[f"{k}:float32"][key]
                                  for key in keys}}
         table.append(row)
+        for ct in COMPLEX if k in TYPED_COMPLEX else ():
+            crow = {**row, "name": f"{k}:{ct}",
+                    "launches": total.get(f"{k}:{ct}", 0),
+                    **{key: kres[f"{k}:{ct}"][key] for key in keys}}
+            crow.pop("float32", None)
+            table.append(crow)
     return table
 
 
@@ -2128,9 +2231,12 @@ def main() -> int:
     info = kernels.build(force=True)
     log(f"[2] built {len(kernels.sources())} CUDA sources for sm_90a in "
         f"{info['seconds']:.1f} s -> {os.path.relpath(kernels.LIB, HERE)}")
+    fn = ""
     for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            log(f"    ptxas: {fn}: {line.strip()}")
 
     problems = Problems()
     one = torch.zeros(1, device=dev)
@@ -2144,6 +2250,11 @@ def main() -> int:
     check_compressed_kernels(problems, args.kernel_n, dev, kres)
     check_hss_kernels(problems, args.kernel_n, dev, kres)
     check_arnoldi_kernels(problems, args.kernel_n, dev, kres)
+    log(f"[3] A-D and the Arnoldi step on the damped n={args.kernel_n} "
+        f"system, complex128 and complex64")
+    for dname in COMPLEX:
+        check_kernels(problems, damped(args.kernel_n), dev, kres, dname)
+    check_arnoldi_kernels(problems, damped(args.kernel_n), dev, kres)
     check_control_kernels(problems, args.kernel_n, dev, kres)
     log(f"[3] the same kernels at the 3D plans' shapes: exact {EXACT3D}, "
         f"low-rank {LOWRANK3D}, structured {HSS3D}")
@@ -2162,6 +2273,8 @@ def main() -> int:
             ("hss", kernels.HSS_PATH, args.sizes),
             ("hss-default", kernels.HSS_PATH, args.sizes),
             ("exact-f32-mixed", kernels.MIXED_PATH, args.sizes),
+            ("exact-complex", kernels.COMPLEX_PATH, args.sizes),
+            ("exact-complex-mixed", kernels.COMPLEX_MIXED_PATH, args.sizes),
             ("exact-wide", kernels.EXACT_PATH, [WIDE_N]),
             ("exact-3d", kernels.EXACT_PATH, [EXACT3D]),
             ("exact-3d-f32-mixed", kernels.MIXED_PATH, [EXACT3D]),

@@ -9,16 +9,31 @@ Usage, from the repository root:
                                  [--rank-cap R] [--level-caps C1,C2,...]
                                  [--reltol 1e-9] [--maxiter 60]
                                  [--explicit-inverse 0|1] [--inner f32|f64]
-                                 [--factor-dtype f32|f64] [--cpu]
+                                 [--factor-dtype f32|f64] [--damping D]
+                                 [--cpu]
 
 The flags and their defaults are ``bench.py``'s.  Left out: ``--sprec`` (the
-TPU's matmul passes; the port has no such option) and complex systems
-(``--damping`` > 0 raises ``NotImplementedError``: complex dtypes are not
-ported yet).  Added: ``--factor-dtype``; the factor is float32 on the card
-and float64 with ``--cpu``, as in ``bench.py``, and the card has no float32
-kernels for compressed or structured levels yet, so such plans take
-``--factor-dtype f64`` there.  A factor in another type than that default
-adds ``_f64`` (card) or ``_f32`` (``--cpu``) to the metric's tag.
+TPU's matmul passes; the port has no such option).  Added:
+``--factor-dtype``; the factor is float32 on the card and float64 with
+``--cpu``, as in ``bench.py``, and the card has no float32 kernels for
+compressed or structured levels yet, so such plans take ``--factor-dtype
+f64`` there.  A factor in another type than that default adds ``_f64``
+(card) or ``_f32`` (``--cpu``) to the metric's tag.
+
+``--damping D`` > 0 (helmholtz2d only) builds the complex impedance system
+``K - k^2 M - i k D M`` and runs it with ``bench.py``'s complex rule: the
+solve in complex128; on the card a complex64 factor with complex64 Arnoldi
+cycles over the complex64 operator (``--inner f32``: ``m_eps=1e-6``,
+escalation to complex128 cycles), with ``--cpu`` complex128 throughout;
+``--factor-dtype f64`` / ``--inner f64`` give complex128 on the card, and
+``f32`` / ``f32`` complex64 with ``--cpu``.  The port factors complex
+systems on exact plans only (``--swlevel 0``; complex compressed levels are
+a later slice and raise).  The tag puts ``_damp<D>`` first, as
+``bench.py`` does.  The roofline fields take the complex value's bytes
+(16 or 8) and its parts' peak; the FLOP model is the JAX package's, which
+counts a complex multiply-add as one operation, so a complex run's
+``achieved_gflop_s`` and ``sol_fraction`` understate the real arithmetic
+about fourfold.
 
 Protocol (``bench.py``'s): the plan is timed on the host clock, best of
 ``--reps``, split into its symbolic half (``plan.timings``) and the
@@ -63,8 +78,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         prog="python -m hsolve_torch.bench",
         description="setup + GMRES solve of one problem on one CUDA card, as "
                     "bench.py's JSON line",
-        epilog="Not ported: --sprec (TPU matmul passes) and --damping > 0 "
-               "(complex dtypes).")
+        epilog="Not ported: --sprec (TPU matmul passes).")
     ap.add_argument("--problem", default="helmholtz2d",
                     choices=["helmholtz2d", "poisson2d", "helmholtz3d",
                              "poisson3d"])
@@ -88,8 +102,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reltol", type=float, default=1e-9)
     ap.add_argument("--maxiter", type=int, default=60)
     ap.add_argument("--damping", type=float, default=0.0,
-                    help="impedance damping for helmholtz2d: a complex system, "
-                         "not ported yet (> 0 raises)")
+                    help="impedance damping for helmholtz2d: > 0 gives the "
+                         "complex system (complex64 factor and cycles on the "
+                         "card, complex128 with --cpu; exact plans only)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--explicit-inverse", default=None, choices=["0", "1"],
@@ -135,10 +150,9 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.damping > 0:
-        raise NotImplementedError(
-            "--damping > 0 builds a complex system; complex dtypes are not "
-            "ported yet (ROADMAP.md, queue 1, item 5)")
+    cplx = args.damping > 0
+    if cplx and args.problem != "helmholtz2d":
+        raise ValueError("--damping applies to helmholtz2d only")
 
     import scipy.sparse.linalg as spla
     import torch
@@ -159,17 +173,20 @@ def main(argv=None) -> int:
         card = None
         log("device: cpu")
 
-    gen = {"helmholtz2d": lambda: ht.helmholtz2d(args.n, k=args.k),
+    gen = {"helmholtz2d": lambda: ht.helmholtz2d(args.n, k=args.k,
+                                                 damping=args.damping),
            "poisson2d": lambda: ht.poisson2d(args.n),
            "helmholtz3d": lambda: ht.helmholtz3d(args.n, k=args.k),
            "poisson3d": lambda: ht.poisson3d(args.n)}[args.problem]
     A, b, shape = gen()
-    b = np.asarray(b, dtype=np.float64)
+    b = np.asarray(b, dtype=np.complex128 if cplx else np.float64)
     log(f"{args.problem} n={args.n}: N={A.shape[0]}, nnz={A.nnz} "
         f"dtype={A.dtype}")
 
     fdt_name = args.factor_dtype or ("f32" if on_card else "f64")
-    fdtype = torch.float32 if fdt_name == "f32" else torch.float64
+    narrow, wide = (torch.complex64, torch.complex128) if cplx else \
+        (torch.float32, torch.float64)
+    fdtype = narrow if fdt_name == "f32" else wide
     opts = ht.SolverOptions(swlevel=args.swlevel, swsize=args.swsize)
     if args.atol is not None:
         opts = opts.replace(atol=args.atol, rtol=args.atol)
@@ -241,12 +258,13 @@ def main(argv=None) -> int:
         if on_card else None
     log(f"  factor cold: {first['factor']:.3f}s")
 
-    op_outer, mv = ht.spmv_format(A, dtype=np.float64, device=dev)
+    wname, nname = (str(t).replace("torch.", "") for t in (wide, narrow))
+    op_outer, mv = ht.spmv_format(A, dtype=np.dtype(wname), device=dev)
     bt = torch.as_tensor(b, device=dev)
     inner = {}
     if on_card and args.inner == "f32":
-        inner = dict(inner_dtype="float32", m_eps=1e-6, mv_data_inner=(
-            ht.spmv_format(A, dtype=np.float32, device=dev)[0]))
+        inner = dict(inner_dtype=nname, m_eps=1e-6, mv_data_inner=(
+            ht.spmv_format(A, dtype=np.dtype(nname), device=dev)[0]))
 
     def precond(data, v):
         return solve_with_data(data, v.to(fdtype)).to(v.dtype)
@@ -308,7 +326,7 @@ def main(argv=None) -> int:
 
     best_total = t_sched + t_factor + t_solve
     roofline = roofline_report(plan, measured_factor_s=max(t_factor, 1e-9),
-                               dtype_bytes=8 if fdtype == torch.float64 else 4)
+                               dtype_bytes=fdtype.itemsize)
     log("roofline: " + json.dumps({k: v for k, v in roofline.items()
                                    if k != "per_level"}))
     if roofline["sol_violation"]:
@@ -317,7 +335,7 @@ def main(argv=None) -> int:
             "GFLOP/s exceed the card's peak).  The FLOP model over-counts or "
             "the timing under-measures; this row is NOT a valid performance "
             "result and is flagged in the line.")
-    tag = metric_tag(args, fdtype == torch.float64)
+    tag = metric_tag(args, fdtype == wide)
     base_ok = math.isfinite(t_base)
     result = {
         "metric": f"{args.problem}_h{args.n}{tag}_setup_plus_gmres_solve",

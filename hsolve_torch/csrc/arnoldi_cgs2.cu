@@ -16,8 +16,13 @@
 // WHILE node: R = j + 1 is read at the kernel's start, the tail evaluates
 // `inner_cond` for the next step (j + 1 < m, the estimate above the floor,
 // it + j + 1 < maxiter) into the loop's done flag and advances j.
-// Instantiated for double and float (`_f32`: the inner cycles of
-// mixed-precision GMRES).
+// Instantiated for double, float (`_f32`: the inner cycles of
+// mixed-precision GMRES) and the complex types (`_c128`, `_c64`: the damped
+// Helmholtz system, hs_complex.cuh): there h = conj(V) w, w -= V^T h, the
+// norm sums |w|^2 in the real type, and V[j+1] = w / ||w|| divides each part
+// by the real norm (JAX's complex division by ||w|| + 0i, bit for bit).  A
+// complex128 value fills one 16-byte load, so fewer rows of V fit the
+// staging area: 5 at the n=512 slice (S = 1980) where float64 stages 12.
 //
 // Bound: bytes for the passes (a step must read the R rows of V and w and
 // write V[j+1]; four multiply-adds per value of V), latency for the tail
@@ -69,40 +74,34 @@
 #define HS_CGS2_SMEM 230400      // dynamic shared memory per CTA, bytes
 
 template <typename T>
-struct Vec16;
-template <>
-struct Vec16<double> {
-  static constexpr int n = 2;
-};
-template <>
-struct Vec16<float> {
-  static constexpr int n = 4;
-};
+using Vec16 = hs_vec16<T>;
 
 // W-wide shared-memory chunk <-> registers (one 16-byte access)
-__device__ __forceinline__ void sload(const double* p, double (&o)[2]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  o[0] = a.x;
-  o[1] = a.y;
+template <typename T>
+__device__ __forceinline__ void sload(const T* p, T (&o)[Vec16<T>::n]) {
+  hs_load16(p, o);
 }
 
-__device__ __forceinline__ void sload(const float* p, float (&o)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-}
-
-__device__ __forceinline__ void sstore(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-
-__device__ __forceinline__ void sstore(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <typename T>
+__device__ __forceinline__ void sstore(T* p, const T (&v)[Vec16<T>::n]) {
+  hs_store16(p, v);
 }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += hs_shfl_down(v, off);
   return v;
+}
+
+__device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ hs_c128 ldcg(const hs_c128* p) {
+  const double2 v = __ldcg(reinterpret_cast<const double2*>(p));
+  return hs_c128(v.x, v.y);
+}
+__device__ __forceinline__ hs_c64 ldcg(const hs_c64* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  return hs_c64(v.x, v.y);
 }
 
 // V[i, e0:e0+W] (e0 a multiple of W; entries past N read as 0).  The shift
@@ -153,6 +152,35 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ V,
   }
 }
 
+// complex128: one value per 16-byte load, always aligned
+__device__ __forceinline__ void load_chunk(const hs_c128* __restrict__ V,
+                                           int64_t N, int i, int64_t e0,
+                                           hs_c128 (&o)[1]) {
+  o[0] = e0 < N ? hs_ldg(V + (int64_t)i * N + e0) : hs_c128(0.0);
+}
+
+// complex64: two values per 16-byte load, the shift as for double
+__device__ __forceinline__ void load_chunk(const hs_c64* __restrict__ V,
+                                           int64_t N, int i, int64_t e0,
+                                           hs_c64 (&o)[2]) {
+  const int64_t f = (int64_t)i * N + e0;
+  if (e0 + 2 <= N) {
+    const float4* q = reinterpret_cast<const float4*>(V + (f & ~(int64_t)1));
+    const float4 a = __ldg(q);
+    if ((f & 1) == 0) {
+      o[0] = hs_c64(a.x, a.y);
+      o[1] = hs_c64(a.z, a.w);
+    } else {
+      const float4 c = __ldg(q + 1);
+      o[0] = hs_c64(a.z, a.w);
+      o[1] = hs_c64(c.x, c.y);
+    }
+  } else {
+    o[0] = e0 < N ? hs_ldg(V + f) : hs_c64(0.0f);
+    o[1] = hs_c64(0.0f);
+  }
+}
+
 // wait until `target` CTAs have arrived on the counter (co-residency is
 // guaranteed by the cooperative launch); true in the CTA that arrived last
 __device__ __forceinline__ bool grid_sync(unsigned* ticket, unsigned target) {
@@ -177,7 +205,7 @@ __device__ void sum_partials(const T* P, int G, int R, T* h) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = warp; i < R; i += HS_CGS2_WARPS) {
     T acc = T(0);
-    for (int b = lane; b < G; b += 32) acc += __ldcg(P + (int64_t)i * G + b);
+    for (int b = lane; b < G; b += 32) acc += ldcg(P + (int64_t)i * G + b);
     acc = warp_sum(acc);
     if (lane == 0) h[i] = acc;
   }
@@ -190,7 +218,9 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
                     T* __restrict__ hc, T* __restrict__ part,
                     unsigned* __restrict__ ticket, int R_arg, int64_t N,
                     int S, int Rs_max, GivensArgs<T> p, int* loop,
-                    const T* __restrict__ floor, T* __restrict__ vj) {
+                    const hs_real_t<T>* __restrict__ floor,
+                    T* __restrict__ vj) {
+  typedef hs_real_t<T> RT;  // norms, the floor
   constexpr int W = Vec16<T>::n;
   extern __shared__ __align__(16) unsigned char hs_smem[];
   T* h1 = reinterpret_cast<T*>(hs_smem);            // [MAX_ROWS]
@@ -199,7 +229,7 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   T* ws = red + HS_CGS2_ROW_BATCH * HS_CGS2_WARPS;  // [S] the slice of w
   T* stage = ws + S;                                // [Rs][S] rows of V
   __shared__ bool last;
-  __shared__ T hnorm;
+  __shared__ RT hnorm;
   const bool step = loop != nullptr;                // M's tail and V[j+1]
   // the step's rows: j + 1, read once (the tail advances j after every CTA
   // has passed the third barrier)
@@ -213,7 +243,8 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   const int nch = (len + W - 1) / W;               // W-wide chunks of the slice
   T* P1 = part;
   T* P2 = part + (int64_t)R * G;
-  T* P3 = part + 2 * (int64_t)R * G;
+  RT* P3 = reinterpret_cast<RT*>(part + 2 * (int64_t)R * G);  // ||w||^2
+  RT* red_r = reinterpret_cast<RT*>(red);
 
   for (int t = threadIdx.x; t < nch * W; t += HS_CGS2_THREADS)
     ws[t] = t < len ? w[lo + t] : T(0);
@@ -245,7 +276,7 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
               T v[W];
               get(i0 + ii + u, c, first, v);
 #pragma unroll
-              for (int e = 0; e < W; ++e) acc[u] += v[e] * x[e];
+              for (int e = 0; e < W; ++e) acc[u] += hs_conj(v[e]) * x[e];
             }
           }
         }
@@ -267,7 +298,7 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
 
   // ws -= V[:R, slice]^T h (rows descending), returns this thread's ||ws||^2
   auto update = [&](const T* h) {
-    T sq = T(0);
+    RT sq = RT(0);
     for (int c = threadIdx.x; c < nch; c += HS_CGS2_THREADS) {
       T acc[W];
 #pragma unroll
@@ -289,7 +320,7 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
       for (int e = 0; e < W; ++e) {
         const T wn = ws[c * W + e] - acc[e];
         ws[c * W + e] = wn;
-        sq += wn * wn;
+        sq += hs_abs2(wn);
       }
     }
     return sq;
@@ -302,16 +333,16 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   dots(P2, false);
   grid_sync(ticket, 2u * (unsigned)G);
   sum_partials(P2, G, R, h2);
-  T sq = update(h2);
+  RT sq = update(h2);
   __syncthreads();
   if (!step)
     for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) w[lo + t] = ws[t];
   sq = warp_sum(sq);
-  if (lane == 0) red[warp] = sq;
+  if (lane == 0) red_r[warp] = sq;
   __syncthreads();
   if (threadIdx.x == 0) {
-    T s = T(0);
-    for (int k = 0; k < HS_CGS2_WARPS; ++k) s += red[k];
+    RT s = RT(0);
+    for (int k = 0; k < HS_CGS2_WARPS; ++k) s += red_r[k];
     P3[blockIdx.x] = s;
   }
 
@@ -328,11 +359,11 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
     if (!last) return;
     __threadfence();
     if (warp == 0) {
-      T s = T(0);
+      RT s = RT(0);
       for (int b = lane; b < G; b += 32) s += __ldcg(P3 + b);
       s = warp_sum(s);
       if (lane == 0) {
-        hc[R] = sqrt(s);
+        hc[R] = T(sqrt(s));
         *ticket = 0u;
       }
     }
@@ -342,16 +373,16 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
   // the step: every CTA sums P3 alike, so all hold ||w|| bit for bit
   const bool tail = grid_sync(ticket, 3u * (unsigned)G);
   if (warp == 0) {
-    T s = T(0);
+    RT s = RT(0);
     for (int b = lane; b < G; b += 32) s += __ldcg(P3 + b);
     s = warp_sum(s);
     if (lane == 0) hnorm = sqrt(s);
   }
   __syncthreads();
-  const T hn = hnorm;
-  const T dv = hn > T(0) ? hn : T(1);
+  const RT hn = hnorm;
+  const RT dv = hn > RT(0) ? hn : RT(1);
   for (int t = threadIdx.x; t < len; t += HS_CGS2_THREADS) {
-    const T v = div_rn(ws[t], dv);
+    const T v = divr_rn(ws[t], dv);
     Vn[lo + t] = v;
     vj[lo + t] = v;
   }
@@ -360,7 +391,7 @@ arnoldi_cgs2_kernel(const T* __restrict__ V, T* __restrict__ w,
     // hc; then M's step in warp 0, w's buffer its scratch
     T* col = h1;
     for (int i = threadIdx.x; i <= p.m; i += HS_CGS2_THREADS) {
-      const T v = i < R ? h1[i] + h2[i] : (i == R ? hn : T(0));
+      const T v = i < R ? h1[i] + h2[i] : (i == R ? T(hn) : T(0));
       col[i] = v;
       if (i <= R) hc[i] = v;
     }
@@ -433,7 +464,7 @@ static int arnoldi_cgs2(const void* V, void* w, void* hc, void* part,
   T* hcp = (T*)hc;
   T* pp = (T*)part;
   unsigned* tp = (unsigned*)ticket;
-  const T* fp = (const T*)floor;
+  const hs_real_t<T>* fp = (const hs_real_t<T>*)floor;
   T* vjp = (T*)vj;
   int64_t N64 = N;
   int Si = (int)S, Rsi = (int)rs;
@@ -472,9 +503,10 @@ static int arnoldi_step(const void* V, void* w, void* hc, void* part,
                         void* st, void* y, void* vj, void* loop,
                         const void* floor, long long N, int nb, int m,
                         void* stream) {
+  typedef hs_real_t<T> RT;
   int* lp = (int*)loop;
-  const GivensArgs<T> p = {(T*)H, (T*)cs, (T*)sn, (T*)g, (T*)st,
-                           lp ? lp + HS_LOOP_DONE : nullptr, (T*)y, m, T(0),
+  const GivensArgs<T> p = {(T*)H, (RT*)cs, (T*)sn, (T*)g, (RT*)st,
+                           lp ? lp + HS_LOOP_DONE : nullptr, (T*)y, m, RT(0),
                            0, 0};
   return arnoldi_cgs2<T>(V, w, hc, part, ticket, m, N, nb, &p, lp, floor, vj,
                          stream);
@@ -497,3 +529,20 @@ HS_EXPORT int hs_arnoldi_step_f32(const void* V, void* w, void* hc,
   return arnoldi_step<float>(V, w, hc, part, ticket, H, cs, sn, g, st, y, vj,
                              loop, floor, N, nb, m, stream);
 }
+
+#define HS_L_EXPORTS(SFX, T)                                                  \
+  HS_EXPORT int hs_arnoldi_cgs2##SFX(const void* V, void* w, void* hc,        \
+                                     void* part, void* ticket, int R,         \
+                                     long long N, int nb, void* stream) {     \
+    return arnoldi_cgs2<T>(V, w, hc, part, ticket, R, N, nb, nullptr,         \
+                           nullptr, nullptr, nullptr, stream);                \
+  }                                                                           \
+  HS_EXPORT int hs_arnoldi_step##SFX(                                         \
+      const void* V, void* w, void* hc, void* part, void* ticket, void* H,    \
+      void* cs, void* sn, void* g, void* st, void* y, void* vj, void* loop,   \
+      const void* floor, long long N, int nb, int m, void* stream) {          \
+    return arnoldi_step<T>(V, w, hc, part, ticket, H, cs, sn, g, st, y, vj,   \
+                           loop, floor, N, nb, m, stream);                    \
+  }
+HS_L_EXPORTS(_c128, hs_c128)
+HS_L_EXPORTS(_c64, hs_c64)

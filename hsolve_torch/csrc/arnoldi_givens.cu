@@ -5,9 +5,11 @@
 // in arnoldi_cgs2.cu, one launch a step); this entry point keeps M's own
 // reading (ops/arnoldi.py `arnoldi_givens`).  The step itself, what it
 // replaces in hsolve/krylov.py and its rounding are in arnoldi_givens.cuh.
-// Instantiated for double (`hs_arnoldi_givens`) and float
-// (`hs_arnoldi_givens_f32`).  H[:J, :J] is staged in shared memory for the
-// cycle end where it fits in 48 KB with the rest (J <= 74 in float64).
+// Instantiated for double (`hs_arnoldi_givens`), float
+// (`hs_arnoldi_givens_f32`) and the complex types (`_c128`, `_c64`; cs and
+// st in the real type).  H[:J, :J] is staged in shared memory for the
+// cycle end where it fits in 48 KB with the rest (J <= 74 in float64;
+// half as many values in complex128).
 #include "arnoldi_givens.cuh"
 
 template <typename T>
@@ -27,8 +29,9 @@ static int arnoldi_givens(void* H, void* cs, void* sn, void* g, const void* hc,
                           double res_floor, int cont, void* stream) {
   if (m < 1 || m > HS_GIVENS_MAX_M || j < 0 || j >= m)
     return (int)cudaErrorInvalidValue;
-  GivensArgs<T> p = {(T*)H, (T*)cs, (T*)sn, (T*)g, (T*)st, (int*)done, (T*)y,
-                     m, (T)res_floor, cont, 1};
+  typedef hs_real_t<T> R;
+  GivensArgs<T> p = {(T*)H, (R*)cs, (T*)sn, (T*)g, (R*)st, (int*)done, (T*)y,
+                     m, (R)res_floor, cont, 1};
   long long vals = (m + 1) + givens_smem_values(m, j + 1, true);
   if (vals * (long long)sizeof(T) > 48 * 1024) {
     p.h_smem = 0;
@@ -54,3 +57,15 @@ HS_EXPORT int hs_arnoldi_givens_f32(void* H, void* cs, void* sn, void* g,
   return arnoldi_givens<float>(H, cs, sn, g, hc, st, done, y, j, m,
                                res_floor, cont, stream);
 }
+
+#define HS_M_EXPORT(SFX, T)                                                   \
+  HS_EXPORT int hs_arnoldi_givens##SFX(void* H, void* cs, void* sn, void* g,  \
+                                       const void* hc, void* st, void* done,  \
+                                       void* y, int j, int m,                 \
+                                       double res_floor, int cont,            \
+                                       void* stream) {                        \
+    return arnoldi_givens<T>(H, cs, sn, g, hc, st, done, y, j, m, res_floor,  \
+                             cont, stream);                                   \
+  }
+HS_M_EXPORT(_c128, hs_c128)
+HS_M_EXPORT(_c64, hs_c64)

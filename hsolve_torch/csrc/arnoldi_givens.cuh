@@ -25,6 +25,24 @@
 // (`__dmul_rn`, `__fadd_rn`, ...): no fused multiply-add, so the rotations,
 // the done flag and y are those of the plain torch version bit for bit.
 //
+// In complex (`hs_c128`, `hs_c64`: the damped Helmholtz system) the step is
+// JAX's complex Givens, hsolve/krylov.py:240-264: cs and the residual
+// estimate real, sn = a conj(b) / max(|a| d, tiny), the earlier rotations
+// [cs, sn; -conj(sn), cs], g[j+1] = -conj(sn) g[j].  Each complex
+// operation is a fixed sequence of real ones, each rounded on its own, in
+// the order the plain version (hsolve_torch/ops/arnoldi.py,
+// `arnoldi_givens_plain`) spells out with torch ops on the parts:
+//   a b      = (ar br - ai bi, ar bi + ai br)
+//   c a      = (c ar, c ai)                     (c real)
+//   |a|      = sqrt(ar ar + ai ai)
+//   a / d    = (ar / d, ai / d)                 (d real: JAX's complex
+//              division by d + 0i is this, bit for bit; tools/
+//              cycle_rounding.py --division)
+//   a / b    = ((ar br + ai bi) / n, (ai br - ar bi) / n), n = br br + bi bi
+// so kernel and plain version still agree bit for bit; against JAX (XLA's
+// own complex product, modulus and triangular solve) they agree to
+// rounding.
+//
 // Bound: latency.  The rotations are a chain of j dependent steps and the
 // solve one of J(J+1)/2 dependent subtractions, so one warp does the step.
 // Before lane 0's chain the warp loads cs[:j], sn[:j] and g[:J] into shared
@@ -39,6 +57,7 @@
 #include <float.h>
 
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #define HS_GIVENS_MAX_M 256
 
@@ -50,21 +69,66 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double tiny_of(double) { return DBL_MIN; }
 __device__ __forceinline__ float tiny_of(float) { return FLT_MIN; }
 
-// the step's state in global memory (the GMRES run's Arnoldi state)
+// the value operations of the step in each type (see above): real ones are
+// the plain operations; complex ones their parts' sequences
+template <typename R>
+__device__ __forceinline__ R scale_rn(R c, R a) { return mul_rn(c, a); }
+template <typename R>
+__device__ __forceinline__ R abs_rn(R a) { return fabs(a); }
+template <typename R>
+__device__ __forceinline__ R nconj(R a) { return -a; }  // -conj(a)
+template <typename R>
+__device__ __forceinline__ R divr_rn(R a, R d) { return div_rn(a, d); }
+template <typename R>
+__device__ __forceinline__ R real_of(R a) { return a; }
+
+#define HS_CPLX_RN(C, R)                                                       \
+  __device__ __forceinline__ C add_rn(C a, C b) {                              \
+    return C(add_rn(a.re, b.re), add_rn(a.im, b.im));                          \
+  }                                                                            \
+  __device__ __forceinline__ C mul_rn(C a, C b) {                              \
+    return C(sub_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)),                   \
+             add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re)));                  \
+  }                                                                            \
+  __device__ __forceinline__ C scale_rn(R c, C a) {                            \
+    return C(mul_rn(c, a.re), mul_rn(c, a.im));                                \
+  }                                                                            \
+  __device__ __forceinline__ R abs_rn(C a) {                                   \
+    return sqrt_rn(add_rn(mul_rn(a.re, a.re), mul_rn(a.im, a.im)));            \
+  }                                                                            \
+  __device__ __forceinline__ C nconj(C a) { return C(-a.re, a.im); }           \
+  __device__ __forceinline__ C divr_rn(C a, R d) {                             \
+    return C(div_rn(a.re, d), div_rn(a.im, d));                                \
+  }                                                                            \
+  __device__ __forceinline__ C div_rn(C a, C b) {                              \
+    const R n = add_rn(mul_rn(b.re, b.re), mul_rn(b.im, b.im));                \
+    return C(div_rn(add_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)), n),        \
+             div_rn(sub_rn(mul_rn(a.im, b.re), mul_rn(a.re, b.im)), n));       \
+  }                                                                            \
+  __device__ __forceinline__ R real_of(C a) { return a.re; }
+HS_CPLX_RN(hs_c128, double)
+HS_CPLX_RN(hs_c64, float)
+#undef HS_CPLX_RN
+
+// the step's state in global memory (the GMRES run's Arnoldi state); cs,
+// st and the floor in the real type
 template <typename T>
 struct GivensArgs {
+  typedef hs_real_t<T> R;
   T* H;       // [m+1, m]
-  T* cs;      // [m]
+  R* cs;      // [m]
   T* sn;      // [m]
   T* g;       // [m+1]
-  T* st;      // [2]
+  R* st;      // [2]
   int* done;  // [1]
   T* y;       // [m]
   int m;
-  T floor;
+  R floor;
   int cont;
   int h_smem;  // stage H[:J, :J] in shared memory for the back substitution
 };
@@ -81,10 +145,11 @@ __host__ __device__ inline long long givens_smem_values(int m, int J,
 // values) as scratch.  Returns whether the step ended the cycle.
 template <typename T>
 __device__ bool givens_step(T* col, T* buf, const GivensArgs<T>& p, int j) {
+  typedef hs_real_t<T> R;
   const int lane = threadIdx.x & 31;
   const int m = p.m, J = j + 1;
-  T* css = buf;          // [m]    cs[:j]
-  T* sns = css + m;      // [m]    sn[:j]
+  R* css = reinterpret_cast<R*>(buf);  // [m] cs[:j] (in m values' room)
+  T* sns = buf + m;      // [m]    sn[:j]
   T* gs = sns + m;       // [m+1]  g[:J], then the rotated g[j]
   T* ys = gs + m + 1;    // [m]    y[:J]
   T* pr = ys + m;        // [m+1]  one row's products H[i, k] y[k]
@@ -99,35 +164,37 @@ __device__ bool givens_step(T* col, T* buf, const GivensArgs<T>& p, int j) {
   if (lane == 0) {
     for (int i = 0; i < j; ++i) {
       const T a = col[i], b = col[i + 1];
-      col[i] = add_rn(mul_rn(css[i], a), mul_rn(sns[i], b));
-      col[i + 1] = add_rn(mul_rn(-sns[i], a), mul_rn(css[i], b));
+      col[i] = add_rn(scale_rn(css[i], a), mul_rn(sns[i], b));
+      col[i + 1] = add_rn(mul_rn(nconj(sns[i]), a), scale_rn(css[i], b));
     }
     const T a = col[j], b = col[j + 1];
-    const T absa = fabs(a), absb = fabs(b);
-    const T denom = sqrt_rn(add_rn(mul_rn(absa, absa), mul_rn(absb, absb)));
-    const bool safe = denom > T(0);
-    T csj, snj;
-    if (safe && absa > T(0)) {
+    const R absa = abs_rn(a), absb = abs_rn(b);
+    const R denom = sqrt_rn(add_rn(mul_rn(absa, absa), mul_rn(absb, absb)));
+    const bool safe = denom > R(0);
+    R csj;
+    T snj;
+    if (safe && absa > R(0)) {
       csj = div_rn(absa, denom);
-      snj = div_rn(mul_rn(a, b), fmax(mul_rn(absa, denom), tiny_of(a)));
+      snj = divr_rn(mul_rn(a, hs_conj(b)),
+                    fmax(mul_rn(absa, denom), tiny_of(absa)));
     } else {
-      csj = safe ? T(0) : T(1);
+      csj = safe ? R(0) : R(1);
       snj = safe ? T(1) : T(0);
     }
-    const T hn = col[j + 1];  // ||w||, before the rotation zeroes it
-    col[j] = add_rn(mul_rn(csj, a), mul_rn(snj, b));
+    const R hn = real_of(col[j + 1]);  // ||w||, before the rotation zeroes it
+    col[j] = add_rn(scale_rn(csj, a), mul_rn(snj, b));
     col[j + 1] = T(0);
     p.cs[j] = csj;
     p.sn[j] = snj;
     const T gj = gs[j];
-    const T gj1 = mul_rn(-snj, gj);
-    const T gjn = mul_rn(csj, gj);
+    const T gj1 = mul_rn(nconj(snj), gj);
+    const T gjn = scale_rn(csj, gj);
     gs[j] = gjn;
     p.g[j + 1] = gj1;
     p.g[j] = gjn;
-    const T res = fabs(gj1);
+    const R res = abs_rn(gj1);
     p.st[0] = res;
-    p.st[1] = hn > T(0) ? hn : T(1);
+    p.st[1] = hn > R(0) ? hn : R(1);
     done = !(p.cont && res > p.floor);
     *p.done = done;
   }

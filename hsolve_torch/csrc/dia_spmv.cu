@@ -9,14 +9,17 @@
 // The residual form serves GMRES's true-residual check (hsolve/krylov.py:302)
 // without a second pass over N.  At most 64 diagonals; their offsets are read
 // from a small device array into shared memory once per block.  Instantiated
-// for double (`hs_dia_spmv`) and float (`hs_dia_spmv_f32`, the float32
-// operator of mixed-precision GMRES's inner cycles).
+// for double (`hs_dia_spmv`), float (`hs_dia_spmv_f32`, the float32
+// operator of mixed-precision GMRES's inner cycles) and the complex types
+// (`_c128`, `_c64`: the damped Helmholtz operator and its complex64 copy;
+// complex products, summed in the value type as the plain version sums).
 //
 // Bound: memory streaming.  Per row and right-hand side it reads nd values of
 // `vals` and nd neighbours of x (the latter mostly from L1/L2: stencil
 // neighbours are close in i) and writes one result.  Threads run along i, so
 // every stream is coalesced; no padded copy of x is made.
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #define HS_MAX_DIAGS 64
 
@@ -69,4 +72,16 @@ HS_EXPORT int hs_dia_spmv_f32(void* y, const void* vals, const void* offs,
                               const void* x, const void* b, int nd,
                               long long N, int k, void* stream) {
   return dia_spmv<float>(y, vals, offs, x, b, nd, N, k, stream);
+}
+
+HS_EXPORT int hs_dia_spmv_c128(void* y, const void* vals, const void* offs,
+                               const void* x, const void* b, int nd,
+                               long long N, int k, void* stream) {
+  return dia_spmv<hs_c128>(y, vals, offs, x, b, nd, N, k, stream);
+}
+
+HS_EXPORT int hs_dia_spmv_c64(void* y, const void* vals, const void* offs,
+                              const void* x, const void* b, int nd,
+                              long long N, int k, void* stream) {
+  return dia_spmv<hs_c64>(y, vals, offs, x, b, nd, N, k, stream);
 }

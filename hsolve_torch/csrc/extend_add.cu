@@ -14,8 +14,10 @@
 // that belong to no group are untouched (the staging buffer held zeros there).
 // The caller launches the left groups before the right ones, as JAX adds them;
 // each entry gets one add per launch, so the result is bitwise the plain
-// version's.  Instantiated for double (`hs_extend_add`) and float
-// (`hs_extend_add_f32`).
+// version's.  Instantiated for double (`hs_extend_add`), float
+// (`hs_extend_add_f32`) and the complex types (`_c128`, `_c64`), which add
+// one value (16 or 8 bytes, one load) at a time: a complex add is the two
+// real adds torch's is, so the result stays bitwise too.
 //
 // Bound: memory (one read of the child's Schur entries a group covers, one
 // read-modify-write of the front entries).  The first design ran one
@@ -41,6 +43,7 @@
 //   per row.  The CTAs stride over the tiles, so any count is correct; a
 //   count above the valid rows only leaves CTAs without work.
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #define B_THREADS 256  // B_THREADS in ops/assembly.py
 
@@ -57,6 +60,14 @@ template <>
 struct BVec2<float> {
   typedef float2 V;
 };
+template <>
+struct BVec2<hs_c128> {  // one value at a time
+  typedef hs_c128 V;
+};
+template <>
+struct BVec2<hs_c64> {
+  typedef hs_c64 V;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(B_THREADS)
@@ -65,7 +76,7 @@ __global__ void __launch_bounds__(B_THREADS)
                       const int* __restrict__ dst_rows,
                       const int* __restrict__ imap, int G, int m, int w,
                       int trows) {
-  constexpr int VEC = 2;
+  constexpr int VEC = hs_traits<T>::complex ? 1 : 2;
   typedef typename BVec2<T>::V VT;
   constexpr unsigned ALIGN = sizeof(VT) - 1;
   extern __shared__ int cmp[];  // [m] front index, then [m] source index
@@ -126,18 +137,23 @@ __global__ void __launch_bounds__(B_THREADS)
           run = run && fj[j0 + u] == fj[j0] + u && sc[j0 + u] == sc[j0] + u;
         T* fp = frow + fj[j0];
         const T* sp = srow + sc[j0];
-        if (run && (reinterpret_cast<uintptr_t>(fp) & ALIGN) == 0 &&
-            (reinterpret_cast<uintptr_t>(sp) & ALIGN) == 0) {
-          const VT a = __ldg(reinterpret_cast<const VT*>(sp));
-          VT f = *reinterpret_cast<VT*>(fp);
-          const T* av = reinterpret_cast<const T*>(&a);
-          T* fv = reinterpret_cast<T*>(&f);
+        bool vec = false;
+        if constexpr (VEC > 1)
+          vec = run && (reinterpret_cast<uintptr_t>(fp) & ALIGN) == 0 &&
+                (reinterpret_cast<uintptr_t>(sp) & ALIGN) == 0;
+        if (vec) {
+          if constexpr (VEC > 1) {
+            const VT a = __ldg(reinterpret_cast<const VT*>(sp));
+            VT f = *reinterpret_cast<VT*>(fp);
+            const T* av = reinterpret_cast<const T*>(&a);
+            T* fv = reinterpret_cast<T*>(&f);
 #pragma unroll
-          for (int u = 0; u < VEC; ++u) fv[u] += av[u];
-          *reinterpret_cast<VT*>(fp) = f;
+            for (int u = 0; u < VEC; ++u) fv[u] += av[u];
+            *reinterpret_cast<VT*>(fp) = f;
+          }
         } else {
           for (int u = 0; u < cnt; ++u)
-            frow[fj[j0 + u]] += __ldg(srow + sc[j0 + u]);
+            frow[fj[j0 + u]] += hs_ldg(srow + sc[j0 + u]);
         }
       }
     }
@@ -179,4 +195,20 @@ HS_EXPORT int hs_extend_add_f32(void* front, const void* S,
                                 int tiles, int trows, void* stream) {
   return extend_add<float>(front, S, src_rows, dst_rows, imap, G, m, w, tiles,
                            trows, stream);
+}
+
+HS_EXPORT int hs_extend_add_c128(void* front, const void* S,
+                                 const void* src_rows, const void* dst_rows,
+                                 const void* imap, int G, int m, int w,
+                                 int tiles, int trows, void* stream) {
+  return extend_add<hs_c128>(front, S, src_rows, dst_rows, imap, G, m, w,
+                             tiles, trows, stream);
+}
+
+HS_EXPORT int hs_extend_add_c64(void* front, const void* S,
+                                const void* src_rows, const void* dst_rows,
+                                const void* imap, int G, int m, int w,
+                                int tiles, int trows, void* stream) {
+  return extend_add<hs_c64>(front, S, src_rows, dst_rows, imap, G, m, w,
+                            tiles, trows, stream);
 }

@@ -11,8 +11,11 @@
 // block) and `pos` the flat position in the zero-initialised [B, m_pad, m_pad]
 // front stack.  Positions are unique, so plain stores suffice.
 //
-// Instantiated for double (`hs_front_assemble`) and float
-// (`hs_front_assemble_f32`, the float32 factor).
+// Instantiated for double (`hs_front_assemble`), float
+// (`hs_front_assemble_f32`, the float32 factor) and the complex types
+// (`_c128`, `_c64`: the damped Helmholtz system; a value is 16 or 8 bytes,
+// gathered in one load, and the sentinel is 1 + 0i, as JAX's
+// `jnp.ones((), dtype)`).
 //
 // Bound: memory.  Each entry reads 8 bytes of index data and one value by
 // gather, and writes one value at a scattered position (the positions of one
@@ -20,6 +23,7 @@
 // addresses).  The design is one grid-stride pass with no staging; the
 // gathered values are read through the read-only cache.
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 template <typename T>
 __global__ void front_assemble_kernel(T* __restrict__ front,
@@ -31,7 +35,7 @@ __global__ void front_assemble_kernel(T* __restrict__ front,
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nnz;
        e += stride) {
     const int s = src[e];
-    front[pos[e]] = s >= 0 ? __ldg(adata + s) : T(1);
+    front[pos[e]] = s >= 0 ? hs_ldg(adata + s) : T(1);
   }
 }
 
@@ -58,6 +62,18 @@ HS_EXPORT int hs_front_assemble_f32(void* front, const void* pos,
                                     const void* src, const void* adata,
                                     long long nnz, void* stream) {
   return front_assemble<float>(front, pos, src, adata, nnz, stream);
+}
+
+HS_EXPORT int hs_front_assemble_c128(void* front, const void* pos,
+                                     const void* src, const void* adata,
+                                     long long nnz, void* stream) {
+  return front_assemble<hs_c128>(front, pos, src, adata, nnz, stream);
+}
+
+HS_EXPORT int hs_front_assemble_c64(void* front, const void* pos,
+                                    const void* src, const void* adata,
+                                    long long nnz, void* stream) {
+  return front_assemble<hs_c64>(front, pos, src, adata, nnz, stream);
 }
 
 HS_EXPORT const char* hs_error_string(int code) {

@@ -25,7 +25,15 @@
 // read on the host.  Each kernel rounds as its plain torch version
 // (hsolve_torch/ops/gmres_control.py) does, one operation at a time, so the
 // two agree bit for bit.  Instantiated for the solution's type To (double
-// or float) and, for the cycle start, the cycles' type Ti (To or float).
+// or float) and, for the cycle start, the cycles' type Ti (To or float);
+// the cycle start also for complex values (complex128 or complex64 cycles
+// in a complex128 solve, complex64 in a complex64 one: the damped Helmholtz
+// system), where r, V, sn, g and y are complex and sc, cs and the floor
+// stay in the real types, as JAX's `rdtype` / `ordtype` (krylov.py:217-218);
+// V[0] = r / beta divides each part by the real beta, which is JAX's
+// complex division by beta + 0i bit for bit (tools/cycle_rounding.py
+// --division).  The run's start, the cycle end and the escalation read and
+// write only the real scalars, so a complex solve runs their real forms.
 //
 // Bound: latency.  Except the cycle start's pass over V[0] (bytes: r read,
 // V[0] and its copy written), each kernel is a handful of dependent scalar
@@ -75,32 +83,34 @@ __global__ void gmres_init_kernel(To* __restrict__ sc, To* __restrict__ hist,
 
 template <typename To, typename Ti>
 __global__ void gmres_cycle_start_kernel(
-    const To* __restrict__ r, const To* __restrict__ sc, Ti* __restrict__ V,
-    Ti* __restrict__ vj, Ti* __restrict__ H, Ti* __restrict__ cs,
-    Ti* __restrict__ sn, Ti* __restrict__ g, Ti* __restrict__ y,
-    Ti* __restrict__ floor, int* __restrict__ loop, int64_t N, int m,
-    double m_eps) {
-  const To beta = sc[HS_SC_BETA];
-  const To div = beta > To(0) ? beta : To(1);
+    const To* __restrict__ r, const hs_real_t<To>* __restrict__ sc,
+    Ti* __restrict__ V, Ti* __restrict__ vj, Ti* __restrict__ H,
+    hs_real_t<Ti>* __restrict__ cs, Ti* __restrict__ sn, Ti* __restrict__ g,
+    Ti* __restrict__ y, hs_real_t<Ti>* __restrict__ floor,
+    int* __restrict__ loop, int64_t N, int m, double m_eps) {
+  typedef hs_real_t<To> Ro;
+  typedef hs_real_t<Ti> Ri;
+  const Ro beta = sc[HS_SC_BETA];
+  const Ro div = beta > Ro(0) ? beta : Ro(1);
   const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nt = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = t0; i < N; i += nt) {
-    const Ti v = (Ti)div_rn(r[i], div);
+    const Ti v = static_cast<Ti>(divr_rn(r[i], div));
     V[i] = v;
     vj[i] = v;
   }
-  const Ti beta_i = (Ti)beta;
+  const Ri beta_i = (Ri)beta;
   for (int64_t i = t0; i < (int64_t)(m + 1) * m; i += nt) H[i] = Ti(0);
   for (int64_t i = t0; i <= m; i += nt) {
     if (i < m) {
-      cs[i] = Ti(1);
+      cs[i] = Ri(1);
       sn[i] = Ti(0);
       y[i] = Ti(0);
     }
-    g[i] = i == 0 ? beta_i : Ti(0);
+    g[i] = i == 0 ? Ti(beta_i) : Ti(0);
   }
   if (t0 == 0) {
-    const Ti fl = max_nan((Ti)sc[HS_SC_TOL], mul_rn((Ti)m_eps, beta_i));
+    const Ri fl = max_nan((Ri)sc[HS_SC_TOL], mul_rn((Ri)m_eps, beta_i));
     *floor = fl;
     loop[HS_LOOP_J] = 0;
     const bool go = 0 < m && beta_i > fl &&
@@ -171,8 +181,9 @@ static int gmres_cycle_start(const void* r, const void* sc, void* V, void* vj,
   if (N < 1 || m < 1) return (int)cudaErrorInvalidValue;
   gmres_cycle_start_kernel<To, Ti><<<hs_blocks(N, 256), 256, 0,
                                      (cudaStream_t)stream>>>(
-      (const To*)r, (const To*)sc, (Ti*)V, (Ti*)vj, (Ti*)H, (Ti*)cs, (Ti*)sn,
-      (Ti*)g, (Ti*)y, (Ti*)floor, (int*)loop, (int64_t)N, m, m_eps);
+      (const To*)r, (const hs_real_t<To>*)sc, (Ti*)V, (Ti*)vj, (Ti*)H,
+      (hs_real_t<Ti>*)cs, (Ti*)sn, (Ti*)g, (Ti*)y, (hs_real_t<Ti>*)floor,
+      (int*)loop, (int64_t)N, m, m_eps);
   return (int)cudaGetLastError();
 }
 
@@ -188,6 +199,11 @@ static int gmres_cycle_start(const void* r, const void* sc, void* V, void* vj,
 HS_CYCLE_START(hs_gmres_cycle_start, double, double)
 HS_CYCLE_START(hs_gmres_cycle_start_f32, float, float)
 HS_CYCLE_START(hs_gmres_cycle_start_mixed, double, float)
+// complex: the cycles in the solution's type, and complex64 cycles in a
+// complex128 solve
+HS_CYCLE_START(hs_gmres_cycle_start_c128, hs_c128, hs_c128)
+HS_CYCLE_START(hs_gmres_cycle_start_c64, hs_c64, hs_c64)
+HS_CYCLE_START(hs_gmres_cycle_start_mixed_c, hs_c128, hs_c64)
 
 template <typename To>
 static int gmres_cycle_end(void* sc, void* hist, void* loop, int nhist,

@@ -16,14 +16,22 @@
 //
 // C is [rows, k].  The forward step takes one right-hand side per pass (k = 1
 // on the solve's path); the backward step takes them in chunks of HS_C_KMAX.
-// Instantiated for double and float (`_f32`, the float32 factor's solve).
-// Both accumulate in double: every dot, the substitution's running values
-// and the solved values it shares (ys, and the windows' scratch X, Z) are
-// double, and a float32 result is rounded once, where it is stored.  Loads
-// and stores keep the value type and stay 16 bytes wide, so the float32
-// form moves the same bytes; the top levels of a float32 factor are nearly
-// singular, and a float summation there cost the mixed-precision solve half
-// again as many GMRES iterations as the reference's (fault F4).
+// Instantiated for double, float (`_f32`, the float32 factor's solve),
+// complex128 (`_c128`) and complex64 (`_c64`: the damped Helmholtz system's
+// factors, hs_complex.cuh).  All accumulate in double (complex128 for the
+// complex types): every dot, the substitution's running values and the
+// solved values it shares (ys, and the windows' scratch X, Z) are in
+// hs_acc_t, and a float32 or complex64 result is rounded once, where it is
+// stored.  Loads and stores keep the value type and stay 16 bytes wide
+// (two doubles, four floats, one complex128 or two complex64 values), so
+// the narrow forms move the same bytes; the top levels of a float32 factor
+// are nearly singular, and a float summation there cost the mixed-precision
+// solve half again as many GMRES iterations as the reference's (fault F4).
+// In complex the pivot solve's division by U's diagonal is a product with
+// its complex reciprocal, and the forward update of C[bnd] two real
+// atomics.  A complex128 value takes twice a double's shared memory and
+// registers: the forward step's CTA at ni_pad 2048 holds 196 KB (ys, xs and
+// eight staged 32 x 33 blocks of 16 bytes), inside the 227 KB a CTA has.
 //
 // Bound: bytes.  A forward step must read lu[b] (or dinv[b]), L[b], the ids
 // and x once and write x' and the boundary updates once; the backward step
@@ -65,6 +73,7 @@
 // C[int] with plain stores: each int id has one writer, and the rows read
 // (bnd) and written (int) of one level are disjoint.
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #include <cooperative_groups.h>
 
@@ -81,28 +90,13 @@ namespace cg = cooperative_groups;
 #define HS_C_FWD_MAX (32 * HS_C_MAX_PW)  // its CTA (registers: up to 255)
 
 template <typename T>
-struct Vec16;
-template <>
-struct Vec16<double> {
-  static constexpr int n = 2;
-};
-template <>
-struct Vec16<float> {
-  static constexpr int n = 4;
-};
+using Vec16 = hs_vec16<T>;
 
-__device__ __forceinline__ void load16(const double* p, double* o) {
-  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
-  o[0] = v.x;
-  o[1] = v.y;
-}
-
-__device__ __forceinline__ void load16(const float* p, float* o) {
+// one 16-byte read-only load of Vec16<T>::n values
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, T* o) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
+  memcpy(o, &v, 16);
 }
 
 // acc[q] += row[0:len] . v[q * vstride + 0:len] over lane `gl`'s share of
@@ -112,7 +106,7 @@ template <typename T, bool VEC, typename VT>
 __device__ __forceinline__ void group_dot(const T* __restrict__ row,
                                           const VT* v, int vstride, int len,
                                           int kc, int gl,
-                                          double (&acc)[HS_C_KMAX]) {
+                                          hs_acc_t<T> (&acc)[HS_C_KMAX]) {
   if (VEC) {
     constexpr int W = Vec16<T>::n;
     for (int c = gl * W; c < len; c += HS_C_LPR * W) {
@@ -123,28 +117,29 @@ __device__ __forceinline__ void group_dot(const T* __restrict__ row,
         if (q < kc) {
 #pragma unroll
           for (int e = 0; e < W; ++e)
-            acc[q] += (double)a[e] * (double)v[q * vstride + c + e];
+            acc[q] += hs_wide(a[e]) * hs_wide(v[q * vstride + c + e]);
         }
       }
     }
   } else {
     for (int c = gl; c < len; c += HS_C_LPR) {
-      const T a = __ldg(row + c);
+      const T a = hs_ldg(row + c);
 #pragma unroll
       for (int q = 0; q < HS_C_KMAX; ++q)
-        if (q < kc) acc[q] += (double)a * (double)v[q * vstride + c];
+        if (q < kc) acc[q] += hs_wide(a) * hs_wide(v[q * vstride + c]);
     }
   }
 }
 
 // sum over the lanes of a group (xor partners stay inside aligned groups);
 // kc is uniform across the warp, so every lane shuffles
-__device__ __forceinline__ void group_sum(double (&acc)[HS_C_KMAX], int kc) {
+template <typename A>
+__device__ __forceinline__ void group_sum(A (&acc)[HS_C_KMAX], int kc) {
 #pragma unroll
   for (int q = 0; q < HS_C_KMAX; ++q)
     if (q < kc)
       for (int off = HS_C_LPR / 2; off > 0; off >>= 1)
-        acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+        acc[q] += hs_shfl_xor(acc[q], off);
 }
 
 // The panels p in [p_lo, p_hi) with p % cs == rank, as rows: own_count is a
@@ -177,7 +172,11 @@ __device__ __forceinline__ void front_sync(int cs) {
 template <typename T>
 __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (sizeof(T) == 8)
+  if constexpr (sizeof(T) == 16)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else if constexpr (sizeof(T) == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
                  : "memory");
   else
@@ -241,7 +240,7 @@ __device__ __forceinline__ void load_seg(const T* __restrict__ A, int ni, int P,
     const T* src = A + (int64_t)p0 * ni + row;
 #pragma unroll
     for (int j = 0; j < HS_C_PANEL; ++j)
-      seg[j] = row < ni && p0 + j < ni ? __ldg(src + (int64_t)j * ni) : T(0);
+      seg[j] = row < ni && p0 + j < ni ? hs_ldg(src + (int64_t)j * ni) : T(0);
   }
 }
 
@@ -254,7 +253,7 @@ __device__ __forceinline__ void fold_stage(T (&v)[NV], int lane) {
   for (int i = 0; i < HALF; ++i) {
     const T send = upper ? v[i] : v[i + HALF];
     const T keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, LANE_OFF);
+    v[i] = keep + hs_shfl_xor(send, LANE_OFF);
   }
 }
 
@@ -265,34 +264,37 @@ __device__ __forceinline__ void fold_stage(T (&v)[NV], int lane) {
 // the W lanes that share rows fold them (log2 W shuffles; lane g LR + c ends
 // with row c W + g), and one shuffle brings row r to lane r.
 template <typename T, bool VEC>
-__device__ __forceinline__ double panel_update(const T (&seg)[HS_C_PANEL],
-                                               const double* yp, int ni,
-                                               int p0, int lane) {
+__device__ __forceinline__ hs_acc_t<T> panel_update(
+    const T (&seg)[HS_C_PANEL], const hs_acc_t<T>* yp, int ni, int p0,
+    int lane) {
+  typedef hs_acc_t<T> Acc;
   if constexpr (VEC) {
     constexpr int W = Vec16<T>::n, LR = HS_C_PANEL / W;
     const int g = lane / LR;
-    double t[W];
+    Acc t[W];
 #pragma unroll
-    for (int e = 0; e < W; ++e) t[e] = 0.0;
+    for (int e = 0; e < W; ++e) t[e] = Acc(0);
 #pragma unroll
     for (int i = 0; i < LR; ++i) {
       const int col = p0 + i * W + g;
-      const double y = col < ni ? yp[i * W + g] : 0.0;
+      const Acc y = col < ni ? yp[i * W + g] : Acc(0);
 #pragma unroll
-      for (int e = 0; e < W; ++e) t[e] += (double)seg[i * W + e] * y;
+      for (int e = 0; e < W; ++e) t[e] += hs_wide(seg[i * W + e]) * y;
     }
     if constexpr (W == 4) {
       fold_stage<16, 2>(t, lane);
       fold_stage<8, 1>(t, lane);
-    } else {
+    } else if constexpr (W == 2) {
       fold_stage<16, 1>(t, lane);
+    } else {
+      return t[0];  // one value a lane: lane r holds row r
     }
-    return __shfl_sync(0xffffffffu, t[0], (lane % W) * LR + lane / W);
+    return hs_shfl(t[0], (lane % W) * LR + lane / W);
   } else {
-    double acc = 0.0;
+    Acc acc = Acc(0);
 #pragma unroll
     for (int j = 0; j < HS_C_PANEL; ++j)
-      acc += (double)seg[j] * (p0 + j < ni ? yp[j] : 0.0);
+      acc += hs_wide(seg[j]) * (p0 + j < ni ? yp[j] : Acc(0));
     return acc;
   }
 }
@@ -308,7 +310,8 @@ template <typename T, bool VEC>
 __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
                                            int p_lo, int p_hi, bool fwd,
                                            bool owner, int P, int r, int lane,
-                                           double& zr, double* ys, int y0,
+                                           hs_acc_t<T>& zr, hs_acc_t<T>* ys,
+                                           int y0,
                                            const T* dgw,
                                            int cs, int rank, bool wait_stage) {
   T seg[HS_C_PANEL];
@@ -327,20 +330,20 @@ __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
     if (owner && P == p) {
       // the staged block is 32 x 32 (identity-padded): no bounds, so its
       // shared-memory reads leave the shuffle chain
-      double v = zr;
+      hs_acc_t<T> v = zr;
       if (fwd) {
 #pragma unroll
         for (int i = 0; i < HS_C_PANEL; ++i) {
-          const double yi = __shfl_sync(0xffffffffu, v, i);
-          if (lane > i) v -= (double)dgw[lane * HS_C_DG_LD + i] * yi;
+          const hs_acc_t<T> yi = hs_shfl(v, i);
+          if (lane > i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
         }
       } else {
-        const double rd = 1.0 / (double)dgw[lane * HS_C_DG_LD + lane];
+        const hs_acc_t<T> rd = hs_inv(hs_wide(dgw[lane * HS_C_DG_LD + lane]));
 #pragma unroll
         for (int i = HS_C_PANEL - 1; i >= 0; --i) {
           if (lane == i) v *= rd;
-          const double yi = __shfl_sync(0xffffffffu, v, i);
-          if (lane < i) v -= (double)dgw[lane * HS_C_DG_LD + i] * yi;
+          const hs_acc_t<T> yi = hs_shfl(v, i);
+          if (lane < i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
         }
       }
       zr = v;
@@ -368,9 +371,10 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
                      const long long* __restrict__ perm,
                      const T* __restrict__ dinv, int ni, int nb, int k, int N,
                      int cs) {
+  typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  double* ys = reinterpret_cast<double*>(hs_smem);  // [ni] solved values
-  T* xs = reinterpret_cast<T*>(ys + ni);            // [ni] x
+  Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [ni] solved values
+  T* xs = reinterpret_cast<T*>(ys + ni);      // [ni] x
   T* dg = xs + ni;  // [warps][PANEL][DG_LD] diag blocks
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
@@ -394,13 +398,14 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       const int cnt = own_count(0, (nb + HS_C_PANEL - 1) / HS_C_PANEL, rank, cs);
       for (int t0 = warp * HS_C_RPW; t0 < cnt; t0 += nwarps * HS_C_RPW) {
         const int r = own_row(t0 + gi, 0, rank, cs);
-        double acc[HS_C_KMAX] = {};
+        Acc acc[HS_C_KMAX] = {};
         if (r < nb)
           group_dot<T, VEC>(L + (b * nb + r) * ni, xs, ni, ni, 1, gl, acc);
         group_sum(acc, 1);
         if (r < nb && gl == 0) {
           const int id = bid[r];
-          if (id < N) atomicAdd(C + (int64_t)id * k + q0, -(T)acc[0]);
+          if (id < N)
+            hs_atomic_add(C + (int64_t)id * k + q0, -static_cast<T>(acc[0]));
         }
       }
     }
@@ -410,13 +415,13 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       front_sync(cs);  // the whole front has read x before x' is written
       for (int t0 = warp * HS_C_RPW; t0 < cnt_all; t0 += nwarps * HS_C_RPW) {
         const int r = own_row(t0 + gi, 0, rank, cs);
-        double acc[HS_C_KMAX] = {};
+        Acc acc[HS_C_KMAX] = {};
         if (r < ni)
           group_dot<T, VEC>(A + (int64_t)r * ni, xs, ni, ni, 1, gl, acc);
         group_sum(acc, 1);
         if (r < ni && gl == 0) {
           const int id = iid[r];
-          if (id < N) C[(int64_t)id * k + q0] = (T)acc[0];
+          if (id < N) C[(int64_t)id * k + q0] = static_cast<T>(acc[0]);
         }
       }
     } else {
@@ -433,14 +438,14 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
         stage_block(A, ni, P, dgw, lane);
         cp_async_commit();
       }
-      double zr = row_ok ? (double)xs[(int)perm[b * ni + r]] : 0.0;
+      Acc zr = row_ok ? hs_wide(xs[(int)perm[b * ni + r]]) : Acc(0);
       front_sync(cs);  // also: every CTA of the cluster has started
       for (int dir = 0; dir < 2; ++dir)
         substitute<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r, lane, zr, ys, 0,
                            dgw, cs, rank, dir == 0);
       if (row_ok) {
         const int id = iid[r];
-        if (id < N) C[(int64_t)id * k + q0] = (T)zr;
+        if (id < N) C[(int64_t)id * k + q0] = static_cast<T>(zr);
       }
     }
     // the next right-hand side reuses xs and ys; no CTA leaves while others
@@ -470,8 +475,8 @@ template <typename T>
 __global__ void fwd_gather_kernel(const T* __restrict__ C,
                                   const int* __restrict__ int_ids,
                                   const long long* __restrict__ perm,
-                                  double* X, double* Z, long long B, int ni,
-                                  int k, int N) {
+                                  hs_acc_t<T>* X, hs_acc_t<T>* Z, long long B,
+                                  int ni, int k, int N) {
   const int64_t total = B * (int64_t)k * ni;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
@@ -480,19 +485,20 @@ __global__ void fwd_gather_kernel(const T* __restrict__ C,
     const int q = (int)(bq % k);
     const int64_t b = bq / k;
     const int id = int_ids[b * ni + i];
-    X[e] = id < N ? (double)C[(int64_t)id * k + q] : 0.0;
+    X[e] = id < N ? hs_wide(C[(int64_t)id * k + q]) : hs_acc_t<T>(0);
     const int j = perm != nullptr ? (int)perm[b * ni + i] : i;
     const int idp = int_ids[b * ni + j];
-    Z[e] = idp < N ? (double)C[(int64_t)idp * k + q] : 0.0;
+    Z[e] = idp < N ? hs_wide(C[(int64_t)idp * k + q]) : hs_acc_t<T>(0);
   }
 }
 
 // C[ids[b][r]][q] -= M[b][r] . v[b][q] (store: =), M [B][R][ni] row-major,
-// v [B][k][ni] (double); ids >= N skipped; one CTA per (front, chunk of rows)
+// v [B][k][ni] (hs_acc_t); ids >= N skipped; one CTA per (front, chunk of
+// rows)
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(HS_C_THREADS)
 row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
-               const double* v, int R, int ni, int k, int N, int split,
+               const hs_acc_t<T>* v, int R, int ni, int k, int N, int split,
                int store) {
   const int64_t b = blockIdx.x / split;
   const int per = (R + split - 1) / split;
@@ -505,16 +511,16 @@ row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
     for (int t0 = r_lo + warp * HS_C_RPW; t0 < r_hi; t0 += nwarps * HS_C_RPW) {
       const int r = t0 + gi;
       const int id = r < r_hi ? ids[b * R + r] : N;
-      double acc[HS_C_KMAX] = {};
+      hs_acc_t<T> acc[HS_C_KMAX] = {};
       if (id < N)
         group_dot<T, VEC>(M + (b * R + r) * ni, v + (b * k + q) * ni, 0, ni,
                           1, gl, acc);
       group_sum(acc, 1);
       if (id < N && gl == 0) {
         if (store)
-          C[(int64_t)id * k + q] = (T)acc[0];
+          C[(int64_t)id * k + q] = static_cast<T>(acc[0]);
         else
-          atomicAdd(C + (int64_t)id * k + q, -(T)acc[0]);
+          hs_atomic_add(C + (int64_t)id * k + q, -static_cast<T>(acc[0]));
       }
     }
   }
@@ -526,11 +532,12 @@ row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
 // pass also stores its final rows in C[int].
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(HS_C_FWD_MAX)
-window_solve_kernel(double* Z, const T* __restrict__ lu, T* C,
+window_solve_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu, T* C,
                     const int* __restrict__ int_ids, int ni, int k, int N,
                     int p_lo, int p_hi, int fwd, int cs) {
+  typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  double* ys = reinterpret_cast<double*>(hs_smem);  // [HS_C_WIN] its values
+  Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [HS_C_WIN] its values
   T* dg = reinterpret_cast<T*>(ys + HS_C_WIN);  // [warps][PANEL][DG_LD]
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
@@ -547,8 +554,8 @@ window_solve_kernel(double* Z, const T* __restrict__ lu, T* C,
     stage_block(A, ni, P, dgw, lane);
     cp_async_commit();
   }
-  double* zb = Z + (b * k + q) * ni;
-  double zr = row_ok ? zb[r] : 0.0;
+  Acc* zb = Z + (b * k + q) * ni;
+  Acc zr = row_ok ? zb[r] : Acc(0);
   front_sync(cs);  // also: every CTA of the cluster has started
   substitute<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane, zr, ys,
                      p_lo * HS_C_PANEL,
@@ -556,7 +563,7 @@ window_solve_kernel(double* Z, const T* __restrict__ lu, T* C,
   if (row_ok) {
     zb[r] = zr;
     const int id = int_ids[b * ni + r];
-    if (!fwd && id < N) C[(int64_t)id * k + q] = (T)zr;
+    if (!fwd && id < N) C[(int64_t)id * k + q] = static_cast<T>(zr);
   }
   front_sync(cs);  // no CTA leaves while others may still store into its ys
 }
@@ -567,31 +574,32 @@ window_solve_kernel(double* Z, const T* __restrict__ lu, T* C,
 // order, so the result does not depend on scheduling.
 template <typename T>
 __global__ void __launch_bounds__(256)
-window_update_kernel(double* Z, const T* __restrict__ lu, int ni, int k,
+window_update_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu, int ni, int k,
                      int r_lo, int r_hi, int c_lo, int c_hi, int tiles) {
+  typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  double* zs = reinterpret_cast<double*>(hs_smem);  // [c_hi - c_lo]
-  __shared__ double part[8][32];
+  Acc* zs = reinterpret_cast<Acc*>(hs_smem);  // [c_hi - c_lo]
+  __shared__ Acc part[8][32];
   const int64_t b = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x % tiles);
   const int q = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nc = c_hi - c_lo;
-  double* zb = Z + (b * k + q) * ni;
+  Acc* zb = Z + (b * k + q) * ni;
   for (int c = threadIdx.x; c < nc; c += blockDim.x) zs[c] = zb[c_lo + c];
   __syncthreads();
   const int row = r_lo + tile * 32 + lane;
   const int per = (nc + 7) / 8;
   const int c0 = warp * per, c1 = c0 + per < nc ? c0 + per : nc;
-  double acc = 0.0;
+  Acc acc = Acc(0);
   if (row < r_hi) {
     const T* col = lu + b * ni * ni + (int64_t)(c_lo + c0) * ni + row;
-    for (int c = c0; c < c1; ++c, col += ni) acc += (double)__ldg(col) * zs[c];
+    for (int c = c0; c < c1; ++c, col += ni) acc += hs_wide(hs_ldg(col)) * zs[c];
   }
   part[warp][lane] = acc;
   __syncthreads();
   if (warp == 0 && row < r_hi) {
-    double s = part[0][lane];
+    Acc s = part[0][lane];
 #pragma unroll
     for (int w = 1; w < 8; ++w) s += part[w][lane];
     zb[row] -= s;
@@ -626,7 +634,7 @@ sweep_update_kernel(T* C, const int* __restrict__ ids_out,
          t0 += nwarps * HS_C_RPW) {
       const int r = t0 + gi;
       const int id = r < r_hi ? iout[r] : N;
-      double acc[HS_C_KMAX] = {};
+      hs_acc_t<T> acc[HS_C_KMAX] = {};
       if (id < N)  // padded output rows skip their row of M
         group_dot<T, VEC>(M + (b * R + r) * Cc, ys, Cc, Cc, kc, gl, acc);
       group_sum(acc, kc);
@@ -635,7 +643,7 @@ sweep_update_kernel(T* C, const int* __restrict__ ids_out,
         for (int q = 0; q < HS_C_KMAX; ++q)
           if (q < kc) {
             T* out = C + (int64_t)id * k + k0 + q;
-            *out = *out - (T)acc[q];
+            *out = *out - static_cast<T>(acc[q]);
           }
       }
     }
@@ -671,8 +679,8 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
   if (pw_cta > HS_C_MAX_PW) return cudaErrorInvalidValue;
   const int warps = pw_cta > 2 ? pw_cta : 2;
   const int threads = 32 * warps;
-  const size_t smem =
-      (size_t)ni * sizeof(double) + (size_t)(ni + warps * HS_C_DG) * sizeof(T);
+  const size_t smem = (size_t)ni * sizeof(hs_acc_t<T>) +
+                      (size_t)(ni + warps * HS_C_DG) * sizeof(T);
   auto kern = level_forward_kernel<T, VEC>;
   cudaError_t err = allow_smem(kern, smem, &granted);
   if (err != cudaSuccess) return err;
@@ -706,8 +714,9 @@ template <typename T, bool VEC>
 static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
                                    const T* L, const T* lu,
                                    const long long* perm, const T* dinv,
-                                   double* X, double* Z, long long B, int ni,
-                                   int nb, int k, int N, cudaStream_t stream) {
+                                   hs_acc_t<T>* X, hs_acc_t<T>* Z, long long B,
+                                   int ni, int nb, int k, int N,
+                                   cudaStream_t stream) {
   static size_t granted_solve = 0, granted_update = 0;
   const int64_t total = B * (int64_t)k * ni;
   const unsigned gblocks = (unsigned)(total / 256 + 1 < 8192 ? total / 256 + 1
@@ -732,12 +741,12 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
   const int wpan = HS_C_WIN / HS_C_PANEL;
   const int nwin = (npan + wpan - 1) / wpan;
   // the window's solved values only: the same whatever ni
-  const size_t smem_solve = (size_t)HS_C_WIN * sizeof(double) +
+  const size_t smem_solve = (size_t)HS_C_WIN * sizeof(hs_acc_t<T>) +
                             (size_t)HS_C_MAX_PW * HS_C_DG * sizeof(T);
   auto solve = window_solve_kernel<T, VEC>;
   if ((err = allow_smem(solve, smem_solve, &granted_solve)) != cudaSuccess)
     return err;
-  const size_t smem_update = (size_t)HS_C_WIN * sizeof(double);
+  const size_t smem_update = (size_t)HS_C_WIN * sizeof(hs_acc_t<T>);
   auto update = window_update_kernel<T>;
   if ((err = allow_smem(update, smem_update, &granted_update)) != cudaSuccess)
     return err;
@@ -774,7 +783,7 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
       if (r_hi > r_lo) {
         const int tiles = (r_hi - r_lo + 31) / 32;
         update<<<dim3((unsigned)(B * tiles), (unsigned)k), 256,
-                 (size_t)(c_hi - c_lo) * sizeof(double), stream>>>(
+                 (size_t)(c_hi - c_lo) * sizeof(hs_acc_t<T>), stream>>>(
             Z, lu, ni, k, r_lo, r_hi, c_lo, c_hi, tiles);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
       }
@@ -798,12 +807,13 @@ static int level_forward_windowed(void* C, const void* int_ids,
   if (ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A))
     return (int)launch_windowed<T, true>(
         (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-        (const T*)lu, (const long long*)perm, (const T*)dinv, (double*)X,
-        (double*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
+        (const T*)lu, (const long long*)perm, (const T*)dinv,
+        (hs_acc_t<T>*)X, (hs_acc_t<T>*)Z, B, ni, nb, k, N,
+        (cudaStream_t)stream);
   return (int)launch_windowed<T, false>(
       (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-      (const T*)lu, (const long long*)perm, (const T*)dinv, (double*)X,
-      (double*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
+      (const T*)lu, (const long long*)perm, (const T*)dinv, (hs_acc_t<T>*)X,
+      (hs_acc_t<T>*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -911,3 +921,29 @@ HS_EXPORT int hs_sweep_update_f32(void* C, const void* ids_out, const void* M,
   return sweep_update<float>(C, ids_out, M, ids_in, B, R, Cc, k, N, split,
                              stream);
 }
+
+// the complex types (the damped Helmholtz system's exact factors)
+#define HS_C_EXPORTS(SFX, T)                                                   \
+  HS_EXPORT int hs_level_forward##SFX(                                         \
+      void* C, const void* int_ids, const void* bnd_ids, const void* L,        \
+      const void* lu, const void* perm, const void* dinv, long long B, int ni, \
+      int nb, int k, int N, int cs, void* stream) {                            \
+    return level_forward<T>(C, int_ids, bnd_ids, L, lu, perm, dinv, B, ni, nb, \
+                            k, N, cs, stream);                                 \
+  }                                                                            \
+  HS_EXPORT int hs_level_forward_windowed##SFX(                                \
+      void* C, const void* int_ids, const void* bnd_ids, const void* L,        \
+      const void* lu, const void* perm, const void* dinv, void* X, void* Z,    \
+      long long B, int ni, int nb, int k, int N, void* stream) {               \
+    return level_forward_windowed<T>(C, int_ids, bnd_ids, L, lu, perm, dinv,   \
+                                     X, Z, B, ni, nb, k, N, stream);           \
+  }                                                                            \
+  HS_EXPORT int hs_sweep_update##SFX(void* C, const void* ids_out,             \
+                                     const void* M, const void* ids_in,        \
+                                     long long B, int R, int Cc, int k, int N, \
+                                     int split, void* stream) {                \
+    return sweep_update<T>(C, ids_out, M, ids_in, B, R, Cc, k, N, split,       \
+                           stream);                                            \
+  }
+HS_C_EXPORTS(_c128, hs_c128)
+HS_C_EXPORTS(_c64, hs_c64)

@@ -46,9 +46,12 @@ A dense parent of HSS children densifies them and adds them with kernel B.
 
 The factor runs in float64 or, on exact (dense) levels, float32: the JAX
 bench's device configuration, a float32 factor as the preconditioner of
-mixed-precision GMRES (kernels A-C then run in float32).  Float32 products
-never use TF32 here: ``factor_with_plan`` sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` explicitly.
+mixed-precision GMRES (kernels A-C then run in float32).  A complex system
+(the damped Helmholtz operator) factors in complex128 or, as the bench's
+device configuration, complex64, on exact plans only (complex E-K are a
+later slice).  Float32 and complex64 products never use TF32 here:
+``factor_with_plan`` sets ``torch.backends.cuda.matmul.allow_tf32 = False``
+explicitly.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ import scipy.sparse as sp
 import torch
 
 from hsolve_torch.interop import TorchPlan, plan_to_torch
-from hsolve_torch.kernels import resolve_device
+from hsolve_torch.kernels import VALUE_TYPES, resolve_device
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.assembly import extend_add, front_assemble
 from hsolve_torch.ops.lowrank import rand_lowrank, sketch_width
@@ -571,10 +574,14 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
 
 def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
     tdt = torch_dtype(plan.A_dtype if dtype is None else dtype)
-    if tdt.is_complex:
-        raise NotImplementedError("complex dtypes are a later slice of the port")
-    if not tdt.is_floating_point:
+    if not (tdt.is_floating_point or tdt.is_complex):
         raise TypeError(f"unsupported factorization dtype {tdt}")
+    if tdt.is_complex and any(bp.compress for bp in plan.batches):
+        raise NotImplementedError(
+            "complex values on compressed and structured levels (kernels "
+            "E-K, rand_lowrank's QR and SVD and cpqr's pivots in complex) "
+            "are the port's next slice; the JAX package factors such plans "
+            "(hsolve.factor); factor this system with swlevel=0 here")
     return tdt
 
 
@@ -586,13 +593,17 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
 
     ``plan`` may come from either planner.  On a CUDA device the kernels run,
     in float64, or in float32 on a plan without compressed batches; on the
-    CPU every kernel runs as its plain torch version.  ``sketch`` replaces
-    the default sketches of the compressed batches (see :data:`Sketch` and
+    CPU every kernel runs as its plain torch version.  A complex system
+    (``plan.A_dtype`` complex128, e.g. ``helmholtz2d(n, damping=0.1)``)
+    factors in complex128 or complex64 on an exact plan (``swlevel=0``) on
+    either device; a complex plan with compressed or structured batches
+    raises ``NotImplementedError``.  ``sketch`` replaces the default
+    sketches of the compressed batches (see :data:`Sketch` and
     :func:`torch_sketch`)."""
     dev = resolve_device(device)
     tdt = _torch_dtype(dtype, plan)
-    if dev.type == "cuda" and tdt not in (torch.float32, torch.float64):
-        raise NotImplementedError("the CUDA kernels take float32 or float64")
+    if dev.type == "cuda" and tdt not in VALUE_TYPES:
+        raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
     if dev.type == "cuda" and tdt == torch.float32 and any(
             bp.compress for bp in plan.batches):
         raise NotImplementedError(

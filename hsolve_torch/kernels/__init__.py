@@ -32,10 +32,13 @@ they serve:
 
 Kernels A-D, L and M run on every path; E, F and G on the compressed levels;
 H-K on the structured (HSS) levels, which also run E on their low-rank
-transforms.  A-D, L and M take float32 or float64 values (one C entry point
-per type, ``hs_<name>`` and ``hs_<name>_f32``); E-K take float64; the
-control kernels the solution's type (the cycle start also float32 cycles in
-a float64 solve, ``hs_gmres_cycle_start_mixed``).  Kernel C's
+transforms.  A-D, L and M take float32, float64, complex64 or complex128
+values (one C entry point per type, ``hs_<name>``, ``hs_<name>_f32``,
+``_c64`` and ``_c128``; the complex kernels use the value traits of
+``csrc/hs_complex.cuh``); E-K take float64; the control kernels the
+solution's type (the cycle start also float32 cycles in a float64 solve,
+``hs_gmres_cycle_start_mixed``, and complex64 cycles in a complex128 one,
+``hs_gmres_cycle_start_mixed_c``).  Kernel C's
 forward step of a wide front runs on a thread block cluster
 (``cudaLaunchKernelEx``), and so do kernel E where a launch's few fronts
 leave SMs idle, kernel J where a level's few matrices do, and kernel K with
@@ -114,7 +117,18 @@ TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
          "hs_gmres_escalate")
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in TYPED})
 _SIGNATURES["hs_gmres_cycle_start_mixed"] = _SIGNATURES["hs_gmres_cycle_start"]
-VALUE_TYPES = (torch.float32, torch.float64)
+# ... and complex64 / complex128 (``_c64`` / ``_c128``, values interleaved
+# (re, im) as torch stores them), all but the run's start, the cycle end and
+# the escalation, which read and write only the solve's real scalars
+_SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name] for name in TYPED
+                    if name not in ("hs_gmres_init", "hs_gmres_cycle_end",
+                                    "hs_gmres_escalate")
+                    for sfx in ("_c64", "_c128")})
+_SIGNATURES["hs_gmres_cycle_start_mixed_c"] = _SIGNATURES["hs_gmres_cycle_start"]
+VALUE_TYPES = (torch.float32, torch.float64, torch.complex64,
+               torch.complex128)
+_SUFFIX = {torch.float64: "", torch.float32: "_f32", torch.complex64: "_c64",
+           torch.complex128: "_c128"}
 
 _lib = None
 
@@ -256,8 +270,8 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
                         "kernels take int32 indices, and one value type per "
-                        "call: float32 or float64 for A-D, L and M, float64 "
-                        "for the others)")
+                        "call: float32, float64, complex64 or complex128 for "
+                        "A-D, L and M, float64 for the others)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -267,19 +281,19 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
 
 def value_type(*tensors: torch.Tensor) -> torch.dtype:
     """The one value type of a typed kernel's (A-D, L, M) value operands:
-    float32 or float64, shared by all of them; raises ``TypeError``
-    otherwise."""
+    float32, float64, complex64 or complex128, shared by all of them; raises
+    ``TypeError`` otherwise."""
     types = {t.dtype for t in tensors}
     if len(types) != 1 or not types <= set(VALUE_TYPES):
         raise TypeError(f"value operands of types {sorted(map(str, types))}: "
-                        "the kernel takes one type per call, float32 or "
-                        "float64")
+                        "the kernel takes one type per call, float32, "
+                        "float64, complex64 or complex128")
     return types.pop()
 
 
 def symbol(name: str, dtype: torch.dtype) -> str:
     """The C entry point of typed kernel ``name`` for ``dtype``."""
-    return name if dtype == torch.float64 else f"{name}_f32"
+    return name + _SUFFIX[dtype]
 
 
 def count_launch(fn, dtype: torch.dtype) -> None:
@@ -311,6 +325,24 @@ MIXED_PATH = ("front_assemble:float32", "extend_add:float32",
               "gmres_init:float64", "gmres_cycle_start:float32",
               "gmres_cycle_end:float64", "gmres_escalate:float64",
               "gmres_set_cond")
+# the complex (damped Helmholtz) exact path in complex128: A-D, the step and
+# the cycle start in complex128; the run's start and the cycle end touch only
+# the solve's real scalars (sc, hist), so they count in float64
+COMPLEX_PATH = ("front_assemble:complex128", "extend_add:complex128",
+                "level_forward:complex128", "sweep_update:complex128",
+                "dia_spmv:complex128", "arnoldi_cgs2:complex128",
+                "arnoldi_givens:complex128", "arnoldi_step:complex128",
+                "gmres_init:float64", "gmres_cycle_start:complex128",
+                "gmres_cycle_end:float64", "gmres_set_cond")
+# the bench's complex device configuration: a complex64 factor, complex64
+# cycles over a complex64 operator inside a complex128 solve, escalation on
+COMPLEX_MIXED_PATH = ("front_assemble:complex64", "extend_add:complex64",
+                      "level_forward:complex64", "sweep_update:complex64",
+                      "dia_spmv:complex64", "dia_spmv:complex128",
+                      "arnoldi_cgs2:complex64", "arnoldi_givens:complex64",
+                      "arnoldi_step:complex64", "gmres_init:float64",
+                      "gmres_cycle_start:complex64", "gmres_cycle_end:float64",
+                      "gmres_escalate:float64", "gmres_set_cond")
 
 
 def wrappers():

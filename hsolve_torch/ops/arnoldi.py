@@ -24,15 +24,24 @@ end's masked triangular solve, :293-298).
 The last two stay entry points so that each kernel can be read alone; the
 step counts one launch of each (``kernels.launch_counts()``) and one of its
 own (``arnoldi_step.launches``).  Everything stays on the device in the
-cycles' (inner) value type, float32 or float64.  The plain versions are
-torch ops in that type, so on the CPU they round as the JAX package's
-bookkeeping in that type does.
+cycles' (inner) value type, float32, float64, complex64 or complex128 (the
+damped Helmholtz system); the rotation cosines ``cs``, the estimate and
+divisor ``st`` and the floor are in its real type, as JAX's ``rdtype``.
+The plain versions are torch ops in that type, so on the CPU they round as
+the JAX package's bookkeeping in that type does.  In complex, kernel M's
+plain version spells each complex product, modulus and quotient out as
+torch ops on the real and imaginary parts (:func:`_mul` and the helpers
+beside it), in the kernel's order, so that the two still agree bit for bit;
+a division by a real (``V[j+1] = w / ||w||``, the cycle start's ``r /
+beta``) divides each part (:func:`div_real`), as JAX's complex division by
+``d + 0j`` does, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -62,6 +71,7 @@ class Arnoldi:
     g: torch.Tensor        # [m+1] the rotated right-hand side
     hc: torch.Tensor       # [m+1] the step's new column (L's output)
     st: torch.Tensor       # [2] the residual estimate, V[j+1]'s divisor
+                           # (real type)
     y: torch.Tensor        # [m] the cycle's coefficients
     part: torch.Tensor     # kernel L's per-CTA partial sums
     ticket: torch.Tensor   # [1] int32, kernel L's grid-barrier counter and
@@ -119,7 +129,7 @@ def arnoldi_state(m: int, N: int, dtype: torch.dtype, device) -> Arnoldi:
     z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     s = Arnoldi(V=z(m + 1, N), H=z(m + 1, m),
                 cs=torch.ones(m, dtype=rdt, device=device), sn=z(m),
-                g=z(m + 1), hc=z(m + 1), st=z(2), y=z(m),
+                g=z(m + 1), hc=z(m + 1), st=z(2, dt=rdt), y=z(m),
                 part=z((2 * m + 1) * cgs2_blocks(N, device_sms(device))),
                 ticket=z(1, dt=torch.int32), vj=z(N), floor=z(1, dt=rdt),
                 loop=z(LOOP_LEN, dt=torch.int32))
@@ -198,13 +208,106 @@ arnoldi_cgs2.launches = 0
 arnoldi_cgs2.launches_by_type = {}
 
 
+def div_real(x: torch.Tensor, d: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x / d`` for a real ``d``; a complex ``x`` has each part divided by
+    ``d`` on its own.  JAX's complex division by ``d + 0j`` gives exactly
+    that, where torch's multiplies by the reciprocal (``python3
+    tools/cycle_rounding.py --division``)."""
+    if not x.is_complex():
+        return torch.div(x, d, out=out)
+    if out is None:
+        return torch.view_as_complex(torch.view_as_real(x) / d)
+    torch.div(torch.view_as_real(x), d, out=torch.view_as_real(out))
+    return out
+
+
+# Kernel M's complex operations on (re, im) pairs (``[2]`` real tensors),
+# one torch op per real product, sum, quotient and root, in the order of
+# csrc/arnoldi_givens.cuh (``mul_rn``, ``scale_rn``, ``abs_rn``, ...)
+def _mul(p, q):
+    return torch.stack((p[0] * q[0] - p[1] * q[1], p[0] * q[1] + p[1] * q[0]))
+
+
+def _scale(c, p):
+    return torch.stack((c * p[0], c * p[1]))
+
+
+def _abs(p):
+    return torch.sqrt(p[0] * p[0] + p[1] * p[1])
+
+
+def _conj(p):
+    return torch.stack((p[0], -p[1]))
+
+
+def _nconj(p):
+    """``-conj(p)``."""
+    return torch.stack((-p[0], p[1]))
+
+
+def _div(p, q):
+    n = q[0] * q[0] + q[1] * q[1]
+    return torch.stack(((p[0] * q[0] + p[1] * q[1]) / n,
+                        (p[1] * q[0] - p[0] * q[1]) / n))
+
+
+def _givens_plain_complex(s: Arnoldi, j: int, floor, cont: bool) -> None:
+    """:func:`arnoldi_givens_plain` for complex values: JAX's complex Givens
+    (``hsolve/krylov.py:240-264``) in kernel M's real operations."""
+    H, g, sn, y = (torch.view_as_real(t) for t in (s.H, s.g, s.sn, s.y))
+    cs = s.cs
+    col = torch.zeros_like(g)
+    col[: j + 2] = torch.view_as_real(s.hc)[: j + 2]
+    for i in range(j):
+        a, b = col[i].clone(), col[i + 1].clone()
+        col[i] = _scale(cs[i], a) + _mul(sn[i], b)
+        col[i + 1] = _mul(_nconj(sn[i]), a) + _scale(cs[i], b)
+    a, b = col[j].clone(), col[j + 1].clone()
+    absa, absb = _abs(a), _abs(b)
+    denom = torch.sqrt(absa * absa + absb * absb)
+    if bool(denom > 0) and bool(absa > 0):
+        cs_j = absa / denom
+        tiny = torch.finfo(absa.dtype).tiny
+        sn_j = _mul(a, _conj(b)) / torch.maximum(absa * denom,
+                                                 torch.full_like(absa, tiny))
+    else:
+        safe = bool(denom > 0)
+        cs_j = torch.full_like(absa, 0.0 if safe else 1.0)
+        sn_j = torch.zeros_like(a)
+        sn_j[0] = 1.0 if safe else 0.0
+    hn = col[j + 1, 0].clone()
+    col[j] = _scale(cs_j, a) + _mul(sn_j, b)
+    col[j + 1] = 0.0
+    H[:, j] = col
+    cs[j], sn[j] = cs_j, sn_j
+    gj = g[j].clone()
+    gj1 = _mul(_nconj(sn_j), gj)
+    g[j + 1] = gj1
+    g[j] = _scale(cs_j, gj)
+    res = _abs(gj1)
+    s.st[0] = res
+    s.st[1] = hn if bool(hn > 0) else 1.0
+    done = not (cont and bool(res > floor))
+    s.done[0] = int(done)
+    if done:
+        s.y.zero_()
+        for i in range(j, -1, -1):
+            acc = g[i].clone()
+            for k in range(i + 1, j + 1):
+                acc = acc - _mul(H[i, k], y[k])
+            y[i] = _div(acc, H[i, i])
+
+
 def arnoldi_givens_plain(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
     """In place on ``s``: step ``j``'s rotations, ``H[:, j]``, ``cs[j]``,
     ``sn[j]``, ``g[j:j+2]``, ``st = (|g[j+1]|, ||w|| or 1)``, ``done = not
     (cont and st[0] > floor)``, and, when done, ``y[:j+1] = H[:j+1, :j+1]^-1
     g[:j+1]``, ``y[j+1:] = 0`` (JAX's identity-masked triangular solve).
     Each product, sum, quotient and root is one torch op, in kernel M's order,
-    so the two agree bit for bit."""
+    so the two agree bit for bit (complex values: :func:`_givens_plain_complex`)."""
+    if s.H.is_complex():
+        return _givens_plain_complex(s, j, floor, cont)
     col = torch.zeros_like(s.g)
     col[: j + 2] = s.hc[: j + 2]
     cs, sn = s.cs, s.sn
@@ -256,7 +359,8 @@ def arnoldi_givens(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
     let the cycle go on."""
     if kernels.on_cpu(s.H, s.cs, s.sn, s.g, s.hc, s.st, s.done, s.y):
         return arnoldi_givens_plain(s, j, floor, cont)
-    dt = kernels.value_type(s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y)
+    dt = kernels.value_type(s.H, s.sn, s.g, s.hc, s.y)
+    rdt = dt.to_real()
     m = s.H.shape[1]
     if not 1 <= m <= MAX_RESTART:
         raise ValueError(f"kernel M takes a restart of 1..{MAX_RESTART}, "
@@ -264,9 +368,11 @@ def arnoldi_givens(s: Arnoldi, j: int, floor: float, cont: bool) -> None:
     if not 0 <= j < m:
         raise ValueError(f"step j={j} outside restart {m}")
     kernels.require(s.H, "H", dt, (m + 1, m))
-    for name, t, n in (("cs", s.cs, m), ("sn", s.sn, m), ("g", s.g, m + 1),
-                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m)):
+    for name, t, n in (("sn", s.sn, m), ("g", s.g, m + 1),
+                       ("hc", s.hc, m + 1), ("y", s.y, m)):
         kernels.require(t, name, dt, (n,))
+    kernels.require(s.cs, "cs", rdt, (m,))
+    kernels.require(s.st, "st", rdt, (2,))
     kernels.require(s.done, "done", torch.int32, (1,))
     kernels.launch(kernels.symbol("hs_arnoldi_givens", dt), s.H.device,
                    s.H.data_ptr(), s.cs.data_ptr(), s.sn.data_ptr(),
@@ -289,7 +395,7 @@ def arnoldi_step_plain(s: Arnoldi, w: torch.Tensor) -> None:
     cont = step_cont(s, j)
     arnoldi_cgs2_plain(s, w, j)
     arnoldi_givens_plain(s, j, s.floor[0], cont)
-    torch.div(w, s.st[1], out=s.V[j + 1])
+    div_real(w, s.st[1], out=s.V[j + 1])
     s.vj.copy_(s.V[j + 1])
     s.loop[J] = j + 1
 
@@ -297,8 +403,8 @@ def arnoldi_step_plain(s: Arnoldi, w: torch.Tensor) -> None:
 def _step_launch(s: Arnoldi, device):
     """The fused launch's arguments for state ``s``, checked once: the state
     of one GMRES run keeps its shapes, types and storage."""
-    dt = kernels.value_type(s.V, s.H, s.cs, s.sn, s.g, s.hc, s.st, s.y, s.part,
-                            s.vj, s.floor)
+    dt = kernels.value_type(s.V, s.H, s.sn, s.g, s.hc, s.y, s.part, s.vj)
+    rdt = dt.to_real()
     m1, N = s.V.shape
     m = m1 - 1
     nb = cgs2_blocks(N, device_sms(device))
@@ -311,10 +417,12 @@ def _step_launch(s: Arnoldi, device):
                          f"({cgs2_max_slice(dt)} values)")
     kernels.require(s.V, "V", dt, (m1, N))
     kernels.require(s.H, "H", dt, (m + 1, m))
-    for name, t, n in (("cs", s.cs, m), ("sn", s.sn, m), ("g", s.g, m + 1),
-                       ("hc", s.hc, m + 1), ("st", s.st, 2), ("y", s.y, m),
-                       ("vj", s.vj, N), ("floor", s.floor, 1)):
+    for name, t, n in (("sn", s.sn, m), ("g", s.g, m + 1),
+                       ("hc", s.hc, m + 1), ("y", s.y, m), ("vj", s.vj, N)):
         kernels.require(t, name, dt, (n,))
+    for name, t, n in (("cs", s.cs, m), ("st", s.st, 2),
+                       ("floor", s.floor, 1)):
+        kernels.require(t, name, rdt, (n,))
     kernels.require(s.part, "part", dt)
     kernels.require(s.loop, "loop", torch.int32, (LOOP_LEN,))
     kernels.require(s.ticket, "ticket", torch.int32, (1,))

@@ -9,7 +9,9 @@
   reading straight from the child batch's Schur stack (JAX: ``_stage_children``
   + ``_extend_add_impl``).
 
-Both take float32 or float64 values (one type per call).
+Both take float32, float64, complex64 or complex128 values (one type per
+call); on complex values kernel B stays bitwise its plain version (a complex
+add is two real adds, in the same order).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Batched dense linear algebra of the pivot step (port of ``hsolve/ops/dense.py``).
 
-These stay library calls (``torch.linalg`` and ``torch.matmul``), as the JAX
-package leaves them to ``lax.linalg`` and ``@``; a fused hand kernel for the LU +
+These stay library calls (``torch.linalg`` and ``torch.matmul``, on real or
+complex tensors: cuSOLVER's and cuBLAS's ``d``/``s``/``z``/``c`` routines on
+the card), as the JAX package leaves them to ``lax.linalg`` and ``@``; a fused hand kernel for the LU +
 Schur step is later work.
 
 - :func:`lu_factor` / :func:`lu_solve` / :func:`lu_solve_right`: batched pivoted
@@ -37,7 +38,8 @@ def lu_factor(D: torch.Tensor):
     # applying them in order is a sequential loop that no torch op vectorizes,
     # so the fused LU kernel (ROADMAP K2) is to emit perm itself.
     P, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
-    return lu, P.argmax(dim=-2)
+    # (P has lu's type: its real part for a complex LU)
+    return lu, (P.real if P.is_complex() else P).argmax(dim=-2)
 
 
 def _take_rows(B: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -73,7 +75,8 @@ def lu_inverse(lu: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 
 def _diag_ratio(lu: torch.Tensor) -> torch.Tensor:
-    """``max |U_ii| / min |U_ii|`` per matrix: the pivot-growth proxy."""
+    """``max |U_ii| / min |U_ii|`` per matrix (moduli, in the real type): the
+    pivot-growth proxy."""
     d = torch.diagonal(lu, dim1=-2, dim2=-1).abs()
     if d.shape[-1] == 0:             # an empty pivot block has no growth
         return torch.ones(d.shape[:-1], dtype=d.dtype, device=d.device)

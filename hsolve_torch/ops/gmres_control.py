@@ -39,7 +39,7 @@ import torch
 
 from hsolve_torch import kernels
 from hsolve_torch.ops.arnoldi import CYC, DONE, GO, IT, J, MAXITER, NCYC, \
-    Arnoldi
+    Arnoldi, div_real
 from hsolve_torch.utils.logging import logger
 
 # the slots of ``sc`` (csrc/gmres_loop.cuh)
@@ -88,14 +88,14 @@ gmres_init.launches_by_type = {}
 
 def gmres_cycle_start_plain(r: torch.Tensor, sc: torch.Tensor, s: Arnoldi,
                             m_eps: float) -> None:
-    """In place on ``s``: ``V[0] = vj = r / beta`` (1 where beta is 0) in
-    the cycles' type, ``H = 0``, ``cs = 1``, ``sn = 0``, ``g = [beta, 0,
-    ...]``, ``y = 0``, ``floor = max(tol, m_eps beta)`` in the cycles' real
-    type, ``j = 0`` and ``done = not (0 < m and beta > floor and it <
-    maxiter)``."""
+    """In place on ``s``: ``V[0] = vj = r / beta`` (1 where beta is 0; a
+    complex ``r`` has each part divided, :func:`div_real`) in the cycles'
+    type, ``H = 0``, ``cs = 1``, ``sn = 0``, ``g = [beta, 0, ...]``, ``y =
+    0``, ``floor = max(tol, m_eps beta)`` in the cycles' real type, ``j =
+    0`` and ``done = not (0 < m and beta > floor and it < maxiter)``."""
     dt, rdt = s.V.dtype, s.floor.dtype
     beta = sc[BETA]
-    v0 = (r / torch.where(beta > 0, beta, torch.ones_like(beta))).to(dt)
+    v0 = div_real(r, torch.where(beta > 0, beta, torch.ones_like(beta))).to(dt)
     s.V[0] = v0
     s.vj.copy_(v0)
     beta_i = beta.to(rdt)
@@ -115,23 +115,29 @@ def gmres_cycle_start_plain(r: torch.Tensor, sc: torch.Tensor, s: Arnoldi,
 def gmres_cycle_start(r: torch.Tensor, sc: torch.Tensor, s: Arnoldi,
                       m_eps: float) -> None:
     """Kernel wrapper (see the plain version): one launch over ``N``; the
-    cycles in the solution's type, or float32 cycles in a float64 solve."""
+    cycles in the solution's type, or float32 cycles in a float64 solve, or
+    complex64 cycles in a complex128 one (``sc``, ``cs`` and the floor in
+    the real types)."""
     if kernels.on_cpu(r, sc, s.V, s.loop):
         return gmres_cycle_start_plain(r, sc, s, m_eps)
-    to = kernels.value_type(r, sc)
-    ti = kernels.value_type(s.V, s.vj, s.H, s.cs, s.sn, s.g, s.y, s.floor)
+    to = kernels.value_type(r)
+    ti = kernels.value_type(s.V, s.vj, s.H, s.sn, s.g, s.y)
     m1, N = s.V.shape
     m = m1 - 1
     if to == ti:
         name = kernels.symbol("hs_gmres_cycle_start", to)
     elif (to, ti) == (torch.float64, torch.float32):
         name = "hs_gmres_cycle_start_mixed"
+    elif (to, ti) == (torch.complex128, torch.complex64):
+        name = "hs_gmres_cycle_start_mixed_c"
     else:
         raise TypeError(f"cycles in {ti} inside a {to} solve")
     kernels.require(r, "r", to, (N,))
-    kernels.require(sc, "sc", to, (SC_LEN,))
+    kernels.require(sc, "sc", to.to_real(), (SC_LEN,))
     kernels.require(s.V, "V", ti, (m1, N))
     kernels.require(s.H, "H", ti, (m + 1, m))
+    for name_, t, n in (("cs", s.cs, m), ("floor", s.floor, 1)):
+        kernels.require(t, name_, ti.to_real(), (n,))
     kernels.require(s.loop, "loop", torch.int32)
     _launch(gmres_cycle_start, name, ti, r.device, r.data_ptr(),
             sc.data_ptr(), s.V.data_ptr(), s.vj.data_ptr(), s.H.data_ptr(),

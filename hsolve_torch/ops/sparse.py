@@ -7,7 +7,8 @@
   Poisson/Helmholtz problem), SpMV is a handful of shifted multiply-adds with no
   index gathers.  :func:`dia_spmv` is kernel D (``csrc/dia_spmv.cu``), which also
   fuses the residual ``b - A x`` that GMRES's restarts need; it takes float32
-  (the inner operator of mixed-precision GMRES) or float64 values.
+  (the inner operator of mixed-precision GMRES) or float64 values, and
+  complex64 or complex128 ones (the damped Helmholtz operator).
 :func:`spmv_format` picks the format.  The entry points build on the card
 (``device="cuda"``) unless the caller names another device.
 """

@@ -15,12 +15,13 @@ update of a compressed level, where the Gauss transform is a low-rank pair
 ``M ~= U V^T``: ``C[ids_out] -= U @ (V^T @ Y)`` (``hsolve/factor.py:528-529``,
 ``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
-Kernel C takes float32 or float64 values (one type per call), kernel E
-float64.  In float32 every product of a level step (``L x``, the pivot
-solve, ``R C[bnd]``) accumulates in float64 and rounds to float32 once, in
-the kernel and in the plain versions alike: the top levels of a float32
-exact factor are nearly singular, and a float32 summation there cost the
-mixed-precision solve half again as many iterations as the reference's.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
+Kernel C takes float32, float64, complex64 or complex128 values (one type
+per call), kernel E float64.  In float32 every product of a level step
+(``L x``, the pivot solve, ``R C[bnd]``) accumulates in float64 and rounds
+to float32 once, and in complex64 in complex128, in the kernel and in the
+plain versions alike: the top levels of a float32 exact factor are nearly
+singular, and a float32 summation there cost the mixed-precision solve half
+again as many iterations as the reference's.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
 such ids are skipped and input rows with them read as zero, so ``C``'s
 sentinel row ``N`` stays zero.
 """
@@ -66,6 +67,12 @@ def forward_windows(ni_pad: int):
             for r0 in range(0, max(ni_pad, 1), step)]
 
 
+def accumulator(dtype: torch.dtype) -> torch.dtype:
+    """The type kernel C and its plain versions accumulate a value type's
+    sums in: float64, or complex128 for the complex types."""
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
 def forward_window_smem(itemsize: int) -> int:
     """Dynamic shared memory of one CTA of a window's substitution: the
     window's solved values (float64 in both types: the sweep accumulates in
@@ -102,9 +109,10 @@ def _scatter_sub(C: torch.Tensor, ids_out: torch.Tensor, upd: torch.Tensor,
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
-    """Float32 operands of a product go to float64 (F4: the float32 sweep
-    accumulates in float64 and rounds once); float64 ones stay as they are."""
-    return t.double() if t.dtype == torch.float32 else t
+    """Float32 and complex64 operands of a product go to float64 and
+    complex128 (F4: the narrow sweep accumulates wide and rounds once);
+    the wide types stay as they are."""
+    return t.to(accumulator(t.dtype))
 
 
 def _product(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -174,8 +182,9 @@ def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
                        B, ni, nb, k, N, windows[0][2])
     else:
         # x and z = x[perm] per window pass go through this scratch, in
-        # float64 whatever the value type (the running values of the sweep)
-        XZ = torch.empty((2, B, k, ni), dtype=torch.float64, device=C.device)
+        # the accumulator type (the running values of the sweep)
+        XZ = torch.empty((2, B, k, ni), dtype=accumulator(dt),
+                         device=C.device)
         kernels.launch(kernels.symbol("hs_level_forward_windowed", dt),
                        C.device, *ptrs, XZ[0].data_ptr(), XZ[1].data_ptr(), B,
                        ni, nb, k, N)

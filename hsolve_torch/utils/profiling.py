@@ -14,7 +14,7 @@ the device-time breakdown.  Usage, from the repository root on a machine with on
                                              | --arnoldi-kernels
                                              | --schur-kernels
                                              | --truncate-kernels]
-                                            [--plain-forward]
+                                            [--plain-forward] [--damping D]
                                             [--out build/profile]
 
 For each size n it plans helmholtz2d(n, k=40) (with ``--problem
@@ -24,7 +24,11 @@ swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False, in 3D without
 kest: the default rank caps; with ``--hss``: the same with hss=True, the
 structured HSS path; with ``--mixed``: swlevel=0 with a
 float32 factor inside mixed-precision GMRES, float32 Arnoldi cycles over a
-float32 DIA operator with m_eps=1e-6), then times two warm phases,
+float32 DIA operator with m_eps=1e-6; with ``--damping D`` > 0 the damped,
+complex helmholtz2d(n, k=40, damping=D) on the exact path, in complex128 or,
+with ``--mixed``, in the bench's complex configuration: a complex64 factor,
+complex64 cycles over a complex64 operator, escalation on), then times two
+warm phases,
 the numeric factorization and the GMRES solve (reltol 1e-9, the factor as
 right preconditioner, the DIA matvec):
 
@@ -408,7 +412,9 @@ def roofline_report(plan, measured_factor_s: float,
     """Speed-of-light accounting: achieved GFLOP/s + nnz/s vs the per-level roofline
     bound (max of compute-limit and bandwidth-limit times, summed over levels), on
     one H100 (:data:`H100_PEAKS`) in the factor's type (``dtype_bytes`` 8: float64,
-    4: float32)."""
+    4: float32; a complex factor passes its value's 16 or 8 bytes, which the
+    model moves, against the same peak: the FLOP count stays the JAX
+    package's, which counts a complex operation as one)."""
     stats = analyze_plan(plan, dtype_bytes)
     total_flops = sum(s.flops for s in stats)
     peak = H100_PEAKS["f64_flops" if dtype_bytes == 8 else "f32_flops"]
@@ -1170,6 +1176,10 @@ def main() -> int:
                            "n=512 and 48^3 low-rank plans")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
+    ap.add_argument("--damping", type=float, default=0.0,
+                    help="main-path modes: the damped, complex helmholtz2d "
+                         "(exact path; complex128, or with --mixed complex64 "
+                         "factor and cycles)")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -1211,28 +1221,38 @@ def main() -> int:
         return _truncate_kernels(args, card, dev)
     path = "hss" if args.hss else "compressed" if args.compressed else \
         "exact-f32-mixed" if args.mixed else "exact"
+    cplx = args.damping > 0
+    if cplx:
+        if path in ("hss", "compressed") or args.problem != "helmholtz2d":
+            print("profiling: --damping runs the exact helmholtz2d path only",
+                  file=sys.stderr)
+            return 2
+        path = "exact-complex-mixed" if args.mixed else "exact-complex"
+    narrow = torch.complex64 if cplx else torch.float32
     report = {"card": card, "path": path,
               "forward": "plain" if args.plain_forward else "kernel",
               "sizes": []}
     three = args.problem == "helmholtz3d"
     for n in args.sizes:
         A, b, shape = ht.helmholtz3d(n, k=10.0) if three else \
-            ht.helmholtz2d(n, k=40.0)
+            ht.helmholtz2d(n, k=40.0, damping=args.damping)
         opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
                                 kest=-1 if three else 32, hss=args.hss) \
             if path in ("compressed", "hss") else ht.SolverOptions(swlevel=0)
         plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                      opts)
-        fdt = torch.float32 if args.mixed else torch.float64
+        fdt = narrow if args.mixed else \
+            (torch.complex128 if cplx else torch.float64)
         holder = {"F": ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)}
         op, mv = ht.spmv_format(A, device=dev)
         bt = torch.as_tensor(np.asarray(b), device=dev)
         prec, inner = solve_with_data, {}
         if args.mixed:
             prec = lambda data, v: solve_with_data(
-                data, v.to(torch.float32)).to(v.dtype)
-            inner = dict(inner_dtype="float32", m_eps=1e-6, mv_data_inner=(
-                ht.spmv_format(A, dtype=np.float32, device=dev)[0]))
+                data, v.to(narrow)).to(v.dtype)
+            nname = str(narrow).replace("torch.", "")
+            inner = dict(inner_dtype=nname, m_eps=1e-6, mv_data_inner=(
+                ht.spmv_format(A, dtype=np.dtype(nname), device=dev)[0]))
 
         def factor():
             holder["F"] = None      # the last factor goes before the next

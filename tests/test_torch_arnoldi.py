@@ -1,15 +1,18 @@
 """Kernels L (CGS2) and M (Givens bookkeeping) of the port's Arnoldi step, and
 the step as the GMRES loop runs it (``arnoldi_step``: L's launch with M's
 step and ``V[j+1]`` as its tail on the card): their plain versions against
-the JAX package's ``_gmres_cycles`` on the CPU, in float32 and float64.
+the JAX package's ``_gmres_cycles`` on the CPU, in float32 and float64, and
+in complex64 and complex128 on a complex operator (JAX's complex Givens).
 
 One step is checked against the ops of JAX's ``inner_body``
 (hsolve/krylov.py:226-266) and the cycle end's masked triangular solve
 (:293-298), reproduced here in jnp on the same state; whole cycles against
 JAX's ``_gmres_cycles`` itself with ``restart = j + 1``.  Tolerances: 1e-13
-relative in float64 and 1e-6 in float32 for one step (only the summation
-order of the dot products and norms differs), looser for a whole cycle, where
-those differences pass through the triangular solve (stated per test)."""
+relative in float64 and complex128 and 1e-6 in float32 and complex64 for one
+step (only the summation order of the dot products and norms differs, and in
+complex the modulus and the product, XLA's against kernel M's parts), looser
+for a whole cycle, where those differences pass through the triangular solve
+(stated per test)."""
 
 import importlib
 
@@ -27,15 +30,19 @@ from hsolve_torch.ops.arnoldi import (J, arnoldi_cgs2, arnoldi_cgs2_plain,
                                       arnoldi_givens, arnoldi_givens_plain,
                                       arnoldi_state, arnoldi_step,
                                       arnoldi_step_plain, cgs2_blocks,
-                                      cgs2_max_slice, cgs2_slice, set_loop)
+                                      cgs2_max_slice, cgs2_slice, div_real,
+                                      set_loop)
 
 jkrylov = importlib.import_module("hsolve.krylov")
-TOL = {np.float32: 1e-6, np.float64: 1e-13}
+TOL = {np.float32: 1e-6, np.float64: 1e-13, np.complex64: 1e-6,
+       np.complex128: 1e-13}
+TYPES = [np.float32, np.float64, np.complex64, np.complex128]
 M_RESTART = 30
 
 
 def _rel(got, ref):
-    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    got = np.asarray(got, dtype=np.complex128)
+    ref = np.asarray(ref, dtype=np.complex128)
     assert got.shape == ref.shape
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300)
 
@@ -43,7 +50,8 @@ def _rel(got, ref):
 @jax.jit
 def _jax_step(V, H, cs, sn, g, j, w):
     """The ops of ``inner_body`` (hsolve/krylov.py:226-266) after its matvec,
-    for a real value type; returns the new state and the residual estimate."""
+    for a real or complex value type; returns the new state and the
+    residual estimate."""
     m = H.shape[1]
     dtype = V.dtype
     rdtype = cs.dtype
@@ -95,23 +103,31 @@ def _jax_cycle_end(H, g, j):
     return jax.scipy.linalg.solve_triangular(Hm, gm, lower=False)
 
 
-def _operator(N, seed):
-    """A well-conditioned nonsymmetric operator: I + a scaled Gaussian."""
+def _operator(N, seed, cplx=False):
+    """A well-conditioned nonsymmetric operator: I + a scaled Gaussian (with
+    an imaginary Gaussian part where ``cplx``)."""
     rng = np.random.default_rng(seed)
-    return np.eye(N) + rng.standard_normal((N, N)) / (2.0 * np.sqrt(N))
+    G = rng.standard_normal((N, N))
+    if cplx:
+        G = G + 1j * rng.standard_normal((N, N))
+    return np.eye(N) + G / (2.0 * np.sqrt(N))
 
 
 def _jax_state(A, dtype, steps, seed):
     """JAX's state after ``steps`` Arnoldi steps from a random start, and the
-    next step's matvec; everything in ``dtype``."""
+    next step's matvec; everything in ``dtype`` (``cs`` in its real type).
+    A complex ``dtype`` takes a complex operator and start."""
     N = A.shape[0]
     rng = np.random.default_rng(seed)
     r = rng.standard_normal(N)
+    if np.iscomplexobj(np.zeros((), dtype)):
+        r = r + 1j * rng.standard_normal(N)
+        A = A if np.iscomplexobj(A) else _operator(N, seed, cplx=True)
     beta = np.linalg.norm(r)
     m = M_RESTART
     V = jnp.zeros((m + 1, N), dtype).at[0].set((r / beta).astype(dtype))
     H = jnp.zeros((m + 1, m), dtype)
-    cs = jnp.ones((m,), dtype)
+    cs = jnp.ones((m,), np.zeros((), dtype).real.dtype)
     sn = jnp.zeros((m,), dtype)
     g = jnp.zeros((m + 1,), dtype).at[0].set(beta.astype(dtype))
     Aj = jnp.asarray(A, dtype)
@@ -135,7 +151,7 @@ def _at_step(s, j, floor, cont):
 
 
 @pytest.mark.parametrize("j", [0, M_RESTART - 1])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", TYPES)
 def test_step_matches_jax_inner_body(dtype, j):
     """One step at j = 0 and j = m - 1: V[j+1], the rotated column H[:, j],
     the rotation, g and the residual estimate; then the cycle end's
@@ -148,15 +164,15 @@ def test_step_matches_jax_inner_body(dtype, j):
     wt = torch.from_numpy(w.copy())
     arnoldi_cgs2_plain(s, wt, j)
     arnoldi_givens_plain(s, j, floor=0.0, cont=j + 1 < M_RESTART)
-    s.V[j + 1] = wt / s.st[1]
+    div_real(wt, s.st[1], out=s.V[j + 1])
     tol = TOL[dtype]
     assert s.V.dtype == torch.from_numpy(V).dtype
     assert _rel(s.V[j + 1].numpy(), jV[j + 1]) < tol
     assert _rel(s.H[:, j].numpy(), jH[:, j]) < tol
     assert abs(float(s.cs[j]) - float(jcs[j])) < tol
-    assert abs(float(s.sn[j]) - float(jsn[j])) < tol
+    assert abs(complex(s.sn[j]) - complex(jsn[j])) < tol
     assert _rel(s.g[: j + 2].numpy(), jg[: j + 2]) < tol
-    assert abs(float(s.st[0]) - float(jres)) <= tol * float(jg[0])
+    assert abs(float(s.st[0]) - float(jres)) <= tol * abs(complex(jg[0]))
     # the last step of a cycle ends it: the coefficients of the update
     assert int(s.done[0]) == int(j + 1 == M_RESTART)
     s2 = _port_state(V, H, cs, sn, g)
@@ -169,7 +185,7 @@ def test_step_matches_jax_inner_body(dtype, j):
 
 
 @pytest.mark.parametrize("j", [0, 14, M_RESTART - 1])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", TYPES)
 def test_arnoldi_step_matches_jax_inner_body(dtype, j):
     """The step as GMRES runs it, at j = 0, 14 and m - 1: V[j+1] (its
     scaling of w now inside the step), H[:, j], the rotation, g and the
@@ -187,21 +203,22 @@ def test_arnoldi_step_matches_jax_inner_body(dtype, j):
     assert _rel(s.V[: j + 1].numpy(), jV[: j + 1]) == 0.0
     assert _rel(s.H[:, j].numpy(), jH[:, j]) < tol
     assert abs(float(s.cs[j]) - float(jcs[j])) < tol
-    assert abs(float(s.sn[j]) - float(jsn[j])) < tol
+    assert abs(complex(s.sn[j]) - complex(jsn[j])) < tol
     assert _rel(s.g[: j + 2].numpy(), jg[: j + 2]) < tol
-    assert abs(float(s.st[0]) - float(jres)) <= tol * float(jg[0])
+    assert abs(float(s.st[0]) - float(jres)) <= tol * abs(complex(jg[0]))
     assert int(s.done[0]) == int(j + 1 == M_RESTART)
     # the loop advanced, and the next step's input is V[j+1]
     assert int(s.loop[J]) == j + 1 and torch.equal(s.vj, s.V[j + 1])
 
 
 @pytest.mark.parametrize("j", [0, 14, M_RESTART - 1])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("cont", [True, False])
 def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
     """On the CPU the step is kernel L's plain version, kernel M's (with the
     loop test the loop state gives: ``cont`` where ``j + 1 < m``), then
-    ``V[j+1] = w / st[1]``, bit for bit (the card holds its one launch to
+    ``V[j+1] = w / st[1]`` (each part divided in complex), bit for bit (the
+    card holds its one launch to
     the same, ``tests/test_torch_cuda.py``); no launch is counted."""
     A = _operator(200, 12)
     V, H, cs, sn, g, w = _jax_state(A, dtype, j, seed=13)
@@ -214,7 +231,7 @@ def test_arnoldi_step_is_l_then_m_then_the_division(dtype, j, cont):
     cont = cont and j + 1 < M_RESTART
     arnoldi_cgs2_plain(s2, w2, j)
     arnoldi_givens_plain(s2, j, 1e-3, cont)
-    s2.V[j + 1] = w2 / s2.st[1]
+    div_real(w2, s2.st[1], out=s2.V[j + 1])
     assert torch.equal(w1, w2)
     for name in ("V", "H", "cs", "sn", "g", "hc", "st", "done", "y"):
         assert torch.equal(getattr(s1, name), getattr(s2, name)), name
@@ -260,18 +277,23 @@ def test_done_flag_follows_inner_cond(cont, floor, done):
 
 
 @pytest.mark.parametrize("j", [0, 29])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
+                                   "complex128"])
 def test_one_cycle_matches_jax_gmres_cycles(dtype, j):
     """JAX's own ``_gmres_cycles`` with ``restart = maxiter = j + 1`` (one
     cycle of j + 1 steps) against the port's, whose steps are L and M: the
-    solution and the history.  In float32 the cycle runs inside a float64
-    solve (``inner_dtype``); its solution agrees to 1e-5 (the step's 1e-6
-    through the cycle's triangular solve), in float64 to 1e-11."""
-    A = _operator(300, 5)
+    solution and the history.  In float32 (complex64) the cycle runs inside
+    a float64 (complex128) solve (``inner_dtype``); its solution agrees to
+    1e-5 (the step's 1e-6 through the cycle's triangular solve), in float64
+    and complex128 to 1e-11."""
+    cplx = dtype.startswith("complex")
+    A = _operator(300, 5, cplx)
     rng = np.random.default_rng(6)
     b = rng.standard_normal(300)
-    idt = None if dtype == "float64" else dtype
-    A32 = A.astype(np.float32)
+    if cplx:
+        b = b + 1j * rng.standard_normal(300)
+    idt = None if dtype in ("float64", "complex128") else dtype
+    A32 = A.astype(np.complex64 if cplx else np.float32)
     mv = lambda d, v: d @ v
     xj, itj, hj, resj, _ = jkrylov._gmres_cycles(
         mv, jkrylov._IDENTITY_M, jnp.asarray(A), None, jnp.asarray(b), 1e-14,
@@ -317,8 +339,12 @@ def test_value_type_takes_one_type_per_call():
     assert kernels.value_type(f64) == torch.float64
     assert kernels.symbol("hs_dia_spmv", torch.float32) == "hs_dia_spmv_f32"
     assert kernels.symbol("hs_dia_spmv", torch.float64) == "hs_dia_spmv"
+    c64 = torch.zeros(2, dtype=torch.complex64)
+    assert kernels.value_type(c64, c64) == torch.complex64
+    assert kernels.symbol("hs_dia_spmv", torch.complex128) == \
+        "hs_dia_spmv_c128"
     for bad in ((f32, f64), (torch.zeros(2, dtype=torch.float16),),
-                (torch.zeros(2, dtype=torch.complex128),)):
+                (f32, c64), (torch.zeros(2, dtype=torch.int32),)):
         with pytest.raises(TypeError, match="one type per call"):
             kernels.value_type(*bad)
     assert {"hs_arnoldi_cgs2_f32", "hs_arnoldi_givens_f32",

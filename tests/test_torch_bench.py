@@ -2,7 +2,9 @@
 and the JAX package blocked from import: one JSON line with ``bench.py``'s
 keys (``bench.py:451-493``) and three of its own, ``bench.py``'s metric-name
 tag rules (``bench.py:436-452``), the JAX package's GMRES iteration count on
-the same system, relres <= 1e-9, and ``--damping`` refused."""
+the same system, relres <= 1e-9; ``--damping`` runs the complex system
+(complex128 with ``--cpu``) on an exact plan and is refused on a compressed
+one."""
 
 import importlib
 import json
@@ -102,7 +104,10 @@ def test_bench_compressed_run_follows_the_tag_rules():
     (("--cpu", "--factor-dtype", "f32"), False, "_f32"),
     ((), False, ""),                          # the card's default: float32
     (("--factor-dtype", "f64"), True, "_f64"),
-    (("--swlevel", "-2", "--factor-dtype", "f64"), True, "_sw-2_f64")])
+    (("--swlevel", "-2", "--factor-dtype", "f64"), True, "_sw-2_f64"),
+    (("--cpu", "--damping", "0.1"), True, "_damp0.1"),
+    (("--damping", "0.1"), False, "_damp0.1"),   # the card: complex64
+    (("--damping", "0.1", "--factor-dtype", "f64"), True, "_damp0.1_f64")])
 def test_metric_tag_rules(argv, f64, tag):
     """bench.py's tags, and the factor type where it is not the device's
     default (float32 on the card, float64 with --cpu)."""
@@ -110,7 +115,29 @@ def test_metric_tag_rules(argv, f64, tag):
 
 
 def test_bench_refuses_a_complex_system():
-    out = _bench("--cpu", "--damping", "0.1")
+    """A complex system on a compressed plan: complex compressed levels are
+    a later slice, so the factor raises and no line is printed."""
+    out = _bench("--cpu", "--damping", "0.1", "--n", "32", "--leafmax", "20",
+                 "--swlevel", "-2", "--atol", "1e-3")
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "complex" in out.stderr
     assert not out.stdout.strip()
+
+
+def test_bench_runs_the_damped_system_on_the_cpu():
+    """``--cpu --damping 0.1`` at n=48: the complex system in complex128,
+    one JSON line tagged ``_damp0.1`` with relres <= 1e-9, in the JAX
+    package's iteration count (1: the exact factor)."""
+    out = _bench("--cpu", "--reps", "2", "--n", "48", "--damping", "0.1")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert list(res) == KEYS
+    assert list(res["detail"]) == DETAIL + PORT_DETAIL
+    d = res["detail"]
+    assert res["metric"] == "helmholtz2d_h48_damp0.1_setup_plus_gmres_solve"
+    assert d["factor_dtype"] == "complex128" and d["device"] == "cpu"
+    assert d["relres"] <= 1e-9 and not d["sol_violation"]
+    assert d["gmres_iters"] == _jax_iters("helmholtz2d", 48, 100,
+                                          {"k": 40.0, "damping": 0.1}) == 1

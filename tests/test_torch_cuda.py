@@ -1184,3 +1184,239 @@ def test_a_preconditioner_that_reads_the_host_cannot_be_captured(dev):
     with pytest.raises(RuntimeError):
         ht.gmres_compiled(mv, M, torch.as_tensor(b, device=dev), reltol=1e-9,
                           restart=10, maxiter=10, mv_data=op)
+
+
+# ---------------------------------------------------------------------------
+# complex values (the damped Helmholtz system): A-D, the Arnoldi step and the
+# cycle start in complex128 and complex64
+# ---------------------------------------------------------------------------
+
+CTOL = [(torch.complex128, 1e-12), (torch.complex64, 1e-5)]
+
+
+def _crandn(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape)
+                           + 1j * rng.standard_normal(shape), dtype=dtype,
+                           device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_complex_front_assemble_and_extend_add(dev, dtype):
+    """Kernels A and B on complex values, bit for bit their plain versions
+    (one complex value a load; the sentinel 1 + 0i; a complex add is the two
+    real adds of torch's)."""
+    rng = np.random.default_rng(90)
+    B, m = 3, 20
+    pos = torch.as_tensor(rng.permutation(B * m * m)[:500].astype(np.int32),
+                          device=dev)
+    src = torch.as_tensor(rng.integers(-1, 300, size=500).astype(np.int32),
+                          device=dev)
+    adata = _crandn(rng, 300, dtype, dev)
+    got = front_assemble(B, m, pos, src, adata)
+    assert got.dtype == dtype
+    assert torch.equal(got, front_assemble_plain(B, m, pos, src, adata))
+    B, m, s_pad = 6, 24, 16
+    front = _crandn(rng, (B, m, m), dtype, dev)
+    imap = torch.as_tensor(rng.integers(-1, s_pad, size=(B, m)).astype(np.int32),
+                           device=dev)
+    for w, src_rows, dst_rows in ((10, [2, 0, 1], [5, 1, 3]), (20, [0], [2])):
+        S = _crandn(rng, (3, w, w), dtype, dev)
+        sr = torch.tensor(src_rows, dtype=torch.int32, device=dev)
+        dr = torch.tensor(dst_rows, dtype=torch.int32, device=dev)
+        assert torch.equal(extend_add(front.clone(), S, sr, dr, imap),
+                           extend_add_plain(front.clone(), S, sr, dr, imap))
+
+
+def _complex_level(dev, dtype, B, ni, nb, N, seed, shared_bnd=False):
+    """:func:`_hand_level` with complex pivot blocks and transforms."""
+    lev = _hand_level(dev, torch.float64, B, ni, nb, N, seed, shared_bnd)
+    rng = np.random.default_rng(seed + 1)
+    D = torch.as_tensor((rng.standard_normal((B, ni, ni))
+                         + 1j * rng.standard_normal((B, ni, ni))) / np.sqrt(ni)
+                        + 2.0 * np.eye(ni), dtype=dtype, device=dev)
+    lu, piv = dk.lu_factor(D)
+    return dataclasses.replace(
+        lev, lu=lu, perm=piv, L=_crandn(rng, (B, nb, ni), dtype, dev),
+        R=_crandn(rng, (B, ni, nb), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype,tol", CTOL)
+@pytest.mark.parametrize("B,ni,nb,k", [(7, 9, 13, 3), (3, 256, 40, 1),
+                                       (1, 1000, 40, 1), (1, 1800, 24, 1),
+                                       (2, 2080, 40, 1), (1, 4424, 24, 1)])
+def test_complex_level_steps(dev, dtype, tol, B, ni, nb, k):
+    """Kernel C's forward (lu and dinv records) and backward steps in
+    complex: rows not 16-byte aligned and several right-hand sides (ni = 9,
+    k = 3), one CTA (256), clusters of 4 and 8 CTAs (1000, 1800), windows
+    (2080, 4424); complex128 to 1e-12 of the plain versions, complex64 to
+    1e-5 (both accumulate in complex128)."""
+    N = B * (ni + nb) + 500
+    lev = _complex_level(dev, dtype, B, ni, nb, N, seed=ni + k)
+    rng = np.random.default_rng(ni)
+    C = _crandn(rng, (N + 1, k), dtype, dev)
+    C[N] = 0.0
+    inv = dataclasses.replace(lev, lu=None, perm=None, dinv=dk.lu_inverse(
+        lev.lu, lev.perm).contiguous())
+    for rec in (lev, inv):
+        got = level_forward(C.clone(), rec, N)
+        want = level_forward_plain(C.clone(), rec, N)
+        assert _rel(got, want) < tol
+        assert float(got[N].abs().max()) == 0.0
+    got = sweep_update(C.clone(), lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+    want = sweep_update_plain(C.clone(), lev.int_ids, lev.R, N,
+                              ids_in=lev.bnd_ids)
+    assert _rel(got, want) < tol
+    assert float(got[N].abs().max()) == 0.0
+
+
+def test_complex_level_forward_with_shared_boundary_ids(dev):
+    """The forward step's complex atomics (two real ones a value) where every
+    front adds into the same boundary rows."""
+    lev = _complex_level(dev, torch.complex128, B=40, ni=24, nb=16, N=2000,
+                         seed=9, shared_bnd=True)
+    rng = np.random.default_rng(3)
+    C = _crandn(rng, (2001, 2), torch.complex128, dev)
+    C[2000] = 0.0
+    assert _rel(level_forward(C.clone(), lev, 2000),
+                level_forward_plain(C.clone(), lev, 2000)) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-13),
+                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("k", [1, 3])
+def test_complex_dia_spmv_kernel(dev, dtype, tol, k):
+    A, _, _ = ht.helmholtz2d(33, k=10.0, damping=0.1)
+    op = ht.to_dia(A, dtype=np.dtype(str(dtype)[6:]), device=dev)
+    rng = np.random.default_rng(k)
+    x = _crandn(rng, (A.shape[0], k), dtype, dev)
+    b = _crandn(rng, (A.shape[0], k), dtype, dev)
+    assert _rel(dia_spmv(op, x), dia_spmv_plain(op, x)) < tol
+    assert _rel(dia_spmv(op, x, b), dia_spmv_plain(op, x, b)) < tol
+
+
+@pytest.mark.parametrize("N", [5003, 200003])
+@pytest.mark.parametrize("j", [0, 14, 29])
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-13)])
+def test_complex_arnoldi_step_against_plain(dev, dtype, tol, j, N):
+    """Kernel L alone, M alone and the step as one launch in complex: the
+    column and w within the tolerance of L's plain version; M's rotations
+    (cs real, sn complex), g, the estimate, done and y, and V[j+1] = w /
+    ||w|| (each part divided), bit for bit M's plain version and the
+    division on L's column and w; the ticket back at rest."""
+    m = 30
+    rng = np.random.default_rng(110 + j)
+    s = AR.arnoldi_state(m, N, dtype, dev)
+    V = rng.standard_normal((j + 1, N)) + 1j * rng.standard_normal((j + 1, N))
+    s.V[: j + 1] = torch.as_tensor(V / np.linalg.norm(V, axis=1)[:, None],
+                                   dtype=dtype, device=dev)
+    s.cs[:j] = torch.as_tensor(rng.uniform(0.2, 1.0, j))
+    s.sn[:j] = torch.as_tensor(rng.uniform(-0.6, 0.6, j)
+                               + 1j * rng.uniform(-0.6, 0.6, j))
+    s.g[: j + 1] = torch.as_tensor(rng.standard_normal(j + 1)
+                                   + 1j * rng.standard_normal(j + 1))
+    s.H[:j, :j] = torch.triu(torch.as_tensor(
+        rng.standard_normal((j, j)) + 1j * rng.standard_normal((j, j))
+        + 4 * np.eye(j), dtype=dtype))
+    w = _crandn(rng, N, dtype, dev)
+    sl, wl = _clone_state(s), w.clone()
+    AR.arnoldi_cgs2(sl, wl, j)
+    sp_, wp = _clone_state(s), w.clone()
+    AR.arnoldi_cgs2_plain(sp_, wp, j)
+    torch.cuda.synchronize()
+    assert int(sl.ticket[0]) == 0
+    assert _rel(sl.hc[: j + 2], sp_.hc[: j + 2]) < tol
+    assert _rel(wl, wp) < tol
+    for cont, floor in ((True, 0.0), (True, 1e30), (False, 0.0)):
+        mk, mp = _clone_state(sl), _clone_state(sl)
+        AR.arnoldi_givens(mk, j, floor, cont)
+        AR.arnoldi_givens_plain(mp, j, floor, cont)
+        for name, a in _step_outputs(mk).items():
+            assert torch.equal(a, getattr(mp, name)), name
+        sk, wk = _clone_state(s), w.clone()
+        AR.set_loop(sk, j, maxiter=None if cont else j + 1, floor=floor)
+        c = cont and j + 1 < m
+        AR.arnoldi_step(sk, wk)
+        torch.cuda.synchronize()
+        assert int(sk.ticket[0]) == 0 and torch.equal(wk, w)
+        assert torch.equal(sk.hc, sl.hc)
+        mp = _clone_state(s)
+        mp.hc.copy_(sl.hc)
+        AR.arnoldi_givens_plain(mp, j, floor, c)
+        AR.div_real(wl, mp.st[1], out=mp.V[j + 1])
+        for name, a in _step_outputs(sk).items():
+            assert torch.equal(a, getattr(mp, name)), name
+        assert torch.equal(sk.V[j + 1], mp.V[j + 1])
+        assert int(sk.loop[AR.J]) == j + 1 and torch.equal(sk.vj, sk.V[j + 1])
+
+
+@pytest.mark.parametrize("to,ti", [(torch.complex128, torch.complex128),
+                                   (torch.complex64, torch.complex64),
+                                   (torch.complex128, torch.complex64)])
+@pytest.mark.parametrize("beta", [3.0, 1e-12, 0.0])
+def test_complex_cycle_start_bitwise(dev, to, ti, beta):
+    """The cycle start in its complex type pairs: V[0] = r / beta with each
+    part divided (JAX's complex division, bit for bit), cs and the floor
+    real, the rest as its plain version."""
+    from hsolve_torch.ops import gmres_control as GC
+
+    rng = np.random.default_rng(7)
+    N, m = 20011, 30
+    r = _crandn(rng, N, to, dev)
+    s0 = AR.arnoldi_state(m, N, ti, dev)
+    s0.H.fill_(7.0), s0.sn.fill_(7.0), s0.y.fill_(7.0)
+    sc = torch.tensor([2.0, 1e-9, beta, 1e-9], dtype=to.to_real(), device=dev)
+    sk, sp_ = _clone_state(s0), _clone_state(s0)
+    GC.gmres_cycle_start(r, sc, sk, 1e-6)
+    GC.gmres_cycle_start_plain(r, sc, sp_, 1e-6)
+    for name in ("V", "vj", "H", "cs", "sn", "g", "y", "floor", "loop"):
+        assert torch.equal(getattr(sk, name), getattr(sp_, name)), name
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_complex_slice_on_cuda(dev, mixed):
+    """The damped helmholtz2d(48) on the card, through the graph: complex128
+    in one iteration, or the bench's configuration (complex64 factor and
+    cycles in a complex128 solve, escalation) within one iteration of the
+    same run on the CPU; relres <= 1e-9 and every kernel of the path
+    launched in its complex type."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=60),
+                                 ht.SolverOptions(swlevel=0))
+    fdt = torch.complex64 if mixed else torch.complex128
+
+    def prec(data, v):
+        return solve_with_data(data, v.to(fdt)).to(v.dtype)
+
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor_with_plan(plan, ht.SolverOptions(swlevel=0), dtype=fdt,
+                                device=d)
+        op, mv = ht.spmv_format(A, device=d)
+        inner = dict(inner_dtype="complex64", m_eps=1e-6,
+                     mv_data_inner=ht.spmv_format(A, dtype=np.complex64,
+                                                  device=d)[0]) if mixed else {}
+        x, info = ht.gmres_compiled(mv, prec, torch.as_tensor(b, device=d),
+                                    reltol=1e-9, restart=30, maxiter=60,
+                                    mv_data=op, M_data=F.solve_data, **inner)
+        assert info["converged"]
+        xn = x.cpu().numpy()
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            path = kernels.COMPLEX_MIXED_PATH if mixed else kernels.COMPLEX_PATH
+            assert all(counts.get(k, 0) > 0 for k in path), counts
+    assert abs(iters[0] - iters[1]) <= (1 if mixed else 0)
+    if not mixed:
+        assert iters == [1, 1]
+
+
+def test_complex_compressed_refused_on_cuda(dev):
+    A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
+                  swsize=16, atol=1e-3, rtol=1e-3, device=dev)

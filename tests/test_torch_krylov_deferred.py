@@ -150,7 +150,8 @@ def _loop_state(m, N, dt, it, maxiter, beta, tol, reltol=1e-9):
     return s, sc
 
 
-@pytest.mark.parametrize("inner", [torch.float32, torch.float64])
+@pytest.mark.parametrize("inner", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
 @pytest.mark.parametrize("case,beta,tol,m_eps,it", [
     ("steps", 3.0, 1e-9, 1e-6, 0),          # beta above the floor: a step
     ("on the floor", 1e-5, 1e-9, 1.0, 4),   # m_eps beta >= beta: no step
@@ -161,13 +162,18 @@ def test_cycle_start_floor_and_first_test_are_jax_s(inner, case, beta, tol,
     """``floor = max(tol, m_eps beta)`` in the cycles' real type and the step
     loop's first test, ``inner_cond`` at j = 0 (hsolve/krylov.py:269-273,
     :290), bit for bit; ``V[0] = r / beta`` in the cycles' type and the
-    zeroed Givens state with ``g[0] = beta``."""
+    zeroed Givens state with ``g[0] = beta``.  Complex cycles take a
+    complex128 ``r``: JAX's complex division by ``beta`` bit for bit."""
     m, N, maxiter = 5, 17, 12
     s, sc = _loop_state(m, N, inner, it, maxiter, beta, tol)
     s.H.fill_(7.0), s.y.fill_(7.0), s.sn.fill_(7.0)
     r = torch.linspace(-1.0, 2.0, N, dtype=torch.float64)
+    if inner.is_complex:
+        r = torch.complex(r, torch.linspace(2.0, -1.0, N, dtype=torch.float64))
     GC.gmres_cycle_start_plain(r, sc, s, m_eps)
-    rdt = jnp.float32 if inner == torch.float32 else jnp.float64
+    rdt = jnp.float32 if inner in (torch.float32, torch.complex64) \
+        else jnp.float64
+    vdt = getattr(jnp, str(inner).replace("torch.", ""))
     beta_i = jnp.asarray(beta, jnp.float64).astype(rdt)
     floor = jnp.maximum(jnp.asarray(tol, jnp.float64).astype(rdt),
                         m_eps * beta_i)
@@ -176,12 +182,12 @@ def test_cycle_start_floor_and_first_test_are_jax_s(inner, case, beta, tol,
     assert int(s.loop[DONE]) == int(not go)
     assert go == (case == "steps")
     assert int(s.loop[J]) == 0
-    v0 = (jnp.asarray(r.numpy()) / jnp.where(beta > 0, beta, 1.0)).astype(rdt)
+    v0 = (jnp.asarray(r.numpy()) / jnp.where(beta > 0, beta, 1.0)).astype(vdt)
     assert np.array_equal(s.V[0].numpy(), np.asarray(v0))
     assert torch.equal(s.vj, s.V[0])
     assert not s.H.any() and not s.sn.any() and not s.y.any()
     assert bool((s.cs == 1).all())
-    assert float(s.g[0]) == float(beta_i) and not s.g[1:].any()
+    assert complex(s.g[0]) == float(beta_i) and not s.g[1:].any()
 
 
 @pytest.mark.parametrize("case,j,it,beta,go", [

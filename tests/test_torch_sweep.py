@@ -11,8 +11,10 @@ take from Python.
   half then changes nothing;
 
 at k = 1 and k = 3, in float64 (1e-12 relative) and float32 (1e-5: both
-packages solve the same float32 factors, in other summation orders), on
-levels with padded (sentinel) ids; C's sentinel row N stays zero.  On the CPU
+packages solve the same float32 factors, in other summation orders), and in
+complex128 (1e-12) and complex64 (1e-5) on the damped system
+helmholtz2d(48, k=20, damping=0.1), on levels with padded (sentinel) ids;
+C's sentinel row N stays zero.  On the CPU
 the wrappers run their plain versions, which these tests pin."""
 
 import dataclasses
@@ -36,14 +38,18 @@ from hsolve_torch.ops.sweep import (WINDOW_ROWS, backward_split,
 torch.set_num_threads(1)
 jfactor = importlib.import_module("hsolve.factor")   # hsolve.factor is the function
 
-TOL = {"float64": 1e-12, "float32": 1e-5}
+TOL = {"float64": 1e-12, "float32": 1e-5, "complex128": 1e-12,
+       "complex64": 1e-5}
+TYPES = ["float64", "float32", "complex128", "complex64"]
 
 
 @functools.lru_cache(maxsize=None)
 def _factors(explicit: bool, dtype: str):
     """helmholtz2d(48) factored by the JAX package in ``dtype`` (levels with
-    padded ids), and the same records as the port's."""
-    A, _, shape = hsolve.helmholtz2d(48, k=20.0)
+    padded ids; the damped, complex system for a complex ``dtype``), and the
+    same records as the port's."""
+    damping = 0.1 if dtype.startswith("complex") else 0.0
+    A, _, shape = hsolve.helmholtz2d(48, k=20.0, damping=damping)
     tree = hsolve.nested_dissection(shape, leafmax=40)
     plan = hsolve.plan_factorization(A, tree, hsolve.SolverOptions(swlevel=0))
     Fj = hsolve.factor_with_plan(plan, hsolve.SolverOptions(
@@ -53,7 +59,11 @@ def _factors(explicit: bool, dtype: str):
 
 
 def _rhs(N, k, dtype, seed):
-    C0 = np.random.default_rng(seed).standard_normal((N, k)).astype(dtype)
+    rng = np.random.default_rng(seed)
+    C0 = rng.standard_normal((N, k))
+    if dtype.startswith("complex"):
+        C0 = C0 + 1j * rng.standard_normal((N, k))
+    C0 = C0.astype(dtype)
     C = torch.zeros(N + 1, k, dtype=getattr(torch, dtype))
     C[:N] = torch.from_numpy(C0)
     return C0, C
@@ -64,7 +74,7 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("explicit", [False, True])
 def test_forward_step_matches_jax_per_level(explicit, k, dtype):
@@ -83,7 +93,7 @@ def test_forward_step_matches_jax_per_level(explicit, k, dtype):
     assert padded > 0
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("k", [1, 3])
 def test_backward_step_matches_jax_per_level(k, dtype):
     N, jlevels, tlevels = _factors(False, dtype)

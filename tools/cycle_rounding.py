@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Which rounding of a GMRES cycle moves the structured n=512 iteration
-counts (card only, about two minutes).  Run from the repository root:
+counts (card only, about two minutes), and how JAX rounds the complex
+cycle's division (``--division``, CPU).  Run from the repository root:
 
     python3 tools/cycle_rounding.py [--configs hss:512 hss-default:512]
+    JAX_PLATFORMS=cpu python3 tools/cycle_rounding.py --division
 
 Two of a cycle's operations round differently from an earlier form of the
 port's loop, which the host drove, though each is the same value in exact
@@ -20,6 +22,22 @@ For each configuration (``<path>:<n>``, helmholtz2d(n, k=40),
 chip_smoke's options) this factors once and runs ``gmres_host_driven``
 with each combination, and prints one JSON line with the iterations and
 relres of each, beside the card's ``nvidia-smi`` name and power limit.
+
+``--division`` (CPU, needs the JAX package, a few seconds) checks the
+complex form of the same division: JAX computes ``r / beta`` and ``w /
+||w||`` of a complex cycle as a complex division by ``beta + 0j``
+(hsolve/krylov.py:238, :285-286).  On 200,000 random complex128 and
+complex64 values (parts scaled over 26 decades) and a random real beta it
+counts the parts, bit for bit, where JAX's result differs from each part
+divided by beta, from each part times 1 / beta, and where torch's CPU
+complex division (a complex tensor over the real or the complex beta)
+differs from each of the two.  Found (CPU, seed 0): JAX equals the
+division of each part, 0 parts apart in both types, and differs from the
+product with the reciprocal in 20,347 of 400,000 parts (complex128) and
+151,761 (complex64); torch's complex division is the product with the
+reciprocal (0 apart from it).  So the port divides each
+part by the real divisor (``ops/arnoldi.py`` ``div_real``; the step's and
+the cycle start's kernels), and the plain versions do too.
 """
 
 import argparse
@@ -63,11 +81,49 @@ def start_by_reciprocal(self):
     self.s.vj.copy_(v0)
 
 
+def division(n: int = 200000, seed: int = 0) -> None:
+    """The ``--division`` check (see the module's docstring): one JSON line
+    per complex type."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    for cdt, rdt in ((np.complex128, np.float64), (np.complex64, np.float32)):
+        r = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+             * np.exp(rng.uniform(-30, 30, n))).astype(cdt)
+        beta = rdt(abs(rng.standard_normal()) * 7.3 + 0.1)
+        jax_div = np.asarray(jax.jit(lambda r, b: r / jnp.where(
+            b > 0, b, 1.0).astype(r.dtype))(jnp.asarray(r), jnp.asarray(beta)))
+        parts = np.empty_like(r)
+        parts.real, parts.imag = r.real / beta, r.imag / beta
+        recip = np.empty_like(r)
+        recip.real, recip.imag = r.real * (rdt(1) / beta), \
+            r.imag * (rdt(1) / beta)
+        tr = torch.from_numpy(r)
+        t_real = (tr / torch.tensor(beta)).numpy()
+        t_cplx = (tr / torch.tensor(beta).to(tr.dtype)).numpy()
+        apart = lambda a, b: int((a.view(rdt) != b.view(rdt)).sum())
+        print(json.dumps({
+            "type": np.dtype(cdt).name, "parts": 2 * n,
+            "jax_vs_each_part_divided": apart(jax_div, parts),
+            "jax_vs_reciprocal": apart(jax_div, recip),
+            "torch_real_divisor_vs_each_part_divided": apart(t_real, parts),
+            "torch_complex_divisor_vs_each_part_divided": apart(t_cplx, parts),
+            "torch_vs_reciprocal": apart(t_cplx, recip)}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", nargs="+",
                     default=["hss:512", "hss-default:512"])
+    ap.add_argument("--division", action="store_true",
+                    help="the complex division check (CPU, JAX package)")
     args = ap.parse_args()
+    if args.division:
+        return division()
     if not torch.cuda.is_available():
         raise SystemExit("cycle_rounding: needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

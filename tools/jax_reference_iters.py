@@ -21,6 +21,19 @@ kest: the default rank caps), factored in float64 with the JAX package's own
 sketches, then float64 GMRES (reltol 1e-9, restart 30, maxiter 60);
 ``--config lowrank-default`` the same with ``hss=False``.
 
+``--damping D`` > 0 (helmholtz2d) runs the damped, complex system
+helmholtz2d(n, k, damping=D) in the JAX bench's complex rule: with the
+default config a complex64 factor, complex64 cycles over the complex64 DIA
+operator inside a complex128 solve (``exact-complex-mixed``, the device
+configuration, bench.py:175-179, :335-345 without the TPU's split-real
+system); with ``--config exact`` complex128 throughout
+(``exact-complex``).  chip_smoke.py's complex paths are held to these:
+
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --damping 0.1 \
+        --sizes 128 512 [--config exact]
+
+``--config exact`` without ``--damping`` is the float64 exact run.
+
 ``--problem helmholtz3d --k 10`` runs the 3D problems instead (7-point
 helmholtz3d(n, k) on an n^3 mesh, the same leafmax):
 
@@ -57,36 +70,51 @@ def _mv(op, v):
     return hsolve.dia_matvec(op, v)
 
 
-def _precond(data, v):
-    return solve_with_data(data, v.astype(jnp.float32)).astype(v.dtype)
-
-
 def problem(args, n: int):
+    if args.damping > 0:
+        return hsolve.helmholtz2d(n, k=args.k, damping=args.damping)
     return getattr(hsolve, args.problem)(n, k=args.k)
 
 
 def run(args, n: int) -> dict:
+    """The exact path: the mixed device configuration, or (``--config
+    exact``) the wide type throughout; complex types with ``--damping``."""
     A, b, shape = problem(args, n)
     b = np.asarray(b)
+    cplx = args.damping > 0
+    narrow, wide = (np.complex64, np.complex128) if cplx else \
+        (np.float32, np.float64)
+    mixed = args.config == "exact-f32-mixed"
     opts = hsolve.SolverOptions(swlevel=0)
     plan = hsolve.plan_factorization(A, hsolve.nested_dissection(shape, leafmax=100),
                                      opts)
+    fdt = narrow if mixed else wide
     t0 = time.perf_counter()
-    F = hsolve.factor_with_plan(plan, opts, dtype=jnp.float32)
+    F = hsolve.factor_with_plan(plan, opts, dtype=fdt)
     jax.block_until_ready(F.solve_data)
     factor_s = time.perf_counter() - t0
-    op64, _ = hsolve.spmv_format(A, dtype=np.float64)
-    op32, _ = hsolve.spmv_format(A, dtype=np.float32)
+    op_w, _ = hsolve.spmv_format(A, dtype=wide)
+    inner = {}
+    if mixed:
+        inner = dict(inner_dtype=np.dtype(narrow).name, m_eps=1e-6,
+                     mv_data_inner=hsolve.spmv_format(A, dtype=narrow)[0],
+                     escalate=True)
+
+    def precond(data, v):
+        return solve_with_data(data, v.astype(fdt)).astype(v.dtype)
+
     t0 = time.perf_counter()
     x, info = hsolve.gmres_compiled(
-        _mv, _precond, jnp.asarray(b, jnp.float64), reltol=1e-9, restart=30,
-        maxiter=60, mv_data=op64, M_data=F.solve_data, inner_dtype="float32",
-        mv_data_inner=op32, m_eps=1e-6, escalate=True)
+        _mv, precond, jnp.asarray(b, wide), reltol=1e-9, restart=30,
+        maxiter=60, mv_data=op_w, M_data=F.solve_data, **inner)
     solve_s = time.perf_counter() - t0
     x = np.asarray(x)
     iters = int(info["iters"])
+    config = {(False, False): "exact", (False, True): "exact-f32-mixed",
+              (True, False): "exact-complex",
+              (True, True): "exact-complex-mixed"}[cplx, mixed]
     return {"n": n, "N": int(A.shape[0]), "problem": args.problem,
-            "config": "exact-f32-mixed",
+            "config": config, "damping": args.damping,
             "iters": iters, "float32_iters": min(iters, 60),
             "float64_iters": max(iters - 60, 0),
             "converged": bool(info["converged"]),
@@ -122,14 +150,21 @@ def run_compressed_default(args, n: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
-    ap.add_argument("--config", choices=("exact-f32-mixed", "hss-default",
-                                         "lowrank-default"),
+    ap.add_argument("--config", choices=("exact-f32-mixed", "exact",
+                                         "hss-default", "lowrank-default"),
                     default="exact-f32-mixed")
     ap.add_argument("--problem", choices=("helmholtz2d", "helmholtz3d"),
                     default="helmholtz2d")
     ap.add_argument("--k", type=float, default=40.0)
+    ap.add_argument("--damping", type=float, default=0.0,
+                    help="helmholtz2d's impedance damping: > 0 gives the "
+                         "complex system (exact configs only)")
     args = ap.parse_args()
-    fn = run if args.config == "exact-f32-mixed" else run_compressed_default
+    if args.damping > 0 and (args.problem != "helmholtz2d" or args.config
+                             not in ("exact-f32-mixed", "exact")):
+        ap.error("--damping runs the exact helmholtz2d configs only")
+    fn = run if args.config in ("exact-f32-mixed", "exact") \
+        else run_compressed_default
     for n in args.sizes:
         print(json.dumps(fn(args, n)), flush=True)
 
