@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the result line is printed):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
-2. build: the thirteen CUDA kernels (A-M, A-D, L and M also for complex
-   values) and the GMRES loop's control kernels are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
+2. build: the thirteen CUDA kernels (A-M; A-D, L and M also for complex
+   values, E, F and G for complex128) and the GMRES loop's control kernels
+   are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
    process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
    shapes, then at the 3D plans' (below), and is held against its plain
@@ -84,7 +85,13 @@ Phases (any failure exits non-zero before the result line is printed):
    the pivot growth, the 4424-row hand front in windows too, complex64
    against a complex128 solve; M, the step's tail and V[j+1] bit for bit
    their plain versions; a complex multiply-add counts as four real ones,
-   a value as 16 or 8 bytes); and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
+   a value as 16 or 8 bytes); E, F and G in complex128 at the damped
+   system's low-rank n=512 factor (the compressed options below with
+   hss=False), on its captured inputs as for float64: E (forward and
+   backward) at every launch shape to 1e-13 of the update computed in
+   complex long double on the host, F at every launch shape and G at every
+   launch (its rank and V bit for bit, U to 1e-13), each with a summary
+   line; and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
    n=512 N, bit for bit their plain versions, from states that go on and
    that stop: the run's start, the cycle start in its six type pairs (the
    real three and complex128 cycles, complex64 cycles in a complex64 and
@@ -106,6 +113,9 @@ Phases (any failure exits non-zero before the result line is printed):
    factor, complex64 cycles over a complex64 operator inside a complex128
    solve, m_eps=1e-6, escalation on), each launching every kernel of
    ``kernels.COMPLEX_PATH`` / ``COMPLEX_MIXED_PATH`` in its complex type,
+   and lowrank-complex (the low-rank compressed options above on the
+   damped system: a complex128 factor with E, F and G in complex128,
+   complex128 cycles, every kernel of ``kernels.COMPLEX_LOWRANK_PATH``),
    then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
    windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
@@ -206,15 +216,19 @@ OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
            "exact-3d-f32-mixed": dict(swlevel=0),
            "lowrank-3d": LOWRANK_DEFAULT, "hss-3d": HSS_DEFAULT,
            "exact-complex": dict(swlevel=0),
-           "exact-complex-mixed": dict(swlevel=0)}
+           "exact-complex-mixed": dict(swlevel=0),
+           "lowrank-complex": COMPRESSED}
 MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed", "exact-complex-mixed")
-COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed")
-COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d")
+COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed", "lowrank-complex")
+COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d",
+                    "lowrank-complex")
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
 # mixed, hss-default and 3D ones from tools/jax_reference_iters.py (mixed: 5
 # at n=128, 80 at n=512, 5 at 64^3; hss-default: 5 at n=128, 40 at n=512;
 # low-rank at the default caps: 4 at 48^3; the damped system's mixed
-# complex64 configuration: 5 at n=128, 10 at n=512, and 1 in complex128);
+# complex64 configuration: 5 at n=128, 10 at n=512, and 1 in complex128;
+# its low-rank complex128 run, lowrank-complex: 4 at n=128, 6 at n=512,
+# --damping 0.1 --config lowrank);
 # hss-3d within maxiter (the JAX package's 40^3 structured run was not
 # measured)
 MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
@@ -224,7 +238,8 @@ MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
              "exact-3d-f32-mixed": {EXACT3D: 10},
              "lowrank-3d": {LOWRANK3D: 8}, "hss-3d": {HSS3D: 60},
              "exact-complex": {128: 1, 512: 1},
-             "exact-complex-mixed": {128: 10, 512: 20}}
+             "exact-complex-mixed": {128: 10, 512: 20},
+             "lowrank-complex": {128: 8, 512: 12}}
 # the port's bench on the card: the JAX bench's default (helmholtz2d h=128,
 # the mixed device configuration) and a small 3D exact run in float64
 # cycles (at 64^3 scipy's SuperLU baseline alone takes minutes of host time)
@@ -279,6 +294,9 @@ TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
 TYPED_COMPLEX = ("front_assemble", "extend_add", "level_forward",
                  "sweep_update", "dia_spmv", "arnoldi_cgs2", "arnoldi_givens",
                  "arnoldi_step", "gmres_cycle_start")
+# E, F and G: float64 and complex128 (the damped system's low-rank levels)
+LOWRANK_COMPLEX = ("lowrank_sweep_update", "lowrank_schur_update",
+                   "lowrank_truncate")
 # kernels whose rows read them alone: on the main path they run inside the
 # fused Arnoldi step's launch, whose launches their counts are
 RUN_IN_STEP = ("arnoldi_cgs2", "arnoldi_givens")
@@ -843,7 +861,8 @@ def sweep_exact(C0, ids_out, U, V, N, kw):
     else:
         ids = kw["ids_in"]
         Y = torch.where((ids < N)[..., None], C0[ids.clamp(max=N).long()], 0.0)
-    ld = lambda t: t.cpu().numpy().astype(np.longdouble)
+    wide = np.clongdouble if C0.is_complex() else np.longdouble
+    ld = lambda t: t.cpu().numpy().astype(wide)
     Ul = ld(U)
     t = np.einsum("bck,bcr->bkr", ld(V), ld(Y))
     C = ld(C0)
@@ -884,15 +903,18 @@ def check_sweep_shape(desc, C0, ids_out, U, V, N, kw, results: Results):
     Bu, R, kc = U.shape
     Cc = V.shape[1]
     k = C0.shape[1]
-    work = bound(nbytes(U, V, ids_out, *kw.values()) + 2 * Bu * R * 8 * k
-                 + (Bu * Cc * 8 * k if "ids_in" in kw else 0),
-                 2 * Bu * kc * (R + Cc) * k, products=True)
+    dname = str(U.dtype).replace("torch.", "")
+    e = U.element_size()
+    work = bound(nbytes(U, V, ids_out, *kw.values()) + 2 * Bu * R * e * k
+                 + (Bu * Cc * e * k if "ids_in" in kw else 0),
+                 2 * flop_factor(dname) * Bu * kc * (R + Cc) * k, dname,
+                 products=True)
     cs, threads, _, _, vec, _, dd, _ = lowrank_sweep_geometry(Bu, R, Cc, kc,
-                                                              k)
+                                                              k, itemsize=e)
     ms = device_ms(lambda: lowrank_sweep_update(scratch, ids_out, U, V, N, **kw))
     plain_ms = device_ms(lambda: lowrank_sweep_update_plain(scratch, ids_out, U,
                                                             V, N, **kw))
-    results.record("lowrank_sweep_update",
+    results.record("lowrank_sweep_update" + type_tag(dname),
                    f"{desc} U={list(U.shape)} V={list(V.shape)[1:]} cs={cs} "
                    f"threads={threads} vec={vec} dd={dd}; off the long-double "
                    f"update: "
@@ -912,7 +934,7 @@ def check_sweep_levels(label, levels, N, results: Results) -> None:
     lev0 = next(lv for lv in levels if getattr(lv, "LU_", None) is not None)
     dev = lev0.LU_.device
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    C0 = torch.randn(N + 1, 1, dtype=torch.float64, device=dev, generator=gen)
+    C0 = torch.randn(N + 1, 1, dtype=lev0.LU_.dtype, device=dev, generator=gen)
     C0[N] = 0.0
     seen, rows_ = set(), []
     for bidx, lev in enumerate(levels):
@@ -927,7 +949,8 @@ def check_sweep_levels(label, levels, N, results: Results) -> None:
                                            ids_out, U, V, N, kw, results))
     ms_, plain_, bound_ = zip(*rows_)
     slow = [a / b for a, b in zip(ms_, plain_) if a > b]
-    log(f"  {label}: E at {len(rows_)} shapes, kernel {min(ms_):.4f}-"
+    tag = type_tag(str(lev0.LU_.dtype).replace("torch.", ""))
+    log(f"  {label}: E{tag} at {len(rows_)} shapes, kernel {min(ms_):.4f}-"
         f"{max(ms_):.4f} ms, plain {min(plain_):.4f}-{max(plain_):.4f}, bound "
         f"{min(bound_):.5f}-{max(bound_):.5f}; slower than its plain version "
         f"at {len(slow)}" + (f" (worst {max(slow):.2f}x)" if slow else "")
@@ -952,12 +975,16 @@ def schur_recorder(fm, fcalls: dict, where: dict):
     return orig, rec
 
 
-def schur_bound(B, m_pad, ni_pad, kc) -> dict:
+def schur_bound(B, m_pad, ni_pad, kc, dname="float64") -> dict:
     """Kernel F's bound: Abb and Abi read, RU, RV and sperm read, S
-    written, each once; both products' operations on the tensor cores."""
+    written, each once; both products' operations on the tensor cores (a
+    complex value 16 bytes, a complex multiply-add four real ones)."""
     nb = m_pad - ni_pad
-    work = 8 * B * (2 * nb * nb + nb * ni_pad + ni_pad * kc + nb * kc + nb)
-    return bound(work, 2 * B * kc * nb * (ni_pad + nb), products=True)
+    e = 16 if dname == "complex128" else 8
+    work = e * B * (2 * nb * nb + nb * ni_pad + ni_pad * kc + nb * kc) \
+        + 8 * B * nb
+    return bound(work, 2 * flop_factor(dname) * B * kc * nb * (ni_pad + nb),
+                 dname, products=True)
 
 
 def check_schur_captured(label, fcalls, results: Results) -> None:
@@ -976,15 +1003,18 @@ def check_schur_captured(label, fcalls, results: Results) -> None:
         ker = lowrank_schur_update(*args)
         ref = lowrank_schur_update_plain(*args)
         nb = m_pad - ni_pad
-        g = schur_geometry(B, ni_pad, nb, kc)
-        work = schur_bound(B, m_pad, ni_pad, kc)
+        dname = str(front.dtype).replace("torch.", "")
+        g = schur_geometry(B, ni_pad, nb, kc, itemsize=front.element_size())
+        work = schur_bound(B, m_pad, ni_pad, kc, dname)
         ms = device_ms(lambda: lowrank_schur_update(*args))
         plain_ms = device_ms(lambda: lowrank_schur_update_plain(*args))
         results.record(
-            "lowrank_schur_update",
+            "lowrank_schur_update" + type_tag(dname),
             f"{label} {tag} [{B},{nb},{nb}] ni={ni_pad} k={kc} "
             + (f"bands of {g['bm']}, whole rows" if g["whole"] else
-               f"{g['bm']}x{g['bn']} tiles, cluster {g['cs']}"),
+               f"{g['bm']}x{g['bn']} tiles, cluster {g['cs']}"
+               + (f", {g['nct']} CTAs a band walking {g['walk']} tiles"
+                  if "walk" in g else "")),
             errors(ker, ref), RTOL_SUM, ms, plain_ms, work)
         rows_.append((ms, plain_ms, work["bound_ms"]))
     ms_, plain_, bound_ = zip(*rows_)
@@ -1004,11 +1034,12 @@ def truncate_recorder(fm, gcalls: list):
 
     orig = fm.rand_lowrank
 
+    from hsolve_torch import kernels
+
     def rec(A, omega, atol, rtol, cap):
         Q, _ = torch.linalg.qr(A @ omega)
-        Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ A,
-                                      full_matrices=False)
-        gcalls.append(tuple(t.contiguous() for t in (Q, Uw, sv, Vh))
+        Uw, sv, Vh = torch.linalg.svd(Q.mH @ A, full_matrices=False)
+        gcalls.append(tuple(map(kernels.materialized, (Q, Uw, sv, Vh)))
                       + (atol, rtol, cap))
         return orig(A, omega, atol, rtol, cap)
 
@@ -1037,12 +1068,13 @@ def check_truncate_captured(label, gcalls, results: Results) -> None:
             fail(f"lowrank_truncate: rank or V differ from its plain version "
                  f"at {label} launch {i}")
         B, m, s_ = Q.shape
+        dname = str(Q.dtype).replace("torch.", "")
         work = bound(nbytes(Q, Uw, sv, Vh, ker[0], ker[1]),
-                     2.0 * m * s_ * float(ker[2].double().sum()),
-                     products=True)
+                     2.0 * flop_factor(dname) * m * s_
+                     * float(ker[2].double().sum()), dname, products=True)
         ms = queued_ms(lambda: lowrank_truncate(*args))
         plain_ms = device_ms(lambda: lowrank_truncate_plain(*args))
-        results.record("lowrank_truncate",
+        results.record("lowrank_truncate" + type_tag(dname),
                        f"{label} launch {i} Q=[{B},{m},{s_}] n={Vh.shape[-1]} "
                        f"cap={cap} rank<={int(ker[2].max())} (device only)",
                        errors(ker[0], ref[0]), RTOL_SUM, ms, plain_ms, work)
@@ -1056,12 +1088,15 @@ def check_truncate_captured(label, gcalls, results: Results) -> None:
 
 
 def check_compressed_kernels(problems: Problems, n, dev, results: Results,
-                             kw=COMPRESSED, label="low-rank") -> None:
+                             kw=COMPRESSED, label="low-rank",
+                             dtype_name="float64") -> None:
     """Phase 3, kernels B and E-G against their plain versions at the shapes
     of the low-rank factor of the n-problem with options ``kw``: the
     fronts, sketches and factors of a real compressed factorization (B at
     every launch, E at every launch shape, F at every launch shape and G at
-    every launch, on their captured inputs)."""
+    every launch, on their captured inputs).  In complex128 (the damped
+    system) E, F and G only: B's complex instance is checked at every
+    launch of the exact complex factor."""
     import importlib
 
     import torch
@@ -1075,14 +1110,14 @@ def check_compressed_kernels(problems: Problems, n, dev, results: Results,
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts)
     tp = plan_to_torch(plan, dev)
-    f64 = torch.float64
+    fdt = getattr(torch, dtype_name)
     fm = importlib.import_module("hsolve_torch.factor")  # ht.factor: the function
     fcalls, gcalls = {}, []
     orig, rec = schur_recorder(fm, fcalls, {"tag": "factor"})
     orig_g, rec_g = truncate_recorder(fm, gcalls)
     fm.lowrank_schur_update, fm.rand_lowrank = rec, rec_g
     try:
-        levels, _, stacks = _factor_levels(plan, tp, opts, f64)
+        levels, _, stacks = _factor_levels(plan, tp, opts, fdt)
     finally:
         fm.lowrank_schur_update, fm.rand_lowrank = orig, orig_g
     torch.cuda.synchronize()
@@ -1090,8 +1125,9 @@ def check_compressed_kernels(problems: Problems, n, dev, results: Results,
     # E: both forms at every launch shape, the first compressed level first
     check_sweep_levels(label, levels, plan.N, results)
     # B at every launch of the compressed factor
-    check_extend_add_launches(label, plan, tp, stacks, tp.adata.to(f64),
-                              results)
+    if not fdt.is_complex:
+        check_extend_add_launches(label, plan, tp, stacks, tp.adata.to(fdt),
+                                  results)
     # F: the Schur update at every launch shape of the factor
     check_schur_captured(label, fcalls, results)
     del levels, stacks, fcalls
@@ -2194,7 +2230,8 @@ def kernel_table(runs, kres: Results) -> list:
                               **{key: kres[f"{k}:float32"][key]
                                  for key in keys}}
         table.append(row)
-        for ct in COMPLEX if k in TYPED_COMPLEX else ():
+        for ct in COMPLEX if k in TYPED_COMPLEX else (
+                ("complex128",) if k in LOWRANK_COMPLEX else ()):
             crow = {**row, "name": f"{k}:{ct}",
                     "launches": total.get(f"{k}:{ct}", 0),
                     **{key: kres[f"{k}:{ct}"][key] for key in keys}}
@@ -2255,6 +2292,10 @@ def main() -> int:
     for dname in COMPLEX:
         check_kernels(problems, damped(args.kernel_n), dev, kres, dname)
     check_arnoldi_kernels(problems, damped(args.kernel_n), dev, kres)
+    log(f"[3] E, F and G in complex128 on the damped n={args.kernel_n} "
+        "system's low-rank factor")
+    check_compressed_kernels(problems, damped(args.kernel_n), dev, kres,
+                             COMPRESSED, "damped low-rank", "complex128")
     check_control_kernels(problems, args.kernel_n, dev, kres)
     log(f"[3] the same kernels at the 3D plans' shapes: exact {EXACT3D}, "
         f"low-rank {LOWRANK3D}, structured {HSS3D}")
@@ -2275,6 +2316,7 @@ def main() -> int:
             ("exact-f32-mixed", kernels.MIXED_PATH, args.sizes),
             ("exact-complex", kernels.COMPLEX_PATH, args.sizes),
             ("exact-complex-mixed", kernels.COMPLEX_MIXED_PATH, args.sizes),
+            ("lowrank-complex", kernels.COMPLEX_LOWRANK_PATH, args.sizes),
             ("exact-wide", kernels.EXACT_PATH, [WIDE_N]),
             ("exact-3d", kernels.EXACT_PATH, [EXACT3D]),
             ("exact-3d-f32-mixed", kernels.MIXED_PATH, [EXACT3D]),

@@ -58,6 +58,7 @@
 #include <cooperative_groups.h>
 
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -463,5 +464,214 @@ HS_EXPORT int hs_lowrank_schur_update(const void* front, const void* RU,
     cudaGetLastError();
     return (int)err;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Complex128 (the damped Helmholtz system's low-rank levels): the same
+// function on hs_c128 values, on the CUDA cores.  A complex multiply-add is
+// four real FMAs; no tensor-core form (a complex product there would be four
+// real ones over the parts held apart in shared memory) yet.
+//
+// A CTA of 256 threads takes a band of F_C_BM = 32 rows of one front's S:
+//   1. W = Abi[p_band, :] RU over depth chunks of kd (Abi's rows and RU's
+//      rows staged in shared memory per chunk), for column groups of 64 of
+//      W, each thread a 2 x 4 register tile (rows 2 g, 2 g + 1; columns
+//      c + 16 j), kept in shared memory;
+//   2. then `walk` column tiles of bn columns (tiles x, x + nct, ...): RV's
+//      rows p_cols staged, each thread's 2 x 4 entries of S started from
+//      Abb[p_i, p_j] (gathered from the front) less W RV^T, stored straight
+//      to S (a warp's columns consecutive).
+// Rows of W and RV in shared memory have an odd stride (kc | 1 values), so
+// a quarter warp's 16-byte reads fall on distinct banks.
+// ---------------------------------------------------------------------------
+#define F_C_BM 32
+
+__device__ __forceinline__ void cfma_sub(hs_c128& acc, hs_c128 a, hs_c128 b) {
+  // acc -= a b
+  acc.re = fma(-a.re, b.re, acc.re);
+  acc.re = fma(a.im, b.im, acc.re);
+  acc.im = fma(-a.re, b.im, acc.im);
+  acc.im = fma(-a.im, b.re, acc.im);
+}
+
+__device__ __forceinline__ void cfma_add(hs_c128& acc, hs_c128 a, hs_c128 b) {
+  // acc += a b
+  acc.re = fma(a.re, b.re, acc.re);
+  acc.re = fma(-a.im, b.im, acc.re);
+  acc.im = fma(a.re, b.im, acc.im);
+  acc.im = fma(a.im, b.re, acc.im);
+}
+
+__global__ void __launch_bounds__(F_THREADS, 2)
+lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
+                                 const hs_c128* __restrict__ RU,
+                                 const hs_c128* __restrict__ RV,
+                                 const long long* __restrict__ sperm,
+                                 hs_c128* __restrict__ S, int m_pad,
+                                 int ni_pad, int kc, int bn, int nct, int kd,
+                                 int walk) {
+  extern __shared__ __align__(16) unsigned char fsm_c[];
+  const int nb = m_pad - ni_pad;
+  const int ld = kc | 1;  // odd: conflict-free 16-byte reads down a column
+  hs_c128* Ws = reinterpret_cast<hs_c128*>(fsm_c);  // [F_C_BM][ld] W
+  hs_c128* RVs = Ws + F_C_BM * ld;                  // [bn][ld] RV[p_cols]
+  hs_c128* Ach = RVs + bn * ld;                     // [F_C_BM][kd] Abi chunk
+  hs_c128* Uch = Ach + F_C_BM * kd;                 // [kd][kc] RU chunk
+  int* pi = reinterpret_cast<int*>(Uch + kd * kc);  // [F_C_BM]
+  int* pj = pi + F_C_BM;                            // [bn]
+
+  const int tid = threadIdx.x;
+  const int g = tid >> 4, q = tid & 15;  // rows 2 g, 2 g + 1; columns q + 16 j
+  const long long b = blockIdx.z;
+  const int i0 = blockIdx.y * F_C_BM;
+  const long long* p = sperm + b * nb;
+  const hs_c128* F = front + b * (long long)m_pad * m_pad +
+                     (long long)ni_pad * m_pad;  // row ni_pad of the front
+  const hs_c128* RUb = RU + b * (long long)ni_pad * kc;
+  const hs_c128* RVb = RV + b * (long long)nb * kc;
+  const hs_c128 zero(0.0);
+
+  for (int r = tid; r < F_C_BM; r += F_THREADS)
+    pi[r] = i0 + r < nb ? (int)p[i0 + r] : -1;
+  __syncthreads();
+
+  // phase 1: W = Abi[p_band, :] RU, 64 of W's columns a pass
+  for (int n0 = 0; n0 < kc; n0 += 64) {
+    hs_c128 acc[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[a][j] = zero;
+    for (int k0 = 0; k0 < ni_pad; k0 += kd) {
+      const int nk = min(kd, ni_pad - k0);
+      for (int e = tid; e < F_C_BM * kd; e += F_THREADS) {
+        const int r = e / kd, kk = e - r * kd;
+        Ach[e] = pi[r] >= 0 && kk < nk
+                     ? F[(long long)pi[r] * m_pad + k0 + kk]
+                     : zero;
+      }
+      for (int e = tid; e < kd * kc; e += F_THREADS) {
+        const int kk = e / kc;
+        Uch[e] = kk < nk ? RUb[(long long)k0 * kc + e] : zero;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < nk; ++kk) {
+        const hs_c128 a0 = Ach[(2 * g) * kd + kk];
+        const hs_c128 a1 = Ach[(2 * g + 1) * kd + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + q + 16 * j;
+          if (c < kc) {
+            const hs_c128 u = Uch[kk * kc + c];
+            cfma_add(acc[0][j], a0, u);
+            cfma_add(acc[1][j], a1, u);
+          }
+        }
+      }
+      __syncthreads();  // the chunk is restaged next
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + q + 16 * j;
+      if (c < kc) {
+        Ws[(2 * g) * ld + c] = acc[0][j];
+        Ws[(2 * g + 1) * ld + c] = acc[1][j];
+      }
+    }
+  }
+
+  // phase 2: S's tiles x, x + nct, ... of this band
+  const int tiles = (nb + bn - 1) / bn;
+  for (int w = 0; w < walk; ++w) {
+    const int t = blockIdx.x + w * nct;
+    if (t >= tiles) break;
+    const int j0 = t * bn;
+    __syncthreads();  // W written; the last tile's RV rows read
+    for (int c = tid; c < bn; c += F_THREADS)
+      pj[c] = j0 + c < nb ? (int)p[j0 + c] : -1;
+    __syncthreads();
+    for (int e = tid; e < bn * kc; e += F_THREADS) {
+      const int c = e / kc, kk = e - c * kc;
+      RVs[c * ld + kk] =
+          pj[c] >= 0 ? RVb[(long long)pj[c] * kc + kk] : zero;
+    }
+    __syncthreads();
+    hs_c128 acc[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = 2 * g + a;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = q + 16 * j;
+        acc[a][j] = pi[r] >= 0 && c < bn && pj[c] >= 0
+                        ? F[(long long)pi[r] * m_pad + ni_pad + pj[c]]
+                        : zero;
+      }
+    }
+    for (int kk = 0; kk < kc; ++kk) {
+      const hs_c128 w0 = Ws[(2 * g) * ld + kk];
+      const hs_c128 w1 = Ws[(2 * g + 1) * ld + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = q + 16 * j;
+        if (c < bn) {
+          const hs_c128 v = RVs[c * ld + kk];
+          cfma_sub(acc[0][j], w0, v);
+          cfma_sub(acc[1][j], w1, v);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int i = i0 + 2 * g + a;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = q + 16 * j;
+        if (i < nb && c < bn && j0 + c < nb)
+          S[(b * nb + i) * (long long)nb + j0 + c] = acc[a][j];
+      }
+    }
+  }
+}
+
+// bytes of shared memory a complex128 CTA takes (ops/schur.py
+// `schur_smem_c128` mirrors it)
+static long long schur_smem_c128(int bn, int kd, int kc) {
+  const long long ld = kc | 1;
+  return 16 * (F_C_BM * ld + bn * ld + (long long)F_C_BM * kd +
+               (long long)kd * kc) +
+         4LL * (F_C_BM + bn);
+}
+
+// the geometry is schur_geometry_c128's: bm = 32, cs = 1, whole = 0; nct
+// CTAs a band, each walking ceil(tiles / nct) column tiles of bn
+HS_EXPORT int hs_lowrank_schur_update_c128(const void* front, const void* RU,
+                                           const void* RV, const void* sperm,
+                                           void* S, long long B, int m_pad,
+                                           int ni_pad, int kc, int bm, int bn,
+                                           int cs, int nct, int kd, int whole,
+                                           void* stream) {
+  const int nb = m_pad - ni_pad;
+  if (B <= 0 || nb <= 0) return (int)cudaGetLastError();
+  const int tiles = bn > 0 ? (nb + bn - 1) / bn : 0;
+  if (kc < 1 || bm != F_C_BM || bn < 8 || bn > 64 || bn % 8 || cs != 1 ||
+      whole || nct < 1 || nct > tiles || kd < 1 || kd > 64 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = schur_smem_c128(bn, kd, kc);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kern = lowrank_schur_update_c128_kernel;
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kern,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid((unsigned)nct, (unsigned)((nb + F_C_BM - 1) / F_C_BM),
+                  (unsigned)B);
+  kern<<<grid, F_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      (const hs_c128*)front, (const hs_c128*)RU, (const hs_c128*)RV,
+      (const long long*)sperm, (hs_c128*)S, m_pad, ni_pad, kc, bn, nct, kd,
+      (tiles + nct - 1) / nct);
   return (int)cudaGetLastError();
 }

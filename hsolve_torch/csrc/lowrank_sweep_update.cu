@@ -60,30 +60,39 @@
 //   tools/eb_breakdown.py, with --accuracy for the errors);
 // - k > 1 goes in chunks of 4 right-hand sides (kb = 4), k = 1 in one
 //   (kb = 1).
+//
+// Complex128 (the damped Helmholtz system's low-rank levels, T = hs_c128):
+// the same kernel over values of 16 bytes, one a 16-byte load (VEC = 1,
+// hs_vec16's rule).  A complex multiply-add is four real FMAs, two into
+// each part's sum; at launches of at most 16 fronts each part sums in
+// double-double as a real sum does (its own pair), t is kept as a pair of
+// complex values, and a row's update is scattered with two real atomics.
 #include <cooperative_groups.h>
 
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 namespace cg = cooperative_groups;
 
 #define E_UNROLL 4  // rows in flight per thread (phase 1) and lane group (2)
 
+// VEC values from p (16 bytes where VEC = 2 doubles or one complex128)
 template <int VEC>
-struct EVec;
-template <>
-struct EVec<1> {
-  static __device__ __forceinline__ void load(const double* p, double* v) {
-    v[0] = __ldg(p);
-  }
-};
-template <>
-struct EVec<2> {
-  static __device__ __forceinline__ void load(const double* p, double* v) {
+__device__ __forceinline__ void e_load(const double* p, double* v) {
+  if (VEC == 2) {
     const double2 t = __ldg(reinterpret_cast<const double2*>(p));
     v[0] = t.x;
     v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
   }
-};
+}
+
+template <int VEC>
+__device__ __forceinline__ void e_load(const hs_c128* p, hs_c128* v) {
+  static_assert(VEC == 1, "one complex128 value a 16-byte load");
+  v[0] = hs_ldg(p);
+}
 
 // Sums in double-double (DD): a running (hi, lo) pair gains an exact product
 // a*b as (p, fma(a, b, -p)) and a pair as (hi, lo); hi + lo is rounded once
@@ -116,27 +125,68 @@ __device__ __forceinline__ void acc_fma(double& hi, double& lo, double a,
   }
 }
 
-template <int NT, int VEC, int KB, bool DD>
+// the same on complex values, each part its own (hi, lo) pair
+template <bool DD>
+__device__ __forceinline__ void acc_add(hs_c128& hi, hs_c128& lo, hs_c128 a,
+                                        hs_c128 a_lo) {
+  acc_add<DD>(hi.re, lo.re, a.re, a_lo.re);
+  acc_add<DD>(hi.im, lo.im, a.im, a_lo.im);
+}
+
+template <bool DD>
+__device__ __forceinline__ void acc_fma(hs_c128& hi, hs_c128& lo, hs_c128 a,
+                                        hs_c128 b) {
+  acc_fma<DD>(hi.re, lo.re, a.re, b.re);
+  acc_fma<DD>(hi.re, lo.re, -a.im, b.im);
+  acc_fma<DD>(hi.im, lo.im, a.re, b.im);
+  acc_fma<DD>(hi.im, lo.im, a.im, b.re);
+}
+
+// hi + lo += u (t + t_lo), t a pair: u t exactly (in DD) and u t_lo plainly
+template <bool DD>
+__device__ __forceinline__ void acc_mul_pair(double& hi, double& lo, double u,
+                                             double t, double t_lo) {
+  if (DD) {
+    const double a = u * t;
+    acc_add<true>(hi, lo, a, fma(u, t, -a) + u * t_lo);
+  } else {
+    hi = fma(u, t, hi);
+  }
+}
+
+template <bool DD>
+__device__ __forceinline__ void acc_mul_pair(hs_c128& hi, hs_c128& lo,
+                                             hs_c128 u, hs_c128 t,
+                                             hs_c128 t_lo) {
+  acc_fma<DD>(hi, lo, u, t);
+  if (DD) {
+    lo.re += u.re * t_lo.re - u.im * t_lo.im;
+    lo.im += u.re * t_lo.im + u.im * t_lo.re;
+  }
+}
+
+template <typename T, int NT, int VEC, int KB, bool DD>
 __global__ void __launch_bounds__(NT)
-    lowrank_sweep_update_kernel(double* C, const int* __restrict__ ids_out,
-                                const double* __restrict__ U,
-                                const double* __restrict__ V,
-                                const double* __restrict__ X,
+    lowrank_sweep_update_kernel(T* C, const int* __restrict__ ids_out,
+                                const T* __restrict__ U,
+                                const T* __restrict__ V,
+                                const T* __restrict__ X,
                                 const int* __restrict__ ids_in, int R, int Cc,
                                 int kc, int k, int N, int cs, int rstep,
                                 int cstep) {
-  extern __shared__ double smem[];
-  double* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
-  double* ys = red + 2 * NT * VEC * KB;  // [NT][KB] staged Y rows
-  double* tpart = ys + NT * KB;         // [2][kc][KB] this CTA's partial t
-  double* tfull = tpart + 2 * kc * KB;  // [2][kc][KB] the cluster's sum
+  extern __shared__ __align__(16) unsigned char e_smem[];
+  T* smem = reinterpret_cast<T*>(e_smem);
+  T* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
+  T* ys = red + 2 * NT * VEC * KB;  // [NT][KB] staged Y rows
+  T* tpart = ys + NT * KB;         // [2][kc][KB] this CTA's partial t
+  T* tfull = tpart + 2 * kc * KB;  // [2][kc][KB] the cluster's sum
   const int red_lo = NT * VEC * KB, t_lo = kc * KB;  // offsets of the lo halves
   const int64_t b = blockIdx.x / cs;
   const int rank = blockIdx.x % cs;  // the CTA's rank in its cluster
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int P = (kc + VEC - 1) / VEC;  // column groups of VEC
-  const double* Vb = V + b * Cc * kc;
-  const double* Ub = U + b * R * kc;
+  const T* Vb = V + b * Cc * kc;
+  const T* Ub = U + b * R * kc;
   const int c0 = min(rank * cstep, Cc), c1 = min(c0 + cstep, Cc);
   const int q0 = min(rank * rstep, R), q1 = min(q0 + rstep, R);
   // phase 2's lanes per row: a power of two covering P, at most a warp
@@ -152,11 +202,11 @@ __global__ void __launch_bounds__(NT)
       const int G = NT / pw;
       const int g = tid / pw, pl = tid % pw;
       const int col = (p0 + pl) * VEC;
-      double acc[VEC][KB], acl[VEC][KB];
+      T acc[VEC][KB], acl[VEC][KB];
 #pragma unroll
       for (int v = 0; v < VEC; ++v)
 #pragma unroll
-        for (int r = 0; r < KB; ++r) acc[v][r] = acl[v][r] = 0.0;
+        for (int r = 0; r < KB; ++r) acc[v][r] = acl[v][r] = T(0.0);
       // the slice's rows in chunks of NT: each thread stages one Y row (the
       // gather of the backward form happens once per row, all of a chunk's
       // in flight together), then the column groups walk the chunk, loading
@@ -166,30 +216,29 @@ __global__ void __launch_bounds__(NT)
         if (tid < nc) {
           const int c = cb + tid;
           if (X != nullptr) {
-            const double* xr = X + (b * Cc + c) * (int64_t)k + r0;
+            const T* xr = X + (b * Cc + c) * (int64_t)k + r0;
 #pragma unroll
             for (int r = 0; r < KB; ++r)
-              ys[tid * KB + r] = r0 + r < k ? __ldg(xr + r) : 0.0;
+              ys[tid * KB + r] = r0 + r < k ? hs_ldg(xr + r) : T(0.0);
           } else {
             const int id = __ldg(ids_in + b * Cc + c);
 #pragma unroll
             for (int r = 0; r < KB; ++r)
               ys[tid * KB + r] =
-                  id < N && r0 + r < k ? C[(int64_t)id * k + r0 + r] : 0.0;
+                  id < N && r0 + r < k ? C[(int64_t)id * k + r0 + r] : T(0.0);
           }
         }
         __syncthreads();
         if (g < G) {
           for (int c = g; c < nc; c += E_UNROLL * G) {
-            double vv[E_UNROLL][VEC];
+            T vv[E_UNROLL][VEC];
 #pragma unroll
             for (int u = 0; u < E_UNROLL; ++u) {
               if (c + u * G < nc) {
-                EVec<VEC>::load(Vb + (int64_t)(cb + c + u * G) * kc + col,
-                                vv[u]);
+                e_load<VEC>(Vb + (int64_t)(cb + c + u * G) * kc + col, vv[u]);
               } else {
 #pragma unroll
-                for (int v = 0; v < VEC; ++v) vv[u][v] = 0.0;
+                for (int v = 0; v < VEC; ++v) vv[u][v] = T(0.0);
               }
             }
 #pragma unroll
@@ -220,7 +269,7 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
       for (int e = tid; e < pw * VEC * KB; e += NT) {
         const int kk = p0 * VEC + e / KB;
-        double hi = 0.0, lo = 0.0;
+        T hi = T(0.0), lo = T(0.0);
         for (int gg = 0; gg < G; ++gg) {
           const int at = gg * pw * VEC * KB + e;
           acc_add<DD>(hi, lo, red[at], red[red_lo + at]);
@@ -233,14 +282,14 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
     }
     // the cluster's sum, the same on every CTA (ranks in order)
-    const double* t = tpart;
+    const T* t = tpart;
     if (cs > 1) {
       cg::cluster_group cl = cg::this_cluster();
       cl.sync();
       for (int e = tid; e < kc * KB; e += NT) {
-        double hi = 0.0, lo = 0.0;
+        T hi = T(0.0), lo = T(0.0);
         for (int j = 0; j < cs; ++j) {
-          const double* peer = cl.map_shared_rank(tpart, j);
+          const T* peer = cl.map_shared_rank(tpart, j);
           acc_add<DD>(hi, lo, peer[e], peer[t_lo + e]);
         }
         tfull[e] = hi;
@@ -253,57 +302,49 @@ __global__ void __launch_bounds__(NT)
     // CTA's rows, E_UNROLL rows of U loaded before they multiply
     for (int base = q0; base < q1; base += span * E_UNROLL) {
       int row[E_UNROLL];
-      double acc[E_UNROLL][KB], acl[E_UNROLL][KB];
+      T acc[E_UNROLL][KB], acl[E_UNROLL][KB];
 #pragma unroll
       for (int u = 0; u < E_UNROLL; ++u) {
         row[u] = base + u * span + warp * rpw + slot;
 #pragma unroll
-        for (int r = 0; r < KB; ++r) acc[u][r] = acl[u][r] = 0.0;
+        for (int r = 0; r < KB; ++r) acc[u][r] = acl[u][r] = T(0.0);
       }
       for (int p = sub; p < P; p += L) {
-        double uu[E_UNROLL][VEC];
+        T uu[E_UNROLL][VEC];
 #pragma unroll
         for (int u = 0; u < E_UNROLL; ++u) {
           if (row[u] < q1) {
-            EVec<VEC>::load(Ub + (int64_t)row[u] * kc + p * VEC, uu[u]);
+            e_load<VEC>(Ub + (int64_t)row[u] * kc + p * VEC, uu[u]);
           } else {
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) uu[u][v] = 0.0;
+            for (int v = 0; v < VEC; ++v) uu[u][v] = T(0.0);
           }
         }
-        double tv[VEC][KB], tl[VEC][KB];
+        T tv[VEC][KB], tl[VEC][KB];
 #pragma unroll
         for (int v = 0; v < VEC; ++v)
 #pragma unroll
           for (int r = 0; r < KB; ++r) {
             const bool in = p * VEC + v < kc;
-            tv[v][r] = in ? t[(p * VEC + v) * KB + r] : 0.0;
-            tl[v][r] = in ? t[t_lo + (p * VEC + v) * KB + r] : 0.0;
+            tv[v][r] = in ? t[(p * VEC + v) * KB + r] : T(0.0);
+            tl[v][r] = in ? t[t_lo + (p * VEC + v) * KB + r] : T(0.0);
           }
 #pragma unroll
         for (int u = 0; u < E_UNROLL; ++u)
 #pragma unroll
           for (int v = 0; v < VEC; ++v)
 #pragma unroll
-            for (int r = 0; r < KB; ++r) {
-              if (DD) {
-                const double a = uu[u][v] * tv[v][r];
-                acc_add<true>(acc[u][r], acl[u][r], a,
-                              fma(uu[u][v], tv[v][r], -a) +
-                                  uu[u][v] * tl[v][r]);
-              } else {
-                acc[u][r] = fma(uu[u][v], tv[v][r], acc[u][r]);
-              }
-            }
+            for (int r = 0; r < KB; ++r)
+              acc_mul_pair<DD>(acc[u][r], acl[u][r], uu[u][v], tv[v][r],
+                               tl[v][r]);
       }
 #pragma unroll
       for (int u = 0; u < E_UNROLL; ++u) {
 #pragma unroll
         for (int r = 0; r < KB; ++r)
           for (int off = L >> 1; off > 0; off >>= 1) {
-            const double h = __shfl_xor_sync(0xffffffffu, acc[u][r], off);
-            const double l =
-                DD ? __shfl_xor_sync(0xffffffffu, acl[u][r], off) : 0.0;
+            const T h = hs_shfl_xor(acc[u][r], off);
+            const T l = DD ? hs_shfl_xor(acl[u][r], off) : T(0.0);
             acc_add<DD>(acc[u][r], acl[u][r], h, l);
           }
         if (sub == 0 && row[u] < q1) {
@@ -312,8 +353,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
             for (int r = 0; r < KB; ++r)
               if (r0 + r < k)
-                atomicAdd(C + (int64_t)out * k + r0 + r,
-                          -(acc[u][r] + acl[u][r]));
+                hs_atomic_add(C + (int64_t)out * k + r0 + r,
+                              -(acc[u][r] + acl[u][r]));
           }
         }
       }
@@ -327,13 +368,13 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int NT, int VEC, int KB, bool DD>
-static int lowrank_sweep_launch(double* C, const int* ids_out, const double* U,
-                                const double* V, const double* X,
-                                const int* ids_in, long long B, int R, int Cc,
-                                int kc, int k, int N, int cs, int rstep,
-                                int cstep, size_t smem, cudaStream_t stream) {
-  auto kern = lowrank_sweep_update_kernel<NT, VEC, KB, DD>;
+template <typename T, int NT, int VEC, int KB, bool DD>
+static int lowrank_sweep_launch(T* C, const int* ids_out, const T* U,
+                                const T* V, const T* X, const int* ids_in,
+                                long long B, int R, int Cc, int kc, int k,
+                                int N, int cs, int rstep, int cstep,
+                                size_t smem, cudaStream_t stream) {
+  auto kern = lowrank_sweep_update_kernel<T, NT, VEC, KB, DD>;
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(kern,
@@ -366,61 +407,84 @@ static int lowrank_sweep_launch(double* C, const int* ids_out, const double* U,
   return (int)cudaGetLastError();
 }
 
-template <int NT, bool DD>
-static int lowrank_sweep_dispatch(double* c, const int* o, const double* u,
-                                  const double* v, const double* x,
-                                  const int* in, long long B, int R, int Cc,
-                                  int kc, int k, int N, int cs, int rstep,
-                                  int cstep, int vec, int kb, size_t smem,
-                                  cudaStream_t s) {
-  if (vec == 2 && kb == 1)
-    return lowrank_sweep_launch<NT, 2, 1, DD>(c, o, u, v, x, in, B, R, Cc, kc,
-                                              k, N, cs, rstep, cstep, smem, s);
-  if (vec == 2)
-    return lowrank_sweep_launch<NT, 2, 4, DD>(c, o, u, v, x, in, B, R, Cc, kc,
-                                              k, N, cs, rstep, cstep, smem, s);
+// the instances of one value type: VEC is 1, or the values of a 16-byte
+// load where that is more (two doubles; a complex128 value is its own 16
+// bytes)
+template <typename T, int NT, bool DD>
+static int lowrank_sweep_dispatch(T* c, const int* o, const T* u, const T* v,
+                                  const T* x, const int* in, long long B,
+                                  int R, int Cc, int kc, int k, int N, int cs,
+                                  int rstep, int cstep, int vec, int kb,
+                                  size_t smem, cudaStream_t s) {
+  constexpr int V16 = hs_vec16<T>::n;
+  if (V16 > 1 && vec == V16) {
+    if (kb == 1)
+      return lowrank_sweep_launch<T, NT, V16, 1, DD>(
+          c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep, smem, s);
+    return lowrank_sweep_launch<T, NT, V16, 4, DD>(
+        c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep, smem, s);
+  }
   if (kb == 1)
-    return lowrank_sweep_launch<NT, 1, 1, DD>(c, o, u, v, x, in, B, R, Cc, kc,
-                                              k, N, cs, rstep, cstep, smem, s);
-  return lowrank_sweep_launch<NT, 1, 4, DD>(c, o, u, v, x, in, B, R, Cc, kc, k,
-                                            N, cs, rstep, cstep, smem, s);
+    return lowrank_sweep_launch<T, NT, 1, 1, DD>(c, o, u, v, x, in, B, R, Cc,
+                                                 kc, k, N, cs, rstep, cstep,
+                                                 smem, s);
+  return lowrank_sweep_launch<T, NT, 1, 4, DD>(c, o, u, v, x, in, B, R, Cc, kc,
+                                               k, N, cs, rstep, cstep, smem, s);
 }
 
 // The geometry (cs, threads, rstep, cstep, vec, kb, dd, smem) is
 // lowrank_sweep_geometry's in ops/sweep.py; this entry point only checks that
 // it covers the front and that its shared memory holds the kernel's tiles.
-HS_EXPORT int hs_lowrank_sweep_update(void* C, const void* ids_out,
-                                      const void* U, const void* V,
-                                      const void* X, const void* ids_in,
-                                      long long B, int R, int Cc, int kc,
-                                      int k, int N, int cs, int threads,
-                                      int rstep, int cstep, int vec, int kb,
-                                      int dd, long long smem, void* stream) {
+template <typename T>
+static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
+                               const void* V, const void* X,
+                               const void* ids_in, long long B, int R, int Cc,
+                               int kc, int k, int N, int cs, int threads,
+                               int rstep, int cstep, int vec, int kb, int dd,
+                               long long smem, void* stream) {
   if (B <= 0 || R <= 0 || Cc <= 0 || kc <= 0 || k <= 0) return 0;
   if (cs < 1 || cs > 16 || (threads != 256 && threads != 1024) ||
       (long long)rstep * cs < R || (long long)cstep * cs < Cc ||
-      (vec != 1 && vec != 2) || (vec == 2 && kc % 2) || (kb != 1 && kb != 4) ||
-      smem < (long long)(threads * (2 * vec + 1) * kb + 4 * kc * kb) * 8 ||
+      (vec != 1 && vec != hs_vec16<T>::n) || kc % vec ||
+      (kb != 1 && kb != 4) ||
+      smem < (long long)(threads * (2 * vec + 1) * kb + 4 * kc * kb) *
+                 (long long)sizeof(T) ||
       B * cs > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  double* c = (double*)C;
+  T* c = (T*)C;
   const int* o = (const int*)ids_out;
-  const double *u = (const double*)U, *v = (const double*)V,
-               *x = (const double*)X;
+  const T *u = (const T*)U, *v = (const T*)V, *x = (const T*)X;
   const int* in = (const int*)ids_in;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t sm = (size_t)smem;
   if (threads == 1024)
-    return dd ? lowrank_sweep_dispatch<1024, true>(c, o, u, v, x, in, B, R, Cc,
-                                                   kc, k, N, cs, rstep, cstep,
-                                                   vec, kb, sm, s)
-              : lowrank_sweep_dispatch<1024, false>(c, o, u, v, x, in, B, R,
+    return dd ? lowrank_sweep_dispatch<T, 1024, true>(
+                    c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
+                    vec, kb, sm, s)
+              : lowrank_sweep_dispatch<T, 1024, false>(
+                    c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
+                    vec, kb, sm, s);
+  return dd ? lowrank_sweep_dispatch<T, 256, true>(c, o, u, v, x, in, B, R,
+                                                   Cc, kc, k, N, cs, rstep,
+                                                   cstep, vec, kb, sm, s)
+            : lowrank_sweep_dispatch<T, 256, false>(c, o, u, v, x, in, B, R,
                                                     Cc, kc, k, N, cs, rstep,
                                                     cstep, vec, kb, sm, s);
-  return dd ? lowrank_sweep_dispatch<256, true>(c, o, u, v, x, in, B, R, Cc, kc,
-                                                k, N, cs, rstep, cstep, vec, kb,
-                                                sm, s)
-            : lowrank_sweep_dispatch<256, false>(c, o, u, v, x, in, B, R, Cc,
-                                                 kc, k, N, cs, rstep, cstep, vec,
-                                                 kb, sm, s);
+}
+
+#define HS_SWEEP_ARGS                                                        \
+  void *C, const void *ids_out, const void *U, const void *V, const void *X, \
+      const void *ids_in, long long B, int R, int Cc, int kc, int k, int N,  \
+      int cs, int threads, int rstep, int cstep, int vec, int kb, int dd,    \
+      long long smem, void *stream
+#define HS_SWEEP_PASS                                                        \
+  C, ids_out, U, V, X, ids_in, B, R, Cc, kc, k, N, cs, threads, rstep, cstep, \
+      vec, kb, dd, smem, stream
+
+HS_EXPORT int hs_lowrank_sweep_update(HS_SWEEP_ARGS) {
+  return lowrank_sweep_entry<double>(HS_SWEEP_PASS);
+}
+
+HS_EXPORT int hs_lowrank_sweep_update_c128(HS_SWEEP_ARGS) {
+  return lowrank_sweep_entry<hs_c128>(HS_SWEEP_PASS);
 }

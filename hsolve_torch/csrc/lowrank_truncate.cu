@@ -25,7 +25,16 @@
 // holding four 16 x 8 blocks of the tile; a tile past the rank only writes
 // zeros.  A V tile reads Vh's rows coalesced into a shared-memory tile and
 // writes its transpose coalesced.
+//
+// Complex128 (the damped Helmholtz system's low-rank levels): Q, Uw, Vh, U
+// and V hs_c128, sv real; V = Vh^T, the plain transpose (A ~= U V^T, the
+// JAX package's convention: not conjugated).  The same tiles on the CUDA
+// cores, a complex multiply-add as four real FMAs: each thread a 4 x 4
+// register tile of U (rows ty + 16 a, columns tx + 16 c), 16-deep chunks of
+// Q and Uw staged in shared memory, whose size is counted in the value's
+// 16 bytes.
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #define G_THREADS 256
 #define G_TILE 64
@@ -83,6 +92,79 @@ __device__ __forceinline__ void gmma(double (&d)[2][2], const double (&a0)[4],
         "d"(b[3]));
 }
 
+// the rank: warp 0 counts sv's values above max(atol, rtol sv[0]), 32 a
+// ballot, capped; block 0 of the front stores it; every thread gets it
+__device__ __forceinline__ int g_rank(const double* sb, int r, double atol,
+                                      double rtol, int cap, int* s_rank,
+                                      int* rank_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int cnt = 0;
+    if (r > 0) {
+      const double thr = fmax(rtol * sb[0], atol);
+      for (int i0 = 0; i0 < r; i0 += 32) {
+        const int i = i0 + lane;
+        cnt += __popc(__ballot_sync(0xffffffffu, i < r && sb[i] > thr));
+      }
+    }
+    if (lane == 0) {
+      *s_rank = cnt < cap ? cnt : cap;
+      if (blockIdx.x == 0) *rank_out = *s_rank;
+    }
+  }
+  __syncthreads();
+  return *s_rank;
+}
+
+// What a CTA of G does besides the product, for values T of one front:
+// the rank, the CTA's tile (blockIdx.x: U's tiles, rows of m by columns of
+// cap, then V's, rows of n), a V tile (V[i, j] = Vh[j, i] for j below the
+// rank, the plain transpose, coalesced both ways through `tile`, [G_TILE]
+// [G_LDT]) and a U tile at or past the rank (zeros).  Returns true where
+// the CTA is done; else it owns the U tile at rows i0.., columns j0.. below
+// the rank rk.
+template <typename T>
+__device__ __forceinline__ bool g_other_tiles(
+    const T* vh, T* u, T* v, const double* sb, int* rank_out, int* s_rank,
+    T* tile, double atol, double rtol, int m, int n, int r, int cap, int& i0,
+    int& j0, int& rk) {
+  const int tid = threadIdx.x;
+  rk = g_rank(sb, r, atol, rtol, cap, s_rank, rank_out);
+  const int ct = (cap + G_TILE - 1) / G_TILE;
+  const int tiles_u = ((m + G_TILE - 1) / G_TILE) * ct;
+  int t = blockIdx.x;
+  const bool is_u = t < tiles_u;
+  if (!is_u) t -= tiles_u;
+  i0 = (t / ct) * G_TILE;
+  j0 = (t % ct) * G_TILE;
+  if (!is_u) {
+    if (j0 < rk) {
+      for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
+        const int jj = e / G_TILE, ii = e % G_TILE;
+        const int i = i0 + ii, j = j0 + jj;
+        tile[jj * G_LDT + ii] =
+            (j < rk && i < n) ? vh[(int64_t)j * n + i] : T(0.0);
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
+      const int ii = e / G_TILE, jj = e % G_TILE;
+      const int i = i0 + ii, j = j0 + jj;
+      if (i < n && j < cap)
+        v[(int64_t)i * cap + j] = j0 < rk ? tile[jj * G_LDT + ii] : T(0.0);
+    }
+    return true;
+  }
+  if (j0 >= rk) {  // past the rank: zeros
+    for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
+      const int i = i0 + e / G_TILE, j = j0 + e % G_TILE;
+      if (i < m && j < cap) u[(int64_t)i * cap + j] = T(0.0);
+    }
+    return true;
+  }
+  return false;
+}
+
 __global__ void __launch_bounds__(G_THREADS)
     lowrank_truncate_kernel(const double* __restrict__ Q,
                             const double* __restrict__ Uw,
@@ -97,62 +179,12 @@ __global__ void __launch_bounds__(G_THREADS)
   const int64_t b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const double* sb = sv + b * r;
-
-  // the rank: warp 0 counts the values above the threshold, 32 a ballot
-  if (warp == 0) {
-    int cnt = 0;
-    if (r > 0) {
-      const double thr = fmax(rtol * sb[0], atol);
-      for (int i0 = 0; i0 < r; i0 += 32) {
-        const int i = i0 + lane;
-        cnt += __popc(__ballot_sync(0xffffffffu, i < r && sb[i] > thr));
-      }
-    }
-    if (lane == 0) {
-      s_rank = cnt < cap ? cnt : cap;
-      if (blockIdx.x == 0) rank[b] = s_rank;
-    }
-  }
-  __syncthreads();
-  const int rk = s_rank;
-
-  const int ct = (cap + G_TILE - 1) / G_TILE;
-  const int tiles_u = ((m + G_TILE - 1) / G_TILE) * ct;
-  int t = blockIdx.x;
-  const bool is_u = t < tiles_u;
-  if (!is_u) t -= tiles_u;
-  const int i0 = (t / ct) * G_TILE, j0 = (t % ct) * G_TILE;
-
-  if (!is_u) {
-    // V tile: rows i0.. of n, columns j0.. of cap; Vh[j, i] through smem
-    const double* vh = Vh + b * r * (int64_t)n;
-    double* v = V + b * n * (int64_t)cap;
-    double* T = smem;  // [G_TILE][G_LDT]: T[jj][ii]
-    if (j0 < rk) {
-      for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
-        const int jj = e / G_TILE, ii = e % G_TILE;
-        const int i = i0 + ii, j = j0 + jj;
-        T[jj * G_LDT + ii] = (j < rk && i < n) ? vh[(int64_t)j * n + i] : 0.0;
-      }
-      __syncthreads();
-    }
-    for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
-      const int ii = e / G_TILE, jj = e % G_TILE;
-      const int i = i0 + ii, j = j0 + jj;
-      if (i < n && j < cap)
-        v[(int64_t)i * cap + j] = j0 < rk ? T[jj * G_LDT + ii] : 0.0;
-    }
+  int i0, j0, rk;
+  if (g_other_tiles(Vh + b * r * (int64_t)n, U + b * m * (int64_t)cap,
+                    V + b * n * (int64_t)cap, sb, rank + b, &s_rank, smem,
+                    atol, rtol, m, n, r, cap, i0, j0, rk))
     return;
-  }
-
   double* u = U + b * m * (int64_t)cap;
-  if (j0 >= rk) {  // past the rank: zeros
-    for (int e = tid; e < G_TILE * G_TILE; e += G_THREADS) {
-      const int i = i0 + e / G_TILE, j = j0 + e % G_TILE;
-      if (i < m && j < cap) u[(int64_t)i * cap + j] = 0.0;
-    }
-    return;
-  }
 
   // U tile: Q[i0:i0+64, :] @ Uw[:, j0:j0+64] in chunks of G_KC of depth,
   // chunk kt + 1 in flight while chunk kt is multiplied
@@ -273,5 +305,120 @@ HS_EXPORT int hs_lowrank_truncate(const void* Q, const void* Uw,
       (const double*)Q, (const double*)Uw, (const double*)sv,
       (const double*)Vh, (double*)U, (double*)V, (int*)rank, atol, rtol, m, n,
       s, r, cap, vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// complex128
+// ---------------------------------------------------------------------------
+#define GC_KC 16                          // depth of a staged chunk
+#define GC_STAGE (2 * G_TILE * GC_KC)     // values: Q's and Uw's chunks
+#define GC_SMEM_V (G_TILE * G_LDT)        // values: V's transposition tile
+#define GC_SMEM (16 * (GC_STAGE > GC_SMEM_V ? GC_STAGE : GC_SMEM_V))  // bytes
+
+__global__ void __launch_bounds__(G_THREADS)
+    lowrank_truncate_c128_kernel(const hs_c128* __restrict__ Q,
+                                 const hs_c128* __restrict__ Uw,
+                                 const double* __restrict__ sv,
+                                 const hs_c128* __restrict__ Vh,
+                                 hs_c128* __restrict__ U,
+                                 hs_c128* __restrict__ V,
+                                 int* __restrict__ rank, double atol,
+                                 double rtol, int m, int n, int s, int r,
+                                 int cap) {
+  extern __shared__ __align__(16) unsigned char gsm_c[];
+  hs_c128* smem = reinterpret_cast<hs_c128*>(gsm_c);
+  __shared__ int s_rank;
+  const int64_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const double* sb = sv + b * r;
+  const hs_c128 zero(0.0);
+  int i0, j0, rk;
+  if (g_other_tiles(Vh + b * r * (int64_t)n, U + b * m * (int64_t)cap,
+                    V + b * n * (int64_t)cap, sb, rank + b, &s_rank, smem,
+                    atol, rtol, m, n, r, cap, i0, j0, rk))
+    return;
+  hs_c128* u = U + b * m * (int64_t)cap;
+
+  // U tile: Q[i0:i0+64, :] @ Uw[:, j0:j0+64] in chunks of GC_KC of depth
+  const hs_c128* qb = Q + b * m * (int64_t)s;
+  const hs_c128* ub = Uw + b * s * (int64_t)r;
+  hs_c128* As = smem;                   // [G_TILE][GC_KC]
+  hs_c128* Bs = As + G_TILE * GC_KC;    // [GC_KC][G_TILE]
+  const int ty = tid >> 4, tx = tid & 15;  // rows ty + 16 a, cols tx + 16 c
+  hs_c128 acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = zero;
+  for (int k0 = 0; k0 < s; k0 += GC_KC) {
+    for (int e = tid; e < G_TILE * GC_KC; e += G_THREADS) {
+      const int ii = e / GC_KC, kk = e % GC_KC;
+      const int i = i0 + ii, k = k0 + kk;
+      As[e] = i < m && k < s ? qb[(int64_t)i * s + k] : zero;
+    }
+    for (int e = tid; e < GC_KC * G_TILE; e += G_THREADS) {
+      const int kk = e / G_TILE, jj = e % G_TILE;
+      const int k = k0 + kk, j = j0 + jj;
+      Bs[e] = k < s && j < r ? ub[(int64_t)k * r + j] : zero;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < GC_KC; ++kk) {
+      hs_c128 av[4], bv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) av[a] = As[(ty + 16 * a) * GC_KC + kk];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bv[c] = Bs[kk * G_TILE + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[a][c].re = fma(av[a].re, bv[c].re, acc[a][c].re);
+          acc[a][c].re = fma(-av[a].im, bv[c].im, acc[a][c].re);
+          acc[a][c].im = fma(av[a].re, bv[c].im, acc[a][c].im);
+          acc[a][c].im = fma(av[a].im, bv[c].re, acc[a][c].im);
+        }
+    }
+    __syncthreads();  // the chunk is restaged next
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ty + 16 * a;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + tx + 16 * c;
+      if (i < m && j < cap)
+        u[(int64_t)i * cap + j] = j < rk ? sb[j] * acc[a][c] : zero;
+    }
+  }
+}
+
+HS_EXPORT int hs_lowrank_truncate_c128(const void* Q, const void* Uw,
+                                       const void* sv, const void* Vh,
+                                       void* U, void* V, void* rank,
+                                       double atol, double rtol, long long B,
+                                       int m, int n, int s, int r, int cap,
+                                       void* stream) {
+  if (B <= 0 || cap <= 0) return (int)cudaGetLastError();
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const long long ct = (cap + G_TILE - 1) / G_TILE;
+  const long long tiles = (((long long)m + G_TILE - 1) / G_TILE +
+                           ((long long)n + G_TILE - 1) / G_TILE) * ct;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lowrank_truncate_c128_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, GC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  dim3 grid((unsigned)(tiles > 0 ? tiles : 1), (unsigned)B);
+  lowrank_truncate_c128_kernel<<<grid, G_THREADS, GC_SMEM,
+                                 (cudaStream_t)stream>>>(
+      (const hs_c128*)Q, (const hs_c128*)Uw, (const double*)sv,
+      (const hs_c128*)Vh, (hs_c128*)U, (hs_c128*)V, (int*)rank, atol, rtol, m,
+      n, s, r, cap);
   return (int)cudaGetLastError();
 }

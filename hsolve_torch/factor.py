@@ -48,8 +48,11 @@ The factor runs in float64 or, on exact (dense) levels, float32: the JAX
 bench's device configuration, a float32 factor as the preconditioner of
 mixed-precision GMRES (kernels A-C then run in float32).  A complex system
 (the damped Helmholtz operator) factors in complex128 or, as the bench's
-device configuration, complex64, on exact plans only (complex E-K are a
-later slice).  Float32 and complex64 products never use TF32 here:
+device configuration, complex64, on exact plans, and in complex128 on
+low-rank compressed levels (``hss=False``: kernels E-G in complex128, the
+sketches drawn real and cast, as the JAX package draws them); complex
+structured levels (H-K, the HSS modules) are the next slice.  Float32 and
+complex64 products never use TF32 here:
 ``factor_with_plan`` sets ``torch.backends.cuda.matmul.allow_tf32 = False``
 explicitly.
 """
@@ -63,6 +66,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from hsolve_torch import kernels
 from hsolve_torch.interop import TorchPlan, plan_to_torch
 from hsolve_torch.kernels import VALUE_TYPES, resolve_device
 from hsolve_torch.ops import dense as dk
@@ -351,7 +355,7 @@ def _factor_front_compressed(front: torch.Tensor, sperm: torch.Tensor,
             lu = perm = None
     # row-major factors for kernels E and F (the triangular solves may return
     # column-major ones)
-    LV, RU = LV.contiguous(), RU.contiguous()
+    LV, RU = kernels.materialized(LV), kernels.materialized(RU)
     S = lowrank_schur_update(front, ni_pad, RU, lr_ib.V, sperm)
     return (lu, perm, lr_bi.U, LV, RU, lr_ib.V, lr_bi.rank, lr_ib.rank, S,
             dinv, ratio)
@@ -361,7 +365,9 @@ def torch_sketch(seed: int, device: torch.device, dtype: torch.dtype) -> Sketch:
     """The factorization's default sketches (see :data:`Sketch`): per key a
     host ``torch.Generator`` seeded from ``(seed, key)`` draws the first
     sketch, then the second (the JAX package's ``split`` order), and both are
-    copied to ``device``.
+    copied to ``device``.  A complex ``dtype`` draws in its real type and
+    casts, as ``hsolve/ops/lowrank.py:rand_lowrank`` does: a complex128
+    factor sees the float64 factor's sketches.
 
     Drawing on the host makes the factorization the same on every device: a
     card run reproduces the CPU run of the same seed.  That matters because
@@ -370,12 +376,14 @@ def torch_sketch(seed: int, device: torch.device, dtype: torch.dtype) -> Sketch:
     iterations over seeds, the JAX package's own draws included), so a
     device-side generator would make the card and the CPU disagree.  The
     cost is the host draw and one copy per key."""
+    real = dtype.to_real()
+
     def draw(key, shape_a, shape_b):
         k0, tag = (key, 0) if isinstance(key, int) else key
         gen = torch.Generator()
         gen.manual_seed((int(seed) << 24) + (int(tag) << 14) + int(k0))
-        return tuple(torch.randn(shape, generator=gen, dtype=dtype).to(device)
-                     for shape in (shape_a, shape_b))
+        return tuple(torch.randn(shape, generator=gen, dtype=real).to(
+            device=device, dtype=dtype) for shape in (shape_a, shape_b))
     return draw
 
 
@@ -572,16 +580,24 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
 # entry points
 # ---------------------------------------------------------------------------
 
-def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
+def _reaches_hss(plan: Plan, opts: SolverOptions) -> bool:
+    """Whether the schedule runs an HSS step: a structured batch, or a
+    compressed batch that emits its Schur complement as HSS."""
+    return any(bp.structured or (bp.compress and bp.cplan is not None
+                                 and opts.hss) for bp in plan.batches)
+
+
+def _torch_dtype(dtype, plan: Plan, opts: SolverOptions) -> torch.dtype:
     tdt = torch_dtype(plan.A_dtype if dtype is None else dtype)
     if not (tdt.is_floating_point or tdt.is_complex):
         raise TypeError(f"unsupported factorization dtype {tdt}")
-    if tdt.is_complex and any(bp.compress for bp in plan.batches):
+    if tdt.is_complex and _reaches_hss(plan, opts):
         raise NotImplementedError(
-            "complex values on compressed and structured levels (kernels "
-            "E-K, rand_lowrank's QR and SVD and cpqr's pivots in complex) "
-            "are the port's next slice; the JAX package factors such plans "
-            "(hsolve.factor); factor this system with swlevel=0 here")
+            "complex values on structured (HSS) levels (kernels H-K, "
+            "ops/hss.py and structured.py in complex) are the port's next "
+            "slice; the JAX package factors such plans (hsolve.factor); "
+            "factor this system with hss=False (low-rank compressed levels) "
+            "or swlevel=0 here")
     return tdt
 
 
@@ -595,21 +611,22 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
     in float64, or in float32 on a plan without compressed batches; on the
     CPU every kernel runs as its plain torch version.  A complex system
     (``plan.A_dtype`` complex128, e.g. ``helmholtz2d(n, damping=0.1)``)
-    factors in complex128 or complex64 on an exact plan (``swlevel=0``) on
-    either device; a complex plan with compressed or structured batches
-    raises ``NotImplementedError``.  ``sketch`` replaces the default
+    factors in complex128 or complex64 on an exact plan (``swlevel=0``), and
+    in complex128 on low-rank compressed levels (``hss=False``), on either
+    device (complex64 there only on the CPU); a complex plan that reaches an
+    HSS step raises ``NotImplementedError``.  ``sketch`` replaces the default
     sketches of the compressed batches (see :data:`Sketch` and
     :func:`torch_sketch`)."""
     dev = resolve_device(device)
-    tdt = _torch_dtype(dtype, plan)
+    tdt = _torch_dtype(dtype, plan, opts)
     if dev.type == "cuda" and tdt not in VALUE_TYPES:
         raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
-    if dev.type == "cuda" and tdt == torch.float32 and any(
+    if dev.type == "cuda" and tdt in (torch.float32, torch.complex64) and any(
             bp.compress for bp in plan.batches):
         raise NotImplementedError(
-            "float32 on compressed and structured levels on the card "
-            "(kernels E-K in float32) is a later slice of the port; "
-            "factor this plan in float64 there")
+            f"{tdt} on compressed and structured levels on the card (kernels "
+            "E-K in float32 and complex64) is a later slice of the port; "
+            "factor this plan in float64 or complex128 there")
     torch.backends.cuda.matmul.allow_tf32 = False
     opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
     if opts.verbose:

@@ -9,7 +9,8 @@
   argument, so a caller (or a test) decides where its random numbers come from,
 - :func:`lowrank_truncate` (kernel G, ``csrc/lowrank_truncate.cu``): the
   product ``Q @ Uw`` and the truncation epilogue of :func:`rand_lowrank`,
-  with its plain version :func:`lowrank_truncate_plain`.
+  with its plain version :func:`lowrank_truncate_plain`; float64 or
+  complex128 values (the singular values real).
 
 - :func:`cpqr` and :func:`interp_decomp`: column-pivoted QR without Q
   accumulation and the row interpolative decomposition built on it, for the
@@ -56,7 +57,8 @@ def lowrank_truncate_plain(Q: torch.Tensor, Uw: torch.Tensor,
     """``QU = Q @ Uw``, then ``U = QU[:, :, :k] * (sv * mask)``, ``V =
     Vh^T[:, :, :k] * mask`` with ``k = min(cap, r)``, both zero-padded to
     ``cap`` columns; returns ``(U [B, m, cap], V [B, n, cap], rank [B]
-    int32)``."""
+    int32)``.  ``Vh^T`` is the plain transpose, not conjugated, in complex
+    too (``A ~= U V^T``); ``sv`` and the mask stay real."""
     QU = Q @ Uw
     rank, mask = _rank_mask(sv, atol, rtol, cap)
     k = min(cap, sv.shape[-1])
@@ -71,32 +73,36 @@ def lowrank_truncate_plain(Q: torch.Tensor, Uw: torch.Tensor,
 def lowrank_truncate(Q: torch.Tensor, Uw: torch.Tensor, sv: torch.Tensor,
                      Vh: torch.Tensor, atol: float, rtol: float, cap: int):
     """Kernel G wrapper (see the plain version); ``Q`` is [B, m, s], ``Uw``
-    [B, s, r], ``sv`` [B, r] (descending), ``Vh`` [B, r, n].  The kernel
-    computes only the rank's columns of ``Q @ Uw``."""
+    [B, s, r], ``Vh`` [B, r, n], all float64 or all complex128, ``sv`` [B,
+    r] float64 (descending).  The kernel computes only the rank's columns of
+    ``Q @ Uw``."""
     if kernels.on_cpu(Q, Uw, sv, Vh):
         return lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
     B, m, s = Q.shape
     r = Uw.shape[-1]
     n = Vh.shape[-1]
-    kernels.require(Q, "Q", torch.float64, (B, m, s))
-    kernels.require(Uw, "Uw", torch.float64, (B, s, r))
+    dt = kernels.lowrank_type(Q, Uw, Vh)
+    kernels.require(Q, "Q", dt, (B, m, s))
+    kernels.require(Uw, "Uw", dt, (B, s, r))
     kernels.require(sv, "sv", torch.float64, (B, r))
-    kernels.require(Vh, "Vh", torch.float64, (B, r, n))
+    kernels.require(Vh, "Vh", dt, (B, r, n))
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
     U = torch.empty((B, m, cap), dtype=Q.dtype, device=Q.device)
     V = torch.empty((B, n, cap), dtype=Q.dtype, device=Q.device)
     rank = torch.empty((B,), dtype=torch.int32, device=Q.device)
     if B:
-        kernels.launch("hs_lowrank_truncate", Q.device, Q.data_ptr(),
-                       Uw.data_ptr(), sv.data_ptr(), Vh.data_ptr(),
-                       U.data_ptr(), V.data_ptr(), rank.data_ptr(),
-                       float(atol), float(rtol), B, m, n, s, r, cap)
-        lowrank_truncate.launches += 1
+        kernels.launch(kernels.symbol("hs_lowrank_truncate", dt), Q.device,
+                       Q.data_ptr(), Uw.data_ptr(), sv.data_ptr(),
+                       Vh.data_ptr(), U.data_ptr(), V.data_ptr(),
+                       rank.data_ptr(), float(atol), float(rtol), B, m, n, s,
+                       r, cap)
+        kernels.count_launch(lowrank_truncate, dt)
     return U, V, rank
 
 
 lowrank_truncate.launches = 0
+lowrank_truncate.launches_by_type = {}
 
 
 OVERSAMPLE = 8    # sketch columns beyond the rank cap (JAX's default)
@@ -112,14 +118,14 @@ def rand_lowrank(A: torch.Tensor, omega: torch.Tensor, atol: float, rtol: float,
     """Randomized tolerance-truncated low-rank factorization of batched dense
     ``A`` [B, m, n] with the sketch ``omega`` [n, s], shared across the batch
     (``s = sketch_width(cap, n)``): ``Y = A omega``, ``Q = qr(Y)``,
-    ``svd(Q^T A)``, truncated at ``max(atol, rtol * sigma_0)`` and ``cap``
+    ``svd(Q^H A)``, truncated at ``max(atol, rtol * sigma_0)`` and ``cap``
     (parity with ``pqrfact(...; sketch=:randn, atol, rtol)``,
-    factorization.jl:189,202)."""
+    factorization.jl:189,202).  A complex ``A`` keeps the plain-transpose
+    convention ``A ~= U V^T`` (``hsolve/ops/lowrank.py:155-160``)."""
     Q, _ = torch.linalg.qr(A @ omega)                     # reduced: [B, m, s]
-    Uw, sv, Vh = torch.linalg.svd(Q.transpose(-1, -2) @ A, full_matrices=False)
-    U, V, rank = lowrank_truncate(Q.contiguous(), Uw.contiguous(),
-                                  sv.contiguous(), Vh.contiguous(), atol, rtol,
-                                  cap)
+    Uw, sv, Vh = torch.linalg.svd(Q.mH @ A, full_matrices=False)
+    U, V, rank = lowrank_truncate(*map(kernels.materialized, (Q, Uw, sv, Vh)),
+                                  atol, rtol, cap)
     return LowRank(U=U, V=V, rank=rank)
 
 

@@ -10,7 +10,10 @@ of it in one kernel,
 
 reading ``Abi`` and ``Abb`` in place from the front buffer, keeping ``W`` in
 shared memory and storing ``S`` already permuted.  :func:`schur_geometry`
-picks its launch from the plan's shapes.
+picks its launch from the plan's shapes.  Float64 runs on the FP64 tensor
+cores; complex128 (the damped Helmholtz system's low-rank levels) is a
+kernel of its own on the CUDA cores, one complex multiply-add as four real
+FMAs (:func:`schur_geometry_c128`).
 """
 
 from __future__ import annotations
@@ -54,10 +57,11 @@ def _fits(bm: int, bn: int) -> bool:
 
 
 def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
-                   sms: int = H100_SMS) -> dict:
+                   sms: int = H100_SMS, itemsize: int = 8) -> dict:
     """Kernel F's launch for ``B`` fronts with ``nb`` boundary rows, depth
     ``ni_pad`` and rank cap ``kc`` on a card of ``sms`` SMs: ``{"bm", "bn",
-    "cs", "nct", "kd", "whole", "smem"}``.
+    "cs", "nct", "kd", "whole", "smem"}``; values of ``itemsize`` 16
+    (complex128) take :func:`schur_geometry_c128`'s.
 
     Fronts of at most ``F_WHOLE_MAX`` boundary rows (the many-front levels)
     take whole rows: a CTA covers a band of ``bm`` rows and every column
@@ -74,6 +78,8 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     CTA's shared memory too large, the chunk and then the tiles shrink, and
     where no cluster form fits, the band's CTAs each compute W themselves.
     Raises only where no form fits."""
+    if itemsize == 16:
+        return schur_geometry_c128(B, ni_pad, nb, kc, sms)
     nbp = _up(nb)
     cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
     cands = []
@@ -111,6 +117,45 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     raise ValueError(f"kernel F: no launch fits nb={nb}, kc={kc}")
 
 
+F_C_BM = 32            # complex128: rows of a band
+F_C_KD = 16            # complex128: depth of a staged chunk of Abi and RU
+
+
+def schur_smem_c128(bn: int, kd: int, kc: int) -> int:
+    """Bytes of shared memory one CTA of kernel F's complex128 form takes:
+    the band's W and a column tile's RV rows (rows of ``kc | 1`` values:
+    an odd stride keeps a quarter warp's 16-byte reads on distinct banks),
+    a depth chunk of Abi and RU, the permutation's rows and columns."""
+    ld = kc | 1
+    return 16 * (F_C_BM * ld + bn * ld + F_C_BM * kd + kd * kc) \
+        + 4 * (F_C_BM + bn)
+
+
+def schur_geometry_c128(B: int, ni_pad: int, nb: int, kc: int,
+                        sms: int = H100_SMS) -> dict:
+    """Kernel F's complex128 launch: ``{"bm", "bn", "cs", "nct", "kd",
+    "whole", "smem", "walk"}``.  A CTA computes ``W = Abi RU`` for a band
+    of ``bm`` = 32 rows once, then walks ``walk`` column tiles of ``bn``
+    columns (tiles ``x, x + nct, ...``), ``nct`` CTAs a band: as many as
+    bring the launch to two CTAs an SM, at most one a tile.  ``bn`` is the
+    widest of min(64, nb rounded up to 8), 32, 16 and 8 whose shared memory
+    lets two CTAs share an SM, else one.  Raises where no tile fits."""
+    top = min(64, _up(nb))
+    for limit in (SMEM_MAX // 2, SMEM_MAX):
+        for bn in sorted({top, 32, 16, 8}, reverse=True):
+            if bn > top:
+                continue
+            smem = schur_smem_c128(bn, F_C_KD, kc)
+            if smem <= limit:
+                tiles = -(-nb // bn)
+                bands = B * -(-nb // F_C_BM)
+                nct = max(1, min(tiles, -(-F_CTAS_PER_SM * sms // bands)))
+                return {"bm": F_C_BM, "bn": bn, "cs": 1, "nct": nct,
+                        "kd": F_C_KD, "whole": False, "smem": smem,
+                        "walk": -(-tiles // nct)}
+    raise ValueError(f"kernel F (complex128): no launch fits nb={nb}, kc={kc}")
+
+
 def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int,
                                RU: torch.Tensor, RV: torch.Tensor,
                                sperm: torch.Tensor) -> torch.Tensor:
@@ -125,29 +170,31 @@ def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int,
 def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
                          RV: torch.Tensor, sperm: torch.Tensor) -> torch.Tensor:
     """Kernel F wrapper (see the plain version).  ``front`` is [B, m_pad,
-    m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap], ``sperm``
-    [B, nb_pad] int64; the launch is :func:`schur_geometry`'s for these
-    shapes."""
+    m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap] (float64
+    or complex128, one type), ``sperm`` [B, nb_pad] int64; the launch is
+    :func:`schur_geometry`'s for these shapes and this type."""
     if kernels.on_cpu(front, RU, RV, sperm):
         return lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
     B, m_pad, _ = front.shape
     nb = m_pad - ni_pad
     kc = RU.shape[-1]
-    kernels.require(front, "front", torch.float64, (B, m_pad, m_pad))
-    kernels.require(RU, "RU", torch.float64, (B, ni_pad, kc))
-    kernels.require(RV, "RV", torch.float64, (B, nb, kc))
+    dt = kernels.lowrank_type(front, RU, RV)
+    kernels.require(front, "front", dt, (B, m_pad, m_pad))
+    kernels.require(RU, "RU", dt, (B, ni_pad, kc))
+    kernels.require(RV, "RV", dt, (B, nb, kc))
     kernels.require(sperm, "sperm", torch.int64, (B, nb))
     S = torch.empty((B, nb, nb), dtype=front.dtype, device=front.device)
     if B and nb:
-        g = schur_geometry(B, ni_pad, nb, kc,
-                           sms=kernels.sm_count(front.device))
-        kernels.launch("hs_lowrank_schur_update", front.device,
-                       front.data_ptr(), RU.data_ptr(), RV.data_ptr(),
-                       sperm.data_ptr(), S.data_ptr(), B, m_pad, ni_pad, kc,
-                       g["bm"], g["bn"], g["cs"], g["nct"], g["kd"],
-                       int(g["whole"]))
-        lowrank_schur_update.launches += 1
+        g = schur_geometry(B, ni_pad, nb, kc, kernels.sm_count(front.device),
+                           front.element_size())
+        kernels.launch(kernels.symbol("hs_lowrank_schur_update", dt),
+                       front.device, front.data_ptr(), RU.data_ptr(),
+                       RV.data_ptr(), sperm.data_ptr(), S.data_ptr(), B,
+                       m_pad, ni_pad, kc, g["bm"], g["bn"], g["cs"],
+                       g["nct"], g["kd"], int(g["whole"]))
+        kernels.count_launch(lowrank_schur_update, dt)
     return S
 
 
 lowrank_schur_update.launches = 0
+lowrank_schur_update.launches_by_type = {}

@@ -16,7 +16,7 @@ update of a compressed level, where the Gauss transform is a low-rank pair
 ``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
 Kernel C takes float32, float64, complex64 or complex128 values (one type
-per call), kernel E float64.  In float32 every product of a level step
+per call), kernel E float64 or complex128.  In float32 every product of a level step
 (``L x``, the pivot solve, ``R C[bnd]``) accumulates in float64 and rounds
 to float32 once, and in complex64 in complex128, in the kernel and in the
 plain versions alike: the top levels of a float32 exact factor are nearly
@@ -240,20 +240,23 @@ E_DD_FRONTS = 16       # launches of at most this many fronts sum in double-doub
 SMEM_MAX = 232448      # shared memory one CTA can use (227 KB)
 
 
-def lowrank_sweep_smem(threads: int, vec: int, kb: int, kc: int) -> int:
+def lowrank_sweep_smem(threads: int, vec: int, kb: int, kc: int,
+                       itemsize: int = 8) -> int:
     """Kernel E's dynamic shared memory: the phase-1 partials
     ([threads, vec, kb] double-double pairs), the staged Y rows ([threads,
     kb]) and two [kc, kb] tiles of pairs (the CTA's partial t and the
-    cluster's sum), in doubles."""
-    return 8 * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+    cluster's sum), in values of ``itemsize`` bytes (8 float64, 16
+    complex128)."""
+    return itemsize * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
 
 
 @functools.lru_cache(maxsize=None)     # the wrapper asks at every launch
 def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
-                           sms: int = 132, aligned: bool = True):
+                           sms: int = 132, aligned: bool = True,
+                           itemsize: int = 8):
     """Kernel E's launch for ``B`` fronts with U [B, R, kc], V [B, Cc, kc]
-    and ``k`` right-hand sides: ``(cs, threads, rstep, cstep, vec, kb, dd,
-    smem)``.
+    and ``k`` right-hand sides, values of ``itemsize`` bytes: ``(cs,
+    threads, rstep, cstep, vec, kb, dd, smem)``.
 
     A launch whose fronts fill between a half and one wave of the SMs takes
     one CTA of 1024 threads a front (k = 1).  Otherwise a CTA has 256
@@ -262,15 +265,18 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
     two, at most ``E_MAX_CLUSTER``): as many as bring the launch to that,
     but no CTA with fewer than ``E_MIN_WORK`` entries of the longer of U
     and V.  CTA ``j`` of a cluster reduces V's rows ``[j cstep, (j + 1)
-    cstep)`` and applies U's rows ``[j rstep, (j + 1) rstep)``.  ``vec`` = 2
-    where V's and U's rows can be read 16 bytes at a time (kc even, 16-byte
-    aligned), else 1; ``kb`` the right-hand sides per chunk (1 for k = 1,
+    cstep)`` and applies U's rows ``[j rstep, (j + 1) rstep)``.  ``vec``:
+    the values one 16-byte read of V's and U's rows takes, 2 doubles where
+    it can (kc even, 16-byte aligned), else 1, and one complex128 value;
+    ``kb`` the right-hand sides per chunk (1 for k = 1,
     else ``E_KB`` where it fits); ``dd`` = 1 where the launch has at most
     ``E_DD_FRONTS`` fronts: the top levels, where a row's terms of U t sum
     to up to 650 times the update at n=512 (at most 0.8 from 31 fronts on,
     where double-double would cost most), sum in double-double, t kept as
-    a pair; ``smem`` :func:`lowrank_sweep_smem`."""
-    vec = 2 if aligned and kc % 2 == 0 else 1
+    a pair (each part of a complex value a pair); ``smem``
+    :func:`lowrank_sweep_smem`."""
+    per16 = 16 // itemsize
+    vec = per16 if aligned and kc % per16 == 0 else 1
     cs, threads = 1, E_THREADS[0]
     if k == 1 and sms // 2 <= B < sms:
         threads = E_THREADS[1]
@@ -280,8 +286,8 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
         while cs * 2 <= want:
             cs *= 2
     kb = E_KB if k > 1 and \
-        lowrank_sweep_smem(threads, vec, E_KB, kc) <= SMEM_MAX else 1
-    smem = lowrank_sweep_smem(threads, vec, kb, kc)
+        lowrank_sweep_smem(threads, vec, E_KB, kc, itemsize) <= SMEM_MAX else 1
+    smem = lowrank_sweep_smem(threads, vec, kb, kc, itemsize)
     if smem > SMEM_MAX:
         raise ValueError(f"rank cap {kc} too large for kernel E's shared "
                          f"memory ({smem} > {SMEM_MAX} bytes)")
@@ -306,7 +312,8 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
                          ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel E wrapper (in place on ``C``; see the plain version).  ``U`` is
     [B, R, k_cap] (rows follow ``ids_out``), ``V`` [B, Cc, k_cap] (rows follow
-    ``X`` or ``ids_in``); the launch is :func:`lowrank_sweep_geometry`'s."""
+    ``X`` or ``ids_in``), values float64 or complex128 (one type); the
+    launch is :func:`lowrank_sweep_geometry`'s."""
     operands = [C, ids_out, U, V] + [t for t in (X, ids_in) if t is not None]
     if kernels.on_cpu(*operands):
         return lowrank_sweep_update_plain(C, ids_out, U, V, N, X, ids_in)
@@ -316,12 +323,13 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
     k = C.shape[1]
     if not 0 <= N <= C.shape[0]:
         raise ValueError(f"N={N} outside C's {C.shape[0]} rows")
-    kernels.require(C, "C", torch.float64, (C.shape[0], k))
-    kernels.require(U, "U", torch.float64)
-    kernels.require(V, "V", torch.float64, (B, Cc, kc))
+    dt = kernels.lowrank_type(C, U, V, *([X] if X is not None else []))
+    kernels.require(C, "C", dt, (C.shape[0], k))
+    kernels.require(U, "U", dt)
+    kernels.require(V, "V", dt, (B, Cc, kc))
     kernels.require(ids_out, "ids_out", torch.int32, (B, R))
     if X is not None:
-        kernels.require(X, "X", torch.float64, (B, Cc, k))
+        kernels.require(X, "X", dt, (B, Cc, k))
     else:
         kernels.require(ids_in, "ids_in", torch.int32, (B, Cc))
     if B * R and Cc and kc and k:
@@ -329,8 +337,8 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
         lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in,
                              lowrank_sweep_geometry(B, R, Cc, kc, k,
                                                     kernels.sm_count(C.device),
-                                                    aligned))
-        lowrank_sweep_update.launches += 1
+                                                    aligned, U.element_size()))
+        kernels.count_launch(lowrank_sweep_update, dt)
     return C
 
 
@@ -338,7 +346,8 @@ def lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in, geo) -> None:
     """One launch of kernel E in the geometry ``geo`` (the tuple of
     :func:`lowrank_sweep_geometry`) on operands the wrapper checked."""
     B, R, kc = U.shape
-    kernels.launch("hs_lowrank_sweep_update", C.device, C.data_ptr(),
+    kernels.launch(kernels.symbol("hs_lowrank_sweep_update", U.dtype),
+                   C.device, C.data_ptr(),
                    ids_out.data_ptr(), U.data_ptr(), V.data_ptr(),
                    None if X is None else X.data_ptr(),
                    None if ids_in is None else ids_in.data_ptr(),
@@ -346,3 +355,4 @@ def lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in, geo) -> None:
 
 
 lowrank_sweep_update.launches = 0
+lowrank_sweep_update.launches_by_type = {}

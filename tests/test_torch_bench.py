@@ -115,8 +115,9 @@ def test_metric_tag_rules(argv, f64, tag):
 
 
 def test_bench_refuses_a_complex_system():
-    """A complex system on a compressed plan: complex compressed levels are
-    a later slice, so the factor raises and no line is printed."""
+    """A complex system on a compressed plan, which the bench plans
+    structured (it has no ``hss`` switch): complex structured levels are a
+    later slice, so the factor raises and no line is printed."""
     out = _bench("--cpu", "--damping", "0.1", "--n", "32", "--leafmax", "20",
                  "--swlevel", "-2", "--atol", "1e-3")
     assert out.returncode != 0

@@ -14,7 +14,9 @@ helmholtz2d(48, k=25, damping=0.1) at leafmax 60.
   the bench's complex configuration (a complex64 factor, complex64 cycles in
   a complex128 solve, ``m_eps=1e-6``, escalation) within one iteration of
   JAX's count on the same inputs;
-- a complex plan with compressed batches raises ``NotImplementedError``.
+- a complex plan with structured (HSS) levels raises ``NotImplementedError``,
+  and one with low-rank compressed levels (``hss=False``) factors
+  (``test_torch_complex_lowrank.py`` holds those levels to JAX's).
 Kernel C's level steps in complex are in ``test_torch_sweep.py``, the
 Arnoldi step in ``test_torch_arnoldi.py`` and the cycle start in
 ``test_torch_krylov_deferred.py``, beside their real cases."""
@@ -164,15 +166,21 @@ def test_complex64_levels_match_jax():
                 Fj.solve(b.astype(np.complex64))) < 1e-4
 
 
-def test_complex_compressed_plan_is_refused():
-    """Complex compressed and structured levels are the next slice: the
-    factor raises, naming it, on the CPU as on the card."""
+@pytest.mark.parametrize("hss", [True, False])
+def test_complex_compressed_plan_is_refused(hss):
+    """Complex structured (HSS) levels are the next slice: the factor
+    raises, naming it, on the CPU as on the card.  Complex low-rank
+    compressed levels (``hss=False``) factor, in complex128."""
     A, _, shape = hsolve.helmholtz2d(48, k=25.0, damping=0.1)
     tree = ht.nested_dissection(shape, leafmax=60)
-    for hss in (False, True):
+    kw = dict(swlevel=-2, swsize=1, atol=1e-4, rtol=1e-4, hss=hss,
+              device="cpu")
+    if hss:
         with pytest.raises(NotImplementedError, match="next slice"):
-            ht.factor(A, tree, swlevel=-2, swsize=1, atol=1e-4, rtol=1e-4,
-                      hss=hss, device="cpu")
+            ht.factor(A, tree, **kw)
+    else:
+        F = ht.factor(A, tree, **kw)
+        assert F.dtype == torch.complex128 and F.maxrank() > 0
 
 
 # --- GMRES ------------------------------------------------------------------------

@@ -1420,3 +1420,140 @@ def test_complex_compressed_refused_on_cuda(dev):
     with pytest.raises(NotImplementedError, match="next slice"):
         ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
                   swsize=16, atol=1e-3, rtol=1e-3, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# complex values on the low-rank compressed levels: E, F and G in complex128
+# ---------------------------------------------------------------------------
+
+def test_complex64_compressed_refused_on_cuda(dev):
+    """complex64 on compressed levels is refused on the card, as float32
+    is: the message names both."""
+    A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    with pytest.raises(NotImplementedError, match="complex64"):
+        ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
+                  swsize=16, atol=1e-3, rtol=1e-3, hss=False,
+                  dtype=torch.complex64, device=dev)
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
+                                         (1023, 64, 32, 32, 1),
+                                         (8, 640, 256, 48, 3),
+                                         (5, 40, 56, 33, 2)])
+def test_complex_lowrank_sweep_update_kernel(dev, B, R, Cc, kc, k):
+    """Kernel E in complex128 at the damped n=512 low-rank plan's shapes
+    (the top front spread over a cluster, double-double sums where B <=
+    16; the 1023 leaf-side fronts) and an odd rank, both forms, with
+    sentinels: within 1e-13 of its plain version, the sentinel row zero."""
+    rng = np.random.default_rng(B + R + kc + k)
+    N = B * (R + Cc) + 50
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, R, Cc, kc, k, N)
+    c128 = lambda t: t.to(torch.complex128) + 1j * torch.randn_like(t)
+    C, U, V = c128(C), c128(U), c128(V)
+    C[N] = 0.0
+    fwd = {"X": c128(fwd["X"])}
+    for kw in (fwd, bwd):
+        before = lowrank_sweep_update.launches_by_type.get("complex128", 0)
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert lowrank_sweep_update.launches_by_type["complex128"] == before + 1
+        assert got.dtype == torch.complex128
+        assert _rel(got, want) < 1e-13
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(1, 512, 512, 48),
+                                            (1023, 32, 64, 32),
+                                            (8, 256, 640, 48),
+                                            (3, 24, 52, 33), (2, 40, 130, 100)])
+def test_complex_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
+    """Kernel F in complex128 at the damped n=512 plan's shapes, odd widths
+    and a rank above one 64-column group of W: within 1e-13 of its plain
+    version (plain transposes)."""
+    rng = np.random.default_rng(nb + kc + B)
+    m = ni_pad + nb
+    front = _crandn(rng, (B, m, m), torch.complex128, dev)
+    RU = _crandn(rng, (B, ni_pad, kc), torch.complex128, dev)
+    RV = _crandn(rng, (B, nb, kc), torch.complex128, dev)
+    sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
+                            device=dev)
+    before = lowrank_schur_update.launches_by_type.get("complex128", 0)
+    got = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert lowrank_schur_update.launches_by_type["complex128"] == before + 1
+    want = lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
+    assert got.dtype == torch.complex128
+    assert _rel(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("B,m,n,s,r,cap", [(1, 512, 512, 56, 56, 48),
+                                           (1023, 64, 32, 32, 32, 32),
+                                           (9, 24, 20, 14, 12, 16),
+                                           (3, 130, 70, 72, 72, 64)])
+def test_complex_lowrank_truncate_kernel(dev, B, m, n, s, r, cap):
+    """Kernel G in complex128 (real singular values) at the damped n=512
+    plan's shapes and with cap padding: the rank and V (the plain,
+    unconjugated transpose of Vh) bit for bit, U to 1e-13."""
+    rng = np.random.default_rng(m + n + B)
+    Q = _crandn(rng, (B, m, s), torch.complex128, dev)
+    Uw = _crandn(rng, (B, s, r), torch.complex128, dev)
+    Vh = _crandn(rng, (B, r, n), torch.complex128, dev)
+    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** (
+        np.arange(r) * 8.0 / r), axis=-1)[:, ::-1].copy()
+    sv = torch.as_tensor(sv, device=dev)
+    for atol, rtol in ((1e-3, 1e-2), (0.0, 1e-9)):
+        got = lowrank_truncate(Q, Uw, sv, Vh, atol, rtol, cap)
+        want = lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        assert _rel(got[0], want[0]) <= 1e-13
+
+
+def test_complex_lowrank_slice_on_cuda(dev):
+    """The damped system on low-rank compressed levels on the card: a
+    complex128 factor and solve, relres <= 1e-9 within two iterations of
+    the same run on the CPU (the same sketches), every kernel of
+    ``kernels.COMPLEX_LOWRANK_PATH`` launched in its type."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(64, k=20.0, damping=0.1)
+    tree = ht.nested_dissection(shape, leafmax=40)
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                      kest=32, hss=False, device=d)
+        assert F.dtype == torch.complex128
+        op, mv = ht.spmv_format(A, device=d)
+        x, info = ht.gmres_compiled(mv, solve_with_data,
+                                    torch.as_tensor(b, device=d), reltol=1e-9,
+                                    restart=30, maxiter=60, mv_data=op,
+                                    M_data=F.solve_data)
+        assert info["converged"]
+        xn = x.cpu().numpy()
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            assert all(counts.get(k, 0) > 0
+                       for k in kernels.COMPLEX_LOWRANK_PATH), counts
+    assert abs(iters[0] - iters[1]) <= 2
+
+
+def test_complex_rand_lowrank_on_cuda_matches_cpu(dev):
+    """``rand_lowrank`` on complex blocks on the card against the CPU's (the
+    same sketch): equal ranks and ``U V^T`` to 1e-12.  The card's SVD returns
+    ``Vh`` as a lazily conjugated view, which kernel G must read
+    conjugated."""
+    from hsolve_torch.ops.lowrank import rand_lowrank
+
+    rng = np.random.default_rng(5)
+    A = _crandn(rng, (3, 64, 32), torch.complex128, dev)
+    om = torch.as_tensor(rng.standard_normal((32, 32)), device=dev).to(
+        torch.complex128)
+    g = rand_lowrank(A, om, 1e-6, 1e-6, 24)
+    c = rand_lowrank(A.cpu(), om.cpu(), 1e-6, 1e-6, 24)
+    assert torch.equal(g.rank.cpu(), c.rank)
+    assert _rel((g.U @ g.V.mT).cpu(), c.U @ c.V.mT) < 1e-12

@@ -17,7 +17,8 @@ import torch
 import hsolve_torch as ht
 from hsolve_torch.ops.schur import (F_MAX_CLUSTER, F_MAX_KD, F_WHOLE_MAX,
                                     SMEM_MAX, lowrank_schur_update_plain,
-                                    schur_geometry, schur_smem)
+                                    schur_geometry, schur_smem,
+                                    schur_smem_c128)
 
 torch.set_num_threads(1)
 
@@ -199,6 +200,81 @@ def test_kernel_f_partition_is_the_plain_schur_update(B, ni_pad, nb, kc, sms):
     sperm = np.stack([rng.permutation(nb) for _ in range(B)])
     g = _check_geometry(B, ni_pad, nb, kc, sms)
     got = _f_walk(front, ni_pad, RU, RV, sperm, g)
+    t = torch.as_tensor
+    want = lowrank_schur_update_plain(t(front), ni_pad, t(RU), t(RV),
+                                      t(sperm)).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# complex128 (the damped system's low-rank levels): one band's W a CTA, the
+# band's column tiles walked by nct CTAs
+# ---------------------------------------------------------------------------
+
+def _check_geometry_c128(B, ni_pad, nb, kc, sms=132):
+    g = schur_geometry(B, ni_pad, nb, kc, sms=sms, itemsize=16)
+    bn, nct, walk = g["bn"], g["nct"], g["walk"]
+    assert g["bm"] == 32 and g["cs"] == 1 and not g["whole"]
+    assert g["smem"] == schur_smem_c128(bn, g["kd"], kc) <= SMEM_MAX
+    assert 8 <= bn <= 64 and bn % 8 == 0
+    tiles = -(-nb // bn)
+    assert 1 <= nct <= tiles and nct * walk >= tiles > nct * (walk - 1)
+    return g
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_kernel_f_complex128_geometry_at_every_launch_shape(n):
+    """Every launch shape of the low-rank plan (the damped system's is the
+    same: one mesh) finds a complex128 launch, two CTAs an SM."""
+    shapes = _f_shapes(n, "low-rank")
+    assert shapes
+    for B, ni_pad, nb, kc in shapes:
+        g = _check_geometry_c128(B, ni_pad, nb, kc)
+        assert g["smem"] <= SMEM_MAX // 2, (B, ni_pad, nb, kc)
+
+
+def _f_walk_c128(front, ni_pad, RU, RV, sperm, g):
+    """Kernel F's complex128 partition in numpy: per front and band of 32
+    rows, W = Abi[p_band] RU, then the column tiles x, x + nct, ... of each
+    of the band's nct CTAs; every entry of S written once."""
+    B, m, _ = front.shape
+    nb = m - ni_pad
+    bm, bn, nct, walk = g["bm"], g["bn"], g["nct"], g["walk"]
+    tiles = -(-nb // bn)
+    S = np.full((B, nb, nb), np.nan + 0j)
+    for b in range(B):
+        p = sperm[b]
+        for y in range(-(-nb // bm)):
+            rows = p[y * bm:(y + 1) * bm]
+            W = front[b, ni_pad + rows, :ni_pad] @ RU[b]
+            for x in range(nct):
+                for w in range(walk):
+                    t = x + w * nct
+                    if t >= tiles:
+                        break
+                    cols = p[t * bn:(t + 1) * bn]
+                    blk = S[b, y * bm:y * bm + len(rows),
+                            t * bn:t * bn + len(cols)]
+                    assert np.isnan(blk).all()
+                    blk[...] = front[b][np.ix_(ni_pad + rows, ni_pad + cols)] \
+                        - W @ RV[b, cols].T
+    return S
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc,sms", [
+    (3, 32, 64, 32, 132), (2, 24, 40, 8, 132), (1, 512, 512, 48, 132),
+    (4, 512, 512, 48, 132), (2, 256, 640, 48, 132), (3, 64, 192, 33, 4),
+    (1, 40, 200, 100, 132)])
+def test_kernel_f_complex128_partition_is_the_plain_schur_update(
+        B, ni_pad, nb, kc, sms):
+    rng = np.random.default_rng(nb + kc + 1)
+    c = lambda *s: rng.standard_normal(s) + 1j * rng.standard_normal(s)
+    front = c(B, ni_pad + nb, ni_pad + nb)
+    RU, RV = c(B, ni_pad, kc), c(B, nb, kc)
+    sperm = np.stack([rng.permutation(nb) for _ in range(B)])
+    g = _check_geometry_c128(B, ni_pad, nb, kc, sms)
+    got = _f_walk_c128(front, ni_pad, RU, RV, sperm, g)
     t = torch.as_tensor
     want = lowrank_schur_update_plain(t(front), ni_pad, t(RU), t(RV),
                                       t(sperm)).numpy()

@@ -129,6 +129,22 @@ def test_kernel_e_geometry_at_wide_ranks(kc, k):
         _check_e_geometry(B, 512, 300, kc, k)
 
 
+@pytest.mark.parametrize("n", [128, 512])
+def test_kernel_e_complex128_geometry_at_every_launch_shape(n):
+    """Kernel E in complex128 at every launch shape of the low-rank plan (the
+    damped system's is the same): the float64 launch's clusters, CTAs and
+    slices, one 16-byte value a read (vec 1), its shared memory counted in
+    16-byte values and within a CTA's."""
+    for B, R, Cc, kc in _e_shapes(_plan(n, "low-rank")):
+        for k in (1, 3):
+            cs, threads, rstep, cstep, vec, kb, dd, smem = \
+                lowrank_sweep_geometry(B, R, Cc, kc, k, itemsize=16)
+            assert (cs, threads, rstep, cstep, dd) == lowrank_sweep_geometry(
+                B, R, Cc, kc, k)[:4] + (int(B <= 16),)
+            assert vec == 1 and kb == (4 if k > 1 else 1)
+            assert smem == 16 * (threads * 3 * kb + 4 * kc * kb) <= SMEM_MAX
+
+
 def test_kernel_e_geometry_refuses_what_no_cta_holds():
     with pytest.raises(ValueError, match="shared"):
         lowrank_sweep_geometry(1, 64, 64, 7000, 1)
