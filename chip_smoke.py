@@ -10,7 +10,7 @@ Phases (any failure exits non-zero before the result line is printed):
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit;
 2. build: the thirteen CUDA kernels (A-M; A-D, L and M also for complex
-   values, E, F and G for complex128) and the GMRES loop's control kernels
+   values, E-K for complex128) and the GMRES loop's control kernels
    are compiled from ``hsolve_torch/csrc/`` for ``sm_90a``, one nvcc
    process per source, all started together;
 3. kernels: each kernel's wrapper runs on the card at the n=512 plans' real
@@ -91,7 +91,12 @@ Phases (any failure exits non-zero before the result line is printed):
    backward) at every launch shape to 1e-13 of the update computed in
    complex long double on the host, F at every launch shape and G at every
    launch (its rank and V bit for bit, U to 1e-13), each with a summary
-   line; and the GMRES loop's control kernels (``csrc/gmres_control.cu``) at the
+   line; H-K in complex128 at the damped system's structured n=512
+   factors (kest=32 and the default caps), at every distinct launch shape
+   of the factor and of one preconditioner application, as for float64 (H's
+   pivots and ranks up to a rounding tie, I, J and K to 1e-13), with E and F
+   at those factors' shapes, rows ``<name>:complex128``; and the GMRES
+   loop's control kernels (``csrc/gmres_control.cu``) at the
    n=512 N, bit for bit their plain versions, from states that go on and
    that stop: the run's start, the cycle start in its six type pairs (the
    real three and complex128 cycles, complex64 cycles in a complex64 and
@@ -116,6 +121,9 @@ Phases (any failure exits non-zero before the result line is printed):
    and lowrank-complex (the low-rank compressed options above on the
    damped system: a complex128 factor with E, F and G in complex128,
    complex128 cycles, every kernel of ``kernels.COMPLEX_LOWRANK_PATH``),
+   then hss-complex and hss-complex-default (the structured options,
+   kest=32 and the default caps, on the damped system: a complex128 factor
+   with E-K in complex128, every kernel of ``kernels.COMPLEX_HSS_PATH``),
    then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
    windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
@@ -182,6 +190,11 @@ RTOL_SOLVE = {"float64": 1e-12, "float32": 1e-5, "complex128": 1e-12,
 DAMPING = 0.1
 COMPLEX = ("complex128", "complex64")
 RELRES = 1e-9         # GMRES target and the independent residual check
+# H-K's checks at every launch shape of the structured factors (some 3,500
+# shapes over the 2D, damped and 3D plans): a smaller timing budget a shape,
+# and H's plain version (a Python loop of k steps) read over 3 calls after
+# one warm-up, which keeps the script within its time limit
+SHAPE_BUDGET_MS = 5.0
 # the graph's x against the host-driven loop's: the same kernels on the same
 # inputs, so only launches that sum in a run-dependent order (atomics) part
 XDIFF = 1e-10
@@ -217,18 +230,22 @@ OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
            "lowrank-3d": LOWRANK_DEFAULT, "hss-3d": HSS_DEFAULT,
            "exact-complex": dict(swlevel=0),
            "exact-complex-mixed": dict(swlevel=0),
-           "lowrank-complex": COMPRESSED}
+           "lowrank-complex": COMPRESSED, "hss-complex": HSS,
+           "hss-complex-default": HSS_DEFAULT}
 MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed", "exact-complex-mixed")
-COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed", "lowrank-complex")
+COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed", "lowrank-complex",
+                 "hss-complex", "hss-complex-default")
 COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d",
-                    "lowrank-complex")
+                    "lowrank-complex", "hss-complex", "hss-complex-default")
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
 # mixed, hss-default and 3D ones from tools/jax_reference_iters.py (mixed: 5
 # at n=128, 80 at n=512, 5 at 64^3; hss-default: 5 at n=128, 40 at n=512;
 # low-rank at the default caps: 4 at 48^3; the damped system's mixed
 # complex64 configuration: 5 at n=128, 10 at n=512, and 1 in complex128;
 # its low-rank complex128 run, lowrank-complex: 4 at n=128, 6 at n=512,
-# --damping 0.1 --config lowrank);
+# --damping 0.1 --config lowrank; its structured complex128 runs,
+# hss-complex and hss-complex-default: 4 and 4 at n=128, 10 and 10 at
+# n=512, --damping 0.1 --config hss / hss-default);
 # hss-3d within maxiter (the JAX package's 40^3 structured run was not
 # measured)
 MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
@@ -239,7 +256,9 @@ MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
              "lowrank-3d": {LOWRANK3D: 8}, "hss-3d": {HSS3D: 60},
              "exact-complex": {128: 1, 512: 1},
              "exact-complex-mixed": {128: 10, 512: 20},
-             "lowrank-complex": {128: 8, 512: 12}}
+             "lowrank-complex": {128: 8, 512: 12},
+             "hss-complex": {128: 8, 512: 20},
+             "hss-complex-default": {128: 8, 512: 20}}
 # the port's bench on the card: the JAX bench's default (helmholtz2d h=128,
 # the mixed device configuration) and a small 3D exact run in float64
 # cycles (at 64^3 scipy's SuperLU baseline alone takes minutes of host time)
@@ -294,9 +313,11 @@ TYPED = ("front_assemble", "extend_add", "level_forward", "sweep_update",
 TYPED_COMPLEX = ("front_assemble", "extend_add", "level_forward",
                  "sweep_update", "dia_spmv", "arnoldi_cgs2", "arnoldi_givens",
                  "arnoldi_step", "gmres_cycle_start")
-# E, F and G: float64 and complex128 (the damped system's low-rank levels)
+# E-K: float64 and complex128 (the damped system's low-rank and structured
+# levels)
 LOWRANK_COMPLEX = ("lowrank_sweep_update", "lowrank_schur_update",
-                   "lowrank_truncate")
+                   "lowrank_truncate", "cpqr_pivots", "hss_entries_prepared",
+                   "hss_matvec", "hss_level_correct")
 # kernels whose rows read them alone: on the main path they run inside the
 # fused Arnoldi step's launch, whose launches their counts are
 RUN_IN_STEP = ("arnoldi_cgs2", "arnoldi_givens")
@@ -336,15 +357,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def device_ms(fn, budget_ms: float = 20.0, max_reps: int = 200) -> float:
-    """Time of one call of ``fn`` on the device (ms): after warm-up,
-    back-to-back calls between one pair of CUDA events, divided by their
-    count (enough calls to fill about ``budget_ms``, at least 5), so no
-    call's launch latency or event overhead is counted.  Where ``fn``'s host
-    work takes longer than its kernels, this still reads the host's rate."""
+def device_ms(fn, budget_ms: float = 20.0, max_reps: int = 200,
+              warmup: int = 3) -> float:
+    """Time of one call of ``fn`` on the device (ms): after ``warmup``
+    calls, back-to-back calls between one pair of CUDA events, divided by
+    their count (enough calls to fill about ``budget_ms``, at least 5 unless
+    ``max_reps`` is lower), so no call's launch latency or event overhead is
+    counted.  Where ``fn``'s host work takes longer than its kernels, this
+    still reads the host's rate."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1142,6 +1165,7 @@ def check_cpqr_shape(desc, Am, atol, rtol, k, results: Results):
     from hsolve_torch.ops import lowrank as L
 
     m, nn = Am.shape[-2:]
+    dname = str(Am.dtype).replace("torch.", "")
     ker = L.cpqr_pivots(Am, atol, rtol, k)
     ref = L.cpqr_pivots_plain(Am, atol, rtol, k)
     ties = cpqr_ties(Am, ker, ref, f"{desc} {list(Am.shape)}")
@@ -1149,15 +1173,17 @@ def check_cpqr_shape(desc, Am, atol, rtol, k, results: Results):
     # the rank, per matrix; each projects and downdates every column
     need = (ker[1].double() + 1).clamp(max=k)
     steps = float(need.sum())
-    ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k))
+    ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k),
+                   budget_ms=SHAPE_BUDGET_MS)
     plain_ms = device_ms(lambda: L.cpqr_pivots_plain(Am, atol, rtol, k),
-                         max_reps=20)
+                         max_reps=3, warmup=1)
     # latency: each step's coefficients are dots of m terms in order (kept
     # for the plain version's pivots), one step after another
-    work = bound(nbytes(Am, *ker), 4 * m * nn * steps,
-                 chain=float(need.max()) * m)
-    cs, resident = L.cpqr_cluster(m, nn)
-    results.record("cpqr_pivots", f"{desc} A={list(Am.shape)} k={k} cluster "
+    work = bound(nbytes(Am, *ker), 4 * flop_factor(dname) * m * nn * steps,
+                 dname, chain=float(need.max()) * m)
+    cs, resident = L.cpqr_cluster(m, nn, Am.element_size())
+    results.record("cpqr_pivots" + type_tag(dname),
+                   f"{desc} A={list(Am.shape)} k={k} cluster "
                    f"{cs}" + ("" if resident else " (columns in global memory)")
                    + (f" ({ties} matrices part at a rounding tie)" if ties
                       else ""), (0.0, 0.0), 0.0, ms, plain_ms, work)
@@ -1171,13 +1197,15 @@ def cpqr_ties(Am, ker, ref, desc) -> int:
     shape), so columns whose norms are equal in exact arithmetic (the 3D
     stencil's symmetries) may go either way, and the two runs go on from
     there.  Where a matrix's pivots differ, the ranks must be equal, and
-    replaying the kernel's pivots in float64 (forced pivots, the plain
-    version's steps), each must be a largest downdated norm^2 of its step
+    replaying the kernel's pivots in the matrix's type (forced pivots, the
+    plain version's steps), each must be a largest downdated norm^2 of its step
     within the downdating's rounding (2 m (j + 1) eps times the column's
     norm^2 before step 0: each step subtracts a coefficient summed over m
     products), the plain version's first differing pivot too; returns the
     number of such matrices."""
     import torch
+
+    from hsolve_torch.ops.lowrank import _abs2, _div_real
 
     piv_k, rank_k = ker
     piv_p, rank_p = ref
@@ -1187,13 +1215,13 @@ def cpqr_ties(Am, ker, ref, desc) -> int:
     if not bad.any():
         return 0
     idx = bad.nonzero().flatten()
-    X = Am[idx].double()
+    X = Am[idx]
     pk, pp = piv_k[idx].long(), piv_p[idx].long()
     first = (pk != pp).int().argmax(-1)
     rows = torch.arange(len(idx), device=X.device)
     m = X.shape[-2]
     eps = torch.finfo(torch.float64).eps
-    n2 = (X * X).sum(-2)
+    n2 = _abs2(X).sum(-2)
     n20 = n2.clone()
     for j in range(pk.shape[-1]):
         p = pk[:, j]
@@ -1206,11 +1234,11 @@ def cpqr_ties(Am, ker, ref, desc) -> int:
                 fail(f"cpqr_pivots parts from its plain version's pivots "
                      f"other than at a rounding tie at {desc} (step {j})")
         a = X[rows, :, p.clamp(min=0)]
-        nrm = (a * a).sum(-1).clamp(min=1e-300).sqrt()
-        q = torch.where(live[:, None], a / nrm[:, None], 0.0)
-        coef = (q[:, :, None] * X).sum(-2)
+        nrm = _abs2(a).sum(-1).clamp(min=1e-300).sqrt()
+        q = torch.where(live[:, None], _div_real(a, nrm), 0.0)
+        coef = (q.conj()[:, :, None] * X).sum(-2)
         X -= q[:, :, None] * coef[:, None, :]
-        n2 = torch.clamp(n2 - coef * coef, min=0.0)
+        n2 = torch.clamp(n2 - _abs2(coef), min=0.0)
         n2[rows[live], p[live]] = -float("inf")
     return len(idx)
 
@@ -1224,18 +1252,26 @@ def check_correct_shape(desc, key, Y0, args, results: Results):
     ker = H.hss_level_correct(Y0.clone(), *args)
     ref = H.hss_level_correct_plain(Y0.clone(), *args)
     scratch = Y0.clone()
-    ms = device_ms(lambda: H.hss_level_correct(scratch, *args))
-    plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch, *args))
+    ms = device_ms(lambda: H.hss_level_correct(scratch, *args),
+                   budget_ms=SHAPE_BUDGET_MS)
+    plain_ms = device_ms(lambda: H.hss_level_correct_plain(scratch, *args),
+                         budget_ms=SHAPE_BUDGET_MS)
     xi, Bl, Br, lu, piv, Phi, _ = args
+    dname = str(Y0.dtype).replace("torch.", "")
     # latency: the LU's two substitutions, 2 ceil(2r / 32) diagonal blocks of
     # 32 rows, each row a product and a sum on the last
     work = bound(nbytes(Y0, Y0, xi, Bl, Br, lu, piv, Phi),
-                 2 * k * (Bl.numel() + Br.numel() + lu.numel() + Phi.numel()),
-                 products=True, chain=2 * -(-2 * r // 32) * 32 * 2)
-    geo = ("one CTA per node" if k == 1 else
-           "nc={} cs={} groups={} stages={}".format(
-               *H.level_correct_launch(r, k, nodes, Y0.device)))
-    results.record("hss_level_correct", f"{desc} {'adj' if adj else 'fwd'} "
+                 2 * flop_factor(dname) * k * (Bl.numel() + Br.numel()
+                                               + lu.numel() + Phi.numel()),
+                 dname, products=True, chain=2 * -(-2 * r // 32) * 32 * 2)
+    if Y0.is_complex():
+        geo = f"nc={H.level_correct_geometry_c128(r, k)} (CUDA cores)"
+    else:
+        geo = ("one CTA per node" if k == 1 else
+               "nc={} cs={} groups={} stages={}".format(
+                   *H.level_correct_launch(r, k, nodes, Y0.device)))
+    results.record("hss_level_correct" + type_tag(dname),
+                   f"{desc} {'adj' if adj else 'fwd'} "
                    f"nodes={nodes} 2r={2 * r} blk={blk} k={k} {geo}",
                    errors(ker, ref), RTOL_SUM, ms, plain_ms, work)
     return ms, plain_ms
@@ -1246,15 +1282,20 @@ def check_matvec_shape(desc, key, h, X, adj, results: Results):
     from hsolve_torch.ops import hss as H
 
     Bm, nl, ls, r, depth, k, _ = key
+    dname = str(X.dtype).replace("torch.", "")
     ker = H.hss_matvec(h, X, adj)
     ref = H.hss_matvec_plain(h, X, adj)
-    ms = device_ms(lambda: H.hss_matvec(h, X, adj))
-    plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj))
-    cs, kc, groups, smem, th, rb = H.hss_matvec_geometry(Bm, nl, ls, r, depth,
-                                                         k)
+    ms = device_ms(lambda: H.hss_matvec(h, X, adj), budget_ms=SHAPE_BUDGET_MS)
+    plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj),
+                         budget_ms=SHAPE_BUDGET_MS)
+    cs, kc, groups, smem, th, rb = H.hss_matvec_geometry(
+        Bm, nl, ls, r, depth, k, itemsize=X.element_size())
     work = bound(nbytes(*h.arrays(), X, ker),
-                 2 * k * sum(a.numel() for a in h.arrays()), products=True)
-    results.record("hss_matvec", f"{desc} {'adj' if adj else 'fwd'} B={Bm} "
+                 2 * flop_factor(dname) * k * sum(a.numel()
+                                                  for a in h.arrays()),
+                 dname, products=True)
+    results.record("hss_matvec" + type_tag(dname),
+                   f"{desc} {'adj' if adj else 'fwd'} B={Bm} "
                    f"nleaves={nl} ls={ls} r={r} k={k} cs={cs} kc={kc} "
                    f"groups={groups} threads={th} rb={rb}"
                    + ("" if smem else " (state in L2)"), errors(ker, ref),
@@ -1273,9 +1314,12 @@ def check_entries_shape(desc, key, ef, rr, cc, results: Results):
     if not ker.isnan().equal(nan):
         fail(f"hss_entries_prepared puts NaN elsewhere than its plain version "
              f"at {desc} {key}")
-    ms = device_ms(lambda: H.hss_entries_prepared(ef, rr, cc))
-    plain_ms = device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc))
-    results.record("hss_entries_prepared",
+    ms = device_ms(lambda: H.hss_entries_prepared(ef, rr, cc),
+                   budget_ms=SHAPE_BUDGET_MS)
+    plain_ms = device_ms(lambda: H.hss_entries_prepared_plain(ef, rr, cc),
+                         budget_ms=SHAPE_BUDGET_MS)
+    results.record("hss_entries_prepared"
+                   + type_tag(str(ef.D.dtype).replace("torch.", "")),
                    f"{desc} out={list(ker.shape)} r={ef.T.shape[-1]} "
                    f"depth={ef.T.shape[1]} nan={int(nan.sum())}",
                    errors(ker[~nan], ref[~nan]) if (~nan).any() else (0.0, 0.0),
@@ -1283,7 +1327,7 @@ def check_entries_shape(desc, key, ef, rr, cc, results: Results):
     return ms, plain_ms
 
 
-def _hss_checked(plan, tp, opts, dev, b, label, results: Results):
+def _hss_checked(plan, tp, opts, dev, b, label, results: Results, dtype):
     """Factor ``plan`` (structured) and apply the factor once to ``b``,
     holding kernels H, K, J and I to their plain versions at the first
     launch of every distinct shape, right there (H: ``(B, m, n, k)``; K:
@@ -1292,7 +1336,8 @@ def _hss_checked(plan, tp, opts, dev, b, label, results: Results):
     the batch that first gave it), so that no input outlives its launch;
     returns ``(levels, {kernel: [(key, ms, plain_ms)]}, Schur-update
     calls)``, the last keyed ``(B, m_pad, ni_pad, kc)`` for kernel F on the
-    plan's compressed batches that are not structured."""
+    plan's compressed batches that are not structured.  The factor runs in
+    ``dtype`` (``b`` in the same type)."""
     import importlib
 
     import torch
@@ -1360,13 +1405,14 @@ def _hss_checked(plan, tp, opts, dev, b, label, results: Results):
 
     # the wrappers count their launches on whatever their module names hold
     cpqr_rec.launches = correct_rec.launches = 0
+    cpqr_rec.launches_by_type, correct_rec.launches_by_type = {}, {}
     L.cpqr_pivots, H.hss_level_correct = cpqr_rec, correct_rec
     fm._run_structured, fm.transition_compress = run_rec, trans_rec
     fm.lowrank_schur_update = schur_rec
     # structured.py imports J's and I's wrappers by name
     S.hss_matvec, S.hss_entries_prepared = matvec_rec, entries_rec
     try:
-        levels, root, _ = _factor_levels(plan, tp, opts, torch.float64)
+        levels, root, _ = _factor_levels(plan, tp, opts, dtype)
         where["tag"] = "solve"
         F = Factorization(N=plan.N, perm=plan.perm, levels=levels, root=root,
                           opts=opts, plan=plan, device=dev)
@@ -1382,9 +1428,12 @@ def _hss_checked(plan, tp, opts, dev, b, label, results: Results):
 def entries_bound(ef, rows, cols, out) -> dict:
     """Kernel I's bound: the least bytes of ``out = entries(ef, rows,
     cols)``: per index block and LCA level present, its distinct T rows and
-    V rows (r doubles each), one D entry per same-leaf entry, the indices and
-    the output; 2 r flops per entry off the leaves."""
+    V rows (r values each), one D entry per same-leaf entry, the indices and
+    the output; 2 r flops per entry off the leaves (a complex multiply-add
+    four real ones, a value 16 bytes)."""
     D, T, V = ef
+    dname = str(D.dtype).replace("torch.", "")
+    e = D.element_size()
     _, depth, n_pad, r = T.shape
     ls = D.shape[-1]
     rows, cols = rows.long(), cols.long()
@@ -1404,14 +1453,16 @@ def entries_bound(ef, rows, cols, out) -> dict:
     for L in range(1, depth + 1):
         at = lev == L
         rows_read += distinct(rows, at.any(-1)) + distinct(cols, at.any(-2))
-    work = nbytes(rows, cols, out) + 8 * int((lev == 0).sum()) \
-        + 8 * r * rows_read
-    return bound(work, 2 * r * int((lev > 0).sum()))
+    work = nbytes(rows, cols, out) + e * int((lev == 0).sum()) \
+        + e * r * rows_read
+    return bound(work, 2 * flop_factor(dname) * r * int((lev > 0).sum()),
+                 dname)
 
 
 def check_hss_kernels(problems: Problems, n, dev, results: Results,
                       configs=(("kest=32", HSS, True),
-                               ("default caps", HSS_DEFAULT, False))) -> None:
+                               ("default caps", HSS_DEFAULT, False)),
+                      dtype_name="float64") -> None:
     """Phase 3, kernels H-K against their plain versions at the structured
     n-plans' shapes: H, K, J and I at the first launch of every distinct
     shape of the factor and of one preconditioner application, checked
@@ -1419,14 +1470,16 @@ def check_hss_kernels(problems: Problems, n, dev, results: Results,
     kest=32 plan and the default-caps plan), a summary line per kernel; J
     and I also (where ``table``) on the HSS operands of the factorization's
     first and top structured batch: the kernel table's shapes for kest=32;
-    E and F at the structured factor's shapes."""
+    E and F at the structured factor's shapes.  On the damped system
+    (``damped(n)``) in complex128: the rows ``<name>:complex128``."""
     import torch
 
     import hsolve_torch as ht
     from hsolve_torch.interop import plan_to_torch
 
     A, b, shape = problems.get(n)
-    bt = torch.as_tensor(b, dtype=torch.float64, device=dev)
+    fdt = getattr(torch, dtype_name)
+    bt = torch.as_tensor(b, dtype=fdt, device=dev)
     for label, kw, table in configs:
         opts = ht.SolverOptions(**kw)
         opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
@@ -1435,7 +1488,7 @@ def check_hss_kernels(problems: Problems, n, dev, results: Results,
         tp = plan_to_torch(plan, dev)
         t0 = time.perf_counter()
         levels, rows, fcalls = _hss_checked(plan, tp, opts, dev, bt, label,
-                                            results)
+                                            results, fdt)
         log(f"  {label}: " + ", ".join(f"{len(v)} {k} shapes"
                                        for k, v in rows.items())
             + f" checked in {time.perf_counter() - t0:.1f} s")
@@ -2039,9 +2092,11 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     held = {"F": ht.factor_with_plan(plan, opts, dtype=fdt, device=dev)}
     torch.cuda.synchronize()                                   # cold
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
-    # the default-caps structured and the 3D compressed factors take
-    # seconds: one warm run
-    reps = 1 if path in ("hss-default", "lowrank-3d", "hss-3d") else 3
+    # the default-caps structured, the n=512 structured and the 3D
+    # compressed factors take seconds: one warm run
+    reps = 1 if path in ("hss-default", "lowrank-3d", "hss-3d",
+                         "hss-complex-default") or (
+        path in ("hss", "hss-complex") and n == 512) else 3
 
     def refactor():
         held["F"] = None        # the last factor goes before the next comes
@@ -2296,6 +2351,12 @@ def main() -> int:
         "system's low-rank factor")
     check_compressed_kernels(problems, damped(args.kernel_n), dev, kres,
                              COMPRESSED, "damped low-rank", "complex128")
+    log(f"[3] H-K (and E, F) in complex128 on the damped n={args.kernel_n} "
+        "system's structured factors, kest=32 and the default caps")
+    check_hss_kernels(problems, damped(args.kernel_n), dev, kres,
+                      (("damped kest=32", HSS, False),
+                       ("damped default caps", HSS_DEFAULT, False)),
+                      "complex128")
     check_control_kernels(problems, args.kernel_n, dev, kres)
     log(f"[3] the same kernels at the 3D plans' shapes: exact {EXACT3D}, "
         f"low-rank {LOWRANK3D}, structured {HSS3D}")
@@ -2317,6 +2378,8 @@ def main() -> int:
             ("exact-complex", kernels.COMPLEX_PATH, args.sizes),
             ("exact-complex-mixed", kernels.COMPLEX_MIXED_PATH, args.sizes),
             ("lowrank-complex", kernels.COMPLEX_LOWRANK_PATH, args.sizes),
+            ("hss-complex", kernels.COMPLEX_HSS_PATH, args.sizes),
+            ("hss-complex-default", kernels.COMPLEX_HSS_PATH, args.sizes),
             ("exact-wide", kernels.EXACT_PATH, [WIDE_N]),
             ("exact-3d", kernels.EXACT_PATH, [EXACT3D]),
             ("exact-3d-f32-mixed", kernels.MIXED_PATH, [EXACT3D]),

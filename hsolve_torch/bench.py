@@ -26,10 +26,12 @@ solve in complex128; on the card a complex64 factor with complex64 Arnoldi
 cycles over the complex64 operator (``--inner f32``: ``m_eps=1e-6``,
 escalation to complex128 cycles), with ``--cpu`` complex128 throughout;
 ``--factor-dtype f64`` / ``--inner f64`` give complex128 on the card, and
-``f32`` / ``f32`` complex64 with ``--cpu``.  Complex systems run on exact
-plans only (``--swlevel 0``): this bench has no ``hss`` switch, so its
-compressed plans are structured, and complex structured levels are a later
-slice and raise.  The tag puts ``_damp<D>`` first, as
+``f32`` / ``f32`` complex64 with ``--cpu``.  This bench has no ``hss``
+switch, so its compressed plans (``--swlevel`` < 0) are structured: a
+complex system factors there in complex128 (``--cpu``, or ``--factor-dtype
+f64`` on the card, which has no complex64 kernels for compressed or
+structured levels and refuses its default complex64 factor on such a
+plan).  The tag puts ``_damp<D>`` first, as
 ``bench.py`` does.  The roofline fields take the complex value's bytes
 (16 or 8) and its parts' peak; the FLOP model is the JAX package's, which
 counts a complex multiply-add as one operation, so a complex run's

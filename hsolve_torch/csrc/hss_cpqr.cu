@@ -20,6 +20,15 @@
 // differ only in the summation order of the three reductions; each column's
 // arithmetic is the same whatever the cluster size.
 //
+// Values are float64 (hs_cpqr) or complex128 (hs_cpqr_c128, the damped
+// Helmholtz system's levels, stored interleaved as torch stores them).  In
+// complex the norms stay real: |a|^2 = re^2 + im^2 (each product rounded,
+// as the plain version's), coef = conj(q)^T A (the JAX package's q^H A),
+// q = a / nrm divides each part, and the downdate subtracts |coef|^2.
+// The elementwise update A -= q coef rounds each product and each sum of a
+// complex product (torch's order); the complex dot products of coef
+// accumulate with fused multiply-adds.
+//
 // Bound: latency.  The k steps are sequential, and at the default rank caps
 // a panel is up to [202, 384] (620 KB), more than one SM's shared memory.
 // So one matrix's columns are spread over a thread block cluster of cs CTAs
@@ -39,6 +48,7 @@
 #include <cooperative_groups.h>
 
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -69,11 +79,27 @@ __device__ __forceinline__ T* in_cta(T* p, int c, int rank) {
   return c == rank ? p : cg::this_cluster().map_shared_rank(p, c);
 }
 
+// |v|^2, each product rounded (the plain version's elementwise order)
+__device__ __forceinline__ double h_abs2(hs_c128 v) {
+  return __dadd_rn(__dmul_rn(v.re, v.re), __dmul_rn(v.im, v.im));
+}
+
+// a - q c with each product and sum rounded, as torch's complex product and
+// difference
+__device__ __forceinline__ hs_c128 h_sub_prod(hs_c128 a, hs_c128 q,
+                                              hs_c128 c) {
+  const double pr = __dsub_rn(__dmul_rn(q.re, c.re), __dmul_rn(q.im, c.im));
+  const double pi = __dadd_rn(__dmul_rn(q.re, c.im), __dmul_rn(q.im, c.re));
+  return hs_c128(__dsub_rn(a.re, pr), __dsub_rn(a.im, pi));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(H_THREADS)
-    hss_cpqr_kernel(const double* __restrict__ A, int* __restrict__ piv,
-                    int* __restrict__ rank_out, double* __restrict__ gwork,
+    hss_cpqr_kernel(const T* __restrict__ A, int* __restrict__ piv,
+                    int* __restrict__ rank_out, T* __restrict__ gwork,
                     double atol, double rtol, int m, int n, int k, int cs) {
-  extern __shared__ double smem[];
+  constexpr bool CPLX = hs_traits<T>::complex;
+  extern __shared__ __align__(16) unsigned char h_smem[];
   __shared__ double slot_v[H_MAX_CLUSTER], slot_max[H_MAX_CLUSTER];
   __shared__ int slot_i[H_MAX_CLUSTER];
   __shared__ double red_v[H_THREADS / 32];
@@ -90,12 +116,12 @@ __global__ void __launch_bounds__(H_THREADS)
   const int nwarps = H_THREADS / 32;
   // this CTA's columns, [m][w] row-major: in shared memory, or in the
   // global scratch for matrices beyond the cluster's shared memory
-  double* a = gwork != nullptr ? gwork + blockIdx.x * (int64_t)m * w : smem;
-  double* rest = gwork != nullptr ? smem : smem + (int64_t)m * w;
-  double* nrm2 = rest;        // [w] downdated squared column norms
-  double* coef = nrm2 + w;    // [w] projection coefficients
-  double* q = coef + w;       // [m] pivot direction (stored by the owner)
-  const double* Ab = A + b * (int64_t)m * n;
+  T* smem = reinterpret_cast<T*>(h_smem);
+  T* a = gwork != nullptr ? gwork + blockIdx.x * (int64_t)m * w : smem;
+  T* coef = gwork != nullptr ? smem : smem + (int64_t)m * w;  // [w]
+  T* q = coef + w;            // [m] pivot direction (stored by the owner)
+  double* nrm2 = reinterpret_cast<double*>(q + m);  // [w] squared norms
+  const T* Ab = A + b * (int64_t)m * n;
   for (int e = tid; e < m * nc; e += H_THREADS) {
     const int r = e / nc, c = e - r * nc;
     a[r * w + c] = Ab[(int64_t)r * n + c0 + c];
@@ -107,8 +133,11 @@ __global__ void __launch_bounds__(H_THREADS)
   for (int c = tid; c < nc; c += H_THREADS) {
     double s = 0.0;
     for (int i = 0; i < m; ++i) {
-      const double v = a[i * w + c];
-      s += v * v;
+      const T v = a[i * w + c];
+      if constexpr (CPLX)
+        s += h_abs2(v);
+      else
+        s += v * v;
     }
     nrm2[c] = s;
     mx = fmax(mx, s);
@@ -181,8 +210,11 @@ __global__ void __launch_bounds__(H_THREADS)
       if (warp == 0) {
         double s = 0.0;
         for (int r = lane; r < m; r += 32) {
-          const double x = a[r * w + pl];
-          s += x * x;
+          const T x = a[r * w + pl];
+          if constexpr (CPLX)
+            s += h_abs2(x);
+          else
+            s += x * x;
         }
         for (int off = 16; off > 0; off >>= 1)
           s += __shfl_down_sync(0xffffffffu, s, off);
@@ -199,26 +231,42 @@ __global__ void __launch_bounds__(H_THREADS)
       const double nrm = s_nrm;
       for (int e = tid; e < m * cs; e += H_THREADS) {
         const int r = e % m, c = e / m;
-        in_cta(q, c, rank)[r] = ok ? __ddiv_rn(a[r * w + pl], nrm) : 0.0;
+        T v = T(0.0);
+        if (ok) {
+          if constexpr (CPLX)
+            v = hs_c128(__ddiv_rn(a[r * w + pl].re, nrm),
+                        __ddiv_rn(a[r * w + pl].im, nrm));
+          else
+            v = __ddiv_rn(a[r * w + pl], nrm);
+        }
+        in_cta(q, c, rank)[r] = v;
       }
     }
     matrix_sync(cs);
     const int ok = s_ok;
     if (tid == 0) s_rank += ok;
-    // 3. coef = q^T A on this CTA's columns
+    // 3. coef = q^H A on this CTA's columns
     for (int c = tid; c < nc; c += H_THREADS) {
-      double s = 0.0;
-      for (int r = 0; r < m; ++r) s += q[r] * a[r * w + c];
+      T s = T(0.0);
+      for (int r = 0; r < m; ++r) s += hs_conj(q[r]) * a[r * w + c];
       coef[c] = s;
     }
     __syncthreads();
     // 4. A -= q coef; downdate the norms; exclude the pivot
     for (int e = tid; e < m * nc; e += H_THREADS) {
       const int r = e / nc, c = e - r * nc;
-      a[r * w + c] = __dsub_rn(a[r * w + c], __dmul_rn(q[r], coef[c]));
+      if constexpr (CPLX)
+        a[r * w + c] = h_sub_prod(a[r * w + c], q[r], coef[c]);
+      else
+        a[r * w + c] = __dsub_rn(a[r * w + c], __dmul_rn(q[r], coef[c]));
     }
     for (int c = tid; c < nc; c += H_THREADS) {
-      const double d = fmax(__dsub_rn(nrm2[c], __dmul_rn(coef[c], coef[c])), 0.0);
+      double c2;
+      if constexpr (CPLX)
+        c2 = h_abs2(coef[c]);
+      else
+        c2 = __dmul_rn(coef[c], coef[c]);
+      const double d = fmax(__dsub_rn(nrm2[c], c2), 0.0);
       nrm2[c] = c0 + c == p ? -INFINITY : d;
     }
     __syncthreads();
@@ -228,19 +276,23 @@ __global__ void __launch_bounds__(H_THREADS)
   matrix_sync(cs);
 }
 
-HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,
-                      double atol, double rtol, long long B, int m, int n,
-                      int k, int cs, void* stream) {
+// smem: the CTA's columns (unless in the global scratch), coefficients and
+// pivot direction in T, the norms in double (ops/lowrank.py cpqr_smem)
+template <typename T>
+static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
+                       double atol, double rtol, long long B, int m, int n,
+                       int k, int cs, void* stream) {
   if (B > 0 && k > 0) {
     if (cs < 1 || cs > H_MAX_CLUSTER || n < 1 || m < 1)
       return (int)cudaErrorInvalidValue;
     const size_t w = (size_t)(n + cs - 1) / cs;
-    const size_t smem = ((gwork != nullptr ? 0 : (size_t)m * w) + 2 * w +
-                         (size_t)m) * sizeof(double);
+    const size_t smem =
+        ((gwork != nullptr ? 0 : (size_t)m * w) + w + (size_t)m) * sizeof(T) +
+        w * sizeof(double);
+    auto kern = hss_cpqr_kernel<T>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          hss_cpqr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
     cudaLaunchConfig_t cfg = {};
@@ -256,12 +308,26 @@ HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, hss_cpqr_kernel, (const double*)A, (int*)piv, (int*)rank,
-        (double*)gwork, atol, rtol, m, n, k, cs);
+        &cfg, kern, (const T*)A, (int*)piv, (int*)rank, (T*)gwork, atol, rtol,
+        m, n, k, cs);
     if (err != cudaSuccess) {
       cudaGetLastError();
       return (int)err;
     }
   }
   return (int)cudaGetLastError();
+}
+
+HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,
+                      double atol, double rtol, long long B, int m, int n,
+                      int k, int cs, void* stream) {
+  return launch_cpqr<double>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
+                             stream);
+}
+
+HS_EXPORT int hs_cpqr_c128(const void* A, void* piv, void* rank, void* gwork,
+                           double atol, double rtol, long long B, int m, int n,
+                           int k, int cs, void* stream) {
+  return launch_cpqr<hs_c128>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
+                              stream);
 }

@@ -30,23 +30,34 @@
 // the entries whose level is the one being summed.  Same-leaf entries load
 // their D entry directly (lanes along a D row).  A block whose entries all
 // meet one level (the compressors' B12/B21 and leaf blocks) takes one pass.
+//
+// Values are float64 (hs_hss_entries) or complex128 (hs_hss_entries_c128,
+// the damped Helmholtz system's levels): the product stays T . V with no
+// conjugate (hsolve/ops/hss.py:293-313), a complex multiply-add as four
+// real ones on the CUDA cores.  A complex128 slice is 16 columns, so the two
+// staged tiles take 34 KB, within the 48 KB of static shared memory, as the
+// float64 ones' 32 columns do.
 #include <math.h>
 
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #define I_TILE 64
-#define I_RC 32        // T / V columns a slice
-#define I_LD (I_RC + 1)
 
+template <typename VT>
 __global__ void __launch_bounds__(256) hss_entries_kernel(
-    const double* __restrict__ D, const double* __restrict__ T,
-    const double* __restrict__ V, const long long* __restrict__ rows,
-    const long long* __restrict__ cols, double* __restrict__ out,
+    const VT* __restrict__ D, const VT* __restrict__ T,
+    const VT* __restrict__ V, const long long* __restrict__ rows,
+    const long long* __restrict__ cols, VT* __restrict__ out,
     long long srb, long long srm, long long srp, long long scb, long long scm,
     long long scq, int M, int p, int q, int n_pad, int ls, int r, int depth,
     int tiles_q) {
-  __shared__ double Ts[I_TILE][I_LD];
-  __shared__ double Vs[I_TILE][I_LD];
+  // T / V columns a slice (16 lanes along a row, VPL values a lane)
+  constexpr int I_RC = 256 / (int)sizeof(VT);
+  constexpr int I_LD = I_RC + 1;
+  constexpr int VPL = I_RC / 16;
+  __shared__ VT Ts[I_TILE][I_LD];
+  __shared__ VT Vs[I_TILE][I_LD];
   __shared__ int ri[I_TILE], ci[I_TILE];
   __shared__ unsigned levels;
   const int64_t bj = blockIdx.x;  // b * M + j
@@ -71,7 +82,7 @@ __global__ void __launch_bounds__(256) hss_entries_kernel(
 
   // the entries' levels: -1 out of range (or outside the tile), 0 same leaf
   int lev[4][4];
-  double o[4][4];
+  VT o[4][4];
   unsigned mine = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -89,8 +100,8 @@ __global__ void __launch_bounds__(256) hss_entries_kernel(
         }
       }
       lev[i][j] = lv;
-      o[i][j] = lv == -2 ? NAN : 0.0;
-      if (lv == 0) o[i][j] = __ldg(D + (b * n_pad + row) * ls + col % ls);
+      o[i][j] = lv == -2 ? VT(NAN) : VT(0.0);
+      if (lv == 0) o[i][j] = hs_ldg(D + (b * n_pad + row) * ls + col % ls);
       if (lv > 0) mine |= 1u << lv;
     }
   }
@@ -102,31 +113,31 @@ __global__ void __launch_bounds__(256) hss_entries_kernel(
   for (int L = 1; L <= depth; ++L) {
     if (!(lv_mask & (1u << L))) continue;  // uniform across the CTA
     const int64_t base = (b * depth + L - 1) * (int64_t)n_pad;
-    double s[4][4];
+    VT s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0;
+      for (int j = 0; j < 4; ++j) s[i][j] = VT(0.0);
     for (int k0 = 0; k0 < r; k0 += I_RC) {
-      // stage the slice: 16 lanes along a row, two doubles a lane
+      // stage the slice: 16 lanes along a row, VPL values a lane
       for (int e = tid; e < I_TILE * 16; e += 256) {
-        const int a = e >> 4, kk = 2 * (e & 15);
+        const int a = e >> 4, kk = VPL * (e & 15);
         const int rt = ri[a], cv = ci[a];
         const bool rok = a < tp && rt >= 0;
         const bool cok = a < tq && cv >= 0;
-        const double* tr = T + (base + (rok ? rt : 0)) * r + k0;
-        const double* vr = V + (base + (cok ? cv : 0)) * r + k0;
+        const VT* tr = T + (base + (rok ? rt : 0)) * r + k0;
+        const VT* vr = V + (base + (cok ? cv : 0)) * r + k0;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < VPL; ++u) {
           const bool kin = k0 + kk + u < r;
-          Ts[a][kk + u] = rok && kin ? __ldg(tr + kk + u) : 0.0;
-          Vs[a][kk + u] = cok && kin ? __ldg(vr + kk + u) : 0.0;
+          Ts[a][kk + u] = rok && kin ? hs_ldg(tr + kk + u) : VT(0.0);
+          Vs[a][kk + u] = cok && kin ? hs_ldg(vr + kk + u) : VT(0.0);
         }
       }
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < I_RC; ++kk) {
-        double tv[4], vv[4];
+        VT tv[4], vv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) tv[i] = Ts[ty + 16 * i][kk];
 #pragma unroll
@@ -149,11 +160,31 @@ __global__ void __launch_bounds__(256) hss_entries_kernel(
   for (int i = 0; i < 4; ++i) {
     const int a = ty + 16 * i;
     if (a >= tp) continue;
-    double* orow = out + (bj * p + a0 + a) * q + c0;
+    VT* orow = out + (bj * p + a0 + a) * q + c0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (tx + 16 * j < tq) orow[tx + 16 * j] = o[i][j];
   }
+}
+
+template <typename VT>
+static int launch_entries(const void* D, const void* T, const void* V,
+                          const void* rows, const void* cols, void* out,
+                          long long srb, long long srm, long long srp,
+                          long long scb, long long scm, long long scq,
+                          long long B, int M, int p, int q, int n_pad, int ls,
+                          int r, int depth, void* stream) {
+  if (B < 0 || M < 0 || p < 0 || q < 0 || depth < 1 || depth > 30 || ls < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || p == 0 || q == 0) return (int)cudaSuccess;
+  const int tiles_q = (q + I_TILE - 1) / I_TILE;
+  const int tiles = ((p + I_TILE - 1) / I_TILE) * tiles_q;
+  hss_entries_kernel<VT><<<dim3((unsigned)(B * M), (unsigned)tiles), 256, 0,
+                           (cudaStream_t)stream>>>(
+      (const VT*)D, (const VT*)T, (const VT*)V, (const long long*)rows,
+      (const long long*)cols, (VT*)out, srb, srm, srp, scb, scm, scq, M, p, q,
+      n_pad, ls, r, depth, tiles_q);
+  return (int)cudaGetLastError();
 }
 
 HS_EXPORT int hs_hss_entries(const void* D, const void* T, const void* V,
@@ -162,15 +193,19 @@ HS_EXPORT int hs_hss_entries(const void* D, const void* T, const void* V,
                              long long scb, long long scm, long long scq,
                              long long B, int M, int p, int q, int n_pad,
                              int ls, int r, int depth, void* stream) {
-  if (B < 0 || M < 0 || p < 0 || q < 0 || depth < 1 || depth > 30 || ls < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || p == 0 || q == 0) return (int)cudaSuccess;
-  const int tiles_q = (q + I_TILE - 1) / I_TILE;
-  const int tiles = ((p + I_TILE - 1) / I_TILE) * tiles_q;
-  hss_entries_kernel<<<dim3((unsigned)(B * M), (unsigned)tiles), 256, 0,
-                       (cudaStream_t)stream>>>(
-      (const double*)D, (const double*)T, (const double*)V,
-      (const long long*)rows, (const long long*)cols, (double*)out, srb, srm,
-      srp, scb, scm, scq, M, p, q, n_pad, ls, r, depth, tiles_q);
-  return (int)cudaGetLastError();
+  return launch_entries<double>(D, T, V, rows, cols, out, srb, srm, srp, scb,
+                                scm, scq, B, M, p, q, n_pad, ls, r, depth,
+                                stream);
+}
+
+HS_EXPORT int hs_hss_entries_c128(const void* D, const void* T, const void* V,
+                                  const void* rows, const void* cols,
+                                  void* out, long long srb, long long srm,
+                                  long long srp, long long scb, long long scm,
+                                  long long scq, long long B, int M, int p,
+                                  int q, int n_pad, int ls, int r, int depth,
+                                  void* stream) {
+  return launch_entries<hs_c128>(D, T, V, rows, cols, out, srb, srm, srp, scb,
+                                 scm, scq, B, M, p, q, n_pad, ls, r, depth,
+                                 stream);
 }

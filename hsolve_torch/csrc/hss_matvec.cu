@@ -58,7 +58,17 @@
 //   8) at k <= 8, (256, 4, 4) above.  At k = 1 a chunk is one 8-column block
 //   with one live column: the operands' bytes, not the products, set the
 //   time there.
+// - Complex128 values (hs_hss_matvec_c128, the damped Helmholtz system's
+//   levels) take the same tree walk, chunks, cluster and state, with the
+//   products on the CUDA cores (jmm_c: a complex multiply-add as four real
+//   fused multiply-adds, each lane its fragment's two columns of the same
+//   rows, the operands of four depth steps loaded before their products);
+//   adjoint stays the plain transpose
+//   A^T, as in the JAX package.  The state's slots hold complex values
+//   (ld counted in values), and the launch takes (512 threads, RB 2) at
+//   k <= 8, else (256, 2).
 #include "hs_common.cuh"
+#include "hs_complex.cuh"
 
 #include <cooperative_groups.h>
 
@@ -147,35 +157,107 @@ __device__ __forceinline__ void jmm(const double* __restrict__ g, int ld,
   }
 }
 
-template <int NB, int RB>
-__device__ __forceinline__ void jzero(double (&acc)[RB][NB][2]) {
+// The complex form of jmm, on the CUDA cores, with jmm's operands and
+// output layout: lane l holds rows rg RB 8 + 8 q + l / 4 at columns n 8 +
+// 2 (l % 4) + {0, 1}; in place of KU's prefetch, the A and B entries of
+// four depth steps load before their products.
+template <int BM>
+__device__ __forceinline__ hs_c128 jload_b(const hs_c128* p) {
+  if (BM == J_B_X) return hs_ldg(p);
+  if (BM == J_B_PEER) {
+    const double2 v = __ldcg(reinterpret_cast<const double2*>(p));
+    return hs_c128(v.x, v.y);
+  }
+  return *p;
+}
+
+template <int NB, int RB, bool TRANS, int BM>
+__device__ __forceinline__ void jmm_c(const hs_c128* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const hs_c128* bs,
+                                      int bld, int bcols,
+                                      hs_c128 (&acc)[RB][NB][2], int lane) {
+  constexpr int KS = 4;  // depth steps whose operands load together
+  const int i0 = rg * RB * 8 + (lane >> 2);
+  const int cb = 2 * (lane & 3);
+  for (int k0 = 0; k0 < kd; k0 += KS) {
+    hs_c128 av[KS][RB], bv[KS][NB][2];
+#pragma unroll
+    for (int u = 0; u < KS; ++u) {
+      const int kk = k0 + u;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int c = n * 8 + cb + t;
+          bv[u][n][t] = kk >= kd || (BM == J_B_X && c >= bcols)
+                            ? hs_c128(0.0)
+                            : jload_b<BM>(bs + (int64_t)kk * bld + c);
+        }
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int i = i0 + 8 * q;
+        av[u][q] = i < m && kk < kd
+                       ? hs_ldg(g + (TRANS ? (int64_t)kk * ld + i
+                                           : (int64_t)i * ld + kk))
+                       : hs_c128(0.0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KS; ++u)
+#pragma unroll
+      for (int q = 0; q < RB; ++q)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int t = 0; t < 2; ++t) acc[q][n][t] += av[u][q] * bv[u][n][t];
+  }
+}
+
+// jmm in the value type: the FP64 tensor cores for double, jmm_c for
+// complex128
+template <int NB, int RB, int KU, bool TRANS, int BM>
+__device__ __forceinline__ void jmm_v(const double* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const double* bs,
+                                      int bld, int bcols,
+                                      double (&acc)[RB][NB][2], int lane) {
+  jmm<NB, RB, KU, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
+}
+
+template <int NB, int RB, int KU, bool TRANS, int BM>
+__device__ __forceinline__ void jmm_v(const hs_c128* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const hs_c128* bs,
+                                      int bld, int bcols,
+                                      hs_c128 (&acc)[RB][NB][2], int lane) {
+  jmm_c<NB, RB, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
+}
+
+template <int NB, int RB, typename VT>
+__device__ __forceinline__ void jzero(VT (&acc)[RB][NB][2]) {
 #pragma unroll
   for (int q = 0; q < RB; ++q)
 #pragma unroll
-    for (int n = 0; n < NB; ++n) acc[q][n][0] = acc[q][n][1] = 0.0;
+    for (int n = 0; n < NB; ++n) acc[q][n][0] = acc[q][n][1] = VT(0.0);
 }
 
 // acc <- s[rows of block group rg] (an [m, ld] node slot)
-template <int NB, int RB>
-__device__ __forceinline__ void jload(double (&acc)[RB][NB][2],
-                                      const double* s, int ld, int m, int rg,
-                                      int lane) {
+template <int NB, int RB, typename VT>
+__device__ __forceinline__ void jload(VT (&acc)[RB][NB][2], const VT* s,
+                                      int ld, int m, int rg, int lane) {
   const int c = 2 * (lane & 3);
 #pragma unroll
   for (int q = 0; q < RB; ++q) {
     const int i = (rg * RB + q) * 8 + (lane >> 2);
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
-      acc[q][n][0] = i < m ? s[i * ld + n * 8 + c] : 0.0;
-      acc[q][n][1] = i < m ? s[i * ld + n * 8 + c + 1] : 0.0;
+      acc[q][n][0] = i < m ? s[i * ld + n * 8 + c] : VT(0.0);
+      acc[q][n][1] = i < m ? s[i * ld + n * 8 + c + 1] : VT(0.0);
     }
   }
 }
 
-template <int NB, int RB>
-__device__ __forceinline__ void jstore(const double (&acc)[RB][NB][2],
-                                       double* s, int ld, int m, int rg,
-                                       int lane) {
+template <int NB, int RB, typename VT>
+__device__ __forceinline__ void jstore(const VT (&acc)[RB][NB][2], VT* s,
+                                       int ld, int m, int rg, int lane) {
   const int c = 2 * (lane & 3);
 #pragma unroll
   for (int q = 0; q < RB; ++q) {
@@ -205,14 +287,14 @@ struct JTree {
 };
 
 // NB 8-column blocks a chunk, TH threads a CTA, RB 8-row blocks a warp's
-// item, KU depth-4 steps of A fragments loaded ahead
-template <int NB, int TH, int RB, int KU>
+// item, KU depth-4 steps of A fragments loaded ahead; VT the value type
+template <typename VT, int NB, int TH, int RB, int KU>
 __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
-    const double* __restrict__ D, const double* __restrict__ U,
-    const double* __restrict__ V, const double* __restrict__ Rc,
-    const double* __restrict__ Wc, const double* __restrict__ B12c,
-    const double* __restrict__ B21c, const double* __restrict__ x,
-    double* __restrict__ y, double* state, int nl, int ls, int r, int depth,
+    const VT* __restrict__ D, const VT* __restrict__ U,
+    const VT* __restrict__ V, const VT* __restrict__ Rc,
+    const VT* __restrict__ Wc, const VT* __restrict__ B12c,
+    const VT* __restrict__ B21c, const VT* __restrict__ x,
+    VT* __restrict__ y, VT* state, int nl, int ls, int r, int depth,
     int k, int cs, int ld, int nown, int adjoint) {
   extern __shared__ __align__(16) unsigned char j_smem[];
   constexpr int J_WARPS = TH / 32;
@@ -239,20 +321,20 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
   // a CTA's state: shared memory, or its region of the scratch (peers of a
   // cluster are neighbours in blockIdx.x, so a peer's region is an offset)
   const int64_t region = 2 * nown * slot_sz;
-  double* XI = state == nullptr
-                   ? reinterpret_cast<double*>(j_smem)
-                   : state + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
-                                 region;
-  double* ETA = XI + nown * slot_sz;
-  const double* Db = D + b * (int64_t)nl * ls * ls;
-  const double* Vl = (adjoint ? U : V) + b * (int64_t)npad * r;
-  const double* Ul = (adjoint ? V : U) + b * (int64_t)npad * r;
-  const double* Wu = (adjoint ? Rc : Wc) + b * (int64_t)(2 * nl - 2) * rr;
-  const double* Rd = (adjoint ? Wc : Rc) + b * (int64_t)(2 * nl - 2) * rr;
-  const double* Cl = (adjoint ? B21c : B12c) + b * (int64_t)(nl - 1) * rr;
-  const double* Cr = (adjoint ? B12c : B21c) + b * (int64_t)(nl - 1) * rr;
-  const double* xb = x + b * (int64_t)npad * k;
-  double* yb = y + b * (int64_t)npad * k;
+  VT* XI = state == nullptr
+               ? reinterpret_cast<VT*>(j_smem)
+               : state + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                             region;
+  VT* ETA = XI + nown * slot_sz;
+  const VT* Db = D + b * (int64_t)nl * ls * ls;
+  const VT* Vl = (adjoint ? U : V) + b * (int64_t)npad * r;
+  const VT* Ul = (adjoint ? V : U) + b * (int64_t)npad * r;
+  const VT* Wu = (adjoint ? Rc : Wc) + b * (int64_t)(2 * nl - 2) * rr;
+  const VT* Rd = (adjoint ? Wc : Rc) + b * (int64_t)(2 * nl - 2) * rr;
+  const VT* Cl = (adjoint ? B21c : B12c) + b * (int64_t)(nl - 1) * rr;
+  const VT* Cr = (adjoint ? B12c : B21c) + b * (int64_t)(nl - 1) * rr;
+  const VT* xb = x + b * (int64_t)npad * k;
+  VT* yb = y + b * (int64_t)npad * k;
   // row groups (RB blocks of 8) of an r-row and an ls-row output
   const int rbr = (r + 8 * RB - 1) / (8 * RB);
   const int rbl = (ls + 8 * RB - 1) / (8 * RB);
@@ -264,17 +346,21 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
   // acc += G xs (G^T xs: trans) for an r x r generator G and a node's state
   // xs, in this CTA's state or a cluster peer's shared memory, or (far) in
   // a peer's scratch region
-  auto gen = [&](const double* G, bool trans, const double* xs, bool far,
-                 int rg, double (&acc)[RB][NB][2]) {
+  auto gen = [&](const VT* G, bool trans, const VT* xs, bool far, int rg,
+                 VT (&acc)[RB][NB][2]) {
     if (far) {
       if (trans)
-        jmm<NB, RB, KU, true, J_B_PEER>(G, r, r, r, rg, xs, ld, kc, acc, lane);
+        jmm_v<NB, RB, KU, true, J_B_PEER>(G, r, r, r, rg, xs, ld, kc, acc,
+                                          lane);
       else
-        jmm<NB, RB, KU, false, J_B_PEER>(G, r, r, r, rg, xs, ld, kc, acc, lane);
+        jmm_v<NB, RB, KU, false, J_B_PEER>(G, r, r, r, rg, xs, ld, kc, acc,
+                                           lane);
     } else if (trans) {
-      jmm<NB, RB, KU, true, J_B_LOCAL>(G, r, r, r, rg, xs, ld, kc, acc, lane);
+      jmm_v<NB, RB, KU, true, J_B_LOCAL>(G, r, r, r, rg, xs, ld, kc, acc,
+                                         lane);
     } else {
-      jmm<NB, RB, KU, false, J_B_LOCAL>(G, r, r, r, rg, xs, ld, kc, acc, lane);
+      jmm_v<NB, RB, KU, false, J_B_LOCAL>(G, r, r, r, rg, xs, ld, kc, acc,
+                                          lane);
     }
   };
   // the coupling that makes eta of child t of level L from its sibling's xi
@@ -283,7 +369,7 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
   };
   // slot p of this CTA in CTA o of the cluster, and whether it lies in L2
   const bool far = state != nullptr;
-  auto peer = [&](double* p, int o) -> const double* {
+  auto peer = [&](VT* p, int o) -> const VT* {
     if (far) return p + (int64_t)(o - rho) * region;
     return cg::this_cluster().map_shared_rank(p, o);
   };
@@ -295,11 +381,11 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
     // 1. leaves: xi_0[l] = Vl[l]^T x[l]
     for (int e = warp; e < T.nlc * rbr; e += J_WARPS) {
       const int l = rho * T.nlc + e / rbr, rg = e % rbr;
-      double acc[RB][NB][2];
+      VT acc[RB][NB][2];
       jzero(acc);
-      jmm<NB, RB, KU, true, J_B_X>(Vl + (int64_t)l * ls * r, r, r, ls, rg,
-                                   xb + (int64_t)l * ls * k + c0, k, k - c0,
-                                   acc, lane);
+      jmm_v<NB, RB, KU, true, J_B_X>(Vl + (int64_t)l * ls * r, r, r, ls, rg,
+                                     xb + (int64_t)l * ls * k + c0, k, k - c0,
+                                     acc, lane);
       jstore(acc, xi(0, l), ld, r, rg, lane);
     }
     __syncthreads();
@@ -310,7 +396,7 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
       const int kids = T.nlc >> (L - 1);
       for (int e = warp; e < (nodes + kids) * rbr; e += J_WARPS) {
         const int q = e / rbr, rg = e % rbr;
-        double acc[RB][NB][2];
+        VT acc[RB][NB][2];
         jzero(acc);
         if (q < nodes) {
           const int j = rho * nodes + q;
@@ -334,11 +420,11 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
         const int span = 1 << (L - T.Ls);
         if (rho % span) continue;
         const int t = rho / span, s = t ^ 1;
-        const double* xs = peer(xi(L, s), T.owner(L, s));
+        const VT* xs = peer(xi(L, s), T.owner(L, s));
         const bool up = !(t & 1) && L + 1 < depth;
         for (int e = warp; e < (up ? 2 : 1) * rbr; e += J_WARPS) {
           const int rg = e % rbr;
-          double acc[RB][NB][2];
+          VT acc[RB][NB][2];
           jzero(acc);
           if (e < rbr) {
             gen(coupling(L, t), adjoint, xs, far, rg, acc);
@@ -356,9 +442,9 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
         const int span = 1 << (L - T.Ls);
         if (rho % span == 0) {
           const int t = rho / span, p = t >> 1;
-          const double* ap = peer(eta(L + 1, p), T.owner(L + 1, p));
+          const VT* ap = peer(eta(L + 1, p), T.owner(L + 1, p));
           for (int rg = warp; rg < rbr; rg += J_WARPS) {
-            double acc[RB][NB][2];
+            VT acc[RB][NB][2];
             jload(acc, eta(L, t), ld, r, rg, lane);
             gen(Rd + (J_OFF(L) + t) * rr, false, ap, far, rg, acc);
             jstore(acc, eta(L, t), ld, r, rg, lane);
@@ -373,7 +459,7 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
       const int nodes = T.nlc >> L;
       for (int e = warp; e < nodes * rbr; e += J_WARPS) {
         const int t = rho * nodes + e / rbr, rg = e % rbr;
-        double acc[RB][NB][2];
+        VT acc[RB][NB][2];
         jload(acc, eta(L, t), ld, r, rg, lane);
         gen(Rd + (J_OFF(L) + t) * rr, false, eta(L + 1, t >> 1), false, rg,
             acc);
@@ -384,24 +470,24 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
     // 6. leaves: y[l] = D[l] x[l] + Ul[l] acc_0[l]
     for (int e = warp; e < T.nlc * rbl; e += J_WARPS) {
       const int l = rho * T.nlc + e / rbl, rg = e % rbl;
-      double acc[RB][NB][2];
+      VT acc[RB][NB][2];
       jzero(acc);
-      const double* xl = xb + (int64_t)l * ls * k + c0;
-      const double* dl = Db + (int64_t)l * ls * ls;
+      const VT* xl = xb + (int64_t)l * ls * k + c0;
+      const VT* dl = Db + (int64_t)l * ls * ls;
       if (adjoint)
-        jmm<NB, RB, KU, true, J_B_X>(dl, ls, ls, ls, rg, xl, k, k - c0, acc,
-                                     lane);
+        jmm_v<NB, RB, KU, true, J_B_X>(dl, ls, ls, ls, rg, xl, k, k - c0, acc,
+                                       lane);
       else
-        jmm<NB, RB, KU, false, J_B_X>(dl, ls, ls, ls, rg, xl, k, k - c0, acc,
-                                      lane);
-      jmm<NB, RB, KU, false, J_B_LOCAL>(Ul + (int64_t)l * ls * r, r, ls, r, rg,
-                                        eta(0, l), ld, kc, acc, lane);
+        jmm_v<NB, RB, KU, false, J_B_X>(dl, ls, ls, ls, rg, xl, k, k - c0,
+                                        acc, lane);
+      jmm_v<NB, RB, KU, false, J_B_LOCAL>(Ul + (int64_t)l * ls * r, r, ls, r,
+                                          rg, eta(0, l), ld, kc, acc, lane);
       const int c = 2 * (lane & 3);
 #pragma unroll
       for (int q = 0; q < RB; ++q) {
         const int i = (rg * RB + q) * 8 + (lane >> 2);
         if (i >= ls) continue;
-        double* yr = yb + ((int64_t)l * ls + i) * k + c0;
+        VT* yr = yb + ((int64_t)l * ls + i) * k + c0;
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
           if (c0 + n * 8 + c < k) yr[n * 8 + c] = acc[q][n][0];
@@ -415,17 +501,17 @@ __global__ void __launch_bounds__(TH, 1) hss_matvec_kernel(
 #undef J_BOFF
 }
 
-template <int NB, int TH, int RB, int KU>
-static cudaError_t launch_matvec(const double* D, const double* U,
-                                 const double* V, const double* Rc,
-                                 const double* Wc, const double* B12c,
-                                 const double* B21c, const double* x,
-                                 double* y, double* state, long long B, int nl,
-                                 int ls, int r, int depth, int k, int cs,
-                                 int groups, int ld, int nown, size_t smem,
-                                 int adjoint, cudaStream_t stream) {
+template <typename VT, int NB, int TH, int RB, int KU>
+static cudaError_t launch_matvec(const void* D, const void* U, const void* V,
+                                 const void* Rc, const void* Wc,
+                                 const void* B12c, const void* B21c,
+                                 const void* x, void* y, void* state,
+                                 long long B, int nl, int ls, int r, int depth,
+                                 int k, int cs, int groups, int ld, int nown,
+                                 size_t smem, int adjoint,
+                                 cudaStream_t stream) {
   static size_t granted = 0;
-  auto kern = hss_matvec_kernel<NB, TH, RB, KU>;
+  auto kern = hss_matvec_kernel<VT, NB, TH, RB, KU>;
   if (smem > 48 * 1024 && smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -444,15 +530,24 @@ static cudaError_t launch_matvec(const double* D, const double* U,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cs > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, D, U, V, Rc, Wc,
-                                             B12c, B21c, x, y, state, nl, ls,
-                                             r, depth, k, cs, ld, nown,
-                                             adjoint);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, (const VT*)D, (const VT*)U, (const VT*)V, (const VT*)Rc,
+      (const VT*)Wc, (const VT*)B12c, (const VT*)B21c, (const VT*)x, (VT*)y,
+      (VT*)state, nl, ls, r, depth, k, cs, ld, nown, adjoint);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
   }
   return cudaGetLastError();
+}
+
+static bool j_valid(long long B, int nleaves, int depth, int kc, int cs,
+                    int groups, int ld, int nown, long long smem,
+                    const void* state) {
+  return !(B < 0 || depth < 1 || nleaves != (1 << depth) || cs < 1 || cs > 8 ||
+           (cs & (cs - 1)) || cs > nleaves ||
+           (kc != 8 && kc != 16 && kc != 32) || groups < 1 || ld < kc ||
+           nown < 1 || smem < 0 || (state == nullptr) != (smem > 0));
 }
 
 // kc columns a chunk (8, 16 or 32), threads a CTA (256 or 512) and rb
@@ -461,7 +556,7 @@ static cudaError_t launch_matvec(const double* D, const double* U,
 // 8 and nleaves), groups column groups, ld the state's leading dimension,
 // nown the node slots of a CTA and smem its bytes (all from ops/hss.py
 // hss_matvec_geometry); state: null (the state in shared memory) or the
-// scratch of B cs groups regions of 2 nown r ld doubles (smem 0)
+// scratch of B cs groups regions of 2 nown r ld values (smem 0)
 HS_EXPORT int hs_hss_matvec(const void* D, const void* U, const void* V,
                             const void* Rc, const void* Wc, const void* B12c,
                             const void* B21c, const void* x, void* y,
@@ -470,26 +565,17 @@ HS_EXPORT int hs_hss_matvec(const void* D, const void* U, const void* V,
                             int rb, int cs,
                             int groups, int ld, int nown, long long smem,
                             int adjoint, void* stream) {
-  if (B < 0 || depth < 1 || nleaves != (1 << depth) || cs < 1 || cs > 8 ||
-      (cs & (cs - 1)) || cs > nleaves ||
-      (kc != 8 && kc != 16 && kc != 32) ||
+  if (!j_valid(B, nleaves, depth, kc, cs, groups, ld, nown, smem, state) ||
       !((threads == 512 && rb == 2) ||
-        (threads == 256 && (rb == 2 || rb == 4))) ||
-      groups < 1 || ld < kc || nown < 1 || smem < 0 ||
-      (state == nullptr) != (smem > 0))
+        (threads == 256 && (rb == 2 || rb == 4))))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || k == 0) return (int)cudaSuccess;
-  const double *d = (const double*)D, *u = (const double*)U,
-               *v = (const double*)V, *rc = (const double*)Rc,
-               *wc = (const double*)Wc, *b12 = (const double*)B12c,
-               *b21 = (const double*)B21c, *xx = (const double*)x;
-  double* yy = (double*)y;
-  double* st = (double*)state;
   cudaStream_t s = (cudaStream_t)stream;
-#define J_LAUNCH(NB, TH, RB, KU)                                         \
-  launch_matvec<NB, TH, RB, KU>(d, u, v, rc, wc, b12, b21, xx, yy, st, B,  \
-                                nleaves, ls, r, depth, k, cs, groups, ld,  \
-                                nown, (size_t)smem, adjoint, s)
+#define J_LAUNCH(NB, TH, RB, KU)                                              \
+  launch_matvec<double, NB, TH, RB, KU>(D, U, V, Rc, Wc, B12c, B21c, x, y,    \
+                                        state, B, nleaves, ls, r, depth, k,   \
+                                        cs, groups, ld, nown, (size_t)smem,   \
+                                        adjoint, s)
   // (threads, rb): (256, 2) at r <= 32, else (512, 2) for k <= 8 and
   // (256, 4) above; a warp loads the A fragments of 8 (rb 4: 4) depth-4
   // steps ahead
@@ -501,6 +587,31 @@ HS_EXPORT int hs_hss_matvec(const void* D, const void* U, const void* V,
                           : kc == 16 ? J_MODES(2)
                                      : J_MODES(4);
 #undef J_MODES
+#undef J_LAUNCH
+  return (int)err;
+}
+
+// complex128: (threads, rb) is (512, 2) at kc 8, else (256, 2)
+HS_EXPORT int hs_hss_matvec_c128(const void* D, const void* U, const void* V,
+                                 const void* Rc, const void* Wc,
+                                 const void* B12c, const void* B21c,
+                                 const void* x, void* y, void* state,
+                                 long long B, int nleaves, int ls, int r,
+                                 int depth, int k, int kc, int threads, int rb,
+                                 int cs, int groups, int ld, int nown,
+                                 long long smem, int adjoint, void* stream) {
+  if (!j_valid(B, nleaves, depth, kc, cs, groups, ld, nown, smem, state) ||
+      rb != 2 || threads != (kc == 8 ? 512 : 256))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || k == 0) return (int)cudaSuccess;
+#define J_LAUNCH(NB, TH)                                                      \
+  launch_matvec<hs_c128, NB, TH, 2, 8>(D, U, V, Rc, Wc, B12c, B21c, x, y,     \
+                                       state, B, nleaves, ls, r, depth, k,    \
+                                       cs, groups, ld, nown, (size_t)smem,    \
+                                       adjoint, (cudaStream_t)stream)
+  const cudaError_t err = kc == 8    ? J_LAUNCH(1, 512)
+                          : kc == 16 ? J_LAUNCH(2, 256)
+                                     : J_LAUNCH(4, 256);
 #undef J_LAUNCH
   return (int)err;
 }

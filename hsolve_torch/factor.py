@@ -49,9 +49,12 @@ bench's device configuration, a float32 factor as the preconditioner of
 mixed-precision GMRES (kernels A-C then run in float32).  A complex system
 (the damped Helmholtz operator) factors in complex128 or, as the bench's
 device configuration, complex64, on exact plans, and in complex128 on
-low-rank compressed levels (``hss=False``: kernels E-G in complex128, the
-sketches drawn real and cast, as the JAX package draws them); complex
-structured levels (H-K, the HSS modules) are the next slice.  Float32 and
+compressed levels, low-rank (``hss=False``: kernels E-G in complex128) or
+structured (``hss=True``: kernels E-K in complex128), the sketches drawn
+real and cast, as the JAX package draws them.  Only the column-pivoted QR
+behind the interpolative decompositions conjugates (``R = Q^H A``, the ID of
+``A^H``); every other product of the structured levels, their adjoint
+solves included, takes plain transposes, as the JAX package's do.  Float32 and
 complex64 products never use TF32 here:
 ``factor_with_plan`` sets ``torch.backends.cuda.matmul.allow_tf32 = False``
 explicitly.
@@ -580,24 +583,10 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
 # entry points
 # ---------------------------------------------------------------------------
 
-def _reaches_hss(plan: Plan, opts: SolverOptions) -> bool:
-    """Whether the schedule runs an HSS step: a structured batch, or a
-    compressed batch that emits its Schur complement as HSS."""
-    return any(bp.structured or (bp.compress and bp.cplan is not None
-                                 and opts.hss) for bp in plan.batches)
-
-
-def _torch_dtype(dtype, plan: Plan, opts: SolverOptions) -> torch.dtype:
+def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
     tdt = torch_dtype(plan.A_dtype if dtype is None else dtype)
     if not (tdt.is_floating_point or tdt.is_complex):
         raise TypeError(f"unsupported factorization dtype {tdt}")
-    if tdt.is_complex and _reaches_hss(plan, opts):
-        raise NotImplementedError(
-            "complex values on structured (HSS) levels (kernels H-K, "
-            "ops/hss.py and structured.py in complex) are the port's next "
-            "slice; the JAX package factors such plans (hsolve.factor); "
-            "factor this system with hss=False (low-rank compressed levels) "
-            "or swlevel=0 here")
     return tdt
 
 
@@ -612,13 +601,13 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
     CPU every kernel runs as its plain torch version.  A complex system
     (``plan.A_dtype`` complex128, e.g. ``helmholtz2d(n, damping=0.1)``)
     factors in complex128 or complex64 on an exact plan (``swlevel=0``), and
-    in complex128 on low-rank compressed levels (``hss=False``), on either
-    device (complex64 there only on the CPU); a complex plan that reaches an
-    HSS step raises ``NotImplementedError``.  ``sketch`` replaces the default
+    in complex128 on compressed levels, low-rank (``hss=False``) or
+    structured (``hss=True``, the default), on either device (complex64
+    there only on the CPU).  ``sketch`` replaces the default
     sketches of the compressed batches (see :data:`Sketch` and
     :func:`torch_sketch`)."""
     dev = resolve_device(device)
-    tdt = _torch_dtype(dtype, plan, opts)
+    tdt = _torch_dtype(dtype, plan)
     if dev.type == "cuda" and tdt not in VALUE_TYPES:
         raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
     if dev.type == "cuda" and tdt in (torch.float32, torch.complex64) and any(
@@ -651,7 +640,9 @@ def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
            **overrides) -> Factorization:
     """Top-level entry (parity with ``factor(A, nd, nd_loc, opts; args...)``,
     factorization.jl:5-11): plan, then factor on ``device`` (the card unless
-    the caller asks for the CPU; see :func:`factor_with_plan`).
+    the caller asks for the CPU; see :func:`factor_with_plan`, also for the
+    value types: a complex system factors in complex128 on exact, low-rank
+    and structured levels alike).
 
     With ``opts.adaptive`` the computed compression ranks are checked against
     the planned caps; on saturation the problem is re-planned with the largest

@@ -35,8 +35,9 @@ H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32, float64, complex64 or complex128
 values (one C entry point per type, ``hs_<name>``, ``hs_<name>_f32``,
 ``_c64`` and ``_c128``; the complex kernels use the value traits of
-``csrc/hs_complex.cuh``); E, F and G take float64 or complex128
-(``hs_<name>`` and ``hs_<name>_c128``), H-K float64; the control kernels the
+``csrc/hs_complex.cuh``); E-K take float64 or complex128 (``hs_<name>`` and
+``hs_<name>_c128``; J's and K's complex128 forms run on the CUDA cores, K's
+as one kernel for every k); the control kernels the
 solution's type (the cycle start also float32 cycles in a float64 solve,
 ``hs_gmres_cycle_start_mixed``, and complex64 cycles in a complex128 one,
 ``hs_gmres_cycle_start_mixed_c``).  Kernel C's
@@ -52,7 +53,7 @@ card cannot hold its grid at once; kernel F's top levels share a row band's
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
-a plain integer attribute, ``wrapper.launches``; the wrappers of A-G, L, M
+a plain integer attribute, ``wrapper.launches``; the wrappers of A-M
 and the control kernels also count them per value type in
 ``wrapper.launches_by_type`` (:func:`count_launch`).  A wrapper called while
 a solve's parts are captured into a CUDA graph counts at capture; the graph
@@ -126,9 +127,11 @@ _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name] for name in TYPED
                                     "hs_gmres_escalate")
                     for sfx in ("_c64", "_c128")})
 _SIGNATURES["hs_gmres_cycle_start_mixed_c"] = _SIGNATURES["hs_gmres_cycle_start"]
-# E, F and G take float64 or complex128 (the compressed levels' types)
+# E-K take float64 or complex128 (the compressed and structured levels'
+# types)
 LOWRANK_TYPED = ("hs_lowrank_sweep_update", "hs_lowrank_schur_update",
-                 "hs_lowrank_truncate")
+                 "hs_lowrank_truncate", "hs_cpqr", "hs_hss_entries",
+                 "hs_hss_matvec", "hs_hss_level_correct")
 _SIGNATURES.update({f"{name}_c128": _SIGNATURES[name]
                     for name in LOWRANK_TYPED})
 LOWRANK_TYPES = (torch.float64, torch.complex128)
@@ -278,8 +281,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
                         "kernels take int32 indices, and one value type per "
                         "call: float32, float64, complex64 or complex128 for "
-                        "A-D, L and M, float64 or complex128 for E-G, "
-                        "float64 for the others)")
+                        "A-D, L and M, float64 or complex128 for E-K)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if t.is_conj() or t.is_neg():
@@ -311,12 +313,12 @@ def materialized(t: torch.Tensor) -> torch.Tensor:
 
 
 def lowrank_type(*tensors: torch.Tensor) -> torch.dtype:
-    """The one value type of E's, F's or G's value operands: float64 or
-    complex128, shared by all of them; raises ``TypeError`` otherwise."""
+    """The one value type of the value operands of a kernel of E-K: float64
+    or complex128, shared by all of them; raises ``TypeError`` otherwise."""
     types = {t.dtype for t in tensors}
     if len(types) != 1 or not types <= set(LOWRANK_TYPES):
         raise TypeError(f"value operands of types {sorted(map(str, types))}: "
-                        "kernels E-G take one type per call, float64 or "
+                        "kernels E-K take one type per call, float64 or "
                         "complex128")
     return types.pop()
 
@@ -369,6 +371,11 @@ COMPLEX_PATH = ("front_assemble:complex128", "extend_add:complex128",
 COMPLEX_LOWRANK_PATH = COMPLEX_PATH + ("lowrank_sweep_update:complex128",
                                        "lowrank_schur_update:complex128",
                                        "lowrank_truncate:complex128")
+# ... and on structured (HSS) levels (hss=True): H-K in complex128 as well
+COMPLEX_HSS_PATH = COMPLEX_LOWRANK_PATH + ("cpqr_pivots:complex128",
+                                           "hss_entries_prepared:complex128",
+                                           "hss_matvec:complex128",
+                                           "hss_level_correct:complex128")
 # the bench's complex device configuration: a complex64 factor, complex64
 # cycles over a complex64 operator inside a complex128 solve, escalation on
 COMPLEX_MIXED_PATH = ("front_assemble:complex64", "extend_add:complex64",

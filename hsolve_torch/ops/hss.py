@@ -25,6 +25,11 @@ The leaf LU, the LU of the 2r x 2r Woodbury cores, the upsweeps and the basis
 products are library calls (:mod:`hsolve_torch.ops.dense`, ``torch.matmul``);
 the interpolative decompositions run kernel H
 (:func:`hsolve_torch.ops.lowrank.cpqr`).
+
+Values are float64 or complex128 (the damped Helmholtz system).  In complex
+every product here takes the plain transpose, as the JAX package's do: the
+adjoint matvec and solve are ``A^T x`` and ``A^{-T} b``; only the
+interpolative decompositions conjugate (the ID of ``A^H``, ``R = Q^H A``).
 """
 
 from __future__ import annotations
@@ -266,12 +271,14 @@ def hss_matvec_ld(kc: int) -> int:
     return kc if kc % 16 == 8 else kc + 8
 
 
-def hss_matvec_smem(nleaves: int, depth: int, r: int, cs: int, kc: int) -> int:
-    return 2 * hss_matvec_slots(nleaves, depth, cs) * r * hss_matvec_ld(kc) * 8
+def hss_matvec_smem(nleaves: int, depth: int, r: int, cs: int, kc: int,
+                    itemsize: int = 8) -> int:
+    return (2 * hss_matvec_slots(nleaves, depth, cs) * r * hss_matvec_ld(kc)
+            * itemsize)
 
 
 def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
-                        k: int, sms: int = 132):
+                        k: int, sms: int = 132, itemsize: int = 8):
     """Kernel J's launch: ``(cs, kc, groups, smem, threads, rb)``.  ``kc`` columns a
     chunk: the first of 8, 16, 32 that holds ``k``, else 32.  A matrix
     gets up to ``ceil(sms / B)`` CTAs: first column groups (``groups``, each
@@ -285,7 +292,9 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     256 and 2 at rank 32 (4 row blocks a node), else 512 and 2 at one chunk
     of 8 columns (the solve's k = 1: more warps on the few matrices of a
     level) and 256 and 4 above, the fastest of the forms
-    ``tools/j_breakdown.py`` times."""
+    ``tools/j_breakdown.py`` times.  Complex128 values (``itemsize`` 16)
+    fill twice the bytes a slot and take 512 and 2 at one chunk of 8
+    columns, else 256 and 2 (the CUDA-core form's instances)."""
     del ls  # the leaves' rows stream from global memory
     kc = next((c for c in J_CHUNKS if c >= k), J_CHUNKS[-1])
     chunks = -(-k // kc)
@@ -295,9 +304,12 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     while 2 * cs <= min(8, nleaves) and 2 * cs * groups <= need:
         cs *= 2
     groups = max(1, min(chunks, -(-sms // max(B * cs, 1))))
-    smem = hss_matvec_smem(nleaves, depth, r, cs, kc)
-    return (cs, kc, groups, smem if smem <= SMEM_LIMIT else 0,
-            *((256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)))
+    smem = hss_matvec_smem(nleaves, depth, r, cs, kc, itemsize)
+    if itemsize == 16:
+        form = (512, 2) if kc == 8 else (256, 2)
+    else:
+        form = (256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)
+    return (cs, kc, groups, smem if smem <= SMEM_LIMIT else 0, *form)
 
 
 def hss_matvec_launch(h: Hss, x: torch.Tensor, adjoint: bool, cs: int, kc: int,
@@ -313,7 +325,8 @@ def hss_matvec_launch(h: Hss, x: torch.Tensor, adjoint: bool, cs: int, kc: int,
     ld = hss_matvec_ld(kc)
     state = None if smem else torch.empty(
         Bn * cs * groups * 2 * nown * r * ld, dtype=x.dtype, device=x.device)
-    kernels.launch("hs_hss_matvec", x.device, h.D.data_ptr(), h.U.data_ptr(),
+    kernels.launch(kernels.symbol("hs_hss_matvec", x.dtype), x.device,
+                   h.D.data_ptr(), h.U.data_ptr(),
                    h.V.data_ptr(), Rc.data_ptr(), Wc.data_ptr(),
                    B12c.data_ptr(), B21c.data_ptr(), x.data_ptr(), y.data_ptr(),
                    None if state is None else state.data_ptr(), Bn, p.nleaves,
@@ -327,24 +340,28 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
     """Kernel J wrapper (see the plain version): one launch; one CTA or one
     thread block cluster per matrix walks every level over chunks of the
     columns, its nodes' state in shared memory or, where that does not fit,
-    in a scratch region a CTA (:func:`hss_matvec_geometry`)."""
+    in a scratch region a CTA (:func:`hss_matvec_geometry`).  Float64 or
+    complex128 values, one type for ``x`` and every generator."""
     if kernels.on_cpu(x, h.D):
         return hss_matvec_plain(h, x, adjoint)
     p, Bn, r = h.plan, h.B, h.r
     x = x.contiguous()
     k = x.shape[-1]
-    kernels.require(x, "x", torch.float64, (Bn, p.n_pad, k))
+    dt = kernels.lowrank_type(x, *h.arrays())
+    kernels.require(x, "x", dt, (Bn, p.n_pad, k))
     for a in h.arrays():
-        kernels.require(a, "hss array", torch.float64)
+        kernels.require(a, "hss array", dt)
     if Bn == 0 or k == 0:
         return torch.empty_like(x)
     y = hss_matvec_launch(h, x, adjoint, *hss_matvec_geometry(
-        Bn, p.nleaves, p.ls, r, p.depth, k, kernels.sm_count(x.device)))
-    hss_matvec.launches += 1
+        Bn, p.nleaves, p.ls, r, p.depth, k, kernels.sm_count(x.device),
+        x.element_size()))
+    kernels.count_launch(hss_matvec, dt)
     return y
 
 
 hss_matvec.launches = 0
+hss_matvec.launches_by_type = {}
 
 
 def hss_todense(h: Hss) -> torch.Tensor:
@@ -442,7 +459,8 @@ def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
     """Kernel I wrapper (see the plain version): one CTA per 64 x 64 tile of
     an index block; per LCA level present, the tile's T and V rows staged
     once in shared memory and multiplied as a small product (or one D load
-    per same-leaf entry)."""
+    per same-leaf entry).  Float64 or complex128 values (a complex128
+    slice of T and V is 16 columns)."""
     if kernels.on_cpu(rows, cols, ef.D):
         return hss_entries_prepared_plain(ef, rows, cols)
     D, T, V = ef
@@ -453,23 +471,26 @@ def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
     # the indices are read through their strides (an expanded index block
     # costs no copy)
     rows, cols = rows.to(torch.int64), cols.to(torch.int64)
-    kernels.require(D, "D", torch.float64, (Bn, n_pad // ls, ls, ls))
-    kernels.require(T, "T", torch.float64, (Bn, depth, n_pad, r))
-    kernels.require(V, "V", torch.float64, (Bn, depth, n_pad, r))
+    dt = kernels.lowrank_type(D, T, V)
+    kernels.require(D, "D", dt, (Bn, n_pad // ls, ls, ls))
+    kernels.require(T, "T", dt, (Bn, depth, n_pad, r))
+    kernels.require(V, "V", dt, (Bn, depth, n_pad, r))
     if tuple(rows.shape) != (Bn, M, p) or tuple(cols.shape) != (Bn, M, q):
         raise ValueError(f"rows {tuple(rows.shape)} / cols {tuple(cols.shape)}: "
                          f"expected [{Bn}, M, p] / [{Bn}, M, q]")
     out = torch.empty((Bn, M, p, q), dtype=D.dtype, device=D.device)
     if out.numel():
-        kernels.launch("hs_hss_entries", D.device, D.data_ptr(), T.data_ptr(),
-                       V.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                       out.data_ptr(), *rows.stride(), *cols.stride(), Bn, M,
-                       p, q, n_pad, ls, r, depth)
-        hss_entries_prepared.launches += 1
+        kernels.launch(kernels.symbol("hs_hss_entries", dt), D.device,
+                       D.data_ptr(), T.data_ptr(), V.data_ptr(),
+                       rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
+                       *rows.stride(), *cols.stride(), Bn, M, p, q, n_pad, ls,
+                       r, depth)
+        kernels.count_launch(hss_entries_prepared, dt)
     return out
 
 
 hss_entries_prepared.launches = 0
+hss_entries_prepared.launches_by_type = {}
 
 
 def hss_entries(h: Hss, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -822,6 +843,28 @@ def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
     return nc, 1, ctas, stages
 
 
+def level_correct_smem_c128(r: int, nc: int) -> int:
+    """Dynamic shared memory of a CTA of the complex128 kernel: xi and w
+    [2r, nc] each, a diagonal block's 32 x 33 copy and the core's
+    permutation."""
+    return 16 * (4 * r * nc + 32 * 33) + 8 * r
+
+
+def level_correct_geometry_c128(r: int, k: int) -> int:
+    """Columns a CTA of kernel K's complex128 form (every k, one CTA per
+    node and column group): up to 32, halved while xi and w do not fit a
+    CTA's shared memory (16 at r = 192).  Raises where one column does not
+    fit (r above 2993)."""
+    nc = min(k, HSS_CORRECT_MAX_COLS)
+    while nc > 1 and level_correct_smem_c128(r, nc) > HSS_CORRECT_MAX_SMEM:
+        nc = -(-nc // 2)
+    if level_correct_smem_c128(r, nc) > HSS_CORRECT_MAX_SMEM:
+        raise ValueError(f"hss_level_correct: rank {r} needs "
+                         f"{level_correct_smem_c128(r, 1)} bytes of shared "
+                         "memory for one complex right-hand side")
+    return nc
+
+
 _ACTIVE = {}
 
 
@@ -850,35 +893,42 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     k > 1, CTAs of up to 32 columns, a node's on one thread block cluster
     where the launch fits the card at once (:func:`level_correct_geometry`).
     Either forms eta, streams the core LU through shared memory for the
-    pivoted solve and corrects both children's rows of ``Y`` in place."""
+    pivoted solve and corrects both children's rows of ``Y`` in place.
+    Complex128 values take one CUDA-core kernel for every k, a CTA per node
+    and up to 32 columns (:func:`level_correct_geometry_c128`)."""
     if kernels.on_cpu(Y, xi, Bl, lu):
         return hss_level_correct_plain(Y, xi, Bl, Br, lu, piv, Phi, transpose)
     Bn, n_pad, k = Y.shape
     m, r = Bl.shape[1], Bl.shape[-1]
-    kernels.require(Y, "Y", torch.float64)
-    kernels.require(xi, "xi", torch.float64, (Bn, 2 * m, r, k))
-    kernels.require(Bl, "Bl", torch.float64, (Bn, m, r, r))
-    kernels.require(Br, "Br", torch.float64, (Bn, m, r, r))
-    kernels.require(lu, "lu", torch.float64, (Bn, m, 2 * r, 2 * r))
+    dt = kernels.lowrank_type(Y, xi, Bl, Br, lu, Phi)
+    kernels.require(Y, "Y", dt)
+    kernels.require(xi, "xi", dt, (Bn, 2 * m, r, k))
+    kernels.require(Bl, "Bl", dt, (Bn, m, r, r))
+    kernels.require(Br, "Br", dt, (Bn, m, r, r))
+    kernels.require(lu, "lu", dt, (Bn, m, 2 * r, 2 * r))
     kernels.require(piv, "piv", torch.int64, (Bn, m, 2 * r))
-    kernels.require(Phi, "Phi", torch.float64, (Bn, n_pad, r))
+    kernels.require(Phi, "Phi", dt, (Bn, n_pad, r))
     nc = cs = stages = 0
-    if k > 1:
+    if dt == torch.complex128:
+        nc = level_correct_geometry_c128(r, k)
+    elif k > 1:
         # the tensor maps take 16-byte aligned bases and row strides
         if r % 2 or any(t.data_ptr() % 16 for t in (Bl, Br, lu, Phi)):
             raise ValueError(f"hss_level_correct: k = {k} > 1 needs an even "
                              f"rank (got {r}) and 16-byte aligned operands")
         nc, cs, _, stages = level_correct_launch(r, k, Bn * m, Y.device)
     if Bn * m and k:
-        kernels.launch("hs_hss_level_correct", Y.device, Y.data_ptr(),
-                       xi.data_ptr(), Bl.data_ptr(), Br.data_ptr(),
-                       lu.data_ptr(), piv.data_ptr(), Phi.data_ptr(), Bn, m, r,
-                       n_pad // (2 * m), k, nc, cs, stages, int(transpose))
-        hss_level_correct.launches += 1
+        kernels.launch(kernels.symbol("hs_hss_level_correct", dt), Y.device,
+                       Y.data_ptr(), xi.data_ptr(), Bl.data_ptr(),
+                       Br.data_ptr(), lu.data_ptr(), piv.data_ptr(),
+                       Phi.data_ptr(), Bn, m, r, n_pad // (2 * m), k, nc, cs,
+                       stages, int(transpose))
+        kernels.count_launch(hss_level_correct, dt)
     return Y
 
 
 hss_level_correct.launches = 0
+hss_level_correct.launches_by_type = {}
 
 
 def _apply_level_correction(sol: HssSolver, Y: torch.Tensor, lev: int,

@@ -139,15 +139,34 @@ class CPQR(NamedTuple):
     rank: torch.Tensor  # [...] int32 numerical rank against the tolerance
 
 
+def _abs2(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2`` in the real type: ``x * x`` for a real ``x``; ``re^2 +
+    im^2`` for a complex one, each product rounded (kernel H's order)."""
+    if not x.is_complex():
+        return x * x
+    return x.real * x.real + x.imag * x.imag
+
+
+def _div_real(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``a / d`` for a real ``d`` [B], each part of a complex ``a`` [B, m]
+    divided on its own (JAX's division by ``d + 0j``; torch's complex
+    division by a real is a product with the reciprocal)."""
+    if not a.is_complex():
+        return a / d[:, None]
+    return torch.view_as_complex(torch.view_as_real(a) / d[:, None, None])
+
+
 def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
     """The pivot loop of ``hsolve/ops/lowrank.py:cpqr`` (:189-219): ``k`` steps
-    of Businger-Golub column pivoting with norm downdating on ``A`` [B, m, n];
-    returns ``(piv [B, k] int32, -1 past the rank; rank [B] int32)``.  Ties go
-    to the first maximal norm, as ``jnp.argmax`` does."""
+    of Businger-Golub column pivoting with norm downdating on ``A`` [B, m, n]
+    (float64 or complex128); returns ``(piv [B, k] int32, -1 past the rank;
+    rank [B] int32)``.  The norms are real, ``sum |a|^2``; the coefficients
+    are ``q^H A`` and the downdate subtracts ``|coef|^2``.  Ties go to the
+    first maximal norm, as ``jnp.argmax`` does."""
     Bn, m, n = A.shape
     A = A.clone()
-    norms2 = (A * A).sum(-2)
-    norms0 = norms2.max(-1).values.sqrt() if n else A.new_zeros(Bn)
+    norms2 = _abs2(A).sum(-2)
+    norms0 = norms2.max(-1).values.sqrt() if n else norms2.new_zeros(Bn)
     thr = torch.clamp(rtol * norms0, min=atol)
     piv = torch.full((Bn, k), -1, dtype=torch.int32, device=A.device)
     rank = torch.zeros(Bn, dtype=torch.int32, device=A.device)
@@ -156,14 +175,14 @@ def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
     for j in range(k):
         p = norms2.argmax(-1)
         a = A[rows, :, p]                                       # [B, m]
-        nrm = torch.clamp((a * a).sum(-1), min=1e-300).sqrt()
+        nrm = torch.clamp(_abs2(a).sum(-1), min=1e-300).sqrt()
         ok = active & (nrm > thr)
         piv[:, j] = torch.where(ok, p, -1).to(torch.int32)
         rank += ok.to(torch.int32)
-        q = torch.where(ok[:, None], a / nrm[:, None], 0.0)
-        coef = (q[:, :, None] * A).sum(-2)                      # [B, n]
+        q = torch.where(ok[:, None], _div_real(a, nrm), 0.0)
+        coef = (q.conj()[:, :, None] * A).sum(-2)               # [B, n]
         A -= q[:, :, None] * coef[:, None, :]
-        norms2 = torch.clamp(norms2 - coef * coef, min=0.0)
+        norms2 = torch.clamp(norms2 - _abs2(coef), min=0.0)
         norms2[rows, p] = -float("inf")
         active = ok
     return piv, rank
@@ -175,69 +194,76 @@ CPQR_MAX_SMEM = 227 * 1024 - 1024
 CPQR_CLUSTERS = (1, 2, 4, 8)     # portable thread block cluster sizes
 
 
-def cpqr_smem(m: int, n: int, cs: int, resident: bool = True) -> int:
+def cpqr_smem(m: int, n: int, cs: int, resident: bool = True,
+              itemsize: int = 8) -> int:
     """Dynamic shared memory of one CTA of kernel H when a cluster of ``cs``
-    CTAs shares an ``[m, n]`` matrix: its ``ceil(n / cs)`` columns (where
-    ``resident``), their norms and coefficients, and the pivot direction."""
+    CTAs shares an ``[m, n]`` matrix of ``itemsize``-byte values (8:
+    float64, 16: complex128): its ``ceil(n / cs)`` columns (where
+    ``resident``), their coefficients and the pivot direction in the value
+    type, their norms in float64."""
     w = -(-n // cs)
-    return 8 * ((m * w if resident else 0) + 2 * w + m)
+    return itemsize * ((m * w if resident else 0) + w + m) + 8 * w
 
 
-def cpqr_cluster(m: int, n: int):
+def cpqr_cluster(m: int, n: int, itemsize: int = 8):
     """``(cs, resident)``: kernel H spreads one ``[m, n]`` matrix's columns
     over the fewest CTAs of a cluster whose shared memory holds them; a
     matrix that 8 CTAs cannot hold keeps them in a global scratch copy
     (``resident`` False) on a cluster of 8."""
     for cs in CPQR_CLUSTERS:
-        if cpqr_smem(m, n, cs) <= CPQR_MAX_SMEM:
+        if cpqr_smem(m, n, cs, True, itemsize) <= CPQR_MAX_SMEM:
             return cs, True
     return CPQR_CLUSTERS[-1], False
 
 
 def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
-    """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64,
-    each matrix's columns spread over a thread block cluster
+    """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64
+    or complex128, each matrix's columns spread over a thread block cluster
     (:func:`cpqr_cluster`)."""
     if kernels.on_cpu(A):
         return cpqr_pivots_plain(A, atol, rtol, k)
     Bn, m, n = A.shape
-    kernels.require(A, "A", torch.float64)
+    dt = kernels.lowrank_type(A)
+    kernels.require(A, "A", dt)
+    isz = A.element_size()
     piv = torch.empty((Bn, k), dtype=torch.int32, device=A.device)
     rank = torch.empty((Bn,), dtype=torch.int32, device=A.device)
     if Bn and k:
-        cs, resident = cpqr_cluster(m, n)
-        if cpqr_smem(m, n, cs, resident) > CPQR_MAX_SMEM:
+        cs, resident = cpqr_cluster(m, n, isz)
+        if cpqr_smem(m, n, cs, resident, isz) > CPQR_MAX_SMEM:
             raise ValueError(f"cpqr: a [{m}, {n}] matrix's norms and pivot "
                              "direction alone exceed a CTA's shared memory")
         work = None if resident else torch.empty(
             (Bn * cs, m, -(-n // cs)), dtype=A.dtype, device=A.device)
-        kernels.launch("hs_cpqr", A.device, A.data_ptr(), piv.data_ptr(),
-                       rank.data_ptr(), None if work is None else work.data_ptr(),
+        kernels.launch(kernels.symbol("hs_cpqr", dt), A.device, A.data_ptr(),
+                       piv.data_ptr(), rank.data_ptr(),
+                       None if work is None else work.data_ptr(),
                        float(atol), float(rtol), Bn, m, n, k, cs)
-        cpqr_pivots.launches += 1
+        kernels.count_launch(cpqr_pivots, dt)
     elif Bn:
         rank.zero_()
     return piv, rank
 
 
 cpqr_pivots.launches = 0
+cpqr_pivots.launches_by_type = {}
 
 
 def cpqr(A: torch.Tensor, atol: float, rtol: float, cap: int) -> CPQR:
     """Batched column-pivoted QR, R and pivots only (parity with
     ``hsolve/ops/lowrank.py:cpqr``): the pivot loop (kernel H), then a plain QR
-    of the selected columns and ``R = Q^T A``, masked past the rank and padded
+    of the selected columns and ``R = Q^H A``, masked past the rank and padded
     to ``cap`` rows."""
     *batch, m, n = A.shape
     k = min(cap, m, n)
-    A3 = A.reshape(-1, m, n).contiguous()
+    A3 = kernels.materialized(A.reshape(-1, m, n))
     piv, rank = cpqr_pivots(A3, atol, rtol, k)
     piv = piv.long()
     pos = piv.clamp(min=0)
     Asel = torch.gather(A3, -1, pos[:, None, :].expand(-1, m, k))
     mask = (torch.arange(k, device=A.device) < rank[:, None]).to(A.dtype)
     Q, _ = torch.linalg.qr(Asel * mask[:, None, :])
-    R = (Q.transpose(-1, -2) @ A3) * mask[:, :, None]
+    R = (Q.mH @ A3) * mask[:, :, None]
     if k < cap:
         R = torch.nn.functional.pad(R, (0, 0, 0, cap - k))
         piv = torch.nn.functional.pad(piv, (0, cap - k), value=-1)
@@ -247,10 +273,10 @@ def cpqr(A: torch.Tensor, atol: float, rtol: float, cap: int) -> CPQR:
 
 def interp_decomp(A: torch.Tensor, atol: float, rtol: float, cap: int):
     """Row interpolative decomposition ``A ~= T @ A[J, :]`` (parity with
-    ``hsolve/ops/lowrank.py:interp_decomp``) from :func:`cpqr` of ``A^T``.
+    ``hsolve/ops/lowrank.py:interp_decomp``) from :func:`cpqr` of ``A^H``.
     Returns ``(J [..., cap] int64 row ids, -1 past the rank; T [..., m, cap],
     zero past the rank; rank [...] int32)``."""
-    f = cpqr(A.transpose(-1, -2), atol, rtol, cap)
+    f = cpqr(A.mH, atol, rtol, cap)
     k = f.R.shape[-2]
     pos = f.piv.clamp(min=0)
     R11 = torch.gather(f.R, -1, pos[..., None, :].expand(*f.R.shape[:-1], k))
@@ -259,5 +285,5 @@ def interp_decomp(A: torch.Tensor, atol: float, rtol: float, cap: int):
     # identity on the masked-out part keeps the triangular solve well-posed
     R11g = R11 * mask[..., None, :] + eye * (1.0 - mask[..., None, :])
     Tt = torch.linalg.solve_triangular(R11g, f.R, upper=True)
-    T = Tt.transpose(-1, -2) * mask[..., None, :]
+    T = Tt.mH * mask[..., None, :]
     return torch.where(f.piv >= 0, pos, -1), T, f.rank

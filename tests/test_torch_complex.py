@@ -14,9 +14,10 @@ helmholtz2d(48, k=25, damping=0.1) at leafmax 60.
   the bench's complex configuration (a complex64 factor, complex64 cycles in
   a complex128 solve, ``m_eps=1e-6``, escalation) within one iteration of
   JAX's count on the same inputs;
-- a complex plan with structured (HSS) levels raises ``NotImplementedError``,
-  and one with low-rank compressed levels (``hss=False``) factors
-  (``test_torch_complex_lowrank.py`` holds those levels to JAX's).
+- a complex compressed plan factors in complex128, on low-rank
+  (``hss=False``) and on structured levels (``hss=True``, the default;
+  ``test_torch_complex_lowrank.py`` and
+  ``test_torch_complex_structured.py`` hold those levels to JAX's).
 Kernel C's level steps in complex are in ``test_torch_sweep.py``, the
 Arnoldi step in ``test_torch_arnoldi.py`` and the cycle start in
 ``test_torch_krylov_deferred.py``, beside their real cases."""
@@ -168,19 +169,20 @@ def test_complex64_levels_match_jax():
 
 @pytest.mark.parametrize("hss", [True, False])
 def test_complex_compressed_plan_is_refused(hss):
-    """Complex structured (HSS) levels are the next slice: the factor
-    raises, naming it, on the CPU as on the card.  Complex low-rank
-    compressed levels (``hss=False``) factor, in complex128."""
+    """A complex compressed plan is no longer refused: it factors in
+    complex128 on low-rank compressed levels (``hss=False``) and on
+    structured (HSS) levels (``hss=True``, the default), with computed
+    ranks (``tests/test_torch_complex_structured.py`` holds the structured
+    levels to the JAX package's)."""
+    from hsolve_torch.structured import StructuredLevel
+
     A, _, shape = hsolve.helmholtz2d(48, k=25.0, damping=0.1)
     tree = ht.nested_dissection(shape, leafmax=60)
     kw = dict(swlevel=-2, swsize=1, atol=1e-4, rtol=1e-4, hss=hss,
               device="cpu")
-    if hss:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ht.factor(A, tree, **kw)
-    else:
-        F = ht.factor(A, tree, **kw)
-        assert F.dtype == torch.complex128 and F.maxrank() > 0
+    F = ht.factor(A, tree, **kw)
+    assert F.dtype == torch.complex128 and F.maxrank() > 0
+    assert any(isinstance(lv, StructuredLevel) for lv in F.levels) == hss
 
 
 # --- GMRES ------------------------------------------------------------------------

@@ -1416,10 +1416,15 @@ def test_complex_slice_on_cuda(dev, mixed):
 
 
 def test_complex_compressed_refused_on_cuda(dev):
+    """A complex64 factor on structured (HSS) levels, hss at its default,
+    is still refused on the card (no complex64 kernels E-K); the message
+    names complex64.  Complex128 factors there
+    (``test_complex_structured_slice_on_cuda``)."""
     A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="complex64"):
         ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
-                  swsize=16, atol=1e-3, rtol=1e-3, device=dev)
+                  swsize=16, atol=1e-3, rtol=1e-3, dtype=torch.complex64,
+                  device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1557,3 +1562,131 @@ def test_complex_rand_lowrank_on_cuda_matches_cpu(dev):
     c = rand_lowrank(A.cpu(), om.cpu(), 1e-6, 1e-6, 24)
     assert torch.equal(g.rank.cpu(), c.rank)
     assert _rel((g.U @ g.V.mT).cpu(), c.U @ c.V.mT) < 1e-12
+
+
+# ---------------------------------------------------------------------------
+# complex values on the structured (HSS) levels: H-K in complex128
+# ---------------------------------------------------------------------------
+
+def _random_hss_c128(dev, B, depth, ls, r, seed):
+    """Random complex128 generators of a batch of HSS matrices on the card."""
+    rng = np.random.default_rng(seed)
+    h = _random_hss(dev, B, depth, ls, r, seed)
+    return h.map(lambda a: a.to(torch.complex128) + 1j * torch.as_tensor(
+        rng.standard_normal(tuple(a.shape)) / np.sqrt(a.shape[-1]),
+        device=dev))
+
+
+@pytest.mark.parametrize("m,n,k", [(202, 384, 192), (58, 96, 48)])
+def test_complex_cpqr_kernel_selects_the_plain_pivots(dev, m, n, k):
+    """Kernel H in complex128 on the default n=512 plan's widest panel
+    ([202, 384]: 16-byte values take a cluster of 8 CTAs) and a small one:
+    the plain version's pivots and ranks on decaying spectra, one launch
+    counted in complex128."""
+    from hsolve_torch.ops.lowrank import cpqr_cluster
+
+    assert cpqr_cluster(m, n, 16)[0] >= cpqr_cluster(m, n)[0]
+    rng = np.random.default_rng(m + n)
+    A = _crandn(rng, (5, m, n), torch.complex128, dev) * torch.as_tensor(
+        0.97 ** np.arange(n), device=dev)
+    for tol in (1e-3, 1e-9):
+        before = cpqr_pivots.launches_by_type.get("complex128", 0)
+        piv, rank = cpqr_pivots(A, tol, tol, k)
+        assert cpqr_pivots.launches_by_type["complex128"] == before + 1
+        ppiv, prank = cpqr_pivots_plain(A, tol, tol, k)
+        assert torch.equal(rank, prank) and torch.equal(piv, ppiv)
+        assert int(rank.min()) > 0
+
+
+@pytest.mark.parametrize("p,q", [(70, 45), (130, 192)])
+def test_complex_hss_entries_kernel(dev, p, q):
+    """Kernel I in complex128 (T . V, no conjugate) at rank 192, every LCA
+    level, out-of-range indices NaN where the plain version's are."""
+    h = _random_hss_c128(dev, 2, 3, 24, 192, seed=p)
+    ef = H.hss_entry_factors(h)
+    n = h.plan.n_pad
+    rng = np.random.default_rng(q)
+    rows = rng.integers(0, n, (2, 3, p))
+    cols = rng.integers(0, n, (2, 3, q))
+    rows[0, 1, 3], cols[1, 1, -1] = -1, n + 7
+    rows, cols = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    before = H.hss_entries_prepared.launches_by_type.get("complex128", 0)
+    got = H.hss_entries_prepared(ef, rows, cols)
+    assert H.hss_entries_prepared.launches_by_type["complex128"] == before + 1
+    ref = H.hss_entries_prepared_plain(ef, rows, cols)
+    assert got.dtype == torch.complex128
+    assert torch.equal(got.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    assert _rel(got[fin], ref[fin]) < 1e-13
+
+
+@pytest.mark.parametrize("B,depth,ls,r", [(3, 4, 24, 192), (127, 2, 24, 48)])
+@pytest.mark.parametrize("k", [1, 112])
+def test_complex_hss_matvec_kernel(dev, B, depth, ls, r, k):
+    """Kernel J in complex128 at n=512 default-caps shapes, both directions
+    (``A^T``: the plain transpose), against its plain version."""
+    h = _random_hss_c128(dev, B, depth, ls, r, seed=r + k)
+    x = _crandn(np.random.default_rng(k), (B, h.plan.n_pad, k),
+                torch.complex128, dev)
+    for adj in (False, True):
+        before = H.hss_matvec.launches_by_type.get("complex128", 0)
+        got = H.hss_matvec(h, x, adj)
+        assert H.hss_matvec.launches_by_type["complex128"] == before + 1
+        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-13
+
+
+@pytest.mark.parametrize("r", [48, 192])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_complex_hss_level_correct_kernel(dev, r, adjoint):
+    """Kernel K in complex128 (one CUDA-core kernel for every k) on random
+    operands of rank r (cores up to 384 wide), k = 1 (the solve), 3 and r
+    (hss_factor), against its plain version."""
+    rng = np.random.default_rng(r + adjoint)
+    B, m, blk = 3, 1, r + 5
+    M = np.eye(2 * r) + (rng.standard_normal((B, m, 2 * r, 2 * r))
+                         + 1j * rng.standard_normal((B, m, 2 * r, 2 * r))) / (
+        6 * np.sqrt(2 * r))
+    lu, piv = dk.lu_factor(torch.as_tensor(M, device=dev))
+    c = lambda *s: _crandn(rng, s, torch.complex128, dev)
+    Bl, Br, Phi = c(B, m, r, r), c(B, m, r, r), c(B, 2 * m * blk, r)
+    for k in (1, 3, r):
+        Y, xi = c(B, 2 * m * blk, k), c(B, 2 * m, r, k)
+        args = (xi, Bl, Br, lu.contiguous(), piv.contiguous(), Phi, adjoint)
+        want = H.hss_level_correct_plain(Y.clone(), *args)
+        before = H.hss_level_correct.launches_by_type.get("complex128", 0)
+        got = H.hss_level_correct(Y.clone(), *args)
+        assert H.hss_level_correct.launches_by_type["complex128"] == before + 1
+        assert _rel(got, want) < 1e-13
+
+
+def test_complex_structured_slice_on_cuda(dev):
+    """The damped system helmholtz2d(128, k=40, damping=0.1) on structured
+    levels (kest=32, hss at its default) on the card: a complex128 factor
+    and solve, relres <= 1e-9 within two iterations of the same run on the
+    CPU (the same sketches), every kernel of ``kernels.COMPLEX_HSS_PATH``
+    launched in its type."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(128, k=40.0, damping=0.1)
+    tree = ht.nested_dissection(shape, leafmax=100)
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                      kest=32, device=d)
+        assert F.dtype == torch.complex128
+        op, mv = ht.spmv_format(A, device=d)
+        x, info = ht.gmres_compiled(mv, solve_with_data,
+                                    torch.as_tensor(b, device=d), reltol=1e-9,
+                                    restart=30, maxiter=60, mv_data=op,
+                                    M_data=F.solve_data)
+        assert info["converged"] and info["iters"] <= 8
+        xn = x.cpu().numpy()
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            assert all(counts.get(k, 0) > 0
+                       for k in kernels.COMPLEX_HSS_PATH), counts
+    assert abs(iters[0] - iters[1]) <= 2

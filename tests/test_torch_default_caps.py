@@ -154,3 +154,40 @@ def test_kernel_h_cluster_by_bytes(m, n, cs, resident):
     assert TL.cpqr_smem(m, n, cs, resident) <= TL.CPQR_MAX_SMEM
     if resident and cs > 1:
         assert TL.cpqr_smem(m, n, cs // 2) > TL.CPQR_MAX_SMEM
+
+
+@pytest.mark.parametrize("m,n,cs,resident", [
+    (58, 32, 1, True), (92, 64, 1, True), (202, 96, 2, True),
+    (106, 192, 2, True), (138, 256, 4, True), (202, 384, 8, True),
+    (394, 768, 8, False)])
+def test_kernel_h_cluster_by_bytes_complex128(m, n, cs, resident):
+    """In complex128 H's columns, coefficients and pivot direction take 16
+    bytes a value and the norms 8: the default caps' widest panel [202,
+    384] needs 315,808 bytes a CTA on 4 CTAs, so it takes a cluster of 8
+    (159,520 bytes); every panel of the default n=512 plan keeps a launch."""
+    assert TL.cpqr_smem(202, 384, 4, True, 16) == 315808
+    assert TL.cpqr_smem(202, 384, 8, True, 16) == 159520
+    assert TL.cpqr_cluster(m, n, 16) == (cs, resident)
+    assert TL.cpqr_smem(m, n, cs, resident, 16) <= TL.CPQR_MAX_SMEM
+    if resident and cs > 1:
+        assert TL.cpqr_smem(m, n, cs // 2, True, 16) > TL.CPQR_MAX_SMEM
+    # the float64 sizes are unchanged by the value-type argument
+    assert TL.cpqr_smem(m, n, cs, resident) == \
+        8 * ((m * -(-n // cs) if resident else 0) + 2 * -(-n // cs) + m)
+
+
+@pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 768])
+def test_kernel_k_complex128_geometry_at_any_rank(r):
+    """K's complex128 form (one CUDA-core kernel for every k): up to 32
+    right-hand sides a CTA, halved while xi and w [2r, nc] do not fit 227
+    KB; one column a CTA at k = 1, 16 at the default caps' 2r = 384."""
+    for k in (1, 2, 3, r, 400):
+        nc = T.level_correct_geometry_c128(r, k)
+        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
+        assert T.level_correct_smem_c128(r, nc) <= T.HSS_CORRECT_MAX_SMEM
+        if nc < min(k, T.HSS_CORRECT_MAX_COLS):
+            assert T.level_correct_smem_c128(r, 2 * nc) > \
+                T.HSS_CORRECT_MAX_SMEM
+    assert T.level_correct_geometry_c128(r, 1) == 1
+    if r == 192:
+        assert T.level_correct_geometry_c128(r, 400) == 16

@@ -218,3 +218,23 @@ def test_plain_entries_match_jax_on_mixed_levels_at_rank_192():
                              for m in xor])
     assert set(np.unique(lev)) == {-1, 0, 1, 2, 3}
     assert _rel(np.where(bad, 0.0, et), np.where(bad, 0.0, ej)) < 1e-12
+
+
+@pytest.mark.parametrize("r", [48, 96, 192])
+@pytest.mark.parametrize("k", [1, 58, 112])
+def test_kernel_j_complex128_geometry_fits_a_cta(r, k):
+    """J's complex128 form at every n=512 shape: the slots take 16-byte
+    values (shared memory within a CTA's 232,448 bytes, or the state in a
+    scratch region), the launch (512 threads, 2 row blocks) at one chunk of
+    8 columns and (256, 2) above, the cluster and chunks chosen as in
+    float64."""
+    for B, nl in N512:
+        depth = nl.bit_length() - 1
+        cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
+            B, nl, 32, r, depth, k, itemsize=16)
+        assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
+        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=16)
+        assert need == 2 * T.hss_matvec_smem(nl, depth, r, cs, kc)
+        assert smem == (need if need <= 232448 else 0)
+        assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
+                                                         k)[:3]

@@ -19,14 +19,18 @@ about 0.5 GB of float32 fronts.
 option at its default but ``swlevel=-2, swsize=16, atol=rtol=1e-3`` (no
 kest: the default rank caps), factored in float64 with the JAX package's own
 sketches, then float64 GMRES (reltol 1e-9, restart 30, maxiter 60);
-``--config lowrank-default`` the same with ``hss=False``; ``--config
-lowrank`` chip_smoke.py's low-rank compressed configuration
-(``swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32, hss=False``).  With
-``--damping`` these factor the complex system in complex128 (the JAX
-package's own sketches, real draws cast) under complex128 GMRES:
+``--config hss`` chip_smoke.py's structured configuration, the same with
+``kest=32``; ``--config lowrank-default`` the default caps with
+``hss=False``; ``--config lowrank`` chip_smoke.py's low-rank compressed
+configuration (``swlevel=-2, swsize=16, atol=rtol=1e-3, kest=32,
+hss=False``).  With ``--damping`` these factor the complex system in
+complex128 (the JAX package's own sketches, real draws cast) under
+complex128 GMRES:
 
     JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --damping 0.1 \
         --sizes 128 512 --config lowrank
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --damping 0.1 \
+        --sizes 128 512 --config hss       # or hss-default
 
 ``--damping D`` > 0 (helmholtz2d) runs the damped, complex system
 helmholtz2d(n, k, damping=D) in the JAX bench's complex rule: with the
@@ -135,8 +139,9 @@ def run_compressed_default(args, n: int) -> dict:
     tree = hsolve.nested_dissection(shape, leafmax=100)
     t0 = time.perf_counter()
     F = hsolve.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
-                      hss=args.config == "hss-default",
-                      **({"kest": 32} if args.config == "lowrank" else {}))
+                      hss=args.config.startswith("hss"),
+                      **({"kest": 32} if args.config in ("lowrank", "hss")
+                         else {}))
     jax.block_until_ready(F.solve_data)
     factor_s = time.perf_counter() - t0
     op, _ = hsolve.spmv_format(
@@ -160,19 +165,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
     ap.add_argument("--config", choices=("exact-f32-mixed", "exact",
-                                         "hss-default", "lowrank-default",
-                                         "lowrank"),
+                                         "hss", "hss-default",
+                                         "lowrank-default", "lowrank"),
                     default="exact-f32-mixed")
     ap.add_argument("--problem", choices=("helmholtz2d", "helmholtz3d"),
                     default="helmholtz2d")
     ap.add_argument("--k", type=float, default=40.0)
     ap.add_argument("--damping", type=float, default=0.0,
                     help="helmholtz2d's impedance damping: > 0 gives the "
-                         "complex system (exact and low-rank configs)")
+                         "complex system")
     args = ap.parse_args()
-    if args.damping > 0 and (args.problem != "helmholtz2d" or args.config
-                             == "hss-default"):
-        ap.error("--damping runs the exact and low-rank helmholtz2d configs")
+    if args.damping > 0 and args.problem != "helmholtz2d":
+        ap.error("--damping runs the helmholtz2d configs")
     fn = run if args.config in ("exact-f32-mixed", "exact") \
         else run_compressed_default
     for n in args.sizes:
