@@ -15,10 +15,13 @@ Usage, from the repository root:
 The flags and their defaults are ``bench.py``'s.  Left out: ``--sprec`` (the
 TPU's matmul passes; the port has no such option).  Added:
 ``--factor-dtype``; the factor is float32 on the card and float64 with
-``--cpu``, as in ``bench.py``, and the card has no float32 kernels for
-compressed or structured levels yet, so such plans take ``--factor-dtype
-f64`` there.  A factor in another type than that default adds ``_f64``
-(card) or ``_f32`` (``--cpu``) to the metric's tag.
+``--cpu``, as in ``bench.py``, on exact and compressed plans alike: with
+``--swlevel`` < 0 (structured, as the bench has no ``hss`` switch) the card
+runs kernels E-K in float32, the JAX bench's device configuration, e.g.
+``python -m hsolve_torch.bench --n 128 --swlevel -2 --swsize 16 --atol 1e-3
+--kest 32`` (``--cpu --factor-dtype f32``: the same on the CPU).  A factor
+in another type than that default adds ``_f64`` (card) or ``_f32``
+(``--cpu``) to the metric's tag.
 
 ``--damping D`` > 0 (helmholtz2d only) builds the complex impedance system
 ``K - k^2 M - i k D M`` and runs it with ``bench.py``'s complex rule: the
@@ -29,9 +32,8 @@ escalation to complex128 cycles), with ``--cpu`` complex128 throughout;
 ``f32`` / ``f32`` complex64 with ``--cpu``.  This bench has no ``hss``
 switch, so its compressed plans (``--swlevel`` < 0) are structured: a
 complex system factors there in complex128 (``--cpu``, or ``--factor-dtype
-f64`` on the card, which has no complex64 kernels for compressed or
-structured levels and refuses its default complex64 factor on such a
-plan).  The tag puts ``_damp<D>`` first, as
+f64`` on the card, which has no complex64 kernels E-K yet, slice 16 of the
+port, and refuses its default complex64 factor on such a plan).  The tag puts ``_damp<D>`` first, as
 ``bench.py`` does.  The roofline fields take the complex value's bytes
 (16 or 8) and its parts' peak; the FLOP model is the JAX package's, which
 counts a complex multiply-add as one operation, so a complex run's
@@ -119,8 +121,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "or f64 cycles")
     ap.add_argument("--factor-dtype", default=None, choices=["f32", "f64"],
                     help="factor type (default: f32 on the card, f64 with "
-                         "--cpu); compressed and structured plans take f64 "
-                         "on the card")
+                         "--cpu); a complex system's compressed plans take "
+                         "f64 (complex128) on the card")
     return ap.parse_args(argv)
 
 

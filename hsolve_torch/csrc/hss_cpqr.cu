@@ -20,6 +20,16 @@
 // differ only in the summation order of the three reductions; each column's
 // arithmetic is the same whatever the cluster size.
 //
+// Float32 input (hs_cpqr_f32, the JAX bench's device configuration) is
+// widened to float64 as it is loaded, and the pivot loop runs in float64, as
+// kernels C and E sum a float32 sweep in float64 (fault F4's rule): in
+// float32 the downdate norms^2 - coef^2 cancels to rounding noise once a
+// column's residual falls to 3e-4 of its norm (norms^2 at float32's epsilon),
+// which is where the transition compressions' 2.5e-4 truncations decide
+// their ranks, so a float32 loop and its plain version part on the rank of
+// thousands of the n=512 plans' matrices (a downdated norm^2 rounded to 0,
+// the column never pivoted), not at rounding ties (fault F8, ROADMAP).
+//
 // Values are float64 (hs_cpqr) or complex128 (hs_cpqr_c128, the damped
 // Helmholtz system's levels, stored interleaved as torch stores them).  In
 // complex the norms stay real: |a|^2 = re^2 + im^2 (each product rounded,
@@ -93,9 +103,11 @@ __device__ __forceinline__ hs_c128 h_sub_prod(hs_c128 a, hs_c128 q,
   return hs_c128(__dsub_rn(a.re, pr), __dsub_rn(a.im, pi));
 }
 
-template <typename T>
+// TI the input's type; T the loop's (hs_acc_t<TI>: double for float32 and
+// float64, hs_c128 for complex128)
+template <typename TI, typename T = hs_acc_t<TI>>
 __global__ void __launch_bounds__(H_THREADS)
-    hss_cpqr_kernel(const T* __restrict__ A, int* __restrict__ piv,
+    hss_cpqr_kernel(const TI* __restrict__ A, int* __restrict__ piv,
                     int* __restrict__ rank_out, T* __restrict__ gwork,
                     double atol, double rtol, int m, int n, int k, int cs) {
   constexpr bool CPLX = hs_traits<T>::complex;
@@ -121,10 +133,10 @@ __global__ void __launch_bounds__(H_THREADS)
   T* coef = gwork != nullptr ? smem : smem + (int64_t)m * w;  // [w]
   T* q = coef + w;            // [m] pivot direction (stored by the owner)
   double* nrm2 = reinterpret_cast<double*>(q + m);  // [w] squared norms
-  const T* Ab = A + b * (int64_t)m * n;
+  const TI* Ab = A + b * (int64_t)m * n;
   for (int e = tid; e < m * nc; e += H_THREADS) {
     const int r = e / nc, c = e - r * nc;
-    a[r * w + c] = Ab[(int64_t)r * n + c0 + c];
+    a[r * w + c] = hs_wide(Ab[(int64_t)r * n + c0 + c]);
   }
   __syncthreads();
 
@@ -277,11 +289,13 @@ __global__ void __launch_bounds__(H_THREADS)
 }
 
 // smem: the CTA's columns (unless in the global scratch), coefficients and
-// pivot direction in T, the norms in double (ops/lowrank.py cpqr_smem)
-template <typename T>
+// pivot direction in the loop's type T, the norms in double
+// (ops/lowrank.py cpqr_smem); TI the input's type
+template <typename TI>
 static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
                        double atol, double rtol, long long B, int m, int n,
                        int k, int cs, void* stream) {
+  typedef hs_acc_t<TI> T;
   if (B > 0 && k > 0) {
     if (cs < 1 || cs > H_MAX_CLUSTER || n < 1 || m < 1)
       return (int)cudaErrorInvalidValue;
@@ -289,7 +303,7 @@ static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
     const size_t smem =
         ((gwork != nullptr ? 0 : (size_t)m * w) + w + (size_t)m) * sizeof(T) +
         w * sizeof(double);
-    auto kern = hss_cpqr_kernel<T>;
+    auto kern = hss_cpqr_kernel<TI>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -308,7 +322,7 @@ static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, kern, (const T*)A, (int*)piv, (int*)rank, (T*)gwork, atol, rtol,
+        &cfg, kern, (const TI*)A, (int*)piv, (int*)rank, (T*)gwork, atol, rtol,
         m, n, k, cs);
     if (err != cudaSuccess) {
       cudaGetLastError();
@@ -323,6 +337,13 @@ HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,
                       int k, int cs, void* stream) {
   return launch_cpqr<double>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
                              stream);
+}
+
+HS_EXPORT int hs_cpqr_f32(const void* A, void* piv, void* rank, void* gwork,
+                          double atol, double rtol, long long B, int m, int n,
+                          int k, int cs, void* stream) {
+  return launch_cpqr<float>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
+                            stream);
 }
 
 HS_EXPORT int hs_cpqr_c128(const void* A, void* piv, void* rank, void* gwork,

@@ -31,7 +31,9 @@
 // their D entry directly (lanes along a D row).  A block whose entries all
 // meet one level (the compressors' B12/B21 and leaf blocks) takes one pass.
 //
-// Values are float64 (hs_hss_entries) or complex128 (hs_hss_entries_c128,
+// Values are float64 (hs_hss_entries), float32 (hs_hss_entries_f32, the JAX
+// bench's device configuration: 64-column slices, the same 34 KB, summed in
+// float32) or complex128 (hs_hss_entries_c128,
 // the damped Helmholtz system's levels): the product stays T . V with no
 // conjugate (hsolve/ops/hss.py:293-313), a complex multiply-add as four
 // real ones on the CUDA cores.  A complex128 slice is 16 columns, so the two
@@ -196,6 +198,17 @@ HS_EXPORT int hs_hss_entries(const void* D, const void* T, const void* V,
   return launch_entries<double>(D, T, V, rows, cols, out, srb, srm, srp, scb,
                                 scm, scq, B, M, p, q, n_pad, ls, r, depth,
                                 stream);
+}
+
+HS_EXPORT int hs_hss_entries_f32(const void* D, const void* T, const void* V,
+                                 const void* rows, const void* cols, void* out,
+                                 long long srb, long long srm, long long srp,
+                                 long long scb, long long scm, long long scq,
+                                 long long B, int M, int p, int q, int n_pad,
+                                 int ls, int r, int depth, void* stream) {
+  return launch_entries<float>(D, T, V, rows, cols, out, srb, srm, srp, scb,
+                               scm, scq, B, M, p, q, n_pad, ls, r, depth,
+                               stream);
 }
 
 HS_EXPORT int hs_hss_entries_c128(const void* D, const void* T, const void* V,

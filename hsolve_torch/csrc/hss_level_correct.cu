@@ -59,9 +59,14 @@
 //   clusters per node split the columns, each reading the operands once.
 //
 // Complex128 (hs_hss_level_correct_c128, the damped Helmholtz system's
-// levels): one kernel for every k on the CUDA cores (a complex multiply-add
-// as four real fused multiply-adds), op still the plain transpose, as in
-// the JAX package.  A CTA takes one node and nc of its columns: the
+// levels) and float32 (hs_hss_level_correct_f32, the JAX bench's device
+// configuration): one kernel for every k on the CUDA cores (a complex
+// multiply-add as four real fused multiply-adds), op still the plain
+// transpose, as in the JAX package.  Float32 operands are widened as they
+// are read and the kernel computes in float64, rounding the correction once
+// (F4's rule): a float32 solve with the 2r x 2r cores' LU (2r up to 384 at
+// the n=512 default caps) lands cond(core) float32 epsilons off, and two
+// float32 solves that sum in other orders part by more than 1e-5 of Y.  A CTA takes one node and nc of its columns: the
 // children's upsweep xi [2r, nc] and the right-hand sides w [2r, nc] stay
 // resident in shared memory, w in the solve's order (w[i] =
 // eta[perm[i]]); eta, the blocked substitution and the correction are dot
@@ -762,14 +767,17 @@ __global__ void __launch_bounds__(KB_THREADS) hss_level_correct_block_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// complex128, every k
+// The CUDA-core form, every k: complex128 (the damped Helmholtz system's
+// levels, a complex multiply-add four real FMAs) and float32 (the JAX
+// bench's device configuration: one FMA a multiply-add, summed in float32,
+// no TF32)
 // ---------------------------------------------------------------------------
 #define KC_LDD (K_PANEL + 1)   // the diagonal block's row stride
 
 // sink(it, sum) for items it < nitems of sum_{t < len} term(it, t), G lanes
 // an item (G a power of two, at most 32), folded by shuffles; every thread of
 // the CTA takes part (a uniform trip count)
-template <typename Term, typename Sink>
+template <typename VT, typename Term, typename Sink>
 __device__ __forceinline__ void kc_dots(int nitems, int len, int G, Term term,
                                         Sink sink) {
   const int tid = threadIdx.x, g = tid & (G - 1), per = K_THREADS / G;
@@ -777,7 +785,7 @@ __device__ __forceinline__ void kc_dots(int nitems, int len, int G, Term term,
     const int it = base + tid / G;
     const bool ok = it < nitems;
     // four partial sums: independent chains of multiply-adds and loads
-    hs_c128 a0(0.0), a1(0.0), a2(0.0), a3(0.0);
+    VT a0(0.0), a1(0.0), a2(0.0), a3(0.0);
     if (ok) {
       int t = g;
       for (; t + 3 * G < len; t += 4 * G) {
@@ -788,7 +796,7 @@ __device__ __forceinline__ void kc_dots(int nitems, int len, int G, Term term,
       }
       for (; t < len; t += G) a0 += term(it, t);
     }
-    hs_c128 acc = (a0 + a1) + (a2 + a3);
+    VT acc = (a0 + a1) + (a2 + a3);
     for (int off = G >> 1; off > 0; off >>= 1) acc += hs_shfl_xor(acc, off);
     if (ok && g == 0) sink(it, acc);
   }
@@ -802,12 +810,15 @@ __device__ __forceinline__ int kc_lanes(int nitems, int len) {
   return G;
 }
 
-__global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
-    hs_c128* Y, const hs_c128* __restrict__ xi,
-    const hs_c128* __restrict__ Bl, const hs_c128* __restrict__ Br,
-    const hs_c128* __restrict__ lu, const long long* __restrict__ perm,
-    const hs_c128* __restrict__ Phi, int m, int r, int blk, int k, int nc,
-    int groups, int transpose) {
+// TI the operands' type; VT the type the kernel computes in (hs_acc_t<TI>:
+// double for float32 operands, widened as they are read, F4's rule; the
+// correction rounded once as it is subtracted from Y)
+template <typename TI, typename VT = hs_acc_t<TI>>
+__global__ void __launch_bounds__(K_THREADS) hss_level_correct_cc_kernel(
+    TI* Y, const TI* __restrict__ xi, const TI* __restrict__ Bl,
+    const TI* __restrict__ Br, const TI* __restrict__ lu,
+    const long long* __restrict__ perm, const TI* __restrict__ Phi, int m,
+    int r, int blk, int k, int nc, int groups, int transpose) {
   extern __shared__ __align__(16) unsigned char kc_smem[];
   const int r2 = 2 * r;
   const int64_t bj = blockIdx.x / groups;  // b * m + j
@@ -815,35 +826,35 @@ __global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
   const int ncl = min(nc, k - c0);         // this CTA's columns
   const int64_t b = bj / m;
   const int j = (int)(bj - b * m);
-  hs_c128* w = reinterpret_cast<hs_c128*>(kc_smem);        // [2r][nc]
-  hs_c128* xs = w + (size_t)r2 * nc;                        // [2r][nc]
-  hs_c128* dg = xs + (size_t)r2 * nc;                       // [32][KC_LDD]
+  VT* w = reinterpret_cast<VT*>(kc_smem);                   // [2r][nc]
+  VT* xs = w + (size_t)r2 * nc;                             // [2r][nc]
+  VT* dg = xs + (size_t)r2 * nc;                            // [32][KC_LDD]
   int* pv = reinterpret_cast<int*>(dg + K_PANEL * KC_LDD);  // [2r]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const hs_c128* lub = lu + bj * (int64_t)r2 * r2;
+  const TI* lub = lu + bj * (int64_t)r2 * r2;
   const int64_t rr = (int64_t)r * r;
   for (int e = tid; e < r2; e += K_THREADS) pv[e] = (int)perm[bj * r2 + e];
   // xs[child r + t][c] = xi[2j + child][t][c0 + c]
-  const hs_c128* xb = xi + (b * 2 * m + 2 * j) * (int64_t)r * k + c0;
+  const TI* xb = xi + (b * 2 * m + 2 * j) * (int64_t)r * k + c0;
   for (int e = tid; e < r2 * ncl; e += K_THREADS) {
     const int row = e / ncl, c = e - row * ncl;
-    xs[row * nc + c] = hs_ldg(xb + (int64_t)row * k + c);
+    xs[row * nc + c] = hs_wide(hs_ldg(xb + (int64_t)row * k + c));
   }
   __syncthreads();
 
   // w[i][c] = eta[perm[i]][c], eta[s r + a] = op(C_s)[a] . xi[2j + 1 - s]
   const int ne = r2 * ncl;
-  kc_dots(
+  kc_dots<VT>(
       ne, r, kc_lanes(ne, r),
       [&](int it, int t) {
         const int src = pv[it / ncl], c = it % ncl;
         const int s = src >= r, a = src - s * r;
-        const hs_c128* cp = (s ? Br : Bl) + bj * rr;
-        const hs_c128 cv = hs_ldg(cp + (transpose ? (int64_t)t * r + a
-                                                  : (int64_t)a * r + t));
+        const TI* cp = (s ? Br : Bl) + bj * rr;
+        const VT cv = hs_wide(hs_ldg(cp + (transpose ? (int64_t)t * r + a
+                                                     : (int64_t)a * r + t)));
         return cv * xs[((1 - s) * r + t) * nc + c];
       },
-      [&](int it, hs_c128 v) { w[(it / ncl) * nc + it % ncl] = v; });
+      [&](int it, VT v) { w[(it / ncl) * nc + it % ncl] = v; });
   __syncthreads();
 
   // stage the diagonal block at p0 (nr rows), identity-padded to 32 x 32
@@ -851,8 +862,9 @@ __global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
     for (int e = tid; e < K_PANEL * K_PANEL; e += K_THREADS) {
       const int i = e / K_PANEL, t = e - i * K_PANEL;
       dg[i * KC_LDD + t] = i < nr && t < nr
-                               ? hs_ldg(lub + (int64_t)(p0 + i) * r2 + p0 + t)
-                               : hs_c128(i == t ? 1.0 : 0.0);
+                               ? hs_wide(hs_ldg(lub + (int64_t)(p0 + i) * r2 +
+                                                p0 + t))
+                               : VT(i == t ? 1.0 : 0.0);
     }
   };
   const int np = (r2 + K_PANEL - 1) / K_PANEL;
@@ -861,19 +873,19 @@ __global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
     const int p0 = pp * K_PANEL, nr = min(K_PANEL, r2 - p0);
     const int ni = nr * ncl;
     if (p0 > 0)
-      kc_dots(
+      kc_dots<VT>(
           ni, p0, kc_lanes(ni, p0),
           [&](int it, int t) {
-            return hs_ldg(lub + (int64_t)(p0 + it / ncl) * r2 + t) *
+            return hs_wide(hs_ldg(lub + (int64_t)(p0 + it / ncl) * r2 + t)) *
                    w[t * nc + it % ncl];
           },
-          [&](int it, hs_c128 v) { w[(p0 + it / ncl) * nc + it % ncl] -= v; });
+          [&](int it, VT v) { w[(p0 + it / ncl) * nc + it % ncl] -= v; });
     stage(p0, nr);
     __syncthreads();
     for (int c = warp; c < ncl; c += K_THREADS / 32) {
-      hs_c128 x = lane < nr ? w[(p0 + lane) * nc + c] : hs_c128(0.0);
+      VT x = lane < nr ? w[(p0 + lane) * nc + c] : VT(0.0);
       for (int i = 0; i < K_PANEL; ++i) {
-        const hs_c128 xv = hs_shfl(x, i);
+        const VT xv = hs_shfl(x, i);
         if (lane > i) x -= dg[lane * KC_LDD + i] * xv;
       }
       if (lane < nr) w[(p0 + lane) * nc + c] = x;
@@ -885,21 +897,22 @@ __global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
     const int p0 = pp * K_PANEL, nr = min(K_PANEL, r2 - p0);
     const int q0 = p0 + nr, ni = nr * ncl;
     if (q0 < r2)
-      kc_dots(
+      kc_dots<VT>(
           ni, r2 - q0, kc_lanes(ni, r2 - q0),
           [&](int it, int t) {
-            return hs_ldg(lub + (int64_t)(p0 + it / ncl) * r2 + q0 + t) *
+            return hs_wide(hs_ldg(lub + (int64_t)(p0 + it / ncl) * r2 + q0 +
+                                  t)) *
                    w[(q0 + t) * nc + it % ncl];
           },
-          [&](int it, hs_c128 v) { w[(p0 + it / ncl) * nc + it % ncl] -= v; });
+          [&](int it, VT v) { w[(p0 + it / ncl) * nc + it % ncl] -= v; });
     stage(p0, nr);
     __syncthreads();
     for (int c = warp; c < ncl; c += K_THREADS / 32) {
-      hs_c128 x = lane < nr ? w[(p0 + lane) * nc + c] : hs_c128(0.0);
-      const hs_c128 rd = hs_inv(dg[lane * KC_LDD + lane]);
+      VT x = lane < nr ? w[(p0 + lane) * nc + c] : VT(0.0);
+      const VT rd = hs_inv(dg[lane * KC_LDD + lane]);
       for (int i = K_PANEL - 1; i >= 0; --i) {
         if (lane == i) x = x * rd;
-        const hs_c128 xv = hs_shfl(x, i);
+        const VT xv = hs_shfl(x, i);
         if (lane < i) x -= dg[lane * KC_LDD + i] * xv;
       }
       if (lane < nr) w[(p0 + lane) * nc + c] = x;
@@ -911,25 +924,51 @@ __global__ void __launch_bounds__(K_THREADS) hss_level_correct_c128_kernel(
   const int64_t npad = (int64_t)2 * m * blk;
   const int64_t row0 = b * npad + (int64_t)2 * j * blk;
   const int ny = 2 * blk * ncl;
-  kc_dots(
+  kc_dots<VT>(
       ny, r, kc_lanes(ny, r),
       [&](int it, int t) {
         const int i = it / ncl;
-        return hs_ldg(Phi + (row0 + i) * r + t) *
+        return hs_wide(hs_ldg(Phi + (row0 + i) * r + t)) *
                w[((i >= blk) * r + t) * nc + it % ncl];
       },
-      [&](int it, hs_c128 v) {
-        Y[(row0 + it / ncl) * k + c0 + it % ncl] -= v;
+      [&](int it, VT v) {
+        TI* y = Y + (row0 + it / ncl) * k + c0 + it % ncl;
+        *y = static_cast<TI>(hs_wide(*y) - v);
       });
 }
 
-static size_t k_smem_c128(int r, int nc) {
-  return (size_t)(4 * r * nc + K_PANEL * KC_LDD) * sizeof(hs_c128) +
+// xi and w in the type the kernel computes in
+template <typename TI>
+static size_t k_smem_cc(int r, int nc) {
+  return (size_t)(4 * r * nc + K_PANEL * KC_LDD) * sizeof(hs_acc_t<TI>) +
          (size_t)2 * r * sizeof(int);
 }
 
-// nc columns a CTA (ops/hss.py level_correct_geometry_c128); cs and ns are
+// nc columns a CTA (ops/hss.py level_correct_geometry_cc); cs and ns are
 // not read
+template <typename TI>
+static int level_correct_cc(void* Y, const void* xi, const void* Bl,
+                            const void* Br, const void* lu, const void* perm,
+                            const void* Phi, long long B, int m, int r,
+                            int blk, int k, int nc, int transpose,
+                            void* stream) {
+  if (B <= 0 || m <= 0 || r <= 0 || k <= 0) return (int)cudaGetLastError();
+  if (nc < 1) return (int)cudaErrorInvalidValue;
+  const int groups = (k + nc - 1) / nc;
+  const size_t smem = k_smem_cc<TI>(r, nc);
+  auto kern = hss_level_correct_cc_kernel<TI>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<(unsigned)(B * m * groups), K_THREADS, smem, (cudaStream_t)stream>>>(
+      (TI*)Y, (const TI*)xi, (const TI*)Bl, (const TI*)Br, (const TI*)lu,
+      (const long long*)perm, (const TI*)Phi, m, r, blk, k, nc, groups,
+      transpose);
+  return (int)cudaGetLastError();
+}
+
 HS_EXPORT int hs_hss_level_correct_c128(void* Y, const void* xi,
                                         const void* Bl, const void* Br,
                                         const void* lu, const void* perm,
@@ -938,21 +977,20 @@ HS_EXPORT int hs_hss_level_correct_c128(void* Y, const void* xi,
                                         int ns, int transpose, void* stream) {
   (void)cs;
   (void)ns;
-  if (B <= 0 || m <= 0 || r <= 0 || k <= 0) return (int)cudaGetLastError();
-  if (nc < 1) return (int)cudaErrorInvalidValue;
-  const int groups = (k + nc - 1) / nc;
-  const size_t smem = k_smem_c128(r, nc);
-  auto kern = hss_level_correct_c128_kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kern<<<(unsigned)(B * m * groups), K_THREADS, smem, (cudaStream_t)stream>>>(
-      (hs_c128*)Y, (const hs_c128*)xi, (const hs_c128*)Bl,
-      (const hs_c128*)Br, (const hs_c128*)lu, (const long long*)perm,
-      (const hs_c128*)Phi, m, r, blk, k, nc, groups, transpose);
-  return (int)cudaGetLastError();
+  return level_correct_cc<hs_c128>(Y, xi, Bl, Br, lu, perm, Phi, B, m, r, blk,
+                                   k, nc, transpose, stream);
+}
+
+HS_EXPORT int hs_hss_level_correct_f32(void* Y, const void* xi,
+                                       const void* Bl, const void* Br,
+                                       const void* lu, const void* perm,
+                                       const void* Phi, long long B, int m,
+                                       int r, int blk, int k, int nc, int cs,
+                                       int ns, int transpose, void* stream) {
+  (void)cs;
+  (void)ns;
+  return level_correct_cc<float>(Y, xi, Bl, Br, lu, perm, Phi, B, m, r, blk, k,
+                                 nc, transpose, stream);
 }
 
 // dynamic shared memory of the k = 1 kernel

@@ -59,8 +59,9 @@
 //   with one live column: the operands' bytes, not the products, set the
 //   time there.
 // - Complex128 values (hs_hss_matvec_c128, the damped Helmholtz system's
-//   levels) take the same tree walk, chunks, cluster and state, with the
-//   products on the CUDA cores (jmm_c: a complex multiply-add as four real
+//   levels) and float32 ones (hs_hss_matvec_f32, the JAX bench's device
+//   configuration, one FMA a multiply-add, no TF32) take the same tree
+//   walk, chunks, cluster and state, with the products on the CUDA cores (jmm_c: a complex multiply-add as four real
 //   fused multiply-adds, each lane its fragment's two columns of the same
 //   rows, the operands of four depth steps loaded before their products);
 //   adjoint stays the plain transpose
@@ -171,16 +172,25 @@ __device__ __forceinline__ hs_c128 jload_b(const hs_c128* p) {
   return *p;
 }
 
-template <int NB, int RB, bool TRANS, int BM>
-__device__ __forceinline__ void jmm_c(const hs_c128* __restrict__ g, int ld,
-                                      int m, int kd, int rg, const hs_c128* bs,
+template <int BM>
+__device__ __forceinline__ float jload_b(const float* p) {
+  if (BM == J_B_X) return __ldg(p);
+  if (BM == J_B_PEER) return __ldcg(p);
+  return *p;
+}
+
+// VT: complex128, or float32 (one FMA a multiply-add, summed in float32;
+// no TF32)
+template <int NB, int RB, bool TRANS, int BM, typename VT>
+__device__ __forceinline__ void jmm_c(const VT* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const VT* bs,
                                       int bld, int bcols,
-                                      hs_c128 (&acc)[RB][NB][2], int lane) {
+                                      VT (&acc)[RB][NB][2], int lane) {
   constexpr int KS = 4;  // depth steps whose operands load together
   const int i0 = rg * RB * 8 + (lane >> 2);
   const int cb = 2 * (lane & 3);
   for (int k0 = 0; k0 < kd; k0 += KS) {
-    hs_c128 av[KS][RB], bv[KS][NB][2];
+    VT av[KS][RB], bv[KS][NB][2];
 #pragma unroll
     for (int u = 0; u < KS; ++u) {
       const int kk = k0 + u;
@@ -190,7 +200,7 @@ __device__ __forceinline__ void jmm_c(const hs_c128* __restrict__ g, int ld,
         for (int t = 0; t < 2; ++t) {
           const int c = n * 8 + cb + t;
           bv[u][n][t] = kk >= kd || (BM == J_B_X && c >= bcols)
-                            ? hs_c128(0.0)
+                            ? VT(0.0)
                             : jload_b<BM>(bs + (int64_t)kk * bld + c);
         }
 #pragma unroll
@@ -199,7 +209,7 @@ __device__ __forceinline__ void jmm_c(const hs_c128* __restrict__ g, int ld,
         av[u][q] = i < m && kk < kd
                        ? hs_ldg(g + (TRANS ? (int64_t)kk * ld + i
                                            : (int64_t)i * ld + kk))
-                       : hs_c128(0.0);
+                       : VT(0.0);
       }
     }
 #pragma unroll
@@ -214,7 +224,7 @@ __device__ __forceinline__ void jmm_c(const hs_c128* __restrict__ g, int ld,
 }
 
 // jmm in the value type: the FP64 tensor cores for double, jmm_c for
-// complex128
+// complex128 and float32
 template <int NB, int RB, int KU, bool TRANS, int BM>
 __device__ __forceinline__ void jmm_v(const double* __restrict__ g, int ld,
                                       int m, int kd, int rg, const double* bs,
@@ -228,6 +238,14 @@ __device__ __forceinline__ void jmm_v(const hs_c128* __restrict__ g, int ld,
                                       int m, int kd, int rg, const hs_c128* bs,
                                       int bld, int bcols,
                                       hs_c128 (&acc)[RB][NB][2], int lane) {
+  jmm_c<NB, RB, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
+}
+
+template <int NB, int RB, int KU, bool TRANS, int BM>
+__device__ __forceinline__ void jmm_v(const float* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const float* bs,
+                                      int bld, int bcols,
+                                      float (&acc)[RB][NB][2], int lane) {
   jmm_c<NB, RB, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
 }
 
@@ -591,27 +609,45 @@ HS_EXPORT int hs_hss_matvec(const void* D, const void* U, const void* V,
   return (int)err;
 }
 
-// complex128: (threads, rb) is (512, 2) at kc 8, else (256, 2)
-HS_EXPORT int hs_hss_matvec_c128(const void* D, const void* U, const void* V,
-                                 const void* Rc, const void* Wc,
-                                 const void* B12c, const void* B21c,
-                                 const void* x, void* y, void* state,
-                                 long long B, int nleaves, int ls, int r,
-                                 int depth, int k, int kc, int threads, int rb,
-                                 int cs, int groups, int ld, int nown,
-                                 long long smem, int adjoint, void* stream) {
+// the CUDA-core form (complex128, float32): (threads, rb) is (512, 2) at
+// kc 8, else (256, 2)
+template <typename VT>
+static int matvec_cc(const void* D, const void* U, const void* V,
+                     const void* Rc, const void* Wc, const void* B12c,
+                     const void* B21c, const void* x, void* y, void* state,
+                     long long B, int nleaves, int ls, int r, int depth, int k,
+                     int kc, int threads, int rb, int cs, int groups, int ld,
+                     int nown, long long smem, int adjoint, void* stream) {
   if (!j_valid(B, nleaves, depth, kc, cs, groups, ld, nown, smem, state) ||
       rb != 2 || threads != (kc == 8 ? 512 : 256))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || k == 0) return (int)cudaSuccess;
 #define J_LAUNCH(NB, TH)                                                      \
-  launch_matvec<hs_c128, NB, TH, 2, 8>(D, U, V, Rc, Wc, B12c, B21c, x, y,     \
-                                       state, B, nleaves, ls, r, depth, k,    \
-                                       cs, groups, ld, nown, (size_t)smem,    \
-                                       adjoint, (cudaStream_t)stream)
+  launch_matvec<VT, NB, TH, 2, 8>(D, U, V, Rc, Wc, B12c, B21c, x, y, state,   \
+                                  B, nleaves, ls, r, depth, k, cs, groups,    \
+                                  ld, nown, (size_t)smem, adjoint,            \
+                                  (cudaStream_t)stream)
   const cudaError_t err = kc == 8    ? J_LAUNCH(1, 512)
                           : kc == 16 ? J_LAUNCH(2, 256)
                                      : J_LAUNCH(4, 256);
 #undef J_LAUNCH
   return (int)err;
+}
+
+#define HS_MATVEC_ARGS                                                       \
+  const void *D, const void *U, const void *V, const void *Rc,               \
+      const void *Wc, const void *B12c, const void *B21c, const void *x,     \
+      void *y, void *state, long long B, int nleaves, int ls, int r,         \
+      int depth, int k, int kc, int threads, int rb, int cs, int groups,     \
+      int ld, int nown, long long smem, int adjoint, void *stream
+#define HS_MATVEC_PASS                                                       \
+  D, U, V, Rc, Wc, B12c, B21c, x, y, state, B, nleaves, ls, r, depth, k, kc, \
+      threads, rb, cs, groups, ld, nown, smem, adjoint, stream
+
+HS_EXPORT int hs_hss_matvec_c128(HS_MATVEC_ARGS) {
+  return matvec_cc<hs_c128>(HS_MATVEC_PASS);
+}
+
+HS_EXPORT int hs_hss_matvec_f32(HS_MATVEC_ARGS) {
+  return matvec_cc<float>(HS_MATVEC_PASS);
 }

@@ -468,10 +468,13 @@ HS_EXPORT int hs_lowrank_schur_update(const void* front, const void* RU,
 }
 
 // ---------------------------------------------------------------------------
-// Complex128 (the damped Helmholtz system's low-rank levels): the same
-// function on hs_c128 values, on the CUDA cores.  A complex multiply-add is
-// four real FMAs; no tensor-core form (a complex product there would be four
-// real ones over the parts held apart in shared memory) yet.
+// The CUDA-core form, for complex128 (the damped Helmholtz system's low-rank
+// levels) and float32 (the JAX bench's device configuration: no TF32, so
+// the float32 products run on the CUDA cores at full precision): the same
+// function on values T, a complex multiply-add four real FMAs, a float32
+// one one FMA (summed in float32, as the JAX package's float32 factor sums);
+// no tensor-core form (a complex product there would be four real ones over
+// the parts held apart in shared memory) yet.
 //
 // A CTA of 256 threads takes a band of F_C_BM = 32 rows of one front's S:
 //   1. W = Abi[p_band, :] RU over depth chunks of kd (Abi's rows and RU's
@@ -483,7 +486,8 @@ HS_EXPORT int hs_lowrank_schur_update(const void* front, const void* RU,
 //      Abb[p_i, p_j] (gathered from the front) less W RV^T, stored straight
 //      to S (a warp's columns consecutive).
 // Rows of W and RV in shared memory have an odd stride (kc | 1 values), so
-// a quarter warp's 16-byte reads fall on distinct banks.
+// a quarter warp's 16-byte reads (a warp's 4-byte ones) fall on distinct
+// banks.
 // ---------------------------------------------------------------------------
 #define F_C_BM 32
 
@@ -503,21 +507,29 @@ __device__ __forceinline__ void cfma_add(hs_c128& acc, hs_c128 a, hs_c128 b) {
   acc.im = fma(a.im, b.re, acc.im);
 }
 
+__device__ __forceinline__ void cfma_sub(float& acc, float a, float b) {
+  acc = fmaf(-a, b, acc);
+}
+
+__device__ __forceinline__ void cfma_add(float& acc, float a, float b) {
+  acc = fmaf(a, b, acc);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(F_THREADS, 2)
-lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
-                                 const hs_c128* __restrict__ RU,
-                                 const hs_c128* __restrict__ RV,
-                                 const long long* __restrict__ sperm,
-                                 hs_c128* __restrict__ S, int m_pad,
-                                 int ni_pad, int kc, int bn, int nct, int kd,
-                                 int walk) {
+lowrank_schur_update_cc_kernel(const T* __restrict__ front,
+                               const T* __restrict__ RU,
+                               const T* __restrict__ RV,
+                               const long long* __restrict__ sperm,
+                               T* __restrict__ S, int m_pad, int ni_pad,
+                               int kc, int bn, int nct, int kd, int walk) {
   extern __shared__ __align__(16) unsigned char fsm_c[];
   const int nb = m_pad - ni_pad;
-  const int ld = kc | 1;  // odd: conflict-free 16-byte reads down a column
-  hs_c128* Ws = reinterpret_cast<hs_c128*>(fsm_c);  // [F_C_BM][ld] W
-  hs_c128* RVs = Ws + F_C_BM * ld;                  // [bn][ld] RV[p_cols]
-  hs_c128* Ach = RVs + bn * ld;                     // [F_C_BM][kd] Abi chunk
-  hs_c128* Uch = Ach + F_C_BM * kd;                 // [kd][kc] RU chunk
+  const int ld = kc | 1;  // odd: conflict-free reads down a column
+  T* Ws = reinterpret_cast<T*>(fsm_c);              // [F_C_BM][ld] W
+  T* RVs = Ws + F_C_BM * ld;                        // [bn][ld] RV[p_cols]
+  T* Ach = RVs + bn * ld;                           // [F_C_BM][kd] Abi chunk
+  T* Uch = Ach + F_C_BM * kd;                       // [kd][kc] RU chunk
   int* pi = reinterpret_cast<int*>(Uch + kd * kc);  // [F_C_BM]
   int* pj = pi + F_C_BM;                            // [bn]
 
@@ -526,11 +538,11 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
   const long long b = blockIdx.z;
   const int i0 = blockIdx.y * F_C_BM;
   const long long* p = sperm + b * nb;
-  const hs_c128* F = front + b * (long long)m_pad * m_pad +
-                     (long long)ni_pad * m_pad;  // row ni_pad of the front
-  const hs_c128* RUb = RU + b * (long long)ni_pad * kc;
-  const hs_c128* RVb = RV + b * (long long)nb * kc;
-  const hs_c128 zero(0.0);
+  const T* F = front + b * (long long)m_pad * m_pad +
+               (long long)ni_pad * m_pad;  // row ni_pad of the front
+  const T* RUb = RU + b * (long long)ni_pad * kc;
+  const T* RVb = RV + b * (long long)nb * kc;
+  const T zero(0.0);
 
   for (int r = tid; r < F_C_BM; r += F_THREADS)
     pi[r] = i0 + r < nb ? (int)p[i0 + r] : -1;
@@ -538,7 +550,7 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
 
   // phase 1: W = Abi[p_band, :] RU, 64 of W's columns a pass
   for (int n0 = 0; n0 < kc; n0 += 64) {
-    hs_c128 acc[2][4];
+    T acc[2][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -557,13 +569,13 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
       }
       __syncthreads();
       for (int kk = 0; kk < nk; ++kk) {
-        const hs_c128 a0 = Ach[(2 * g) * kd + kk];
-        const hs_c128 a1 = Ach[(2 * g + 1) * kd + kk];
+        const T a0 = Ach[(2 * g) * kd + kk];
+        const T a1 = Ach[(2 * g + 1) * kd + kk];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = n0 + q + 16 * j;
           if (c < kc) {
-            const hs_c128 u = Uch[kk * kc + c];
+            const T u = Uch[kk * kc + c];
             cfma_add(acc[0][j], a0, u);
             cfma_add(acc[1][j], a1, u);
           }
@@ -597,7 +609,7 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
           pj[c] >= 0 ? RVb[(long long)pj[c] * kc + kk] : zero;
     }
     __syncthreads();
-    hs_c128 acc[2][4];
+    T acc[2][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       const int r = 2 * g + a;
@@ -610,13 +622,13 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
       }
     }
     for (int kk = 0; kk < kc; ++kk) {
-      const hs_c128 w0 = Ws[(2 * g) * ld + kk];
-      const hs_c128 w1 = Ws[(2 * g + 1) * ld + kk];
+      const T w0 = Ws[(2 * g) * ld + kk];
+      const T w1 = Ws[(2 * g + 1) * ld + kk];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = q + 16 * j;
         if (c < bn) {
-          const hs_c128 v = RVs[c * ld + kk];
+          const T v = RVs[c * ld + kk];
           cfma_sub(acc[0][j], w0, v);
           cfma_sub(acc[1][j], w1, v);
         }
@@ -635,32 +647,32 @@ lowrank_schur_update_c128_kernel(const hs_c128* __restrict__ front,
   }
 }
 
-// bytes of shared memory a complex128 CTA takes (ops/schur.py
-// `schur_smem_c128` mirrors it)
-static long long schur_smem_c128(int bn, int kd, int kc) {
+// bytes of shared memory a CTA of the CUDA-core form takes (ops/schur.py
+// `schur_smem_cc` mirrors it)
+template <typename T>
+static long long schur_smem_cc(int bn, int kd, int kc) {
   const long long ld = kc | 1;
-  return 16 * (F_C_BM * ld + bn * ld + (long long)F_C_BM * kd +
-               (long long)kd * kc) +
+  return (long long)sizeof(T) * (F_C_BM * ld + bn * ld +
+                                 (long long)F_C_BM * kd + (long long)kd * kc) +
          4LL * (F_C_BM + bn);
 }
 
-// the geometry is schur_geometry_c128's: bm = 32, cs = 1, whole = 0; nct
+// the geometry is schur_geometry_cc's: bm = 32, cs = 1, whole = 0; nct
 // CTAs a band, each walking ceil(tiles / nct) column tiles of bn
-HS_EXPORT int hs_lowrank_schur_update_c128(const void* front, const void* RU,
-                                           const void* RV, const void* sperm,
-                                           void* S, long long B, int m_pad,
-                                           int ni_pad, int kc, int bm, int bn,
-                                           int cs, int nct, int kd, int whole,
-                                           void* stream) {
+template <typename T>
+static int launch_schur_cc(const void* front, const void* RU, const void* RV,
+                           const void* sperm, void* S, long long B, int m_pad,
+                           int ni_pad, int kc, int bm, int bn, int cs, int nct,
+                           int kd, int whole, void* stream) {
   const int nb = m_pad - ni_pad;
   if (B <= 0 || nb <= 0) return (int)cudaGetLastError();
   const int tiles = bn > 0 ? (nb + bn - 1) / bn : 0;
   if (kc < 1 || bm != F_C_BM || bn < 8 || bn > 64 || bn % 8 || cs != 1 ||
       whole || nct < 1 || nct > tiles || kd < 1 || kd > 64 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const long long smem = schur_smem_c128(bn, kd, kc);
+  const long long smem = schur_smem_cc<T>(bn, kd, kc);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kern = lowrank_schur_update_c128_kernel;
+  auto kern = lowrank_schur_update_cc_kernel<T>;
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(kern,
@@ -670,8 +682,22 @@ HS_EXPORT int hs_lowrank_schur_update_c128(const void* front, const void* RU,
   const dim3 grid((unsigned)nct, (unsigned)((nb + F_C_BM - 1) / F_C_BM),
                   (unsigned)B);
   kern<<<grid, F_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (const hs_c128*)front, (const hs_c128*)RU, (const hs_c128*)RV,
-      (const long long*)sperm, (hs_c128*)S, m_pad, ni_pad, kc, bn, nct, kd,
-      (tiles + nct - 1) / nct);
+      (const T*)front, (const T*)RU, (const T*)RV, (const long long*)sperm,
+      (T*)S, m_pad, ni_pad, kc, bn, nct, kd, (tiles + nct - 1) / nct);
   return (int)cudaGetLastError();
+}
+
+#define HS_SCHUR_ARGS                                                       \
+  const void *front, const void *RU, const void *RV, const void *sperm,     \
+      void *S, long long B, int m_pad, int ni_pad, int kc, int bm, int bn,  \
+      int cs, int nct, int kd, int whole, void *stream
+#define HS_SCHUR_PASS \
+  front, RU, RV, sperm, S, B, m_pad, ni_pad, kc, bm, bn, cs, nct, kd, whole, stream
+
+HS_EXPORT int hs_lowrank_schur_update_c128(HS_SCHUR_ARGS) {
+  return launch_schur_cc<hs_c128>(HS_SCHUR_PASS);
+}
+
+HS_EXPORT int hs_lowrank_schur_update_f32(HS_SCHUR_ARGS) {
+  return launch_schur_cc<float>(HS_SCHUR_PASS);
 }

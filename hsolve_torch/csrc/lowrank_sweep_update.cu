@@ -61,6 +61,13 @@
 // - k > 1 goes in chunks of 4 right-hand sides (kb = 4), k = 1 in one
 //   (kb = 1).
 //
+// Float32 (the JAX bench's device configuration, T = float): the same
+// kernel loading float32 values (four a 16-byte load, VEC = 4) and summing
+// in float64 (the accumulator type A = hs_acc_t<T>: t, the partials and
+// the staged Y rows in doubles), the update rounded to float32 once before
+// its atomic: fault F4's rule, as kernel C's float32 sweep.  Sums in
+// float64 sit far below float32's rounding, so no double-double (dd = 0).
+//
 // Complex128 (the damped Helmholtz system's low-rank levels, T = hs_c128):
 // the same kernel over values of 16 bytes, one a 16-byte load (VEC = 1,
 // hs_vec16's rule).  A complex multiply-add is four real FMAs, two into
@@ -83,6 +90,20 @@ __device__ __forceinline__ void e_load(const double* p, double* v) {
     const double2 t = __ldg(reinterpret_cast<const double2*>(p));
     v[0] = t.x;
     v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// float32 values widened to float64 (four a 16-byte load where VEC = 4)
+template <int VEC>
+__device__ __forceinline__ void e_load(const float* p, double* v) {
+  if (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
   } else {
     v[0] = __ldg(p);
   }
@@ -174,12 +195,13 @@ __global__ void __launch_bounds__(NT)
                                 const int* __restrict__ ids_in, int R, int Cc,
                                 int kc, int k, int N, int cs, int rstep,
                                 int cstep) {
+  typedef hs_acc_t<T> A;  // sums: T, or double for float32 values
   extern __shared__ __align__(16) unsigned char e_smem[];
-  T* smem = reinterpret_cast<T*>(e_smem);
-  T* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
-  T* ys = red + 2 * NT * VEC * KB;  // [NT][KB] staged Y rows
-  T* tpart = ys + NT * KB;         // [2][kc][KB] this CTA's partial t
-  T* tfull = tpart + 2 * kc * KB;  // [2][kc][KB] the cluster's sum
+  A* smem = reinterpret_cast<A*>(e_smem);
+  A* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
+  A* ys = red + 2 * NT * VEC * KB;  // [NT][KB] staged Y rows
+  A* tpart = ys + NT * KB;         // [2][kc][KB] this CTA's partial t
+  A* tfull = tpart + 2 * kc * KB;  // [2][kc][KB] the cluster's sum
   const int red_lo = NT * VEC * KB, t_lo = kc * KB;  // offsets of the lo halves
   const int64_t b = blockIdx.x / cs;
   const int rank = blockIdx.x % cs;  // the CTA's rank in its cluster
@@ -202,11 +224,11 @@ __global__ void __launch_bounds__(NT)
       const int G = NT / pw;
       const int g = tid / pw, pl = tid % pw;
       const int col = (p0 + pl) * VEC;
-      T acc[VEC][KB], acl[VEC][KB];
+      A acc[VEC][KB], acl[VEC][KB];
 #pragma unroll
       for (int v = 0; v < VEC; ++v)
 #pragma unroll
-        for (int r = 0; r < KB; ++r) acc[v][r] = acl[v][r] = T(0.0);
+        for (int r = 0; r < KB; ++r) acc[v][r] = acl[v][r] = A(0.0);
       // the slice's rows in chunks of NT: each thread stages one Y row (the
       // gather of the backward form happens once per row, all of a chunk's
       // in flight together), then the column groups walk the chunk, loading
@@ -219,26 +241,27 @@ __global__ void __launch_bounds__(NT)
             const T* xr = X + (b * Cc + c) * (int64_t)k + r0;
 #pragma unroll
             for (int r = 0; r < KB; ++r)
-              ys[tid * KB + r] = r0 + r < k ? hs_ldg(xr + r) : T(0.0);
+              ys[tid * KB + r] = r0 + r < k ? hs_wide(hs_ldg(xr + r)) : A(0.0);
           } else {
             const int id = __ldg(ids_in + b * Cc + c);
 #pragma unroll
             for (int r = 0; r < KB; ++r)
               ys[tid * KB + r] =
-                  id < N && r0 + r < k ? C[(int64_t)id * k + r0 + r] : T(0.0);
+                  id < N && r0 + r < k ? hs_wide(C[(int64_t)id * k + r0 + r])
+                                       : A(0.0);
           }
         }
         __syncthreads();
         if (g < G) {
           for (int c = g; c < nc; c += E_UNROLL * G) {
-            T vv[E_UNROLL][VEC];
+            A vv[E_UNROLL][VEC];
 #pragma unroll
             for (int u = 0; u < E_UNROLL; ++u) {
               if (c + u * G < nc) {
                 e_load<VEC>(Vb + (int64_t)(cb + c + u * G) * kc + col, vv[u]);
               } else {
 #pragma unroll
-                for (int v = 0; v < VEC; ++v) vv[u][v] = T(0.0);
+                for (int v = 0; v < VEC; ++v) vv[u][v] = A(0.0);
               }
             }
 #pragma unroll
@@ -269,7 +292,7 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
       for (int e = tid; e < pw * VEC * KB; e += NT) {
         const int kk = p0 * VEC + e / KB;
-        T hi = T(0.0), lo = T(0.0);
+        A hi = A(0.0), lo = A(0.0);
         for (int gg = 0; gg < G; ++gg) {
           const int at = gg * pw * VEC * KB + e;
           acc_add<DD>(hi, lo, red[at], red[red_lo + at]);
@@ -282,14 +305,14 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
     }
     // the cluster's sum, the same on every CTA (ranks in order)
-    const T* t = tpart;
+    const A* t = tpart;
     if (cs > 1) {
       cg::cluster_group cl = cg::this_cluster();
       cl.sync();
       for (int e = tid; e < kc * KB; e += NT) {
-        T hi = T(0.0), lo = T(0.0);
+        A hi = A(0.0), lo = A(0.0);
         for (int j = 0; j < cs; ++j) {
-          const T* peer = cl.map_shared_rank(tpart, j);
+          const A* peer = cl.map_shared_rank(tpart, j);
           acc_add<DD>(hi, lo, peer[e], peer[t_lo + e]);
         }
         tfull[e] = hi;
@@ -302,32 +325,32 @@ __global__ void __launch_bounds__(NT)
     // CTA's rows, E_UNROLL rows of U loaded before they multiply
     for (int base = q0; base < q1; base += span * E_UNROLL) {
       int row[E_UNROLL];
-      T acc[E_UNROLL][KB], acl[E_UNROLL][KB];
+      A acc[E_UNROLL][KB], acl[E_UNROLL][KB];
 #pragma unroll
       for (int u = 0; u < E_UNROLL; ++u) {
         row[u] = base + u * span + warp * rpw + slot;
 #pragma unroll
-        for (int r = 0; r < KB; ++r) acc[u][r] = acl[u][r] = T(0.0);
+        for (int r = 0; r < KB; ++r) acc[u][r] = acl[u][r] = A(0.0);
       }
       for (int p = sub; p < P; p += L) {
-        T uu[E_UNROLL][VEC];
+        A uu[E_UNROLL][VEC];
 #pragma unroll
         for (int u = 0; u < E_UNROLL; ++u) {
           if (row[u] < q1) {
             e_load<VEC>(Ub + (int64_t)row[u] * kc + p * VEC, uu[u]);
           } else {
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) uu[u][v] = T(0.0);
+            for (int v = 0; v < VEC; ++v) uu[u][v] = A(0.0);
           }
         }
-        T tv[VEC][KB], tl[VEC][KB];
+        A tv[VEC][KB], tl[VEC][KB];
 #pragma unroll
         for (int v = 0; v < VEC; ++v)
 #pragma unroll
           for (int r = 0; r < KB; ++r) {
             const bool in = p * VEC + v < kc;
-            tv[v][r] = in ? t[(p * VEC + v) * KB + r] : T(0.0);
-            tl[v][r] = in ? t[t_lo + (p * VEC + v) * KB + r] : T(0.0);
+            tv[v][r] = in ? t[(p * VEC + v) * KB + r] : A(0.0);
+            tl[v][r] = in ? t[t_lo + (p * VEC + v) * KB + r] : A(0.0);
           }
 #pragma unroll
         for (int u = 0; u < E_UNROLL; ++u)
@@ -343,8 +366,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int r = 0; r < KB; ++r)
           for (int off = L >> 1; off > 0; off >>= 1) {
-            const T h = hs_shfl_xor(acc[u][r], off);
-            const T l = DD ? hs_shfl_xor(acl[u][r], off) : T(0.0);
+            const A h = hs_shfl_xor(acc[u][r], off);
+            const A l = DD ? hs_shfl_xor(acl[u][r], off) : A(0.0);
             acc_add<DD>(acc[u][r], acl[u][r], h, l);
           }
         if (sub == 0 && row[u] < q1) {
@@ -354,7 +377,7 @@ __global__ void __launch_bounds__(NT)
             for (int r = 0; r < KB; ++r)
               if (r0 + r < k)
                 hs_atomic_add(C + (int64_t)out * k + r0 + r,
-                              -(acc[u][r] + acl[u][r]));
+                              static_cast<T>(-(acc[u][r] + acl[u][r])));
           }
         }
       }
@@ -448,8 +471,8 @@ static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
       (vec != 1 && vec != hs_vec16<T>::n) || kc % vec ||
       (kb != 1 && kb != 4) ||
       smem < (long long)(threads * (2 * vec + 1) * kb + 4 * kc * kb) *
-                 (long long)sizeof(T) ||
-      B * cs > 0x7fffffffLL)
+                 (long long)sizeof(hs_acc_t<T>) ||
+      B * cs > 0x7fffffffLL || (dd && sizeof(T) == 4))
     return (int)cudaErrorInvalidValue;
   T* c = (T*)C;
   const int* o = (const int*)ids_out;
@@ -457,19 +480,29 @@ static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
   const int* in = (const int*)ids_in;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t sm = (size_t)smem;
-  if (threads == 1024)
-    return dd ? lowrank_sweep_dispatch<T, 1024, true>(
-                    c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
-                    vec, kb, sm, s)
-              : lowrank_sweep_dispatch<T, 1024, false>(
-                    c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
-                    vec, kb, sm, s);
-  return dd ? lowrank_sweep_dispatch<T, 256, true>(c, o, u, v, x, in, B, R,
-                                                   Cc, kc, k, N, cs, rstep,
-                                                   cstep, vec, kb, sm, s)
-            : lowrank_sweep_dispatch<T, 256, false>(c, o, u, v, x, in, B, R,
+  if constexpr (sizeof(T) == 4) {  // float32: float64 sums, no dd
+    if (threads == 1024)
+      return lowrank_sweep_dispatch<T, 1024, false>(c, o, u, v, x, in, B, R,
                                                     Cc, kc, k, N, cs, rstep,
                                                     cstep, vec, kb, sm, s);
+    return lowrank_sweep_dispatch<T, 256, false>(c, o, u, v, x, in, B, R, Cc,
+                                                 kc, k, N, cs, rstep, cstep,
+                                                 vec, kb, sm, s);
+  } else {
+    if (threads == 1024)
+      return dd ? lowrank_sweep_dispatch<T, 1024, true>(
+                      c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
+                      vec, kb, sm, s)
+                : lowrank_sweep_dispatch<T, 1024, false>(
+                      c, o, u, v, x, in, B, R, Cc, kc, k, N, cs, rstep, cstep,
+                      vec, kb, sm, s);
+    return dd ? lowrank_sweep_dispatch<T, 256, true>(c, o, u, v, x, in, B, R,
+                                                     Cc, kc, k, N, cs, rstep,
+                                                     cstep, vec, kb, sm, s)
+              : lowrank_sweep_dispatch<T, 256, false>(c, o, u, v, x, in, B, R,
+                                                      Cc, kc, k, N, cs, rstep,
+                                                      cstep, vec, kb, sm, s);
+  }
 }
 
 #define HS_SWEEP_ARGS                                                        \
@@ -483,6 +516,10 @@ static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
 
 HS_EXPORT int hs_lowrank_sweep_update(HS_SWEEP_ARGS) {
   return lowrank_sweep_entry<double>(HS_SWEEP_PASS);
+}
+
+HS_EXPORT int hs_lowrank_sweep_update_f32(HS_SWEEP_ARGS) {
+  return lowrank_sweep_entry<float>(HS_SWEEP_PASS);
 }
 
 HS_EXPORT int hs_lowrank_sweep_update_c128(HS_SWEEP_ARGS) {

@@ -32,7 +32,9 @@
 // cores, a complex multiply-add as four real FMAs: each thread a 4 x 4
 // register tile of U (rows ty + 16 a, columns tx + 16 c), 16-deep chunks of
 // Q and Uw staged in shared memory, whose size is counted in the value's
-// 16 bytes.
+// bytes.  Float32 (the JAX bench's device configuration) takes the same
+// CUDA-core kernel, one FMA a multiply-add (no TF32), sv float32 and the
+// threshold rounded in float32 as the plain version rounds it.
 #include "hs_common.cuh"
 #include "hs_complex.cuh"
 
@@ -92,16 +94,27 @@ __device__ __forceinline__ void gmma(double (&d)[2][2], const double (&a0)[4],
         "d"(b[3]));
 }
 
+// the threshold max(atol, rtol sv[0]) in sv's real type: in float32 as the
+// plain version's float32 ops round it (rtol and atol rounded to float32,
+// one product, a maximum)
+__device__ __forceinline__ double g_thr(double s0, double atol, double rtol) {
+  return fmax(rtol * s0, atol);
+}
+__device__ __forceinline__ float g_thr(float s0, double atol, double rtol) {
+  return fmaxf(__fmul_rn((float)rtol, s0), (float)atol);
+}
+
 // the rank: warp 0 counts sv's values above max(atol, rtol sv[0]), 32 a
 // ballot, capped; block 0 of the front stores it; every thread gets it
-__device__ __forceinline__ int g_rank(const double* sb, int r, double atol,
+template <typename R>
+__device__ __forceinline__ int g_rank(const R* sb, int r, double atol,
                                       double rtol, int cap, int* s_rank,
                                       int* rank_out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (warp == 0) {
     int cnt = 0;
     if (r > 0) {
-      const double thr = fmax(rtol * sb[0], atol);
+      const R thr = g_thr(sb[0], atol, rtol);
       for (int i0 = 0; i0 < r; i0 += 32) {
         const int i = i0 + lane;
         cnt += __popc(__ballot_sync(0xffffffffu, i < r && sb[i] > thr));
@@ -123,9 +136,9 @@ __device__ __forceinline__ int g_rank(const double* sb, int r, double atol,
 // [G_LDT]) and a U tile at or past the rank (zeros).  Returns true where
 // the CTA is done; else it owns the U tile at rows i0.., columns j0.. below
 // the rank rk.
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ bool g_other_tiles(
-    const T* vh, T* u, T* v, const double* sb, int* rank_out, int* s_rank,
+    const T* vh, T* u, T* v, const R* sb, int* rank_out, int* s_rank,
     T* tile, double atol, double rtol, int m, int n, int r, int cap, int& i0,
     int& j0, int& rk) {
   const int tid = threadIdx.x;
@@ -309,44 +322,56 @@ HS_EXPORT int hs_lowrank_truncate(const void* Q, const void* Uw,
 }
 
 // ---------------------------------------------------------------------------
-// complex128
+// The CUDA-core form: complex128 (a complex multiply-add four real FMAs)
+// and float32 (one FMA, summed in float32 as the JAX package's float32
+// factor sums; no TF32), sv in the real type
 // ---------------------------------------------------------------------------
 #define GC_KC 16                          // depth of a staged chunk
 #define GC_STAGE (2 * G_TILE * GC_KC)     // values: Q's and Uw's chunks
 #define GC_SMEM_V (G_TILE * G_LDT)        // values: V's transposition tile
-#define GC_SMEM (16 * (GC_STAGE > GC_SMEM_V ? GC_STAGE : GC_SMEM_V))  // bytes
+#define GC_VALUES (GC_STAGE > GC_SMEM_V ? GC_STAGE : GC_SMEM_V)
 
+__device__ __forceinline__ void g_fma(hs_c128& acc, hs_c128 a, hs_c128 b) {
+  acc.re = fma(a.re, b.re, acc.re);
+  acc.re = fma(-a.im, b.im, acc.re);
+  acc.im = fma(a.re, b.im, acc.im);
+  acc.im = fma(a.im, b.re, acc.im);
+}
+
+__device__ __forceinline__ void g_fma(float& acc, float a, float b) {
+  acc = fmaf(a, b, acc);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(G_THREADS)
-    lowrank_truncate_c128_kernel(const hs_c128* __restrict__ Q,
-                                 const hs_c128* __restrict__ Uw,
-                                 const double* __restrict__ sv,
-                                 const hs_c128* __restrict__ Vh,
-                                 hs_c128* __restrict__ U,
-                                 hs_c128* __restrict__ V,
-                                 int* __restrict__ rank, double atol,
-                                 double rtol, int m, int n, int s, int r,
-                                 int cap) {
+    lowrank_truncate_cc_kernel(const T* __restrict__ Q,
+                               const T* __restrict__ Uw,
+                               const hs_real_t<T>* __restrict__ sv,
+                               const T* __restrict__ Vh, T* __restrict__ U,
+                               T* __restrict__ V, int* __restrict__ rank,
+                               double atol, double rtol, int m, int n, int s,
+                               int r, int cap) {
   extern __shared__ __align__(16) unsigned char gsm_c[];
-  hs_c128* smem = reinterpret_cast<hs_c128*>(gsm_c);
+  T* smem = reinterpret_cast<T*>(gsm_c);
   __shared__ int s_rank;
   const int64_t b = blockIdx.y;
   const int tid = threadIdx.x;
-  const double* sb = sv + b * r;
-  const hs_c128 zero(0.0);
+  const hs_real_t<T>* sb = sv + b * r;
+  const T zero(0.0);
   int i0, j0, rk;
   if (g_other_tiles(Vh + b * r * (int64_t)n, U + b * m * (int64_t)cap,
                     V + b * n * (int64_t)cap, sb, rank + b, &s_rank, smem,
                     atol, rtol, m, n, r, cap, i0, j0, rk))
     return;
-  hs_c128* u = U + b * m * (int64_t)cap;
+  T* u = U + b * m * (int64_t)cap;
 
   // U tile: Q[i0:i0+64, :] @ Uw[:, j0:j0+64] in chunks of GC_KC of depth
-  const hs_c128* qb = Q + b * m * (int64_t)s;
-  const hs_c128* ub = Uw + b * s * (int64_t)r;
-  hs_c128* As = smem;                   // [G_TILE][GC_KC]
-  hs_c128* Bs = As + G_TILE * GC_KC;    // [GC_KC][G_TILE]
+  const T* qb = Q + b * m * (int64_t)s;
+  const T* ub = Uw + b * s * (int64_t)r;
+  T* As = smem;                   // [G_TILE][GC_KC]
+  T* Bs = As + G_TILE * GC_KC;    // [GC_KC][G_TILE]
   const int ty = tid >> 4, tx = tid & 15;  // rows ty + 16 a, cols tx + 16 c
-  hs_c128 acc[4][4];
+  T acc[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -365,7 +390,7 @@ __global__ void __launch_bounds__(G_THREADS)
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < GC_KC; ++kk) {
-      hs_c128 av[4], bv[4];
+      T av[4], bv[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) av[a] = As[(ty + 16 * a) * GC_KC + kk];
 #pragma unroll
@@ -373,12 +398,7 @@ __global__ void __launch_bounds__(G_THREADS)
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[a][c].re = fma(av[a].re, bv[c].re, acc[a][c].re);
-          acc[a][c].re = fma(-av[a].im, bv[c].im, acc[a][c].re);
-          acc[a][c].im = fma(av[a].re, bv[c].im, acc[a][c].im);
-          acc[a][c].im = fma(av[a].im, bv[c].re, acc[a][c].im);
-        }
+        for (int c = 0; c < 4; ++c) g_fma(acc[a][c], av[a], bv[c]);
     }
     __syncthreads();  // the chunk is restaged next
   }
@@ -394,31 +414,44 @@ __global__ void __launch_bounds__(G_THREADS)
   }
 }
 
-HS_EXPORT int hs_lowrank_truncate_c128(const void* Q, const void* Uw,
-                                       const void* sv, const void* Vh,
-                                       void* U, void* V, void* rank,
-                                       double atol, double rtol, long long B,
-                                       int m, int n, int s, int r, int cap,
-                                       void* stream) {
+template <typename T>
+static int launch_truncate_cc(const void* Q, const void* Uw, const void* sv,
+                              const void* Vh, void* U, void* V, void* rank,
+                              double atol, double rtol, long long B, int m,
+                              int n, int s, int r, int cap, void* stream) {
   if (B <= 0 || cap <= 0) return (int)cudaGetLastError();
   if (B > 65535) return (int)cudaErrorInvalidValue;
   const long long ct = (cap + G_TILE - 1) / G_TILE;
   const long long tiles = (((long long)m + G_TILE - 1) / G_TILE +
                            ((long long)n + G_TILE - 1) / G_TILE) * ct;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = GC_VALUES * (int)sizeof(T);
+  auto kern = lowrank_truncate_cc_kernel<T>;
   static bool attr = false;
-  if (!attr) {
+  if (!attr && smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lowrank_truncate_c128_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, GC_SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
   dim3 grid((unsigned)(tiles > 0 ? tiles : 1), (unsigned)B);
-  lowrank_truncate_c128_kernel<<<grid, G_THREADS, GC_SMEM,
-                                 (cudaStream_t)stream>>>(
-      (const hs_c128*)Q, (const hs_c128*)Uw, (const double*)sv,
-      (const hs_c128*)Vh, (hs_c128*)U, (hs_c128*)V, (int*)rank, atol, rtol, m,
-      n, s, r, cap);
+  kern<<<grid, G_THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)Q, (const T*)Uw, (const hs_real_t<T>*)sv, (const T*)Vh, (T*)U,
+      (T*)V, (int*)rank, atol, rtol, m, n, s, r, cap);
   return (int)cudaGetLastError();
+}
+
+#define HS_TRUNC_ARGS                                                         \
+  const void *Q, const void *Uw, const void *sv, const void *Vh, void *U,     \
+      void *V, void *rank, double atol, double rtol, long long B, int m,      \
+      int n, int s, int r, int cap, void *stream
+#define HS_TRUNC_PASS \
+  Q, Uw, sv, Vh, U, V, rank, atol, rtol, B, m, n, s, r, cap, stream
+
+HS_EXPORT int hs_lowrank_truncate_c128(HS_TRUNC_ARGS) {
+  return launch_truncate_cc<hs_c128>(HS_TRUNC_PASS);
+}
+
+HS_EXPORT int hs_lowrank_truncate_f32(HS_TRUNC_ARGS) {
+  return launch_truncate_cc<float>(HS_TRUNC_PASS);
 }

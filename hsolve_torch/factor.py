@@ -44,9 +44,13 @@ sampling operator, never formed.  Its records are
 its low-rank Gauss transforms around :func:`~hsolve_torch.structured.d_apply`.
 A dense parent of HSS children densifies them and adds them with kernel B.
 
-The factor runs in float64 or, on exact (dense) levels, float32: the JAX
-bench's device configuration, a float32 factor as the preconditioner of
-mixed-precision GMRES (kernels A-C then run in float32).  A complex system
+The factor runs in float64 or float32: the JAX bench's device
+configuration, a float32 factor as the preconditioner of mixed-precision
+GMRES (kernels A-C then run in float32, and on compressed and structured
+levels kernels E-K too, E summing in float64 and rounding once, as C's
+float32 sweep does, and H's column-pivoting loop and K's Woodbury solve
+running in float64; the sketches are drawn in float32, as the JAX package
+draws them for a float32 factor).  A complex system
 (the damped Helmholtz operator) factors in complex128 or, as the bench's
 device configuration, complex64, on exact plans, and in complex128 on
 compressed levels, low-rank (``hss=False``: kernels E-G in complex128) or
@@ -597,25 +601,26 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
     default, or "cpu"); a missing card raises.
 
     ``plan`` may come from either planner.  On a CUDA device the kernels run,
-    in float64, or in float32 on a plan without compressed batches; on the
-    CPU every kernel runs as its plain torch version.  A complex system
+    in float64 or float32, exact, low-rank compressed (``hss=False``) and
+    structured (``hss=True``, the default) levels alike; on the CPU every
+    kernel runs as its plain torch version.  A complex system
     (``plan.A_dtype`` complex128, e.g. ``helmholtz2d(n, damping=0.1)``)
     factors in complex128 or complex64 on an exact plan (``swlevel=0``), and
-    in complex128 on compressed levels, low-rank (``hss=False``) or
-    structured (``hss=True``, the default), on either device (complex64
-    there only on the CPU).  ``sketch`` replaces the default
+    in complex128 on compressed levels, low-rank or structured, on either
+    device (complex64 there only on the CPU: kernels E-K in complex64 are
+    slice 16 of the port).  ``sketch`` replaces the default
     sketches of the compressed batches (see :data:`Sketch` and
     :func:`torch_sketch`)."""
     dev = resolve_device(device)
     tdt = _torch_dtype(dtype, plan)
     if dev.type == "cuda" and tdt not in VALUE_TYPES:
         raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
-    if dev.type == "cuda" and tdt in (torch.float32, torch.complex64) and any(
+    if dev.type == "cuda" and tdt == torch.complex64 and any(
             bp.compress for bp in plan.batches):
         raise NotImplementedError(
-            f"{tdt} on compressed and structured levels on the card (kernels "
-            "E-K in float32 and complex64) is a later slice of the port; "
-            "factor this plan in float64 or complex128 there")
+            "complex64 on compressed and structured levels on the card "
+            "(kernels E-K in complex64) is slice 16 of the port (ROADMAP.md, "
+            "queue 1, item 1); factor this plan in complex128 there")
     torch.backends.cuda.matmul.allow_tf32 = False
     opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
     if opts.verbose:

@@ -26,7 +26,10 @@ products are library calls (:mod:`hsolve_torch.ops.dense`, ``torch.matmul``);
 the interpolative decompositions run kernel H
 (:func:`hsolve_torch.ops.lowrank.cpqr`).
 
-Values are float64 or complex128 (the damped Helmholtz system).  In complex
+Values are float64, float32 (the JAX bench's device configuration: J, K,
+I and H take float32 instances, J and K on the CUDA cores, no TF32, K and
+H computing in float64 on their float32 operands) or complex128 (the
+damped Helmholtz system).  In complex
 every product here takes the plain transpose, as the JAX package's do: the
 adjoint matvec and solve are ``A^T x`` and ``A^{-T} b``; only the
 interpolative decompositions conjugate (the ID of ``A^H``, ``R = Q^H A``).
@@ -293,8 +296,9 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     of 8 columns (the solve's k = 1: more warps on the few matrices of a
     level) and 256 and 4 above, the fastest of the forms
     ``tools/j_breakdown.py`` times.  Complex128 values (``itemsize`` 16)
-    fill twice the bytes a slot and take 512 and 2 at one chunk of 8
-    columns, else 256 and 2 (the CUDA-core form's instances)."""
+    fill twice the bytes a slot, float32 ones (``itemsize`` 4) half, and
+    both take 512 and 2 at one chunk of 8 columns, else 256 and 2 (the
+    CUDA-core form's instances)."""
     del ls  # the leaves' rows stream from global memory
     kc = next((c for c in J_CHUNKS if c >= k), J_CHUNKS[-1])
     chunks = -(-k // kc)
@@ -305,7 +309,7 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
         cs *= 2
     groups = max(1, min(chunks, -(-sms // max(B * cs, 1))))
     smem = hss_matvec_smem(nleaves, depth, r, cs, kc, itemsize)
-    if itemsize == 16:
+    if itemsize != 8:
         form = (512, 2) if kc == 8 else (256, 2)
     else:
         form = (256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)
@@ -340,8 +344,8 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
     """Kernel J wrapper (see the plain version): one launch; one CTA or one
     thread block cluster per matrix walks every level over chunks of the
     columns, its nodes' state in shared memory or, where that does not fit,
-    in a scratch region a CTA (:func:`hss_matvec_geometry`).  Float64 or
-    complex128 values, one type for ``x`` and every generator."""
+    in a scratch region a CTA (:func:`hss_matvec_geometry`).  Float64,
+    float32 or complex128 values, one type for ``x`` and every generator."""
     if kernels.on_cpu(x, h.D):
         return hss_matvec_plain(h, x, adjoint)
     p, Bn, r = h.plan, h.B, h.r
@@ -459,8 +463,9 @@ def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
     """Kernel I wrapper (see the plain version): one CTA per 64 x 64 tile of
     an index block; per LCA level present, the tile's T and V rows staged
     once in shared memory and multiplied as a small product (or one D load
-    per same-leaf entry).  Float64 or complex128 values (a complex128
-    slice of T and V is 16 columns)."""
+    per same-leaf entry).  Float64, float32 or complex128 values (a slice
+    of T and V is 256 bytes a row: 32 float64, 64 float32 or 16 complex128
+    columns)."""
     if kernels.on_cpu(rows, cols, ef.D):
         return hss_entries_prepared_plain(ef, rows, cols)
     D, T, V = ef
@@ -843,26 +848,39 @@ def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
     return nc, 1, ctas, stages
 
 
-def level_correct_smem_c128(r: int, nc: int) -> int:
-    """Dynamic shared memory of a CTA of the complex128 kernel: xi and w
+def level_correct_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of a value K's CUDA-core form computes in: complex128's 16,
+    and float64's 8 for float32 operands (widened as they are read: a
+    float32 solve with a 2r x 2r core's LU lands cond(core) float32
+    epsilons off)."""
+    return 16 if dtype.is_complex else 8
+
+
+def level_correct_smem_cc(r: int, nc: int, itemsize: int = 16) -> int:
+    """Dynamic shared memory of a CTA of the CUDA-core kernel computing in
+    ``itemsize``-byte values (:func:`level_correct_itemsize`): xi and w
     [2r, nc] each, a diagonal block's 32 x 33 copy and the core's
     permutation."""
-    return 16 * (4 * r * nc + 32 * 33) + 8 * r
+    return itemsize * (4 * r * nc + 32 * 33) + 8 * r
 
 
-def level_correct_geometry_c128(r: int, k: int) -> int:
-    """Columns a CTA of kernel K's complex128 form (every k, one CTA per
-    node and column group): up to 32, halved while xi and w do not fit a
-    CTA's shared memory (16 at r = 192).  Raises where one column does not
-    fit (r above 2993)."""
+def level_correct_geometry_cc(r: int, k: int, itemsize: int = 16) -> int:
+    """Columns a CTA of kernel K's CUDA-core form (complex128, ``itemsize``
+    16; float32 operands computed in float64, 8; every k, one CTA per node
+    and column group): up to 32, halved while xi and w do not fit a CTA's
+    shared memory (complex128: 16 at r = 192; float32: 32 up to r = 217,
+    16 at the 3D caps' 400).  Raises where one column does not fit
+    (complex128: r above 2993)."""
     nc = min(k, HSS_CORRECT_MAX_COLS)
-    while nc > 1 and level_correct_smem_c128(r, nc) > HSS_CORRECT_MAX_SMEM:
+    while nc > 1 and level_correct_smem_cc(r, nc, itemsize) \
+            > HSS_CORRECT_MAX_SMEM:
         nc = -(-nc // 2)
-    if level_correct_smem_c128(r, nc) > HSS_CORRECT_MAX_SMEM:
+    if level_correct_smem_cc(r, nc, itemsize) > HSS_CORRECT_MAX_SMEM:
         raise ValueError(f"hss_level_correct: rank {r} needs "
-                         f"{level_correct_smem_c128(r, 1)} bytes of shared "
-                         "memory for one complex right-hand side")
+                         f"{level_correct_smem_cc(r, 1, itemsize)} bytes of "
+                         "shared memory for one right-hand side")
     return nc
+
 
 
 _ACTIVE = {}
@@ -894,8 +912,8 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     where the launch fits the card at once (:func:`level_correct_geometry`).
     Either forms eta, streams the core LU through shared memory for the
     pivoted solve and corrects both children's rows of ``Y`` in place.
-    Complex128 values take one CUDA-core kernel for every k, a CTA per node
-    and up to 32 columns (:func:`level_correct_geometry_c128`)."""
+    Complex128 and float32 values take one CUDA-core kernel for every k, a
+    CTA per node and up to 32 columns (:func:`level_correct_geometry_cc`)."""
     if kernels.on_cpu(Y, xi, Bl, lu):
         return hss_level_correct_plain(Y, xi, Bl, Br, lu, piv, Phi, transpose)
     Bn, n_pad, k = Y.shape
@@ -909,8 +927,8 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     kernels.require(piv, "piv", torch.int64, (Bn, m, 2 * r))
     kernels.require(Phi, "Phi", dt, (Bn, n_pad, r))
     nc = cs = stages = 0
-    if dt == torch.complex128:
-        nc = level_correct_geometry_c128(r, k)
+    if dt != torch.float64:
+        nc = level_correct_geometry_cc(r, k, level_correct_itemsize(dt))
     elif k > 1:
         # the tensor maps take 16-byte aligned bases and row strides
         if r % 2 or any(t.data_ptr() % 16 for t in (Bl, Br, lu, Phi)):

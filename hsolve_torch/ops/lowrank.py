@@ -9,8 +9,8 @@
   argument, so a caller (or a test) decides where its random numbers come from,
 - :func:`lowrank_truncate` (kernel G, ``csrc/lowrank_truncate.cu``): the
   product ``Q @ Uw`` and the truncation epilogue of :func:`rand_lowrank`,
-  with its plain version :func:`lowrank_truncate_plain`; float64 or
-  complex128 values (the singular values real).
+  with its plain version :func:`lowrank_truncate_plain`; float64, float32
+  or complex128 values (the singular values real).
 
 - :func:`cpqr` and :func:`interp_decomp`: column-pivoted QR without Q
   accumulation and the row interpolative decomposition built on it, for the
@@ -73,9 +73,9 @@ def lowrank_truncate_plain(Q: torch.Tensor, Uw: torch.Tensor,
 def lowrank_truncate(Q: torch.Tensor, Uw: torch.Tensor, sv: torch.Tensor,
                      Vh: torch.Tensor, atol: float, rtol: float, cap: int):
     """Kernel G wrapper (see the plain version); ``Q`` is [B, m, s], ``Uw``
-    [B, s, r], ``Vh`` [B, r, n], all float64 or all complex128, ``sv`` [B,
-    r] float64 (descending).  The kernel computes only the rank's columns of
-    ``Q @ Uw``."""
+    [B, s, r], ``Vh`` [B, r, n], all float64, all float32 or all
+    complex128, ``sv`` [B, r] in their real type (descending).  The kernel
+    computes only the rank's columns of ``Q @ Uw``."""
     if kernels.on_cpu(Q, Uw, sv, Vh):
         return lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
     B, m, s = Q.shape
@@ -84,7 +84,7 @@ def lowrank_truncate(Q: torch.Tensor, Uw: torch.Tensor, sv: torch.Tensor,
     dt = kernels.lowrank_type(Q, Uw, Vh)
     kernels.require(Q, "Q", dt, (B, m, s))
     kernels.require(Uw, "Uw", dt, (B, s, r))
-    kernels.require(sv, "sv", torch.float64, (B, r))
+    kernels.require(sv, "sv", dt.to_real(), (B, r))
     kernels.require(Vh, "Vh", dt, (B, r, n))
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
@@ -156,15 +156,25 @@ def _div_real(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(torch.view_as_real(a) / d[:, None, None])
 
 
+def cpqr_loop_type(dtype: torch.dtype) -> torch.dtype:
+    """The type kernel H's pivot loop and its plain version run in for
+    input of type ``dtype``: float64 for float32 (F4's rule, as the float32
+    sweeps sum: a float32 downdate ``norms^2 - coef^2`` cancels to noise
+    once a residual falls to 3e-4 of its column, where the transition
+    compressions truncate), else ``dtype``."""
+    return torch.float64 if dtype == torch.float32 else dtype
+
+
 def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
     """The pivot loop of ``hsolve/ops/lowrank.py:cpqr`` (:189-219): ``k`` steps
     of Businger-Golub column pivoting with norm downdating on ``A`` [B, m, n]
-    (float64 or complex128); returns ``(piv [B, k] int32, -1 past the rank;
+    (float64, float32 or complex128; float32 runs the loop in float64,
+    :func:`cpqr_loop_type`); returns ``(piv [B, k] int32, -1 past the rank;
     rank [B] int32)``.  The norms are real, ``sum |a|^2``; the coefficients
     are ``q^H A`` and the downdate subtracts ``|coef|^2``.  Ties go to the
     first maximal norm, as ``jnp.argmax`` does."""
     Bn, m, n = A.shape
-    A = A.clone()
+    A = A.to(cpqr_loop_type(A.dtype), copy=True)
     norms2 = _abs2(A).sum(-2)
     norms0 = norms2.max(-1).values.sqrt() if n else norms2.new_zeros(Bn)
     thr = torch.clamp(rtol * norms0, min=atol)
@@ -197,12 +207,18 @@ CPQR_CLUSTERS = (1, 2, 4, 8)     # portable thread block cluster sizes
 def cpqr_smem(m: int, n: int, cs: int, resident: bool = True,
               itemsize: int = 8) -> int:
     """Dynamic shared memory of one CTA of kernel H when a cluster of ``cs``
-    CTAs shares an ``[m, n]`` matrix of ``itemsize``-byte values (8:
-    float64, 16: complex128): its ``ceil(n / cs)`` columns (where
-    ``resident``), their coefficients and the pivot direction in the value
-    type, their norms in float64."""
+    CTAs shares an ``[m, n]`` matrix whose pivot loop runs on
+    ``itemsize``-byte values (8: float64, and float32, whose loop runs in
+    float64; 16: complex128; :func:`cpqr_itemsize`): its ``ceil(n / cs)``
+    columns (where ``resident``), their coefficients and the pivot
+    direction in the loop's type, their norms in float64."""
     w = -(-n // cs)
     return itemsize * ((m * w if resident else 0) + w + m) + 8 * w
+
+
+def cpqr_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of one value of kernel H's pivot loop for input ``dtype``."""
+    return torch.empty((), dtype=cpqr_loop_type(dtype)).element_size()
 
 
 def cpqr_cluster(m: int, n: int, itemsize: int = 8):
@@ -217,15 +233,16 @@ def cpqr_cluster(m: int, n: int, itemsize: int = 8):
 
 
 def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
-    """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64
-    or complex128, each matrix's columns spread over a thread block cluster
+    """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64,
+    float32 (read as float32, the loop in float64) or complex128, each
+    matrix's columns spread over a thread block cluster
     (:func:`cpqr_cluster`)."""
     if kernels.on_cpu(A):
         return cpqr_pivots_plain(A, atol, rtol, k)
     Bn, m, n = A.shape
     dt = kernels.lowrank_type(A)
     kernels.require(A, "A", dt)
-    isz = A.element_size()
+    isz = cpqr_itemsize(dt)
     piv = torch.empty((Bn, k), dtype=torch.int32, device=A.device)
     rank = torch.empty((Bn,), dtype=torch.int32, device=A.device)
     if Bn and k:
@@ -234,7 +251,8 @@ def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
             raise ValueError(f"cpqr: a [{m}, {n}] matrix's norms and pivot "
                              "direction alone exceed a CTA's shared memory")
         work = None if resident else torch.empty(
-            (Bn * cs, m, -(-n // cs)), dtype=A.dtype, device=A.device)
+            (Bn * cs, m, -(-n // cs)), dtype=cpqr_loop_type(dt),
+            device=A.device)
         kernels.launch(kernels.symbol("hs_cpqr", dt), A.device, A.data_ptr(),
                        piv.data_ptr(), rank.data_ptr(),
                        None if work is None else work.data_ptr(),

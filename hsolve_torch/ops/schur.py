@@ -11,9 +11,10 @@ of it in one kernel,
 reading ``Abi`` and ``Abb`` in place from the front buffer, keeping ``W`` in
 shared memory and storing ``S`` already permuted.  :func:`schur_geometry`
 picks its launch from the plan's shapes.  Float64 runs on the FP64 tensor
-cores; complex128 (the damped Helmholtz system's low-rank levels) is a
-kernel of its own on the CUDA cores, one complex multiply-add as four real
-FMAs (:func:`schur_geometry_c128`).
+cores; complex128 (the damped Helmholtz system's low-rank levels) and
+float32 (the JAX bench's device configuration; no TF32) take a kernel of
+their own on the CUDA cores, one complex multiply-add as four real FMAs, a
+float32 one as one (:func:`schur_geometry_cc`).
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     """Kernel F's launch for ``B`` fronts with ``nb`` boundary rows, depth
     ``ni_pad`` and rank cap ``kc`` on a card of ``sms`` SMs: ``{"bm", "bn",
     "cs", "nct", "kd", "whole", "smem"}``; values of ``itemsize`` 16
-    (complex128) take :func:`schur_geometry_c128`'s.
+    (complex128) and 4 (float32) take the CUDA-core form's,
+    :func:`schur_geometry_cc`.
 
     Fronts of at most ``F_WHOLE_MAX`` boundary rows (the many-front levels)
     take whole rows: a CTA covers a band of ``bm`` rows and every column
@@ -78,8 +80,8 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     CTA's shared memory too large, the chunk and then the tiles shrink, and
     where no cluster form fits, the band's CTAs each compute W themselves.
     Raises only where no form fits."""
-    if itemsize == 16:
-        return schur_geometry_c128(B, ni_pad, nb, kc, sms)
+    if itemsize != 8:
+        return schur_geometry_cc(B, ni_pad, nb, kc, sms, itemsize)
     nbp = _up(nb)
     cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
     cands = []
@@ -117,24 +119,27 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     raise ValueError(f"kernel F: no launch fits nb={nb}, kc={kc}")
 
 
-F_C_BM = 32            # complex128: rows of a band
-F_C_KD = 16            # complex128: depth of a staged chunk of Abi and RU
+F_C_BM = 32            # the CUDA-core form: rows of a band
+F_C_KD = 16            # the CUDA-core form: depth of a staged chunk of Abi and RU
 
 
-def schur_smem_c128(bn: int, kd: int, kc: int) -> int:
-    """Bytes of shared memory one CTA of kernel F's complex128 form takes:
-    the band's W and a column tile's RV rows (rows of ``kc | 1`` values:
-    an odd stride keeps a quarter warp's 16-byte reads on distinct banks),
-    a depth chunk of Abi and RU, the permutation's rows and columns."""
+def schur_smem_cc(bn: int, kd: int, kc: int, itemsize: int = 16) -> int:
+    """Bytes of shared memory one CTA of kernel F's CUDA-core form takes,
+    values of ``itemsize`` bytes (16 complex128, 4 float32): the band's W
+    and a column tile's RV rows (rows of ``kc | 1`` values: an odd stride
+    keeps a quarter warp's 16-byte reads, a warp's 4-byte ones, on distinct
+    banks), a depth chunk of Abi and RU, the permutation's rows and
+    columns."""
     ld = kc | 1
-    return 16 * (F_C_BM * ld + bn * ld + F_C_BM * kd + kd * kc) \
+    return itemsize * (F_C_BM * ld + bn * ld + F_C_BM * kd + kd * kc) \
         + 4 * (F_C_BM + bn)
 
 
-def schur_geometry_c128(B: int, ni_pad: int, nb: int, kc: int,
-                        sms: int = H100_SMS) -> dict:
-    """Kernel F's complex128 launch: ``{"bm", "bn", "cs", "nct", "kd",
-    "whole", "smem", "walk"}``.  A CTA computes ``W = Abi RU`` for a band
+def schur_geometry_cc(B: int, ni_pad: int, nb: int, kc: int,
+                      sms: int = H100_SMS, itemsize: int = 16) -> dict:
+    """Kernel F's launch in its CUDA-core form (complex128, ``itemsize``
+    16; float32, 4): ``{"bm", "bn", "cs", "nct", "kd", "whole", "smem",
+    "walk"}``.  A CTA computes ``W = Abi RU`` for a band
     of ``bm`` = 32 rows once, then walks ``walk`` column tiles of ``bn``
     columns (tiles ``x, x + nct, ...``), ``nct`` CTAs a band: as many as
     bring the launch to two CTAs an SM, at most one a tile.  ``bn`` is the
@@ -145,7 +150,7 @@ def schur_geometry_c128(B: int, ni_pad: int, nb: int, kc: int,
         for bn in sorted({top, 32, 16, 8}, reverse=True):
             if bn > top:
                 continue
-            smem = schur_smem_c128(bn, F_C_KD, kc)
+            smem = schur_smem_cc(bn, F_C_KD, kc, itemsize)
             if smem <= limit:
                 tiles = -(-nb // bn)
                 bands = B * -(-nb // F_C_BM)
@@ -153,7 +158,8 @@ def schur_geometry_c128(B: int, ni_pad: int, nb: int, kc: int,
                 return {"bm": F_C_BM, "bn": bn, "cs": 1, "nct": nct,
                         "kd": F_C_KD, "whole": False, "smem": smem,
                         "walk": -(-tiles // nct)}
-    raise ValueError(f"kernel F (complex128): no launch fits nb={nb}, kc={kc}")
+    raise ValueError(f"kernel F (CUDA-core form, {itemsize}-byte values): no "
+                     f"launch fits nb={nb}, kc={kc}")
 
 
 def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int,
@@ -170,8 +176,8 @@ def lowrank_schur_update_plain(front: torch.Tensor, ni_pad: int,
 def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
                          RV: torch.Tensor, sperm: torch.Tensor) -> torch.Tensor:
     """Kernel F wrapper (see the plain version).  ``front`` is [B, m_pad,
-    m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap] (float64
-    or complex128, one type), ``sperm`` [B, nb_pad] int64; the launch is
+    m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap] (float64,
+    float32 or complex128, one type), ``sperm`` [B, nb_pad] int64; the launch is
     :func:`schur_geometry`'s for these shapes and this type."""
     if kernels.on_cpu(front, RU, RV, sperm):
         return lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)

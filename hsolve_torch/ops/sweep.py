@@ -16,10 +16,11 @@ update of a compressed level, where the Gauss transform is a low-rank pair
 ``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
 Kernel C takes float32, float64, complex64 or complex128 values (one type
-per call), kernel E float64 or complex128.  In float32 every product of a level step
-(``L x``, the pivot solve, ``R C[bnd]``) accumulates in float64 and rounds
-to float32 once, and in complex64 in complex128, in the kernel and in the
-plain versions alike: the top levels of a float32 exact factor are nearly
+per call), kernel E float64, float32 or complex128.  In float32 every product
+of a level step (``L x``, the pivot solve, ``R C[bnd]``, and on a compressed
+level E's ``U (V^T Y)``) accumulates in float64 and rounds to float32 once,
+and in complex64 in complex128, in the kernels and in the plain versions
+alike: the top levels of a float32 exact factor are nearly
 singular, and a float32 summation there cost the mixed-precision solve half
 again as many iterations as the reference's.  ``C`` is ``[rows, k]``; ids ``>= N`` are the planner's sentinel: output rows with
 such ids are skipped and input rows with them read as zero, so ``C``'s
@@ -245,9 +246,11 @@ def lowrank_sweep_smem(threads: int, vec: int, kb: int, kc: int,
     """Kernel E's dynamic shared memory: the phase-1 partials
     ([threads, vec, kb] double-double pairs), the staged Y rows ([threads,
     kb]) and two [kc, kb] tiles of pairs (the CTA's partial t and the
-    cluster's sum), in values of ``itemsize`` bytes (8 float64, 16
-    complex128)."""
-    return itemsize * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+    cluster's sum), in sums of the accumulator type of values of
+    ``itemsize`` bytes (8 bytes for float64 and float32, which sums in
+    float64; 16 for complex128)."""
+    acc = max(itemsize, 8)
+    return acc * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
 
 
 @functools.lru_cache(maxsize=None)     # the wrapper asks at every launch
@@ -266,15 +269,17 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
     but no CTA with fewer than ``E_MIN_WORK`` entries of the longer of U
     and V.  CTA ``j`` of a cluster reduces V's rows ``[j cstep, (j + 1)
     cstep)`` and applies U's rows ``[j rstep, (j + 1) rstep)``.  ``vec``:
-    the values one 16-byte read of V's and U's rows takes, 2 doubles where
-    it can (kc even, 16-byte aligned), else 1, and one complex128 value;
+    the values one 16-byte read of V's and U's rows takes, 2 doubles or 4
+    floats where it can (kc a multiple of it, 16-byte aligned), else 1, and
+    one complex128 value;
     ``kb`` the right-hand sides per chunk (1 for k = 1,
     else ``E_KB`` where it fits); ``dd`` = 1 where the launch has at most
     ``E_DD_FRONTS`` fronts: the top levels, where a row's terms of U t sum
     to up to 650 times the update at n=512 (at most 0.8 from 31 fronts on,
     where double-double would cost most), sum in double-double, t kept as
-    a pair (each part of a complex value a pair); ``smem``
-    :func:`lowrank_sweep_smem`."""
+    a pair (each part of a complex value a pair); float32 values
+    (``itemsize`` 4) sum in float64, far below their own rounding, and
+    take ``dd`` = 0; ``smem`` :func:`lowrank_sweep_smem`."""
     per16 = 16 // itemsize
     vec = per16 if aligned and kc % per16 == 0 else 1
     cs, threads = 1, E_THREADS[0]
@@ -291,7 +296,7 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
     if smem > SMEM_MAX:
         raise ValueError(f"rank cap {kc} too large for kernel E's shared "
                          f"memory ({smem} > {SMEM_MAX} bytes)")
-    dd = int(B <= E_DD_FRONTS)
+    dd = int(B <= E_DD_FRONTS and itemsize > 4)
     return cs, threads, -(-R // cs), -(-Cc // cs), vec, kb, dd, smem
 
 
@@ -301,9 +306,11 @@ def lowrank_sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor,
                                ids_in: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """In place: ``C[ids_out[b, r]] -= (U[b] @ (V[b]^T @ Y[b]))[r]`` with
-    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``."""
+    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``.  Float32 operands
+    multiply in float64 and the update is rounded once (F4's rule)."""
     Y = _inputs(C, N, X, ids_in)
-    return _scatter_sub(C, ids_out, U @ (V.transpose(-1, -2) @ Y), N)
+    upd = _wide(U) @ (_wide(V).transpose(-1, -2) @ _wide(Y))
+    return _scatter_sub(C, ids_out, upd.to(C.dtype), N)
 
 
 def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor,
@@ -312,8 +319,8 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
                          ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel E wrapper (in place on ``C``; see the plain version).  ``U`` is
     [B, R, k_cap] (rows follow ``ids_out``), ``V`` [B, Cc, k_cap] (rows follow
-    ``X`` or ``ids_in``), values float64 or complex128 (one type); the
-    launch is :func:`lowrank_sweep_geometry`'s."""
+    ``X`` or ``ids_in``), values float64, float32 or complex128 (one type);
+    the launch is :func:`lowrank_sweep_geometry`'s."""
     operands = [C, ids_out, U, V] + [t for t in (X, ids_in) if t is not None]
     if kernels.on_cpu(*operands):
         return lowrank_sweep_update_plain(C, ids_out, U, V, N, X, ids_in)

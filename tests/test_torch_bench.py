@@ -148,3 +148,20 @@ def test_bench_runs_the_damped_system_on_the_cpu():
     assert d["relres"] <= 1e-9 and not d["sol_violation"]
     assert d["gmres_iters"] == _jax_iters("helmholtz2d", 48, 100,
                                           {"k": 40.0, "damping": 0.1}) == 1
+
+
+def test_bench_runs_a_float32_structured_plan_on_the_cpu():
+    """The card's default on a compressed plan, a float32 factor of the
+    bench's structured levels (it has no ``hss`` switch; kernels E-K in
+    float32 on the card), run on the CPU with ``--factor-dtype f32``: one
+    line tagged ``_f32`` with relres <= 1e-9."""
+    out = _bench("--cpu", "--factor-dtype", "f32", "--reps", "1", "--n", "32",
+                 "--leafmax", "20", "--swlevel", "-2", "--swsize", "16",
+                 "--atol", "1e-3", "--kest", "32")
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["metric"] == \
+        "helmholtz2d_h32_sw-2_tol0.001_k32_f32_setup_plus_gmres_solve"
+    d = line["detail"]
+    assert d["factor_dtype"] == "float32" and d["device"] == "cpu"
+    assert d["relres"] <= 1e-9 and d["gmres_iters"] >= 1

@@ -1083,11 +1083,27 @@ def test_mixed_slice_on_cuda(dev):
 
 
 def test_float32_refused_on_compressed_levels_on_cuda(dev):
+    """Float32 on compressed levels is no longer refused on the card: the
+    structured plan (hss at its default) factors in float32 through E-K's
+    float32 instances, counted under ``float32``; complex64 there still
+    raises, naming slice 16."""
     A, _, shape = ht.helmholtz2d(64, k=20.0)
     opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=40), opts)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ht.factor_with_plan(plan, opts, dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    F = ht.factor_with_plan(plan, opts, dtype=torch.float32, device=dev)
+    F.solve(np.ones(A.shape[0]))
+    assert F.dtype == torch.float32
+    counts = kernels.launch_counts()
+    assert all(counts.get(f"{k}:float32", 0) > 0 for k in (
+        "lowrank_sweep_update", "lowrank_schur_update", "lowrank_truncate",
+        "cpqr_pivots", "hss_entries_prepared", "hss_matvec",
+        "hss_level_correct")), counts
+    Ad, _, shape_d = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    with pytest.raises(NotImplementedError, match="slice 16"):
+        ht.factor(Ad, ht.nested_dissection(shape_d, leafmax=40), swlevel=-2,
+                  swsize=16, atol=1e-3, rtol=1e-3, dtype=torch.complex64,
+                  device=dev)
 
 
 def _gmres_setup(dev, path, n=128, k=40.0):
@@ -1432,8 +1448,9 @@ def test_complex_compressed_refused_on_cuda(dev):
 # ---------------------------------------------------------------------------
 
 def test_complex64_compressed_refused_on_cuda(dev):
-    """complex64 on compressed levels is refused on the card, as float32
-    is: the message names both."""
+    """complex64 on compressed levels is refused on the card (float32 runs
+    there since kernels E-K have float32 instances): the message names
+    complex64."""
     A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
     with pytest.raises(NotImplementedError, match="complex64"):
         ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
@@ -1689,4 +1706,211 @@ def test_complex_structured_slice_on_cuda(dev):
             counts = kernels.launch_counts()
             assert all(counts.get(k, 0) > 0
                        for k in kernels.COMPLEX_HSS_PATH), counts
+    assert abs(iters[0] - iters[1]) <= 2
+
+
+# ---------------------------------------------------------------------------
+# float32 on the compressed and structured levels (the JAX bench's device
+# configuration): E-K in float32
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
+                                         (1023, 64, 32, 32, 1),
+                                         (8, 640, 256, 48, 3),
+                                         (5, 40, 56, 33, 2)])
+def test_float32_lowrank_sweep_update_kernel(dev, B, R, Cc, kc, k):
+    """Kernel E in float32 at the n=512 low-rank plan's shapes and an odd
+    rank, both forms, with sentinels: float64 sums rounded once, as its
+    plain version (within 1e-6 of it), the sentinel row zero."""
+    rng = np.random.default_rng(B + R + kc + k + 7)
+    N = B * (R + Cc) + 50
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, R, Cc, kc, k, N)
+    C, U, V = C.to(F32), U.to(F32), V.to(F32)
+    fwd = {"X": fwd["X"].to(F32)}
+    for kw in (fwd, bwd):
+        before = lowrank_sweep_update.launches_by_type.get("float32", 0)
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert lowrank_sweep_update.launches_by_type["float32"] == before + 1
+        assert got.dtype == F32
+        assert _rel(got, want) < 1e-6
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(1, 512, 512, 48),
+                                            (1023, 32, 64, 32),
+                                            (8, 256, 640, 48),
+                                            (3, 24, 52, 33), (2, 40, 130, 100),
+                                            (2, 2072, 2216, 560)])
+def test_float32_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
+    """Kernel F in float32 (the CUDA-core form) at n=512 and 48^3 shapes,
+    odd widths and a rank above one 64-column group of W: within 1e-5 of
+    its plain version."""
+    rng = np.random.default_rng(nb + kc + B)
+    m = ni_pad + nb
+    g = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=F32,
+                                   device=dev)
+    front, RU, RV = g(B, m, m), g(B, ni_pad, kc), g(B, nb, kc)
+    sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
+                            device=dev)
+    before = lowrank_schur_update.launches_by_type.get("float32", 0)
+    got = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert lowrank_schur_update.launches_by_type["float32"] == before + 1
+    want = lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
+    assert got.dtype == F32
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("B,m,n,s,r,cap", [(1, 512, 512, 56, 56, 48),
+                                           (1023, 64, 32, 32, 32, 32),
+                                           (9, 24, 20, 14, 12, 16),
+                                           (3, 130, 70, 72, 72, 64)])
+def test_float32_lowrank_truncate_kernel(dev, B, m, n, s, r, cap):
+    """Kernel G in float32 (float32 singular values, the threshold rounded
+    as the plain version's float32 ops round it): the rank and V bit for
+    bit, U to 1e-5."""
+    rng = np.random.default_rng(m + n + B)
+    g = lambda *sh: torch.as_tensor(rng.standard_normal(sh), dtype=F32,
+                                    device=dev)
+    Q, Uw, Vh = g(B, m, s), g(B, s, r), g(B, r, n)
+    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** (
+        np.arange(r) * 8.0 / r), axis=-1)[:, ::-1].copy()
+    sv = torch.as_tensor(sv, dtype=F32, device=dev)
+    for atol, rtol in ((1e-3, 1e-2), (0.0, 1e-5)):
+        got = lowrank_truncate(Q, Uw, sv, Vh, atol, rtol, cap)
+        want = lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        assert _rel(got[0], want[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(202, 384, 192), (58, 96, 48),
+                                   (394, 768, 384)])
+def test_float32_cpqr_kernel_selects_the_plain_pivots(dev, m, n, k):
+    """Kernel H in float32 (float32 read, the pivot loop in float64) on the
+    default n=512 plan's widest panel (a cluster of 4, as float64's), a
+    small one and a 3D panel (in a global scratch copy on 8 CTAs): the
+    plain version's pivots and ranks on decaying spectra, one launch
+    counted in float32."""
+    from hsolve_torch.ops.lowrank import cpqr_cluster, cpqr_itemsize
+
+    assert cpqr_cluster(m, n, cpqr_itemsize(F32)) == cpqr_cluster(m, n)
+    rng = np.random.default_rng(m + n)
+    A = torch.as_tensor(rng.standard_normal((5, m, n)) * 0.97 ** np.arange(n),
+                        dtype=F32, device=dev)
+    for tol in (1e-2, 1e-3):
+        before = cpqr_pivots.launches_by_type.get("float32", 0)
+        piv, rank = cpqr_pivots(A, tol, tol, k)
+        assert cpqr_pivots.launches_by_type["float32"] == before + 1
+        ppiv, prank = cpqr_pivots_plain(A, tol, tol, k)
+        assert torch.equal(rank, prank) and torch.equal(piv, ppiv)
+        assert int(rank.min()) > 0
+
+
+def _random_hss_f32(dev, B, depth, ls, r, seed):
+    return _random_hss(dev, B, depth, ls, r, seed).map(lambda a: a.to(F32))
+
+
+@pytest.mark.parametrize("p,q", [(70, 45), (130, 192)])
+def test_float32_hss_entries_kernel(dev, p, q):
+    """Kernel I in float32 at rank 192, every LCA level, out-of-range
+    indices NaN where the plain version's are; within 1e-5."""
+    h = _random_hss_f32(dev, 2, 3, 24, 192, seed=p)
+    ef = H.hss_entry_factors(h)
+    n = h.plan.n_pad
+    rng = np.random.default_rng(q)
+    rows = rng.integers(0, n, (2, 3, p))
+    cols = rng.integers(0, n, (2, 3, q))
+    rows[0, 1, 3], cols[1, 1, -1] = -1, n + 7
+    rows, cols = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    before = H.hss_entries_prepared.launches_by_type.get("float32", 0)
+    got = H.hss_entries_prepared(ef, rows, cols)
+    assert H.hss_entries_prepared.launches_by_type["float32"] == before + 1
+    ref = H.hss_entries_prepared_plain(ef, rows, cols)
+    assert got.dtype == F32
+    assert torch.equal(got.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    assert _rel(got[fin], ref[fin]) < 1e-5
+
+
+@pytest.mark.parametrize("B,depth,ls,r", J_SHAPES + [(1, 4, 32, 400)])
+@pytest.mark.parametrize("k", [1, 112])
+def test_float32_hss_matvec_kernel(dev, B, depth, ls, r, k):
+    """Kernel J in float32 (the CUDA-core form) at the n=512 shapes and a
+    3D cap, both directions, against its plain version (1e-5)."""
+    h = _random_hss_f32(dev, B, depth, ls, r, seed=r + k)
+    x = torch.as_tensor(np.random.default_rng(k).standard_normal(
+        (B, h.plan.n_pad, k)), dtype=F32, device=dev)
+    for adj in (False, True):
+        before = H.hss_matvec.launches_by_type.get("float32", 0)
+        got = H.hss_matvec(h, x, adj)
+        assert H.hss_matvec.launches_by_type["float32"] == before + 1
+        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-5
+
+
+@pytest.mark.parametrize("r", [48, 192, 400])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_float32_hss_level_correct_kernel(dev, r, adjoint):
+    """Kernel K in float32 (one CUDA-core kernel for every k, computing in
+    float64 on its float32 operands) on random well-conditioned cores of
+    rank r (up to 800 wide), k = 1, 3 and r, against its float32 plain
+    version (1e-5)."""
+    rng = np.random.default_rng(r + adjoint)
+    B, m, blk = 3, 1, r + 5
+    M = np.eye(2 * r) + rng.standard_normal((B, m, 2 * r, 2 * r)) / (
+        6 * np.sqrt(2 * r))
+    lu, piv = dk.lu_factor(torch.as_tensor(M, dtype=F32, device=dev))
+    g = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=F32,
+                                   device=dev)
+    Bl, Br, Phi = g(B, m, r, r), g(B, m, r, r), g(B, 2 * m * blk, r)
+    for k in (1, 3, r):
+        Y, xi = g(B, 2 * m * blk, k), g(B, 2 * m, r, k)
+        args = (xi, Bl, Br, lu.contiguous(), piv.contiguous(), Phi, adjoint)
+        want = H.hss_level_correct_plain(Y.clone(), *args)
+        before = H.hss_level_correct.launches_by_type.get("float32", 0)
+        got = H.hss_level_correct(Y.clone(), *args)
+        assert H.hss_level_correct.launches_by_type["float32"] == before + 1
+        assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("hss", [False, True])
+def test_float32_compressed_slice_on_cuda(dev, hss):
+    """The JAX bench's device configuration on compressed levels,
+    helmholtz2d(128, k=40), low-rank (hss=False) and structured (kest=32):
+    a float32 factor inside mixed-precision GMRES on the card, relres <=
+    1e-9 within two iterations of the same run on the CPU (the same float32
+    sketches), every kernel of ``kernels.LOWRANK_MIXED_PATH`` /
+    ``HSS_MIXED_PATH`` launched in its type."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(128, k=40.0)
+    tree = ht.nested_dissection(shape, leafmax=100)
+    prec = lambda d, v: solve_with_data(d, v.to(F32)).to(v.dtype)
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                      kest=32, hss=hss, dtype=F32, device=d)
+        assert F.dtype == F32
+        op64, mv = ht.spmv_format(A, device=d)
+        op32, _ = ht.spmv_format(A, dtype=np.float32, device=d)
+        x, info = ht.gmres_compiled(
+            mv, prec, torch.as_tensor(b, device=d), reltol=1e-9, restart=30,
+            maxiter=60, mv_data=op64, M_data=F.solve_data,
+            inner_dtype="float32", mv_data_inner=op32, m_eps=1e-6)
+        assert info["converged"]
+        xn = x.cpu().numpy()
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            path = kernels.HSS_MIXED_PATH if hss else \
+                kernels.LOWRANK_MIXED_PATH
+            assert all(counts.get(k, 0) > 0 for k in path), counts
     assert abs(iters[0] - iters[1]) <= 2

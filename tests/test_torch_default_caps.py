@@ -182,12 +182,80 @@ def test_kernel_k_complex128_geometry_at_any_rank(r):
     right-hand sides a CTA, halved while xi and w [2r, nc] do not fit 227
     KB; one column a CTA at k = 1, 16 at the default caps' 2r = 384."""
     for k in (1, 2, 3, r, 400):
-        nc = T.level_correct_geometry_c128(r, k)
+        nc = T.level_correct_geometry_cc(r, k, 16)
         assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
-        assert T.level_correct_smem_c128(r, nc) <= T.HSS_CORRECT_MAX_SMEM
+        assert T.level_correct_smem_cc(r, nc, 16) <= T.HSS_CORRECT_MAX_SMEM
         if nc < min(k, T.HSS_CORRECT_MAX_COLS):
-            assert T.level_correct_smem_c128(r, 2 * nc) > \
+            assert T.level_correct_smem_cc(r, 2 * nc, 16) > \
                 T.HSS_CORRECT_MAX_SMEM
-    assert T.level_correct_geometry_c128(r, 1) == 1
+    assert T.level_correct_geometry_cc(r, 1, 16) == 1
     if r == 192:
-        assert T.level_correct_geometry_c128(r, 400) == 16
+        assert T.level_correct_geometry_cc(r, 400, 16) == 16
+
+
+@pytest.mark.parametrize("m,n,cs,resident", [
+    (58, 32, 1, True), (92, 64, 1, True), (202, 96, 1, True),
+    (202, 384, 4, True), (106, 192, 1, True), (394, 768, 8, False),
+    (400, 800, 8, False), (778, 1536, 8, False)])
+def test_kernel_h_cluster_by_bytes_float32(m, n, cs, resident):
+    """Float32 input runs H's pivot loop in float64 (``cpqr_loop_type``:
+    widened as it is loaded), so its columns take float64's 8 bytes in
+    shared memory and its launches are float64's at every default-caps and
+    3D panel: the widest 2D panel [202, 384] on 4 CTAs, the 3D panels
+    [394, 768] and [400, 800] in a global scratch copy (of float64
+    values) on 8."""
+    assert TL.cpqr_loop_type(torch.float32) == torch.float64
+    assert TL.cpqr_itemsize(torch.float32) == TL.cpqr_itemsize(
+        torch.float64) == 8
+    assert TL.cpqr_itemsize(torch.complex128) == 16
+    isz = TL.cpqr_itemsize(torch.float32)
+    assert TL.cpqr_cluster(m, n, isz) == (cs, resident) == \
+        TL.cpqr_cluster(m, n)
+    assert TL.cpqr_smem(m, n, cs, resident, isz) <= TL.CPQR_MAX_SMEM
+
+
+def test_kernel_h_float32_loop_is_float64s():
+    """The float32 plain pivot loop is the float64 loop on the widened
+    input: the same pivots and ranks, bit for bit.  Fault F8 (ROADMAP §3):
+    on a rank-10 block whose tenth direction carries 3.2e-4 of its columns'
+    norm (the transition compressions' truncation at 2.5e-4), a float32
+    loop's downdate ``norms^2 - coef^2`` cancels to 0 at the tenth step
+    and stops one rank short: the JAX package's float32 ``cpqr`` finds 9,
+    float64 and the port 10."""
+    rng = np.random.default_rng(1)
+    m, n, r = 92, 64, 10
+    G = np.linalg.qr(rng.standard_normal((m, r)))[0] * np.logspace(0, -3.5, r)
+    A = (G @ rng.standard_normal((r, n)) / np.sqrt(r)).astype(np.float32)
+    A = np.stack([A, A])
+    piv32, rank32 = TL.cpqr_pivots_plain(torch.as_tensor(A), 2.5e-4, 2.5e-4,
+                                         32)
+    piv64, rank64 = TL.cpqr_pivots_plain(torch.as_tensor(A).double(), 2.5e-4,
+                                         2.5e-4, 32)
+    assert torch.equal(piv32, piv64) and torch.equal(rank32, rank64)
+    assert rank64.tolist() == [10, 10]
+    jrank = np.asarray(JL.cpqr(jnp.asarray(A), 2.5e-4, 2.5e-4, 32).rank)
+    assert jrank.tolist() == [9, 9]
+
+
+@pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 400, 768])
+def test_kernel_k_float32_geometry_at_any_rank(r):
+    """K's float32 form (the complex128 CUDA-core kernel, computing in
+    float64 on its float32 operands): xi and w in 8-byte values, up to 32
+    right-hand sides a CTA, halved while they do not fit 227 KB: 32 through
+    r = 217 (the 2D default caps' 192), 16 at the 3D caps' 400; one column a
+    CTA at k = 1; never fewer than complex128's."""
+    isz = T.level_correct_itemsize(torch.float32)
+    assert isz == 8 and T.level_correct_itemsize(torch.complex128) == 16
+    for k in (1, 2, 3, r, 400):
+        nc = T.level_correct_geometry_cc(r, k, isz)
+        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
+        assert T.level_correct_smem_cc(r, nc, isz) <= T.HSS_CORRECT_MAX_SMEM
+        assert T.level_correct_smem_cc(r, nc, isz) == \
+            8 * (4 * r * nc + 32 * 33) + 8 * r
+        if nc < min(k, T.HSS_CORRECT_MAX_COLS):
+            assert T.level_correct_smem_cc(r, 2 * nc, isz) > \
+                T.HSS_CORRECT_MAX_SMEM
+        assert nc >= T.level_correct_geometry_cc(r, k, 16)
+    assert T.level_correct_geometry_cc(r, 1, isz) == 1
+    assert T.level_correct_geometry_cc(r, 400, isz) == \
+        {16: 32, 48: 32, 96: 32, 192: 32, 384: 16, 400: 16, 768: 8}[r]

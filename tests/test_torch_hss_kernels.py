@@ -238,3 +238,25 @@ def test_kernel_j_complex128_geometry_fits_a_cta(r, k):
         assert smem == (need if need <= 232448 else 0)
         assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
                                                          k)[:3]
+
+
+@pytest.mark.parametrize("r", [32, 48, 96, 192, 400])
+@pytest.mark.parametrize("k", [1, 58, 112])
+def test_kernel_j_float32_geometry_fits_a_cta(r, k):
+    """J's float32 form (the complex128 CUDA-core kernel on 4-byte values)
+    at every n=512 shape and the 3D caps' r = 400: the slots take half
+    float64's bytes (shared memory within a CTA's 232,448 bytes, or the
+    state in a scratch region), the launch (512 threads, 2 row blocks) at
+    one chunk of 8 columns and (256, 2) above, even at rank 32 (the float64
+    tensor-core form's (256, 2)), the cluster and chunks chosen as in
+    float64."""
+    for B, nl in N512:
+        depth = nl.bit_length() - 1
+        cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
+            B, nl, 32, r, depth, k, itemsize=4)
+        assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
+        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=4)
+        assert 2 * need == T.hss_matvec_smem(nl, depth, r, cs, kc)
+        assert smem == (need if need <= 232448 else 0)
+        assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
+                                                         k)[:3]

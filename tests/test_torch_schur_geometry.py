@@ -18,7 +18,7 @@ import hsolve_torch as ht
 from hsolve_torch.ops.schur import (F_MAX_CLUSTER, F_MAX_KD, F_WHOLE_MAX,
                                     SMEM_MAX, lowrank_schur_update_plain,
                                     schur_geometry, schur_smem,
-                                    schur_smem_c128)
+                                    schur_smem_cc)
 
 torch.set_num_threads(1)
 
@@ -216,7 +216,7 @@ def _check_geometry_c128(B, ni_pad, nb, kc, sms=132):
     g = schur_geometry(B, ni_pad, nb, kc, sms=sms, itemsize=16)
     bn, nct, walk = g["bn"], g["nct"], g["walk"]
     assert g["bm"] == 32 and g["cs"] == 1 and not g["whole"]
-    assert g["smem"] == schur_smem_c128(bn, g["kd"], kc) <= SMEM_MAX
+    assert g["smem"] == schur_smem_cc(bn, g["kd"], kc, 16) <= SMEM_MAX
     assert 8 <= bn <= 64 and bn % 8 == 0
     tiles = -(-nb // bn)
     assert 1 <= nct <= tiles and nct * walk >= tiles > nct * (walk - 1)
@@ -280,3 +280,73 @@ def test_kernel_f_complex128_partition_is_the_plain_schur_update(
                                       t(sperm)).numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# float32 (the JAX bench's device configuration): the CUDA-core form of the
+# complex128 levels, its shared memory in 4-byte values
+# ---------------------------------------------------------------------------
+
+def _check_geometry_f32(B, ni_pad, nb, kc, sms=132):
+    g = schur_geometry(B, ni_pad, nb, kc, sms=sms, itemsize=4)
+    bn, nct, walk = g["bn"], g["nct"], g["walk"]
+    assert g["bm"] == 32 and g["cs"] == 1 and not g["whole"]
+    assert g["kd"] == 16
+    assert g["smem"] == schur_smem_cc(bn, g["kd"], kc, 4) <= SMEM_MAX
+    assert g["smem"] == 4 * ((kc | 1) * (32 + bn) + 16 * (32 + kc)) \
+        + 4 * (32 + bn)
+    assert 8 <= bn <= 64 and bn % 8 == 0
+    tiles = -(-nb // bn)
+    assert 1 <= nct <= tiles and nct * walk >= tiles > nct * (walk - 1)
+    return g
+
+
+@pytest.mark.parametrize("n", [128, 512])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_kernel_f_float32_geometry_at_every_launch_shape(n, config):
+    """Every launch shape of the n=128 and n=512 plans (low-rank and both
+    structured: their transition batches) finds a float32 launch in the
+    CUDA-core form, the widest tile (64 columns, or the front's width) with
+    two CTAs an SM: 4-byte values take a quarter of complex128's bytes, so
+    no shape takes a narrower tile than complex128 would."""
+    shapes = _f_shapes(n, config)
+    assert shapes
+    for B, ni_pad, nb, kc in shapes:
+        g = _check_geometry_f32(B, ni_pad, nb, kc)
+        assert g["smem"] <= SMEM_MAX // 2, (B, ni_pad, nb, kc)
+        assert g["bn"] == min(64, -(-nb // 8) * 8)
+        assert g["bn"] >= schur_geometry(B, ni_pad, nb, kc,
+                                         itemsize=16)["bn"]
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(2, 2072, 2216, 560),
+                                            (1, 2168, 2216, 560),
+                                            (1, 512, 512, 192)])
+def test_kernel_f_float32_geometry_at_wide_ranks(B, ni_pad, nb, kc):
+    """The 3D top shapes' caps of 560 fit a float32 CTA (one an SM, 32-column
+    tiles) where complex128 needs narrower tiles."""
+    g = _check_geometry_f32(B, ni_pad, nb, kc)
+    assert g["bn"] >= 32
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc,sms", [
+    (3, 32, 64, 32, 132), (1, 512, 512, 48, 132), (2, 256, 640, 48, 132),
+    (3, 64, 192, 33, 4), (1, 40, 200, 100, 132)])
+def test_kernel_f_float32_partition_is_the_plain_schur_update(
+        B, ni_pad, nb, kc, sms):
+    """The float32 launch's partition (bands of 32, W a band, nct CTAs a
+    band walking its column tiles) reproduces the plain version, every
+    entry once, to float32's rounding of the two products."""
+    rng = np.random.default_rng(nb + kc + 2)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    front = f(B, ni_pad + nb, ni_pad + nb)
+    RU, RV = f(B, ni_pad, kc), f(B, nb, kc)
+    sperm = np.stack([rng.permutation(nb) for _ in range(B)])
+    g = _check_geometry_f32(B, ni_pad, nb, kc, sms)
+    got = _f_walk_c128(front, ni_pad, RU, RV, sperm, g)
+    assert np.isfinite(got).all() and not np.iscomplexobj(got.real)
+    t = torch.as_tensor
+    want = lowrank_schur_update_plain(t(front), ni_pad, t(RU), t(RV),
+                                      t(sperm)).numpy()
+    assert want.dtype == np.float32
+    assert np.abs(got.real - want).max() <= 1e-5 * np.abs(want).max()

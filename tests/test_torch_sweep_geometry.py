@@ -296,3 +296,72 @@ def test_kernel_b_partition_is_the_plain_extend_add(dtype, rows):
     want = extend_add_plain(t(front), t(S), t(src_rows), t(dst_rows),
                             t(imap)).numpy()
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# float32 (the JAX bench's device configuration on compressed levels):
+# float32 values four a 16-byte read, float64 sums, no double-double
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [128, 512])
+@pytest.mark.parametrize("config", ["low-rank", "structured kest=32",
+                                    "structured default caps"])
+def test_kernel_e_float32_geometry_at_every_launch_shape(n, config):
+    """Kernel E in float32 at every launch shape of the plans: the float64
+    launch's clusters, CTAs and slices; four float32 values a 16-byte read
+    where kc is a multiple of 4 (else one); no double-double (the sums run
+    in float64, far below float32's rounding); its shared memory counted in
+    the 8-byte float64 sums, within a CTA's; four right-hand sides a chunk
+    wherever that fits, as in float64."""
+    for B, R, Cc, kc in _e_shapes(_plan(n, config)):
+        for k in (1, 3):
+            g64 = lowrank_sweep_geometry(B, R, Cc, kc, k)
+            cs, threads, rstep, cstep, vec, kb, dd, smem = \
+                lowrank_sweep_geometry(B, R, Cc, kc, k, itemsize=4)
+            assert (cs, threads, rstep, cstep) == g64[:4]
+            assert dd == 0
+            assert vec == (4 if kc % 4 == 0 else 1)
+            assert smem == 8 * (threads * (2 * vec + 1) * kb + 4 * kc * kb) \
+                <= SMEM_MAX
+            assert kb == (4 if k > 1 else 1), (B, R, Cc, kc, k)
+
+
+@pytest.mark.parametrize("kc,k", [(1, 1), (47, 2), (400, 1), (400, 5),
+                                  (3000, 1), (3000, 4)])
+def test_kernel_e_float32_geometry_at_wide_ranks(kc, k):
+    """Float32 at the 3D caps and beyond: a launch within a CTA's shared
+    memory, unaligned operands one value a read."""
+    for B in (1, 3, 200):
+        for aligned in (True, False):
+            _, threads, _, _, vec, kb, dd, smem = lowrank_sweep_geometry(
+                B, 512, 300, kc, k, aligned=aligned, itemsize=4)
+            assert dd == 0 and smem <= SMEM_MAX
+            assert vec == (4 if aligned and kc % 4 == 0 else 1)
+            assert smem == 8 * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
+                                         (8, 96, 40, 33, 2),
+                                         (150, 20, 30, 32, 1)])
+def test_kernel_e_float32_partition_is_the_plain_update(B, R, Cc, kc, k):
+    """The float32 launch's partition (its geometry's slices, t summed
+    over the cluster's ranks in float64) reproduces the plain version's
+    update summed in float64 and rounded once, to float32's rounding."""
+    rng = np.random.default_rng(B + kc + 1)
+    N = B * (R + Cc) + 7
+    perm = rng.permutation(N)
+    ids_out = perm[:B * R].reshape(B, R).astype(np.int32)
+    ids_in = perm[B * R:B * (R + Cc)].reshape(B, Cc).astype(np.int32)
+    ids_out[:, -2:] = N
+    C = rng.standard_normal((N + 1, k)).astype(np.float32)
+    C[N] = 0.0
+    U = rng.standard_normal((B, R, kc)).astype(np.float32)
+    V = rng.standard_normal((B, Cc, kc)).astype(np.float32)
+    t = torch.as_tensor
+    f64 = lambda a: a.astype(np.float64)
+    got = _e_walk(f64(C), ids_out, f64(U), f64(V), N, ids_in=ids_in)
+    want = lowrank_sweep_update_plain(torch.tensor(C), t(ids_out), t(U), t(V),
+                                      N, ids_in=t(ids_in))
+    assert want.dtype == torch.float32
+    eps = float(np.finfo(np.float32).eps)
+    assert np.abs(got - want.numpy()).max() <= 2 * eps * np.abs(got).max()

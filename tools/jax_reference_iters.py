@@ -45,6 +45,19 @@ system); with ``--config exact`` complex128 throughout
 
 ``--config exact`` without ``--damping`` is the float64 exact run.
 
+``--config lowrank-f32-mixed``, ``hss-f32-mixed`` and
+``hss-default-f32-mixed`` run the compressed configurations above (``lowrank``,
+``hss``, ``hss-default``) in the JAX bench's device configuration: a float32
+factor (the JAX package's own float32 sketches) as the preconditioner of the
+mixed-precision GMRES of the exact run above.  ``hss-f32-mixed`` is
+``bench.py --swlevel -2 --swsize 16 --atol 1e-3 --kest 32`` on a device
+(the bench has no ``hss`` switch: its compressed plans are structured):
+
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --sizes 128 512 \
+        --config hss-f32-mixed      # or lowrank-f32-mixed, hss-default-f32-mixed
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --problem helmholtz3d \
+        --k 10 --sizes 32 --config hss-default-f32-mixed
+
 ``--problem helmholtz3d --k 10`` runs the 3D problems instead (7-point
 helmholtz3d(n, k) on an n^3 mesh, the same leafmax):
 
@@ -87,16 +100,33 @@ def problem(args, n: int):
     return getattr(hsolve, args.problem)(n, k=args.k)
 
 
+# the compressed options of each config (chip_smoke.py's COMPRESSED, HSS and
+# HSS_DEFAULT; LOWRANK_DEFAULT for lowrank-default)
+COMPRESSED_OPTIONS = {
+    "lowrank": dict(kest=32, hss=False), "hss": dict(kest=32, hss=True),
+    "hss-default": dict(hss=True), "lowrank-default": dict(hss=False)}
+
+
+def compressed_options(config: str) -> dict:
+    base = config[:-len("-f32-mixed")] if config.endswith("-f32-mixed") \
+        else config
+    return dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                **COMPRESSED_OPTIONS[base])
+
+
 def run(args, n: int) -> dict:
-    """The exact path: the mixed device configuration, or (``--config
-    exact``) the wide type throughout; complex types with ``--damping``."""
+    """The mixed device configuration on the exact path or, for the
+    ``*-f32-mixed`` compressed configs, on their compressed options; or
+    (``--config exact``) the wide type throughout; complex types with
+    ``--damping``."""
     A, b, shape = problem(args, n)
     b = np.asarray(b)
     cplx = args.damping > 0
     narrow, wide = (np.complex64, np.complex128) if cplx else \
         (np.float32, np.float64)
-    mixed = args.config == "exact-f32-mixed"
-    opts = hsolve.SolverOptions(swlevel=0)
+    mixed = args.config.endswith("-f32-mixed")
+    opts = hsolve.SolverOptions(swlevel=0) if args.config.startswith(
+        "exact") else hsolve.SolverOptions(**compressed_options(args.config))
     plan = hsolve.plan_factorization(A, hsolve.nested_dissection(shape, leafmax=100),
                                      opts)
     fdt = narrow if mixed else wide
@@ -124,7 +154,13 @@ def run(args, n: int) -> dict:
     config = {(False, False): "exact", (False, True): "exact-f32-mixed",
               (True, False): "exact-complex",
               (True, True): "exact-complex-mixed"}[cplx, mixed]
-    return {"n": n, "N": int(A.shape[0]), "problem": args.problem,
+    if not args.config.startswith("exact"):
+        config = args.config
+    extra = {}
+    if not args.config.startswith("exact"):
+        report = F.rank_report()
+        extra = {"max_rank": F.maxrank(), "saturated": report["saturated"]}
+    return {**extra, "n": n, "N": int(A.shape[0]), "problem": args.problem,
             "config": config, "damping": args.damping,
             "iters": iters, "float32_iters": min(iters, 60),
             "float64_iters": max(iters - 60, 0),
@@ -138,10 +174,7 @@ def run_compressed_default(args, n: int) -> dict:
     b = np.asarray(b)
     tree = hsolve.nested_dissection(shape, leafmax=100)
     t0 = time.perf_counter()
-    F = hsolve.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
-                      hss=args.config.startswith("hss"),
-                      **({"kest": 32} if args.config in ("lowrank", "hss")
-                         else {}))
+    F = hsolve.factor(A, tree, **compressed_options(args.config))
     jax.block_until_ready(F.solve_data)
     factor_s = time.perf_counter() - t0
     op, _ = hsolve.spmv_format(
@@ -166,7 +199,9 @@ def main() -> None:
     ap.add_argument("--sizes", type=int, nargs="+", default=[128, 512])
     ap.add_argument("--config", choices=("exact-f32-mixed", "exact",
                                          "hss", "hss-default",
-                                         "lowrank-default", "lowrank"),
+                                         "lowrank-default", "lowrank",
+                                         "lowrank-f32-mixed", "hss-f32-mixed",
+                                         "hss-default-f32-mixed"),
                     default="exact-f32-mixed")
     ap.add_argument("--problem", choices=("helmholtz2d", "helmholtz3d"),
                     default="helmholtz2d")
@@ -177,8 +212,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.damping > 0 and args.problem != "helmholtz2d":
         ap.error("--damping runs the helmholtz2d configs")
-    fn = run if args.config in ("exact-f32-mixed", "exact") \
-        else run_compressed_default
+    fn = run if args.config.startswith("exact") or \
+        args.config.endswith("-f32-mixed") else run_compressed_default
     for n in args.sizes:
         print(json.dumps(fn(args, n)), flush=True)
 
