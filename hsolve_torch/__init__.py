@@ -1,12 +1,13 @@
 """hsolve_torch: the PyTorch/CUDA port of hsolve, a hierarchical sparse direct
 solver and GMRES preconditioner (nested-dissection multifrontal factorization).
 
-The exact (``swlevel=0``), low-rank compressed and structured (HSS) real paths
-run end to end on one device: plan -> numeric factor -> hierarchical solve ->
-restarted GMRES, in float64, and the exact path also as the JAX bench's device
-configuration (a float32 factor inside mixed-precision GMRES with escalation),
-on the 2D and 3D problem families; ``python -m hsolve_torch.bench`` prints the
-JAX bench's JSON line.
+The exact (``swlevel=0``), low-rank compressed and structured (HSS) paths run
+end to end on one device: plan -> numeric factor -> hierarchical solve ->
+restarted GMRES, in float64 (complex128 for the damped, complex Helmholtz
+system), and each also as the JAX bench's device configuration (a float32 or
+complex64 factor inside mixed-precision GMRES with escalation), on the 2D and
+3D problem families; ``python -m hsolve_torch.bench`` prints the JAX bench's
+JSON line.
 The entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  The package imports torch, numpy and scipy only; it never
 imports jax or ``hsolve`` (the JAX package, kept as the reference), so it runs

@@ -30,10 +30,10 @@ cycles over the complex64 operator (``--inner f32``: ``m_eps=1e-6``,
 escalation to complex128 cycles), with ``--cpu`` complex128 throughout;
 ``--factor-dtype f64`` / ``--inner f64`` give complex128 on the card, and
 ``f32`` / ``f32`` complex64 with ``--cpu``.  This bench has no ``hss``
-switch, so its compressed plans (``--swlevel`` < 0) are structured: a
-complex system factors there in complex128 (``--cpu``, or ``--factor-dtype
-f64`` on the card, which has no complex64 kernels E-K yet, slice 16 of the
-port, and refuses its default complex64 factor on such a plan).  The tag puts ``_damp<D>`` first, as
+switch, so its compressed plans (``--swlevel`` < 0) are structured: there
+the card's default complex64 factor runs kernels E-K in complex64, e.g.
+``python -m hsolve_torch.bench --n 128 --damping 0.1 --swlevel -2
+--swsize 16 --atol 1e-3 --kest 32``.  The tag puts ``_damp<D>`` first, as
 ``bench.py`` does.  The roofline fields take the complex value's bytes
 (16 or 8) and its parts' peak; the FLOP model is the JAX package's, which
 counts a complex multiply-add as one operation, so a complex run's
@@ -109,7 +109,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--damping", type=float, default=0.0,
                     help="impedance damping for helmholtz2d: > 0 gives the "
                          "complex system (complex64 factor and cycles on the "
-                         "card, complex128 with --cpu; exact plans only)")
+                         "card, complex128 with --cpu)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--explicit-inverse", default=None, choices=["0", "1"],
@@ -121,8 +121,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "or f64 cycles")
     ap.add_argument("--factor-dtype", default=None, choices=["f32", "f64"],
                     help="factor type (default: f32 on the card, f64 with "
-                         "--cpu); a complex system's compressed plans take "
-                         "f64 (complex128) on the card")
+                         "--cpu; complex64 and complex128 for a complex "
+                         "system)")
     return ap.parse_args(argv)
 
 

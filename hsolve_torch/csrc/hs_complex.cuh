@@ -1,13 +1,14 @@
-// Value traits of the typed kernels (A-D, L, M and the GMRES control): one
-// source for real and complex values.
+// Value traits of the typed kernels (A-M and the GMRES control): one source
+// for real and complex values.
 //
 // The complex types are stored as torch stores them, interleaved (re, im):
 // `hs_c128` (complex128, 16 bytes, 16-byte aligned, the layout of double2)
 // and `hs_c64` (complex64, 8 bytes, float2's).  A kernel written for a value
 // type T takes from here:
 //   - hs_acc_t<T>: the type sums accumulate in where the kernel widens them
-//     (kernel C, fault F4's rule): double for float and double, hs_c128 for
-//     both complex types;
+//     (kernels C, E, H and K, fault F4's rule): double for float and double,
+//     hs_c128 for both complex types; hs_widened<T>: true where that is
+//     wider than T (float32 and complex64);
 //   - hs_real_t<T>: the real type of T (norms, moduli, cosines, tolerances);
 //   - hs_wide(x): x in hs_acc_t; static_cast<T>(acc): rounded back once
 //     (each part of a complex value on its own);
@@ -26,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 struct __align__(16) hs_c128 {
   double re, im;
@@ -111,6 +114,8 @@ template <typename T>
 using hs_acc_t = typename hs_traits<T>::acc;
 template <typename T>
 using hs_real_t = typename hs_traits<T>::real;
+template <typename T>
+constexpr bool hs_widened = !std::is_same<T, hs_acc_t<T>>::value;
 
 __device__ __forceinline__ double hs_wide(double x) { return x; }
 __device__ __forceinline__ double hs_wide(float x) { return (double)x; }

@@ -31,7 +31,10 @@
 // the column never pivoted), not at rounding ties (fault F8, ROADMAP).
 //
 // Values are float64 (hs_cpqr) or complex128 (hs_cpqr_c128, the damped
-// Helmholtz system's levels, stored interleaved as torch stores them).  In
+// Helmholtz system's levels, stored interleaved as torch stores them).
+// Complex64 input (hs_cpqr_c64, the bench's complex device configuration)
+// is widened to complex128 as it is loaded and runs complex128's loop, as
+// float32 runs float64's (F8's rule).  In
 // complex the norms stay real: |a|^2 = re^2 + im^2 (each product rounded,
 // as the plain version's), coef = conj(q)^T A (the JAX package's q^H A),
 // q = a / nrm divides each part, and the downdate subtracts |coef|^2.
@@ -344,6 +347,13 @@ HS_EXPORT int hs_cpqr_f32(const void* A, void* piv, void* rank, void* gwork,
                           int k, int cs, void* stream) {
   return launch_cpqr<float>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
                             stream);
+}
+
+HS_EXPORT int hs_cpqr_c64(const void* A, void* piv, void* rank, void* gwork,
+                          double atol, double rtol, long long B, int m, int n,
+                          int k, int cs, void* stream) {
+  return launch_cpqr<hs_c64>(A, piv, rank, gwork, atol, rtol, B, m, n, k, cs,
+                             stream);
 }
 
 HS_EXPORT int hs_cpqr_c128(const void* A, void* piv, void* rank, void* gwork,

@@ -38,7 +38,9 @@
 // conjugate (hsolve/ops/hss.py:293-313), a complex multiply-add as four
 // real ones on the CUDA cores.  A complex128 slice is 16 columns, so the two
 // staged tiles take 34 KB, within the 48 KB of static shared memory, as the
-// float64 ones' 32 columns do.
+// float64 ones' 32 columns do.  Complex64 (hs_hss_entries_c64, the bench's
+// complex device configuration) takes 32-column slices, the same 34 KB,
+// summed in complex64.
 #include <math.h>
 
 #include "hs_common.cuh"
@@ -221,4 +223,15 @@ HS_EXPORT int hs_hss_entries_c128(const void* D, const void* T, const void* V,
   return launch_entries<hs_c128>(D, T, V, rows, cols, out, srb, srm, srp, scb,
                                  scm, scq, B, M, p, q, n_pad, ls, r, depth,
                                  stream);
+}
+
+HS_EXPORT int hs_hss_entries_c64(const void* D, const void* T, const void* V,
+                                 const void* rows, const void* cols, void* out,
+                                 long long srb, long long srm, long long srp,
+                                 long long scb, long long scm, long long scq,
+                                 long long B, int M, int p, int q, int n_pad,
+                                 int ls, int r, int depth, void* stream) {
+  return launch_entries<hs_c64>(D, T, V, rows, cols, out, srb, srm, srp, scb,
+                                scm, scq, B, M, p, q, n_pad, ls, r, depth,
+                                stream);
 }

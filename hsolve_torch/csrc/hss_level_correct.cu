@@ -59,14 +59,16 @@
 //   clusters per node split the columns, each reading the operands once.
 //
 // Complex128 (hs_hss_level_correct_c128, the damped Helmholtz system's
-// levels) and float32 (hs_hss_level_correct_f32, the JAX bench's device
-// configuration): one kernel for every k on the CUDA cores (a complex
-// multiply-add as four real fused multiply-adds), op still the plain
-// transpose, as in the JAX package.  Float32 operands are widened as they
-// are read and the kernel computes in float64, rounding the correction once
-// (F4's rule): a float32 solve with the 2r x 2r cores' LU (2r up to 384 at
-// the n=512 default caps) lands cond(core) float32 epsilons off, and two
-// float32 solves that sum in other orders part by more than 1e-5 of Y.  A CTA takes one node and nc of its columns: the
+// levels), float32 (hs_hss_level_correct_f32, the JAX bench's device
+// configuration) and complex64 (hs_hss_level_correct_c64, its complex
+// one): one kernel for every k on the CUDA cores (a complex multiply-add as
+// four real fused multiply-adds), op still the plain transpose, as in the
+// JAX package.  Float32 operands are widened as they are read and the
+// kernel computes in float64, complex64 ones in complex128, rounding the
+// correction once (F4's rule): a float32 solve with the 2r x 2r cores' LU
+// (2r up to 384 at the n=512 default caps) lands cond(core) float32
+// epsilons off, and two float32 solves that sum in other orders part by
+// more than 1e-5 of Y.  A CTA takes one node and nc of its columns: the
 // children's upsweep xi [2r, nc] and the right-hand sides w [2r, nc] stay
 // resident in shared memory, w in the solve's order (w[i] =
 // eta[perm[i]]); eta, the blocked substitution and the correction are dot
@@ -768,9 +770,9 @@ __global__ void __launch_bounds__(KB_THREADS) hss_level_correct_block_kernel(
 
 // ---------------------------------------------------------------------------
 // The CUDA-core form, every k: complex128 (the damped Helmholtz system's
-// levels, a complex multiply-add four real FMAs) and float32 (the JAX
-// bench's device configuration: one FMA a multiply-add, summed in float32,
-// no TF32)
+// levels, a complex multiply-add four real FMAs), float32 and complex64
+// (the JAX bench's device configurations: computed in float64 and
+// complex128 on their operands, no TF32)
 // ---------------------------------------------------------------------------
 #define KC_LDD (K_PANEL + 1)   // the diagonal block's row stride
 
@@ -811,7 +813,8 @@ __device__ __forceinline__ int kc_lanes(int nitems, int len) {
 }
 
 // TI the operands' type; VT the type the kernel computes in (hs_acc_t<TI>:
-// double for float32 operands, widened as they are read, F4's rule; the
+// double for float32 operands and complex128 for complex64 ones, widened as
+// they are read, F4's rule; the
 // correction rounded once as it is subtracted from Y)
 template <typename TI, typename VT = hs_acc_t<TI>>
 __global__ void __launch_bounds__(K_THREADS) hss_level_correct_cc_kernel(
@@ -979,6 +982,18 @@ HS_EXPORT int hs_hss_level_correct_c128(void* Y, const void* xi,
   (void)ns;
   return level_correct_cc<hs_c128>(Y, xi, Bl, Br, lu, perm, Phi, B, m, r, blk,
                                    k, nc, transpose, stream);
+}
+
+HS_EXPORT int hs_hss_level_correct_c64(void* Y, const void* xi,
+                                       const void* Bl, const void* Br,
+                                       const void* lu, const void* perm,
+                                       const void* Phi, long long B, int m,
+                                       int r, int blk, int k, int nc, int cs,
+                                       int ns, int transpose, void* stream) {
+  (void)cs;
+  (void)ns;
+  return level_correct_cc<hs_c64>(Y, xi, Bl, Br, lu, perm, Phi, B, m, r, blk,
+                                  k, nc, transpose, stream);
 }
 
 HS_EXPORT int hs_hss_level_correct_f32(void* Y, const void* xi,

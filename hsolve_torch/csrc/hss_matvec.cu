@@ -67,7 +67,9 @@
 //   adjoint stays the plain transpose
 //   A^T, as in the JAX package.  The state's slots hold complex values
 //   (ld counted in values), and the launch takes (512 threads, RB 2) at
-//   k <= 8, else (256, 2).
+//   k <= 8, else (256, 2).  Complex64 (hs_hss_matvec_c64, the bench's
+//   complex device configuration) takes the same form, a multiply-add four
+//   float FMAs, summed in complex64.
 #include "hs_common.cuh"
 #include "hs_complex.cuh"
 
@@ -173,14 +175,24 @@ __device__ __forceinline__ hs_c128 jload_b(const hs_c128* p) {
 }
 
 template <int BM>
+__device__ __forceinline__ hs_c64 jload_b(const hs_c64* p) {
+  if (BM == J_B_X) return hs_ldg(p);
+  if (BM == J_B_PEER) {
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+    return hs_c64(v.x, v.y);
+  }
+  return *p;
+}
+
+template <int BM>
 __device__ __forceinline__ float jload_b(const float* p) {
   if (BM == J_B_X) return __ldg(p);
   if (BM == J_B_PEER) return __ldcg(p);
   return *p;
 }
 
-// VT: complex128, or float32 (one FMA a multiply-add, summed in float32;
-// no TF32)
+// VT: complex128, complex64, or float32 (one FMA a multiply-add; float32
+// and complex64 summed in their own type; no TF32)
 template <int NB, int RB, bool TRANS, int BM, typename VT>
 __device__ __forceinline__ void jmm_c(const VT* __restrict__ g, int ld,
                                       int m, int kd, int rg, const VT* bs,
@@ -224,7 +236,7 @@ __device__ __forceinline__ void jmm_c(const VT* __restrict__ g, int ld,
 }
 
 // jmm in the value type: the FP64 tensor cores for double, jmm_c for
-// complex128 and float32
+// complex128, complex64 and float32
 template <int NB, int RB, int KU, bool TRANS, int BM>
 __device__ __forceinline__ void jmm_v(const double* __restrict__ g, int ld,
                                       int m, int kd, int rg, const double* bs,
@@ -238,6 +250,14 @@ __device__ __forceinline__ void jmm_v(const hs_c128* __restrict__ g, int ld,
                                       int m, int kd, int rg, const hs_c128* bs,
                                       int bld, int bcols,
                                       hs_c128 (&acc)[RB][NB][2], int lane) {
+  jmm_c<NB, RB, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
+}
+
+template <int NB, int RB, int KU, bool TRANS, int BM>
+__device__ __forceinline__ void jmm_v(const hs_c64* __restrict__ g, int ld,
+                                      int m, int kd, int rg, const hs_c64* bs,
+                                      int bld, int bcols,
+                                      hs_c64 (&acc)[RB][NB][2], int lane) {
   jmm_c<NB, RB, TRANS, BM>(g, ld, m, kd, rg, bs, bld, bcols, acc, lane);
 }
 
@@ -609,7 +629,8 @@ HS_EXPORT int hs_hss_matvec(const void* D, const void* U, const void* V,
   return (int)err;
 }
 
-// the CUDA-core form (complex128, float32): (threads, rb) is (512, 2) at
+// the CUDA-core form (complex128, complex64, float32): (threads, rb) is
+// (512, 2) at
 // kc 8, else (256, 2)
 template <typename VT>
 static int matvec_cc(const void* D, const void* U, const void* V,
@@ -650,4 +671,8 @@ HS_EXPORT int hs_hss_matvec_c128(HS_MATVEC_ARGS) {
 
 HS_EXPORT int hs_hss_matvec_f32(HS_MATVEC_ARGS) {
   return matvec_cc<float>(HS_MATVEC_PASS);
+}
+
+HS_EXPORT int hs_hss_matvec_c64(HS_MATVEC_ARGS) {
+  return matvec_cc<hs_c64>(HS_MATVEC_PASS);
 }

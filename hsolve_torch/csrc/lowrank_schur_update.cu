@@ -469,10 +469,12 @@ HS_EXPORT int hs_lowrank_schur_update(const void* front, const void* RU,
 
 // ---------------------------------------------------------------------------
 // The CUDA-core form, for complex128 (the damped Helmholtz system's low-rank
-// levels) and float32 (the JAX bench's device configuration: no TF32, so
-// the float32 products run on the CUDA cores at full precision): the same
-// function on values T, a complex multiply-add four real FMAs, a float32
-// one one FMA (summed in float32, as the JAX package's float32 factor sums);
+// levels), float32 (the JAX bench's device configuration: no TF32, so
+// the float32 products run on the CUDA cores at full precision) and
+// complex64 (the bench's complex device configuration): the same function
+// on values T, a complex multiply-add four real FMAs, a float32 one one FMA
+// (float32 and complex64 summed in their own type, as the JAX package's
+// float32 and complex64 factors sum);
 // no tensor-core form (a complex product there would be four real ones over
 // the parts held apart in shared memory) yet.
 //
@@ -505,6 +507,20 @@ __device__ __forceinline__ void cfma_add(hs_c128& acc, hs_c128 a, hs_c128 b) {
   acc.re = fma(-a.im, b.im, acc.re);
   acc.im = fma(a.re, b.im, acc.im);
   acc.im = fma(a.im, b.re, acc.im);
+}
+
+__device__ __forceinline__ void cfma_sub(hs_c64& acc, hs_c64 a, hs_c64 b) {
+  acc.re = fmaf(-a.re, b.re, acc.re);
+  acc.re = fmaf(a.im, b.im, acc.re);
+  acc.im = fmaf(-a.re, b.im, acc.im);
+  acc.im = fmaf(-a.im, b.re, acc.im);
+}
+
+__device__ __forceinline__ void cfma_add(hs_c64& acc, hs_c64 a, hs_c64 b) {
+  acc.re = fmaf(a.re, b.re, acc.re);
+  acc.re = fmaf(-a.im, b.im, acc.re);
+  acc.im = fmaf(a.re, b.im, acc.im);
+  acc.im = fmaf(a.im, b.re, acc.im);
 }
 
 __device__ __forceinline__ void cfma_sub(float& acc, float a, float b) {
@@ -700,4 +716,8 @@ HS_EXPORT int hs_lowrank_schur_update_c128(HS_SCHUR_ARGS) {
 
 HS_EXPORT int hs_lowrank_schur_update_f32(HS_SCHUR_ARGS) {
   return launch_schur_cc<float>(HS_SCHUR_PASS);
+}
+
+HS_EXPORT int hs_lowrank_schur_update_c64(HS_SCHUR_ARGS) {
+  return launch_schur_cc<hs_c64>(HS_SCHUR_PASS);
 }

@@ -74,6 +74,13 @@
 // each part's sum; at launches of at most 16 fronts each part sums in
 // double-double as a real sum does (its own pair), t is kept as a pair of
 // complex values, and a row's update is scattered with two real atomics.
+//
+// Complex64 (the bench's complex device configuration on compressed levels,
+// T = hs_c64): float32's rule on complex values.  Two values a 16-byte load
+// (VEC = 2), widened to complex128 as they are read; t, the partials and the
+// staged Y rows in complex128 (A = hs_c128); the update rounded to complex64
+// once, each part on its own, and scattered with two float atomics; no
+// double-double (dd = 0).
 #include <cooperative_groups.h>
 
 #include "hs_common.cuh"
@@ -106,6 +113,18 @@ __device__ __forceinline__ void e_load(const float* p, double* v) {
     v[3] = t.w;
   } else {
     v[0] = __ldg(p);
+  }
+}
+
+// complex64 values widened to complex128 (two a 16-byte load where VEC = 2)
+template <int VEC>
+__device__ __forceinline__ void e_load(const hs_c64* p, hs_c128* v) {
+  if (VEC == 2) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = hs_c128(t.x, t.y);
+    v[1] = hs_c128(t.z, t.w);
+  } else {
+    v[0] = hs_wide(hs_ldg(p));
   }
 }
 
@@ -195,7 +214,7 @@ __global__ void __launch_bounds__(NT)
                                 const int* __restrict__ ids_in, int R, int Cc,
                                 int kc, int k, int N, int cs, int rstep,
                                 int cstep) {
-  typedef hs_acc_t<T> A;  // sums: T, or double for float32 values
+  typedef hs_acc_t<T> A;  // sums: T, or its wide type for 32-bit parts
   extern __shared__ __align__(16) unsigned char e_smem[];
   A* smem = reinterpret_cast<A*>(e_smem);
   A* red = smem;                   // [2][NT][VEC][KB] phase-1 partials
@@ -431,8 +450,8 @@ static int lowrank_sweep_launch(T* C, const int* ids_out, const T* U,
 }
 
 // the instances of one value type: VEC is 1, or the values of a 16-byte
-// load where that is more (two doubles; a complex128 value is its own 16
-// bytes)
+// load where that is more (two doubles, four floats, two complex64 values; a
+// complex128 value is its own 16 bytes)
 template <typename T, int NT, bool DD>
 static int lowrank_sweep_dispatch(T* c, const int* o, const T* u, const T* v,
                                   const T* x, const int* in, long long B,
@@ -472,7 +491,7 @@ static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
       (kb != 1 && kb != 4) ||
       smem < (long long)(threads * (2 * vec + 1) * kb + 4 * kc * kb) *
                  (long long)sizeof(hs_acc_t<T>) ||
-      B * cs > 0x7fffffffLL || (dd && sizeof(T) == 4))
+      B * cs > 0x7fffffffLL || (dd && hs_widened<T>))
     return (int)cudaErrorInvalidValue;
   T* c = (T*)C;
   const int* o = (const int*)ids_out;
@@ -480,7 +499,7 @@ static int lowrank_sweep_entry(void* C, const void* ids_out, const void* U,
   const int* in = (const int*)ids_in;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t sm = (size_t)smem;
-  if constexpr (sizeof(T) == 4) {  // float32: float64 sums, no dd
+  if constexpr (hs_widened<T>) {  // float32, complex64: wide sums, no dd
     if (threads == 1024)
       return lowrank_sweep_dispatch<T, 1024, false>(c, o, u, v, x, in, B, R,
                                                     Cc, kc, k, N, cs, rstep,
@@ -524,4 +543,8 @@ HS_EXPORT int hs_lowrank_sweep_update_f32(HS_SWEEP_ARGS) {
 
 HS_EXPORT int hs_lowrank_sweep_update_c128(HS_SWEEP_ARGS) {
   return lowrank_sweep_entry<hs_c128>(HS_SWEEP_PASS);
+}
+
+HS_EXPORT int hs_lowrank_sweep_update_c64(HS_SWEEP_ARGS) {
+  return lowrank_sweep_entry<hs_c64>(HS_SWEEP_PASS);
 }

@@ -34,7 +34,9 @@
 // Q and Uw staged in shared memory, whose size is counted in the value's
 // bytes.  Float32 (the JAX bench's device configuration) takes the same
 // CUDA-core kernel, one FMA a multiply-add (no TF32), sv float32 and the
-// threshold rounded in float32 as the plain version rounds it.
+// threshold rounded in float32 as the plain version rounds it; complex64
+// (the bench's complex device configuration) too, a complex multiply-add
+// four float FMAs, summed in complex64, sv float32.
 #include "hs_common.cuh"
 #include "hs_complex.cuh"
 
@@ -322,9 +324,10 @@ HS_EXPORT int hs_lowrank_truncate(const void* Q, const void* Uw,
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core form: complex128 (a complex multiply-add four real FMAs)
-// and float32 (one FMA, summed in float32 as the JAX package's float32
-// factor sums; no TF32), sv in the real type
+// The CUDA-core form: complex128 and complex64 (a complex multiply-add four
+// real FMAs) and float32 (one FMA; float32 and complex64 summed in their
+// own type as the JAX package's float32 and complex64 factors sum; no
+// TF32), sv in the real type
 // ---------------------------------------------------------------------------
 #define GC_KC 16                          // depth of a staged chunk
 #define GC_STAGE (2 * G_TILE * GC_KC)     // values: Q's and Uw's chunks
@@ -336,6 +339,13 @@ __device__ __forceinline__ void g_fma(hs_c128& acc, hs_c128 a, hs_c128 b) {
   acc.re = fma(-a.im, b.im, acc.re);
   acc.im = fma(a.re, b.im, acc.im);
   acc.im = fma(a.im, b.re, acc.im);
+}
+
+__device__ __forceinline__ void g_fma(hs_c64& acc, hs_c64 a, hs_c64 b) {
+  acc.re = fmaf(a.re, b.re, acc.re);
+  acc.re = fmaf(-a.im, b.im, acc.re);
+  acc.im = fmaf(a.re, b.im, acc.im);
+  acc.im = fmaf(a.im, b.re, acc.im);
 }
 
 __device__ __forceinline__ void g_fma(float& acc, float a, float b) {
@@ -454,4 +464,8 @@ HS_EXPORT int hs_lowrank_truncate_c128(HS_TRUNC_ARGS) {
 
 HS_EXPORT int hs_lowrank_truncate_f32(HS_TRUNC_ARGS) {
   return launch_truncate_cc<float>(HS_TRUNC_PASS);
+}
+
+HS_EXPORT int hs_lowrank_truncate_c64(HS_TRUNC_ARGS) {
+  return launch_truncate_cc<hs_c64>(HS_TRUNC_PASS);
 }

@@ -52,10 +52,11 @@ float32 sweep does, and H's column-pivoting loop and K's Woodbury solve
 running in float64; the sketches are drawn in float32, as the JAX package
 draws them for a float32 factor).  A complex system
 (the damped Helmholtz operator) factors in complex128 or, as the bench's
-device configuration, complex64, on exact plans, and in complex128 on
-compressed levels, low-rank (``hss=False``: kernels E-G in complex128) or
-structured (``hss=True``: kernels E-K in complex128), the sketches drawn
-real and cast, as the JAX package draws them.  Only the column-pivoted QR
+complex device configuration, complex64, on exact plans and on compressed
+levels, low-rank (``hss=False``: kernels E-G in the factor's type) or
+structured (``hss=True``: kernels E-K), the sketches drawn real and cast,
+as the JAX package draws them; complex64 follows float32's rules, E
+summing in complex128 and H's loop and K's solve running in complex128.  Only the column-pivoted QR
 behind the interpolative decompositions conjugates (``R = Q^H A``, the ID of
 ``A^H``); every other product of the structured levels, their adjoint
 solves included, takes plain transposes, as the JAX package's do.  Float32 and
@@ -605,22 +606,14 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
     structured (``hss=True``, the default) levels alike; on the CPU every
     kernel runs as its plain torch version.  A complex system
     (``plan.A_dtype`` complex128, e.g. ``helmholtz2d(n, damping=0.1)``)
-    factors in complex128 or complex64 on an exact plan (``swlevel=0``), and
-    in complex128 on compressed levels, low-rank or structured, on either
-    device (complex64 there only on the CPU: kernels E-K in complex64 are
-    slice 16 of the port).  ``sketch`` replaces the default
+    factors in complex128 or complex64 on exact, low-rank and structured
+    levels alike, on either device.  ``sketch`` replaces the default
     sketches of the compressed batches (see :data:`Sketch` and
     :func:`torch_sketch`)."""
     dev = resolve_device(device)
     tdt = _torch_dtype(dtype, plan)
     if dev.type == "cuda" and tdt not in VALUE_TYPES:
         raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
-    if dev.type == "cuda" and tdt == torch.complex64 and any(
-            bp.compress for bp in plan.batches):
-        raise NotImplementedError(
-            "complex64 on compressed and structured levels on the card "
-            "(kernels E-K in complex64) is slice 16 of the port (ROADMAP.md, "
-            "queue 1, item 1); factor this plan in complex128 there")
     torch.backends.cuda.matmul.allow_tf32 = False
     opts = opts.replace(explicit_inverse=opts.resolve_explicit_inverse())
     if opts.verbose:
@@ -646,8 +639,8 @@ def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
     """Top-level entry (parity with ``factor(A, nd, nd_loc, opts; args...)``,
     factorization.jl:5-11): plan, then factor on ``device`` (the card unless
     the caller asks for the CPU; see :func:`factor_with_plan`, also for the
-    value types: a complex system factors in complex128 on exact, low-rank
-    and structured levels alike).
+    value types: a complex system factors in complex128 or complex64 on
+    exact, low-rank and structured levels alike).
 
     With ``opts.adaptive`` the computed compression ranks are checked against
     the planned caps; on saturation the problem is re-planned with the largest

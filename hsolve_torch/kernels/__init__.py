@@ -35,13 +35,14 @@ H-K on the structured (HSS) levels, which also run E on their low-rank
 transforms.  A-D, L and M take float32, float64, complex64 or complex128
 values (one C entry point per type, ``hs_<name>``, ``hs_<name>_f32``,
 ``_c64`` and ``_c128``; the complex kernels use the value traits of
-``csrc/hs_complex.cuh``); E-K take float64, float32 or complex128
-(``hs_<name>``, ``hs_<name>_f32`` and ``hs_<name>_c128``: the float32 ones
-serve the JAX bench's device configuration, a float32 factor on compressed
-and structured levels; E sums in float64 and rounds once, as C's float32
-sweep, H runs its pivot loop and K its solve in float64 on float32
-operands; F, G, J and K take float32 and complex128 on the CUDA cores, no
-TF32, K as one kernel for every k); the control kernels the
+``csrc/hs_complex.cuh``); so do E-K (``hs_<name>``, ``hs_<name>_f32``,
+``_c64`` and ``_c128``: the float32 and complex64 ones serve the JAX
+bench's device configurations, a float32 or complex64 factor on compressed
+and structured levels; there E sums in float64 or complex128 and rounds
+once, as C's narrow sweeps, and H runs its pivot loop and K its solve in
+the wide type on the narrow operands; F, G, J and K take float32,
+complex64 and complex128 on the CUDA cores, no TF32, K as one kernel for
+every k); the control kernels the
 solution's type (the cycle start also float32 cycles in a float64 solve,
 ``hs_gmres_cycle_start_mixed``, and complex64 cycles in a complex128 one,
 ``hs_gmres_cycle_start_mixed_c``).  Kernel C's
@@ -131,14 +132,15 @@ _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name] for name in TYPED
                                     "hs_gmres_escalate")
                     for sfx in ("_c64", "_c128")})
 _SIGNATURES["hs_gmres_cycle_start_mixed_c"] = _SIGNATURES["hs_gmres_cycle_start"]
-# E-K take float64, float32 or complex128 (the compressed and structured
-# levels' types)
+# E-K take the same four types (the compressed and structured levels')
 LOWRANK_TYPED = ("hs_lowrank_sweep_update", "hs_lowrank_schur_update",
                  "hs_lowrank_truncate", "hs_cpqr", "hs_hss_entries",
                  "hs_hss_matvec", "hs_hss_level_correct")
 _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name]
-                    for name in LOWRANK_TYPED for sfx in ("_f32", "_c128")})
-LOWRANK_TYPES = (torch.float64, torch.float32, torch.complex128)
+                    for name in LOWRANK_TYPED
+                    for sfx in ("_f32", "_c64", "_c128")})
+LOWRANK_TYPES = (torch.float64, torch.float32, torch.complex64,
+                 torch.complex128)
 VALUE_TYPES = (torch.float32, torch.float64, torch.complex64,
                torch.complex128)
 _SUFFIX = {torch.float64: "", torch.float32: "_f32", torch.complex64: "_c64",
@@ -284,9 +286,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
                         "kernels take int32 indices, and one value type per "
-                        "call: float32, float64, complex64 or complex128 for "
-                        "A-D, L and M, float64, float32 or complex128 for "
-                        "E-K)")
+                        "call: float32, float64, complex64 or complex128)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if t.is_conj() or t.is_neg():
@@ -319,13 +319,13 @@ def materialized(t: torch.Tensor) -> torch.Tensor:
 
 def lowrank_type(*tensors: torch.Tensor) -> torch.dtype:
     """The one value type of the value operands of a kernel of E-K: float64,
-    float32 or complex128, shared by all of them; raises ``TypeError``
-    otherwise."""
+    float32, complex64 or complex128, shared by all of them; raises
+    ``TypeError`` otherwise."""
     types = {t.dtype for t in tensors}
     if len(types) != 1 or not types <= set(LOWRANK_TYPES):
         raise TypeError(f"value operands of types {sorted(map(str, types))}: "
                         "kernels E-K take one type per call, float64, "
-                        "float32 or complex128")
+                        "float32, complex64 or complex128")
     return types.pop()
 
 
@@ -403,6 +403,16 @@ COMPLEX_MIXED_PATH = ("front_assemble:complex64", "extend_add:complex64",
                       "arnoldi_step:complex64", "gmres_init:float64",
                       "gmres_cycle_start:complex64", "gmres_cycle_end:float64",
                       "gmres_escalate:float64", "gmres_set_cond")
+# ... on compressed levels: that configuration over a complex64 factor
+# whose low-rank levels (hss=False) run E, F and G in complex64
+COMPLEX_LOWRANK_MIXED_PATH = COMPLEX_MIXED_PATH + (
+    "lowrank_sweep_update:complex64", "lowrank_schur_update:complex64",
+    "lowrank_truncate:complex64")
+# ... and whose structured levels (hss=True, the bench's) run H-K in
+# complex64 as well
+COMPLEX_HSS_MIXED_PATH = COMPLEX_LOWRANK_MIXED_PATH + (
+    "cpqr_pivots:complex64", "hss_entries_prepared:complex64",
+    "hss_matvec:complex64", "hss_level_correct:complex64")
 
 
 def wrappers():

@@ -28,8 +28,9 @@ the interpolative decompositions run kernel H
 
 Values are float64, float32 (the JAX bench's device configuration: J, K,
 I and H take float32 instances, J and K on the CUDA cores, no TF32, K and
-H computing in float64 on their float32 operands) or complex128 (the
-damped Helmholtz system).  In complex
+H computing in float64 on their float32 operands), complex128 (the damped
+Helmholtz system) or complex64 (the bench's complex device configuration,
+float32's rules: K and H computing in complex128).  In complex
 every product here takes the plain transpose, as the JAX package's do: the
 adjoint matvec and solve are ``A^T x`` and ``A^{-T} b``; only the
 interpolative decompositions conjugate (the ID of ``A^H``, ``R = Q^H A``).
@@ -46,6 +47,7 @@ import torch
 from hsolve_torch import kernels
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.lowrank import interp_decomp
+from hsolve_torch.ops.sweep import accumulator
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +283,8 @@ def hss_matvec_smem(nleaves: int, depth: int, r: int, cs: int, kc: int,
 
 
 def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
-                        k: int, sms: int = 132, itemsize: int = 8):
+                        k: int, sms: int = 132, itemsize: int = 8,
+                        is_complex: bool = False):
     """Kernel J's launch: ``(cs, kc, groups, smem, threads, rb)``.  ``kc`` columns a
     chunk: the first of 8, 16, 32 that holds ``k``, else 32.  A matrix
     gets up to ``ceil(sms / B)`` CTAs: first column groups (``groups``, each
@@ -296,9 +299,10 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     of 8 columns (the solve's k = 1: more warps on the few matrices of a
     level) and 256 and 4 above, the fastest of the forms
     ``tools/j_breakdown.py`` times.  Complex128 values (``itemsize`` 16)
-    fill twice the bytes a slot, float32 ones (``itemsize`` 4) half, and
-    both take 512 and 2 at one chunk of 8 columns, else 256 and 2 (the
-    CUDA-core form's instances)."""
+    fill twice the bytes a slot, float32 ones (``itemsize`` 4) half and
+    complex64 ones (8, ``is_complex``) as many, and all three take 512 and
+    2 at one chunk of 8 columns, else 256 and 2 (the CUDA-core form's
+    instances)."""
     del ls  # the leaves' rows stream from global memory
     kc = next((c for c in J_CHUNKS if c >= k), J_CHUNKS[-1])
     chunks = -(-k // kc)
@@ -309,7 +313,7 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
         cs *= 2
     groups = max(1, min(chunks, -(-sms // max(B * cs, 1))))
     smem = hss_matvec_smem(nleaves, depth, r, cs, kc, itemsize)
-    if itemsize != 8:
+    if itemsize != 8 or is_complex:
         form = (512, 2) if kc == 8 else (256, 2)
     else:
         form = (256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)
@@ -345,7 +349,8 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
     thread block cluster per matrix walks every level over chunks of the
     columns, its nodes' state in shared memory or, where that does not fit,
     in a scratch region a CTA (:func:`hss_matvec_geometry`).  Float64,
-    float32 or complex128 values, one type for ``x`` and every generator."""
+    float32, complex64 or complex128 values, one type for ``x`` and every
+    generator."""
     if kernels.on_cpu(x, h.D):
         return hss_matvec_plain(h, x, adjoint)
     p, Bn, r = h.plan, h.B, h.r
@@ -359,7 +364,7 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
         return torch.empty_like(x)
     y = hss_matvec_launch(h, x, adjoint, *hss_matvec_geometry(
         Bn, p.nleaves, p.ls, r, p.depth, k, kernels.sm_count(x.device),
-        x.element_size()))
+        x.element_size(), dt.is_complex))
     kernels.count_launch(hss_matvec, dt)
     return y
 
@@ -463,9 +468,9 @@ def hss_entries_prepared(ef: EntryFactors, rows: torch.Tensor,
     """Kernel I wrapper (see the plain version): one CTA per 64 x 64 tile of
     an index block; per LCA level present, the tile's T and V rows staged
     once in shared memory and multiplied as a small product (or one D load
-    per same-leaf entry).  Float64, float32 or complex128 values (a slice
-    of T and V is 256 bytes a row: 32 float64, 64 float32 or 16 complex128
-    columns)."""
+    per same-leaf entry).  Float64, float32, complex64 or complex128 values
+    (a slice of T and V is 256 bytes a row: 32 float64 or complex64, 64
+    float32 or 16 complex128 columns)."""
     if kernels.on_cpu(rows, cols, ef.D):
         return hss_entries_prepared_plain(ef, rows, cols)
     D, T, V = ef
@@ -849,11 +854,11 @@ def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
 
 
 def level_correct_itemsize(dtype: torch.dtype) -> int:
-    """Bytes of a value K's CUDA-core form computes in: complex128's 16,
-    and float64's 8 for float32 operands (widened as they are read: a
-    float32 solve with a 2r x 2r core's LU lands cond(core) float32
-    epsilons off)."""
-    return 16 if dtype.is_complex else 8
+    """Bytes of a value K's CUDA-core form computes in: complex128's 16 for
+    both complex types, and float64's 8 for float32 operands (narrow
+    operands widened as they are read: a 32-bit solve with a 2r x 2r core's
+    LU lands cond(core) epsilons off): the solve sweeps' accumulator."""
+    return accumulator(dtype).itemsize
 
 
 def level_correct_smem_cc(r: int, nc: int, itemsize: int = 16) -> int:
@@ -865,8 +870,9 @@ def level_correct_smem_cc(r: int, nc: int, itemsize: int = 16) -> int:
 
 
 def level_correct_geometry_cc(r: int, k: int, itemsize: int = 16) -> int:
-    """Columns a CTA of kernel K's CUDA-core form (complex128, ``itemsize``
-    16; float32 operands computed in float64, 8; every k, one CTA per node
+    """Columns a CTA of kernel K's CUDA-core form (complex128 and complex64,
+    computed in complex128, ``itemsize`` 16; float32 operands computed in
+    float64, 8; every k, one CTA per node
     and column group): up to 32, halved while xi and w do not fit a CTA's
     shared memory (complex128: 16 at r = 192; float32: 32 up to r = 217,
     16 at the 3D caps' 400).  Raises where one column does not fit
@@ -912,8 +918,9 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     where the launch fits the card at once (:func:`level_correct_geometry`).
     Either forms eta, streams the core LU through shared memory for the
     pivoted solve and corrects both children's rows of ``Y`` in place.
-    Complex128 and float32 values take one CUDA-core kernel for every k, a
-    CTA per node and up to 32 columns (:func:`level_correct_geometry_cc`)."""
+    Complex128, complex64 and float32 values take one CUDA-core kernel for
+    every k, a CTA per node and up to 32 columns
+    (:func:`level_correct_geometry_cc`)."""
     if kernels.on_cpu(Y, xi, Bl, lu):
         return hss_level_correct_plain(Y, xi, Bl, Br, lu, piv, Phi, transpose)
     Bn, n_pad, k = Y.shape

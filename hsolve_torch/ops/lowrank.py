@@ -9,8 +9,8 @@
   argument, so a caller (or a test) decides where its random numbers come from,
 - :func:`lowrank_truncate` (kernel G, ``csrc/lowrank_truncate.cu``): the
   product ``Q @ Uw`` and the truncation epilogue of :func:`rand_lowrank`,
-  with its plain version :func:`lowrank_truncate_plain`; float64, float32
-  or complex128 values (the singular values real).
+  with its plain version :func:`lowrank_truncate_plain`; float64, float32,
+  complex64 or complex128 values (the singular values real).
 
 - :func:`cpqr` and :func:`interp_decomp`: column-pivoted QR without Q
   accumulation and the row interpolative decomposition built on it, for the
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from hsolve_torch import kernels
+from hsolve_torch.ops.sweep import accumulator
 
 
 class LowRank(NamedTuple):
@@ -73,7 +74,7 @@ def lowrank_truncate_plain(Q: torch.Tensor, Uw: torch.Tensor,
 def lowrank_truncate(Q: torch.Tensor, Uw: torch.Tensor, sv: torch.Tensor,
                      Vh: torch.Tensor, atol: float, rtol: float, cap: int):
     """Kernel G wrapper (see the plain version); ``Q`` is [B, m, s], ``Uw``
-    [B, s, r], ``Vh`` [B, r, n], all float64, all float32 or all
+    [B, s, r], ``Vh`` [B, r, n], all float64, float32, complex64 or
     complex128, ``sv`` [B, r] in their real type (descending).  The kernel
     computes only the rank's columns of ``Q @ Uw``."""
     if kernels.on_cpu(Q, Uw, sv, Vh):
@@ -158,18 +159,19 @@ def _div_real(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 def cpqr_loop_type(dtype: torch.dtype) -> torch.dtype:
     """The type kernel H's pivot loop and its plain version run in for
-    input of type ``dtype``: float64 for float32 (F4's rule, as the float32
-    sweeps sum: a float32 downdate ``norms^2 - coef^2`` cancels to noise
-    once a residual falls to 3e-4 of its column, where the transition
-    compressions truncate), else ``dtype``."""
-    return torch.float64 if dtype == torch.float32 else dtype
+    input of type ``dtype``: float64 for float32 and complex128 for
+    complex64 (F4's rule, as the narrow sweeps sum: a 32-bit downdate
+    ``norms^2 - |coef|^2`` cancels to noise once a residual falls to 3e-4
+    of its column, where the transition compressions truncate), else
+    ``dtype``: the solve sweeps' accumulator."""
+    return accumulator(dtype)
 
 
 def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
     """The pivot loop of ``hsolve/ops/lowrank.py:cpqr`` (:189-219): ``k`` steps
     of Businger-Golub column pivoting with norm downdating on ``A`` [B, m, n]
-    (float64, float32 or complex128; float32 runs the loop in float64,
-    :func:`cpqr_loop_type`); returns ``(piv [B, k] int32, -1 past the rank;
+    (float64, float32, complex64 or complex128; float32 and complex64 run
+    the loop in float64 and complex128, :func:`cpqr_loop_type`); returns ``(piv [B, k] int32, -1 past the rank;
     rank [B] int32)``.  The norms are real, ``sum |a|^2``; the coefficients
     are ``q^H A`` and the downdate subtracts ``|coef|^2``.  Ties go to the
     first maximal norm, as ``jnp.argmax`` does."""
@@ -209,7 +211,8 @@ def cpqr_smem(m: int, n: int, cs: int, resident: bool = True,
     """Dynamic shared memory of one CTA of kernel H when a cluster of ``cs``
     CTAs shares an ``[m, n]`` matrix whose pivot loop runs on
     ``itemsize``-byte values (8: float64, and float32, whose loop runs in
-    float64; 16: complex128; :func:`cpqr_itemsize`): its ``ceil(n / cs)``
+    float64; 16: complex128, and complex64, whose loop runs in complex128;
+    :func:`cpqr_itemsize`): its ``ceil(n / cs)``
     columns (where ``resident``), their coefficients and the pivot
     direction in the loop's type, their norms in float64."""
     w = -(-n // cs)
@@ -234,7 +237,8 @@ def cpqr_cluster(m: int, n: int, itemsize: int = 8):
 
 def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
     """Kernel H wrapper (see the plain version); ``A`` is [B, m, n] float64,
-    float32 (read as float32, the loop in float64) or complex128, each
+    float32 (read as float32, the loop in float64), complex64 (the loop in
+    complex128) or complex128, each
     matrix's columns spread over a thread block cluster
     (:func:`cpqr_cluster`)."""
     if kernels.on_cpu(A):

@@ -11,10 +11,10 @@ of it in one kernel,
 reading ``Abi`` and ``Abb`` in place from the front buffer, keeping ``W`` in
 shared memory and storing ``S`` already permuted.  :func:`schur_geometry`
 picks its launch from the plan's shapes.  Float64 runs on the FP64 tensor
-cores; complex128 (the damped Helmholtz system's low-rank levels) and
-float32 (the JAX bench's device configuration; no TF32) take a kernel of
-their own on the CUDA cores, one complex multiply-add as four real FMAs, a
-float32 one as one (:func:`schur_geometry_cc`).
+cores; complex128 (the damped Helmholtz system's low-rank levels), float32
+and complex64 (the JAX bench's device configurations; no TF32) take a
+kernel of their own on the CUDA cores, one complex multiply-add as four
+real FMAs, a float32 one as one (:func:`schur_geometry_cc`).
 """
 
 from __future__ import annotations
@@ -58,12 +58,13 @@ def _fits(bm: int, bn: int) -> bool:
 
 
 def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
-                   sms: int = H100_SMS, itemsize: int = 8) -> dict:
+                   sms: int = H100_SMS, itemsize: int = 8,
+                   is_complex: bool = False) -> dict:
     """Kernel F's launch for ``B`` fronts with ``nb`` boundary rows, depth
     ``ni_pad`` and rank cap ``kc`` on a card of ``sms`` SMs: ``{"bm", "bn",
-    "cs", "nct", "kd", "whole", "smem"}``; values of ``itemsize`` 16
-    (complex128) and 4 (float32) take the CUDA-core form's,
-    :func:`schur_geometry_cc`.
+    "cs", "nct", "kd", "whole", "smem"}``; values other than float64
+    (``itemsize`` 16, complex128; 4, float32; 8 with ``is_complex``,
+    complex64) take the CUDA-core form's, :func:`schur_geometry_cc`.
 
     Fronts of at most ``F_WHOLE_MAX`` boundary rows (the many-front levels)
     take whole rows: a CTA covers a band of ``bm`` rows and every column
@@ -80,7 +81,7 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
     CTA's shared memory too large, the chunk and then the tiles shrink, and
     where no cluster form fits, the band's CTAs each compute W themselves.
     Raises only where no form fits."""
-    if itemsize != 8:
+    if itemsize != 8 or is_complex:
         return schur_geometry_cc(B, ni_pad, nb, kc, sms, itemsize)
     nbp = _up(nb)
     cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
@@ -125,7 +126,8 @@ F_C_KD = 16            # the CUDA-core form: depth of a staged chunk of Abi and 
 
 def schur_smem_cc(bn: int, kd: int, kc: int, itemsize: int = 16) -> int:
     """Bytes of shared memory one CTA of kernel F's CUDA-core form takes,
-    values of ``itemsize`` bytes (16 complex128, 4 float32): the band's W
+    values of ``itemsize`` bytes (16 complex128, 8 complex64, 4 float32):
+    the band's W
     and a column tile's RV rows (rows of ``kc | 1`` values: an odd stride
     keeps a quarter warp's 16-byte reads, a warp's 4-byte ones, on distinct
     banks), a depth chunk of Abi and RU, the permutation's rows and
@@ -138,26 +140,31 @@ def schur_smem_cc(bn: int, kd: int, kc: int, itemsize: int = 16) -> int:
 def schur_geometry_cc(B: int, ni_pad: int, nb: int, kc: int,
                       sms: int = H100_SMS, itemsize: int = 16) -> dict:
     """Kernel F's launch in its CUDA-core form (complex128, ``itemsize``
-    16; float32, 4): ``{"bm", "bn", "cs", "nct", "kd", "whole", "smem",
-    "walk"}``.  A CTA computes ``W = Abi RU`` for a band
+    16; complex64, 8; float32, 4): ``{"bm", "bn", "cs", "nct", "kd",
+    "whole", "smem", "walk"}``.  A CTA computes ``W = Abi RU`` for a band
     of ``bm`` = 32 rows once, then walks ``walk`` column tiles of ``bn``
     columns (tiles ``x, x + nct, ...``), ``nct`` CTAs a band: as many as
     bring the launch to two CTAs an SM, at most one a tile.  ``bn`` is the
     widest of min(64, nb rounded up to 8), 32, 16 and 8 whose shared memory
-    lets two CTAs share an SM, else one.  Raises where no tile fits."""
+    lets two CTAs share an SM, else one; where no tile fits at a depth
+    chunk of ``F_C_KD``, the narrowest at half that depth (complex64 at
+    the 3D caps of 560).  Raises where no tile fits."""
     top = min(64, _up(nb))
-    for limit in (SMEM_MAX // 2, SMEM_MAX):
-        for bn in sorted({top, 32, 16, 8}, reverse=True):
-            if bn > top:
-                continue
-            smem = schur_smem_cc(bn, F_C_KD, kc, itemsize)
-            if smem <= limit:
-                tiles = -(-nb // bn)
-                bands = B * -(-nb // F_C_BM)
-                nct = max(1, min(tiles, -(-F_CTAS_PER_SM * sms // bands)))
-                return {"bm": F_C_BM, "bn": bn, "cs": 1, "nct": nct,
-                        "kd": F_C_KD, "whole": False, "smem": smem,
-                        "walk": -(-tiles // nct)}
+    for kd in (F_C_KD, F_C_KD // 2):
+        for limit in ((SMEM_MAX // 2, SMEM_MAX) if kd == F_C_KD
+                      else (SMEM_MAX,)):
+            for bn in sorted({top, 32, 16, 8}, reverse=True):
+                if bn > top:
+                    continue
+                smem = schur_smem_cc(bn, kd, kc, itemsize)
+                if smem <= limit:
+                    tiles = -(-nb // bn)
+                    bands = B * -(-nb // F_C_BM)
+                    nct = max(1, min(tiles,
+                                     -(-F_CTAS_PER_SM * sms // bands)))
+                    return {"bm": F_C_BM, "bn": bn, "cs": 1, "nct": nct,
+                            "kd": kd, "whole": False, "smem": smem,
+                            "walk": -(-tiles // nct)}
     raise ValueError(f"kernel F (CUDA-core form, {itemsize}-byte values): no "
                      f"launch fits nb={nb}, kc={kc}")
 
@@ -177,7 +184,8 @@ def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
                          RV: torch.Tensor, sperm: torch.Tensor) -> torch.Tensor:
     """Kernel F wrapper (see the plain version).  ``front`` is [B, m_pad,
     m_pad], ``RU`` [B, ni_pad, k_cap], ``RV`` [B, nb_pad, k_cap] (float64,
-    float32 or complex128, one type), ``sperm`` [B, nb_pad] int64; the launch is
+    float32, complex64 or complex128, one type), ``sperm`` [B, nb_pad]
+    int64; the launch is
     :func:`schur_geometry`'s for these shapes and this type."""
     if kernels.on_cpu(front, RU, RV, sperm):
         return lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
@@ -192,7 +200,7 @@ def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
     S = torch.empty((B, nb, nb), dtype=front.dtype, device=front.device)
     if B and nb:
         g = schur_geometry(B, ni_pad, nb, kc, kernels.sm_count(front.device),
-                           front.element_size())
+                           front.element_size(), dt.is_complex)
         kernels.launch(kernels.symbol("hs_lowrank_schur_update", dt),
                        front.device, front.data_ptr(), RU.data_ptr(),
                        RV.data_ptr(), sperm.data_ptr(), S.data_ptr(), B,

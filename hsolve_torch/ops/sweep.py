@@ -15,8 +15,8 @@ update of a compressed level, where the Gauss transform is a low-rank pair
 ``M ~= U V^T``: ``C[ids_out] -= U @ (V^T @ Y)`` (``hsolve/factor.py:528-529``,
 ``:555-556``); the pivot solve between stays :func:`pivot_solve`.
 
-Kernel C takes float32, float64, complex64 or complex128 values (one type
-per call), kernel E float64, float32 or complex128.  In float32 every product
+Kernels C and E take float32, float64, complex64 or complex128 values (one
+type per call).  In float32 every product
 of a level step (``L x``, the pivot solve, ``R C[bnd]``, and on a compressed
 level E's ``U (V^T Y)``) accumulates in float64 and rounds to float32 once,
 and in complex64 in complex128, in the kernels and in the plain versions
@@ -242,24 +242,30 @@ SMEM_MAX = 232448      # shared memory one CTA can use (227 KB)
 
 
 def lowrank_sweep_smem(threads: int, vec: int, kb: int, kc: int,
-                       itemsize: int = 8) -> int:
+                       itemsize: int = 8, is_complex: bool = False) -> int:
     """Kernel E's dynamic shared memory: the phase-1 partials
     ([threads, vec, kb] double-double pairs), the staged Y rows ([threads,
     kb]) and two [kc, kb] tiles of pairs (the CTA's partial t and the
-    cluster's sum), in sums of the accumulator type of values of
-    ``itemsize`` bytes (8 bytes for float64 and float32, which sums in
-    float64; 16 for complex128)."""
-    acc = max(itemsize, 8)
-    return acc * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+    cluster's sum), in sums of the accumulator type (:func:`accumulator`)
+    of values of ``itemsize`` bytes: float64 for float64 and float32 (8
+    bytes), complex128 for both complex types (16)."""
+    return _acc_size(itemsize, is_complex) * (
+        threads * (2 * vec + 1) * kb + 4 * kc * kb)
+
+
+def _acc_size(itemsize: int, is_complex: bool) -> int:
+    """Bytes of the accumulator type of values of ``itemsize`` bytes (a
+    16-byte value is complex128)."""
+    return 16 if is_complex or itemsize > 8 else 8
 
 
 @functools.lru_cache(maxsize=None)     # the wrapper asks at every launch
 def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
                            sms: int = 132, aligned: bool = True,
-                           itemsize: int = 8):
+                           itemsize: int = 8, is_complex: bool = False):
     """Kernel E's launch for ``B`` fronts with U [B, R, kc], V [B, Cc, kc]
-    and ``k`` right-hand sides, values of ``itemsize`` bytes: ``(cs,
-    threads, rstep, cstep, vec, kb, dd, smem)``.
+    and ``k`` right-hand sides, values of ``itemsize`` bytes (complex where
+    ``is_complex``): ``(cs, threads, rstep, cstep, vec, kb, dd, smem)``.
 
     A launch whose fronts fill between a half and one wave of the SMs takes
     one CTA of 1024 threads a front (k = 1).  Otherwise a CTA has 256
@@ -269,17 +275,18 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
     but no CTA with fewer than ``E_MIN_WORK`` entries of the longer of U
     and V.  CTA ``j`` of a cluster reduces V's rows ``[j cstep, (j + 1)
     cstep)`` and applies U's rows ``[j rstep, (j + 1) rstep)``.  ``vec``:
-    the values one 16-byte read of V's and U's rows takes, 2 doubles or 4
-    floats where it can (kc a multiple of it, 16-byte aligned), else 1, and
-    one complex128 value;
+    the values one 16-byte read of V's and U's rows takes, 2 doubles, 4
+    floats or 2 complex64 values where it can (kc a multiple of it, 16-byte
+    aligned), else 1, and one complex128 value;
     ``kb`` the right-hand sides per chunk (1 for k = 1,
     else ``E_KB`` where it fits); ``dd`` = 1 where the launch has at most
     ``E_DD_FRONTS`` fronts: the top levels, where a row's terms of U t sum
     to up to 650 times the update at n=512 (at most 0.8 from 31 fronts on,
     where double-double would cost most), sum in double-double, t kept as
-    a pair (each part of a complex value a pair); float32 values
-    (``itemsize`` 4) sum in float64, far below their own rounding, and
-    take ``dd`` = 0; ``smem`` :func:`lowrank_sweep_smem`."""
+    a pair (each part of a complex value a pair); float32 and complex64
+    values sum in float64 and complex128, far below their own rounding,
+    and take ``dd`` = 0; ``smem`` :func:`lowrank_sweep_smem`."""
+    wide = itemsize == _acc_size(itemsize, is_complex)
     per16 = 16 // itemsize
     vec = per16 if aligned and kc % per16 == 0 else 1
     cs, threads = 1, E_THREADS[0]
@@ -290,13 +297,13 @@ def lowrank_sweep_geometry(B: int, R: int, Cc: int, kc: int, k: int,
                    max(R, Cc) * kc // E_MIN_WORK)
         while cs * 2 <= want:
             cs *= 2
-    kb = E_KB if k > 1 and \
-        lowrank_sweep_smem(threads, vec, E_KB, kc, itemsize) <= SMEM_MAX else 1
-    smem = lowrank_sweep_smem(threads, vec, kb, kc, itemsize)
+    kb = E_KB if k > 1 and lowrank_sweep_smem(
+        threads, vec, E_KB, kc, itemsize, is_complex) <= SMEM_MAX else 1
+    smem = lowrank_sweep_smem(threads, vec, kb, kc, itemsize, is_complex)
     if smem > SMEM_MAX:
         raise ValueError(f"rank cap {kc} too large for kernel E's shared "
                          f"memory ({smem} > {SMEM_MAX} bytes)")
-    dd = int(B <= E_DD_FRONTS and itemsize > 4)
+    dd = int(B <= E_DD_FRONTS and wide)
     return cs, threads, -(-R // cs), -(-Cc // cs), vec, kb, dd, smem
 
 
@@ -306,8 +313,9 @@ def lowrank_sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor,
                                ids_in: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """In place: ``C[ids_out[b, r]] -= (U[b] @ (V[b]^T @ Y[b]))[r]`` with
-    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``.  Float32 operands
-    multiply in float64 and the update is rounded once (F4's rule)."""
+    ``Y = X`` or ``Y = C[ids_in]``; returns ``C``.  Float32 and complex64
+    operands multiply in float64 and complex128 and the update is rounded
+    once (F4's rule)."""
     Y = _inputs(C, N, X, ids_in)
     upd = _wide(U) @ (_wide(V).transpose(-1, -2) @ _wide(Y))
     return _scatter_sub(C, ids_out, upd.to(C.dtype), N)
@@ -319,8 +327,8 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
                          ids_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel E wrapper (in place on ``C``; see the plain version).  ``U`` is
     [B, R, k_cap] (rows follow ``ids_out``), ``V`` [B, Cc, k_cap] (rows follow
-    ``X`` or ``ids_in``), values float64, float32 or complex128 (one type);
-    the launch is :func:`lowrank_sweep_geometry`'s."""
+    ``X`` or ``ids_in``), values float64, float32, complex64 or complex128
+    (one type); the launch is :func:`lowrank_sweep_geometry`'s."""
     operands = [C, ids_out, U, V] + [t for t in (X, ids_in) if t is not None]
     if kernels.on_cpu(*operands):
         return lowrank_sweep_update_plain(C, ids_out, U, V, N, X, ids_in)
@@ -344,7 +352,8 @@ def lowrank_sweep_update(C: torch.Tensor, ids_out: torch.Tensor, U: torch.Tensor
         lowrank_sweep_launch(C, ids_out, U, V, N, X, ids_in,
                              lowrank_sweep_geometry(B, R, Cc, kc, k,
                                                     kernels.sm_count(C.device),
-                                                    aligned, U.element_size()))
+                                                    aligned, U.element_size(),
+                                                    dt.is_complex))
         kernels.count_launch(lowrank_sweep_update, dt)
     return C
 

@@ -36,6 +36,7 @@ from hsolve_torch.ops.schur import (lowrank_schur_update,
                                     schur_geometry)
 from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
 from hsolve_torch.factor import DenseLevel
+from hsolve_torch.structured import StructuredLevel
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.sweep import (level_forward, level_forward_plain,
                                     lowrank_sweep_update,
@@ -43,6 +44,11 @@ from hsolve_torch.ops.sweep import (level_forward, level_forward_plain,
                                     sweep_update_plain)
 
 pytestmark = pytest.mark.cuda
+
+# the wrappers of kernels E-K, the compressed and structured levels' kernels
+E_TO_K = ("lowrank_sweep_update", "lowrank_schur_update", "lowrank_truncate",
+          "cpqr_pivots", "hss_entries_prepared", "hss_matvec",
+          "hss_level_correct")
 
 
 @pytest.fixture
@@ -1085,8 +1091,10 @@ def test_mixed_slice_on_cuda(dev):
 def test_float32_refused_on_compressed_levels_on_cuda(dev):
     """Float32 on compressed levels is no longer refused on the card: the
     structured plan (hss at its default) factors in float32 through E-K's
-    float32 instances, counted under ``float32``; complex64 there still
-    raises, naming slice 16."""
+    float32 instances, counted under ``float32``; and complex64 there no
+    longer raises either: the damped system's structured plan factors in
+    complex64 through E-K's complex64 instances, counted under
+    ``complex64``."""
     A, _, shape = ht.helmholtz2d(64, k=20.0)
     opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, kest=32)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=40), opts)
@@ -1099,11 +1107,15 @@ def test_float32_refused_on_compressed_levels_on_cuda(dev):
         "lowrank_sweep_update", "lowrank_schur_update", "lowrank_truncate",
         "cpqr_pivots", "hss_entries_prepared", "hss_matvec",
         "hss_level_correct")), counts
-    Ad, _, shape_d = ht.helmholtz2d(48, k=25.0, damping=0.1)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        ht.factor(Ad, ht.nested_dissection(shape_d, leafmax=40), swlevel=-2,
-                  swsize=16, atol=1e-3, rtol=1e-3, dtype=torch.complex64,
-                  device=dev)
+    Ad, _, shape_d = ht.helmholtz2d(64, k=20.0, damping=0.1)
+    kernels.reset_launch_counts()
+    Fd = ht.factor(Ad, ht.nested_dissection(shape_d, leafmax=40), swlevel=-2,
+                   swsize=16, atol=1e-3, rtol=1e-3, kest=32,
+                   dtype=torch.complex64, device=dev)
+    Fd.solve(np.ones(Ad.shape[0], dtype=np.complex64))
+    assert Fd.dtype == torch.complex64
+    counts = kernels.launch_counts()
+    assert all(counts.get(f"{k}:complex64", 0) > 0 for k in E_TO_K), counts
 
 
 def _gmres_setup(dev, path, n=128, k=40.0):
@@ -1432,15 +1444,15 @@ def test_complex_slice_on_cuda(dev, mixed):
 
 
 def test_complex_compressed_refused_on_cuda(dev):
-    """A complex64 factor on structured (HSS) levels, hss at its default,
-    is still refused on the card (no complex64 kernels E-K); the message
-    names complex64.  Complex128 factors there
-    (``test_complex_structured_slice_on_cuda``)."""
-    A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
-    with pytest.raises(NotImplementedError, match="complex64"):
-        ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
-                  swsize=16, atol=1e-3, rtol=1e-3, dtype=torch.complex64,
-                  device=dev)
+    """A complex64 factor on structured (HSS) levels, hss at its default
+    (the default caps), is no longer refused on the card: it factors and
+    solves through E-K's complex64 instances, each counted under
+    ``complex64``, the solve as close to the same factor's on the CPU (the
+    same sketches) as twice that one's distance from the complex128
+    factor's (1.6e-3 here: complex64's rounding through the structured
+    levels), or 1e-4."""
+    A, b, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    _complex64_on_cuda_as_on_cpu(dev, A, b, shape, {}, E_TO_K)
 
 
 # ---------------------------------------------------------------------------
@@ -1448,14 +1460,41 @@ def test_complex_compressed_refused_on_cuda(dev):
 # ---------------------------------------------------------------------------
 
 def test_complex64_compressed_refused_on_cuda(dev):
-    """complex64 on compressed levels is refused on the card (float32 runs
-    there since kernels E-K have float32 instances): the message names
-    complex64."""
-    A, _, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
-    with pytest.raises(NotImplementedError, match="complex64"):
-        ht.factor(A, ht.nested_dissection(shape, leafmax=40), swlevel=-2,
-                  swsize=16, atol=1e-3, rtol=1e-3, hss=False,
-                  dtype=torch.complex64, device=dev)
+    """complex64 on low-rank compressed levels (``hss=False``) is no longer
+    refused on the card: it factors and solves through E, F and G's
+    complex64 instances, each counted under ``complex64``, the solve as
+    close to the same factor's on the CPU (the same sketches) as twice that
+    one's distance from the complex128 factor's, or 1e-4."""
+    A, b, shape = ht.helmholtz2d(48, k=25.0, damping=0.1)
+    _complex64_on_cuda_as_on_cpu(dev, A, b, shape, {"hss": False},
+                                 E_TO_K[:3])
+
+
+def _complex64_on_cuda_as_on_cpu(dev, A, b, shape, kw, names):
+    """A complex64 compressed factor of ``A`` on the card and on the CPU
+    (the same sketches) and a complex128 one on the CPU: the card's solve
+    of ``b`` within max(1e-4, twice the CPU complex64 solve's distance from
+    the complex128 one) of the CPU's, every kernel of ``names`` counted
+    under ``complex64`` on the card."""
+    tree = ht.nested_dissection(shape, leafmax=40)
+    opts = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, **kw)
+    xs = []
+    for d, dt in ((dev, torch.complex64), (torch.device("cpu"), torch.complex64),
+                  (torch.device("cpu"), torch.complex128)):
+        kernels.reset_launch_counts()
+        F = ht.factor(A, tree, dtype=dt, device=d, **opts)
+        assert F.dtype == dt
+        assert any(isinstance(lv, StructuredLevel) for lv in F.levels) == \
+            kw.get("hss", True)
+        xs.append(F.solve(b.astype(np.complex64 if dt == torch.complex64
+                                   else np.complex128)).cpu())
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            assert all(counts.get(f"{k}:complex64", 0) > 0
+                       for k in names), counts
+    assert xs[0].dtype == torch.complex64 and torch.isfinite(xs[0]).all()
+    own = _rel(xs[1].to(torch.complex128), xs[2])
+    assert _rel(xs[0], xs[1]) <= max(1e-4, 2 * own)
 
 
 @pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
@@ -1912,5 +1951,250 @@ def test_float32_compressed_slice_on_cuda(dev, hss):
             counts = kernels.launch_counts()
             path = kernels.HSS_MIXED_PATH if hss else \
                 kernels.LOWRANK_MIXED_PATH
+            assert all(counts.get(k, 0) > 0 for k in path), counts
+    assert abs(iters[0] - iters[1]) <= 2
+
+
+# ---------------------------------------------------------------------------
+# complex64 on the compressed and structured levels (the bench's complex
+# device configuration): E-K in complex64
+# ---------------------------------------------------------------------------
+
+C64 = torch.complex64
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
+                                         (1023, 64, 32, 32, 1),
+                                         (8, 640, 256, 48, 3),
+                                         (5, 40, 56, 33, 2)])
+def test_complex64_lowrank_sweep_update_kernel(dev, B, R, Cc, kc, k):
+    """Kernel E in complex64 at the damped n=512 low-rank plan's shapes and
+    an odd rank (one value a read), both forms, with sentinels: complex128
+    sums rounded once, as its plain version (within 1e-6 of it), the
+    sentinel row zero."""
+    rng = np.random.default_rng(B + R + kc + k + 11)
+    N = B * (R + Cc) + 50
+    C, ids_out, U, V, fwd, bwd = _sweep_operands(dev, rng, B, R, Cc, kc, k, N)
+    c64 = lambda t: (t + 1j * torch.randn_like(t)).to(C64)
+    C, U, V = c64(C), c64(U), c64(V)
+    C[N] = 0.0
+    fwd = {"X": c64(fwd["X"])}
+    for kw in (fwd, bwd):
+        before = lowrank_sweep_update.launches_by_type.get("complex64", 0)
+        got = lowrank_sweep_update(C.clone(), ids_out, U, V, N, **kw)
+        want = lowrank_sweep_update_plain(C.clone(), ids_out, U, V, N, **kw)
+        assert lowrank_sweep_update.launches_by_type["complex64"] == before + 1
+        assert got.dtype == C64
+        assert _rel(got, want) < 1e-6
+        assert float(got[N].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(1, 512, 512, 48),
+                                            (1023, 32, 64, 32),
+                                            (8, 256, 640, 48),
+                                            (3, 24, 52, 33), (2, 40, 130, 100),
+                                            (2, 2072, 2216, 560)])
+def test_complex64_lowrank_schur_update_kernel(dev, B, ni_pad, nb, kc):
+    """Kernel F in complex64 (the CUDA-core form, never float64's tensor
+    cores) at n=512 and 48^3 shapes, odd widths and a rank above one
+    64-column group of W: within 1e-5 of its plain version."""
+    rng = np.random.default_rng(nb + kc + B + 1)
+    m = ni_pad + nb
+    front = _crandn(rng, (B, m, m), C64, dev)
+    RU = _crandn(rng, (B, ni_pad, kc), C64, dev)
+    RV = _crandn(rng, (B, nb, kc), C64, dev)
+    sperm = torch.as_tensor(np.stack([rng.permutation(nb) for _ in range(B)]),
+                            device=dev)
+    before = lowrank_schur_update.launches_by_type.get("complex64", 0)
+    got = lowrank_schur_update(front, ni_pad, RU, RV, sperm)
+    torch.cuda.synchronize()
+    assert lowrank_schur_update.launches_by_type["complex64"] == before + 1
+    want = lowrank_schur_update_plain(front, ni_pad, RU, RV, sperm)
+    assert got.dtype == C64
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("B,m,n,s,r,cap", [(1, 512, 512, 56, 56, 48),
+                                           (1023, 64, 32, 32, 32, 32),
+                                           (9, 24, 20, 14, 12, 16),
+                                           (3, 130, 70, 72, 72, 64)])
+def test_complex64_lowrank_truncate_kernel(dev, B, m, n, s, r, cap):
+    """Kernel G in complex64 (float32 singular values, the threshold
+    rounded as the plain version's float32 ops round it): the rank and V
+    (the plain transpose of Vh) bit for bit, U to 1e-5."""
+    rng = np.random.default_rng(m + n + B + 1)
+    Q = _crandn(rng, (B, m, s), C64, dev)
+    Uw = _crandn(rng, (B, s, r), C64, dev)
+    Vh = _crandn(rng, (B, r, n), C64, dev)
+    sv = np.sort(np.abs(rng.standard_normal((B, r))) * 0.5 ** (
+        np.arange(r) * 8.0 / r), axis=-1)[:, ::-1].copy()
+    sv = torch.as_tensor(sv, dtype=torch.float32, device=dev)
+    for atol, rtol in ((1e-3, 1e-2), (0.0, 1e-5)):
+        before = lowrank_truncate.launches_by_type.get("complex64", 0)
+        got = lowrank_truncate(Q, Uw, sv, Vh, atol, rtol, cap)
+        assert lowrank_truncate.launches_by_type["complex64"] == before + 1
+        want = lowrank_truncate_plain(Q, Uw, sv, Vh, atol, rtol, cap)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        assert _rel(got[0], want[0]) <= 1e-5
+
+
+def test_complex64_rand_lowrank_reads_the_conjugated_vh(dev):
+    """``rand_lowrank`` on complex64 blocks on the card against the CPU's
+    (the same sketch): equal ranks and ``U V^T`` to 1e-5, the card's SVD
+    ``Vh`` (a lazily conjugated view) read through
+    ``kernels.materialized``."""
+    from hsolve_torch.ops.lowrank import rand_lowrank
+
+    rng = np.random.default_rng(6)
+    r = 32
+    sv = torch.as_tensor(np.logspace(0, -7, r), dtype=torch.float32)
+    A = (torch.linalg.qr(_crandn(rng, (3, 64, r), C64, "cpu"))[0] * sv) \
+        @ torch.linalg.qr(_crandn(rng, (3, 32, r), C64, "cpu"))[0].mT
+    om = torch.as_tensor(rng.standard_normal((32, 32)),
+                         dtype=torch.float32).to(C64)
+    g = rand_lowrank(A.to(dev), om.to(dev), 1e-4, 1e-4, 24)
+    c = rand_lowrank(A, om, 1e-4, 1e-4, 24)
+    assert g.U.dtype == C64
+    assert torch.equal(g.rank.cpu(), c.rank)
+    assert _rel((g.U @ g.V.mT).cpu(), c.U @ c.V.mT) < 1e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(202, 384, 192), (58, 96, 48),
+                                   (394, 768, 384)])
+def test_complex64_cpqr_kernel_selects_the_plain_pivots(dev, m, n, k):
+    """Kernel H in complex64 (complex64 read, the pivot loop in complex128)
+    on the default n=512 plan's widest panel (a cluster of 8, as
+    complex128's), a small one and a 3D panel (in a global scratch copy on
+    8 CTAs): the plain version's pivots and ranks on decaying spectra, one
+    launch counted in complex64."""
+    from hsolve_torch.ops.lowrank import cpqr_cluster, cpqr_itemsize
+
+    assert cpqr_cluster(m, n, cpqr_itemsize(C64)) == cpqr_cluster(m, n, 16)
+    rng = np.random.default_rng(m + n + 1)
+    A = _crandn(rng, (5, m, n), C64, dev) * torch.as_tensor(
+        0.97 ** np.arange(n), dtype=torch.float32, device=dev)
+    for tol in (1e-2, 1e-3):
+        before = cpqr_pivots.launches_by_type.get("complex64", 0)
+        piv, rank = cpqr_pivots(A, tol, tol, k)
+        assert cpqr_pivots.launches_by_type["complex64"] == before + 1
+        ppiv, prank = cpqr_pivots_plain(A, tol, tol, k)
+        assert torch.equal(rank, prank) and torch.equal(piv, ppiv)
+        assert int(rank.min()) > 0
+
+
+def _random_hss_c64(dev, B, depth, ls, r, seed):
+    return _random_hss_c128(dev, B, depth, ls, r, seed).map(
+        lambda a: a.to(C64))
+
+
+@pytest.mark.parametrize("p,q", [(70, 45), (130, 192)])
+def test_complex64_hss_entries_kernel(dev, p, q):
+    """Kernel I in complex64 (T . V, no conjugate; 32-column slices) at
+    rank 192, every LCA level, out-of-range indices NaN where the plain
+    version's are; within 1e-5."""
+    h = _random_hss_c64(dev, 2, 3, 24, 192, seed=p + 1)
+    ef = H.hss_entry_factors(h)
+    n = h.plan.n_pad
+    rng = np.random.default_rng(q + 1)
+    rows = rng.integers(0, n, (2, 3, p))
+    cols = rng.integers(0, n, (2, 3, q))
+    rows[0, 1, 3], cols[1, 1, -1] = -1, n + 7
+    rows, cols = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    before = H.hss_entries_prepared.launches_by_type.get("complex64", 0)
+    got = H.hss_entries_prepared(ef, rows, cols)
+    assert H.hss_entries_prepared.launches_by_type["complex64"] == before + 1
+    ref = H.hss_entries_prepared_plain(ef, rows, cols)
+    assert got.dtype == C64
+    assert torch.equal(got.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    assert _rel(got[fin], ref[fin]) < 1e-5
+
+
+@pytest.mark.parametrize("B,depth,ls,r", J_SHAPES + [(1, 4, 32, 400)])
+@pytest.mark.parametrize("k", [1, 112])
+def test_complex64_hss_matvec_kernel(dev, B, depth, ls, r, k):
+    """Kernel J in complex64 (the CUDA-core form, never float64's tensor
+    cores, though its values are as wide) at the n=512 shapes and a 3D
+    cap, both directions (``A^T``: the plain transpose), against its plain
+    version (1e-5)."""
+    h = _random_hss_c64(dev, B, depth, ls, r, seed=r + k + 1)
+    x = _crandn(np.random.default_rng(k + 1), (B, h.plan.n_pad, k), C64, dev)
+    for adj in (False, True):
+        before = H.hss_matvec.launches_by_type.get("complex64", 0)
+        got = H.hss_matvec(h, x, adj)
+        assert H.hss_matvec.launches_by_type["complex64"] == before + 1
+        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-5
+
+
+@pytest.mark.parametrize("r", [48, 192, 400])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_complex64_hss_level_correct_kernel(dev, r, adjoint):
+    """Kernel K in complex64 (one CUDA-core kernel for every k, computing
+    in complex128 on its complex64 operands) on random well-conditioned
+    cores of rank r (up to 800 wide), k = 1, 3 and r: within 1e-5 of its
+    complex64 plain version, and within 1e-5 of the correction computed in
+    complex128 from the same operands."""
+    rng = np.random.default_rng(r + adjoint + 1)
+    B, m, blk = 3, 1, r + 5
+    M = np.eye(2 * r) + (rng.standard_normal((B, m, 2 * r, 2 * r))
+                         + 1j * rng.standard_normal((B, m, 2 * r, 2 * r))) / (
+        6 * np.sqrt(2 * r))
+    lu, piv = dk.lu_factor(torch.as_tensor(M, dtype=C64, device=dev))
+    c = lambda *s: _crandn(rng, s, C64, dev)
+    Bl, Br, Phi = c(B, m, r, r), c(B, m, r, r), c(B, 2 * m * blk, r)
+    for k in (1, 3, r):
+        Y, xi = c(B, 2 * m * blk, k), c(B, 2 * m, r, k)
+        args = (xi, Bl, Br, lu.contiguous(), piv.contiguous(), Phi, adjoint)
+        want = H.hss_level_correct_plain(Y.clone(), *args)
+        wide = [a.to(torch.complex128) if a.is_complex() else a
+                for a in args[:-1]]
+        exact = H.hss_level_correct_plain(Y.to(torch.complex128), *wide,
+                                          adjoint)
+        before = H.hss_level_correct.launches_by_type.get("complex64", 0)
+        got = H.hss_level_correct(Y.clone(), *args)
+        assert H.hss_level_correct.launches_by_type["complex64"] == before + 1
+        assert got.dtype == C64
+        assert _rel(got, want) < 1e-5
+        assert _rel(got.to(torch.complex128), exact) < 1e-5
+
+
+@pytest.mark.parametrize("hss", [False, True])
+def test_complex64_compressed_slice_on_cuda(dev, hss):
+    """The bench's complex device configuration on compressed levels,
+    helmholtz2d(128, k=40, damping=0.1), low-rank (hss=False) and
+    structured (kest=32): a complex64 factor inside the complex mixed
+    GMRES (complex64 cycles over the complex64 operator in a complex128
+    solve, escalation on) on the card, relres <= 1e-9 within two
+    iterations of the same run on the CPU (the same sketches), every kernel
+    of ``kernels.COMPLEX_LOWRANK_MIXED_PATH`` / ``COMPLEX_HSS_MIXED_PATH``
+    launched in its type."""
+    from hsolve_torch.factor import solve_with_data
+
+    A, b, shape = ht.helmholtz2d(128, k=40.0, damping=0.1)
+    tree = ht.nested_dissection(shape, leafmax=100)
+    prec = lambda d, v: solve_with_data(d, v.to(C64)).to(v.dtype)
+    iters = []
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        F = ht.factor(A, tree, swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                      kest=32, hss=hss, dtype=C64, device=d)
+        assert F.dtype == C64
+        op128, mv = ht.spmv_format(A, device=d)
+        op64, _ = ht.spmv_format(A, dtype=np.complex64, device=d)
+        x, info = ht.gmres_compiled(
+            mv, prec, torch.as_tensor(b, device=d), reltol=1e-9, restart=30,
+            maxiter=60, mv_data=op128, M_data=F.solve_data,
+            inner_dtype="complex64", mv_data_inner=op64, m_eps=1e-6)
+        assert info["converged"]
+        xn = x.cpu().numpy()
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        assert F.maxrank() > 0 and not F.rank_report()["saturated"]
+        iters.append(info["iters"])
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            path = kernels.COMPLEX_HSS_MIXED_PATH if hss else \
+                kernels.COMPLEX_LOWRANK_MIXED_PATH
             assert all(counts.get(k, 0) > 0 for k in path), counts
     assert abs(iters[0] - iters[1]) <= 2

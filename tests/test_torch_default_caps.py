@@ -259,3 +259,44 @@ def test_kernel_k_float32_geometry_at_any_rank(r):
     assert T.level_correct_geometry_cc(r, 1, isz) == 1
     assert T.level_correct_geometry_cc(r, 400, isz) == \
         {16: 32, 48: 32, 96: 32, 192: 32, 384: 16, 400: 16, 768: 8}[r]
+
+
+@pytest.mark.parametrize("m,n,cs,resident", [
+    (58, 32, 1, True), (92, 64, 1, True), (202, 96, 2, True),
+    (106, 192, 2, True), (138, 256, 4, True), (202, 384, 8, True),
+    (394, 768, 8, False), (400, 800, 8, False)])
+def test_kernel_h_cluster_by_bytes_complex64(m, n, cs, resident):
+    """Complex64 input runs H's pivot loop in complex128
+    (``cpqr_loop_type``: widened as it is loaded, F8's rule), so its
+    columns take complex128's 16 bytes in shared memory and its launches
+    are complex128's at every default-caps and 3D panel: the widest 2D
+    panel [202, 384] on a cluster of 8 (159,520 bytes a CTA), the 3D
+    panels in a global scratch copy (of complex128 values) on 8."""
+    assert TL.cpqr_loop_type(torch.complex64) == torch.complex128
+    isz = TL.cpqr_itemsize(torch.complex64)
+    assert isz == TL.cpqr_itemsize(torch.complex128) == 16
+    assert TL.cpqr_cluster(m, n, isz) == (cs, resident) == \
+        TL.cpqr_cluster(m, n, 16)
+    assert TL.cpqr_smem(m, n, cs, resident, isz) <= TL.CPQR_MAX_SMEM
+    if (m, n) == LARGEST_PANEL[:2]:
+        assert TL.cpqr_smem(m, n, cs, resident, isz) == 159520
+
+
+@pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 400, 768])
+def test_kernel_k_complex64_geometry_at_any_rank(r):
+    """K's complex64 form (the CUDA-core kernel computing in complex128 on
+    its complex64 operands): xi and w in 16-byte values, so complex128's
+    columns a CTA at every rank: up to 32, halved while they do not fit 227
+    KB, 16 at the default caps' 2r = 384, one at k = 1."""
+    isz = T.level_correct_itemsize(torch.complex64)
+    assert isz == T.level_correct_itemsize(torch.complex128) == 16
+    for k in (1, 2, 3, r, 400):
+        nc = T.level_correct_geometry_cc(r, k, isz)
+        assert nc == T.level_correct_geometry_cc(r, k, 16)
+        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
+        assert T.level_correct_smem_cc(r, nc, isz) <= T.HSS_CORRECT_MAX_SMEM
+        assert T.level_correct_smem_cc(r, nc, isz) == \
+            16 * (4 * r * nc + 32 * 33) + 8 * r
+    assert T.level_correct_geometry_cc(r, 1, isz) == 1
+    if r == 192:
+        assert T.level_correct_geometry_cc(r, 400, isz) == 16

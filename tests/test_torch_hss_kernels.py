@@ -260,3 +260,27 @@ def test_kernel_j_float32_geometry_fits_a_cta(r, k):
         assert smem == (need if need <= 232448 else 0)
         assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
                                                          k)[:3]
+
+
+@pytest.mark.parametrize("r", [32, 48, 96, 192, 400])
+@pytest.mark.parametrize("k", [1, 58, 112])
+def test_kernel_j_complex64_geometry_fits_a_cta(r, k):
+    """J's complex64 form (the CUDA-core kernel on 8-byte complex values)
+    at every n=512 shape and the 3D caps' r = 400: the slots take float64's
+    bytes (shared memory within a CTA's 232,448 bytes, or the state in a
+    scratch region), but the launch is the CUDA-core form's, never float64's
+    tensor-core form: (512 threads, 2 row blocks) at one chunk of 8 columns
+    and (256, 2) above, even at rank 32 and where float64 takes (256, 4);
+    the cluster and chunks chosen as in float64."""
+    for B, nl in N512:
+        depth = nl.bit_length() - 1
+        cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
+            B, nl, 32, r, depth, k, itemsize=8, is_complex=True)
+        assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
+        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=8)
+        assert need == T.hss_matvec_smem(nl, depth, r, cs, kc)
+        assert smem == (need if need <= 232448 else 0)
+        g64 = T.hss_matvec_geometry(B, nl, 32, r, depth, k)
+        assert (cs, kc, groups, smem) == g64[:4]
+        assert (th, rb) == T.hss_matvec_geometry(B, nl, 32, r, depth, k,
+                                                 itemsize=4)[4:]

@@ -17,8 +17,8 @@ import torch
 import hsolve_torch as ht
 from hsolve_torch.ops.schur import (F_MAX_CLUSTER, F_MAX_KD, F_WHOLE_MAX,
                                     SMEM_MAX, lowrank_schur_update_plain,
-                                    schur_geometry, schur_smem,
-                                    schur_smem_cc)
+                                    schur_geometry, schur_geometry_cc,
+                                    schur_smem, schur_smem_cc)
 
 torch.set_num_threads(1)
 
@@ -350,3 +350,86 @@ def test_kernel_f_float32_partition_is_the_plain_schur_update(
                                       t(sperm)).numpy()
     assert want.dtype == np.float32
     assert np.abs(got.real - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# complex64 (the bench's complex device configuration): the CUDA-core form,
+# its shared memory in 8-byte values; never float64's tensor-core form,
+# whose values are as wide
+# ---------------------------------------------------------------------------
+
+def _check_geometry_c64(B, ni_pad, nb, kc, sms=132):
+    g = schur_geometry(B, ni_pad, nb, kc, sms=sms, itemsize=8,
+                       is_complex=True)
+    assert g == schur_geometry_cc(B, ni_pad, nb, kc, sms, 8)
+    bn, nct, walk, kd = g["bn"], g["nct"], g["walk"], g["kd"]
+    assert g["bm"] == 32 and g["cs"] == 1 and not g["whole"]
+    assert kd in (16, 8)
+    assert g["smem"] == schur_smem_cc(bn, kd, kc, 8) <= SMEM_MAX
+    assert g["smem"] == 8 * ((kc | 1) * (32 + bn) + kd * (32 + kc)) \
+        + 4 * (32 + bn)
+    if kd == 8:     # the depth halves only where no tile fits at 16
+        assert schur_smem_cc(8, 16, kc, 8) > SMEM_MAX
+    assert 8 <= bn <= 64 and bn % 8 == 0
+    tiles = -(-nb // bn)
+    assert 1 <= nct <= tiles and nct * walk >= tiles > nct * (walk - 1)
+    return g
+
+
+@pytest.mark.parametrize("n", [128, 512])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_kernel_f_complex64_geometry_at_every_launch_shape(n, config):
+    """Every launch shape of the n=128 and n=512 plans (low-rank and both
+    structured: their transition batches; the damped system's are the
+    same) finds a complex64 launch in the CUDA-core form with two CTAs an
+    SM and the widest tile (64 columns, or the front's width), never a
+    narrower one than complex128's; float64 at the same shape keeps its
+    tensor-core form."""
+    shapes = _f_shapes(n, config)
+    assert shapes
+    for B, ni_pad, nb, kc in shapes:
+        g = _check_geometry_c64(B, ni_pad, nb, kc)
+        assert g["kd"] == 16 and g["smem"] <= SMEM_MAX // 2, \
+            (B, ni_pad, nb, kc)
+        assert g["bn"] == min(64, -(-nb // 8) * 8)
+        assert g["bn"] >= schur_geometry(B, ni_pad, nb, kc,
+                                         itemsize=16)["bn"]
+        assert "walk" not in schur_geometry(B, ni_pad, nb, kc)
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc,sms", [
+    (3, 32, 64, 32, 132), (1, 512, 512, 48, 132), (2, 256, 640, 48, 132),
+    (3, 64, 192, 33, 4), (1, 40, 200, 100, 132)])
+def test_kernel_f_complex64_partition_is_the_plain_schur_update(
+        B, ni_pad, nb, kc, sms):
+    """The complex64 launch's partition (bands of 32, W a band, nct CTAs a
+    band walking its column tiles) reproduces the plain version, every
+    entry once, to complex64's rounding of the two products."""
+    rng = np.random.default_rng(nb + kc + 3)
+    f = lambda *s: (rng.standard_normal(s)
+                    + 1j * rng.standard_normal(s)).astype(np.complex64)
+    front = f(B, ni_pad + nb, ni_pad + nb)
+    RU, RV = f(B, ni_pad, kc), f(B, nb, kc)
+    sperm = np.stack([rng.permutation(nb) for _ in range(B)])
+    g = _check_geometry_c64(B, ni_pad, nb, kc, sms)
+    got = _f_walk_c128(front, ni_pad, RU, RV, sperm, g)
+    assert np.isfinite(got).all()
+    t = torch.as_tensor
+    want = lowrank_schur_update_plain(t(front), ni_pad, t(RU), t(RV),
+                                      t(sperm)).numpy()
+    assert want.dtype == np.complex64
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("B,ni_pad,nb,kc", [(2, 2072, 2216, 560),
+                                            (1, 2168, 2216, 560)])
+def test_kernel_f_complex64_geometry_at_the_3d_caps(B, ni_pad, nb, kc):
+    """At the 3D top shapes' caps of 560 no complex64 tile fits a depth
+    chunk of 16 (W and RV's rows alone take 179,520 bytes at 8-column
+    tiles): the chunk halves to 8 and 8-column tiles fit one CTA an SM,
+    where complex128 finds no launch; float32 keeps its chunk of 16."""
+    g = _check_geometry_c64(B, ni_pad, nb, kc)
+    assert g["kd"] == 8 and g["bn"] == 8
+    assert schur_geometry(B, ni_pad, nb, kc, itemsize=4)["kd"] == 16
+    with pytest.raises(ValueError, match="no launch fits"):
+        schur_geometry(B, ni_pad, nb, kc, itemsize=16)

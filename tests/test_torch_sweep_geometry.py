@@ -365,3 +365,84 @@ def test_kernel_e_float32_partition_is_the_plain_update(B, R, Cc, kc, k):
     assert want.dtype == torch.float32
     eps = float(np.finfo(np.float32).eps)
     assert np.abs(got - want.numpy()).max() <= 2 * eps * np.abs(got).max()
+
+
+# ---------------------------------------------------------------------------
+# complex64 (the bench's complex device configuration on compressed levels):
+# two values a 16-byte read, complex128 sums, no double-double
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [128, 512])
+@pytest.mark.parametrize("config", ["low-rank", "structured kest=32",
+                                    "structured default caps"])
+def test_kernel_e_complex64_geometry_at_every_launch_shape(n, config):
+    """Kernel E in complex64 at every launch shape of the plans (the damped
+    system's are the same): the float64 launch's clusters, CTAs and slices;
+    two complex64 values a 16-byte read where kc is even (else one); no
+    double-double (the sums run in complex128, far below complex64's
+    rounding); its shared memory counted in the 16-byte complex128 sums,
+    within a CTA's; four right-hand sides a chunk wherever that fits."""
+    for B, R, Cc, kc in _e_shapes(_plan(n, config)):
+        for k in (1, 3):
+            g64 = lowrank_sweep_geometry(B, R, Cc, kc, k)
+            cs, threads, rstep, cstep, vec, kb, dd, smem = \
+                lowrank_sweep_geometry(B, R, Cc, kc, k, itemsize=8,
+                                       is_complex=True)
+            assert (cs, threads, rstep, cstep) == g64[:4]
+            assert dd == 0
+            assert vec == (2 if kc % 2 == 0 else 1)
+            assert smem == 16 * (threads * (2 * vec + 1) * kb + 4 * kc * kb) \
+                <= SMEM_MAX
+            assert kb == (4 if k > 1 else 1), (B, R, Cc, kc, k)
+            # complex128 at the same shape: one value a read, double-double
+            # at the top levels, as before
+            c128 = lowrank_sweep_geometry(B, R, Cc, kc, k, itemsize=16,
+                                          is_complex=True)
+            assert c128 == lowrank_sweep_geometry(B, R, Cc, kc, k,
+                                                  itemsize=16)
+            assert c128[4] == 1 and c128[6] == int(B <= 16)
+
+
+@pytest.mark.parametrize("kc,k", [(1, 1), (47, 2), (400, 1), (400, 5),
+                                  (2000, 1), (2000, 4)])
+def test_kernel_e_complex64_geometry_at_wide_ranks(kc, k):
+    """Complex64 at the 3D caps and beyond: a launch within a CTA's shared
+    memory (four right-hand sides a chunk only where they fit), unaligned
+    operands one value a read."""
+    for B in (1, 3, 200):
+        for aligned in (True, False):
+            _, threads, _, _, vec, kb, dd, smem = lowrank_sweep_geometry(
+                B, 512, 300, kc, k, aligned=aligned, itemsize=8,
+                is_complex=True)
+            assert dd == 0 and smem <= SMEM_MAX
+            assert vec == (2 if aligned and kc % 2 == 0 else 1)
+            assert smem == 16 * (threads * (2 * vec + 1) * kb + 4 * kc * kb)
+
+
+@pytest.mark.parametrize("B,R,Cc,kc,k", [(1, 512, 512, 48, 1),
+                                         (8, 96, 40, 33, 2),
+                                         (150, 20, 30, 32, 1)])
+def test_kernel_e_complex64_partition_is_the_plain_update(B, R, Cc, kc, k):
+    """The complex64 launch's partition (its geometry's slices, t summed
+    over the cluster's ranks in complex128) reproduces the plain version's
+    update summed in complex128 and rounded once, to complex64's
+    rounding."""
+    rng = np.random.default_rng(B + kc + 2)
+    N = B * (R + Cc) + 7
+    perm = rng.permutation(N)
+    ids_out = perm[:B * R].reshape(B, R).astype(np.int32)
+    ids_in = perm[B * R:B * (R + Cc)].reshape(B, Cc).astype(np.int32)
+    ids_out[:, -2:] = N
+    c64 = lambda *s: (rng.standard_normal(s)
+                      + 1j * rng.standard_normal(s)).astype(np.complex64)
+    C = c64(N + 1, k)
+    C[N] = 0.0
+    U, V = c64(B, R, kc), c64(B, Cc, kc)
+    t = torch.as_tensor
+    c128 = lambda a: a.astype(np.complex128)
+    got = _e_walk(c128(C), ids_out, c128(U), c128(V), N, ids_in=ids_in)
+    want = lowrank_sweep_update_plain(torch.tensor(C), t(ids_out), t(U), t(V),
+                                      N, ids_in=t(ids_in))
+    assert want.dtype == torch.complex64
+    eps = float(np.finfo(np.float32).eps)
+    assert np.abs(got - want.numpy()).max() <= 2 * eps * np.abs(got).max()

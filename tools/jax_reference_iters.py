@@ -58,6 +58,16 @@ mixed-precision GMRES of the exact run above.  ``hss-f32-mixed`` is
     JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --problem helmholtz3d \
         --k 10 --sizes 32 --config hss-default-f32-mixed
 
+With ``--damping`` the same three configs run the bench's complex device
+configuration on compressed levels: a complex64 factor (the JAX package's
+own complex64 sketches, float32 draws cast) as the preconditioner of the
+complex mixed GMRES (complex64 cycles over the complex64 operator inside a
+complex128 solve), chip_smoke.py's ``lowrank-complex-mixed``,
+``hss-complex-mixed`` and ``hss-complex-default-mixed`` paths:
+
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --damping 0.1 \
+        --sizes 128 512 --config hss-f32-mixed   # or lowrank-f32-mixed, ...
+
 ``--problem helmholtz3d --k 10`` runs the 3D problems instead (7-point
 helmholtz3d(n, k) on an n^3 mesh, the same leafmax):
 
