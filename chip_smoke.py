@@ -97,16 +97,17 @@ Phases (any failure exits non-zero before the result line is printed):
    pivots and ranks up to a rounding tie, I, J and K to 1e-13), with E and F
    at those factors' shapes, rows ``<name>:complex128``; E-K in float32
    (the JAX bench's device configuration on compressed levels) at the n=512
-   low-rank factor and both structured ones, as in complex128, to 1e-5 (E
-   and K, which compute in float64 on their float32 operands, also to 1e-5
-   of the result computed in float64 from the same operands, and to their
-   float32 plain versions within 1e-5 plus the plain version's own distance
-   from it; H, whose pivot loop runs in float64, with equal pivots and
-   ranks up to a rounding tie), rows ``<name>:float32``; E-K in complex64
-   (the bench's complex device configuration on compressed levels) at the
-   damped system's n=512 low-rank factor and both structured ones, as in
-   float32 (E and K computing in complex128 on their complex64 operands,
-   H's pivot loop in complex128), rows ``<name>:complex64``; and the GMRES
+   low-rank factor and both structured ones, as in complex128, to 1e-5 (E,
+   J and K, which compute in float64 on their float32 operands, also to
+   1e-5 of the result computed in float64 from the same operands, and to
+   their float32 plain versions within 1e-5 plus the plain version's own
+   distance from it; H, whose pivot loop runs in float64, with equal pivots
+   and ranks up to a rounding tie), rows ``<name>:float32``; E-K in
+   complex64 (the bench's complex device configuration on compressed
+   levels) at the damped system's n=512 low-rank factor and both
+   structured ones, as in float32 (E, J and K computing in complex128 on
+   their complex64 operands, H's pivot loop in complex128), rows
+   ``<name>:complex64``; and the GMRES
    loop's control kernels (``csrc/gmres_control.cu``) at the
    n=512 N, bit for bit their plain versions, from states that go on and
    that stop: the run's start, the cycle start in its six type pairs (the
@@ -372,7 +373,7 @@ SOURCES = {"front_assemble": ("front_assemble.cu", "hsolve/factor.py:409"),
                                 "hsolve/ops/lowrank.py:157"),
            "cpqr_pivots": ("hss_cpqr.cu", "hsolve/ops/lowrank.py:195"),
            "hss_entries_prepared": ("hss_entries.cu", "hsolve/ops/hss.py:293"),
-           "hss_matvec": ("hss_matvec.cu", "hsolve/ops/hss.py:207"),
+           "hss_matvec": ("hss_matvec.cuh", "hsolve/ops/hss.py:207"),
            "hss_level_correct": ("hss_level_correct.cu",
                                  "hsolve/ops/hss.py:641"),
            "arnoldi_cgs2": ("arnoldi_cgs2.cu", "hsolve/krylov.py:231"),
@@ -1435,13 +1436,9 @@ def check_correct_shape(desc, key, Y0, args, results: Results):
                  2 * flop_factor(dname) * k * (Bl.numel() + Br.numel()
                                                + lu.numel() + Phi.numel()),
                  dname, products=True, chain=2 * -(-2 * r // 32) * 32 * 2)
-    if dname != "float64":
-        isz = H.level_correct_itemsize(Y0.dtype)
-        geo = f"nc={H.level_correct_geometry_cc(r, k, isz)} (CUDA cores)"
-    else:
-        geo = ("one CTA per node" if k == 1 else
-               "nc={} cs={} groups={} stages={}".format(
-                   *H.level_correct_launch(r, k, nodes, Y0.device)))
+    geo = ("one CTA per node" if k == 1 else
+           "nc={} cs={} groups={} stages={}".format(
+               *H.level_correct_launch(r, k, nodes, Y0.device, Y0.dtype)))
     results.record("hss_level_correct" + type_tag(dname),
                    f"{desc} {'adj' if adj else 'fwd'} "
                    f"nodes={nodes} 2r={2 * r} blk={blk} k={k} {geo}{note}",
@@ -1450,13 +1447,32 @@ def check_correct_shape(desc, key, Y0, args, results: Results):
 
 
 def check_matvec_shape(desc, key, h, X, adj, results: Results):
-    """J at one launch shape; returns (ms, plain)."""
+    """J at one launch shape; returns (ms, plain).  J's float32 and
+    complex64 instances sum in float64 and complex128 and round once, as
+    K's: each is held to the product computed in the wide type from the
+    same operands (``RTOL_SUM32`` of max |y|) and to its narrow plain
+    version within ``RTOL_SUM32`` plus the plain version's own distance
+    from that product."""
+    import torch
+
     from hsolve_torch.ops import hss as H
 
     Bm, nl, ls, r, depth, k, _ = key
     dname = str(X.dtype).replace("torch.", "")
     ker = H.hss_matvec(h, X, adj)
     ref = H.hss_matvec_plain(h, X, adj)
+    limit, note = sum_rtol(dname), ""
+    wdt = {"float32": torch.float64, "complex64": torch.complex128}.get(dname)
+    if wdt is not None:
+        exact = H.hss_matvec_plain(h.map(lambda a: a.to(wdt)), X.to(wdt), adj)
+        e_ker, e_ref = (errors(t.to(wdt), exact)[1] for t in (ker, ref))
+        wname = str(wdt).replace("torch.", "")
+        if not e_ker <= limit:
+            fail(f"hss_matvec:{dname} is {e_ker:.3e} of max |y| off the "
+                 f"{wname} product at {desc} {key} (limit {limit:g})")
+        note = (f"; off the {wname} product: kernel {e_ker:.1e}, plain "
+                f"{e_ref:.1e}")
+        limit += e_ref
     ms = device_ms(lambda: H.hss_matvec(h, X, adj), budget_ms=SHAPE_BUDGET_MS)
     plain_ms = device_ms(lambda: H.hss_matvec_plain(h, X, adj),
                          budget_ms=SHAPE_BUDGET_MS)
@@ -1471,8 +1487,8 @@ def check_matvec_shape(desc, key, h, X, adj, results: Results):
                    f"{desc} {'adj' if adj else 'fwd'} B={Bm} "
                    f"nleaves={nl} ls={ls} r={r} k={k} cs={cs} kc={kc} "
                    f"groups={groups} threads={th} rb={rb}"
-                   + ("" if smem else " (state in L2)"), errors(ker, ref),
-                   sum_rtol(dname), ms, plain_ms, work)
+                   + ("" if smem else " (state in L2)") + note,
+                   errors(ker, ref), limit, ms, plain_ms, work)
     return ms, plain_ms
 
 

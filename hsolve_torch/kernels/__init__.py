@@ -38,11 +38,12 @@ values (one C entry point per type, ``hs_<name>``, ``hs_<name>_f32``,
 ``csrc/hs_complex.cuh``); so do E-K (``hs_<name>``, ``hs_<name>_f32``,
 ``_c64`` and ``_c128``: the float32 and complex64 ones serve the JAX
 bench's device configurations, a float32 or complex64 factor on compressed
-and structured levels; there E sums in float64 or complex128 and rounds
-once, as C's narrow sweeps, and H runs its pivot loop and K its solve in
-the wide type on the narrow operands; F, G, J and K take float32,
-complex64 and complex128 on the CUDA cores, no TF32, K as one kernel for
-every k); the control kernels the
+and structured levels; there E and J sum in float64 or complex128 and
+round once, as C's narrow sweeps, and H runs its pivot loop and K its solve
+in the wide type on the narrow operands; J's and K's products run on the
+FP64 tensor cores in every type, a complex product as four real ones; F
+and G take float32, complex64 and complex128 on the CUDA cores, no TF32);
+the control kernels the
 solution's type (the cycle start also float32 cycles in a float64 solve,
 ``hs_gmres_cycle_start_mixed``, and complex64 cycles in a complex128 one,
 ``hs_gmres_cycle_start_mixed_c``).  Kernel C's
@@ -102,7 +103,7 @@ _SIGNATURES = {
     "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
     "hs_hss_entries": [_V] * 6 + [_LL] * 7 + [_I] * 7 + [_V],
     "hs_hss_matvec": [_V] * 10 + [_LL] + [_I] * 12 + [_LL, _I, _V],
-    "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 8 + [_V],
+    "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 9 + [_V],
     "hs_hss_level_correct_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
@@ -137,7 +138,7 @@ LOWRANK_TYPED = ("hs_lowrank_sweep_update", "hs_lowrank_schur_update",
                  "hs_lowrank_truncate", "hs_cpqr", "hs_hss_entries",
                  "hs_hss_matvec", "hs_hss_level_correct")
 _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name]
-                    for name in LOWRANK_TYPED
+                    for name in LOWRANK_TYPED + ("hs_hss_level_correct_clusters",)
                     for sfx in ("_f32", "_c64", "_c128")})
 LOWRANK_TYPES = (torch.float64, torch.float32, torch.complex64,
                  torch.complex128)

@@ -13,7 +13,7 @@ the planner) with one static rank cap ``r``.
 
 Three hand kernels serve it, each beside its plain torch version:
 
-- :func:`hss_matvec` (kernel J, ``csrc/hss_matvec.cu``): the telescoped
+- :func:`hss_matvec` (kernel J, ``csrc/hss_matvec.cuh``): the telescoped
   ``y = A x`` / ``A^T x``, all levels in one launch,
 - :func:`hss_entries_prepared` (kernel I, ``csrc/hss_entries.cu``): entry
   extraction at the leaf pair's LCA level only, an index block's T and V
@@ -27,10 +27,11 @@ the interpolative decompositions run kernel H
 (:func:`hsolve_torch.ops.lowrank.cpqr`).
 
 Values are float64, float32 (the JAX bench's device configuration: J, K,
-I and H take float32 instances, J and K on the CUDA cores, no TF32, K and
-H computing in float64 on their float32 operands), complex128 (the damped
-Helmholtz system) or complex64 (the bench's complex device configuration,
-float32's rules: K and H computing in complex128).  In complex
+I and H take float32 instances, no TF32, J, K and H computing in float64 on
+their float32 operands, J's and K's products on the FP64 tensor cores),
+complex128 (the damped Helmholtz system) or complex64 (the bench's complex
+device configuration, float32's rules: J, K and H computing in
+complex128).  In complex
 every product here takes the plain transpose, as the JAX package's do: the
 adjoint matvec and solve are ``A^T x`` and ``A^{-T} b``; only the
 interpolative decompositions conjugate (the ID of ``A^H``, ``R = Q^H A``).
@@ -271,15 +272,25 @@ def hss_matvec_slots(nleaves: int, depth: int, cs: int) -> int:
 
 
 def hss_matvec_ld(kc: int) -> int:
-    """Leading dimension (doubles) of a node slot of ``kc`` columns: 8 mod 16,
-    so that an mma fragment's 32 loads touch every bank twice."""
+    """Leading dimension (values) of a node slot of ``kc`` columns: 8 mod 16,
+    so that an mma fragment's 32 loads of 8-byte values touch every bank
+    twice."""
     return kc if kc % 16 == 8 else kc + 8
 
 
 def hss_matvec_smem(nleaves: int, depth: int, r: int, cs: int, kc: int,
                     itemsize: int = 8) -> int:
+    """Bytes of a CTA's state: its slots of ``itemsize``-byte values (the
+    type kernel J computes in, :func:`hss_matvec_state_itemsize`)."""
     return (2 * hss_matvec_slots(nleaves, depth, cs) * r * hss_matvec_ld(kc)
             * itemsize)
+
+
+def hss_matvec_state_itemsize(is_complex: bool) -> int:
+    """Bytes of a state value: kernel J computes in float64 for the real
+    types and in complex128 for the complex ones (float32 and complex64
+    widened as they load, summed in the wide type, rounded once at y)."""
+    return 16 if is_complex else 8
 
 
 def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
@@ -293,16 +304,19 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     ``nleaves``, never past the count) that split its tree (every cluster
     barrier sits on the path of every chunk).  ``smem``: a CTA's dynamic shared memory for its
     nodes' state, or 0 where that would pass ``SMEM_LIMIT``: the state then
-    lives in a scratch region a CTA (L2).  ``threads`` a CTA and ``rb``
-    8-row blocks a warp's item (each B fragment feeds ``rb / 2`` products):
-    256 and 2 at rank 32 (4 row blocks a node), else 512 and 2 at one chunk
-    of 8 columns (the solve's k = 1: more warps on the few matrices of a
-    level) and 256 and 4 above, the fastest of the forms
-    ``tools/j_breakdown.py`` times.  Complex128 values (``itemsize`` 16)
-    fill twice the bytes a slot, float32 ones (``itemsize`` 4) half and
-    complex64 ones (8, ``is_complex``) as many, and all three take 512 and
-    2 at one chunk of 8 columns, else 256 and 2 (the CUDA-core form's
-    instances)."""
+    lives in a scratch region a CTA (L2).  The state holds the type the
+    kernel computes in (:func:`hss_matvec_state_itemsize`): float32 values
+    (``itemsize`` 4) fill float64's bytes a slot, complex64 and complex128
+    values (``is_complex``) twice as many.  ``threads`` a CTA and ``rb``
+    8-row blocks a warp's item (each B fragment feeds ``rb / 2`` products),
+    the fastest of the forms ``tools/j_breakdown.py`` times: float64 256
+    and 2 at rank 32 (4 row blocks a node), else 512 and 2 at one chunk of
+    8 columns (the solve's k = 1: more warps on the few matrices of a
+    level) and 256 and 4 above; float32, whose 4-byte values widen as they
+    load, 512 and 2 at one chunk of 8 columns at any rank, else float64's;
+    complex values, whose fragments take twice the registers, 256 and 2,
+    but complex64 512 and 2 at one chunk of 8 columns (1.3-1.6x faster at
+    r = 192; complex128 there 1.2x slower, its 512-thread form spilling)."""
     del ls  # the leaves' rows stream from global memory
     kc = next((c for c in J_CHUNKS if c >= k), J_CHUNKS[-1])
     chunks = -(-k // kc)
@@ -312,11 +326,14 @@ def hss_matvec_geometry(B: int, nleaves: int, ls: int, r: int, depth: int,
     while 2 * cs <= min(8, nleaves) and 2 * cs * groups <= need:
         cs *= 2
     groups = max(1, min(chunks, -(-sms // max(B * cs, 1))))
-    smem = hss_matvec_smem(nleaves, depth, r, cs, kc, itemsize)
-    if itemsize != 8 or is_complex:
-        form = (512, 2) if kc == 8 else (256, 2)
+    smem = hss_matvec_smem(nleaves, depth, r, cs, kc,
+                           hss_matvec_state_itemsize(is_complex))
+    if is_complex:
+        form = (512, 2) if kc == 8 and itemsize == 8 else (256, 2)
+    elif kc == 8 and (itemsize == 4 or r > 32):
+        form = (512, 2)
     else:
-        form = (256, 2) if r <= 32 else (512, 2) if kc == 8 else (256, 4)
+        form = (256, 2) if r <= 32 else (256, 4)
     return (cs, kc, groups, smem if smem <= SMEM_LIMIT else 0, *form)
 
 
@@ -325,14 +342,15 @@ def hss_matvec_launch(h: Hss, x: torch.Tensor, adjoint: bool, cs: int, kc: int,
                       rb: int) -> torch.Tensor:
     """Kernel J at a given geometry (:func:`hss_matvec_geometry`'s, or
     another for ``tools/j_breakdown.py``); ``smem == 0`` puts the state in
-    a scratch region a CTA."""
+    a scratch region a CTA, of the type the kernel computes in."""
     p, Bn, r = h.plan, h.B, h.r
     Rc, Wc, B12c, B21c = h.packed()
     y = torch.empty_like(x)
     nown = hss_matvec_slots(p.nleaves, p.depth, cs)
     ld = hss_matvec_ld(kc)
     state = None if smem else torch.empty(
-        Bn * cs * groups * 2 * nown * r * ld, dtype=x.dtype, device=x.device)
+        Bn * cs * groups * 2 * nown * r * ld, dtype=accumulator(x.dtype),
+        device=x.device)
     kernels.launch(kernels.symbol("hs_hss_matvec", x.dtype), x.device,
                    h.D.data_ptr(), h.U.data_ptr(),
                    h.V.data_ptr(), Rc.data_ptr(), Wc.data_ptr(),
@@ -350,7 +368,9 @@ def hss_matvec(h: Hss, x: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
     columns, its nodes' state in shared memory or, where that does not fit,
     in a scratch region a CTA (:func:`hss_matvec_geometry`).  Float64,
     float32, complex64 or complex128 values, one type for ``x`` and every
-    generator."""
+    generator, the products on the FP64 tensor cores in float64 or
+    complex128 (float32 and complex64 widened as they load, ``y`` rounded
+    once)."""
     if kernels.on_cpu(x, h.D):
         return hss_matvec_plain(h, x, adjoint)
     p, Bn, r = h.plan, h.B, h.r
@@ -774,13 +794,18 @@ def hss_level_correct_plain(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
 # the LU through a ring of 3 tiles of 32 rows by up to 64 columns.  k > 1: a
 # thread block cluster of cs CTAs per node, nc right-hand sides each, every
 # operand tile (up to 64 rows by 32 columns) multicast into a ring of
-# `stages` stages of 64 x 32 doubles (one TMA box); w [3r, nc + 4] stays
-# resident.
+# `stages` stages of 64 x 32 values (one TMA box); w [2r, nc + 4] stays
+# resident in the type the kernel computes in.
 HSS_CORRECT_PANEL, HSS_CORRECT_TILE_COLS = 32, 64
-HSS_CORRECT_STAGE = 64 * 32         # doubles per stage of the k > 1 ring
+HSS_CORRECT_STAGE = 64 * 32         # values per stage of the k > 1 ring
 HSS_CORRECT_MAX_COLS = 32           # right-hand sides per CTA, at most
+HSS_CORRECT_MAX_COLS_COMPLEX = 16   # complex: fragments of two parts
 HSS_CORRECT_MAX_CLUSTER = 16        # CTAs per cluster (non-portable above 8)
 HSS_CORRECT_MAX_SMEM = 227 * 1024   # a Hopper CTA's shared memory
+# the operands kernel K copies with cp.async (not a tensor map, not 16-byte
+# chunks): bits of level_correct_cp_async's mask, the kernel's K_CPA_*
+# (csrc/hss_level_correct.cu; a test holds the two equal)
+HSS_CORRECT_CPA = {"couplings": 1, "lu": 2, "phi": 4}
 
 
 def level_correct_tiles(r2: int) -> int:
@@ -807,20 +832,36 @@ def level_correct_block_tiles(r: int, blk: int) -> int:
     return n
 
 
-def level_correct_smem(r: int, nc: int, stages: int) -> int:
-    """Dynamic shared memory of a CTA of the k > 1 kernel: the ring, w
-    [3r, nc + 4], a diagonal block's 32 x 33 copy, the stages' two barriers
-    and the core's permutation."""
-    return (8 * (stages * HSS_CORRECT_STAGE + 3 * r * (nc + 4) + 32 * 33)
+def level_correct_itemsizes(dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of an operand value of kernel K and of a value it computes in:
+    float32 operands are computed in float64 and complex64 ones in
+    complex128 (widened as they are read, F4's rule: a 32-bit solve with a
+    2r x 2r core's LU lands cond(core) epsilons off), float64 and
+    complex128 in their own type: the solve sweeps' accumulator."""
+    return dtype.itemsize, accumulator(dtype).itemsize
+
+
+def level_correct_smem(r: int, nc: int, stages: int, itemsize: int = 8,
+                       acc_itemsize: int = 8) -> int:
+    """Dynamic shared memory of a CTA of the k > 1 kernel: the ring of
+    ``itemsize``-byte operand values; w [2r, nc + 4] (eta, then the solve's
+    right-hand sides: eta's products read xi from device memory), a
+    diagonal block's 32 x 33 copy in ``acc_itemsize``-byte values; the
+    stages' two barriers and the core's permutation."""
+    return (itemsize * stages * HSS_CORRECT_STAGE
+            + acc_itemsize * (2 * r * (nc + 4) + 32 * 33)
             + 16 * stages + 8 * r)
 
 
 def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
-                           active: Optional[Callable[[int, int, int], int]] = None):
+                           active: Optional[Callable[[int, int, int], int]] = None,
+                           itemsize: int = 8, is_complex: bool = False):
     """``(nc, cs, groups, stages)`` of kernel K's launch for ``k > 1`` over
-    ``nodes`` nodes on a card of ``sms`` SMs: nc right-hand sides per CTA,
-    cs CTAs per thread block cluster, ``groups`` clusters per node and the
-    ring's stages (4, or 3, or 2 where only that fits).
+    ``nodes`` nodes on a card of ``sms`` SMs, for operands of ``itemsize``
+    bytes (computed in float64, or complex128 where ``is_complex``): nc
+    right-hand sides per CTA, cs CTAs per thread block cluster, ``groups``
+    clusters per node and the ring's stages (4, or 3, or 2 where only that
+    fits).
 
     Where every CTA fits on the card at once (``nodes ceil(k / 16) <= sms``)
     the launch is latency-bound: 16 columns a CTA, and one cluster per node
@@ -830,19 +871,27 @@ def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
     bound by the SMs' throughput: 32 columns a CTA and no cluster (``cs``
     1), since a cluster of 9-16 CTAs of ~220 KB each leaves a GPC's other
     SMs idle (measured on the H100: 1.4-1.7x slower than one CTA per 32
-    columns).  Fewer columns where shared memory is short.  Raises where no
-    geometry fits (r above 977)."""
-    M = HSS_CORRECT_MAX_SMEM
+    columns).  Complex values take at most 16 columns a CTA (their
+    fragments hold two parts).  Fewer columns where shared memory is short
+    with 3 stages (complex128: 8 at r = 192), but a launch bound by the
+    SMs' throughput takes complex values' 16 with 2 stages where that fits
+    (complex128 at r = 192: 1.3-1.4x faster than 8 with 4 stages, measured
+    on the H100 by ``tools/k_breakdown.py``; its latency-bound launches
+    lose as much).  Where not even 4 columns fit (complex128 above r =
+    568, complex64 above 692, float64 above 1405), ``nc`` is 0: the k = 1
+    kernel runs one CTA per node and column (``groups`` k)."""
+    M, acc = HSS_CORRECT_MAX_SMEM, 16 if is_complex else 8
+    fits = lambda c, s: level_correct_smem(r, c, s, itemsize, acc) <= M
     single = nodes * -(-k // 16) <= sms
     want = 8 if k <= 8 else (16 if single else HSS_CORRECT_MAX_COLS)
+    if is_complex:
+        want = min(want, HSS_CORRECT_MAX_COLS_COMPLEX)
+    least = 2 if is_complex and not single else 3
     nc = next((c for c in (32, 24, 16, 8, 4)
-               if c <= want and level_correct_smem(r, c, 3) <= M), 4)
-    stages = max((s for s in range(2, 5) if level_correct_smem(r, nc, s) <= M),
-                 default=0)
+               if c <= want and fits(c, least)), 4)
+    stages = max((s for s in range(2, 5) if fits(nc, s)), default=0)
     if not stages:
-        raise ValueError(f"hss_level_correct: rank {r} needs "
-                         f"{level_correct_smem(r, 4, 2)} bytes of shared "
-                         "memory for four right-hand sides")
+        return 0, 1, k, 0
     ctas = -(-k // nc)
     if single:
         for cap in (HSS_CORRECT_MAX_CLUSTER, 8):
@@ -853,74 +902,64 @@ def level_correct_geometry(r: int, k: int, nodes: int = 1, sms: int = 132,
     return nc, 1, ctas, stages
 
 
-def level_correct_itemsize(dtype: torch.dtype) -> int:
-    """Bytes of a value K's CUDA-core form computes in: complex128's 16 for
-    both complex types, and float64's 8 for float32 operands (narrow
-    operands widened as they are read: a 32-bit solve with a 2r x 2r core's
-    LU lands cond(core) epsilons off): the solve sweeps' accumulator."""
-    return accumulator(dtype).itemsize
-
-
-def level_correct_smem_cc(r: int, nc: int, itemsize: int = 16) -> int:
-    """Dynamic shared memory of a CTA of the CUDA-core kernel computing in
-    ``itemsize``-byte values (:func:`level_correct_itemsize`): xi and w
-    [2r, nc] each, a diagonal block's 32 x 33 copy and the core's
-    permutation."""
-    return itemsize * (4 * r * nc + 32 * 33) + 8 * r
-
-
-def level_correct_geometry_cc(r: int, k: int, itemsize: int = 16) -> int:
-    """Columns a CTA of kernel K's CUDA-core form (complex128 and complex64,
-    computed in complex128, ``itemsize`` 16; float32 operands computed in
-    float64, 8; every k, one CTA per node
-    and column group): up to 32, halved while xi and w do not fit a CTA's
-    shared memory (complex128: 16 at r = 192; float32: 32 up to r = 217,
-    16 at the 3D caps' 400).  Raises where one column does not fit
-    (complex128: r above 2993)."""
-    nc = min(k, HSS_CORRECT_MAX_COLS)
-    while nc > 1 and level_correct_smem_cc(r, nc, itemsize) \
-            > HSS_CORRECT_MAX_SMEM:
-        nc = -(-nc // 2)
-    if level_correct_smem_cc(r, nc, itemsize) > HSS_CORRECT_MAX_SMEM:
-        raise ValueError(f"hss_level_correct: rank {r} needs "
-                         f"{level_correct_smem_cc(r, 1, itemsize)} bytes of "
-                         "shared memory for one right-hand side")
-    return nc
-
+def level_correct_cp_async(Bl: torch.Tensor, Br: torch.Tensor,
+                           lu: torch.Tensor, Phi: torch.Tensor) -> int:
+    """The mask (``HSS_CORRECT_CPA``) of kernel K's operands that cannot be
+    a tensor map, whose rows (16-byte multiples) or base (16-byte aligned)
+    break TMA's rule: a float32 rank not a multiple of 4 (couplings and
+    Phi; the LU's rows of 2r values at an odd rank), an odd float64 or
+    complex64 rank (couplings and Phi).  The kernel copies their tiles with
+    cp.async, one value at a time (the k = 1 kernel: the LU's), each CTA
+    its own, so a k > 1 launch with any of them takes no cluster (the
+    kernel's launcher runs it with one CTA a cluster: a CTA that copies its
+    own tiles could release a stage ahead of its peers, and the cluster's
+    leader counts their releases by phase)."""
+    def bad(*ts):
+        return any(t.shape[-1] * t.element_size() % 16 or t.data_ptr() % 16
+                   for t in ts)
+    return ((HSS_CORRECT_CPA["couplings"] if bad(Bl, Br) else 0)
+            | (HSS_CORRECT_CPA["lu"] if bad(lu) else 0)
+            | (HSS_CORRECT_CPA["phi"] if bad(Phi) else 0))
 
 
 _ACTIVE = {}
 
 
-def _active_clusters(nc: int, cs: int, stages: int, r: int) -> int:
-    """How many clusters of kernel K's geometry the card holds at once
-    (asked once per geometry)."""
-    key = (r, nc, cs, stages)
+def _active_clusters(nc: int, cs: int, stages: int, r: int,
+                     dtype: torch.dtype = torch.float64) -> int:
+    """How many clusters of kernel K's geometry in value type ``dtype`` the
+    card holds at once (asked once per geometry)."""
+    key = (r, nc, cs, stages, dtype)
     if key not in _ACTIVE:
-        _ACTIVE[key] = kernels.lib().hs_hss_level_correct_clusters(
-            r, nc, cs, stages)
+        _ACTIVE[key] = getattr(kernels.lib(), kernels.symbol(
+            "hs_hss_level_correct_clusters", dtype))(r, nc, cs, stages)
     return _ACTIVE[key]
 
 
-def level_correct_launch(r: int, k: int, nodes: int, device: torch.device):
-    """:func:`level_correct_geometry` on ``device``: its SM count and the
-    clusters it holds at once."""
+def level_correct_launch(r: int, k: int, nodes: int, device: torch.device,
+                         dtype: torch.dtype = torch.float64):
+    """:func:`level_correct_geometry` on ``device`` in value type ``dtype``:
+    its SM count and the clusters it holds at once."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return level_correct_geometry(
-        r, k, nodes, sms, lambda nc, cs, st: _active_clusters(nc, cs, st, r))
+    nc, cs, groups, stages = level_correct_geometry(
+        r, k, nodes, sms,
+        lambda nc, cs, st: _active_clusters(nc, cs, st, r, dtype),
+        dtype.itemsize, dtype.is_complex)
+    return nc, cs, groups, stages
 
 
 def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
                       Br: torch.Tensor, lu: torch.Tensor, piv: torch.Tensor,
                       Phi: torch.Tensor, transpose: bool) -> torch.Tensor:
     """Kernel K wrapper (see the plain version): k = 1, one CTA per node;
-    k > 1, CTAs of up to 32 columns, a node's on one thread block cluster
-    where the launch fits the card at once (:func:`level_correct_geometry`).
-    Either forms eta, streams the core LU through shared memory for the
-    pivoted solve and corrects both children's rows of ``Y`` in place.
-    Complex128, complex64 and float32 values take one CUDA-core kernel for
-    every k, a CTA per node and up to 32 columns
-    (:func:`level_correct_geometry_cc`)."""
+    k > 1, CTAs of up to 32 columns (16 complex), a node's on one thread
+    block cluster where the launch fits the card at once
+    (:func:`level_correct_geometry`).  Either forms eta, streams the core LU
+    through shared memory for the pivoted solve and corrects both
+    children's rows of ``Y`` in place.  Every value type takes these two
+    kernels, the products on the FP64 tensor cores: float32 and complex64
+    operands computed in float64 and complex128, the correction rounded
+    once."""
     if kernels.on_cpu(Y, xi, Bl, lu):
         return hss_level_correct_plain(Y, xi, Bl, Br, lu, piv, Phi, transpose)
     Bn, n_pad, k = Y.shape
@@ -934,20 +973,15 @@ def hss_level_correct(Y: torch.Tensor, xi: torch.Tensor, Bl: torch.Tensor,
     kernels.require(piv, "piv", torch.int64, (Bn, m, 2 * r))
     kernels.require(Phi, "Phi", dt, (Bn, n_pad, r))
     nc = cs = stages = 0
-    if dt != torch.float64:
-        nc = level_correct_geometry_cc(r, k, level_correct_itemsize(dt))
-    elif k > 1:
-        # the tensor maps take 16-byte aligned bases and row strides
-        if r % 2 or any(t.data_ptr() % 16 for t in (Bl, Br, lu, Phi)):
-            raise ValueError(f"hss_level_correct: k = {k} > 1 needs an even "
-                             f"rank (got {r}) and 16-byte aligned operands")
-        nc, cs, _, stages = level_correct_launch(r, k, Bn * m, Y.device)
+    cpa = level_correct_cp_async(Bl, Br, lu, Phi)
+    if k > 1:
+        nc, cs, _, stages = level_correct_launch(r, k, Bn * m, Y.device, dt)
     if Bn * m and k:
         kernels.launch(kernels.symbol("hs_hss_level_correct", dt), Y.device,
                        Y.data_ptr(), xi.data_ptr(), Bl.data_ptr(),
                        Br.data_ptr(), lu.data_ptr(), piv.data_ptr(),
                        Phi.data_ptr(), Bn, m, r, n_pad // (2 * m), k, nc, cs,
-                       stages, int(transpose))
+                       stages, int(transpose), cpa)
         kernels.count_launch(hss_level_correct, dt)
     return Y
 

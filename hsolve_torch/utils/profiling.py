@@ -15,6 +15,7 @@ the device-time breakdown.  Usage, from the repository root on a machine with on
                                              | --schur-kernels
                                              | --truncate-kernels]
                                             [--plain-forward] [--damping D]
+                                            [--dtypes float32 ...]
                                             [--out build/profile]
 
 For each size n it plans helmholtz2d(n, k=40) (with ``--problem
@@ -39,16 +40,27 @@ right preconditioner, the DIA matvec):
 
 ``--spmv`` instead times the matvec alone on the device: kernel D
 (``dia_spmv``) and cuSPARSE's CSR ``torch.mv`` on the same x, in float32 and
-float64, as the sum of their kernels' device time under the profiler over
-``--reps`` back-to-back calls (at least 100), so no host time is in the
-reading.
+float64 (with ``--damping D`` > 0: the damped system's operator in
+complex64 and complex128), as the sum of their kernels' device time under
+the profiler over ``--reps`` back-to-back calls (at least 100), so no host
+time is in the reading, and queued behind a sleep kernel (below).
 
-``--hss-kernels`` times kernels J (``hss_matvec``) and I
-(``hss_entries_prepared``) and their plain versions alone, device time only,
-at the first shapes ``chip_smoke.py`` checks them at (the kest=32 n=512
-plan's first structured batch: 511 matrices of 2 leaves of 23 rows, rank 32;
-J at k = 46, the sketch width, and k = 1; I on the leaf blocks and on one
-level-1 coupling block a matrix), on random generators of those shapes.
+``--hss-kernels`` reads kernels K (``hss_level_correct``) and J
+(``hss_matvec``) at the first launch of every distinct shape of a
+structured factor and of one preconditioner application, on the factor's
+own operands, in each of ``--dtypes`` (default all four value types; the
+complex ones on the damped system, damping 0.1): for each size n of
+helmholtz2d(n, k=40) the kest=32 and the default-caps plans (leafmax 100,
+swlevel=-2, swsize=16, atol=rtol=1e-3), with ``--problem helmholtz3d``
+helmholtz3d(n, k=10)'s default-caps plan.  The kernel is queued as
+``--sweep-kernels`` queues it, and so is its plain version where the
+host's launches get ahead of the device (else back to back between CUDA
+events, marked "hb"); each is checked against the plain version (on the
+widened operands for float32 and complex64).  A summary line per plan,
+type, kernel and k = 1 / k > 1 (shapes, summed ms of kernel, plain version
+and bound, the shapes where the kernel is slower) and a JSON report,
+``<out>/hss_kernels.json``.  It runs unchanged in an earlier tree (copy
+this file in): the forms a tree's wrappers pick are what it reads.
 
 ``--sweep-kernels`` times kernels E (``lowrank_sweep_update``) and B
 (``extend_add``) and their plain versions alone, device time only, at every
@@ -491,12 +503,15 @@ def _spmv(args, card, dev) -> int:
     from hsolve_torch.ops.sparse import dia_spmv
 
     reps = max(args.reps, 100)
-    report = {"card": card, "path": "spmv", "reps": reps, "sizes": []}
+    report = {"card": card, "path": "spmv", "reps": reps,
+              "damping": args.damping, "sizes": []}
+    dnames = (("complex64", "complex128") if args.damping > 0
+              else ("float32", "float64"))
     for n in args.sizes:
-        A, _, _ = ht.helmholtz2d(n, k=40.0)
+        A, _, _ = ht.helmholtz2d(n, k=40.0, damping=args.damping)
         Ac = A.tocsr()
         entry = {"n": n, "N": int(A.shape[0]), "nnz": int(Ac.nnz)}
-        for dname in ("float32", "float64"):
+        for dname in dnames:
             dt = getattr(torch, dname)
             op, _ = ht.spmv_format(A, dtype=np.dtype(dname), device=dev)
             csr = torch.sparse_csr_tensor(
@@ -510,8 +525,12 @@ def _spmv(args, card, dev) -> int:
                 rows = _profile(fn, reps, os.path.join(
                     args.out, f"spmv_n{n}_{name}_{dname}.json"))
                 ms = sum(r["ms"] for r in rows)
-                entry[f"{name}:{dname}"] = {"device_ms": ms, "kernels": rows}
+                queued = _queued_ms(fn, reps)
+                entry[f"{name}:{dname}"] = {"device_ms": ms,
+                                            "queued_ms": queued,
+                                            "kernels": rows}
                 print(f"spmv n={n} {name} {dname}: {ms:.5f} ms device per call "
+                      f"under the profiler, {queued:.5f} queued "
                       f"({', '.join(r['name'][:40] for r in rows)})", flush=True)
         report["sizes"].append(entry)
     print(json.dumps(report), flush=True)
@@ -519,53 +538,184 @@ def _spmv(args, card, dev) -> int:
 
 
 def _hss_kernels(args, card, dev) -> int:
-    """``--hss-kernels``: device ms per call of J and I and of their plain
-    versions at chip_smoke's first shapes."""
+    """``--hss-kernels``: device ms of kernels K and J and of their plain
+    versions at every launch shape of the structured factors and one
+    preconditioner application."""
+    import functools
+    import time
+
+    import numpy as np
     import torch
 
+    import hsolve_torch as ht
+    import hsolve_torch.structured as S
     from hsolve_torch.ops import hss as H
 
-    reps = max(args.reps, 100)
-    B, depth, ls, r = 511, 1, 23, 32
-    nl = 1 << depth
-    g = torch.Generator(device=dev).manual_seed(0)
-    rnd = lambda *s: torch.randn((B,) + s, dtype=torch.float64, device=dev,
-                                 generator=g)
-    h = H.Hss(D=rnd(nl, ls, ls), U=rnd(nl, ls, r), V=rnd(nl, ls, r),
-              Rs=[rnd(2, r, r)], Ws=[rnd(2, r, r)], B12s=[rnd(1, r, r)],
-              B21s=[rnd(1, r, r)],
-              plan=H.ClusterPlan(ls=ls, depth=depth, n1=ls, n2=ls))
-    ef = H.hss_entry_factors(h)
-    n = nl * ls
-    leaf = torch.arange(n, device=dev).reshape(1, nl, ls).expand(B, -1, -1) \
-        .contiguous()
-    rows = torch.randint(0, ls, (B, 1, r), device=dev, generator=g)
-    cols = ls + torch.randint(0, ls, (B, 1, r), device=dev, generator=g)
-    cases = []
-    for k in (46, 1):
-        x = torch.randn(B, n, k, dtype=torch.float64, device=dev, generator=g)
-        cases += [(f"hss_matvec k={k}", lambda x=x: H.hss_matvec(h, x)),
-                  (f"hss_matvec_plain k={k}",
-                   lambda x=x: H.hss_matvec_plain(h, x))]
-    for what, rr, cc in (("leaf D", leaf, leaf), ("B12", rows, cols)):
-        cases += [(f"hss_entries_prepared {what}",
-                   lambda rr=rr, cc=cc: H.hss_entries_prepared(ef, rr, cc)),
-                  (f"hss_entries_prepared_plain {what}",
-                   lambda rr=rr, cc=cc: H.hss_entries_prepared_plain(ef, rr, cc))]
-    report = {"card": card, "path": "hss-kernels", "reps": reps,
-              "shape": {"B": B, "nleaves": nl, "ls": ls, "r": r}, "calls": {}}
-    for name, fn in cases:
-        fn()
-        rows_ = _profile(fn, reps, os.path.join(
-            args.out, f"hss_kernels_{name.replace(' ', '_')}.json"))
-        ms = sum(r_["ms"] for r_ in rows_)
-        report["calls"][name] = {"device_ms": ms, "wall_ms": _events_ms(fn, reps),
-                                 "kernels": rows_}
-        print(f"{name}: {ms:.5f} ms device per call, "
-              f"{report['calls'][name]['wall_ms']:.5f} ms back to back "
-              f"({len(rows_)} kernels)", flush=True)
-    print(json.dumps(report), flush=True)
+    floor = _queue_floor(dev, 50)
+    print(f"a queued one-element launch: {floor:.5f} ms on the device",
+          flush=True)
+    comp = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
+    three = args.problem == "helmholtz3d"
+    configs = ((("default caps", comp),) if three else
+               (("kest=32", dict(comp, kest=32)), ("default caps", comp)))
+    wide = {"float32": torch.float64, "complex64": torch.complex128}
+
+    def timed(fn):
+        """(ms, how): ``fn`` queued as :func:`_queued_ms` queues it, the
+        calls and the sleep sized from a few host-timed calls; where the
+        host still falls behind (a plain version waiting for the device),
+        back to back between CUDA events ("hb")."""
+        reps = int(min(30, max(3, 5.0 / max(_events_ms(fn, 1), 1e-3))))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        try:
+            return _queued_ms(fn, reps, int(min(4e8, max(
+                2e6, 2.0 * reps * host_ms * 1.98e6))), tries=2), "device"
+        except RuntimeError:
+            return _events_ms(fn, reps), "hb"
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+    def widened(a):
+        return a.to(wdt) if a.is_floating_point() or a.is_complex() else a
+
+    report = {"card": card, "path": "hss-kernels", "queue_floor_ms": floor,
+              "plans": []}
+    for n in args.sizes:
+        for dname in args.dtypes:
+            dt = getattr(torch, dname)
+            wdt = wide.get(dname, dt)
+            A, b, shape = ht.helmholtz3d(n, k=10.0) if three else \
+                ht.helmholtz2d(n, k=40.0, damping=0.1 if dt.is_complex else 0.0)
+            tree = ht.nested_dissection(shape, leafmax=100)
+            bt = torch.as_tensor(np.asarray(b), device=dev).to(dt)
+            for label, kw in configs:
+                t_plan = time.perf_counter()
+                opts = ht.SolverOptions(**kw)
+                plan = ht.plan_factorization(A, tree, opts)
+                rows = {"K": [], "J": []}
+                seen = set()
+                orig_k, orig_j = H.hss_level_correct, S.hss_matvec
+
+                # the recorders stand in for the wrappers under their
+                # modules' names (structured.py imports J's by name);
+                # functools.wraps hands them the wrappers' launch counters,
+                # which count_launch reaches through those names
+                @functools.wraps(orig_k)
+                def correct_rec(Y, xi, Bl, Br, lu, piv, Phi, transpose):
+                    key = (Bl.shape[0] * Bl.shape[1], Bl.shape[-1],
+                           Y.shape[1] // (2 * Bl.shape[1]), Y.shape[-1],
+                           bool(transpose))
+                    if ("K", key) not in seen:
+                        seen.add(("K", key))
+                        ops = (xi, Bl, Br, lu, piv, Phi)
+                        got = orig_k(Y.clone(), *ops, transpose)
+                        ref = H.hss_level_correct_plain(
+                            widened(Y), *map(widened, ops), transpose)
+                        scratch = Y.clone()
+                        ms, how = timed(lambda: orig_k(scratch, *ops,
+                                                       transpose))
+                        pms, phow = timed(lambda: H.hss_level_correct_plain(
+                            scratch, *ops, transpose))
+                        rows["K"].append({"key": key, "ms": ms, "how": how,
+                                          "plain_ms": pms, "plain_how": phow,
+                                          "rel": rel(got.to(wdt), ref)})
+                    return orig_k(Y, xi, Bl, Br, lu, piv, Phi, transpose)
+
+                @functools.wraps(orig_j)
+                def matvec_rec(h, x, adjoint=False):
+                    p_ = h.plan
+                    key = (h.B, p_.nleaves, p_.ls, h.r, p_.depth, x.shape[-1],
+                           bool(adjoint))
+                    if ("J", key) not in seen:
+                        seen.add(("J", key))
+                        got = orig_j(h, x, adjoint)
+                        ref = H.hss_matvec_plain(h.map(widened), widened(x),
+                                                 adjoint)
+                        ms, how = timed(lambda: orig_j(h, x, adjoint))
+                        pms, phow = timed(lambda: H.hss_matvec_plain(
+                            h, x, adjoint))
+                        rows["J"].append({"key": key, "ms": ms, "how": how,
+                                          "plain_ms": pms, "plain_how": phow,
+                                          "rel": rel(got.to(wdt), ref)})
+                    return orig_j(h, x, adjoint)
+
+                H.hss_level_correct, S.hss_matvec = correct_rec, matvec_rec
+                try:
+                    F = ht.factor_with_plan(plan, opts, dtype=dt, device=dev)
+                    F.solve(bt)
+                    torch.cuda.synchronize()
+                finally:
+                    H.hss_level_correct, S.hss_matvec = orig_k, orig_j
+                del F
+                name = f"{'3d ' if three else ''}n={n} {label} {dname}"
+                summary = _hss_summary(name, rows, dname)
+                print(f"{name}: read in {time.perf_counter() - t_plan:.1f} s",
+                      flush=True)
+                report["plans"].append({"plan": name, "dtype": dname,
+                                        "summary": summary, "rows": rows})
+                torch.cuda.empty_cache()
+    with open(os.path.join(args.out, "hss_kernels.json"), "w") as f:
+        json.dump(report, f)
     return 0
+
+
+def hss_kernel_bound_ms(kernel: str, key, dname: str) -> float:
+    """The least time (ms) of one launch of kernel K (``key`` (nodes, r,
+    blk, k, transpose)) or J (``key`` (B, nleaves, ls, r, depth, k,
+    adjoint)) in value type ``dname`` on the H100: the larger of its bytes
+    (each operand read once, the output written once) over the memory rate
+    and its operations (a complex multiply-add four real ones) over the
+    FP64 tensor cores' peak, where both kernels compute in every type."""
+    isz = {"float32": 4, "float64": 8, "complex64": 8, "complex128": 16}[dname]
+    ops = 4 if dname.startswith("complex") else 1
+    if kernel == "K":
+        nodes, r, blk, k = key[:4]
+        gens = nodes * (6 * r * r + 2 * blk * r)     # Bl, Br, the LU, Phi
+        vals = gens + 2 * nodes * r * k + 2 * 2 * nodes * blk * k  # xi, Y in, out
+        nbytes = vals * isz + 8 * 2 * nodes * r      # and the pivots
+    else:
+        B, nl, ls, r, _, k = key[:6]
+        gens = B * (nl * ls * ls + 2 * nl * ls * r + 3 * (2 * nl - 2) * r * r)
+        nbytes = (gens + 2 * B * nl * ls * k) * isz  # x in, y out
+    return _bound_ms(nbytes, 2.0 * ops * k * gens)[0]
+
+
+def _hss_summary(name, rows, dname):
+    """``--hss-kernels``' summary of one plan and type: per kernel
+    and k = 1 / k > 1 the shapes, the summed ms of the kernel, its plain
+    version and its bound, the shapes where it is slower than the plain
+    version (and the worst ratio), the largest relative error, and how many
+    readings were back to back ("hb"); printed, and returned."""
+    summary = {}
+    for kern, rs in rows.items():
+        kpos = 3 if kern == "K" else 5
+        for cls, sel in (("k = 1", lambda k: k == 1),
+                         ("k > 1", lambda k: k > 1)):
+            got = [r for r in rs if sel(r["key"][kpos])]
+            slow = [r["ms"] / r["plain_ms"] for r in got
+                    if r["ms"] > r["plain_ms"]]
+            summary[f"{kern} {cls}"] = s_ = {
+                "shapes": len(got),
+                "ms": sum(r["ms"] for r in got),
+                "plain_ms": sum(r["plain_ms"] for r in got),
+                "bound_ms": sum(hss_kernel_bound_ms(kern, r["key"], dname)
+                                for r in got),
+                "slower": len(slow),
+                "worst": max(slow, default=None),
+                "max_rel": max((r["rel"] for r in got), default=None),
+                "hb": sum(r["how"] == "hb" for r in got),
+                "plain_hb": sum(r["plain_how"] == "hb" for r in got)}
+            print(f"{name}: {kern} {cls}: {s_['shapes']} shapes, sum "
+                  f"{s_['ms']:.4f} ms against plain {s_['plain_ms']:.4f}, "
+                  f"bound {s_['bound_ms']:.4f}, slower at {s_['slower']}"
+                  + (f" (worst {s_['worst']:.2f}x)" if s_['worst'] else "")
+                  + f", max rel {s_['max_rel']}, read hb {s_['hb']} / plain "
+                  f"{s_['plain_hb']}", flush=True)
+    return summary
 
 
 HBM_BPS = 3.35e12          # H100 SXM device memory (the data sheet)
@@ -607,18 +757,18 @@ def _labelled_ms(cases, reps):
             for label, _ in cases}
 
 
-def _queued_ms(fn, reps):
+def _queued_ms(fn, reps, cycles=2_000_000, tries=6):
     """Device ms per call of ``fn`` (a kernel wrapper that never waits for
     the device): ``reps`` calls between two CUDA events, queued behind a
     sleep kernel that outlasts the host's launches, so the device runs them
     back to back and no host time is in the reading (the launches' own gaps
-    on the device are; :func:`_queue_floor` reads them)."""
+    on the device are; :func:`_queue_floor` reads them).  The sleep starts
+    at ``cycles`` and grows 4x a try, ``tries`` times."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    cycles = 2_000_000
-    for _ in range(6):
+    for _ in range(tries):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -1161,8 +1311,9 @@ def main() -> int:
     mode.add_argument("--spmv", action="store_true",
                       help="device time of kernel D and of the CSR matvec")
     mode.add_argument("--hss-kernels", action="store_true",
-                      help="device time of kernels J and I and their plain "
-                           "versions")
+                      help="device time of kernels K and J and their plain "
+                           "versions at every launch shape of the "
+                           "structured plans")
     mode.add_argument("--sweep-kernels", action="store_true",
                       help="device time of kernels E and B and their plain "
                            "versions at every launch shape")
@@ -1174,6 +1325,10 @@ def main() -> int:
     mode.add_argument("--truncate-kernels", action="store_true",
                       help="device time of kernel G at every launch of the "
                            "n=512 and 48^3 low-rank plans")
+    ap.add_argument("--dtypes", nargs="+",
+                    default=["float64", "float32", "complex64", "complex128"],
+                    choices=["float64", "float32", "complex64", "complex128"],
+                    help="--hss-kernels: the factor's value types")
     ap.add_argument("--plain-forward", action="store_true",
                     help="dense levels' forward step as its plain version")
     ap.add_argument("--damping", type=float, default=0.0,
@@ -1182,7 +1337,6 @@ def main() -> int:
                          "factor and cycles)")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
-
     import numpy as np
     import torch
 

@@ -628,28 +628,65 @@ def test_hss_entries_kernel(dev, depth):
     assert _rel(got, ref) < 1e-12
 
 
+# Kernels J and K in every value type, all on the FP64 tensor cores:
+# float64 and complex128 to 1e-13 of their plain versions; float32 and
+# complex64, computed in float64 and complex128 and rounded once, to 1e-5
+# (chip_smoke's RTOL_SUM32) of the plain version on the widened operands
+HSS_TYPES = [(torch.float64, 1e-13), (torch.float32, 1e-5),
+             (torch.complex64, 1e-5), (torch.complex128, 1e-13)]
+
+
+def _wide(t):
+    """A copy of a value operand in the type J and K compute in (integers
+    as they are): the plain versions correct ``Y`` in place."""
+    if t.is_complex():
+        return t.to(torch.complex128, copy=True)
+    return t.to(torch.float64, copy=True) if t.is_floating_point() else t
+
+
+def _typed(t, dtype):
+    """A float64 tensor in ``dtype``; a complex type adds an imaginary part,
+    0.3 times the tensor with its last axis rolled by one."""
+    if dtype.is_complex:
+        return torch.complex(t, 0.3 * t.roll(1, -1)).to(dtype)
+    return t.to(dtype)
+
+
+def _tname(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("dtype,tol", HSS_TYPES)
 @pytest.mark.parametrize("depth,k", [(1, 1), (3, 1), (3, 13), (2, 58)])
-def test_hss_matvec_kernel_both_directions(dev, depth, k):
+def test_hss_matvec_kernel_both_directions(dev, depth, k, dtype, tol):
     """Kernel J against its plain version, k = 1 and ragged column tiles."""
-    h = _hss_on(dev, depth=depth)
+    h = _hss_on(dev, depth=depth).map(lambda a: _typed(a, dtype))
+    hw = h.map(_wide)
     rng = np.random.default_rng(k)
-    x = torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)), device=dev)
-    dense = H.hss_todense(h)
+    x = _typed(torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)),
+                               device=dev), dtype)
+    dense = H.hss_todense(hw)
     for adj in (False, True):
-        before = H.hss_matvec.launches
+        before = H.hss_matvec.launches_by_type.get(_tname(dtype), 0)
         got = H.hss_matvec(h, x, adj)
-        assert H.hss_matvec.launches == before + 1
-        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-13
+        assert H.hss_matvec.launches_by_type[_tname(dtype)] == before + 1
+        assert _rel(got, H.hss_matvec_plain(hw, _wide(x), adj)) < tol
         op = dense.transpose(-1, -2) if adj else dense
-        assert _rel(got, op @ x) < 1e-12
+        assert _rel(got, op @ _wide(x)) < max(tol, 1e-12)
 
 
-def _random_hss(dev, B, depth, ls, r, seed):
-    """Random generators of a batch of HSS matrices on the card."""
+def _random_hss(dev, B, depth, ls, r, seed, dtype=torch.float64):
+    """Random generators of a batch of HSS matrices on the card (complex
+    types: random imaginary parts too)."""
     rng = np.random.default_rng(seed)
     nl = 1 << depth
-    g = lambda *s: torch.as_tensor(rng.standard_normal((B,) + s) / np.sqrt(s[-1]),
-                                   device=dev)
+
+    def g(*s):
+        v = rng.standard_normal((B,) + s) / np.sqrt(s[-1])
+        if dtype.is_complex:
+            v = v + 1j * rng.standard_normal((B,) + s) / np.sqrt(s[-1])
+        return torch.as_tensor(v, device=dev).to(dtype)
+
     half = (nl // 2) * ls
     return H.Hss(D=g(nl, ls, ls), U=g(nl, ls, r), V=g(nl, ls, r),
                  Rs=[g(nl >> i, r, r) for i in range(depth)],
@@ -665,17 +702,21 @@ J_SHAPES = [(511, 1, 23, 32), (127, 2, 24, 48), (15, 3, 32, 96),
             (3, 4, 24, 192), (1, 3, 32, 192)]
 
 
+@pytest.mark.parametrize("dtype,tol", HSS_TYPES)
 @pytest.mark.parametrize("B,depth,ls,r", J_SHAPES)
 @pytest.mark.parametrize("k", [1, 58, 112])
-def test_hss_matvec_kernel_at_n512_shapes(dev, B, depth, ls, r, k):
+def test_hss_matvec_kernel_at_n512_shapes(dev, B, depth, ls, r, k, dtype,
+                                          tol):
     """Kernel J against its plain version at the n=512 plans' shapes, both
     directions, on the geometry hss_matvec_geometry picks."""
-    h = _random_hss(dev, B, depth, ls, r, seed=r + k)
-    x = torch.as_tensor(np.random.default_rng(k).standard_normal(
-        (B, h.plan.n_pad, k)), device=dev)
+    h = _random_hss(dev, B, depth, ls, r, seed=r + k, dtype=dtype)
+    hw = h.map(_wide)
+    x = _typed(torch.as_tensor(np.random.default_rng(k).standard_normal(
+        (B, h.plan.n_pad, k)), device=dev), dtype)
     for adj in (False, True):
         got = H.hss_matvec(h, x, adj)
-        assert _rel(got, H.hss_matvec_plain(h, x, adj)) < 1e-13
+        assert got.dtype == dtype
+        assert _rel(got, H.hss_matvec_plain(hw, _wide(x), adj)) < tol
 
 
 @pytest.mark.parametrize("p,q", [(70, 45), (24, 24), (130, 192)])
@@ -699,14 +740,16 @@ def test_hss_entries_kernel_mixed_levels_and_nan(dev, p, q):
     assert _rel(got[fin], ref[fin]) < 1e-13
 
 
+@pytest.mark.parametrize("dtype,tol", HSS_TYPES)
 @pytest.mark.parametrize("k", [1, 12])
-def test_hss_level_correct_kernel_and_solve(dev, k):
+def test_hss_level_correct_kernel_and_solve(dev, k, dtype, tol):
     """Kernel K against its plain version at every level of both solves, and
-    the solves against a dense solve."""
-    h = _hss_on(dev, depth=3)
+    the solves against a dense solve (float32 and complex64: to 1e-4)."""
+    h = _hss_on(dev, depth=3).map(lambda a: _typed(a, dtype))
     sol = H.hss_factor(h)
     rng = np.random.default_rng(40 + k)
-    x = torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)), device=dev)
+    x = _typed(torch.as_tensor(rng.standard_normal((h.B, h.plan.n_pad, k)),
+                               device=dev), dtype)
     for adj in (False, True):
         Y = H._leaf_solve(sol, x, adj)
         for lev in range(1, h.plan.depth + 1):
@@ -718,28 +761,35 @@ def test_hss_level_correct_kernel_and_solve(dev, k):
                 Bl, Br = Br, Bl
                 lu, piv, Phi = sol.coresT_lu[lev - 1], sol.coresT_piv[lev - 1], \
                     sol.PhisT[lev - 1]
-            want = H.hss_level_correct_plain(Y.clone(), xi, Bl, Br, lu, piv,
-                                             Phi, adj)
-            before = H.hss_level_correct.launches
+            want = H.hss_level_correct_plain(
+                *(_wide(t) for t in (Y, xi, Bl, Br, lu, piv, Phi)), adj)
+            before = H.hss_level_correct.launches_by_type.get(_tname(dtype), 0)
             Y = H.hss_level_correct(Y, xi, Bl, Br, lu, piv, Phi, adj)
-            assert H.hss_level_correct.launches == before + 1
-            assert _rel(Y, want) < 1e-13
-        dense = H.hss_todense(h)
+            assert H.hss_level_correct.launches_by_type[_tname(dtype)] == \
+                before + 1
+            assert _rel(Y, want) < tol
+        dense = H.hss_todense(h.map(_wide))
         op = dense.transpose(-1, -2) if adj else dense
-        assert _rel(op @ Y, x) < 1e-10
-        assert _rel(H.hss_solve(sol, x, adj), Y) < 1e-13
+        assert _rel(op @ _wide(Y), _wide(x)) < (1e-10 if tol < 1e-12 else 1e-4)
+        assert _rel(H.hss_solve(sol, x, adj), Y) < tol
 
 
-@pytest.mark.parametrize("r", [48, 96, 192])
+@pytest.mark.parametrize("dtype,tol", HSS_TYPES)
+@pytest.mark.parametrize("r", [46, 47, 48, 96, 192, 384])
 @pytest.mark.parametrize("adjoint", [False, True])
-def test_hss_level_correct_kernel_at_default_ranks(dev, r, adjoint):
-    """Kernel K on random operands of rank r (cores 96, 192 and 384 wide),
-    three nodes, k = 1 (the solve), k = 3 (one partial 8-column block on the
-    tensor cores) and k = r (hss_factor: several column tiles where r > 32),
-    against its plain version."""
+def test_hss_level_correct_kernel_at_default_ranks(dev, r, adjoint, dtype,
+                                                   tol):
+    """Kernel K on random operands of rank r (cores 96, 192 and 384 wide,
+    and the adaptive replans' 768), three nodes, k = 1 (the solve), k = 3
+    (one partial 8-column block on the tensor cores) and k = r (hss_factor:
+    several column tiles where r > 32), against its plain version; ranks 46
+    and 47 break TMA's 16-byte rows (float32: the couplings and Phi, at 47
+    the LU too; 47 in float64 and complex64: the couplings and Phi), whose
+    tiles the kernel copies with cp.async; complex128 at r = 384 takes one
+    CTA per node and column."""
     rng = np.random.default_rng(r + adjoint)
     B, m, blk = 3, 1, r + 5
-    t = lambda a: torch.as_tensor(a, device=dev)
+    t = lambda a: _typed(torch.as_tensor(a, device=dev), dtype)
     M = np.eye(2 * r) + rng.standard_normal((B, m, 2 * r, 2 * r)) / (
         4 * np.sqrt(2 * r))
     lu, piv = dk.lu_factor(t(M))
@@ -749,11 +799,12 @@ def test_hss_level_correct_kernel_at_default_ranks(dev, r, adjoint):
         Y = t(rng.standard_normal((B, 2 * m * blk, k)))
         xi = t(rng.standard_normal((B, 2 * m, r, k)))
         args = (xi, Bl, Br, lu.contiguous(), piv.contiguous(), Phi, adjoint)
-        want = H.hss_level_correct_plain(Y.clone(), *args)
-        before = H.hss_level_correct.launches
+        want = H.hss_level_correct_plain(_wide(Y), *(_wide(a) for a in args[:-1]),
+                                         adjoint)
+        before = H.hss_level_correct.launches_by_type.get(_tname(dtype), 0)
         got = H.hss_level_correct(Y.clone(), *args)
-        assert H.hss_level_correct.launches == before + 1
-        assert _rel(got, want) < 1e-13
+        assert H.hss_level_correct.launches_by_type[_tname(dtype)] == before + 1
+        assert got.dtype == dtype and _rel(got, want) < tol
 
 
 def test_structured_slice_at_the_default_caps_on_cuda(dev):
@@ -1694,7 +1745,8 @@ def test_complex_hss_matvec_kernel(dev, B, depth, ls, r, k):
 @pytest.mark.parametrize("r", [48, 192])
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_complex_hss_level_correct_kernel(dev, r, adjoint):
-    """Kernel K in complex128 (one CUDA-core kernel for every k) on random
+    """Kernel K in complex128 (the FP64 tensor cores, four real products a
+    complex one; 8 columns a CTA at r = 192) on random
     operands of rank r (cores up to 384 wide), k = 1 (the solve), 3 and r
     (hss_factor), against its plain version."""
     rng = np.random.default_rng(r + adjoint)
@@ -1880,8 +1932,9 @@ def test_float32_hss_entries_kernel(dev, p, q):
 @pytest.mark.parametrize("B,depth,ls,r", J_SHAPES + [(1, 4, 32, 400)])
 @pytest.mark.parametrize("k", [1, 112])
 def test_float32_hss_matvec_kernel(dev, B, depth, ls, r, k):
-    """Kernel J in float32 (the CUDA-core form) at the n=512 shapes and a
-    3D cap, both directions, against its plain version (1e-5)."""
+    """Kernel J in float32 (float64's tensor-core form on widened values,
+    summed in float64) at the n=512 shapes and a 3D cap, both directions,
+    against its float32 plain version (1e-5)."""
     h = _random_hss_f32(dev, B, depth, ls, r, seed=r + k)
     x = torch.as_tensor(np.random.default_rng(k).standard_normal(
         (B, h.plan.n_pad, k)), dtype=F32, device=dev)
@@ -1895,10 +1948,10 @@ def test_float32_hss_matvec_kernel(dev, B, depth, ls, r, k):
 @pytest.mark.parametrize("r", [48, 192, 400])
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_float32_hss_level_correct_kernel(dev, r, adjoint):
-    """Kernel K in float32 (one CUDA-core kernel for every k, computing in
-    float64 on its float32 operands) on random well-conditioned cores of
-    rank r (up to 800 wide), k = 1, 3 and r, against its float32 plain
-    version (1e-5)."""
+    """Kernel K in float32 (float64's kernels templated on the value,
+    computing in float64 on its float32 operands) on random
+    well-conditioned cores of rank r (up to 800 wide), k = 1, 3 and r,
+    against its float32 plain version (1e-5)."""
     rng = np.random.default_rng(r + adjoint)
     B, m, blk = 3, 1, r + 5
     M = np.eye(2 * r) + rng.standard_normal((B, m, 2 * r, 2 * r)) / (
@@ -2115,10 +2168,10 @@ def test_complex64_hss_entries_kernel(dev, p, q):
 @pytest.mark.parametrize("B,depth,ls,r", J_SHAPES + [(1, 4, 32, 400)])
 @pytest.mark.parametrize("k", [1, 112])
 def test_complex64_hss_matvec_kernel(dev, B, depth, ls, r, k):
-    """Kernel J in complex64 (the CUDA-core form, never float64's tensor
-    cores, though its values are as wide) at the n=512 shapes and a 3D
-    cap, both directions (``A^T``: the plain transpose), against its plain
-    version (1e-5)."""
+    """Kernel J in complex64 (the tensor-core form on values widened to
+    complex128, four real products a complex one) at the n=512 shapes and
+    a 3D cap, both directions (``A^T``: the plain transpose), against its
+    complex64 plain version (1e-5)."""
     h = _random_hss_c64(dev, B, depth, ls, r, seed=r + k + 1)
     x = _crandn(np.random.default_rng(k + 1), (B, h.plan.n_pad, k), C64, dev)
     for adj in (False, True):
@@ -2131,11 +2184,11 @@ def test_complex64_hss_matvec_kernel(dev, B, depth, ls, r, k):
 @pytest.mark.parametrize("r", [48, 192, 400])
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_complex64_hss_level_correct_kernel(dev, r, adjoint):
-    """Kernel K in complex64 (one CUDA-core kernel for every k, computing
-    in complex128 on its complex64 operands) on random well-conditioned
-    cores of rank r (up to 800 wide), k = 1, 3 and r: within 1e-5 of its
-    complex64 plain version, and within 1e-5 of the correction computed in
-    complex128 from the same operands."""
+    """Kernel K in complex64 (the kernels templated on the value,
+    computing in complex128 on its complex64 operands) on random
+    well-conditioned cores of rank r (up to 800 wide), k = 1, 3 and r:
+    within 1e-5 of its complex64 plain version, and within 1e-5 of the
+    correction computed in complex128 from the same operands."""
     rng = np.random.default_rng(r + adjoint + 1)
     B, m, blk = 3, 1, r + 5
     M = np.eye(2 * r) + (rng.standard_normal((B, m, 2 * r, 2 * r))

@@ -108,7 +108,7 @@ def test_cpqr_matches_jax_at_default_panels(m, n, cap):
 @pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 768])
 def test_kernel_k_geometry_at_any_rank(r):
     """K takes every rank up to the adaptive replans' 768, each CTA's shared
-    memory (the ring of streamed tiles and w [3r, nc + 4]) within 227 KB.
+    memory (the ring of streamed tiles and w [2r, nc + 4]) within 227 KB.
     With k > 1, a launch whose CTAs fit the card at once takes 16 columns a
     CTA and one cluster per node (clusters of 8, or none, where the card
     cannot hold that many at once); a larger one takes 32 columns a CTA and
@@ -176,21 +176,91 @@ def test_kernel_h_cluster_by_bytes_complex128(m, n, cs, resident):
         8 * ((m * -(-n // cs) if resident else 0) + 2 * -(-n // cs) + m)
 
 
+def _k_geometry_fits(r, dtype):
+    """Kernel K's k > 1 launches in ``dtype`` at rank r over a few level
+    shapes: the ring of ``stages`` operand tiles, w and the diagonal block
+    in the compute type, within a CTA's 227 KB, with as many stages (up to
+    4) as fit, the columns covered by the clusters; or, where not even 4
+    columns and 2 stages fit, one CTA per node and column (nc 0).  Returns
+    the geometries by (nodes, k)."""
+    isz, acc = T.level_correct_itemsizes(dtype)
+    M = T.HSS_CORRECT_MAX_SMEM
+    cap = (T.HSS_CORRECT_MAX_COLS_COMPLEX if dtype.is_complex
+           else T.HSS_CORRECT_MAX_COLS)
+    got = {}
+    for nodes, k in ((1, 2), (1, r), (124, r), (1, 400), (56, 272), (8, 400)):
+        geo = T.level_correct_geometry(r, k, nodes, itemsize=isz,
+                                       is_complex=dtype.is_complex)
+        nc, cs, groups, stages = geo
+        got[nodes, k] = geo
+        if nc == 0:
+            assert (cs, groups, stages) == (1, k, 0)
+            assert T.level_correct_smem(r, 4, 2, isz, acc) > M
+            continue
+        assert nc in (4, 8, 16, 24, 32) and nc <= cap
+        assert 1 <= cs <= 16 and 2 <= stages <= 4
+        assert T.level_correct_smem(r, nc, stages, isz, acc) <= M
+        if stages < 4:
+            assert T.level_correct_smem(r, nc, stages + 1, isz, acc) > M
+        assert cs * nc * groups >= k > cs * nc * (groups - 1)
+        # the sum the kernel sizes its shared memory with (k_smem_block)
+        assert T.level_correct_smem(r, nc, stages, isz, acc) == (
+            stages * 64 * 32 * isz + (2 * r * (nc + 4) + 32 * 33) * acc
+            + 2 * stages * 8 + 2 * r * 4)
+    return got
+
+
+def _k_cp_async(r, dtype):
+    """The operands kernel K copies with cp.async at rank r in ``dtype``
+    (CPU tensors of the operands' shapes, 64-byte aligned as torch
+    allocates them)."""
+    Bl = torch.zeros((1, 1, r, r), dtype=dtype)
+    lu = torch.zeros((1, 1, 2 * r, 2 * r), dtype=dtype)
+    Phi = torch.zeros((1, 4, r), dtype=dtype)
+    mask = T.level_correct_cp_async(Bl, Bl, lu, Phi)
+    return {name for name, bit in T.HSS_CORRECT_CPA.items() if mask & bit}
+
+
+def test_kernel_k_cp_async_mask_is_the_kernels():
+    """The wrapper's mask of the operands kernel K copies by cp.async
+    (``HSS_CORRECT_CPA``) has the bits the kernel reads (its ``K_CPA_*``),
+    one for each operand kind."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(T.__file__), os.pardir, "csrc",
+                       "hss_level_correct.cu")
+    with open(src) as f:
+        got = {name: int(bit) for name, bit in re.findall(
+            r"^#define K_CPA_(\w+) (\d+)", f.read(), re.M)}
+    assert got == {"C": T.HSS_CORRECT_CPA["couplings"],
+                   "LU": T.HSS_CORRECT_CPA["lu"],
+                   "PHI": T.HSS_CORRECT_CPA["phi"]}
+    assert sorted(got.values()) == [1, 2, 4]
+
+
 @pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 768])
 def test_kernel_k_complex128_geometry_at_any_rank(r):
-    """K's complex128 form (one CUDA-core kernel for every k): up to 32
-    right-hand sides a CTA, halved while xi and w [2r, nc] do not fit 227
-    KB; one column a CTA at k = 1, 16 at the default caps' 2r = 384."""
-    for k in (1, 2, 3, r, 400):
-        nc = T.level_correct_geometry_cc(r, k, 16)
-        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
-        assert T.level_correct_smem_cc(r, nc, 16) <= T.HSS_CORRECT_MAX_SMEM
-        if nc < min(k, T.HSS_CORRECT_MAX_COLS):
-            assert T.level_correct_smem_cc(r, 2 * nc, 16) > \
-                T.HSS_CORRECT_MAX_SMEM
-    assert T.level_correct_geometry_cc(r, 1, 16) == 1
+    """K's complex128 launches take the float64 kernels templated on the
+    value, the products on the FP64 tensor cores (four real products a
+    complex one): a stage of the k > 1 ring holds a 64 x 32 box of 16-byte
+    values (32 KB, twice float64's), w and the diagonal block 16-byte
+    values; up to 16 right-hand sides a CTA (a fragment's two parts take
+    twice the registers), fewer while the ring and w do not fit 227 KB: 8
+    with 4 stages at the default caps' 2r = 384 where the launch is
+    latency-bound, 16 with 2 where it is bound by the SMs' throughput;
+    above r = 568 (the adaptive replans' 768) one CTA per node and column.
+    Every operand of any rank is a tensor map (16-byte rows)."""
+    assert T.level_correct_itemsizes(torch.complex128) == (16, 16)
+    got = _k_geometry_fits(r, torch.complex128)
+    if r > 568:
+        assert all(g[0] == 0 for g in got.values())
+    else:
+        assert all(g[0] > 0 for g in got.values())
     if r == 192:
-        assert T.level_correct_geometry_cc(r, 400, 16) == 16
+        assert got[1, 400] == (8, 16, 4, 4)
+        assert got[56, 272] == (16, 1, 17, 2)
+    assert _k_cp_async(r, torch.complex128) == set()
+    assert _k_cp_async(r + 1, torch.complex128) == set()
 
 
 @pytest.mark.parametrize("m,n,cs,resident", [
@@ -239,26 +309,28 @@ def test_kernel_h_float32_loop_is_float64s():
 
 @pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 400, 768])
 def test_kernel_k_float32_geometry_at_any_rank(r):
-    """K's float32 form (the complex128 CUDA-core kernel, computing in
-    float64 on its float32 operands): xi and w in 8-byte values, up to 32
-    right-hand sides a CTA, halved while they do not fit 227 KB: 32 through
-    r = 217 (the 2D default caps' 192), 16 at the 3D caps' 400; one column a
-    CTA at k = 1; never fewer than complex128's."""
-    isz = T.level_correct_itemsize(torch.float32)
-    assert isz == 8 and T.level_correct_itemsize(torch.complex128) == 16
-    for k in (1, 2, 3, r, 400):
-        nc = T.level_correct_geometry_cc(r, k, isz)
-        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
-        assert T.level_correct_smem_cc(r, nc, isz) <= T.HSS_CORRECT_MAX_SMEM
-        assert T.level_correct_smem_cc(r, nc, isz) == \
-            8 * (4 * r * nc + 32 * 33) + 8 * r
-        if nc < min(k, T.HSS_CORRECT_MAX_COLS):
-            assert T.level_correct_smem_cc(r, 2 * nc, isz) > \
-                T.HSS_CORRECT_MAX_SMEM
-        assert nc >= T.level_correct_geometry_cc(r, k, 16)
-    assert T.level_correct_geometry_cc(r, 1, isz) == 1
-    assert T.level_correct_geometry_cc(r, 400, isz) == \
-        {16: 32, 48: 32, 96: 32, 192: 32, 384: 16, 400: 16, 768: 8}[r]
+    """K's float32 launches take the float64 kernels templated on the value:
+    the ring holds 4-byte operand values (8 KB a stage, half float64's), w
+    and the diagonal block float64 (the kernel computes in float64 on its
+    float32 operands); so never fewer right-hand sides than float64's (nor
+    stages at as many), the 3D caps' r = 400 at 16 columns with 4 stages,
+    24 where the launch is bound by the SMs' throughput (float64: 16).
+    TMA's 16-byte rows: at a rank that is not a multiple of 4 the couplings
+    and Phi (r values a row) take the cp.async copy, at an odd one the LU's
+    2r too; the ranks of every plan the port runs are multiples of 8."""
+    assert T.level_correct_itemsizes(torch.float32) == (4, 8)
+    got = _k_geometry_fits(r, torch.float32)
+    g64 = _k_geometry_fits(r, torch.float64)
+    for key, (nc, cs, groups, stages) in got.items():
+        assert nc >= g64[key][0] > 0
+        if nc == g64[key][0]:
+            assert stages >= g64[key][3]
+    if r == 400:
+        assert got[1, 400][0::3] == (16, 4)
+        assert got[56, 272][0] == 24 > g64[56, 272][0]
+    assert _k_cp_async(r, torch.float32) == set()
+    assert _k_cp_async(r + 2, torch.float32) == {"couplings", "phi"}
+    assert _k_cp_async(r + 1, torch.float32) == {"couplings", "lu", "phi"}
 
 
 @pytest.mark.parametrize("m,n,cs,resident", [
@@ -284,19 +356,20 @@ def test_kernel_h_cluster_by_bytes_complex64(m, n, cs, resident):
 
 @pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 400, 768])
 def test_kernel_k_complex64_geometry_at_any_rank(r):
-    """K's complex64 form (the CUDA-core kernel computing in complex128 on
-    its complex64 operands): xi and w in 16-byte values, so complex128's
-    columns a CTA at every rank: up to 32, halved while they do not fit 227
-    KB, 16 at the default caps' 2r = 384, one at k = 1."""
-    isz = T.level_correct_itemsize(torch.complex64)
-    assert isz == T.level_correct_itemsize(torch.complex128) == 16
-    for k in (1, 2, 3, r, 400):
-        nc = T.level_correct_geometry_cc(r, k, isz)
-        assert nc == T.level_correct_geometry_cc(r, k, 16)
-        assert 1 <= nc <= min(k, T.HSS_CORRECT_MAX_COLS)
-        assert T.level_correct_smem_cc(r, nc, isz) <= T.HSS_CORRECT_MAX_SMEM
-        assert T.level_correct_smem_cc(r, nc, isz) == \
-            16 * (4 * r * nc + 32 * 33) + 8 * r
-    assert T.level_correct_geometry_cc(r, 1, isz) == 1
+    """K's complex64 launches take the kernels templated on the value: the
+    ring holds 8-byte operand values (float64's stage), w and the diagonal
+    block complex128 (the kernel computes in complex128): up to 16
+    right-hand sides a CTA, 16 with 4 stages at the default caps' 2r = 384
+    (complex128: 8), never fewer than complex128's; above r = 692 one CTA
+    per node and column.  An odd rank's couplings and Phi (8-byte values)
+    take the cp.async copy."""
+    assert T.level_correct_itemsizes(torch.complex64) == (8, 16)
+    got = _k_geometry_fits(r, torch.complex64)
+    g128 = _k_geometry_fits(r, torch.complex128)
+    assert all((g[0] == 0) == (r > 692) for g in got.values())
+    for key, (nc, cs, groups, stages) in got.items():
+        assert nc >= g128[key][0]
     if r == 192:
-        assert T.level_correct_geometry_cc(r, 400, isz) == 16
+        assert got[1, 400] == (16, 16, 2, 4)
+    assert _k_cp_async(r, torch.complex64) == set()
+    assert _k_cp_async(r + 1, torch.complex64) == {"couplings", "phi"}

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from hsolve.ops import dense as JD
 from hsolve.ops import hss as J
 from hsolve_torch.ops import hss as T
 
@@ -223,16 +224,20 @@ def test_plain_entries_match_jax_on_mixed_levels_at_rank_192():
 @pytest.mark.parametrize("r", [48, 96, 192])
 @pytest.mark.parametrize("k", [1, 58, 112])
 def test_kernel_j_complex128_geometry_fits_a_cta(r, k):
-    """J's complex128 form at every n=512 shape: the slots take 16-byte
-    values (shared memory within a CTA's 232,448 bytes, or the state in a
-    scratch region), the launch (512 threads, 2 row blocks) at one chunk of
-    8 columns and (256, 2) above, the cluster and chunks chosen as in
-    float64."""
+    """J's complex128 launches take float64's kernel templated on the value,
+    the products on the FP64 tensor cores (four real m16n8k16 a complex
+    one): at every n=512 shape the slots take 16-byte values (shared memory
+    twice float64's, within a CTA's 232,448 bytes, or the state in a
+    scratch region), the launch (256 threads, 2 row blocks) everywhere (the
+    complex fragments take twice the registers: never float64's (256, 4),
+    nor (512, 2), whose 128 registers a thread spill), the cluster and
+    chunks chosen as in float64."""
+    assert T.hss_matvec_state_itemsize(True) == 16
     for B, nl in N512:
         depth = nl.bit_length() - 1
         cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
-            B, nl, 32, r, depth, k, itemsize=16)
-        assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
+            B, nl, 32, r, depth, k, itemsize=16, is_complex=True)
+        assert (th, rb) == (256, 2)
         need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=16)
         assert need == 2 * T.hss_matvec_smem(nl, depth, r, cs, kc)
         assert smem == (need if need <= 232448 else 0)
@@ -243,44 +248,107 @@ def test_kernel_j_complex128_geometry_fits_a_cta(r, k):
 @pytest.mark.parametrize("r", [32, 48, 96, 192, 400])
 @pytest.mark.parametrize("k", [1, 58, 112])
 def test_kernel_j_float32_geometry_fits_a_cta(r, k):
-    """J's float32 form (the complex128 CUDA-core kernel on 4-byte values)
-    at every n=512 shape and the 3D caps' r = 400: the slots take half
-    float64's bytes (shared memory within a CTA's 232,448 bytes, or the
-    state in a scratch region), the launch (512 threads, 2 row blocks) at
-    one chunk of 8 columns and (256, 2) above, even at rank 32 (the float64
-    tensor-core form's (256, 2)), the cluster and chunks chosen as in
-    float64."""
+    """J's float32 launches are float64's at every n=512 shape and the 3D
+    caps' r = 400: the kernel reads 4-byte values and widens them as its
+    fragments load, so its state (the slots, and the scratch region where
+    they pass 232,448 bytes) holds float64 values, float64's bytes, and its
+    launch is float64's tensor-core form, but (512 threads, 2 row blocks)
+    at one chunk of 8 columns at any rank (float64 at rank 32: (256, 2)),
+    then (256, 2) at rank 32 and (256, 4) above."""
+    assert T.hss_matvec_state_itemsize(False) == 8
     for B, nl in N512:
         depth = nl.bit_length() - 1
-        cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
-            B, nl, 32, r, depth, k, itemsize=4)
-        assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
-        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=4)
-        assert 2 * need == T.hss_matvec_smem(nl, depth, r, cs, kc)
+        geo = T.hss_matvec_geometry(B, nl, 32, r, depth, k, itemsize=4)
+        cs, kc, groups, smem, th, rb = geo
+        g64 = T.hss_matvec_geometry(B, nl, 32, r, depth, k)
+        assert geo[:4] == g64[:4]
+        assert (th, rb) == ((512, 2) if kc == 8 else
+                            (256, 2) if r <= 32 else (256, 4))
+        assert (th, rb) == g64[4:] or (kc == 8 and r <= 32)
+        need = T.hss_matvec_smem(nl, depth, r, cs, kc)
         assert smem == (need if need <= 232448 else 0)
-        assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
-                                                         k)[:3]
 
 
 @pytest.mark.parametrize("r", [32, 48, 96, 192, 400])
 @pytest.mark.parametrize("k", [1, 58, 112])
 def test_kernel_j_complex64_geometry_fits_a_cta(r, k):
-    """J's complex64 form (the CUDA-core kernel on 8-byte complex values)
-    at every n=512 shape and the 3D caps' r = 400: the slots take float64's
-    bytes (shared memory within a CTA's 232,448 bytes, or the state in a
-    scratch region), but the launch is the CUDA-core form's, never float64's
-    tensor-core form: (512 threads, 2 row blocks) at one chunk of 8 columns
-    and (256, 2) above, even at rank 32 and where float64 takes (256, 4);
-    the cluster and chunks chosen as in float64."""
+    """J's complex64 launches are complex128's at every n=512 shape and the
+    3D caps' r = 400: the kernel reads 8-byte complex values and widens
+    them to complex128 as its fragments load, so its state holds 16-byte
+    values (twice float64's bytes, though a complex64 value has float64's
+    8), and its launch is the complex form (256 threads, 2 row blocks),
+    but (512, 2) at one chunk of 8 columns, where complex128 keeps (256, 2):
+    its narrower A loads leave that form faster."""
     for B, nl in N512:
         depth = nl.bit_length() - 1
-        cs, kc, groups, smem, th, rb = T.hss_matvec_geometry(
-            B, nl, 32, r, depth, k, itemsize=8, is_complex=True)
+        geo = T.hss_matvec_geometry(B, nl, 32, r, depth, k, itemsize=8,
+                                    is_complex=True)
+        cs, kc, groups, smem, th, rb = geo
+        assert geo[:4] == T.hss_matvec_geometry(B, nl, 32, r, depth, k,
+                                                itemsize=16,
+                                                is_complex=True)[:4]
         assert (th, rb) == ((512, 2) if kc == 8 else (256, 2))
-        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=8)
-        assert need == T.hss_matvec_smem(nl, depth, r, cs, kc)
+        need = T.hss_matvec_smem(nl, depth, r, cs, kc, itemsize=16)
+        assert need == 2 * T.hss_matvec_smem(nl, depth, r, cs, kc)
         assert smem == (need if need <= 232448 else 0)
-        g64 = T.hss_matvec_geometry(B, nl, 32, r, depth, k)
-        assert (cs, kc, groups, smem) == g64[:4]
-        assert (th, rb) == T.hss_matvec_geometry(B, nl, 32, r, depth, k,
-                                                 itemsize=4)[4:]
+        assert (cs, kc, groups) == T.hss_matvec_geometry(B, nl, 32, r, depth,
+                                                         k)[:3]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "complex64"])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_narrow_j_and_k_sum_wide_within_jax_tolerance(dtype, adjoint):
+    """Kernels J and K compute float32 and complex64 values in float64 and
+    complex128 and round once (their plain versions on the widened operands,
+    rounded back, are what the card holds them to).  That result stays
+    within 1e-5 relative of the JAX package's float32 / complex64
+    ``hss_matvec`` and ``_apply_level_correction``, which sum in the narrow
+    type: r = 48, 4 leaves of 56 rows, k = 1 and 3, both directions."""
+    narrow = getattr(np, dtype)
+    wide = torch.complex128 if dtype == "complex64" else torch.float64
+    r, ls, rng = 48, 56, np.random.default_rng(17 + adjoint)
+
+    def a(*s):
+        v = rng.standard_normal(s)
+        if dtype == "complex64":
+            v = v + 1j * rng.standard_normal(s)
+        return (v / np.sqrt(s[-1])).astype(narrow)
+
+    plan = dict(ls=ls, depth=2, n1=2 * ls, n2=2 * ls)
+    n = 4 * ls
+    arrs = dict(D=a(4, ls, ls), U=a(4, ls, r), V=a(4, ls, r),
+                Rs=[a(4, r, r), np.zeros((2, r, r), narrow)],
+                Ws=[a(4, r, r), np.zeros((2, r, r), narrow)],
+                B12s=[a(2, r, r), a(1, r, r)], B21s=[a(2, r, r), a(1, r, r)])
+    hj = J.Hss(**{k: (jnp.asarray(v) if not isinstance(v, list) else
+                      [jnp.asarray(x) for x in v]) for k, v in arrs.items()},
+               plan=J.ClusterPlan(**plan))
+    ht = T.Hss(**{k: (torch.as_tensor(v)[None] if not isinstance(v, list)
+                      else [torch.as_tensor(x)[None] for x in v])
+                  for k, v in arrs.items()}, plan=T.ClusterPlan(**plan))
+    hw = ht.map(lambda t: t.to(wide))
+    # one level-1 correction: a well-conditioned 2r x 2r core per node
+    M = (np.eye(2 * r) + a(2, 2 * r, 2 * r) / 4).astype(narrow)
+    Phi = a(n, r)
+    lu, perm = JD.lu_factor(jnp.asarray(M))
+    sj = J.HssSolver(h=hj, D_lu=None, D_piv=None, Phis=[jnp.asarray(Phi)],
+                     cores_lu=[lu], cores_piv=[perm], PhisT=[jnp.asarray(Phi)],
+                     coresT_lu=[lu], coresT_piv=[perm])
+    tlu = torch.as_tensor(np.array(lu))[None].contiguous()
+    tpiv = torch.as_tensor(np.array(perm))[None].long().contiguous()
+    tPhi = torch.as_tensor(Phi)[None].contiguous()
+    Bl, Br = (ht.B21s[0], ht.B12s[0]) if adjoint else (ht.B12s[0], ht.B21s[0])
+    for k in (1, 3):
+        x = a(n, k)
+        yj = np.asarray(J.hss_matvec(hj, jnp.asarray(x), adjoint=adjoint))
+        yt = T.hss_matvec_plain(hw, torch.as_tensor(x)[None].to(wide), adjoint)
+        assert yj.dtype == narrow
+        assert _rel(yt[0].to(getattr(torch, dtype)).numpy(), yj) < 1e-5
+        cj = np.asarray(J._apply_level_correction(sj, jnp.asarray(x), 1,
+                                                  adjoint))
+        Yt = torch.as_tensor(x)[None].contiguous()
+        xi = T._upsweep(ht, Yt, 0, adjoint).contiguous()
+        wargs = [t.to(wide) for t in (Yt, xi, Bl, Br, tlu)]
+        ct = T.hss_level_correct_plain(*wargs, tpiv, tPhi.to(wide), adjoint)
+        assert cj.dtype == narrow
+        assert _rel(ct[0].to(getattr(torch, dtype)).numpy(), cj) < 1e-5

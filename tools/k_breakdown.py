@@ -11,12 +11,16 @@ geometry the wrapper picks, timed on the device (CUDA events, back to back);
 the plain torch version runs beside them.  The copies without a part compute
 wrong values: only their times are read.  Then the kernel as it is runs at
 each shape in three geometries: the wrapper's, one cluster per node of up
-to 16 CTAs of 32 columns, and 32 columns a CTA with no cluster.  Run from
-the repository root:
+to 16 CTAs of the most columns the value type takes (32, complex 16), and
+that many columns a CTA with no cluster.  ``--dtype`` picks the value type
+(float64 by default; float32, complex64 and complex128 run the same kernel
+templated on the value, computing in float64 or complex128).  Run from the
+repository root:
 
-    python3 tools/k_breakdown.py
+    python3 tools/k_breakdown.py [--dtype float32 complex64 ...]
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -46,9 +50,7 @@ VARIANTS = {"kernel": [], "no diagonal solves": [(DIAG, "        const int nv = 
 
 def build():
     os.makedirs(OUT, exist_ok=True)
-    src = open(SRC).read().replace(
-        '#include "hs_common.cuh"',
-        f'#include "{os.path.join(ROOT, "hsolve_torch", "csrc", "hs_common.cuh")}"')
+    src = open(SRC).read()
     procs = {}
     for i, (name, subs) in enumerate(VARIANTS.items()):
         text = src
@@ -61,16 +63,21 @@ def build():
         procs[name] = (so, subprocess.Popen(
             [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                           "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", so, cu]))
+             "-std=c++17", "-O3", "-I", os.path.dirname(SRC), "-Xcompiler",
+             "-fPIC", "-shared", "-o", so, cu]))
     libs = {}
     for name, (so, proc) in procs.items():
         if proc.wait() != 0:
             raise SystemExit(f"k_breakdown: nvcc failed for {name}")
-        fn = ctypes.CDLL(so).hs_hss_level_correct
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        libs[name] = fn
+        libs[name] = ctypes.CDLL(so)
     return libs
+
+
+def entry(lib, symbol):
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return fn
 
 
 def device_ms(fn, reps=10):
@@ -87,30 +94,55 @@ def device_ms(fn, reps=10):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", nargs="+", default=["float64"],
+                    choices=["float64", "float32", "complex64", "complex128"])
+    dtypes = ap.parse_args().dtype
     if not torch.cuda.is_available():
         raise SystemExit("k_breakdown: needs an NVIDIA GPU")
-    dev = torch.device("cuda", 0)
-    libs = build()
+    built = build()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    for dname in dtypes:
+        run(built, getattr(torch, dname))
+
+
+def run(built, dt):
+    from hsolve_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    libs = {name: entry(lib, kernels.symbol("hs_hss_level_correct", dt))
+            for name, lib in built.items()}
+    isz, acc = H.level_correct_itemsizes(dt)
+    maxc = (H.HSS_CORRECT_MAX_COLS_COMPLEX if dt.is_complex
+            else H.HSS_CORRECT_MAX_COLS)
+    print(f"value type {str(dt).replace('torch.', '')}", flush=True)
     for m, r, blk, k in SHAPES:
         rng = np.random.default_rng(r + k)
-        t = lambda a: torch.as_tensor(a, device=dev)
-        M = np.eye(2 * r) + rng.standard_normal((1, m, 2 * r, 2 * r)) / (
+
+        def t(*shape):
+            v = rng.standard_normal(shape)
+            if dt.is_complex:
+                v = v + 1j * rng.standard_normal(shape)
+            return torch.as_tensor(v, device=dev).to(dt)
+
+        M = np.eye(2 * r) + t(1, m, 2 * r, 2 * r).cpu().numpy() / (
             4 * np.sqrt(2 * r))
-        lu, piv = (x.contiguous() for x in dk.lu_factor(t(M)))
-        Bl, Br = (t(rng.standard_normal((1, m, r, r))) for _ in range(2))
-        Phi = t(rng.standard_normal((1, 2 * m * blk, r)))
-        Y = t(rng.standard_normal((1, 2 * m * blk, k)))
-        xi = t(rng.standard_normal((1, 2 * m, r, k)))
-        nc, cs, groups, ns = H.level_correct_launch(r, k, m, dev)
+        lu, piv = (x.contiguous() for x in dk.lu_factor(
+            torch.as_tensor(M, device=dev).to(dt)))
+        Bl, Br = t(1, m, r, r), t(1, m, r, r)
+        Phi = t(1, 2 * m * blk, r)
+        Y = t(1, 2 * m * blk, k)
+        xi = t(1, 2 * m, r, k)
+        nc, cs, groups, ns = H.level_correct_launch(r, k, m, dev, dt)
+        cpa = H.level_correct_cp_async(Bl, Br, lu, Phi)
         stream = torch.cuda.current_stream(dev).cuda_stream
         row = []
         for name, fn in libs.items():
             args = (Y.data_ptr(), xi.data_ptr(), Bl.data_ptr(), Br.data_ptr(),
                     lu.data_ptr(), piv.data_ptr(), Phi.data_ptr(), 1, m, r,
-                    blk, k, nc, cs, ns, 0, stream)
+                    blk, k, nc, cs, ns, 0, cpa, stream)
             if fn(*args) != 0:
                 raise SystemExit(f"k_breakdown: {name} was not launched")
             row.append(f"{name} {device_ms(lambda: fn(*args)):.4f}")
@@ -121,17 +153,21 @@ def main():
               + f", plain {plain:.4f}", flush=True)
         geos = []
         for label, (gnc, gcs) in (("wrapper", (nc, cs)),
-                                  ("cluster per node", (32, min(16, -(-k // 32)))),
-                                  ("no cluster", (32, 1))):
-            gns = max(s_ for s_ in range(2, 5) if H.level_correct_smem(
-                r, gnc, s_) <= H.HSS_CORRECT_MAX_SMEM)
-            if gcs > 1 and H._active_clusters(gnc, gcs, gns, r) < 1:
+                                  ("cluster per node",
+                                   (maxc, min(16, -(-k // maxc)))),
+                                  ("no cluster", (maxc, 1))):
+            gns = max((s_ for s_ in range(2, 5) if H.level_correct_smem(
+                r, gnc, s_, isz, acc) <= H.HSS_CORRECT_MAX_SMEM), default=0)
+            if gnc and not gns:
+                geos.append(f"{label} (nc={gnc}) does not fit")
+                continue
+            if gcs > 1 and H._active_clusters(gnc, gcs, gns, r, dt) < 1:
                 geos.append(f"{label} (nc={gnc} cs={gcs}) not schedulable")
                 continue
             fn = libs["kernel"]
             args = (Y.data_ptr(), xi.data_ptr(), Bl.data_ptr(), Br.data_ptr(),
                     lu.data_ptr(), piv.data_ptr(), Phi.data_ptr(), 1, m, r,
-                    blk, k, gnc, gcs, gns, 0, stream)
+                    blk, k, gnc, gcs, gns, 0, cpa, stream)
             if fn(*args) != 0:
                 raise SystemExit(f"k_breakdown: {label} was not launched")
             geos.append(f"{label} (nc={gnc} cs={gcs}) "

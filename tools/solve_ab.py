@@ -5,7 +5,10 @@ two trees of the port side by side (card only).  Run from a tree's root:
     python3 tools/solve_ab.py [--configs exact:128 mixed:512 ...] [--reps 5]
 
 For each configuration (``<path>:<size>``, chip_smoke's paths and sizes;
-all of them by default) it factors once, solves once cold (where the tree
+all of them by default; a path ending in ``-f32`` or ``-c64`` factors in
+float32, or in complex64 on the damped system (damping 0.1), inside
+mixed-precision GMRES, the JAX bench's device configurations, with up to
+160 iterations) it factors once, solves once cold (where the tree
 captures its solve graph), then reads the warm solve with
 ``gmres_compiled`` as the JAX bench calls it (``fetch_info=False`` where the
 tree takes it, the diagnostics fetched after the timers):
@@ -17,7 +20,10 @@ tree takes it, the diagnostics fetched after the timers):
 - ``busy_ms`` and ``idle_share``: the device time of the kernels of
   ``--reps`` back-to-back solves under ``torch.profiler``, per solve,
   against the same solves' wall time between CUDA events (``wall_ms``);
-  ``busy_ms`` is None where the profiler saw no kernel.
+  ``busy_ms`` is None where the profiler saw no kernel, or where
+  ``--no-busy`` leaves the profiler out (under it the n=512
+  ``hss-default-f32`` solve hit an illegal memory access on the H100, in
+  the trees of both sides of one reading).
 
 It prints one JSON line per configuration, with the card's ``nvidia-smi``
 name and power limit, and imports nothing of the tree but its public API,
@@ -51,12 +57,14 @@ CONFIGS = ["exact:128", "lowrank:128", "hss:128", "hss-default:128",
            "mixed:128", "exact:512", "lowrank:512", "hss:512",
            "hss-default:512", "mixed:512", "exact:1026", "exact:64^3",
            "mixed:64^3", "lowrank-default:48^3", "hss-default:40^3"]
+# a path's narrow factor type: the mixed path's float32, and the suffixes
+NARROW = {"-f32": torch.float32, "-c64": torch.complex64}
 
 
-def problem(size):
+def problem(size, damping=0.0):
     if size.endswith("^3"):
         return ht.helmholtz3d(int(size[:-2]), k=10.0)
-    return ht.helmholtz2d(int(size), k=40.0)
+    return ht.helmholtz2d(int(size), k=40.0, damping=damping)
 
 
 def median_ms(fn, reps, events=True):
@@ -101,22 +109,25 @@ def busy(fn, reps):
     return (dev if dev > 0 else None), wall
 
 
-def run(cfg, reps, card, dev):
+def run(cfg, reps, card, dev, profiled=True):
     path, size = cfg.split(":")
-    A, b, shape = problem(size)
-    opts = ht.SolverOptions(**OPTIONS[path])
+    narrow = NARROW.get(path[-4:], torch.float32 if path == "mixed" else None)
+    base = path[:-4] if path[-4:] in NARROW else path
+    A, b, shape = problem(size, 0.1 if narrow == torch.complex64 else 0.0)
+    opts = ht.SolverOptions(**OPTIONS[base])
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts)
-    mixed = path == "mixed"
     F = ht.factor_with_plan(plan, opts, device=dev,
-                            dtype=torch.float32 if mixed else torch.float64)
+                            dtype=narrow if narrow else torch.float64)
     op, mv = ht.spmv_format(A, device=dev)
     bt = torch.as_tensor(np.asarray(b), device=dev)
-    prec, kw = solve_with_data, {}
-    if mixed:
-        prec = lambda d, v: solve_with_data(d, v.to(torch.float32)).to(v.dtype)
-        kw = dict(inner_dtype="float32", m_eps=1e-6, mv_data_inner=(
-            ht.spmv_format(A, dtype=np.float32, device=dev)[0]))
+    prec, kw, maxiter = solve_with_data, {}, 60
+    if narrow:
+        nname = str(narrow).replace("torch.", "")
+        prec = lambda d, v: solve_with_data(d, v.to(narrow)).to(v.dtype)
+        kw = dict(inner_dtype=nname, m_eps=1e-6, mv_data_inner=(
+            ht.spmv_format(A, dtype=np.dtype(nname), device=dev)[0]))
+        maxiter = 60 if path == "mixed" else 160
     deferred = "fetch_info" in inspect.signature(ht.gmres_compiled).parameters
     if deferred:
         kw["fetch_info"] = False
@@ -124,7 +135,7 @@ def run(cfg, reps, card, dev):
 
     def solve():
         out["x"], out["info"] = ht.gmres_compiled(
-            mv, prec, bt, reltol=1e-9, restart=30, maxiter=60, mv_data=op,
+            mv, prec, bt, reltol=1e-9, restart=30, maxiter=maxiter, mv_data=op,
             M_data=F.solve_data, **kw)
 
     t0 = time.perf_counter()
@@ -133,7 +144,7 @@ def run(cfg, reps, card, dev):
     cold = time.perf_counter() - t0
     solve_ms = median_ms(solve, reps)
     host_ms = median_ms(solve, reps, events=False)
-    busy_ms, wall_ms = busy(solve, reps)
+    busy_ms, wall_ms = busy(solve, reps) if profiled else (None, None)
     info = ht.fetch_gmres_info(out["info"]) if deferred else out["info"]
     x = out["x"].cpu().numpy()
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
@@ -151,6 +162,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", nargs="+", default=CONFIGS)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--no-busy", action="store_true",
+                    help="leave out the profiler's busy reading")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("solve_ab: needs an NVIDIA GPU")
@@ -160,7 +173,7 @@ def main():
                           text=True).stdout.strip()
     dev = torch.device("cuda", 0)
     for cfg in args.configs:
-        run(cfg, args.reps, card, dev)
+        run(cfg, args.reps, card, dev, not args.no_busy)
     return 0
 
 
