@@ -204,6 +204,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -913,6 +914,17 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     scratch = C0.clone()
     ms = device_ms(lambda: level_forward(scratch, wide, N))
     plain_ms = device_ms(lambda: level_forward_plain(scratch, wide, N))
+    int_w = wide.int_ids.long().reshape(-1)
+    bnd_w = wide.bnd_ids.long().reshape(-1)
+
+    def library_wide():
+        x = scratch[wide.int_ids]
+        scratch.index_put_((bnd_w,), -(wide.L @ x).reshape(-1, 1),
+                           accumulate=True)
+        scratch.index_put_((int_w,),
+                           dk.lu_solve(wide.lu, wide.perm, x).reshape(-1, 1))
+
+    library_ms = device_ms(library_wide)
     for part, idx, limit in (
             ("interior", rows, RTOL_SOLVE[dtype_name] * max(1.0, growth)),
             ("boundary", bnd, rtol)):
@@ -922,7 +934,8 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                errors(ker[idx], ref[idx]), limit, ms, plain_ms,
                bound(nbytes(wide.lu, wide.L, wide.int_ids, wide.bnd_ids,
                             wide.perm) + 2 * 4424 * e + 2 * 24 * e,
-                     2 * fm * (wide.lu.numel() + wide.L.numel()), dtype_name))
+                     2 * fm * (wide.lu.numel() + wide.L.numel()), dtype_name),
+               library_ms=library_ms)
 
     # D: DIA matvec and fused residual on the original matrix; the library
     # yardstick is cuSPARSE's CSR matvec (and b - A x through addmv)
@@ -1327,17 +1340,27 @@ def check_cpqr_shape(desc, Am, atol, rtol, k, results: Results):
     steps = float(need.sum())
     ms = device_ms(lambda: L.cpqr_pivots(Am, atol, rtol, k),
                    budget_ms=SHAPE_BUDGET_MS)
-    # latency: each step's coefficients are dots of m terms in order (kept
-    # for the plain version's pivots), one step after another
+    # latency: one step after another, each at least a tree of its sums
+    # (the coefficients' m terms, the argmax over n columns) and the pivot
+    # norm's square root and division
     work = bound(nbytes(Am, *ker), 4 * flop_factor(dname) * m * nn * steps,
-                 dname, chain=float(need.max()) * m)
-    cs, resident = L.cpqr_cluster(m, nn, L.cpqr_itemsize(Am.dtype))
+                 dname, chain=float(need.max()) * cpqr_step_chain(m, nn))
+    cs, resident = L.cpqr_launch(Am.shape[0], m, nn, Am.dtype)
     results.record("cpqr_pivots" + type_tag(dname),
-                   f"{desc} A={list(Am.shape)} k={k} cluster "
-                   f"{cs}" + ("" if resident else " (columns in global memory)")
+                   f"{desc} A={list(Am.shape)} k={k} steps "
+                   f"{int(need.max())} (mean {float(need.mean()):.1f}) of k "
+                   f"cluster {cs}"
+                   + ("" if resident else " (columns in global memory)")
                    + (f" ({ties} matrices part at a rounding tie)" if ties
                       else ""), (0.0, 0.0), 0.0, ms, plain_ms, work)
     return ms, plain_ms
+
+
+def cpqr_step_chain(m: int, n: int) -> int:
+    """Dependent operations of one step of H's pivot loop at the least:
+    a tree of its m-term sums, one of its argmax over n columns, the pivot
+    norm's square root, its division and the downdate."""
+    return math.ceil(math.log2(max(m, 2))) + math.ceil(math.log2(max(n, 2))) + 3
 
 
 def cpqr_ties(Am, ker, ref, desc) -> int:

@@ -18,7 +18,8 @@
 // The elementwise steps round as the plain version's separate torch ops do
 // (no fused multiply-add: __dmul_rn / __dsub_rn / __ddiv_rn), so the two
 // differ only in the summation order of the three reductions; each column's
-// arithmetic is the same whatever the cluster size.
+// arithmetic is the same whatever the cluster size.  The loop stops at the
+// first step that fails `ok`: its outputs are those of all k steps.
 //
 // Float32 input (hs_cpqr_f32, the JAX bench's device configuration) is
 // widened to float64 as it is loaded, and the pivot loop runs in float64, as
@@ -42,18 +43,28 @@
 // complex product (torch's order); the complex dot products of coef
 // accumulate with fused multiply-adds.
 //
-// Bound: latency.  The k steps are sequential, and at the default rank caps
+// Bound: latency.  The steps are sequential, and at the default rank caps
 // a panel is up to [202, 384] (620 KB), more than one SM's shared memory.
 // So one matrix's columns are spread over a thread block cluster of cs CTAs
-// (1, 2, 4 or 8, the fewest whose shared memory holds them; the wrapper
-// picks cs by bytes): CTA c keeps columns [c w, c w + w) resident, w =
-// ceil(n / cs), and a step is
+// (1, 2, 4 or 8; the wrapper picks cs: among the sizes whose shared memory
+// holds the columns, the one whose launch takes the fewest waves of
+// clusters the card holds at once, hs_cpqr_clusters, ties to the fewest
+// CTAs): CTA c keeps columns [c w, c w + w) resident, w = ceil(n / cs),
+// and a step is
 //   - each CTA's argmax over its columns, stored into every CTA's slot c
 //     through distributed shared memory (st.shared::cluster), one cluster
 //     barrier, and the same reduction over the cs slots in every CTA;
-//   - the owner CTA of column p forms the pivot norm and q and stores q
-//     and ok into every CTA, one cluster barrier;
-//   - each CTA projects and downdates its own columns.
+//   - the owner CTA of column p forms the pivot norm and ok and, where ok,
+//     q (each row divided once) and stores them into every CTA, one
+//     cluster barrier;
+//   - where ok failed, the loop stops: every CTA reads the same ok after
+//     the barrier, and each later step would only write piv = -1 (the
+//     steps not run are filled with -1), so a matrix of rank r runs
+//     min(r + 1, k) steps, not k;
+//   - each CTA's coefficients, column sums over all 256 threads (each warp
+//     a slice of the rows, a lane a column, a shuffle fold, the warps'
+//     partial sums added in order: column_sums), then it projects and
+//     downdates its own columns.
 // A matrix beyond 8 CTAs' shared memory keeps its columns in a global
 // scratch copy instead (resident in L2), with the same steps.
 #include <math.h>
@@ -66,6 +77,7 @@
 namespace cg = cooperative_groups;
 
 #define H_THREADS 256
+#define H_WARPS (H_THREADS / 32)
 #define H_MAX_CLUSTER 8
 
 // (value, index) pair reduction favouring the larger value, then the smaller
@@ -106,8 +118,41 @@ __device__ __forceinline__ hs_c128 h_sub_prod(hs_c128 a, hs_c128 q,
   return hs_c128(__dsub_rn(a.re, pr), __dsub_rn(a.im, pi));
 }
 
+// |v|^2 in double: a complex value's parts each squared and rounded (the
+// plain version's elementwise order)
+__device__ __forceinline__ double h_norm2(double v) { return v * v; }
+__device__ __forceinline__ double h_norm2(hs_c128 v) { return h_abs2(v); }
+
+// Column sums over a CTA's nc columns of its [m][w] row-major panel, by all
+// H_THREADS threads at once: warp s takes the rows s RW + rl + t H_WARPS RW
+// (rl = lane / CW), lane cl = lane % CW the column cb CW + cl of each
+// CW-column block cb (CW = 128 / sizeof(T): a warp reads whole 128-byte
+// rows of shared memory, the fewest wavefronts), a shuffle fold adds the RW
+// row lanes, and the warps' partial sums, through part [H_WARPS][w], are
+// added in warp order into part[0 : nc].  term(r, c) is the summand.
+template <typename T, typename V, typename F>
+__device__ __forceinline__ void column_sums(int m, int nc, int w, V* part,
+                                            F term, int lane, int warp) {
+  constexpr int CW = 128 / (int)sizeof(T), RW = 32 / CW;
+  const int cl = lane % CW, rl = lane / CW;
+  for (int c = cl; c - cl < nc; c += CW) {  // warp-uniform
+    V s = V(0.0);
+    if (c < nc)
+      for (int r = warp * RW + rl; r < m; r += H_WARPS * RW) s += term(r, c);
+    for (int off = CW; off < 32; off <<= 1) s += hs_shfl_xor(s, off);
+    if (rl == 0 && c < nc) part[warp * w + c] = s;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += H_THREADS) {
+    V s = part[c];
+    for (int i = 1; i < H_WARPS; ++i) s += part[i * w + c];
+    part[c] = s;
+  }
+  __syncthreads();
+}
+
 // TI the input's type; T the loop's (hs_acc_t<TI>: double for float32 and
-// float64, hs_c128 for complex128)
+// float64, hs_c128 for both complex types)
 template <typename TI, typename T = hs_acc_t<TI>>
 __global__ void __launch_bounds__(H_THREADS)
     hss_cpqr_kernel(const TI* __restrict__ A, int* __restrict__ piv,
@@ -117,9 +162,9 @@ __global__ void __launch_bounds__(H_THREADS)
   extern __shared__ __align__(16) unsigned char h_smem[];
   __shared__ double slot_v[H_MAX_CLUSTER], slot_max[H_MAX_CLUSTER];
   __shared__ int slot_i[H_MAX_CLUSTER];
-  __shared__ double red_v[H_THREADS / 32];
-  __shared__ int red_i[H_THREADS / 32];
-  __shared__ int s_ok, s_rank, s_p;
+  __shared__ double red_v[H_WARPS];
+  __shared__ int red_i[H_WARPS];
+  __shared__ int s_ok, s_rank;
   __shared__ double s_thr, s_nrm;
 
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
@@ -128,13 +173,14 @@ __global__ void __launch_bounds__(H_THREADS)
   const int c0 = rank * w;
   const int nc = max(0, min(w, n - c0));         // this CTA's columns
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = H_THREADS / 32;
   // this CTA's columns, [m][w] row-major: in shared memory, or in the
   // global scratch for matrices beyond the cluster's shared memory
   T* smem = reinterpret_cast<T*>(h_smem);
   T* a = gwork != nullptr ? gwork + blockIdx.x * (int64_t)m * w : smem;
-  T* coef = gwork != nullptr ? smem : smem + (int64_t)m * w;  // [w]
-  T* q = coef + w;            // [m] pivot direction (stored by the owner)
+  // the warps' partial column sums [H_WARPS][w]; part[0 : nc] the sums
+  // (the coefficients)
+  T* part = gwork != nullptr ? smem : smem + (int64_t)m * w;
+  T* q = part + H_WARPS * w;  // [m] pivot direction (stored by the owner)
   double* nrm2 = reinterpret_cast<double*>(q + m);  // [w] squared norms
   const TI* Ab = A + b * (int64_t)m * n;
   for (int e = tid; e < m * nc; e += H_THREADS) {
@@ -144,18 +190,14 @@ __global__ void __launch_bounds__(H_THREADS)
   __syncthreads();
 
   // initial norms and the rtol reference norm0 = sqrt(max norms^2)
+  double* partd = reinterpret_cast<double*>(part);
+  column_sums<T>(m, nc, w, partd,
+                 [&](int r, int c) { return h_norm2(a[r * w + c]); }, lane,
+                 warp);
   double mx = -INFINITY;
   for (int c = tid; c < nc; c += H_THREADS) {
-    double s = 0.0;
-    for (int i = 0; i < m; ++i) {
-      const T v = a[i * w + c];
-      if constexpr (CPLX)
-        s += h_abs2(v);
-      else
-        s += v * v;
-    }
-    nrm2[c] = s;
-    mx = fmax(mx, s);
+    nrm2[c] = partd[c];
+    mx = fmax(mx, partd[c]);
   }
   for (int off = 16; off > 0; off >>= 1)
     mx = fmax(mx, __shfl_down_sync(0xffffffffu, mx, off));
@@ -163,7 +205,7 @@ __global__ void __launch_bounds__(H_THREADS)
   __syncthreads();
   if (tid == 0) {
     double v = red_v[0];
-    for (int i = 1; i < nwarps; ++i) v = fmax(v, red_v[i]);
+    for (int i = 1; i < H_WARPS; ++i) v = fmax(v, red_v[i]);
     for (int c = 0; c < cs; ++c) in_cta(slot_max, c, rank)[rank] = v;
     s_ok = 1;
     s_rank = 0;
@@ -177,6 +219,7 @@ __global__ void __launch_bounds__(H_THREADS)
   __syncthreads();
   const double thr = s_thr;
 
+  int steps = k;  // the steps run: the loop stops at the first failed one
   for (int j = 0; j < k; ++j) {
     // 1. this CTA's first argmax of nrm2, into every CTA's slot `rank`
     double bv = -INFINITY;
@@ -196,7 +239,7 @@ __global__ void __launch_bounds__(H_THREADS)
     if (warp == 0) {
       double v = -INFINITY;
       int i = n;
-      if (lane < nwarps) {
+      if (lane < H_WARPS) {
         v = red_v[lane];
         i = red_i[lane];
       }
@@ -219,18 +262,13 @@ __global__ void __launch_bounds__(H_THREADS)
     for (int c = 1; c < cs; ++c) argmax_merge(pv, p, slot_v[c], slot_i[c]);
     const int owner = p / w;
     if (owner == rank) {
-      // the exact norm of the pivot column (warp 0 alone), then q and ok
-      // into every CTA
+      // the exact norm of the pivot column (warp 0 alone), then ok into
+      // every CTA and, where ok, q: each row divided once, stored into
+      // every CTA
       const int pl = p - c0;
       if (warp == 0) {
         double s = 0.0;
-        for (int r = lane; r < m; r += 32) {
-          const T x = a[r * w + pl];
-          if constexpr (CPLX)
-            s += h_abs2(x);
-          else
-            s += x * x;
-        }
+        for (int r = lane; r < m; r += 32) s += h_norm2(a[r * w + pl]);
         for (int off = 16; off > 0; off >>= 1)
           s += __shfl_down_sync(0xffffffffu, s, off);
         if (lane == 0) {
@@ -242,32 +280,34 @@ __global__ void __launch_bounds__(H_THREADS)
         }
       }
       __syncthreads();
-      const int ok = s_ok;
-      const double nrm = s_nrm;
-      for (int e = tid; e < m * cs; e += H_THREADS) {
-        const int r = e % m, c = e / m;
-        T v = T(0.0);
-        if (ok) {
+      if (s_ok) {
+        const double nrm = s_nrm;
+        for (int r = tid; r < m; r += H_THREADS) {
+          T v;
           if constexpr (CPLX)
             v = hs_c128(__ddiv_rn(a[r * w + pl].re, nrm),
                         __ddiv_rn(a[r * w + pl].im, nrm));
           else
             v = __ddiv_rn(a[r * w + pl], nrm);
+          for (int c = 0; c < cs; ++c) in_cta(q, c, rank)[r] = v;
         }
-        in_cta(q, c, rank)[r] = v;
       }
     }
     matrix_sync(cs);
-    const int ok = s_ok;
-    if (tid == 0) s_rank += ok;
-    // 3. coef = q^H A on this CTA's columns
-    for (int c = tid; c < nc; c += H_THREADS) {
-      T s = T(0.0);
-      for (int r = 0; r < m; ++r) s += hs_conj(q[r]) * a[r * w + c];
-      coef[c] = s;
+    // every CTA reads the same s_ok after the barrier: the exit is uniform
+    // over the cluster, and past it every step would write piv = -1,
+    // project with q = 0 and change nothing returned
+    if (!s_ok) {
+      steps = j;
+      break;
     }
-    __syncthreads();
+    if (tid == 0) s_rank += 1;
+    // 3. coef = q^H A on this CTA's columns, into part[0 : nc]
+    column_sums<T>(m, nc, w, part,
+                   [&](int r, int c) { return hs_conj(q[r]) * a[r * w + c]; },
+                   lane, warp);
     // 4. A -= q coef; downdate the norms; exclude the pivot
+    const T* coef = part;
     for (int e = tid; e < m * nc; e += H_THREADS) {
       const int r = e / nc, c = e - r * nc;
       if constexpr (CPLX)
@@ -286,14 +326,27 @@ __global__ void __launch_bounds__(H_THREADS)
     }
     __syncthreads();
   }
-  if (tid == 0 && rank == 0) rank_out[b] = s_rank;
+  if (rank == 0) {
+    if (tid == 0) rank_out[b] = s_rank;
+    // the steps not run: no pivot (step `steps` wrote its own -1)
+    for (int jj = steps + 1 + tid; jj < k; jj += H_THREADS) piv[b * k + jj] = -1;
+  }
   // no CTA leaves while others may still store into its shared memory
   matrix_sync(cs);
 }
 
-// smem: the CTA's columns (unless in the global scratch), coefficients and
-// pivot direction in the loop's type T, the norms in double
-// (ops/lowrank.py cpqr_smem); TI the input's type
+// smem: the CTA's columns (unless in the global scratch), the warps'
+// partial column sums and the pivot direction in the loop's type T, the
+// norms in double (ops/lowrank.py cpqr_smem)
+template <typename T>
+static size_t cpqr_smem_bytes(int m, int n, int cs, bool resident) {
+  const size_t w = (size_t)(n + cs - 1) / cs;
+  return ((resident ? (size_t)m * w : 0) + H_WARPS * w + (size_t)m) *
+             sizeof(T) +
+         w * sizeof(double);
+}
+
+// TI the input's type
 template <typename TI>
 static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
                        double atol, double rtol, long long B, int m, int n,
@@ -302,10 +355,7 @@ static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
   if (B > 0 && k > 0) {
     if (cs < 1 || cs > H_MAX_CLUSTER || n < 1 || m < 1)
       return (int)cudaErrorInvalidValue;
-    const size_t w = (size_t)(n + cs - 1) / cs;
-    const size_t smem =
-        ((gwork != nullptr ? 0 : (size_t)m * w) + w + (size_t)m) * sizeof(T) +
-        w * sizeof(double);
+    const size_t smem = cpqr_smem_bytes<T>(m, n, cs, gwork == nullptr);
     auto kern = hss_cpqr_kernel<TI>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -333,6 +383,55 @@ static int launch_cpqr(const void* A, void* piv, void* rank, void* gwork,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// how many clusters of cs CTAs of an [m, n] matrix (its columns resident in
+// shared memory or not) the card holds at once; -1 where it cannot tell
+template <typename TI>
+static int cpqr_clusters(int m, int n, int cs, int resident) {
+  typedef hs_acc_t<TI> T;
+  if (cs < 1 || cs > H_MAX_CLUSTER || n < 1 || m < 1) return -1;
+  auto kern = hss_cpqr_kernel<TI>;
+  const size_t smem = cpqr_smem_bytes<T>(m, n, cs, resident != 0);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(H_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return count;
+}
+
+HS_EXPORT int hs_cpqr_clusters(int m, int n, int cs, int resident) {
+  return cpqr_clusters<double>(m, n, cs, resident);
+}
+
+HS_EXPORT int hs_cpqr_clusters_f32(int m, int n, int cs, int resident) {
+  return cpqr_clusters<float>(m, n, cs, resident);
+}
+
+HS_EXPORT int hs_cpqr_clusters_c64(int m, int n, int cs, int resident) {
+  return cpqr_clusters<hs_c64>(m, n, cs, resident);
+}
+
+HS_EXPORT int hs_cpqr_clusters_c128(int m, int n, int cs, int resident) {
+  return cpqr_clusters<hs_c128>(m, n, cs, resident);
 }
 
 HS_EXPORT int hs_cpqr(const void* A, void* piv, void* rank, void* gwork,

@@ -31,7 +31,8 @@
 // its complex reciprocal, and the forward update of C[bnd] two real
 // atomics.  A complex128 value takes twice a double's shared memory and
 // registers: the forward step's CTA at ni_pad 2048 holds 196 KB (ys, xs and
-// eight staged 32 x 33 blocks of 16 bytes), inside the 227 KB a CTA has.
+// eight staged 32 x 33 diagonal blocks of 16 bytes), inside the 227 KB a
+// CTA has.
 //
 // Bound: bytes.  A forward step must read lu[b] (or dinv[b]), L[b], the ids
 // and x once and write x' and the boundary updates once; the backward step
@@ -43,26 +44,37 @@
 // The substitution is sequential in its 32-row panels, so at the top levels
 // (1-16 fronts of 256-1024 rows) latency, not bytes, sets its time.  Warp w
 // of a front's CTA owns one panel P, one lane per row, and keeps the row's
-// running value in a register.  Per panel step p (forward, then backward):
-//   - the owner warp of panel p solves its 32 x 32 diagonal block (staged in
+// running value in a register.  In each direction (forward, then backward)
+//   - the owner of panel p solves its 32 x 32 diagonal block (staged in
 //     shared memory once per launch, identity-padded so the unrolled solve
 //     has no bounds) with one shuffle and one multiply-add per row, and
-//     publishes the solved values in ys;
-//   - one barrier;
+//     shares the solved values y_p in ys;
 //   - every warp whose rows take panel p's update multiplies its 32 x 32
-//     block lu[rows, p cols] by y_p.  The block was loaded one step ahead,
+//     block lu[rows, p cols] by y_p.  The block was loaded one panel ahead,
 //     coalesced: lu is column-major (as the LU returns it, so the factor
-//     makes no copy), a 16-byte load covers W = 4 (float) or 2 (double) rows
-//     of a column, and a warp issues 8 or 16 loads for the block.  A fold
-//     over the W lanes that share rows (log2 W shuffles) and one permuting
-//     shuffle leave each row's sum in its lane.
+//     makes no copy), a 16-byte load covers W = 4 (float), 2 (double,
+//     complex64) or 1 (complex128) rows of a column, and the block stays in
+//     registers (32 values a lane: 128 registers in complex128; loaded by
+//     value, load16v, so it never goes to local memory).  A fold over the W
+//     lanes that share rows (log2 W shuffles) and one permuting shuffle
+//     leave each row's sum in its lane.
+// On one CTA (a front of up to 256 rows, substitute_steps) the panels are
+// steps with a CTA barrier between the solve and the products, the waiting
+// warps asleep at it (and so, with the cluster's barrier, are a float32
+// front's on a cluster).  On a cluster (substitute_signals) no barrier over
+// the front lies between the panels: the owner of p stores y_p into every
+// CTA and then a signal (publish_ready), and a warp waits only for the
+// panels it takes (wait_ready), so the critical path per panel is one
+// solve, one signal and one block product, and the other warps' products
+// run beside it; there a complex64 front's diagonal blocks are staged as
+// complex128, so no conversion sits in its solve's chain (stage_t).
 // lu[b] is read once.  A front of up to 8 panels (ni_pad <= 256) runs on one
-// CTA of up to 8 warps with CTA barriers; a wider one on a thread block
-// cluster of ceil(panels / 8) CTAs (the wrapper picks it per level, at most
-// 8): CTA c owns the panels p with p % cs == c, stores y_p into every CTA's
-// ys through distributed shared memory, and the step's barrier is the
-// cluster's.  The rows of L[b] and dinv[b] are split the same way.  A front
-// wider than 8 CTAs' 2048 rows runs in windows (launch_windowed, below).
+// CTA of up to 8 warps; a wider one on a thread block cluster of
+// ceil(panels / 8) CTAs (the wrapper picks it per level, at most 8): CTA c
+// owns the panels p with p % cs == c and stores y_p and the signal into
+// every CTA through distributed shared memory.  The rows of L[b] and
+// dinv[b] are split the same way.  A front wider than 8 CTAs' 2048 rows
+// runs in windows (launch_windowed, below).
 //
 // Races: within a level the int ids of the fronts are disjoint, no front's
 // bnd ids are another front's int ids, and every CTA of a front reads x before
@@ -88,15 +100,34 @@ namespace cg = cooperative_groups;
 #define HS_C_DG (HS_C_PANEL * HS_C_DG_LD)
 #define HS_C_MAX_PW 8    // panels (warps) per CTA of the forward step
 #define HS_C_FWD_MAX (32 * HS_C_MAX_PW)  // its CTA (registers: up to 255)
+#define HS_C_MAX_PANELS (HS_C_MAX_PW * 8)  // of a cluster of 8: 2048 rows
 
 template <typename T>
 using Vec16 = hs_vec16<T>;
 
-// one 16-byte read-only load of Vec16<T>::n values
+// one 16-byte read-only load of Vec16<T>::n values, returned by value: a
+// register array the caller copies from at constant indices, so its own
+// array never has its address taken (a pointer into a lane's block of lu
+// put the whole block in local memory)
 template <typename T>
-__device__ __forceinline__ void load16(const T* p, T* o) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  memcpy(o, &v, 16);
+struct Vals16 {
+  T v[Vec16<T>::n];
+};
+
+__device__ __forceinline__ Vals16<double> load16v(const double* p) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  return {{x.x, x.y}};
+}
+__device__ __forceinline__ Vals16<float> load16v(const float* p) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  return {{x.x, x.y, x.z, x.w}};
+}
+__device__ __forceinline__ Vals16<hs_c128> load16v(const hs_c128* p) {
+  return {{hs_ldg(p)}};
+}
+__device__ __forceinline__ Vals16<hs_c64> load16v(const hs_c64* p) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  return {{hs_c64(x.x, x.y), hs_c64(x.z, x.w)}};
 }
 
 // acc[q] += row[0:len] . v[q * vstride + 0:len] over lane `gl`'s share of
@@ -110,14 +141,13 @@ __device__ __forceinline__ void group_dot(const T* __restrict__ row,
   if (VEC) {
     constexpr int W = Vec16<T>::n;
     for (int c = gl * W; c < len; c += HS_C_LPR * W) {
-      T a[W];
-      load16(row + c, a);
+      const Vals16<T> a = load16v(row + c);
 #pragma unroll
       for (int q = 0; q < HS_C_KMAX; ++q) {
         if (q < kc) {
 #pragma unroll
           for (int e = 0; e < W; ++e)
-            acc[q] += hs_wide(a[e]) * hs_wide(v[q * vstride + c + e]);
+            acc[q] += hs_wide(a.v[e]) * hs_wide(v[q * vstride + c + e]);
         }
       }
     }
@@ -167,6 +197,37 @@ __device__ __forceinline__ void front_sync(int cs) {
     __syncthreads();
 }
 
+// On a cluster, panel p's solved values are published point to point: its
+// owner warp stores them into every CTA's ys, then sets ready[p] = epoch in
+// every CTA (a release store at cluster scope, after the warp's stores); a
+// warp that takes panel p's update polls its own CTA's ready[p] with
+// acquire loads until it reaches epoch.  Each ready[p] has one writer, the
+// owner of p, and rises once a direction (epoch: 2 q0 + dir + 1), so no
+// store overtakes another.  (Relaxed polls with one fence after them read
+// slower on the H100: the fence sits on the critical path.)
+__device__ __forceinline__ void publish_ready(int* ready, int p, int epoch,
+                                              int cs, int rank, int lane) {
+  __syncwarp();
+  if (lane < cs) {
+    int* f = lane == rank ? ready + p
+                          : cg::this_cluster().map_shared_rank(ready + p, lane);
+    asm volatile("st.release.cluster.b32 [%0], %1;" ::"l"(f), "r"(epoch)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void wait_ready(const int* ready, int p,
+                                           int epoch) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(ready + p);
+  int v;
+  do {
+    asm volatile("ld.acquire.cluster.shared::cta.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(a)
+                 : "memory");
+  } while (v < epoch);
+}
+
 // cp.async of one element into shared memory (no register round trip), and
 // its commit / wait
 template <typename T>
@@ -194,19 +255,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Copy the pw x pw diagonal block of panel p of the front's lu (stored
 // column-major, as the LU returns it) into dst row-major (leading dimension
-// HS_C_DG_LD), asynchronously, by one warp; a partial block is padded to
-// 32 x 32 with the identity, so the solve needs no bounds.
-template <typename T>
+// HS_C_DG_LD), by one warp; a partial block is padded to 32 x 32 with the
+// identity, so the solve needs no bounds.  D is T (an asynchronous copy,
+// cp.async) or the accumulator type (float32 and complex64 widened on the
+// way, so no conversion sits in the solve's chain).
+template <typename T, typename D>
 __device__ __forceinline__ void stage_block(const T* __restrict__ A, int ni,
-                                            int p, T* dst, int lane) {
+                                            int p, D* dst, int lane) {
   const int p0 = p * HS_C_PANEL;
   const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
-  for (int j = 0; j < HS_C_PANEL; ++j) {
-    if (j < pw && lane < pw)
-      cp_async_elem(dst + lane * HS_C_DG_LD + j,
-                    A + (int64_t)(p0 + j) * ni + p0 + lane);
-    else
-      dst[lane * HS_C_DG_LD + j] = lane == j ? T(1) : T(0);
+  const T* src = A + (int64_t)p0 * ni + p0 + lane;  // column j at j ni
+  if constexpr (std::is_same<T, D>::value) {
+    for (int j = 0; j < HS_C_PANEL; ++j) {
+      if (j < pw && lane < pw)
+        cp_async_elem(dst + lane * HS_C_DG_LD + j, src + (int64_t)j * ni);
+      else
+        dst[lane * HS_C_DG_LD + j] = lane == j ? D(1) : D(0);
+    }
+  } else {
+    // the 32 loads issued together, then widened
+    T v[HS_C_PANEL];
+#pragma unroll
+    for (int j = 0; j < HS_C_PANEL; ++j)
+      v[j] = j < pw && lane < pw ? hs_ldg(src + (int64_t)j * ni) : T(0);
+#pragma unroll
+    for (int j = 0; j < HS_C_PANEL; ++j)
+      dst[lane * HS_C_DG_LD + j] =
+          j < pw && lane < pw ? hs_wide(v[j]) : (lane == j ? D(1) : D(0));
   }
 }
 
@@ -229,7 +304,9 @@ __device__ __forceinline__ void load_seg(const T* __restrict__ A, int ni, int P,
 #pragma unroll
     for (int i = 0; i < LR; ++i) {
       if (row < ni && p0 + i * W + g < ni) {
-        load16(src + (int64_t)i * W * ni, seg + i * W);
+        const Vals16<T> a = load16v(src + (int64_t)i * W * ni);
+#pragma unroll
+        for (int e = 0; e < W; ++e) seg[i * W + e] = a.v[e];
       } else {
 #pragma unroll
         for (int e = 0; e < W; ++e) seg[i * W + e] = T(0);
@@ -299,6 +376,43 @@ __device__ __forceinline__ hs_acc_t<T> panel_update(
   }
 }
 
+// The owner warp's solve of its panel's 32 x 32 diagonal block (staged
+// identity-padded: no bounds, so its shared-memory reads leave the shuffle
+// chain) on the running values v, one lane a row: forward unit lower, else
+// upper.
+template <typename D, typename Acc>
+__device__ __forceinline__ Acc solve_diag(Acc v, const D* dgw, bool fwd,
+                                          int lane) {
+  if (fwd) {
+#pragma unroll
+    for (int i = 0; i < HS_C_PANEL; ++i) {
+      const Acc yi = hs_shfl(v, i);
+      if (lane > i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
+    }
+  } else {
+    const Acc rd = hs_inv(hs_wide(dgw[lane * HS_C_DG_LD + lane]));
+#pragma unroll
+    for (int i = HS_C_PANEL - 1; i >= 0; --i) {
+      if (lane == i) v *= rd;
+      const Acc yi = hs_shfl(v, i);
+      if (lane < i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
+    }
+  }
+  return v;
+}
+
+// a solved value into ys[i] of every CTA of the cluster
+template <typename Acc>
+__device__ __forceinline__ void share_y(Acc* ys, int i, Acc v, int cs,
+                                        int rank) {
+  ys[i] = v;
+  if (cs > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    for (int c = 0; c < cs; ++c)
+      if (c != rank) cl.map_shared_rank(ys, c)[i] = v;
+  }
+}
+
 // One direction of the substitution over the panels [p_lo, p_hi) of a front
 // (fwd: unit lower, panels in increasing order; else upper, decreasing): warp
 // `warp` of CTA `rank` owns panel P (`owner`), lane = row r = 32 P + lane,
@@ -306,14 +420,16 @@ __device__ __forceinline__ hs_acc_t<T> panel_update(
 // block (its cp.async group is waited for on the first call, `wait_stage`);
 // ys receives the solved values, in every CTA of the cluster: row i at
 // ys[i - y0] (a window's first row y0; the whole front: 0).
-template <typename T, bool VEC>
-__device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
-                                           int p_lo, int p_hi, bool fwd,
-                                           bool owner, int P, int r, int lane,
-                                           hs_acc_t<T>& zr, hs_acc_t<T>* ys,
-                                           int y0,
-                                           const T* dgw,
-                                           int cs, int rank, bool wait_stage) {
+//
+// On one CTA (cs = 1), in steps: per panel p the owner of p solves and
+// shares y_p, one CTA barrier, and every warp whose rows take p's update
+// multiplies its block (loaded one step ahead) by y_p.  The waiting warps
+// sleep at the barrier, and a front's few panels leave little to overlap.
+template <typename T, bool VEC, typename D>
+__device__ __forceinline__ void substitute_steps(
+    const T* __restrict__ A, int ni, int p_lo, int p_hi, bool fwd, bool owner,
+    int P, int r, int lane, hs_acc_t<T>& zr, hs_acc_t<T>* ys, int y0,
+    const D* dgw, int cs, int rank, bool wait_stage) {
   T seg[HS_C_PANEL];
   const int npan = p_hi - p_lo;
   // do panel P's rows take panel p's update in this direction?
@@ -326,35 +442,9 @@ __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
   }
   for (int st = 0; st < npan; ++st, p += fwd ? 1 : -1) {
     const int p0 = p * HS_C_PANEL;
-    const int pw = ni - p0 < HS_C_PANEL ? ni - p0 : HS_C_PANEL;
     if (owner && P == p) {
-      // the staged block is 32 x 32 (identity-padded): no bounds, so its
-      // shared-memory reads leave the shuffle chain
-      hs_acc_t<T> v = zr;
-      if (fwd) {
-#pragma unroll
-        for (int i = 0; i < HS_C_PANEL; ++i) {
-          const hs_acc_t<T> yi = hs_shfl(v, i);
-          if (lane > i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
-        }
-      } else {
-        const hs_acc_t<T> rd = hs_inv(hs_wide(dgw[lane * HS_C_DG_LD + lane]));
-#pragma unroll
-        for (int i = HS_C_PANEL - 1; i >= 0; --i) {
-          if (lane == i) v *= rd;
-          const hs_acc_t<T> yi = hs_shfl(v, i);
-          if (lane < i) v -= hs_wide(dgw[lane * HS_C_DG_LD + i]) * yi;
-        }
-      }
-      zr = v;
-      if (lane < pw) {
-        ys[r - y0] = v;
-        if (cs > 1) {
-          cg::cluster_group cl = cg::this_cluster();
-          for (int c = 0; c < cs; ++c)
-            if (c != rank) cl.map_shared_rank(ys, c)[r - y0] = v;
-        }
-      }
+      zr = solve_diag(zr, dgw, fwd, lane);
+      if (lane < min(ni - p0, HS_C_PANEL)) share_y(ys, r - y0, zr, cs, rank);
     }
     front_sync(cs);
     if (takes(p)) zr -= panel_update<T, VEC>(seg, ys + (p0 - y0), ni, p0, lane);
@@ -363,7 +453,62 @@ __device__ __forceinline__ void substitute(const T* __restrict__ A, int ni,
   }
 }
 
-template <typename T, bool VEC>
+// On a cluster (cs > 1), by signals: the owner of P takes the updates of the
+// panels before P in this direction, each as soon as its values are
+// published (wait_ready: no barrier over the front, so the critical path
+// per panel is one solve, one signal and one block product, and the other
+// warps' products run beside it), the next one's block of lu loaded while
+// it waits; then it solves its diagonal block and publishes P's values
+// (publish_ready).  The block of the updates and the solve's registers are
+// live one after the other, not at once.
+template <typename T, bool VEC, typename D>
+__device__ __forceinline__ void substitute_signals(
+    const T* __restrict__ A, int ni, int p_lo, int p_hi, bool fwd, bool owner,
+    int P, int r, int lane, hs_acc_t<T>& zr, hs_acc_t<T>* ys, int y0,
+    const D* dgw, int cs, int rank, bool wait_stage, int* ready, int epoch) {
+  if (!owner) return;  // warp-uniform
+  {
+    T seg[HS_C_PANEL];
+    const int n_take = fwd ? P - p_lo : p_hi - 1 - P;
+    const int step = fwd ? 1 : -1;
+    int p = fwd ? p_lo : p_hi - 1;
+    if (n_take > 0) load_seg<T, VEC>(A, ni, P, p, lane, seg);
+    for (int t = 0; t < n_take; ++t, p += step) {
+      const int p0 = p * HS_C_PANEL;
+      wait_ready(ready, p - p_lo, epoch);
+      zr -= panel_update<T, VEC>(seg, ys + (p0 - y0), ni, p0, lane);
+      if (t + 1 < n_take) load_seg<T, VEC>(A, ni, P, p + step, lane, seg);
+    }
+  }
+  if (wait_stage) {
+    cp_async_wait_all();
+    __syncwarp();
+  }
+  zr = solve_diag(zr, dgw, fwd, lane);
+  if (lane < min(ni - P * HS_C_PANEL, HS_C_PANEL))
+    share_y(ys, r - y0, zr, cs, rank);
+  publish_ready(ready, P - p_lo, epoch, cs, rank, lane);
+}
+
+// The type a cluster's diagonal blocks are staged in: complex64 widened to
+// complex128, which takes the solve's conversions out of its chain (0.80x
+// at the n=512 exact plan's cluster levels on the H100), the other types
+// as they are (float32 staged as float64 read 1.05-1.08x there).
+template <typename T>
+using stage_t =
+    typename std::conditional<std::is_same<T, hs_c64>::value, hs_c128, T>::type;
+
+// the forward step's shared memory: ys [ni] in the accumulator type, x [ni]
+// in T, then (16-byte aligned) the warps' staged diagonal blocks
+template <typename T>
+__host__ __device__ __forceinline__ size_t forward_dg_offset(int ni) {
+  return ((size_t)ni * (sizeof(hs_acc_t<T>) + sizeof(T)) + 15) & ~(size_t)15;
+}
+
+// SIG: the lu form on a cluster (substitute_signals), else the lu form on
+// one CTA (substitute_steps) or the dinv form; one instance each, so the
+// other forms carry none of the signals' code
+template <typename T, bool VEC, bool SIG>
 __global__ void __launch_bounds__(HS_C_FWD_MAX)
 level_forward_kernel(T* C, const int* __restrict__ int_ids,
                      const int* __restrict__ bnd_ids, const T* __restrict__ L,
@@ -373,9 +518,12 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
                      int cs) {
   typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
+  __shared__ int ready[HS_C_MAX_PANELS];      // substitute's signals
   Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [ni] solved values
   T* xs = reinterpret_cast<T*>(ys + ni);      // [ni] x
-  T* dg = xs + ni;  // [warps][PANEL][DG_LD] diag blocks
+  // [warps][PANEL][DG_LD] diagonal blocks: in stage_t<T> on a cluster
+  // (substitute_signals), in T on one CTA (substitute_steps)
+  unsigned char* dg = hs_smem + forward_dg_offset<T>(ni);
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -385,6 +533,11 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
   const int* iid = int_ids + b * ni;
   const int* bid = bnd_ids + b * nb;
   const T* A = dinv != nullptr ? dinv + b * ni * ni : lu + b * ni * ni;
+  // zeroed before the first front_sync, which every CTA passes before any
+  // signal reaches it
+  if constexpr (SIG)
+    for (int i = threadIdx.x; i < HS_C_MAX_PANELS; i += blockDim.x)
+      ready[i] = 0;
 
   for (int q0 = 0; q0 < k; ++q0) {  // one right-hand side per pass
     for (int i = threadIdx.x; i < ni; i += blockDim.x) {
@@ -433,16 +586,26 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
       const int P = rank + warp * cs;
       const int r = P * HS_C_PANEL + lane;
       const bool row_ok = owner && r < ni;
-      T* dgw = dg + warp * HS_C_DG;
+      stage_t<T>* dga = reinterpret_cast<stage_t<T>*>(dg) + warp * HS_C_DG;
+      T* dgt = reinterpret_cast<T*>(dg) + warp * HS_C_DG;
       if (owner) {
-        stage_block(A, ni, P, dgw, lane);
+        if constexpr (SIG)
+          stage_block(A, ni, P, dga, lane);
+        else
+          stage_block(A, ni, P, dgt, lane);
         cp_async_commit();
       }
       Acc zr = row_ok ? hs_wide(xs[(int)perm[b * ni + r]]) : Acc(0);
       front_sync(cs);  // also: every CTA of the cluster has started
-      for (int dir = 0; dir < 2; ++dir)
-        substitute<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r, lane, zr, ys, 0,
-                           dgw, cs, rank, dir == 0);
+      for (int dir = 0; dir < 2; ++dir) {
+        if constexpr (SIG)
+          substitute_signals<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r,
+                                     lane, zr, ys, 0, dga, cs, rank, dir == 0,
+                                     ready, 2 * q0 + dir + 1);
+        else
+          substitute_steps<T, VEC>(A, ni, 0, npan, dir == 0, owner, P, r,
+                                   lane, zr, ys, 0, dgt, cs, rank, dir == 0);
+      }
       if (row_ok) {
         const int id = iid[r];
         if (id < N) C[(int64_t)id * k + q0] = static_cast<T>(zr);
@@ -537,8 +700,10 @@ window_solve_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu, T* C,
                     int p_lo, int p_hi, int fwd, int cs) {
   typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
+  __shared__ int ready[HS_C_MAX_PANELS];        // substitute's signals
   Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [HS_C_WIN] its values
-  T* dg = reinterpret_cast<T*>(ys + HS_C_WIN);  // [warps][PANEL][DG_LD]
+  Acc* dg = ys + HS_C_WIN;                    // [warps][PANEL][DG_LD]
+  for (int i = threadIdx.x; i < HS_C_MAX_PANELS; i += blockDim.x) ready[i] = 0;
   const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int64_t b = blockIdx.x / cs;
   const int q = blockIdx.y;
@@ -549,17 +714,21 @@ window_solve_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu, T* C,
   const int P = first_own(p_lo, rank, cs) + warp * cs;
   const int r = P * HS_C_PANEL + lane;
   const bool row_ok = owner && r < ni;
-  T* dgw = dg + warp * HS_C_DG;
+  const Acc* dgw = dg + warp * HS_C_DG;
   if (owner) {
-    stage_block(A, ni, P, dgw, lane);
+    stage_block(A, ni, P, dg + warp * HS_C_DG, lane);
     cp_async_commit();
   }
   Acc* zb = Z + (b * k + q) * ni;
   Acc zr = row_ok ? zb[r] : Acc(0);
   front_sync(cs);  // also: every CTA of the cluster has started
-  substitute<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane, zr, ys,
-                     p_lo * HS_C_PANEL,
-                     dgw, cs, rank, true);
+  if (cs > 1)
+    substitute_signals<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane,
+                               zr, ys, p_lo * HS_C_PANEL, dgw, cs, rank, true,
+                               ready, 1);
+  else
+    substitute_steps<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane,
+                             zr, ys, p_lo * HS_C_PANEL, dgw, cs, rank, true);
   if (row_ok) {
     zb[r] = zr;
     const int id = int_ids[b * ni + r];
@@ -671,7 +840,7 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
                                   const long long* perm, const T* dinv,
                                   long long B, int ni, int nb, int k, int N,
                                   int cs, cudaStream_t stream) {
-  static size_t granted = 0;
+  static size_t granted_steps = 0, granted_signals = 0;
   // one warp per panel of the CTA (at most HS_C_MAX_PW), at least 2: a
   // front of few panels takes a small CTA, so several share an SM
   const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
@@ -679,10 +848,18 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
   if (pw_cta > HS_C_MAX_PW) return cudaErrorInvalidValue;
   const int warps = pw_cta > 2 ? pw_cta : 2;
   const int threads = 32 * warps;
-  const size_t smem = (size_t)ni * sizeof(hs_acc_t<T>) +
-                      (size_t)(ni + warps * HS_C_DG) * sizeof(T);
-  auto kern = level_forward_kernel<T, VEC>;
-  cudaError_t err = allow_smem(kern, smem, &granted);
+  // the lu form on a cluster substitutes by signals; the other forms by
+  // steps (the dinv form does not substitute), and so does float32 on a
+  // cluster, whose signals read 1.18x the steps' at the n=512 exact plan's
+  // cluster levels on the H100
+  const bool sig = cs > 1 && dinv == nullptr && !std::is_same<T, float>::value;
+  const size_t smem =
+      forward_dg_offset<T>(ni) +
+      (size_t)warps * HS_C_DG * (sig ? sizeof(stage_t<T>) : sizeof(T));
+  auto kern = sig ? level_forward_kernel<T, VEC, true>
+                  : level_forward_kernel<T, VEC, false>;
+  cudaError_t err =
+      allow_smem(kern, smem, sig ? &granted_signals : &granted_steps);
   if (err != cudaSuccess) return err;
   if (cs == 1) {
     kern<<<(unsigned)B, threads, smem, stream>>>(
@@ -742,7 +919,8 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
   const int nwin = (npan + wpan - 1) / wpan;
   // the window's solved values only: the same whatever ni
   const size_t smem_solve = (size_t)HS_C_WIN * sizeof(hs_acc_t<T>) +
-                            (size_t)HS_C_MAX_PW * HS_C_DG * sizeof(T);
+                            (size_t)HS_C_MAX_PW * HS_C_DG *
+                                sizeof(hs_acc_t<T>);
   auto solve = window_solve_kernel<T, VEC>;
   if ((err = allow_smem(solve, smem_solve, &granted_solve)) != cudaSuccess)
     return err;

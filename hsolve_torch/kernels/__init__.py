@@ -105,6 +105,7 @@ _SIGNATURES = {
     "hs_hss_matvec": [_V] * 10 + [_LL] + [_I] * 12 + [_LL, _I, _V],
     "hs_hss_level_correct": [_V] * 7 + [_LL] + [_I] * 9 + [_V],
     "hs_hss_level_correct_clusters": [_I] * 4,
+    "hs_cpqr_clusters": [_I] * 4,
     "hs_arnoldi_cgs2": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_arnoldi_givens": [_V] * 8 + [_I, _I, _D, _I, _V],
     "hs_arnoldi_step": [_V] * 14 + [_LL, _I, _I, _V],
@@ -138,7 +139,8 @@ LOWRANK_TYPED = ("hs_lowrank_sweep_update", "hs_lowrank_schur_update",
                  "hs_lowrank_truncate", "hs_cpqr", "hs_hss_entries",
                  "hs_hss_matvec", "hs_hss_level_correct")
 _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name]
-                    for name in LOWRANK_TYPED + ("hs_hss_level_correct_clusters",)
+                    for name in LOWRANK_TYPED + ("hs_hss_level_correct_clusters",
+                                                 "hs_cpqr_clusters")
                     for sfx in ("_f32", "_c64", "_c128")})
 LOWRANK_TYPES = (torch.float64, torch.float32, torch.complex64,
                  torch.complex128)

@@ -204,6 +204,7 @@ def cpqr_pivots_plain(A: torch.Tensor, atol: float, rtol: float, k: int):
 # less a margin for the kernel's static arrays
 CPQR_MAX_SMEM = 227 * 1024 - 1024
 CPQR_CLUSTERS = (1, 2, 4, 8)     # portable thread block cluster sizes
+CPQR_WARPS = 8                   # warps of a CTA of kernel H (H_WARPS)
 
 
 def cpqr_smem(m: int, n: int, cs: int, resident: bool = True,
@@ -212,11 +213,13 @@ def cpqr_smem(m: int, n: int, cs: int, resident: bool = True,
     CTAs shares an ``[m, n]`` matrix whose pivot loop runs on
     ``itemsize``-byte values (8: float64, and float32, whose loop runs in
     float64; 16: complex128, and complex64, whose loop runs in complex128;
-    :func:`cpqr_itemsize`): its ``ceil(n / cs)``
-    columns (where ``resident``), their coefficients and the pivot
-    direction in the loop's type, their norms in float64."""
+    :func:`cpqr_itemsize`): its ``w = ceil(n / cs)`` columns (where
+    ``resident``), the warps' partial column sums ``[CPQR_WARPS, w]`` (the
+    coefficients are their sum) and the pivot direction in the loop's type,
+    the columns' norms in float64."""
     w = -(-n // cs)
-    return itemsize * ((m * w if resident else 0) + w + m) + 8 * w
+    return itemsize * ((m * w if resident else 0) + CPQR_WARPS * w + m) \
+        + 8 * w
 
 
 def cpqr_itemsize(dtype: torch.dtype) -> int:
@@ -225,14 +228,55 @@ def cpqr_itemsize(dtype: torch.dtype) -> int:
 
 
 def cpqr_cluster(m: int, n: int, itemsize: int = 8):
-    """``(cs, resident)``: kernel H spreads one ``[m, n]`` matrix's columns
-    over the fewest CTAs of a cluster whose shared memory holds them; a
-    matrix that 8 CTAs cannot hold keeps them in a global scratch copy
-    (``resident`` False) on a cluster of 8."""
+    """``(cs, resident)``: the fewest CTAs of a cluster whose shared memory
+    holds one ``[m, n]`` matrix's columns (kernel H spreads them over the
+    cluster); a matrix that 8 CTAs cannot hold keeps them in a global
+    scratch copy (``resident`` False) on a cluster of 8."""
     for cs in CPQR_CLUSTERS:
         if cpqr_smem(m, n, cs, True, itemsize) <= CPQR_MAX_SMEM:
             return cs, True
     return CPQR_CLUSTERS[-1], False
+
+
+def cpqr_geometry(B: int, m: int, n: int, itemsize: int = 8, active=None):
+    """``(cs, resident)`` of kernel H's launch over ``B`` ``[m, n]``
+    matrices.  ``active(cs, resident)`` is how many clusters of that
+    geometry the card holds at once (None: as many as the launch has).
+    Among the cluster sizes from :func:`cpqr_cluster`'s up to 8, whose
+    shared memory all hold the columns, it takes the one whose launch runs
+    in the fewest waves, ``ceil(B / active)``, ties to the fewest CTAs; a
+    geometry the card cannot hold at all (``active`` < 1) is refused."""
+    cs0, resident = cpqr_cluster(m, n, itemsize)
+    if cpqr_smem(m, n, cs0, resident, itemsize) > CPQR_MAX_SMEM:
+        raise ValueError(f"cpqr: a [{m}, {n}] matrix's norms and pivot "
+                         "direction alone exceed a CTA's shared memory")
+    if active is None:
+        return cs0, resident
+    sizes = [cs for cs in CPQR_CLUSTERS if cs >= cs0] if resident else [cs0]
+    waves = {cs: -(-B // held) for cs in sizes
+             if (held := active(cs, resident)) >= 1}
+    if not waves:
+        raise ValueError(f"cpqr: the card cannot hold a cluster of kernel H "
+                         f"for a [{m}, {n}] matrix")
+    return min(waves, key=lambda cs: (waves[cs], cs)), resident
+
+
+_ACTIVE = {}
+
+
+def cpqr_launch(B: int, m: int, n: int, dtype: torch.dtype):
+    """:func:`cpqr_geometry` of kernel H's launch over ``B`` ``[m, n]``
+    matrices of input type ``dtype`` on the card: the clusters it holds at
+    once asked of it (``cudaOccupancyMaxActiveClusters``, once per
+    geometry)."""
+    def active(cs: int, resident: bool) -> int:
+        key = (m, n, cs, resident, dtype)
+        if key not in _ACTIVE:
+            _ACTIVE[key] = getattr(kernels.lib(), kernels.symbol(
+                "hs_cpqr_clusters", dtype))(m, n, cs, int(resident))
+        return _ACTIVE[key]
+
+    return cpqr_geometry(B, m, n, cpqr_itemsize(dtype), active)
 
 
 def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
@@ -240,20 +284,17 @@ def cpqr_pivots(A: torch.Tensor, atol: float, rtol: float, k: int):
     float32 (read as float32, the loop in float64), complex64 (the loop in
     complex128) or complex128, each
     matrix's columns spread over a thread block cluster
-    (:func:`cpqr_cluster`)."""
+    (:func:`cpqr_launch`); each matrix's loop stops at its rank, the
+    pivots past it -1."""
     if kernels.on_cpu(A):
         return cpqr_pivots_plain(A, atol, rtol, k)
     Bn, m, n = A.shape
     dt = kernels.lowrank_type(A)
     kernels.require(A, "A", dt)
-    isz = cpqr_itemsize(dt)
     piv = torch.empty((Bn, k), dtype=torch.int32, device=A.device)
     rank = torch.empty((Bn,), dtype=torch.int32, device=A.device)
     if Bn and k:
-        cs, resident = cpqr_cluster(m, n, isz)
-        if cpqr_smem(m, n, cs, resident, isz) > CPQR_MAX_SMEM:
-            raise ValueError(f"cpqr: a [{m}, {n}] matrix's norms and pivot "
-                             "direction alone exceed a CTA's shared memory")
+        cs, resident = cpqr_launch(Bn, m, n, dt)
         work = None if resident else torch.empty(
             (Bn * cs, m, -(-n // cs)), dtype=cpqr_loop_type(dt),
             device=A.device)

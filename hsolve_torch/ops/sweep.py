@@ -74,12 +74,37 @@ def accumulator(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype.is_complex else torch.float64
 
 
-def forward_window_smem(itemsize: int) -> int:
-    """Dynamic shared memory of one CTA of a window's substitution: the
-    window's solved values (float64 in both types: the sweep accumulates in
-    float64) and the 8 panel warps' staged 32 x 33 diagonal blocks of
-    ``itemsize`` bytes.  The same whatever the front's width."""
-    return WINDOW_ROWS * 8 + PANEL_WARPS * PANEL * 33 * itemsize
+def forward_window_smem(dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA of a window's substitution in value
+    type ``dtype``: the window's solved values and the 8 panel warps'
+    staged 32 x 33 diagonal blocks, both in the accumulator type (the sweep
+    accumulates float32 in float64 and complex64 in complex128).  The same
+    whatever the front's width."""
+    acc = torch.empty((), dtype=accumulator(dtype)).element_size()
+    return WINDOW_ROWS * acc + PANEL_WARPS * PANEL * 33 * acc
+
+
+# kernel C's forward substitution signals a panel's solved values point to
+# point: one int a panel of a cluster of 8 CTAs, in each CTA's static
+# shared memory (HS_C_MAX_PANELS)
+FORWARD_SIGNALS = MAX_CLUSTER * PANEL_WARPS
+
+
+def forward_smem(ni_pad: int, dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of kernel C's forward step on a front of
+    ``ni_pad <= WINDOW_ROWS`` rows in value type ``dtype``, as its launcher
+    asks for it: the solved values in the accumulator type and x in the
+    value type, then (16-byte aligned) the CTA's panel warps' staged 32 x
+    33 diagonal blocks (at least 2 warps; in the value type, but a complex64
+    front on a cluster, whose substitution runs by signals, stages them as
+    complex128), and the substitution's ready signals (the lu form)."""
+    cs = forward_cluster(ni_pad)
+    warps = max(2, -(-(-(-ni_pad // PANEL)) // cs))
+    item = torch.empty((), dtype=dtype).element_size()
+    acc = torch.empty((), dtype=accumulator(dtype)).element_size()
+    dg_off = -(-ni_pad * (acc + item) // 16) * 16
+    staged = acc if cs > 1 and dtype == torch.complex64 else item
+    return dg_off + warps * PANEL * 33 * staged + 4 * FORWARD_SIGNALS
 
 
 def backward_split(ni_pad: int) -> int:

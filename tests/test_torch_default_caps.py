@@ -163,17 +163,19 @@ def test_kernel_h_cluster_by_bytes(m, n, cs, resident):
 def test_kernel_h_cluster_by_bytes_complex128(m, n, cs, resident):
     """In complex128 H's columns, coefficients and pivot direction take 16
     bytes a value and the norms 8: the default caps' widest panel [202,
-    384] needs 315,808 bytes a CTA on 4 CTAs, so it takes a cluster of 8
-    (159,520 bytes); every panel of the default n=512 plan keeps a launch."""
-    assert TL.cpqr_smem(202, 384, 4, True, 16) == 315808
-    assert TL.cpqr_smem(202, 384, 8, True, 16) == 159520
+    384] needs 326,560 bytes a CTA on 4 CTAs (its columns, the eight warps'
+    partial column sums, the pivot direction, the norms), so it takes a
+    cluster of 8 (164,896 bytes); every panel of the default n=512 plan
+    keeps a launch."""
+    assert TL.cpqr_smem(202, 384, 4, True, 16) == 326560
+    assert TL.cpqr_smem(202, 384, 8, True, 16) == 164896
     assert TL.cpqr_cluster(m, n, 16) == (cs, resident)
     assert TL.cpqr_smem(m, n, cs, resident, 16) <= TL.CPQR_MAX_SMEM
     if resident and cs > 1:
         assert TL.cpqr_smem(m, n, cs // 2, True, 16) > TL.CPQR_MAX_SMEM
     # the float64 sizes are unchanged by the value-type argument
     assert TL.cpqr_smem(m, n, cs, resident) == \
-        8 * ((m * -(-n // cs) if resident else 0) + 2 * -(-n // cs) + m)
+        8 * ((m * -(-n // cs) if resident else 0) + 9 * -(-n // cs) + m)
 
 
 def _k_geometry_fits(r, dtype):
@@ -342,7 +344,7 @@ def test_kernel_h_cluster_by_bytes_complex64(m, n, cs, resident):
     (``cpqr_loop_type``: widened as it is loaded, F8's rule), so its
     columns take complex128's 16 bytes in shared memory and its launches
     are complex128's at every default-caps and 3D panel: the widest 2D
-    panel [202, 384] on a cluster of 8 (159,520 bytes a CTA), the 3D
+    panel [202, 384] on a cluster of 8 (164,896 bytes a CTA), the 3D
     panels in a global scratch copy (of complex128 values) on 8."""
     assert TL.cpqr_loop_type(torch.complex64) == torch.complex128
     isz = TL.cpqr_itemsize(torch.complex64)
@@ -351,7 +353,7 @@ def test_kernel_h_cluster_by_bytes_complex64(m, n, cs, resident):
         TL.cpqr_cluster(m, n, 16)
     assert TL.cpqr_smem(m, n, cs, resident, isz) <= TL.CPQR_MAX_SMEM
     if (m, n) == LARGEST_PANEL[:2]:
-        assert TL.cpqr_smem(m, n, cs, resident, isz) == 159520
+        assert TL.cpqr_smem(m, n, cs, resident, isz) == 164896
 
 
 @pytest.mark.parametrize("r", [16, 48, 96, 192, 384, 400, 768])

@@ -352,3 +352,87 @@ def test_narrow_j_and_k_sum_wide_within_jax_tolerance(dtype, adjoint):
         ct = T.hss_level_correct_plain(*wargs, tpiv, tPhi.to(wide), adjoint)
         assert cj.dtype == narrow
         assert _rel(ct[0].to(getattr(torch, dtype)).numpy(), cj) < 1e-5
+
+
+# kernel H's launch shapes (B, m, n, k) at the helmholtz2d(512, k=40)
+# structured factors, kest=32 and the default caps (113 in all; the damped
+# system's complex plans have the same ones), as tools/h_breakdown.py
+# recorded them on the card
+H_N512 = [
+    (2, 16, 8, 8), (2, 32, 16, 16), (2, 32, 64, 32), (2, 42, 64, 32),
+    (2, 58, 32, 32), (2, 58, 96, 48), (2, 64, 32, 32), (2, 74, 128, 64),
+    (2, 106, 192, 96), (2, 128, 256, 128), (2, 138, 256, 128),
+    (2, 170, 320, 160), (4, 32, 8, 8), (4, 42, 16, 16), (4, 42, 32, 32),
+    (4, 58, 16, 16), (4, 58, 32, 32), (4, 58, 96, 48), (4, 74, 128, 64),
+    (4, 106, 32, 32), (4, 106, 192, 96), (4, 128, 32, 32), (4, 138, 256, 128),
+    (4, 170, 320, 160), (6, 58, 96, 48), (6, 202, 384, 192), (8, 58, 32, 32),
+    (8, 58, 96, 48), (8, 74, 32, 32), (8, 106, 32, 32), (8, 138, 32, 32),
+    (8, 138, 256, 128), (8, 170, 32, 32), (8, 170, 320, 160),
+    (12, 58, 96, 48), (12, 202, 384, 192), (14, 58, 96, 48),
+    (14, 202, 384, 192), (16, 58, 32, 32), (16, 58, 96, 48),
+    (16, 138, 32, 32), (16, 138, 256, 128), (16, 170, 32, 32),
+    (24, 58, 96, 48), (24, 202, 384, 192), (28, 58, 96, 48),
+    (28, 202, 384, 192), (30, 58, 96, 48), (30, 138, 256, 128),
+    (32, 58, 32, 32), (32, 138, 32, 32), (48, 58, 24, 24), (48, 58, 32, 32),
+    (48, 202, 24, 24), (48, 202, 32, 32), (56, 58, 96, 48),
+    (56, 202, 384, 192), (60, 58, 96, 48), (60, 138, 256, 128),
+    (62, 58, 96, 48), (62, 106, 192, 96), (112, 58, 24, 24),
+    (112, 58, 96, 48), (112, 202, 24, 24), (112, 202, 384, 192),
+    (120, 58, 32, 32), (120, 58, 96, 48), (120, 138, 32, 32),
+    (120, 138, 256, 128), (124, 58, 96, 48), (124, 106, 192, 96),
+    (126, 58, 96, 48), (126, 74, 128, 64), (224, 58, 24, 24),
+    (224, 202, 24, 24), (240, 58, 96, 48), (240, 138, 256, 128),
+    (248, 58, 24, 24), (248, 58, 96, 48), (248, 106, 24, 24),
+    (248, 106, 192, 96), (252, 58, 32, 32), (252, 58, 96, 48),
+    (252, 74, 32, 32), (252, 74, 128, 64), (254, 58, 96, 48),
+    (480, 58, 24, 24), (480, 138, 24, 24), (496, 58, 32, 32),
+    (496, 106, 32, 32), (504, 58, 96, 48), (504, 74, 128, 64),
+    (508, 58, 24, 24), (508, 58, 96, 48), (510, 42, 31, 31),
+    (510, 42, 64, 32), (510, 58, 31, 31), (510, 58, 96, 48),
+    (1008, 58, 24, 24), (1008, 74, 24, 24), (1016, 58, 32, 32),
+    (1020, 42, 64, 32), (1020, 58, 96, 48), (1022, 42, 23, 23),
+    (1022, 42, 64, 32), (1022, 46, 23, 23), (1022, 58, 96, 48),
+    (2040, 42, 24, 24), (2040, 58, 24, 24), (2044, 42, 31, 31),
+    (2044, 58, 31, 31), (2046, 92, 64, 32), (4092, 92, 23, 23)]
+
+
+def _h100_clusters(m, n, cs, resident, itemsize):
+    """A model of ``cudaOccupancyMaxActiveClusters`` for kernel H on an
+    H100 (132 SMs, 228 KB of shared memory and 2048 threads an SM, 1 KB of
+    it reserved per CTA), blind to how the SMs group into GPCs."""
+    from hsolve_torch.ops import lowrank as TL
+
+    smem = TL.cpqr_smem(m, n, cs, resident, itemsize) + 1024
+    per_sm = min(2048 // 256, 228 * 1024 // (smem + 1024))
+    return 132 * per_sm // cs
+
+
+@pytest.mark.parametrize("itemsize", [8, 16])
+def test_kernel_h_geometry_at_every_n512_launch_shape(itemsize):
+    """At every launch shape of both n=512 structured plans (8-byte loop
+    values: float64 and float32; 16: complex128 and complex64) kernel H's
+    launch holds each matrix's columns in its cluster's shared memory,
+    within a CTA's 227 KB with the kernel's static arrays; given the card's
+    resident clusters it takes the fewest waves, never more than the
+    fewest-CTA cluster's, and without them that cluster."""
+    from hsolve_torch.ops import lowrank as TL
+
+    for B, m, n, k in H_N512:
+        cs0, res0 = TL.cpqr_cluster(m, n, itemsize)
+        assert res0 and k <= min(m, n)
+        assert TL.cpqr_geometry(B, m, n, itemsize) == (cs0, res0)
+        act = lambda cs, res: _h100_clusters(m, n, cs, res, itemsize)
+        cs, res = TL.cpqr_geometry(B, m, n, itemsize, act)
+        assert res and cs in TL.CPQR_CLUSTERS and cs >= cs0
+        assert TL.cpqr_smem(m, n, cs, res, itemsize) + 1024 <= 232448
+        assert -(-B // act(cs, res)) <= -(-B // act(cs0, res0))
+        if cs > cs0:
+            assert -(-B // act(cs, res)) < -(-B // act(cs0, res0))
+
+
+def test_kernel_h_geometry_refuses_what_the_card_cannot_hold():
+    """A geometry the card holds no cluster of is refused, not launched."""
+    from hsolve_torch.ops import lowrank as TL
+
+    with pytest.raises(ValueError):
+        TL.cpqr_geometry(4, 202, 384, 16, lambda cs, res: 0)

@@ -142,14 +142,17 @@ def test_kernel_c_window_shared_memory_does_not_grow(ni_pad):
     """A window's substitution keeps only its own rows' solved values in
     shared memory, so fronts far wider than 20,600 rows (float64) or 49,600
     (float32), whose LU still fits on the card, take the same shared memory
-    as a front of 2049 rows, within a CTA's 227 KB."""
+    as a front of 2049 rows, within a CTA's 227 KB: the solved values and
+    the staged diagonal blocks in the accumulator type (float64 for
+    float32, complex128 for complex64)."""
     wins = forward_windows(ni_pad)
     assert len(wins) == -(-ni_pad // WINDOW_ROWS)
     assert wins[-1][1] == ni_pad
-    for itemsize in (4, 8):
-        assert forward_window_smem(itemsize) <= 227 * 1024
-        assert forward_window_smem(itemsize) == \
-            min(ni_pad, WINDOW_ROWS) * 8 + 8 * 32 * 33 * itemsize
+    for dtype, acc in ((torch.float32, 8), (torch.float64, 8),
+                       (torch.complex64, 16), (torch.complex128, 16)):
+        assert forward_window_smem(dtype) <= 227 * 1024
+        assert forward_window_smem(dtype) == \
+            min(ni_pad, WINDOW_ROWS) * acc + 8 * 32 * 33 * acc
 
 
 @pytest.mark.parametrize("ni", [2049, 4424])

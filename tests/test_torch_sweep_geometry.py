@@ -18,7 +18,10 @@ import hsolve_torch as ht
 from hsolve_torch.interop import plan_to_torch
 from hsolve_torch.ops.assembly import (extend_add_geometry, extend_add_plain,
                                        valid_rows)
-from hsolve_torch.ops.sweep import (E_MAX_CLUSTER, SMEM_MAX,
+from hsolve_torch.ops.sweep import (E_MAX_CLUSTER, FORWARD_SIGNALS, PANEL,
+                                    PANEL_WARPS, SMEM_MAX, WINDOW_ROWS,
+                                    accumulator, forward_cluster,
+                                    forward_smem, forward_window_smem,
                                     lowrank_sweep_geometry,
                                     lowrank_sweep_update_plain)
 
@@ -446,3 +449,33 @@ def test_kernel_e_complex64_partition_is_the_plain_update(B, R, Cc, kc, k):
     assert want.dtype == torch.complex64
     eps = float(np.finfo(np.float32).eps)
     assert np.abs(got - want.numpy()).max() <= 2 * eps * np.abs(got).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.complex128, torch.complex64])
+def test_kernel_c_forward_shared_memory_at_every_level(dtype):
+    """Kernel C's forward step at every level width of the n=512 exact plan
+    (the damped system's complex plan has the same widths) and at the
+    widest one-window front (2048 rows): its CTA's shared memory, the
+    solved values in the accumulator type, x in the value type, the panel
+    warps' staged diagonal blocks (in the value type, but as complex128 for
+    a complex64 front on a cluster) and the substitution's ready signals (a
+    complex128 front of 2048 rows: 200,960 bytes; complex64 184,576), stays
+    within a CTA's 227 KB; so does a window's substitution of a wider
+    front."""
+    plan = _plan(512, "exact")
+    item = torch.empty((), dtype=dtype).element_size()
+    acc = torch.empty((), dtype=accumulator(dtype)).element_size()
+    for ni in sorted({bp.ni_pad for bp in plan.batches}) + [WINDOW_ROWS]:
+        warps = max(2, -(-(-(-ni // PANEL)) // forward_cluster(ni)))
+        assert warps <= PANEL_WARPS
+        dg = acc if forward_cluster(ni) > 1 and dtype == torch.complex64 \
+            else item
+        assert forward_smem(ni, dtype) == ni * (acc + item) \
+            + warps * PANEL * 33 * dg + 4 * FORWARD_SIGNALS <= SMEM_MAX
+    window = WINDOW_ROWS * acc + PANEL_WARPS * PANEL * 33 * acc
+    assert window == forward_window_smem(dtype)
+    assert window + 4 * FORWARD_SIGNALS <= SMEM_MAX
+    if dtype.is_complex:
+        assert forward_smem(WINDOW_ROWS, dtype) == \
+            {torch.complex128: 200960, torch.complex64: 184576}[dtype]

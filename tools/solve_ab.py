@@ -17,13 +17,15 @@ tree takes it, the diagnostics fetched after the timers):
   events;
 - ``host_ms``: the median host time of one call (from its start, after a
   synchronize, to its return, without waiting for the device);
-- ``busy_ms`` and ``idle_share``: the device time of the kernels of
-  ``--reps`` back-to-back solves under ``torch.profiler``, per solve,
-  against the same solves' wall time between CUDA events (``wall_ms``);
-  ``busy_ms`` is None where the profiler saw no kernel, or where
-  ``--no-busy`` leaves the profiler out (under it the n=512
-  ``hss-default-f32`` solve hit an illegal memory access on the H100, in
-  the trees of both sides of one reading).
+- ``busy_ms`` and ``idle_share``: the device time of the kernels of the
+  same solve launched eagerly (``gmres_host_driven``: the graph's parts
+  without its conditional nodes), traced under ``torch.profiler``, against
+  the graph solve's ``solve_ms``; ``busy_ms`` is None where the profiler
+  saw no kernel, or where ``--no-busy`` leaves the profiler out.  The
+  graph solve itself is not traced: at n=512 CUPTI saw 1-8 % of its device
+  time, and a second traced graph solve in one process hit an illegal
+  memory access on the H100 (ROADMAP section 3, F9), while the same solves
+  untraced, and the host-driven ones traced, ran clean.
 
 It prints one JSON line per configuration, with the card's ``nvidia-smi``
 name and power limit, and imports nothing of the tree but its public API,
@@ -87,26 +89,17 @@ def median_ms(fn, reps, events=True):
     return statistics.median(times)
 
 
-def busy(fn, reps):
-    """(device ms of the kernels, wall ms between CUDA events) per solve."""
+def busy(fn):
+    """Device ms of the kernels of one traced call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    wall = start.elapsed_time(end) / reps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
     dev = sum(e.self_device_time_total for e in p.key_averages()
-              if e.device_type.name == "CUDA") / 1e3 / reps
-    return (dev if dev > 0 else None), wall
+              if e.device_type.name == "CUDA") / 1e3
+    return dev if dev > 0 else None
 
 
 def run(cfg, reps, card, dev, profiled=True):
@@ -138,20 +131,28 @@ def run(cfg, reps, card, dev, profiled=True):
             mv, prec, bt, reltol=1e-9, restart=30, maxiter=maxiter, mv_data=op,
             M_data=F.solve_data, **kw)
 
+    def solve_eager():
+        from hsolve_torch.krylov import gmres_host_driven
+
+        kw_ = {k_: v_ for k_, v_ in kw.items() if k_ != "fetch_info"}
+        gmres_host_driven(mv, prec, bt, reltol=1e-9, restart=30,
+                          maxiter=maxiter, mv_data=op, M_data=F.solve_data,
+                          **kw_)
+
     t0 = time.perf_counter()
     solve()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     solve_ms = median_ms(solve, reps)
     host_ms = median_ms(solve, reps, events=False)
-    busy_ms, wall_ms = busy(solve, reps) if profiled else (None, None)
+    busy_ms = busy(solve_eager) if profiled else None
     info = ht.fetch_gmres_info(out["info"]) if deferred else out["info"]
     x = out["x"].cpu().numpy()
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
     row = {"config": cfg, "graph": deferred, "iters": info["iters"],
            "relres": relres, "cold_s": cold, "solve_ms": solve_ms,
-           "host_ms": host_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
-           "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+           "host_ms": host_ms, "busy_ms": busy_ms,
+           "idle_share": None if busy_ms is None else 1.0 - busy_ms / solve_ms,
            "card": card}
     print(json.dumps(row), flush=True)
     del F, out
@@ -163,7 +164,8 @@ def main():
     ap.add_argument("--configs", nargs="+", default=CONFIGS)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--no-busy", action="store_true",
-                    help="leave out the profiler's busy reading")
+                    help="leave out the profiler's busy reading (it traces "
+                    "the host-driven solve: minutes at n=512)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("solve_ab: needs an NVIDIA GPU")
