@@ -57,7 +57,9 @@ Phases (any failure exits non-zero before the result line is printed):
    I's NaN for out-of-range indices where its plain version has them), after
    I and J on the HSS operands of the first and the top structured batch of
    the kest=32 plan (I on a leaf and a B12 extraction, J forward and adjoint
-   at the sketch width and at k=1: the kernel table's shapes); the Arnoldi
+   at the sketch width and at k=1: the kernel table's shapes); K at every
+   launch shape of the RootHss of the boundary-root n=512 plan (``BROOT``,
+   below: its ``hss_factor`` and one ``hss_solve``), a summary line; the Arnoldi
    step at j = 0, 14 and 29 captured from a 30-step cycle on the n=512
    operator, in float64 and float32 (and, below, complex): L alone (1e-13 and 1e-5), the step as
    GMRES runs it (its own row, ``arnoldi_step``), one launch of L with M's
@@ -147,7 +149,19 @@ Phases (any failure exits non-zero before the result line is printed):
    hss-complex-default-mixed (a complex64 factor with E-G, and on
    structured levels H-K, in complex64 inside the mixed GMRES of
    exact-complex-mixed; ``kernels.COMPLEX_LOWRANK_MIXED_PATH`` /
-   ``COMPLEX_HSS_MIXED_PATH``), then one exact run at
+   ``COMPLEX_HSS_MIXED_PATH``), then hss-broot (``BROOT``: the structured
+   options on a tree whose root keeps its boundary, the root's separator
+   moved into its bnd, written with ``write_problem`` to a .mat file in the
+   reference's elimination-tree format and read back with ``read_problem``;
+   the root level's cap raised by ``level_caps``, ``BROOT_CAPS``; the root
+   must be a ``RootHss``, its n_pad, cap and rank printed, with whether a
+   level's fronts share bnd ids), whose factor is then saved with
+   ``save_solver`` and loaded with ``load_solver`` onto the card: the loaded
+   solve and a ``gmres_compiled`` run on the loaded solver's data must be
+   bit for bit the live ones (within 1e-14 relative where bnd ids repeat
+   within a level), the checkpoint's bytes and save and load seconds
+   printed; the same round trip for the n=128 hss-complex-mixed factor
+   (``CHECKPOINTED``); then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
    windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
    k=10), float64, one iteration), exact-3d-f32-mixed (the same system in
@@ -258,6 +272,18 @@ LOWRANK3D = "48^3"
 # fronts of batch 7 (44^3: at batch 5); 40^3 keeps 31 GiB at a 49 GiB peak
 HSS3D = "40^3"
 LOWRANK_DEFAULT = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3, hss=False)
+# the structured options on a tree whose root keeps its boundary: the root's
+# separator moved into its bnd, written to a .mat file in the reference's
+# elimination-tree format and read back; the root solve is then the HSS
+# RootHss (hsolve/factor.py:907), kernel K at the root separator's width.
+# The root's HSS splits its boundary by child: its top level couples the
+# separator's two lines of n - 1 points, a block of full rank (126 at
+# n=128), so the root level's cap is raised past n - 1 (``level_caps``; every
+# deeper level keeps kest=32's 48): at kest=32's 48, or at 192-384 for
+# n=512, the rank fills the cap and GMRES stalls at relres 4.8e-4 (JAX, CPU,
+# n=128) or 0.9 (the card, n=512; tools/broot_caps.py)
+BROOT = "hss-broot"
+BROOT_CAPS = {128: 192, 512: 576}
 OPTIONS = {"exact": dict(swlevel=0), "compressed": COMPRESSED, "hss": HSS,
            "hss-default": HSS_DEFAULT, "exact-f32-mixed": dict(swlevel=0),
            "exact-wide": dict(swlevel=0), "exact-3d": dict(swlevel=0),
@@ -290,8 +316,13 @@ MIXED = ("exact-f32-mixed", "exact-3d-f32-mixed", "exact-complex-mixed") \
 COMPLEX_PATHS = ("exact-complex", "exact-complex-mixed", "lowrank-complex",
                  "hss-complex", "hss-complex-default") + C64_COMPRESSED
 COMPRESSED_PATHS = ("compressed", "hss", "hss-default", "lowrank-3d", "hss-3d",
-                    "lowrank-complex", "hss-complex", "hss-complex-default") \
-    + F32_COMPRESSED + C64_COMPRESSED
+                    "lowrank-complex", "hss-complex", "hss-complex-default",
+                    BROOT) + F32_COMPRESSED + C64_COMPRESSED
+# the factors a main path saves with save_solver and loads back with
+# load_solver, holding the loaded solve and GMRES run to the live ones: the
+# boundary-root tree's (RootHss), and a complex64 structured factor inside
+# the complex mixed solve
+CHECKPOINTED = ((BROOT, 128), (BROOT, 512), ("hss-complex-mixed", 128))
 # twice the JAX package's GMRES iterations on the CPU for the same runs; the
 # mixed, hss-default and 3D ones from tools/jax_reference_iters.py (mixed: 5
 # at n=128, 80 at n=512, 5 at 64^3; hss-default: 5 at n=128, 40 at n=512;
@@ -329,7 +360,8 @@ MAX_ITERS = {"compressed": {128: 12, 512: 14}, "hss": {128: 10, 512: 36},
              "hss-3d-f32-mixed": {HSS3D: 60},
              "lowrank-complex-mixed": {128: 12, 512: 26},
              "hss-complex-mixed": {128: 14, 512: 54},
-             "hss-complex-default-mixed": {128: 14, 512: 54}}
+             "hss-complex-default-mixed": {128: 14, 512: 54},
+             BROOT: {128: 10, 512: 60}}
 # paths run at n=128 only, to keep the script within its time limit: the
 # float32 structured ones, whose n=512 kernels phase 3 checks at every
 # launch shape (their n=512 runs took 25 and 28 s; the JAX package's CPU
@@ -423,6 +455,7 @@ PATHS = (("exact", "EXACT_PATH", None),
          ("lowrank-complex-mixed", "COMPLEX_LOWRANK_MIXED_PATH", None),
          ("hss-complex-mixed", "COMPLEX_HSS_MIXED_PATH", None),
          ("hss-complex-default-mixed", "COMPLEX_HSS_MIXED_PATH", None),
+         (BROOT, "HSS_PATH", None),
          ("exact-wide", "EXACT_PATH", [WIDE_N]),
          ("exact-3d", "EXACT_PATH", [EXACT3D]),
          ("exact-3d-f32-mixed", "MIXED_PATH", [EXACT3D]),
@@ -2264,6 +2297,161 @@ def factor_bytes(F) -> int:
                for t in vars(lev).values() if isinstance(t, torch.Tensor))
 
 
+def boundary_root(tree):
+    """``tree`` with the root's separator moved into its boundary
+    (``plan.nb_root > 0``)."""
+    import numpy as np
+
+    r = tree.root
+    tree.bnd_idx[r] = np.sort(np.asarray(tree.int_idx[r]))
+    tree.int_idx[r] = np.zeros(0, dtype=np.int64)
+    return tree
+
+
+def broot_options(n):
+    """``BROOT``'s options at size n: the structured ones (kest=32) with the
+    root level capped at ``BROOT_CAPS[n]``."""
+    import hsolve_torch as ht
+
+    # 48: kest=32's cap, kest + stepsize rounded up to rank_pad
+    return ht.SolverOptions(**HSS, level_caps=(BROOT_CAPS[n], 48))
+
+
+def broot_problem(A, b, shape, n) -> tuple:
+    """The boundary-root tree of helmholtz2d(n) (nested dissection, leafmax
+    100, the root's separator in its bnd) written with ``write_problem`` to
+    a .mat file in the reference's format and read back with
+    ``read_problem``, the route of a user holding the reference's files:
+    ``(A, b, tree, path)``."""
+    import numpy as np
+
+    import hsolve_torch as ht
+
+    path = os.path.join(HERE, "build", "chip_smoke", f"broot-{n}.mat")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ht.write_problem(path, A, b, boundary_root(
+        ht.nested_dissection(shape, leafmax=100)))
+    A2, b2, tree = ht.read_problem(path)
+    if (A2 != A).nnz or not np.array_equal(b2, b):
+        fail(f"n={n} {BROOT}: {path} read back another system")
+    return A2, b2, tree, path
+
+
+def bnd_repeats(plan) -> list:
+    """The batches whose fronts share a bnd id: there kernels C and E add
+    into C[bnd] by atomicAdd in an order that is not fixed."""
+    import numpy as np
+
+    out = []
+    for i, bp in enumerate(plan.batches):
+        ids = np.asarray(bp.bnd_ids)
+        ids = ids[ids < plan.N]
+        if len(np.unique(ids)) != len(ids):
+            out.append(i)
+    return out
+
+
+def check_checkpoint(F, n, path, bt, mv, prec, kw, x, info, exact,
+                     dev) -> dict:
+    """save_solver of the live factor ``F``, load_solver onto ``dev``, then
+    the loaded solve against the live one on ``bt`` and ``gmres_compiled`` on
+    the loaded solver's data against the live run (``x``, ``info``): bit for
+    bit where ``exact``, else within 1e-14 relative (a tree that repeats bnd
+    ids within a level: kernels C and E then sum in no fixed order)."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.utils.checkpoint import load_solver, save_solver
+
+    ckpt = os.path.join(HERE, "build", "chip_smoke", f"{path}-{n}.pt")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_solver(ckpt, F)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L = load_solver(ckpt, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def same(a, b):
+        if exact:
+            return bool(torch.equal(a, b)), 0.0
+        d = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+        return d <= 1e-14, d
+
+    ok_solve, d_solve = same(L.solve(bt), F.solve(bt))
+    xl, il = ht.gmres_compiled(mv, prec, bt, fetch_info=False,
+                               **{**kw, "M_data": L.solve_data})
+    il = ht.fetch_gmres_info(il)
+    ok_x, d_x = same(xl, x)
+    res = {"ckpt_bytes": os.path.getsize(ckpt), "ckpt_save_s": save_s,
+           "ckpt_load_s": load_s, "ckpt_iters": il["iters"],
+           "ckpt_compare": "bitwise" if exact else "1e-14 relative",
+           "ckpt_solve_diff": d_solve, "ckpt_x_diff": d_x}
+    log(f"  n={n} {path}: checkpoint {res['ckpt_bytes']} bytes, save "
+        f"{save_s:.3f} s, load {load_s:.3f} s (host clock, to the card); "
+        f"loaded against live ({res['ckpt_compare']}): solve "
+        f"{'equal' if ok_solve else 'DIFFERENT'} ({d_solve:.1e}), "
+        f"gmres_compiled {il['iters']} iterations against {info['iters']}, "
+        f"x {'equal' if ok_x else 'DIFFERENT'} ({d_x:.1e})")
+    if not (ok_solve and ok_x and il["iters"] == info["iters"]):
+        fail(f"n={n} {path}: the loaded solver parts from the live one")
+    os.remove(ckpt)
+    return res
+
+
+def check_root_hss_shapes(problems: Problems, n, dev, results: Results) -> None:
+    """Phase 3, kernel K at every launch shape of the boundary-root n-plan's
+    RootHss (``BROOT``): its ``hss_factor`` (the Woodbury cores' Phi, forward
+    and adjoint, k = r) and one ``hss_solve`` (k = 1), on captured inputs,
+    each held to its plain version and timed device only as the level
+    shapes are, a summary line after."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import RootHss
+    from hsolve_torch.ops import hss as H
+
+    A, b, shape = problems.get(n)
+    opts = broot_options(n)
+    tree = boundary_root(ht.nested_dissection(shape, leafmax=100))
+    F = ht.factor_with_plan(ht.plan_factorization(A, tree, opts), opts,
+                            device=dev)
+    if not isinstance(F.root, RootHss):
+        fail(f"n={n} {BROOT}: the root is a {type(F.root).__name__}")
+    h = F.root.solver.h
+    rows, seen, where = [], set(), {"tag": "root factor"}
+    orig = H.hss_level_correct
+
+    def correct_rec(Y, xi, Bl, Br, lu, piv, Phi, transpose):
+        key = (Bl.shape[0] * Bl.shape[1], Bl.shape[-1],
+               Y.shape[1] // (2 * Bl.shape[1]), Y.shape[-1], bool(transpose))
+        if key not in seen:
+            seen.add(key)
+            rows.append((key, *check_correct_shape(
+                where["tag"], key, Y, (xi, Bl, Br, lu, piv, Phi, transpose),
+                results)))
+        return orig(Y, xi, Bl, Br, lu, piv, Phi, transpose)
+
+    correct_rec.launches, correct_rec.launches_by_type = 0, {}
+    H.hss_level_correct = correct_rec
+    try:
+        sol = H.hss_factor(h)
+        where["tag"] = "root solve"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        H.hss_solve(sol, torch.randn((1, h.plan.n_pad, 1), generator=gen,
+                                     dtype=h.D.dtype, device=dev))
+    finally:
+        H.hss_level_correct = orig
+    torch.cuda.synchronize()
+    log(f"  {BROOT} n={n}: root n_pad={h.plan.n_pad} depth={h.plan.depth} "
+        f"cap r={h.r}; K at {len(rows)} root shapes, "
+        + hss_summary("K", rows) + f"; sum {sum(m for _, m, _ in rows):.4f} "
+        f"ms against {sum(p for _, _, p in rows):.4f}")
+    del F, sol
+
+
 def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     """Phase 4: the user's workflow at size n; returns its timings and checks."""
     import numpy as np
@@ -2277,10 +2465,15 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
 
     cplx = path in COMPLEX_PATHS
     A, b, shape = problems.get(damped(n) if cplx else n)
-    opts = ht.SolverOptions(**OPTIONS[path])
+    opts = broot_options(n) if path == BROOT else \
+        ht.SolverOptions(**OPTIONS[path])
     compressed = path in COMPRESSED_PATHS
     mixed = path in MIXED
     tree = ht.nested_dissection(shape, leafmax=100)
+    if path == BROOT:
+        A, b, tree, mat = broot_problem(A, b, shape, n)
+        log(f"  n={n} {path}: tree read back from {os.path.relpath(mat, HERE)}"
+            " (write_problem -> read_problem, the reference's format)")
     plan_s = []
     for _ in range(2):                       # the second call is warm
         t0 = time.perf_counter()
@@ -2318,7 +2511,7 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     reps = 1 if path in ("hss-default", "lowrank-3d", "hss-3d",
                          "hss-complex-default", "hss-default-f32-mixed",
                          "hss-3d-f32-mixed", "hss-complex-default-mixed") or (
-        path in ("hss", "hss-complex", "hss-f32-mixed", "compressed",
+        path in ("hss", "hss-complex", "hss-f32-mixed", "compressed", BROOT,
                  "lowrank-complex", "lowrank-f32-mixed",
                  "lowrank-complex-mixed", "hss-complex-mixed")
         and n == 512) else 3
@@ -2446,6 +2639,27 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
              f"{MAX_ITERS[path].get(n, 60)}")
     if compressed and res["saturated"]:
         fail(f"n={n} {path}: a rank saturated its cap ({report})")
+    repeats = bnd_repeats(plan)
+    if path == BROOT:
+        from hsolve_torch.factor import RootHss
+        from hsolve_torch.ops.hss import hss_rank
+
+        if not (plan.nb_root > 0 and isinstance(F.root, RootHss)):
+            fail(f"n={n} {path}: nb_root {plan.nb_root}, root "
+                 f"{type(F.root).__name__}, not a RootHss")
+        h = F.root.solver.h
+        res.update(nb_root=plan.nb_root, root_n_pad=h.plan.n_pad,
+                   root_depth=h.plan.depth, root_cap=h.r,
+                   root_rank=hss_rank(h),
+                   top_batch="structured" if plan.batches[-1].structured
+                   else "compressed")
+        log(f"  n={n} {path}: root RootHss, nb_root {plan.nb_root}, n_pad "
+            f"{h.plan.n_pad}, depth {h.plan.depth}, cap {h.r}, rank "
+            f"{res['root_rank']} ({res['top_batch']} top batch); bnd ids "
+            f"repeat within a level at batches {repeats or 'none'}")
+    if (path, n) in CHECKPOINTED:
+        res.update(check_checkpoint(F, n, path, bt, mv, prec, kw, x, info,
+                                    not repeats, dev))
     return res
 
 
@@ -2579,6 +2793,7 @@ def main() -> int:
         check_kernels(problems, kn, dev, kres, "float32")
         check_compressed_kernels(problems, kn, dev, kres)
         check_hss_kernels(problems, kn, dev, kres)
+        check_root_hss_shapes(problems, kn, dev, kres)
         check_arnoldi_kernels(problems, kn, dev, kres)
     if "complex" in checks:
         log(f"[3] A-D and the Arnoldi step on the damped n={kn} system, "

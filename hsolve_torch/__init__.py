@@ -14,7 +14,10 @@ imports jax or ``hsolve`` (the JAX package, kept as the reference), so it runs
 where JAX is absent.  Module names mirror ``hsolve/``.  Its thirteen
 hand-written CUDA kernels and the GMRES loop's control kernels live in
 ``csrc/`` and are built and bound by :mod:`hsolve_torch.kernels`; on the
-card ``gmres_compiled`` runs the whole solve as one CUDA graph.
+card ``gmres_compiled`` runs the whole solve as one CUDA graph.  A tree whose
+root keeps a boundary (the reference's elimination-tree files,
+``read_problem``) ends in the HSS root solve ``factor.RootHss``;
+:mod:`hsolve_torch.utils.checkpoint` saves and loads factorizations.
 """
 
 from hsolve_torch.options import SolverOptions

@@ -43,6 +43,10 @@ sampling operator, never formed.  Its records are
 :class:`~hsolve_torch.structured.StructuredLevel`; the solve runs kernel E on
 its low-rank Gauss transforms around :func:`~hsolve_torch.structured.d_apply`.
 A dense parent of HSS children densifies them and adds them with kernel B.
+A tree whose root keeps a boundary (``plan.nb_root > 0``, e.g. the
+reference's elimination-tree files, or a root separator moved into ``bnd``)
+under a compressed top batch ends in a :class:`RootHss`: the top Schur
+complement stays HSS and its root solve is :func:`hss_solve` (kernel K).
 
 The factor runs in float64 or float32: the JAX bench's device
 configuration, a float32 factor as the preconditioner of mixed-precision
@@ -89,7 +93,7 @@ from hsolve_torch.planner import Plan, cross_block_shapes, plan_factorization
 from hsolve_torch.structured import (SchurHss, StructuredLevel, d_apply,
                                      densify_schur, structured_factor_batch,
                                      transition_compress)
-from hsolve_torch.ops.hss import sample_width
+from hsolve_torch.ops.hss import HssSolver, hss_factor, hss_solve, sample_width
 from hsolve_torch.utils.trees import NDTree
 
 
@@ -147,6 +151,31 @@ class RootSolve:
     diag_ratio: Optional[torch.Tensor] = None
 
 
+@dataclasses.dataclass
+class RootHss:
+    """Root boundary solve with an HSS Schur complement
+    (``hsolve/factor.py:907-917``): a tree whose root keeps a boundary
+    (``plan.nb_root > 0``) under a compressed top batch hands up its Schur
+    complement as HSS, factored here by :func:`hss_factor` as a batch of one
+    (the JAX package keeps it unbatched).  ``ids_pad`` maps the HSS pad
+    coordinates to global dof ids, the sentinel N on the padding."""
+
+    solver: HssSolver             # batch of 1
+    ids_pad: torch.Tensor         # [n_pad] int32, sentinel N
+
+
+Root = Union[RootSolve, RootHss]
+
+
+def data_dtype(levels: List[Level], root: Optional[Root]) -> torch.dtype:
+    """The value type of a factorization's records."""
+    for lev in levels:
+        return (lev.L if isinstance(lev, DenseLevel) else lev.LU_).dtype
+    if isinstance(root, RootHss):
+        return root.solver.D_lu.dtype
+    return (root.lu if root.lu is not None else root.inv).dtype
+
+
 class SolveData(tuple):
     """``(levels, root, dperm, diperm)``: a factorization's solve data, a
     tuple that also takes attributes (``gmres_compiled`` caches the CUDA
@@ -165,7 +194,7 @@ class Factorization:
     N: int
     perm: np.ndarray
     levels: List[Level]
-    root: Optional[RootSolve]
+    root: Optional[Root]
     opts: SolverOptions
     plan: Optional[Plan]
     device: torch.device
@@ -179,30 +208,19 @@ class Factorization:
         self._solve_data = SolveData((self.levels, self.root, self._dperm,
                                       self._diperm))
 
-    def _on_device(self, b) -> torch.Tensor:
-        if isinstance(b, torch.Tensor):
-            if b.device != self.device:
-                raise ValueError(f"right-hand side on {b.device}, factorization "
-                                 f"on {self.device}")
-            return b
-        return torch.as_tensor(np.asarray(b), device=self.device)
-
     def apply_permuted(self, b) -> torch.Tensor:
-        return _apply(self.levels, self.root, self._on_device(b))
+        return _apply(self.levels, self.root, on_device(b, self.device))
 
     @property
     def dtype(self) -> torch.dtype:
         """The factors' value type."""
-        for lev in self.levels:
-            return (lev.L if isinstance(lev, DenseLevel) else lev.LU_).dtype
-        return (self.root.lu if self.root.lu is not None else self.root.inv).dtype
+        return data_dtype(self.levels, self.root)
 
     def solve(self, b) -> torch.Tensor:
         """x = F^{-1} b in the original ordering (parity with ``ldiv!``,
         factornode.jl:62-74); ``b`` is [N] or [N, k].  The sweeps run in the
         factor's type; x comes back in ``b``'s."""
-        b = self._on_device(b)
-        return solve_with_data(self.solve_data, b.to(self.dtype)).to(b.dtype)
+        return solve_in_type(self.solve_data, on_device(b, self.device))
 
     @property
     def solve_data(self) -> "SolveData":
@@ -258,7 +276,7 @@ class Factorization:
             elif lev.diag_ratio is not None:
                 ratios.append(lev.diag_ratio.max())
                 tags.append((i, torch.finfo(lev.dinv.dtype).eps))
-        if self.root is not None:
+        if isinstance(self.root, RootSolve):     # RootHss: no dense LU
             if self.root.lu is not None:
                 ratios.append(dk._diag_ratio(self.root.lu))
                 tags.append(("root", torch.finfo(self.root.lu.dtype).eps))
@@ -291,6 +309,23 @@ class Factorization:
             return torch.zeros((), device=self.device), float("inf")
         thresh = min(0.01 / eps for _, eps in tags)
         return torch.stack(ratios).max(), float(thresh)
+
+
+def on_device(b, device: torch.device) -> torch.Tensor:
+    """A right-hand side on ``device``: numpy arrays are uploaded, a tensor
+    elsewhere raises."""
+    if isinstance(b, torch.Tensor):
+        if b.device != device:
+            raise ValueError(f"right-hand side on {b.device}, factorization "
+                             f"on {device}")
+        return b
+    return torch.as_tensor(np.asarray(b), device=device)
+
+
+def solve_in_type(data, b: torch.Tensor) -> torch.Tensor:
+    """:func:`solve_with_data` in the factors' type, x in ``b``'s."""
+    levels, root = data[0], data[1]
+    return solve_with_data(data, b.to(data_dtype(levels, root))).to(b.dtype)
 
 
 def solve_with_data(data, b: torch.Tensor) -> torch.Tensor:
@@ -511,16 +546,14 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
 
 
 def _root_from_stacks(plan: Plan, tp: TorchPlan, s_stacks, dtype,
-                      opts: SolverOptions) -> Optional[RootSolve]:
+                      opts: SolverOptions) -> Optional[Root]:
     if plan.nb_root == 0:
         return None
-    if isinstance(s_stacks[len(plan.batches) - 1], SchurHss):
-        raise NotImplementedError(
-            "the root's boundary Schur complement is HSS (plan.nb_root > 0 "
-            "under a compressed top batch): RootHss, its HSS root solve, is "
-            "not ported; nested_dissection trees never give this")
+    S_top = s_stacks[len(plan.batches) - 1]
+    if isinstance(S_top, SchurHss):
+        return _root_hss(plan, S_top, tp.device)
     bnd_ids = tp.batches[-1].bnd_ids[0]
-    S_root = s_stacks[len(plan.batches) - 1][0]
+    S_root = S_top[0]
     # padded diagonal -> identity so the root LU stays well-defined
     pad = torch.arange(S_root.shape[0], device=S_root.device) >= plan.nb_root
     S_root = S_root + torch.diag(pad.to(dtype))
@@ -536,11 +569,33 @@ def _root_from_stacks(plan: Plan, tp: TorchPlan, s_stacks, dtype,
     return RootSolve(lu=lu, perm=perm, bnd_ids=bnd_ids)
 
 
+def _root_hss(plan: Plan, S_top: SchurHss, device: torch.device) -> RootHss:
+    """The HSS root solve (``hsolve/factor.py:927-943``): :func:`hss_factor`
+    of the top batch's Schur complement, and the global ids of its first
+    ``nb_root`` pad coordinates.  A structured top batch's ``bnd_ids`` are
+    child-aligned (child 1's boundary at 0, child 2's at ``cq1``); any other
+    top batch's hold the root's boundary first."""
+    last = plan.batches[-1]
+    nbr = plan.nb_root
+    bnd0 = np.asarray(last.bnd_ids[0])
+    if last.structured:
+        cq1 = last.child_cplans[0].n_pad - last.child_cplans[0].half
+        nb1r = int(last.cross["nb1"][0])
+        s = np.arange(nbr)
+        bnd0 = bnd0[np.where(s < nb1r, s, cq1 + s - nb1r)]
+    else:
+        bnd0 = bnd0[:nbr]
+    ids = np.full(S_top.cplan.n_pad, plan.N, dtype=np.int32)
+    ids[:nbr] = bnd0
+    return RootHss(solver=hss_factor(S_top.h.map(lambda a: a[:1])),
+                   ids_pad=torch.as_tensor(ids, device=device))
+
+
 # ---------------------------------------------------------------------------
 # solve sweeps
 # ---------------------------------------------------------------------------
 
-def _apply(levels: List[Level], root: Optional[RootSolve],
+def _apply(levels: List[Level], root: Optional[Root],
            b: torch.Tensor) -> torch.Tensor:
     """Hierarchical solve (parity with ``ldiv!`` + ``_lsolve!/_dsolve!/_rsolve!``,
     factornode.jl:62-99) in the post-order permutation.
@@ -548,8 +603,9 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
     Bottom-up: ``C[bnd] -= L C[int]`` then ``C[int] = D^{-1} C[int]``: one
     launch of kernel C on a dense level; kernel E around the pivot solve
     (:func:`d_apply` on a structured level) on a compressed or structured
-    one; root boundary solve; top-down: ``C[int] -= R C[bnd]`` (kernel C or
-    E).  ``C`` carries a zero sentinel row N that padded ids point at."""
+    one; root boundary solve (:func:`hss_solve`, kernel K, on a
+    :class:`RootHss`); top-down: ``C[int] -= R C[bnd]`` (kernel C or E).
+    ``C`` carries a zero sentinel row N that padded ids point at."""
     N = b.shape[0]
     vec = b.ndim == 1
     C = b[:, None] if vec else b
@@ -568,7 +624,10 @@ def _apply(levels: List[Level], root: Optional[RootSolve],
         else:
             C[lev.int_ids] = pivot_solve(lev, x)
 
-    if root is not None:
+    if isinstance(root, RootHss):
+        C[root.ids_pad] = hss_solve(root.solver, C[root.ids_pad][None])[0]
+        C[N] = 0.0                              # the padding wrote the sentinel
+    elif root is not None:
         xr = C[root.bnd_ids]                    # [nbr, k]
         C[root.bnd_ids] = root.inv @ xr if root.inv is not None else \
             dk.lu_solve(root.lu, root.perm, xr)

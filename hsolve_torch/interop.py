@@ -4,8 +4,11 @@
   (cached on the plan).  It accepts a plan from either planner: the JAX
   package's and the port's ``Plan`` have identical fields.
 - :func:`factorization_from_numpy` turns a JAX ``Factorization``'s level records
-  (dense, low-rank compressed and structured HSS), fetched to numpy, into the
-  port's, so the port's solve sweep can run on the JAX factors alone.
+  (dense, low-rank compressed and structured HSS) and root (``RootSolve`` or
+  ``RootHss``), fetched to numpy, into the port's, so the port's solve sweep
+  can run on the JAX factors alone.  The port's checkpoints
+  (:mod:`hsolve_torch.utils.checkpoint`) hold the same records as tensors
+  and load through it too.
 """
 
 from __future__ import annotations
@@ -126,26 +129,32 @@ def plan_to_torch(plan, device="cuda") -> TorchPlan:
     return tp
 
 
-def _field(rec: Any, name: str) -> Optional[np.ndarray]:
-    v = rec.get(name) if isinstance(rec, Mapping) else getattr(rec, name, None)
-    return None if v is None else np.array(v)     # a writable host copy
+def _field(rec: Any, name: str) -> Any:
+    """A record's field, None where it has none."""
+    return rec.get(name) if isinstance(rec, Mapping) else getattr(rec, name, None)
 
 
 def _get(rec: Any, name: str) -> Any:
     return rec.get(name) if isinstance(rec, Mapping) else getattr(rec, name)
 
 
+def _host(a: Any) -> Any:
+    """A tensor as it is; any other array (numpy, JAX) as a writable host
+    copy."""
+    return a if a is None or isinstance(a, torch.Tensor) else np.array(a)
+
+
 def _hss_from_numpy(rec: Any, t):
-    """A batched HSS record (fields ``D, U, V, Rs, Ws, B12s, B21s, plan``)."""
+    """A batched HSS record (fields ``D, U, V, Rs, Ws, B12s, B21s, plan``,
+    the plan an object or a mapping of its four ints)."""
     from hsolve_torch.ops.hss import ClusterPlan, Hss
 
     p = _get(rec, "plan")
-    plan = ClusterPlan(ls=int(p.ls), depth=int(p.depth), n1=int(p.n1),
-                       n2=int(p.n2))
-    lists = {f: [t(np.array(a)) for a in _get(rec, f)]
+    plan = ClusterPlan(**{f: int(_get(p, f)) for f in ("ls", "depth", "n1", "n2")})
+    lists = {f: [t(_host(a)) for a in _get(rec, f)]
              for f in ("Rs", "Ws", "B12s", "B21s")}
-    return Hss(D=t(np.array(_get(rec, "D"))), U=t(np.array(_get(rec, "U"))),
-               V=t(np.array(_get(rec, "V"))), plan=plan, **lists)
+    return Hss(D=t(_host(_get(rec, "D"))), U=t(_host(_get(rec, "U"))),
+               V=t(_host(_get(rec, "V"))), plan=plan, **lists)
 
 
 def _solver_from_numpy(rec: Any, t):
@@ -154,10 +163,10 @@ def _solver_from_numpy(rec: Any, t):
     from hsolve_torch.ops.hss import HssSolver
 
     def arr(name, dtype=None):
-        return t(np.array(_get(rec, name)), dtype)
+        return t(_host(_get(rec, name)), dtype)
 
     def lst(name, dtype=None):
-        return [t(np.array(a), dtype) for a in _get(rec, name)]
+        return [t(_host(a), dtype) for a in _get(rec, name)]
 
     return HssSolver(h=_hss_from_numpy(_get(rec, "h"), t), D_lu=arr("D_lu"),
                      D_piv=arr("D_piv", torch.int64), Phis=lst("Phis"),
@@ -177,17 +186,20 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
     compressed level, ``LU_, LV_, RU_, RV_, lrank, rrank`` in place of
     ``L, R``, or, for a structured level, the fields of
     :class:`~hsolve_torch.structured.StructuredLevel` (HSS records nested as
-    the JAX package nests them); ``root_np``: None or a record with ``lu, perm, bnd_ids, inv``;
-    ``perm``: the plan's post-order permutation."""
+    the JAX package nests them); ``root_np``: None, a record with ``lu, perm,
+    bnd_ids, inv``, or a ``RootHss`` record ``solver, ids_pad`` (the JAX
+    package's solver unbatched: it gains a batch axis of 1); ``perm``: the
+    plan's post-order permutation.  Arrays may be numpy, JAX or torch
+    arrays; a tensor already on ``device`` in its type is taken as it is."""
     from hsolve_torch.factor import (CompressedLevel, DenseLevel, Factorization,
-                                     RootSolve)
+                                     RootHss, RootSolve)
     from hsolve_torch.options import SolverOptions
     from hsolve_torch.structured import StructuredLevel
 
     device = torch.device(device)
 
     def t(a, dtype=None):
-        return None if a is None else torch.as_tensor(a, dtype=dtype,
+        return None if a is None else torch.as_tensor(_host(a), dtype=dtype,
                                                       device=device)
 
     levels = []
@@ -210,7 +222,7 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
             lu=t(_field(rec, "lu")), perm=t(_field(rec, "perm"), torch.int64),
             int_ids=t(_field(rec, "int_ids"), torch.int32),
             bnd_ids=t(_field(rec, "bnd_ids"), torch.int32),
-            dinv=t(_field(rec, "dinv")))
+            dinv=t(_field(rec, "dinv")), diag_ratio=t(_field(rec, "diag_ratio")))
         if _field(rec, "LU_") is not None:
             levels.append(CompressedLevel(
                 **common, **{f: t(_field(rec, f)) for f in
@@ -224,11 +236,19 @@ def factorization_from_numpy(levels_np: Sequence[Any], root_np: Optional[Any],
                 **common, lu=None if lu is None else lu.mT.contiguous().mT,
                 L=t(_field(rec, "L")), R=t(_field(rec, "R"))))
     root = None
-    if root_np is not None:
+    if root_np is not None and _field(root_np, "solver") is not None:
+        rs = _get(root_np, "solver")
+        # the JAX package's root solver is unbatched: leaves [nleaves, ls, ls]
+        t1 = t if _get(_get(rs, "h"), "D").ndim == 4 else \
+            (lambda a, dtype=None: t(a[None], dtype))
+        root = RootHss(solver=_solver_from_numpy(rs, t1),
+                       ids_pad=t(_field(root_np, "ids_pad"), torch.int32))
+    elif root_np is not None:
         root = RootSolve(lu=t(_field(root_np, "lu")),
                          perm=t(_field(root_np, "perm"), torch.int64),
                          bnd_ids=t(_field(root_np, "bnd_ids"), torch.int32),
-                         inv=t(_field(root_np, "inv")))
+                         inv=t(_field(root_np, "inv")),
+                         diag_ratio=t(_field(root_np, "diag_ratio")))
     return Factorization(N=len(perm), perm=np.asarray(perm), levels=levels,
                          root=root, opts=opts or SolverOptions(), plan=None,
                          device=device)

@@ -17,9 +17,13 @@
   structured (HSS) path.  The pivot loop is kernel H (``csrc/hss_cpqr.cu``,
   :func:`cpqr_pivots`, plain version :func:`cpqr_pivots_plain`).
 
+- :func:`lowrank_recompress`: re-orthogonalize and re-truncate a low-rank
+  pair (the QRs of U and V, the SVD of their small core, then kernel G's
+  truncation), on no factor path: a capability of the JAX package's API.
+
 The sketch GEMM, ``torch.linalg.qr``, ``torch.linalg.svd`` and the triangular
 solve of :func:`interp_decomp` are library calls, as the JAX package leaves them
-to ``lax.linalg``.  ``lowrank_recompress`` runs on no path and is not ported.
+to ``lax.linalg``.
 """
 
 from __future__ import annotations
@@ -128,6 +132,27 @@ def rand_lowrank(A: torch.Tensor, omega: torch.Tensor, atol: float, rtol: float,
     U, V, rank = lowrank_truncate(*map(kernels.materialized, (Q, Uw, sv, Vh)),
                                   atol, rtol, cap)
     return LowRank(U=U, V=V, rank=rank)
+
+
+def lowrank_recompress(lr: LowRank, atol: float, rtol: float,
+                       cap: int) -> LowRank:
+    """Re-orthogonalize and re-truncate a (possibly stacked) low-rank pair
+    (``hsolve/ops/lowrank.py:260-276``, the capability of the reference's
+    ``_recompress!``, factorization.jl:251-259): ``U = Qu Ru``, ``V = Qv
+    Rv``, ``svd(Ru Rv^T) = Uc s Vh``, then ``U' = Qu Uc s`` and ``V' = Qv
+    Vh^T`` truncated at ``max(atol, rtol * s_0)`` and ``cap`` and padded to
+    ``cap`` columns, as :func:`rand_lowrank` truncates (kernel G, handed
+    ``Vh Qv^T`` for ``Vh``).  Complex pairs keep the plain transpose,
+    ``A ~= U V^T``."""
+    lead = lr.U.shape[:-2]
+    Qu, Ru = torch.linalg.qr(lr.U.reshape(-1, *lr.U.shape[-2:]))
+    Qv, Rv = torch.linalg.qr(lr.V.reshape(-1, *lr.V.shape[-2:]))
+    Uc, sv, Vh = torch.linalg.svd(Ru @ Rv.transpose(-1, -2), full_matrices=False)
+    U, V, rank = lowrank_truncate(
+        *map(kernels.materialized, (Qu, Uc, sv, Vh @ Qv.transpose(-1, -2))),
+        atol, rtol, cap)
+    return LowRank(U=U.reshape(*lead, *U.shape[-2:]),
+                   V=V.reshape(*lead, *V.shape[-2:]), rank=rank.reshape(lead))
 
 
 # ---------------------------------------------------------------------------

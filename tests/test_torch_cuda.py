@@ -2251,3 +2251,79 @@ def test_complex64_compressed_slice_on_cuda(dev, hss):
                 kernels.COMPLEX_LOWRANK_MIXED_PATH
             assert all(counts.get(k, 0) > 0 for k in path), counts
     assert abs(iters[0] - iters[1]) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the HSS root solve of a boundary-root tree, and checkpoints
+# ---------------------------------------------------------------------------
+
+def _broot_case():
+    """helmholtz2d(33, k=10), leafmax 24, the root's separator in its bnd
+    (tests/test_torch_root_hss.py's case): a structured top batch, so the
+    root is a RootHss."""
+    A, b, shape = ht.helmholtz2d(33, k=10.0)
+    tree = ht.nested_dissection(shape, leafmax=24)
+    r = tree.root
+    tree.bnd_idx[r] = np.sort(np.asarray(tree.int_idx[r]))
+    tree.int_idx[r] = np.zeros(0, dtype=np.int64)
+    opts = ht.SolverOptions(swlevel=-2, swsize=1, atol=1e-6, rtol=1e-6,
+                            leafsize=16)
+    return A, b, ht.plan_factorization(A, tree, opts), opts
+
+
+def test_root_hss_on_cuda(dev):
+    """The boundary-root plan factored on the card and on the CPU (the same
+    host-drawn sketches): both roots RootHss with equal ids, equal rank
+    reports, the root's HSS within 1e-6 (the compression tolerance) of the
+    CPU's, and on the card the GMRES count within one of the CPU's to relres
+    1e-9, every kernel of ``kernels.HSS_PATH`` launched and K at every level
+    of the root's HSS in one solve."""
+    from hsolve_torch.factor import RootHss, solve_with_data
+
+    A, b, plan, opts = _broot_case()
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        kernels.reset_launch_counts()
+        F = ht.factor_with_plan(plan, opts, device=d)
+        assert isinstance(F.root, RootHss)
+        op, mv = ht.spmv_format(A, device=d)
+        x, info = ht.gmres_compiled(mv, solve_with_data,
+                                    torch.as_tensor(b, device=d), reltol=1e-9,
+                                    restart=30, maxiter=60, mv_data=op,
+                                    M_data=F.solve_data)
+        xn = x.cpu().numpy()
+        assert info["converged"]
+        assert np.linalg.norm(A @ xn - b) / np.linalg.norm(b) <= 1e-9
+        res[d.type] = (F, info["iters"], kernels.launch_counts())
+    (Fc, ic, _), (Fg, ig, counts) = res["cpu"], res["cuda"]
+    assert torch.equal(Fg.root.ids_pad.cpu(), Fc.root.ids_pad)
+    assert Fg.rank_report() == Fc.rank_report()
+    assert _rel(H.hss_todense(Fg.root.solver.h).cpu(),
+                H.hss_todense(Fc.root.solver.h)) < 1e-6
+    assert abs(ig - ic) <= 1
+    assert all(counts.get(k, 0) > 0 for k in kernels.HSS_PATH), counts
+    before = H.hss_level_correct.launches
+    Fg.solve(torch.as_tensor(b, device=dev))
+    torch.cuda.synchronize()
+    assert H.hss_level_correct.launches - before >= Fg.root.solver.h.plan.depth
+
+
+def test_checkpoint_from_the_card_to_the_cpu_and_back(dev, tmp_path):
+    """A RootHss factor saved from the card, loaded on the CPU, saved there
+    and loaded back onto the card: its solve bit for bit the live one, and
+    the CPU's load solves as the CPU's own factor of the same records."""
+    from hsolve_torch.factor import RootHss
+    from hsolve_torch.utils.checkpoint import load_solver, save_solver
+
+    A, b, plan, opts = _broot_case()
+    F = ht.factor_with_plan(plan, opts, device=dev)
+    bt = torch.as_tensor(b, device=dev)
+    p1, p2 = str(tmp_path / "card.pt"), str(tmp_path / "cpu.pt")
+    save_solver(p1, F)
+    Lc = load_solver(p1, device="cpu")
+    assert isinstance(Lc.solve_data[1], RootHss) and Lc.device.type == "cpu"
+    assert _rel(Lc.solve(b), F.solve(bt).cpu()) < 1e-10
+    save_solver(p2, Lc)
+    Lg = load_solver(p2)                     # the default device: the card
+    assert Lg.device.type == "cuda"
+    assert torch.equal(Lg.solve(bt), F.solve(bt))

@@ -194,3 +194,38 @@ def test_lowrank_sweep_update_plain_matches_jax(k):
     assert float(got_b[N].abs().max()) == 0.0
     with pytest.raises(ValueError, match="exactly one"):
         lowrank_sweep_update(_t(C), _t(ids_out), _t(U), _t(V), N)
+
+
+@pytest.mark.parametrize("lead,m,n,k,cap,complex_", [
+    ((2,), 40, 30, 20, 20, False),      # tests/test_lowrank.py:65-77's shapes
+    ((2, 3), 24, 18, 12, 16, False),    # stacked twice, padded to the cap
+    ((2,), 40, 30, 20, 20, True),
+    ((), 16, 28, 12, 8, True),          # unstacked, truncated at the cap
+])
+def test_lowrank_recompress_matches_jax(lead, m, n, k, cap, complex_):
+    """tests/test_lowrank.py:65-77 on both packages: duplicated columns give
+    a rank-k/2 pair inside a rank-k representation; the port's rank equals
+    JAX's, and its U V^T lies within 1e-12 of JAX's (products, not factors:
+    the SVD has sign freedom)."""
+    rng = np.random.default_rng(6)
+
+    def draw(*shape):
+        a = rng.standard_normal(shape)
+        return a + 1j * rng.standard_normal(shape) if complex_ else a
+
+    U = draw(*lead, m, k // 2)
+    U = np.concatenate([U, U], axis=-1)
+    V = draw(*lead, n, k)
+    rank = np.full(lead, k, dtype=np.int32)
+    jl = jlowrank.lowrank_recompress(
+        jlowrank.LowRank(U=jnp.asarray(U), V=jnp.asarray(V),
+                         rank=jnp.asarray(rank)), atol=1e-12, rtol=1e-12, cap=cap)
+    tl = tlowrank.lowrank_recompress(
+        tlowrank.LowRank(U=_t(U), V=_t(V), rank=_t(rank)), atol=1e-12,
+        rtol=1e-12, cap=cap)
+    assert tl.U.shape == tuple(jl.U.shape) and tl.V.shape == tuple(jl.V.shape)
+    assert np.array_equal(tl.rank.numpy(), np.asarray(jl.rank))
+    assert _rel(tl.todense().numpy(), np.asarray(jl.todense())) < 1e-12
+    if cap >= k:
+        assert np.all(tl.rank.numpy() == k // 2)
+        assert _rel(tl.todense().numpy(), U @ np.swapaxes(V, -1, -2)) < 1e-12

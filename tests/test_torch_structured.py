@@ -23,8 +23,7 @@ import torch
 
 import hsolve
 import hsolve_torch as ht
-from hsolve_torch.factor import (_factor_levels, _root_from_stacks,
-                                 solve_with_data)
+from hsolve_torch.factor import _factor_levels, solve_with_data
 from hsolve_torch.interop import factorization_from_numpy, plan_to_torch
 from hsolve.structured import densify_schur as jdensify_schur
 from hsolve_torch.structured import SchurHss, StructuredLevel, densify_schur
@@ -241,12 +240,3 @@ def test_structured_solve_accuracy_at_a_tight_tolerance():
     x = F.solve(b).numpy()
     assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 1e-5
 
-
-def test_root_hss_is_not_ported():
-    """A boundary root under an HSS top batch (plan.nb_root > 0, which
-    nested_dissection trees never give) names the missing RootHss instead of
-    mis-solving."""
-    plan = SimpleNamespace(nb_root=3, batches=[None])
-    with pytest.raises(NotImplementedError, match="RootHss"):
-        _root_from_stacks(plan, None, {0: SchurHss(h=None, n1=None, n2=None)},
-                          torch.float64, ht.SolverOptions())

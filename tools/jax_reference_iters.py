@@ -76,6 +76,16 @@ helmholtz3d(n, k) on an n^3 mesh, the same leafmax):
     JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --problem helmholtz3d \
         --k 10 --sizes 48 --config lowrank-default
 
+``--broot`` moves the root's separator into its boundary before planning,
+the tree the reference's elimination-tree files may hold
+(``plan.nb_root > 0``): under a compressed top batch the root solve is then
+the HSS ``RootHss``.  ``--level-caps`` sets the planner's ``level_caps``
+(the first entry caps the root level, the last every deeper one).
+chip_smoke.py's ``hss-broot`` path is held to
+
+    JAX_PLATFORMS=cpu python tools/jax_reference_iters.py --config hss \
+        --broot --level-caps 192 48 --sizes 128
+
 Prints one JSON line per size.
 """
 
@@ -96,6 +106,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import hsolve  # noqa: E402
+from chip_smoke import boundary_root  # noqa: E402  (imports no JAX, no port)
 
 solve_with_data = importlib.import_module("hsolve.factor").solve_with_data
 
@@ -115,6 +126,13 @@ def problem(args, n: int):
 COMPRESSED_OPTIONS = {
     "lowrank": dict(kest=32, hss=False), "hss": dict(kest=32, hss=True),
     "hss-default": dict(hss=True), "lowrank-default": dict(hss=False)}
+
+
+def tree_of(args, shape):
+    """nested_dissection's tree (leafmax 100); with ``--broot`` the root's
+    separator moved into its boundary."""
+    tree = hsolve.nested_dissection(shape, leafmax=100)
+    return boundary_root(tree) if args.broot else tree
 
 
 def compressed_options(config: str) -> dict:
@@ -137,8 +155,7 @@ def run(args, n: int) -> dict:
     mixed = args.config.endswith("-f32-mixed")
     opts = hsolve.SolverOptions(swlevel=0) if args.config.startswith(
         "exact") else hsolve.SolverOptions(**compressed_options(args.config))
-    plan = hsolve.plan_factorization(A, hsolve.nested_dissection(shape, leafmax=100),
-                                     opts)
+    plan = hsolve.plan_factorization(A, tree_of(args, shape), opts)
     fdt = narrow if mixed else wide
     t0 = time.perf_counter()
     F = hsolve.factor_with_plan(plan, opts, dtype=fdt)
@@ -182,9 +199,12 @@ def run(args, n: int) -> dict:
 def run_compressed_default(args, n: int) -> dict:
     A, b, shape = problem(args, n)
     b = np.asarray(b)
-    tree = hsolve.nested_dissection(shape, leafmax=100)
+    tree = tree_of(args, shape)
+    opts = compressed_options(args.config)
+    if args.level_caps:
+        opts["level_caps"] = tuple(args.level_caps)
     t0 = time.perf_counter()
-    F = hsolve.factor(A, tree, **compressed_options(args.config))
+    F = hsolve.factor(A, tree, **opts)
     jax.block_until_ready(F.solve_data)
     factor_s = time.perf_counter() - t0
     op, _ = hsolve.spmv_format(
@@ -198,6 +218,8 @@ def run_compressed_default(args, n: int) -> dict:
     report = F.rank_report()
     return {"n": n, "N": int(A.shape[0]), "problem": args.problem,
             "config": args.config, "damping": args.damping,
+            "broot": args.broot, "level_caps": args.level_caps,
+            "root": type(F.root).__name__,
             "iters": int(info["iters"]), "converged": bool(info["converged"]),
             "relres": float(np.linalg.norm(b - A @ x) / np.linalg.norm(b)),
             "max_rank": F.maxrank(), "saturated": report["saturated"],
@@ -219,6 +241,10 @@ def main() -> None:
     ap.add_argument("--damping", type=float, default=0.0,
                     help="helmholtz2d's impedance damping: > 0 gives the "
                          "complex system")
+    ap.add_argument("--broot", action="store_true",
+                    help="move the root's separator into its boundary")
+    ap.add_argument("--level-caps", type=int, nargs="+", default=None,
+                    help="the planner's level_caps (compressed configs)")
     args = ap.parse_args()
     if args.damping > 0 and args.problem != "helmholtz2d":
         ap.error("--damping runs the helmholtz2d configs")
