@@ -201,6 +201,17 @@ Phases (any failure exits non-zero before the result line is printed):
    iteration counts (``MAX_ITERS``), and a compressed one saturate no rank
    cap (a 3D one no cap below its block's full rank, min(ni_pad, nb_pad):
    a rank at a full-rank cap truncates nothing and is logged as such);
+6. dist (before the output lines): the multi-device path
+   (``hsolve_torch.parallel``) at n=512, exact and structured (kest=32)
+   float64, the tree axis the rank count: on a machine of one card two
+   ranks sharing it over gloo and one rank over NCCL (NCCL takes one rank a
+   card), else one rank a card over NCCL; each run's relres (<= 1e-9), its
+   GMRES iterations (equal to one card's on the same padded plan), x
+   against one card's (1e-10), the gathered records' largest difference
+   from one card's, the bytes exchanged per batch beside
+   ``collective_estimate``'s (equal on the exact path), every rank's kernel
+   launches (each of the path's kernels at least once) and the factor and
+   solve seconds, a mechanics reading, not a scaling one;
 5. output: a JSON line with one entry per kernel (a typed kernel's float32
    numbers in its row, its complex128 and complex64 instances and E-K's
    float32 ones in rows of their own, ``<name>:complex128``,
@@ -462,12 +473,24 @@ PATHS = (("exact", "EXACT_PATH", None),
          ("lowrank-3d", "COMPRESSED_PATH", [LOWRANK3D]),
          ("hss-3d", "HSS_PATH", [HSS3D]),
          ("hss-3d-f32-mixed", "HSS_MIXED_PATH", [HSS3D]))
-# phase 3's groups of checks (``--checks``): the real 2D plans (float64 and
+# groups of checks (``--checks``): phase 3's real 2D plans (float64 and
 # the float32 exact kernels), the damped system in complex128 (and A-D, L,
 # M in complex64), E-K in float32, E-K in complex64, the control kernels,
-# the 3D plans
+# the 3D plans; and phase 6, the multi-device path
 CHECKS = ("real", "complex", "float32-compressed", "complex64-compressed",
-          "control", "3d")
+          "control", "3d", "dist")
+# phase 6: the tree-sharded factor and solve at full width, n=512 exact and
+# structured (kest=32) float64, tree = the rank count; the kernels each rank
+# must launch (the host loop of krylov.gmres runs no Arnoldi kernel)
+DIST_N = 512
+DIST_PATHS = {"exact": ("front_assemble", "extend_add", "level_forward",
+                        "sweep_update", "dia_spmv"),
+              "hss": ("front_assemble", "extend_add", "level_forward",
+                      "sweep_update", "dia_spmv", "lowrank_sweep_update",
+                      "lowrank_schur_update", "lowrank_truncate",
+                      "cpqr_pivots", "hss_entries_prepared", "hss_matvec",
+                      "hss_level_correct")}
+DIST_RECORDS = 1e-10   # exact: gathered records against one device's, relative
 
 
 def expected_rows() -> list:
@@ -1641,9 +1664,9 @@ def _hss_checked(plan, tp, opts, dev, b, label, results: Results, dtype):
                 f"{label} {where['tag']}", key, ef, rows_, cols, results)))
         return orig[5](ef, rows_, cols)
 
-    def run_rec(bp, tb, s_stacks, opts_, dtype, bidx, sketch):
+    def run_rec(bp, tb, sh1, sh2, opts_, dtype, bidx, sketch, *rows):
         where["tag"] = f"batch {bidx}"
-        return orig[2](bp, tb, s_stacks, opts_, dtype, bidx, sketch)
+        return orig[2](bp, tb, sh1, sh2, opts_, dtype, bidx, sketch, *rows)
 
     def trans_rec(S_, n1, n2, cplan, atol, rtol, cap):
         where["tag"] = "transition"
@@ -2663,6 +2686,171 @@ def main_path(problems: Problems, n, dev, path: str, card: str) -> dict:
     return res
 
 
+def records_diff(a, b) -> tuple:
+    """(largest |a - b|, largest |b|) over two factor records' tensors,
+    walked through their dataclasses and lists (integer tensors: the count
+    of entries that differ, as a difference)."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(a):
+        parts = [records_diff(getattr(a, f.name), getattr(b, f.name))
+                 for f in dataclasses.fields(a) if not f.name.startswith("_")]
+    elif isinstance(a, list):
+        parts = [records_diff(x, y) for x, y in zip(a, b, strict=True)]
+    elif isinstance(a, torch.Tensor) and a.numel():
+        if a.shape != b.shape:
+            raise ValueError(f"record shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+        if not (a.is_floating_point() or a.is_complex()):
+            return float((a != b).sum()), 0.0
+        return (float((a - b).abs().max()), float(b.abs().max()))
+    else:
+        return 0.0, 0.0
+    return (max((d for d, _ in parts), default=0.0),
+            max((m for _, m in parts), default=0.0))
+
+
+def dist_rank(n: int, paths, device: str = "cuda") -> dict:
+    """Phase 6, one rank: per path, the factor of helmholtz2d(n, k=40) on a
+    tree mesh of every rank (the plan padded to the tree axis), GMRES with
+    it to RELRES, each rank's kernel launches; rank 0 then factors the same
+    padded plan on its card alone and compares the gathered records, the
+    iterations and x.  Returns the readings by path."""
+    from hsolve_torch.parallel.dist import make_mesh
+
+    mesh = make_mesh(device=device)
+    return {path: _dist_path(n, path, mesh, device) for path in paths}
+
+
+def _dist_path(n: int, path: str, mesh, device: str) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import hsolve_torch as ht
+    from hsolve_torch import kernels
+    from hsolve_torch.parallel.dist import rank_device
+    from hsolve_torch.utils.profiling import collective_estimate
+
+    dev = rank_device(device)
+    A, b, shape = ht.helmholtz2d(n, k=40.0)
+    opts = ht.SolverOptions(**OPTIONS[path])
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 opts, batch_multiple=mesh.size(0))
+    op, mv = ht.spmv_format(A, device=dev)
+    bt = torch.as_tensor(np.asarray(b), device=dev)
+
+    def solve(M):
+        return ht.gmres(lambda v: mv(op, v), bt, M=M, reltol=RELRES,
+                        restart=30, maxiter=MAX_ITERS.get(path, {}).get(n, 30))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    F = ht.factor_with_plan(plan, opts, device=dev, mesh=mesh)
+    sync()
+    t1 = time.perf_counter()
+    x, info = solve(F.solve)
+    sync()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    xs = x.cpu().numpy()
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": str(dist.get_backend()), "device": str(dev),
+           "factor_s": t1 - t0, "solve_s": t2 - t1, "iters": info["iters"],
+           "converged": info["converged"],
+           "relres": float(np.linalg.norm(A @ xs - b) / np.linalg.norm(b)),
+           "launches": {k: counts.get(k, 0) for k in DIST_PATHS[path]},
+           "bytes": list(F.factor_bytes), "solve_bytes": F.solve_bytes(),
+           "exchange_s": sum(F.factor_wait_s),
+           "estimate": [int(lv["comm_bytes"]) for lv in collective_estimate(
+               plan, mesh.size(0), 8)["per_level"]]}
+    G = F.gather_levels()
+    del F
+    if G is not None:
+        F1 = ht.factor_with_plan(plan, opts, device=dev)
+        x1, info1 = solve(F1.solve)
+        d, m = records_diff(G.levels, F1.levels)
+        dr, mr = records_diff(G.root, F1.root) if F1.root is not None \
+            else (0.0, 0.0)
+        out.update(iters_single=info1["iters"],
+                   x_diff=float(torch.linalg.vector_norm(x - x1)
+                                / torch.linalg.vector_norm(x1)),
+                   records_diff=max(d, dr), records_max=max(m, mr))
+    return out
+
+
+def check_dist(dev_count: int) -> list:
+    """Phase 6: the multi-device path at full width.  With several cards,
+    one rank a card over NCCL; on a machine of one card (NCCL takes one
+    rank a card) two ranks share it over gloo, whose collectives stage CUDA
+    tensors through the host, and one rank runs over NCCL.  Every rank is a
+    process started by ``spawn`` after the kernels were built here."""
+    from hsolve_torch.parallel.dist import run_ranks
+
+    configs = [("nccl", dev_count)] if dev_count > 1 else \
+        [("gloo", 2), ("nccl", 1)]
+    rows = []
+    for backend, world in configs:
+        t0 = time.perf_counter()
+        runs = run_ranks(dist_rank, world, DIST_N, tuple(DIST_PATHS),
+                         device="cuda", backend=backend, timeout=400)
+        log(f"[6] {world} rank(s) over {backend}: {time.perf_counter() - t0:.1f}"
+            " s for both paths, the ranks' start included")
+        for path in DIST_PATHS:
+            res = [run[path] for run in runs]
+            r0 = res[0]
+            label = f"n={DIST_N} {path} on {world} rank(s) over {backend}"
+            log(f"[6] {label}: relres {r0['relres']:.3e}, {r0['iters']} "
+                f"iterations (one card alone: {r0['iters_single']}), x "
+                f"within {r0['x_diff']:.3e} of one card's, gathered records "
+                f"within {r0['records_diff']:.3e} (of max "
+                f"{r0['records_max']:.3e})")
+            log(f"  {label}: bytes exchanged per batch {r0['bytes']} "
+                f"(collective_estimate {r0['estimate']}); solve sums per "
+                f"level {r0['solve_bytes']} bytes an application")
+            for r in res:
+                log(f"  {label}, rank {r['rank']} on {r['device']}: factor "
+                    f"{r['factor_s']:.4f} s ({r['exchange_s']:.4f} s of it in "
+                    f"the exchanges), solve {r['solve_s']:.4f} s "
+                    f"(a mechanics reading: the ranks share one host"
+                    f"{' and one card' if dev_count == 1 else ''}, so no "
+                    f"scaling); launches {r['launches']}")
+                missing = [k for k, v in r["launches"].items() if v <= 0]
+                if missing:
+                    fail(f"{label}: rank {r['rank']} never launched {missing}")
+                if r["relres"] > RELRES or not r["converged"]:
+                    fail(f"{label}: rank {r['rank']} relres {r['relres']:.3e}")
+                if r["iters"] != r0["iters_single"]:
+                    fail(f"{label}: {r['iters']} iterations, one card "
+                         f"{r0['iters_single']}")
+            if r0["x_diff"] > XDIFF:
+                fail(f"{label}: x {r0['x_diff']:.3e} from one card's")
+            if path == "exact" and r0["records_diff"] > \
+                    DIST_RECORDS * r0["records_max"]:
+                fail(f"{label}: gathered records {r0['records_diff']:.3e} "
+                     "from one card's")
+            if path == "exact" and r0["bytes"][:len(r0["estimate"])] != \
+                    r0["estimate"]:
+                fail(f"{label}: {r0['bytes']} bytes exchanged, the estimate "
+                     f"{r0['estimate']}")
+            rows.append({"path": path, "n": DIST_N, "backend": backend,
+                         "ranks": world, **{k: r0[k] for k in (
+                             "relres", "iters", "iters_single", "x_diff",
+                             "records_diff", "bytes", "estimate",
+                             "solve_bytes")},
+                         "factor_s": [r["factor_s"] for r in res],
+                         "exchange_s": [r["exchange_s"] for r in res],
+                         "solve_s": [r["solve_s"] for r in res]})
+    return rows
+
+
 def check_bench(argv) -> dict:
     """One run of ``python -m hsolve_torch.bench`` in a subprocess: its last
     line must be ``bench.py``'s JSON line from the card, relres <= 1e-9, no
@@ -2891,6 +3079,11 @@ def main() -> int:
         runs_bench = check_bench(argv)
         log(f"  bench: {json.dumps(runs_bench)}")
 
+    if "dist" in checks:
+        log("[6] the multi-device path: the tree-sharded factor and solve "
+            f"(hsolve_torch.parallel) at n={DIST_N}")
+        dist_rows = check_dist(torch.cuda.device_count())
+        log("[6] dist runs: " + json.dumps(dist_rows))
     table = kernel_table(runs, kres)
     log("[5] main path runs: " + json.dumps(
         [{k: v for k, v in r.items() if k != "launches"} for r in runs]))

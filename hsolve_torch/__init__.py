@@ -17,7 +17,9 @@ hand-written CUDA kernels and the GMRES loop's control kernels live in
 card ``gmres_compiled`` runs the whole solve as one CUDA graph.  A tree whose
 root keeps a boundary (the reference's elimination-tree files,
 ``read_problem``) ends in the HSS root solve ``factor.RootHss``;
-:mod:`hsolve_torch.utils.checkpoint` saves and loads factorizations.
+:mod:`hsolve_torch.utils.checkpoint` saves and loads factorizations;
+:mod:`hsolve_torch.parallel` shards the factorization and its solve over the
+ranks of a device mesh (``factor(..., mesh=)``, ``torch.distributed``).
 """
 
 from hsolve_torch.options import SolverOptions

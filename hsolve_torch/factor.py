@@ -251,10 +251,10 @@ class Factorization:
         out = {"levels": [], "saturated": False}
         if not comp:
             return out
-        ranks = torch.stack([
+        ranks = self._global_max(torch.stack([
             lev.rank_maxed.max() if isinstance(lev, StructuredLevel)
             else torch.maximum(lev.lrank.max(), lev.rrank.max())
-            for _, lev in comp]).cpu().tolist()
+            for _, lev in comp])).cpu().tolist()
         for (i, lev), mr in zip(comp, ranks):
             cap = lev.rank_cap if isinstance(lev, StructuredLevel) \
                 else lev.LU_.shape[-1]
@@ -263,6 +263,11 @@ class Factorization:
                                   "saturated": sat})
             out["saturated"] = out["saturated"] or sat
         return out
+
+    def _global_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the devices holding the levels (one
+        here; every rank on a mesh)."""
+        return t
 
     def _cond_device(self):
         """Per-level pivot diag ratios as device scalars + (tag, eps) labels."""
@@ -339,7 +344,11 @@ def solve_with_data(data, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _factor_front(front: torch.Tensor, sperm: torch.Tensor, ni_pad: int,
-                  explicit_inv: bool = False, fast_inverse: bool = False):
+                  explicit_inv: bool = False, fast_inverse: bool = False,
+                  schur: Callable = dk.schur_complement):
+    """One dense level: LU of ``D``, the Gauss transforms and
+    ``schur(Abb, Abi, R)`` permuted (on a mesh ``schur`` may split the
+    product's rows over the ranks of a front group)."""
     D = front[:, :ni_pad, :ni_pad]
     Aib = front[:, :ni_pad, ni_pad:]
     Abi = front[:, ni_pad:, :ni_pad]
@@ -348,7 +357,7 @@ def _factor_front(front: torch.Tensor, sperm: torch.Tensor, ni_pad: int,
         dinv, ratio = dk.block_inverse(D)
         R = (dinv @ Aib).contiguous()
         L = (Abi @ dinv).contiguous()
-        S = dk.permute_sym(dk.schur_complement(Abb, Abi, R), sperm)
+        S = dk.permute_sym(schur(Abb, Abi, R), sperm)
         return None, None, L, R, S, dinv, ratio
     lu, perm = dk.lu_factor(D)
     # row-major copies: the solve sweeps (kernel C) stream L, R and dinv by
@@ -356,7 +365,7 @@ def _factor_front(front: torch.Tensor, sperm: torch.Tensor, ni_pad: int,
     # reads lu column-major, as the LU returns it
     R = dk.lu_solve(lu, perm, Aib).contiguous()
     L = dk.lu_solve_right(lu, perm, Abi).contiguous()
-    S = dk.permute_sym(dk.schur_complement(Abb, Abi, R), sperm)
+    S = dk.permute_sym(schur(Abb, Abi, R), sperm)
     if explicit_inv:
         # the solve sweeps use only dinv: the level keeps no lu/perm
         return (None, None, L, R, S, dk.lu_inverse(lu, perm).contiguous(),
@@ -430,57 +439,99 @@ def torch_sketch(seed: int, device: torch.device, dtype: torch.dtype) -> Sketch:
     return draw
 
 
-def _gather_schur(groups, s_stacks, B: int) -> SchurHss:
-    """The child SchurHss rows of a structured batch: children may live in
-    several source batches, all on one cluster plan (a planner invariant);
-    every row of the batch is covered by exactly one group."""
-    assert groups, "structured batch requires child sources"
-    out = None
-    for src_batch, src_rows, dst_rows in groups:
-        src = s_stacks[src_batch]
-        assert isinstance(src, SchurHss), \
-            "structured batch fed by a non-HSS source (planner invariant)"
-        sel = src.select(src_rows)
-        if out is None and len(groups) == 1:
-            return sel
-        if out is None:
-            out = SchurHss(h=sel.h.map(lambda a: a.new_zeros((B,) + a.shape[1:])),
-                           n1=sel.n1.new_zeros(B), n2=sel.n2.new_zeros(B))
-        dst = dst_rows.long()
-        for a, v in zip(out.h.arrays() + [out.n1, out.n2],
-                        sel.h.arrays() + [sel.n1, sel.n2]):
-            a[dst] = v
+def schur_sources(groups, B: int):
+    """A structured batch's child groups as ``(src_batch, src_rows,
+    dst_rows)`` numpy triples, and the mask of the rows no group covers
+    (dummy fronts, ``batch_multiple``).  Those rows read row 0 of the first
+    group's source with content sizes 0, as the JAX package's masked
+    selects leave them (``hsolve/factor.py:467-502``): a copy of a real
+    child keeps the dummy's HSS factor finite."""
+    parts = [(int(g.src_batch), np.asarray(g.src_rows, dtype=np.int64),
+              np.asarray(g.dst_rows, dtype=np.int64)) for g in groups]
+    assert parts, "structured batch requires child sources"
+    dummy = np.ones(B, dtype=bool)
+    for _, _, d in parts:
+        dummy[d] = False
+    if dummy.any():
+        sb, src, dst = parts[0]
+        extra = np.flatnonzero(dummy)
+        parts[0] = (sb, np.concatenate([src, np.zeros_like(extra)]),
+                    np.concatenate([dst, extra]))
+    return parts, dummy
+
+
+def merge_schur(parts, dummy: np.ndarray) -> SchurHss:
+    """One SchurHss from ``(rows, dst_rows)`` parts that cover its rows once
+    each (children may live in several source batches, all on one cluster
+    plan: a planner invariant); ``dummy`` rows get content sizes 0."""
+    B = len(dummy)
+    if len(parts) == 1 and np.array_equal(parts[0][1], np.arange(B)):
+        out = parts[0][0]
+    else:
+        sel = parts[0][0]
+        out = SchurHss(h=sel.h.map(lambda a: a.new_zeros((B,) + a.shape[1:])),
+                       n1=sel.n1.new_zeros(B), n2=sel.n2.new_zeros(B))
+        for sel, dst in parts:
+            dst = torch.as_tensor(dst, device=sel.n1.device)
+            for a, v in zip(out.h.arrays() + [out.n1, out.n2],
+                            sel.h.arrays() + [sel.n1, sel.n2]):
+                a[dst] = v
+    if dummy.any():
+        keep = torch.as_tensor(~dummy, device=out.n1.device)
+        out = SchurHss(h=out.h, n1=torch.where(keep, out.n1, 0),
+                       n2=torch.where(keep, out.n2, 0))
     return out
 
 
-def _run_structured(bp, tb, s_stacks, opts: SolverOptions, dtype, bidx: int,
-                    sketch: Sketch):
+def _gather_schur(groups, s_stacks, B: int) -> SchurHss:
+    """The child SchurHss rows of a structured batch (:func:`schur_sources`,
+    :func:`merge_schur`)."""
+    parts, dummy = schur_sources(groups, B)
+    sel = []
+    for sb, src, dst in parts:
+        S = s_stacks[sb]
+        assert isinstance(S, SchurHss), \
+            "structured batch fed by a non-HSS source (planner invariant)"
+        sel.append((S.select(torch.as_tensor(src, device=S.n1.device)), dst))
+    return merge_schur(sel, dummy)
+
+
+def _run_structured(bp, tb, sh1: SchurHss, sh2: SchurHss, opts: SolverOptions,
+                    dtype, bidx: int, sketch: Sketch, held: slice = slice(None)):
     """One structured batch (``hsolve/factor.py:876-903``): the 8 cross
     couplings as EXACT skinny pairs ``A_blk = U V^T`` (``U`` the one-hot
     selector of the nonzero rows, ``V^T`` the value strip scattered from the
-    planner's COO), the sketches, then :func:`structured_factor_batch`."""
-    sh1 = _gather_schur(tb.groups_l, s_stacks, bp.B)
-    sh2 = _gather_schur(tb.groups_r, s_stacks, bp.B)
+    planner's COO), the sketches, then :func:`structured_factor_batch`.
+    ``tb`` holds the fronts ``held`` of the batch (all of them on one
+    device); the sketches are drawn for the batch's real fronts and sliced,
+    so a rank's fronts see the draws of a one-device factor, and a padded
+    plan's (``batch_multiple``) those of the unpadded plan."""
     dev = tb.int_ids.device
+    Bl = tb.int_ids.shape[0]
     cross = {}
     for name in cross_block_shapes(bp.child_cplans):
         spec = bp.cross[name]
         r_, c_, rcap = spec["r"], spec["c"], spec["rcap"]
         rows, pos, vals = tb.cross[name]
-        flat = torch.zeros(bp.B * rcap * c_, dtype=dtype, device=dev)
+        flat = torch.zeros(Bl * rcap * c_, dtype=dtype, device=dev)
         flat[pos] = vals.to(dtype)
-        strip = flat.reshape(bp.B, rcap, c_)
+        strip = flat.reshape(Bl, rcap, c_)
         U = (rows[:, None, :] == torch.arange(r_, device=dev)[None, :, None]
              ).to(dtype)                                       # [B, r, rcap]
         cross[name] = (U, strip.transpose(-1, -2).contiguous())  # V [B, c, rcap]
+    # the batch's real fronts draw as an unpadded plan's do; a dummy front
+    # (batch_multiple) reuses front 0's draws
+    B0 = len(bp.node_ids)
     sketches = []
     for tag, plan_ in ((203, bp.child_cplans[1]), (202, bp.cplan)):
         # S22' lives on child 2's interior half: its plan is one level shallower
         n = plan_.half if tag == 203 else plan_.n_pad
         s = min(sample_width(plan_, bp.rank_cap, opts.kest,
                              max(opts.stepsize, 8)), n)
-        sketches.append(tuple(o.to(device=dev, dtype=dtype) for o in sketch(
-            (7000 + bidx, tag), (bp.B, n, s), (bp.B, n, s))))
+        sketches.append(tuple(
+            torch.cat([o, o[:1].expand(bp.B - B0, -1, -1)])[held].to(
+                device=dev, dtype=dtype)
+            for o in sketch((7000 + bidx, tag), (B0, n, s), (B0, n, s))))
     return structured_factor_batch(
         sh1, sh2, cross, tb.smap, bp.cplan, tb.n1, tb.n2, tb.int_ids,
         tb.bnd_ids, opts.atol, opts.rtol, bp.rank_cap, *sketches)
@@ -490,14 +541,16 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
                    dtype: torch.dtype, sketch: Optional[Sketch] = None):
     """Run the schedule; returns (levels, root, Schur stacks by batch)."""
     adata = tp.adata.to(dtype)
-    fastinv = opts.resolve_fast_inverse()
     if sketch is None:
         sketch = torch_sketch(opts.seed, tp.device, dtype)
     levels: List[Level] = []
     s_stacks: Dict[int, torch.Tensor] = {}
     for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
         if bp.structured:
-            lev, S = _run_structured(bp, tb, s_stacks, opts, dtype, bidx, sketch)
+            lev, S = _run_structured(
+                bp, tb, _gather_schur(bp.groups_l, s_stacks, bp.B),
+                _gather_schur(bp.groups_r, s_stacks, bp.B), opts, dtype, bidx,
+                sketch)
             levels.append(lev)
             s_stacks[bidx] = S
             continue
@@ -517,32 +570,39 @@ def _factor_levels(plan: Plan, tp: TorchPlan, opts: SolverOptions,
                     src_rows = torch.arange(src.shape[0], dtype=torch.int32,
                                             device=src.device)
                 extend_add(front, src, src_rows, dst_rows, imap, rows)
-        if bp.compress:
-            shapes = [(n, sketch_width(bp.rank_cap, n))
-                      for n in (bp.ni_pad, bp.nb_pad)]
-            om_bi, om_ib = (o.to(device=tp.device, dtype=dtype)
-                            for o in sketch(bidx, *shapes))
-            (lu, perm, LU_, LV_, RU_, RV_, lrank, rrank, S, dinv,
-             ratio) = _factor_front_compressed(
-                front, tb.sperm, bp.ni_pad, bp.rank_cap, opts.c_tol * opts.atol,
-                opts.c_tol * opts.rtol, om_bi, om_ib, opts.explicit_inverse,
-                fastinv)
-            levels.append(CompressedLevel(
-                lu=lu, perm=perm, LU_=LU_, LV_=LV_, RU_=RU_, RV_=RV_,
-                lrank=lrank, rrank=rrank, int_ids=tb.int_ids,
-                bnd_ids=tb.bnd_ids, dinv=dinv, diag_ratio=ratio))
-            if bp.cplan is not None and opts.hss:
-                S = transition_compress(S, tb.n1, tb.n2, bp.cplan, opts.atol,
-                                        opts.rtol, bp.rank_cap)
-        else:
-            lu, perm, L, R, S, dinv, ratio = _factor_front(
-                front, tb.sperm, bp.ni_pad, opts.explicit_inverse, fastinv)
-            levels.append(DenseLevel(lu=lu, perm=perm, L=L, R=R,
-                                     int_ids=tb.int_ids, bnd_ids=tb.bnd_ids,
-                                     dinv=dinv, diag_ratio=ratio))
-        s_stacks[bidx] = S
+        lev, s_stacks[bidx] = _factor_regular(bp, tb, front, opts, dtype, bidx,
+                                              sketch)
+        levels.append(lev)
     root = _root_from_stacks(plan, tp, s_stacks, dtype, opts)
     return levels, root, s_stacks
+
+
+def _factor_regular(bp, tb, front: torch.Tensor, opts: SolverOptions, dtype,
+                    bidx: int, sketch: Sketch,
+                    schur: Callable = dk.schur_complement):
+    """A dense or low-rank compressed batch's numeric step on its assembled
+    ``front`` (the fronts ``tb`` holds); returns (level record, S), S in HSS
+    form where a structured parent reads it."""
+    fastinv = opts.resolve_fast_inverse()
+    if not bp.compress:
+        lu, perm, L, R, S, dinv, ratio = _factor_front(
+            front, tb.sperm, bp.ni_pad, opts.explicit_inverse, fastinv, schur)
+        return DenseLevel(lu=lu, perm=perm, L=L, R=R, int_ids=tb.int_ids,
+                          bnd_ids=tb.bnd_ids, dinv=dinv, diag_ratio=ratio), S
+    shapes = [(n, sketch_width(bp.rank_cap, n)) for n in (bp.ni_pad, bp.nb_pad)]
+    om_bi, om_ib = (o.to(device=front.device, dtype=dtype)
+                    for o in sketch(bidx, *shapes))
+    (lu, perm, LU_, LV_, RU_, RV_, lrank, rrank, S, dinv,
+     ratio) = _factor_front_compressed(
+        front, tb.sperm, bp.ni_pad, bp.rank_cap, opts.c_tol * opts.atol,
+        opts.c_tol * opts.rtol, om_bi, om_ib, opts.explicit_inverse, fastinv)
+    lev = CompressedLevel(lu=lu, perm=perm, LU_=LU_, LV_=LV_, RU_=RU_, RV_=RV_,
+                          lrank=lrank, rrank=rrank, int_ids=tb.int_ids,
+                          bnd_ids=tb.bnd_ids, dinv=dinv, diag_ratio=ratio)
+    if bp.cplan is not None and opts.hss:
+        S = transition_compress(S, tb.n1, tb.n2, bp.cplan, opts.atol,
+                                opts.rtol, bp.rank_cap)
+    return lev, S
 
 
 def _root_from_stacks(plan: Plan, tp: TorchPlan, s_stacks, dtype,
@@ -607,23 +667,39 @@ def _apply(levels: List[Level], root: Optional[Root],
     :class:`RootHss`); top-down: ``C[int] -= R C[bnd]`` (kernel C or E).
     ``C`` carries a zero sentinel row N that padded ids point at."""
     N = b.shape[0]
-    vec = b.ndim == 1
-    C = b[:, None] if vec else b
-    C = torch.cat([C, C.new_zeros((1, C.shape[1]))], dim=0)
-
+    C = sweep_buffer(b)
     for lev in levels:
-        if isinstance(lev, DenseLevel):
-            level_forward(C, lev, N)
-            continue
-        x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
-        lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
-        if isinstance(lev, StructuredLevel):
-            C[lev.int_ids] = d_apply(lev, x)
-            # padded ids all write the sentinel row; keep it zero
-            C[N] = 0.0
-        else:
-            C[lev.int_ids] = pivot_solve(lev, x)
+        forward_step(C, lev, N)
+    root_step(C, root, N)
+    for lev in reversed(levels):
+        backward_step(C, lev, N)
+    C = C[:N]
+    return C[:, 0] if b.ndim == 1 else C
 
+
+def sweep_buffer(b: torch.Tensor) -> torch.Tensor:
+    """``b`` as ``[N + 1, k]`` with the zero sentinel row N."""
+    C = b[:, None] if b.ndim == 1 else b
+    return torch.cat([C, C.new_zeros((1, C.shape[1]))], dim=0)
+
+
+def forward_step(C: torch.Tensor, lev: Level, N: int) -> None:
+    """One level of the bottom-up sweep, in place on ``C``."""
+    if isinstance(lev, DenseLevel):
+        level_forward(C, lev, N)
+        return
+    x = C[lev.int_ids]                      # [B, ni_pad, k], before the solve
+    lowrank_sweep_update(C, lev.bnd_ids, lev.LU_, lev.LV_, N, X=x)
+    if isinstance(lev, StructuredLevel):
+        C[lev.int_ids] = d_apply(lev, x)
+        # padded ids all write the sentinel row; keep it zero
+        C[N] = 0.0
+    else:
+        C[lev.int_ids] = pivot_solve(lev, x)
+
+
+def root_step(C: torch.Tensor, root: Optional[Root], N: int) -> None:
+    """The root boundary solve, in place on ``C``."""
     if isinstance(root, RootHss):
         C[root.ids_pad] = hss_solve(root.solver, C[root.ids_pad][None])[0]
         C[N] = 0.0                              # the padding wrote the sentinel
@@ -632,15 +708,14 @@ def _apply(levels: List[Level], root: Optional[Root],
         C[root.bnd_ids] = root.inv @ xr if root.inv is not None else \
             dk.lu_solve(root.lu, root.perm, xr)
 
-    for lev in reversed(levels):
-        if isinstance(lev, DenseLevel):
-            sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
-        else:
-            lowrank_sweep_update(C, lev.int_ids, lev.RU_, lev.RV_, N,
-                                 ids_in=lev.bnd_ids)
 
-    C = C[:N]
-    return C[:, 0] if vec else C
+def backward_step(C: torch.Tensor, lev: Level, N: int) -> None:
+    """One level of the top-down sweep, in place on ``C``."""
+    if isinstance(lev, DenseLevel):
+        sweep_update(C, lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
+    else:
+        lowrank_sweep_update(C, lev.int_ids, lev.RU_, lev.RV_, N,
+                             ids_in=lev.bnd_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -655,8 +730,8 @@ def _torch_dtype(dtype, plan: Plan) -> torch.dtype:
 
 
 def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
-                     device="cuda", sketch: Optional[Sketch] = None
-                     ) -> Factorization:
+                     device="cuda", sketch: Optional[Sketch] = None,
+                     mesh=None) -> Factorization:
     """Execute the planner's schedule on ``device`` ("cuda[:i]", the
     default, or "cpu"); a missing card raises.
 
@@ -668,8 +743,19 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
     factors in complex128 or complex64 on exact, low-rank and structured
     levels alike, on either device.  ``sketch`` replaces the default
     sketches of the compressed batches (see :data:`Sketch` and
-    :func:`torch_sketch`)."""
+    :func:`torch_sketch`).
+
+    With ``mesh`` (:func:`hsolve_torch.parallel.dist.make_mesh`, on
+    ``device``'s type) every rank factors its share of each level on its
+    own device and the ranks exchange the child Schur panels between
+    levels: a :class:`~hsolve_torch.parallel.sharded.ShardedFactorization`
+    (the plan padded with ``batch_multiple`` = the tree axis, as
+    :func:`factor` plans it, shards every level over ``tree``).  Every rank
+    calls it, with the same arguments."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a mesh of {mesh.device_type} devices cannot factor "
+                         f"on {dev}")
     tdt = _torch_dtype(dtype, plan)
     if dev.type == "cuda" and tdt not in VALUE_TYPES:
         raise NotImplementedError(f"the CUDA kernels take {VALUE_TYPES}")
@@ -686,6 +772,10 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
                             (f"{'structured' if bp.structured else 'compressed'}"
                              f" cap={bp.rank_cap} ") if bp.compress else "",
                             len(bp.front_pos))
+    if mesh is not None:
+        from hsolve_torch.parallel.sharded import factor_sharded
+
+        return factor_sharded(plan, opts, tdt, mesh, sketch)
     tp = plan_to_torch(plan, dev)
     levels, root, _ = _factor_levels(plan, tp, opts, tdt, sketch)
     return Factorization(N=plan.N, perm=plan.perm, levels=levels, root=root,
@@ -694,7 +784,7 @@ def factor_with_plan(plan: Plan, opts: SolverOptions, dtype=None, *,
 
 def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
            dtype=None, *, device="cuda", sketch: Optional[Sketch] = None,
-           **overrides) -> Factorization:
+           mesh=None, **overrides) -> Factorization:
     """Top-level entry (parity with ``factor(A, nd, nd_loc, opts; args...)``,
     factorization.jl:5-11): plan, then factor on ``device`` (the card unless
     the caller asks for the CPU; see :func:`factor_with_plan`, also for the
@@ -705,13 +795,20 @@ def factor(A: sp.spmatrix, tree: NDTree, opts: Optional[SolverOptions] = None,
     the planned caps; on saturation the problem is re-planned with the largest
     saturated cap doubled as ``rank_cap`` and re-factored, at most three
     attempts in all (host-loop parity with ``randcompress_adaptive``'s sample
-    budget growth, factorization.jl:110)."""
+    budget growth, factorization.jl:110).
+
+    Pass ``mesh`` (:func:`hsolve_torch.parallel.dist.make_mesh`) to shard
+    the factorization over its ranks: the plan pads every level to a
+    multiple of the tree axis, and the saturation test reads the ranks'
+    largest rank, so every rank re-plans alike."""
     opts = (opts or SolverOptions()).replace(**overrides)
     opts.validate()
     dev = resolve_device(device)
+    batch_multiple = mesh.size(0) if mesh is not None else 1
     for attempt in range(3):
-        plan = plan_factorization(A, tree, opts)
-        F = factor_with_plan(plan, opts, dtype=dtype, device=dev, sketch=sketch)
+        plan = plan_factorization(A, tree, opts, batch_multiple=batch_multiple)
+        F = factor_with_plan(plan, opts, dtype=dtype, device=dev, sketch=sketch,
+                             mesh=mesh)
         if not opts.adaptive:
             return F
         report = F.rank_report()

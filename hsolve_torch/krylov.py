@@ -68,11 +68,20 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
     matvec: ``v -> A v``; M: ``v -> M^{-1} v`` (right preconditioner).
     Returns ``(x, info)``: ``info['resnorm']`` holds the initial residual norm
     followed by one entry per inner iteration; ``info['iters']``;
-    ``info['converged']``."""
+    ``info['converged']``.
+
+    With ``M`` the ``solve`` of a factorization sharded over a mesh, every
+    rank runs this loop on its replicated vectors: ``M`` returns the same
+    vector on every rank, the norms and Arnoldi coefficients every branch
+    reads are rank 0's (one broadcast each), so every rank takes each branch
+    alike, and at the end ``x`` is checked to be bit for bit the same on
+    every rank."""
     b = torch.as_tensor(b)
     n = b.shape[0]
     if maxiter is None:
         maxiter = restart
+    sharded = getattr(M, "__self__", None)
+    agree = getattr(sharded, "consensus", lambda v: v)
     if M is None:
         M = lambda v: v
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
@@ -87,7 +96,7 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
 
     while iters < maxiter and not converged:
         r = b - matvec(x) if (have_x or iters > 0) else b
-        beta = float(torch.linalg.vector_norm(r))
+        beta = float(agree(np.array([float(torch.linalg.vector_norm(r))]))[0])
         if iters == 0:
             history.append(beta)
         if beta <= tol:
@@ -106,7 +115,8 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
             w = matvec(M(V[j]))
             w, hcol = _mgs(V, w, j)
             hnorm_t = torch.linalg.vector_norm(w)
-            hj = torch.cat([hcol, hnorm_t.to(hcol.dtype)[None]]).cpu().numpy()
+            hj = agree(torch.cat([hcol, hnorm_t.to(hcol.dtype)[None]]).cpu()
+                       .numpy())
             hnorm = float(abs(hj[-1]))
             H[: j + 1, j] = hj[: j + 1]
             H[j + 1, j] = hnorm
@@ -134,10 +144,13 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
         iters += j_done
         # declare convergence only on the true residual (restarted cycles then act
         # as iterative refinement around an inexact preconditioner)
-        true_res = float(torch.linalg.vector_norm(b - matvec(x)))
+        true_res = float(agree(np.array(
+            [float(torch.linalg.vector_norm(b - matvec(x)))]))[0])
         history[-1] = true_res
         converged = bool(true_res <= tol)
 
+    if hasattr(sharded, "check_replicated"):
+        sharded.check_replicated(x)
     info = {"resnorm": np.asarray(history, dtype=np.float64), "iters": iters,
             "converged": converged}
     return x, info
@@ -183,7 +196,12 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     else ``matvec``), holding ``mv_data`` and ``mv_data_inner``, so a new
     factorization captures anew and a freed one frees its graph.  A matvec or
     preconditioner that cannot be captured (a host read, a host-to-device
-    copy) raises; nothing falls back to a host loop."""
+    copy) raises; nothing falls back to a host loop.  A factorization
+    sharded over a mesh is refused (its solve data raises too): the graph
+    solve over NCCL is not ported yet; :func:`gmres` takes it."""
+    if hasattr(getattr(M, "__self__", None), "consensus"):
+        raise NotImplementedError("gmres_compiled does not take a factorization "
+                                  "sharded over a mesh yet: use gmres")
     if maxiter is None:
         maxiter = restart
     b = torch.as_tensor(b)

@@ -451,7 +451,7 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
                            seg_ptr: np.ndarray, seg_off: np.ndarray,
                            seg_len: np.ndarray, seg_tag: np.ndarray,
                            seg_fo: np.ndarray, node_base: np.ndarray,
-                           m_pad: int, ni: np.ndarray, ni_pad: int,
+                           m_pad: int, ni: np.ndarray, B: int, ni_pad: int,
                            bound: "int | None" = None):
     """Fused front COO gather + identity-padding fill, positions written int32
     (requires B * m_pad^2 < 2^31; the planner falls back to
@@ -461,14 +461,14 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
     over these multi-100k-entry buffers."""
     g = gather
     dt = np.complex128 if g.iscomplex else np.float64
-    B = len(node_base)
+    B0 = len(node_base)
     args = [np.ascontiguousarray(a, dtype=np.int64)
             for a in (pool, seg_ptr, seg_off, seg_len, seg_tag, seg_fo,
                       node_base, ni)]
     if bound is None:
         counts = g.indptr[1:] - g.indptr[:-1]
         bound = int(np.sum(counts[args[0]])) if len(args[0]) else 0
-    cap = bound + int(np.sum(ni_pad - args[7]))
+    cap = bound + int(np.sum(ni_pad - args[7][:B0])) + (B - B0) * ni_pad
     ws = getattr(g, "_fi_ws", None)
     if ws is None or len(ws[0]) < cap or ws[1].dtype != dt:
         cap_n = max(int(cap * 1.25), 1)
@@ -479,8 +479,7 @@ def run_front_gather_ident(gather: "CsrGather", pool: np.ndarray,
         g._coltag = np.zeros(g.ncols, dtype=np.int64)
     fn = _lib.csr_gather_front_ident_c128 if g.iscomplex else \
         _lib.csr_gather_front_ident_f64
-    # gather.cpp's (B0, B) pair allows dummy fronts past B0; the port has none
-    n = fn(*g.csr_ptrs, *(_pt(a) for a in args[:7]), B, m_pad, g.colmap_ptr,
+    n = fn(*g.csr_ptrs, *(_pt(a) for a in args[:7]), B0, m_pad, g.colmap_ptr,
            _pt(g._coltag), _pt(args[7]), B, ni_pad, _pt(pos), _pt(val))
     return pos[:n].copy(), val[:n].copy()
 
@@ -507,13 +506,13 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
                            "nb1", "nb2", "lo", "lsum")}
     no = 0
     for i, r in enumerate(reqs):
-        B = r["B"]
-        meta[i] = (no, B, B, r["ni_pad"], r["nb_pad"],
+        B0, B = r["B0"], r["B"]
+        meta[i] = (no, B0, B, r["ni_pad"], r["nb_pad"],
                    0 if r["branch"] is None else 1)
         for k in ("o_int", "o_bnd", "ni", "nb", "lo", "lsum"):
             cat[k].append(np.ascontiguousarray(r[k], dtype=np.int64))
         if r["branch"] is None:
-            z = np.zeros(B, dtype=np.int64)
+            z = np.zeros(B0, dtype=np.int64)
             for k in ("ni1", "ni2", "nb1", "nb2"):
                 cat[k].append(z)
         else:
@@ -524,9 +523,10 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
             a = r.get(k)
             if a is not None:
                 outp[i, j] = a.ctypes.data
-        cap = r["bound"] + int(np.sum(r["ni_pad"] - cat["ni"][-1]))
+        cap = (r["bound"] + int(np.sum(r["ni_pad"] - cat["ni"][-1][:B0]))
+               + (B - B0) * r["ni_pad"])
         pos_off[i + 1] = pos_off[i] + cap
-        no += B
+        no += B0
     flat = {k: (np.concatenate(v) if v else np.zeros(1, dtype=np.int64))
             for k, v in cat.items()}
     total = int(pos_off[-1])
@@ -600,10 +600,10 @@ def symfact_pooled_native(left: np.ndarray, right: np.ndarray, root: int,
 def fill_batch_maps_native(pool, o_int, o_bnd, ni, nb, locpool, lo, lsum,
                            branch, ni_pad, nb_pad, N, int_ids, bnd_ids, sperm,
                            map_l, map_r) -> None:
-    """One C++ sweep filling every row of a batch's int32 device maps (see
+    """One C++ sweep filling rows [0, B0) of a batch's int32 device maps (see
     gather.cpp fill_batch_maps).  ``branch``: (ni1, ni2, nb1, nb2) or None for
     leaf batches (map_l/map_r are then ignored)."""
-    B = len(o_int)
+    B0 = len(o_int)
     a = [np.ascontiguousarray(x, dtype=np.int64)
          for x in (o_int, o_bnd, ni, nb, lo, lsum)]
     if branch is not None:
@@ -614,24 +614,23 @@ def fill_batch_maps_native(pool, o_int, o_bnd, ni, nb, locpool, lo, lsum,
         bp = [0, 0, 0, 0]
         mlp = mrp = 0
     _lib.fill_batch_maps(_pt(pool), _pt(a[0]), _pt(a[1]), _pt(a[2]), _pt(a[3]),
-                         _pt(locpool), _pt(a[4]), _pt(a[5]), *bp, B, ni_pad,
+                         _pt(locpool), _pt(a[4]), _pt(a[5]), *bp, B0, ni_pad,
                          nb_pad, N, _pt(int_ids), _pt(bnd_ids), _pt(sperm),
                          mlp, mrp)
 
 
-def fill_ident_pos_native(ni: np.ndarray, ni_pad: int,
+def fill_ident_pos_native(ni: np.ndarray, B0: int, B: int, ni_pad: int,
                           m_pad: int) -> np.ndarray:
     """Identity-diagonal COO positions for padded pivot rows (int64)."""
     ni = np.ascontiguousarray(ni, dtype=np.int64)
-    B = len(ni)
-    cap = int(np.sum(ni_pad - ni))
+    cap = int(np.sum(ni_pad - ni[:B0])) + (B - B0) * ni_pad
     out = np.empty(max(cap, 1), dtype=np.int64)
-    c = _lib.fill_ident_pos(_pt(ni), B, B, ni_pad, m_pad, _pt(out))
+    c = _lib.fill_ident_pos(_pt(ni), B0, B, ni_pad, m_pad, _pt(out))
     return out[:c]
 
 
 def fill_structured_maps_native(pool, locpool, off_n, ki1, ki2, kb1, kb2,
-                                o_l, k1, k2, B, h1, h2, q1, q2, np_pad,
+                                o_l, k1, k2, B0, h1, h2, q1, q2, np_pad,
                                 half, N, int_ids, bnd_ids, smap) -> bool:
     """One C++ sweep filling a structured batch's int/bnd id maps and its
     parent-S smap (gather.cpp fill_structured_maps); False if unavailable."""
@@ -640,7 +639,7 @@ def fill_structured_maps_native(pool, locpool, off_n, ki1, ki2, kb1, kb2,
     a = [np.ascontiguousarray(x, dtype=np.int64)
          for x in (off_n, ki1, ki2, kb1, kb2, o_l, k1, k2)]
     _lib.fill_structured_maps(
-        _pt(pool), _pt(locpool), *(_pt(x) for x in a), B, h1, h2, q1, q2,
+        _pt(pool), _pt(locpool), *(_pt(x) for x in a), B0, h1, h2, q1, q2,
         np_pad, half, N, _pt(int_ids), _pt(bnd_ids), _pt(smap))
     return True
 

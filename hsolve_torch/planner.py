@@ -4,9 +4,9 @@ The copy keeps what exact (``swlevel=0``), low-rank compressed (``hss=False``)
 and structured (``hss=True``) planning run, numpy code unchanged, so its
 :class:`Plan` equals the JAX planner's array for array: the structured (HSS)
 batches with their cluster plans (``cplan``, ``n1``, ``n2``), the parent-S map
-``smap`` and the eight cross-coupling strips included.  The JAX planner's
-``batch_multiple`` (dummy fronts for a device mesh) is left out: one GPU needs
-no such padding.
+``smap`` and the eight cross-coupling strips included, and so does
+``batch_multiple``, the decoupled identity dummy fronts that round every
+level's batch up to a multiple of a device mesh's tree axis.
 
 Instead of the reference's runtime tree recursion (``factorization.jl:14-27``),
 the planner turns the elimination tree into a *static, level-synchronous schedule*
@@ -63,6 +63,13 @@ def _cap_rule(opts: SolverOptions, dim: int, lev: Optional[int] = None) -> int:
     if opts.kest > 0:
         return opts.kest + max(opts.stepsize, 0)
     return max(dim // 4, 32)
+
+
+def _levels_of(levels: np.ndarray, nodes, B: int) -> np.ndarray:
+    """The batch's ``[B]`` reference levels, 0 on the dummy rows."""
+    out = np.zeros(B, dtype=np.int64)
+    out[:len(nodes)] = levels[nodes]
+    return out
 
 
 def _rank_cap(opts: SolverOptions, compress: bool, nodes, levels, ni_pad: int,
@@ -154,7 +161,7 @@ _CROSS = (("ci12", "i1", "i2"), ("ci21", "i2", "i1"),
           ("cbb12", "b1", "b2"), ("cbb21", "b2", "b1"))
 
 
-def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
+def _plan_structured_batch(gather, tree, loc, nodes, B, ni, nb, n1, n2, cplan,
                            child_cplans, levels, s_loc, opts, N,
                            cnnz=None) -> "BatchPlan":
     """Plan a fully-structured compressed batch in *child-aligned* coordinates.
@@ -164,9 +171,10 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
     sizes and one composed gather map from the parent-S HSS coordinates to the
     child-aligned boundary layout.  Only the cross-child couplings are extracted
     from A (the structured counterpart of ``_assemble_blocks`` for HSS children,
-    factorization.jl:126-140)."""
+    factorization.jl:126-140).  Rows ``[len(nodes), B)`` are dummy fronts
+    (see ``batch_multiple``)."""
     cpl, cpr = child_cplans
-    B = len(nodes)
+    B0 = len(nodes)
     A_dtype = np.complex128 if gather.iscomplex else np.float64
     h1, h2 = cpl.half, cpr.half
     q1, q2 = cpl.n_pad - cpl.half, cpr.n_pad - cpr.half
@@ -175,28 +183,37 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
     nodes_arr = np.asarray(nodes, dtype=np.int64)
 
     pool_t = getattr(tree, "_pool", None)
-    if pool_t is not None and loc.pool is not None and B:
+    if pool_t is not None and loc.pool is not None and B0:
         # vectorized pooled path: whole-batch numpy on the shared symfact
         # pools, the cross couplings as ONE pooled native COO gather
         lefts = tree.left[nodes_arr].astype(np.int64)
         rights = tree.right[nodes_arr].astype(np.int64)
         off_n = tree._pool_off[nodes_arr].astype(np.int64)
-        ni1 = loc.n_int[lefts].astype(np.int64)
-        nb1 = loc.n_bnd[lefts].astype(np.int64)
-        ni2 = loc.n_int[rights].astype(np.int64)
-        nb2 = loc.n_bnd[rights].astype(np.int64)
-        ni_n = tree._pool_ni[nodes_arr].astype(np.int64)   # = ni1 + ni2
-        k1 = n1.astype(np.int64)
-        k2 = n2.astype(np.int64)
+        ki1 = loc.n_int[lefts].astype(np.int64)
+        kb1 = loc.n_bnd[lefts].astype(np.int64)
+        ki2 = loc.n_int[rights].astype(np.int64)
+        kb2 = loc.n_bnd[rights].astype(np.int64)
+        ni_n = tree._pool_ni[nodes_arr].astype(np.int64)   # = ki1 + ki2
+        ni1 = np.zeros(B, dtype=np.int64)
+        ni2 = np.zeros(B, dtype=np.int64)
+        nb1 = np.zeros(B, dtype=np.int64)
+        nb2 = np.zeros(B, dtype=np.int64)
+        ni1[:B0], ni2[:B0], nb1[:B0], nb2[:B0] = ki1, ki2, kb1, kb2
+        k1 = n1[:B0].astype(np.int64)
+        k2 = n2[:B0].astype(np.int64)
         o_l = loc.off[nodes_arr].astype(np.int64)
         from hsolve_torch.native import fill_structured_maps_native
 
         int_ids = np.empty((B, h1 + h2), dtype=np.int32)
         bnd_ids = np.empty((B, q1 + q2), dtype=np.int32)
         smap = np.empty((B, np_pad), dtype=np.int32)
+        if B > B0:
+            int_ids[B0:] = N
+            bnd_ids[B0:] = N
+            smap[B0:] = q1 + q2
         if not fill_structured_maps_native(
-                pool_t, loc.pool, off_n, ni1, ni2, nb1, nb2, o_l, k1, k2,
-                B, h1, h2, q1, q2, np_pad, cplan.half, N,
+                pool_t, loc.pool, off_n, ki1, ki2, kb1, kb2, o_l, k1, k2,
+                B0, h1, h2, q1, q2, np_pad, cplan.half, N,
                 int_ids, bnd_ids, smap):
             pmax = max(len(pool_t) - 1, 0)
 
@@ -206,10 +223,10 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
                 return np.where(j < count[:, None], pool_t[src],
                                 N).astype(np.int32)
 
-            int_ids[:, :h1] = _ids(h1, off_n, ni1)
-            int_ids[:, h1:] = _ids(h2, off_n + ni1, ni2)
-            bnd_ids[:, :q1] = _ids(q1, off_n + ni_n, nb1)
-            bnd_ids[:, q1:] = _ids(q2, off_n + ni_n + nb1, nb2)
+            int_ids[:B0, :h1] = _ids(h1, off_n, ki1)
+            int_ids[:B0, h1:] = _ids(h2, off_n + ki1, ki2)
+            bnd_ids[:B0, :q1] = _ids(q1, off_n + ni_n, kb1)
+            bnd_ids[:B0, q1:] = _ids(q2, off_n + ni_n + kb1, kb2)
             # parent-S HSS pad coord -> child-aligned boundary position
             lmax = max(len(loc.pool) - 1, 0)
             j = np.arange(np_pad, dtype=np.int64)[None, :]
@@ -218,20 +235,20 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
             valid = (j < k1[:, None]) | ((j >= cplan.half)
                                          & (j < cplan.half + k2[:, None]))
             perm_sj = loc.pool[np.minimum(o_l[:, None] + srcj, lmax)]
-            posj = np.where(perm_sj < nb1[:, None], perm_sj,
-                            q1 + perm_sj - nb1[:, None])
-            smap[:] = np.where(valid, posj, q1 + q2)
+            posj = np.where(perm_sj < kb1[:, None], perm_sj,
+                            q1 + perm_sj - kb1[:, None])
+            smap[:B0] = np.where(valid, posj, q1 + q2)
 
         from hsolve_torch.native import run_coo_pooled
 
-        segs = {"i1": (off_n, ni1), "i2": (off_n + ni1, ni2),
-                "b1": (off_n + ni_n, nb1), "b2": (off_n + ni_n + nb1, nb2)}
+        segs = {"i1": (off_n, ki1), "i2": (off_n + ki1, ki2),
+                "b1": (off_n + ni_n, kb1), "b2": (off_n + ni_n + kb1, kb2)}
         if cnnz is None:
             counts = (gather.indptr[1:] - gather.indptr[:-1]) if gather.ok \
                 else np.diff(gather.A.indptr).astype(np.int64)
             cnnz = np.zeros(len(pool_t) + 1, dtype=np.int64)
             np.cumsum(counts[pool_t], out=cnnz[1:])
-        out_off0 = np.arange(B, dtype=np.int64)
+        out_off0 = np.arange(B0, dtype=np.int64)
         # ONE pooled COO gather for all 8 couplings: each name gets a disjoint
         # flat-position space and the emitted stream is name-major, so the
         # per-name segments come back with one searchsorted pass
@@ -250,9 +267,9 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
             seg_cs.append(cs2)
             seg_cl.append(cl2)
             seg_off.append(base + out_off0 * (r_ * c_))
-            seg_st.append(np.full(B, c_, dtype=np.int64))
+            seg_st.append(np.full(B0, c_, dtype=np.int64))
             name_base.append(base)
-            base += B * r_ * c_
+            base += B0 * r_ * c_
         pos_all, vals_all = run_coo_pooled(
             gather, pool_t, np.concatenate(seg_rs), np.concatenate(seg_rl),
             np.concatenate(seg_cs), np.concatenate(seg_cl),
@@ -337,7 +354,7 @@ def _plan_structured_batch(gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
         # from front_vals
         front_src=np.zeros(0, dtype=np.int32),
         sperm=np.zeros((B, 0), dtype=np.int64), int_ids=int_ids, bnd_ids=bnd_ids,
-        levels=levels[nodes].astype(np.int64), compress=True, rank_cap=rank_cap,
+        levels=_levels_of(levels, nodes, B), compress=True, rank_cap=rank_cap,
         cplan=cplan, n1=n1, n2=n2, structured=True, cross=cross, smap=smap,
         child_cplans=child_cplans, groups_l=groups_l, groups_r=groups_r)
 
@@ -360,7 +377,7 @@ class BatchPlan:
     nb_pad: int
     ni: np.ndarray             # [B] actual interior sizes
     nb: np.ndarray             # [B] actual boundary sizes
-    batch_size: int            # B, the number of fronts
+    batch_size: int            # B (includes sharding-padding dummy rows)
     front_pos: np.ndarray      # [nnz] flat positions into the [B, m_pad, m_pad] fronts
     front_vals: np.ndarray     # [nnz] matching values (sparse part + identity padding)
     sperm: np.ndarray          # [B, nb_pad] output permutation to [int_loc; bnd_loc]
@@ -444,14 +461,17 @@ class Plan:
         return int(len(self.A_raw[2]))
 
 
-def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
+def _plan_regular_batch(gather, tree, loc, nodes, B, ni, nb, ni_pad, nb_pad,
                         m_pad, is_leaf_batch, compress, cplan, n1, n2, levels,
                         s_batch, s_row, batches, opts, N, bidx,
                         pools=None, deferred=None) -> None:
     """Plan one regular (dense or compressed-with-dense-children) batch: front COO
     gathers, extend-add maps, id/perm fills.  Appends the BatchPlan to ``batches``
-    and records the nodes' Schur locations in ``s_batch``/``s_row``."""
-    B = len(nodes)
+    and records the nodes' Schur locations in ``s_batch``/``s_row``.  Rows
+    ``[len(nodes), B)`` are decoupled identity dummy fronts (``batch_multiple``)."""
+    B0 = len(nodes)
+    niB = ni[:B0]
+    nbB = nb[:B0]
     rank_cap = _rank_cap(opts, compress, nodes, levels, ni_pad, nb_pad)
     if deferred is not None and B * m_pad * m_pad < 2 ** 31:
         # consolidated native path: allocate the int32 map outputs here,
@@ -460,7 +480,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         # views are patched into the BatchPlans then)
         pool, vals_off, locpool, loc_off, node_nnz = pools
         o_int = vals_off[nodes]
-        o_bnd = o_int + ni
+        o_bnd = o_int + niB
         bound = int(node_nnz[nodes].sum())
         if not is_leaf_batch:
             ni1 = loc.n_int[tree.left[nodes]]
@@ -485,11 +505,18 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         front_pos = front_vals = None
         deferred.append({
             "bidx": bidx, "pool": pool, "locpool": locpool,
-            "o_int": o_int, "o_bnd": o_bnd, "ni": ni, "nb": nb,
+            "o_int": o_int, "o_bnd": o_bnd, "ni": niB, "nb": nbB,
             "branch": branch, "lo": loc_off[nodes], "lsum": lsum,
-            "B": B, "ni_pad": ni_pad, "nb_pad": nb_pad,
+            "B0": B0, "B": B, "ni_pad": ni_pad, "nb_pad": nb_pad,
             "bound": bound, "int_ids": int_ids, "bnd_ids": bnd_ids,
             "sperm": sperm, "map_l": map_l, "map_r": map_r})
+        if B > B0:
+            int_ids[B0:] = N
+            bnd_ids[B0:] = N
+            sperm[B0:] = np.arange(nb_pad, dtype=np.int32)
+            if map_l is not None:
+                map_l[B0:] = -1
+                map_r[B0:] = -1
         groups_l = {}
         groups_r = {}
         if not is_leaf_batch:
@@ -504,12 +531,12 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
                         m = np.flatnonzero(sb_kids == sb)
                         gd[int(sb)] = (s_row[kids[m]], m.astype(np.int64))
         s_batch[nodes] = bidx
-        s_row[nodes] = np.arange(B, dtype=np.int64)
+        s_row[nodes] = np.arange(B0, dtype=np.int64)
         batches.append(BatchPlan(
             node_ids=nodes, is_leaf=is_leaf_batch, ni_pad=ni_pad,
             nb_pad=nb_pad, ni=ni, nb=nb, batch_size=B, front_pos=front_pos,
             front_vals=front_vals, sperm=sperm, int_ids=int_ids,
-            bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
+            bnd_ids=bnd_ids, levels=_levels_of(levels, nodes, B),
             sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
             compress=rank_cap > 0, rank_cap=rank_cap,
             cplan=cplan if rank_cap > 0 else None, n1=n1, n2=n2,
@@ -521,17 +548,21 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
 
     # device index arrays are built int32 from the start (halves the fill
     # traffic of these [B, m_pad]-class buffers); in pooled mode the C++ fill
-    # below writes every row
+    # below writes rows [0, B0) so only dummy rows need prefilling
     alloc = np.empty if pools is not None else \
         (lambda shape, dtype: np.full(shape, N, dtype=dtype))
     int_ids = alloc((B, ni_pad), dtype=np.int32)
     bnd_ids = alloc((B, nb_pad), dtype=np.int32)
     if nb_pad:
         sperm = np.empty((B, nb_pad), dtype=np.int32)
-        if pools is None:        # identity default (the C++ fill writes every row)
-            sperm[:] = np.arange(nb_pad, dtype=np.int32)
+        # identity default (pooled mode: only the dummy rows need it)
+        sperm[B0 if pools is not None else 0:] = np.arange(nb_pad,
+                                                           dtype=np.int32)
     else:
         sperm = np.zeros((B, 0), dtype=np.int32)
+    if pools is not None and B > B0:
+        int_ids[B0:] = N
+        bnd_ids[B0:] = N
 
     if not is_leaf_batch:
         ni1 = loc.n_int[tree.left[nodes]]
@@ -548,6 +579,9 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             (lambda shape, dtype: np.full(shape, -1, dtype=dtype))
         map_l = map_alloc((B, m_pad), dtype=np.int32)
         map_r = map_alloc((B, m_pad), dtype=np.int32)
+        if pools is not None and B > B0:
+            map_l[B0:] = -1
+            map_r[B0:] = -1
     else:
         sl_pad = sr_pad = 0
         map_l = map_r = None
@@ -562,7 +596,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         # index concatenation at all
         pool, vals_off, locpool, loc_off, node_nnz = pools
         o_int = vals_off[nodes]
-        o_bnd = o_int + ni
+        o_bnd = o_int + niB
         bound = int(node_nnz[nodes].sum())
     else:
         # fallback: one shared index pool per batch
@@ -570,17 +604,17 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         pool = np.concatenate(
             [x for n in nodes for x in (tree.int_idx[n], tree.bnd_idx[n])]
             or [np.zeros(0, dtype=np.int64)])
-        seg_lens = np.empty(2 * B, dtype=np.int64)
-        seg_lens[0::2] = ni
-        seg_lens[1::2] = nb
+        seg_lens = np.empty(2 * B0, dtype=np.int64)
+        seg_lens[0::2] = niB
+        seg_lens[1::2] = nbB
         seg_off = np.concatenate([[0], np.cumsum(seg_lens)])[:-1]
-        o_int = seg_off[0::2]                   # [B] pool offset of ints
-        o_bnd = seg_off[1::2]                   # [B] pool offset of bnds
+        o_int = seg_off[0::2]                   # [B0] pool offset of ints
+        o_bnd = seg_off[1::2]                   # [B0] pool offset of bnds
         bound = None
-    base = np.arange(B, dtype=np.int64) * (m_pad * m_pad)
+    base = np.arange(B0, dtype=np.int64) * (m_pad * m_pad)
 
     def _specs_from(parts):
-        # parts: list of (rs, rl, cs, cl, r0, c0) per block type, each [B]
+        # parts: list of (rs, rl, cs, cl, r0, c0) per block type, each [B0]
         rs = np.concatenate([p[0] for p in parts])
         rl = np.concatenate([p[1] for p in parts])
         cs = np.concatenate([p[2] for p in parts])
@@ -595,28 +629,28 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         # child-tagged column map (branches keep only cross-child entries)
         from hsolve_torch.native import run_front_gather, run_front_gather_ident
 
-        z = np.zeros(B, dtype=np.int64)
+        z = np.zeros(B0, dtype=np.int64)
         if is_leaf_batch:
             nseg = 2
-            segs = ((o_int, ni, z, z), (o_bnd, nb, z, z + ni_pad))
+            segs = ((o_int, niB, z, z), (o_bnd, nbB, z, z + ni_pad))
         else:
             nseg = 4
-            one = np.ones(B, dtype=np.int64)
+            one = np.ones(B0, dtype=np.int64)
             segs = ((o_int, ni1, one, z), (o_int + ni1, ni2, 2 * one, ni1),
                     (o_bnd, nb1, one, z + ni_pad),
                     (o_bnd + nb1, nb2, 2 * one, ni_pad + nb1))
-        so = np.empty(nseg * B, dtype=np.int64)
+        so = np.empty(nseg * B0, dtype=np.int64)
         sl = np.empty_like(so)
         st_ = np.empty_like(so)
         sf = np.empty_like(so)
         for k, (a, b_, c_, d_) in enumerate(segs):
             so[k::nseg], sl[k::nseg], st_[k::nseg], sf[k::nseg] = a, b_, c_, d_
-        seg_ptr = np.arange(B + 1, dtype=np.int64) * nseg
+        seg_ptr = np.arange(B0 + 1, dtype=np.int64) * nseg
         if B * m_pad * m_pad < 2 ** 31:
             # identity padding + int32 positions fused into the same C++ sweep
             front_pos, front_vals = run_front_gather_ident(
                 gather, pool, seg_ptr, so, sl, st_, sf, base, m_pad,
-                ni, ni_pad, bound=bound)
+                ni, B, ni_pad, bound=bound)
             ident_done = True
         else:
             front_pos, front_vals = run_front_gather(
@@ -624,12 +658,12 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
                 copy=False, bound=bound)
     else:
         if is_leaf_batch:
-            z = np.zeros(B, dtype=np.int64)
+            z = np.zeros(B0, dtype=np.int64)
             parts = [
-                (o_int, ni, o_int, ni, z, z),                       # ii
-                (o_int, ni, o_bnd, nb, z, z + ni_pad),              # ib
-                (o_bnd, nb, o_int, ni, z + ni_pad, z),              # bi
-                (o_bnd, nb, o_bnd, nb, z + ni_pad, z + ni_pad),     # bb
+                (o_int, niB, o_int, niB, z, z),                     # ii
+                (o_int, niB, o_bnd, nbB, z, z + ni_pad),            # ib
+                (o_bnd, nbB, o_int, niB, z + ni_pad, z),            # bi
+                (o_bnd, nbB, o_bnd, nbB, z + ni_pad, z + ni_pad),   # bb
             ]
         else:
             # same-child entries come from the child Schur complements; only the
@@ -638,7 +672,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             s_i2, l_i2 = o_int + ni1, ni2
             s_b1, l_b1 = o_bnd, nb1
             s_b2, l_b2 = o_bnd + nb1, nb2
-            z = np.zeros(B, dtype=np.int64)
+            z = np.zeros(B0, dtype=np.int64)
             off = {"i1": z, "i2": ni1, "b1": z + ni_pad, "b2": ni_pad + nb1}
             seg = {"i1": (s_i1, l_i1), "i2": (s_i2, l_i2),
                    "b1": (s_b1, l_b1), "b2": (s_b2, l_b2)}
@@ -658,7 +692,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
 
         lsum = loc.n_int[nodes] + loc.n_bnd[nodes]
         fill_batch_maps_native(
-            pool, o_int, o_bnd, ni, nb, locpool, loc_off[nodes], lsum,
+            pool, o_int, o_bnd, niB, nbB, locpool, loc_off[nodes], lsum,
             None if is_leaf_batch else (ni1, ni2, nb1, nb2),
             ni_pad, nb_pad, N, int_ids, bnd_ids, sperm, map_l, map_r)
     else:
@@ -668,11 +702,12 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         poolx[-1] = N
         plim = len(pool)
         gi = np.minimum(o_int[:, None] + cols_i[None, :], plim)
-        int_ids[:] = np.where(cols_i[None, :] < ni[:, None], poolx[gi], N)
+        int_ids[:B0] = np.where(cols_i[None, :] < niB[:, None], poolx[gi], N)
         if nb_pad:
             cols_b = np.arange(nb_pad, dtype=np.int64)
             gb = np.minimum(o_bnd[:, None] + cols_b[None, :], plim)
-            bnd_ids[:] = np.where(cols_b[None, :] < nb[:, None], poolx[gb], N)
+            bnd_ids[:B0] = np.where(cols_b[None, :] < nbB[:, None], poolx[gb],
+                                    N)
             # sperm rows are [int_loc; bnd_loc] per node
             l1 = loc.n_int[nodes]
             l2 = loc.n_bnd[nodes]
@@ -684,8 +719,8 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             lpx[:-1] = lpool
             lpx[-1] = 0
             gs = np.minimum(lo[:, None] + cols_b[None, :], len(lpool))
-            sperm[:] = np.where(cols_b[None, :] < (l1 + l2)[:, None], lpx[gs],
-                                sperm)
+            sperm[:B0] = np.where(cols_b[None, :] < (l1 + l2)[:, None],
+                                  lpx[gs], sperm[:B0])
         if not is_leaf_batch:
             # inverse extend-add maps (child S is [int_loc; bnd_loc]-permuted, so
             # placements are two contiguous runs per child)
@@ -698,11 +733,11 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
             in_i2 = (cols_m >= ni1c) & (cols_m < ni1c + ni2c)
             in_b1 = (cols_m >= ni_pad) & (cols_m < ni_pad + nb1c)
             in_b2 = (cols_m >= ni_pad + nb1c) & (cols_m < ni_pad + nb1c + nb2c)
-            map_l[:] = np.where(in_i1, cols_m,
-                                np.where(in_b1, ni1c + cols_m - ni_pad, -1))
-            map_r[:] = np.where(in_i2, cols_m - ni1c,
-                                np.where(in_b2, ni2c + cols_m - ni_pad - nb1c,
-                                         -1))
+            map_l[:B0] = np.where(in_i1, cols_m,
+                                  np.where(in_b1, ni1c + cols_m - ni_pad, -1))
+            map_r[:B0] = np.where(in_i2, cols_m - ni1c,
+                                  np.where(in_b2, ni2c + cols_m - ni_pad - nb1c,
+                                           -1))
 
     if not is_leaf_batch:
         for kids, gd in ((tree.left[nodes], groups_l),
@@ -718,20 +753,26 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
                     gd[int(sb)] = (s_row[kids[m]], m.astype(np.int64))
 
     # identity on the padded part of the pivot block keeps the batched LU
-    # well-defined (the padded rows/cols stay decoupled)
+    # well-defined (the padded rows/cols stay decoupled); dummy fronts get a
+    # full identity pivot
     s_batch[nodes] = bidx
-    s_row[nodes] = np.arange(B, dtype=np.int64)
+    s_row[nodes] = np.arange(B0, dtype=np.int64)
     if ident_done:
         ip = None
     elif pools is not None:
         from hsolve_torch.native import fill_ident_pos_native
 
-        ip = fill_ident_pos_native(ni, ni_pad, m_pad)
+        ip = fill_ident_pos_native(ni, B0, B, ni_pad, m_pad)
     else:
+        ident_pos = []
+        d = np.arange(ni_pad)
+        for bb in range(B0, B):
+            ident_pos.append(bb * m_pad * m_pad + d * (m_pad + 1))
         cols_i = np.arange(ni_pad, dtype=np.int64)
-        pr = np.arange(B, dtype=np.int64)[:, None] * (m_pad * m_pad) \
+        pr = np.arange(B0, dtype=np.int64)[:, None] * (m_pad * m_pad) \
             + cols_i[None, :] * (m_pad + 1)
-        ip = pr[cols_i[None, :] >= ni[:, None]]
+        ident_pos.append(pr[cols_i[None, :] >= niB[:, None]])
+        ip = np.concatenate([a.ravel() for a in ident_pos])
     if not ident_done:
         # fused pass: gathered COO (a workspace view) + identity padding, written
         # straight into the final (int32 where possible) buffers - the previous
@@ -755,7 +796,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
         node_ids=nodes, is_leaf=is_leaf_batch, ni_pad=ni_pad, nb_pad=nb_pad,
         ni=ni, nb=nb, batch_size=B, front_pos=front_pos, front_vals=front_vals,
         sperm=sperm, int_ids=int_ids,
-        bnd_ids=bnd_ids, levels=levels[nodes].astype(np.int64),
+        bnd_ids=bnd_ids, levels=_levels_of(levels, nodes, B),
         sl_pad=sl_pad, sr_pad=sr_pad, map_l=map_l, map_r=map_r,
         compress=rank_cap > 0, rank_cap=rank_cap,
         cplan=cplan if rank_cap > 0 else None, n1=n1, n2=n2,
@@ -763,8 +804,13 @@ def _plan_regular_batch(gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad,
 
 
 
-def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Plan:
-    """Run the symbolic phase and build the batched numeric schedule."""
+def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
+                       batch_multiple: int = 1) -> Plan:
+    """Run the symbolic phase and build the batched numeric schedule.
+
+    batch_multiple: round every level's batch size up to a multiple of this (with
+    decoupled identity dummy fronts), so the node axis divides a device-mesh axis.
+    """
     opts.validate()
     import time as _time
 
@@ -893,8 +939,12 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
 
         for nodes, child_cplans in subsets:
             bidx = len(batches)
-            ni = ni_all[nodes].astype(np.int64)
-            nb = nb_all[nodes].astype(np.int64)
+            B0 = len(nodes)
+            B = _round_up(B0, batch_multiple)  # dummy rows (sharding padding)
+            ni = np.zeros(B, dtype=np.int64)
+            nb = np.zeros(B, dtype=np.int64)
+            ni[:B0] = ni_all[nodes]
+            nb[:B0] = nb_all[nodes]
             ni_pad = _round_up(int(ni.max()), opts.pad)
             nb_pad = _round_up(int(nb.max()), opts.pad) if nb.max() > 0 else 0
             m_pad = ni_pad + nb_pad
@@ -907,22 +957,24 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions) -> Pla
             if compress and opts.hss and int(nb.max()) > 0:
                 from hsolve_torch.ops.hss import plan_cluster
 
-                n1 = loc.n_int[nodes].astype(np.int64)
-                n2 = loc.n_bnd[nodes].astype(np.int64)
+                n1 = np.zeros(B, dtype=np.int64)
+                n2 = np.zeros(B, dtype=np.int64)
+                n1[:B0] = loc.n_int[nodes]
+                n2[:B0] = loc.n_bnd[nodes]
                 cplan = plan_cluster(int(n1.max()), int(n2.max()), opts.leafsize,
                                      min_depth=2)
 
             if child_cplans is not None and cplan is not None:
                 batches.append(_plan_structured_batch(
-                    gather, tree, loc, nodes, ni, nb, n1, n2, cplan,
+                    gather, tree, loc, nodes, B, ni, nb, n1, n2, cplan,
                     child_cplans, levels, (s_batch, s_row), opts, N,
                     cnnz=cs if pools is not None else None))
                 s_batch[nodes] = bidx
-                s_row[nodes] = np.arange(len(nodes), dtype=np.int64)
+                s_row[nodes] = np.arange(B0, dtype=np.int64)
                 continue
 
             _plan_regular_batch(
-                gather, tree, loc, nodes, ni, nb, ni_pad, nb_pad, m_pad,
+                gather, tree, loc, nodes, B, ni, nb, ni_pad, nb_pad, m_pad,
                 is_leaf_batch, compress, cplan, n1, n2, levels, s_batch, s_row,
                 batches, opts, N, bidx, pools, deferred)
 

@@ -20,12 +20,16 @@ HSS children, factorization.jl:78-140):
 The JAX package ``vmap``s single-front code; here every operand carries the
 batch axis.  The HSS work runs on kernels H-K (:mod:`hsolve_torch.ops.hss`,
 :mod:`hsolve_torch.ops.lowrank`).  Not carried over: ``structured_precision``
-(TPU matmul passes) and the ``HS_DEBUG_DENSE_S`` bisection hook.
+(TPU matmul passes).  With the environment variable ``HS_DEBUG_DENSE_S`` set
+(to anything), both compressions are built from the dense matrix instead
+of sampled (``hsolve/structured.py:294-301``, ``:415-421``): the bisection
+hook that tells a sampling fault from an algebra fault.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -232,6 +236,7 @@ def structured_factor_batch(sh1: SchurHss, sh2: SchurHss,
     # partially-matrix-free interpolative compressor (blockmatrix.jl:121-130)
     G21 = Ui21 @ (Vi21.transpose(-1, -2) @ WU)          # [B, h2, r12]
     ef2 = hss_entry_factors(A11_2)
+    dense_s = bool(os.environ.get("HS_DEBUG_DENSE_S"))
 
     def s22_sample(X, adjoint):
         if not adjoint:
@@ -243,8 +248,14 @@ def structured_factor_batch(sh1: SchurHss, sh2: SchurHss,
         return hss_entries_prepared(ef2, rows, cols) \
             - _rows_of(G21, rows) @ _rows_of(Vi12, cols).transpose(-1, -2)
 
-    hssS22, maxed22 = hss_randcompress_batched(
-        s22_sample, s22_blocks, A11_2.plan, *sketch22, *tol, rank_cap)
+    if dense_s:
+        S22d = hss_todense(A11_2) - G21 @ Vi12.transpose(-1, -2)
+        hssS22 = hss_compress_dense(S22d, A11_2.plan, *tol, rank_cap)
+        maxed22 = torch.zeros(Ui1.shape[0], dtype=torch.int32,
+                              device=Ui1.device)
+    else:
+        hssS22, maxed22 = hss_randcompress_batched(
+            s22_sample, s22_blocks, A11_2.plan, *sketch22, *tol, rank_cap)
     solver22 = hss_factor(hssS22)
 
     lev = StructuredLevel(
@@ -328,8 +339,14 @@ def structured_factor_batch(sh1: SchurHss, sh2: SchurHss,
                     & (rows[..., :, None] == cols[..., None, :])).to(val.dtype)
         return torch.where(valid, val, pad_diag)
 
-    hssS, maxedS = hss_randcompress_batched(s_sample, s_blocks, cplan, *sketchS,
-                                            *tol, rank_cap)
+    if dense_s:
+        eye = torch.eye(cplan.n_pad, dtype=KU.dtype, device=KU.device)
+        hssS = hss_compress_dense(s_sample(eye.expand(Bn, -1, -1), False),
+                                  cplan, *tol, rank_cap)
+        maxedS = torch.zeros_like(maxed22)
+    else:
+        hssS, maxedS = hss_randcompress_batched(s_sample, s_blocks, cplan,
+                                                *sketchS, *tol, rank_cap)
     lev = dataclasses.replace(lev, rank_maxed=torch.maximum(maxed22, maxedS),
                               rank_cap=rank_cap)
     return lev, SchurHss(h=hssS, n1=n1, n2=n2)

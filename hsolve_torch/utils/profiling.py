@@ -122,6 +122,8 @@ import subprocess
 import sys
 from typing import List
 
+import numpy as np
+
 # ---------------------------------------------------------------------------
 # FLOP model: per-level stats and the roofline (speed-of-light) bound
 # (``hsolve/utils/profiling.py:27-352``, jax-free; the H100's peaks)
@@ -453,6 +455,68 @@ def roofline_report(plan, measured_factor_s: float,
         "nnz_per_s": round(plan.nnz / max(measured_factor_s, 1e-12), 1),
         "per_level": per_level,
     }
+
+
+# NVLink 4 of the H100 SXM, the NVIDIA data sheet's 900 GB/s a card, the sum
+# of both directions: 450 GB/s each way (the card chip_smoke runs on reports
+# `NVIDIA H100 80GB HBM3, 700.00 W`; its machine has one card, so no run here
+# measured a link)
+NVLINK4_H100_BPS = 450e9
+
+
+def collective_estimate(plan, ntree: int, dtype_bytes: int = 8,
+                        link_bps: float = NVLINK4_H100_BPS) -> dict:
+    """Per-level bytes a tree-sharded factorization moves between devices
+    (``hsolve/utils/profiling.py:358-420``, the H100's rates).
+
+    The level-synchronous schedule's only communication is the child gather
+    (:mod:`hsolve_torch.parallel.exchange`): a parent batch split over the
+    ``tree`` axis in contiguous blocks consumes rows of an earlier
+    (also split) Schur stack, and a panel crosses between devices only
+    where its owner block differs from its consumer's (the plan's
+    ``src_rows`` / ``dst_rows``); a replicated consumer all-gathers a split
+    source, a replicated source moves nothing.  Everything else is local to
+    a device.  Returns per-level bytes, their total, and a predicted 2-way
+    efficiency ``T_c(2) / (T_c(2) + T_comm)``, ``T_c(2)`` half the
+    speed-of-light factor time on one H100 (:data:`H100_PEAKS`) and
+    ``T_comm`` the bytes over ``link_bps``."""
+    stats = analyze_plan(plan, dtype_bytes)
+    per_level = []
+    total_comm = 0.0
+    for i, bp in enumerate(plan.batches):
+        gathered = 0.0
+        dst_sharded = bp.B % ntree == 0 and ntree > 1
+        for g in tuple(bp.groups_l) + tuple(bp.groups_r):
+            src = plan.batches[g.src_batch]
+            if src.cplan is not None and getattr(src, "compress", False):
+                # HSS child panel: leaf blocks + generators, linear in n_pad
+                npd, ls, r = src.cplan.n_pad, src.cplan.ls, max(src.rank_cap, 1)
+                panel = npd * (ls + 4.0 * r) * dtype_bytes
+            else:
+                s_pad = src.nb_pad if src.nb_pad else src.ni_pad
+                panel = float(s_pad) * s_pad * dtype_bytes
+            src_sharded = src.B % ntree == 0 and ntree > 1
+            srows = np.asarray(g.src_rows)
+            drows = np.asarray(g.dst_rows)
+            if src_sharded and dst_sharded:
+                sdev = (srows * ntree) // src.B
+                ddev = (drows * ntree) // bp.B
+                gathered += panel * float(np.sum(sdev != ddev))
+            elif src_sharded and not dst_sharded:
+                # replicated consumer: every other device needs each panel
+                gathered += panel * len(srows) * (ntree - 1) / ntree
+        per_level.append({"batch": i, "comm_bytes": round(gathered, 0)})
+        total_comm += gathered
+    peak = H100_PEAKS["f64_flops" if dtype_bytes == 8 else "f32_flops"]
+    sol_compute = sum(max(s.flops / peak, s.bytes_moved / H100_PEAKS["hbm_bps"])
+                      for s in stats)
+    t_comm = total_comm / link_bps
+    t2 = sol_compute / 2.0
+    eff = t2 / (t2 + t_comm) if (t2 + t_comm) > 0 else 1.0
+    return {"ntree": ntree, "per_level": per_level,
+            "total_comm_bytes": round(total_comm, 0),
+            "sol_compute_s": sol_compute, "t_comm_s": t_comm,
+            "predicted_2way_efficiency": round(eff, 3)}
 
 
 # ---------------------------------------------------------------------------

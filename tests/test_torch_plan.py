@@ -110,6 +110,27 @@ def test_plan_matches_jax_planner(problem, n, leafmax):
     assert all(bp.front_src is not None for bp in P_t.batches)
 
 
+@pytest.mark.parametrize("batch_multiple", [2, 4])
+@pytest.mark.parametrize("n,leafmax,kw", [
+    (33, 30, dict(swlevel=0)),
+    (49, 24, dict(swlevel=-2, swsize=1, atol=1e-4, rtol=1e-4, leafsize=16))],
+    ids=["exact", "structured"])
+def test_padded_plan_matches_jax_planner(n, leafmax, kw, batch_multiple):
+    """``batch_multiple`` rounds every level's batch up with decoupled
+    identity dummy fronts, array for array as the JAX planner does."""
+    A, _, shape = ht.poisson2d(n)
+    P_t = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=leafmax),
+                                ht.SolverOptions(**kw),
+                                batch_multiple=batch_multiple)
+    P_j = hsolve.plan_factorization(
+        A, hsolve.nested_dissection(shape, leafmax=leafmax),
+        hsolve.SolverOptions(**kw), batch_multiple=batch_multiple)
+    _assert_plans_equal(P_t, P_j)
+    assert all(bp.B % batch_multiple == 0 for bp in P_t.batches)
+    assert any(len(bp.node_ids) < bp.B for bp in P_t.batches)   # dummies exist
+    assert any(bp.structured for bp in P_t.batches) == (kw["swlevel"] < 0)
+
+
 def test_compressed_planning_is_a_later_slice():
     """Compression with the default hss=True plans HSS Schur complements (the
     structured slice, now ported: the port plans and factors them as the JAX
