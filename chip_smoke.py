@@ -202,16 +202,32 @@ Phases (any failure exits non-zero before the result line is printed):
    cap (a 3D one no cap below its block's full rank, min(ni_pad, nb_pad):
    a rank at a full-rank cap truncates nothing and is logged as such);
 6. dist (before the output lines): the multi-device path
-   (``hsolve_torch.parallel``) at n=512, exact and structured (kest=32)
-   float64, the tree axis the rank count: on a machine of one card two
-   ranks sharing it over gloo and one rank over NCCL (NCCL takes one rank a
-   card), else one rank a card over NCCL; each run's relres (<= 1e-9), its
-   GMRES iterations (equal to one card's on the same padded plan), x
-   against one card's (1e-10), the gathered records' largest difference
-   from one card's, the bytes exchanged per batch beside
-   ``collective_estimate``'s (equal on the exact path), every rank's kernel
-   launches (each of the path's kernels at least once) and the factor and
-   solve seconds, a mechanics reading, not a scaling one;
+   (``hsolve_torch.parallel``) at n=512, float64: on a machine of one card
+   two ranks sharing it over gloo (exact, low-rank, structured kest=32 on
+   a tree mesh of both, and the front axis, a 1 x 2 mesh of the unpadded
+   exact plan) and one rank over NCCL (exact and structured kest=32; NCCL
+   takes one rank a card), else one rank a card over NCCL; each run's
+   relres (<= 1e-9), its GMRES iterations in both forms, each equal to
+   the same form's on the same plan factored on the card alone
+   (``krylov.gmres`` to ``krylov.gmres``; over NCCL ``gmres_compiled``'s
+   graph, captured, replayed warm and once under
+   ``set_sync_debug_mode("error")``, x checked replicated after it, and
+   over gloo ``gmres_host_driven``, ``gmres_compiled`` refusing the
+   backend, to one card's ``gmres_compiled``), x of the two forms within
+   1e-10 of each other and each of one card's (one rank's bit for bit, as
+   its gathered records), the gathered records' largest difference
+   from one card's (exact: 1e-10 relative; low-rank and structured: the
+   fronts whose ranks differ and the products and HSS reconstructions,
+   level by level, within twice the compression tolerance), the bytes
+   exchanged per batch beside ``collective_estimate``'s (equal on the exact
+   path; the structured exchange split into the dummy fronts' rows and the
+   real rows beyond the estimate), the exact mesh factor saved
+   (``save_solver``, rank 0 writes), loaded and solved bitwise as the
+   gathered factor, every rank's kernel launches (each of the path's and
+   its GMRES form's kernels at least once) and the factor and solve
+   seconds, a mechanics reading, not a scaling one; ``dryrun_multichip(2)``
+   over gloo (``python -m hsolve_torch.parallel.dryrun``) alongside the
+   gloo ranks; the phase's seconds;
 5. output: a JSON line with one entry per kernel (a typed kernel's float32
    numbers in its row, its complex128 and complex64 instances and E-K's
    float32 ones in rows of their own, ``<name>:complex128``,
@@ -479,18 +495,38 @@ PATHS = (("exact", "EXACT_PATH", None),
 # the 3D plans; and phase 6, the multi-device path
 CHECKS = ("real", "complex", "float32-compressed", "complex64-compressed",
           "control", "3d", "dist")
-# phase 6: the tree-sharded factor and solve at full width, n=512 exact and
-# structured (kest=32) float64, tree = the rank count; the kernels each rank
-# must launch (the host loop of krylov.gmres runs no Arnoldi kernel)
+# phase 6: the multi-device path at full width, helmholtz2d(DIST_N, k=40),
+# float64.  Per backend its paths: exact, low-rank ("compressed") and
+# structured kest=32 ("hss") on a tree mesh of every rank, the plan padded
+# to the tree axis, and the front axis ("exact-front": a 1 x world mesh on
+# the unpadded plan, the undivided levels' Schur rows split over the ranks);
+# the kernels each path must launch, and those of its GMRES form (the graph
+# over NCCL; over gloo, whose collectives a graph cannot capture, the
+# host-driven program); the paths whose factor is saved and loaded
 DIST_N = 512
-DIST_PATHS = {"exact": ("front_assemble", "extend_add", "level_forward",
-                        "sweep_update", "dia_spmv"),
-              "hss": ("front_assemble", "extend_add", "level_forward",
-                      "sweep_update", "dia_spmv", "lowrank_sweep_update",
-                      "lowrank_schur_update", "lowrank_truncate",
-                      "cpqr_pivots", "hss_entries_prepared", "hss_matvec",
-                      "hss_level_correct")}
+_DIST_EXACT = ("front_assemble", "extend_add", "level_forward", "sweep_update",
+               "dia_spmv")
+_DIST_LOWRANK = _DIST_EXACT + ("lowrank_sweep_update", "lowrank_schur_update",
+                               "lowrank_truncate")
+DIST_PATHS = {"exact": _DIST_EXACT, "compressed": _DIST_LOWRANK,
+              "hss": _DIST_LOWRANK + ("cpqr_pivots", "hss_entries_prepared",
+                                      "hss_matvec", "hss_level_correct"),
+              "exact-front": _DIST_EXACT}
+DIST_OPTIONS = {"exact-front": "exact"}
+DIST_RUNS = {"gloo": ("exact", "compressed", "hss", "exact-front"),
+             "nccl": ("exact", "hss")}
+DIST_SOLVERS = {"gmres_compiled": ("arnoldi_step", "gmres_init",
+                                   "gmres_cycle_start", "gmres_cycle_end",
+                                   "gmres_set_cond", "gmres_graph"),
+                "gmres_host_driven": ("arnoldi_step", "gmres_init",
+                                      "gmres_cycle_start", "gmres_cycle_end")}
+DIST_CHECKPOINTED = ("exact",)
 DIST_RECORDS = 1e-10   # exact: gathered records against one device's, relative
+# low-rank and structured: the gathered records' products (U V^T, H1^-1 C12,
+# C21) and HSS reconstructions against one card's, of their level's largest
+# entry: two compressions of one operand at atol = rtol = 1e-3 each lie
+# within the tolerance of it, so within twice it of each other
+DIST_PRODUCTS = 2e-3
 
 
 def expected_rows() -> list:
@@ -2712,143 +2748,430 @@ def records_diff(a, b) -> tuple:
             max((m for _, m in parts), default=0.0))
 
 
-def dist_rank(n: int, paths, device: str = "cuda") -> dict:
-    """Phase 6, one rank: per path, the factor of helmholtz2d(n, k=40) on a
-    tree mesh of every rank (the plan padded to the tree axis), GMRES with
-    it to RELRES, each rank's kernel launches; rank 0 then factors the same
-    padded plan on its card alone and compares the gathered records, the
-    iterations and x.  Returns the readings by path."""
+def records_reading(a, b) -> list:
+    """Two factors of one plan compared level by level (the root last), as
+    the known hazards ask (CPQR ties and the SVD's sign freedom change
+    factors legitimately): per level its kind, the fronts whose ranks
+    differ, and the largest difference of its products (a dense level's L
+    and R; U V^T of every low-rank pair, H1^-1 C12 = WU V12^T, C21; the HSS
+    records' dense reconstructions) over their largest entry."""
+    import torch
+
+    from hsolve_torch.factor import CompressedLevel, DenseLevel, RootSolve
+    from hsolve_torch.ops.hss import hss_todense
+
+    def prod(U, V):
+        return U @ V.transpose(-1, -2)
+
+    def rel(pairs):
+        out = 0.0
+        for x, y in pairs:
+            m = float(y.abs().max()) if y.numel() else 0.0
+            if m > 0:
+                out = max(out, float((x - y).abs().max()) / m)
+        return out
+
+    rows = []
+    for i, (la, lb) in enumerate(zip(a.levels, b.levels, strict=True)):
+        if isinstance(la, DenseLevel):
+            rows.append({"level": i, "kind": "dense", "fronts": 0,
+                         "rank_diff": 0, "products": rel(
+                             [(la.L, lb.L), (la.R, lb.R)])})
+            continue
+        pairs = [(prod(la.LU_, la.LV_), prod(lb.LU_, lb.LV_)),
+                 (prod(la.RU_, la.RV_), prod(lb.RU_, lb.RV_))]
+        if isinstance(la, CompressedLevel):
+            kind = "low-rank"
+            ra = torch.stack([la.lrank, la.rrank])
+            rb = torch.stack([lb.lrank, lb.rrank])
+        else:
+            kind = "structured"
+            ra, rb = la.rank_maxed[None], lb.rank_maxed[None]
+            pairs += [(prod(la.WU, la.V12), prod(lb.WU, lb.V12)),
+                      (prod(la.U21, la.V21), prod(lb.U21, lb.V21))]
+            pairs += [(hss_todense(x), hss_todense(y)) for x, y in (
+                (la.H2, lb.H2), (la.solver1.h, lb.solver1.h),
+                (la.solver22.h, lb.solver22.h))]
+        rows.append({"level": i, "kind": kind, "fronts": int(ra.shape[-1]),
+                     "rank_diff": int((ra != rb).any(0).sum()),
+                     "rank_max_diff": int((ra - rb).abs().max()),
+                     "products": rel(pairs)})
+    if isinstance(a.root, RootSolve):
+        f = "lu" if a.root.lu is not None else "inv"
+        rows.append({"level": "root", "kind": "dense", "fronts": 1,
+                     "rank_diff": 0, "products": rel(
+                         [(getattr(a.root, f), getattr(b.root, f))])})
+    return rows
+
+
+def dist_rank(n: int, paths, device: str = "cuda", ckpt_dir: str = "") -> dict:
+    """Phase 6, one rank: per path, the factor of helmholtz2d(n, k=40) on
+    its mesh (:data:`DIST_RUNS`), the solves of both GMRES forms, each
+    rank's kernel launches, the checkpoint of :data:`DIST_CHECKPOINTED`
+    paths under ``ckpt_dir``; rank 0 then factors the same plan on its card
+    alone and compares the gathered records, the iterations and x.
+    Returns the readings by path."""
+    import torch.distributed as dist
+
     from hsolve_torch.parallel.dist import make_mesh
 
-    mesh = make_mesh(device=device)
-    return {path: _dist_path(n, path, mesh, device) for path in paths}
+    meshes, out = {}, {}
+    for path in paths:
+        t0 = time.perf_counter()
+        front = dist.get_world_size() if path == "exact-front" else 1
+        if front not in meshes:
+            meshes[front] = make_mesh(front=front, device=device)
+        out[path] = _dist_path(n, path, meshes[front], device, ckpt_dir)
+        out[path]["path_s"] = time.perf_counter() - t0
+    return out
 
 
-def _dist_path(n: int, path: str, mesh, device: str) -> dict:
+def _dist_path(n: int, path: str, mesh, device: str, ckpt_dir: str) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
 
     import hsolve_torch as ht
+    import hsolve_torch.krylov as K
     from hsolve_torch import kernels
+    from hsolve_torch.factor import solve_with_data
     from hsolve_torch.parallel.dist import rank_device
+    from hsolve_torch.utils.checkpoint import load_solver, save_solver
     from hsolve_torch.utils.profiling import collective_estimate
 
     dev = rank_device(device)
+    backend = str(dist.get_backend())
+    opt_path = DIST_OPTIONS.get(path, path)
     A, b, shape = ht.helmholtz2d(n, k=40.0)
-    opts = ht.SolverOptions(**OPTIONS[path])
+    opts = ht.SolverOptions(**OPTIONS[opt_path])
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
                                  opts, batch_multiple=mesh.size(0))
     op, mv = ht.spmv_format(A, device=dev)
     bt = torch.as_tensor(np.asarray(b), device=dev)
-
-    def solve(M):
-        return ht.gmres(lambda v: mv(op, v), bt, M=M, reltol=RELRES,
-                        restart=30, maxiter=MAX_ITERS.get(path, {}).get(n, 30))
+    kw = dict(reltol=RELRES, restart=30,
+              maxiter=MAX_ITERS.get(opt_path, {}).get(n, 30), mv_data=op)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    def gmres(data):
+        return ht.gmres(lambda v: mv(op, v), bt, M=solve_with_data,
+                        M_data=data, reltol=RELRES, restart=30,
+                        maxiter=kw["maxiter"])
+
     kernels.reset_launch_counts()
-    sync()
-    t0 = time.perf_counter()
-    F = ht.factor_with_plan(plan, opts, device=dev, mesh=mesh)
-    sync()
-    t1 = time.perf_counter()
-    x, info = solve(F.solve)
-    sync()
-    t2 = time.perf_counter()
-    counts = kernels.launch_counts()
-    xs = x.cpu().numpy()
+    F, factor_s = timed(lambda: ht.factor_with_plan(plan, opts, device=dev,
+                                                    mesh=mesh))
+    data = F.solve_data
+    dist.barrier()                # NCCL: the communicator set up before the solves
+    (x, info), gmres_s = timed(lambda: gmres(data))
+    (xh, hinfo), host_s = timed(lambda: K.gmres_host_driven(
+        mv, solve_with_data, bt, M_data=data, **kw))
     out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
-           "backend": str(dist.get_backend()), "device": str(dev),
-           "factor_s": t1 - t0, "solve_s": t2 - t1, "iters": info["iters"],
-           "converged": info["converged"],
-           "relres": float(np.linalg.norm(A @ xs - b) / np.linalg.norm(b)),
-           "launches": {k: counts.get(k, 0) for k in DIST_PATHS[path]},
-           "bytes": list(F.factor_bytes), "solve_bytes": F.solve_bytes(),
-           "exchange_s": sum(F.factor_wait_s),
-           "estimate": [int(lv["comm_bytes"]) for lv in collective_estimate(
-               plan, mesh.size(0), 8)["per_level"]]}
+           "backend": backend, "device": str(dev), "factor_s": factor_s,
+           "gmres_ms": gmres_s * 1e3, "host_ms": host_s * 1e3,
+           "iters": info["iters"], "iters_host": hinfo["iters"],
+           "converged": info["converged"] and hinfo["converged"]}
+    if dev.type == "cuda" and backend == "nccl":
+        out["solver"] = "gmres_compiled"
+
+        def solve():
+            return ht.gmres_compiled(mv, solve_with_data, bt, M_data=data,
+                                     fetch_info=False, **kw)
+
+        _, out["capture_s"] = timed(solve)               # cold: the capture
+        graphs = K.graph_stats(data)
+        if len(graphs) != 1:
+            fail(f"{path}: {len(graphs)} solve graphs on the mesh factor")
+        out["graph_pool_mb"] = graphs[0]["pool_bytes"] / 2 ** 20
+        out["graph_ms"] = time_ms(solve, reps=3, warmup=1)
+        torch.cuda.set_sync_debug_mode("error")          # warm: no host read
+        try:
+            xc, dinfo = solve()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        data.check_replicated(xc)
+        cinfo = ht.fetch_gmres_info(dinfo)
+        x_form = xc
+        out.update(iters_graph=cinfo["iters"],
+                   x_graph=float(torch.linalg.vector_norm(xc - xh)
+                                 / torch.linalg.vector_norm(xh)))
+        out["converged"] = out["converged"] and cinfo["converged"]
+    else:
+        out["solver"] = "gmres_host_driven"
+        x_form = xh
+        if dev.type == "cuda":
+            try:
+                ht.gmres_compiled(mv, solve_with_data, bt, M_data=data, **kw)
+                out["refusal"] = None
+            except RuntimeError as e:
+                out["refusal"] = str(e)
+    counts = kernels.launch_counts()
+    out["launches"] = {k: counts.get(k, 0)
+                       for k in DIST_PATHS[path] + DIST_SOLVERS[out["solver"]]}
+    xs = x.cpu().numpy()
+    out.update(
+        relres=float(np.linalg.norm(A @ xs - b) / np.linalg.norm(b)),
+        x_forms=float(torch.linalg.vector_norm(xh - x)
+                      / torch.linalg.vector_norm(x)),
+        specs=sorted({s.kind for s in F.specs}),
+        bytes=list(F.factor_bytes), dummy_bytes=list(F.factor_dummy_bytes),
+        solve_bytes=F.solve_bytes(), exchange_s=sum(F.factor_wait_s),
+        estimate=[int(lv["comm_bytes"]) for lv in collective_estimate(
+            plan, mesh.size(0), 8)["per_level"]])
+    ckpt = os.path.join(ckpt_dir, f"mesh-{backend}-{path}.pt")
+    if path in DIST_CHECKPOINTED:
+        _, out["save_s"] = timed(lambda: save_solver(ckpt, F))
+        dist.barrier()
     G = F.gather_levels()
-    del F
-    if G is not None:
-        F1 = ht.factor_with_plan(plan, opts, device=dev)
-        x1, info1 = solve(F1.solve)
-        d, m = records_diff(G.levels, F1.levels)
-        dr, mr = records_diff(G.root, F1.root) if F1.root is not None \
-            else (0.0, 0.0)
-        out.update(iters_single=info1["iters"],
-                   x_diff=float(torch.linalg.vector_norm(x - x1)
-                                / torch.linalg.vector_norm(x1)),
-                   records_diff=max(d, dr), records_max=max(m, mr))
+    del F, data
+    if G is None:
+        return out
+    xs_form = x_form.clone()
+    if path in DIST_CHECKPOINTED:
+        L, out["load_s"] = timed(lambda: load_solver(ckpt, device=dev))
+        out["ckpt_bytes"] = os.path.getsize(ckpt)
+        out["ckpt_files"] = sorted(os.listdir(ckpt_dir))
+        out["loaded_bitwise"] = bool(torch.equal(L.solve(bt), G.solve(bt)))
+        del L
+        os.remove(ckpt)
+    # the same plan factored on the card alone, each GMRES form held to
+    # its own: krylov.gmres to krylov.gmres, the mesh's gmres_compiled form
+    # (its graph over NCCL, its host-driven run over gloo) to one card's
+    # graph (the graph and the host-driven run are one program)
+    F1 = ht.factor_with_plan(plan, opts, device=dev)
+    x1, info1 = gmres(F1.solve_data)
+    xc1, cinfo1 = ht.gmres_compiled(mv, solve_with_data, bt,
+                                    M_data=F1.solve_data, **kw)
+    d, m = records_diff(G.levels, F1.levels)
+    dr, mr = records_diff(G.root, F1.root) if F1.root is not None \
+        else (0.0, 0.0)
+    out.update(iters_single=info1["iters"], iters_single_c=cinfo1["iters"],
+               x_diff=float(torch.linalg.vector_norm(x - x1)
+                            / torch.linalg.vector_norm(x1)),
+               x_diff_c=float(torch.linalg.vector_norm(xs_form - xc1)
+                              / torch.linalg.vector_norm(xc1)),
+               records_diff=max(d, dr), records_max=max(m, mr),
+               reading=records_reading(G, F1), single="one card alone")
     return out
 
 
 def check_dist(dev_count: int) -> list:
     """Phase 6: the multi-device path at full width.  With several cards,
-    one rank a card over NCCL; on a machine of one card (NCCL takes one
-    rank a card) two ranks share it over gloo, whose collectives stage CUDA
+    one rank a card over NCCL; on a machine of one card (NCCL takes one rank
+    a card) two ranks share it over gloo, whose collectives stage CUDA
     tensors through the host, and one rank runs over NCCL.  Every rank is a
-    process started by ``spawn`` after the kernels were built here."""
+    process started by ``spawn`` after the kernels were built here.
+    ``python -m hsolve_torch.parallel.dryrun`` (``dryrun_multichip``) on the
+    first configuration's backend runs alongside that configuration's
+    ranks: both are mechanics readings of ranks sharing one host."""
     from hsolve_torch.parallel.dist import run_ranks
 
     configs = [("nccl", dev_count)] if dev_count > 1 else \
         [("gloo", 2), ("nccl", 1)]
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke", "mesh")
+    os.makedirs(ckpt_dir, exist_ok=True)
     rows = []
-    for backend, world in configs:
-        t0 = time.perf_counter()
-        runs = run_ranks(dist_rank, world, DIST_N, tuple(DIST_PATHS),
-                         device="cuda", backend=backend, timeout=400)
-        log(f"[6] {world} rank(s) over {backend}: {time.perf_counter() - t0:.1f}"
-            " s for both paths, the ranks' start included")
-        for path in DIST_PATHS:
-            res = [run[path] for run in runs]
-            r0 = res[0]
-            label = f"n={DIST_N} {path} on {world} rank(s) over {backend}"
-            log(f"[6] {label}: relres {r0['relres']:.3e}, {r0['iters']} "
-                f"iterations (one card alone: {r0['iters_single']}), x "
-                f"within {r0['x_diff']:.3e} of one card's, gathered records "
-                f"within {r0['records_diff']:.3e} (of max "
-                f"{r0['records_max']:.3e})")
-            log(f"  {label}: bytes exchanged per batch {r0['bytes']} "
-                f"(collective_estimate {r0['estimate']}); solve sums per "
-                f"level {r0['solve_bytes']} bytes an application")
-            for r in res:
-                log(f"  {label}, rank {r['rank']} on {r['device']}: factor "
-                    f"{r['factor_s']:.4f} s ({r['exchange_s']:.4f} s of it in "
-                    f"the exchanges), solve {r['solve_s']:.4f} s "
-                    f"(a mechanics reading: the ranks share one host"
-                    f"{' and one card' if dev_count == 1 else ''}, so no "
-                    f"scaling); launches {r['launches']}")
-                missing = [k for k, v in r["launches"].items() if v <= 0]
-                if missing:
-                    fail(f"{label}: rank {r['rank']} never launched {missing}")
-                if r["relres"] > RELRES or not r["converged"]:
-                    fail(f"{label}: rank {r['rank']} relres {r['relres']:.3e}")
-                if r["iters"] != r0["iters_single"]:
-                    fail(f"{label}: {r['iters']} iterations, one card "
-                         f"{r0['iters_single']}")
-            if r0["x_diff"] > XDIFF:
-                fail(f"{label}: x {r0['x_diff']:.3e} from one card's")
-            if path == "exact" and r0["records_diff"] > \
-                    DIST_RECORDS * r0["records_max"]:
-                fail(f"{label}: gathered records {r0['records_diff']:.3e} "
-                     "from one card's")
-            if path == "exact" and r0["bytes"][:len(r0["estimate"])] != \
-                    r0["estimate"]:
-                fail(f"{label}: {r0['bytes']} bytes exchanged, the estimate "
-                     f"{r0['estimate']}")
-            rows.append({"path": path, "n": DIST_N, "backend": backend,
-                         "ranks": world, **{k: r0[k] for k in (
-                             "relres", "iters", "iters_single", "x_diff",
-                             "records_diff", "bytes", "estimate",
-                             "solve_bytes")},
-                         "factor_s": [r["factor_s"] for r in res],
-                         "exchange_s": [r["exchange_s"] for r in res],
-                         "solve_s": [r["solve_s"] for r in res]})
+    dry_backend, dry_world = configs[0]
+    solver = "gmres_compiled" if dry_backend == "nccl" else "gmres_host_driven"
+    # its output to files: a pipe read only at the end could fill and stall it
+    dry_out = [open(os.path.join(HERE, "build", "chip_smoke", f"dryrun.{k}"),
+                    "w+") for k in ("out", "err")]
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "hsolve_torch.parallel.dryrun", str(dry_world),
+         "--device", "cuda"], cwd=HERE,
+        stdout=dry_out[0], stderr=dry_out[1], text=True)
+    try:
+        for backend, world in configs:
+            t0 = time.perf_counter()
+            runs = run_ranks(dist_rank, world, DIST_N, DIST_RUNS[backend],
+                             "cuda", ckpt_dir, device="cuda", backend=backend,
+                             timeout=500)
+            log(f"[6] {world} rank(s) over {backend}: "
+                f"{time.perf_counter() - t0:.1f} s for "
+                f"{', '.join(DIST_RUNS[backend])}, the ranks' start included"
+                + (", dryrun_multichip alongside" if backend == dry_backend
+                   else ""))
+            for path in DIST_RUNS[backend]:
+                rows.append(check_dist_path(path, backend, world, dev_count,
+                                            [run[path] for run in runs]))
+            if backend == dry_backend:
+                dry.wait(timeout=300)
+                log(f"[6] dryrun_multichip({dry_world}) over {dry_backend}: "
+                    f"{time.perf_counter() - t_dry:.1f} s")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        for f in dry_out:
+            f.seek(0)
+        out, err = (f.read() for f in dry_out)
+        for f in dry_out:
+            f.close()
+    lines = out.strip().splitlines()
+    if dry.returncode != 0 or len(lines) < 2 or \
+            not lines[-2].endswith(f"({solver}) ok"):
+        fail(f"dryrun_multichip({dry_world}): exit {dry.returncode}:\n{out}"
+             f"\n{err[-3000:]}")
+    log(f"  {lines[-2]}")
+    log(f"  {lines[-1]}")
+    rows.append({"path": "dryrun_multichip", "backend": dry_backend,
+                 "ranks": dry_world, "line1": lines[-2],
+                 "scaling": json.loads(lines[-1].removeprefix("scaling "))})
     return rows
+
+
+def check_dist_path(path, backend, world, dev_count, res) -> dict:
+    """Phase 6's checks and log lines of one path's run on every rank."""
+    r0 = res[0]
+    label = f"n={DIST_N} {path} on {world} rank(s) over {backend}"
+    graph = (f", gmres_compiled's graph {r0['iters_graph']} (x within "
+             f"{r0['x_graph']:.3e} of the host-driven run's)"
+             if "iters_graph" in r0 else "")
+    log(f"[6] {label} ({r0['path_s']:.1f} s on rank 0; mesh levels "
+        f"{r0['specs']}): relres {r0['relres']:.3e}, "
+        f"krylov.gmres {r0['iters']} iterations ({r0['single']}: "
+        f"{r0['iters_single']}), gmres_host_driven {r0['iters_host']} (x "
+        f"within {r0['x_forms']:.3e} of krylov.gmres's){graph}; "
+        f"{r0['solver']} against {r0['single']}'s gmres_compiled "
+        f"{r0['iters_single_c']} iterations, x within {r0['x_diff_c']:.3e}; "
+        f"krylov.gmres against {r0['single']}'s: x within "
+        f"{r0['x_diff']:.3e}; gathered records within "
+        f"{r0['records_diff']:.3e} (of max {r0['records_max']:.3e})")
+    log(f"  {label}: bytes exchanged per batch {r0['bytes']} "
+        f"(collective_estimate {r0['estimate']}; dummy fronts' rows "
+        f"{r0['dummy_bytes']}); solve sums per level {r0['solve_bytes']} "
+        "bytes an application")
+    for r in res:
+        log(f"  {label}, rank {r['rank']} on {r['device']}: factor "
+            f"{r['factor_s']:.4f} s ({r['exchange_s']:.4f} s of it in the "
+            f"exchanges), krylov.gmres {r['gmres_ms']:.3f} ms, "
+            f"gmres_host_driven {r['host_ms']:.3f} ms"
+            + (f", gmres_compiled's graph {r['graph_ms']:.3f} ms warm "
+               f"(capture {r['capture_s']:.4f} s, pool "
+               f"{r['graph_pool_mb']:.1f} MiB)" if "graph_ms" in r else "")
+            + f" (a mechanics reading: the ranks share one host"
+            f"{' and one card' if dev_count == 1 else ''}, so no scaling);"
+            f" launches {r['launches']}")
+        missing = [k for k, v in r["launches"].items() if v <= 0]
+        if missing:
+            fail(f"{label}: rank {r['rank']} never launched {missing}")
+        if r["relres"] > RELRES or not r["converged"]:
+            fail(f"{label}: rank {r['rank']} relres {r['relres']:.3e}")
+        # each form's count exactly its own on the mesh and on one card:
+        # the graph the host-driven run of its program, and both one
+        # card's graph; krylov.gmres (MGS, Givens on the host) one card's
+        # krylov.gmres.  The two forms' counts are not compared: where the
+        # true residual sits at the tolerance (n=512 structured, unpadded)
+        # their estimates part and one stops a step before the other
+        # (tools/gmres_forms.py)
+        if r.get("iters_graph", r["iters_host"]) != r["iters_host"] or \
+                not r.get("x_graph", 0.0) <= XDIFF:
+            fail(f"{label}: rank {r['rank']} gmres_compiled's graph "
+                 f"{r.get('iters_graph')} iterations, x {r.get('x_graph')} "
+                 f"from the host-driven run's ({r['iters_host']})")
+        if r["iters_host"] != r0["iters_single_c"]:
+            fail(f"{label}: rank {r['rank']} {r['solver']} "
+                 f"{r['iters_host']} iterations, one card's gmres_compiled "
+                 f"{r0['iters_single_c']}")
+        if r["iters"] != r0["iters_single"]:
+            fail(f"{label}: rank {r['rank']} krylov.gmres {r['iters']} "
+                 f"iterations, one card's {r0['iters_single']}")
+        if not r["x_forms"] <= XDIFF:
+            fail(f"{label}: gmres_host_driven's x {r['x_forms']:.3e} from "
+                 "krylov.gmres's")
+        if "refusal" in r and not (r["refusal"] and backend in r["refusal"]):
+            fail(f"{label}: gmres_compiled over {backend} gave "
+                 f"{r['refusal']!r}, not a refusal naming the backend")
+    if "refusal" in r0:
+        log(f"  {label}: gmres_compiled on CUDA tensors: {r0['refusal']}")
+    # one rank holds the whole plan and makes one card's calls: its factor
+    # and both forms' x are one card's bit for bit
+    tol = 0.0 if world == 1 else XDIFF
+    if not (r0["x_diff"] <= tol and r0["x_diff_c"] <= tol):
+        fail(f"{label}: x {r0['x_diff']:.3e} (krylov.gmres) and "
+             f"{r0['x_diff_c']:.3e} ({r0['solver']}) from one card's, "
+             f"bound {tol:g}")
+    if world == 1 and r0["records_diff"] != 0.0:
+        fail(f"{label}: gathered records {r0['records_diff']:.3e} from one "
+             "card's, not bit for bit")
+    reading = r0["reading"]
+    if path.startswith("exact"):
+        if r0["records_diff"] > DIST_RECORDS * r0["records_max"]:
+            fail(f"{label}: gathered records {r0['records_diff']:.3e} from "
+                 "one card's")
+    elif reading:
+        worst = max(row["products"] for row in reading)
+        parted = sum(row["rank_diff"] for row in reading)
+        fronts = sum(row["fronts"] for row in reading if row["kind"] != "dense")
+        log(f"  {label}: records against one card's, level by level "
+            f"(fronts whose ranks differ / their largest rank difference / "
+            f"products' largest difference of the level's largest entry): "
+            + "; ".join(f"{row['level']} {row['kind'][0]} "
+                        f"{row['rank_diff']}/{row.get('rank_max_diff', 0)}/"
+                        f"{row['products']:.2e}" for row in reading))
+        log(f"  {label}: ranks differ at {parted} of {fronts} fronts; "
+            f"products within {worst:.3e} (bound {DIST_PRODUCTS:g})")
+        if worst > DIST_PRODUCTS:
+            fail(f"{label}: products {worst:.3e} from one card's")
+    if path == "exact" and r0["bytes"][:len(r0["estimate"])] != r0["estimate"]:
+        fail(f"{label}: {r0['bytes']} bytes exchanged, the estimate "
+             f"{r0['estimate']}")
+    split = {}
+    if path == "hss" and world > 1:
+        total, dummy = sum(r0["bytes"]), sum(r0["dummy_bytes"])
+        real, est = total - dummy, sum(r0["estimate"])
+        per = [f"{i}: {b_ - d_} / {e_} ({(b_ - d_) / e_:.2f}x)"
+               for i, (b_, d_, e_) in enumerate(zip(
+                   r0["bytes"], r0["dummy_bytes"], r0["estimate"])) if e_]
+        log(f"  {label}: the exchange's {total} bytes: {dummy} copy a source "
+            f"row into a dummy front, {real} fill real fronts against the "
+            f"estimate's {est} (n_pad (ls + 4 r) a row): {real - est} bytes "
+            f"of HSS rows beyond the model; real / estimate per batch: "
+            + "; ".join(per))
+        if real < est:
+            fail(f"{label}: the real fronts' rows moved {real} bytes, below "
+                 f"the estimate's {est}")
+        split = {"dummy_bytes": dummy, "real_bytes": real, "estimate": est}
+    ck = {}
+    if path in DIST_CHECKPOINTED:
+        log(f"  {label}: save_solver of the mesh factor {r0['ckpt_bytes']} "
+            f"bytes (rank 0 wrote {r0['ckpt_files']}), save "
+            f"{r0['save_s']:.3f} s (the gather included), load onto the card "
+            f"{r0['load_s']:.3f} s (a file just written: a warm page cache); "
+            f"the loaded solve bitwise the gathered factor's: "
+            f"{r0['loaded_bitwise']}")
+        if not r0["loaded_bitwise"] or r0["ckpt_files"] != [
+                f"mesh-{backend}-{path}.pt"]:
+            fail(f"{label}: checkpoint {r0['ckpt_files']}, loaded solve "
+                 f"bitwise {r0['loaded_bitwise']}")
+        ck = {k: r0[k] for k in ("ckpt_bytes", "save_s", "load_s")}
+    return {"path": path, "n": DIST_N, "backend": backend, "ranks": world,
+            **{k: r0[k] for k in ("relres", "iters", "iters_host",
+                                  "iters_single", "iters_single_c",
+                                  "x_forms", "x_diff", "x_diff_c",
+                                  "records_diff", "bytes", "estimate",
+                                  "dummy_bytes", "solve_bytes", "solver")},
+            **split, **ck,
+            "products": max((row["products"] for row in r0["reading"]),
+                            default=0.0),
+            "rank_diff": sum(row["rank_diff"] for row in r0["reading"]),
+            "factor_s": [r["factor_s"] for r in res],
+            "exchange_s": [r["exchange_s"] for r in res],
+            **({"iters_graph": r0["iters_graph"], "x_graph": r0["x_graph"],
+                "graph_ms": [r["graph_ms"] for r in res]}
+               if "graph_ms" in r0 else {}),
+            "gmres_ms": [r["gmres_ms"] for r in res],
+            "host_ms": [r["host_ms"] for r in res]}
 
 
 def check_bench(argv) -> dict:
@@ -3082,8 +3405,10 @@ def main() -> int:
     if "dist" in checks:
         log("[6] the multi-device path: the tree-sharded factor and solve "
             f"(hsolve_torch.parallel) at n={DIST_N}")
+        t6 = time.perf_counter()
         dist_rows = check_dist(torch.cuda.device_count())
         log("[6] dist runs: " + json.dumps(dist_rows))
+        log(f"[6] phase 6 took {time.perf_counter() - t6:.1f} s")
     table = kernel_table(runs, kres)
     log("[5] main path runs: " + json.dumps(
         [{k: v for k, v in r.items() if k != "launches"} for r in runs]))

@@ -179,7 +179,30 @@ def data_dtype(levels: List[Level], root: Optional[Root]) -> torch.dtype:
 class SolveData(tuple):
     """``(levels, root, dperm, diperm)``: a factorization's solve data, a
     tuple that also takes attributes (``gmres_compiled`` caches the CUDA
-    graphs that read it there, so they live no longer than it)."""
+    graphs that read it there, so they live no longer than it).  A mesh
+    factor's is a subclass whose :meth:`apply_permuted` sums over the ranks
+    (:class:`~hsolve_torch.parallel.sharded.MeshSolveData`) and whose
+    hooks, which the solvers and ``save_solver`` call on any solve data, are
+    collective; on one device they do nothing."""
+
+    def apply_permuted(self, b: torch.Tensor) -> torch.Tensor:
+        """The hierarchical solve of ``b`` in the plan's ordering."""
+        return _apply(self[0], self[1], b)
+
+    def consensus(self, values: np.ndarray) -> np.ndarray:
+        """The host values every rank branches on (one device: its own)."""
+        return values
+
+    def check_replicated(self, x: torch.Tensor) -> None:
+        """Raise unless ``x`` is the same on every rank (one device: never)."""
+
+    def prepare_graph(self, device: torch.device) -> None:
+        """Make a CUDA graph of solves on ``device`` possible, or raise
+        (one device: nothing to do)."""
+
+    def gathered(self, dst: int = 0) -> Optional["SolveData"]:
+        """The one-device solve data, on rank ``dst`` (None elsewhere)."""
+        return self
 
 
 @dataclasses.dataclass
@@ -209,7 +232,7 @@ class Factorization:
                                       self._diperm))
 
     def apply_permuted(self, b) -> torch.Tensor:
-        return _apply(self.levels, self.root, on_device(b, self.device))
+        return self.solve_data.apply_permuted(on_device(b, self.device))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -334,9 +357,10 @@ def solve_in_type(data, b: torch.Tensor) -> torch.Tensor:
 
 
 def solve_with_data(data, b: torch.Tensor) -> torch.Tensor:
-    """x = F^{-1} b from a :attr:`Factorization.solve_data` tuple."""
-    levels, root, dperm, diperm = data
-    return _apply(levels, root, b[dperm])[diperm]
+    """x = F^{-1} b from a :attr:`Factorization.solve_data` tuple (on a mesh
+    factor's, collective)."""
+    _, _, dperm, diperm = data
+    return data.apply_permuted(b[dperm])[diperm]
 
 
 # ---------------------------------------------------------------------------

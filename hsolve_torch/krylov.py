@@ -27,6 +27,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from hsolve_torch.factor import SolveData
 from hsolve_torch.ops import gmres_control as gc
 from hsolve_torch.ops.arnoldi import (DONE, GO, IT, MAXITER, NCYC,
                                       arnoldi_state, arnoldi_step)
@@ -60,30 +61,51 @@ def _mgs(V: torch.Tensor, w: torch.Tensor, j: int):
     return w, torch.stack(hs)
 
 
+_ONE_DEVICE = SolveData(())
+
+
+def _hooks(M: Optional[Callable], M_data) -> SolveData:
+    """The solve data whose hooks (``consensus``, ``check_replicated``,
+    ``prepare_graph``) a solve calls: ``M_data``, else that of the
+    factorization ``M`` is a method of (``M=F.solve`` of a mesh factor is
+    collective as well), else one device's, which do nothing."""
+    for data in (M_data, getattr(getattr(M, "__self__", None), "solve_data",
+                                 None)):
+        if isinstance(data, SolveData):
+            return data
+    return _ONE_DEVICE
+
+
 def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
           reltol: float = 1e-9, abstol: float = 0.0, restart: int = 30,
-          maxiter: Optional[int] = None):
+          maxiter: Optional[int] = None, M_data=None):
     """Solve ``A x = b`` with right-preconditioned restarted GMRES (MGS Arnoldi).
 
-    matvec: ``v -> A v``; M: ``v -> M^{-1} v`` (right preconditioner).
-    Returns ``(x, info)``: ``info['resnorm']`` holds the initial residual norm
-    followed by one entry per inner iteration; ``info['iters']``;
-    ``info['converged']``.
+    matvec: ``v -> A v``; M: ``v -> M^{-1} v`` (right preconditioner), or
+    ``(data, v) -> M^{-1} v`` when ``M_data`` is given, as in
+    :func:`gmres_compiled`.  Returns ``(x, info)``: ``info['resnorm']``
+    holds the initial residual norm followed by one entry per inner
+    iteration; ``info['iters']``; ``info['converged']``.
 
-    With ``M`` the ``solve`` of a factorization sharded over a mesh, every
-    rank runs this loop on its replicated vectors: ``M`` returns the same
-    vector on every rank, the norms and Arnoldi coefficients every branch
-    reads are rank 0's (one broadcast each), so every rank takes each branch
-    alike, and at the end ``x`` is checked to be bit for bit the same on
-    every rank."""
+    With ``M_data`` a mesh factor's solve data
+    (:class:`~hsolve_torch.parallel.sharded.MeshSolveData`), or ``M`` the
+    ``solve`` or ``apply_permuted`` of a mesh factor, every rank runs this
+    loop on its replicated vectors: ``M`` returns the same vector
+    on every rank, the norms and Arnoldi coefficients every branch reads are
+    rank 0's (one broadcast each), so every rank takes each branch alike,
+    and at the end ``x`` is checked to be bit for bit the same on every
+    rank."""
     b = torch.as_tensor(b)
     n = b.shape[0]
     if maxiter is None:
         maxiter = restart
-    sharded = getattr(M, "__self__", None)
-    agree = getattr(sharded, "consensus", lambda v: v)
+    hooks = _hooks(M, M_data)
+    agree = hooks.consensus
     if M is None:
         M = lambda v: v
+    elif M_data is not None:
+        prec = M
+        M = lambda v: prec(M_data, v)
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
     have_x = x0 is not None
 
@@ -149,8 +171,7 @@ def gmres(matvec: Callable, b, M: Optional[Callable] = None, x0=None,
         history[-1] = true_res
         converged = bool(true_res <= tol)
 
-    if hasattr(sharded, "check_replicated"):
-        sharded.check_replicated(x)
+    hooks.check_replicated(x)
     info = {"resnorm": np.asarray(history, dtype=np.float64), "iters": iters,
             "converged": converged}
     return x, info
@@ -196,25 +217,38 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     else ``matvec``), holding ``mv_data`` and ``mv_data_inner``, so a new
     factorization captures anew and a freed one frees its graph.  A matvec or
     preconditioner that cannot be captured (a host read, a host-to-device
-    copy) raises; nothing falls back to a host loop.  A factorization
-    sharded over a mesh is refused (its solve data raises too): the graph
-    solve over NCCL is not ported yet; :func:`gmres` takes it."""
-    if hasattr(getattr(M, "__self__", None), "consensus"):
-        raise NotImplementedError("gmres_compiled does not take a factorization "
-                                  "sharded over a mesh yet: use gmres")
+    copy) raises; nothing falls back to a host loop.
+
+    ``M_data`` may be a mesh factor's solve data
+    (:class:`~hsolve_torch.parallel.sharded.MeshSolveData`, every rank
+    calling with its replicated ``b``).  On the card each rank captures and
+    replays its own graph, the preconditioner's sums over the ranks inside
+    it; that needs NCCL (its communicator is set up before the capture),
+    and any other backend raises (:func:`gmres_host_driven` takes it).  On
+    the CPU every rank runs the host program.  No branch reads a value that
+    another rank computed: every condition comes from vectors that are bit
+    for bit the same on every rank, so the ranks take each branch, and issue
+    each collective, alike.  With ``fetch_info`` ``x`` is then checked to
+    be the same on every rank (a collective and a host read); with
+    ``fetch_info=False`` the caller checks it (``M_data.check_replicated``)."""
     if maxiter is None:
         maxiter = restart
     b = torch.as_tensor(b)
+    hooks = _hooks(M, M_data)
     args = (matvec, M, float(reltol), int(restart), int(maxiter), M_data,
             mv_data, float(m_eps), inner_dtype, mv_data_inner, bool(escalate))
     if b.device.type == "cuda":
+        hooks.prepare_graph(b.device)
         x, packed = _graph_for(b, *args).solve(b)
     else:
         prog = _Program(b, *args)
         prog.run_host()
         x, packed = prog.x_out, prog.packed
     info = {"_device": _device_info(packed), "reltol": reltol}
-    return x, (fetch_gmres_info(info) if fetch_info else info)
+    if not fetch_info:
+        return x, info
+    hooks.check_replicated(x)
+    return x, fetch_gmres_info(info)
 
 
 def fetch_gmres_info(info: dict) -> dict:
@@ -239,14 +273,17 @@ def gmres_host_driven(matvec: Callable, M: Optional[Callable], b: torch.Tensor,
     """:func:`gmres_compiled`'s functions launched eagerly, the host reading
     the loop's flags after every step and cycle (:func:`_Program.run_host`):
     on the CPU the same run as ``gmres_compiled``, on the card the yardstick
-    its graph is held to (nothing on the main path calls it).  Returns
-    ``(x, info)`` as ``gmres_compiled`` with ``fetch_info=True``."""
+    its graph is held to, and the solve of a mesh factor over a backend whose
+    collectives a graph cannot capture (gloo); ``x`` is then checked to be
+    the same on every rank.  Returns ``(x, info)`` as ``gmres_compiled``
+    with ``fetch_info=True``."""
     if maxiter is None:
         maxiter = restart
     prog = _Program(torch.as_tensor(b), matvec, M, float(reltol), int(restart),
                     int(maxiter), M_data, mv_data, float(m_eps), inner_dtype,
                     mv_data_inner, bool(escalate))
     prog.run_host()
+    _hooks(M, M_data).check_replicated(prog.x_out)
     return prog.x_out, fetch_gmres_info(
         {"_device": _device_info(prog.packed), "reltol": reltol})
 

@@ -21,10 +21,6 @@ import numpy as np
 import scipy.sparse as sp
 
 
-def _grid_ids_2d(m1: int, m2: int) -> np.ndarray:
-    return np.arange(m1 * m2).reshape(m1, m2)
-
-
 def p1_fem_2d(n: int):
     """Assemble P1 stiffness K and mass M on the structured triangulation of the unit
     square (each of the n*n cells split along the same diagonal), homogeneous Dirichlet.
@@ -36,7 +32,6 @@ def p1_fem_2d(n: int):
     """
     h = 1.0 / n
     m = n - 1
-    ids = _grid_ids_2d(m, m)
 
     # local P1 element matrices for the two right triangles of a cell (diagonal from
     # (i, j) to (i+1, j+1)); stiffness is h-independent, mass scales with h^2/24.
@@ -45,37 +40,22 @@ def p1_fem_2d(n: int):
     Mloc = (h * h / 24.0) * np.array([[2.0, 1.0, 1.0], [1.0, 2.0, 1.0], [1.0, 1.0, 2.0]])
     # Kloc above is for a right triangle with the right angle at vertex 0.
 
-    rows, cols, kvals, mvals = [], [], [], []
-
-    # grid vertices are (i, j), i=0..n, j=0..n ; interior (1..n-1)^2 -> ids[i-1, j-1]
-    def vid(i, j):
-        if 1 <= i <= m and 1 <= j <= m:
-            return ids[i - 1, j - 1]
-        return -1  # boundary vertex (eliminated by Dirichlet)
-
-    tri1 = [(0, 0), (1, 0), (1, 1)]  # right angle at (1, 0)
-    tri2 = [(0, 0), (1, 1), (0, 1)]  # right angle at (0, 1)
-    # per-triangle vertex order chosen so the right angle is at local vertex 0:
-    tris = [
-        ([(1, 0), (0, 0), (1, 1)], Kloc),
-        ([(0, 1), (0, 0), (1, 1)], Kloc),
-    ]
-    del tri1, tri2
-
-    for ci in range(n):
-        for cj in range(n):
-            for verts, Ke in tris:
-                vids = [vid(ci + dv[0], cj + dv[1]) for dv in verts]
-                for a in range(3):
-                    if vids[a] < 0:
-                        continue
-                    for b in range(3):
-                        if vids[b] < 0:
-                            continue
-                        rows.append(vids[a])
-                        cols.append(vids[b])
-                        kvals.append(Ke[a, b])
-                        mvals.append(Mloc[a, b])
+    # per-triangle vertex order chosen so the right angle is at local vertex 0
+    # (triangle 1: (1, 0), (0, 0), (1, 1); triangle 2: (0, 1), (0, 0), (1, 1));
+    # the entries in the order of the loops over cells (ci, cj), triangles,
+    # local rows a and columns b, boundary vertices (Dirichlet) left out
+    tris = np.array([[(1, 0), (0, 0), (1, 1)], [(0, 1), (0, 0), (1, 1)]])
+    c = np.arange(n)
+    vi = c[:, None, None, None] + tris[None, None, :, :, 0]      # [n, 1, 2, 3]
+    vj = c[None, :, None, None] + tris[None, None, :, :, 1]      # [1, n, 2, 3]
+    inside = (vi >= 1) & (vi <= m) & (vj >= 1) & (vj <= m)
+    vids = np.where(inside, (vi - 1) * m + (vj - 1), -1)          # [n, n, 2, 3]
+    ra = np.broadcast_to(vids[..., :, None], (n, n, 2, 3, 3))
+    cb = np.broadcast_to(vids[..., None, :], (n, n, 2, 3, 3))
+    keep = ((ra >= 0) & (cb >= 0)).ravel()
+    rows, cols = ra.ravel()[keep], cb.ravel()[keep]
+    kvals = np.broadcast_to(Kloc, (n, n, 2, 3, 3)).ravel()[keep]
+    mvals = np.broadcast_to(Mloc, (n, n, 2, 3, 3)).ravel()[keep]
     N = m * m
     K = sp.csr_matrix((kvals, (rows, cols)), shape=(N, N))
     M = sp.csr_matrix((mvals, (rows, cols)), shape=(N, N))

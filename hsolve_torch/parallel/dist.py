@@ -19,8 +19,9 @@ rank) under ``torch.distributed``, the ranks laid out on a
 
 The planner pads each level's batch to a multiple of the tree axis with
 identity dummy fronts (``plan_factorization(..., batch_multiple=)``) so the
-blocks divide evenly.  The process group uses NCCL on the card and gloo on
-the CPU unless the caller started it with another backend.
+blocks divide evenly.  The process group uses NCCL on the card when each
+rank has a card of its own, and gloo on the CPU or for ranks sharing a
+card, unless the caller started it with another backend.
 """
 
 from __future__ import annotations
@@ -36,10 +37,13 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from hsolve_torch.kernels import resolve_device
 
 
-def default_backend(device_type: str) -> str:
-    """The process group's backend for a device type: NCCL on the card,
-    gloo on the CPU."""
-    return "nccl" if device_type == "cuda" else "gloo"
+def default_backend(device_type: str, world: int = 1) -> str:
+    """The process group's backend for ``world`` ranks on a device type:
+    NCCL on the card, one rank a card; gloo on the CPU, or where the ranks
+    outnumber the cards (NCCL cannot run two ranks on one card)."""
+    if device_type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
 def rank_device(device="cuda") -> torch.device:
@@ -64,7 +68,9 @@ def make_mesh(n_devices: Optional[int] = None, tree: Optional[int] = None,
     must equal it; ``tree`` defaults to ``n_devices // front``."""
     dev = resolve_device(device)
     if not dist.is_initialized():
-        dist.init_process_group(default_backend(dev.type), init_method="env://")
+        dist.init_process_group(default_backend(
+            dev.type, int(os.environ.get("WORLD_SIZE", 1))),
+            init_method="env://")
     world = dist.get_world_size()
     if n_devices is None:
         n_devices = world
@@ -172,7 +178,7 @@ def _rank_main(fn, rank: int, world: int, store: str, device: str,
     torch.set_num_threads(1)       # threaded LU in several ranks of a host can hang
     try:
         dist.init_process_group(backend or default_backend(
-            torch.device(device).type), init_method=f"file://{store}",
+            torch.device(device).type, world), init_method=f"file://{store}",
             rank=rank, world_size=world)
         try:
             results.put((rank, True, fn(*args)))
@@ -193,9 +199,9 @@ def run_ranks(fn, world: int, *args, device: str = "cuda",
     ``fn`` and its results must pickle (module-level functions, numpy and
     plain values); the ranks start by ``spawn``, so CUDA may already be
     initialised here.  The backend is :func:`default_backend` of
-    ``device``'s type unless ``backend`` names another.  A rank that raises
-    or a run longer than ``timeout`` seconds raises here, and every rank
-    still running is killed."""
+    ``device``'s type and ``world`` unless ``backend`` names another.  A
+    rank that raises or a run longer than ``timeout`` seconds raises here,
+    and every rank still running is killed."""
     import multiprocessing as mp
     import queue
     import shutil

@@ -8,8 +8,11 @@
   ("tree", "front") mesh at small sizes, exact and compressed, then the
   same exact run on 1, 2, 4, ... ranks and the efficiency
   :func:`~hsolve_torch.utils.profiling.collective_estimate` predicts at
-  h=256.  Ranks sharing one host validate the sharded program's mechanics,
-  not a link's scaling.
+  h=256.  The solve is the JAX dry run's compiled GMRES (restart 20):
+  ``gmres_compiled``, one CUDA graph a rank, over NCCL; over gloo, whose
+  collectives a graph cannot capture, the same program driven by the host
+  (``gmres_host_driven``).  Ranks sharing one host validate the sharded
+  program's mechanics, not a link's scaling.
 
 ``python -m hsolve_torch.parallel.dryrun N [--device cpu]`` runs
 :func:`dryrun_multichip`.
@@ -49,12 +52,28 @@ def entry(device="cuda"):
     return step, (example,)
 
 
+def _apply_permuted(data, v):
+    """The preconditioner on the permuted system (the JAX dry run's
+    identity ``dperm``)."""
+    return data.apply_permuted(v)
+
+
+def solver_name() -> str:
+    """The GMRES form the dry run's ranks use: the graph over NCCL, else
+    the host-driven program (on the CPU the two are one program)."""
+    import torch.distributed as dist
+
+    return "gmres_compiled" if dist.get_backend() == "nccl" \
+        else "gmres_host_driven"
+
+
 def _dryrun_one(mesh, n, leafmax, opts, reltol, accuracy, label, time_it=False,
                 maxiter=24):
     """Factor on ``mesh`` and solve with preconditioned GMRES, the permuted
     system in float64; returns (relres, iters, wall_s, nnz), ``wall_s`` (a
     second factor and solve, after the first) only with ``time_it``."""
     import hsolve_torch as ht
+    from hsolve_torch import krylov
     from hsolve_torch.parallel.dist import rank_device
 
     dev = rank_device(mesh.device_type)
@@ -62,12 +81,13 @@ def _dryrun_one(mesh, n, leafmax, opts, reltol, accuracy, label, time_it=False,
     plan = ht.plan_factorization(A, tree, opts, batch_multiple=mesh.size(0))
     ell = ht.to_ell(plan.A_perm, device=dev)
     rhs = torch.as_tensor(b[plan.perm], device=dev)
+    solve = getattr(krylov, solver_name())
 
     def run():
         F = ht.factor_with_plan(plan, opts, device=dev, mesh=mesh)
-        return ht.gmres(lambda v: ht.ell_matvec(ell, v), rhs,
-                        M=F.apply_permuted, reltol=reltol, restart=20,
-                        maxiter=maxiter)
+        return solve(ht.ell_matvec, _apply_permuted, rhs, reltol=reltol,
+                     restart=20, maxiter=maxiter, M_data=F.solve_data,
+                     mv_data=ell)
 
     x, info = run()
     wall = None
@@ -108,7 +128,8 @@ def _dryrun_rank(n_devices: int, front: int, device: str, full: bool) -> dict:
     from hsolve_torch.parallel.dist import make_mesh
 
     mesh = make_mesh(n_devices, front=front if full else 1, device=device)
-    out = {"mesh": {"tree": mesh.size(0), "front": mesh.size(1)}}
+    out = {"mesh": {"tree": mesh.size(0), "front": mesh.size(1)},
+           "solver": solver_name()}
     if full:
         out["exact"] = _dryrun_one(mesh, 17, 24, _exact(), 1e-6, 1e-4, "exact")
         comp = ht.SolverOptions(swlevel=-2, swsize=1, atol=1e-3, rtol=1e-3,
@@ -125,7 +146,8 @@ def dryrun_multichip(n_devices: int, device="cuda",
                      timeout: float = 600.0) -> dict:
     """Validate the multi-device path on ``n_devices`` ranks (one process
     each, started here by :func:`~hsolve_torch.parallel.dist.run_ranks`:
-    NCCL on the card, one rank a card, gloo on the CPU):
+    NCCL on the card, one rank a card, gloo on the CPU and for more ranks
+    than cards):
 
     1. exact path (swlevel=0): the sharded factorization and GMRES,
     2. compressed / structured path (swlevel=-2): HSS Schur complements,
@@ -142,13 +164,13 @@ def dryrun_multichip(n_devices: int, device="cuda",
     front = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     first = run_ranks(_dryrun_rank, n_devices, n_devices, front, device, True,
                       device=device, timeout=timeout)[0]
-    scaling, nd = {}, 1
+    scaling, solvers, nd = {}, {}, 1
     while nd <= n_devices:
         res = first if (nd == n_devices and front == 1) else run_ranks(
             _dryrun_rank, nd, nd, 1, device, False, device=device,
             timeout=timeout)[0]
         _, _, wall, nnz = res["scale"]
-        scaling[nd] = round(nnz / wall, 0)
+        scaling[nd], solvers[nd] = round(nnz / wall, 0), res["solver"]
         nd *= 2
     base = scaling[1]
     eff = {k: round(v / base, 3) for k, v in scaling.items()}
@@ -167,9 +189,11 @@ def dryrun_multichip(n_devices: int, device="cuda",
     (rel_e, it_e, _, _), (rel_c, it_c, _, _) = first["exact"], first["compressed"]
     line1 = (f"dryrun_multichip({n_devices}): mesh={first['mesh']} "
              f"exact(relres={rel_e:.2e}, iters={it_e}) "
-             f"compressed(relres={rel_c:.2e}, iters={it_c}) ok")
+             f"compressed(relres={rel_c:.2e}, iters={it_c}) "
+             f"({first['solver']}) ok")
     line2 = "scaling " + json.dumps({
         "nnz_per_s_by_mesh": scaling, "throughput_vs_1dev": eff,
+        "solver_by_mesh": solvers,
         "predicted_nvlink_efficiency_h256": pred,
         "note": "ranks on one host: validates the sharded program's "
                 "mechanics, not NVLink; predicted_nvlink_efficiency_h256 is "

@@ -54,6 +54,19 @@ def _pack(arrays: Sequence[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
                      1)
 
 
+def crossings(info: MeshInfo, src: BatchSpec, src_rows, dst: BatchSpec,
+              dst_rows) -> int:
+    """The panels of one child group that cross between ranks, each front
+    coordinate's copy counted: what :func:`fetch_rows` sends, in rows."""
+    if src.kind != "tree":
+        return 0
+    src_rows = np.asarray(src_rows, dtype=np.int64)
+    need = _consumers(dst, np.asarray(dst_rows, dtype=np.int64), info.ntree)
+    owner = src_rows // (src.hi - src.lo)
+    return info.nfront * sum(int(np.sum(owner[need[t]] != t))
+                             for t in range(info.ntree))
+
+
 def fetch_rows(info: MeshInfo, arrays: Sequence[torch.Tensor], src: BatchSpec,
                src_rows, dst: BatchSpec, dst_rows
                ) -> Tuple[List[torch.Tensor], np.ndarray, int]:
@@ -74,7 +87,7 @@ def fetch_rows(info: MeshInfo, arrays: Sequence[torch.Tensor], src: BatchSpec,
         idx = torch.as_tensor(src_rows[mine] - src.lo, device=dev)
         return [a[idx] for a in arrays], mine, 0
     owner = src_rows // (src.hi - src.lo)
-    crossing = sum(int(np.sum(owner[need[t]] != t)) for t in range(info.ntree))
+    crossing = crossings(info, src, src_rows, dst, dst_rows)
     here = mine[owner[mine] == info.t]
     out = [a.new_empty((len(mine),) + tuple(a.shape[1:])) for a in arrays]
     pos = np.searchsorted(mine, here)
@@ -111,8 +124,7 @@ def fetch_rows(info: MeshInfo, arrays: Sequence[torch.Tensor], src: BatchSpec,
         w = a[0].numel()
         o[idx] = rbuf[:, col: col + w].reshape((len(idx),) + tuple(a.shape[1:]))
         col += w
-    row_bytes = width * arrays[0].element_size()
-    return out, mine, crossing * info.nfront * row_bytes
+    return out, mine, crossing * width * arrays[0].element_size()
 
 
 def broadcast_row0(info: MeshInfo, arrays: Sequence[torch.Tensor],

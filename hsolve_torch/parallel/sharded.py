@@ -24,6 +24,11 @@ their fronts (kernel C, or E around ``d_apply``), then sum the level's
 update over the ranks on the rows it touches: its boundary rows on the way
 up, its interior rows (written by their one owner) on the way down.  The
 bytes each level moves, factor and solve, are counted on the factorization.
+Its solve data (:class:`MeshSolveData`) carries the sums, so
+``solve_with_data``, :func:`~hsolve_torch.krylov.gmres_compiled` (one CUDA
+graph a rank over NCCL, the host program over gloo on the CPU) and
+``save_solver`` (gathered to rank 0) take a mesh factor as they take a
+one-device one.
 """
 
 from __future__ import annotations
@@ -37,17 +42,17 @@ import torch
 import torch.distributed as dist
 
 from hsolve_torch.factor import (Factorization, Level, SchurHss, Sketch,
-                                 _factor_regular, _root_from_stacks,
+                                 SolveData, _factor_regular, _root_from_stacks,
                                  _run_structured, backward_step, forward_step,
-                                 merge_schur, on_device, root_step,
+                                 merge_schur, root_step,
                                  schur_sources, sweep_buffer, torch_sketch)
 from hsolve_torch.interop import TorchBatch, TorchPlan
 from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.assembly import extend_add, front_assemble
 from hsolve_torch.ops.hss import Hss
 from hsolve_torch.parallel.dist import BatchSpec, MeshInfo, shard_batch_spec
-from hsolve_torch.parallel.exchange import (broadcast_row0, fetch_rows,
-                                            gather_front_rows)
+from hsolve_torch.parallel.exchange import (broadcast_row0, crossings,
+                                            fetch_rows, gather_front_rows)
 from hsolve_torch.structured import densify_schur
 
 
@@ -111,6 +116,12 @@ def _arrays(S) -> List[torch.Tensor]:
     return S.h.arrays() if isinstance(S, SchurHss) else [S]
 
 
+def _row_bytes(S) -> int:
+    """The bytes of one row of a Schur stack (every array of a SchurHss)."""
+    arrays = _arrays(S)
+    return sum(a[0].numel() for a in arrays) * arrays[0].element_size()
+
+
 @dataclasses.dataclass
 class LevelSync:
     """A tree-split level's part of the solve's exchange: the rows it
@@ -147,11 +158,14 @@ def _level_sync(bp, N: int, spec: BatchSpec, info: MeshInfo,
 def factor_levels_sharded(plan, tp: TorchPlan, opts, dtype: torch.dtype,
                           info: MeshInfo, sketch: Optional[Sketch] = None):
     """Run the schedule on this rank's share of every level; returns
-    ``(levels, root, specs, moved, waited)``: the records of the fronts this
-    rank holds, the replicated root, every level's :class:`BatchSpec`, the
-    bytes the mesh moved for each batch (the root's broadcast last), and the
-    seconds this rank spent in those exchanges (host clock: a collective
-    returns when its data is here)."""
+    ``(levels, root, specs, moved, waited, dummies)``: the records of the
+    fronts this rank holds, the replicated root, every level's
+    :class:`BatchSpec`, the bytes the mesh moved for each batch (the root's
+    broadcast last), the seconds this rank spent in those exchanges (host
+    clock: a collective returns when its data is here), and per batch the
+    part of its bytes that copied a source row into a dummy front
+    (``batch_multiple``'s padding of a structured batch, whose rows read
+    row 0 of a child group's source)."""
     adata = tp.adata.to(dtype)
     if sketch is None:
         sketch = torch_sketch(opts.seed, tp.device, dtype)
@@ -160,11 +174,12 @@ def factor_levels_sharded(plan, tp: TorchPlan, opts, dtype: torch.dtype,
     stacks: Dict[int, object] = {}
     moved: List[int] = []
     waited: List[float] = []
+    dummies: List[int] = []
     for bidx, (bp, tb) in enumerate(zip(plan.batches, tp.batches)):
         spec = shard_batch_spec(info.mesh, bp.B, 3)
         held = slice(spec.lo, spec.hi)
         tl = local_batch(bp, tb, spec)
-        nbytes, secs = [0], [0.0]
+        nbytes, secs, dummy_bytes = [0], [0.0], 0
 
         def fetch(src_batch, src, dst):
             t0 = time.perf_counter()
@@ -180,6 +195,10 @@ def factor_levels_sharded(plan, tp: TorchPlan, opts, dtype: torch.dtype,
             sh = []
             for groups in (bp.groups_l, bp.groups_r):
                 parts, dummy = schur_sources(groups, bp.B)
+                for sb, src, dst in parts:
+                    d = dummy[dst]
+                    dummy_bytes += crossings(info, specs[sb], src[d], spec,
+                                             dst[d]) * _row_bytes(stacks[sb])
                 sh.append(merge_schur([fetch(*p) for p in parts], dummy[held]))
             lev, S = _run_structured(bp, tl, sh[0], sh[1], opts, dtype, bidx,
                                      sketch, held)
@@ -218,6 +237,7 @@ def factor_levels_sharded(plan, tp: TorchPlan, opts, dtype: torch.dtype,
         stacks[bidx] = S
         moved.append(nbytes[0])
         waited.append(secs[0])
+        dummies.append(dummy_bytes)
     root = None
     if plan.nb_root:
         last = len(plan.batches) - 1
@@ -227,7 +247,8 @@ def factor_levels_sharded(plan, tp: TorchPlan, opts, dtype: torch.dtype,
         top = _as_schur(stacks[last], rows, tp.batches[last], np.zeros(1, int))
         root = _root_from_stacks(plan, tp, {last: top}, dtype, opts)
         moved.append(nb)
-    return levels, root, specs, moved, waited
+        dummies.append(0)
+    return levels, root, specs, moved, waited, dummies
 
 
 def apply_sharded(levels, root, syncs: List[Optional[LevelSync]],
@@ -257,52 +278,51 @@ def apply_sharded(levels, root, syncs: List[Optional[LevelSync]],
     return C[:, 0] if b.ndim == 1 else C
 
 
-@dataclasses.dataclass
-class ShardedFactorization(Factorization):
-    """A :class:`~hsolve_torch.factor.Factorization` whose levels hold this
-    rank's fronts.  ``solve``, ``apply_permuted``, ``rank_report`` and
-    ``maxrank`` are collective (every rank calls them, in the same order)
-    and give the same answer on every rank.  ``factor_bytes[i]``: the bytes
-    the mesh moved to factor batch ``i`` (the root's broadcast after the
-    last), ``factor_wait_s[i]`` this rank's seconds in those exchanges;
-    ``solve_bytes()``: the bytes one application to one right-hand side
-    sums over the ranks, per level."""
+class MeshSolveData(SolveData):
+    """A mesh factor's solve data: ``(levels, root, dperm, diperm)`` of this
+    rank's fronts, with the tree-split levels' :class:`LevelSync` s (their
+    row indices and owner masks on the device) and the mesh whose ranks
+    they sum over.  :meth:`apply_permuted` is :func:`apply_sharded`: collective,
+    and capturable into a CUDA graph over NCCL (no host read, no
+    host-to-device copy, the sums on the current stream), so
+    ``gmres_compiled`` takes it as any solve data; gloo's collectives on
+    CUDA tensors stage through the host and do not capture.  Its hooks
+    (:meth:`consensus`, :meth:`check_replicated`, :meth:`prepare_graph`,
+    :meth:`gathered`) are collective."""
 
-    info: Optional[MeshInfo] = None
-    specs: Optional[List[BatchSpec]] = None
-    syncs: Optional[List[Optional[LevelSync]]] = None
-    factor_bytes: Optional[List[int]] = None
-    factor_wait_s: Optional[List[float]] = None
+    def __new__(cls, data, syncs: List[Optional[LevelSync]], info: MeshInfo,
+                specs: List[BatchSpec]):
+        self = super().__new__(cls, data)
+        self.syncs, self.info, self.specs = syncs, info, specs
+        return self
+
+    def apply_permuted(self, b: torch.Tensor) -> torch.Tensor:
+        return apply_sharded(self[0], self[1], self.syncs, b)
 
     @property
-    def solve_data(self):
-        raise NotImplementedError(
-            "a factorization sharded over a mesh has no one-device solve "
-            "data: gmres_compiled and save_solver do not take it yet; solve "
-            "with krylov.gmres(..., M=F.solve), or gather_levels() it")
+    def backend(self) -> str:
+        """The process group's backend ("nccl", "gloo", ...)."""
+        return str(dist.get_backend())
 
-    def apply_permuted(self, b) -> torch.Tensor:
-        return apply_sharded(self.levels, self.root, self.syncs,
-                             on_device(b, self.device))
-
-    def solve(self, b) -> torch.Tensor:
-        b = on_device(b, self.device)
-        x = apply_sharded(self.levels, self.root, self.syncs,
-                          b.to(self.dtype)[self._dperm])[self._diperm]
-        return x.to(b.dtype)
-
-    def solve_bytes(self) -> List[int]:
-        item = torch.empty(0, dtype=self.dtype).element_size()
-        return [0 if sy is None else sy.nbytes(item) for sy in self.syncs]
-
-    def _global_max(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return t
+    def prepare_graph(self, device: torch.device) -> None:
+        """Make a CUDA graph of solves on ``device`` possible: raise unless
+        the backend's collectives capture (NCCL), and set the communicator
+        up outside the capture (its first collective), once."""
+        if self.backend != "nccl":
+            raise RuntimeError(
+                f"gmres_compiled captures the mesh factor's solve as one CUDA "
+                f"graph, whose collectives only NCCL captures; this process "
+                f"group's backend is {self.backend}: solve with "
+                f"gmres_host_driven or krylov.gmres")
+        if not getattr(self, "_warm", False):
+            dist.all_reduce(torch.zeros(1, device=device))
+            torch.cuda.synchronize(device)
+            self._warm = True
 
     def consensus(self, values: np.ndarray) -> np.ndarray:
         """Rank 0's host values on every rank: :func:`krylov.gmres` takes
         its branches on them, so every rank takes each alike."""
-        t = torch.as_tensor(np.asarray(values), device=self.device)
+        t = torch.as_tensor(np.asarray(values), device=self.info.device)
         dist.broadcast(t, src=self.info.rank_of(0, 0))
         return t.cpu().numpy()
 
@@ -319,13 +339,22 @@ class ShardedFactorization(Factorization):
             raise RuntimeError(f"the ranks' solutions differ: checksums "
                                f"{out.cpu().tolist()}")
 
-    def gather_levels(self, dst: int = 0) -> Optional[Factorization]:
-        """The shards collected into the one-device record layout, on rank
-        ``dst`` (None elsewhere); collective."""
+    def gathered(self, dst: int = 0) -> Optional[SolveData]:
+        """The shards collected into one device's solve data, on rank
+        ``dst`` (None elsewhere)."""
+        F = self.gather_factor(dst, self[2].cpu().numpy())
+        return None if F is None else F.solve_data
+
+    def gather_factor(self, dst: int, perm: np.ndarray,
+                      opts=None) -> Optional[Factorization]:
+        """The shards collected into the one-device record layout, a
+        :class:`~hsolve_torch.factor.Factorization` of ``perm`` on rank
+        ``dst`` (None elsewhere)."""
         from hsolve_torch.interop import factorization_from_numpy
         from hsolve_torch.utils.checkpoint import _record
 
         tree_group = self.info.mesh.get_group("tree")
+        device = self[2].device
 
         def whole(rec, spec):
             if isinstance(rec, dict):
@@ -334,18 +363,58 @@ class ShardedFactorization(Factorization):
                 return [whole(v, spec) for v in rec]
             if not isinstance(rec, torch.Tensor) or spec.kind != "tree":
                 return rec
-            part = rec.to(self.device).contiguous()
+            part = rec.to(device).contiguous()
             out = part.new_empty((spec.parts * part.shape[0],) + part.shape[1:])
             dist.all_gather_into_tensor(out, part, group=tree_group)
             return out
 
         levels = [whole(_record(lev), spec)
-                  for lev, spec in zip(self.levels, self.specs)]
+                  for lev, spec in zip(self[0], self.specs)]
         if dist.get_rank() != dst:
             return None
+        root = self[1]
         return factorization_from_numpy(
-            levels, None if self.root is None else _record(self.root),
-            self.perm, self.device, self.opts)
+            levels, None if root is None else _record(root), perm, device,
+            opts)
+
+
+@dataclasses.dataclass
+class ShardedFactorization(Factorization):
+    """A :class:`~hsolve_torch.factor.Factorization` whose levels hold this
+    rank's fronts.  ``solve``, ``apply_permuted``, ``rank_report``,
+    ``maxrank`` and ``gather_levels`` are collective (every rank calls them,
+    in the same order) and give the same answer on every rank; its
+    ``solve_data`` is a :class:`MeshSolveData`.  ``factor_bytes[i]``: the
+    bytes the mesh moved to factor batch ``i`` (the root's broadcast after
+    the last), ``factor_dummy_bytes[i]`` the part of them that filled dummy
+    fronts, ``factor_wait_s[i]`` this rank's seconds in those exchanges;
+    ``solve_bytes()``: the bytes one application to one right-hand side
+    sums over the ranks, per level."""
+
+    info: Optional[MeshInfo] = None
+    specs: Optional[List[BatchSpec]] = None
+    syncs: Optional[List[Optional[LevelSync]]] = None
+    factor_bytes: Optional[List[int]] = None
+    factor_wait_s: Optional[List[float]] = None
+    factor_dummy_bytes: Optional[List[int]] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        self._solve_data = MeshSolveData(self._solve_data, self.syncs,
+                                         self.info, self.specs)
+
+    def solve_bytes(self) -> List[int]:
+        item = torch.empty(0, dtype=self.dtype).element_size()
+        return [0 if sy is None else sy.nbytes(item) for sy in self.syncs]
+
+    def _global_max(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t
+
+    def gather_levels(self, dst: int = 0) -> Optional[Factorization]:
+        """The shards collected into the one-device record layout, on rank
+        ``dst`` (None elsewhere); collective."""
+        return self.solve_data.gather_factor(dst, self.perm, self.opts)
 
 
 def factor_sharded(plan, opts, dtype: torch.dtype, mesh,
@@ -356,12 +425,13 @@ def factor_sharded(plan, opts, dtype: torch.dtype, mesh,
 
     info = MeshInfo.of(mesh)
     tp = plan_to_torch(plan, info.device)
-    levels, root, specs, moved, waited = factor_levels_sharded(
+    levels, root, specs, moved, waited, dummies = factor_levels_sharded(
         plan, tp, opts, dtype, info, sketch)
     syncs = [_level_sync(bp, plan.N, spec, info, dtype)
              for bp, spec in zip(plan.batches, specs)]
     return ShardedFactorization(
         N=plan.N, perm=plan.perm, levels=levels, root=root, opts=opts,
         plan=plan, device=info.device, info=info, specs=specs,
-        syncs=syncs, factor_bytes=moved, factor_wait_s=waited)
+        syncs=syncs, factor_bytes=moved, factor_wait_s=waited,
+        factor_dummy_bytes=dummies)
 

@@ -11,8 +11,12 @@ carries the JAX package's factors across.  A loaded solver solves without
 re-planning or re-factoring.
 
 Every level kind (dense, low-rank compressed, structured HSS) and both roots
-(``RootSolve``, ``RootHss``) are saved, in any value type.  Each HSS
-record's cluster plan is saved as its four ints.  Not saved: the CUDA graphs
+(``RootSolve``, ``RootHss``) are saved, in any value type.  A factorization
+sharded over a mesh is gathered first (its solve data's ``gathered``), as
+the JAX package's ``np.asarray`` gathers each sharded leaf: every rank
+calls :func:`save_solver`, rank 0 writes the one-device format, and
+:func:`load_solver` reads it as any checkpoint.  Each HSS record's cluster
+plan is saved as its four ints.  Not saved: the CUDA graphs
 that :func:`~hsolve_torch.krylov.gmres_compiled` caches on a solve data
 object (a loaded solver captures its own) and ``Hss._packed`` (rebuilt on
 first use).
@@ -52,8 +56,14 @@ def _record(obj):
 
 def save_solver(path: str, F) -> None:
     """Persist the solve data of ``F`` (a ``Factorization`` or a
-    :class:`LoadedSolver`): levels, root, permutation, ``N``, value type."""
-    levels, root, dperm, _ = F.solve_data
+    :class:`LoadedSolver`): levels, root, permutation, ``N``, value type.
+    For a factorization sharded over a mesh, collective: every rank calls
+    it, the shards are gathered to rank 0, and rank 0 alone writes ``path``
+    (the one-device format, the same ``FORMAT`` and ``VERSION``)."""
+    data = F.solve_data.gathered(dst=0)
+    if data is None:
+        return
+    levels, root, dperm, _ = data
     torch.save({"format": FORMAT, "version": VERSION, "N": int(F.N),
                 "dtype": str(data_dtype(levels, root)).removeprefix("torch."),
                 "perm": dperm.to("cpu", copy=True),

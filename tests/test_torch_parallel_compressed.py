@@ -71,11 +71,17 @@ class JaxPadded:
 
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
+    import jax.numpy as jnp
+    from hsolve.factor import solve_with_data
     from test_torch_structured import jax_sketch
 
     A, b, shape = hsolve.poisson2d(49)
     Fj = hsolve.factor(A, hsolve.nested_dissection(shape, leafmax=24),
                        mesh=jax_make_mesh(2), **jobs.COMPRESSED)
+    _, jinfo = hsolve.gmres_compiled(
+        lambda d, v: hsolve.dia_matvec(d, v), solve_with_data, jnp.asarray(b),
+        reltol=1e-9, restart=30, maxiter=30, mv_data=hsolve.to_dia(A),
+        M_data=Fj.solve_data)
     opts = ht.SolverOptions(**jobs.COMPRESSED)
     plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=24),
                                  opts, batch_multiple=2)
@@ -84,11 +90,12 @@ def case(tmp_path_factory):
     res = run_ranks(jobs.compressed_job, 2, rec.table, device="cpu",
                     timeout=120, store_dir=str(tmp_path_factory.mktemp("s")))
     real = [len(bp.node_ids) for bp in plan.batches]
-    return (F1, jax_records(Fj.levels), jobs.records(F1.levels), res, real)
+    return (F1, jax_records(Fj.levels), jobs.records(F1.levels), res, real,
+            int(jinfo["iters"]))
 
 
 def test_compressed_mesh_ranks_and_products_match_jax(case):
-    F1, jrec, single, res, real = case
+    F1, jrec, single, res, real, _ = case
     got = res[0]["levels"]
     assert [r["kind"] for r in got] == [r["kind"] for r in jrec]
     assert {"compressed", "structured"} <= {r["kind"] for r in got}
@@ -114,3 +121,60 @@ def test_compressed_mesh_gmres(case):
         assert np.array_equal(r["x"], res[0]["x"])
     x, xr = res[0]["x"], res[0]["x_ref"]
     assert np.linalg.norm(x - xr) / np.linalg.norm(xr) < 1e-8
+
+
+def test_compressed_mesh_gmres_compiled(case):
+    """``gmres_compiled`` on the compressed mesh factor's solve data (the
+    host program): ``krylov.gmres``'s count on the same factor and JAX's
+    ``gmres_compiled`` count on JAX's mesh factor, x bit for bit on every
+    rank."""
+    res, jax_iters = case[3], case[5]
+    for r in res:
+        assert r["info_c"]["converged"]
+        assert r["info_c"]["iters"] == r["info"]["iters"] == jax_iters
+        assert np.array_equal(r["xc"], res[0]["xc"])
+    x, xr = res[0]["xc"], res[0]["x_ref"]
+    assert np.linalg.norm(x - xr) / np.linalg.norm(xr) < 1e-8
+
+
+def test_padded_plan_draws_the_unpadded_plans_sketches():
+    """F10: at the default draw (``torch_sketch``), a plan padded for a
+    2-rank tree (``batch_multiple=2``) gives its real fronts the unpadded
+    plan's structured records bit for bit: every array of every structured
+    level, real rows only, both plans factored on one CPU device.
+    poisson2d(37), leafmax 16, structured at kest=32: five structured
+    batches padded (7 -> 8, 1 -> 2, 3 -> 4, 1 -> 2, 1 -> 2 fronts)."""
+    from hsolve_torch.factor import StructuredLevel
+    from hsolve_torch.utils.checkpoint import _record
+
+    def leaves(rec, path=""):
+        if isinstance(rec, dict):
+            for k, v in rec.items():
+                yield from leaves(v, f"{path}.{k}")
+        elif isinstance(rec, list):
+            for i, v in enumerate(rec):
+                yield from leaves(v, f"{path}[{i}]")
+        elif isinstance(rec, torch.Tensor):
+            yield path, rec
+
+    A, b, shape = ht.poisson2d(37)
+    opts = ht.SolverOptions(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3,
+                            kest=32)
+    plans = [ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=16),
+                                   opts, batch_multiple=m) for m in (1, 2)]
+    padded = [i for i, (b1, b2) in enumerate(zip(*(p.batches for p in plans)))
+              if b2.structured and b2.B > b1.B]
+    assert len(padded) == 5
+    one, two = (ht.factor_with_plan(p, opts, device="cpu").levels
+                for p in plans)
+    compared = 0
+    for i in padded:
+        assert isinstance(one[i], StructuredLevel)
+        B0, B = plans[0].batches[i].B, plans[1].batches[i].B
+        for (path, a), (path2, c) in zip(leaves(_record(one[i])),
+                                         leaves(_record(two[i])), strict=True):
+            assert path == path2 and c.shape == (B,) + a.shape[1:], path
+            assert a.shape[0] == B0
+            assert torch.equal(a, c[:B0]), (i, path)
+            compared += 1
+    assert compared >= 5 * 40

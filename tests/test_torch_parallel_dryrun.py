@@ -28,9 +28,14 @@ def test_dryrun_multichip_prints_both_lines(capsys):
     assert lines[-2].startswith(
         "dryrun_multichip(2): mesh={'tree': 1, 'front': 2} exact(relres=")
     assert lines[-2].endswith(") ok")
+    # gloo ranks solve with the host-driven program (NCCL ones: the graph)
+    assert lines[-2].endswith(" (gmres_host_driven) ok")
+    assert out["first"]["solver"] == "gmres_host_driven"
     scaling = json.loads(lines[-1].removeprefix("scaling "))
     assert set(scaling["nnz_per_s_by_mesh"]) == {"1", "2"}
     assert scaling["throughput_vs_1dev"]["1"] == 1.0
+    assert scaling["solver_by_mesh"] == {"1": "gmres_host_driven",
+                                         "2": "gmres_host_driven"}
     assert 0.0 < scaling["predicted_nvlink_efficiency_h256"]["2"] <= 1.0
     (rel_e, it_e, _, _) = out["first"]["exact"]
     assert rel_e < 1e-4 and it_e < 24

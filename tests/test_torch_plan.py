@@ -94,6 +94,26 @@ def _assert_plans_equal(P1, P2):
                 assert v1 == v2, (f, v1, v2)
 
 
+@pytest.mark.parametrize("n", [2, 17, 64])
+def test_2d_generators_match_jax_bit_for_bit(n):
+    """The port's P1 assembly (vectorized, the entries in the reference
+    loop's order) gives the JAX package's CSR arrays bit for bit: K and M,
+    and the Poisson, Helmholtz and damped Helmholtz systems built on them."""
+    from hsolve.models.problems import p1_fem_2d
+
+    pairs = list(zip(ht.p1_fem_2d(n), p1_fem_2d(n)))
+    for name, kw in (("poisson2d", {}), ("helmholtz2d", {"k": 9.0}),
+                     ("helmholtz2d", {"k": 9.0, "damping": 0.1})):
+        (A, b, shape), (A_j, b_j, shape_j) = (getattr(m, name)(n, **kw)
+                                              for m in (ht, hsolve))
+        assert shape == shape_j and np.array_equal(b, b_j)
+        pairs.append((A, A_j))
+    for got, ref in pairs:
+        for f in ("data", "indices", "indptr"):
+            a, r = getattr(got, f), getattr(ref, f)
+            assert a.dtype == r.dtype and np.array_equal(a, r), f
+
+
 @pytest.mark.parametrize("problem,n,leafmax", [("poisson2d", 17, 20),
                                                ("helmholtz2d", 33, 40),
                                                ("helmholtz2d", 48, 40)])

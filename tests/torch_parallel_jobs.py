@@ -11,9 +11,12 @@ import numpy as np
 import scipy.sparse.linalg as spla
 import torch
 
+import torch.distributed as dist
+
 import hsolve_torch as ht
-from hsolve_torch.factor import CompressedLevel, DenseLevel
+from hsolve_torch.factor import CompressedLevel, DenseLevel, solve_with_data
 from hsolve_torch.parallel.dist import make_mesh, shard_level_input
+from hsolve_torch.utils.checkpoint import load_solver, save_solver
 from hsolve_torch.utils.profiling import collective_estimate
 
 EXACT = dict(swlevel=0)
@@ -63,18 +66,56 @@ def records(levels) -> list:
     return out
 
 
-def _gmres(A, b, M):
+def _gmres(A, b, F):
     ell = ht.to_ell(A, device="cpu")
-    x, info = ht.gmres(lambda v: ht.ell_matvec(ell, v), torch.as_tensor(b), M=M,
-                       reltol=1e-9, restart=30, maxiter=30)
+    x, info = ht.gmres(lambda v: ht.ell_matvec(ell, v), torch.as_tensor(b),
+                       M=solve_with_data, M_data=F.solve_data, reltol=1e-9,
+                       restart=30, maxiter=30)
     return x.numpy(), info
 
 
-def exact_job(front: int) -> dict:
+def _gmres_bound(A, b, F):
+    """``krylov.gmres`` with ``M=F.solve`` and no ``M_data``: the calls of
+    the mesh data's ``consensus`` and ``check_replicated`` counted."""
+    data, calls = F.solve_data, {"consensus": 0, "check_replicated": 0}
+
+    def counted(name, hook):
+        def call(*args):
+            calls[name] += 1
+            return hook(*args)
+        return call
+
+    for name in calls:
+        setattr(data, name, counted(name, getattr(data, name)))
+    try:
+        ell = ht.to_ell(A, device="cpu")
+        x, info = ht.gmres(lambda v: ht.ell_matvec(ell, v),
+                           torch.as_tensor(b), M=F.solve, reltol=1e-9,
+                           restart=30, maxiter=30)
+    finally:
+        for name in calls:
+            delattr(data, name)
+    return x.numpy(), info, calls
+
+
+def _gmres_compiled(A, b, F):
+    """``gmres_compiled`` (the host program on the CPU) with the mesh
+    factor's solve data, DIA's fused residual at the restarts."""
+    op, mv = ht.spmv_format(A, device="cpu")
+    x, info = ht.gmres_compiled(mv, solve_with_data, torch.as_tensor(b),
+                                reltol=1e-9, restart=30, maxiter=30,
+                                mv_data=op, M_data=F.solve_data)
+    return x.numpy(), info
+
+
+def exact_job(front: int, ckpt: str) -> dict:
     """poisson2d(33) on the exact path, the mesh ``world / front x front``:
     the gathered levels, the single-process factor of the same padded plan,
-    the solve, the bytes beside ``collective_estimate``; then GMRES on
-    helmholtz2d(33, k=10) with the mesh factor as ``M``."""
+    the solve, the bytes beside ``collective_estimate``; the mesh factor
+    saved to ``ckpt`` (``save_solver``: rank 0 writes) and loaded on rank 0
+    (the gathered factor's solve beside the loaded one's); then GMRES, both
+    forms, on helmholtz2d(33, k=10) with the mesh factor as ``M`` (and
+    ``krylov.gmres`` with ``M=F.solve``)."""
     mesh = make_mesh(front=front, device="cpu")
     A, b, shape = ht.poisson2d(33)
     tree = ht.nested_dissection(shape, leafmax=40)
@@ -90,10 +131,17 @@ def exact_job(front: int) -> dict:
     G = F.gather_levels()
     if G is not None:
         out["levels"], out["single"] = records(G.levels), records(F1.levels)
+    save_solver(ckpt, F)
+    dist.barrier()
+    if G is not None:
+        out["x_gathered"] = G.solve(b).numpy()
+        out["x_loaded"] = load_solver(ckpt, device="cpu").solve(b).numpy()
     Ah, bh, sh = ht.helmholtz2d(33, k=10.0)
     Fh = ht.factor(Ah, ht.nested_dissection(sh, leafmax=40), device="cpu",
                    mesh=mesh, **EXACT)
-    out["xh"], out["info"] = _gmres(Ah, bh, Fh.solve)
+    out["xh"], out["info"] = _gmres(Ah, bh, Fh)
+    out["xb"], out["info_b"], out["hook_calls"] = _gmres_bound(Ah, bh, Fh)
+    out["xc"], out["info_c"] = _gmres_compiled(Ah, bh, Fh)
     out["xh_ref"] = spla.spsolve(Ah.tocsc(), bh)
     return out
 
@@ -126,7 +174,8 @@ def compressed_job(table: dict) -> dict:
                   mesh=mesh, sketch=TableSketch(table), **COMPRESSED)
     out = {"rank_report": F.rank_report(), "maxrank": F.maxrank(),
            "specs": [s.kind for s in F.specs], "bytes": list(F.factor_bytes)}
-    out["x"], out["info"] = _gmres(A, b, F.solve)
+    out["x"], out["info"] = _gmres(A, b, F)
+    out["xc"], out["info_c"] = _gmres_compiled(A, b, F)
     out["x_ref"] = spla.spsolve(A.tocsc(), b)
     G = F.gather_levels()
     if G is not None:
@@ -138,8 +187,6 @@ def smoke_job() -> dict:
     """Two ranks: an all-reduce, and a ``[2, 8, 8]`` level stack split one
     front a rank, factored by batched LU and solved, the squared norms
     summed over the ranks (the port of ``tests/test_distributed.py``)."""
-    import torch.distributed as dist
-
     from hsolve_torch.ops import dense as dk
 
     mesh = make_mesh(device="cpu")
@@ -156,39 +203,30 @@ def smoke_job() -> dict:
     dist.all_reduce(one)
     ref = sum(float(np.sum(np.linalg.solve(Dn[i], bn[i]) ** 2)) for i in range(2))
     return {"held": D.shape[0], "sum": float(total[0]), "ref": ref,
-            "ranks": float(one[0]), "refused": _refusals(mesh)}
+            "ranks": float(one[0]), "graph": _graph_refusal(mesh)}
 
 
-def _refusals(mesh) -> list:
-    """What ``gmres_compiled`` and ``save_solver`` say to a mesh factor."""
-    import os
-    import tempfile
-
-    from hsolve_torch.factor import solve_with_data
-    from hsolve_torch.utils.checkpoint import save_solver
+def _graph_refusal(mesh) -> dict:
+    """A mesh factor's solve data, and what it says to a CUDA graph of its
+    solves over this gloo group (``gmres_compiled`` on CUDA tensors asks
+    this before it captures)."""
+    from hsolve_torch.parallel.sharded import MeshSolveData
 
     A, b, shape = ht.poisson2d(17)
     F = ht.factor(A, ht.nested_dissection(shape, leafmax=20), device="cpu",
                   mesh=mesh, **EXACT)
-    out = []
-    for call in (
-            lambda: ht.gmres_compiled(lambda v: v, solve_with_data,
-                                      torch.as_tensor(b), M_data=F.solve_data),
-            lambda: ht.gmres_compiled(lambda v: v, F.solve, torch.as_tensor(b)),
-            lambda: save_solver(os.path.join(tempfile.gettempdir(), "no.pt"),
-                                F)):
-        try:
-            call()
-            out.append(None)
-        except NotImplementedError as e:
-            out.append(str(e))
+    out = {"mesh_data": isinstance(F.solve_data, MeshSolveData),
+           "backend": F.solve_data.backend}
+    try:
+        F.solve_data.prepare_graph(torch.device("cuda"))
+        out["refusal"] = None
+    except RuntimeError as e:
+        out["refusal"] = str(e)
     return out
 
 
 def failing_job() -> int:
     """Rank 1 raises; rank 0 returns."""
-    import torch.distributed as dist
-
     if dist.get_rank() == 1:
         raise ValueError("rank 1 stops here")
     return 0
@@ -204,7 +242,7 @@ def lowrank_job() -> dict:
     F1 = ht.factor_with_plan(F.plan, F.opts, device="cpu")
     out = {"x": F.solve(b).numpy(), "x_single": F1.solve(b).numpy(),
            "x_ref": spla.spsolve(A.tocsc(), b)}
-    out["xg"], out["info"] = _gmres(A, b, F.solve)
+    out["xg"], out["info"] = _gmres(A, b, F)
     G = F.gather_levels()
     if G is not None:
         out["levels"], out["single"] = records(G.levels), records(F1.levels)
