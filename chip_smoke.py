@@ -33,8 +33,10 @@ Phases (any failure exits non-zero before the result line is printed):
    solves the solve ran before the fused step; D: cuSPARSE CSR ``torch.mv``;
    L: ``torch.mv``/``addmv``).  A-D run on the exact plan, in float64 and in
    float32 (A, B bitwise, C, D to 1e-5; C's forward step at the leaf level,
-   a level of ni_pad 256, the top level and a hand-made 4424-row front (in
-   windows of 2048 rows), with lu records and, at the leaf and the top, as
+   a level of ni_pad 256, the top level, every level above 2048 rows and a
+   hand-made 4424-row front (the wide form: one substitution launch on a
+   cluster of 16 CTAs; those interior rows to 1e-12 of max |x'| times the
+   growth, the boundary rows to the sums' tolerance), with lu records and, at the leaf and the top, as
    dinv records; its backward step at the leaf, the ni_pad 256 level and the
    top level with a boundary); B also at every launch of the exact
    factor (both types) and of the compressed one, bitwise, with a summary
@@ -75,7 +77,8 @@ Phases (any failure exits non-zero before the result line is printed):
    queued one-element launch read in this run.  Then the same checks at
    the 3D plans' shapes (helmholtz3d, k=10, leafmax 100): A-D on the exact
    64^3 plan in both types (fronts 7944 wide, C's forward step at the top
-   in four windows, its backward step at [2, 3912, 3976], D at N =
+   and at [2, 3912, 3976] in the wide form, its backward step at [2, 3912,
+   3976], D at N =
    250,047), B and E-G on the 48^3 low-rank plan at the default caps
    (nb_pad up to 2216, caps up to 560), H-K, I and J on the 40^3
    structured plan at the default caps, the Arnoldi step at N = 250,047;
@@ -84,7 +87,7 @@ Phases (any failure exits non-zero before the result line is printed):
    complex64, the same checks as in float64 and float32 (A and B bitwise at
    both checked batches and at every launch of its exact factor; C, D and
    L to 1e-13 / 1e-5, C's forward step to 1e-12 / 1e-5 of max |x'| times
-   the pivot growth, the 4424-row hand front in windows too, complex64
+   the pivot growth, the 4424-row hand front in the wide form too, complex64
    against a complex128 solve; M, the step's tail and V[j+1] bit for bit
    their plain versions; a complex multiply-add counts as four real ones,
    a value as 16 or 8 bytes); E, F and G in complex128 at the damped
@@ -163,7 +166,8 @@ Phases (any failure exits non-zero before the result line is printed):
    printed; the same round trip for the n=128 hss-complex-mixed factor
    (``CHECKPOINTED``); then one exact run at
    n=1026, whose 2056-row top front takes kernel C's forward step in
-   windows, in one iteration; then the 3D runs: exact-3d (helmholtz3d(64,
+   its wide form, in one iteration (phase 3 holds that front's forward step
+   to its plain version first); then the 3D runs: exact-3d (helmholtz3d(64,
    k=10), float64, one iteration), exact-3d-f32-mixed (the same system in
    the bench's device configuration), lowrank-3d (helmholtz3d(48, k=10),
    swlevel=-2, swsize=16, atol=rtol=1e-3, hss=False, the default caps) and
@@ -285,7 +289,7 @@ HSS = {**COMPRESSED, "hss": True}
 # (boundary / 4, up to 192 at n=512)
 HSS_DEFAULT = dict(swlevel=-2, swsize=16, atol=1e-3, rtol=1e-3)
 # the smallest helmholtz2d size above 1024 whose exact top front passes
-# 2048 interior rows (2056: kernel C's forward step in windows)
+# 2048 interior rows (2056: kernel C's forward step in its wide form)
 WIDE_N = 1026
 # the 3D problems (helmholtz3d, k=10, leafmax 100): exact at 64^3, where
 # the FLOP model puts exact and compressed level (CROSSOVER.md:56-66), and
@@ -799,6 +803,131 @@ def _wide_level(dev, dt, ni: int, nb: int, N: int, seed: int):
                       bnd_ids=ids[None, ni:].contiguous())
 
 
+def wide_desc(ni: int, nb: int, dt) -> str:
+    """The wide form's launch at a front of ``ni > 2048`` rows, as the
+    wrapper takes it on this card."""
+    from hsolve_torch.ops.sweep import _wide_active, forward_wide_geometry
+
+    g = forward_wide_geometry(ni, nb, dt, _wide_active(dt))
+    return (f" (wide: {len(g['windows'])} window(s), cluster "
+            f"{g['windows'][0][2]} of {g['warps'][0]} warps, "
+            f"{g['smem'][0]} B, {g['launches']} launches)")
+
+
+def check_forward_levels(levels, bidxs, N, C0, dtype_name, results,
+                         dinv_at=()) -> None:
+    """Kernel C's forward step at the levels ``bidxs`` of a factor, with lu
+    records and, at ``dinv_at``, as dinv records, against its plain
+    version: to ``RTOL_SOLVE`` of max |x'| times the level's pivot-growth
+    proxy, and at a level wider than 2048 rows (the wide form) so on its
+    interior rows and to the summation tolerance on its boundary rows
+    (``C[bnd] -= L x``) against their own largest value; each timed beside
+    its plain version, its bound and the library sequence the solve ran
+    before the fused step (gather, bmm, index_put_ (accumulate), lu_solve
+    (a row gather and two batched triangular solves) or the dinv GEMM,
+    index_put_)."""
+    import dataclasses
+
+    import torch
+
+    from hsolve_torch.ops import dense as dk
+    from hsolve_torch.ops.sweep import (WINDOW_ROWS, level_forward,
+                                        level_forward_plain)
+
+    dt = getattr(torch, dtype_name)
+    e = torch.empty(0, dtype=dt).element_size()
+    tag = type_tag(dtype_name)
+    fm = flop_factor(dtype_name)
+    for bidx in bidxs:
+        lev = levels[bidx]
+        recs = [("lu", lev)]
+        if bidx in dinv_at:
+            recs.append(("dinv", dataclasses.replace(
+                lev, lu=None, perm=None,
+                dinv=dk.lu_inverse(lev.lu, lev.perm).contiguous())))
+        growth = float(dk._diag_ratio(lev.lu).max())
+        keep = lev.int_ids < N
+        int_l = lev.int_ids.long().reshape(-1)
+        bnd_l = lev.bnd_ids.long().reshape(-1)
+        rows = int_l[int_l < N]
+        bnd = bnd_l[bnd_l < N]
+        Bm, nbp, ni = lev.L.shape
+        limit = RTOL_SOLVE[dtype_name] * max(1.0, growth)
+        for rec, lv in recs:
+            ker = level_forward(C0.clone(), lv, N)
+            ref = level_forward_plain(C0.clone(), lv, N)
+            if float(ker[N].abs().max()) != 0.0:
+                fail(f"level_forward{tag} wrote the sentinel row at level "
+                     f"{bidx} ({rec})")
+            err = float((ker - ref).abs().max())
+            scale = float(ref[lev.int_ids[keep].long()].abs().max())
+            scratch = C0.clone()
+
+            def library():
+                x = scratch[lv.int_ids]
+                scratch.index_put_((bnd_l,), -(lv.L @ x).reshape(-1, 1),
+                                   accumulate=True)
+                xs = lv.dinv @ x if lv.dinv is not None else \
+                    dk.lu_solve(lv.lu, lv.perm, x)
+                scratch.index_put_((int_l,), xs.reshape(-1, 1))
+
+            A_ = lv.dinv if lv.dinv is not None else lv.lu
+            work = bound(nbytes(A_, lv.L, lv.int_ids, lv.bnd_ids)
+                         + (nbytes(lv.perm) if lv.dinv is None else 0)
+                         + 2 * Bm * ni * e + 2 * Bm * nbp * e,
+                         2 * fm * (A_.numel() + lv.L.numel()), dtype_name)
+            desc = (f"level {bidx} {rec} B={Bm} ni={ni} nb={nbp} k=1 "
+                    f"growth={growth:.3g}")
+            ms = device_ms(lambda: level_forward(scratch, lv, N))
+            plain_ms = device_ms(lambda: level_forward_plain(scratch, lv, N))
+            library_ms = device_ms(library)
+            if ni <= WINDOW_ROWS:
+                results.record(f"level_forward{tag}", desc,
+                               (err, err / (scale if scale > 0 else 1.0)),
+                               limit, ms, plain_ms, work,
+                               library_ms=library_ms)
+                continue
+            desc += wide_desc(ni, nbp, dt) if rec == "lu" else " (wide)"
+            for part, idx, lim in (("interior", rows, limit),
+                                   ("boundary", bnd, sum_rtol(dtype_name))):
+                if len(idx):
+                    results.record(f"level_forward{tag}", f"{desc} {part} "
+                                   "rows", errors(ker[idx], ref[idx]), lim,
+                                   ms, plain_ms, work, library_ms=library_ms)
+
+
+def check_wide_fronts(problems: Problems, n, dev, results: Results,
+                      dtype_name: str = "float64") -> None:
+    """Kernel C's forward step at every level wider than 2048 rows of the
+    exact n-plan's factor (n=1026: its 2056-row root, the wide form's
+    narrowest front), as :func:`check_forward_levels` holds it."""
+    import torch
+
+    import hsolve_torch as ht
+    from hsolve_torch.factor import _factor_levels
+    from hsolve_torch.interop import plan_to_torch
+    from hsolve_torch.ops.sweep import WINDOW_ROWS
+
+    dt = getattr(torch, dtype_name)
+    A, _, shape = problems.get(n)
+    opts = ht.SolverOptions(swlevel=0)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 opts)
+    wide = [i for i, bp in enumerate(plan.batches) if bp.ni_pad > WINDOW_ROWS]
+    if not wide:
+        fail(f"{problem_name(n)}: no front wider than {WINDOW_ROWS} rows")
+    levels, _, _ = _factor_levels(plan, plan_to_torch(plan, dev), opts, dt)
+    N = plan.N
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    C0 = torch.randn(N + 1, 1, dtype=dt, device=dev, generator=gen)
+    C0[N] = 0.0
+    log(f"[3] C's forward step at {problem_name(n)}'s fronts above "
+        f"{WINDOW_ROWS} rows, {dtype_name}")
+    check_forward_levels(levels, wide, N, C0, dtype_name, results)
+    del levels
+    torch.cuda.empty_cache()
+
+
 def check_kernels(problems: Problems, n: int, dev, results: Results,
                   dtype_name: str = "float64") -> None:
     """Phase 3, kernels A-D against their plain versions at the exact
@@ -819,8 +948,9 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                                            front_assemble, front_assemble_plain)
     from hsolve_torch.ops.sparse import dia_spmv, dia_spmv_plain
     from hsolve_torch.ops import dense as dk
-    from hsolve_torch.ops.sweep import (level_forward, level_forward_plain,
-                                        sweep_update, sweep_update_plain)
+    from hsolve_torch.ops.sweep import (WINDOW_ROWS, level_forward,
+                                        level_forward_plain, sweep_update,
+                                        sweep_update_plain)
 
     dt = getattr(torch, dtype_name)
     e = torch.empty(0, dtype=dt).element_size()
@@ -906,49 +1036,12 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
     top = max(i for i, bp in enumerate(plan.batches) if bp.nb_pad > 0)
     C0 = torch.randn(N + 1, 1, dtype=dt, device=dev, generator=gen)
     C0[N] = 0.0
-    for bidx in (0, mid, nb - 1):
-        lev = levels[bidx]
-        recs = [("lu", lev)]
-        if bidx in (0, nb - 1):
-            recs.append(("dinv", dataclasses.replace(
-                lev, lu=None, perm=None,
-                dinv=dk.lu_inverse(lev.lu, lev.perm).contiguous())))
-        growth = float(dk._diag_ratio(lev.lu).max())
-        keep = lev.int_ids < N
-        int_l = lev.int_ids.long().reshape(-1)
-        bnd_l = lev.bnd_ids.long().reshape(-1)
-        Bm, nbp, ni = lev.L.shape
-        for rec, lv in recs:
-            ker = level_forward(C0.clone(), lv, N)
-            ref = level_forward_plain(C0.clone(), lv, N)
-            if float(ker[N].abs().max()) != 0.0:
-                fail(f"level_forward{tag} wrote the sentinel row at level "
-                     f"{bidx} ({rec})")
-            err = float((ker - ref).abs().max())
-            scale = float(ref[lev.int_ids[keep].long()].abs().max())
-            limit = RTOL_SOLVE[dtype_name] * max(1.0, growth)
-            scratch = C0.clone()
-
-            def library():
-                x = scratch[lv.int_ids]
-                scratch.index_put_((bnd_l,), -(lv.L @ x).reshape(-1, 1),
-                                   accumulate=True)
-                xs = lv.dinv @ x if lv.dinv is not None else \
-                    dk.lu_solve(lv.lu, lv.perm, x)
-                scratch.index_put_((int_l,), xs.reshape(-1, 1))
-
-            A_ = lv.dinv if lv.dinv is not None else lv.lu
-            work = nbytes(A_, lv.L, lv.int_ids, lv.bnd_ids) \
-                + (nbytes(lv.perm) if lv.dinv is None else 0) \
-                + 2 * Bm * ni * e + 2 * Bm * nbp * e
-            record(f"level_forward{tag}", f"level {bidx} {rec} "
-                   f"B={Bm} ni={ni} nb={nbp} k=1 growth={growth:.3g}",
-                   (err, err / (scale if scale > 0 else 1.0)), limit,
-                   device_ms(lambda: level_forward(scratch, lv, N)),
-                   device_ms(lambda: level_forward_plain(scratch, lv, N)),
-                   bound(work, 2 * fm * (A_.numel() + lv.L.numel()),
-                         dtype_name),
-                   library_ms=device_ms(library))
+    # and every level wider than 2048 rows (the wide form: the 64^3 plan's
+    # [2, 3912] and [1, 7944])
+    wide_levels = {i for i, bp in enumerate(plan.batches)
+                   if bp.ni_pad > WINDOW_ROWS}
+    check_forward_levels(levels, sorted({0, mid, nb - 1} | wide_levels), N,
+                         C0, dtype_name, results, dinv_at=(0, nb - 1))
     for bidx in (0, mid, top):
         lev = levels[bidx]
         ker = sweep_update(C0.clone(), lev.int_ids, lev.R, N, ids_in=lev.bnd_ids)
@@ -977,7 +1070,7 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
                library_ms=device_ms(library))
 
     # C's forward step on a front wider than one cluster (4424 rows, the
-    # helmholtz3d(48) exact top front: three windows), made by hand, against
+    # helmholtz3d(48) exact top front: the wide form), made by hand, against
     # its plain version, and both against a float64 (complex128) solve of
     # the same (rounded) front: in float32 (complex64) the kernel may be no
     # further from that solve than the plain version, beyond 1e-7 of
@@ -1021,7 +1114,7 @@ def check_kernels(problems: Problems, n: int, dev, results: Results,
             ("interior", rows, RTOL_SOLVE[dtype_name] * max(1.0, growth)),
             ("boundary", bnd, rtol)):
         record(f"level_forward{tag}", f"hand front lu B=1 ni=4424 nb=24 k=1 "
-               f"(windows) {part} rows growth={growth:.3g}"
+               f"{part} rows growth={growth:.3g}" + wide_desc(4424, 24, dt)
                + (note if part == "interior" else ""),
                errors(ker[idx], ref[idx]), limit, ms, plain_ms,
                bound(nbytes(wide.lu, wide.L, wide.int_ids, wide.bnd_ids,
@@ -1289,18 +1382,23 @@ def check_schur_captured(label, fcalls, results: Results) -> None:
             "lowrank_schur_update" + type_tag(dname),
             f"{label} {tag} [{B},{nb},{nb}] ni={ni_pad} k={kc} "
             + (f"bands of {g['bm']}, whole rows" if g["whole"] else
+               f"{g['bm']}x{g['bn']} tiles from W = Abi RU (one GEMM)"
+               if g.get("w") else
                f"{g['bm']}x{g['bn']} tiles, cluster {g['cs']}"
                + (f", {g['nct']} CTAs a band walking {g['walk']} tiles"
                   if "walk" in g else "")),
             errors(ker, ref), sum_rtol(dname), ms, plain_ms, work)
         rows_.append((ms, plain_ms, work["bound_ms"]))
     ms_, plain_, bound_ = zip(*rows_)
+    slower = sum(a > b for a, b in zip(ms_, plain_))
     log(f"  {label}: F at {len(rows_)} shapes, kernel {min(ms_):.4f}-"
-        f"{max(ms_):.4f} ms; slower than its plain version at "
-        f"{sum(a > b for a, b in zip(ms_, plain_))}; within 2x of its bound "
+        f"{max(ms_):.4f} ms; slower than its plain version at {slower}; "
+        f"within 2x of its bound "
         f"at {sum(a <= 2 * c for a, c in zip(ms_, bound_))}; sum "
         f"{sum(ms_):.4f} ms against plain {sum(plain_):.4f} and bound "
-        f"{sum(bound_):.4f}")
+        f"{sum(bound_):.4f}; no launch slower than plain and the sum at or "
+        f"below plain's: "
+        + ("met" if not slower and sum(ms_) <= sum(plain_) else "missed"))
 
 
 def truncate_recorder(fm, gcalls: list):
@@ -3302,6 +3400,7 @@ def main() -> int:
     if "real" in checks:
         check_kernels(problems, kn, dev, kres)
         check_kernels(problems, kn, dev, kres, "float32")
+        check_wide_fronts(problems, WIDE_N, dev, kres)
         check_compressed_kernels(problems, kn, dev, kres)
         check_hss_kernels(problems, kn, dev, kres)
         check_root_hss_shapes(problems, kn, dev, kres)

@@ -38,8 +38,6 @@
 //     nb <= 128): the band's Abb rows are staged in their natural column
 //     order, 16 bytes a copy, and the column permutation is applied from
 //     shared memory; one CTA a front where nb <= 64;
-//   - tiles of 32 x 64 on the wider fronts of the many-front levels, each
-//     CTA computing its band's W itself (Abi's rows and RU from L2);
 //   - tiles on the top levels, whose few fronts leave SMs idle: a row
 //     band's column tiles form a thread block cluster of cs CTAs (at most
 //     8).  Each CTA computes W's band over its share of the depth ni_pad
@@ -50,6 +48,11 @@
 //     reduce-scatter and a push: each CTA reads and writes about one band's
 //     worth remotely, not cs of them): no product of W is computed twice,
 //     and no entry summed twice.
+//   Every other launch (many fronts of wide rows; rank caps whose W a
+//   cluster cannot keep twice) takes the W form below.  (With cs = 1 and
+//   tiles this kernel computes a band's W in every CTA of the band: no
+//   geometry picks that any more; tools/f_breakdown.py reads it as the
+//   earlier design.)
 //   Abb's tile is gathered entry by entry (sperm's runs of consecutive
 //   indices keep the reads coalesced: 1-10 runs a front in the n=512
 //   plans).
@@ -464,6 +467,187 @@ HS_EXPORT int hs_lowrank_schur_update(const void* front, const void* RU,
     cudaGetLastError();
     return (int)err;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The W form (float64, schur_geometry's "w" launches: every launch that is
+// neither whole rows nor one cluster a row band, e.g. the 3D rank caps of
+// 400-560, where a cluster cannot keep W twice).  W = Abi RU is computed
+// once before the launch, by one batched GEMM into a scratch [B][nb][kc]
+// (the JAX package computes Abi @ RU outside any kernel too; 19.9 MB at
+// [2, 2216, 560], inside L2), so no band's W is computed twice.  The
+// kernel is then a GEMM over gathered rows: a CTA of eight warps computes
+// a bm x bm tile of
+//
+//     S[b, i, j] = Abb[b, p_i, p_j] - sum_k W[b, p_i, k] RV[b, p_j, k]
+//
+// over depth chunks of 32, W's rows p_i and RV's rows p_j staged by
+// cp.async in two stages (the next chunk in flight during the products),
+// on the FP64 tensor cores (m16n8k16).  bm = 128 (a warp 32 x 64: 16
+// products a 16-deep step on 48 fragment loads; each CTA reads 16 bytes of
+// staged rows for 32 flops, which keeps L2 below its rate where 128 x 64
+// tiles did not), or 64 on narrow fronts (a warp 32 x 16).  The
+// accumulators start from -Abb's entries,
+// gathered from the front; S = -acc is stored from them (a quad of lanes
+// writes 64 contiguous bytes).  Bound at [2, 2072, 2216, 560]: the
+// products' 11 GFLOP, not the 0.1 GB of bytes.
+// ---------------------------------------------------------------------------
+#define FW_KD 32
+#define FW_LD (FW_KD + 4)  // 4 mod 16 doubles: conflict-free fragments
+
+template <int BM>
+__global__ void __launch_bounds__(F_THREADS, BM == 128 ? 1 : 2)
+lowrank_schur_w_kernel(const double* __restrict__ front,
+                       const double* __restrict__ W,
+                       const double* __restrict__ RV,
+                       const long long* __restrict__ sperm,
+                       double* __restrict__ S, int m_pad, int ni_pad, int kc,
+                       int vec) {
+  constexpr int BN = BM;                // square tiles
+  constexpr int RG = BM / 32;           // row groups of 32 rows
+  constexpr int WN = BN / 8 / (F_WARPS / RG);  // 8-column blocks a warp
+  extern __shared__ __align__(16) double fsm[];
+  double* Wst = fsm;                         // [2][BM][FW_LD] W's rows
+  double* Vst = Wst + 2 * BM * FW_LD;        // [2][BN][FW_LD] RV's rows
+  int* pi = reinterpret_cast<int*>(Vst + 2 * BN * FW_LD);  // [BM]
+  int* pj = pi + BM;                                       // [BN]
+  const int nb = m_pad - ni_pad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qr = lane >> 2, qc = lane & 3;
+  const long long b = blockIdx.z;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const long long* p = sperm + b * nb;
+  for (int r = tid; r < BM; r += F_THREADS)
+    pi[r] = i0 + r < nb ? (int)p[i0 + r] : -1;
+  for (int c = tid; c < BN; c += F_THREADS)
+    pj[c] = j0 + c < nb ? (int)p[j0 + c] : -1;
+  __syncthreads();
+  const double* Wb = W + b * (long long)nb * kc;
+  const double* RVb = RV + b * (long long)nb * kc;
+  auto stage = [&](int s, int k0) {
+    const int nk = min(FW_KD, kc - k0);
+    stage_rows(Wst + s * BM * FW_LD, FW_LD, BM, FW_KD, nk, vec, W, [&](int r) {
+      return pi[r] >= 0 ? Wb + (long long)pi[r] * kc + k0 : nullptr;
+    });
+    stage_rows(Vst + s * BN * FW_LD, FW_LD, BN, FW_KD, nk, vec, RV,
+               [&](int c) {
+                 return pj[c] >= 0 ? RVb + (long long)pj[c] * kc + k0
+                                   : nullptr;
+               });
+    cp_commit();
+  };
+  stage(0, 0);
+
+  // the warp's rows r0 + 16 h (+ 8 for a fragment's second half) and
+  // 8-column blocks cb0 + u
+  const int r0 = (warp % RG) * 32 + qr, cb0 = (warp / RG) * WN;
+  const double* F = front + b * (long long)m_pad * m_pad +
+                    (long long)ni_pad * m_pad + ni_pad;  // Abb[0][0]
+  double acc[2][WN][2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < WN; ++u)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = r0 + 16 * h + 8 * hh;
+          const int c = (cb0 + u) * 8 + 2 * qc + e;
+          acc[h][u][hh][e] =
+              pi[r] >= 0 && pj[c] >= 0
+                  ? -__ldg(F + (long long)pi[r] * m_pad + pj[c])
+                  : 0.0;
+        }
+
+  const int chunks = (kc + FW_KD - 1) / FW_KD;
+  for (int kk = 0; kk < chunks; ++kk) {
+    if (kk + 1 < chunks) {
+      stage((kk + 1) & 1, (kk + 1) * FW_KD);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const double* Ws = Wst + (kk & 1) * BM * FW_LD;
+    const double* Vs = Vst + (kk & 1) * BN * FW_LD;
+#pragma unroll
+    for (int k16 = 0; k16 < FW_KD / 16; ++k16) {
+      double a0[2][4], a1[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        frag_a(Ws, FW_LD, r0 + 16 * h, k16 * 16 + qc, a0[h], a1[h]);
+#pragma unroll
+      for (int u = 0; u < WN; ++u) {
+        double bf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bf[j] = Vs[((cb0 + u) * 8 + qr) * FW_LD + k16 * 16 + qc + 4 * j];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fmma(acc[h][u], a0[h], a1[h], bf);
+      }
+    }
+    __syncthreads();  // the stage is restaged next
+  }
+
+  double* Sb = S + b * (long long)nb * nb;
+  const bool pair = nb % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(S) & 15u) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = i0 + r0 + 16 * h + 8 * hh;
+      if (i >= nb) continue;
+#pragma unroll
+      for (int u = 0; u < WN; ++u) {
+        const int j = j0 + (cb0 + u) * 8 + 2 * qc;
+        double* d = Sb + (long long)i * nb + j;
+        if (pair && j + 1 < nb) {
+          *reinterpret_cast<double2*>(d) =
+              make_double2(-acc[h][u][hh][0], -acc[h][u][hh][1]);
+        } else {
+          if (j < nb) d[0] = -acc[h][u][hh][0];
+          if (j + 1 < nb) d[1] = -acc[h][u][hh][1];
+        }
+      }
+    }
+}
+
+// bytes of shared memory a CTA of the W form takes (ops/schur.py
+// `schur_smem_w` mirrors it)
+static long long schur_smem_w(int bm) {
+  return 8LL * 2 * (2 * bm) * FW_LD + 4LL * (2 * bm);
+}
+
+// S from W = Abi RU (computed by the caller): tiles of bm x bm, bm = 64 or
+// 128
+HS_EXPORT int hs_lowrank_schur_update_w(const void* front, const void* W,
+                                        const void* RV, const void* sperm,
+                                        void* S, long long B, int m_pad,
+                                        int ni_pad, int kc, int bm,
+                                        void* stream) {
+  const int nb = m_pad - ni_pad;
+  if (B <= 0 || nb <= 0) return (int)cudaGetLastError();
+  if (kc < 1 || (bm != 64 && bm != 128) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = kc % 2 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(W) |
+                     reinterpret_cast<uintptr_t>(RV)) & 15u) == 0;
+  const long long smem = schur_smem_w(bm);
+  auto kern = bm == 128 ? lowrank_schur_w_kernel<128>
+                        : lowrank_schur_w_kernel<64>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kern,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  const unsigned tiles = (unsigned)((nb + bm - 1) / bm);
+  kern<<<dim3(tiles, tiles, (unsigned)B), F_THREADS, (size_t)smem,
+         (cudaStream_t)stream>>>(
+      (const double*)front, (const double*)W, (const double*)RV,
+      (const long long*)sperm, (double*)S, m_pad, ni_pad, kc, (int)vec);
   return (int)cudaGetLastError();
 }
 

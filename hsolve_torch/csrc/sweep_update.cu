@@ -74,7 +74,8 @@
 // owns the panels p with p % cs == c and stores y_p and the signal into
 // every CTA through distributed shared memory.  The rows of L[b] and
 // dinv[b] are split the same way.  A front wider than 8 CTAs' 2048 rows
-// runs in windows (launch_windowed, below).
+// takes the wide form (launch_windowed, below): one substitution launch on
+// a cluster of up to 16 CTAs, by inverted diagonal blocks.
 //
 // Races: within a level the int ids of the fronts are disjoint, no front's
 // bnd ids are another front's int ids, and every CTA of a front reads x before
@@ -618,40 +619,138 @@ level_forward_kernel(T* C, const int* __restrict__ int_ids,
 }
 
 // ---------------------------------------------------------------------------
-// The forward step of a front wider than HS_C_WIN rows, in windows.
+// The forward step of a front wider than 2048 rows: one substitution launch
+// on a thread block cluster of up to 16 CTAs (non-portable above 8).
 //
-// A cluster holds at most 8 CTAs of 8 panel warps: 2048 rows.  A wider front
-// is cut into windows of at most HS_C_WIN rows, and the step runs as a
-// sequence of launches on the stream: gather (x and z = x[perm] into the
-// scratch X, Z [B][k][ni]), the update C[bnd] -= L x (row_dot_kernel), then
-// per window in order the window's substitution on its cluster
-// (window_solve_kernel: the panels of the window only, z in and out of Z)
-// and the update of the rows after it (unit lower, forward) or before it
-// (upper, backward) by the window's solved values (window_update_kernel:
-// z[rows] -= lu[rows, window] z[window], parallel over 32-row tiles and bound
-// by the bytes of lu).  The backward window writes its final rows to C[int].
-// With dinv the substitution is one row_dot_kernel, C[int] = dinv z.
+// A cluster of 8 CTAs of 8 panel warps holds 2048 rows in
+// level_forward_kernel.  A wider front's step is a short launch sequence on
+// the stream:
+//   1. wide_prep_kernel, over the whole card: X = x and Z = x[perm]
+//      gathered into scratch [B][k][ni] (the accumulator type), and, in the
+//      lu form, every panel's 32 x 32 diagonal block of the unit lower and
+//      of the upper factor inverted into the scratch Dinv (one warp a block,
+//      a substitution of the identity's columns, in the accumulator type);
+//   2. row_dot_kernel, over the whole card: C[bnd] -= L X (with dinv:
+//      C[int] = dinv Z, and the step ends);
+//   3. wide_solve_kernel: both triangles' substitution, one cluster a front
+//      and right-hand side.
+// A front of up to wide_window_panels panels (16384 rows in float64 and
+// float32, 8192 in the complex types: every front of the repo's plans) is
+// one window, so step 3 is one launch for both triangles.  A wider front
+// runs in windows of that many panels: per window its substitution alone,
+// then window_update_kernel brings the rows after it (forward) or before
+// it (backward) up to date by the window's values through Z.
+//
+// Where each value lives (wide_solve_kernel).  Panel p (rows 32 p to
+// 32 p + 31) of a window of npw panels belongs to CTA (p - p_lo) % cs of the
+// cluster, as its m-th panel (m = (p - p_lo) / cs), and there to warp m % nw,
+// one lane a row.  Each CTA's shared memory holds the window's solved
+// values ys [npw][32] (the accumulator type: every CTA a full copy, 8 or 16
+// bytes a row), its own panels' running values zs [ceil(npw / cs)][32],
+// and one [32][32] slot a warp for the (transposed) inverse of the
+// diagonal block of the next panel it solves, copied from Dinv (cp.async)
+// while the warp waits for earlier panels.  The blocks of lu that update
+// a warp's rows are read from device memory, each once, into registers
+// (one block at a time: the loops over a warp's panels are rolled, so
+// nothing spills into local memory, which shares the SM's 256 KB with the
+// shared memory), a few panels after cp.async.bulk.prefetch.L2 asked for
+// them.  At 7944 complex rows that is 127 KB of values, 8 KB of running
+// values and five 16 KB slots a CTA.
+//
+// One panel step.  ys starts as HS_C_UNSET (a signalling NaN: no
+// arithmetic returns one) in every CTA.  The owner of panel P applies the
+// update of each earlier panel p (in this direction) as soon as y_p is
+// there, z -= lu[P rows, p cols] y_p (the block in registers, the lanes
+// polling their own words of y_p in their own CTA's ys); after the last one
+// it forms y_P = Dinv_P z (32 independent shuffles and four chains of
+// multiply-adds, not a 32-step dependent chain) and stores each value into
+// every CTA's ys with relaxed cluster-scope stores (the next panel's CTA
+// first).  A stored value is its own signal: no flag, no fence, no barrier
+// lies between two panels, so a step's critical path is one store across
+// the cluster, one 32 x 32 block product and one 32 x 32 inverse product.
+// A warp of several panels applies each p to all of its unsolved panels, in
+// solve order, and solves the first the moment its last update is in.
+// Between the triangles (and right-hand sides) the cluster resets ys behind
+// two cluster barriers.  The substitution stays a substitution by blocks:
+// the pivot block D is never inverted, only its 32 x 32 diagonal blocks of
+// L and U (bounded entries: |L| <= 1 by partial pivoting).
 // ---------------------------------------------------------------------------
-#define HS_C_WIN (HS_C_PANEL * HS_C_MAX_PW * 8)  // rows per window: 2048
+#define HS_C_WIDE_CS 16    // CTAs of a wide front's cluster, at most
+#define HS_C_WIDE_PF 4     // panels ahead whose blocks go to L2
+#define HS_C_INV_WARPS 8   // warps of a prep CTA that invert diagonal blocks
+#define HS_C_UNSET 0x7ff4c0dec0dec0deULL
+
+// warps of a wide CTA (registers: a complex lane's block takes 64 or 128
+// of them) and panels of a window (ys and zs fit beside a few slots)
+template <typename T>
+__host__ __device__ constexpr int wide_max_warps() {
+  return sizeof(hs_acc_t<T>) > 8 ? 8 : 16;
+}
+template <typename T>
+__host__ __device__ constexpr int wide_window_panels() {
+  return sizeof(hs_acc_t<T>) > 8 ? 256 : 512;
+}
 
 template <typename T>
-__global__ void fwd_gather_kernel(const T* __restrict__ C,
-                                  const int* __restrict__ int_ids,
-                                  const long long* __restrict__ perm,
-                                  hs_acc_t<T>* X, hs_acc_t<T>* Z, long long B,
-                                  int ni, int k, int N) {
+__global__ void __launch_bounds__(256)
+wide_prep_kernel(const T* __restrict__ C, const int* __restrict__ int_ids,
+                 const long long* __restrict__ perm, const T* __restrict__ lu,
+                 hs_acc_t<T>* X, hs_acc_t<T>* Z, hs_acc_t<T>* Dinv,
+                 long long B, int ni, int k, int N, int inv_ctas) {
+  typedef hs_acc_t<T> Acc;
+  extern __shared__ __align__(16) unsigned char hs_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  if ((int)blockIdx.x < inv_ctas) {
+    // block t = (b 2 + d) npan + p: d = 0 the unit lower factor, 1 the upper
+    const int64_t t = (int64_t)blockIdx.x * HS_C_INV_WARPS + warp;
+    if (t >= B * 2 * npan) return;  // warp-uniform; no CTA barrier follows
+    const int64_t b = t / (2 * npan);
+    const int d = (int)(t / npan % 2), p = (int)(t % npan);
+    Acc* dg = reinterpret_cast<Acc*>(hs_smem) + warp * HS_C_DG;
+    stage_block(lu + b * ni * ni, ni, p, dg, lane);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    // lane j: column j of the block's inverse, row by row
+    Acc x[HS_C_PANEL];
+    if (d == 0) {
+#pragma unroll
+      for (int i = 0; i < HS_C_PANEL; ++i) {
+        Acc s = i == lane ? Acc(1) : Acc(0);
+#pragma unroll
+        for (int c = 0; c < i; ++c) s -= dg[i * HS_C_DG_LD + c] * x[c];
+        x[i] = s;
+      }
+    } else {
+#pragma unroll
+      for (int i = HS_C_PANEL - 1; i >= 0; --i) {
+        Acc s = i == lane ? Acc(1) : Acc(0);
+#pragma unroll
+        for (int c = i + 1; c < HS_C_PANEL; ++c)
+          s -= dg[i * HS_C_DG_LD + c] * x[c];
+        x[i] = s * hs_inv(dg[i * HS_C_DG_LD + i]);
+      }
+    }
+    // transposed: column j of the inverse at out[32 j, 32 j + 32)
+    Acc* out = Dinv + t * (HS_C_PANEL * HS_C_PANEL) + lane * HS_C_PANEL;
+#pragma unroll
+    for (int i = 0; i < HS_C_PANEL; ++i) out[i] = x[i];
+    return;
+  }
   const int64_t total = B * (int64_t)k * ni;
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
+  const int64_t stride = (int64_t)(gridDim.x - inv_ctas) * blockDim.x;
+  for (int64_t e = (blockIdx.x - inv_ctas) * (int64_t)blockDim.x + threadIdx.x;
+       e < total; e += stride) {
     const int i = (int)(e % ni);
     const int64_t bq = e / ni;
     const int q = (int)(bq % k);
     const int64_t b = bq / k;
     const int id = int_ids[b * ni + i];
-    X[e] = id < N ? hs_wide(C[(int64_t)id * k + q]) : hs_acc_t<T>(0);
+    X[e] = id < N ? hs_wide(C[(int64_t)id * k + q]) : Acc(0);
     const int j = perm != nullptr ? (int)perm[b * ni + i] : i;
     const int idp = int_ids[b * ni + j];
-    Z[e] = idp < N ? hs_wide(C[(int64_t)idp * k + q]) : hs_acc_t<T>(0);
+    Z[e] = idp < N ? hs_wide(C[(int64_t)idp * k + q]) : Acc(0);
   }
 }
 
@@ -689,52 +788,215 @@ row_dot_kernel(T* C, const int* __restrict__ ids, const T* __restrict__ M,
   }
 }
 
-// One window's substitution: panels [p_lo, p_hi) of front b, right-hand side
-// blockIdx.y, on a cluster of cs CTAs (the panel ownership of
-// level_forward_kernel); z comes from and goes back to Z, and the backward
-// pass also stores its final rows in C[int].
+// a value's 8-byte words: a double one, a complex128 two (each stored and
+// polled on its own: a relaxed access of 8 bytes is single-copy atomic)
+__device__ __forceinline__ void put_word(void* p, unsigned long long v) {
+  asm volatile("st.relaxed.cluster.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void put_value(double* p, double v) {
+  put_word(p, (unsigned long long)__double_as_longlong(v));
+}
+
+__device__ __forceinline__ void put_value(hs_c128* p, hs_c128 v) {
+  put_word(&p->re, (unsigned long long)__double_as_longlong(v.re));
+  put_word(&p->im, (unsigned long long)__double_as_longlong(v.im));
+}
+
+// spin until this CTA's word at p is no longer HS_C_UNSET (a fault that
+// stops the chain traps after some seconds rather than hanging the card)
+__device__ __forceinline__ void wait_word(const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned long long v;
+  long long spins = 0;
+  do {
+    asm volatile("ld.relaxed.cluster.shared::cta.b64 %0, [%1];"
+                 : "=l"(v)
+                 : "r"(a)
+                 : "memory");
+    if (++spins > (1LL << 28)) __trap();
+  } while (v == HS_C_UNSET);
+}
+
+__device__ __forceinline__ void wait_value(const double* p) { wait_word(p); }
+
+__device__ __forceinline__ void wait_value(const hs_c128* p) {
+  wait_word(&p->re);
+  wait_word(&p->im);
+}
+
+// y_P into ys[i] of every CTA of the cluster, the next panel's CTA first
+template <typename Acc>
+__device__ __forceinline__ void publish_y(Acc* ys, int i, Acc v, int cs,
+                                          int rank) {
+  cg::cluster_group cl = cg::this_cluster();
+  for (int c = 1; c <= cs; ++c)
+    put_value(cl.map_shared_rank(ys, (rank + c) % cs) + i, v);
+}
+
+// ys[0, n) = HS_C_UNSET, by the CTA's threads
+template <typename Acc>
+__device__ __forceinline__ void unset_values(Acc* ys, int n) {
+  unsigned long long* w = reinterpret_cast<unsigned long long*>(ys);
+  const int words = n * (int)(sizeof(Acc) / 8);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = HS_C_UNSET;
+}
+
+// the inverse of a diagonal block (transposed, 32 x 32 in Dinv) into a
+// warp's [32][32] slot, asynchronously; waited for before the solve
+template <typename Acc>
+__device__ __forceinline__ void stage_inverse(Acc* slot, const Acc* src,
+                                              int lane) {
+#pragma unroll 4
+  for (int e = 0; e < HS_C_PANEL; ++e)
+    cp_async_elem(slot + e * HS_C_PANEL + lane, src + e * HS_C_PANEL + lane);
+  cp_async_commit();
+}
+
+// lane r: row r of the staged inverse (its column r of the transposed
+// slot: the lanes read consecutive words) times the panel's running values
+template <typename Acc>
+__device__ __forceinline__ Acc inverse_apply(const Acc* slot, Acc z,
+                                             int lane) {
+  Acc a[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+  for (int c = 0; c < HS_C_PANEL; ++c)
+    a[c & 3] += slot[c * HS_C_PANEL + lane] * hs_shfl(z, c);
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// the block lu[P rows, p cols] (column-major: 32 columns of 32 contiguous
+// rows) asked of L2 ahead of its use, one bulk prefetch a lane and column
+template <typename T>
+__device__ __forceinline__ void prefetch_block(const T* A, int ni, int P,
+                                               int p, int lane) {
+  const int col = p * HS_C_PANEL + lane;
+  if ((P + 1) * HS_C_PANEL > ni || col >= ni) return;
+  const T* src = A + (int64_t)col * ni + P * HS_C_PANEL;
+  if (reinterpret_cast<uintptr_t>(src) & 15u) return;
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
+               "r"((unsigned)(HS_C_PANEL * sizeof(T)))
+               : "memory");
+}
+
+// One direction of a window's substitution for one warp of CTA `rank`: its
+// panels P_j = p_lo + rank + cs (warp + nw j) (j < npj) over the window's
+// panels [p_lo, p_hi), their running values in zs[(warp + nw j) 32 + lane]
+// (in: the direction's right-hand side, out: its solution); dinv the
+// direction's inverted diagonal blocks (panel p's transposed at dinv +
+// 1024 p).  Rolled loops: one block of lu in registers at a time.
+template <typename T, bool VEC, bool FWD>
+__device__ __forceinline__ void wide_direction(
+    const T* __restrict__ A, const hs_acc_t<T>* __restrict__ dinv, int ni,
+    int p_lo, int p_hi, int rank, int cs, int warp, int nw, int npj, int lane,
+    hs_acc_t<T>* ys, hs_acc_t<T>* zs, hs_acc_t<T>* slot) {
+  typedef hs_acc_t<T> Acc;
+  if (npj == 0) return;  // warp-uniform
+  const int step = FWD ? 1 : -1;
+  const int first = FWD ? p_lo : p_hi - 1;
+  auto panel = [&](int j) { return p_lo + rank + cs * (warp + nw * j); };
+  auto zrow = [&](int j) { return zs + (warp + nw * j) * HS_C_PANEL; };
+  int nxt = FWD ? 0 : npj - 1;  // the warp's next panel to solve
+  stage_inverse(slot, dinv + (int64_t)panel(nxt) * 1024, lane);
+  // panel j's updates are all in: y = Dinv zr, published
+  auto solve = [&](int j) {
+    cp_async_wait_all();
+    __syncwarp();
+    const int P = panel(j);
+    const Acc y = inverse_apply(slot, zrow(j)[lane], lane);
+    zrow(j)[lane] = y;
+    if (P * HS_C_PANEL + lane < ni)
+      publish_y(ys, (P - p_lo) * HS_C_PANEL + lane, y, cs, rank);
+    __syncwarp();  // the slot read; this CTA's ys written for the warp
+    nxt += step;
+    if (nxt >= 0 && nxt < npj)
+      stage_inverse(slot, dinv + (int64_t)panel(nxt) * 1024, lane);
+  };
+  if (panel(nxt) == first) solve(nxt);  // the first panel takes no update
+  for (int p = first; nxt >= 0 && nxt < npj; p += step) {
+    const int p0 = p * HS_C_PANEL;
+    // the unsolved panels (all past p), in solve order
+    const int j0 = nxt, cnt = FWD ? npj - nxt : nxt + 1;
+#pragma unroll 1
+    for (int t = 0; t < cnt; ++t) {
+      const int j = FWD ? j0 + t : j0 - t;
+      const int P = panel(j);
+      T seg[HS_C_PANEL];
+      load_seg<T, VEC>(A, ni, P, p, lane, seg);
+      if (t == 0) {  // y_p there
+        if (p0 + lane < ni) wait_value(ys + (p - p_lo) * HS_C_PANEL + lane);
+        __syncwarp();
+      }
+      zrow(j)[lane] -= panel_update<T, VEC>(seg, ys + (p - p_lo) * HS_C_PANEL,
+                                            ni, p0, lane);
+      const int pf = p + HS_C_WIDE_PF * step;
+      if (FWD ? pf < P : pf > P) prefetch_block(A, ni, P, pf, lane);
+      if (t == 0 && P == p + step) solve(j);
+    }
+  }
+}
+
+// A window's substitution, panels [p_lo, p_hi) of front b and right-hand
+// side blockIdx.y, on a cluster of cs CTAs of nw = blockDim.x / 32 warps
+// (see the note above): dirs bit 0 the forward (unit lower) triangle, bit
+// 1 the backward (upper) one.  z comes from Z; store_z writes the result
+// back to Z (a window of several), the backward triangle also to C[int].
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(HS_C_FWD_MAX)
-window_solve_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu, T* C,
-                    const int* __restrict__ int_ids, int ni, int k, int N,
-                    int p_lo, int p_hi, int fwd, int cs) {
+__global__ void __launch_bounds__(32 * wide_max_warps<T>(), 1)
+wide_solve_kernel(hs_acc_t<T>* Z, const T* __restrict__ lu,
+                  const hs_acc_t<T>* __restrict__ Dinv, T* C,
+                  const int* __restrict__ int_ids, int ni, int k, int N,
+                  int p_lo, int p_hi, int dirs, int store_z, int cs) {
   typedef hs_acc_t<T> Acc;
   extern __shared__ __align__(16) unsigned char hs_smem[];
-  __shared__ int ready[HS_C_MAX_PANELS];        // substitute's signals
-  Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [HS_C_WIN] its values
-  Acc* dg = ys + HS_C_WIN;                    // [warps][PANEL][DG_LD]
-  for (int i = threadIdx.x; i < HS_C_MAX_PANELS; i += blockDim.x) ready[i] = 0;
-  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int npw = p_hi - p_lo, nw = blockDim.x >> 5;
+  const int per = (npw + cs - 1) / cs;         // panels of one CTA, at most
+  Acc* ys = reinterpret_cast<Acc*>(hs_smem);  // [npw][32] solved values
+  Acc* zs = ys + npw * HS_C_PANEL;            // [per][32] running values
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
   const int64_t b = blockIdx.x / cs;
   const int q = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  Acc* slot = zs + per * HS_C_PANEL + warp * HS_C_PANEL * HS_C_PANEL;
   const T* A = lu + b * ni * ni;
-  const int npw = own_count(p_lo, p_hi, rank, cs) / HS_C_PANEL;
-  const bool owner = warp < npw;                  // warp-uniform
-  const int P = first_own(p_lo, rank, cs) + warp * cs;
-  const int r = P * HS_C_PANEL + lane;
-  const bool row_ok = owner && r < ni;
-  const Acc* dgw = dg + warp * HS_C_DG;
-  if (owner) {
-    stage_block(A, ni, P, dg + warp * HS_C_DG, lane);
-    cp_async_commit();
-  }
+  // this CTA's panels: window panel rank + cs m, m < mine; warp w's m = w +
+  // nw j
+  const int mine = rank < npw ? (npw - 1 - rank) / cs + 1 : 0;
+  const int npj = warp < mine ? (mine - 1 - warp) / nw + 1 : 0;
   Acc* zb = Z + (b * k + q) * ni;
-  Acc zr = row_ok ? zb[r] : Acc(0);
-  front_sync(cs);  // also: every CTA of the cluster has started
-  if (cs > 1)
-    substitute_signals<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane,
-                               zr, ys, p_lo * HS_C_PANEL, dgw, cs, rank, true,
-                               ready, 1);
-  else
-    substitute_steps<T, VEC>(A, ni, p_lo, p_hi, fwd != 0, owner, P, r, lane,
-                             zr, ys, p_lo * HS_C_PANEL, dgw, cs, rank, true);
-  if (row_ok) {
-    zb[r] = zr;
-    const int id = int_ids[b * ni + r];
-    if (!fwd && id < N) C[(int64_t)id * k + q] = static_cast<T>(zr);
+  for (int m = warp; m < mine; m += nw) {
+    const int r = (p_lo + rank + cs * m) * HS_C_PANEL + lane;
+    zs[m * HS_C_PANEL + lane] = r < ni ? zb[r] : Acc(0);
   }
-  front_sync(cs);  // no CTA leaves while others may still store into its ys
+  unset_values(ys, npw * HS_C_PANEL);
+  cl.sync();  // also: every CTA of the cluster has started
+  if (dirs & 1)
+    wide_direction<T, VEC, true>(A, Dinv + (b * 2) * npan * 1024LL, ni, p_lo,
+                                 p_hi, rank, cs, warp, nw, npj, lane, ys, zs,
+                                 slot);
+  if (dirs == 3) {  // every read of the forward values done, then reset
+    cl.sync();
+    unset_values(ys, npw * HS_C_PANEL);
+    cl.sync();
+  }
+  if (dirs & 2)
+    wide_direction<T, VEC, false>(A, Dinv + (b * 2 + 1) * npan * 1024LL, ni,
+                                  p_lo, p_hi, rank, cs, warp, nw, npj, lane,
+                                  ys, zs, slot);
+  for (int m = warp; m < mine; m += nw) {
+    const int r = (p_lo + rank + cs * m) * HS_C_PANEL + lane;
+    if (r < ni) {
+      const Acc v = zs[m * HS_C_PANEL + lane];
+      if (store_z) zb[r] = v;
+      if (dirs & 2) {
+        const int id = int_ids[b * ni + r];
+        if (id < N) C[(int64_t)id * k + q] = static_cast<T>(v);
+      }
+    }
+  }
+  cl.sync();  // no CTA leaves while others may still store into its ys
 }
 
 // Z[b][q][r_lo:r_hi] -= lu[r_lo:r_hi, c_lo:c_hi] Z[b][q][c_lo:c_hi] (lu
@@ -887,21 +1149,119 @@ static cudaError_t launch_forward(T* C, const int* int_ids, const int* bnd_ids,
   return cudaGetLastError();
 }
 
+// The launch of a window of npw panels (ops/sweep.py forward_wide_launch
+// mirrors it): a cluster of cs = min(cs_max, npw) CTAs, each of nw warps
+// (as many as its panels, within wide_max_warps and what shared memory
+// leaves beside the window's solved values and the CTA's running values:
+// one inverse slot a warp), in smem bytes.
+template <typename T>
+static bool wide_launch(int npw, int cs_max, int* cs, int* nw, size_t* smem) {
+  const size_t acc = sizeof(hs_acc_t<T>);
+  if (npw < 1 || cs_max < 1 || cs_max > HS_C_WIDE_CS) return false;
+  *cs = npw < cs_max ? npw : cs_max;
+  const int per = (npw + *cs - 1) / *cs;
+  const size_t fixed = (size_t)(npw + per) * HS_C_PANEL * acc;
+  const size_t slot = (size_t)HS_C_PANEL * HS_C_PANEL * acc;
+  if (fixed + slot > 232448) return false;
+  int w = wide_max_warps<T>();
+  const int fit = (int)((232448 - fixed) / slot);
+  if (fit < w) w = fit;
+  if (per < w) w = per;
+  *nw = w;
+  *smem = fixed + (size_t)w * slot;
+  return true;
+}
+
+static cudaLaunchConfig_t wide_config(int cs, int nw, size_t smem,
+                                      long long B, int k, cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cs), (unsigned)k);
+  cfg.blockDim = dim3(32 * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the solve kernel's attributes: its shared memory, and clusters above 8
+template <typename T, bool VEC>
+static cudaError_t wide_attributes(size_t smem) {
+  static size_t granted = 0;
+  static bool nonportable = false;
+  auto kern = wide_solve_kernel<T, VEC>;
+  cudaError_t err = allow_smem(kern, smem, &granted);
+  if (err != cudaSuccess || nonportable) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) nonportable = true;
+  return err;
+}
+
+// how many clusters of a window of npw panels at cs_max the card holds at
+// once (cudaOccupancyMaxActiveClusters; 0: none, -1: the query failed)
+template <typename T>
+static int wide_clusters(int npw, int cs_max) {
+  int cs, nw;
+  size_t smem;
+  if (!wide_launch<T>(npw, cs_max, &cs, &nw, &smem)) return 0;
+  if (wide_attributes<T, true>(smem) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wide_config(cs, nw, smem, 1, 1, nullptr, attr);
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, wide_solve_kernel<T, true>,
+                                     &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return count;
+}
+
 template <typename T, bool VEC>
 static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
                                    const T* L, const T* lu,
                                    const long long* perm, const T* dinv,
-                                   hs_acc_t<T>* X, hs_acc_t<T>* Z, long long B,
-                                   int ni, int nb, int k, int N,
+                                   hs_acc_t<T>* X, hs_acc_t<T>* Z,
+                                   hs_acc_t<T>* Dinv, long long B, int ni,
+                                   int nb, int k, int N, int cs_max,
                                    cudaStream_t stream) {
-  static size_t granted_solve = 0, granted_update = 0;
+  typedef hs_acc_t<T> Acc;
+  static size_t granted_prep = 0, granted_update = 0;
+  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
+  const int wpan = wide_window_panels<T>();
+  const int nwin = (npan + wpan - 1) / wpan;
+  // every window's launch first: a refused one launches nothing
+  int cs[2], nw[2];
+  size_t smem[2];
+  for (int w = 0; w < 2; ++w) {
+    const int npw = w == 0 ? (npan < wpan ? npan : wpan) : npan - (nwin - 1) * wpan;
+    if (dinv == nullptr &&
+        !wide_launch<T>(npw, cs_max, &cs[w], &nw[w], &smem[w]))
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err;
   const int64_t total = B * (int64_t)k * ni;
-  const unsigned gblocks = (unsigned)(total / 256 + 1 < 8192 ? total / 256 + 1
-                                                              : 8192);
-  fwd_gather_kernel<T><<<gblocks, 256, 0, stream>>>(
-      C, int_ids, dinv != nullptr ? nullptr : perm, X, Z, B, ni, k, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int gather = (int)(total / 256 + 1 < 8192 ? total / 256 + 1 : 8192);
+  const int inv_ctas =
+      dinv != nullptr ? 0 : (int)((B * 2 * npan + HS_C_INV_WARPS - 1) /
+                                  HS_C_INV_WARPS);
+  const size_t smem_prep =
+      inv_ctas > 0 ? (size_t)HS_C_INV_WARPS * HS_C_DG * sizeof(Acc) : 0;
+  if ((err = allow_smem(wide_prep_kernel<T>, smem_prep, &granted_prep)) !=
+      cudaSuccess)
+    return err;
+  wide_prep_kernel<T><<<(unsigned)(inv_ctas + gather), 256, smem_prep,
+                        stream>>>(C, int_ids, dinv != nullptr ? nullptr : perm,
+                                  lu, X, Z, Dinv, B, ni, k, N, inv_ctas);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (nb > 0) {
     const int split = (nb + HS_C_PANEL - 1) / HS_C_PANEL;
     row_dot_kernel<T, VEC><<<(unsigned)(B * split), HS_C_THREADS, 0, stream>>>(
@@ -914,45 +1274,32 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
         C, int_ids, dinv, Z, ni, ni, k, N, split, 1);
     return cudaGetLastError();
   }
-  const int npan = (ni + HS_C_PANEL - 1) / HS_C_PANEL;
-  const int wpan = HS_C_WIN / HS_C_PANEL;
-  const int nwin = (npan + wpan - 1) / wpan;
-  // the window's solved values only: the same whatever ni
-  const size_t smem_solve = (size_t)HS_C_WIN * sizeof(hs_acc_t<T>) +
-                            (size_t)HS_C_MAX_PW * HS_C_DG *
-                                sizeof(hs_acc_t<T>);
-  auto solve = window_solve_kernel<T, VEC>;
-  if ((err = allow_smem(solve, smem_solve, &granted_solve)) != cudaSuccess)
+  for (int w = 0; w < 2; ++w)
+    if ((err = wide_attributes<T, VEC>(smem[w])) != cudaSuccess) return err;
+  if (nwin > 1 &&
+      (err = allow_smem(window_update_kernel<T>,
+                        (size_t)wpan * HS_C_PANEL * sizeof(Acc),
+                        &granted_update)) != cudaSuccess)
     return err;
-  const size_t smem_update = (size_t)HS_C_WIN * sizeof(hs_acc_t<T>);
-  auto update = window_update_kernel<T>;
-  if ((err = allow_smem(update, smem_update, &granted_update)) != cudaSuccess)
-    return err;
+  auto solve = wide_solve_kernel<T, VEC>;
   for (int dir = 0; dir < 2; ++dir) {
     for (int s = 0; s < nwin; ++s) {
       const int w = dir == 0 ? s : nwin - 1 - s;
+      const int g = w == nwin - 1 ? 1 : 0;  // the last window's launch
       const int p_lo = w * wpan, p_hi = p_lo + wpan < npan ? p_lo + wpan : npan;
-      const int cs = (p_hi - p_lo + HS_C_MAX_PW - 1) / HS_C_MAX_PW;
-      const int pw_cta = (p_hi - p_lo + cs - 1) / cs;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3((unsigned)(B * cs), (unsigned)k);
-      cfg.blockDim = dim3(32 * (pw_cta > 2 ? pw_cta : 2));
-      cfg.dynamicSmemBytes = smem_solve;
-      cfg.stream = stream;
+      const int dirs = nwin == 1 ? 3 : 1 << dir;
       cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = (unsigned)cs;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, solve, Z, lu, C, int_ids, ni, k, N, p_lo,
-                               p_hi, dir == 0, cs);
+      cudaLaunchConfig_t cfg =
+          wide_config(cs[g], nw[g], smem[g], B, k, stream, attr);
+      err = cudaLaunchKernelEx(&cfg, solve, Z, lu, (const Acc*)Dinv, C,
+                               int_ids, ni, k, N, p_lo, p_hi, dirs,
+                               (int)(nwin > 1), cs[g]);
       if (err != cudaSuccess) {
         cudaGetLastError();
         return err;
       }
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      if (nwin == 1) return cudaSuccess;  // both triangles in one launch
       // the rows the window's values update: after it (forward), before it
       // (backward)
       const int c_lo = p_lo * HS_C_PANEL;
@@ -960,8 +1307,9 @@ static cudaError_t launch_windowed(T* C, const int* int_ids, const int* bnd_ids,
       const int r_lo = dir == 0 ? c_hi : 0, r_hi = dir == 0 ? ni : c_lo;
       if (r_hi > r_lo) {
         const int tiles = (r_hi - r_lo + 31) / 32;
-        update<<<dim3((unsigned)(B * tiles), (unsigned)k), 256,
-                 (size_t)(c_hi - c_lo) * sizeof(hs_acc_t<T>), stream>>>(
+        window_update_kernel<T><<<dim3((unsigned)(B * tiles), (unsigned)k),
+                                  256, (size_t)(c_hi - c_lo) * sizeof(Acc),
+                                  stream>>>(
             Z, lu, ni, k, r_lo, r_hi, c_lo, c_hi, tiles);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
       }
@@ -975,23 +1323,21 @@ static int level_forward_windowed(void* C, const void* int_ids,
                                   const void* bnd_ids, const void* L,
                                   const void* lu, const void* perm,
                                   const void* dinv, void* X, void* Z,
-                                  long long B, int ni, int nb, int k, int N,
-                                  void* stream) {
+                                  void* Dinv, long long B, int ni, int nb,
+                                  int k, int N, int cs_max, void* stream) {
   if (B < 0 || ni < 0 || nb < 0 || k < 1 || X == nullptr || Z == nullptr ||
-      (dinv == nullptr && (lu == nullptr || perm == nullptr)))
+      (dinv == nullptr &&
+       (lu == nullptr || perm == nullptr || Dinv == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || ni == 0) return (int)cudaSuccess;
   const T* A = dinv != nullptr ? (const T*)dinv : (const T*)lu;
-  if (ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A))
-    return (int)launch_windowed<T, true>(
-        (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-        (const T*)lu, (const long long*)perm, (const T*)dinv,
-        (hs_acc_t<T>*)X, (hs_acc_t<T>*)Z, B, ni, nb, k, N,
-        (cudaStream_t)stream);
-  return (int)launch_windowed<T, false>(
-      (T*)C, (const int*)int_ids, (const int*)bnd_ids, (const T*)L,
-      (const T*)lu, (const long long*)perm, (const T*)dinv, (hs_acc_t<T>*)X,
-      (hs_acc_t<T>*)Z, B, ni, nb, k, N, (cudaStream_t)stream);
+  const bool vec = ni % Vec16<T>::n == 0 && aligned16(L) && aligned16(A);
+  auto run = vec ? &launch_windowed<T, true> : &launch_windowed<T, false>;
+  return (int)run((T*)C, (const int*)int_ids, (const int*)bnd_ids,
+                  (const T*)L, (const T*)lu, (const long long*)perm,
+                  (const T*)dinv, (hs_acc_t<T>*)X, (hs_acc_t<T>*)Z,
+                  (hs_acc_t<T>*)Dinv, B, ni, nb, k, N, cs_max,
+                  (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -1069,20 +1415,33 @@ HS_EXPORT int hs_level_forward_windowed(void* C, const void* int_ids,
                                         const void* bnd_ids, const void* L,
                                         const void* lu, const void* perm,
                                         const void* dinv, void* X, void* Z,
-                                        long long B, int ni, int nb, int k,
-                                        int N, void* stream) {
+                                        void* Dinv, long long B, int ni,
+                                        int nb, int k, int N, int cs_max,
+                                        void* stream) {
   return level_forward_windowed<double>(C, int_ids, bnd_ids, L, lu, perm, dinv,
-                                        X, Z, B, ni, nb, k, N, stream);
+                                        X, Z, Dinv, B, ni, nb, k, N, cs_max,
+                                        stream);
 }
 
 HS_EXPORT int hs_level_forward_windowed_f32(void* C, const void* int_ids,
                                             const void* bnd_ids, const void* L,
                                             const void* lu, const void* perm,
                                             const void* dinv, void* X, void* Z,
-                                            long long B, int ni, int nb, int k,
-                                            int N, void* stream) {
+                                            void* Dinv, long long B, int ni,
+                                            int nb, int k, int N, int cs_max,
+                                            void* stream) {
   return level_forward_windowed<float>(C, int_ids, bnd_ids, L, lu, perm, dinv,
-                                       X, Z, B, ni, nb, k, N, stream);
+                                       X, Z, Dinv, B, ni, nb, k, N, cs_max,
+                                       stream);
+}
+
+// clusters of a wide window of npw panels the card holds at once
+HS_EXPORT int hs_level_forward_wide_clusters(int npw, int cs_max) {
+  return wide_clusters<double>(npw, cs_max);
+}
+
+HS_EXPORT int hs_level_forward_wide_clusters_f32(int npw, int cs_max) {
+  return wide_clusters<float>(npw, cs_max);
 }
 
 HS_EXPORT int hs_sweep_update(void* C, const void* ids_out, const void* M,
@@ -1112,9 +1471,14 @@ HS_EXPORT int hs_sweep_update_f32(void* C, const void* ids_out, const void* M,
   HS_EXPORT int hs_level_forward_windowed##SFX(                                \
       void* C, const void* int_ids, const void* bnd_ids, const void* L,        \
       const void* lu, const void* perm, const void* dinv, void* X, void* Z,    \
-      long long B, int ni, int nb, int k, int N, void* stream) {               \
+      void* Dinv, long long B, int ni, int nb, int k, int N, int cs_max,       \
+      void* stream) {                                                          \
     return level_forward_windowed<T>(C, int_ids, bnd_ids, L, lu, perm, dinv,   \
-                                     X, Z, B, ni, nb, k, N, stream);           \
+                                     X, Z, Dinv, B, ni, nb, k, N, cs_max,      \
+                                     stream);                                  \
+  }                                                                            \
+  HS_EXPORT int hs_level_forward_wide_clusters##SFX(int npw, int cs_max) {     \
+    return wide_clusters<T>(npw, cs_max);                                      \
   }                                                                            \
   HS_EXPORT int hs_sweep_update##SFX(void* C, const void* ids_out,             \
                                      const void* M, const void* ids_in,        \

@@ -55,7 +55,10 @@ several right-hand sides, whose operand tiles are TMA boxes of tensor maps
 libcuda); kernel L is one cooperative launch
 (``cudaLaunchCooperativeKernel``) with grid barriers, which raises when the
 card cannot hold its grid at once; kernel F's top levels share a row band's
-``Abi RU`` across a thread block cluster.
+``Abi RU`` across a thread block cluster, and its float64 launches that no
+cluster or whole-row form takes read ``W = Abi RU`` from one batched GEMM
+(``hs_lowrank_schur_update_w``); kernel C's forward step on a front above
+2048 rows runs on a cluster of 16 (``hs_level_forward_windowed``).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches in
@@ -94,11 +97,13 @@ _SIGNATURES = {
     "hs_front_assemble": [_V, _V, _V, _V, _LL, _V],
     "hs_extend_add": [_V] * 5 + [_I] * 5 + [_V],
     "hs_level_forward": [_V] * 7 + [_LL] + [_I] * 5 + [_V],
-    "hs_level_forward_windowed": [_V] * 9 + [_LL] + [_I] * 4 + [_V],
+    "hs_level_forward_windowed": [_V] * 10 + [_LL] + [_I] * 5 + [_V],
+    "hs_level_forward_wide_clusters": [_I, _I],
     "hs_sweep_update": [_V] * 4 + [_LL] + [_I] * 5 + [_V],
     "hs_dia_spmv": [_V, _V, _V, _V, _V, _I, _LL, _I, _V],
     "hs_lowrank_sweep_update": [_V] * 6 + [_LL] + [_I] * 12 + [_LL, _V],
     "hs_lowrank_schur_update": [_V] * 5 + [_LL] + [_I] * 9 + [_V],
+    "hs_lowrank_schur_update_w": [_V] * 5 + [_LL] + [_I] * 4 + [_V],
     "hs_lowrank_truncate": [_V] * 7 + [_D, _D, _LL] + [_I] * 5 + [_V],
     "hs_cpqr": [_V, _V, _V, _V, _D, _D, _LL, _I, _I, _I, _I, _V],
     "hs_hss_entries": [_V] * 6 + [_LL] * 7 + [_I] * 7 + [_V],
@@ -120,7 +125,8 @@ _SIGNATURES = {
 # A-D, L, M and the control kernels also take float32: the same signature
 # under ``<name>_f32``
 TYPED = ("hs_front_assemble", "hs_extend_add", "hs_level_forward",
-         "hs_level_forward_windowed", "hs_sweep_update", "hs_dia_spmv",
+         "hs_level_forward_windowed", "hs_level_forward_wide_clusters",
+         "hs_sweep_update", "hs_dia_spmv",
          "hs_arnoldi_cgs2", "hs_arnoldi_givens", "hs_arnoldi_step",
          "hs_gmres_init", "hs_gmres_cycle_start", "hs_gmres_cycle_end",
          "hs_gmres_escalate")

@@ -10,7 +10,13 @@ of it in one kernel,
 
 reading ``Abi`` and ``Abb`` in place from the front buffer, keeping ``W`` in
 shared memory and storing ``S`` already permuted.  :func:`schur_geometry`
-picks its launch from the plan's shapes.  Float64 runs on the FP64 tensor
+picks its launch from the plan's shapes.  Where neither whole rows nor one
+thread block cluster a row band fit (rank caps of several hundred, the 3D
+top levels) or a launch has many fronts of wide rows, its float64 form
+takes ``W = Abi @ RU`` from one batched GEMM before the launch (as the JAX
+package computes it outside any kernel) and the kernel computes only the
+second product over gathered rows (the W form, :func:`schur_geometry_w`):
+no band's ``W`` is computed twice.  Float64 runs on the FP64 tensor
 cores; complex128 (the damped Helmholtz system's low-rank levels), float32
 and complex64 (the JAX bench's device configurations; no TF32) take a
 kernel of their own on the CUDA cores, one complex multiply-add as four
@@ -62,62 +68,77 @@ def schur_geometry(B: int, ni_pad: int, nb: int, kc: int,
                    is_complex: bool = False) -> dict:
     """Kernel F's launch for ``B`` fronts with ``nb`` boundary rows, depth
     ``ni_pad`` and rank cap ``kc`` on a card of ``sms`` SMs: ``{"bm", "bn",
-    "cs", "nct", "kd", "whole", "smem"}``; values other than float64
+    "cs", "nct", "kd", "whole", "smem", "w"}``; values other than float64
     (``itemsize`` 16, complex128; 4, float32; 8 with ``is_complex``,
     complex64) take the CUDA-core form's, :func:`schur_geometry_cc`.
 
-    Fronts of at most ``F_WHOLE_MAX`` boundary rows (the many-front levels)
-    take whole rows: a CTA covers a band of ``bm`` rows and every column
-    (``bn`` = nb rounded up to 8), one CTA a front where nb <= 64, bands of
-    32 rows above.  Wider fronts take tiles of 32 rows and ``bn`` columns
-    over ``nct`` column tiles.  Where the launch's row bands do not fill the
-    card's SMs twice over (the top levels' few fronts), a band's column
-    tiles form one thread block cluster of ``cs`` CTAs (at most
-    ``F_MAX_CLUSTER``; ``nct`` a multiple of it) that split the depth of
-    ``Abi RU`` between them (bands of 16 rows where bands of 32 would take
-    at most two waves of the card's CTA slots); else each CTA computes its
-    band's ``W`` itself over 64-column tiles.  ``kd``: the depth of a staged
-    chunk, a multiple of 16 up to ``F_MAX_KD``.  Where a rank cap makes the
-    CTA's shared memory too large, the chunk and then the tiles shrink, and
-    where no cluster form fits, the band's CTAs each compute W themselves.
-    Raises only where no form fits."""
+    Every float64 form computes each row band's ``W`` once.  Fronts of at
+    most ``F_WHOLE_MAX`` boundary rows (the many-front levels) take whole
+    rows: a CTA covers a band of ``bm`` rows and every column (``bn`` = nb
+    rounded up to 8), one CTA a front where nb <= 64, bands of 32 rows
+    above.  Where the launch's row bands of wider fronts do not fill the
+    card's SMs twice over (the top levels' few fronts), a band's ``nct``
+    column tiles form one thread block cluster of ``cs = nct`` CTAs (at most
+    ``F_MAX_CLUSTER``) that split the depth of ``Abi RU`` between them
+    (bands of 16 rows where bands of 32 would take at most two waves of the
+    card's CTA slots).  ``kd``: the depth of a staged chunk, a multiple of
+    16 up to ``F_MAX_KD``; where a rank cap makes the CTA's shared memory
+    too large, the chunk and then the tiles shrink.  Every other launch
+    (many fronts of wide rows; rank caps whose W a cluster cannot keep
+    twice) takes the W form, :func:`schur_geometry_w` (``"w"`` True)."""
     if itemsize != 8 or is_complex:
         return schur_geometry_cc(B, ni_pad, nb, kc, sms, itemsize)
     nbp = _up(nb)
-    cluster = B * -(-nbp // 32) <= F_CTAS_PER_SM * sms
     cands = []
     if nbp <= F_WHOLE_MAX:
         bm = _up(nbp, 16) if nbp <= 64 else 32
         for b_ in (bm, 32, 16):
             if b_ <= bm:
                 cands.append((b_, nbp, 1, 1, True))
-    # a cluster launch within two waves of the card's CTA slots at bands of
-    # 32 rows (the top levels' 1-4 fronts): bands of 16, which read faster
-    # there (tools/f_breakdown.py)
-    first = 16 if cluster and B * -(-nbp // 32) * min(
-        F_MAX_CLUSTER, -(-nbp // 32)) <= 2 * F_CTAS_PER_SM * sms else 32
-    # where no cluster form fits (a cluster keeps W twice: rank caps of
-    # several hundred), the one-CTA-a-band forms follow
-    for clus in ((True, False) if cluster else (False,)):
-        for bm in ((first, 32, 16) if clus else (32, 16)):
+    elif B * -(-nbp // 32) <= F_CTAS_PER_SM * sms:
+        # a cluster launch within two waves of the card's CTA slots at bands
+        # of 32 rows (the top levels' 1-4 fronts): bands of 16, which read
+        # faster there (tools/f_breakdown.py)
+        first = 16 if B * -(-nbp // 32) * min(
+            F_MAX_CLUSTER, -(-nbp // 32)) <= 2 * F_CTAS_PER_SM * sms else 32
+        for bm in (first, 32, 16):
             for bn_max in (128, 64, 32, 16, 8):
-                if clus:
-                    nct = max(min(F_MAX_CLUSTER, -(-nbp // 32)),
-                              -(-nbp // bn_max))
-                else:
-                    nct = -(-nbp // min(bn_max, 64))
+                nct = max(min(F_MAX_CLUSTER, -(-nbp // 32)),
+                          -(-nbp // bn_max))
                 bn = _up(-(-nbp // nct))
                 nct = -(-nbp // bn)
-                cs = min(nct, F_MAX_CLUSTER) if clus else 1
-                cands.append((bm, bn, cs, -(-nct // cs) * cs, False))
+                if nct <= F_MAX_CLUSTER:     # one cluster a band
+                    cands.append((bm, bn, nct, nct, False))
     for bm, bn, cs, nct, whole in cands:
         top = min(F_MAX_KD, _up(max(1, -(-ni_pad // cs)), 16))
         for kd in sorted({top, min(top, 32), 16}, reverse=True):
             smem = schur_smem(bm, bn, cs, kd, kc, whole, nb)
             if _fits(bm, bn) and smem <= SMEM_MAX:
                 return {"bm": bm, "bn": bn, "cs": cs, "nct": nct, "kd": kd,
-                        "whole": whole, "smem": smem}
-    raise ValueError(f"kernel F: no launch fits nb={nb}, kc={kc}")
+                        "whole": whole, "smem": smem, "w": False}
+    return schur_geometry_w(nb)
+
+
+F_W_KD = 32            # the W form: depth of a staged chunk of W and RV
+
+
+def schur_smem_w(bm: int) -> int:
+    """Bytes of shared memory one CTA of the W form takes: two stages of a
+    depth chunk of W's ``bm`` rows and RV's ``bm`` (rows of 36 doubles, 4
+    mod 16: conflict-free fragments), the permutation's rows and columns."""
+    return 8 * 2 * (2 * bm) * (F_W_KD + 4) + 4 * (2 * bm)
+
+
+def schur_geometry_w(nb: int) -> dict:
+    """The W form's launch (``hs_lowrank_schur_update_w``): tiles of ``bm``
+    x ``bm`` over depth chunks of 32, ``bm`` = 128 (a warp 32 x 64) unless
+    tiles of 64 pad the rows by an eighth less (narrow fronts, e.g. nb
+    272: 384 rows against 320)."""
+    rows = lambda bm: -(-nb // bm) * bm
+    bm = 128 if rows(128) <= 1.125 * rows(64) else 64
+    return {"bm": bm, "bn": bm, "cs": 1, "nct": -(-nb // bm),
+            "kd": F_W_KD, "whole": False, "smem": schur_smem_w(bm),
+            "w": True}
 
 
 F_C_BM = 32            # the CUDA-core form: rows of a band
@@ -201,6 +222,15 @@ def lowrank_schur_update(front: torch.Tensor, ni_pad: int, RU: torch.Tensor,
     if B and nb:
         g = schur_geometry(B, ni_pad, nb, kc, kernels.sm_count(front.device),
                            front.element_size(), dt.is_complex)
+        if g.get("w"):
+            # W = Abi RU once, into a scratch the launch reads by rows
+            W = torch.bmm(front[:, ni_pad:, :ni_pad], RU)
+            kernels.launch("hs_lowrank_schur_update_w", front.device,
+                           front.data_ptr(), W.data_ptr(), RV.data_ptr(),
+                           sperm.data_ptr(), S.data_ptr(), B, m_pad, ni_pad,
+                           kc, g["bm"])
+            kernels.count_launch(lowrank_schur_update, dt)
+            return S
         kernels.launch(kernels.symbol("hs_lowrank_schur_update", dt),
                        front.device, front.data_ptr(), RU.data_ptr(),
                        RV.data_ptr(), sperm.data_ptr(), S.data_ptr(), B,

@@ -54,34 +54,110 @@ def forward_cluster(ni_pad: int) -> int:
     return max(1, -(-(-(-ni_pad // PANEL)) // PANEL_WARPS))
 
 
-def forward_windows(ni_pad: int):
-    """The windows of kernel C's forward step: ``[(row0, row1, cluster)]``.
-    A front of up to ``WINDOW_ROWS`` rows is one window, solved by one launch
-    on a cluster of :func:`forward_cluster` CTAs.  A wider one runs as a
-    sequence of launches (``hs_level_forward_windowed``): per window of at
-    most ``WINDOW_ROWS`` rows, in order, the window's substitution on its
-    own cluster, then the update of the rows after it by its solved values
-    (and back again for the upper triangle)."""
-    step = WINDOW_ROWS
-    return [(r0, min(r0 + step, ni_pad), forward_cluster(min(r0 + step, ni_pad)
-                                                          - r0))
-            for r0 in range(0, max(ni_pad, 1), step)]
-
-
 def accumulator(dtype: torch.dtype) -> torch.dtype:
     """The type kernel C and its plain versions accumulate a value type's
     sums in: float64, or complex128 for the complex types."""
     return torch.complex128 if dtype.is_complex else torch.float64
 
 
-def forward_window_smem(dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one CTA of a window's substitution in value
-    type ``dtype``: the window's solved values and the 8 panel warps'
-    staged 32 x 33 diagonal blocks, both in the accumulator type (the sweep
-    accumulates float32 in float64 and complex64 in complex128).  The same
-    whatever the front's width."""
-    acc = torch.empty((), dtype=accumulator(dtype)).element_size()
-    return WINDOW_ROWS * acc + PANEL_WARPS * PANEL * 33 * acc
+def _acc_bytes(dtype: torch.dtype) -> int:
+    return 16 if dtype.is_complex else 8
+
+
+# kernel C's forward step on a front wider than WINDOW_ROWS
+# (``hs_level_forward_windowed``): one substitution launch on a cluster of
+# up to WIDE_CLUSTER CTAs (non-portable above 8) whose warps own panels
+WIDE_CLUSTER = 16
+
+
+def wide_max_warps(dtype: torch.dtype) -> int:
+    """Warps of one CTA of the wide substitution: 16, or 8 in the complex
+    types (a lane's 32 x 32 block of lu takes 64 or 128 registers)."""
+    return 8 if dtype.is_complex else 16
+
+
+def wide_window_panels(dtype: torch.dtype) -> int:
+    """Panels of one window of the wide substitution: 512 (16384 rows) in
+    float64 and float32, 256 (8192 rows) in the complex types, whose
+    solved values (16 bytes a row in every CTA) then fill 128 KB."""
+    return 256 if dtype.is_complex else 512
+
+
+def forward_wide_launch(npw: int, dtype: torch.dtype,
+                        cs_max: int = WIDE_CLUSTER):
+    """``(cs, warps, smem)`` of the wide substitution over a window of
+    ``npw`` panels (``csrc/sweep_update.cu`` ``wide_launch`` mirrors it): a
+    cluster of min(cs_max, npw) CTAs, each of as many warps as its panels,
+    within :func:`wide_max_warps` and what shared memory leaves beside the
+    window's solved values (``npw * 32`` in the accumulator type) and the
+    CTA's own panels' running values (``ceil(npw / cs) * 32``), at one
+    [32][32] inverse slot a warp.  Raises where no warp fits."""
+    acc = _acc_bytes(dtype)
+    if npw < 1 or not 1 <= cs_max <= WIDE_CLUSTER:
+        raise ValueError(f"no wide launch for {npw} panels at cluster "
+                         f"{cs_max}")
+    cs = min(cs_max, npw)
+    per = -(-npw // cs)
+    fixed, slot = (npw + per) * PANEL * acc, PANEL * PANEL * acc
+    if fixed + slot > SMEM_MAX:
+        raise ValueError(f"{npw} panels: the window's values outgrow a CTA")
+    warps = min(wide_max_warps(dtype), (SMEM_MAX - fixed) // slot, per)
+    return cs, warps, fixed + warps * slot
+
+
+def forward_windows(ni_pad: int, dtype: torch.dtype = torch.float64,
+                    cs_max: int = WIDE_CLUSTER):
+    """The windows of kernel C's forward step: ``[(row0, row1, cluster)]``.
+    A front of up to ``WINDOW_ROWS`` rows is one window, solved by one
+    launch of ``level_forward_kernel`` on a cluster of
+    :func:`forward_cluster` CTAs.  A wider one (``hs_level_forward_
+    windowed``) is one window of up to :func:`wide_window_panels` panels on
+    a cluster of up to ``cs_max`` CTAs (:func:`forward_wide_launch`), and
+    beyond that a sequence of such windows, each followed by the update of
+    the rows after it (and back again for the upper triangle)."""
+    if ni_pad <= WINDOW_ROWS:
+        return [(0, ni_pad, forward_cluster(ni_pad))]
+    step = wide_window_panels(dtype) * PANEL
+    return [(r0, min(r0 + step, ni_pad),
+             forward_wide_launch(-(-(min(r0 + step, ni_pad) - r0) // PANEL),
+                                 dtype, cs_max)[0])
+            for r0 in range(0, ni_pad, step)]
+
+
+def forward_wide_geometry(ni_pad: int, nb: int, dtype: torch.dtype,
+                          active=None, lu: bool = True) -> dict:
+    """Kernel C's forward step on a front of ``ni_pad > WINDOW_ROWS`` rows
+    and ``nb`` boundary rows: ``{"cs_max", "windows", "warps", "smem",
+    "launches", "resident"}``.  ``active(npw, cs)``, where given, is how
+    many clusters of the first window's launch at ``cs`` CTAs the card
+    holds at once (``cudaOccupancyMaxActiveClusters``): a cluster of
+    ``WIDE_CLUSTER`` where the card holds one, else of 8 (raises where it
+    holds none of 8 either).  ``launches``: the prep kernel (the gather and
+    the diagonal blocks' inverses), ``C[bnd] -= L x`` where ``nb``, then one
+    substitution (both triangles) for one window, else two a window and the
+    updates between them; with ``dinv`` (``lu=False``) the prep kernel and
+    the row products."""
+    if ni_pad <= WINDOW_ROWS:
+        raise ValueError(f"{ni_pad} rows take level_forward_kernel")
+    npw0 = min(-(-ni_pad // PANEL), wide_window_panels(dtype))
+    cs_max, resident = WIDE_CLUSTER, None
+    if active is not None and lu:
+        for cs_max in (WIDE_CLUSTER, 8):
+            resident = active(npw0, min(cs_max, npw0))
+            if resident > 0:
+                break
+        else:
+            raise RuntimeError(f"the card holds no cluster of kernel C's "
+                               f"wide substitution ({npw0} panels)")
+    wins = forward_windows(ni_pad, dtype, cs_max)
+    geo = [forward_wide_launch(-(-(r1 - r0) // PANEL), dtype, cs_max)
+           for r0, r1, _ in wins]
+    n = len(wins)
+    launches = 1 + (nb > 0) + ((1 if n == 1 else 2 * n + 2 * (n - 1))
+                               if lu else 1)
+    return {"cs_max": cs_max, "windows": wins, "warps": [g[1] for g in geo],
+            "smem": [g[2] for g in geo], "launches": launches,
+            "resident": resident}
 
 
 # kernel C's forward substitution signals a panel's solved values point to
@@ -170,9 +246,12 @@ def level_forward_plain(C: torch.Tensor, lev, N: int) -> torch.Tensor:
 def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
     """Kernel C's forward step (in place on ``C``; see the plain version):
     one launch per level, the pivot solve included, or for fronts wider than
-    ``WINDOW_ROWS`` one launch sequence by windows (:func:`forward_windows`).
-    The kernel takes ``lu`` column-major (as the LU returns it) and ``L``,
-    ``dinv`` row-major."""
+    ``WINDOW_ROWS`` a short launch sequence (:func:`forward_wide_geometry`):
+    the gather with the diagonal blocks' inverses, ``C[bnd] -= L x``, and
+    both triangles' substitution in one launch on a cluster of up to 16
+    CTAs (windows of :func:`wide_window_panels` panels beyond).  The kernel
+    takes ``lu`` column-major (as the LU returns it) and ``L``, ``dinv``
+    row-major."""
     A = lev.dinv if lev.dinv is not None else lev.lu
     operands = [C, lev.L, lev.int_ids, lev.bnd_ids, A] + (
         [] if lev.dinv is not None else [lev.perm])
@@ -202,24 +281,43 @@ def level_forward(C: torch.Tensor, lev, N: int) -> torch.Tensor:
     dinv = None if lev.dinv is None else lev.dinv.data_ptr()
     ptrs = (C.data_ptr(), lev.int_ids.data_ptr(), lev.bnd_ids.data_ptr(),
             lev.L.data_ptr(), lu, perm, dinv)
-    windows = forward_windows(ni)
-    if len(windows) == 1:
+    if ni <= WINDOW_ROWS:
         kernels.launch(kernels.symbol("hs_level_forward", dt), C.device, *ptrs,
-                       B, ni, nb, k, N, windows[0][2])
+                       B, ni, nb, k, N, forward_cluster(ni))
     else:
-        # x and z = x[perm] per window pass go through this scratch, in
-        # the accumulator type (the running values of the sweep)
-        XZ = torch.empty((2, B, k, ni), dtype=accumulator(dt),
-                         device=C.device)
+        # x and z = x[perm] gathered into scratch, and each panel's inverted
+        # diagonal blocks, in the accumulator type
+        acc = accumulator(dt)
+        XZ = torch.empty((2, B, k, ni), dtype=acc, device=C.device)
+        Dinv = None if lev.dinv is not None else torch.empty(
+            (B, 2, -(-ni // PANEL), PANEL, PANEL), dtype=acc, device=C.device)
+        geo = forward_wide_geometry(ni, nb, dt, _wide_active(dt),
+                                    lev.dinv is None)
         kernels.launch(kernels.symbol("hs_level_forward_windowed", dt),
-                       C.device, *ptrs, XZ[0].data_ptr(), XZ[1].data_ptr(), B,
-                       ni, nb, k, N)
+                       C.device, *ptrs, XZ[0].data_ptr(), XZ[1].data_ptr(),
+                       None if Dinv is None else Dinv.data_ptr(), B, ni, nb,
+                       k, N, geo["cs_max"])
     kernels.count_launch(level_forward, dt)
     return C
 
 
 level_forward.launches = 0
 level_forward.launches_by_type = {}
+_WIDE_ACTIVE = {}
+
+
+def _wide_active(dtype: torch.dtype):
+    """``active(npw, cs)`` for :func:`forward_wide_geometry`: the clusters of
+    the wide substitution the card holds at once, asked of it once per
+    shape (``hs_level_forward_wide_clusters``)."""
+    def active(npw: int, cs: int) -> int:
+        key = (dtype, npw, cs)
+        if key not in _WIDE_ACTIVE:
+            _WIDE_ACTIVE[key] = getattr(kernels.lib(), kernels.symbol(
+                "hs_level_forward_wide_clusters", dtype))(npw, cs)
+        return _WIDE_ACTIVE[key]
+
+    return active
 
 
 def sweep_update_plain(C: torch.Tensor, ids_out: torch.Tensor, M: torch.Tensor,

@@ -171,10 +171,9 @@ def test_level_steps_on_a_wide_front(dev, dtype, tol, ni, nb):
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("B,ni,nb", [(2, 2080, 40), (1, 4424, 24)])
 def test_level_forward_in_windows_above_2048_rows(dev, dtype, tol, B, ni, nb):
-    """Fronts wider than one cluster's 2048 rows: two fronts of 2080 (two
-    windows) and the 4424-row top front of helmholtz3d(48) exact (three
-    windows, the last of 328 rows) against the plain versions, one wrapper
-    call each."""
+    """Fronts wider than one cluster's 2048 rows (the wide form, one window
+    each): two fronts of 2080 and the 4424-row top front of helmholtz3d(48)
+    exact against the plain versions, one wrapper call each."""
     N = B * (ni + nb) + 50
     lev = _hand_level(dev, dtype, B=B, ni=ni, nb=nb, N=N, seed=ni)
     _level_steps_agree(dev, lev, N, 1, tol)
@@ -182,8 +181,9 @@ def test_level_forward_in_windows_above_2048_rows(dev, dtype, tol, B, ni, nb):
 
 
 def test_level_forward_in_windows_above_20600_rows(dev):
-    """A float64 front of 20,608 rows (11 windows), whose solved values no
-    longer fit one CTA's shared memory: each window keeps only its own."""
+    """A float64 front of 20,608 rows (two windows of the wide form, 16384
+    and 4224 rows), whose solved values no longer fit one CTA's shared
+    memory: each window keeps only its own."""
     N = 20608 + 24 + 50
     lev = _hand_level(dev, torch.float64, B=1, ni=20608, nb=24, N=N, seed=5)
     _level_steps_agree(dev, lev, N, 1, 1e-12)
@@ -447,8 +447,9 @@ def test_lowrank_schur_update_kernel(dev, monkeypatch, B, ni_pad, nb, kc):
 def test_lowrank_schur_update_kernel_at_the_3d_top_shapes(dev, B, ni_pad, nb,
                                                            kc):
     """F6: kernel F at helmholtz3d(48, k=10)'s top compressed batches at the
-    default caps, where no cluster form fits a CTA and the chooser takes one
-    CTA a row band; within 1e-13 of its plain version."""
+    default caps, where no cluster form fits a CTA and the chooser takes
+    the W form (W = Abi RU once, before the launch); within 1e-13 of its
+    plain version."""
     rng = np.random.default_rng(nb + kc + B)
     m = ni_pad + nb
     front = torch.as_tensor(rng.standard_normal((B, m, m)), device=dev)
@@ -1326,8 +1327,8 @@ def _complex_level(dev, dtype, B, ni, nb, N, seed, shared_bnd=False):
 def test_complex_level_steps(dev, dtype, tol, B, ni, nb, k):
     """Kernel C's forward (lu and dinv records) and backward steps in
     complex: rows not 16-byte aligned and several right-hand sides (ni = 9,
-    k = 3), one CTA (256), clusters of 4 and 8 CTAs (1000, 1800), windows
-    (2080, 4424); complex128 to 1e-12 of the plain versions, complex64 to
+    k = 3), one CTA (256), clusters of 4 and 8 CTAs (1000, 1800), the wide
+    form (2080, 4424); complex128 to 1e-12 of the plain versions, complex64 to
     1e-5 (both accumulate in complex128)."""
     N = B * (ni + nb) + 500
     lev = _complex_level(dev, dtype, B, ni, nb, N, seed=ni + k)

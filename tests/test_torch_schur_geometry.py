@@ -15,10 +15,12 @@ import pytest
 import torch
 
 import hsolve_torch as ht
-from hsolve_torch.ops.schur import (F_MAX_CLUSTER, F_MAX_KD, F_WHOLE_MAX,
-                                    SMEM_MAX, lowrank_schur_update_plain,
+from hsolve_torch.ops.schur import (F_MAX_CLUSTER, F_MAX_KD, F_W_KD,
+                                    F_WHOLE_MAX, SMEM_MAX,
+                                    lowrank_schur_update_plain,
                                     schur_geometry, schur_geometry_cc,
-                                    schur_smem, schur_smem_cc)
+                                    schur_geometry_w, schur_smem,
+                                    schur_smem_cc, schur_smem_w)
 
 torch.set_num_threads(1)
 
@@ -44,18 +46,28 @@ def _f_shapes(n, config):
 def _check_geometry(B, ni_pad, nb, kc, sms=132):
     g = schur_geometry(B, ni_pad, nb, kc, sms=sms)
     bm, bn, cs, nct, kd = g["bm"], g["bn"], g["cs"], g["nct"], g["kd"]
-    assert g["smem"] == schur_smem(bm, bn, cs, kd, kc, g["whole"], nb) \
-        <= SMEM_MAX
-    # a rank's depth in chunks of kd (one where it is at most 64)
-    assert 16 <= kd <= F_MAX_KD and kd % 16 == 0
-    assert kd >= min(F_MAX_KD, -(-ni_pad // cs)) or kc > 64
-    assert 16 <= bm <= 64 and bm % 16 == 0 and bn % 8 == 0
-    assert bn <= 32 * (8 // (bm // 16))         # the warps' column blocks
-    assert 1 <= cs <= F_MAX_CLUSTER and nct % cs == 0
+    if g["w"]:
+        # the W form: W = Abi RU before the launch, square tiles of 64 or
+        # 128 over depth chunks of 32
+        assert bm in (64, 128) and bn == bm and kd == F_W_KD
+        assert cs == 1 and not g["whole"] and nct == -(-nb // bn)
+        assert g["smem"] == schur_smem_w(bm) <= SMEM_MAX
+        assert g == schur_geometry_w(nb)
+    else:
+        assert g["smem"] == schur_smem(bm, bn, cs, kd, kc, g["whole"], nb) \
+            <= SMEM_MAX
+        # a rank's depth in chunks of kd (one where it is at most 64)
+        assert 16 <= kd <= F_MAX_KD and kd % 16 == 0
+        assert kd >= min(F_MAX_KD, -(-ni_pad // cs)) or kc > 64
+        assert 16 <= bm <= 64 and bm % 16 == 0 and bn % 8 == 0
+        assert bn <= 32 * (8 // (bm // 16))         # the warps' column blocks
+        assert 1 <= cs <= F_MAX_CLUSTER and nct % cs == 0
+        # each band's W once: one CTA a band (whole rows) or one cluster
+        assert nct == cs
     if g["whole"]:
         assert cs == nct == 1 and bn >= nb
     else:
-        assert nct * bn >= nb and (nct - cs) * bn < nb   # no spare cluster
+        assert nct * bn >= nb and (nct - cs) * bn < nb   # no spare tile
     # each entry of S in exactly one tile
     cover = np.zeros((nb, nb), dtype=int)
     for y in range(-(-nb // bm)):
@@ -82,7 +94,8 @@ def test_kernel_f_geometry_at_every_launch_shape(n, config):
             # the top levels: a band's column tiles one cluster
             assert g["cs"] == g["nct"] == min(F_MAX_CLUSTER, -(-nb // 32))
         elif nb > F_WHOLE_MAX:
-            assert g["cs"] == 1 and g["bn"] <= 64
+            # many fronts of wide rows: W once before the launch
+            assert g["w"] and g["cs"] == 1 and g["bn"] <= 128
 
 
 def test_kernel_f_geometry_on_the_n512_low_rank_plan():
@@ -94,20 +107,20 @@ def test_kernel_f_geometry_on_the_n512_low_rank_plan():
         (1023, 64, 32, 64, 64, 1, 1, 32, True),
         (512, 96, 32, 32, 96, 1, 1, 32, True),
         (256, 128, 48, 32, 128, 1, 1, 64, True),
-        (128, 192, 48, 32, 64, 1, 3, 64, False),
-        (64, 256, 48, 32, 64, 1, 4, 64, False),
-        (32, 384, 48, 32, 64, 1, 6, 64, False),
+        (128, 192, 48, 64, 64, 1, 3, 32, False),      # the W form
+        (64, 256, 48, 128, 128, 1, 2, 32, False),
+        (32, 384, 48, 128, 128, 1, 3, 32, False),
         (16, 512, 48, 32, 64, 8, 8, 32, False),
         (8, 640, 48, 32, 80, 8, 8, 32, False),
         (4, 512, 48, 16, 64, 8, 8, 64, False),
         (2, 512, 48, 16, 64, 8, 8, 64, False),
         (1, 512, 48, 16, 64, 8, 8, 64, False)]
-    # on a card of 4 SMs the top levels take tiles without a cluster; the
-    # whole-row levels do not depend on the card
+    # on a card of 4 SMs the top levels take the W form without a cluster;
+    # the whole-row levels do not depend on the card
     for B, ni, nb, kc in _f_shapes(512, "low-rank"):
         g = _check_geometry(B, ni, nb, kc, sms=4)
         if nb > F_WHOLE_MAX:
-            assert g["cs"] == 1 and g["bn"] <= 64
+            assert g["w"] and g["cs"] == 1 and g["bn"] <= 128
         else:
             assert g == schur_geometry(B, ni, nb, kc)
 
@@ -127,9 +140,9 @@ def test_kernel_f_geometry_at_the_3d_top_shapes(B, ni_pad, nb, kc):
     """F6: the top two compressed batches of helmholtz3d(48, k=10) at the
     default caps are few fronts (a cluster per row band is preferred) at a
     rank cap whose W a cluster cannot keep twice; the chooser goes on to
-    the one-CTA-a-band forms instead of raising."""
+    the W form (W = Abi RU once, before the launch) instead of raising."""
     g = _check_geometry(B, ni_pad, nb, kc)
-    assert g["cs"] == 1 and g["smem"] <= SMEM_MAX
+    assert g["w"] and g["cs"] == 1 and g["smem"] <= SMEM_MAX
 
 
 @pytest.mark.parametrize("hss", [False, True])
@@ -150,7 +163,10 @@ def _f_walk(front, ni_pad, RU, RV, sperm, g):
     """The kernel's partition in numpy: per CTA tile, W's band from the
     depth split over the cluster's ranks (each rank's depth in chunks of kd;
     each segment of the band summed over the ranks in order), then the tile
-    started from Abb's entries."""
+    started from Abb's entries; in the W form W = Abi RU for the whole
+    front first (the GEMM before the launch), then each bm x bm tile
+    started from Abb's entries less W's gathered rows times RV's over depth
+    chunks of 32."""
     B, m, _ = front.shape
     nb = m - ni_pad
     kc = RU.shape[-1]
@@ -161,6 +177,18 @@ def _f_walk(front, ni_pad, RU, RV, sperm, g):
     for b in range(B):
         p = sperm[b]
         Abi, Abb = front[b, ni_pad:, :ni_pad], front[b, ni_pad:, ni_pad:]
+        if g.get("w"):
+            W = Abi @ RU[b]
+            for y in range(-(-nb // bm)):
+                rows = np.arange(y * bm, min(nb, (y + 1) * bm))
+                for x in range(nct):
+                    cols = np.arange(x * bn, min(nb, (x + 1) * bn))
+                    acc = -Abb[np.ix_(p[rows], p[cols])]
+                    for k0 in range(0, kc, kd):
+                        acc = acc + W[p[rows], k0:k0 + kd] \
+                            @ RV[b, p[cols], k0:k0 + kd].T
+                    S[b][np.ix_(rows, cols)] = -acc
+            continue
         for y in range(-(-nb // bm)):
             rows = np.arange(y * bm, min(nb, (y + 1) * bm))
             for x0 in range(0, nct, cs):
@@ -191,7 +219,10 @@ def _f_walk(front, ni_pad, RU, RV, sperm, g):
     (2, 24, 40, 8, 132), (2, 64, 96, 32, 132),
     (1, 512, 512, 48, 132), (1, 512, 512, 48, 4),
     (2, 256, 640, 48, 132), (3, 64, 192, 33, 132),
-    (3, 64, 192, 33, 4), (1, 40, 200, 1, 132)])
+    (3, 64, 192, 33, 4), (1, 40, 200, 1, 132),
+    # odd cluster tiles; the W form (many fronts, a cap no cluster keeps)
+    (5, 24, 136, 72, 132), (2, 40, 150, 70, 132), (300, 8, 140, 9, 132),
+    (1, 96, 300, 410, 132)])
 def test_kernel_f_partition_is_the_plain_schur_update(B, ni_pad, nb, kc, sms):
     rng = np.random.default_rng(nb + kc)
     front = rng.standard_normal((B, ni_pad + nb, ni_pad + nb))
@@ -433,3 +464,40 @@ def test_kernel_f_complex64_geometry_at_the_3d_caps(B, ni_pad, nb, kc):
     assert schur_geometry(B, ni_pad, nb, kc, itemsize=4)["kd"] == 16
     with pytest.raises(ValueError, match="no launch fits"):
         schur_geometry(B, ni_pad, nb, kc, itemsize=16)
+
+
+def _3d_shapes(hss):
+    A, _, shape = ht.helmholtz3d(48, k=10.0)
+    plan = ht.plan_factorization(A, ht.nested_dissection(shape, leafmax=100),
+                                 ht.SolverOptions(**COMP, hss=hss))
+    return [(bp.B, bp.ni_pad, bp.nb_pad, bp.rank_cap) for bp in plan.batches
+            if bp.compress and not bp.structured]
+
+
+@pytest.mark.parametrize("plan", ["128 low-rank", "128 structured kest=32",
+                                  "128 structured default caps",
+                                  "512 low-rank", "512 structured kest=32",
+                                  "512 structured default caps",
+                                  "48^3 low-rank", "48^3 structured"])
+def test_kernel_f_float64_computes_each_band_w_once(plan):
+    """At every compressed launch shape of the n=128 / 512 and 48^3 plans
+    (low-rank and structured), the chosen float64 form computes each row
+    band's W = Abi[p_band] RU once: whole rows (one CTA a band), one
+    thread block cluster a band (its CTAs split the depth and sum W once),
+    or the W form (one batched GEMM before the launch); none recomputes it
+    per column tile.  At 48^3's nine low-rank launches (caps 56-560) every
+    one takes the W form."""
+    n, config = plan.split(" ", 1)
+    if n == "48^3":
+        shapes = _3d_shapes(config == "structured")
+    else:
+        shapes = _f_shapes(int(n), config)
+    assert shapes
+    forms = []
+    for B, ni_pad, nb, kc in shapes:
+        g = _check_geometry(B, ni_pad, nb, kc)
+        assert g["w"] or g["nct"] == g["cs"]
+        forms.append("w" if g["w"] else "whole" if g["whole"] else
+                     "cluster")
+    if plan == "48^3 low-rank":
+        assert forms == ["w"] * 9

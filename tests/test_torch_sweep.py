@@ -30,10 +30,11 @@ import hsolve
 from hsolve_torch.interop import factorization_from_numpy
 from hsolve_torch.ops import arnoldi as AR
 from hsolve_torch.ops import dense as dk
-from hsolve_torch.ops.sweep import (WINDOW_ROWS, backward_split,
-                                    forward_cluster, forward_window_smem,
-                                    forward_windows,
-                                    level_forward, sweep_update)
+from hsolve_torch.ops.sweep import (PANEL, WIDE_CLUSTER, backward_split,
+                                    forward_cluster,
+                                    forward_wide_geometry, forward_windows,
+                                    level_forward, sweep_update,
+                                    wide_window_panels)
 
 torch.set_num_threads(1)
 jfactor = importlib.import_module("hsolve.factor")   # hsolve.factor is the function
@@ -116,43 +117,53 @@ def test_backward_step_matches_jax_per_level(k, dtype):
 def test_kernel_c_cluster_and_split_per_level(ni_pad, cs, split):
     """The forward step gives each 32-row panel a warp, 8 per CTA: one CTA
     per front up to 256 rows, a cluster of 2 at 512 and 4 at 1024, at most 8
-    (the portable size), one window; the backward step takes one CTA per 32
-    output rows."""
+    (the portable size), one window; one row more than 2048 takes the wide
+    form, one window on a cluster of 16; the backward step takes one CTA
+    per 32 output rows."""
     assert forward_cluster(ni_pad) == cs
     assert backward_split(ni_pad) == split
     assert forward_windows(ni_pad) == [(0, ni_pad, cs)]
-    if cs == 8:      # one row more takes a second window
-        assert forward_windows(ni_pad + 1) == [(0, 2048, 8), (2048, 2049, 1)]
+    if cs == 8:      # one row more takes the wide form
+        assert forward_windows(ni_pad + 1) == [(0, 2049, WIDE_CLUSTER)]
 
 
 @pytest.mark.parametrize("ni_pad,windows", [
-    (2049, [(0, 2048, 8), (2048, 2049, 1)]),
-    (4096, [(0, 2048, 8), (2048, 4096, 8)]),
-    (4424, [(0, 2048, 8), (2048, 4096, 8), (4096, 4424, 2)])])
+    (2049, [(0, 2049, 16)]),
+    (4096, [(0, 4096, 16)]),
+    (4424, [(0, 4424, 16)]),
+    (20608, [(0, 16384, 16), (16384, 20608, 16)])])
 def test_kernel_c_forward_windows_above_2048_rows(ni_pad, windows):
     """A front wider than one cluster's 2048 rows (helmholtz3d(48) exact has
-    a 4424-row top front) runs in windows of at most 2048 rows, each on its
-    own cluster, that cover the front in order."""
+    a 4424-row top front) takes the wide form: one window on a cluster of
+    16 CTAs up to 16384 rows (float64), beyond that windows of 16384 rows
+    that cover the front in order."""
     assert forward_windows(ni_pad) == windows
-    assert all(r1 - r0 <= WINDOW_ROWS for r0, r1, _ in windows)
+    assert all(r1 - r0 <= wide_window_panels(torch.float64) * PANEL
+               for r0, r1, _ in windows)
 
 
 @pytest.mark.parametrize("ni_pad", [2049, 4424, 20608, 49664, 100000])
 def test_kernel_c_window_shared_memory_does_not_grow(ni_pad):
-    """A window's substitution keeps only its own rows' solved values in
-    shared memory, so fronts far wider than 20,600 rows (float64) or 49,600
-    (float32), whose LU still fits on the card, take the same shared memory
-    as a front of 2049 rows, within a CTA's 227 KB: the solved values and
-    the staged diagonal blocks in the accumulator type (float64 for
-    float32, complex128 for complex64)."""
-    wins = forward_windows(ni_pad)
-    assert len(wins) == -(-ni_pad // WINDOW_ROWS)
-    assert wins[-1][1] == ni_pad
+    """The wide substitution keeps only its window's solved values in shared
+    memory, so fronts far wider than one window (16384 rows in float64 and
+    float32, 8192 in the complex types), whose LU still fits on the card,
+    take no more shared memory than one full window, within a CTA's 227 KB:
+    the window's solved values, the CTA's running values and one diagonal
+    inverse a warp, in the accumulator type (float64 for float32,
+    complex128 for complex64)."""
     for dtype, acc in ((torch.float32, 8), (torch.float64, 8),
                        (torch.complex64, 16), (torch.complex128, 16)):
-        assert forward_window_smem(dtype) <= 227 * 1024
-        assert forward_window_smem(dtype) == \
-            min(ni_pad, WINDOW_ROWS) * acc + 8 * 32 * 33 * acc
+        geo = forward_wide_geometry(ni_pad, 0, dtype)
+        wins = geo["windows"]
+        step = wide_window_panels(dtype) * PANEL
+        assert len(wins) == -(-ni_pad // step) and wins[-1][1] == ni_pad
+        full = wide_window_panels(dtype) * PANEL * acc
+        for (r0, r1, cs), warps, smem in zip(wins, geo["warps"],
+                                             geo["smem"]):
+            npw = -(-(r1 - r0) // PANEL)
+            assert smem == (npw + -(-npw // cs)) * PANEL * acc \
+                + warps * PANEL * PANEL * acc <= 227 * 1024
+            assert npw * PANEL * acc <= full
 
 
 @pytest.mark.parametrize("ni", [2049, 4424])
@@ -161,7 +172,9 @@ def test_windowed_substitution_is_the_lu_solve(ni):
     the CPU (per window: its substitution, then the update of the rows
     after it by its solved values; then back again for the upper
     triangle), gives ``lu_solve`` to 1e-12 relative on a diagonally
-    dominant front."""
+    dominant front; these fronts are one window of the wide form (the
+    order inside a window, by panels with inverted diagonal blocks, and
+    several windows: ``tests/test_torch_sweep_geometry.py``)."""
     g = torch.Generator().manual_seed(ni)
     D = torch.randn(ni, ni, generator=g, dtype=torch.float64) / ni ** 0.5 \
         + 4.0 * torch.eye(ni, dtype=torch.float64)
@@ -172,6 +185,7 @@ def test_windowed_substitution_is_the_lu_solve(ni):
     Lo = torch.tril(lu, -1) + torch.eye(ni, dtype=torch.float64)
     Up = torch.triu(lu)
     wins = forward_windows(ni)
+    assert wins == [(0, ni, WIDE_CLUSTER)]
     for r0, r1, _ in wins:
         z[r0:r1] = torch.linalg.solve_triangular(Lo[r0:r1, r0:r1], z[r0:r1, None],
                                                  upper=False)[:, 0]

@@ -18,12 +18,17 @@ import hsolve_torch as ht
 from hsolve_torch.interop import plan_to_torch
 from hsolve_torch.ops.assembly import (extend_add_geometry, extend_add_plain,
                                        valid_rows)
+from hsolve_torch.factor import DenseLevel
+from hsolve_torch.ops import dense as dk
 from hsolve_torch.ops.sweep import (E_MAX_CLUSTER, FORWARD_SIGNALS, PANEL,
-                                    PANEL_WARPS, SMEM_MAX, WINDOW_ROWS,
-                                    accumulator, forward_cluster,
-                                    forward_smem, forward_window_smem,
+                                    PANEL_WARPS, SMEM_MAX, WIDE_CLUSTER,
+                                    WINDOW_ROWS, accumulator, forward_cluster,
+                                    forward_smem, forward_wide_geometry,
+                                    forward_wide_launch,
+                                    forward_windows, level_forward_plain,
                                     lowrank_sweep_geometry,
-                                    lowrank_sweep_update_plain)
+                                    lowrank_sweep_update_plain,
+                                    wide_max_warps, wide_window_panels)
 
 torch.set_num_threads(1)
 
@@ -456,13 +461,14 @@ def test_kernel_e_complex64_partition_is_the_plain_update(B, R, Cc, kc, k):
 def test_kernel_c_forward_shared_memory_at_every_level(dtype):
     """Kernel C's forward step at every level width of the n=512 exact plan
     (the damped system's complex plan has the same widths) and at the
-    widest one-window front (2048 rows): its CTA's shared memory, the
+    widest one-cluster front (2048 rows): its CTA's shared memory, the
     solved values in the accumulator type, x in the value type, the panel
     warps' staged diagonal blocks (in the value type, but as complex128 for
     a complex64 front on a cluster) and the substitution's ready signals (a
     complex128 front of 2048 rows: 200,960 bytes; complex64 184,576), stays
-    within a CTA's 227 KB; so does a window's substitution of a wider
-    front."""
+    within a CTA's 227 KB; so does the wide substitution of a wider front
+    (its window's solved values and one inverse slot a warp) and its prep
+    CTA (one staged block a warp)."""
     plan = _plan(512, "exact")
     item = torch.empty((), dtype=dtype).element_size()
     acc = torch.empty((), dtype=accumulator(dtype)).element_size()
@@ -473,9 +479,243 @@ def test_kernel_c_forward_shared_memory_at_every_level(dtype):
             else item
         assert forward_smem(ni, dtype) == ni * (acc + item) \
             + warps * PANEL * 33 * dg + 4 * FORWARD_SIGNALS <= SMEM_MAX
-    window = WINDOW_ROWS * acc + PANEL_WARPS * PANEL * 33 * acc
-    assert window == forward_window_smem(dtype)
-    assert window + 4 * FORWARD_SIGNALS <= SMEM_MAX
+    for ni in (WINDOW_ROWS + 1, 4424, 7944, 20608):
+        geo = forward_wide_geometry(ni, 0, dtype)
+        for (r0, r1, cs), warps, smem in zip(geo["windows"], geo["warps"],
+                                             geo["smem"]):
+            npw = -(-(r1 - r0) // PANEL)
+            assert smem == (npw + -(-npw // cs)) * PANEL * acc \
+                + warps * PANEL * PANEL * acc <= SMEM_MAX
+    assert 8 * PANEL * 33 * acc <= SMEM_MAX  # a prep CTA: 8 warps' blocks
     if dtype.is_complex:
         assert forward_smem(WINDOW_ROWS, dtype) == \
             {torch.complex128: 200960, torch.complex64: 184576}[dtype]
+
+
+# ---------------------------------------------------------------------------
+# kernel C's forward step on fronts above 2048 rows (the wide form)
+# ---------------------------------------------------------------------------
+
+_WIDE = {}
+
+
+def _wide_fronts():
+    """``{(B, ni_pad, nb_pad)}`` of the dense levels wider than 2048 rows of
+    the exact plans that reach the wide form: helmholtz3d(64) (two fronts
+    of 3912 rows, the 7944-row root), helmholtz3d(48) (the 4424-row root,
+    which the low-rank and structured 48^3 plans keep exact, and the 2072-
+    and 2168-row fronts below it) and helmholtz2d(1026) (the 2056-row
+    root)."""
+    if not _WIDE:
+        for A, _, shape in (ht.helmholtz3d(64, k=10.0),
+                            ht.helmholtz3d(48, k=10.0),
+                            ht.helmholtz2d(1026, k=40.0)):
+            plan = ht.plan_factorization(
+                A, ht.nested_dissection(shape, leafmax=100),
+                ht.SolverOptions(swlevel=0))
+            _WIDE.update({(bp.B, bp.ni_pad, bp.nb_pad): None
+                          for bp in plan.batches if bp.ni_pad > WINDOW_ROWS})
+    return sorted(_WIDE)
+
+
+def test_kernel_c_wide_fronts_of_the_plans():
+    """The wide form's shapes: the plans' dense levels above 2048 rows."""
+    assert _wide_fronts() == [(1, 2056, 0), (1, 2168, 2216), (1, 4424, 0),
+                              (1, 7944, 0), (2, 2072, 2216), (2, 3912, 3976)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.complex128, torch.complex64])
+def test_kernel_c_wide_geometry_at_every_wide_front(dtype):
+    """At every dense front above 2048 rows of the plans (and the 4424-row
+    hand front of chip_smoke, nb 24), in each value type: one window (the
+    whole front), so three launches (prep, ``C[bnd] -= L x`` where nb > 0,
+    one substitution of both triangles); a cluster of 16 CTAs where the
+    card holds one (the residency is asked of the card for the first
+    window at 16, then at 8), else 8; as many warps as a CTA's panels
+    within the type's limit and shared memory (the window's solved values,
+    the CTA's running values, one inverse slot a warp) within 232,448
+    bytes."""
+    acc = torch.empty((), dtype=accumulator(dtype)).element_size()
+    for B, ni, nb in _wide_fronts() + [(1, 4424, 24)]:
+        asked = []
+
+        def active(npw, cs, held=1):
+            asked.append((npw, cs))
+            return held
+
+        npan = -(-ni // PANEL)
+        geo = forward_wide_geometry(ni, nb, dtype, active)
+        assert asked == [(npan, WIDE_CLUSTER)] and geo["resident"] == 1
+        assert geo["cs_max"] == WIDE_CLUSTER
+        assert geo["windows"] == [(0, ni, WIDE_CLUSTER)]
+        assert geo["launches"] == (3 if nb else 2)
+        warps, smem = geo["warps"][0], geo["smem"][0]
+        per = -(-npan // WIDE_CLUSTER)
+        fixed, slot = (npan + per) * PANEL * acc, PANEL * PANEL * acc
+        assert warps == min(per, wide_max_warps(dtype),
+                            (SMEM_MAX - fixed) // slot) >= 1
+        assert smem == fixed + warps * slot <= SMEM_MAX
+        # a card that holds no cluster of 16 takes 8; of neither, raises
+        asked.clear()
+        geo8 = forward_wide_geometry(
+            ni, nb, dtype, lambda npw, cs: asked.append(cs) or int(cs <= 8))
+        assert asked == [16, 8] and geo8["cs_max"] == 8
+        assert geo8["windows"] == [(0, ni, 8)]
+        with pytest.raises(RuntimeError):
+            forward_wide_geometry(ni, nb, dtype, lambda npw, cs: 0)
+        # the dinv form asks nothing: prep and two row products
+        assert forward_wide_geometry(ni, nb, dtype, active, lu=False)[
+            "launches"] == (3 if nb else 2)
+
+
+@pytest.mark.parametrize("ni_pad", [20608, 49664, 100000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_kernel_c_wide_windows_beyond_one_window(ni_pad, dtype):
+    """A front wider than one window (16384 rows in float64 and float32,
+    8192 in the complex types) runs in windows that cover it in order, each
+    within a CTA's shared memory: two substitution launches a window and
+    the updates between."""
+    geo = forward_wide_geometry(ni_pad, 24, dtype)
+    wins = geo["windows"]
+    step = wide_window_panels(dtype) * PANEL
+    assert [w[:2] for w in wins] == [(r0, min(r0 + step, ni_pad))
+                                    for r0 in range(0, ni_pad, step)]
+    n = len(wins)
+    assert geo["launches"] == 2 + 2 * n + 2 * (n - 1)
+    assert all(s <= SMEM_MAX for s in geo["smem"])
+    for (r0, r1, cs), warps in zip(wins, geo["warps"]):
+        npw = -(-(r1 - r0) // PANEL)
+        assert forward_wide_launch(npw, dtype)[:2] == (cs, warps)
+    # at a cluster of 8 too (a card that holds none of 16)
+    for r0, r1, cs in forward_windows(ni_pad, dtype, 8):
+        assert cs == 8 and forward_wide_launch(-(-(r1 - r0) // PANEL), dtype,
+                                               8)[2] <= SMEM_MAX
+
+
+def _owners(npw, cs, warps):
+    """The wide kernel's ownership, as ``wide_solve_kernel`` lays it out:
+    panel t of a window to CTA t % cs as its m-th panel (m = t // cs, its
+    running values at row m of the CTA's zs) and, there, to warp m % warps:
+    ``{(cta, warp): [(t, m), ...]}`` in each warp's solve order."""
+    out = {}
+    for rank in range(cs):
+        mine = -(-(npw - rank) // cs)
+        for w in range(warps):
+            out[(rank, w)] = [(rank + cs * m, m)
+                              for m in range(w, mine, warps)]
+    return out
+
+
+@pytest.mark.parametrize("npw", [65, 123, 139, 249, 256, 512])
+def test_kernel_c_wide_panels_owned_once(npw):
+    """Every panel of a window is owned by exactly one warp of one CTA, and
+    a CTA's panels' running values by distinct rows of its zs, in every
+    value type and at clusters of 16 and 8."""
+    for dtype in (torch.float64, torch.complex128):
+        if npw > wide_window_panels(dtype):
+            continue
+        for cs_max in (WIDE_CLUSTER, 8):
+            cs, warps, _ = forward_wide_launch(npw, dtype, cs_max)
+            own = _owners(npw, cs, warps)
+            flat = sorted(t for ts in own.values() for t, _ in ts)
+            assert flat == list(range(npw))
+            for rank in range(cs):
+                rows = sorted(m for w in range(warps)
+                              for _, m in own[(rank, w)])
+                assert rows == list(range(len(rows)))
+                assert len(rows) <= -(-npw // cs)
+
+
+def _inv_lower(blk):
+    """The prep kernel's inverse of a unit lower block: lane j substitutes
+    the identity's column j, row by row."""
+    n = blk.shape[0]
+    X = np.zeros_like(blk)
+    for j in range(n):
+        for i in range(n):
+            s = 1.0 if i == j else 0.0
+            for c in range(i):
+                s -= blk[i, c] * X[c, j]
+            X[i, j] = s
+    return X
+
+
+def _inv_upper(blk):
+    n = blk.shape[0]
+    X = np.zeros_like(blk)
+    for j in range(n):
+        for i in range(n - 1, -1, -1):
+            s = 1.0 if i == j else 0.0
+            for c in range(i + 1, n):
+                s -= blk[i, c] * X[c, j]
+            X[i, j] = s * (1.0 / blk[i, i])
+    return X
+
+
+def _wide_model(lu, perm, x, panel, win):
+    """The wide form's substitution order in numpy: z = x[perm]; per window
+    of ``win`` panels and per panel P in it (in the direction's order), P's
+    running values take the updates of the window's earlier panels in
+    order, then y_P = inv(diagonal block) z_P with the block's inverse
+    formed as the prep kernel forms it (identity past the last row); after
+    a window, the rows after it (forward) or before it (backward) take the
+    window's values, as window_update_kernel applies them."""
+    ni = lu.shape[0]
+    npan = -(-ni // panel)
+    pad = npan * panel
+    A = np.eye(pad)
+    A[:ni, :ni] = lu
+    Lo = np.tril(A, -1) + np.eye(pad)
+    Up = np.triu(A)
+    z = np.zeros(pad)
+    z[:ni] = x[perm]
+    blk = lambda M, p, q: M[p * panel:(p + 1) * panel, q * panel:(q + 1) * panel]
+    inv = {(0, p): _inv_lower(blk(Lo, p, p)) for p in range(npan)}
+    inv.update({(1, p): _inv_upper(blk(Up, p, p)) for p in range(npan)})
+    wins = [(w0, min(w0 + win, npan)) for w0 in range(0, npan, win)]
+    for d, M in ((0, Lo), (1, Up)):
+        for w0, w1 in (wins if d == 0 else wins[::-1]):
+            order = list(range(w0, w1)) if d == 0 else list(range(w1 - 1, w0 - 1, -1))
+            for i, P in enumerate(order):
+                zp = z[P * panel:(P + 1) * panel]
+                for p in order[:i]:
+                    zp -= blk(M, P, p) @ z[p * panel:(p + 1) * panel]
+                z[P * panel:(P + 1) * panel] = inv[(d, P)] @ zp
+            rows = slice(w1 * panel, pad) if d == 0 else slice(0, w0 * panel)
+            z[rows] -= M[rows, w0 * panel:w1 * panel] @ z[w0 * panel:w1 * panel]
+    return z[:ni]
+
+
+@pytest.mark.parametrize("ni,panel,win", [(40, 8, 100), (77, 8, 3),
+                                          (130, 16, 4), (96, 32, 1),
+                                          (100, 32, 2)])
+def test_kernel_c_wide_substitution_order_is_the_lu_solve(ni, panel, win):
+    """The wide form's order (blocks by panels, each diagonal block's
+    inverse, windows with the updates between them), at small panel and
+    window sizes, gives the plain version's forward step and the JAX
+    package's ``lu_solve`` (``hsolve/ops/dense.py``) to 1e-12 in float64,
+    on a front with partial pivoting (growth as a random matrix gives)."""
+    from hsolve.ops import dense as jdense
+
+    rng = np.random.default_rng(ni + panel + win)
+    D = rng.standard_normal((ni, ni)) + 2.0 * np.eye(ni)
+    lu, perm = dk.lu_factor(torch.as_tensor(D)[None])
+    lu_n, perm_n = lu[0].numpy(), perm[0].numpy()
+    x = rng.standard_normal(ni)
+    got = _wide_model(lu_n, perm_n, x, panel, win)
+    want = np.asarray(jdense.lu_solve(lu_n[None], perm_n[None],
+                                      x[None, :, None]))[0, :, 0]
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    # the plain version's step on the same front (no boundary)
+    N = ni
+    C = torch.zeros(N + 1, 1, dtype=torch.float64)
+    ids = torch.as_tensor(rng.permutation(N)[:ni].astype(np.int32))
+    C[ids.long(), 0] = torch.as_tensor(x)
+    lev = DenseLevel(lu=lu, perm=perm,
+                     L=torch.zeros(1, 0, ni, dtype=torch.float64),
+                     R=torch.zeros(1, ni, 0, dtype=torch.float64),
+                     int_ids=ids[None], bnd_ids=torch.zeros(1, 0,
+                                                           dtype=torch.int32))
+    plain = level_forward_plain(C, lev, N)[ids.long(), 0].numpy()
+    assert np.abs(got - plain).max() <= 1e-12 * np.abs(plain).max()

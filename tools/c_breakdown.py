@@ -15,12 +15,17 @@ and float32) in the lu form, and at the leaf and the top level in the dinv
 form too: each copy, the wrapper, the library sequence chip_smoke times
 (gather, bmm, ``index_put_``, ``lu_solve`` or the dinv product,
 ``index_put_``) and the plain version, device only (launches queued behind
-a sleep kernel, between CUDA events).  Run from a tree's root; it imports
-only the tree's public wrappers, so it runs unchanged in an earlier tree
-copied beside it:
+a sleep kernel, between CUDA events).  With ``--wide`` it reads instead the fronts wider than 2048 rows
+the plans take (helmholtz2d(1026)'s 2056-row root, helmholtz3d(64)'s two
+3912-row fronts with their 3976 boundary rows and its 7944-row root, and
+chip_smoke's 4424-row hand front, the helmholtz3d(48) exact root's width),
+made by hand (a well-conditioned pivot block, LU with pivoting), each type:
+the wrapper, the library sequence, the plain version and the bound,
+device only.  Run from a tree's root; it imports only the tree's public
+wrappers, so it runs unchanged in an earlier tree copied beside it:
 
     python3 tools/c_breakdown.py [--dtypes complex128 ...] [--no-copies]
-                                 [--out DIR]
+                                 [--wrapper-only] [--wide] [--out DIR]
 """
 
 import argparse
@@ -39,6 +44,7 @@ sys.path.insert(0, ROOT)
 
 import hsolve_torch as ht  # noqa: E402
 from hsolve_torch import kernels  # noqa: E402
+from hsolve_torch.factor import DenseLevel  # noqa: E402
 from hsolve_torch.ops import dense as dk  # noqa: E402
 from hsolve_torch.ops.sweep import (forward_windows, level_forward,  # noqa: E402
                                     level_forward_plain)
@@ -254,6 +260,82 @@ def run(libs, dname, out_rows):
     torch.cuda.empty_cache()
 
 
+# (B, ni_pad, nb_pad) of the fronts above 2048 rows: helmholtz2d(1026)'s
+# root, chip_smoke's hand front, helmholtz3d(64)'s two levels
+WIDE_SHAPES = ((1, 2056, 0), (1, 4424, 24), (2, 3912, 3976), (1, 7944, 0))
+
+
+def wide_level(dev, dt, B, ni, nb, N, seed):
+    """``B`` dense fronts of ``ni`` interior and ``nb`` boundary rows made by
+    hand: well-conditioned pivot blocks (LU with pivoting), random Gauss
+    transforms, distinct ids below N."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = torch.randn(B, ni, ni, dtype=dt, device=dev, generator=g) / ni ** 0.5 \
+        + 2.0 * torch.eye(ni, dtype=dt, device=dev)
+    lu, perm = dk.lu_factor(D)
+    del D
+    ids = torch.randperm(N, device=dev, generator=g)[:B * (ni + nb)].to(
+        torch.int32).reshape(B, ni + nb)
+    return DenseLevel(lu=lu, perm=perm,
+                      L=torch.randn(B, nb, ni, dtype=dt, device=dev,
+                                    generator=g),
+                      R=torch.zeros(B, ni, nb, dtype=dt, device=dev),
+                      int_ids=ids[:, :ni].contiguous(),
+                      bnd_ids=ids[:, ni:].contiguous())
+
+
+def run_wide(dname, out_rows):
+    dev = torch.device("cuda", 0)
+    dt = getattr(torch, dname)
+    fm = 4 if dt.is_complex else 1
+    for B, ni, nb in WIDE_SHAPES:
+        N = B * (ni + nb) + 64
+        lev = wide_level(dev, dt, B, ni, nb, N, seed=ni)
+        g = torch.Generator(device=dev).manual_seed(1)
+        C0 = torch.randn(N + 1, 1, dtype=dt, device=dev, generator=g)
+        C0[N] = 0.0
+        e = C0.element_size()
+        int_l = lev.int_ids.long().reshape(-1)
+        bnd_l = lev.bnd_ids.long().reshape(-1)
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     (lev.lu, lev.L, lev.int_ids, lev.bnd_ids)) \
+            + lev.perm.numel() * 8 + 2 * B * ni * e + 2 * B * nb * e
+        flops = 2 * fm * (lev.lu.numel() + lev.L.numel())
+        row = {"dtype": dname, "wide": True, "B": B, "ni": ni, "nb": nb,
+               "bound_ms": max(nbytes / HBM_BPS, flops / PEAK[dname]) * 1e3}
+        ref = level_forward_plain(C0.clone(), lev, N)
+        got = level_forward(C0.clone(), lev, N)
+        scale = float(ref[int_l].abs().max())
+        row["max_abs_err"] = float((got - ref).abs().max())
+        row["rel_interior"] = float((got[int_l] - ref[int_l]).abs().max()) \
+            / scale
+        scratch = C0.clone()
+        row["ms"] = queued_ms(lambda: level_forward(scratch, lev, N))
+
+        def library():
+            x = scratch[lev.int_ids]
+            scratch.index_put_((bnd_l,), -(lev.L @ x).reshape(-1, 1),
+                               accumulate=True)
+            scratch.index_put_((int_l,), dk.lu_solve(lev.lu, lev.perm, x)
+                               .reshape(-1, 1))
+
+        row["library_ms"] = queued_ms(library)
+        if row["library_ms"] is None:
+            row["library_ms"], row["library_hb"] = events_ms(library), True
+        row["plain_ms"] = events_ms(lambda: level_forward_plain(
+            scratch, lev, N))
+        out_rows.append(row)
+        print(f"{dname} wide [{B}, {ni}, {nb}]: wrapper {fmt(row['ms'])} ms, "
+              f"library {fmt(row['library_ms'])}"
+              + (" (host's rate)" if row.get("library_hb") else "")
+              + f", plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}, interior rel err "
+              f"{row['rel_interior']:.3e}, max abs err "
+              f"{row['max_abs_err']:.3e}", flush=True)
+        del lev, scratch, ref, got
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtypes", nargs="+",
@@ -263,6 +345,12 @@ def main():
                     help="a directory for c_breakdown.json")
     ap.add_argument("--no-copies", action="store_true",
                     help="build and read the kernel as it is only")
+    ap.add_argument("--wrapper-only", action="store_true",
+                    help="build no copy: read the wrapper, the library "
+                    "sequence and the plain version")
+    ap.add_argument("--wide", action="store_true",
+                    help="read the fronts above 2048 rows (WIDE_SHAPES) "
+                    "instead of the n=512 plan's levels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("c_breakdown: needs an NVIDIA GPU")
@@ -271,15 +359,22 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
-    libs, report = build(not args.no_copies)
-    for line in ptxas_lines(report):
-        print(line, flush=True)
     rows = []
-    for dname in args.dtypes:
-        run(libs, dname, rows)
+    if args.wide:
+        kernels.lib()
+        for dname in args.dtypes:
+            run_wide(dname, rows)
+    else:
+        libs, report = ({}, "") if args.wrapper_only else \
+            build(not args.no_copies)
+        for line in ptxas_lines(report):
+            print(line, flush=True)
+        for dname in args.dtypes:
+            run(libs, dname, rows)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "c_breakdown.json"), "w") as f:
+        name = "c_breakdown_wide.json" if args.wide else "c_breakdown.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump({"card": card, "tree": ROOT, "rows": rows}, f)
     return 0
 
